@@ -1,0 +1,402 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch port runs on an NVIDIA card.
+
+    python3 chip_smoke.py
+
+Needs one CUDA device, ``nvcc`` and ``nvidia-smi``; exits non-zero, with no
+result line, when any of them or the port's package is missing. Phases:
+
+1. The card: ``nvidia-smi`` name and power limit, torch and CUDA versions.
+2. Build: every kernel of the slice compiled from ``deeplearning4j_tpu_torch/
+   csrc`` (one ``nvcc`` per source, in parallel).
+3. Kernels: K1 (single-layer LSTM forward) and K4 (stacked wavefront
+   forward) against their plain PyTorch versions on the card, T=64,
+   B in {1, 16, 256}, H=256, float32 and bfloat16 (tolerance on every output:
+   f32 1e-4, bf16 3e-2), with CUDA-event medians of the kernel, the plain
+   version and cuDNN's ``torch.nn.LSTM`` computing the same function, and
+   the least time the card could take (bound).
+4. Slice: the bundled TextGenerationLSTM served by ``InferenceServer`` on
+   the card: held-out /predict accuracy, concurrent mixed-size /predict
+   against unbatched forwards, greedy /generate against the full-prefix
+   path, ``rnn_time_step`` in chunks against ``output``. Kernel launch
+   counts are reset right before this phase and read right after it.
+
+Prints, before the last line, one JSON line of per-kernel numbers and the
+card's name and power limit; the last line is
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+Detailed results also go to ``chiprun_out/chip_smoke.json``.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+import warnings
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+F32_TOL, BF16_TOL = 1e-4, 3e-2
+HBM_BYTES_PER_S = 3.35e12                      # H100 SXM data sheet
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+HELD_OUT_TOP1, TOP1_SLACK = 0.2979, 0.02      # zoo manifest, textgenlstm
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    return out[0].strip()
+
+
+def time_ms(fn, reps: int, rounds: int = 5, warmup: int = 2) -> float:
+    """Median over ``rounds`` of the CUDA-event time of ``reps`` calls."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times)
+
+
+def bound(kernel: str, T: int, B: int, H: int, dtype: str):
+    """Least time for the work: every input read once and every output
+    written once over HBM, or the products' operations at the card's peak
+    for the stream type, whichever is larger."""
+    es = 2 if dtype == "bfloat16" else 4
+    G = 4 * H
+    if kernel == "lstm_fwd":
+        nbytes = es * (T * B * G + H * G + 2 * B * H + T * B * H + B * H)
+        flops = 2.0 * T * B * H * G
+    else:
+        nbytes = es * (T * B * G + 3 * H * G + G + 4 * B * H + T * B * H
+                       + 3 * B * H)
+        flops = 3 * 2.0 * T * B * H * G
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def kernel_inputs(T, B, H, dtype, seed):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, scale):
+        return (torch.randn(*shape, generator=g, device="cuda")
+                * scale).to(dtype)
+    s = H ** -0.5
+    return {"gate_in": rnd(T, B, 4 * H, scale=0.5), "rw1": rnd(H, 4 * H, scale=s),
+            "w2": rnd(H, 4 * H, scale=s), "b2": rnd(4 * H, scale=0.1),
+            "rw2": rnd(H, 4 * H, scale=s), "h01": rnd(B, H, scale=0.5),
+            "c01": rnd(B, H, scale=0.5), "h02": rnd(B, H, scale=0.5),
+            "c02": rnd(B, H, scale=0.5)}
+
+
+def cudnn_lstm(kernel, c):
+    """torch.nn.LSTM (cuDNN) set up to compute the kernel's function on the
+    same inputs: gate_in enters through an identity-permutation input
+    weight (IFOG columns to PyTorch's IFGO rows). Timed only, never used by
+    the port."""
+    import torch
+    H = c["h01"].shape[-1]
+    perm = torch.cat([torch.arange(0, 2 * H), torch.arange(3 * H, 4 * H),
+                      torch.arange(2 * H, 3 * H)]).cuda()
+    layers = 1 if kernel == "lstm_fwd" else 2
+    lstm = torch.nn.LSTM(4 * H, H, num_layers=layers, device="cuda",
+                         dtype=c["gate_in"].dtype)
+    with torch.no_grad():
+        eye = torch.eye(4 * H, device="cuda", dtype=c["gate_in"].dtype)
+        lstm.weight_ih_l0.copy_(eye[perm])
+        lstm.bias_ih_l0.zero_()
+        lstm.bias_hh_l0.zero_()
+        lstm.weight_hh_l0.copy_(c["rw1"][:, perm].t())
+        if layers == 2:
+            lstm.weight_ih_l1.copy_(c["w2"][:, perm].t())
+            lstm.bias_ih_l1.copy_(c["b2"][perm])
+            lstm.bias_hh_l1.zero_()
+            lstm.weight_hh_l1.copy_(c["rw2"][:, perm].t())
+    lstm.flatten_parameters()
+    if layers == 1:
+        state = (c["h01"][None], c["c01"][None])
+    else:
+        state = (torch.stack([c["h01"], c["h02"]]),
+                 torch.stack([c["c01"], c["c02"]]))
+
+    def run():
+        with torch.no_grad():
+            return lstm(c["gate_in"], state)
+    return run
+
+
+def kernel_case(kernel, T, B, H, dtype_name, seed=0, plain_reps=2):
+    """One kernel at one shape: error against the plain version on the same
+    inputs, and the four times. Launches made here are not the main
+    path's; the caller resets the counters before the main path."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import lstm_cuda
+    dtype = getattr(torch, dtype_name)
+    c = kernel_inputs(T, B, H, dtype, seed)
+    if kernel == "lstm_fwd":
+        args = [c[k] for k in ("gate_in", "rw1", "h01", "c01")]
+        wrapper, plain = lstm_cuda.fused_lstm_sequence, lstm_cuda.lstm_sequence_plain
+    else:
+        args = [c[k] for k in ("gate_in", "rw1", "w2", "b2", "rw2", "h01",
+                               "c01", "h02", "c02")]
+        wrapper, plain = (lstm_cuda.fused_lstm2_sequence,
+                          lstm_cuda.lstm2_sequence_plain)
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    want = plain(*args)
+    err = max((g.float() - w.float()).abs().max().item()
+              for g, w in zip(got, want))
+    tol = F32_TOL if dtype_name == "float32" else BF16_TOL
+    if not err <= tol:
+        raise AssertionError(f"{kernel} T={T} B={B} H={H} {dtype_name}: max "
+                             f"abs err {err} > {tol}")
+    row = {"kernel": kernel, "T": T, "B": B, "H": H, "dtype": dtype_name,
+           "max_abs_err": err, "tol": tol,
+           "plan": lstm_cuda.last_plan(kernel),
+           "ms": time_ms(lambda: wrapper(*args), reps=10),
+           "plain_ms": time_ms(lambda: plain(*args), reps=plain_reps,
+                               rounds=3)}
+    row["bound_ms"], row["bound_by"] = bound(kernel, T, B, H, dtype_name)
+    try:
+        lib = cudnn_lstm(kernel, c)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = lib()
+        if caught:      # e.g. cuDNN re-packing weights on every call
+            row["library_note"] = str(caught[0].message)[:200]
+        lib_err = (out[0].float() - want[0].float()).abs().max().item()
+        row["library_ms"] = time_ms(lib, reps=10)
+        row["library_max_abs_err"] = lib_err
+    except RuntimeError as e:       # cuDNN refuses this type/shape
+        row["library_ms"], row["library_note"] = None, str(e)[:200]
+    return row
+
+
+def fmt(row):
+    lib = ("n/a" if row["library_ms"] is None
+           else f"{row['library_ms']:.4f}")
+    if "library_note" in row:
+        lib += "*"
+    return (f"{row['kernel']:9s} T={row['T']} B={row['B']:<4d} H={row['H']} "
+            f"{row['dtype']:8s} err {row['max_abs_err']:.3g} (tol "
+            f"{row['tol']:g})  kernel {row['ms']:.4f} ms  plain "
+            f"{row['plain_ms']:.4f} ms  cudnn {lib} ms  bound "
+            f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
+
+
+def slice_phase(card):
+    """Serve the bundled TextGenerationLSTM on the card; every check raises
+    on failure. Returns the measured numbers."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.serving import (DecodeEngine,
+                                                  InferenceClient,
+                                                  InferenceServer)
+    from deeplearning4j_tpu_torch.serving.decode import generate_naive
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+    from deeplearning4j_tpu_torch.zoo.corpus import corpus_windows
+
+    (xtr, _), (xte, yte), vocab = corpus_windows(T=64)
+    net = TextGenerationLSTM(
+        total_unique_characters=len(vocab)).init_pretrained(device="cuda")
+    srv = InferenceServer(net, port=0, max_latency_ms=2.0,
+                          decode_engine=DecodeEngine(net, slots=8,
+                                                     max_len=256)).start()
+    cli = InferenceClient(f"http://127.0.0.1:{srv.port}")
+    res = {"card": card}
+    try:
+        ops.reset_launch_counts()
+        # held-out next-char accuracy through /predict; the first request
+        # also pays the card's first-use costs, so it is sent twice
+        accs, res["predict_heldout_ms"] = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            probs = cli.predict(xte)
+            res["predict_heldout_ms"].append(
+                round((time.perf_counter() - t0) * 1e3, 3))
+            if probs.shape != (len(xte), 64, len(vocab)) \
+                    or not np.isfinite(probs).all():
+                raise AssertionError(f"/predict returned {probs.shape}")
+            accs.append(float((probs.argmax(-1) == yte.argmax(-1)).mean()))
+        acc = res["heldout_top1"] = accs[0]
+        print(f"slice: /predict held-out top-1 {acc:.4f} (manifest "
+              f"{HELD_OUT_TOP1} +- {TOP1_SLACK}); {len(xte)} windows x 64 "
+              f"steps in {res['predict_heldout_ms']} ms (first, second) "
+              f"[{card}]", flush=True)
+        if abs(acc - HELD_OUT_TOP1) > TOP1_SLACK or accs[1] != acc:
+            raise AssertionError(f"held-out top-1 {accs} off the manifest")
+        after_predict = ops.launch_counts()
+
+        # concurrent mixed-size requests against one unbatched forward each,
+        # twice: the first round meets new bucket shapes
+        sizes = [1, 3, 7, 2, 5, 16, 4, 9]
+        starts = np.cumsum([0] + sizes)
+        reqs = [xtr[a:b] for a, b in zip(starts[:-1], starts[1:])]
+
+        def timed_predict(x):
+            t = time.perf_counter()
+            out = cli.predict(x)
+            return out, (time.perf_counter() - t) * 1e3
+        res["mixed_predict_ms"] = []
+        worst = 0.0
+        for _ in range(2):
+            with ThreadPoolExecutor(len(reqs)) as pool:
+                answers = list(pool.map(timed_predict, reqs))
+            for x, (out, _) in zip(reqs, answers):
+                want = net.output(x, bucketed=False).float().cpu().numpy()
+                worst = max(worst, float(np.abs(out - want).max()))
+            res["mixed_predict_ms"].append([round(ms, 3) for _, ms in answers])
+        res["mixed_predict_max_abs_err"] = worst
+        print(f"slice: {len(reqs)} concurrent /predict of sizes {sizes}: max "
+              f"abs err vs unbatched {worst:.3g}; latencies first round "
+              f"{res['mixed_predict_ms'][0]} ms, second "
+              f"{res['mixed_predict_ms'][1]} ms [{card}]", flush=True)
+        if worst > 1e-5:
+            raise AssertionError("batched /predict disagrees with unbatched")
+
+        # greedy /generate against the full-prefix forward path
+        text_ids = xte.argmax(-1)
+        prompts = [list(map(int, text_ids[i, :16])) for i in (0, 5, 10)]
+
+        def timed_generate(p):
+            t = time.perf_counter()
+            out = cli.generate(p, max_new_tokens=32)["tokens"]
+            return out, time.perf_counter() - t
+        res["generate_tokens_per_s"], res["generate_request_s"] = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(len(prompts)) as pool:
+                gens = list(pool.map(timed_generate, prompts))
+            wall = time.perf_counter() - t0
+            res["generate_tokens_per_s"].append(
+                round(32 * len(prompts) / wall, 2))
+            res["generate_request_s"].append([round(s, 4) for _, s in gens])
+            for p, (toks, _) in zip(prompts, gens):
+                want = generate_naive(net, p, 32)["tokens"]
+                if toks != want:
+                    raise AssertionError(
+                        f"/generate {toks} != full-prefix {want}")
+        text = "".join(vocab[t] for t in gens[0][0])
+        print(f"slice: {len(prompts)} concurrent greedy /generate x 32 tokens "
+              f"match the full-prefix path (twice); tokens/s "
+              f"{res['generate_tokens_per_s']}, request seconds "
+              f"{res['generate_request_s']} [{card}]; sample {text!r}",
+              flush=True)
+
+        # stateful rnn_time_step in chunks against the whole-window output
+        net.rnn_clear_previous_state()
+        t0 = time.perf_counter()
+        chunks = [net.rnn_time_step(xte[:, i:i + 16]) for i in range(0, 64, 16)]
+        torch.cuda.synchronize()
+        res["rnn_time_step_ms"] = (time.perf_counter() - t0) * 1e3
+        stepped = torch.cat(chunks, dim=1).float().cpu().numpy()
+        full = net.output(xte).float().cpu().numpy()
+        res["rnn_time_step_max_abs_err"] = float(np.abs(stepped - full).max())
+        print(f"slice: rnn_time_step in 4 chunks vs output: max abs err "
+              f"{res['rnn_time_step_max_abs_err']:.3g}, "
+              f"{res['rnn_time_step_ms']:.1f} ms [{card}]", flush=True)
+        if res["rnn_time_step_max_abs_err"] > 1e-4:
+            raise AssertionError("rnn_time_step disagrees with output")
+        counts = ops.launch_counts()
+    finally:
+        srv.stop()
+    res["launches"] = counts
+    res["launches_after_predict"] = after_predict
+    print(f"slice: kernel launches after the held-out /predict "
+          f"{after_predict}, after the whole phase {counts}", flush=True)
+    if not (after_predict.get("lstm2_fwd", 0) > 0
+            and counts.get("lstm2_fwd", 0) > after_predict["lstm2_fwd"]
+            and counts.get("lstm_fwd", 0) > after_predict.get("lstm_fwd", 0)):
+        raise AssertionError(f"main path missed a kernel: {counts}")
+    res["stats"] = {k: v for k, v in srv.stats().items() if k != "decode"}
+    return res
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    try:
+        from deeplearning4j_tpu_torch.ops import lstm_cuda
+    except ImportError as e:
+        print(f"chip_smoke: the port's package is missing: {e}",
+              file=sys.stderr)
+        return 2
+    card = card_line()
+    print(f"card: {card}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    built = lstm_cuda.build_kernels()
+    print(f"build: {time.perf_counter() - t0:.1f} s wall for "
+          f"{sorted(built)}", flush=True)
+    for stem, info in built.items():
+        regs = [ln.strip() for ln in info["ptxas"].splitlines()
+                if "registers" in ln or "spill" in ln]
+        print(f"build: {stem} {info['seconds']:.1f} s; " + " | ".join(regs),
+              flush=True)
+
+    rows = []
+    for kernel in ("lstm_fwd", "lstm2_fwd"):
+        for dtype in ("float32", "bfloat16"):
+            for B in (1, 16, 256):
+                rows.append(kernel_case(kernel, 64, B, 256, dtype))
+                print("kernel: " + fmt(rows[-1]) + f" [{card}]", flush=True)
+
+    res = slice_phase(card)
+
+    # the main path's shapes: /predict of the 15 held-out windows (bucket
+    # 16, T=64) runs K4; rnn_time_step in 16-step chunks of 15 rows runs K1
+    main_shapes = {"lstm2_fwd": (64, 16), "lstm_fwd": (16, 15)}
+    replaces = {
+        "lstm_fwd": "deeplearning4j_tpu/ops/lstm_pallas.py:295",
+        "lstm2_fwd": "deeplearning4j_tpu/ops/lstm_pallas.py:634"}
+    entries = []
+    for kernel, (T, B) in main_shapes.items():
+        row = kernel_case(kernel, T, B, 256, "float32", seed=1)
+        print("main-path shape: " + fmt(row) + f" [{card}]", flush=True)
+        entries.append({
+            "name": kernel, "route": "cuda",
+            "source": f"deeplearning4j_tpu_torch/csrc/{kernel}.cu",
+            "replaces": replaces[kernel],
+            "launches": res["launches"].get(kernel, 0),
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+        rows.append(row)
+
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(
+        {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+         "kernel_rows": rows, "slice": res, "kernels": entries}, indent=1))
+    print(json.dumps({"kernels": entries}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

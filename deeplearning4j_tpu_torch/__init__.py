@@ -1,0 +1,11 @@
+"""PyTorch/CUDA port of deeplearning4j_tpu for NVIDIA Hopper cards.
+
+The JAX package beside it is the reference. This package imports neither
+``jax`` nor ``deeplearning4j_tpu``; its entry points run on CUDA unless the
+caller passes ``device="cpu"``. Ported so far: inference serving of
+sequential networks with LSTM layers (the bundled TextGenerationLSTM),
+through hand-written CUDA kernels for the fused LSTM forward.
+"""
+
+from deeplearning4j_tpu_torch.models.multi_layer_network import (  # noqa: F401
+    MultiLayerNetwork, params_from_numpy)

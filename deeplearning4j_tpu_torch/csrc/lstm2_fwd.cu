@@ -1,0 +1,187 @@
+// Two stacked LSTMs on a wavefront, inference mode.
+//
+// Replaces: deeplearning4j_tpu/ops/lstm_pallas.py::_fwd2_kernel with
+// save_reserve=False, reached through _fwd2_call (public entry
+// fused_lstm2_sequence). Computes the layer-2 hidden sequence hs2
+// (T, B, H) and the final h1T, c1T, c2T from gate_in1 (T, B, 4H) =
+// x @ W1 + b1 and the weights RW1, W2, b2, RW2.
+//
+// What bounds it on the card: like the single layer, a chain of T + 1
+// dependent steps separated by grid barriers -- latency at serving
+// shapes, f32 FMA work of the three products at large B.
+//
+// Design: iteration s runs layer-1 step s and layer-2 step s - 1. Both
+// read only h1_{s-1} and h2_{s-2}, which the previous iteration wrote, so
+// one grid barrier per iteration serves both layers: T + 1 barriers
+// instead of 2T. Iteration T runs layer 2 alone (no shifted streams and
+// no epilogue outside the kernel). Block (u, v) owns hidden units
+// [u * hsz, u * hsz + hsz) of BOTH layers and a slice of batch rows, and
+// keeps its columns of RW1, W2 and RW2 in shared memory for the whole
+// sequence. h1 goes through a two-slot exchange buffer; h2 is written
+// straight into hs2, which the next iteration reads. c1 and c2 stay with
+// their owning thread, in registers (float32 scratch when a block has more
+// than one pass of rows).
+#include "lstm_common.cuh"
+
+using namespace lstm;
+
+template <typename T>
+__global__ void __launch_bounds__(MAX_THREADS)
+    lstm2_fwd_kernel(const T* __restrict__ gate_in1, const T* __restrict__ rw1,
+                     const T* __restrict__ w2, const T* __restrict__ b2,
+                     const T* __restrict__ rw2, const T* __restrict__ h01,
+                     const T* __restrict__ c01, const T* __restrict__ h02,
+                     const T* __restrict__ c02, T* hs2, T* h1T, T* c1T, T* c2T, T* h1buf,
+                     float* c1_s, float* c2_s, int Tn, int B, int H, int hsz,
+                     int kc) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) float smem[];
+  const int W4 = 4 * hsz, G = 4 * H;
+  const size_t wsz = (size_t)H * W4;
+  const int j0 = blockIdx.x * hsz, nj = min(hsz, H - j0);
+  const int ld = tile_ld(kc);
+  float* rw1_s = smem;                   // [H][hsz][4] each
+  float* w2_s = smem + wsz;
+  float* rw2_s = smem + 2 * wsz;
+  float* h1_t = smem + 3 * wsz;          // [ROWS][ld] h1_{s-1}
+  float* h2_t = h1_t + ROWS * ld;        // [ROWS][ld] h2_{s-2}
+  load_weights(rw1_s, rw1, H, j0, hsz, nj);
+  load_weights(w2_s, w2, H, j0, hsz, nj);
+  load_weights(rw2_s, rw2, H, j0, hsz, nj);
+
+  const int per = (B + gridDim.y - 1) / gridDim.y;
+  const int r_begin = blockIdx.y * per, r_end = min(B, r_begin + per);
+  const int j = threadIdx.x % hsz, rr = threadIdx.x / hsz;
+  // a block whose rows fit one pass keeps each thread's c1, c2 in registers
+  const bool one_pass = r_end - r_begin <= ROWS;
+  float c1_reg = 0.f, c2_reg = 0.f;
+  float bias[4] = {0.f, 0.f, 0.f, 0.f};
+  if (j < nj) {
+    for (int g = 0; g < 4; ++g) bias[g] = to_f32(b2[g * H + j0 + j]);
+    for (int r = r_begin + rr; r < r_end; r += ROWS) {
+      const size_t ci = (size_t)r * H + j0 + j;
+      if (one_pass) {
+        c1_reg = to_f32(c01[ci]);
+        c2_reg = to_f32(c02[ci]);
+      } else {
+        c1_s[ci] = to_f32(c01[ci]);
+        c2_s[ci] = to_f32(c02[ci]);
+      }
+    }
+  }
+
+  for (int s = 0; s <= Tn; ++s) {
+    const bool do1 = s < Tn, do2 = s >= 1;
+    const T* h1prev = s == 0 ? h01 : h1buf + (size_t)((s - 1) & 1) * B * H;
+    const T* h2prev = s <= 1 ? h02 : hs2 + (size_t)(s - 2) * B * H;
+    for (int rc = r_begin; rc < r_end; rc += ROWS) {
+      const int nrows = min(ROWS, r_end - rc);
+      const int r = rc + rr;
+      const bool live = r < r_end && j < nj;
+      const size_t ci = (size_t)r * H + j0 + j;
+      float4 gate = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (live && do1) gate = load_gates(gate_in1 + ((size_t)s * B + r) * G + j0 + j, H);
+      float4 z1 = make_float4(0.f, 0.f, 0.f, 0.f), z2 = z1;
+      for (int k0 = 0; k0 < H; k0 += kc) {
+        const int kn = min(kc, H - k0);
+        __syncthreads();
+        stage(h1_t, h1prev, h2_t, do2 ? h2prev : (const T*)nullptr, rc, nrows, k0, kn, ld,
+              H);
+        __syncthreads();
+        const float* a_row = h1_t + rr * ld;
+        const float* b_row = h2_t + rr * ld;
+        const size_t off = (size_t)k0 * W4 + 4 * j;
+        const float *u = rw1_s + off, *w = w2_s + off, *v = rw2_s + off;
+        int kk = 0;
+        if (do1 && do2) {
+          for (; kk + 4 <= kn; kk += 4) {
+            const float4 a = ld4(a_row + kk), b = ld4(b_row + kk);
+            const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              const size_t o = (size_t)(kk + q) * W4;
+              fma4(z1, av[q], ld4(u + o));
+              fma4(z2, av[q], ld4(w + o));
+              fma4(z2, bv[q], ld4(v + o));
+            }
+          }
+        }
+        for (; kk < kn; ++kk) {
+          const size_t o = (size_t)kk * W4;
+          if (do1) fma4(z1, a_row[kk], ld4(u + o));
+          if (do2) {
+            fma4(z2, a_row[kk], ld4(w + o));
+            fma4(z2, b_row[kk], ld4(v + o));
+          }
+        }
+      }
+      if (live) {
+        if (do1) {
+          float c = one_pass ? c1_reg : c1_s[ci];
+          const float h = cell(gate.x + z1.x, gate.y + z1.y, gate.z + z1.z,
+                               gate.w + z1.w, c);
+          if (one_pass) c1_reg = c;
+          else c1_s[ci] = c;
+          h1buf[(size_t)(s & 1) * B * H + ci] = from_f32<T>(h);
+          if (s == Tn - 1) {
+            h1T[ci] = from_f32<T>(h);
+            c1T[ci] = from_f32<T>(c);
+          }
+        }
+        if (do2) {
+          float c = one_pass ? c2_reg : c2_s[ci];
+          const float h = cell(z2.x + bias[0], z2.y + bias[1], z2.z + bias[2],
+                               z2.w + bias[3], c);
+          if (one_pass) c2_reg = c;
+          else c2_s[ci] = c;
+          hs2[(size_t)(s - 1) * B * H + ci] = from_f32<T>(h);
+          if (s == Tn) c2T[ci] = from_f32<T>(c);
+        }
+      }
+    }
+    if (s < Tn) grid.sync();
+  }
+}
+
+template <typename T>
+static int launch(void* const* in, void* const* out, void* h1buf, void* c1_s, void* c2_s,
+                  int Tn, int B, int H, cudaStream_t stream, int* plan_out) {
+  const void* fn = (const void*)lstm2_fwd_kernel<T>;
+  Plan p;
+  int e = make_plan(fn, B, H, 3, 2, &p);
+  if (e) return e;
+  report_plan(p, plan_out);
+  const T *gi = (const T*)in[0], *rw1 = (const T*)in[1], *w2 = (const T*)in[2],
+          *b2 = (const T*)in[3], *rw2 = (const T*)in[4], *h01 = (const T*)in[5],
+          *c01 = (const T*)in[6], *h02 = (const T*)in[7], *c02 = (const T*)in[8];
+  T *hs2 = (T*)out[0], *h1T = (T*)out[1], *c1T = (T*)out[2], *c2T = (T*)out[3];
+  T* hb = (T*)h1buf;
+  float *c1 = (float*)c1_s, *c2 = (float*)c2_s;
+  int hsz = p.hsz, kc = p.kc;
+  void* args[] = {&gi, &rw1, &w2, &b2, &rw2, &h01, &c01, &h02, &c02, &hs2, &h1T,
+                  &c1T, &c2T, &hb, &c1, &c2, &Tn, &B, &H, &hsz, &kc};
+  cudaError_t err = cudaLaunchCooperativeKernel(fn, dim3(p.nu, p.nbb), dim3(p.threads), args,
+                                                p.smem, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// in: gate_in1, rw1, w2, b2, rw2, h01, c01, h02, c02 (9 device pointers);
+// out: hs2, h1T, c1T, c2T. Scratch: h1buf (2, B, H) in the stream dtype,
+// c1/c2 (B, H) float32. Returns 0, a cudaError_t, or a negative lstm::Err;
+// plan_out as in lstm_fwd.
+extern "C" int lstm2_fwd(void* const* in, void* const* out, void* h1buf, void* c1_scratch,
+                         void* c2_scratch, int T, int B, int H, int dtype, int device,
+                         void* stream, int* plan_out) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == F32)
+    return launch<float>(in, out, h1buf, c1_scratch, c2_scratch, T, B, H, s, plan_out);
+  if (dtype == BF16)
+    return launch<__nv_bfloat16>(in, out, h1buf, c1_scratch, c2_scratch, T, B, H, s,
+                                 plan_out);
+  return ERR_DTYPE;
+}
+
+extern "C" const char* lstm_error(int code) { return error_text(code); }

@@ -1,0 +1,136 @@
+// Single-layer LSTM forward over precomputed gate inputs, inference mode.
+//
+// Replaces: deeplearning4j_tpu/ops/lstm_pallas.py::_fwd_inference_kernel,
+// reached through _fwd_call(save_reserve=False) (public entry
+// fused_lstm_sequence). Computes hs (T, B, H) and the final cell state
+// cT (B, H) from gate_in (T, B, 4H) = x @ W + b, RW (H, 4H), h0, c0.
+//
+// What bounds it on the card: the time loop is a chain of T dependent
+// steps, each a small (B, H) x (H, 4H) product followed by a barrier, so at
+// serving shapes it is bound by per-step latency (the barrier and the
+// reads of h through L2), not by bytes or operations. At large B the f32
+// FMA work of the product dominates.
+//
+// Design: ONE persistent cooperative launch runs all T steps (the TPU
+// kernel's sequential grid becomes a loop inside the kernel). Block
+// (u, v) owns hidden units [u * hsz, u * hsz + hsz) -- all four gate
+// columns of each, so the cell math stays inside the block -- and a
+// contiguous slice of batch rows. Its columns of RW live in shared memory
+// for the whole sequence. h_t is written straight into the hs output,
+// which doubles as the exchange buffer: after a grid barrier every block
+// reads the h_{t-1} rows it needs from L2. c never leaves its owner: it is
+// kept in a register (or, when a block has more than one pass of rows, a
+// float32 scratch row only that thread touches).
+#include "lstm_common.cuh"
+
+using namespace lstm;
+
+template <typename T>
+__global__ void __launch_bounds__(MAX_THREADS)
+    lstm_fwd_kernel(const T* __restrict__ gate_in, const T* __restrict__ rw,
+                    const T* __restrict__ h0, const T* __restrict__ c0, T* hs, T* cT,
+                    float* c_s, int Tn, int B, int H, int hsz, int kc) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) float smem[];
+  const int W4 = 4 * hsz, G = 4 * H;
+  const int j0 = blockIdx.x * hsz, nj = min(hsz, H - j0);
+  const int ld = tile_ld(kc);
+  float* w_s = smem;                   // [H][hsz][4]
+  float* h_s = smem + (size_t)H * W4;  // [ROWS][ld]
+  load_weights(w_s, rw, H, j0, hsz, nj);
+
+  const int per = (B + gridDim.y - 1) / gridDim.y;
+  const int r_begin = blockIdx.y * per, r_end = min(B, r_begin + per);
+  const int j = threadIdx.x % hsz, rr = threadIdx.x / hsz;
+  // a block whose rows fit one pass keeps each thread's c in a register
+  const bool one_pass = r_end - r_begin <= ROWS;
+  float c_reg = 0.f;
+  if (j < nj)
+    for (int r = r_begin + rr; r < r_end; r += ROWS) {
+      const float c = to_f32(c0[(size_t)r * H + j0 + j]);
+      if (one_pass) c_reg = c;
+      else c_s[(size_t)r * H + j0 + j] = c;
+    }
+
+  for (int t = 0; t < Tn; ++t) {
+    const T* hprev = t == 0 ? h0 : hs + (size_t)(t - 1) * B * H;
+    for (int rc = r_begin; rc < r_end; rc += ROWS) {
+      const int nrows = min(ROWS, r_end - rc);
+      const int r = rc + rr;
+      const bool live = r < r_end && j < nj;
+      const size_t ci = (size_t)r * H + j0 + j;
+      float4 gate = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (live) gate = load_gates(gate_in + ((size_t)t * B + r) * G + j0 + j, H);
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int k0 = 0; k0 < H; k0 += kc) {
+        const int kn = min(kc, H - k0);
+        __syncthreads();
+        stage(h_s, hprev, (float*)nullptr, (const T*)nullptr, rc, nrows, k0, kn, ld, H);
+        __syncthreads();
+        const float* hrow = h_s + rr * ld;
+        const float* w = w_s + (size_t)k0 * W4 + 4 * j;
+        int kk = 0;
+        for (; kk + 4 <= kn; kk += 4) {
+          const float4 a = ld4(hrow + kk);
+          fma4(acc, a.x, ld4(w + (kk + 0) * W4));
+          fma4(acc, a.y, ld4(w + (kk + 1) * W4));
+          fma4(acc, a.z, ld4(w + (kk + 2) * W4));
+          fma4(acc, a.w, ld4(w + (kk + 3) * W4));
+        }
+        for (; kk < kn; ++kk) fma4(acc, hrow[kk], ld4(w + kk * W4));
+      }
+      if (live) {
+        float c = one_pass ? c_reg : c_s[ci];
+        const float h = cell(gate.x + acc.x, gate.y + acc.y, gate.z + acc.z,
+                             gate.w + acc.w, c);
+        if (one_pass) c_reg = c;
+        else c_s[ci] = c;
+        hs[((size_t)t * B + r) * H + j0 + j] = from_f32<T>(h);
+        if (t == Tn - 1) cT[ci] = from_f32<T>(c);
+      }
+    }
+    if (t + 1 < Tn) grid.sync();
+  }
+}
+
+template <typename T>
+static int launch(const void* gate_in, const void* rw, const void* h0, const void* c0,
+                  void* hs, void* cT, void* c_s, int Tn, int B, int H, cudaStream_t stream,
+                  int* plan_out) {
+  const void* fn = (const void*)lstm_fwd_kernel<T>;
+  Plan p;
+  int e = make_plan(fn, B, H, 1, 1, &p);
+  if (e) return e;
+  report_plan(p, plan_out);
+  const T* a_gi = (const T*)gate_in;
+  const T* a_rw = (const T*)rw;
+  const T* a_h0 = (const T*)h0;
+  const T* a_c0 = (const T*)c0;
+  T* a_hs = (T*)hs;
+  T* a_cT = (T*)cT;
+  float* a_cs = (float*)c_s;
+  int hsz = p.hsz, kc = p.kc;
+  void* args[] = {&a_gi, &a_rw, &a_h0, &a_c0, &a_hs, &a_cT, &a_cs, &Tn, &B, &H, &hsz, &kc};
+  cudaError_t err = cudaLaunchCooperativeKernel(fn, dim3(p.nu, p.nbb), dim3(p.threads), args,
+                                                p.smem, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// Returns 0, a cudaError_t, or a negative lstm::Err. plan_out (6 ints, may
+// be NULL) receives hsz, nu, nbb, threads, kc, shared bytes of the launch.
+extern "C" int lstm_fwd(const void* gate_in, const void* rw, const void* h0, const void* c0,
+                        void* hs, void* cT, void* c_scratch, int T, int B, int H, int dtype,
+                        int device, void* stream, int* plan_out) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == F32)
+    return launch<float>(gate_in, rw, h0, c0, hs, cT, c_scratch, T, B, H, s, plan_out);
+  if (dtype == BF16)
+    return launch<__nv_bfloat16>(gate_in, rw, h0, c0, hs, cT, c_scratch, T, B, H, s,
+                                 plan_out);
+  return ERR_DTYPE;
+}
+
+extern "C" const char* lstm_error(int code) { return error_text(code); }

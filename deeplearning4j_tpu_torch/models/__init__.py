@@ -1,0 +1,2 @@
+from deeplearning4j_tpu_torch.models.multi_layer_network import (  # noqa: F401
+    MultiLayerNetwork, params_from_numpy)

@@ -1,0 +1,168 @@
+"""Recurrent layers: LSTM and RnnOutputLayer.
+
+Counterpart of deeplearning4j_tpu/nn/layers/rnn.py, inference only. The
+input-to-gate projection for the whole sequence is one (B*T, C) x (C, 4H)
+``torch.matmul`` outside the time loop; the loop itself is the fused
+kernel (ops.fused_lstm_sequence, or ops.fused_lstm2_sequence for two
+stacked layers) whenever the layer's configuration is the one the kernel
+computes. Parameter keys: ``W`` input weights, ``RW`` recurrent weights,
+``b`` bias, gate order IFOG.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from deeplearning4j_tpu_torch import ops
+from deeplearning4j_tpu_torch.nn.activations import get_activation
+from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.layers.base import (register_layer,
+                                                     require_dims, Layer)
+from deeplearning4j_tpu_torch.nn.layers.core import OutputLayer
+from deeplearning4j_tpu_torch.nn.weights import init_weights
+
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _gate_inputs(params, x, dt):
+    """x @ W + b for the whole sequence, time-major: (T, B, 4H) in dt."""
+    B, T, _ = x.shape
+    gate_in = x.reshape(B * T, -1) @ params["W"] + params["b"]
+    return gate_in.reshape(B, T, -1).transpose(0, 1).to(dt).contiguous()
+
+
+@register_layer
+@dataclass
+class LSTM(Layer):
+    """Standard LSTM (no peepholes). Gate order [i, f, o, g]."""
+    n_in: int = 0
+    n_out: int = 0
+    forget_gate_bias_init: float = 1.0
+    gate_activation: str = "sigmoid"
+
+    def set_n_in(self, input_type):
+        if self.n_in == 0:
+            self.n_in = input_type.size or input_type.flat_size()
+
+    def output_type(self, input_type):
+        return InputType.recurrent(self.n_out, input_type.timeseries_length)
+
+    def init(self, gen, dtype=torch.float32, device=None):
+        require_dims(self, n_in=self.n_in, n_out=self.n_out)
+        H = self.n_out
+        b = torch.zeros((4 * H,), dtype=dtype, device=device)
+        b[H:2 * H] = self.forget_gate_bias_init
+        return {
+            "W": init_weights(gen, (self.n_in, 4 * H),
+                              self.weight_init or "xavier", self.dist, dtype,
+                              fan_in=self.n_in, fan_out=H, device=device),
+            "RW": init_weights(gen, (H, 4 * H), self.weight_init or "xavier",
+                               self.dist, dtype, fan_in=H, fan_out=H,
+                               device=device),
+            "b": b,
+        }
+
+    def _cell(self, params, gate_in_t, h, c):
+        """One step of the layer's own math (any activations)."""
+        H = self.n_out
+        act = get_activation(self.activation or "tanh")
+        gact = get_activation(self.gate_activation)
+        z = gate_in_t + h @ params["RW"]
+        i = gact(z[:, 0 * H:1 * H])
+        f = gact(z[:, 1 * H:2 * H])
+        o = gact(z[:, 2 * H:3 * H])
+        g = act(z[:, 3 * H:4 * H])
+        c_new = f * c + i * g
+        h_new = o * act(c_new)
+        return h_new.to(h.dtype), c_new.to(c.dtype)
+
+    def fused_supported(self, dt) -> bool:
+        """The configuration the fused kernel computes (the cuDNN-parity
+        screen of the JAX package): plain LSTM, sigmoid gates, tanh cell,
+        float32 or bfloat16. Anything else runs the layer's own loop."""
+        return (type(self) is LSTM and self.gate_activation == "sigmoid"
+                and (self.activation or "tanh") == "tanh"
+                and dt in _KERNEL_DTYPES)
+
+    def _scan(self, params, x, h0, c0):
+        dt = h0.dtype
+        gate_in = _gate_inputs(params, x, dt)
+        if self.fused_supported(dt):
+            hs, c_last = ops.fused_lstm_sequence(
+                gate_in, params["RW"].to(dt).contiguous(), h0.contiguous(),
+                c0.contiguous())
+            return hs.transpose(0, 1), (hs[-1], c_last)
+        h, c, hs = h0, c0, []
+        for t in range(gate_in.shape[0]):
+            h, c = self._cell(params, gate_in[t], h, c)
+            hs.append(h)
+        return torch.stack(hs, dim=1), (h, c)
+
+    def apply(self, params, x):
+        return self.apply_with_carry(params, x)[0]
+
+    def apply_with_carry(self, params, x, carry=None):
+        """Stateful inference (parity: rnnTimeStep): returns (y, (h, c))."""
+        if carry is None:
+            dt = torch.promote_types(x.dtype, params["W"].dtype)
+            z = torch.zeros((x.shape[0], self.n_out), dtype=dt,
+                            device=x.device)
+            carry = (z, z)
+        return self._scan(params, x, carry[0], carry[1])
+
+    # ---- incremental decode ----------------------------------------------
+    def init_decode_state(self, params, batch, dtype=torch.float32,
+                          device=None):
+        z = torch.zeros((batch, self.n_out), dtype=dtype, device=device)
+        return (z, z.clone())
+
+    def decode_step(self, params, dstate, x):
+        """One plain cell step on x (B, 1, C)."""
+        h, c = dstate
+        gate_in = x[:, 0, :] @ params["W"] + params["b"]
+        h, c = self._cell(params, gate_in, h, c)
+        return h[:, None, :], (h, c)
+
+
+def lstm_pair_fusable(l1, l2, p1, p2, x) -> bool:
+    """True when two consecutive LSTM layers run as ONE wavefront kernel
+    (ops.fused_lstm2_sequence): both pass their own fused screen with the
+    promoted dtype, equal widths, and nothing sits between the layers."""
+    if not (type(l1) is LSTM and type(l2) is LSTM
+            and l1.n_out == l2.n_out and l2.n_in == l1.n_out
+            and not l2.dropout
+            and l1.weight_noise is None and l2.weight_noise is None):
+        return False
+    dt = torch.promote_types(torch.promote_types(x.dtype, p1["W"].dtype),
+                             p2["W"].dtype)
+    return l1.fused_supported(dt) and l2.fused_supported(dt)
+
+
+def apply_lstm_pair(l1, l2, p1, p2, x):
+    """Run two fusable stacked LSTMs through the wavefront kernel; returns
+    the layer-2 hidden sequence (B, T, H)."""
+    dt = torch.promote_types(torch.promote_types(x.dtype, p1["W"].dtype),
+                             p2["W"].dtype)
+    gate_in1 = _gate_inputs(p1, x, dt)
+    z = torch.zeros((x.shape[0], l1.n_out), dtype=dt, device=x.device)
+    hs2, _, _, _ = ops.fused_lstm2_sequence(
+        gate_in1, p1["RW"].to(dt).contiguous(), p2["W"].to(dt).contiguous(),
+        p2["b"].to(dt).contiguous(), p2["RW"].to(dt).contiguous(), z, z, z, z)
+    return hs2.transpose(0, 1)
+
+
+@register_layer
+@dataclass
+class RnnOutputLayer(OutputLayer):
+    """Time-distributed output layer over (B, T, C)."""
+
+    def output_type(self, input_type):
+        return InputType.recurrent(self.n_out, input_type.timeseries_length)
+
+    def apply(self, params, x):
+        y = x @ params["W"]
+        if self.has_bias:
+            y = y + params["b"]
+        return get_activation(self.activation or "softmax")(y)

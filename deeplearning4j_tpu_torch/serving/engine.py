@@ -1,0 +1,92 @@
+"""Shape-bucketed inference.
+
+Counterpart of deeplearning4j_tpu/serving/engine.py. Every batch is padded
+up to a power-of-two bucket, run, and the pad rows sliced off: inference
+computes each output row from its own input row alone, so padding does
+not change the answer. In the JAX package the ladder bounds the number of
+compiled programs; here it bounds the batch shapes the kernels see, so a
+traffic mix of odd request sizes becomes a few fixed launch shapes.
+Batches above ``max_batch`` are chunked through the top bucket.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import List
+
+import numpy as np
+import torch
+
+
+def bucket_for(n: int, max_batch: int, min_bucket: int = 1) -> int:
+    """Smallest power-of-two rung >= n (capped at max_batch)."""
+    if n < 1:
+        raise ValueError(f"batch size must be >= 1, got {n}")
+    b = max(min_bucket, 1)
+    while b < n:
+        b <<= 1
+    return min(b, max_batch)
+
+
+def bucket_ladder(max_batch: int, min_bucket: int = 1) -> List[int]:
+    """The full ladder [min_bucket, 2*min_bucket, ..., max_batch]."""
+    out = []
+    b = max(min_bucket, 1)
+    while b < max_batch:
+        out.append(b)
+        b <<= 1
+    out.append(max_batch)
+    return out
+
+
+class InferenceEngine:
+    """Bucketed inference over a MultiLayerNetwork. Parameters are read
+    from the model at call time."""
+
+    def __init__(self, model, max_batch: int = 1024):
+        self.model = model
+        self.max_batch = int(max_batch)
+        self._lock = threading.Lock()
+        self._rows = 0
+        self._pad_rows = 0
+        self._calls = 0
+        self._buckets = set()
+
+    def _dispatch(self, x: torch.Tensor) -> torch.Tensor:
+        n = x.shape[0]
+        if n > self.max_batch:
+            return torch.cat([self._dispatch(x[i:i + self.max_batch])
+                              for i in range(0, n, self.max_batch)])
+        b = bucket_for(n, self.max_batch)
+        if b > n:
+            x = torch.cat([x, x.new_zeros((b - n,) + tuple(x.shape[1:]))])
+        out, _ = self.model._forward(self.model.params, x)
+        with self._lock:
+            self._rows += n
+            self._pad_rows += b - n
+            self._calls += 1
+            self._buckets.add(b)
+        return out[:n]
+
+    @torch.no_grad()
+    def predict(self, x) -> torch.Tensor:
+        """Bucketed forward of one batch; returns the output on the
+        model's device, shaped like ``model.output(x, bucketed=False)``."""
+        if not isinstance(x, torch.Tensor):
+            x = torch.as_tensor(np.asarray(x))
+        return self._dispatch(x.to(self.model.device))
+
+    def predict_host(self, x) -> np.ndarray:
+        """``predict`` + host read (float32 numpy)."""
+        return self.predict(x).float().cpu().numpy()
+
+    def stats(self) -> dict:
+        with self._lock:
+            rows, pad = self._rows, self._pad_rows
+            return {"max_batch": self.max_batch,
+                    "bucket_ladder": bucket_ladder(self.max_batch),
+                    "buckets_used": sorted(self._buckets),
+                    "device_calls": self._calls,
+                    "rows": rows,
+                    "pad_rows": pad,
+                    "pad_waste_frac": pad / (pad + rows) if rows else 0.0}

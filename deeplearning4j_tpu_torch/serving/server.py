@@ -1,0 +1,270 @@
+"""HTTP inference endpoint over the micro-batched engine.
+
+Counterpart of deeplearning4j_tpu/serving/server.py, with the same JSON +
+base64 float32 wire format (serving/wire.py). Endpoints:
+
+  POST /predict  {"ndarray": {shape, data}, "deadline_ms"?} -> {"ndarray": ...}
+  POST /generate {"tokens": [...], "max_new_tokens"?, "seed"?,
+                  "temperature"?, "top_k"?}                 -> {"tokens": [...]}
+  GET  /stats                                               -> engine+batcher stats
+  GET  /healthz                                             -> {"status": ...}
+
+Every error body is ``{"error": {"type", "message"}}`` and the status
+classifies it: 400 malformed payload, 404 unknown path or no decode engine,
+429 queue full, 503 draining, 504 deadline expired, 500 engine fault.
+"""
+
+from __future__ import annotations
+
+import json
+import socket
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+from urllib.parse import urlparse
+
+import numpy as np
+
+from deeplearning4j_tpu_torch.resilience.errors import (
+    BatcherStoppedError, DeadlineExceededError, ServerOverloadedError)
+from deeplearning4j_tpu_torch.serving.batcher import MicroBatcher
+from deeplearning4j_tpu_torch.serving.engine import InferenceEngine
+from deeplearning4j_tpu_torch.serving.wire import (ndarray_from_b64,
+                                                   ndarray_to_b64)
+
+
+class BadRequestError(ValueError):
+    """Client-side payload problem -> HTTP 400 (never 500)."""
+
+
+class _Handler(BaseHTTPRequestHandler):
+    # HTTP/1.1 keep-alive: every response sets an exact Content-Length
+    protocol_version = "HTTP/1.1"
+
+    def log_message(self, *args):
+        pass
+
+    def _json(self, obj, code=200):
+        data = json.dumps(obj).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
+    def _error(self, code: int, err_type: str, message: str):
+        self._json({"error": {"type": err_type, "message": message}}, code)
+
+    def do_GET(self):
+        srv = self.server.inference
+        path = urlparse(self.path).path
+        if path == "/stats":
+            self._json(srv.stats())
+        elif path == "/healthz":
+            info = srv.health_info()
+            self._json(info, 503 if info["status"] == "draining" else 200)
+        else:
+            self._error(404, "not_found", f"no such path: {path}")
+
+    def do_POST(self):
+        srv = self.server.inference
+        path = urlparse(self.path).path
+        n = int(self.headers.get("Content-Length", 0))
+        try:
+            payload = json.loads(self.rfile.read(n).decode())
+            if not isinstance(payload, dict):
+                raise ValueError("payload must be a JSON object")
+        except Exception as e:  # noqa: BLE001 -- client sent junk
+            self._error(400, "bad_request", f"bad json: {e}")
+            return
+        try:
+            if path == "/predict":
+                self._predict(srv, payload)
+            elif path == "/generate":
+                self._generate(srv, payload)
+            else:
+                self._error(404, "not_found", f"no such path: {path}")
+        except BadRequestError as e:
+            self._error(400, "bad_request", str(e))
+        except ServerOverloadedError as e:
+            self._error(429, "overloaded", str(e))
+        except BatcherStoppedError as e:
+            self._error(503, "draining", str(e))
+        except DeadlineExceededError as e:
+            self._error(504, "deadline_exceeded", str(e))
+        except Exception as e:  # noqa: BLE001 -- engine fault: 500
+            srv.last_error = f"{type(e).__name__}: {e}"
+            self._error(500, "internal", srv.last_error)
+
+    def _predict(self, srv, payload):
+        try:
+            x = ndarray_from_b64(payload["ndarray"])
+        except KeyError:
+            raise BadRequestError("payload missing 'ndarray'") from None
+        except Exception as e:  # noqa: BLE001 -- undecodable client bytes
+            raise BadRequestError(f"undecodable ndarray: {e}") from None
+        deadline_ms = payload.get("deadline_ms")
+        if deadline_ms is not None:
+            try:
+                deadline_ms = float(deadline_ms)
+            except (TypeError, ValueError):
+                raise BadRequestError(
+                    f"deadline_ms must be a number, got {deadline_ms!r}"
+                ) from None
+        squeeze = x.ndim == 1
+        if squeeze:
+            x = x[None, :]
+        srv.validate_features(x)
+        # block=False: a full queue answers 429 now instead of parking the
+        # handler thread on backpressure
+        out = srv.batcher.submit(x, deadline_ms=deadline_ms,
+                                 block=False).result()
+        self._json({"ndarray": ndarray_to_b64(out[0] if squeeze else out)})
+
+    def _generate(self, srv, payload):
+        if srv.decode_engine is None:
+            self._error(404, "not_found",
+                        "no decode engine configured on this server")
+            return
+        tokens = payload.get("tokens")
+        if (not isinstance(tokens, list)
+                or not all(isinstance(t, int) for t in tokens)):
+            raise BadRequestError("'tokens' must be a list of token ids")
+        try:
+            out = srv.decode_engine.generate(
+                tokens,
+                max_new_tokens=int(payload.get("max_new_tokens", 32)),
+                seed=int(payload.get("seed", 0)),
+                temperature=float(payload.get("temperature", 0.0)),
+                top_k=int(payload.get("top_k", 0)))
+        except ValueError as e:     # capacity / id-range problems -> 400
+            raise BadRequestError(str(e)) from None
+        self._json(out)
+
+
+class InferenceServer:
+    """Serve a MultiLayerNetwork over HTTP through bucketed micro-batching.
+
+        srv = InferenceServer(net, port=0, decode_engine=eng).start()
+        out = InferenceClient(f"http://127.0.0.1:{srv.port}").predict(x)
+
+    ``max_queue``: bound on queued requests (beyond it: HTTP 429).
+    """
+
+    def __init__(self, model, port: int = 9300, host: str = "127.0.0.1",
+                 max_batch: int = 256, max_latency_ms: float = 2.0,
+                 engine: Optional[InferenceEngine] = None,
+                 max_queue: int = 1024, decode_engine=None):
+        self.model = model
+        self.engine = engine or InferenceEngine(model)
+        self.decode_engine = decode_engine
+        self.batcher = MicroBatcher(self.engine, max_batch=max_batch,
+                                    max_latency_ms=max_latency_ms,
+                                    max_queue=max_queue)
+        self._port_req = port
+        self._host = host
+        self._httpd = None
+        self.port: Optional[int] = None
+        self._draining = threading.Event()
+        self.last_error: Optional[str] = None
+
+    def validate_features(self, x: np.ndarray) -> None:
+        """400 for a wrong rank or feature width against the model's
+        declared input type."""
+        itype = self.model.conf.input_type
+        if itype is None:
+            return
+        if itype.kind == "rnn":
+            ok = x.ndim == 3 and x.shape[-1] == itype.size
+            want = f"(batch, time, {itype.size})"
+        elif itype.kind in ("ff", "cnn_flat"):
+            expected = itype.batch_shape(1)
+            ok = x.ndim == len(expected) and x.shape[1:] == expected[1:]
+            want = f"(batch, {', '.join(str(d) for d in expected[1:])})"
+        else:
+            return
+        if not ok:
+            raise BadRequestError(f"input shape {tuple(x.shape)} does not "
+                                  f"match model input {want}")
+
+    def health_info(self) -> dict:
+        if self._draining.is_set() or self.batcher.stopping:
+            return {"status": "draining"}
+        st = self.batcher.stats()
+        if st["queue_depth"] >= 0.8 * st["queue_capacity"]:
+            return {"status": "degraded", "reason": "queue_pressure"}
+        if self.decode_engine is not None and self.decode_engine.saturated:
+            return {"status": "degraded", "reason": "decode_saturated"}
+        return {"status": "ok"}
+
+    def stats(self) -> dict:
+        out = {"engine": self.engine.stats(),
+               "batcher": self.batcher.stats(),
+               "health": self.health_info()["status"],
+               "device": str(self.model.device),
+               "last_error": self.last_error}
+        if self.decode_engine is not None:
+            out["decode"] = self.decode_engine.stats()
+        return out
+
+    def start(self) -> "InferenceServer":
+        self.batcher.start()
+        if self.decode_engine is not None:
+            self.decode_engine.start()
+        self._httpd = _TrackingHTTPServer((self._host, self._port_req),
+                                          _Handler)
+        self._httpd.inference = self
+        self.port = self._httpd.server_address[1]
+        threading.Thread(target=self._httpd.serve_forever,
+                         daemon=True).start()
+        return self
+
+    def stop(self) -> None:
+        """Graceful drain: healthz reports draining, the batcher flushes
+        what is queued, then the listener and every keep-alive connection
+        close."""
+        self._draining.set()
+        self.batcher.stop()
+        if self.decode_engine is not None:
+            self.decode_engine.stop()
+        if self._httpd:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+            self._httpd.close_all_connections()
+
+
+class _TrackingHTTPServer(ThreadingHTTPServer):
+    """ThreadingHTTPServer that remembers established connections, so
+    stop() can close keep-alive sockets whose handler threads would
+    otherwise keep answering."""
+
+    daemon_threads = True
+
+    def __init__(self, *args, **kwargs):
+        self._conns: set = set()
+        self._conns_lock = threading.Lock()
+        super().__init__(*args, **kwargs)
+
+    def get_request(self):
+        sock_, addr = super().get_request()
+        with self._conns_lock:
+            self._conns.add(sock_)
+        return sock_, addr
+
+    def shutdown_request(self, request):
+        with self._conns_lock:
+            self._conns.discard(request)
+        super().shutdown_request(request)
+
+    def close_all_connections(self) -> None:
+        with self._conns_lock:
+            conns, self._conns = set(self._conns), set()
+        for sock_ in conns:
+            try:
+                sock_.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
+                sock_.close()
+            except OSError:
+                pass

@@ -1,0 +1,134 @@
+"""Model persistence: the JAX package's zip checkpoint, read and written.
+
+Counterpart of deeplearning4j_tpu/util/model_serializer.py for sequential
+networks. The zip holds ``meta.json``, ``configuration.json``,
+``coefficients.npz`` (one array per parameter under keys like ``0/RW`` --
+layer index / parameter name) and ``modelState.npz``. Arrays go through
+numpy, so a zip written by either package loads in the other. Writing to
+a path is atomic: staged to a temp file, fsynced, then renamed over the
+destination.
+"""
+
+from __future__ import annotations
+
+import io
+import json
+import os
+import zipfile
+import zlib
+
+import numpy as np
+import torch
+
+from deeplearning4j_tpu_torch.resilience.errors import CorruptCheckpointError
+
+CONFIG_NAME = "configuration.json"
+COEFF_NAME = "coefficients.npz"
+STATE_NAME = "modelState.npz"
+META_NAME = "meta.json"
+KIND = "MultiLayerNetwork"
+
+
+def _read_member(z: zipfile.ZipFile, path, name: str) -> bytes:
+    try:
+        return z.read(name)
+    except KeyError as e:
+        raise CorruptCheckpointError(path, member=name,
+                                     detail="member missing") from e
+    except (zipfile.BadZipFile, zlib.error, EOFError, OSError) as e:
+        raise CorruptCheckpointError(path, member=name, detail=str(e)) from e
+
+
+def _loadz(z: zipfile.ZipFile, path, name: str) -> dict:
+    raw = _read_member(z, path, name)
+    try:
+        data = np.load(io.BytesIO(raw), allow_pickle=False)
+        return {k: data[k] for k in data.files}
+    except (zipfile.BadZipFile, ValueError, zlib.error, EOFError, OSError) as e:
+        raise CorruptCheckpointError(path, member=name, detail=str(e)) from e
+
+
+def _savez(z: zipfile.ZipFile, name: str, arrays: dict):
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    z.writestr(name, buf.getvalue())
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        raise TypeError("bfloat16 parameters have no numpy dtype; save the "
+                        "float32 parameters instead")
+    return t.numpy()
+
+
+def write_model(model, path):
+    """Write ``model`` (a MultiLayerNetwork) to a checkpoint zip."""
+    flat = {f"{i}/{k}": _to_numpy(v)
+            for i, p in enumerate(model.params) for k, v in p.items()}
+    path = os.fspath(path)
+    tmp = os.path.join(os.path.dirname(os.path.abspath(path)),
+                       f".{os.path.basename(path)}.tmp.{os.getpid()}")
+    try:
+        with open(tmp, "wb") as fh:
+            with zipfile.ZipFile(fh, "w", zipfile.ZIP_DEFLATED) as z:
+                z.writestr(META_NAME, json.dumps({
+                    "format": "deeplearning4j_tpu/model/v1", "kind": KIND,
+                    "iteration": 0, "epoch": 0, "epoch_batch": 0}))
+                z.writestr(CONFIG_NAME, model.conf.to_json())
+                _savez(z, COEFF_NAME, flat)
+                _savez(z, STATE_NAME, {})
+            fh.flush()
+            os.fsync(fh.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+
+
+def restore_multi_layer_network(path, device=None):
+    """Build the network the zip describes on ``device`` and load its
+    parameters. Every array the configuration needs must be present with
+    the shape the configuration gives it."""
+    from deeplearning4j_tpu_torch.models.multi_layer_network import (
+        DTYPES, MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.conf.configuration import (
+        MultiLayerConfiguration)
+    try:
+        z = zipfile.ZipFile(path, "r")
+    except zipfile.BadZipFile as e:
+        raise CorruptCheckpointError(path, detail=str(e)) from e
+    with z:
+        try:
+            meta = json.loads(_read_member(z, path, META_NAME))
+        except json.JSONDecodeError as e:
+            raise CorruptCheckpointError(path, member=META_NAME,
+                                         detail=str(e)) from e
+        if meta.get("kind") != KIND:
+            raise ValueError(f"Expected {KIND}, zip holds {meta.get('kind')}")
+        conf = MultiLayerConfiguration.from_json(
+            _read_member(z, path, CONFIG_NAME).decode())
+        flat = _loadz(z, path, COEFF_NAME)
+    model = MultiLayerNetwork(conf, device=device)
+    gen = torch.Generator().manual_seed(0)
+    dtype = DTYPES[conf.global_conf.dtype]
+    params = []
+    for i, layer in enumerate(model.layers):
+        p = {}
+        for k, template in layer.init(gen, dtype).items():
+            key = f"{i}/{k}"
+            if key not in flat:
+                raise CorruptCheckpointError(path, member=COEFF_NAME,
+                                             detail=f"missing array {key!r}")
+            arr = flat[key]
+            if tuple(arr.shape) != tuple(template.shape):
+                raise CorruptCheckpointError(
+                    path, member=COEFF_NAME,
+                    detail=f"{key!r} has shape {arr.shape}, the "
+                           f"configuration needs {tuple(template.shape)}")
+            p[k] = torch.as_tensor(arr).to(template.dtype)
+        params.append(p)
+    return model.set_params(params)
