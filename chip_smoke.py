@@ -7,19 +7,34 @@ Needs one CUDA device, ``nvcc`` and ``nvidia-smi``; exits non-zero, with no
 result line, when any of them or the port's package is missing. Phases:
 
 1. The card: ``nvidia-smi`` name and power limit, torch and CUDA versions.
-2. Build: every kernel of the slice compiled from ``deeplearning4j_tpu_torch/
+2. Build: every kernel source compiled from ``deeplearning4j_tpu_torch/
    csrc`` (one ``nvcc`` per source, in parallel).
-3. Kernels: K1 (single-layer LSTM forward) and K4 (stacked wavefront
-   forward) against their plain PyTorch versions on the card, T=64,
-   B in {1, 16, 256}, H=256, float32 and bfloat16 (tolerance on every output:
-   f32 1e-4, bf16 3e-2), with CUDA-event medians of the kernel, the plain
-   version and cuDNN's ``torch.nn.LSTM`` computing the same function, and
-   the least time the card could take (bound).
-4. Slice: the bundled TextGenerationLSTM served by ``InferenceServer`` on
+3. Kernels, each against its plain PyTorch version on the card at T=64,
+   H=256, float32 and bfloat16: K1 (single-layer LSTM forward) and K4
+   (stacked wavefront forward) at B in {1, 16, 256}; K2 (training forward),
+   K4-train and K3 (backward) at B in {1, 32, 256}. Tolerance f32 1e-4,
+   bf16 3e-2, on every output (K3's relative to the largest magnitude of
+   the plain version's). With CUDA-event medians of the kernel, the plain
+   version and cuDNN's ``torch.nn.LSTM`` computing the same work (the
+   forward with grad enabled for the training forwards, the backward of
+   that output alone for K3), and the least time the card could take
+   (bound).
+4. Serving: the bundled TextGenerationLSTM served by ``InferenceServer`` on
    the card: held-out /predict accuracy, concurrent mixed-size /predict
    against unbatched forwards, greedy /generate against the full-prefix
-   path, ``rnn_time_step`` in chunks against ``output``. Kernel launch
-   counts are reset right before this phase and read right after it.
+   path, ``rnn_time_step`` in chunks against ``output``.
+5. Training, the same model at full width: (a) step-1 gradients and three
+   ``fit`` steps on the card against the same on the CPU (plain versions)
+   from the same initial parameters; (b) the recipe that trained the
+   bundled weights (tools/make_pretrained.py: stride-8 windows, batch 32,
+   90 epochs of ``fit_scan``) from the seed, with ms per step, tokens per
+   second and held-out top-1 (at least the manifest's 0.2979 - 0.03);
+   (c) the same with truncated BPTT in chunks of 16 for 2 epochs, whose
+   held-out loss must fall.
+
+Kernel launch counts are reset right before the serving phase and before
+each of (b) and (c), and read right after; (b) and (c) must launch exactly
+the training kernels their step counts call for.
 
 Prints, before the last line, one JSON line of per-kernel numbers and the
 card's name and power limit; the last line is
@@ -43,6 +58,33 @@ F32_TOL, BF16_TOL = 1e-4, 3e-2
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 HELD_OUT_TOP1, TOP1_SLACK = 0.2979, 0.02      # zoo manifest, textgenlstm
+RECIPE_SLACK = 0.03           # a fresh seed's training against the manifest
+GRAD_TOL, LOSS_RTOL = 1e-4, 1e-4              # card against the CPU port
+# kernel -> (wrapper, plain version, argument names; "reserves" = the plain
+# training forward's reserve space, as K3 gets it in a train step)
+KERNELS = {
+    "lstm_fwd": ("fused_lstm_sequence", "lstm_sequence_plain",
+                 ("gate_in", "rw1", "h01", "c01")),
+    "lstm_fwd_train": ("fused_lstm_sequence_train",
+                       "lstm_sequence_train_plain",
+                       ("gate_in", "rw1", "h01", "c01")),
+    "lstm2_fwd": ("fused_lstm2_sequence", "lstm2_sequence_plain",
+                  ("gate_in", "rw1", "w2", "b2", "rw2", "h01", "c01", "h02",
+                   "c02")),
+    "lstm2_fwd_train": ("fused_lstm2_sequence_train",
+                        "lstm2_sequence_train_plain",
+                        ("gate_in", "rw1", "w2", "b2", "rw2", "h01", "c01",
+                         "h02", "c02")),
+    "lstm_bwd": ("fused_lstm_backward", "lstm_backward_plain",
+                 ("reserves", "rw1", "dhs", "dcT")),
+}
+PALLAS = "deeplearning4j_tpu/ops/lstm_pallas.py"
+REPLACES = {"lstm_fwd": f"{PALLAS}:295", "lstm_fwd_train": f"{PALLAS}:282",
+            "lstm2_fwd": f"{PALLAS}:634", "lstm2_fwd_train": f"{PALLAS}:634",
+            "lstm_bwd": f"{PALLAS}:316"}
+SOURCES = {"lstm_fwd": "lstm_fwd.cu", "lstm_fwd_train": "lstm_fwd.cu",
+           "lstm2_fwd": "lstm2_fwd.cu", "lstm2_fwd_train": "lstm2_fwd.cu",
+           "lstm_bwd": "lstm_bwd.cu"}
 
 
 def card_line() -> str:
@@ -74,17 +116,29 @@ def time_ms(fn, reps: int, rounds: int = 5, warmup: int = 2) -> float:
 
 def bound(kernel: str, T: int, B: int, H: int, dtype: str):
     """Least time for the work: every input read once and every output
-    written once over HBM, or the products' operations at the card's peak
-    for the stream type, whichever is larger."""
+    written once over HBM (reserves included), or the products' operations
+    at the card's peak for the stream type, whichever is larger."""
     es = 2 if dtype == "bfloat16" else 4
     G = 4 * H
-    if kernel == "lstm_fwd":
-        nbytes = es * (T * B * G + H * G + 2 * B * H + T * B * H + B * H)
+    seq, gate = T * B * H, T * B * G
+    if kernel.startswith("lstm_fwd"):
+        # gate_in, RW, h0, c0 -> hs, cT (+ gates, tanh(c), c_prev)
+        nbytes = es * (gate + H * G + 2 * B * H + seq + B * H)
+        if kernel.endswith("_train"):
+            nbytes += es * (gate + 2 * seq)
         flops = 2.0 * T * B * H * G
-    else:
-        nbytes = es * (T * B * G + 3 * H * G + G + 4 * B * H + T * B * H
-                       + 3 * B * H)
+    elif kernel.startswith("lstm2_fwd"):
+        # gate_in1, RW1, W2, b2, RW2, 4 carries -> hs2, h1T, c1T, c2T
+        # (+ hs1, both layers' tanh(c), c_prev and gates)
+        nbytes = es * (gate + 3 * H * G + G + 4 * B * H + seq + 3 * B * H)
+        if kernel.endswith("_train"):
+            nbytes += es * (5 * seq + 2 * gate)
         flops = 3 * 2.0 * T * B * H * G
+    else:
+        # gates, tanh(c), c_prev, RW, dhs, dcT -> dz, dh0 and dc0 (f32)
+        nbytes = es * (gate + 2 * seq + H * G + seq + B * H + gate) \
+            + 4 * 2 * B * H
+        flops = 2.0 * T * B * G * H
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -102,19 +156,22 @@ def kernel_inputs(T, B, H, dtype, seed):
             "w2": rnd(H, 4 * H, scale=s), "b2": rnd(4 * H, scale=0.1),
             "rw2": rnd(H, 4 * H, scale=s), "h01": rnd(B, H, scale=0.5),
             "c01": rnd(B, H, scale=0.5), "h02": rnd(B, H, scale=0.5),
-            "c02": rnd(B, H, scale=0.5)}
+            "c02": rnd(B, H, scale=0.5), "dhs": rnd(T, B, H, scale=0.5),
+            "dcT": rnd(B, H, scale=0.5)}
 
 
 def cudnn_lstm(kernel, c):
-    """torch.nn.LSTM (cuDNN) set up to compute the kernel's function on the
+    """torch.nn.LSTM (cuDNN) set up to compute the kernel's work on the
     same inputs: gate_in enters through an identity-permutation input
-    weight (IFOG columns to PyTorch's IFGO rows). Timed only, never used by
-    the port."""
+    weight (IFOG columns to PyTorch's IFGO rows). The training forwards run
+    with grad enabled (cuDNN's training forward, which keeps its reserve
+    space); K3's yardstick is the backward of that output alone. Timed
+    only, never used by the port."""
     import torch
     H = c["h01"].shape[-1]
     perm = torch.cat([torch.arange(0, 2 * H), torch.arange(3 * H, 4 * H),
                       torch.arange(2 * H, 3 * H)]).cuda()
-    layers = 1 if kernel == "lstm_fwd" else 2
+    layers = 2 if kernel.startswith("lstm2") else 1
     lstm = torch.nn.LSTM(4 * H, H, num_layers=layers, device="cuda",
                          dtype=c["gate_in"].dtype)
     with torch.no_grad():
@@ -134,11 +191,26 @@ def cudnn_lstm(kernel, c):
     else:
         state = (torch.stack([c["h01"], c["h02"]]),
                  torch.stack([c["c01"], c["c02"]]))
+    if kernel in ("lstm_fwd", "lstm2_fwd"):
+        def run():
+            with torch.no_grad():
+                return lstm(c["gate_in"], state)
+        return run
+    lstm.requires_grad_(False)       # the kernels' work has no weight grads
+    x = c["gate_in"].detach().requires_grad_()
+    state = tuple(t.detach().requires_grad_() for t in state)
 
-    def run():
-        with torch.no_grad():
-            return lstm(c["gate_in"], state)
-    return run
+    def forward():
+        with torch.enable_grad():
+            return lstm(x, state)
+    if kernel != "lstm_bwd":
+        return forward
+    out, (_, cT) = forward()
+
+    def backward():
+        torch.autograd.backward([out, cT], [c["dhs"], c["dcT"][None]],
+                                retain_graph=True)
+    return backward
 
 
 def kernel_case(kernel, T, B, H, dtype_name, seed=0, plain_reps=2):
@@ -149,23 +221,28 @@ def kernel_case(kernel, T, B, H, dtype_name, seed=0, plain_reps=2):
     from deeplearning4j_tpu_torch.ops import lstm_cuda
     dtype = getattr(torch, dtype_name)
     c = kernel_inputs(T, B, H, dtype, seed)
-    if kernel == "lstm_fwd":
-        args = [c[k] for k in ("gate_in", "rw1", "h01", "c01")]
-        wrapper, plain = lstm_cuda.fused_lstm_sequence, lstm_cuda.lstm_sequence_plain
+    wname, pname, names = KERNELS[kernel]
+    wrapper, plain = getattr(lstm_cuda, wname), getattr(lstm_cuda, pname)
+    if kernel == "lstm_bwd":
+        _, tc, cprev, gates, _ = lstm_cuda.lstm_sequence_train_plain(
+            c["gate_in"], c["rw1"], c["h01"], c["c01"])
+        args = [gates, tc, cprev] + [c[k] for k in names[1:]]
     else:
-        args = [c[k] for k in ("gate_in", "rw1", "w2", "b2", "rw2", "h01",
-                               "c01", "h02", "c02")]
-        wrapper, plain = (lstm_cuda.fused_lstm2_sequence,
-                          lstm_cuda.lstm2_sequence_plain)
+        args = [c[k] for k in names]
     got = wrapper(*args)
     torch.cuda.synchronize()
     want = plain(*args)
-    err = max((g.float() - w.float()).abs().max().item()
-              for g, w in zip(got, want))
+    errs = [(g.float() - w.float()).abs().max().item() for g, w in
+            zip(got, want)]
+    if kernel == "lstm_bwd":        # relative to each output's magnitude
+        errs = [e / max(w.float().abs().max().item(), 1e-30)
+                for e, w in zip(errs, want)]
+    err = max(errs)
     tol = F32_TOL if dtype_name == "float32" else BF16_TOL
     if not err <= tol:
         raise AssertionError(f"{kernel} T={T} B={B} H={H} {dtype_name}: max "
-                             f"abs err {err} > {tol}")
+                             f"{'relative' if kernel == 'lstm_bwd' else 'abs'}"
+                             f" err {err} > {tol}")
     row = {"kernel": kernel, "T": T, "B": B, "H": H, "dtype": dtype_name,
            "max_abs_err": err, "tol": tol,
            "plan": lstm_cuda.last_plan(kernel),
@@ -180,9 +257,10 @@ def kernel_case(kernel, T, B, H, dtype_name, seed=0, plain_reps=2):
             out = lib()
         if caught:      # e.g. cuDNN re-packing weights on every call
             row["library_note"] = str(caught[0].message)[:200]
-        lib_err = (out[0].float() - want[0].float()).abs().max().item()
+        if out is not None:
+            row["library_max_abs_err"] = (out[0].float()
+                                          - want[0].float()).abs().max().item()
         row["library_ms"] = time_ms(lib, reps=10)
-        row["library_max_abs_err"] = lib_err
     except RuntimeError as e:       # cuDNN refuses this type/shape
         row["library_ms"], row["library_note"] = None, str(e)[:200]
     return row
@@ -329,6 +407,115 @@ def slice_phase(card):
     return res
 
 
+def _max_rel_err(got, want):
+    """Largest |got - want| over per-layer dicts of tensors, relative to
+    the largest |want|."""
+    err = max((g[k].float().cpu() - w[k].float().cpu()).abs().max().item()
+              for g, w in zip(got, want) for k in w)
+    scale = max(w[k].abs().max().item() for w in want for k in w)
+    return err / scale
+
+
+def train_phase(card):
+    """Train the TextGenerationLSTM at full width on the card; every check
+    raises on failure. Returns the measured numbers."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch import MultiLayerNetwork, ops
+    from deeplearning4j_tpu_torch.data import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+    from deeplearning4j_tpu_torch.zoo.corpus import corpus_windows
+
+    (xtr, ytr), (xte, yte), vocab = corpus_windows(stride=8)
+    B, T, epochs = 32, 64, 90                # tools/make_pretrained.py
+    steps = len(xtr) // B
+    zoo = TextGenerationLSTM(total_unique_characters=len(vocab))
+    res = {"card": card, "steps_per_epoch": steps, "epochs": epochs}
+
+    # (a) the card against the CPU port from the same initial parameters
+    cpu = zoo.init(device="cpu")
+    gpu = MultiLayerNetwork(zoo.conf(), device="cuda").set_params(cpu.params)
+    g_cpu, s_cpu = cpu.compute_gradient_and_score(xtr[:B], ytr[:B])
+    g_gpu, s_gpu = gpu.compute_gradient_and_score(xtr[:B], ytr[:B])
+    res["grad_rel_err"] = _max_rel_err(g_gpu, g_cpu)
+    res["losses_cpu"], res["losses_card"] = [], []
+    for k in range(3):
+        batch = (xtr[k * B:(k + 1) * B], ytr[k * B:(k + 1) * B])
+        res["losses_cpu"].append(cpu.fit(*batch).get_score())
+        res["losses_card"].append(gpu.fit(*batch).get_score())
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(res["losses_card"], res["losses_cpu"]))
+    print(f"train (a): step-1 gradients on the card vs the CPU port: max "
+          f"abs err {res['grad_rel_err']:.3g} of max|grad| (tol {GRAD_TOL}); "
+          f"3 fit losses card {res['losses_card']} vs CPU "
+          f"{res['losses_cpu']} (max rel err {loss_rel:.3g}, tol "
+          f"{LOSS_RTOL}) [{card}]", flush=True)
+    if not (res["grad_rel_err"] <= GRAD_TOL and loss_rel <= LOSS_RTOL
+            and abs(s_gpu - s_cpu) <= LOSS_RTOL * abs(s_cpu)):
+        raise AssertionError("training on the card disagrees with the CPU")
+
+    # (b) the bundled weights' recipe, from the seed
+    net = zoo.init(device="cuda")
+    xs = torch.tensor(xtr[:steps * B].reshape(steps, B, T, -1)).cuda()
+    ys = torch.tensor(ytr[:steps * B].reshape(steps, B, T, -1)).cuda()
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    curve = []
+    for ep in range(epochs):
+        net.fit_scan(xs, ys)
+        if ep % 10 == 9:
+            curve.append(round(net.get_score(), 4))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts_b = ops.launch_counts()
+    n = steps * epochs
+    res.update(recipe_steps=n, recipe_seconds=secs, ms_per_step=secs / n * 1e3,
+               tokens_per_s=n * B * T / secs, loss_every_10_epochs=curve,
+               launches_recipe=counts_b)
+    probs = net.output(xte).float().cpu().numpy()
+    top1 = res["recipe_heldout_top1"] = float(
+        (probs.argmax(-1) == yte.argmax(-1)).mean())
+    print(f"train (b): {n} steps (B={B}, T={T}) in {secs:.1f} s: "
+          f"{res['ms_per_step']:.3f} ms/step, {res['tokens_per_s']:.0f} "
+          f"tokens/s; loss every 10 epochs {curve}; held-out top-1 "
+          f"{top1:.4f} (manifest {HELD_OUT_TOP1}, floor "
+          f"{HELD_OUT_TOP1 - RECIPE_SLACK:.4f}); launches {counts_b} "
+          f"[{card}]", flush=True)
+    if counts_b != {"lstm2_fwd_train": n, "lstm_bwd": 2 * n}:
+        raise AssertionError(f"recipe launches {counts_b}, want "
+                             f"lstm2_fwd_train={n} lstm_bwd={2 * n}")
+    if not top1 >= HELD_OUT_TOP1 - RECIPE_SLACK:
+        raise AssertionError(f"recipe held-out top-1 {top1}")
+
+    # (c) truncated BPTT in chunks of 16 through the single-layer kernels
+    conf = zoo.conf()
+    conf.backprop_type = "tbptt"
+    conf.tbptt_fwd_length = conf.tbptt_back_length = 16
+    tnet = MultiLayerNetwork(conf, device="cuda").init()
+    it = ListDataSetIterator(DataSet(xtr, ytr), B, drop_last=True)
+    before = tnet.score(x=xte, y=yte)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tnet.fit(it, epochs=2)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts_c = ops.launch_counts()
+    after = tnet.score(x=xte, y=yte)
+    want = 2 * (T // 16) * steps * 2       # layers x chunks x batches
+    res.update(tbptt_seconds=secs, tbptt_heldout_loss=[before, after],
+               launches_tbptt=counts_c, tbptt_batches=tnet.iteration)
+    print(f"train (c): tBPTT(16) 2 epochs, {tnet.iteration} batches in "
+          f"{secs:.2f} s; held-out loss {before:.4f} -> {after:.4f}; "
+          f"launches {counts_c} [{card}]", flush=True)
+    if counts_c != {"lstm_fwd_train": want, "lstm_bwd": want}:
+        raise AssertionError(f"tBPTT launches {counts_c}, want {want} each")
+    if not after < before:
+        raise AssertionError("tBPTT training did not lower the loss")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -357,29 +544,38 @@ def main() -> int:
               flush=True)
 
     rows = []
-    for kernel in ("lstm_fwd", "lstm2_fwd"):
+    grid = {"lstm_fwd": (1, 16, 256), "lstm2_fwd": (1, 16, 256),
+            "lstm_fwd_train": (1, 32, 256), "lstm2_fwd_train": (1, 32, 256),
+            "lstm_bwd": (1, 32, 256)}
+    for kernel, batches in grid.items():
         for dtype in ("float32", "bfloat16"):
-            for B in (1, 16, 256):
+            for B in batches:
                 rows.append(kernel_case(kernel, 64, B, 256, dtype))
                 print("kernel: " + fmt(rows[-1]) + f" [{card}]", flush=True)
 
     res = slice_phase(card)
+    t0 = time.perf_counter()
+    train = train_phase(card)
+    train["phase_seconds"] = time.perf_counter() - t0
 
-    # the main path's shapes: /predict of the 15 held-out windows (bucket
-    # 16, T=64) runs K4; rnn_time_step in 16-step chunks of 15 rows runs K1
-    main_shapes = {"lstm2_fwd": (64, 16), "lstm_fwd": (16, 15)}
-    replaces = {
-        "lstm_fwd": "deeplearning4j_tpu/ops/lstm_pallas.py:295",
-        "lstm2_fwd": "deeplearning4j_tpu/ops/lstm_pallas.py:634"}
+    # each kernel at its main path's shape, with the launches of the run
+    # that drove it: /predict of the 15 held-out windows (bucket 16, T=64)
+    # runs K4, rnn_time_step in 16-step chunks of 15 rows K1; the recipe's
+    # steps (B=32, T=64) K4-train and K3; tBPTT chunks (B=32, T=16) K2
+    main_shapes = {"lstm2_fwd": (64, 16, res["launches"]),
+                   "lstm_fwd": (16, 15, res["launches"]),
+                   "lstm2_fwd_train": (64, 32, train["launches_recipe"]),
+                   "lstm_bwd": (64, 32, train["launches_recipe"]),
+                   "lstm_fwd_train": (16, 32, train["launches_tbptt"])}
     entries = []
-    for kernel, (T, B) in main_shapes.items():
+    for kernel, (T, B, counts) in main_shapes.items():
         row = kernel_case(kernel, T, B, 256, "float32", seed=1)
         print("main-path shape: " + fmt(row) + f" [{card}]", flush=True)
         entries.append({
             "name": kernel, "route": "cuda",
-            "source": f"deeplearning4j_tpu_torch/csrc/{kernel}.cu",
-            "replaces": replaces[kernel],
-            "launches": res["launches"].get(kernel, 0),
+            "source": f"deeplearning4j_tpu_torch/csrc/{SOURCES[kernel]}",
+            "replaces": REPLACES[kernel],
+            "launches": counts.get(kernel, 0),
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
@@ -389,7 +585,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-         "kernel_rows": rows, "slice": res, "kernels": entries}, indent=1))
+         "kernel_rows": rows, "slice": res, "train": train,
+         "kernels": entries}, indent=1))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,10 @@
 
 The JAX package beside it is the reference. This package imports neither
 ``jax`` nor ``deeplearning4j_tpu``; its entry points run on CUDA unless the
-caller passes ``device="cpu"``. Ported so far: inference serving of
+caller passes ``device="cpu"``. Ported so far: serving and training of
 sequential networks with LSTM layers (the bundled TextGenerationLSTM),
-through hand-written CUDA kernels for the fused LSTM forward.
+through hand-written CUDA kernels for the fused LSTM forward (inference
+and training modes) and backward.
 """
 
 from deeplearning4j_tpu_torch.models.multi_layer_network import (  # noqa: F401

@@ -1,10 +1,17 @@
-// Two stacked LSTMs on a wavefront, inference mode.
+// Two stacked LSTMs on a wavefront: inference mode (lstm2_fwd) and training
+// mode (lstm2_fwd_train).
 //
-// Replaces: deeplearning4j_tpu/ops/lstm_pallas.py::_fwd2_kernel with
-// save_reserve=False, reached through _fwd2_call (public entry
-// fused_lstm2_sequence). Computes the layer-2 hidden sequence hs2
-// (T, B, H) and the final h1T, c1T, c2T from gate_in1 (T, B, 4H) =
-// x @ W1 + b1 and the weights RW1, W2, b2, RW2.
+// Replaces: deeplearning4j_tpu/ops/lstm_pallas.py::_fwd2_kernel, reached
+// through _fwd2_call (public entry fused_lstm2_sequence), with
+// save_reserve=False and save_reserve=True. Computes the layer-2 hidden
+// sequence hs2 (T, B, H) and the final h1T, c1T, c2T from gate_in1
+// (T, B, 4H) = x @ W1 + b1 and the weights RW1, W2, b2, RW2. The training
+// mode also writes both layers' reserve space -- post-activation gates
+// (T, B, 4H), tanh(c) and c_prev (T, B, H) -- and hs1 (T, B, H), the
+// layer-1 hidden sequence the backward's weight and inter-layer products
+// read. All of them are indexed by unshifted time: slot t of a layer-2
+// reserve belongs to layer-2 step t (what _fused2_fwd builds after its
+// un-shift and epilogue, not the TPU kernel's shifted slots).
 //
 // What bounds it on the card: like the single layer, a chain of T + 1
 // dependent steps separated by grid barriers -- latency at serving
@@ -14,26 +21,35 @@
 // read only h1_{s-1} and h2_{s-2}, which the previous iteration wrote, so
 // one grid barrier per iteration serves both layers: T + 1 barriers
 // instead of 2T. Iteration T runs layer 2 alone (no shifted streams and
-// no epilogue outside the kernel). Block (u, v) owns hidden units
-// [u * hsz, u * hsz + hsz) of BOTH layers and a slice of batch rows, and
-// keeps its columns of RW1, W2 and RW2 in shared memory for the whole
-// sequence. h1 goes through a two-slot exchange buffer; h2 is written
-// straight into hs2, which the next iteration reads. c1 and c2 stay with
-// their owning thread, in registers (float32 scratch when a block has more
-// than one pass of rows).
+// no epilogue outside the kernel); iteration 0 runs layer 1 alone, so
+// layer 2's initial carry is kept without a mask. Block (u, v) owns hidden
+// units [u * hsz, u * hsz + hsz) of BOTH layers and a slice of batch rows,
+// and keeps its columns of RW1, W2 and RW2 in shared memory for the whole
+// sequence. h1 goes through a two-slot exchange buffer (training mode: the
+// hs1 output, which it must write anyway); h2 is written straight into
+// hs2, which the next iteration reads. c1 and c2 stay with their owning
+// thread, in registers (float32 scratch when a block has more than one
+// pass of rows).
 #include "lstm_common.cuh"
 
 using namespace lstm;
 
+// Reserve space of the training mode (unused, null, in inference mode).
 template <typename T>
+struct Reserve2 {
+  T *hs1, *tc1, *cp1, *g1;  // layer 1: h, tanh(c), c_prev, gates
+  T *tc2, *cp2, *g2;        // layer 2: tanh(c), c_prev, gates
+};
+
+template <typename T, bool TRAIN>
 __global__ void __launch_bounds__(MAX_THREADS)
     lstm2_fwd_kernel(const T* __restrict__ gate_in1, const T* __restrict__ rw1,
                      const T* __restrict__ w2, const T* __restrict__ b2,
                      const T* __restrict__ rw2, const T* __restrict__ h01,
                      const T* __restrict__ c01, const T* __restrict__ h02,
                      const T* __restrict__ c02, T* hs2, T* h1T, T* c1T, T* c2T, T* h1buf,
-                     float* c1_s, float* c2_s, int Tn, int B, int H, int hsz,
-                     int kc) {
+                     float* c1_s, float* c2_s, Reserve2<T> res, int Tn, int B, int H,
+                     int hsz, int kc) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
   const int W4 = 4 * hsz, G = 4 * H;
@@ -72,7 +88,9 @@ __global__ void __launch_bounds__(MAX_THREADS)
 
   for (int s = 0; s <= Tn; ++s) {
     const bool do1 = s < Tn, do2 = s >= 1;
-    const T* h1prev = s == 0 ? h01 : h1buf + (size_t)((s - 1) & 1) * B * H;
+    const T* h1prev = s == 0 ? h01
+                      : TRAIN ? res.hs1 + (size_t)(s - 1) * B * H
+                              : h1buf + (size_t)((s - 1) & 1) * B * H;
     const T* h2prev = s <= 1 ? h02 : hs2 + (size_t)(s - 2) * B * H;
     for (int rc = r_begin; rc < r_end; rc += ROWS) {
       const int nrows = min(ROWS, r_end - rc);
@@ -118,11 +136,23 @@ __global__ void __launch_bounds__(MAX_THREADS)
       if (live) {
         if (do1) {
           float c = one_pass ? c1_reg : c1_s[ci];
-          const float h = cell(gate.x + z1.x, gate.y + z1.y, gate.z + z1.z,
-                               gate.w + z1.w, c);
+          const size_t at = ((size_t)s * B + r) * H + j0 + j;
+          float h;
+          if (TRAIN) {
+            res.cp1[at] = from_f32<T>(c);
+            float4 act;
+            float tc;
+            h = cell_train(gate.x + z1.x, gate.y + z1.y, gate.z + z1.z, gate.w + z1.w, c,
+                           act, tc);
+            store_gates(res.g1 + ((size_t)s * B + r) * G + j0 + j, act, H);
+            res.tc1[at] = from_f32<T>(tc);
+            res.hs1[at] = from_f32<T>(h);
+          } else {
+            h = cell(gate.x + z1.x, gate.y + z1.y, gate.z + z1.z, gate.w + z1.w, c);
+            h1buf[(size_t)(s & 1) * B * H + ci] = from_f32<T>(h);
+          }
           if (one_pass) c1_reg = c;
           else c1_s[ci] = c;
-          h1buf[(size_t)(s & 1) * B * H + ci] = from_f32<T>(h);
           if (s == Tn - 1) {
             h1T[ci] = from_f32<T>(h);
             c1T[ci] = from_f32<T>(c);
@@ -130,11 +160,22 @@ __global__ void __launch_bounds__(MAX_THREADS)
         }
         if (do2) {
           float c = one_pass ? c2_reg : c2_s[ci];
-          const float h = cell(z2.x + bias[0], z2.y + bias[1], z2.z + bias[2],
-                               z2.w + bias[3], c);
+          const size_t at = ((size_t)(s - 1) * B + r) * H + j0 + j;
+          float h;
+          if (TRAIN) {
+            res.cp2[at] = from_f32<T>(c);
+            float4 act;
+            float tc;
+            h = cell_train(z2.x + bias[0], z2.y + bias[1], z2.z + bias[2], z2.w + bias[3], c,
+                           act, tc);
+            store_gates(res.g2 + ((size_t)(s - 1) * B + r) * G + j0 + j, act, H);
+            res.tc2[at] = from_f32<T>(tc);
+          } else {
+            h = cell(z2.x + bias[0], z2.y + bias[1], z2.z + bias[2], z2.w + bias[3], c);
+          }
           if (one_pass) c2_reg = c;
           else c2_s[ci] = c;
-          hs2[(size_t)(s - 1) * B * H + ci] = from_f32<T>(h);
+          hs2[at] = from_f32<T>(h);
           if (s == Tn) c2T[ci] = from_f32<T>(c);
         }
       }
@@ -143,12 +184,13 @@ __global__ void __launch_bounds__(MAX_THREADS)
   }
 }
 
-template <typename T>
-static int launch(void* const* in, void* const* out, void* h1buf, void* c1_s, void* c2_s,
-                  int Tn, int B, int H, cudaStream_t stream, int* plan_out) {
-  const void* fn = (const void*)lstm2_fwd_kernel<T>;
+template <typename T, bool TRAIN>
+static int launch(void* const* in, void* const* out, void* const* reserve, void* h1buf,
+                  void* c1_s, void* c2_s, int Tn, int B, int H, cudaStream_t stream,
+                  int* plan_out) {
+  const void* fn = (const void*)lstm2_fwd_kernel<T, TRAIN>;
   Plan p;
-  int e = make_plan(fn, B, H, 3, 2, &p);
+  int e = make_plan(fn, B, H, H, 3, 2, false, &p);
   if (e) return e;
   report_plan(p, plan_out);
   const T *gi = (const T*)in[0], *rw1 = (const T*)in[1], *w2 = (const T*)in[2],
@@ -157,13 +199,32 @@ static int launch(void* const* in, void* const* out, void* h1buf, void* c1_s, vo
   T *hs2 = (T*)out[0], *h1T = (T*)out[1], *c1T = (T*)out[2], *c2T = (T*)out[3];
   T* hb = (T*)h1buf;
   float *c1 = (float*)c1_s, *c2 = (float*)c2_s;
+  Reserve2<T> res{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
+  if (TRAIN)
+    res = Reserve2<T>{(T*)reserve[0], (T*)reserve[1], (T*)reserve[2], (T*)reserve[3],
+                      (T*)reserve[4], (T*)reserve[5], (T*)reserve[6]};
   int hsz = p.hsz, kc = p.kc;
-  void* args[] = {&gi, &rw1, &w2, &b2, &rw2, &h01, &c01, &h02, &c02, &hs2, &h1T,
-                  &c1T, &c2T, &hb, &c1, &c2, &Tn, &B, &H, &hsz, &kc};
+  void* args[] = {&gi,  &rw1, &w2, &b2, &rw2, &h01, &c01, &h02, &c02, &hs2, &h1T, &c1T,
+                  &c2T, &hb,  &c1, &c2, &res, &Tn,  &B,   &H,   &hsz, &kc};
   cudaError_t err = cudaLaunchCooperativeKernel(fn, dim3(p.nu, p.nbb), dim3(p.threads), args,
                                                 p.smem, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+template <bool TRAIN>
+static int dispatch(void* const* in, void* const* out, void* const* reserve, void* h1buf,
+                    void* c1_s, void* c2_s, int T, int B, int H, int dtype, int device,
+                    void* stream, int* plan_out) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == F32)
+    return launch<float, TRAIN>(in, out, reserve, h1buf, c1_s, c2_s, T, B, H, s, plan_out);
+  if (dtype == BF16)
+    return launch<__nv_bfloat16, TRAIN>(in, out, reserve, h1buf, c1_s, c2_s, T, B, H, s,
+                                        plan_out);
+  return ERR_DTYPE;
 }
 
 // in: gate_in1, rw1, w2, b2, rw2, h01, c01, h02, c02 (9 device pointers);
@@ -173,15 +234,19 @@ static int launch(void* const* in, void* const* out, void* h1buf, void* c1_s, vo
 extern "C" int lstm2_fwd(void* const* in, void* const* out, void* h1buf, void* c1_scratch,
                          void* c2_scratch, int T, int B, int H, int dtype, int device,
                          void* stream, int* plan_out) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == F32)
-    return launch<float>(in, out, h1buf, c1_scratch, c2_scratch, T, B, H, s, plan_out);
-  if (dtype == BF16)
-    return launch<__nv_bfloat16>(in, out, h1buf, c1_scratch, c2_scratch, T, B, H, s,
-                                 plan_out);
-  return ERR_DTYPE;
+  return dispatch<false>(in, out, nullptr, h1buf, c1_scratch, c2_scratch, T, B, H, dtype,
+                         device, stream, plan_out);
+}
+
+// As lstm2_fwd, plus the reserve space: reserve holds 7 device pointers in
+// the stream dtype, hs1, tc1, cp1 (T, B, H), g1 (T, B, 4H), tc2, cp2
+// (T, B, H), g2 (T, B, 4H). hs1 is also the layer-1 exchange buffer, so
+// there is no h1buf.
+extern "C" int lstm2_fwd_train(void* const* in, void* const* out, void* const* reserve,
+                               void* c1_scratch, void* c2_scratch, int T, int B, int H,
+                               int dtype, int device, void* stream, int* plan_out) {
+  return dispatch<true>(in, out, reserve, nullptr, c1_scratch, c2_scratch, T, B, H, dtype,
+                        device, stream, plan_out);
 }
 
 extern "C" const char* lstm_error(int code) { return error_text(code); }

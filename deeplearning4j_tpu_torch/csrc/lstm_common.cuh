@@ -1,6 +1,6 @@
-// Shared pieces of the persistent LSTM forward kernels (lstm_fwd.cu,
-// lstm2_fwd.cu): stream-type conversions, the cell math, and the launch
-// plan that sizes a cooperative grid so every block is co-resident.
+// Shared pieces of the persistent LSTM kernels (lstm_fwd.cu, lstm2_fwd.cu,
+// lstm_bwd.cu): stream-type conversions, the cell math, and the launch plan
+// that sizes a cooperative grid so every block is co-resident.
 //
 // Layout contract (the JAX package's, deeplearning4j_tpu/ops/lstm_pallas.py):
 // gate order IFOG, z = gate_in_t + h_{t-1} @ RW, cell math in float32,
@@ -67,6 +67,25 @@ __device__ __forceinline__ float cell(float zi, float zf, float zo, float zg, fl
   const float i = sigmoid(zi), f = sigmoid(zf), o = sigmoid(zo), g = tanhf(zg);
   c = f * c + i * g;
   return o * tanhf(c);
+}
+
+// The same update for training: also hands back the post-activation gates
+// (i, f, o, g) and tanh(c), the reserve space the backward reads.
+__device__ __forceinline__ float cell_train(float zi, float zf, float zo, float zg, float& c,
+                                            float4& act, float& tc) {
+  act = make_float4(sigmoid(zi), sigmoid(zf), sigmoid(zo), tanhf(zg));
+  c = act.y * c + act.x * act.w;
+  tc = tanhf(c);
+  return act.z * tc;
+}
+
+// Store the four gates of one (row, unit) at gate stride H.
+template <typename T>
+__device__ __forceinline__ void store_gates(T* p, const float4& v, int H) {
+  p[0] = from_f32<T>(v.x);
+  p[H] = from_f32<T>(v.y);
+  p[2 * H] = from_f32<T>(v.z);
+  p[3 * H] = from_f32<T>(v.w);
 }
 
 // Stage rows [rc, rc + nrows) x columns [k0, k0 + kn) of one or two (B, H)
@@ -140,20 +159,27 @@ struct Plan {
   size_t smem;
 };
 
-// Pick the widest unit slice, then the deepest h slice, whose weights and
-// tiles fit one block's shared memory and whose grid is co-resident (a
-// cooperative launch refuses a grid that is not). n_mats weight matrices
-// and n_tiles h tiles per block.
-inline int make_plan(const void* kernel, int B, int H, int n_mats, int n_tiles, Plan* p) {
+// Pick the widest unit slice, then the deepest slice of the contraction
+// (length K: H for the forward products, 4H for the backward's), whose
+// weights and tiles fit one block's shared memory and whose grid is
+// co-resident (a cooperative launch refuses a grid that is not). n_mats
+// weight matrices of H * 4 * hsz floats and n_tiles staged tiles per block.
+// With fill_batch a shallower slice is taken when the deeper one leaves the
+// batch fewer blocks than it has row passes (more co-resident blocks).
+inline int make_plan(const void* kernel, int B, int H, int K, int n_mats, int n_tiles,
+                     bool fill_batch, Plan* p) {
   int dev, sms, max_smem;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return (int)e;
+  const int want = (B + ROWS - 1) / ROWS;
   for (int hsz = 8; hsz >= 1; hsz /= 2) {
     const size_t wbytes = (size_t)n_mats * H * 4 * hsz * sizeof(float);
-    for (int kc = H;; kc = kc > 256 ? 256 : kc / 2) {
+    bool found = false;
+    Plan best{};
+    for (int kc = K;; kc = kc > 256 ? 256 : kc / 2) {
       const size_t smem = wbytes + (size_t)n_tiles * ROWS * tile_ld(kc) * sizeof(float);
       if (smem <= (size_t)max_smem) {
         const int threads = hsz * ROWS;
@@ -164,15 +190,23 @@ inline int make_plan(const void* kernel, int B, int H, int n_mats, int n_tiles, 
         e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
         if (e != cudaSuccess) return (int)e;
         const int total = per_sm * sms, nu = (H + hsz - 1) / hsz;
-        if (nu > total) break;  // a shallower h slice does not add blocks
+        if (nu > total) break;  // a shallower slice does not add blocks
         int nbb = total / nu;
-        const int want = (B + ROWS - 1) / ROWS;
         if (nbb > want) nbb = want;
         if (nbb < 1) nbb = 1;
-        *p = Plan{hsz, nu, nbb, threads, kc, smem};
-        return 0;
+        if (!found || nbb > best.nbb) best = Plan{hsz, nu, nbb, threads, kc, smem};
+        found = true;
+        if (!fill_batch || nbb >= want) break;
       }
       if (kc <= 32) break;
+    }
+    if (found) {
+      // the attribute must cover the chosen plan, not the last one tried
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)best.smem);
+      if (e != cudaSuccess) return (int)e;
+      *p = best;
+      return 0;
     }
   }
   return ERR_NO_PLAN;

@@ -1,15 +1,22 @@
-// Single-layer LSTM forward over precomputed gate inputs, inference mode.
+// Single-layer LSTM forward over precomputed gate inputs: inference mode
+// (lstm_fwd) and training mode (lstm_fwd_train).
 //
 // Replaces: deeplearning4j_tpu/ops/lstm_pallas.py::_fwd_inference_kernel,
 // reached through _fwd_call(save_reserve=False) (public entry
-// fused_lstm_sequence). Computes hs (T, B, H) and the final cell state
-// cT (B, H) from gate_in (T, B, 4H) = x @ W + b, RW (H, 4H), h0, c0.
+// fused_lstm_sequence), and ::_fwd_kernel, reached through
+// _fwd_call(save_reserve=True) (the training forward of the custom VJP).
+// Computes hs (T, B, H) and the final cell state cT (B, H) from gate_in
+// (T, B, 4H) = x @ W + b, RW (H, 4H), h0, c0. The training mode also writes
+// the reserve space the backward (lstm_bwd.cu) reads: the post-activation
+// gates (T, B, 4H), tanh(c) (T, B, H) and c_prev (T, B, H), in the stream
+// dtype.
 //
 // What bounds it on the card: the time loop is a chain of T dependent
 // steps, each a small (B, H) x (H, 4H) product followed by a barrier, so at
 // serving shapes it is bound by per-step latency (the barrier and the
 // reads of h through L2), not by bytes or operations. At large B the f32
-// FMA work of the product dominates.
+// FMA work of the product dominates; the training mode adds 6H stream
+// writes per row and step, which overlap the next step's product.
 //
 // Design: ONE persistent cooperative launch runs all T steps (the TPU
 // kernel's sequential grid becomes a loop inside the kernel). Block
@@ -20,16 +27,25 @@
 // which doubles as the exchange buffer: after a grid barrier every block
 // reads the h_{t-1} rows it needs from L2. c never leaves its owner: it is
 // kept in a register (or, when a block has more than one pass of rows, a
-// float32 scratch row only that thread touches).
+// float32 scratch row only that thread touches). The reserve writes are
+// the owner thread's own values, so they need no exchange.
 #include "lstm_common.cuh"
 
 using namespace lstm;
 
+// Reserve space of the training mode (unused, null, in inference mode).
 template <typename T>
+struct Reserve {
+  T* gates;  // (T, B, 4H) post-activation i, f, o, g
+  T* tc;     // (T, B, H) tanh(c_t)
+  T* cprev;  // (T, B, H) c_{t-1}
+};
+
+template <typename T, bool TRAIN>
 __global__ void __launch_bounds__(MAX_THREADS)
     lstm_fwd_kernel(const T* __restrict__ gate_in, const T* __restrict__ rw,
                     const T* __restrict__ h0, const T* __restrict__ c0, T* hs, T* cT,
-                    float* c_s, int Tn, int B, int H, int hsz, int kc) {
+                    float* c_s, Reserve<T> res, int Tn, int B, int H, int hsz, int kc) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
   const int W4 = 4 * hsz, G = 4 * H;
@@ -81,11 +97,22 @@ __global__ void __launch_bounds__(MAX_THREADS)
       }
       if (live) {
         float c = one_pass ? c_reg : c_s[ci];
-        const float h = cell(gate.x + acc.x, gate.y + acc.y, gate.z + acc.z,
-                             gate.w + acc.w, c);
+        const size_t at = ((size_t)t * B + r) * H + j0 + j;
+        float h;
+        if (TRAIN) {
+          res.cprev[at] = from_f32<T>(c);
+          float4 act;
+          float tc;
+          h = cell_train(gate.x + acc.x, gate.y + acc.y, gate.z + acc.z, gate.w + acc.w, c,
+                         act, tc);
+          store_gates(res.gates + ((size_t)t * B + r) * G + j0 + j, act, H);
+          res.tc[at] = from_f32<T>(tc);
+        } else {
+          h = cell(gate.x + acc.x, gate.y + acc.y, gate.z + acc.z, gate.w + acc.w, c);
+        }
         if (one_pass) c_reg = c;
         else c_s[ci] = c;
-        hs[((size_t)t * B + r) * H + j0 + j] = from_f32<T>(h);
+        hs[at] = from_f32<T>(h);
         if (t == Tn - 1) cT[ci] = from_f32<T>(c);
       }
     }
@@ -93,13 +120,13 @@ __global__ void __launch_bounds__(MAX_THREADS)
   }
 }
 
-template <typename T>
+template <typename T, bool TRAIN>
 static int launch(const void* gate_in, const void* rw, const void* h0, const void* c0,
-                  void* hs, void* cT, void* c_s, int Tn, int B, int H, cudaStream_t stream,
-                  int* plan_out) {
-  const void* fn = (const void*)lstm_fwd_kernel<T>;
+                  void* hs, void* cT, void* c_s, void* const* reserve, int Tn, int B, int H,
+                  cudaStream_t stream, int* plan_out) {
+  const void* fn = (const void*)lstm_fwd_kernel<T, TRAIN>;
   Plan p;
-  int e = make_plan(fn, B, H, 1, 1, &p);
+  int e = make_plan(fn, B, H, H, 1, 1, false, &p);
   if (e) return e;
   report_plan(p, plan_out);
   const T* a_gi = (const T*)gate_in;
@@ -109,12 +136,31 @@ static int launch(const void* gate_in, const void* rw, const void* h0, const voi
   T* a_hs = (T*)hs;
   T* a_cT = (T*)cT;
   float* a_cs = (float*)c_s;
+  Reserve<T> res{nullptr, nullptr, nullptr};
+  if (TRAIN) res = Reserve<T>{(T*)reserve[0], (T*)reserve[1], (T*)reserve[2]};
   int hsz = p.hsz, kc = p.kc;
-  void* args[] = {&a_gi, &a_rw, &a_h0, &a_c0, &a_hs, &a_cT, &a_cs, &Tn, &B, &H, &hsz, &kc};
+  void* args[] = {&a_gi, &a_rw, &a_h0, &a_c0, &a_hs, &a_cT, &a_cs, &res,
+                  &Tn,   &B,    &H,    &hsz,  &kc};
   cudaError_t err = cudaLaunchCooperativeKernel(fn, dim3(p.nu, p.nbb), dim3(p.threads), args,
                                                 p.smem, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+template <bool TRAIN>
+static int dispatch(const void* gate_in, const void* rw, const void* h0, const void* c0,
+                    void* hs, void* cT, void* c_s, void* const* reserve, int T, int B, int H,
+                    int dtype, int device, void* stream, int* plan_out) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == F32)
+    return launch<float, TRAIN>(gate_in, rw, h0, c0, hs, cT, c_s, reserve, T, B, H, s,
+                                plan_out);
+  if (dtype == BF16)
+    return launch<__nv_bfloat16, TRAIN>(gate_in, rw, h0, c0, hs, cT, c_s, reserve, T, B, H,
+                                        s, plan_out);
+  return ERR_DTYPE;
 }
 
 // Returns 0, a cudaError_t, or a negative lstm::Err. plan_out (6 ints, may
@@ -122,15 +168,19 @@ static int launch(const void* gate_in, const void* rw, const void* h0, const voi
 extern "C" int lstm_fwd(const void* gate_in, const void* rw, const void* h0, const void* c0,
                         void* hs, void* cT, void* c_scratch, int T, int B, int H, int dtype,
                         int device, void* stream, int* plan_out) {
-  cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return (int)e;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == F32)
-    return launch<float>(gate_in, rw, h0, c0, hs, cT, c_scratch, T, B, H, s, plan_out);
-  if (dtype == BF16)
-    return launch<__nv_bfloat16>(gate_in, rw, h0, c0, hs, cT, c_scratch, T, B, H, s,
-                                 plan_out);
-  return ERR_DTYPE;
+  return dispatch<false>(gate_in, rw, h0, c0, hs, cT, c_scratch, nullptr, T, B, H, dtype,
+                         device, stream, plan_out);
+}
+
+// As lstm_fwd, plus the reserve space: reserve holds 3 device pointers,
+// gates (T, B, 4H), tanh(c) (T, B, H) and c_prev (T, B, H), all in the
+// stream dtype.
+extern "C" int lstm_fwd_train(const void* gate_in, const void* rw, const void* h0,
+                              const void* c0, void* hs, void* cT, void* c_scratch,
+                              void* const* reserve, int T, int B, int H, int dtype, int device,
+                              void* stream, int* plan_out) {
+  return dispatch<true>(gate_in, rw, h0, c0, hs, cT, c_scratch, reserve, T, B, H, dtype,
+                        device, stream, plan_out);
 }
 
 extern "C" const char* lstm_error(int code) { return error_text(code); }

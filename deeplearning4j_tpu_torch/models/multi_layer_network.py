@@ -1,10 +1,22 @@
-"""MultiLayerNetwork -- the sequential container, inference only.
+"""MultiLayerNetwork -- the sequential container.
 
 Counterpart of deeplearning4j_tpu/models/multi_layer_network.py: ``init``,
 the forward with stacked-LSTM pair fusion, ``output``, ``rnn_time_step`` /
 ``rnn_clear_previous_state``, ``init_decode_state`` / ``decode_step``,
+training (``fit`` on arrays, a DataSet or an iterator, ``fit_scan``,
+truncated BPTT, ``compute_gradient_and_score``, ``score``, ``evaluate``),
 ``save`` and ``load``. Parameters are a list of per-layer dicts of tensors
-on the network's device, under the JAX package's keys.
+on the network's device, under the JAX package's keys; the updater state
+is a list of per-layer dicts under the JAX package's optax key paths (see
+nn/updaters.py).
+
+A train step is the JAX package's per-leaf path: the loss (output layer's
+score plus l1/l2), its gradient by autograd (through the LSTM kernels'
+``autograd.Function``s), per-layer gradient normalization, the layer's
+updater (``l.updater or gc.updater``), then its constraints. Not ported
+yet: dropout, weight noise, feature masks, listeners, the fused flat update
+and the bf16 train-precision policy; fitting a network that needs one of
+the first three raises ``NotImplementedError``.
 
 The network runs on CUDA unless constructed with ``device="cpu"``; without
 a card and without that argument, construction raises.
@@ -17,10 +29,13 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.data.dataset import DataSet
 from deeplearning4j_tpu_torch.nn.conf.configuration import \
     MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.layers.rnn import (apply_lstm_pair,
                                                     lstm_pair_fusable)
+from deeplearning4j_tpu_torch.nn.updaters import (make_gradient_transform,
+                                                  normalize_layer_grad)
 from deeplearning4j_tpu_torch.ops import resolve_device
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -48,6 +63,12 @@ class MultiLayerNetwork:
         self.layers = conf.layers
         self.device = resolve_device(device)
         self.params: Optional[List[Dict[str, torch.Tensor]]] = None
+        self.opt_state: Optional[List[Dict[str, torch.Tensor]]] = None
+        self._transforms = None       # per-layer updater (None: no params)
+        self.iteration = 0
+        self.epoch = 0
+        self._epoch_batch = 0         # batches consumed in the current epoch
+        self._score = float("nan")    # last fit loss (tensor until read)
         self._rnn_carries = None      # stored state for rnn_time_step
         self._serving = None          # bucketed inference engine (lazy)
 
@@ -61,13 +82,27 @@ class MultiLayerNetwork:
         dtype = DTYPES[gc.dtype]
         self.params = [{k: v.to(self.device) for k, v in
                         l.init(gen, dtype).items()} for l in self.layers]
-        self._serving = None
+        self._build_optimizer()
         return self
 
     def set_params(self, params: List[Dict[str, torch.Tensor]]):
+        """Install parameters (copied onto the network's device) with a
+        fresh updater state."""
         self.params = [{k: v.to(self.device) for k, v in p.items()}
                        for p in params]
+        self._build_optimizer()
         return self
+
+    def _build_optimizer(self):
+        """One gradient transformation per layer with parameters, from the
+        layer's own updater or the network's; fresh state for each."""
+        gc = self.conf.global_conf
+        self._transforms = [
+            make_gradient_transform(l.updater or gc.updater) if p else None
+            for l, p in zip(self.layers, self.params)]
+        self.opt_state = [t.init(p) if t is not None else {}
+                          for t, p in zip(self._transforms, self.params)]
+        self._serving = None
 
     def _as_input(self, x) -> torch.Tensor:
         if isinstance(x, torch.Tensor):
@@ -75,16 +110,17 @@ class MultiLayerNetwork:
         return torch.as_tensor(np.asarray(x)).to(self.device)
 
     # ----------------------------------------------------------- forward core
-    def _forward(self, params, x, carries=None):
-        """Forward through every layer. Returns (act, new_carries).
+    def _forward(self, params, x, carries=None, upto=None):
+        """Forward through layers [0, upto). Returns (act, new_carries).
         Consecutive stacked LSTMs fuse into ONE wavefront kernel; the
-        stateful-carry path (rnn_time_step) stays per layer."""
+        stateful-carry path (rnn_time_step, truncated BPTT) stays per
+        layer."""
         gc = self.conf.global_conf
         if gc.compute_dtype:
             cdt = DTYPES[gc.compute_dtype]
             x = x.to(cdt)
             params = _cast_floats(params, cdt)
-        n = len(self.layers)
+        n = len(self.layers) if upto is None else upto
         new_carries = list(carries) if carries is not None else None
         i = 0
         while i < n:
@@ -103,6 +139,206 @@ class MultiLayerNetwork:
                 x = l.apply(params[i], x)
             i += 1
         return x, new_carries
+
+    # -------------------------------------------------------------- training
+    def _loss(self, params, x, y, mask_l=None, carries=None):
+        """Output layer's score on the forward of the other layers, plus
+        every layer's l1/l2 penalty. Returns (loss, new_carries)."""
+        out_layer = self.layers[-1]
+        if not hasattr(out_layer, "compute_score"):
+            raise ValueError(
+                f"Last layer {type(out_layer).__name__} has no loss; use an "
+                "OutputLayer/LossLayer variant")
+        act, new_carries = self._forward(params, x, carries,
+                                         upto=len(self.layers) - 1)
+        loss = out_layer.compute_score(params[-1], act, y, mask_l)
+        for l, p in zip(self.layers, params):
+            loss = loss + l.reg_loss(p)
+        if self.conf.global_conf.compute_dtype:
+            loss = loss.float()
+        return loss, new_carries
+
+    def _check_trainable(self):
+        blockers = sorted({b for l in self.layers
+                           for b in l.training_blockers()})
+        if blockers:
+            raise NotImplementedError(
+                f"training with {', '.join(blockers)} is not ported to the "
+                "PyTorch package yet")
+        if self.params is None:
+            raise ValueError("call init() or set_params() before fitting")
+
+    def _gradients(self, x, y, mask_l=None, carries=None):
+        """Loss and per-layer gradients at the current parameters. Returns
+        (loss, grads, new_carries), carries detached."""
+        leaves = [{k: v.detach().requires_grad_(v.is_floating_point())
+                   for k, v in p.items()} for p in self.params]
+        with torch.enable_grad():
+            loss, new_carries = self._loss(leaves, x, y, mask_l, carries)
+            flat = [v for p in leaves for v in p.values()]
+            got = torch.autograd.grad(loss, flat, allow_unused=True) \
+                if flat else ()
+        it = iter(got)
+        grads = []
+        for p in leaves:
+            g = {}
+            for k, v in p.items():
+                gk = next(it)
+                g[k] = torch.zeros_like(v) if gk is None else gk
+            grads.append(g)
+        if new_carries is not None:
+            new_carries = [None if c is None else tuple(t.detach() for t in c)
+                           for c in new_carries]
+        return loss.detach(), grads, new_carries
+
+    def _normalize_grads(self, grads):
+        gc = self.conf.global_conf
+        kind = gc.gradient_normalization
+        if not kind or kind == "None":
+            return grads
+        thr = gc.gradient_normalization_threshold
+        return [normalize_layer_grad(g, kind, thr) for g in grads]
+
+    @torch.no_grad()
+    def _apply_updates(self, grads):
+        """Normalize, run each layer's updater, add, apply constraints."""
+        grads = self._normalize_grads(grads)
+        new_params, new_opt = [], []
+        for l, t, p, o, g in zip(self.layers, self._transforms, self.params,
+                                 self.opt_state, grads):
+            if t is None:
+                new_params.append(p)
+                new_opt.append(o)
+                continue
+            u, o = t.update(g, o, p)
+            new_params.append(l.apply_constraints(
+                {k: (v + u[k]).to(v.dtype) for k, v in p.items()}))
+            new_opt.append(o)
+        self.params, self.opt_state = new_params, new_opt
+
+    def _train_step(self, x, y, mask_l=None, carries=None):
+        loss, grads, new_carries = self._gradients(x, y, mask_l, carries)
+        self._apply_updates(grads)
+        return loss, new_carries
+
+    def compute_gradient_and_score(self, x, y, labels_mask=None):
+        """Gradients of the loss at the current parameters (per-layer
+        dicts, before normalization) and the loss, without an update
+        (parity: computeGradientAndScore)."""
+        self._check_trainable()
+        loss, grads, _ = self._gradients(
+            self._as_input(x), self._as_input(y),
+            None if labels_mask is None else self._as_input(labels_mask))
+        return grads, float(loss)
+
+    def fit(self, data, labels=None, epochs=1):
+        """fit(x, y) | fit(DataSet) | fit(iterator, epochs=N) (parity:
+        MultiLayerNetwork.fit). An iterator is reset before each epoch, as
+        in the JAX package; every batch is one train step (truncated BPTT:
+        one step per chunk)."""
+        self._check_trainable()
+        if labels is not None or isinstance(data, DataSet):
+            return self._fit_batch(data if labels is None
+                                   else DataSet(data, labels))
+        for _ in range(epochs):
+            if hasattr(data, "reset"):
+                data.reset()
+            for batch in data:
+                self._fit_batch(batch if isinstance(batch, DataSet)
+                                else DataSet(*batch))
+            self.epoch += 1
+            self._epoch_batch = 0
+        return self
+
+    def fit_scan(self, xs, ys):
+        """``xs.shape[0]`` train steps over a leading step axis: xs (n_steps,
+        batch, ...), ys (n_steps, batch, ...). The JAX package runs them as
+        one compiled scan; here they are a loop with the same math."""
+        if self.conf.backprop_type == "tbptt":
+            raise ValueError(
+                "fit_scan runs full-sequence backprop; a net configured for "
+                "truncated BPTT must use fit() (the tbptt chunking path)")
+        self._check_trainable()
+        xs, ys = self._as_input(xs), self._as_input(ys)
+        for k in range(xs.shape[0]):
+            self._score, _ = self._train_step(xs[k], ys[k])
+        self.iteration += int(xs.shape[0])
+        self._epoch_batch += int(xs.shape[0])
+        return self
+
+    def _fit_batch(self, ds: DataSet):
+        if ds.features_mask is not None:
+            raise NotImplementedError(
+                "training with feature masks is not ported to the PyTorch "
+                "package yet")
+        x, y = self._as_input(ds.features), self._as_input(ds.labels)
+        ml = None if ds.labels_mask is None else self._as_input(ds.labels_mask)
+        if self.conf.backprop_type == "tbptt" and x.ndim == 3:
+            self._fit_tbptt(x, y, ml)
+        else:
+            self._score, _ = self._train_step(x, y, ml)
+        self.iteration += 1
+        self._epoch_batch += 1
+        return self
+
+    def _fit_tbptt(self, x, y, ml):
+        """Truncated BPTT (parity: doTruncatedBPTT): one train step per
+        chunk of tbptt_fwd_length steps, the RNN state carried across
+        chunks and entering each detached; the score is the mean of the
+        chunk losses."""
+        T, L = x.shape[1], self.conf.tbptt_fwd_length
+        carries = [None] * len(self.layers)
+        losses = []
+        for start in range(0, T, L):
+            ys = y[:, start:start + L] if y.ndim == 3 else y
+            mls = None if ml is None else ml[:, start:start + L]
+            loss, carries = self._train_step(x[:, start:start + L], ys, mls,
+                                             carries)
+            losses.append(loss)
+        self._score = torch.stack(losses).mean()
+
+    @torch.no_grad()
+    def score(self, ds: Optional[DataSet] = None, x=None, y=None) -> float:
+        """Loss on a dataset, l1/l2 included (parity: score)."""
+        ml = None
+        if ds is not None:
+            if ds.features_mask is not None:
+                raise NotImplementedError(
+                    "feature masks are not ported to the PyTorch package yet")
+            x, y, ml = ds.features, ds.labels, ds.labels_mask
+        loss, _ = self._loss(self.params, self._as_input(x),
+                             self._as_input(y),
+                             None if ml is None else self._as_input(ml))
+        return float(loss)
+
+    def get_score(self) -> float:
+        """The last fit's loss (a host read of the device scalar)."""
+        self._score = float(self._score)
+        return self._score
+
+    def evaluate(self, data, labels=None):
+        """Classification evaluation (parity: evaluate): accuracy,
+        precision, recall, F1 and the confusion matrix over the batches,
+        each through the bucketed ``output``."""
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+        ev = Evaluation()
+        if labels is not None:
+            data = [DataSet(data, labels)]
+        elif isinstance(data, DataSet):
+            data = [data]
+        elif hasattr(data, "reset"):
+            data.reset()
+        for ds in data:
+            if not isinstance(ds, DataSet):
+                ds = DataSet(*ds)
+            if ds.features_mask is not None:
+                raise NotImplementedError(
+                    "feature masks are not ported to the PyTorch package yet")
+            out = self.output(ds.features)
+            ev.eval(np.asarray(ds.labels), out.float().cpu().numpy(),
+                    None if ds.labels_mask is None
+                    else np.asarray(ds.labels_mask))
+        return ev
 
     # ------------------------------------------------------------- inference
     def serving_engine(self, **kw):
@@ -164,12 +400,13 @@ class MultiLayerNetwork:
         return x, new_d
 
     # ------------------------------------------------------------- utilities
-    def save(self, path):
+    def save(self, path, save_updater=True):
         from deeplearning4j_tpu_torch.util.model_serializer import write_model
-        write_model(self, path)
+        write_model(self, path, save_updater)
 
     @staticmethod
-    def load(path, device=None) -> "MultiLayerNetwork":
+    def load(path, device=None, load_updater=True) -> "MultiLayerNetwork":
         from deeplearning4j_tpu_torch.util.model_serializer import \
             restore_multi_layer_network
-        return restore_multi_layer_network(path, device=device)
+        return restore_multi_layer_network(path, device=device,
+                                           load_updater=load_updater)

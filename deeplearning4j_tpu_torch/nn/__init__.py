@@ -1,1 +1,1 @@
-"""Layers, configuration and initialisers (inference)."""
+"""Layers, configuration, initialisers, losses and updaters."""

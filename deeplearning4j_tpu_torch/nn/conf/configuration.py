@@ -2,19 +2,20 @@
 
 Counterpart of deeplearning4j_tpu/nn/conf/configuration.py for sequential
 networks. The JSON is the same document, so a configuration saved by one
-package reads in the other. Updaters, dropout objects and weight noise are
-kept as the dicts the JSON holds; the port serves inference and does not
-interpret them.
+package reads in the other. Updaters are ``nn.updaters.Updater`` objects
+(interpreted by ``fit``); dropout objects and weight noise are kept as the
+dicts the JSON holds.
 
 Usage:
     conf = (NeuralNetConfiguration.builder()
             .seed(123)
-            .updater(updater_dict("Adam", 1e-3))
+            .updater(Adam(1e-3))
             .weight_init("xavier")
             .list()
             .layer(LSTM(n_out=256, activation="tanh"))
             .layer(RnnOutputLayer(n_out=51, activation="softmax"))
             .set_input_type(InputType.recurrent(51))
+            .backprop_type("tbptt", 16, 16)
             .build())
 """
 
@@ -28,29 +29,18 @@ from typing import Any, List, Optional
 
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, layer_from_dict
-
-_UPDATER_DEFAULTS = {
-    "Sgd": {},
-    "Adam": {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-08},
-}
-
-
-def updater_dict(kind: str, learning_rate: float) -> dict:
-    """An updater as the JSON stores it (the JAX package's
-    ``Updater.to_dict``), for the kinds the bundled models use."""
-    return {"learning_rate": learning_rate, "schedule": None,
-            **_UPDATER_DEFAULTS[kind], "@type": kind}
+from deeplearning4j_tpu_torch.nn.updaters import Sgd, Updater
 
 
 @dataclass
 class GlobalConf:
-    """Network-level defaults + training semantics (kept as data)."""
+    """Network-level defaults + training semantics."""
     seed: int = 12345
     activation: str = "sigmoid"
     weight_init: str = "xavier"
     dist: Optional[tuple] = None
     bias_init: float = 0.0
-    updater: dict = dc_field(default_factory=lambda: updater_dict("Sgd", 1e-3))
+    updater: Updater = dc_field(default_factory=lambda: Sgd(1e-3))
     l1: float = 0.0
     l2: float = 0.0
     dropout: Any = 0.0
@@ -72,11 +62,14 @@ class GlobalConf:
                 "dropout": self.dropout, "weight_noise": self.weight_noise}
 
     def to_dict(self):
-        return dataclasses.asdict(self)
+        d = dataclasses.asdict(dataclasses.replace(self, updater=None))
+        d["updater"] = self.updater.to_dict()
+        return d
 
     @staticmethod
     def from_dict(d):
         d = dict(d)
+        d["updater"] = Updater.from_dict(d["updater"])
         if d.get("dist") is not None:
             d["dist"] = tuple(d["dist"])
         return GlobalConf(**d)
@@ -103,8 +96,17 @@ class Builder:
             self._g.dist = tuple(dist)
         return self
 
-    def updater(self, u: dict):
-        self._g.updater = dict(u); return self
+    def updater(self, u):
+        """An ``Updater``, or its JSON dict."""
+        self._g.updater = u if isinstance(u, Updater) else \
+            Updater.from_dict(u)
+        return self
+
+    def l1(self, v):
+        self._g.l1 = float(v); return self
+
+    def l2(self, v):
+        self._g.l2 = float(v); return self
 
     def gradient_normalization(self, kind, threshold=1.0):
         self._g.gradient_normalization = kind
@@ -122,6 +124,9 @@ class ListBuilder:
         self._g = g
         self._layers: List[Layer] = []
         self._input_type: Optional[InputType] = None
+        self._backprop_type = "standard"
+        self._tbptt_fwd = 20
+        self._tbptt_bwd = 20
 
     def layer(self, l: Layer):
         self._layers.append(l)
@@ -131,11 +136,25 @@ class ListBuilder:
         self._input_type = it
         return self
 
+    def backprop_type(self, t, tbptt_fwd=20, tbptt_bwd=20):
+        """'standard' or 'tbptt' (truncated BPTT in chunks of tbptt_fwd
+        steps)."""
+        self._backprop_type = t
+        self._tbptt_fwd, self._tbptt_bwd = tbptt_fwd, tbptt_bwd
+        return self
+
+    def t_bptt_length(self, n):
+        self._backprop_type = "tbptt"
+        self._tbptt_fwd = self._tbptt_bwd = n
+        return self
+
     def build(self) -> "MultiLayerConfiguration":
         conf = MultiLayerConfiguration(
             global_conf=copy.deepcopy(self._g),
             layers=[copy.deepcopy(l) for l in self._layers],
-            input_type=self._input_type)
+            input_type=self._input_type, backprop_type=self._backprop_type,
+            tbptt_fwd_length=self._tbptt_fwd,
+            tbptt_back_length=self._tbptt_bwd)
         conf.finalize()
         return conf
 
@@ -146,7 +165,7 @@ class MultiLayerConfiguration:
     global_conf: GlobalConf = dc_field(default_factory=GlobalConf)
     layers: List[Layer] = dc_field(default_factory=list)
     input_type: Optional[InputType] = None
-    backprop_type: str = "standard"
+    backprop_type: str = "standard"     # 'standard' | 'tbptt'
     tbptt_fwd_length: int = 20
     tbptt_back_length: int = 20
     _finalized: bool = False

@@ -1,6 +1,6 @@
 from deeplearning4j_tpu_torch.nn.layers.base import (  # noqa: F401
     LAYER_REGISTRY, Layer, layer_from_dict, register_layer)
 from deeplearning4j_tpu_torch.nn.layers.core import (  # noqa: F401
-    DenseLayer, OutputLayer)
+    DenseLayer, LossLayer, OutputLayer)
 from deeplearning4j_tpu_torch.nn.layers.rnn import (  # noqa: F401
-    LSTM, RnnOutputLayer, apply_lstm_pair, lstm_pair_fusable)
+    LSTM, RnnLossLayer, RnnOutputLayer, apply_lstm_pair, lstm_pair_fusable)

@@ -1,16 +1,19 @@
 """Layer base protocol, registry and JSON serde.
 
-Counterpart of deeplearning4j_tpu/nn/layers/base.py, inference only. A
-layer is a dataclass holding its configuration; its parameters are a plain
-dict of tensors under the JAX package's keys (``W``, ``RW``, ``b``), so a
-checkpoint's arrays load into either package. Updaters, dropout and weight
-noise are kept as the JSON data they arrive as (training is not ported).
+Counterpart of deeplearning4j_tpu/nn/layers/base.py. A layer is a
+dataclass holding its configuration; its parameters are a plain dict of
+tensors under the JAX package's keys (``W``, ``RW``, ``b``), so a
+checkpoint's arrays load into either package. A layer's updater is an
+``nn.updaters.Updater`` (the JSON's dict is read into one); dropout and
+weight noise are kept as the JSON data they arrive as (not ported yet:
+training a network that uses them raises).
 
 Protocol:
 - ``set_n_in(input_type)`` -- infer input width.
 - ``output_type(input_type)`` -- shape inference.
 - ``init(gen, dtype, device)`` -- parameter dict ({} if parameterless).
 - ``apply(params, x)`` -- the forward.
+- ``reg_loss(params)`` / ``apply_constraints(params)`` -- training.
 - ``init_decode_state`` / ``decode_step`` -- one token at a time.
 """
 
@@ -23,6 +26,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.updaters import Updater
 
 LAYER_REGISTRY: Dict[str, type] = {}
 
@@ -46,7 +50,7 @@ class Layer:
     weight_init: Optional[str] = None
     dist: Optional[tuple] = None            # for weight_init='distribution'
     bias_init: Optional[float] = None
-    updater: Optional[dict] = None           # kept as data
+    updater: Optional[Updater] = None
     l1: Optional[float] = None
     l2: Optional[float] = None
     dropout: Optional[Any] = None            # kept as data
@@ -60,10 +64,13 @@ class Layer:
                 setattr(self, f, defaults[f])
 
     def validate(self) -> None:
-        """Fail fast on an unknown activation name at build time."""
+        """Fail fast on an unknown activation or loss name at build time."""
         from deeplearning4j_tpu_torch.nn.activations import get_activation
         if getattr(self, "activation", None) is not None:
             get_activation(self.activation)
+        if getattr(self, "loss", None) is not None:
+            from deeplearning4j_tpu_torch.nn.losses import get_loss
+            get_loss(self.loss)
 
     def set_n_in(self, input_type: InputType) -> None:
         pass
@@ -82,6 +89,59 @@ class Layer:
     def has_params(self) -> bool:
         return True
 
+    # ---- training ---------------------------------------------------------
+    def reg_loss(self, params):
+        """l1/l2 penalty the container adds to the loss; biases and
+        normalisation parameters are exempt, as in the reference."""
+        l1 = self.l1 or 0.0
+        l2 = self.l2 or 0.0
+        if (l1 == 0.0 and l2 == 0.0) or not params:
+            return 0.0
+        total = 0.0
+        for k, v in params.items():
+            if k.startswith("b") or k in ("beta", "gamma", "mean", "var"):
+                continue
+            total = total + l1 * v.abs().sum() + 0.5 * l2 * (v ** 2).sum()
+        return total
+
+    def apply_constraints(self, params):
+        """Post-update parameter constraints (parity: nn/conf/constraint/*):
+        ('maxnorm', m), ('unitnorm',), ('nonneg',), ('minmaxnorm', lo, hi),
+        over every axis but the last; biases are exempt."""
+        if not self.constraints or not params:
+            return params
+        kind = self.constraints[0]
+        arg = self.constraints[1] if len(self.constraints) > 1 else 1.0
+        out = dict(params)
+        for k, v in params.items():
+            if k.startswith("b"):
+                continue
+            if kind == "nonneg":
+                out[k] = torch.clamp(v, min=0.0)
+                continue
+            axes = tuple(range(v.ndim - 1))
+            n = torch.sqrt((v ** 2).sum(dim=axes, keepdim=True))
+            if kind == "maxnorm":
+                out[k] = v * torch.clamp(n, 0, arg) / torch.clamp(n, min=1e-8)
+            elif kind == "unitnorm":
+                out[k] = v / torch.clamp(n, min=1e-8)
+            elif kind == "minmaxnorm":
+                lo, hi = self.constraints[1], self.constraints[2]
+                out[k] = v * torch.clamp(n, lo, hi) / torch.clamp(n, min=1e-8)
+        return out
+
+    def training_blockers(self):
+        """Configured features whose training is not ported yet: fitting a
+        network with any of them raises instead of training something
+        different."""
+        out = []
+        if self.dropout and not (isinstance(self.dropout, (int, float))
+                                 and self.dropout <= 0.0):
+            out.append("dropout")
+        if self.weight_noise is not None:
+            out.append("weight noise")
+        return out
+
     # ---- incremental decode protocol --------------------------------------
     def init_decode_state(self, params, batch: int, dtype=torch.float32,
                           device=None):
@@ -97,7 +157,7 @@ class Layer:
         d = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
-            if isinstance(v, Layer):
+            if isinstance(v, (Layer, Updater)):
                 v = v.to_dict()
             elif isinstance(v, tuple):
                 v = list(v)
@@ -112,7 +172,9 @@ class Layer:
         for k, v in d.items():
             if k not in fields:
                 continue
-            if isinstance(v, dict) and "@type" in v and k != "updater":
+            if k == "updater" and isinstance(v, dict):
+                v = Updater.from_dict(v)
+            elif isinstance(v, dict) and "@type" in v:
                 v = layer_from_dict(v)
             elif isinstance(v, list):
                 v = tuple(v)

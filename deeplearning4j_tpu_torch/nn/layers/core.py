@@ -1,7 +1,8 @@
-"""Core feed-forward layers: DenseLayer and OutputLayer.
+"""Core feed-forward layers: DenseLayer, OutputLayer and LossLayer.
 
 Counterpart of deeplearning4j_tpu/nn/layers/core.py (parameter keys ``W``
-(n_in, n_out) and ``b``, as the reference's DefaultParamInitializer).
+(n_in, n_out) and ``b``, as the reference's DefaultParamInitializer). The
+output layers' ``compute_score`` is the loss ``fit`` differentiates.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from deeplearning4j_tpu_torch.nn.activations import get_activation
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import (Layer, register_layer,
                                                      require_dims)
+from deeplearning4j_tpu_torch.nn.losses import get_loss
 from deeplearning4j_tpu_torch.nn.weights import init_weights
 
 
@@ -58,6 +60,42 @@ class DenseLayer(Layer):
 @register_layer
 @dataclass
 class OutputLayer(DenseLayer):
-    """Dense + loss head. The loss name is kept for the configuration; the
-    port serves inference only."""
+    """Dense + loss head (parity: nn/conf/layers/OutputLayer.java). The
+    container calls ``compute_score`` with labels during training."""
     loss: str = "mcxent"
+
+    def compute_score(self, params, x, labels, mask=None):
+        if x.ndim >= 4 or (x.ndim == 3 and x.shape[-1] != self.n_in):
+            x = x.reshape(x.shape[0], -1)
+        w = params["W"]
+        # a lower-precision activation meets the stored weights in the wider
+        # type, as jnp promotion does
+        x = x.to(torch.promote_types(x.dtype, w.dtype))
+        pre = x @ w
+        if self.has_bias:
+            pre = pre + params["b"]
+        if pre.ndim == 3:  # (B, T, C) time-distributed loss
+            B, T, C = pre.shape
+            pre = pre.reshape(B * T, C)
+            labels = labels.reshape(B * T, -1)
+            if mask is not None:
+                mask = mask.reshape(B * T)
+        return get_loss(self.loss)(labels, pre, self.activation or "softmax",
+                                   mask)
+
+
+@register_layer
+@dataclass
+class LossLayer(Layer):
+    """Loss-only head, no params (parity: nn/conf/layers/LossLayer.java)."""
+    loss: str = "mcxent"
+
+    def has_params(self):
+        return False
+
+    def apply(self, params, x):
+        return get_activation(self.activation or "identity")(x)
+
+    def compute_score(self, params, x, labels, mask=None):
+        return get_loss(self.loss)(labels, x, self.activation or "identity",
+                                   mask)

@@ -1,12 +1,15 @@
-"""Recurrent layers: LSTM and RnnOutputLayer.
+"""Recurrent layers: LSTM, RnnOutputLayer and RnnLossLayer.
 
-Counterpart of deeplearning4j_tpu/nn/layers/rnn.py, inference only. The
-input-to-gate projection for the whole sequence is one (B*T, C) x (C, 4H)
+Counterpart of deeplearning4j_tpu/nn/layers/rnn.py. The input-to-gate
+projection for the whole sequence is one (B*T, C) x (C, 4H)
 ``torch.matmul`` outside the time loop; the loop itself is the fused
-kernel (ops.fused_lstm_sequence, or ops.fused_lstm2_sequence for two
-stacked layers) whenever the layer's configuration is the one the kernel
-computes. Parameter keys: ``W`` input weights, ``RW`` recurrent weights,
-``b`` bias, gate order IFOG.
+kernel whenever the layer's configuration is the one the kernel computes:
+``ops.lstm_sequence`` (``ops.lstm2_sequence`` for two stacked layers),
+which runs the inference kernel K1 (K4) under ``no_grad`` and the training
+kernels K2 (K4-train) with the backward K3 when autograd records. Other
+configurations run the layer's own ``_cell`` loop, which autograd
+differentiates. Parameter keys: ``W`` input weights, ``RW`` recurrent
+weights, ``b`` bias, gate order IFOG.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import (register_layer,
                                                      require_dims, Layer)
 from deeplearning4j_tpu_torch.nn.layers.core import OutputLayer
+from deeplearning4j_tpu_torch.nn.losses import get_loss
 from deeplearning4j_tpu_torch.nn.weights import init_weights
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
@@ -90,7 +94,7 @@ class LSTM(Layer):
         dt = h0.dtype
         gate_in = _gate_inputs(params, x, dt)
         if self.fused_supported(dt):
-            hs, c_last = ops.fused_lstm_sequence(
+            hs, c_last = ops.lstm_sequence(
                 gate_in, params["RW"].to(dt).contiguous(), h0.contiguous(),
                 c0.contiguous())
             return hs.transpose(0, 1), (hs[-1], c_last)
@@ -104,7 +108,8 @@ class LSTM(Layer):
         return self.apply_with_carry(params, x)[0]
 
     def apply_with_carry(self, params, x, carry=None):
-        """Stateful inference (parity: rnnTimeStep): returns (y, (h, c))."""
+        """Run from a carried state (parity: rnnTimeStep, and the chunks of
+        truncated BPTT): returns (y, (h, c))."""
         if carry is None:
             dt = torch.promote_types(x.dtype, params["W"].dtype)
             z = torch.zeros((x.shape[0], self.n_out), dtype=dt,
@@ -147,7 +152,7 @@ def apply_lstm_pair(l1, l2, p1, p2, x):
                              p2["W"].dtype)
     gate_in1 = _gate_inputs(p1, x, dt)
     z = torch.zeros((x.shape[0], l1.n_out), dtype=dt, device=x.device)
-    hs2, _, _, _ = ops.fused_lstm2_sequence(
+    hs2, _, _, _ = ops.lstm2_sequence(
         gate_in1, p1["RW"].to(dt).contiguous(), p2["W"].to(dt).contiguous(),
         p2["b"].to(dt).contiguous(), p2["RW"].to(dt).contiguous(), z, z, z, z)
     return hs2.transpose(0, 1)
@@ -166,3 +171,23 @@ class RnnOutputLayer(OutputLayer):
         if self.has_bias:
             y = y + params["b"]
         return get_activation(self.activation or "softmax")(y)
+
+
+@register_layer
+@dataclass
+class RnnLossLayer(Layer):
+    """Parameterless time-distributed loss over (B, T, C)."""
+    loss: str = "mcxent"
+
+    def has_params(self):
+        return False
+
+    def apply(self, params, x):
+        return get_activation(self.activation or "identity")(x)
+
+    def compute_score(self, params, x, labels, mask=None):
+        B, T = x.shape[0], x.shape[1]
+        return get_loss(self.loss)(
+            labels.reshape(B * T, -1), x.reshape(B * T, -1),
+            self.activation or "identity",
+            None if mask is None else mask.reshape(B * T))

@@ -52,8 +52,12 @@ def reset_launch_counts() -> None:
 
 
 from deeplearning4j_tpu_torch.ops.lstm_cuda import (  # noqa: E402
-    fused_lstm2_sequence, fused_lstm_sequence)
+    FusedLSTM, FusedLSTM2, fused_lstm2_sequence, fused_lstm2_sequence_train,
+    fused_lstm_backward, fused_lstm_sequence, fused_lstm_sequence_train,
+    lstm2_sequence, lstm_sequence)
 
 __all__ = ["resolve_device", "count_launch", "launch_counts",
            "reset_launch_counts", "fused_lstm_sequence",
-           "fused_lstm2_sequence"]
+           "fused_lstm_sequence_train", "fused_lstm_backward",
+           "fused_lstm2_sequence", "fused_lstm2_sequence_train", "FusedLSTM",
+           "FusedLSTM2", "lstm_sequence", "lstm2_sequence"]

@@ -1,12 +1,15 @@
 """Model persistence: the JAX package's zip checkpoint, read and written.
 
 Counterpart of deeplearning4j_tpu/util/model_serializer.py for sequential
-networks. The zip holds ``meta.json``, ``configuration.json``,
-``coefficients.npz`` (one array per parameter under keys like ``0/RW`` --
-layer index / parameter name) and ``modelState.npz``. Arrays go through
-numpy, so a zip written by either package loads in the other. Writing to
-a path is atomic: staged to a temp file, fsynced, then renamed over the
-destination.
+networks. The zip holds ``meta.json`` (with the ``iteration``, ``epoch``
+and ``epoch_batch`` counters), ``configuration.json``, ``coefficients.npz``
+(one array per parameter under keys like ``0/RW`` -- layer index /
+parameter name), ``modelState.npz`` and, when saved, ``updaterState.npz``
+(the updater state under the JAX package's optax key paths, e.g.
+``0/0/.mu/W`` -- layer index / chain index / field / parameter). Arrays go
+through numpy, so a zip written by either package loads, and resumes
+training, in the other. Writing to a path is atomic: staged to a temp
+file, fsynced, then renamed over the destination.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from deeplearning4j_tpu_torch.resilience.errors import CorruptCheckpointError
 CONFIG_NAME = "configuration.json"
 COEFF_NAME = "coefficients.npz"
 STATE_NAME = "modelState.npz"
+UPDATER_NAME = "updaterState.npz"
 META_NAME = "meta.json"
 KIND = "MultiLayerNetwork"
 
@@ -62,10 +66,15 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def write_model(model, path):
-    """Write ``model`` (a MultiLayerNetwork) to a checkpoint zip."""
-    flat = {f"{i}/{k}": _to_numpy(v)
-            for i, p in enumerate(model.params) for k, v in p.items()}
+def _flatten(per_layer) -> dict:
+    return {f"{i}/{k}": _to_numpy(v)
+            for i, p in enumerate(per_layer) for k, v in p.items()}
+
+
+def write_model(model, path, save_updater=True):
+    """Write ``model`` (a MultiLayerNetwork) to a checkpoint zip, with its
+    updater state unless ``save_updater`` is False."""
+    flat = _flatten(model.params)
     path = os.fspath(path)
     tmp = os.path.join(os.path.dirname(os.path.abspath(path)),
                        f".{os.path.basename(path)}.tmp.{os.getpid()}")
@@ -74,10 +83,14 @@ def write_model(model, path):
             with zipfile.ZipFile(fh, "w", zipfile.ZIP_DEFLATED) as z:
                 z.writestr(META_NAME, json.dumps({
                     "format": "deeplearning4j_tpu/model/v1", "kind": KIND,
-                    "iteration": 0, "epoch": 0, "epoch_batch": 0}))
+                    "iteration": int(model.iteration),
+                    "epoch": int(model.epoch),
+                    "epoch_batch": int(model._epoch_batch)}))
                 z.writestr(CONFIG_NAME, model.conf.to_json())
                 _savez(z, COEFF_NAME, flat)
                 _savez(z, STATE_NAME, {})
+                if save_updater and model.opt_state is not None:
+                    _savez(z, UPDATER_NAME, _flatten(model.opt_state))
             fh.flush()
             os.fsync(fh.fileno())
         os.replace(tmp, path)
@@ -89,10 +102,33 @@ def write_model(model, path):
         raise
 
 
-def restore_multi_layer_network(path, device=None):
+def _fill(path, member, flat, templates):
+    """Arrays of ``flat`` shaped and typed like ``templates`` (per-layer
+    dicts), keyed ``layer/key``; a missing or misshapen array raises."""
+    out = []
+    for i, tmpl in enumerate(templates):
+        p = {}
+        for k, t in tmpl.items():
+            key = f"{i}/{k}"
+            if key not in flat:
+                raise CorruptCheckpointError(path, member=member,
+                                             detail=f"missing array {key!r}")
+            arr = flat[key]
+            if tuple(arr.shape) != tuple(t.shape):
+                raise CorruptCheckpointError(
+                    path, member=member,
+                    detail=f"{key!r} has shape {arr.shape}, the "
+                           f"configuration needs {tuple(t.shape)}")
+            p[k] = torch.as_tensor(arr).to(device=t.device, dtype=t.dtype)
+        out.append(p)
+    return out
+
+
+def restore_multi_layer_network(path, device=None, load_updater=True):
     """Build the network the zip describes on ``device`` and load its
-    parameters. Every array the configuration needs must be present with
-    the shape the configuration gives it."""
+    parameters, counters and (when the zip has it and ``load_updater``)
+    updater state. Every array the configuration needs must be present
+    with the shape the configuration gives it."""
     from deeplearning4j_tpu_torch.models.multi_layer_network import (
         DTYPES, MultiLayerNetwork)
     from deeplearning4j_tpu_torch.nn.conf.configuration import (
@@ -112,23 +148,16 @@ def restore_multi_layer_network(path, device=None):
         conf = MultiLayerConfiguration.from_json(
             _read_member(z, path, CONFIG_NAME).decode())
         flat = _loadz(z, path, COEFF_NAME)
+        upd = (_loadz(z, path, UPDATER_NAME)
+               if load_updater and UPDATER_NAME in z.namelist() else None)
     model = MultiLayerNetwork(conf, device=device)
     gen = torch.Generator().manual_seed(0)
     dtype = DTYPES[conf.global_conf.dtype]
-    params = []
-    for i, layer in enumerate(model.layers):
-        p = {}
-        for k, template in layer.init(gen, dtype).items():
-            key = f"{i}/{k}"
-            if key not in flat:
-                raise CorruptCheckpointError(path, member=COEFF_NAME,
-                                             detail=f"missing array {key!r}")
-            arr = flat[key]
-            if tuple(arr.shape) != tuple(template.shape):
-                raise CorruptCheckpointError(
-                    path, member=COEFF_NAME,
-                    detail=f"{key!r} has shape {arr.shape}, the "
-                           f"configuration needs {tuple(template.shape)}")
-            p[k] = torch.as_tensor(arr).to(template.dtype)
-        params.append(p)
-    return model.set_params(params)
+    model.set_params(_fill(path, COEFF_NAME, flat,
+                           [l.init(gen, dtype) for l in model.layers]))
+    if upd is not None:
+        model.opt_state = _fill(path, UPDATER_NAME, upd, model.opt_state)
+    model.iteration = int(meta.get("iteration", 0))
+    model.epoch = int(meta.get("epoch", 0))
+    model._epoch_batch = int(meta.get("epoch_batch", 0))
+    return model

@@ -7,10 +7,11 @@ zoo/model/TextGenerationLSTM.java).
 
 from __future__ import annotations
 
-from deeplearning4j_tpu_torch.nn.conf.configuration import (
-    NeuralNetConfiguration, updater_dict)
+from deeplearning4j_tpu_torch.nn.conf.configuration import \
+    NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers import LSTM, RnnOutputLayer
+from deeplearning4j_tpu_torch.nn.updaters import Adam
 from deeplearning4j_tpu_torch.zoo.zoo_model import ZooModel
 
 
@@ -31,7 +32,7 @@ class TextGenerationLSTM(ZooModel):
         vocab = self.input_shape[0]
         return (NeuralNetConfiguration.builder()
                 .seed(self.seed)
-                .updater(updater_dict("Adam", 1e-3))
+                .updater(Adam(1e-3))
                 .weight_init("xavier")
                 .gradient_normalization("ClipElementWiseAbsoluteValue", 10.0)
                 .list()

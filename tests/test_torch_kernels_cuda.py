@@ -1,11 +1,14 @@
-"""The port's CUDA kernels (K1 csrc/lstm_fwd.cu, K4 csrc/lstm2_fwd.cu)
-against their plain PyTorch versions on the card.
+"""The port's CUDA kernels -- K1 and K2 (csrc/lstm_fwd.cu, inference and
+training modes), K4 and K4-train (csrc/lstm2_fwd.cu), K3 (csrc/lstm_bwd.cu)
+-- against their plain PyTorch versions on the card, and the autograd
+functions' gradients on the card against the same on the CPU.
 
 Marked ``cuda``: they skip without a card, since a CUDA kernel has no CPU
 mode. On a machine with one (and ``nvcc``) they run with the usual
 ``python -m pytest tests/test_torch_kernels_cuda.py``; this file imports no
 JAX, so it runs where only the port is installed. Tolerances as in
-chip_smoke.py: float32 1e-4, bfloat16 3e-2 on every output.
+chip_smoke.py: float32 1e-4, bfloat16 3e-2 on every output (K3's and the
+gradients' relative to the largest magnitude of the reference).
 """
 
 import numpy as np
@@ -18,6 +21,17 @@ from deeplearning4j_tpu_torch.ops import lstm_cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 K1 = ("gate_in", "rw1", "h01", "c01")
 K4 = ("gate_in", "rw1", "w2", "b2", "rw2", "h01", "c01", "h02", "c02")
+KERNELS = {
+    "lstm_fwd": (K1, ops.fused_lstm_sequence, lstm_cuda.lstm_sequence_plain),
+    "lstm_fwd_train": (K1, ops.fused_lstm_sequence_train,
+                       lstm_cuda.lstm_sequence_train_plain),
+    "lstm2_fwd": (K4, ops.fused_lstm2_sequence,
+                  lstm_cuda.lstm2_sequence_plain),
+    "lstm2_fwd_train": (K4, ops.fused_lstm2_sequence_train,
+                        lstm_cuda.lstm2_sequence_train_plain),
+    "lstm_bwd": (None, ops.fused_lstm_backward,
+                 lstm_cuda.lstm_backward_plain),
+}
 
 
 @pytest.fixture
@@ -33,36 +47,72 @@ def _case(T, B, H, dtype, device, seed=0):
     shapes = {"gate_in": ((T, B, 4 * H), 0.5), "rw1": ((H, 4 * H), s),
               "w2": ((H, 4 * H), s), "b2": ((4 * H,), 0.1),
               "rw2": ((H, 4 * H), s), "h01": ((B, H), 0.5),
-              "c01": ((B, H), 0.5), "h02": ((B, H), 0.5), "c02": ((B, H), 0.5)}
+              "c01": ((B, H), 0.5), "h02": ((B, H), 0.5), "c02": ((B, H), 0.5),
+              "dhs": ((T, B, H), 0.5), "dcT": ((B, H), 0.5)}
     return {k: torch.tensor(r.randn(*shp) * sc, dtype=torch.float32)
             .to(dtype).to(device) for k, (shp, sc) in shapes.items()}
 
 
+def _args(kernel, c):
+    names = KERNELS[kernel][0]
+    if names is not None:
+        return [c[k] for k in names]
+    _, tc, cprev, gates, _ = lstm_cuda.lstm_sequence_train_plain(
+        *[c[k] for k in K1])
+    return [gates, tc, cprev, c["rw1"], c["dhs"], c["dcT"]]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kernel", ["lstm_fwd", "lstm2_fwd"])
+@pytest.mark.parametrize("kernel", sorted(KERNELS))
 @pytest.mark.parametrize("T,B,H", [(64, 40, 256), (7, 15, 40), (5, 70, 300)])
 def test_kernel_matches_plain_on_the_card(kernel, dtype, T, B, H,
                                           cuda_device):
-    """Serving widths (T=64, H=256, a batch that splits across blocks) and
-    ragged ones (H not a multiple of the unit slice, B not of the row
-    pass)."""
+    """Serving and training widths (T=64, H=256, a batch that splits across
+    blocks) and ragged ones (H not a multiple of the unit slice, B not of
+    the row pass)."""
     c = _case(T, B, H, dtype, cuda_device)
-    if kernel == "lstm_fwd":
-        args = [c[k] for k in K1]
-        wrapper, plain = ops.fused_lstm_sequence, lstm_cuda.lstm_sequence_plain
-    else:
-        args = [c[k] for k in K4]
-        wrapper, plain = (ops.fused_lstm2_sequence,
-                          lstm_cuda.lstm2_sequence_plain)
+    args = _args(kernel, c)
+    _, wrapper, plain = KERNELS[kernel]
     before = ops.launch_counts().get(kernel, 0)
     got = wrapper(*args)
     torch.cuda.synchronize()
     assert ops.launch_counts()[kernel] == before + 1
     want = plain(*args)
+    assert len(got) == len(want)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape
-        assert (g.float() - w.float()).abs().max().item() <= TOL[dtype]
+        err = (g.float() - w.float()).abs().max().item()
+        if kernel == "lstm_bwd":
+            err /= w.float().abs().max().item()
+        assert err <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", [False, True])
+def test_autograd_on_the_card_matches_the_cpu(pair, cuda_device):
+    """FusedLSTM / FusedLSTM2 under grad: K2 or K4-train forward and K3
+    backward on the card, the plain versions on the CPU, same gradients."""
+    names = K4 if pair else K1
+    fn = ops.FusedLSTM2 if pair else ops.FusedLSTM
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        c = _case(16, 24, 64, torch.float32, torch.device(dev), seed=3)
+        args = [c[k].requires_grad_() for k in names]
+        ops.reset_launch_counts()
+        outs = fn.apply(*args)
+        w = torch.linspace(-1, 1, outs[0].numel(), device=dev)
+        (outs[0].reshape(-1) * w).sum().add(outs[-1].sum()).backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            want = ({"lstm2_fwd_train": 1, "lstm_bwd": 2} if pair
+                    else {"lstm_fwd_train": 1, "lstm_bwd": 1})
+            assert ops.launch_counts() == want
+        else:
+            assert ops.launch_counts() == {}
+        grads[dev] = [a.grad.cpu() for a in args]
+    for g, ref in zip(grads["cuda"], grads["cpu"]):
+        assert (g - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
 
 
 @pytest.mark.cuda

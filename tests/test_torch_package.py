@@ -15,10 +15,17 @@ PORT_MODULES = [
     "deeplearning4j_tpu_torch.ops.lstm_cuda",
     "deeplearning4j_tpu_torch.nn.activations",
     "deeplearning4j_tpu_torch.nn.weights",
+    "deeplearning4j_tpu_torch.nn.losses",
+    "deeplearning4j_tpu_torch.nn.updaters",
     "deeplearning4j_tpu_torch.nn.conf",
     "deeplearning4j_tpu_torch.nn.layers",
     "deeplearning4j_tpu_torch.models.multi_layer_network",
     "deeplearning4j_tpu_torch.util.model_serializer",
+    "deeplearning4j_tpu_torch.data",
+    "deeplearning4j_tpu_torch.data.dataset",
+    "deeplearning4j_tpu_torch.data.iterators",
+    "deeplearning4j_tpu_torch.eval",
+    "deeplearning4j_tpu_torch.eval.evaluation",
     "deeplearning4j_tpu_torch.zoo",
     "deeplearning4j_tpu_torch.zoo.corpus",
     "deeplearning4j_tpu_torch.serving",
