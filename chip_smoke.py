@@ -9,21 +9,42 @@ result line, when any of them or the port's package is missing. Phases:
 1. The card: ``nvidia-smi`` name and power limit, torch and CUDA versions.
 2. Build: every kernel source compiled from ``deeplearning4j_tpu_torch/
    csrc`` (one ``nvcc`` per source, in parallel).
-3. Kernels, each against its plain PyTorch version on the card at T=64,
-   H=256, float32 and bfloat16: K1 (single-layer LSTM forward) and K4
-   (stacked wavefront forward) at B in {1, 16, 256}; K2 (training forward),
-   K4-train and K3 (backward) at B in {1, 32, 256}. Tolerance f32 1e-4,
-   bf16 3e-2, on every output (K3's relative to the largest magnitude of
-   the plain version's). With CUDA-event medians of the kernel, the plain
-   version and cuDNN's ``torch.nn.LSTM`` computing the same work (the
-   forward with grad enabled for the training forwards, the backward of
-   that output alone for K3), and the least time the card could take
-   (bound).
+3. Kernels, each against its plain PyTorch version on the card. The LSTM
+   family at T=64, H=256, float32 and bfloat16: K1 (single-layer LSTM
+   forward) and K4 (stacked wavefront forward) at B in {1, 16, 256}; K2
+   (training forward), K4-train and K3 (backward) at B in {1, 32, 256}.
+   Tolerance f32 1e-4, bf16 3e-2, on every output (K3's relative to the
+   largest magnitude of the plain version's). The attention family in
+   float32, tolerance 1e-4: K5 (flash attention forward, o and lse) at
+   B in {1, 16, 64} x 4 heads, T in {64, 512}, Dh=32, causal and not; K8
+   (flash decode, dense cache) and K9 (paged pool, bs=16, shuffled page
+   tables) at B in {1, 8, 64}, 4 heads, C=512, positions spread over
+   0..511. With CUDA-event medians of the kernel, the plain version and
+   one library call computing the same work (cuDNN's ``torch.nn.LSTM``:
+   the forward with grad enabled for the training forwards, the backward
+   of that output alone for K3; ``scaled_dot_product_attention``, causal
+   for K5, over the gathered cache with the position mask for K8/K9), and
+   the least time the card could take (bound). The attention family's
+   times are device times (calls replayed from a CUDA graph: a small
+   kernel runs for less than the host takes to launch it), beside the
+   time of a call launched from the host.
 4. Serving: the bundled TextGenerationLSTM served by ``InferenceServer`` on
    the card: held-out /predict accuracy, concurrent mixed-size /predict
    against unbatched forwards, greedy /generate against the full-prefix
    path, ``rnn_time_step`` in chunks against ``output``.
-5. Training, the same model at full width: (a) step-1 gradients and three
+5. TinyTransformer serving at its full default width (d_model 128, 4
+   heads, 2 pre-LN blocks, FFN 512, max_len 512, the corpus's 51-char
+   vocabulary) from the configuration's seed: (a) /predict of the 15
+   held-out windows (T=64) and of 4 windows at T=512 against the CPU port
+   (plain versions) from the same parameters, probabilities within 1e-4;
+   8 concurrent /predict of 1..16 windows against unbatched forwards; (b)
+   8 concurrent greedy /generate streams (prompts of 16..64 corpus tokens,
+   64 new tokens each) on a dense-KV engine (8 slots, max_len 512) and on
+   a paged one (kv_block_size 16, the default pool), their tokens against
+   each other and against ``generate_naive`` (the full-prefix forward
+   through K5); where tokens differ the reference's top-2 probability
+   margin at that step must be <= 1e-4 (a near-tie of the seed weights).
+6. Training, the LSTM model at full width: (a) step-1 gradients and three
    ``fit`` steps on the card against the same on the CPU (plain versions)
    from the same initial parameters; (b) the recipe that trained the
    bundled weights (tools/make_pretrained.py: stride-8 windows, batch 32,
@@ -32,9 +53,11 @@ result line, when any of them or the port's package is missing. Phases:
    (c) the same with truncated BPTT in chunks of 16 for 2 epochs, whose
    held-out loss must fall.
 
-Kernel launch counts are reset right before the serving phase and before
-each of (b) and (c), and read right after; (b) and (c) must launch exactly
-the training kernels their step counts call for.
+Kernel launch counts are reset right before the LSTM serving phase, before
+each TinyTransformer part and before training (b) and (c), and read right
+after; each TinyTransformer part and (b), (c) must launch exactly the
+kernels their call or step counts call for (K5 twice per bucketed forward,
+K8 or K9 twice per engine step), and nothing else.
 
 Prints, before the last line, one JSON line of per-kernel numbers and the
 card's name and power limit; the last line is
@@ -85,6 +108,18 @@ REPLACES = {"lstm_fwd": f"{PALLAS}:295", "lstm_fwd_train": f"{PALLAS}:282",
 SOURCES = {"lstm_fwd": "lstm_fwd.cu", "lstm_fwd_train": "lstm_fwd.cu",
            "lstm2_fwd": "lstm2_fwd.cu", "lstm2_fwd_train": "lstm2_fwd.cu",
            "lstm_bwd": "lstm_bwd.cu"}
+# the attention family (float32): K5, K8, K9
+ATTN_TOL = 1e-4
+PROB_TOL = 1e-4             # TinyTransformer probabilities, card vs CPU port
+TIE_MARGIN = 1e-4           # top-2 probability gap that may flip a token
+FLASH, DECODE = ("deeplearning4j_tpu/ops/flash_attention.py",
+                 "deeplearning4j_tpu/ops/flash_decode.py")
+REPLACES.update(flash_attn_fwd=f"{FLASH}:170", flash_decode=f"{DECODE}:115",
+                flash_decode_paged=f"{DECODE}:192")
+SOURCES.update(flash_attn_fwd="flash_attn_fwd.cu",
+               flash_decode="flash_decode.cu",
+               flash_decode_paged="flash_decode.cu")
+HEADS, HEAD_DIM, KV_BLOCK = 4, 32, 16       # TinyTransformer's defaults
 
 
 def card_line() -> str:
@@ -108,6 +143,34 @@ def time_ms(fn, reps: int, rounds: int = 5, warmup: int = 2) -> float:
         a.record()
         for _ in range(reps):
             fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times)
+
+
+def graph_ms(fn, reps: int, rounds: int = 5) -> float:
+    """Median device time of one call: ``reps`` calls captured in one CUDA
+    graph and replayed between CUDA events, so the host's launch cost
+    (which exceeds a small kernel's run time) does not count."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
         b.record()
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b) / reps)
@@ -278,6 +341,136 @@ def fmt(row):
             f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
 
 
+def attn_bound(kernel, c):
+    """Least time for one attention call on these inputs: every input read
+    once and every output written once over HBM, or its float32 FMAs at the
+    card's peak outside the tensor cores, whichever is larger. K5 counts
+    the (query, key) pairs the mask keeps; K8/K9 only the live rows
+    0..pos of each stream (and K9 the page-table entries they need)."""
+    if kernel == "flash_attn_fwd":
+        BH, T, Dh = c["q"].shape
+        pairs = BH * (T * (T + 1) // 2 if c["causal"] else T * T)
+        nbytes = 4 * (4 * BH * T * Dh + BH * T)          # q, k, v -> o, lse
+        flops = 4.0 * Dh * pairs                         # q.k and p.v
+    else:
+        B, H, Dh = c["q"].shape
+        live = int((c["pos"].long() + 1).sum())
+        nbytes = 4 * (2 * B * H * Dh + 2 * live * H * Dh + B)
+        if kernel == "flash_decode_paged":
+            nbytes += 4 * int((c["pos"].long() // c["pk"].shape[1] + 1).sum())
+        flops = 4.0 * Dh * H * live
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def attn_inputs(kernel, B, T, causal=False, pos=None, seed=0):
+    """K5: q, k, v (B*4, T, 32). K8/K9: q (B, 4, 32), a cache of capacity
+    T (dense, or a pool of 16-row blocks behind shuffled page tables with
+    block 0 as scratch), and positions (default: spread over 0..T-1)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+    if kernel == "flash_attn_fwd":
+        return {"q": rnd(B * HEADS, T, HEAD_DIM),
+                "k": rnd(B * HEADS, T, HEAD_DIM),
+                "v": rnd(B * HEADS, T, HEAD_DIM), "causal": causal, "B": B}
+    if pos is None:
+        pos = [T - 1] if B == 1 else \
+            torch.linspace(0, T - 1, B).round().long().tolist()
+    c = {"q": rnd(B, HEADS, HEAD_DIM),
+         "pos": torch.tensor(pos, dtype=torch.int32, device="cuda")}
+    if kernel == "flash_decode":
+        c["kc"], c["vc"] = rnd(B, T, HEADS, HEAD_DIM), rnd(B, T, HEADS,
+                                                           HEAD_DIM)
+        return c
+    MB = T // KV_BLOCK
+    NB = B * MB + 1
+    c["pk"], c["pv"] = (rnd(NB, KV_BLOCK, HEADS, HEAD_DIM) for _ in range(2))
+    perm = torch.randperm(NB - 1, generator=g, device="cuda") + 1
+    c["tables"] = perm[:B * MB].reshape(B, MB).to(torch.int32).contiguous()
+    return c
+
+
+def attn_calls(kernel, c):
+    """The kernel's wrapper, its plain version (both returning a tuple) and
+    one library call (``scaled_dot_product_attention``) computing the same
+    function on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.ops import attention_cuda as A
+    from deeplearning4j_tpu_torch.ops import decode_cuda as D
+    if kernel == "flash_attn_fwd":
+        args = (c["q"], c["k"], c["v"], c["causal"])
+        BH, T, Dh = c["q"].shape
+        q4, k4, v4 = (t.view(c["B"], HEADS, T, Dh) for t in args[:3])
+        return (lambda: A.flash_attention_fwd(*args),
+                lambda: A.flash_attention_fwd_plain(*args),
+                lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, is_causal=c["causal"]).reshape(BH, T, Dh))
+    q, pos = c["q"], c["pos"]
+    if kernel == "flash_decode":
+        kc, vc = c["kc"], c["vc"]
+        wrap = lambda: (D.flash_decode_step(q, kc, vc, pos),)  # noqa: E731
+        plain = lambda: (D.flash_decode_step_plain(q, kc, vc, pos),)  # noqa
+    else:
+        pk, pv, tb = c["pk"], c["pv"], c["tables"]
+        wrap = lambda: (D.flash_decode_step_paged(  # noqa: E731
+            q, pk, pv, pos, tb),)
+        plain = lambda: (D.flash_decode_step_paged_plain(  # noqa: E731
+            q, pk, pv, pos, tb),)
+        kc, vc = D.gather_pages(pk, tb), D.gather_pages(pv, tb)
+    C = kc.shape[1]
+    mask = (torch.arange(C, device="cuda")[None, :]
+            <= pos.long()[:, None])[:, None, None, :]
+    kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
+    return wrap, plain, lambda: F.scaled_dot_product_attention(
+        q[:, :, None, :], kt, vt, attn_mask=mask)[:, :, 0, :]
+
+
+def attn_kernel_case(kernel, B, T, causal=False, pos=None, seed=0):
+    """One attention kernel at one shape: error against the plain version
+    (K5: o and lse), and the four times. Launches made here are not the
+    main path's; the caller resets the counters before the main path."""
+    import torch
+    c = attn_inputs(kernel, B, T, causal, pos, seed)
+    wrap, plain, lib = attn_calls(kernel, c)
+    with torch.no_grad():
+        got = wrap()
+        torch.cuda.synchronize()
+        want = plain()
+        err = max((g - w).abs().max().item() for g, w in zip(got, want))
+        if not err <= ATTN_TOL:
+            raise AssertionError(f"{kernel} B={B} T={T} causal={causal}: "
+                                 f"max abs err {err} > {ATTN_TOL}")
+        row = {"kernel": kernel, "B": B, "T": T, "H": HEADS, "Dh": HEAD_DIM,
+               "dtype": "float32", "max_abs_err": err, "tol": ATTN_TOL,
+               "ms": graph_ms(wrap, reps=20),
+               "call_ms": time_ms(wrap, reps=20),
+               "plain_ms": graph_ms(plain, reps=3, rounds=3),
+               "library_max_abs_err": (lib() - want[0]).abs().max().item(),
+               "library_ms": graph_ms(lib, reps=20)}
+    if kernel == "flash_attn_fwd":
+        row["causal"] = causal
+    else:
+        row["pos"] = c["pos"].tolist()
+    row["bound_ms"], row["bound_by"] = attn_bound(kernel, c)
+    return row
+
+
+def fmt_attn(row):
+    what = (f"causal={row['causal']!s:5}" if "causal" in row
+            else f"pos {row['pos'][0]}..{row['pos'][-1]}")
+    return (f"{row['kernel']:18s} B={row['B']:<3d} T={row['T']:<3d} {what} "
+            f"err {row['max_abs_err']:.3g} (tol {row['tol']:g})  kernel "
+            f"{row['ms']:.4f} ms (a call from the host {row['call_ms']:.4f}"
+            f" ms)  plain {row['plain_ms']:.4f} ms  sdpa "
+            f"{row['library_ms']:.4f} ms  bound {row['bound_ms']:.5f} ms "
+            f"({row['bound_by']})")
+
+
 def slice_phase(card):
     """Serve the bundled TextGenerationLSTM on the card; every check raises
     on failure. Returns the measured numbers."""
@@ -407,6 +600,201 @@ def slice_phase(card):
     return res
 
 
+def _expect_launches(part, want):
+    """The launch counts since the last reset must be exactly ``want``."""
+    from deeplearning4j_tpu_torch import ops
+    got = ops.launch_counts()
+    if got != want:
+        raise AssertionError(f"{part}: launches {got}, want {want}")
+    return got
+
+
+def _first_tie(net, prompt, got, want):
+    """Where two greedy streams first differ, the reference's top-2
+    probability margin at that step (the full-prefix forward of the
+    reference's own tokens). None when they agree."""
+    import torch
+    from deeplearning4j_tpu_torch.serving.engine import input_type_of
+    diff = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    if not diff and len(got) == len(want):
+        return None
+    step = diff[0] if diff else min(len(got), len(want))
+    toks = list(prompt) + list(want[:step])
+    eye = torch.eye(input_type_of(net).size, device=net.device)
+    probs = net.output(eye[torch.tensor(toks, device=net.device)][None],
+                       bucketed=False)[0, -1]
+    top = torch.topk(probs.float(), 2).values
+    return step, float(top[0] - top[1])
+
+
+def transformer_phase(card):
+    """Serve TinyTransformer at its full default width on the card from the
+    configuration's seed; every check raises on failure. Returns the
+    measured numbers."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch import ComputationGraph, ops
+    from deeplearning4j_tpu_torch.serving import (DecodeEngine,
+                                                  InferenceClient,
+                                                  InferenceServer)
+    from deeplearning4j_tpu_torch.serving.decode import generate_naive
+    from deeplearning4j_tpu_torch.zoo import TinyTransformer
+    from deeplearning4j_tpu_torch.zoo.corpus import corpus_windows
+
+    (xtr, _), (xte, yte), vocab = corpus_windows(T=64)
+    (x512, _), _, _ = corpus_windows(T=512)
+    x512 = x512[:4]
+    net = TinyTransformer(vocab_size=len(vocab)).init(device="cuda")
+    cpu = ComputationGraph(net.conf, device="cpu").set_params(net.params)
+    dense = DecodeEngine(net, slots=8, max_len=512)
+    paged = DecodeEngine(net, slots=8, max_len=512, kv="paged",
+                         kv_block_size=KV_BLOCK)
+    srv = InferenceServer(net, port=0, max_latency_ms=2.0,
+                          decode_engine=dense).start()
+    psrv = InferenceServer(net, port=0, decode_engine=paged).start()
+    cli = InferenceClient(f"http://127.0.0.1:{srv.port}")
+    pcli = InferenceClient(f"http://127.0.0.1:{psrv.port}")
+    cfg = net.conf.nodes["b0_attn"].layer
+    res = {"card": card, "d_model": cfg.n_out, "heads": cfg.n_heads,
+           "vocab": len(vocab), "kv_blocks": paged.stats()["kv"]["blocks"]}
+
+    def calls():
+        return srv.engine.stats()["device_calls"]
+    try:
+        # (a) /predict: held-out windows (sent twice: the first request
+        # pays first-use costs) and 4 windows at T=512, against the CPU port
+        ops.reset_launch_counts()
+        c0 = calls()
+        res["predict_heldout_ms"], outs = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            outs.append(cli.predict(xte))
+            res["predict_heldout_ms"].append(
+                round((time.perf_counter() - t0) * 1e3, 3))
+        t0 = time.perf_counter()
+        out512 = cli.predict(x512)
+        res["predict_512_ms"] = round((time.perf_counter() - t0) * 1e3, 3)
+        n_calls = calls() - c0
+        res["launches_predict"] = _expect_launches(
+            "tiny /predict", {"flash_attn_fwd": 2 * n_calls})
+        errs = []
+        for x, out in ((xte, outs[0]), (xte, outs[1]), (x512, out512)):
+            if out.shape != x.shape or not np.isfinite(out).all():
+                raise AssertionError(f"/predict returned {out.shape}")
+            want = cpu.output(x, bucketed=False).numpy()
+            errs.append(float(np.abs(out - want).max()))
+        res["predict_vs_cpu_max_abs_err"] = max(errs)
+        res["heldout_top1_seed_weights"] = float(
+            (outs[0].argmax(-1) == yte.argmax(-1)).mean())
+        print(f"tiny: /predict {len(xte)} held-out windows x 64 in "
+              f"{res['predict_heldout_ms']} ms (first, second), 4 x 512 in "
+              f"{res['predict_512_ms']} ms; max abs err vs the CPU port "
+              f"{max(errs):.3g} (tol {PROB_TOL}); {n_calls} bucketed "
+              f"forwards, launches {res['launches_predict']} [{card}]",
+              flush=True)
+        if max(errs) > PROB_TOL:
+            raise AssertionError("/predict on the card disagrees with the "
+                                 "CPU port")
+
+        # concurrent mixed-size requests against one unbatched forward each
+        sizes = [1, 3, 7, 2, 5, 16, 4, 9]
+        starts = np.cumsum([0] + sizes)
+        reqs = [xtr[a:b] for a, b in zip(starts[:-1], starts[1:])]
+
+        def timed_predict(x):
+            t = time.perf_counter()
+            out = cli.predict(x)
+            return out, (time.perf_counter() - t) * 1e3
+        ops.reset_launch_counts()
+        c0 = calls()
+        with ThreadPoolExecutor(len(reqs)) as pool:
+            answers = list(pool.map(timed_predict, reqs))
+        n_calls = calls() - c0
+        res["launches_mixed"] = _expect_launches(
+            "tiny concurrent /predict", {"flash_attn_fwd": 2 * n_calls})
+        worst = max(float(np.abs(out - net.output(x, bucketed=False)
+                                 .cpu().numpy()).max())
+                    for x, (out, _) in zip(reqs, answers))
+        res["mixed_predict_ms"] = [round(ms, 3) for _, ms in answers]
+        res["mixed_predict_max_abs_err"] = worst
+        print(f"tiny: {len(reqs)} concurrent /predict of sizes {sizes} in "
+              f"{n_calls} bucketed forwards: max abs err vs unbatched "
+              f"{worst:.3g}; latencies {res['mixed_predict_ms']} ms [{card}]",
+              flush=True)
+        if worst > 1e-5:
+            raise AssertionError("batched /predict disagrees with unbatched")
+
+        # (b) greedy /generate, 8 concurrent streams, on each engine
+        ids = xte.argmax(-1)
+        lens = [16, 22, 28, 34, 40, 46, 52, 64]
+        prompts = [list(map(int, ids[i, :n])) for i, n in enumerate(lens)]
+        new = 64
+        gens = {}
+        for kind, client, eng, kernel in (
+                ("dense", cli, dense, "flash_decode"),
+                ("paged", pcli, paged, "flash_decode_paged")):
+            client.generate(prompts[0][:4], max_new_tokens=4)  # first use
+            ops.reset_launch_counts()
+            st0 = eng.stats()
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(len(prompts)) as pool:
+                gens[kind] = list(pool.map(
+                    lambda p: client.generate(p, max_new_tokens=new)
+                    ["tokens"], prompts))
+            wall = time.perf_counter() - t0
+            st1 = eng.stats()
+            steps = st1["steps"] - st0["steps"]
+            secs = st1["decode_seconds"] - st0["decode_seconds"]
+            res[f"launches_{kind}"] = _expect_launches(
+                f"tiny {kind} /generate", {kernel: 2 * steps})
+            res[f"{kind}_steps"] = steps
+            res[f"{kind}_tokens_per_s"] = len(prompts) * new / wall
+            res[f"{kind}_ms_per_step"] = secs / steps * 1e3
+            if kind == "paged":
+                res["paged_kv"] = st1["kv"]
+                if st1["kv"]["blocks_in_use"] != 0:
+                    raise AssertionError(f"paged engine leaked blocks: "
+                                         f"{st1['kv']}")
+            print(f"tiny: {kind} /generate, {len(prompts)} concurrent "
+                  f"greedy streams x {new} tokens (prompts {lens[0]}.."
+                  f"{lens[-1]}): {steps} steps, "
+                  f"{res[f'{kind}_ms_per_step']:.3f} ms/step, "
+                  f"{res[f'{kind}_tokens_per_s']:.1f} tokens/s; launches "
+                  f"{res[f'launches_{kind}']} [{card}]", flush=True)
+
+        # the full-prefix reference, through K5 at every length
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        naive = [generate_naive(net, p, new)["tokens"] for p in prompts]
+        res["naive_seconds"] = time.perf_counter() - t0
+        res["launches_naive"] = _expect_launches(
+            "tiny generate_naive", {"flash_attn_fwd": 2 * len(prompts) * new})
+        ties = []
+        for p, want, d, pg in zip(prompts, naive, gens["dense"],
+                                  gens["paged"]):
+            for kind, got in (("dense", d), ("paged", pg)):
+                tie = _first_tie(net, p, got, want)
+                if tie is not None:
+                    ties.append({"engine": kind, "prompt_len": len(p),
+                                 "step": tie[0], "top2_margin": tie[1]})
+        res["token_mismatches"] = ties
+        same = sum(d == w for d, w in zip(gens["dense"], naive))
+        print(f"tiny: greedy tokens, dense == full-prefix for {same}/"
+              f"{len(prompts)} streams, paged == full-prefix for "
+              f"{sum(g == w for g, w in zip(gens['paged'], naive))}/"
+              f"{len(prompts)}; mismatches at near-ties {ties}; "
+              f"full-prefix path {res['naive_seconds']:.2f} s [{card}]; "
+              f"sample {''.join(vocab[t] for t in gens['dense'][0])!r}",
+              flush=True)
+        if any(t["top2_margin"] > TIE_MARGIN for t in ties):
+            raise AssertionError(f"greedy tokens differ beyond a near-tie: "
+                                 f"{ties}")
+    finally:
+        srv.stop()
+        psrv.stop()
+    return res
+
+
 def _max_rel_err(got, want):
     """Largest |got - want| over per-layer dicts of tensors, relative to
     the largest |want|."""
@@ -522,7 +910,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
-        from deeplearning4j_tpu_torch.ops import lstm_cuda
+        from deeplearning4j_tpu_torch.ops import build
     except ImportError as e:
         print(f"chip_smoke: the port's package is missing: {e}",
               file=sys.stderr)
@@ -534,7 +922,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.perf_counter()
-    built = lstm_cuda.build_kernels()
+    built = build.build_kernels()
     print(f"build: {time.perf_counter() - t0:.1f} s wall for "
           f"{sorted(built)}", flush=True)
     for stem, info in built.items():
@@ -552,8 +940,21 @@ def main() -> int:
             for B in batches:
                 rows.append(kernel_case(kernel, 64, B, 256, dtype))
                 print("kernel: " + fmt(rows[-1]) + f" [{card}]", flush=True)
+    for B in (1, 16, 64):
+        for T in (64, 512):
+            for causal in (False, True):
+                rows.append(attn_kernel_case("flash_attn_fwd", B, T, causal))
+                print("kernel: " + fmt_attn(rows[-1]) + f" [{card}]",
+                      flush=True)
+    for kernel in ("flash_decode", "flash_decode_paged"):
+        for B in (1, 8, 64):
+            rows.append(attn_kernel_case(kernel, B, 512))
+            print("kernel: " + fmt_attn(rows[-1]) + f" [{card}]", flush=True)
 
     res = slice_phase(card)
+    t0 = time.perf_counter()
+    tiny = transformer_phase(card)
+    tiny["phase_seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     train = train_phase(card)
     train["phase_seconds"] = time.perf_counter() - t0
@@ -568,24 +969,40 @@ def main() -> int:
                    "lstm_bwd": (64, 32, train["launches_recipe"]),
                    "lstm_fwd_train": (16, 32, train["launches_tbptt"])}
     entries = []
-    for kernel, (T, B, counts) in main_shapes.items():
-        row = kernel_case(kernel, T, B, 256, "float32", seed=1)
-        print("main-path shape: " + fmt(row) + f" [{card}]", flush=True)
+
+    def entry(kernel, row, launches):
         entries.append({
             "name": kernel, "route": "cuda",
             "source": f"deeplearning4j_tpu_torch/csrc/{SOURCES[kernel]}",
-            "replaces": REPLACES[kernel],
-            "launches": counts.get(kernel, 0),
+            "replaces": REPLACES[kernel], "launches": launches,
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
         rows.append(row)
+    for kernel, (T, B, counts) in main_shapes.items():
+        row = kernel_case(kernel, T, B, 256, "float32", seed=1)
+        print("main-path shape: " + fmt(row) + f" [{card}]", flush=True)
+        entry(kernel, row, counts.get(kernel, 0))
+    # TinyTransformer: /predict of the held-out windows runs K5 at bucket 16
+    # (BH 64, T=64, causal); the 8-slot engines run K8/K9 with C=512, here
+    # at the streams' positions halfway through their completions
+    row = attn_kernel_case("flash_attn_fwd", 16, 64, True, seed=1)
+    print("main-path shape: " + fmt_attn(row) + f" [{card}]", flush=True)
+    entry("flash_attn_fwd", row,
+          tiny["launches_predict"]["flash_attn_fwd"]
+          + tiny["launches_mixed"]["flash_attn_fwd"])
+    mid = [n + 32 for n in (16, 22, 28, 34, 40, 46, 52, 64)]
+    for kernel, kind in (("flash_decode", "dense"),
+                         ("flash_decode_paged", "paged")):
+        row = attn_kernel_case(kernel, 8, 512, pos=mid, seed=1)
+        print("main-path shape: " + fmt_attn(row) + f" [{card}]", flush=True)
+        entry(kernel, row, tiny[f"launches_{kind}"][kernel])
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-         "kernel_rows": rows, "slice": res, "train": train,
+         "kernel_rows": rows, "slice": res, "tiny": tiny, "train": train,
          "kernels": entries}, indent=1))
     print(json.dumps({"kernels": entries}))
     print(card)

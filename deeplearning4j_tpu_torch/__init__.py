@@ -5,8 +5,12 @@ The JAX package beside it is the reference. This package imports neither
 caller passes ``device="cpu"``. Ported so far: serving and training of
 sequential networks with LSTM layers (the bundled TextGenerationLSTM),
 through hand-written CUDA kernels for the fused LSTM forward (inference
-and training modes) and backward.
+and training modes) and backward; serving of computation graphs with
+causal self-attention (TinyTransformer), through hand-written CUDA kernels
+for flash attention and for flash decode over dense and paged KV caches.
 """
 
+from deeplearning4j_tpu_torch.models.computation_graph import (  # noqa: F401
+    ComputationGraph)
 from deeplearning4j_tpu_torch.models.multi_layer_network import (  # noqa: F401
     MultiLayerNetwork, params_from_numpy)

@@ -42,13 +42,18 @@ DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16, "float64": torch.float64}
 
 
-def params_from_numpy(arrays: List[Dict[str, np.ndarray]], device=None
-                      ) -> List[Dict[str, torch.Tensor]]:
+def params_from_numpy(arrays, device=None):
     """Per-layer dicts of numpy arrays (e.g. the JAX package's params read
-    back with ``np.asarray``) -> the port's parameters on ``device``."""
+    back with ``np.asarray``) -> the port's parameters on ``device``: a
+    list of them for a MultiLayerNetwork, a dict keyed by node name for a
+    ComputationGraph."""
     dev = resolve_device(device)
-    return [{k: torch.from_numpy(np.array(v)).to(dev) for k, v in p.items()}
-            for p in arrays]
+
+    def conv(p: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        return {k: torch.from_numpy(np.array(v)).to(dev) for k, v in p.items()}
+    if isinstance(arrays, dict):
+        return {n: conv(p) for n, p in arrays.items()}
+    return [conv(p) for p in arrays]
 
 
 def _cast_floats(params, dtype):
@@ -376,18 +381,25 @@ class MultiLayerNetwork:
         self._rnn_carries = None
 
     # --------------------------------------------------- incremental decode
-    def init_decode_state(self, batch: int):
+    def init_decode_state(self, batch: int, max_len: int = 0, kv=None):
         """Per-layer decode state for ``batch`` concurrent streams: the
-        (h, c) carry of each recurrent layer, None for the others."""
+        (h, c) carry of each recurrent layer, None for the others. ``kv``
+        ({"num_blocks", "block_size"}) asks for the paged layout, which
+        layers without a KV cache do not change."""
         gc = self.conf.global_conf
         dt = DTYPES[gc.compute_dtype or gc.dtype]
-        return [l.init_decode_state(p, batch, dt, self.device)
+        if kv is not None:
+            return [l.init_paged_decode_state(
+                p, batch, max_len, kv["num_blocks"], kv["block_size"], dt,
+                self.device) for l, p in zip(self.layers, self.params)]
+        return [l.init_decode_state(p, batch, max_len, dt, self.device)
                 for l, p in zip(self.layers, self.params)]
 
     @torch.no_grad()
-    def decode_step(self, params, dstate, x_t):
-        """One-token step through the stack: ``x_t`` (B, 1, F). Returns
-        (y, new_dstate)."""
+    def decode_step(self, params, dstate, x_t, pos=None, block_tables=None):
+        """One-token step through the stack: ``x_t`` (B, 1, F) at positions
+        ``pos`` (B,); ``block_tables`` routes KV-cache layers through their
+        paged step. Returns (y, new_dstate)."""
         gc = self.conf.global_conf
         if gc.compute_dtype:
             cdt = DTYPES[gc.compute_dtype]
@@ -396,7 +408,11 @@ class MultiLayerNetwork:
         x = x_t
         new_d = list(dstate)
         for i, l in enumerate(self.layers):
-            x, new_d[i] = l.decode_step(params[i], dstate[i], x)
+            if block_tables is None:
+                x, new_d[i] = l.decode_step(params[i], dstate[i], x, pos)
+            else:
+                x, new_d[i] = l.decode_step_paged(params[i], dstate[i], x,
+                                                  pos, block_tables)
         return x, new_d
 
     # ------------------------------------------------------------- utilities

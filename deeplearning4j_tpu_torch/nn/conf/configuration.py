@@ -1,8 +1,9 @@
 """Network configuration: builder and JSON serde.
 
-Counterpart of deeplearning4j_tpu/nn/conf/configuration.py for sequential
-networks. The JSON is the same document, so a configuration saved by one
-package reads in the other. Updaters are ``nn.updaters.Updater`` objects
+Counterpart of deeplearning4j_tpu/nn/conf/configuration.py: sequential
+networks here, graphs through ``graph_builder()`` (nn/conf/graph_conf.py).
+The JSON is the same document, so a configuration saved by one package
+reads in the other. Updaters are ``nn.updaters.Updater`` objects
 (interpreted by ``fit``); dropout objects and weight noise are kept as the
 dicts the JSON holds.
 
@@ -115,6 +116,12 @@ class Builder:
 
     def list(self) -> "ListBuilder":
         return ListBuilder(self._g)
+
+    def graph_builder(self):
+        """A ``GraphBuilder`` for a ComputationGraphConfiguration with
+        these network-level defaults."""
+        from deeplearning4j_tpu_torch.nn.conf.graph_conf import GraphBuilder
+        return GraphBuilder(self._g)
 
 
 class ListBuilder:

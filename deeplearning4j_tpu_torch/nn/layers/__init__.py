@@ -4,3 +4,5 @@ from deeplearning4j_tpu_torch.nn.layers.core import (  # noqa: F401
     DenseLayer, LossLayer, OutputLayer)
 from deeplearning4j_tpu_torch.nn.layers.rnn import (  # noqa: F401
     LSTM, RnnLossLayer, RnnOutputLayer, apply_lstm_pair, lstm_pair_fusable)
+from deeplearning4j_tpu_torch.nn.layers.attention import (  # noqa: F401
+    LayerNormalization, MultiHeadAttention, PositionalEmbedding)

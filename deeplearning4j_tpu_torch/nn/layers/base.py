@@ -14,7 +14,8 @@ Protocol:
 - ``init(gen, dtype, device)`` -- parameter dict ({} if parameterless).
 - ``apply(params, x)`` -- the forward.
 - ``reg_loss(params)`` / ``apply_constraints(params)`` -- training.
-- ``init_decode_state`` / ``decode_step`` -- one token at a time.
+- ``init_decode_state`` / ``decode_step`` -- one token at a time, and
+  their paged forms (``init_paged_decode_state`` / ``decode_step_paged``).
 """
 
 from __future__ import annotations
@@ -143,14 +144,27 @@ class Layer:
         return out
 
     # ---- incremental decode protocol --------------------------------------
-    def init_decode_state(self, params, batch: int, dtype=torch.float32,
-                          device=None):
-        """Per-slot decode state for ``batch`` streams (None = stateless)."""
+    def init_decode_state(self, params, batch: int, max_len: int = 0,
+                          dtype=torch.float32, device=None):
+        """Per-slot decode state for ``batch`` streams (None = stateless).
+        Recurrent layers return their (h, c) carry; attention a KV cache of
+        ``max_len`` positions."""
         return None
 
-    def decode_step(self, params, dstate, x):
-        """One token step on ``x`` (B, 1, F); returns (y, new_dstate)."""
+    def decode_step(self, params, dstate, x, pos=None):
+        """One token step on ``x`` (B, 1, F) at positions ``pos`` (B,);
+        returns (y, new_dstate)."""
         return self.apply(params, x), dstate
+
+    # ---- paged decode protocol (serving/kv/): layers without a KV cache
+    # keep their per-slot state and ignore the page tables
+    def init_paged_decode_state(self, params, batch: int, max_len: int,
+                                num_blocks: int, block_size: int,
+                                dtype=torch.float32, device=None):
+        return self.init_decode_state(params, batch, max_len, dtype, device)
+
+    def decode_step_paged(self, params, dstate, x, pos, block_tables):
+        return self.decode_step(params, dstate, x, pos)
 
     # ---- serde -----------------------------------------------------------
     def to_dict(self) -> Dict[str, Any]:

@@ -118,12 +118,12 @@ class LSTM(Layer):
         return self._scan(params, x, carry[0], carry[1])
 
     # ---- incremental decode ----------------------------------------------
-    def init_decode_state(self, params, batch, dtype=torch.float32,
-                          device=None):
+    def init_decode_state(self, params, batch, max_len=0,
+                          dtype=torch.float32, device=None):
         z = torch.zeros((batch, self.n_out), dtype=dtype, device=device)
         return (z, z.clone())
 
-    def decode_step(self, params, dstate, x):
+    def decode_step(self, params, dstate, x, pos=None):
         """One plain cell step on x (B, 1, C)."""
         h, c = dstate
         gate_in = x[:, 0, :] @ params["W"] + params["b"]

@@ -55,9 +55,15 @@ from deeplearning4j_tpu_torch.ops.lstm_cuda import (  # noqa: E402
     FusedLSTM, FusedLSTM2, fused_lstm2_sequence, fused_lstm2_sequence_train,
     fused_lstm_backward, fused_lstm_sequence, fused_lstm_sequence_train,
     lstm2_sequence, lstm_sequence)
+from deeplearning4j_tpu_torch.ops.attention_cuda import (  # noqa: E402
+    flash_attention, flash_attention_fwd)
+from deeplearning4j_tpu_torch.ops.decode_cuda import (  # noqa: E402
+    flash_decode_step, flash_decode_step_paged)
 
 __all__ = ["resolve_device", "count_launch", "launch_counts",
            "reset_launch_counts", "fused_lstm_sequence",
            "fused_lstm_sequence_train", "fused_lstm_backward",
            "fused_lstm2_sequence", "fused_lstm2_sequence_train", "FusedLSTM",
-           "FusedLSTM2", "lstm_sequence", "lstm2_sequence"]
+           "FusedLSTM2", "lstm_sequence", "lstm2_sequence",
+           "flash_attention", "flash_attention_fwd", "flash_decode_step",
+           "flash_decode_step_paged"]

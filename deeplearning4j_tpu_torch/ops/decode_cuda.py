@@ -1,0 +1,151 @@
+"""Flash decode step over a dense KV cache (K8) and over a paged block pool
+(K9) for Hopper, with their plain PyTorch versions.
+
+Counterpart of deeplearning4j_tpu/ops/flash_decode.py, one source
+(csrc/flash_decode.cu) with two entry points:
+
+- ``flash_decode_step(q, kc, vc, pos)`` replaces ``_decode_kernel``: q
+  (B, H, Dh) against the cache (B, C, H, Dh) at positions 0..pos[b].
+- ``flash_decode_step_paged(q, pk, pv, pos, block_tables)`` replaces
+  ``_paged_kernel``: the same over a pool (NB, bs, H, Dh) whose blocks the
+  (B, MB) int32 page tables name; the logical capacity is MB * bs.
+
+Both return (B, H, Dh) float32. The kernels read the cache and the pool in
+place and only the live rows (the TPU wrappers' cast and transpose copies
+of the whole cache are not carried over). On CPU tensors the wrappers run
+the plain versions: the masked softmax of the attention layer's dense
+decode step, and for K9 a gather of the pages followed by K8's.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from deeplearning4j_tpu_torch import ops
+from deeplearning4j_tpu_torch.ops import build
+
+_VP, _INT = ctypes.c_void_p, ctypes.c_int
+ENTRIES = {"flash_decode": [_VP] * 5 + [_INT] * 5 + [_VP],
+           "flash_decode_paged": [_VP] * 6 + [_INT] * 6 + [_VP]}
+
+
+def flash_decode_step_plain(q, kc, vc, pos) -> torch.Tensor:
+    """Plain PyTorch version of K8: softmax over c <= pos[b] of
+    q . k_c / sqrt(Dh), times v (the layer's ``_finish_step`` math)."""
+    C = kc.shape[1]
+    s = torch.einsum("bhd,bchd->bhc", q.float(), kc.float()) \
+        / math.sqrt(q.shape[-1])
+    live = (torch.arange(C, device=q.device)[None, :]
+            <= pos.to(q.device).long()[:, None])
+    s = s.masked_fill(~live[:, None, :], float("-inf"))
+    return torch.einsum("bhc,bchd->bhd", torch.softmax(s, dim=-1),
+                        vc.float())
+
+
+def gather_pages(pool, block_tables) -> torch.Tensor:
+    """The logical (B, MB * bs, H, Dh) cache a page table describes."""
+    B, MB = block_tables.shape
+    return pool[block_tables.long()].reshape(B, MB * pool.shape[1],
+                                             *pool.shape[2:])
+
+
+def flash_decode_step_paged_plain(q, pk, pv, pos, block_tables
+                                  ) -> torch.Tensor:
+    """Plain PyTorch version of K9: gather the pages, then K8's plain
+    version."""
+    return flash_decode_step_plain(q, gather_pages(pk, block_tables),
+                                   gather_pages(pv, block_tables), pos)
+
+
+def _check(name, q, caches, pos, tables=None):
+    B, H, Dh = q.shape
+    for key, t in list(caches.items()) + [("q", q)]:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {key} is {t.dtype}, the kernel takes "
+                            "float32")
+    for key, t in list(caches.items()) + [("pos", pos)] + (
+            [] if tables is None else [("block_tables", tables)]):
+        if t.device != q.device:
+            raise ValueError(f"{name}: {key} is on {t.device}, not "
+                             f"{q.device}")
+    if tuple(pos.shape) != (B,):
+        raise ValueError(f"{name}: pos must be ({B},), got "
+                         f"{tuple(pos.shape)}")
+
+
+def _on_card(name, q, tensors) -> bool:
+    """False for CPU tensors (plain version); for CUDA ones check what the
+    kernel takes and return True."""
+    dev = q.device
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    Dh = q.shape[-1]
+    if Dh % 8 != 0 or not 8 <= Dh <= 128:
+        raise ValueError(f"{name}: head dim {Dh} is not a multiple of 8 in "
+                         "[8, 128]")
+    for key, t in tensors.items():
+        if key in ("pos", "block_tables") and t.dtype != torch.int32:
+            raise TypeError(f"{name}: {key} must be int32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+    return True
+
+
+def _launch(entry, *args) -> None:
+    lib = build.load("flash_decode", ENTRIES, "flash_decode_error")
+    rc = getattr(lib, entry)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{entry} kernel failed: "
+                           + lib.flash_decode_error(rc).decode())
+    ops.count_launch(entry)
+
+
+def flash_decode_step(q, kc, vc, pos) -> torch.Tensor:
+    """K8: one decode step of every (batch, head) row over a dense cache.
+    q (B, H, Dh) float32; kc, vc (B, C, H, Dh) float32 with position pos[b]
+    already written; pos (B,) int32. Returns (B, H, Dh) float32."""
+    B, H, Dh = q.shape
+    if kc.dim() != 4 or kc.shape != vc.shape or kc.shape[0] != B \
+            or kc.shape[2:] != q.shape[1:]:
+        raise ValueError(f"flash_decode_step: bad shapes q {tuple(q.shape)}, "
+                         f"kc {tuple(kc.shape)}, vc {tuple(vc.shape)}")
+    _check("flash_decode_step", q, {"kc": kc, "vc": vc}, pos)
+    if not _on_card("flash_decode_step", q,
+                    {"q": q, "kc": kc, "vc": vc, "pos": pos}):
+        return flash_decode_step_plain(q, kc, vc, pos)
+    out = torch.empty((B, H, Dh), dtype=torch.float32, device=q.device)
+    _launch("flash_decode", q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+            pos.data_ptr(), out.data_ptr(), B, H, Dh, kc.shape[1],
+            q.device.index or 0,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    return out
+
+
+def flash_decode_step_paged(q, pk, pv, pos, block_tables) -> torch.Tensor:
+    """K9: ``flash_decode_step`` over a block pool. pk, pv (NB, bs, H, Dh)
+    float32; block_tables (B, MB) int32, every entry a pool block; pos (B,)
+    int32 below MB * bs. Returns (B, H, Dh) float32."""
+    B, H, Dh = q.shape
+    if pk.dim() != 4 or pk.shape != pv.shape or pk.shape[2:] != q.shape[1:] \
+            or block_tables.dim() != 2 or block_tables.shape[0] != B:
+        raise ValueError(f"flash_decode_step_paged: bad shapes q "
+                         f"{tuple(q.shape)}, pool {tuple(pk.shape)} / "
+                         f"{tuple(pv.shape)}, block_tables "
+                         f"{tuple(block_tables.shape)}")
+    _check("flash_decode_step_paged", q, {"pk": pk, "pv": pv}, pos,
+           block_tables)
+    if not _on_card("flash_decode_step_paged", q,
+                    {"q": q, "pk": pk, "pv": pv, "pos": pos,
+                     "block_tables": block_tables}):
+        return flash_decode_step_paged_plain(q, pk, pv, pos, block_tables)
+    out = torch.empty((B, H, Dh), dtype=torch.float32, device=q.device)
+    _launch("flash_decode_paged", q.data_ptr(), pk.data_ptr(), pv.data_ptr(),
+            pos.data_ptr(), block_tables.data_ptr(), out.data_ptr(), B, H,
+            Dh, pk.shape[1], block_tables.shape[1], q.device.index or 0,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    return out

@@ -1,5 +1,5 @@
-"""Fused LSTM kernels for Hopper, their plain PyTorch versions, their
-autograd, and the build that compiles them.
+"""Fused LSTM kernels for Hopper, their plain PyTorch versions and their
+autograd.
 
 Counterpart of deeplearning4j_tpu/ops/lstm_pallas.py:
 
@@ -29,32 +29,18 @@ projection ``x @ W + b`` stays outside, as a ``torch.matmul`` in the layer.
 
 On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor it
 runs the plain version beside it, a Python time loop over the same float32
-math. The kernels are built with ``nvcc`` into ``build/torch_kernels/`` at
-first use (one process per source, all started together) and loaded with
-``ctypes``.
+math. The kernels are built and loaded by ``ops/build.py``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
 from typing import Dict, Tuple
 
 import torch
 
 from deeplearning4j_tpu_torch import ops
-
-CSRC = Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("lstm_fwd.cu", "lstm2_fwd.cu", "lstm_bwd.cu")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from deeplearning4j_tpu_torch.ops import build
 
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
 _PTRS, _PLAN = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
@@ -73,80 +59,14 @@ ENTRIES = {
 }
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_LIBS: Dict[str, ctypes.CDLL] = {}
-_LIBS_LOCK = threading.Lock()
 _LAST_PLAN: Dict[str, dict] = {}
 _PLAN_KEYS = ("units_per_block", "unit_blocks", "batch_blocks", "threads",
               "k_slice", "shared_bytes")
 
 
-# ------------------------------------------------------------------ build
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = "/usr/local/cuda/bin/nvcc"
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
-
-
-def _lib_path(source: str) -> Path:
-    """Build output named by a digest of the sources and flags, so an edit
-    to either never loads a stale library."""
-    h = hashlib.sha256()
-    for name in (source, "lstm_common.cuh"):
-        h.update((CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
-
-
-def build_kernels() -> Dict[str, dict]:
-    """Compile every kernel source that has no current build, one ``nvcc``
-    per source, all started together. Returns, per source stem, the
-    library path, the build seconds (0 when it was already built) and what
-    ``ptxas -v`` reported (registers, shared memory, spills)."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    info, procs = {}, {}
-    for src in SOURCES:
-        stem, out = Path(src).stem, _lib_path(src)
-        if out.exists():
-            info[stem] = {"path": str(out), "seconds": 0.0, "ptxas": ""}
-            continue
-        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
-        procs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       tmp, out, time.perf_counter())
-    failed = []
-    for stem, (proc, tmp, out, t0) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"{stem}:\n{log}")
-            continue
-        os.replace(tmp, out)
-        info[stem] = {"path": str(out), "seconds": time.perf_counter() - t0,
-                      "ptxas": log}
-    if failed:
-        raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return info
-
-
 def _lib(stem: str) -> ctypes.CDLL:
-    with _LIBS_LOCK:
-        lib = _LIBS.get(stem)
-        if lib is None:
-            lib = ctypes.CDLL(build_kernels()[stem]["path"])
-            for entry, (src, argtypes) in ENTRIES.items():
-                if src == stem:
-                    fn = getattr(lib, entry)
-                    fn.argtypes = argtypes
-                    fn.restype = _INT
-            lib.lstm_error.argtypes = [_INT]
-            lib.lstm_error.restype = ctypes.c_char_p
-            _LIBS[stem] = lib
-        return lib
+    return build.load(stem, {e: a for e, (src, a) in ENTRIES.items()
+                             if src == stem}, "lstm_error")
 
 
 def last_plan(name: str) -> dict:

@@ -3,7 +3,8 @@
 Counterpart of deeplearning4j_tpu/serving/batcher.py (without its metrics
 registry, traces and request journal, which are not ported yet). A bounded
 queue is drained by one worker under a max-latency / max-batch policy;
-each request is answered with its slice of the merged result.
+requests whose rows share one shape merge, and each is answered with its
+slice of the merged result.
 
 Overload protection:
 
@@ -139,13 +140,17 @@ class MicroBatcher:
         return True
 
     def _worker(self):
+        held = None     # a request of another row shape than the last batch
         while True:
-            try:
-                first = self._q.get(timeout=0.05)
-            except queue.Empty:
-                if self._stopping.is_set():
-                    return
-                continue
+            if held is not None:
+                first, held = held, None
+            else:
+                try:
+                    first = self._q.get(timeout=0.05)
+                except queue.Empty:
+                    if self._stopping.is_set():
+                        return
+                    continue
             if self._expired(first, time.perf_counter()):
                 continue
             batch = [first]
@@ -160,6 +165,11 @@ class MicroBatcher:
                     break
                 if self._expired(item, time.perf_counter()):
                     continue
+                if item[0].shape[1:] != first[0].shape[1:]:
+                    # rows of another shape (say, a sequence of another
+                    # length) cannot be concatenated: it heads the next batch
+                    held = item
+                    break
                 batch.append(item)
                 total += item[0].shape[0]
                 if remaining <= 0:

@@ -18,6 +18,16 @@ import numpy as np
 import torch
 
 
+def input_type_of(model):
+    """The model's declared input type: ``conf.input_types[0]`` for a
+    ComputationGraph, ``conf.input_type`` for a MultiLayerNetwork (None
+    when the configuration declares none)."""
+    conf = model.conf
+    if hasattr(conf, "network_inputs"):
+        return conf.input_types[0] if conf.input_types else None
+    return conf.input_type
+
+
 def bucket_for(n: int, max_batch: int, min_bucket: int = 1) -> int:
     """Smallest power-of-two rung >= n (capped at max_batch)."""
     if n < 1:
@@ -40,8 +50,10 @@ def bucket_ladder(max_batch: int, min_bucket: int = 1) -> List[int]:
 
 
 class InferenceEngine:
-    """Bucketed inference over a MultiLayerNetwork. Parameters are read
-    from the model at call time."""
+    """Bucketed inference over a MultiLayerNetwork or a single-input,
+    single-output ComputationGraph (both take ``_forward(params, x)`` and
+    return the output first). Parameters are read from the model at call
+    time."""
 
     def __init__(self, model, max_batch: int = 1024):
         self.model = model

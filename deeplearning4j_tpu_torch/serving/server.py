@@ -28,7 +28,8 @@ import numpy as np
 from deeplearning4j_tpu_torch.resilience.errors import (
     BatcherStoppedError, DeadlineExceededError, ServerOverloadedError)
 from deeplearning4j_tpu_torch.serving.batcher import MicroBatcher
-from deeplearning4j_tpu_torch.serving.engine import InferenceEngine
+from deeplearning4j_tpu_torch.serving.engine import (InferenceEngine,
+                                                     input_type_of)
 from deeplearning4j_tpu_torch.serving.wire import (ndarray_from_b64,
                                                    ndarray_to_b64)
 
@@ -143,7 +144,8 @@ class _Handler(BaseHTTPRequestHandler):
 
 
 class InferenceServer:
-    """Serve a MultiLayerNetwork over HTTP through bucketed micro-batching.
+    """Serve a MultiLayerNetwork or a ComputationGraph over HTTP through
+    bucketed micro-batching.
 
         srv = InferenceServer(net, port=0, decode_engine=eng).start()
         out = InferenceClient(f"http://127.0.0.1:{srv.port}").predict(x)
@@ -171,7 +173,7 @@ class InferenceServer:
     def validate_features(self, x: np.ndarray) -> None:
         """400 for a wrong rank or feature width against the model's
         declared input type."""
-        itype = self.model.conf.input_type
+        itype = input_type_of(self.model)
         if itype is None:
             return
         if itype.kind == "rnn":

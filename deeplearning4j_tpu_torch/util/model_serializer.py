@@ -1,12 +1,14 @@
 """Model persistence: the JAX package's zip checkpoint, read and written.
 
-Counterpart of deeplearning4j_tpu/util/model_serializer.py for sequential
-networks. The zip holds ``meta.json`` (with the ``iteration``, ``epoch``
-and ``epoch_batch`` counters), ``configuration.json``, ``coefficients.npz``
-(one array per parameter under keys like ``0/RW`` -- layer index /
-parameter name), ``modelState.npz`` and, when saved, ``updaterState.npz``
-(the updater state under the JAX package's optax key paths, e.g.
-``0/0/.mu/W`` -- layer index / chain index / field / parameter). Arrays go
+Counterpart of deeplearning4j_tpu/util/model_serializer.py for
+MultiLayerNetworks and ComputationGraphs. The zip holds ``meta.json`` (the
+kind, and the ``iteration``, ``epoch`` and ``epoch_batch`` counters),
+``configuration.json``, ``coefficients.npz`` (one array per parameter
+under keys like ``0/RW`` -- layer index / parameter name -- or, for a
+graph, ``b0_attn/Wq`` -- node name / parameter name), ``modelState.npz``
+and, when saved, ``updaterState.npz`` (the updater state under the JAX
+package's optax key paths, e.g. ``0/0/.mu/W`` -- layer index or node name
+/ chain index / field / parameter). Arrays go
 through numpy, so a zip written by either package loads, and resumes
 training, in the other. Writing to a path is atomic: staged to a temp
 file, fsynced, then renamed over the destination.
@@ -30,7 +32,6 @@ COEFF_NAME = "coefficients.npz"
 STATE_NAME = "modelState.npz"
 UPDATER_NAME = "updaterState.npz"
 META_NAME = "meta.json"
-KIND = "MultiLayerNetwork"
 
 
 def _read_member(z: zipfile.ZipFile, path, name: str) -> bytes:
@@ -66,14 +67,27 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def _items(per_layer):
+    """(key, dict) pairs of a network's per-layer tree: list index for a
+    MultiLayerNetwork, node name for a ComputationGraph."""
+    return (per_layer.items() if isinstance(per_layer, dict)
+            else enumerate(per_layer))
+
+
 def _flatten(per_layer) -> dict:
     return {f"{i}/{k}": _to_numpy(v)
-            for i, p in enumerate(per_layer) for k, v in p.items()}
+            for i, p in _items(per_layer) for k, v in p.items()}
+
+
+def _kind(model) -> str:
+    return ("ComputationGraph" if hasattr(model.conf, "network_inputs")
+            else "MultiLayerNetwork")
 
 
 def write_model(model, path, save_updater=True):
-    """Write ``model`` (a MultiLayerNetwork) to a checkpoint zip, with its
-    updater state unless ``save_updater`` is False."""
+    """Write ``model`` (a MultiLayerNetwork or a ComputationGraph) to a
+    checkpoint zip, with its updater state unless ``save_updater`` is
+    False."""
     flat = _flatten(model.params)
     path = os.fspath(path)
     tmp = os.path.join(os.path.dirname(os.path.abspath(path)),
@@ -82,7 +96,8 @@ def write_model(model, path, save_updater=True):
         with open(tmp, "wb") as fh:
             with zipfile.ZipFile(fh, "w", zipfile.ZIP_DEFLATED) as z:
                 z.writestr(META_NAME, json.dumps({
-                    "format": "deeplearning4j_tpu/model/v1", "kind": KIND,
+                    "format": "deeplearning4j_tpu/model/v1",
+                    "kind": _kind(model),
                     "iteration": int(model.iteration),
                     "epoch": int(model.epoch),
                     "epoch_batch": int(model._epoch_batch)}))
@@ -104,9 +119,10 @@ def write_model(model, path, save_updater=True):
 
 def _fill(path, member, flat, templates):
     """Arrays of ``flat`` shaped and typed like ``templates`` (per-layer
-    dicts), keyed ``layer/key``; a missing or misshapen array raises."""
-    out = []
-    for i, tmpl in enumerate(templates):
+    dicts in a list, or by node name), keyed ``layer/key``; a missing or
+    misshapen array raises."""
+    out = {}
+    for i, tmpl in _items(templates):
         p = {}
         for k, t in tmpl.items():
             key = f"{i}/{k}"
@@ -120,19 +136,23 @@ def _fill(path, member, flat, templates):
                     detail=f"{key!r} has shape {arr.shape}, the "
                            f"configuration needs {tuple(t.shape)}")
             p[k] = torch.as_tensor(arr).to(device=t.device, dtype=t.dtype)
-        out.append(p)
-    return out
+        out[i] = p
+    return out if isinstance(templates, dict) else list(out.values())
 
 
-def restore_multi_layer_network(path, device=None, load_updater=True):
+def _restore(path, device, load_updater, kind):
     """Build the network the zip describes on ``device`` and load its
     parameters, counters and (when the zip has it and ``load_updater``)
     updater state. Every array the configuration needs must be present
     with the shape the configuration gives it."""
+    from deeplearning4j_tpu_torch.models.computation_graph import \
+        ComputationGraph
     from deeplearning4j_tpu_torch.models.multi_layer_network import (
         DTYPES, MultiLayerNetwork)
     from deeplearning4j_tpu_torch.nn.conf.configuration import (
         MultiLayerConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
+        ComputationGraphConfiguration)
     try:
         z = zipfile.ZipFile(path, "r")
     except zipfile.BadZipFile as e:
@@ -143,21 +163,38 @@ def restore_multi_layer_network(path, device=None, load_updater=True):
         except json.JSONDecodeError as e:
             raise CorruptCheckpointError(path, member=META_NAME,
                                          detail=str(e)) from e
-        if meta.get("kind") != KIND:
-            raise ValueError(f"Expected {KIND}, zip holds {meta.get('kind')}")
-        conf = MultiLayerConfiguration.from_json(
-            _read_member(z, path, CONFIG_NAME).decode())
+        if meta.get("kind") != kind:
+            raise ValueError(f"Expected {kind}, zip holds {meta.get('kind')}")
+        conf_json = _read_member(z, path, CONFIG_NAME).decode()
         flat = _loadz(z, path, COEFF_NAME)
         upd = (_loadz(z, path, UPDATER_NAME)
                if load_updater and UPDATER_NAME in z.namelist() else None)
-    model = MultiLayerNetwork(conf, device=device)
     gen = torch.Generator().manual_seed(0)
-    dtype = DTYPES[conf.global_conf.dtype]
-    model.set_params(_fill(path, COEFF_NAME, flat,
-                           [l.init(gen, dtype) for l in model.layers]))
+    if kind == "ComputationGraph":
+        conf = ComputationGraphConfiguration.from_json(conf_json)
+        model = ComputationGraph(conf, device=device)
+        dtype = DTYPES[conf.global_conf.dtype]
+        templates = {n: conf.nodes[n].layer.init(gen, dtype)
+                     for n in conf.layer_nodes()}
+    else:
+        conf = MultiLayerConfiguration.from_json(conf_json)
+        model = MultiLayerNetwork(conf, device=device)
+        dtype = DTYPES[conf.global_conf.dtype]
+        templates = [l.init(gen, dtype) for l in model.layers]
+    model.set_params(_fill(path, COEFF_NAME, flat, templates))
     if upd is not None:
         model.opt_state = _fill(path, UPDATER_NAME, upd, model.opt_state)
     model.iteration = int(meta.get("iteration", 0))
     model.epoch = int(meta.get("epoch", 0))
     model._epoch_batch = int(meta.get("epoch_batch", 0))
     return model
+
+
+def restore_multi_layer_network(path, device=None, load_updater=True):
+    """The MultiLayerNetwork a checkpoint zip holds, on ``device``."""
+    return _restore(path, device, load_updater, "MultiLayerNetwork")
+
+
+def restore_computation_graph(path, device=None, load_updater=True):
+    """The ComputationGraph a checkpoint zip holds, on ``device``."""
+    return _restore(path, device, load_updater, "ComputationGraph")

@@ -30,14 +30,20 @@ class ZooModel:
         self.kwargs = kwargs
 
     def conf(self):
-        """Build the MultiLayerConfiguration."""
+        """Build the MultiLayerConfiguration or the
+        ComputationGraphConfiguration."""
         raise NotImplementedError
 
     def init(self, device=None):
-        """Build and initialize the network (random weights from the seed)."""
-        from deeplearning4j_tpu_torch.models.multi_layer_network import \
-            MultiLayerNetwork
-        return MultiLayerNetwork(self.conf(), device=device).init()
+        """Build and initialize the network (random weights from the seed):
+        a ComputationGraph for a graph configuration, else a
+        MultiLayerNetwork."""
+        from deeplearning4j_tpu_torch.models import (ComputationGraph,
+                                                     MultiLayerNetwork)
+        conf = self.conf()
+        cls = (ComputationGraph if hasattr(conf, "network_inputs")
+               else MultiLayerNetwork)
+        return cls(conf, device=device).init()
 
     def pretrained_path(self) -> Path:
         return BUNDLED_DIR / f"{self.name}.zip"

@@ -1,14 +1,16 @@
 """The port's CUDA kernels -- K1 and K2 (csrc/lstm_fwd.cu, inference and
-training modes), K4 and K4-train (csrc/lstm2_fwd.cu), K3 (csrc/lstm_bwd.cu)
--- against their plain PyTorch versions on the card, and the autograd
-functions' gradients on the card against the same on the CPU.
+training modes), K4 and K4-train (csrc/lstm2_fwd.cu), K3 (csrc/lstm_bwd.cu),
+K5 (csrc/flash_attn_fwd.cu), K8 and K9 (csrc/flash_decode.cu) -- against
+their plain PyTorch versions on the card, and the autograd functions'
+gradients on the card against the same on the CPU.
 
 Marked ``cuda``: they skip without a card, since a CUDA kernel has no CPU
 mode. On a machine with one (and ``nvcc``) they run with the usual
 ``python -m pytest tests/test_torch_kernels_cuda.py``; this file imports no
 JAX, so it runs where only the port is installed. Tolerances as in
 chip_smoke.py: float32 1e-4, bfloat16 3e-2 on every output (K3's and the
-gradients' relative to the largest magnitude of the reference).
+gradients' relative to the largest magnitude of the reference); the
+attention kernels take float32 only.
 """
 
 import numpy as np
@@ -16,7 +18,7 @@ import pytest
 import torch
 
 from deeplearning4j_tpu_torch import ops
-from deeplearning4j_tpu_torch.ops import lstm_cuda
+from deeplearning4j_tpu_torch.ops import attention_cuda, decode_cuda, lstm_cuda
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 K1 = ("gate_in", "rw1", "h01", "c01")
@@ -125,3 +127,74 @@ def test_cuda_wrapper_raises_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError, match="cpu"):
         ops.fused_lstm_sequence(c["gate_in"], c["rw1"].cpu(), c["h01"],
                                 c["c01"])
+
+
+def _rand(*shape, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(*shape, generator=g).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("BH,T,Dh", [(64, 64, 32), (16, 512, 32), (3, 13, 8),
+                                     (2, 100, 128), (5, 70, 24), (1, 1, 16)])
+def test_flash_attention_matches_plain_on_the_card(BH, T, Dh, causal,
+                                                   cuda_device):
+    """Serving shapes and ragged ones (T off the 64-row tile and the 32-key
+    tile, Dh that is no power of two)."""
+    q, k, v = (_rand(BH, T, Dh, device=cuda_device, seed=s) for s in range(3))
+    before = ops.launch_counts().get("flash_attn_fwd", 0)
+    o, lse = ops.flash_attention_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attn_fwd"] == before + 1
+    want_o, want_lse = attention_cuda.flash_attention_fwd_plain(q, k, v,
+                                                                causal)
+    assert (o - want_o).abs().max().item() <= TOL[torch.float32]
+    assert (lse - want_lse).abs().max().item() <= TOL[torch.float32]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("B,H,Dh,C", [(8, 4, 32, 512), (64, 4, 32, 512),
+                                      (3, 2, 8, 48), (2, 3, 128, 64)])
+def test_flash_decode_matches_plain_on_the_card(B, H, Dh, C, paged,
+                                                cuda_device):
+    """Positions at the first row, spread through the cache and at the
+    last; the pool behind shuffled page tables, block 0 left as scratch."""
+    q = _rand(B, H, Dh, device=cuda_device)
+    pos = torch.linspace(0, C - 1, B).round().to(torch.int32).to(cuda_device)
+    before = ops.launch_counts()
+    if paged:
+        bs, MB = 16, C // 16
+        NB = B * MB + 1
+        pk, pv = (_rand(NB, bs, H, Dh, device=cuda_device, seed=s)
+                  for s in (1, 2))
+        tables = (torch.randperm(NB - 1, generator=torch.Generator()
+                                 .manual_seed(3))[:B * MB] + 1) \
+            .reshape(B, MB).to(torch.int32).to(cuda_device)
+        got = ops.flash_decode_step_paged(q, pk, pv, pos, tables)
+        want = decode_cuda.flash_decode_step_paged_plain(q, pk, pv, pos,
+                                                         tables)
+        name = "flash_decode_paged"
+    else:
+        kc, vc = (_rand(B, C, H, Dh, device=cuda_device, seed=s)
+                  for s in (1, 2))
+        got = ops.flash_decode_step(q, kc, vc, pos)
+        want = decode_cuda.flash_decode_step_plain(q, kc, vc, pos)
+        name = "flash_decode"
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[name] == before.get(name, 0) + 1
+    assert (got - want).abs().max().item() <= TOL[torch.float32]
+
+
+@pytest.mark.cuda
+def test_flash_attention_under_grad_raises_on_the_card(cuda_device):
+    q = _rand(2, 8, 8, device=cuda_device).requires_grad_()
+    with pytest.raises(NotImplementedError, match="K6"):
+        ops.flash_attention(q, q, q, True)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_decode_step(_rand(1, 1, 12, device=cuda_device),
+                              _rand(1, 4, 1, 12, device=cuda_device),
+                              _rand(1, 4, 1, 12, device=cuda_device),
+                              torch.zeros(1, dtype=torch.int32,
+                                          device=cuda_device))

@@ -114,6 +114,27 @@ def test_micro_batcher_coalesces_concurrent_requests(nets):
     assert st["requests"] == 4 and st["device_calls"] < 4
 
 
+def test_micro_batcher_merges_only_requests_of_one_length(nets):
+    """Sequences of another length cannot share a forward: each batch holds
+    one row shape, and every request still gets its own answer."""
+    _, net = nets
+    eng = net.serving_engine()
+    b = MicroBatcher(eng, max_latency_ms=200.0).start()
+    calls0 = eng.stats()["device_calls"]
+    try:
+        xs = [_x(n, T=t, seed=20 + n)
+              for n, t in zip((1, 2, 3, 4), (5, 5, 9, 9))]
+        futs = [b.submit(x) for x in xs]
+        outs = [f.result(timeout=30) for f in futs]
+    finally:
+        b.stop()
+    for x, out in zip(xs, outs):
+        assert out.shape == (x.shape[0], x.shape[1], V)
+        np.testing.assert_allclose(out, net.output(x, bucketed=False).numpy(),
+                                   atol=1e-6, rtol=0)
+    assert 2 <= eng.stats()["device_calls"] - calls0 < 4
+
+
 class _GatedEngine:
     """An engine whose forward waits for a gate: requests pile up behind it."""
 
