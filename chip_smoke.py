@@ -16,18 +16,22 @@ result line, when any of them or the port's package is missing. Phases:
    Tolerance f32 1e-4, bf16 3e-2, on every output (K3's relative to the
    largest magnitude of the plain version's). The attention family in
    float32, tolerance 1e-4: K5 (flash attention forward, o and lse) at
-   B in {1, 16, 64} x 4 heads, T in {64, 512}, Dh=32, causal and not; K8
-   (flash decode, dense cache) and K9 (paged pool, bs=16, shuffled page
-   tables) at B in {1, 8, 64}, 4 heads, C=512, positions spread over
-   0..511. With CUDA-event medians of the kernel, the plain version and
-   one library call computing the same work (cuDNN's ``torch.nn.LSTM``:
-   the forward with grad enabled for the training forwards, the backward
-   of that output alone for K3; ``scaled_dot_product_attention``, causal
-   for K5, over the gathered cache with the position mask for K8/K9), and
-   the least time the card could take (bound). The attention family's
-   times are device times (calls replayed from a CUDA graph: a small
-   kernel runs for less than the host takes to launch it), beside the
-   time of a call launched from the host.
+   B in {1, 16, 64} x 4 heads, T in {64, 512}, Dh=32, causal and not; K6
+   (dq, and the delta it writes for K7) and K7 (dk, dv), the flash
+   attention backward, at B in {1, 32, 64} x 4 heads, T in {64, 100,
+   512}, Dh=32, causal and not, relative to the largest gradient of the
+   plain version; K8 (flash decode, dense cache) and K9 (paged pool,
+   bs=16, shuffled page tables) at B in {1, 8, 64}, 4 heads, C=512,
+   positions spread over 0..511. With CUDA-event medians of the kernel,
+   the plain version and one library call computing the same work
+   (cuDNN's ``torch.nn.LSTM``: the forward with grad enabled for the
+   training forwards, the backward of that output alone for K3;
+   ``scaled_dot_product_attention``, causal for K5, its backward -- dq, dk
+   and dv together -- for K6 + K7, over the gathered cache with the
+   position mask for K8/K9), and the least time the card could take
+   (bound). The attention family's times are device times (calls replayed
+   from a CUDA graph: a small kernel runs for less than the host takes to
+   launch it), beside the time of a call launched from the host.
 4. Serving: the bundled TextGenerationLSTM served by ``InferenceServer`` on
    the card: held-out /predict accuracy, concurrent mixed-size /predict
    against unbatched forwards, greedy /generate against the full-prefix
@@ -52,12 +56,29 @@ result line, when any of them or the port's package is missing. Phases:
    second and held-out top-1 (at least the manifest's 0.2979 - 0.03);
    (c) the same with truncated BPTT in chunks of 16 for 2 epochs, whose
    held-out loss must fall.
+7. Training TinyTransformer at its full default width, every attention
+   forward through K5 and its backward through K6 and K7: (a) step-1 loss
+   and gradients and three ``fit`` steps on the card against the CPU port
+   (plain versions) from the same initial parameters, at T=64, B=32 and
+   at T=512, B=8 (gradients within 1e-4 of max|grad|, losses rtol 1e-4,
+   parameters within 1e-4 -- the key bias ``bk``, which has no gradient,
+   within 2 x lr x steps); (b) the LSTM model's recipe from the seed
+   (stride-8 windows, B=32, T=64, 90 epochs of ``fit_scan``, 2340 steps),
+   with ms per step, tokens per second, the loss every 10 epochs and
+   held-out top-1 through ``evaluate`` after epochs 10 and 90 (bars:
+   top-1 >= 0.24 after epoch 10, last loss <= 0.25 after epoch 90); (c)
+   the trained graph saved with its updater, loaded on the card, one more
+   ``fit`` step on both: the same loss and parameters; (d) ten ``fit``
+   steps under ``torch.profiler``: device busy time and idle share,
+   kernels per step and the host operations that take the most time.
 
 Kernel launch counts are reset right before the LSTM serving phase, before
-each TinyTransformer part and before training (b) and (c), and read right
-after; each TinyTransformer part and (b), (c) must launch exactly the
-kernels their call or step counts call for (K5 twice per bucketed forward,
-K8 or K9 twice per engine step), and nothing else.
+each TinyTransformer part, before training (b) and (c) and before each
+part of the TinyTransformer training, and read right after; each
+TinyTransformer part and the training runs must launch exactly the kernels
+their call or step counts call for (K5 twice per bucketed forward, K8 or
+K9 twice per engine step; K5, K6 and K7 twice each per TinyTransformer
+train step, K5 alone for ``score`` and ``evaluate``), and nothing else.
 
 Prints, before the last line, one JSON line of per-kernel numbers and the
 card's name and power limit; the last line is
@@ -120,6 +141,18 @@ SOURCES.update(flash_attn_fwd="flash_attn_fwd.cu",
                flash_decode="flash_decode.cu",
                flash_decode_paged="flash_decode.cu")
 HEADS, HEAD_DIM, KV_BLOCK = 4, 32, 16       # TinyTransformer's defaults
+REPLACES.update(flash_attn_dq=f"{FLASH}:202", flash_attn_dkv=f"{FLASH}:212")
+SOURCES.update(flash_attn_dq="flash_attn_bwd.cu",
+               flash_attn_dkv="flash_attn_bwd.cu")
+# TinyTransformer training: the LSTM recipe (tools/make_pretrained.py) and
+# its bars, from the JAX package's TinyTransformer through the same recipe
+# on a CPU (held-out top-1 0.2687 after epoch 10, falling after; last
+# batch's loss 0.092 after epoch 90). The port on a CPU, through
+# ``tiny_recipe("cpu")`` below: top-1 0.2604 after epoch 10 (0.2354 after
+# epoch 90), loss 2.4195 after epoch 10 and 0.0938 after epoch 90.
+TINY_B, TINY_T, TINY_EPOCHS = 32, 64, 90
+TINY_TOP1_EPOCH10 = 0.24        # 0.2687 less the LSTM recipe's 0.03 slack
+TINY_LOSS_EPOCH90 = 0.25        # the JAX run passed it between epochs 60-70
 
 
 def card_line() -> str:
@@ -344,14 +377,24 @@ def fmt(row):
 def attn_bound(kernel, c):
     """Least time for one attention call on these inputs: every input read
     once and every output written once over HBM, or its float32 FMAs at the
-    card's peak outside the tensor cores, whichever is larger. K5 counts
-    the (query, key) pairs the mask keeps; K8/K9 only the live rows
+    card's peak outside the tensor cores, whichever is larger. K5, K6 and
+    K7 count the (query, key) pairs the mask keeps; K8/K9 only the live rows
     0..pos of each stream (and K9 the page-table entries they need)."""
-    if kernel == "flash_attn_fwd":
+    if kernel.startswith("flash_attn"):
         BH, T, Dh = c["q"].shape
         pairs = BH * (T * (T + 1) // 2 if c["causal"] else T * T)
-        nbytes = 4 * (4 * BH * T * Dh + BH * T)          # q, k, v -> o, lse
-        flops = 4.0 * Dh * pairs                         # q.k and p.v
+        vec, row = BH * T * Dh, BH * T
+        if kernel == "flash_attn_fwd":
+            nbytes = 4 * (3 * vec + vec + row)           # q, k, v -> o, lse
+            flops = 4.0 * Dh * pairs                     # q.k and p.v
+        elif kernel == "flash_attn_dq":
+            # q, k, v, o, do, lse -> dq, delta; q.k, do.v, ds.k
+            nbytes = 4 * (5 * vec + row + vec + row)
+            flops = 6.0 * Dh * pairs
+        else:
+            # q, k, v, do, lse, delta -> dk, dv; q.k, do.v, p.do, ds.q
+            nbytes = 4 * (4 * vec + 2 * row + 2 * vec)
+            flops = 8.0 * Dh * pairs
     else:
         B, H, Dh = c["q"].shape
         live = int((c["pos"].long() + 1).sum())
@@ -469,6 +512,102 @@ def fmt_attn(row):
             f" ms)  plain {row['plain_ms']:.4f} ms  sdpa "
             f"{row['library_ms']:.4f} ms  bound {row['bound_ms']:.5f} ms "
             f"({row['bound_by']})")
+
+
+def bwd_kernel_case(B, T, causal, seed=0):
+    """K6 and K7 at one shape: q, k, v and the output gradient random, o
+    and lse from K5's plain version. Each kernel's outputs against its
+    plain version's (dq, dk, dv relative to the largest of the three plain
+    gradients, delta to its own largest magnitude), and the four times:
+    each kernel's, its plain version's, and the backward of
+    ``scaled_dot_product_attention`` (dq, dk and dv in one call), recorded
+    beside both. Returns the rows of K6 and K7."""
+    import torch
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.ops import attention_cuda as A
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    BH = B * HEADS
+    q, k, v, do = (torch.randn(BH, T, HEAD_DIM, generator=g, device="cuda")
+                   for _ in range(4))
+    o, lse = A.flash_attention_fwd_plain(q, k, v, causal)
+    c = {"q": q, "causal": causal}
+    with torch.no_grad():
+        dq, delta = A.flash_attention_dq(q, k, v, o, lse, do, causal)
+        dk, dv = A.flash_attention_dkv(q, k, v, lse, delta, do, causal)
+        torch.cuda.synchronize()
+        want_dq, want_delta = A.flash_attention_dq_plain(q, k, v, o, lse,
+                                                         do, causal)
+        want_dk, want_dv = A.flash_attention_dkv_plain(q, k, v, lse,
+                                                       want_delta, do, causal)
+    scale = max(t.abs().max().item() for t in (want_dq, want_dk, want_dv))
+    errs = {"flash_attn_dq": max(
+        (dq - want_dq).abs().max().item() / scale,
+        (delta - want_delta).abs().max().item()
+        / want_delta.abs().max().item()),
+        "flash_attn_dkv": max((dk - want_dk).abs().max().item(),
+                              (dv - want_dv).abs().max().item()) / scale}
+    for kernel, err in errs.items():
+        if not err <= ATTN_TOL:
+            raise AssertionError(f"{kernel} B={B} T={T} causal={causal}: "
+                                 f"relative err {err} > {ATTN_TOL}")
+    calls = {
+        "flash_attn_dq": (
+            lambda: A.flash_attention_dq(q, k, v, o, lse, do, causal),
+            lambda: A.flash_attention_dq_plain(q, k, v, o, lse, do, causal)),
+        "flash_attn_dkv": (
+            lambda: A.flash_attention_dkv(q, k, v, lse, delta, do, causal),
+            lambda: A.flash_attention_dkv_plain(q, k, v, lse, delta, do,
+                                                causal))}
+    # SDPA's backward alone cannot be replayed from a graph (autograd runs
+    # it on the stream its forward was recorded on), so its time is that of
+    # forward + backward less that of the same training forward
+    leaves = [t.view(B, HEADS, T, HEAD_DIM).clone().requires_grad_()
+              for t in (q, k, v)]
+    do4 = do.view(B, HEADS, T, HEAD_DIM)
+
+    def sdpa_forward():
+        with torch.enable_grad():
+            return F.scaled_dot_product_attention(*leaves, is_causal=causal)
+
+    def sdpa_step():
+        return torch.autograd.grad(sdpa_forward(), leaves, do4)
+    lib = sdpa_step()
+    lib_err = max((a.reshape(BH, T, HEAD_DIM) - w).abs().max().item()
+                  for a, w in zip(lib, (want_dq, want_dk, want_dv))) / scale
+    step_ms, fwd_ms = graph_ms(sdpa_step, reps=20), graph_ms(sdpa_forward,
+                                                             reps=20)
+    lib_ms = step_ms - fwd_ms
+    rows = []
+    with torch.no_grad():
+        for kernel, (wrap, plain) in calls.items():
+            row = {"kernel": kernel, "B": B, "T": T, "H": HEADS,
+                   "Dh": HEAD_DIM, "dtype": "float32", "causal": causal,
+                   "max_abs_err": errs[kernel], "tol": ATTN_TOL,
+                   "err_relative_to": "largest plain gradient",
+                   "ms": graph_ms(wrap, reps=20),
+                   "call_ms": time_ms(wrap, reps=20),
+                   "plain_ms": graph_ms(plain, reps=3, rounds=3),
+                   "library_ms": lib_ms,
+                   "library_covers": "dq, dk and dv (K6 + K7): SDPA "
+                                     "forward + backward less forward",
+                   "library_step_ms": step_ms, "library_fwd_ms": fwd_ms,
+                   "library_max_rel_err": lib_err}
+            row["bound_ms"], row["bound_by"] = attn_bound(kernel, c)
+            rows.append(row)
+    return rows
+
+
+def fmt_bwd(rows):
+    dq, dkv = rows
+    return (f"flash_attn_dq+dkv B={dq['B']:<3d} T={dq['T']:<3d} "
+            f"causal={dq['causal']!s:5} rel err {dq['max_abs_err']:.3g} / "
+            f"{dkv['max_abs_err']:.3g} (tol {dq['tol']:g})  K6 "
+            f"{dq['ms']:.4f} ms + K7 {dkv['ms']:.4f} ms = "
+            f"{dq['ms'] + dkv['ms']:.4f} (from the host {dq['call_ms']:.4f} "
+            f"+ {dkv['call_ms']:.4f})  plain {dq['plain_ms']:.4f} + "
+            f"{dkv['plain_ms']:.4f} ms  sdpa backward "
+            f"{dq['library_ms']:.4f} ms  bound {dq['bound_ms']:.5f} + "
+            f"{dkv['bound_ms']:.5f} ms ({dq['bound_by']}, {dkv['bound_by']})")
 
 
 def slice_phase(card):
@@ -904,6 +1043,247 @@ def train_phase(card):
     return res
 
 
+def _add_counts(total, counts):
+    for k, n in counts.items():
+        total[k] = total.get(k, 0) + n
+
+
+def tiny_recipe(device, epochs=TINY_EPOCHS):
+    """TinyTransformer at its full default width from the zoo's seed,
+    trained on ``device`` by the recipe of the bundled LSTM weights
+    (stride-8 corpus windows, B=32, T=64, one ``fit_scan`` of 26 steps per
+    epoch). Returns (net, results): training seconds (synchronized), the
+    last batch's loss every 10 epochs, held-out top-1 through ``evaluate``
+    after epoch 10 and after the last, and the launch counts of the
+    training steps and, apart, of each evaluation. Runs on the CPU too
+    (``python3 -c 'import chip_smoke; print(chip_smoke.tiny_recipe("cpu")
+    [1])'``), which is where the CPU port's figures beside the bars come
+    from."""
+    import torch
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.zoo import TinyTransformer
+    from deeplearning4j_tpu_torch.zoo.corpus import corpus_windows
+
+    (xtr, ytr), (xte, yte), vocab = corpus_windows(T=TINY_T, stride=8)
+    B, T = TINY_B, TINY_T
+    steps = len(xtr) // B
+    net = TinyTransformer(vocab_size=len(vocab)).init(device=device)
+    xs = torch.tensor(xtr[:steps * B].reshape(steps, B, T, -1)).to(device)
+    ys = torch.tensor(ytr[:steps * B].reshape(steps, B, T, -1)).to(device)
+    held_out = DataSet(xte, yte)
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+    res = {"device": device, "steps_per_epoch": steps, "epochs": epochs,
+           "batch": B, "T": T, "loss_every_10_epochs": [],
+           "heldout_top1": {}, "launches_train": {}, "launches_eval": {},
+           "seconds": 0.0}
+    for ep in range(1, epochs + 1):
+        ops.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        net.fit_scan(xs, ys)
+        sync()
+        res["seconds"] += time.perf_counter() - t0
+        _add_counts(res["launches_train"], ops.launch_counts())
+        if ep % 10 == 0:
+            res["loss_every_10_epochs"].append(net.get_score())
+        if ep in (10, epochs):
+            ops.reset_launch_counts()
+            c0 = net.serving_engine().stats()["device_calls"]
+            res["heldout_top1"][ep] = net.evaluate(held_out).accuracy()
+            res["launches_eval"][ep] = {
+                "counts": ops.launch_counts(),
+                "bucketed_forwards":
+                    net.serving_engine().stats()["device_calls"] - c0}
+    n = steps * epochs
+    res.update(steps=n, ms_per_step=res["seconds"] / n * 1e3,
+               tokens_per_s=n * B * T / res["seconds"])
+    return net, res
+
+
+def _param_diffs(got, want):
+    """Largest |got - want| over every parameter but the key biases, and
+    over the key biases (``bk``: no gradient, see tiny_train_phase)."""
+    other = bk = 0.0
+    for n, p in want.items():
+        for k, w in p.items():
+            d = (got[n][k].float().cpu() - w.float().cpu()).abs().max().item()
+            if k == "bk":
+                bk = max(bk, d)
+            else:
+                other = max(other, d)
+    return other, bk
+
+
+def tiny_train_phase(card):
+    """Train TinyTransformer at its full default width on the card; every
+    check raises on failure. Returns the measured numbers.
+
+    ``bk`` has no gradient: a constant added to every key shifts each
+    query's scores by one number, which the softmax ignores, so what K7
+    returns for it is rounding noise that Adam scales up to steps of about
+    lr. It is held to 2 x lr x steps, every other parameter to 1e-4."""
+    import torch
+    from deeplearning4j_tpu_torch import ComputationGraph, ops
+    from deeplearning4j_tpu_torch.zoo import TinyTransformer
+    from deeplearning4j_tpu_torch.zoo.corpus import corpus_windows
+
+    zoo = TinyTransformer(vocab_size=51)
+    lr = zoo.conf().global_conf.updater.learning_rate
+    res = {"card": card}
+    one_step = {"flash_attn_fwd": 2, "flash_attn_dq": 2, "flash_attn_dkv": 2}
+
+    # (a) the card against the CPU port from the same initial parameters
+    for T, B, stride in ((64, 32, 8), (512, 8, 64)):
+        (xtr, ytr), _, vocab = corpus_windows(T=T, stride=stride)
+        cpu = zoo.init(device="cpu")
+        gpu = ComputationGraph(cpu.conf, device="cuda").set_params(cpu.params)
+        x0, y0 = xtr[:B], ytr[:B]
+        g_cpu, s_cpu = cpu.compute_gradient_and_score(x0, y0)
+        ops.reset_launch_counts()
+        g_gpu, s_gpu = gpu.compute_gradient_and_score(x0, y0)
+        torch.cuda.synchronize()
+        _expect_launches(f"tiny train (a) T={T} gradients", one_step)
+        grad_err = _max_rel_err([g_gpu[n] for n in g_cpu], list(g_cpu.values()))
+        losses_cpu, losses_card = [], []
+        ops.reset_launch_counts()
+        for k in range(3):
+            batch = (xtr[k * B:(k + 1) * B], ytr[k * B:(k + 1) * B])
+            losses_cpu.append(cpu.fit(*batch).get_score())
+            losses_card.append(gpu.fit(*batch).get_score())
+        _expect_launches(f"tiny train (a) T={T} fit",
+                         {k: 3 * n for k, n in one_step.items()})
+        ops.reset_launch_counts()
+        scores = (gpu.score(inputs=x0, labels=y0),
+                  cpu.score(inputs=x0, labels=y0))
+        _expect_launches(f"tiny train (a) T={T} score", {"flash_attn_fwd": 2})
+        loss_rel = max(abs(a - b) / abs(b) for a, b in
+                       zip(losses_card + [s_gpu, scores[0]],
+                           losses_cpu + [s_cpu, scores[1]]))
+        p_err, bk_err = _param_diffs(gpu.params, cpu.params)
+        res[f"parity_T{T}"] = {
+            "batch": B, "grad_rel_err": grad_err, "loss_rel_err": loss_rel,
+            "losses_card": losses_card, "losses_cpu": losses_cpu,
+            "param_max_abs_err": p_err, "bk_max_abs_err": bk_err}
+        print(f"tiny train (a) T={T} B={B}: step-1 gradients on the card vs "
+              f"the CPU port: max abs err {grad_err:.3g} of max|grad| (tol "
+              f"{GRAD_TOL}); 3 fit losses card {losses_card} vs CPU "
+              f"{losses_cpu}, score, max rel err {loss_rel:.3g} (tol "
+              f"{LOSS_RTOL}); parameters after: max abs err {p_err:.3g} "
+              f"(tol {GRAD_TOL}), bk {bk_err:.3g} (tol {6 * lr:g}); launches "
+              f"exactly 2 K5 + 2 K6 + 2 K7 per step, 2 K5 per score "
+              f"[{card}]", flush=True)
+        if not (grad_err <= GRAD_TOL and loss_rel <= LOSS_RTOL
+                and p_err <= GRAD_TOL and bk_err <= 2 * lr * 3):
+            raise AssertionError(f"TinyTransformer training at T={T} on the "
+                                 "card disagrees with the CPU port")
+
+    # (b) the recipe from the seed
+    net, rec = tiny_recipe("cuda")
+    n = rec["steps"]
+    res["recipe"] = rec
+    top1, curve = rec["heldout_top1"], rec["loss_every_10_epochs"]
+    print(f"tiny train (b): {n} steps (B={TINY_B}, T={TINY_T}) in "
+          f"{rec['seconds']:.1f} s: {rec['ms_per_step']:.3f} ms/step, "
+          f"{rec['tokens_per_s']:.0f} tokens/s; loss every 10 epochs "
+          f"{[round(x, 4) for x in curve]}; held-out top-1 after epoch 10 "
+          f"{top1[10]:.4f} (floor {TINY_TOP1_EPOCH10}), after epoch "
+          f"{TINY_EPOCHS} {top1[TINY_EPOCHS]:.4f}; launches "
+          f"{rec['launches_train']}, evaluations {rec['launches_eval']} "
+          f"[{card}]", flush=True)
+    if rec["launches_train"] != {k: n * c for k, c in one_step.items()}:
+        raise AssertionError(f"recipe launches {rec['launches_train']}, want "
+                             f"{2 * n} each of K5, K6 and K7")
+    for ep, ev in rec["launches_eval"].items():
+        if ev["counts"] != {"flash_attn_fwd": 2 * ev["bucketed_forwards"]} \
+                or ev["bucketed_forwards"] < 1:
+            raise AssertionError(f"evaluate after epoch {ep} launched {ev}")
+    if not (top1[10] >= TINY_TOP1_EPOCH10 and curve[-1] <= TINY_LOSS_EPOCH90):
+        raise AssertionError(f"recipe missed its bars: top-1 {top1}, losses "
+                             f"{curve}")
+
+    # (c) the checkpoint with its updater, resumed on the card
+    path = ROOT / "build" / "tiny_trained.zip"
+    path.parent.mkdir(exist_ok=True)
+    net.save(path)
+    loaded = ComputationGraph.load(path, device="cuda")
+    (xtr, ytr), _, _ = corpus_windows(T=TINY_T, stride=8)
+    x0, y0 = xtr[:TINY_B], ytr[:TINY_B]
+    ops.reset_launch_counts()
+    net.fit(x0, y0)
+    loaded.fit(x0, y0)
+    _expect_launches("tiny train (c)", {k: 2 * c for k, c in one_step.items()})
+    p_err, bk_err = _param_diffs(loaded.params, net.params)
+    res["resume"] = {"loss": loaded.get_score(), "twin_loss": net.get_score(),
+                     "iteration": loaded.iteration,
+                     "param_max_abs_err": max(p_err, bk_err),
+                     "zip_bytes": path.stat().st_size}
+    path.unlink()
+    print(f"tiny train (c): saved with its updater ({res['resume']['zip_bytes']}"
+          f" bytes), loaded on the card, one more step: loss "
+          f"{res['resume']['loss']} vs {res['resume']['twin_loss']}, "
+          f"parameters max abs diff {max(p_err, bk_err):.3g}, iteration "
+          f"{loaded.iteration} [{card}]", flush=True)
+    if not (loaded.iteration == net.iteration == n + 1
+            and abs(res["resume"]["loss"] - res["resume"]["twin_loss"])
+            <= 1e-6 * abs(res["resume"]["twin_loss"])
+            and max(p_err, bk_err) <= 1e-6):
+        raise AssertionError("the resumed graph's step differs")
+
+    # (d) where a train step's time goes
+    prof = profile_steps(net, x0, y0)
+    res["profile"] = prof
+    busy = prof["device_busy_ms_per_step"]
+    print(f"tiny train (d): torch.profiler over {prof['steps']} fit steps: "
+          f"{prof['wall_ms_per_step']:.3f} ms/step profiled, device busy "
+          + ("not measured (no device events)" if busy is None else
+             f"{busy:.3f} ms/step (idle {prof['device_idle_share']:.1%}), "
+             f"{prof['kernels_per_step']:.0f} kernels/step; attention "
+             f"kernels {prof['attention_ms_per_step']:.4f} ms/step")
+          + f"; host self time per step, top: {prof['top_host_ops'][:5]} "
+          f"[{card}]", flush=True)
+    return res
+
+
+def profile_steps(net, x, y, steps=10):
+    """``steps`` fit steps (after one unprofiled) under torch.profiler: the
+    profiled wall ms per step, the device's busy ms per step (the sum of
+    its kernels' times: one stream, so they do not overlap) and idle
+    share, kernels per step, the attention kernels' ms per step, and the
+    host operations with the most self time per step."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    net.fit(x, y)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            net.fit(x, y)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    out = {"steps": steps, "wall_ms_per_step": wall,
+           "device_busy_ms_per_step": None, "top_host_ops": [
+               [a.key, a.count // steps,
+                round(a.self_cpu_time_total / 1e3 / steps, 4)]
+               for a in sorted(prof.key_averages(),
+                               key=lambda a: a.self_cpu_time_total,
+                               reverse=True)[:12]]}
+    if kernels:
+        busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
+        attn = sum(e.time_range.elapsed_us() for e in kernels
+                   if "flash_attn" in e.name) / 1e3 / steps
+        out.update(device_busy_ms_per_step=busy, attention_ms_per_step=attn,
+                   device_idle_share=1 - busy / wall,
+                   kernels_per_step=len(kernels) / steps)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -946,6 +1326,12 @@ def main() -> int:
                 rows.append(attn_kernel_case("flash_attn_fwd", B, T, causal))
                 print("kernel: " + fmt_attn(rows[-1]) + f" [{card}]",
                       flush=True)
+    for B in (1, 32, 64):
+        for T in (64, 100, 512):
+            for causal in (False, True):
+                pair = bwd_kernel_case(B, T, causal)
+                rows.extend(pair)
+                print("kernel: " + fmt_bwd(pair) + f" [{card}]", flush=True)
     for kernel in ("flash_decode", "flash_decode_paged"):
         for B in (1, 8, 64):
             rows.append(attn_kernel_case(kernel, B, 512))
@@ -958,6 +1344,9 @@ def main() -> int:
     t0 = time.perf_counter()
     train = train_phase(card)
     train["phase_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tiny_train = tiny_train_phase(card)
+    tiny_train["phase_seconds"] = time.perf_counter() - t0
 
     # each kernel at its main path's shape, with the launches of the run
     # that drove it: /predict of the 15 held-out windows (bucket 16, T=64)
@@ -991,6 +1380,11 @@ def main() -> int:
     entry("flash_attn_fwd", row,
           tiny["launches_predict"]["flash_attn_fwd"]
           + tiny["launches_mixed"]["flash_attn_fwd"])
+    # the recipe's train steps (B=32, T=64) run K6 and K7 at BH 128, causal
+    recipe = tiny_train["recipe"]["launches_train"]
+    for row in bwd_kernel_case(TINY_B, TINY_T, True, seed=1):
+        entry(row["kernel"], row, recipe[row["kernel"]])
+    print("main-path shape: " + fmt_bwd(rows[-2:]) + f" [{card}]", flush=True)
     mid = [n + 32 for n in (16, 22, 28, 34, 40, 46, 52, 64)]
     for kernel, kind in (("flash_decode", "dense"),
                          ("flash_decode_paged", "paged")):
@@ -1003,7 +1397,7 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
          "kernel_rows": rows, "slice": res, "tiny": tiny, "train": train,
-         "kernels": entries}, indent=1))
+         "tiny_train": tiny_train, "kernels": entries}, indent=1))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,15 @@
-"""The DataSet container.
+"""The DataSet and MultiDataSet containers.
 
 Counterpart of deeplearning4j_tpu/data/dataset.py (parity surface: nd4j
-``DataSet``: features, labels and their optional masks). Arrays stay host
-numpy until a network moves a batch onto its device.
+``DataSet`` -- features, labels and their optional masks -- and
+``MultiDataSet``, one of each per network input and output, which a
+ComputationGraph trains on). Arrays stay host numpy until a network moves
+a batch onto its device.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import List, Optional
 
 import numpy as np
@@ -26,6 +28,12 @@ class DataSet:
 
     def num_examples(self):
         return 0 if self.features is None else int(self.features.shape[0])
+
+    def to_multi(self) -> "MultiDataSet":
+        return MultiDataSet(
+            features=[self.features], labels=[self.labels],
+            features_masks=[self.features_mask],
+            labels_masks=[self.labels_mask])
 
     def _rows(self, idx) -> "DataSet":
         return DataSet(self.features[idx], self.labels[idx],
@@ -54,3 +62,14 @@ class DataSet:
             return None if parts[0] is None else np.concatenate(parts)
         return DataSet(cat("features"), cat("labels"), cat("features_mask"),
                        cat("labels_mask"))
+
+
+@dataclass
+class MultiDataSet:
+    features: List[np.ndarray] = field(default_factory=list)
+    labels: List[np.ndarray] = field(default_factory=list)
+    features_masks: Optional[List[Optional[np.ndarray]]] = None
+    labels_masks: Optional[List[Optional[np.ndarray]]] = None
+
+    def num_examples(self):
+        return 0 if not self.features else int(self.features[0].shape[0])

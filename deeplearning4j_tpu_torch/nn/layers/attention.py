@@ -10,12 +10,14 @@ speculation are not ported yet). Parameter keys are the JAX package's:
 Which kernel runs: the JAX layer launches its flash kernels only where
 its TPU route tables say so; here the routing is by the function alone.
 ``MultiHeadAttention.apply`` runs K5 (``ops.flash_attention``) on every
-call -- the port's layer takes no key mask and no offsets, so q, k and v
-always share one shape, the conditions under which the JAX layer's
-flash path computes the same function as its einsum path. The dense
-decode step always runs K8 (``ops.flash_decode_step``), the paged one K9
-(``ops.flash_decode_step_paged``). On CPU tensors those wrappers run their
-plain versions.
+call, and under autograd its backward runs K6 and K7 (the kernels of
+``ops.FlashAttention``) -- the port's layer takes no key mask and no
+offsets, so q, k and v always share one shape, the conditions under which
+the JAX layer's flash path computes the same function as its einsum path.
+The dense decode step always runs K8 (``ops.flash_decode_step``), the
+paged one K9 (``ops.flash_decode_step_paged``). On CPU tensors those
+wrappers run their plain versions. LayerNormalization and
+PositionalEmbedding differentiate by autograd.
 
 KV writes are in place (``index_put_``) where the JAX layer builds a new
 cache with ``.at[].set`` on every step. Position masking keeps that safe:

@@ -56,7 +56,8 @@ from deeplearning4j_tpu_torch.ops.lstm_cuda import (  # noqa: E402
     fused_lstm_backward, fused_lstm_sequence, fused_lstm_sequence_train,
     lstm2_sequence, lstm_sequence)
 from deeplearning4j_tpu_torch.ops.attention_cuda import (  # noqa: E402
-    flash_attention, flash_attention_fwd)
+    FlashAttention, flash_attention, flash_attention_bwd, flash_attention_dkv,
+    flash_attention_dq, flash_attention_fwd)
 from deeplearning4j_tpu_torch.ops.decode_cuda import (  # noqa: E402
     flash_decode_step, flash_decode_step_paged)
 
@@ -65,5 +66,7 @@ __all__ = ["resolve_device", "count_launch", "launch_counts",
            "fused_lstm_sequence_train", "fused_lstm_backward",
            "fused_lstm2_sequence", "fused_lstm2_sequence_train", "FusedLSTM",
            "FusedLSTM2", "lstm_sequence", "lstm2_sequence",
-           "flash_attention", "flash_attention_fwd", "flash_decode_step",
+           "FlashAttention", "flash_attention", "flash_attention_fwd",
+           "flash_attention_bwd", "flash_attention_dq", "flash_attention_dkv",
+           "flash_decode_step",
            "flash_decode_step_paged"]

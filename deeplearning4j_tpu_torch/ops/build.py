@@ -24,7 +24,7 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("lstm_fwd.cu", "lstm2_fwd.cu", "lstm_bwd.cu", "flash_attn_fwd.cu",
-           "flash_decode.cu")
+           "flash_attn_bwd.cu", "flash_decode.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

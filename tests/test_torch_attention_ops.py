@@ -1,14 +1,17 @@
-"""The port's attention ops -- K5 flash attention forward, K8 flash decode
-over a dense cache, K9 flash decode over a paged pool -- held against the
-JAX package's.
+"""The port's attention ops -- K5 flash attention forward, K6 and K7 its
+backward (dq; dk and dv), K8 flash decode over a dense cache, K9 flash
+decode over a paged pool -- held against the JAX package's.
 
 On the CPU the port's wrappers run their plain PyTorch versions; these are
 compared with the JAX kernels in Pallas interpret mode (the way the JAX
 package's own tests run them) and, at a ragged length the Pallas kernel
 does not take, with the JAX layer's einsum path, from the same numpy
-inputs. Tolerance 1e-4 on attention outputs and log-sum-exps: the same
-float32 math, but the online softmax of the kernels and the full softmax
-of the plain versions sum in different orders.
+inputs. Tolerance 1e-4 on attention outputs, log-sum-exps and gradients:
+the same float32 math, but the online softmax of the kernels and the full
+softmax of the plain versions sum in different orders. The backward's
+plain version is also held against autograd through the plain forward
+(1e-5, float32, at a ragged length too) and checked by
+``torch.autograd.gradcheck`` in float64 (its default tolerances).
 
 The CUDA kernels themselves are held against these plain versions on the
 card by tests/test_torch_kernels_cuda.py and chip_smoke.py.
@@ -18,12 +21,15 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from deeplearning4j_tpu import ops as jops
 from deeplearning4j_tpu.nn.layers.attention import \
     scaled_dot_product_attention as jax_sdpa
-from deeplearning4j_tpu.ops.flash_attention import _fa_fwd_call
+from deeplearning4j_tpu.ops.flash_attention import (_fa_fwd_call,
+                                                     flash_attention as
+                                                     jax_flash_attention)
 from deeplearning4j_tpu.ops.flash_decode import (
     flash_decode_step as jax_decode,
     flash_decode_step_paged as jax_decode_paged)
@@ -138,11 +144,104 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
 
 
 def test_cpu_plain_attention_differentiates():
-    """Autograd through the plain version on the CPU (the CUDA wrapper
-    raises under grad until the backward kernels are ported)."""
+    """Autograd through ``FlashAttention`` on the CPU: its backward runs the
+    plain K6/K7, and one tensor fed as q, k and v gets the sum of the
+    three gradients."""
     q = torch.tensor(_rand((2, 5, 8), 1), requires_grad=True)
     ops.flash_attention(q, q, q, True).sum().backward()
     assert q.grad is not None and torch.isfinite(q.grad).all()
+    ref = q.detach().clone().requires_grad_()
+    attention_cuda.flash_attention_fwd_plain(ref, ref, ref, True)[0] \
+        .sum().backward()
+    _close(q.grad, ref.grad.numpy(), tol=1e-5)
+
+
+def _bwd_case(BH, T, Dh, causal, seed=20):
+    q, k, v, do = (torch.tensor(_rand((BH, T, Dh), seed + s))
+                   for s in range(4))
+    o, lse = attention_cuda.flash_attention_fwd_plain(q, k, v, causal)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("Dh", [8, 32])
+@pytest.mark.parametrize("T", [8, 16, 64])
+@pytest.mark.parametrize("BH", [1, 3])
+def test_k6_k7_plain_matches_interpreted_pallas_backward(
+        BH, T, Dh, causal, jax_kernels_interpreted):
+    """``jax.vjp`` of the JAX package's flash_attention runs _fa_bwd: K6
+    and K7 interpreted."""
+    q, k, v, o, lse, do = _bwd_case(BH, T, Dh, causal)
+    grads = ops.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    _, vjp = jax.vjp(
+        lambda a, b, c: jax_flash_attention(a, b, c, causal,
+                                            jops.interpret_mode()),
+        *(jnp.asarray(t.numpy()) for t in (q, k, v)))
+    for got, ref in zip(grads, vjp(jnp.asarray(do.numpy()))):
+        assert tuple(got.shape) == (BH, T, Dh)
+        _close(got, ref)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T", [13, 64])
+def test_k6_k7_plain_matches_autograd_of_the_plain_forward(T, causal):
+    """T = 13 is no multiple of the Pallas kernel's blocks (the CUDA kernels
+    take it, masking the ragged tail)."""
+    q, k, v, _, _, do = _bwd_case(3, T, 8, causal, seed=30)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    o, lse = attention_cuda.flash_attention_fwd_plain(*leaves, causal)
+    ref = torch.autograd.grad(o, leaves, do)
+    got = ops.flash_attention_bwd(q, k, v, o.detach(), lse.detach(), do,
+                                  causal)
+    for g, r in zip(got, ref):
+        _close(g, r.numpy(), tol=1e-5)
+
+
+class _PlainPair(torch.autograd.Function):
+    """K5's and K6/K7's plain versions as one function, in any float type
+    (the wrappers take float32 only)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = attention_cuda.flash_attention_fwd_plain(q, k, v, causal)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        return attention_cuda.flash_attention_bwd_plain(
+            *ctx.saved_tensors, do, ctx.causal) + (None,)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_pair_passes_gradcheck_in_float64(causal):
+    r = np.random.RandomState(40)
+    q, k, v = (torch.tensor(r.randn(2, 7, 8), dtype=torch.float64,
+                            requires_grad=True) for _ in range(3))
+    assert torch.autograd.gradcheck(
+        lambda a, b, c: _PlainPair.apply(a, b, c, causal), (q, k, v))
+
+
+def test_flash_attention_function_on_cpu_launches_nothing():
+    """Under grad ``flash_attention`` records ``FlashAttention``; on CPU
+    tensors its forward and backward are the plain versions, bit for bit,
+    and no kernel is counted."""
+    q, k, v, o, lse, do = _bwd_case(2, 16, 8, True, seed=50)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ops.reset_launch_counts()
+    out = ops.flash_attention(*leaves, True)
+    assert out.grad_fn is not None \
+        and type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    assert torch.equal(out.detach(), o)
+    out.backward(do)
+    want = attention_cuda.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                    True)
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad, w)
+    with torch.no_grad():
+        assert ops.flash_attention(*leaves, True).grad_fn is None
+    assert ops.launch_counts() == {}
 
 
 @pytest.mark.parametrize("bad", ["shape", "float64", "pos_shape"])
@@ -157,6 +256,12 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
     elif bad == "float64":
         with pytest.raises(TypeError):
             ops.flash_attention(q.double(), q.double(), q.double())
+        with pytest.raises(TypeError):
+            ops.flash_attention(*(q.double().requires_grad_()
+                                  for _ in range(3)))
+        with pytest.raises(TypeError):
+            ops.flash_attention_bwd(*(q.double() for _ in range(4)),
+                                    q[..., 0].double(), q.double())
         with pytest.raises(TypeError):
             ops.flash_decode_step_paged(case[0], case[1].double(),
                                         *case[2:])

@@ -1,8 +1,9 @@
 """The port's CUDA kernels -- K1 and K2 (csrc/lstm_fwd.cu, inference and
 training modes), K4 and K4-train (csrc/lstm2_fwd.cu), K3 (csrc/lstm_bwd.cu),
-K5 (csrc/flash_attn_fwd.cu), K8 and K9 (csrc/flash_decode.cu) -- against
-their plain PyTorch versions on the card, and the autograd functions'
-gradients on the card against the same on the CPU.
+K5 (csrc/flash_attn_fwd.cu), K6 and K7 (csrc/flash_attn_bwd.cu), K8 and K9
+(csrc/flash_decode.cu) -- against their plain PyTorch versions on the card,
+and the autograd functions' gradients on the card against the same on the
+CPU.
 
 Marked ``cuda``: they skip without a card, since a CUDA kernel has no CPU
 mode. On a machine with one (and ``nvcc``) they run with the usual
@@ -188,13 +189,68 @@ def test_flash_decode_matches_plain_on_the_card(B, H, Dh, C, paged,
 
 
 @pytest.mark.cuda
-def test_flash_attention_under_grad_raises_on_the_card(cuda_device):
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("BH,T,Dh", [(128, 64, 32), (32, 512, 32),
+                                     (16, 100, 32), (3, 13, 8), (2, 100, 128),
+                                     (5, 70, 24), (1, 1, 16)])
+def test_flash_attention_backward_matches_plain_on_the_card(BH, T, Dh, causal,
+                                                            cuda_device):
+    """K6 then K7 at the training shape (BH 128, T=64), at T=512 (causal
+    bounds across tiles) and ragged ones (T off the 64-row and 32-row
+    tiles, padded rows, Dh that is no power of two); tolerance relative to
+    the largest of the plain version's three gradients."""
+    q, k, v, do = (_rand(BH, T, Dh, device=cuda_device, seed=s)
+                   for s in range(4))
+    o, lse = attention_cuda.flash_attention_fwd_plain(q, k, v, causal)
+    before = ops.launch_counts()
+    got = ops.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    for name in ("flash_attn_dq", "flash_attn_dkv"):
+        assert after[name] == before.get(name, 0) + 1
+    want = attention_cuda.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                    causal)
+    # one scale for the three: at T=1 without the mask dq and dk are 0
+    scale = max(w.abs().max().item() for w in want)
+    for g, w in zip(got, want):
+        assert (g - w).abs().max().item() <= TOL[torch.float32] * scale
+
+
+@pytest.mark.cuda
+def test_flash_attention_autograd_on_the_card_matches_the_cpu(cuda_device):
+    """``flash_attention`` under grad on the card: one K5, and a backward of
+    one K6 and one K7 from a strided output gradient; the same gradients
+    as the plain versions on the CPU."""
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        leaves = [_rand(8, 100, 32, device=dev, seed=s).requires_grad_()
+                  for s in range(3)]
+        do = _rand(100, 8, 32, device=dev, seed=3).transpose(0, 1)
+        ops.reset_launch_counts()
+        ops.flash_attention(*leaves, True).backward(do)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert ops.launch_counts() == {"flash_attn_fwd": 1,
+                                           "flash_attn_dq": 1,
+                                           "flash_attn_dkv": 1}
+        else:
+            assert ops.launch_counts() == {}
+        grads[dev] = [t.grad.cpu() for t in leaves]
+    for g, ref in zip(grads["cuda"], grads["cpu"]):
+        assert (g - ref).abs().max().item() <= 1e-4 * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_attention_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     q = _rand(2, 8, 8, device=cuda_device).requires_grad_()
-    with pytest.raises(NotImplementedError, match="K6"):
-        ops.flash_attention(q, q, q, True)
+    with pytest.raises(ValueError, match="flash_attention"):
+        ops.flash_attention_fwd(q, q, q, True)
     with pytest.raises(ValueError, match="head dim"):
         ops.flash_decode_step(_rand(1, 1, 12, device=cuda_device),
                               _rand(1, 4, 1, 12, device=cuda_device),
                               _rand(1, 4, 1, 12, device=cuda_device),
                               torch.zeros(1, dtype=torch.int32,
                                           device=cuda_device))
+    x = _rand(2, 8, 12, device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention_bwd(x, x, x, x, x[..., 0], x)

@@ -1,5 +1,6 @@
-"""Boundaries of the PyTorch port: it imports nothing of JAX or of the JAX
-package, and it does not fall back to the CPU when the card is missing."""
+"""Boundaries of the PyTorch port: none of its modules imports anything of
+JAX or of the JAX package, every kernel source is built, and it does not
+fall back to the CPU when the card is missing."""
 
 import subprocess
 import sys
@@ -9,35 +10,10 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_MODULES = [
-    "deeplearning4j_tpu_torch",
-    "deeplearning4j_tpu_torch.ops",
-    "deeplearning4j_tpu_torch.ops.build",
-    "deeplearning4j_tpu_torch.ops.lstm_cuda",
-    "deeplearning4j_tpu_torch.ops.attention_cuda",
-    "deeplearning4j_tpu_torch.ops.decode_cuda",
-    "deeplearning4j_tpu_torch.nn.activations",
-    "deeplearning4j_tpu_torch.nn.weights",
-    "deeplearning4j_tpu_torch.nn.losses",
-    "deeplearning4j_tpu_torch.nn.updaters",
-    "deeplearning4j_tpu_torch.nn.conf",
-    "deeplearning4j_tpu_torch.nn.layers",
-    "deeplearning4j_tpu_torch.nn.layers.attention",
-    "deeplearning4j_tpu_torch.nn.conf.graph_conf",
-    "deeplearning4j_tpu_torch.models.multi_layer_network",
-    "deeplearning4j_tpu_torch.models.computation_graph",
-    "deeplearning4j_tpu_torch.util.model_serializer",
-    "deeplearning4j_tpu_torch.data",
-    "deeplearning4j_tpu_torch.data.dataset",
-    "deeplearning4j_tpu_torch.data.iterators",
-    "deeplearning4j_tpu_torch.eval",
-    "deeplearning4j_tpu_torch.eval.evaluation",
-    "deeplearning4j_tpu_torch.zoo",
-    "deeplearning4j_tpu_torch.zoo.corpus",
-    "deeplearning4j_tpu_torch.serving",
-    "deeplearning4j_tpu_torch.serving.kv",
-    "deeplearning4j_tpu_torch.serving.decode",
-]
+PORT_MODULES = sorted(
+    ".".join(p.relative_to(ROOT).with_suffix("").parts).removesuffix(
+        ".__init__")
+    for p in (ROOT / "deeplearning4j_tpu_torch").rglob("*.py"))
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -54,6 +30,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+def test_every_module_is_checked_and_every_kernel_source_built():
+    from deeplearning4j_tpu_torch.ops import build
+    for m in ("deeplearning4j_tpu_torch", "deeplearning4j_tpu_torch.ops",
+              "deeplearning4j_tpu_torch.ops.attention_cuda",
+              "deeplearning4j_tpu_torch.models.computation_graph",
+              "deeplearning4j_tpu_torch.data.dataset"):
+        assert m in PORT_MODULES
+    assert sorted(build.SOURCES) == sorted(
+        p.name for p in build.CSRC.glob("*.cu"))
+    assert "flash_attn_bwd.cu" in build.SOURCES
 
 
 def test_without_a_card_cuda_is_refused_not_replaced():
