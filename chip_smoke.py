@@ -29,7 +29,11 @@ result line, when any of them or the port's package is missing. Phases:
    ``scaled_dot_product_attention``, causal for K5, its backward -- dq, dk
    and dv together -- for K6 + K7, over the gathered cache with the
    position mask for K8/K9), and the least time the card could take
-   (bound). The attention family's times are device times (calls replayed
+   (bound: float32 FMAs outside the tensor cores or bytes; for K5, K6 and
+   K7 also ``tc_bound_ms``, the same bytes or the operations at the TF32
+   tensor-core rate -- the bound K6 and K7, which run on the tensor cores,
+   are held to). K6 and K7 run twice on each case and must repeat bit for
+   bit. The attention family's times are device times (calls replayed
    from a CUDA graph: a small kernel runs for less than the host takes to
    launch it), beside the time of a call launched from the host.
 4. Serving: the bundled TextGenerationLSTM served by ``InferenceServer`` on
@@ -100,7 +104,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 F32_TOL, BF16_TOL = 1e-4, 3e-2
 HBM_BYTES_PER_S = 3.35e12                      # H100 SXM data sheet
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# float32 outside the tensor cores; TF32 and bf16 dense on the tensor cores
+PEAK_FLOPS = {"float32": 67e12, "tf32": 495e12, "bfloat16": 989e12}
 HELD_OUT_TOP1, TOP1_SLACK = 0.2979, 0.02      # zoo manifest, textgenlstm
 RECIPE_SLACK = 0.03           # a fresh seed's training against the manifest
 GRAD_TOL, LOSS_RTOL = 1e-4, 1e-4              # card against the CPU port
@@ -374,12 +379,14 @@ def fmt(row):
             f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
 
 
-def attn_bound(kernel, c):
+def attn_bound(kernel, c, peak="float32"):
     """Least time for one attention call on these inputs: every input read
-    once and every output written once over HBM, or its float32 FMAs at the
-    card's peak outside the tensor cores, whichever is larger. K5, K6 and
-    K7 count the (query, key) pairs the mask keeps; K8/K9 only the live rows
-    0..pos of each stream (and K9 the page-table entries they need)."""
+    once and every output written once over HBM, or its operations at the
+    card's ``peak`` rate (float32 outside the tensor cores by default;
+    "tf32" for the tensor-core bound of K5-K7), whichever is larger. K5, K6
+    and K7 count the (query, key) pairs the mask keeps; K8/K9 only the live
+    rows 0..pos of each stream (and K9 the page-table entries they
+    need)."""
     if kernel.startswith("flash_attn"):
         BH, T, Dh = c["q"].shape
         pairs = BH * (T * (T + 1) // 2 if c["causal"] else T * T)
@@ -403,7 +410,7 @@ def attn_bound(kernel, c):
             nbytes += 4 * int((c["pos"].long() // c["pk"].shape[1] + 1).sum())
         flops = 4.0 * Dh * H * live
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    t_ops = flops / PEAK_FLOPS[peak] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -497,6 +504,7 @@ def attn_kernel_case(kernel, B, T, causal=False, pos=None, seed=0):
                "library_ms": graph_ms(lib, reps=20)}
     if kernel == "flash_attn_fwd":
         row["causal"] = causal
+        row["tc_bound_ms"], row["tc_bound_by"] = attn_bound(kernel, c, "tf32")
     else:
         row["pos"] = c["pos"].tolist()
     row["bound_ms"], row["bound_by"] = attn_bound(kernel, c)
@@ -511,14 +519,17 @@ def fmt_attn(row):
             f"{row['ms']:.4f} ms (a call from the host {row['call_ms']:.4f}"
             f" ms)  plain {row['plain_ms']:.4f} ms  sdpa "
             f"{row['library_ms']:.4f} ms  bound {row['bound_ms']:.5f} ms "
-            f"({row['bound_by']})")
+            f"({row['bound_by']})"
+            + (f"; tensor cores {row['tc_bound_ms']:.5f} ms"
+               if "tc_bound_ms" in row else ""))
 
 
 def bwd_kernel_case(B, T, causal, seed=0):
     """K6 and K7 at one shape: q, k, v and the output gradient random, o
     and lse from K5's plain version. Each kernel's outputs against its
     plain version's (dq, dk, dv relative to the largest of the three plain
-    gradients, delta to its own largest magnitude), and the four times:
+    gradients, delta to its own largest magnitude), a second run of both
+    that must repeat the first bit for bit, and the four times:
     each kernel's, its plain version's, and the backward of
     ``scaled_dot_product_attention`` (dq, dk and dv in one call), recorded
     beside both. Returns the rows of K6 and K7."""
@@ -534,7 +545,14 @@ def bwd_kernel_case(B, T, causal, seed=0):
     with torch.no_grad():
         dq, delta = A.flash_attention_dq(q, k, v, o, lse, do, causal)
         dk, dv = A.flash_attention_dkv(q, k, v, lse, delta, do, causal)
+        dq2, delta2 = A.flash_attention_dq(q, k, v, o, lse, do, causal)
+        again = (dq2, delta2) + A.flash_attention_dkv(q, k, v, lse, delta2,
+                                                      do, causal)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in
+                   zip((dq, delta, dk, dv), again)):
+            raise AssertionError(f"K6/K7 B={B} T={T} causal={causal}: a "
+                                 "second run differs from the first")
         want_dq, want_delta = A.flash_attention_dq_plain(q, k, v, o, lse,
                                                          do, causal)
         want_dk, want_dv = A.flash_attention_dkv_plain(q, k, v, lse,
@@ -591,8 +609,10 @@ def bwd_kernel_case(B, T, causal, seed=0):
                    "library_covers": "dq, dk and dv (K6 + K7): SDPA "
                                      "forward + backward less forward",
                    "library_step_ms": step_ms, "library_fwd_ms": fwd_ms,
-                   "library_max_rel_err": lib_err}
+                   "library_max_rel_err": lib_err, "bitwise_repeat": True}
             row["bound_ms"], row["bound_by"] = attn_bound(kernel, c)
+            row["tc_bound_ms"], row["tc_bound_by"] = attn_bound(kernel, c,
+                                                                "tf32")
             rows.append(row)
     return rows
 
@@ -607,7 +627,9 @@ def fmt_bwd(rows):
             f"+ {dkv['call_ms']:.4f})  plain {dq['plain_ms']:.4f} + "
             f"{dkv['plain_ms']:.4f} ms  sdpa backward "
             f"{dq['library_ms']:.4f} ms  bound {dq['bound_ms']:.5f} + "
-            f"{dkv['bound_ms']:.5f} ms ({dq['bound_by']}, {dkv['bound_by']})")
+            f"{dkv['bound_ms']:.5f} ms ({dq['bound_by']}, {dkv['bound_by']};"
+            f" tensor cores {dq['tc_bound_ms']:.5f} + "
+            f"{dkv['tc_bound_ms']:.5f} ms); repeats bitwise")
 
 
 def slice_phase(card):
@@ -1367,6 +1389,9 @@ def main() -> int:
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"]})
+        if "tc_bound_ms" in row:       # K5-K7: the tensor-core bound too
+            entries[-1].update(tc_bound_ms=row["tc_bound_ms"],
+                               tc_bound_by=row["tc_bound_by"])
         rows.append(row)
     for kernel, (T, B, counts) in main_shapes.items():
         row = kernel_case(kernel, T, B, 256, "float32", seed=1)

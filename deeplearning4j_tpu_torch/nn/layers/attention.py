@@ -10,14 +10,19 @@ speculation are not ported yet). Parameter keys are the JAX package's:
 Which kernel runs: the JAX layer launches its flash kernels only where
 its TPU route tables say so; here the routing is by the function alone.
 ``MultiHeadAttention.apply`` runs K5 (``ops.flash_attention``) on every
-call, and under autograd its backward runs K6 and K7 (the kernels of
-``ops.FlashAttention``) -- the port's layer takes no key mask and no
-offsets, so q, k and v always share one shape, the conditions under which
-the JAX layer's flash path computes the same function as its einsum path.
+call whose head dim the kernels take, and under autograd its backward runs
+K6 and K7 (the kernels of ``ops.FlashAttention``) -- the port's layer
+takes no key mask and no offsets, so q, k and v always share one shape,
+the conditions under which the JAX layer's flash path computes the same
+function as its einsum path.
 The dense decode step always runs K8 (``ops.flash_decode_step``), the
 paged one K9 (``ops.flash_decode_step_paged``). On CPU tensors those
-wrappers run their plain versions. LayerNormalization and
-PositionalEmbedding differentiate by autograd.
+wrappers run their plain versions. A head dim the kernels do not take
+(``kernel_supported``: a multiple of 8 in [8, 128]) runs the layer's own
+einsum and softmax in all three places, on any device, as the JAX layer
+sends shapes its flash screens reject to its einsum path; the wrappers
+themselves still raise for such a shape on the card. LayerNormalization
+and PositionalEmbedding differentiate by autograd.
 
 KV writes are in place (``index_put_``) where the JAX layer builds a new
 cache with ``.at[].set`` on every step. Position masking keeps that safe:
@@ -30,6 +35,7 @@ lands in the pool's scratch block 0, which no live table names.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -39,6 +45,16 @@ from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import (Layer, register_layer,
                                                      require_dims)
 from deeplearning4j_tpu_torch.nn.weights import init_weights
+
+
+def _attend(q, k, v, keep=None) -> torch.Tensor:
+    """The layer's own attention, in q's type: softmax(q k^T / sqrt(Dh)) v
+    over queries (B, Tq, H, Dh) and keys and values (B, Tk, H, Dh), the
+    pairs where ``keep`` (broadcast to (B, H, Tq, Tk)) is False dropped."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(q.shape[-1])
+    if keep is not None:
+        s = s.masked_fill(~keep, float("-inf"))
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
 
 
 def _positions(pos, B, device) -> torch.Tensor:
@@ -111,10 +127,21 @@ class MultiHeadAttention(Layer):
             o = o + params["bo"]
         return o
 
+    def kernel_supported(self) -> bool:
+        """The head dims the attention kernels take (K5-K9: a multiple of 8
+        in [8, 128]). Any other runs the layer's own einsum and softmax."""
+        Dh = self.head_dim
+        return Dh % 8 == 0 and 8 <= Dh <= 128
+
     def apply(self, params, x):
         B, T, _ = x.shape
         H, Dh = self.n_heads, self.head_dim
         q, k, v = self._project(params, x)
+        if not self.kernel_supported():
+            keep = (torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
+                    if self.causal else None)
+            return self._project_out(params, _attend(q, k, v, keep), B, T,
+                                     q.dtype)
 
         def fold(a):    # (B, T, H, Dh) -> (B*H, T, Dh) float32
             return a.permute(0, 2, 1, 3).reshape(B * H, T, Dh).float() \
@@ -149,8 +176,18 @@ class MultiHeadAttention(Layer):
         kc, vc = dstate["k"], dstate["v"]
         kc[rows, pos.long()] = k[:, 0]
         vc[rows, pos.long()] = v[:, 0]
+        if not self.kernel_supported():
+            return self._finish_step(params, q, kc, vc, pos), dstate
         o = ops.flash_decode_step(q[:, 0].float().contiguous(), kc, vc, pos)
         return self._project_out(params, o, B, 1, q.dtype), dstate
+
+    def _finish_step(self, params, q, kc, vc, pos):
+        """A decode step of the layer's own attention: the query (B, 1, H,
+        Dh) over rows 0..pos of the cache (B, C, H, Dh)."""
+        B, C = kc.shape[:2]
+        keep = torch.arange(C, device=kc.device) <= pos.long()[:, None]
+        o = _attend(q, kc, vc, keep[:, None, None, :])
+        return self._project_out(params, o, B, 1, q.dtype)
 
     # ---- paged decode (serving/kv/) --------------------------------------
     def init_paged_decode_state(self, params, batch, max_len, num_blocks,
@@ -177,6 +214,11 @@ class MultiHeadAttention(Layer):
         phys = tables[rows, p // bs].long()
         pk[phys, p % bs] = k[:, 0]
         pv[phys, p % bs] = v[:, 0]
+        if not self.kernel_supported():
+            shape = (B, tables.shape[1] * bs) + tuple(pk.shape[2:])
+            kc = pk[tables.long()].reshape(shape)
+            vc = pv[tables.long()].reshape(shape)
+            return self._finish_step(params, q, kc, vc, pos), dstate
         o = ops.flash_decode_step_paged(q[:, 0].float().contiguous(), pk, pv,
                                         pos, tables)
         return self._project_out(params, o, B, 1, q.dtype), dstate

@@ -14,7 +14,9 @@ plain version is also held against autograd through the plain forward
 ``torch.autograd.gradcheck`` in float64 (its default tolerances).
 
 The CUDA kernels themselves are held against these plain versions on the
-card by tests/test_torch_kernels_cuda.py and chip_smoke.py.
+card by tests/test_torch_kernels_cuda.py and chip_smoke.py. The arithmetic
+the backward kernels run on the card's tensor cores (3xTF32 products) is
+emulated here in numpy and held against float64.
 """
 
 import numpy as np
@@ -242,6 +244,77 @@ def test_flash_attention_function_on_cpu_launches_nothing():
     with torch.no_grad():
         assert ops.flash_attention(*leaves, True).grad_fn is None
     assert ops.launch_counts() == {}
+
+
+def _tf32(x):
+    """x rounded to TF32 as ``cvt.rna.tf32.f32`` does: to nearest at 10
+    mantissa bits, ties away from zero (the float32 bit pattern is
+    sign-magnitude, so adding half of the dropped range rounds the
+    magnitude)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)) \
+        .view(np.float32)
+
+
+def _tf32_matmul(a, b, split):
+    """A float32 product on TF32 tensor cores: one product of the rounded
+    operands, or with ``split`` the 3xTF32 sum small*big + big*small +
+    big*big (big = tf32(x), small = tf32(x - big)) the backward kernels
+    use. The products of TF32 values are exact in float32; the sums are
+    float32."""
+    ab, bb = _tf32(a), _tf32(b)
+    if not split:
+        return ab @ bb
+    return (_tf32(a - ab) @ bb + ab @ _tf32(b - bb)) + ab @ bb
+
+
+def _tf32_backward_error(T, causal, split, BH=4, Dh=32, seed=60):
+    """K6 and K7's arithmetic (s = q k^T, dp = do v^T, dq = ds k, dk = ds^T
+    q, dv = p^T do through ``_tf32_matmul``; exp, delta and the rest in
+    float32, from a float32 lse) against the float64 gradients, relative to
+    the largest of them."""
+    r = np.random.RandomState(seed)
+    q, k, v, do = (r.randn(BH, T, Dh).astype(np.float32) for _ in range(4))
+    scale = 1.0 / np.sqrt(Dh)
+    keep = np.tril(np.ones((T, T), bool)) if causal else np.ones((T, T),
+                                                                  bool)
+    Q, K, V, DO = (a.astype(np.float64) for a in (q, k, v, do))
+    s = np.where(keep, Q @ K.transpose(0, 2, 1) * scale, -np.inf)
+    m = s.max(-1, keepdims=True)
+    lse = np.log(np.exp(s - m).sum(-1)) + m[..., 0]
+    p = np.exp(s - lse[..., None])
+    o = p @ V
+    ds = p * (DO @ V.transpose(0, 2, 1) - (DO * o).sum(-1)[..., None])
+    want = (ds @ K * scale, ds.transpose(0, 2, 1) @ Q * scale,
+            p.transpose(0, 2, 1) @ DO)
+
+    o32, sc = o.astype(np.float32), np.float32(scale)
+    delta = (do * o32).sum(-1, dtype=np.float32)
+    s32 = _tf32_matmul(q, k.transpose(0, 2, 1), split) * sc
+    p32 = np.where(keep, np.exp(s32 - lse.astype(np.float32)[..., None]),
+                   np.float32(0))
+    dp32 = _tf32_matmul(do, v.transpose(0, 2, 1), split)
+    ds32 = p32 * (dp32 - delta[..., None])
+    got = (_tf32_matmul(ds32, k, split) * sc,
+           _tf32_matmul(ds32.transpose(0, 2, 1), q, split) * sc,
+           _tf32_matmul(p32.transpose(0, 2, 1), do, split))
+    largest = max(np.abs(w).max() for w in want)
+    return max(np.abs(g - w).max() for g, w in zip(got, want)) / largest
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T", [64, 512])
+def test_3xtf32_products_keep_the_backward_float32_accurate(T, causal):
+    """The precision argument of csrc/flash_attn_bwd.cu, checked where there
+    is no card: with every product split 3xTF32, dq, dk and dv stay within
+    1e-5 of the float64 result, relative to the largest gradient, well
+    inside the kernels' 1e-4 bar; a single TF32 product per pair does not
+    stay within 1e-4 (about 4-9e-4 here), so the split is what the bar
+    needs."""
+    assert _tf32(np.float32(1 + 2 ** -11)) == np.float32(1 + 2 ** -10)
+    assert _tf32(np.float32(-(1 + 2 ** -12))) == np.float32(-1)
+    assert _tf32_backward_error(T, causal, split=True) <= 1e-5
+    assert _tf32_backward_error(T, causal, split=False) > 1e-4
 
 
 @pytest.mark.parametrize("bad", ["shape", "float64", "pos_shape"])

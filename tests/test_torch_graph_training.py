@@ -36,6 +36,7 @@ from deeplearning4j_tpu.data.dataset import DataSet as JaxDataSet
 from deeplearning4j_tpu.data.dataset import MultiDataSet as JaxMultiDataSet
 from deeplearning4j_tpu.data.iterators import \
     ListDataSetIterator as JaxListIterator
+from deeplearning4j_tpu.eval.evaluation import Evaluation as JaxEvaluation
 from deeplearning4j_tpu.models.computation_graph import \
     ComputationGraph as JaxCG
 from deeplearning4j_tpu.nn.updaters import Sgd as JaxSgd
@@ -165,6 +166,32 @@ def test_label_mask_weights_the_loss_like_jax():
     _params_close(jnet, net)
     assert net.score(DataSet(x, y, labels_mask=mask)) != net.score(
         DataSet(x, y))
+
+
+def test_masked_score_and_evaluate_match_the_jax_masked_loss_and_eval():
+    """The port's graph ``score`` weights the loss by the labels' masks and
+    its ``evaluate`` drops masked rows, as the JAX MultiLayerNetwork and
+    both packages' ``fit`` do. The JAX graph's own ``score`` and
+    ``evaluate`` ignore label masks, so they are held against the JAX
+    graph's ``_loss`` given the mask and a JAX ``Evaluation`` given the
+    JAX graph's outputs and the same mask."""
+    jnet, net = _pair("sgd", seed=9)
+    x, y = _batch(6, n=5)
+    mask = (np.random.RandomState(6).rand(5, T) > 0.3).astype(np.float32)
+    jl, _ = jnet._loss(jnet.params, jnet.state, [jnp.asarray(x)],
+                       [jnp.asarray(y)], None,
+                       label_masks=[jnp.asarray(mask)])
+    masked = net.score(DataSet(x, y, labels_mask=mask))
+    np.testing.assert_allclose(masked, float(jl), rtol=1e-4)
+    np.testing.assert_allclose(
+        net.score(MultiDataSet([x], [y], labels_masks=[mask])), masked,
+        rtol=0)
+    assert abs(masked - net.score(DataSet(x, y))) > 1e-4 * abs(masked)
+    jev = JaxEvaluation().eval(y, np.asarray(jnet.output(jnp.asarray(x))),
+                               mask)
+    ev = net.evaluate(DataSet(x, y, labels_mask=mask))
+    np.testing.assert_array_equal(ev.confusion, jev.confusion)
+    assert ev.confusion.sum() == mask.sum() < mask.size
 
 
 def test_fit_iterator_fit_scan_score_and_evaluate_match_jax():

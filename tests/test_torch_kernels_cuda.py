@@ -192,13 +192,16 @@ def test_flash_decode_matches_plain_on_the_card(B, H, Dh, C, paged,
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("BH,T,Dh", [(128, 64, 32), (32, 512, 32),
                                      (16, 100, 32), (3, 13, 8), (2, 100, 128),
-                                     (5, 70, 24), (1, 1, 16)])
+                                     (5, 70, 24), (1, 1, 16), (4, 200, 64)])
 def test_flash_attention_backward_matches_plain_on_the_card(BH, T, Dh, causal,
                                                             cuda_device):
     """K6 then K7 at the training shape (BH 128, T=64), at T=512 (causal
-    bounds across tiles) and ragged ones (T off the 64-row and 32-row
-    tiles, padded rows, Dh that is no power of two); tolerance relative to
-    the largest of the plain version's three gradients."""
+    bounds across tiles) and ragged ones (T off the 16-row warp tiles and
+    the 32-row streamed tiles, padded rows, Dh that is no power of two, Dh
+    below a kernel instantiation's width); tolerance relative to the
+    largest of the plain version's three gradients. No atomics and one
+    writer per output element: a second run repeats dq, delta, dk and dv
+    bit for bit."""
     q, k, v, do = (_rand(BH, T, Dh, device=cuda_device, seed=s)
                    for s in range(4))
     o, lse = attention_cuda.flash_attention_fwd_plain(q, k, v, causal)
@@ -214,6 +217,62 @@ def test_flash_attention_backward_matches_plain_on_the_card(BH, T, Dh, causal,
     scale = max(w.abs().max().item() for w in want)
     for g, w in zip(got, want):
         assert (g - w).abs().max().item() <= TOL[torch.float32] * scale
+    runs = [ops.flash_attention_dq(q, k, v, o, lse, do, causal)
+            for _ in range(2)]
+    again = ops.flash_attention_dkv(q, k, v, lse, runs[1][1], do, causal)
+    torch.cuda.synchronize()
+    for a, b in zip(got + runs[0], (runs[1][0],) + again + runs[1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d_model,n_heads", [(64, 16), (512, 2)])
+def test_attention_layer_head_dims_outside_the_kernels_on_the_card(
+        d_model, n_heads, cuda_device):
+    """Dh = 4 and Dh = 256, which the attention kernels do not take: the
+    layer's own einsum and softmax on the card (float32 matmuls, TF32 off
+    as by default) match the CPU port -- forward with its input gradient,
+    and dense and paged decode steps -- and launch no attention kernel."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import \
+        MultiHeadAttention
+    layer = MultiHeadAttention(n_in=d_model, n_out=d_model, n_heads=n_heads,
+                               causal=True)
+    assert not layer.kernel_supported()
+    B, T, C, bs = 3, 9, 16, 4
+    MB = C // bs
+    tables = (torch.randperm(B * MB, generator=torch.Generator()
+                             .manual_seed(3)) + 1).reshape(B, MB) \
+        .to(torch.int32)
+    outs = {}
+    for dev in ("cpu", "cuda"):
+        params = layer.init(torch.Generator().manual_seed(0))
+        params = {k: (p + 0.1 * _rand(*p.shape, device="cpu", seed=i)).to(dev)
+                  for i, (k, p) in enumerate(sorted(params.items()))}
+        x = _rand(B, T, d_model, device=dev, seed=9).requires_grad_()
+        ops.reset_launch_counts()
+        y = layer.apply(params, x)
+        y.square().sum().backward()
+        got = [y.detach(), x.grad]
+        dense = layer.init_decode_state(params, B, C, device=dev)
+        paged = layer.init_paged_decode_state(params, B, C, B * MB + 1, bs,
+                                              device=dev)
+        with torch.no_grad():
+            for step in range(3):
+                pos = torch.tensor([step, step + 4, step + 10],
+                                   dtype=torch.int32, device=dev)
+                xs = x.detach()[:, step:step + 1]
+                o, dense = layer.decode_step(params, dense, xs, pos)
+                got.append(o)
+                o, paged = layer.decode_step_paged(params, paged, xs, pos,
+                                                   tables.to(dev))
+                got.append(o)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        assert ops.launch_counts() == {}
+        outs[dev] = [g.cpu() for g in got]
+    for g, ref in zip(outs["cuda"], outs["cpu"]):
+        assert (g - ref).abs().max().item() <= TOL[torch.float32] * max(
+            ref.abs().max().item(), 1.0)
 
 
 @pytest.mark.cuda

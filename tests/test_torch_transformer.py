@@ -18,6 +18,7 @@ import pytest
 import torch
 
 import jax.numpy as jnp
+from jax.random import PRNGKey as jax_key
 
 from deeplearning4j_tpu import ops as jops
 from deeplearning4j_tpu.models.computation_graph import \
@@ -27,12 +28,15 @@ from deeplearning4j_tpu.nn.conf.configuration import \
 from deeplearning4j_tpu.nn.conf.graph_conf import MergeVertex as JaxMerge
 from deeplearning4j_tpu.nn.conf.inputs import InputType as JaxInputType
 from deeplearning4j_tpu.nn.layers import DenseLayer as JaxDense
+from deeplearning4j_tpu.nn.layers.attention import \
+    MultiHeadAttention as JaxMHA
 from deeplearning4j_tpu.serving.decode import DecodeEngine as JaxDecode
 from deeplearning4j_tpu.util import model_serializer as jax_ser
 from deeplearning4j_tpu.zoo.simple import TinyTransformer as JaxTiny
 
 from deeplearning4j_tpu_torch import ComputationGraph, params_from_numpy
 from deeplearning4j_tpu_torch.nn.conf import ComputationGraphConfiguration
+from deeplearning4j_tpu_torch.nn.layers.attention import MultiHeadAttention
 from deeplearning4j_tpu_torch.serving import (DecodeEngine, InferenceClient,
                                               InferenceServer)
 from deeplearning4j_tpu_torch.serving.decode import _Request, generate_naive
@@ -160,6 +164,47 @@ def test_decode_step_matches_jax_step_by_step(nets, kv,
         _close(py.numpy(), np.asarray(jy))
     full = net.output(_onehot(ids), bucketed=False).numpy()
     _close(py.numpy()[:, 0], full[:, -1])
+
+
+@pytest.mark.parametrize("d_model,n_heads", [(64, 16), (512, 2)])
+def test_head_dims_the_kernels_do_not_take_match_the_jax_layer(
+        d_model, n_heads, jax_kernels_interpreted):
+    """Dh = 4 and Dh = 256 are outside what the attention kernels take, so
+    the port's layer runs its own einsum and softmax (on the card too):
+    the forward, and dense and paged decode steps, against the JAX layer
+    from the same random parameters."""
+    jl = JaxMHA(n_in=d_model, n_out=d_model, n_heads=n_heads, causal=True)
+    layer = MultiHeadAttention(n_in=d_model, n_out=d_model, n_heads=n_heads,
+                               causal=True)
+    assert not layer.kernel_supported()
+    r = np.random.RandomState(7)
+    shapes = {k: np.shape(a) for k, a in jl.init(jax_key(0)).items()}
+    npp = {k: (r.randn(*shp) / np.sqrt(shp[0])).astype(np.float32)
+           for k, shp in shapes.items()}
+    jp = {k: jnp.asarray(a) for k, a in npp.items()}
+    pp = {k: torch.tensor(a) for k, a in npp.items()}
+    B, T, C, bs = 3, 9, 16, 4
+    x = r.randn(B, T, d_model).astype(np.float32)
+    jy, _ = jl.apply(jp, jnp.asarray(x))
+    _close(layer.apply(pp, torch.tensor(x)).numpy(), np.asarray(jy))
+
+    tables, NB = _tables(B, C // bs)
+    jd, pd = jl.init_decode_state(jp, B, C), layer.init_decode_state(pp, B, C)
+    jpd = jl.init_paged_decode_state(jp, B, C, NB, bs)
+    ppd = layer.init_paged_decode_state(pp, B, C, NB, bs)
+    for step in range(3):        # the last step reads rows 0..pos
+        pos = np.array([step, step + 4, step + 10], np.int32)
+        xs = x[:, step:step + 1]
+        jy, jd = jl.decode_step(jp, jd, jnp.asarray(xs), jnp.asarray(pos))
+        py, pd = layer.decode_step(pp, pd, torch.tensor(xs),
+                                   torch.tensor(pos))
+        _close(py.numpy(), np.asarray(jy))
+        jy, jpd = jl.decode_step_paged(jp, jpd, jnp.asarray(xs),
+                                       jnp.asarray(pos), jnp.asarray(tables))
+        py, ppd = layer.decode_step_paged(pp, ppd, torch.tensor(xs),
+                                          torch.tensor(pos),
+                                          torch.tensor(tables))
+        _close(py.numpy(), np.asarray(jy))
 
 
 def _jax_generate(jnet, prompts, n):
