@@ -14,17 +14,17 @@
 // writes it (BH, T) for K7, which launches after K6 on the same stream.
 //
 // What bounds them on the card. Per (batch, head) K6 does 3 and K7 4
-// products of T^2 Dh multiply-adds (halved when causal) on 6 T Dh + 2 T
-// input floats. At the training shape (BH 128, T = 64, Dh = 32, causal) that
-// is 5 MB in and out per kernel against 0.07 GFLOP: bytes (1.9 us at
+// products of T^2 Dh multiply-adds (halved when causal) and each moves 6 T Dh
+// + 2 T floats in and out. At the training shape (BH 128, T = 64, Dh = 32,
+// causal) that is 6.4 MB per kernel against 0.07 GFLOP: bytes (1.9 us at
 // 3.35 TB/s), and in practice the latency of a block's first loads. At
-// B = 64 x 4 heads, T = 512, causal the products dominate (6.5 and 8.6 GFLOP
-// against 13 MB): operations, 0.013 and 0.017 ms at the 495 TFLOP/s TF32
-// tensor-core rate. Float32 accuracy costs three tf32 products per product
-// (below), and mma.sync reaches about 315 TFLOP/s on an H100 SXM at 700 W
-// (tools/torch_tf32_probe.py), so the floor on the tensor cores is about
-// 0.06 and 0.08 ms there; splitting the operands costs about as many issue
-// slots again.
+// B = 64 x 4 heads, T = 512, causal it is about 102 MB against 6.4 and 8.6
+// GFLOP: bytes still bound both kernels on the tensor cores (0.030 ms each,
+// against 0.013 and 0.017 ms of operations at the 495 TFLOP/s TF32 rate).
+// Float32 accuracy costs three tf32 products per product (below), which
+// puts the products at 0.039 and 0.052 ms at that peak, above the byte
+// bound; mma.sync issues below the peak, and splitting the operands costs
+// about as many issue slots again.
 //
 // Design:
 // - Tensor cores. Every product (s = q k^T, dp = do v^T and dq += ds k in

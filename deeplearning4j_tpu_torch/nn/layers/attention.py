@@ -10,19 +10,21 @@ speculation are not ported yet). Parameter keys are the JAX package's:
 Which kernel runs: the JAX layer launches its flash kernels only where
 its TPU route tables say so; here the routing is by the function alone.
 ``MultiHeadAttention.apply`` runs K5 (``ops.flash_attention``) on every
-call whose head dim the kernels take, and under autograd its backward runs
-K6 and K7 (the kernels of ``ops.FlashAttention``) -- the port's layer
+call whose head dim the JAX layer's flash screens take, and under autograd
+its backward runs K6 and K7 (the kernels of ``ops.FlashAttention``) -- the
+port's layer
 takes no key mask and no offsets, so q, k and v always share one shape,
 the conditions under which the JAX layer's flash path computes the same
 function as its einsum path.
 The dense decode step always runs K8 (``ops.flash_decode_step``), the
 paged one K9 (``ops.flash_decode_step_paged``). On CPU tensors those
-wrappers run their plain versions. A head dim the kernels do not take
-(``kernel_supported``: a multiple of 8 in [8, 128]) runs the layer's own
-einsum and softmax in all three places, on any device, as the JAX layer
-sends shapes its flash screens reject to its einsum path; the wrappers
-themselves still raise for such a shape on the card. LayerNormalization
-and PositionalEmbedding differentiate by autograd.
+wrappers run their plain versions. A head dim that is not a multiple of
+8, which the JAX layer's flash screens reject for its einsum path, runs
+the layer's own einsum and softmax in all three places, on any device
+(``flash_supported``). The kernels take the multiples of 8 up to 128; a
+larger one, which the JAX layer runs through its flash kernels, raises on
+the card (the wrappers' screen). LayerNormalization and
+PositionalEmbedding differentiate by autograd.
 
 KV writes are in place (``index_put_``) where the JAX layer builds a new
 cache with ``.at[].set`` on every step. Position masking keeps that safe:
@@ -127,17 +129,16 @@ class MultiHeadAttention(Layer):
             o = o + params["bo"]
         return o
 
-    def kernel_supported(self) -> bool:
-        """The head dims the attention kernels take (K5-K9: a multiple of 8
-        in [8, 128]). Any other runs the layer's own einsum and softmax."""
-        Dh = self.head_dim
-        return Dh % 8 == 0 and 8 <= Dh <= 128
+    def flash_supported(self) -> bool:
+        """The head-dim half of the JAX layer's flash screens (a multiple of
+        8); any other head dim runs the layer's own einsum and softmax."""
+        return self.head_dim % 8 == 0
 
     def apply(self, params, x):
         B, T, _ = x.shape
         H, Dh = self.n_heads, self.head_dim
         q, k, v = self._project(params, x)
-        if not self.kernel_supported():
+        if not self.flash_supported():
             keep = (torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
                     if self.causal else None)
             return self._project_out(params, _attend(q, k, v, keep), B, T,
@@ -176,7 +177,7 @@ class MultiHeadAttention(Layer):
         kc, vc = dstate["k"], dstate["v"]
         kc[rows, pos.long()] = k[:, 0]
         vc[rows, pos.long()] = v[:, 0]
-        if not self.kernel_supported():
+        if not self.flash_supported():
             return self._finish_step(params, q, kc, vc, pos), dstate
         o = ops.flash_decode_step(q[:, 0].float().contiguous(), kc, vc, pos)
         return self._project_out(params, o, B, 1, q.dtype), dstate
@@ -214,7 +215,7 @@ class MultiHeadAttention(Layer):
         phys = tables[rows, p // bs].long()
         pk[phys, p % bs] = k[:, 0]
         pv[phys, p % bs] = v[:, 0]
-        if not self.kernel_supported():
+        if not self.flash_supported():
             shape = (B, tables.shape[1] * bs) + tuple(pk.shape[2:])
             kc = pk[tables.long()].reshape(shape)
             vc = pv[tables.long()].reshape(shape)

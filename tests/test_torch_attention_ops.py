@@ -310,7 +310,10 @@ def test_3xtf32_products_keep_the_backward_float32_accurate(T, causal):
     1e-5 of the float64 result, relative to the largest gradient, well
     inside the kernels' 1e-4 bar; a single TF32 product per pair does not
     stay within 1e-4 (about 4-9e-4 here), so the split is what the bar
-    needs."""
+    needs. The emulation sums in float32 rounded to nearest: it leaves out
+    the tensor cores' truncating accumulation, which the kernels answer
+    with their split accumulators and which chip_smoke.py's card-against-
+    CPU parameter bar at T=512 guards."""
     assert _tf32(np.float32(1 + 2 ** -11)) == np.float32(1 + 2 ** -10)
     assert _tf32(np.float32(-(1 + 2 ** -12))) == np.float32(-1)
     assert _tf32_backward_error(T, causal, split=True) <= 1e-5

@@ -226,18 +226,19 @@ def test_flash_attention_backward_matches_plain_on_the_card(BH, T, Dh, causal,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d_model,n_heads", [(64, 16), (512, 2)])
+@pytest.mark.parametrize("d_model,n_heads", [(64, 16)])
 def test_attention_layer_head_dims_outside_the_kernels_on_the_card(
         d_model, n_heads, cuda_device):
-    """Dh = 4 and Dh = 256, which the attention kernels do not take: the
-    layer's own einsum and softmax on the card (float32 matmuls, TF32 off
-    as by default) match the CPU port -- forward with its input gradient,
-    and dense and paged decode steps -- and launch no attention kernel."""
+    """Dh = 4, not a multiple of 8, which the attention kernels do not take
+    and the JAX layer sends to its einsum path: the layer's own einsum and
+    softmax on the card (float32 matmuls, TF32 off as by default) match the
+    CPU port -- forward with its input gradient, and dense and paged decode
+    steps -- and launch no attention kernel."""
     from deeplearning4j_tpu_torch.nn.layers.attention import \
         MultiHeadAttention
     layer = MultiHeadAttention(n_in=d_model, n_out=d_model, n_heads=n_heads,
                                causal=True)
-    assert not layer.kernel_supported()
+    assert not layer.flash_supported()
     B, T, C, bs = 3, 9, 16, 4
     MB = C // bs
     tables = (torch.randperm(B * MB, generator=torch.Generator()
@@ -273,6 +274,38 @@ def test_attention_layer_head_dims_outside_the_kernels_on_the_card(
     for g, ref in zip(outs["cuda"], outs["cpu"]):
         assert (g - ref).abs().max().item() <= TOL[torch.float32] * max(
             ref.abs().max().item(), 1.0)
+
+
+@pytest.mark.cuda
+def test_attention_layer_raises_on_the_card_past_the_kernels_head_dims(
+        cuda_device):
+    """Dh = 256, a multiple of 8 past the kernels' 128, which the JAX layer
+    runs through its flash kernels: the layer hands it to the kernel
+    wrappers, which raise on the card in the forward and both decode
+    steps, and nothing is launched."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import \
+        MultiHeadAttention
+    layer = MultiHeadAttention(n_in=512, n_out=512, n_heads=2, causal=True)
+    assert layer.flash_supported()
+    B, C, bs = 3, 16, 8
+    params = {k: p.to("cuda") for k, p in
+              layer.init(torch.Generator().manual_seed(0)).items()}
+    x = _rand(B, 16, 512, device="cuda", seed=9)
+    pos = torch.tensor([0, 4, 10], dtype=torch.int32, device="cuda")
+    tables = torch.arange(1, 1 + B * (C // bs), dtype=torch.int32,
+                          device="cuda").reshape(B, C // bs)
+    dense = layer.init_decode_state(params, B, C, device="cuda")
+    paged = layer.init_paged_decode_state(params, B, C, B * (C // bs) + 1,
+                                          bs, device="cuda")
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        for call in (lambda: layer.apply(params, x),
+                     lambda: layer.decode_step(params, dense, x[:, :1], pos),
+                     lambda: layer.decode_step_paged(params, paged, x[:, :1],
+                                                     pos, tables)):
+            with pytest.raises(ValueError, match="head dim 256"):
+                call()
+    assert ops.launch_counts() == {}
 
 
 @pytest.mark.cuda

@@ -30,6 +30,10 @@ from deeplearning4j_tpu.nn.conf.inputs import InputType as JaxInputType
 from deeplearning4j_tpu.nn.layers import DenseLayer as JaxDense
 from deeplearning4j_tpu.nn.layers.attention import \
     MultiHeadAttention as JaxMHA
+from deeplearning4j_tpu.ops.flash_attention import \
+    supported as jax_flash_supported
+from deeplearning4j_tpu.ops.flash_decode import \
+    supported as jax_decode_supported, supported_paged as jax_paged_supported
 from deeplearning4j_tpu.serving.decode import DecodeEngine as JaxDecode
 from deeplearning4j_tpu.util import model_serializer as jax_ser
 from deeplearning4j_tpu.zoo.simple import TinyTransformer as JaxTiny
@@ -169,21 +173,27 @@ def test_decode_step_matches_jax_step_by_step(nets, kv,
 @pytest.mark.parametrize("d_model,n_heads", [(64, 16), (512, 2)])
 def test_head_dims_the_kernels_do_not_take_match_the_jax_layer(
         d_model, n_heads, jax_kernels_interpreted):
-    """Dh = 4 and Dh = 256 are outside what the attention kernels take, so
-    the port's layer runs its own einsum and softmax (on the card too):
-    the forward, and dense and paged decode steps, against the JAX layer
-    from the same random parameters."""
+    """Dh = 4 and Dh = 256 are outside what the attention kernels take.
+    The port's layer screens head dims as the JAX layer's flash screens do:
+    Dh = 4 runs both layers' own einsum and softmax, Dh = 256 the JAX
+    layer's flash kernels (interpreted) and the port's kernel wrappers
+    (their plain versions here; on the card they raise). The forward, and
+    dense and paged decode steps, against the JAX layer from the same
+    random parameters."""
     jl = JaxMHA(n_in=d_model, n_out=d_model, n_heads=n_heads, causal=True)
     layer = MultiHeadAttention(n_in=d_model, n_out=d_model, n_heads=n_heads,
                                causal=True)
-    assert not layer.kernel_supported()
+    B, T, C, bs = 3, 16, 16, 8
+    Dh = d_model // n_heads
+    assert jax_flash_supported(T, Dh) == jax_decode_supported(C, Dh) \
+        == jax_paged_supported(bs, Dh) == layer.flash_supported() \
+        == (Dh == 256)
     r = np.random.RandomState(7)
     shapes = {k: np.shape(a) for k, a in jl.init(jax_key(0)).items()}
     npp = {k: (r.randn(*shp) / np.sqrt(shp[0])).astype(np.float32)
            for k, shp in shapes.items()}
     jp = {k: jnp.asarray(a) for k, a in npp.items()}
     pp = {k: torch.tensor(a) for k, a in npp.items()}
-    B, T, C, bs = 3, 9, 16, 4
     x = r.randn(B, T, d_model).astype(np.float32)
     jy, _ = jl.apply(jp, jnp.asarray(x))
     _close(layer.apply(pp, torch.tensor(x)).numpy(), np.asarray(jy))
