@@ -22,7 +22,11 @@ result line, when any of them or the port's package is missing. Phases:
    512}, Dh=32, causal and not, relative to the largest gradient of the
    plain version; K8 (flash decode, dense cache) and K9 (paged pool,
    bs=16, shuffled page tables) at B in {1, 8, 64}, 4 heads, C=512,
-   positions spread over 0..511. With CUDA-event medians of the kernel,
+   positions spread over 0..511. Then head dims past 128, which the
+   attention kernels take through their column-chunk split: K5, K6 + K7
+   (B=2 x 2 heads) and K8, K9 (B=4, 2 heads) at Dh in {136, 256, 520} and
+   T (or C) in {64, 100}, causal and not, at the same tolerances, K6 and
+   K7 repeating bit for bit. With CUDA-event medians of the kernel,
    the plain version and one library call computing the same work
    (cuDNN's ``torch.nn.LSTM``: the forward with grad enabled for the
    training forwards, the backward of that output alone for K3;
@@ -52,6 +56,12 @@ result line, when any of them or the port's package is missing. Phases:
    each other and against ``generate_naive`` (the full-prefix forward
    through K5); where tokens differ the reference's top-2 probability
    margin at that step must be <= 1e-4 (a near-tie of the seed weights).
+   (c) The same model with 2 heads of 256 (d_model 512, 2 blocks, FFN
+   2048; every attention kernel through its column-chunk split): /predict
+   of the held-out windows against the CPU port (1e-4), 8 greedy streams
+   on the dense and the paged engine against ``generate_naive`` under the
+   same near-tie rule, and three ``fit`` steps at T=64, B=32 against the
+   CPU port at the bars of 7 (a) below.
 6. Training, the LSTM model at full width: (a) step-1 gradients and three
    ``fit`` steps on the card against the same on the CPU (plain versions)
    from the same initial parameters; (b) the recipe that trained the
@@ -77,15 +87,18 @@ result line, when any of them or the port's package is missing. Phases:
    kernels per step and the host operations that take the most time.
 
 Kernel launch counts are reset right before the LSTM serving phase, before
-each TinyTransformer part, before training (b) and (c) and before each
-part of the TinyTransformer training, and read right after; each
+each TinyTransformer part (the 256-wide heads' too), before training (b)
+and (c) and before each part of the TinyTransformer training, and read
+right after; each
 TinyTransformer part and the training runs must launch exactly the kernels
 their call or step counts call for (K5 twice per bucketed forward, K8 or
 K9 twice per engine step; K5, K6 and K7 twice each per TinyTransformer
 train step, K5 alone for ``score`` and ``evaluate``), and nothing else.
 
-Prints, before the last line, one JSON line of per-kernel numbers and the
-card's name and power limit; the last line is
+After the phases each kernel is timed again at its main path's shape, and
+K5-K9 at the wide-heads phase's shapes (K5-K7 also at Dh 128 beside them,
+the split's cost). Prints, before the last line, one JSON line of
+per-kernel numbers and the card's name and power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Detailed results also go to ``chiprun_out/chip_smoke.json``.
 """
@@ -158,6 +171,11 @@ SOURCES.update(flash_attn_dq="flash_attn_bwd.cu",
 TINY_B, TINY_T, TINY_EPOCHS = 32, 64, 90
 TINY_TOP1_EPOCH10 = 0.24        # 0.2687 less the LSTM recipe's 0.03 slack
 TINY_LOSS_EPOCH90 = 0.25        # the JAX run passed it between epochs 60-70
+# head dims past the 128 columns a block of K5-K9 holds (the column-chunk
+# split): the kernel sweep, and a TinyTransformer of 2 heads of 256
+WIDE_HEAD_DIMS = (136, 256, 520)
+WIDE_D_MODEL, WIDE_HEADS = 512, 2
+CHUNK_COLUMNS = 128             # the widest head dim a block holds whole
 
 
 def card_line() -> str:
@@ -414,31 +432,32 @@ def attn_bound(kernel, c, peak="float32"):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def attn_inputs(kernel, B, T, causal=False, pos=None, seed=0):
-    """K5: q, k, v (B*4, T, 32). K8/K9: q (B, 4, 32), a cache of capacity
-    T (dense, or a pool of 16-row blocks behind shuffled page tables with
-    block 0 as scratch), and positions (default: spread over 0..T-1)."""
+def attn_inputs(kernel, B, T, causal=False, pos=None, seed=0, dh=HEAD_DIM,
+                heads=HEADS):
+    """K5: q, k, v (B*heads, T, dh). K8/K9: q (B, heads, dh), a cache of
+    capacity T (dense, or a pool of 16-row blocks behind shuffled page
+    tables with block 0 as scratch, T rounded up to whole blocks), and
+    positions (default: spread over 0..T-1)."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def rnd(*shape):
         return torch.randn(*shape, generator=g, device="cuda")
     if kernel == "flash_attn_fwd":
-        return {"q": rnd(B * HEADS, T, HEAD_DIM),
-                "k": rnd(B * HEADS, T, HEAD_DIM),
-                "v": rnd(B * HEADS, T, HEAD_DIM), "causal": causal, "B": B}
+        return {"q": rnd(B * heads, T, dh), "k": rnd(B * heads, T, dh),
+                "v": rnd(B * heads, T, dh), "causal": causal, "B": B,
+                "heads": heads}
     if pos is None:
         pos = [T - 1] if B == 1 else \
             torch.linspace(0, T - 1, B).round().long().tolist()
-    c = {"q": rnd(B, HEADS, HEAD_DIM),
+    c = {"q": rnd(B, heads, dh),
          "pos": torch.tensor(pos, dtype=torch.int32, device="cuda")}
     if kernel == "flash_decode":
-        c["kc"], c["vc"] = rnd(B, T, HEADS, HEAD_DIM), rnd(B, T, HEADS,
-                                                           HEAD_DIM)
+        c["kc"], c["vc"] = rnd(B, T, heads, dh), rnd(B, T, heads, dh)
         return c
-    MB = T // KV_BLOCK
+    MB = -(-T // KV_BLOCK)
     NB = B * MB + 1
-    c["pk"], c["pv"] = (rnd(NB, KV_BLOCK, HEADS, HEAD_DIM) for _ in range(2))
+    c["pk"], c["pv"] = (rnd(NB, KV_BLOCK, heads, dh) for _ in range(2))
     perm = torch.randperm(NB - 1, generator=g, device="cuda") + 1
     c["tables"] = perm[:B * MB].reshape(B, MB).to(torch.int32).contiguous()
     return c
@@ -455,7 +474,7 @@ def attn_calls(kernel, c):
     if kernel == "flash_attn_fwd":
         args = (c["q"], c["k"], c["v"], c["causal"])
         BH, T, Dh = c["q"].shape
-        q4, k4, v4 = (t.view(c["B"], HEADS, T, Dh) for t in args[:3])
+        q4, k4, v4 = (t.view(c["B"], c["heads"], T, Dh) for t in args[:3])
         return (lambda: A.flash_attention_fwd(*args),
                 lambda: A.flash_attention_fwd_plain(*args),
                 lambda: F.scaled_dot_product_attention(
@@ -480,12 +499,13 @@ def attn_calls(kernel, c):
         q[:, :, None, :], kt, vt, attn_mask=mask)[:, :, 0, :]
 
 
-def attn_kernel_case(kernel, B, T, causal=False, pos=None, seed=0):
+def attn_kernel_case(kernel, B, T, causal=False, pos=None, seed=0,
+                     dh=HEAD_DIM, heads=HEADS):
     """One attention kernel at one shape: error against the plain version
     (K5: o and lse), and the four times. Launches made here are not the
     main path's; the caller resets the counters before the main path."""
     import torch
-    c = attn_inputs(kernel, B, T, causal, pos, seed)
+    c = attn_inputs(kernel, B, T, causal, pos, seed, dh, heads)
     wrap, plain, lib = attn_calls(kernel, c)
     with torch.no_grad():
         got = wrap()
@@ -493,9 +513,9 @@ def attn_kernel_case(kernel, B, T, causal=False, pos=None, seed=0):
         want = plain()
         err = max((g - w).abs().max().item() for g, w in zip(got, want))
         if not err <= ATTN_TOL:
-            raise AssertionError(f"{kernel} B={B} T={T} causal={causal}: "
-                                 f"max abs err {err} > {ATTN_TOL}")
-        row = {"kernel": kernel, "B": B, "T": T, "H": HEADS, "Dh": HEAD_DIM,
+            raise AssertionError(f"{kernel} B={B} T={T} Dh={dh} causal="
+                                 f"{causal}: max abs err {err} > {ATTN_TOL}")
+        row = {"kernel": kernel, "B": B, "T": T, "H": heads, "Dh": dh,
                "dtype": "float32", "max_abs_err": err, "tol": ATTN_TOL,
                "ms": graph_ms(wrap, reps=20),
                "call_ms": time_ms(wrap, reps=20),
@@ -514,7 +534,8 @@ def attn_kernel_case(kernel, B, T, causal=False, pos=None, seed=0):
 def fmt_attn(row):
     what = (f"causal={row['causal']!s:5}" if "causal" in row
             else f"pos {row['pos'][0]}..{row['pos'][-1]}")
-    return (f"{row['kernel']:18s} B={row['B']:<3d} T={row['T']:<3d} {what} "
+    return (f"{row['kernel']:18s} B={row['B']:<3d} T={row['T']:<3d} "
+            f"Dh={row['Dh']:<3d} {what} "
             f"err {row['max_abs_err']:.3g} (tol {row['tol']:g})  kernel "
             f"{row['ms']:.4f} ms (a call from the host {row['call_ms']:.4f}"
             f" ms)  plain {row['plain_ms']:.4f} ms  sdpa "
@@ -524,7 +545,7 @@ def fmt_attn(row):
                if "tc_bound_ms" in row else ""))
 
 
-def bwd_kernel_case(B, T, causal, seed=0):
+def bwd_kernel_case(B, T, causal, seed=0, dh=HEAD_DIM, heads=HEADS):
     """K6 and K7 at one shape: q, k, v and the output gradient random, o
     and lse from K5's plain version. Each kernel's outputs against its
     plain version's (dq, dk, dv relative to the largest of the three plain
@@ -537,8 +558,8 @@ def bwd_kernel_case(B, T, causal, seed=0):
     import torch.nn.functional as F
     from deeplearning4j_tpu_torch.ops import attention_cuda as A
     g = torch.Generator(device="cuda").manual_seed(seed)
-    BH = B * HEADS
-    q, k, v, do = (torch.randn(BH, T, HEAD_DIM, generator=g, device="cuda")
+    BH = B * heads
+    q, k, v, do = (torch.randn(BH, T, dh, generator=g, device="cuda")
                    for _ in range(4))
     o, lse = A.flash_attention_fwd_plain(q, k, v, causal)
     c = {"q": q, "causal": causal}
@@ -551,8 +572,9 @@ def bwd_kernel_case(B, T, causal, seed=0):
         torch.cuda.synchronize()
         if not all(torch.equal(a, b) for a, b in
                    zip((dq, delta, dk, dv), again)):
-            raise AssertionError(f"K6/K7 B={B} T={T} causal={causal}: a "
-                                 "second run differs from the first")
+            raise AssertionError(f"K6/K7 B={B} T={T} Dh={dh} causal="
+                                 f"{causal}: a second run differs from the "
+                                 "first")
         want_dq, want_delta = A.flash_attention_dq_plain(q, k, v, o, lse,
                                                          do, causal)
         want_dk, want_dv = A.flash_attention_dkv_plain(q, k, v, lse,
@@ -566,8 +588,8 @@ def bwd_kernel_case(B, T, causal, seed=0):
                               (dv - want_dv).abs().max().item()) / scale}
     for kernel, err in errs.items():
         if not err <= ATTN_TOL:
-            raise AssertionError(f"{kernel} B={B} T={T} causal={causal}: "
-                                 f"relative err {err} > {ATTN_TOL}")
+            raise AssertionError(f"{kernel} B={B} T={T} Dh={dh} causal="
+                                 f"{causal}: relative err {err} > {ATTN_TOL}")
     calls = {
         "flash_attn_dq": (
             lambda: A.flash_attention_dq(q, k, v, o, lse, do, causal),
@@ -579,9 +601,9 @@ def bwd_kernel_case(B, T, causal, seed=0):
     # SDPA's backward alone cannot be replayed from a graph (autograd runs
     # it on the stream its forward was recorded on), so its time is that of
     # forward + backward less that of the same training forward
-    leaves = [t.view(B, HEADS, T, HEAD_DIM).clone().requires_grad_()
+    leaves = [t.view(B, heads, T, dh).clone().requires_grad_()
               for t in (q, k, v)]
-    do4 = do.view(B, HEADS, T, HEAD_DIM)
+    do4 = do.view(B, heads, T, dh)
 
     def sdpa_forward():
         with torch.enable_grad():
@@ -590,7 +612,7 @@ def bwd_kernel_case(B, T, causal, seed=0):
     def sdpa_step():
         return torch.autograd.grad(sdpa_forward(), leaves, do4)
     lib = sdpa_step()
-    lib_err = max((a.reshape(BH, T, HEAD_DIM) - w).abs().max().item()
+    lib_err = max((a.reshape(BH, T, dh) - w).abs().max().item()
                   for a, w in zip(lib, (want_dq, want_dk, want_dv))) / scale
     step_ms, fwd_ms = graph_ms(sdpa_step, reps=20), graph_ms(sdpa_forward,
                                                              reps=20)
@@ -598,8 +620,8 @@ def bwd_kernel_case(B, T, causal, seed=0):
     rows = []
     with torch.no_grad():
         for kernel, (wrap, plain) in calls.items():
-            row = {"kernel": kernel, "B": B, "T": T, "H": HEADS,
-                   "Dh": HEAD_DIM, "dtype": "float32", "causal": causal,
+            row = {"kernel": kernel, "B": B, "T": T, "H": heads,
+                   "Dh": dh, "dtype": "float32", "causal": causal,
                    "max_abs_err": errs[kernel], "tol": ATTN_TOL,
                    "err_relative_to": "largest plain gradient",
                    "ms": graph_ms(wrap, reps=20),
@@ -620,7 +642,7 @@ def bwd_kernel_case(B, T, causal, seed=0):
 def fmt_bwd(rows):
     dq, dkv = rows
     return (f"flash_attn_dq+dkv B={dq['B']:<3d} T={dq['T']:<3d} "
-            f"causal={dq['causal']!s:5} rel err {dq['max_abs_err']:.3g} / "
+            f"Dh={dq['Dh']:<3d} causal={dq['causal']!s:5} rel err {dq['max_abs_err']:.3g} / "
             f"{dkv['max_abs_err']:.3g} (tol {dq['tol']:g})  K6 "
             f"{dq['ms']:.4f} ms + K7 {dkv['ms']:.4f} ms = "
             f"{dq['ms'] + dkv['ms']:.4f} (from the host {dq['call_ms']:.4f} "
@@ -788,17 +810,88 @@ def _first_tie(net, prompt, got, want):
     return step, float(top[0] - top[1])
 
 
+def _generate_streams(net, ids, vocab, dense, paged, res, card, tag):
+    """8 concurrent greedy /generate streams of 64 tokens (prompts of
+    16..64 of the token rows ``ids``) through each (client, engine) pair of
+    ``dense`` and ``paged``, with exact launches (K8 or K9 twice per engine
+    step), then the full-prefix ``generate_naive`` of each prompt (K5 twice
+    per token); where a stream differs from it, the reference's top-2
+    margin at that step must be <= TIE_MARGIN. Fills ``res``."""
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.serving.decode import generate_naive
+    lens = [16, 22, 28, 34, 40, 46, 52, 64]
+    prompts = [list(map(int, ids[i, :n])) for i, n in enumerate(lens)]
+    new = 64
+    gens = {}
+    for kind, (client, eng), kernel in (
+            ("dense", dense, "flash_decode"),
+            ("paged", paged, "flash_decode_paged")):
+        client.generate(prompts[0][:4], max_new_tokens=4)  # first use
+        ops.reset_launch_counts()
+        st0 = eng.stats()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(prompts)) as pool:
+            gens[kind] = list(pool.map(
+                lambda p: client.generate(p, max_new_tokens=new)
+                ["tokens"], prompts))
+        wall = time.perf_counter() - t0
+        st1 = eng.stats()
+        steps = st1["steps"] - st0["steps"]
+        secs = st1["decode_seconds"] - st0["decode_seconds"]
+        res[f"launches_{kind}"] = _expect_launches(
+            f"{tag} {kind} /generate", {kernel: 2 * steps})
+        res[f"{kind}_steps"] = steps
+        res[f"{kind}_tokens_per_s"] = len(prompts) * new / wall
+        res[f"{kind}_ms_per_step"] = secs / steps * 1e3
+        if kind == "paged":
+            res["paged_kv"] = st1["kv"]
+            if st1["kv"]["blocks_in_use"] != 0:
+                raise AssertionError(f"paged engine leaked blocks: "
+                                     f"{st1['kv']}")
+        print(f"{tag}: {kind} /generate, {len(prompts)} concurrent "
+              f"greedy streams x {new} tokens (prompts {lens[0]}.."
+              f"{lens[-1]}): {steps} steps, "
+              f"{res[f'{kind}_ms_per_step']:.3f} ms/step, "
+              f"{res[f'{kind}_tokens_per_s']:.1f} tokens/s; launches "
+              f"{res[f'launches_{kind}']} [{card}]", flush=True)
+
+    # the full-prefix reference, through K5 at every length
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    naive = [generate_naive(net, p, new)["tokens"] for p in prompts]
+    res["naive_seconds"] = time.perf_counter() - t0
+    res["launches_naive"] = _expect_launches(
+        f"{tag} generate_naive", {"flash_attn_fwd": 2 * len(prompts) * new})
+    ties = []
+    for p, want, d, pg in zip(prompts, naive, gens["dense"], gens["paged"]):
+        for kind, got in (("dense", d), ("paged", pg)):
+            tie = _first_tie(net, p, got, want)
+            if tie is not None:
+                ties.append({"engine": kind, "prompt_len": len(p),
+                             "step": tie[0], "top2_margin": tie[1]})
+    res["token_mismatches"] = ties
+    same = sum(d == w for d, w in zip(gens["dense"], naive))
+    print(f"{tag}: greedy tokens, dense == full-prefix for {same}/"
+          f"{len(prompts)} streams, paged == full-prefix for "
+          f"{sum(g == w for g, w in zip(gens['paged'], naive))}/"
+          f"{len(prompts)}; mismatches at near-ties {ties}; "
+          f"full-prefix path {res['naive_seconds']:.2f} s [{card}]; "
+          f"sample {''.join(vocab[t] for t in gens['dense'][0])!r}",
+          flush=True)
+    if any(t["top2_margin"] > TIE_MARGIN for t in ties):
+        raise AssertionError(f"greedy tokens differ beyond a near-tie: "
+                             f"{ties}")
+
+
 def transformer_phase(card):
     """Serve TinyTransformer at its full default width on the card from the
     configuration's seed; every check raises on failure. Returns the
     measured numbers."""
     import numpy as np
-    import torch
     from deeplearning4j_tpu_torch import ComputationGraph, ops
     from deeplearning4j_tpu_torch.serving import (DecodeEngine,
                                                   InferenceClient,
                                                   InferenceServer)
-    from deeplearning4j_tpu_torch.serving.decode import generate_naive
     from deeplearning4j_tpu_torch.zoo import TinyTransformer
     from deeplearning4j_tpu_torch.zoo.corpus import corpus_windows
 
@@ -886,70 +979,8 @@ def transformer_phase(card):
             raise AssertionError("batched /predict disagrees with unbatched")
 
         # (b) greedy /generate, 8 concurrent streams, on each engine
-        ids = xte.argmax(-1)
-        lens = [16, 22, 28, 34, 40, 46, 52, 64]
-        prompts = [list(map(int, ids[i, :n])) for i, n in enumerate(lens)]
-        new = 64
-        gens = {}
-        for kind, client, eng, kernel in (
-                ("dense", cli, dense, "flash_decode"),
-                ("paged", pcli, paged, "flash_decode_paged")):
-            client.generate(prompts[0][:4], max_new_tokens=4)  # first use
-            ops.reset_launch_counts()
-            st0 = eng.stats()
-            t0 = time.perf_counter()
-            with ThreadPoolExecutor(len(prompts)) as pool:
-                gens[kind] = list(pool.map(
-                    lambda p: client.generate(p, max_new_tokens=new)
-                    ["tokens"], prompts))
-            wall = time.perf_counter() - t0
-            st1 = eng.stats()
-            steps = st1["steps"] - st0["steps"]
-            secs = st1["decode_seconds"] - st0["decode_seconds"]
-            res[f"launches_{kind}"] = _expect_launches(
-                f"tiny {kind} /generate", {kernel: 2 * steps})
-            res[f"{kind}_steps"] = steps
-            res[f"{kind}_tokens_per_s"] = len(prompts) * new / wall
-            res[f"{kind}_ms_per_step"] = secs / steps * 1e3
-            if kind == "paged":
-                res["paged_kv"] = st1["kv"]
-                if st1["kv"]["blocks_in_use"] != 0:
-                    raise AssertionError(f"paged engine leaked blocks: "
-                                         f"{st1['kv']}")
-            print(f"tiny: {kind} /generate, {len(prompts)} concurrent "
-                  f"greedy streams x {new} tokens (prompts {lens[0]}.."
-                  f"{lens[-1]}): {steps} steps, "
-                  f"{res[f'{kind}_ms_per_step']:.3f} ms/step, "
-                  f"{res[f'{kind}_tokens_per_s']:.1f} tokens/s; launches "
-                  f"{res[f'launches_{kind}']} [{card}]", flush=True)
-
-        # the full-prefix reference, through K5 at every length
-        ops.reset_launch_counts()
-        t0 = time.perf_counter()
-        naive = [generate_naive(net, p, new)["tokens"] for p in prompts]
-        res["naive_seconds"] = time.perf_counter() - t0
-        res["launches_naive"] = _expect_launches(
-            "tiny generate_naive", {"flash_attn_fwd": 2 * len(prompts) * new})
-        ties = []
-        for p, want, d, pg in zip(prompts, naive, gens["dense"],
-                                  gens["paged"]):
-            for kind, got in (("dense", d), ("paged", pg)):
-                tie = _first_tie(net, p, got, want)
-                if tie is not None:
-                    ties.append({"engine": kind, "prompt_len": len(p),
-                                 "step": tie[0], "top2_margin": tie[1]})
-        res["token_mismatches"] = ties
-        same = sum(d == w for d, w in zip(gens["dense"], naive))
-        print(f"tiny: greedy tokens, dense == full-prefix for {same}/"
-              f"{len(prompts)} streams, paged == full-prefix for "
-              f"{sum(g == w for g, w in zip(gens['paged'], naive))}/"
-              f"{len(prompts)}; mismatches at near-ties {ties}; "
-              f"full-prefix path {res['naive_seconds']:.2f} s [{card}]; "
-              f"sample {''.join(vocab[t] for t in gens['dense'][0])!r}",
-              flush=True)
-        if any(t["top2_margin"] > TIE_MARGIN for t in ties):
-            raise AssertionError(f"greedy tokens differ beyond a near-tie: "
-                                 f"{ties}")
+        _generate_streams(net, xte.argmax(-1), vocab, (cli, dense),
+                          (pcli, paged), res, card, "tiny")
     finally:
         srv.stop()
         psrv.stop()
@@ -1140,6 +1171,121 @@ def _param_diffs(got, want):
     return other, bk
 
 
+def _train_parity(zoo, T, B, stride, card, tag):
+    """Step-1 loss and gradients, three ``fit`` steps and a ``score`` of
+    ``zoo``'s graph on the card against the CPU port from the same initial
+    parameters, on corpus windows of length T (batch B): gradients within
+    GRAD_TOL of max|grad|, losses rtol LOSS_RTOL, parameters within GRAD_TOL
+    (``bk`` within 2 x lr x steps, see tiny_train_phase), and exactly two
+    launches each of K5, K6 and K7 per step, two of K5 per score."""
+    import torch
+    from deeplearning4j_tpu_torch import ComputationGraph, ops
+    from deeplearning4j_tpu_torch.zoo.corpus import corpus_windows
+    lr = zoo.conf().global_conf.updater.learning_rate
+    one_step = {"flash_attn_fwd": 2, "flash_attn_dq": 2, "flash_attn_dkv": 2}
+    (xtr, ytr), _, _ = corpus_windows(T=T, stride=stride)
+    cpu = zoo.init(device="cpu")
+    gpu = ComputationGraph(cpu.conf, device="cuda").set_params(cpu.params)
+    x0, y0 = xtr[:B], ytr[:B]
+    g_cpu, s_cpu = cpu.compute_gradient_and_score(x0, y0)
+    ops.reset_launch_counts()
+    g_gpu, s_gpu = gpu.compute_gradient_and_score(x0, y0)
+    torch.cuda.synchronize()
+    _expect_launches(f"{tag} train (a) T={T} gradients", one_step)
+    grad_err = _max_rel_err([g_gpu[n] for n in g_cpu], list(g_cpu.values()))
+    losses_cpu, losses_card = [], []
+    ops.reset_launch_counts()
+    for k in range(3):
+        batch = (xtr[k * B:(k + 1) * B], ytr[k * B:(k + 1) * B])
+        losses_cpu.append(cpu.fit(*batch).get_score())
+        losses_card.append(gpu.fit(*batch).get_score())
+    _expect_launches(f"{tag} train (a) T={T} fit",
+                     {k: 3 * n for k, n in one_step.items()})
+    ops.reset_launch_counts()
+    scores = (gpu.score(inputs=x0, labels=y0),
+              cpu.score(inputs=x0, labels=y0))
+    _expect_launches(f"{tag} train (a) T={T} score", {"flash_attn_fwd": 2})
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(losses_card + [s_gpu, scores[0]],
+                       losses_cpu + [s_cpu, scores[1]]))
+    p_err, bk_err = _param_diffs(gpu.params, cpu.params)
+    print(f"{tag} train (a) T={T} B={B}: step-1 gradients on the card vs "
+          f"the CPU port: max abs err {grad_err:.3g} of max|grad| (tol "
+          f"{GRAD_TOL}); 3 fit losses card {losses_card} vs CPU "
+          f"{losses_cpu}, score, max rel err {loss_rel:.3g} (tol "
+          f"{LOSS_RTOL}); parameters after: max abs err {p_err:.3g} "
+          f"(tol {GRAD_TOL}), bk {bk_err:.3g} (tol {6 * lr:g}); launches "
+          f"exactly 2 K5 + 2 K6 + 2 K7 per step, 2 K5 per score "
+          f"[{card}]", flush=True)
+    if not (grad_err <= GRAD_TOL and loss_rel <= LOSS_RTOL
+            and p_err <= GRAD_TOL and bk_err <= 2 * lr * 3):
+        raise AssertionError(f"{tag} training at T={T} on the card "
+                             "disagrees with the CPU port")
+    return {"batch": B, "grad_rel_err": grad_err, "loss_rel_err": loss_rel,
+            "losses_card": losses_card, "losses_cpu": losses_cpu,
+            "param_max_abs_err": p_err, "bk_max_abs_err": bk_err}
+
+
+def wide_head_phase(card):
+    """TinyTransformer(d_model=512, n_heads=2) from the zoo's seed: head dim
+    256, past the 128 columns a block of K5-K9 holds, so every attention
+    kernel runs its column-chunk split (two chunks). (a) /predict of the
+    held-out windows against the CPU port (probabilities within PROB_TOL;
+    K5 twice per bucketed forward); (b) 8 greedy /generate streams on a
+    dense and a paged engine against ``generate_naive`` under the near-tie
+    rule; (c) three ``fit`` steps at T=64 against the CPU port at the bars
+    of tiny train (a). Every check raises on failure; returns the numbers."""
+    import numpy as np
+    from deeplearning4j_tpu_torch import ComputationGraph, ops
+    from deeplearning4j_tpu_torch.serving import (DecodeEngine,
+                                                  InferenceClient,
+                                                  InferenceServer)
+    from deeplearning4j_tpu_torch.zoo import TinyTransformer
+    from deeplearning4j_tpu_torch.zoo.corpus import corpus_windows
+
+    _, (xte, _), vocab = corpus_windows(T=64)
+    zoo = TinyTransformer(vocab_size=len(vocab), d_model=WIDE_D_MODEL,
+                          n_heads=WIDE_HEADS)
+    net = zoo.init(device="cuda")
+    cfg = net.conf.nodes["b0_attn"].layer
+    res = {"card": card, "d_model": cfg.n_out, "heads": cfg.n_heads,
+           "head_dim": cfg.head_dim}
+    cpu = ComputationGraph(net.conf, device="cpu").set_params(net.params)
+    dense = DecodeEngine(net, slots=8, max_len=512)
+    paged = DecodeEngine(net, slots=8, max_len=512, kv="paged",
+                         kv_block_size=KV_BLOCK)
+    srv = InferenceServer(net, port=0, decode_engine=dense).start()
+    psrv = InferenceServer(net, port=0, decode_engine=paged).start()
+    cli = InferenceClient(f"http://127.0.0.1:{srv.port}")
+    pcli = InferenceClient(f"http://127.0.0.1:{psrv.port}")
+    try:
+        ops.reset_launch_counts()
+        c0 = srv.engine.stats()["device_calls"]
+        out = cli.predict(xte)
+        n_calls = srv.engine.stats()["device_calls"] - c0
+        res["launches_predict"] = _expect_launches(
+            "wide /predict", {"flash_attn_fwd": 2 * n_calls})
+        if out.shape != xte.shape or not np.isfinite(out).all():
+            raise AssertionError(f"/predict returned {out.shape}")
+        err = float(np.abs(out - cpu.output(xte, bucketed=False).numpy())
+                    .max())
+        res["predict_vs_cpu_max_abs_err"] = err
+        print(f"wide: Dh={cfg.head_dim}: /predict {len(xte)} held-out "
+              f"windows x 64: max abs err vs the CPU port {err:.3g} (tol "
+              f"{PROB_TOL}); launches {res['launches_predict']} [{card}]",
+              flush=True)
+        if err > PROB_TOL:
+            raise AssertionError("wide /predict on the card disagrees with "
+                                 "the CPU port")
+        _generate_streams(net, xte.argmax(-1), vocab, (cli, dense),
+                          (pcli, paged), res, card, "wide")
+    finally:
+        srv.stop()
+        psrv.stop()
+    res["parity_T64"] = _train_parity(zoo, 64, TINY_B, 8, card, "wide")
+    return res
+
+
 def tiny_train_phase(card):
     """Train TinyTransformer at its full default width on the card; every
     check raises on failure. Returns the measured numbers.
@@ -1148,60 +1294,17 @@ def tiny_train_phase(card):
     query's scores by one number, which the softmax ignores, so what K7
     returns for it is rounding noise that Adam scales up to steps of about
     lr. It is held to 2 x lr x steps, every other parameter to 1e-4."""
-    import torch
     from deeplearning4j_tpu_torch import ComputationGraph, ops
     from deeplearning4j_tpu_torch.zoo import TinyTransformer
     from deeplearning4j_tpu_torch.zoo.corpus import corpus_windows
 
     zoo = TinyTransformer(vocab_size=51)
-    lr = zoo.conf().global_conf.updater.learning_rate
     res = {"card": card}
     one_step = {"flash_attn_fwd": 2, "flash_attn_dq": 2, "flash_attn_dkv": 2}
 
     # (a) the card against the CPU port from the same initial parameters
     for T, B, stride in ((64, 32, 8), (512, 8, 64)):
-        (xtr, ytr), _, vocab = corpus_windows(T=T, stride=stride)
-        cpu = zoo.init(device="cpu")
-        gpu = ComputationGraph(cpu.conf, device="cuda").set_params(cpu.params)
-        x0, y0 = xtr[:B], ytr[:B]
-        g_cpu, s_cpu = cpu.compute_gradient_and_score(x0, y0)
-        ops.reset_launch_counts()
-        g_gpu, s_gpu = gpu.compute_gradient_and_score(x0, y0)
-        torch.cuda.synchronize()
-        _expect_launches(f"tiny train (a) T={T} gradients", one_step)
-        grad_err = _max_rel_err([g_gpu[n] for n in g_cpu], list(g_cpu.values()))
-        losses_cpu, losses_card = [], []
-        ops.reset_launch_counts()
-        for k in range(3):
-            batch = (xtr[k * B:(k + 1) * B], ytr[k * B:(k + 1) * B])
-            losses_cpu.append(cpu.fit(*batch).get_score())
-            losses_card.append(gpu.fit(*batch).get_score())
-        _expect_launches(f"tiny train (a) T={T} fit",
-                         {k: 3 * n for k, n in one_step.items()})
-        ops.reset_launch_counts()
-        scores = (gpu.score(inputs=x0, labels=y0),
-                  cpu.score(inputs=x0, labels=y0))
-        _expect_launches(f"tiny train (a) T={T} score", {"flash_attn_fwd": 2})
-        loss_rel = max(abs(a - b) / abs(b) for a, b in
-                       zip(losses_card + [s_gpu, scores[0]],
-                           losses_cpu + [s_cpu, scores[1]]))
-        p_err, bk_err = _param_diffs(gpu.params, cpu.params)
-        res[f"parity_T{T}"] = {
-            "batch": B, "grad_rel_err": grad_err, "loss_rel_err": loss_rel,
-            "losses_card": losses_card, "losses_cpu": losses_cpu,
-            "param_max_abs_err": p_err, "bk_max_abs_err": bk_err}
-        print(f"tiny train (a) T={T} B={B}: step-1 gradients on the card vs "
-              f"the CPU port: max abs err {grad_err:.3g} of max|grad| (tol "
-              f"{GRAD_TOL}); 3 fit losses card {losses_card} vs CPU "
-              f"{losses_cpu}, score, max rel err {loss_rel:.3g} (tol "
-              f"{LOSS_RTOL}); parameters after: max abs err {p_err:.3g} "
-              f"(tol {GRAD_TOL}), bk {bk_err:.3g} (tol {6 * lr:g}); launches "
-              f"exactly 2 K5 + 2 K6 + 2 K7 per step, 2 K5 per score "
-              f"[{card}]", flush=True)
-        if not (grad_err <= GRAD_TOL and loss_rel <= LOSS_RTOL
-                and p_err <= GRAD_TOL and bk_err <= 2 * lr * 3):
-            raise AssertionError(f"TinyTransformer training at T={T} on the "
-                                 "card disagrees with the CPU port")
+        res[f"parity_T{T}"] = _train_parity(zoo, T, B, stride, card, "tiny")
 
     # (b) the recipe from the seed
     net, rec = tiny_recipe("cuda")
@@ -1358,11 +1461,29 @@ def main() -> int:
         for B in (1, 8, 64):
             rows.append(attn_kernel_case(kernel, B, 512))
             print("kernel: " + fmt_attn(rows[-1]) + f" [{card}]", flush=True)
+    # head dims past 128: K5-K9 through the column-chunk split, 2 heads
+    for dh in WIDE_HEAD_DIMS:
+        for T in (64, 100):
+            for causal in (False, True):
+                rows.append(attn_kernel_case("flash_attn_fwd", 2, T, causal,
+                                             dh=dh, heads=2))
+                print("kernel: " + fmt_attn(rows[-1]) + f" [{card}]",
+                      flush=True)
+                pair = bwd_kernel_case(2, T, causal, dh=dh, heads=2)
+                rows.extend(pair)
+                print("kernel: " + fmt_bwd(pair) + f" [{card}]", flush=True)
+            for kernel in ("flash_decode", "flash_decode_paged"):
+                rows.append(attn_kernel_case(kernel, 4, T, dh=dh, heads=2))
+                print("kernel: " + fmt_attn(rows[-1]) + f" [{card}]",
+                      flush=True)
 
     res = slice_phase(card)
     t0 = time.perf_counter()
     tiny = transformer_phase(card)
     tiny["phase_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wide = wide_head_phase(card)
+    wide["phase_seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     train = train_phase(card)
     train["phase_seconds"] = time.perf_counter() - t0
@@ -1416,12 +1537,31 @@ def main() -> int:
         row = attn_kernel_case(kernel, 8, 512, pos=mid, seed=1)
         print("main-path shape: " + fmt_attn(row) + f" [{card}]", flush=True)
         entry(kernel, row, tiny[f"launches_{kind}"][kernel])
+    # the wide-head phase's shapes (Dh 256, 2 heads): /predict of 15 windows
+    # (bucket 16, T=64, causal), train steps (B=32, T=64), the engines; K5-K7
+    # also at Dh 128 (one chunk), the split's cost beside it
+    wide_dh = WIDE_D_MODEL // WIDE_HEADS
+    for dh in (wide_dh, CHUNK_COLUMNS):
+        rows.append(attn_kernel_case("flash_attn_fwd", 16, 64, True, seed=1,
+                                     dh=dh, heads=WIDE_HEADS))
+        print("wide-phase shape: " + fmt_attn(rows[-1]) + f" [{card}]",
+              flush=True)
+        rows.extend(bwd_kernel_case(TINY_B, TINY_T, True, seed=1, dh=dh,
+                                    heads=WIDE_HEADS))
+        print("wide-phase shape: " + fmt_bwd(rows[-2:]) + f" [{card}]",
+              flush=True)
+    for kernel in ("flash_decode", "flash_decode_paged"):
+        rows.append(attn_kernel_case(kernel, 8, 512, pos=mid, seed=1,
+                                     dh=wide_dh, heads=WIDE_HEADS))
+        print("wide-phase shape: " + fmt_attn(rows[-1]) + f" [{card}]",
+              flush=True)
 
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-         "kernel_rows": rows, "slice": res, "tiny": tiny, "train": train,
+         "kernel_rows": rows, "slice": res, "tiny": tiny, "wide": wide,
+         "train": train,
          "tiny_train": tiny_train, "kernels": entries}, indent=1))
     print(json.dumps({"kernels": entries}))
     print(card)

@@ -32,13 +32,22 @@
 // accumulator) triples merge through shared memory. The paged kernel reads
 // block_tables[b, j / bs] inside the loop and addresses
 // pool[phys, j % bs, h, :]; nothing is gathered or copied.
+//
+// Head dims past 128: the column-chunk split. The grid runs over (b, h,
+// chunk) triples, ceil(Dh / 128) chunks of 128 columns (the last one
+// ragged, down to 8), with G = 32 lanes a key row. A group's lanes form
+// each score over the full Dh by looping their 16-byte loads of q and k
+// over the chunks, and accumulate only the block's chunk of v; no register
+// array grows with Dh. Every block recomputes the scores: at Dh 256 that is
+// 2x the q . k reads and work, the price of each output element written
+// once, by one block.
 #include <cuda_runtime.h>
 #include <math.h>
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int MAX_DH = 128;
+constexpr int CHUNK = 128;  // head-dim columns a block accumulates
 
 enum Err { ERR_HEAD_DIM = -1, ERR_SHAPE = -2 };
 
@@ -46,23 +55,32 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-// G: lanes per key row (a power of two, 4 G >= Dh).
-template <int G, bool PAGED>
+__device__ __forceinline__ float dot4(float4 a, float4 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+}
+
+// G: lanes per key row (a power of two, 4 G >= Dh, or G = 32 and 4 G =
+// CHUNK < Dh with WIDE).
+template <int G, bool PAGED, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
     flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ kc,
                         const float* __restrict__ vc, const int* __restrict__ pos,
                         const int* __restrict__ tables, float* __restrict__ out, int H, int Dh,
                         int C, int bs, int MB, float scale) {
   constexpr int NG = THREADS / G;  // key groups per block
+  constexpr int W = 4 * G;         // columns a block accumulates
   __shared__ float m_s[NG], l_s[NG];
-  __shared__ __align__(16) float acc_s[NG][4 * G];
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
+  __shared__ __align__(16) float acc_s[NG][W];
+  const int nc = WIDE ? (Dh + W - 1) / W : 1;
+  const int bh = blockIdx.x / nc, oc = blockIdx.x % nc;
+  const int b = bh / H, h = bh % H;
   const int gi = threadIdx.x / G, lane = threadIdx.x % G;
-  const int e0 = 4 * lane;
-  const bool has = e0 < Dh;  // Dh is a multiple of 8, so e0 + 4 <= Dh
+  const int e0 = 4 * lane, eo = oc * W + e0;  // the lane's columns: first chunk, output
+  const bool has = eo < Dh;  // Dh is a multiple of 8, so eo + 4 <= Dh
+  const float* qrow = q + (size_t)bh * Dh;
   float4 qv = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (has) {
-    qv = load4(q + ((size_t)b * H + h) * Dh + e0);
+  if (!WIDE && has) {
+    qv = load4(qrow + e0);
     qv.x *= scale; qv.y *= scale; qv.z *= scale; qv.w *= scale;
   }
   // a position past the capacity means every cached row is live
@@ -81,14 +99,18 @@ __global__ void __launch_bounds__(THREADS)
         row = ((size_t)b * C + j) * H + h;
       }
     }
-    float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
-    if (ok && has) {
-      kv = load4(kc + row * Dh + e0);
-      vv = load4(vc + row * Dh + e0);
+    float4 vv = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (ok && has) vv = load4(vc + row * Dh + eo);
+    float part = 0.f;
+    if (WIDE) {
+      if (ok)
+        for (int e = e0; e < Dh; e += W) part += dot4(load4(qrow + e), load4(kc + row * Dh + e));
+    } else if (ok && has) {
+      part = dot4(qv, load4(kc + row * Dh + e0));
     }
-    float part = qv.x * kv.x + qv.y * kv.y + qv.z * kv.z + qv.w * kv.w;
 #pragma unroll
     for (int w = 1; w < G; w <<= 1) part += __shfl_xor_sync(0xffffffffu, part, w);
+    if (WIDE) part *= scale;
     if (ok) {
       const float mn = fmaxf(m, part);
       const float alpha = expf(m - mn), pe = expf(part - mn);
@@ -106,8 +128,8 @@ __global__ void __launch_bounds__(THREADS)
   }
   *reinterpret_cast<float4*>(&acc_s[gi][e0]) = acc;
   __syncthreads();
-  if (threadIdx.x < Dh) {
-    const int e = threadIdx.x;
+  const int e = threadIdx.x;
+  if (e < W && oc * W + e < Dh) {
     float M = -INFINITY;
     for (int i = 0; i < NG; ++i) M = fmaxf(M, m_s[i]);
     float L = 0.f, O = 0.f;
@@ -118,15 +140,18 @@ __global__ void __launch_bounds__(THREADS)
         O = fmaf(acc_s[i][e], w, O);
       }
     }
-    out[((size_t)b * H + h) * Dh + e] = O / L;
+    out[(size_t)bh * Dh + oc * W + e] = O / L;
   }
 }
 
 template <bool PAGED>
 int launch(const void* q, const void* kc, const void* vc, const void* pos, const void* tables,
            void* out, int B, int H, int Dh, int C, int bs, int MB, int device, void* stream) {
-  if (Dh < 8 || Dh > MAX_DH || Dh % 8 != 0) return ERR_HEAD_DIM;
-  if (B < 1 || H < 1 || C < 1 || (PAGED && (bs < 1 || MB < 1))) return ERR_SHAPE;
+  if (Dh < 8 || Dh % 8 != 0) return ERR_HEAD_DIM;
+  const long long nc = (Dh + CHUNK - 1) / CHUNK;
+  if (B < 1 || H < 1 || C < 1 || (PAGED && (bs < 1 || MB < 1)) ||
+      (long long)B * H * nc > 0x7fffffff)
+    return ERR_SHAPE;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   const float *qf = (const float*)q, *kf = (const float*)kc, *vf = (const float*)vc;
@@ -134,16 +159,16 @@ int launch(const void* q, const void* kc, const void* vc, const void* pos, const
   float* of = (float*)out;
   cudaStream_t s = (cudaStream_t)stream;
   const float scale = 1.f / sqrtf((float)Dh);
-  const dim3 grid((unsigned)B * H);
   const int lanes = Dh / 4;
-#define DECODE_LAUNCH(G_)                                                                  \
-  flash_decode_kernel<G_, PAGED><<<grid, THREADS, 0, s>>>(qf, kf, vf, pf, tf, of, H, Dh, C, \
-                                                          bs, MB, scale)
-  if (lanes <= 2) DECODE_LAUNCH(2);
-  else if (lanes <= 4) DECODE_LAUNCH(4);
-  else if (lanes <= 8) DECODE_LAUNCH(8);
-  else if (lanes <= 16) DECODE_LAUNCH(16);
-  else DECODE_LAUNCH(32);
+#define DECODE_LAUNCH(G_, WIDE_)                                                             \
+  flash_decode_kernel<G_, PAGED, WIDE_><<<(unsigned)(B * H * (WIDE_ ? nc : 1)), THREADS, 0, \
+                                          s>>>(qf, kf, vf, pf, tf, of, H, Dh, C, bs, MB, scale)
+  if (lanes <= 2) DECODE_LAUNCH(2, false);
+  else if (lanes <= 4) DECODE_LAUNCH(4, false);
+  else if (lanes <= 8) DECODE_LAUNCH(8, false);
+  else if (lanes <= 16) DECODE_LAUNCH(16, false);
+  else if (lanes <= 32) DECODE_LAUNCH(32, false);
+  else DECODE_LAUNCH(32, true);
 #undef DECODE_LAUNCH
   return (int)cudaGetLastError();
 }
@@ -151,8 +176,8 @@ int launch(const void* q, const void* kc, const void* vc, const void* pos, const
 }  // namespace
 
 // q, out: (B, H, Dh) float32; kc, vc: (B, C, H, Dh) float32; pos: (B,)
-// int32. All contiguous; Dh a multiple of 8 up to 128. Returns 0, a
-// cudaError_t, or an Err.
+// int32. All contiguous; Dh any multiple of 8. Returns 0, a cudaError_t, or
+// an Err.
 extern "C" int flash_decode(const void* q, const void* kc, const void* vc, const void* pos,
                             void* out, int B, int H, int Dh, int C, int device, void* stream) {
   return launch<false>(q, kc, vc, pos, nullptr, out, B, H, Dh, C, 0, 0, device, stream);
@@ -169,7 +194,7 @@ extern "C" int flash_decode_paged(const void* q, const void* pk, const void* pv,
 }
 
 extern "C" const char* flash_decode_error(int code) {
-  if (code == ERR_HEAD_DIM) return "head dim must be a multiple of 8 in [8, 128]";
+  if (code == ERR_HEAD_DIM) return "head dim must be a positive multiple of 8";
   if (code == ERR_SHAPE) return "B, H, the capacity and the block size must be >= 1";
   return cudaGetErrorString((cudaError_t)code);
 }

@@ -18,12 +18,12 @@ the conditions under which the JAX layer's flash path computes the same
 function as its einsum path.
 The dense decode step always runs K8 (``ops.flash_decode_step``), the
 paged one K9 (``ops.flash_decode_step_paged``). On CPU tensors those
-wrappers run their plain versions. A head dim that is not a multiple of
-8, which the JAX layer's flash screens reject for its einsum path, runs
-the layer's own einsum and softmax in all three places, on any device
-(``flash_supported``). The kernels take the multiples of 8 up to 128; a
-larger one, which the JAX layer runs through its flash kernels, raises on
-the card (the wrappers' screen). LayerNormalization and
+wrappers run their plain versions. The kernels take every head dim that
+is a multiple of 8, as the head-dim clause of the JAX layer's flash
+screens does (``ops.head_dim_supported``, which both the layer and the
+wrappers call); any other head dim, which the JAX layer sends to its
+einsum path, runs the layer's own einsum and softmax in all three places,
+on any device (``flash_supported``). LayerNormalization and
 PositionalEmbedding differentiate by autograd.
 
 KV writes are in place (``index_put_``) where the JAX layer builds a new
@@ -132,7 +132,7 @@ class MultiHeadAttention(Layer):
     def flash_supported(self) -> bool:
         """The head-dim half of the JAX layer's flash screens (a multiple of
         8); any other head dim runs the layer's own einsum and softmax."""
-        return self.head_dim % 8 == 0
+        return ops.head_dim_supported(self.head_dim)
 
     def apply(self, params, x):
         B, T, _ = x.shape

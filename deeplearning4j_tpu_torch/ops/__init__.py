@@ -51,6 +51,15 @@ def reset_launch_counts() -> None:
         _COUNTS.clear()
 
 
+def head_dim_supported(head_dim: int) -> bool:
+    """The head dims the attention kernels (K5-K9) take: the positive
+    multiples of 8, the head-dim clause of the JAX package's flash screens
+    (``ops/flash_attention.py::supported``, ``ops/flash_decode.py::
+    supported`` and ``::supported_paged``). The attention layer screens with
+    it, and the kernel wrappers refuse any other head dim on the card."""
+    return head_dim > 0 and head_dim % 8 == 0
+
+
 from deeplearning4j_tpu_torch.ops.lstm_cuda import (  # noqa: E402
     FusedLSTM, FusedLSTM2, fused_lstm2_sequence, fused_lstm2_sequence_train,
     fused_lstm_backward, fused_lstm_sequence, fused_lstm_sequence_train,
@@ -62,7 +71,7 @@ from deeplearning4j_tpu_torch.ops.decode_cuda import (  # noqa: E402
     flash_decode_step, flash_decode_step_paged)
 
 __all__ = ["resolve_device", "count_launch", "launch_counts",
-           "reset_launch_counts", "fused_lstm_sequence",
+           "reset_launch_counts", "head_dim_supported", "fused_lstm_sequence",
            "fused_lstm_sequence_train", "fused_lstm_backward",
            "fused_lstm2_sequence", "fused_lstm2_sequence_train", "FusedLSTM",
            "FusedLSTM2", "lstm_sequence", "lstm2_sequence",

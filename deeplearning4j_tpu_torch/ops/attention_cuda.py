@@ -18,7 +18,9 @@ Counterpart of deeplearning4j_tpu/ops/flash_attention.py:
   otherwise (serving: one K5 launch, nothing saved).
 
 Unlike the TPU kernels the CUDA ones take every T (they mask the ragged
-tail themselves); Dh must be a multiple of 8 up to 128. On CPU tensors the
+tail themselves); Dh may be any multiple of 8 (``ops.head_dim_supported``;
+past 128 the kernels split the head dim into 128-column chunks across
+blocks). On CPU tensors the
 wrappers, and so the autograd function, run the plain versions: an einsum
 and a softmax, and the backward's recompute formulas.
 """
@@ -121,9 +123,9 @@ def _on_card(named) -> bool:
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {dev}")
     Dh = next(iter(named.values())).shape[-1]
-    if Dh % 8 != 0 or not 8 <= Dh <= 128:
-        raise ValueError(f"flash_attention: head dim {Dh} is not a multiple "
-                         "of 8 in [8, 128]")
+    if not ops.head_dim_supported(Dh):
+        raise ValueError(f"flash_attention: head dim {Dh} is not a positive "
+                         "multiple of 8")
     for name, t in named.items():
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")

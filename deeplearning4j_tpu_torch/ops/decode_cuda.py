@@ -10,7 +10,8 @@ Counterpart of deeplearning4j_tpu/ops/flash_decode.py, one source
   ``_paged_kernel``: the same over a pool (NB, bs, H, Dh) whose blocks the
   (B, MB) int32 page tables name; the logical capacity is MB * bs.
 
-Both return (B, H, Dh) float32. The kernels read the cache and the pool in
+Both return (B, H, Dh) float32, for any head dim that is a multiple of 8
+(``ops.head_dim_supported``). The kernels read the cache and the pool in
 place and only the live rows (the TPU wrappers' cast and transpose copies
 of the whole cache are not carried over). On CPU tensors the wrappers run
 the plain versions: the masked softmax of the attention layer's dense
@@ -85,9 +86,9 @@ def _on_card(name, q, tensors) -> bool:
     if dev.type != "cuda":
         raise ValueError(f"{name}: unsupported device {dev}")
     Dh = q.shape[-1]
-    if Dh % 8 != 0 or not 8 <= Dh <= 128:
-        raise ValueError(f"{name}: head dim {Dh} is not a multiple of 8 in "
-                         "[8, 128]")
+    if not ops.head_dim_supported(Dh):
+        raise ValueError(f"{name}: head dim {Dh} is not a positive multiple "
+                         "of 8")
     for key, t in tensors.items():
         if key in ("pos", "block_tables") and t.dtype != torch.int32:
             raise TypeError(f"{name}: {key} must be int32, got {t.dtype}")

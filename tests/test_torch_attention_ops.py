@@ -58,7 +58,7 @@ def _close(port, ref, tol=TOL):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("Dh", [8, 32])
+@pytest.mark.parametrize("Dh", [8, 32, 136, 256, 520])
 @pytest.mark.parametrize("T", [8, 16, 64])
 @pytest.mark.parametrize("BH", [1, 3])
 def test_k5_plain_matches_interpreted_pallas_kernel(BH, T, Dh, causal,
@@ -87,7 +87,7 @@ def test_k5_plain_matches_the_einsum_path_at_a_ragged_length(causal):
     _close(o.reshape(B, H, T, Dh).permute(0, 2, 1, 3), ref)
 
 
-@pytest.mark.parametrize("Dh", [8, 16])
+@pytest.mark.parametrize("Dh", [8, 16, 136, 256, 520])
 def test_k8_plain_matches_interpreted_pallas_kernel(Dh,
                                                     jax_kernels_interpreted):
     """pos at the first row, in the middle and at the last row."""
@@ -113,7 +113,7 @@ def _paged_case(B=3, H=2, Dh=8, bs=8, MB=4, seed=10):
     return q, pk, pv, pos, tables.astype(np.int32)
 
 
-@pytest.mark.parametrize("Dh", [8, 16])
+@pytest.mark.parametrize("Dh", [8, 16, 136, 256, 520])
 def test_k9_plain_matches_interpreted_pallas_kernel(Dh,
                                                     jax_kernels_interpreted):
     """Shuffled page tables over a pool with a scratch block 0."""
@@ -122,6 +122,24 @@ def test_k9_plain_matches_interpreted_pallas_kernel(Dh,
     ref = jax_decode_paged(*map(jnp.asarray, case),
                            interpret=jops.interpret_mode())
     _close(out, ref)
+
+
+def test_head_dim_screen_matches_the_jax_screens():
+    """``ops.head_dim_supported``, the head-dim screen the kernel wrappers
+    and the attention layer both call, takes exactly the head dims the JAX
+    package's three flash screens take where their VMEM budgets hold (T,
+    C = 64, blocks of 8): the multiples of 8."""
+    from deeplearning4j_tpu.ops.flash_attention import supported as fa
+    from deeplearning4j_tpu.ops.flash_decode import (supported as dec,
+                                                     supported_paged as paged)
+    from deeplearning4j_tpu_torch.nn.layers.attention import \
+        MultiHeadAttention
+    for Dh in range(1, 601):
+        port = ops.head_dim_supported(Dh)
+        assert [fa(64, Dh), dec(64, Dh), paged(8, Dh)] == [port] * 3, Dh
+        layer = MultiHeadAttention(n_in=2 * Dh, n_heads=2)
+        assert layer.head_dim == Dh and layer.flash_supported() == port
+    assert sum(map(ops.head_dim_supported, range(1, 601))) == 75
 
 
 def test_k9_plain_is_k8_plain_on_the_gathered_cache():
@@ -166,7 +184,7 @@ def _bwd_case(BH, T, Dh, causal, seed=20):
 
 
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("Dh", [8, 32])
+@pytest.mark.parametrize("Dh", [8, 32, 136, 256, 520])
 @pytest.mark.parametrize("T", [8, 16, 64])
 @pytest.mark.parametrize("BH", [1, 3])
 def test_k6_k7_plain_matches_interpreted_pallas_backward(
@@ -318,6 +336,58 @@ def test_3xtf32_products_keep_the_backward_float32_accurate(T, causal):
     assert _tf32(np.float32(-(1 + 2 ** -12))) == np.float32(-1)
     assert _tf32_backward_error(T, causal, split=True) <= 1e-5
     assert _tf32_backward_error(T, causal, split=False) > 1e-4
+
+
+def _toward_zero(x):
+    """float64 x rounded to float32 toward zero: how the tensor cores add a
+    product to an accumulator, as modelled here (not to nearest, so the
+    error keeps one sign)."""
+    f = x.astype(np.float32)
+    return np.where(np.abs(f.astype(np.float64)) > np.abs(x),
+                    np.nextafter(f, np.float32(0)), f)
+
+
+def _tc_scores(q, k, steps, truncate=True):
+    """q k^T as the attention kernels form it on the tensor cores: 3xTF32
+    products of 8 columns (exact), the small ones summed in an accumulator
+    of their own, the big ones ``steps`` 8-column steps at a time from zero
+    and each partial sum added to the scores in float32."""
+    qb, kb = _tf32(q), _tf32(k)
+    qs, ks = _tf32(q - qb), _tf32(k - kb)
+
+    def prod(a, b, c0):
+        return np.einsum("btd,bsd->bts", a[..., c0:c0 + 8].astype(np.float64),
+                         b[..., c0:c0 + 8].astype(np.float64))
+    add = _toward_zero if truncate else (lambda x: x.astype(np.float32))
+    shape = q.shape[:2] + k.shape[1:2]
+    s, big, small = (np.zeros(shape, np.float32) for _ in range(3))
+    for i, c0 in enumerate(range(0, q.shape[-1], 8)):
+        small = add(small + prod(qs, kb, c0) + prod(qb, ks, c0))
+        big = add(big + prod(qb, kb, c0))
+        if (i + 1) % steps == 0:
+            s, big = s + big, np.zeros(shape, np.float32)
+    return s + big + small
+
+
+@pytest.mark.parametrize("seed", [70, 71])
+def test_partial_score_sums_keep_wide_heads_float32_accurate(seed):
+    """The accumulation argument of csrc/flash_attn_fwd.cu (and of the
+    column-chunk split in csrc/flash_attn_bwd.cu), checked where there is
+    no card: at Dh 256 with scores of a few hundred, one truncating
+    accumulator over the 32 steps of a row carries several times the error
+    of the same products summed to nearest, while partial sums of
+    SCORE_STEPS = 4 steps (32 columns) added in float32 carry no more than
+    that."""
+    r = np.random.RandomState(seed)
+    q, k = ((r.randn(2, 16, 256) * 2.5).astype(np.float32) for _ in range(2))
+    want = np.einsum("btd,bsd->bts", q.astype(np.float64),
+                     k.astype(np.float64))
+
+    def err(s):
+        return np.abs(s - want).max()
+    nearest = err(_tc_scores(q, k, 32, truncate=False))
+    assert err(_tc_scores(q, k, 32)) > 3 * nearest
+    assert err(_tc_scores(q, k, 4)) <= 1.25 * nearest
 
 
 @pytest.mark.parametrize("bad", ["shape", "float64", "pos_shape"])

@@ -138,11 +138,14 @@ def _rand(*shape, device, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("BH,T,Dh", [(64, 64, 32), (16, 512, 32), (3, 13, 8),
-                                     (2, 100, 128), (5, 70, 24), (1, 1, 16)])
+                                     (2, 100, 128), (5, 70, 24), (1, 1, 16),
+                                     (4, 64, 136), (3, 100, 256),
+                                     (2, 70, 520)])
 def test_flash_attention_matches_plain_on_the_card(BH, T, Dh, causal,
                                                    cuda_device):
-    """Serving shapes and ragged ones (T off the 64-row tile and the 32-key
-    tile, Dh that is no power of two)."""
+    """Serving shapes and ragged ones (T off the warps' 16-row tiles and the
+    32-key tile, Dh that is no power of two), and head dims past 128 that
+    the column-chunk split takes (a last chunk 8 wide at 136 and at 520)."""
     q, k, v = (_rand(BH, T, Dh, device=cuda_device, seed=s) for s in range(3))
     before = ops.launch_counts().get("flash_attn_fwd", 0)
     o, lse = ops.flash_attention_fwd(q, k, v, causal)
@@ -157,7 +160,9 @@ def test_flash_attention_matches_plain_on_the_card(BH, T, Dh, causal,
 @pytest.mark.cuda
 @pytest.mark.parametrize("paged", [False, True])
 @pytest.mark.parametrize("B,H,Dh,C", [(8, 4, 32, 512), (64, 4, 32, 512),
-                                      (3, 2, 8, 48), (2, 3, 128, 64)])
+                                      (3, 2, 8, 48), (2, 3, 128, 64),
+                                      (3, 2, 136, 64), (4, 2, 256, 96),
+                                      (2, 1, 520, 48)])
 def test_flash_decode_matches_plain_on_the_card(B, H, Dh, C, paged,
                                                 cuda_device):
     """Positions at the first row, spread through the cache and at the
@@ -192,13 +197,17 @@ def test_flash_decode_matches_plain_on_the_card(B, H, Dh, C, paged,
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("BH,T,Dh", [(128, 64, 32), (32, 512, 32),
                                      (16, 100, 32), (3, 13, 8), (2, 100, 128),
-                                     (5, 70, 24), (1, 1, 16), (4, 200, 64)])
+                                     (5, 70, 24), (1, 1, 16), (4, 200, 64),
+                                     (4, 64, 136), (3, 100, 256),
+                                     (2, 70, 520)])
 def test_flash_attention_backward_matches_plain_on_the_card(BH, T, Dh, causal,
                                                             cuda_device):
     """K6 then K7 at the training shape (BH 128, T=64), at T=512 (causal
-    bounds across tiles) and ragged ones (T off the 16-row warp tiles and
-    the 32-row streamed tiles, padded rows, Dh that is no power of two, Dh
-    below a kernel instantiation's width); tolerance relative to the
+    bounds across tiles), ragged ones (T off the 16-row warp tiles and the
+    32-row streamed tiles, padded rows, Dh that is no power of two, Dh
+    below a kernel instantiation's width) and head dims past 128 (the
+    column-chunk split, each chunk's block writing delta or not by its
+    chunk); tolerance relative to the
     largest of the plain version's three gradients. No atomics and one
     writer per output element: a second run repeats dq, delta, dk and dv
     bit for bit."""
@@ -225,21 +234,16 @@ def test_flash_attention_backward_matches_plain_on_the_card(BH, T, Dh, causal,
         assert torch.equal(a, b)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("d_model,n_heads", [(64, 16)])
-def test_attention_layer_head_dims_outside_the_kernels_on_the_card(
-        d_model, n_heads, cuda_device):
-    """Dh = 4, not a multiple of 8, which the attention kernels do not take
-    and the JAX layer sends to its einsum path: the layer's own einsum and
-    softmax on the card (float32 matmuls, TF32 off as by default) match the
-    CPU port -- forward with its input gradient, and dense and paged decode
-    steps -- and launch no attention kernel."""
+def _layer_on_card_matches_cpu(d_model, n_heads, T, bs, launches):
+    """MultiHeadAttention (causal) on the card against the CPU port from the
+    same random parameters: the forward with its input gradient, and three
+    dense and three paged decode steps (B = 3, C = 16), launching exactly
+    ``launches`` on the card and nothing on the CPU."""
     from deeplearning4j_tpu_torch.nn.layers.attention import \
         MultiHeadAttention
     layer = MultiHeadAttention(n_in=d_model, n_out=d_model, n_heads=n_heads,
                                causal=True)
-    assert not layer.flash_supported()
-    B, T, C, bs = 3, 9, 16, 4
+    B, C = 3, 16
     MB = C // bs
     tables = (torch.randperm(B * MB, generator=torch.Generator()
                              .manual_seed(3)) + 1).reshape(B, MB) \
@@ -269,7 +273,7 @@ def test_attention_layer_head_dims_outside_the_kernels_on_the_card(
                 got.append(o)
         if dev == "cuda":
             torch.cuda.synchronize()
-        assert ops.launch_counts() == {}
+        assert ops.launch_counts() == (launches if dev == "cuda" else {})
         outs[dev] = [g.cpu() for g in got]
     for g, ref in zip(outs["cuda"], outs["cpu"]):
         assert (g - ref).abs().max().item() <= TOL[torch.float32] * max(
@@ -277,47 +281,46 @@ def test_attention_layer_head_dims_outside_the_kernels_on_the_card(
 
 
 @pytest.mark.cuda
-def test_attention_layer_raises_on_the_card_past_the_kernels_head_dims(
-        cuda_device):
-    """Dh = 256, a multiple of 8 past the kernels' 128, which the JAX layer
-    runs through its flash kernels: the layer hands it to the kernel
-    wrappers, which raise on the card in the forward and both decode
-    steps, and nothing is launched."""
-    from deeplearning4j_tpu_torch.nn.layers.attention import \
-        MultiHeadAttention
-    layer = MultiHeadAttention(n_in=512, n_out=512, n_heads=2, causal=True)
-    assert layer.flash_supported()
-    B, C, bs = 3, 16, 8
-    params = {k: p.to("cuda") for k, p in
-              layer.init(torch.Generator().manual_seed(0)).items()}
-    x = _rand(B, 16, 512, device="cuda", seed=9)
-    pos = torch.tensor([0, 4, 10], dtype=torch.int32, device="cuda")
-    tables = torch.arange(1, 1 + B * (C // bs), dtype=torch.int32,
-                          device="cuda").reshape(B, C // bs)
-    dense = layer.init_decode_state(params, B, C, device="cuda")
-    paged = layer.init_paged_decode_state(params, B, C, B * (C // bs) + 1,
-                                          bs, device="cuda")
-    ops.reset_launch_counts()
-    with torch.no_grad():
-        for call in (lambda: layer.apply(params, x),
-                     lambda: layer.decode_step(params, dense, x[:, :1], pos),
-                     lambda: layer.decode_step_paged(params, paged, x[:, :1],
-                                                     pos, tables)):
-            with pytest.raises(ValueError, match="head dim 256"):
-                call()
-    assert ops.launch_counts() == {}
+@pytest.mark.parametrize("d_model,n_heads", [(64, 16)])
+def test_attention_layer_head_dims_outside_the_kernels_on_the_card(
+        d_model, n_heads, cuda_device):
+    """Dh = 4, not a multiple of 8, which the attention kernels do not take
+    and the JAX layer sends to its einsum path: the layer's own einsum and
+    softmax on the card (float32 matmuls, TF32 off as by default) match the
+    CPU port -- forward with its input gradient, and dense and paged decode
+    steps -- and launch no attention kernel."""
+    assert not ops.head_dim_supported(d_model // n_heads)
+    _layer_on_card_matches_cpu(d_model, n_heads, T=9, bs=4, launches={})
 
 
 @pytest.mark.cuda
-def test_flash_attention_autograd_on_the_card_matches_the_cpu(cuda_device):
+def test_attention_layer_past_128_head_dims_on_the_card_matches_the_cpu(
+        cuda_device):
+    """Dh = 256, a multiple of 8 past 128 that the JAX layer runs through its
+    flash kernels: the layer on the card runs K5 forward and K6 + K7
+    backward (column-chunk split, two chunks) and K8 and K9 in the decode
+    steps, exactly once per call, and matches the CPU port -- forward with
+    its input gradient, and dense and paged decode steps."""
+    _layer_on_card_matches_cpu(
+        512, 2, T=20, bs=8,
+        launches={"flash_attn_fwd": 1, "flash_attn_dq": 1,
+                  "flash_attn_dkv": 1, "flash_decode": 3,
+                  "flash_decode_paged": 3})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dh", [32, 256])
+def test_flash_attention_autograd_on_the_card_matches_the_cpu(Dh,
+                                                              cuda_device):
     """``flash_attention`` under grad on the card: one K5, and a backward of
     one K6 and one K7 from a strided output gradient; the same gradients
-    as the plain versions on the CPU."""
+    as the plain versions on the CPU. Dh = 256 runs the column-chunk
+    split."""
     grads = {}
     for dev in ("cpu", "cuda"):
-        leaves = [_rand(8, 100, 32, device=dev, seed=s).requires_grad_()
+        leaves = [_rand(8, 100, Dh, device=dev, seed=s).requires_grad_()
                   for s in range(3)]
-        do = _rand(100, 8, 32, device=dev, seed=3).transpose(0, 1)
+        do = _rand(100, 8, Dh, device=dev, seed=3).transpose(0, 1)
         ops.reset_launch_counts()
         ops.flash_attention(*leaves, True).backward(do)
         if dev == "cuda":

@@ -173,11 +173,12 @@ def test_decode_step_matches_jax_step_by_step(nets, kv,
 @pytest.mark.parametrize("d_model,n_heads", [(64, 16), (512, 2)])
 def test_head_dims_the_kernels_do_not_take_match_the_jax_layer(
         d_model, n_heads, jax_kernels_interpreted):
-    """Dh = 4 and Dh = 256 are outside what the attention kernels take.
-    The port's layer screens head dims as the JAX layer's flash screens do:
-    Dh = 4 runs both layers' own einsum and softmax, Dh = 256 the JAX
-    layer's flash kernels (interpreted) and the port's kernel wrappers
-    (their plain versions here; on the card they raise). The forward, and
+    """Dh = 4 is outside what the attention kernels take, and Dh = 256 is
+    past the 128 columns their blocks hold whole. The port's layer screens
+    head dims as the JAX layer's flash screens do: Dh = 4 runs both layers'
+    own einsum and softmax, Dh = 256 the JAX layer's flash kernels
+    (interpreted) and the port's kernel wrappers (their plain versions
+    here; on the card the kernels' column-chunk split). The forward, and
     dense and paged decode steps, against the JAX layer from the same
     random parameters."""
     jl = JaxMHA(n_in=d_model, n_out=d_model, n_heads=n_heads, causal=True)
