@@ -13,8 +13,14 @@ result line, when any of them or the port's package is missing. Phases:
    family at T=64, H=256, float32 and bfloat16: K1 (single-layer LSTM
    forward) and K4 (stacked wavefront forward) at B in {1, 16, 256}; K2
    (training forward), K4-train and K3 (backward) at B in {1, 32, 256}.
-   Tolerance f32 1e-4, bf16 3e-2, on every output (K3's relative to the
-   largest magnitude of the plain version's). The attention family in
+   K3 also at (T, B, H) = (16, 32, 300), (16, 32, 432) and (16, 32, 433)
+   -- on an H100 the largest H of its cluster route and the smallest of
+   its grid-wide route -- and (16, 32, 1056), the largest H K3 takes at
+   B=32, which the run also checks; every K3 case runs 20 more times and
+   must repeat bit for bit, and its line shows the plan (route, cluster
+   size, clusters, rows per cluster) and us per reverse step (ms / (T +
+   1)). Tolerance f32 1e-4, bf16 3e-2, on every output (K3's relative to
+   the largest magnitude of the plain version's). The attention family in
    float32, tolerance 1e-4: K5 (flash attention forward, o and lse) at
    B in {1, 16, 64} x 4 heads, T in {64, 512}, Dh=32, causal and not; K6
    (dq, and the delta it writes for K7) and K7 (dk, dv), the flash
@@ -95,7 +101,9 @@ their call or step counts call for (K5 twice per bucketed forward, K8 or
 K9 twice per engine step; K5, K6 and K7 twice each per TinyTransformer
 train step, K5 alone for ``score`` and ``evaluate``), and nothing else.
 
-After the phases each kernel is timed again at its main path's shape, and
+After the phases each kernel is timed again at its main path's shape (K3
+also on each of its routes in turn: clusters of 16 and of 8 blocks, and
+the grid-wide kernel alone), and
 K5-K9 at the wide-heads phase's shapes (K5-K7 also at Dh 128 beside them,
 the split's cost). Prints, before the last line, one JSON line of
 per-kernel numbers and the card's name and power limit; the last line is
@@ -140,6 +148,15 @@ KERNELS = {
     "lstm_bwd": ("fused_lstm_backward", "lstm_backward_plain",
                  ("reserves", "rw1", "dhs", "dcT")),
 }
+# K3's extra cases: ragged H=300, both sides of the cluster route's
+# boundary (the largest H whose RW slice fits a 16-block cluster on an
+# H100, and the next, which takes the grid route) and the largest H the
+# grid-wide route takes at B=32 (``k3_hidden_sizes`` on an H100: 1056);
+# and the launches of the bitwise-repeat check
+K3_LARGEST_H = 1056
+K3_SHAPES = ((16, 32, 300), (16, 32, 432), (16, 32, 433),
+             (16, 32, K3_LARGEST_H))
+K3_REPEATS = 20
 PALLAS = "deeplearning4j_tpu/ops/lstm_pallas.py"
 REPLACES = {"lstm_fwd": f"{PALLAS}:295", "lstm_fwd_train": f"{PALLAS}:282",
             "lstm2_fwd": f"{PALLAS}:634", "lstm2_fwd_train": f"{PALLAS}:634",
@@ -368,6 +385,15 @@ def kernel_case(kernel, T, B, H, dtype_name, seed=0, plain_reps=2):
            "ms": time_ms(lambda: wrapper(*args), reps=10),
            "plain_ms": time_ms(lambda: plain(*args), reps=plain_reps,
                                rounds=3)}
+    if kernel == "lstm_bwd":
+        # K3 sums in a fixed order: every launch must give the same bits
+        for _ in range(K3_REPEATS):
+            again = wrapper(*args)
+            if not all(torch.equal(a, b) for a, b in zip(again, got)):
+                raise AssertionError(f"lstm_bwd T={T} B={B} H={H} "
+                                     f"{dtype_name}: a repeat differs")
+        row["repeats_bitwise"] = K3_REPEATS
+        row["us_per_step"] = row["ms"] * 1e3 / (T + 1)
     row["bound_ms"], row["bound_by"] = bound(kernel, T, B, H, dtype_name)
     try:
         lib = cudnn_lstm(kernel, c)
@@ -385,16 +411,65 @@ def kernel_case(kernel, T, B, H, dtype_name, seed=0, plain_reps=2):
     return row
 
 
+def k3_hidden_sizes(lo, hi, B=32):
+    """The hidden sizes in [lo, hi] that K3 takes at T=1, batch B, float32
+    on this card (the wrapper raises on the others)."""
+    import torch
+    from deeplearning4j_tpu_torch import ops
+    took = []
+    for H in range(lo, hi + 1):
+        z = [torch.zeros(s, device="cuda") for s in
+             ((1, B, 4 * H), (1, B, H), (1, B, H), (H, 4 * H), (1, B, H),
+              (B, H))]
+        try:
+            ops.fused_lstm_backward(*z)
+            took.append(H)
+        except RuntimeError:
+            pass
+    torch.cuda.synchronize()
+    return took
+
+
+def k3_routes(T, B, H, seed=0):
+    """K3's time at one shape (float32) on each route it can take: clusters
+    of 16 and of 8 blocks, and the grid-wide kernel, timed in turns within
+    this run (ms per launch, the lower of two CUDA-event medians)."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import lstm_cuda
+    c = kernel_inputs(T, B, H, torch.float32, seed)
+    _, tc, cprev, gates, _ = lstm_cuda.lstm_sequence_train_plain(
+        c["gate_in"], c["rw1"], c["h01"], c["c01"])
+    args = [gates, tc, cprev, c["rw1"], c["dhs"], c["dcT"]]
+    names = {16: "cluster16", 8: "cluster8", -1: "grid"}
+    out = {v: [] for v in names.values()}
+    for _ in range(2):
+        for size, name in names.items():
+            out[name].append(time_ms(
+                lambda: lstm_cuda.fused_lstm_backward(*args, cluster_size=size),
+                reps=10))
+    return {k: min(v) for k, v in out.items()}
+
+
 def fmt(row):
     lib = ("n/a" if row["library_ms"] is None
            else f"{row['library_ms']:.4f}")
     if "library_note" in row:
         lib += "*"
-    return (f"{row['kernel']:9s} T={row['T']} B={row['B']:<4d} H={row['H']} "
+    line = (f"{row['kernel']:9s} T={row['T']} B={row['B']:<4d} H={row['H']} "
             f"{row['dtype']:8s} err {row['max_abs_err']:.3g} (tol "
             f"{row['tol']:g})  kernel {row['ms']:.4f} ms  plain "
             f"{row['plain_ms']:.4f} ms  cudnn {lib} ms  bound "
             f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
+    if row["kernel"] == "lstm_bwd":
+        p = row["plan"]
+        line += (f"; {row['us_per_step']:.2f} us per reverse step; route "
+                 f"{p['route']}" + (
+                     f", clusters of {p['cluster_size']} x {p['clusters']}, "
+                     f"{p['rows_per_cluster']} rows each"
+                     if p["route"] == "cluster" else
+                     f", {p['unit_blocks']} x {p['batch_blocks']} blocks")
+                 + f"; repeats bitwise x{row['repeats_bitwise']}")
+    return line
 
 
 def attn_bound(kernel, c, peak="float32"):
@@ -1445,6 +1520,15 @@ def main() -> int:
             for B in batches:
                 rows.append(kernel_case(kernel, 64, B, 256, dtype))
                 print("kernel: " + fmt(rows[-1]) + f" [{card}]", flush=True)
+    for T, B, H in K3_SHAPES:
+        for dtype in ("float32", "bfloat16"):
+            rows.append(kernel_case("lstm_bwd", T, B, H, dtype))
+            print("kernel: " + fmt(rows[-1]) + f" [{card}]", flush=True)
+    k3_sizes = k3_hidden_sizes(K3_LARGEST_H - 8, K3_LARGEST_H + 8)
+    print(f"kernel: lstm_bwd at T=1, B=32, float32 takes H in {k3_sizes} of "
+          f"{K3_LARGEST_H - 8}..{K3_LARGEST_H + 8} [{card}]", flush=True)
+    if K3_LARGEST_H not in k3_sizes:
+        raise AssertionError(f"lstm_bwd no longer takes H={K3_LARGEST_H}")
     for B in (1, 16, 64):
         for T in (64, 512):
             for causal in (False, True):
@@ -1516,7 +1600,12 @@ def main() -> int:
         rows.append(row)
     for kernel, (T, B, counts) in main_shapes.items():
         row = kernel_case(kernel, T, B, 256, "float32", seed=1)
-        print("main-path shape: " + fmt(row) + f" [{card}]", flush=True)
+        if kernel == "lstm_bwd":
+            row["routes_ms"] = k3_routes(T, B, 256, seed=1)
+        print("main-path shape: " + fmt(row) + (
+            "; forced routes " + ", ".join(
+                f"{k} {v:.4f} ms" for k, v in row["routes_ms"].items())
+            if "routes_ms" in row else "") + f" [{card}]", flush=True)
         entry(kernel, row, counts.get(kernel, 0))
     # TinyTransformer: /predict of the held-out windows runs K5 at bucket 16
     # (BH 64, T=64, causal); the 8-slot engines run K8/K9 with C=512, here
@@ -1560,7 +1649,7 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-         "kernel_rows": rows, "slice": res, "tiny": tiny, "wide": wide,
+         "kernel_rows": rows, "k3_hidden_sizes": k3_sizes, "slice": res, "tiny": tiny, "wide": wide,
          "train": train,
          "tiny_train": tiny_train, "kernels": entries}, indent=1))
     print(json.dumps({"kernels": entries}))

@@ -226,7 +226,7 @@ inline void report_plan(const Plan& p, int* out) {
 inline const char* error_text(int code) {
   if (code == ERR_DTYPE) return "unsupported stream dtype (want float32 or bfloat16)";
   if (code == ERR_NO_PLAN)
-    return "no co-resident persistent grid fits this hidden size on this device";
+    return "no launch plan fits this hidden size on this device";
   return cudaGetErrorString((cudaError_t)code);
 }
 

@@ -25,8 +25,12 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 SOURCES = ("lstm_fwd.cu", "lstm2_fwd.cu", "lstm_bwd.cu", "flash_attn_fwd.cu",
            "flash_attn_bwd.cu", "flash_decode.cu")
+# every warning is an error: a call from host-device code to a host-only
+# function, for one, is only a warning, and the kernel built with it wrote
+# nothing on the card
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-Werror", "all-warnings")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LIBS_LOCK = threading.Lock()

@@ -8,7 +8,8 @@ Counterpart of deeplearning4j_tpu/ops/lstm_pallas.py:
 - ``fused_lstm_sequence_train`` (K2, csrc/lstm_fwd.cu, training mode)
   replaces ``_fwd_kernel``: the same, plus the reserve space.
 - ``fused_lstm_backward`` (K3, csrc/lstm_bwd.cu) replaces ``_bwd_kernel``:
-  the reverse-time backward over the reserve space.
+  the reverse-time backward over the reserve space, on thread-block
+  clusters (csrc/lstm_cluster.cuh) where RW's slices fit, else grid-wide.
 - ``fused_lstm2_sequence`` (K4, csrc/lstm2_fwd.cu) replaces
   ``_fwd2_kernel`` with ``save_reserve=False``: two stacked LSTMs on a
   wavefront; ``fused_lstm2_sequence_train`` (K4-train) with
@@ -54,7 +55,7 @@ ENTRIES = {
                   + [_VP, _PLAN]),
     "lstm2_fwd_train": ("lstm2_fwd", [_PTRS] * 3 + [_VP] * 2 + [_INT] * 5
                         + [_VP, _PLAN]),
-    "lstm_bwd": ("lstm_bwd", [_PTRS] * 2 + [_VP] + [_INT] * 5
+    "lstm_bwd": ("lstm_bwd", [_PTRS] * 2 + [_VP] + [_INT] * 6
                  + [_VP, _PLAN]),
 }
 
@@ -62,6 +63,14 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LAST_PLAN: Dict[str, dict] = {}
 _PLAN_KEYS = ("units_per_block", "unit_blocks", "batch_blocks", "threads",
               "k_slice", "shared_bytes")
+# K3 reports its route: the cluster kernel or the grid-wide one
+_BWD_PLAN_KEYS = ("route", "cluster_size", "clusters", "rows_per_cluster",
+                  "units_per_block", "unit_blocks", "batch_blocks", "threads",
+                  "k_slice", "shared_bytes")
+_BWD_ROUTES = {1: "cluster", 0: "grid"}
+# cluster_size of fused_lstm_backward: 0 lets the shape pick the route, 8 or
+# 16 takes the cluster route with clusters of that size, -1 the grid route
+_BWD_CLUSTER_SIZES = (0, 8, 16, -1)
 
 
 def _lib(stem: str) -> ctypes.CDLL:
@@ -72,7 +81,9 @@ def _lib(stem: str) -> ctypes.CDLL:
 def last_plan(name: str) -> dict:
     """Grid of the kernel's latest launch (units per block, blocks across
     units and batch, threads, depth of a staged slice of the contraction,
-    shared bytes)."""
+    shared bytes). K3's also names its route ("cluster" or "grid"), and on
+    the cluster route the cluster size, the clusters and the batch rows
+    each owns."""
     return dict(_LAST_PLAN.get(name, {}))
 
 
@@ -94,12 +105,15 @@ def _launch(entry: str, *args) -> None:
     error it returns, else count the launch."""
     stem = ENTRIES[entry][0]
     lib = _lib(stem)
-    plan = (ctypes.c_int * len(_PLAN_KEYS))()
+    keys = _BWD_PLAN_KEYS if entry == "lstm_bwd" else _PLAN_KEYS
+    plan = (ctypes.c_int * len(keys))()
     rc = getattr(lib, entry)(*args, plan)
     if rc != 0:
         raise RuntimeError(f"{entry} kernel failed: "
                            f"{lib.lstm_error(rc).decode()}")
-    _LAST_PLAN[entry] = dict(zip(_PLAN_KEYS, plan))
+    _LAST_PLAN[entry] = dict(zip(keys, plan))
+    if entry == "lstm_bwd":
+        _LAST_PLAN[entry]["route"] = _BWD_ROUTES[plan[0]]
     ops.count_launch(entry)
 
 
@@ -277,11 +291,18 @@ def fused_lstm_sequence_train(gate_in, rw, h0, c0
     return hs, tc, cprev, gates, cT
 
 
-def fused_lstm_backward(gates, tc, cprev, rw, dhs, dcT
+def fused_lstm_backward(gates, tc, cprev, rw, dhs, dcT, cluster_size=0
                         ) -> Tuple[torch.Tensor, ...]:
     """Reverse-time LSTM backward over the reserve space (K3), as
     ``_bwd_call``: returns dz (T, B, 4H) in the stream dtype and dh0, dc0
-    (B, H) in float32."""
+    (B, H) in float32.
+
+    On the card the kernel picks its route by shape: thread-block clusters
+    exchanging partial products through distributed shared memory where a
+    block's slice of RW fits its shared memory, else the grid-wide kernel.
+    ``cluster_size`` is for tests and measurements: 8 or 16 takes the
+    cluster route with clusters of that size (raising where they do not
+    fit), -1 the grid route; the default 0 lets the shape decide."""
     T, B, G = gates.shape
     H = G // 4
     state = {"tc": tc, "cprev": cprev, "dhs": dhs}
@@ -292,6 +313,9 @@ def fused_lstm_backward(gates, tc, cprev, rw, dhs, dcT
                          f"{tuple(gates.shape)}, rw {tuple(rw.shape)}, "
                          f"{ {k: tuple(v.shape) for k, v in state.items()} }, "
                          f"dcT {tuple(dcT.shape)}")
+    if cluster_size not in _BWD_CLUSTER_SIZES:
+        raise ValueError(f"fused_lstm_backward: cluster_size must be one of "
+                         f"{_BWD_CLUSTER_SIZES}, got {cluster_size}")
     dev, dt = gates.device, gates.dtype
     _check("fused_lstm_backward", dt, dev, gates=gates, rw=rw, dcT=dcT,
            **state)
@@ -301,7 +325,8 @@ def fused_lstm_backward(gates, tc, cprev, rw, dhs, dcT
     dh0, dc0, dc_s = (torch.empty((B, H), dtype=torch.float32, device=dev)
                       for _ in range(3))
     _launch("lstm_bwd", _ptrs([gates, tc, cprev, rw, dhs, dcT]),
-            _ptrs([dz, dh0, dc0]), dc_s.data_ptr(), T, B, H, *_tail(dt, dev))
+            _ptrs([dz, dh0, dc0]), dc_s.data_ptr(), T, B, H, cluster_size,
+            *_tail(dt, dev))
     return dz, dh0, dc0
 
 

@@ -1,9 +1,9 @@
 """The port's CUDA kernels -- K1 and K2 (csrc/lstm_fwd.cu, inference and
-training modes), K4 and K4-train (csrc/lstm2_fwd.cu), K3 (csrc/lstm_bwd.cu),
-K5 (csrc/flash_attn_fwd.cu), K6 and K7 (csrc/flash_attn_bwd.cu), K8 and K9
-(csrc/flash_decode.cu) -- against their plain PyTorch versions on the card,
-and the autograd functions' gradients on the card against the same on the
-CPU.
+training modes), K4 and K4-train (csrc/lstm2_fwd.cu), K3 (csrc/lstm_bwd.cu,
+its cluster route and its grid-wide route), K5 (csrc/flash_attn_fwd.cu), K6
+and K7 (csrc/flash_attn_bwd.cu), K8 and K9 (csrc/flash_decode.cu) --
+against their plain PyTorch versions on the card, and the autograd
+functions' gradients on the card against the same on the CPU.
 
 Marked ``cuda``: they skip without a card, since a CUDA kernel has no CPU
 mode. On a machine with one (and ``nvcc``) they run with the usual
@@ -89,6 +89,83 @@ def test_kernel_matches_plain_on_the_card(kernel, dtype, T, B, H,
         if kernel == "lstm_bwd":
             err /= w.float().abs().max().item()
         assert err <= TOL[dtype]
+
+
+def _k3_check(got, want, dtype):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= TOL[dtype] * w.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B,H,route", [
+    (16, 32, 256, "cluster"),     # a tBPTT chunk of the LSTM recipe
+    (64, 256, 256, "cluster"),    # more rows than the clusters that fit
+    (16, 32, 432, "cluster"),     # the largest H whose RW slice fits
+    (16, 32, 433, "grid"),        # the next H, past the boundary
+    (8, 32, 1056, "grid"),        # the largest H the grid-wide K3 took
+])
+def test_k3_routes_by_shape_and_matches_plain(T, B, H, route, dtype,
+                                              cuda_device):
+    """K3 picks its route by shape (on an H100 the cluster route up to
+    H=432) and matches its plain version on both sides of the boundary."""
+    args = _args("lstm_bwd", _case(T, B, H, dtype, cuda_device))
+    got = ops.fused_lstm_backward(*args)
+    torch.cuda.synchronize()
+    assert lstm_cuda.last_plan("lstm_bwd")["route"] == route
+    _k3_check(got, lstm_cuda.lstm_backward_plain(*args), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster_size", [8, 16, -1])
+@pytest.mark.parametrize("T,B,H", [(7, 1, 40), (5, 70, 300), (6, 33, 100)])
+def test_k3_every_route_matches_plain(T, B, H, cluster_size, cuda_device):
+    """Each route forced on ragged shapes: clusters of 8 and of 16 blocks
+    (H not a multiple of the cluster, a block with no units, B=1 in one
+    cluster) and the grid-wide kernel."""
+    args = _args("lstm_bwd", _case(T, B, H, torch.float32, cuda_device))
+    got = ops.fused_lstm_backward(*args, cluster_size=cluster_size)
+    torch.cuda.synchronize()
+    plan = lstm_cuda.last_plan("lstm_bwd")
+    if cluster_size > 0:
+        assert plan["route"] == "cluster"
+        assert plan["cluster_size"] == cluster_size
+        assert plan["clusters"] * plan["rows_per_cluster"] >= B
+    else:
+        assert plan["route"] == "grid"
+    _k3_check(got, lstm_cuda.lstm_backward_plain(*args), torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_repeats_bit_for_bit(dtype, cuda_device):
+    """K3 sums in a fixed order with no atomics: 20 launches on one input
+    give the same bits (a missing release/acquire around the exchange
+    between blocks would show as a rare differing sum)."""
+    args = _args("lstm_bwd", _case(64, 32, 256, dtype, cuda_device))
+    first = ops.fused_lstm_backward(*args)
+    for _ in range(20):
+        again = ops.fused_lstm_backward(*args)
+        for a, b in zip(again, first):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_k3_takes_the_cluster_route_on_the_recipe_shape(cuda_device):
+    """The LSTM recipe's backward (T=64, B=32, H=256, float32) runs as one
+    launch of the cluster kernel covering every batch row."""
+    args = _args("lstm_bwd", _case(64, 32, 256, torch.float32, cuda_device))
+    before = ops.launch_counts().get("lstm_bwd", 0)
+    ops.fused_lstm_backward(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["lstm_bwd"] == before + 1
+    plan = lstm_cuda.last_plan("lstm_bwd")
+    assert plan["route"] == "cluster"
+    assert plan["cluster_size"] in (8, 16)
+    assert plan["clusters"] * plan["rows_per_cluster"] >= 32
+    assert plan["units_per_block"] * plan["cluster_size"] >= 256
 
 
 @pytest.mark.cuda
