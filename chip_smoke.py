@@ -73,8 +73,11 @@ result line, when any of them or the port's package is missing. Phases:
    from the same initial parameters; (b) the recipe that trained the
    bundled weights (tools/make_pretrained.py: stride-8 windows, batch 32,
    90 epochs of ``fit_scan``) from the seed, with ms per step, tokens per
-   second and held-out top-1 (at least the manifest's 0.2979 - 0.03);
-   (c) the same with truncated BPTT in chunks of 16 for 2 epochs, whose
+   second and held-out top-1 (at least the manifest's 0.2979 - 0.03),
+   then ten more ``fit_scan`` steps timed without and with
+   ``torch.profiler`` (device busy time and idle share, device operations
+   per step, K4-train's and K3's time, the host operations that take the
+   most time); (c) the same with truncated BPTT in chunks of 16 for 2 epochs, whose
    held-out loss must fall.
 7. Training TinyTransformer at its full default width, every attention
    forward through K5 and its backward through K6 and K7: (a) step-1 loss
@@ -89,8 +92,7 @@ result line, when any of them or the port's package is missing. Phases:
    top-1 >= 0.24 after epoch 10, last loss <= 0.25 after epoch 90); (c)
    the trained graph saved with its updater, loaded on the card, one more
    ``fit`` step on both: the same loss and parameters; (d) ten ``fit``
-   steps under ``torch.profiler``: device busy time and idle share,
-   kernels per step and the host operations that take the most time.
+   steps, the same way.
 
 Kernel launch counts are reset right before the LSTM serving phase, before
 each TinyTransformer part (the 256-wide heads' too), before training (b)
@@ -101,9 +103,7 @@ their call or step counts call for (K5 twice per bucketed forward, K8 or
 K9 twice per engine step; K5, K6 and K7 twice each per TinyTransformer
 train step, K5 alone for ``score`` and ``evaluate``), and nothing else.
 
-After the phases each kernel is timed again at its main path's shape (K3
-also on each of its routes in turn: clusters of 16 and of 8 blocks, and
-the grid-wide kernel alone), and
+After the phases each kernel is timed again at its main path's shape, and
 K5-K9 at the wide-heads phase's shapes (K5-K7 also at Dh 128 beside them,
 the split's cost). Prints, before the last line, one JSON line of
 per-kernel numbers and the card's name and power limit; the last line is
@@ -428,26 +428,6 @@ def k3_hidden_sizes(lo, hi, B=32):
             pass
     torch.cuda.synchronize()
     return took
-
-
-def k3_routes(T, B, H, seed=0):
-    """K3's time at one shape (float32) on each route it can take: clusters
-    of 16 and of 8 blocks, and the grid-wide kernel, timed in turns within
-    this run (ms per launch, the lower of two CUDA-event medians)."""
-    import torch
-    from deeplearning4j_tpu_torch.ops import lstm_cuda
-    c = kernel_inputs(T, B, H, torch.float32, seed)
-    _, tc, cprev, gates, _ = lstm_cuda.lstm_sequence_train_plain(
-        c["gate_in"], c["rw1"], c["h01"], c["c01"])
-    args = [gates, tc, cprev, c["rw1"], c["dhs"], c["dcT"]]
-    names = {16: "cluster16", 8: "cluster8", -1: "grid"}
-    out = {v: [] for v in names.values()}
-    for _ in range(2):
-        for size, name in names.items():
-            out[name].append(time_ms(
-                lambda: lstm_cuda.fused_lstm_backward(*args, cluster_size=size),
-                reps=10))
-    return {k: min(v) for k, v in out.items()}
 
 
 def fmt(row):
@@ -1142,6 +1122,11 @@ def train_phase(card):
                              f"lstm2_fwd_train={n} lstm_bwd={2 * n}")
     if not top1 >= HELD_OUT_TOP1 - RECIPE_SLACK:
         raise AssertionError(f"recipe held-out top-1 {top1}")
+    # where a recipe step's time goes: ten more steps, as fit_scan runs them
+    tags = ("lstm_bwd", "lstm2_fwd")
+    prof = res["recipe_profile"] = profile_steps(
+        lambda: net.fit_scan(xs[:10], ys[:10]), 10, tags)
+    print("train (b): " + fmt_profile(prof, tags) + f" [{card}]", flush=True)
 
     # (c) truncated BPTT in chunks of 16 through the single-layer kernels
     conf = zoo.conf()
@@ -1434,40 +1419,40 @@ def tiny_train_phase(card):
         raise AssertionError("the resumed graph's step differs")
 
     # (d) where a train step's time goes
-    prof = profile_steps(net, x0, y0)
+    prof = profile_steps(lambda: [net.fit(x0, y0) for _ in range(10)], 10,
+                         ("flash_attn",))
     res["profile"] = prof
-    busy = prof["device_busy_ms_per_step"]
-    print(f"tiny train (d): torch.profiler over {prof['steps']} fit steps: "
-          f"{prof['wall_ms_per_step']:.3f} ms/step profiled, device busy "
-          + ("not measured (no device events)" if busy is None else
-             f"{busy:.3f} ms/step (idle {prof['device_idle_share']:.1%}), "
-             f"{prof['kernels_per_step']:.0f} kernels/step; attention "
-             f"kernels {prof['attention_ms_per_step']:.4f} ms/step")
-          + f"; host self time per step, top: {prof['top_host_ops'][:5]} "
-          f"[{card}]", flush=True)
+    print("tiny train (d): " + fmt_profile(prof, ("flash_attn",))
+          + f" [{card}]", flush=True)
     return res
 
 
-def profile_steps(net, x, y, steps=10):
-    """``steps`` fit steps (after one unprofiled) under torch.profiler: the
-    profiled wall ms per step, the device's busy ms per step (the sum of
-    its kernels' times: one stream, so they do not overlap) and idle
-    share, kernels per step, the attention kernels' ms per step, and the
-    host operations with the most self time per step."""
+def profile_steps(run, steps, tags):
+    """``run()`` does ``steps`` fit steps; it is called once to warm up
+    (timed, unprofiled) and once under torch.profiler. Returns the wall ms
+    per step of both calls, the device's busy ms per step (the sum of its
+    kernels' times: one stream, so they do not overlap) and idle share
+    against each wall time, device operations per step, the ms per step of
+    the kernels whose names hold each of ``tags``, the kernels with the
+    most device time per step, and the host operations with the most self
+    time per step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    net.fit(x, y)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    plain_wall = (time.perf_counter() - t0) / steps * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            net.fit(x, y)
+        run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / steps * 1e3
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     out = {"steps": steps, "wall_ms_per_step": wall,
+           "unprofiled_wall_ms_per_step": plain_wall,
            "device_busy_ms_per_step": None, "top_host_ops": [
                [a.key, a.count // steps,
                 round(a.self_cpu_time_total / 1e3 / steps, 4)]
@@ -1475,13 +1460,42 @@ def profile_steps(net, x, y, steps=10):
                                key=lambda a: a.self_cpu_time_total,
                                reverse=True)[:12]]}
     if kernels:
-        busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / steps
-        attn = sum(e.time_range.elapsed_us() for e in kernels
-                   if "flash_attn" in e.name) / 1e3 / steps
-        out.update(device_busy_ms_per_step=busy, attention_ms_per_step=attn,
-                   device_idle_share=1 - busy / wall,
-                   kernels_per_step=len(kernels) / steps)
+        def ms(es):
+            return sum(e.time_range.elapsed_us() for e in es) / 1e3 / steps
+        busy = ms(kernels)
+        by_name = {}
+        for e in kernels:
+            by_name.setdefault(e.name, []).append(e)
+        out.update(
+            device_busy_ms_per_step=busy, device_idle_share=1 - busy / wall,
+            device_idle_share_unprofiled=1 - busy / plain_wall,
+            kernels_per_step=len(kernels) / steps,
+            tagged_ms_per_step={t: ms([e for e in kernels if t in e.name])
+                                for t in tags},
+            top_device_kernels=[
+                [name[:80], len(es) / steps, round(ms(es), 4)]
+                for name, es in sorted(by_name.items(),
+                                       key=lambda kv: -ms(kv[1]))[:8]])
     return out
+
+
+def fmt_profile(prof, tags):
+    """One line of a profile_steps result."""
+    busy = prof["device_busy_ms_per_step"]
+    return (f"torch.profiler over {prof['steps']} fit steps: "
+            f"{prof['wall_ms_per_step']:.3f} ms/step profiled, "
+            f"{prof['unprofiled_wall_ms_per_step']:.3f} unprofiled; device "
+            "busy " + ("not measured (no device events)" if busy is None else
+                       f"{busy:.3f} ms/step (idle "
+                       f"{prof['device_idle_share']:.1%} profiled, "
+                       f"{prof['device_idle_share_unprofiled']:.1%} "
+                       f"unprofiled), {prof['kernels_per_step']:.0f} device "
+                       "operations/step; " + ", ".join(
+                           f"{t} kernels {prof['tagged_ms_per_step'][t]:.4f}"
+                           " ms/step" for t in tags)
+                       + f"; top device kernels "
+                       f"{prof['top_device_kernels'][:4]}")
+            + f"; host self time per step, top: {prof['top_host_ops'][:5]}")
 
 
 def main() -> int:
@@ -1600,12 +1614,7 @@ def main() -> int:
         rows.append(row)
     for kernel, (T, B, counts) in main_shapes.items():
         row = kernel_case(kernel, T, B, 256, "float32", seed=1)
-        if kernel == "lstm_bwd":
-            row["routes_ms"] = k3_routes(T, B, 256, seed=1)
-        print("main-path shape: " + fmt(row) + (
-            "; forced routes " + ", ".join(
-                f"{k} {v:.4f} ms" for k, v in row["routes_ms"].items())
-            if "routes_ms" in row else "") + f" [{card}]", flush=True)
+        print("main-path shape: " + fmt(row) + f" [{card}]", flush=True)
         entry(kernel, row, counts.get(kernel, 0))
     # TinyTransformer: /predict of the held-out windows runs K5 at bucket 16
     # (BH 64, T=64, causal); the 8-slot engines run K8/K9 with C=512, here

@@ -19,13 +19,14 @@
 // Two routes, chosen by shape in lstm_bwd below (never on an error):
 //
 // The cluster route (lstm_bwd_cluster_kernel), wherever a block's slice of
-// RW fits its shared memory beside its partial products: clusters of cs = 8
-// or 16 blocks, each cluster owning `rows` batch rows, every block of it
-// owning u = ceil(H / cs) hidden units and so the 4u dz columns it computes
-// itself. A block keeps all H rows of RW at its 4u columns in shared memory
-// (float32, which holds bfloat16 weights exactly) and each step forms its
-// partial product dz_t[:, own cols] @ RW[:, own cols]^T, (rows, H), from
-// its own dz, which never leaves shared memory. A reduce-scatter through
+// RW fits its shared memory beside its partial products: clusters of cs = 16
+// blocks (8 where the device runs no 16-block cluster), each cluster owning
+// `rows` batch rows, every block of it owning u = ceil(H / cs) hidden units
+// and so the 4u dz columns it computes itself. A block keeps all H rows of
+// RW at its 4u columns in shared memory (float32, which holds bfloat16
+// weights exactly) and each step forms its partial product
+// dz_t[:, own cols] @ RW[:, own cols]^T, (rows, H), from its own dz, which
+// never leaves shared memory. A reduce-scatter through
 // distributed shared memory (lstm_cluster.cuh) hands each block the cs
 // partials of its units, read from the peers after one cluster barrier and
 // summed in rank order: no grid barrier, no cooperative launch, no
@@ -304,22 +305,21 @@ struct ClusterPlan {
   size_t smem;
 };
 
-// Pick the cluster size (want_cs, or the cheaper of 16 and 8) and the rows
-// per cluster: enough that the clusters which fit on the device at once
-// cover B, rounded up to whole product tiles (fewer rows would only idle
-// lanes and put more clusters on the SMs), and no more than a block's
-// register pairs and shared memory hold. *ok is false when no cluster fits
-// this H (the grid route's shapes).
+// Clusters of 16 blocks: on an H100 they beat clusters of 8 at the LSTM
+// recipe's shape (half the columns a block, for the same exchange), so 8,
+// the portable size, runs only where the device cannot co-schedule a
+// 16-block cluster of this kernel. Rows per cluster: enough that the
+// clusters which fit on the device at once cover B, rounded up to whole
+// product tiles (fewer rows would only idle lanes and put more clusters on
+// the SMs), and no more than a block's register pairs and shared memory
+// hold. *ok is false when no cluster fits this H (the grid route's shapes).
 template <typename T>
-static int search_cluster_plan(int dev, int B, int H, int want_cs, ClusterPlan* out,
-                               bool* ok) {
+static int search_cluster_plan(int dev, int B, int H, ClusterPlan* out, bool* ok) {
   *ok = false;
   int max_smem;
   cudaError_t e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return (int)e;
-  long best_cost = -1;
   for (int cs = 16; cs >= 8; cs /= 2) {
-    if (want_cs && cs != want_cs) continue;
     const int u = (H + cs - 1) / cs;
     int rmax = std::min(B, PAIRS * CT / u);
     int rp = (rmax + RT - 1) / RT * RT;
@@ -331,38 +331,31 @@ static int search_cluster_plan(int dev, int B, int H, int want_cs, ClusterPlan* 
     if (n < 1) continue;
     const int rows = std::min(rmax, ((B + n - 1) / n + RT - 1) / RT * RT);
     rp = (rows + RT - 1) / RT * RT;
-    // issue slots per warp per step: the product's tiles (per column of
-    // the block, 32 FMAs and 3 loads), then the sums of the partials
-    const long tiles = (long)(rows + RT - 1) / RT * ((H + KW - 1) / KW);
-    const long cost = (tiles + CT / 32 - 1) / (CT / 32) * 35 * u
-                      + (long)(rows * u + CT - 1) / CT * cs;
-    if (best_cost < 0 || cost < best_cost) {
-      best_cost = cost;
-      *out = ClusterPlan{cs, u, rows, rp, (B + rows - 1) / rows, cluster_smem(H, cs, rp)};
-      *ok = true;
-    }
+    *out = ClusterPlan{cs, u, rows, rp, (B + rows - 1) / rows, cluster_smem(H, cs, rp)};
+    *ok = true;
+    return 0;
   }
   return 0;
 }
 
-// The plan of (device, B, H, want_cs), searched once and kept: the search
-// asks the CUDA driver for occupancies, which costs more host time than a
-// training step can spare. Sets the kernel's attributes for the plan on
-// every call, since another shape's plan may have set smaller ones.
+// The plan of (device, B, H), searched once and kept: the search asks the
+// CUDA driver for occupancies, which costs more host time than a training
+// step can spare. Sets the kernel's attributes for the plan on every call,
+// since another shape's plan may have set smaller ones.
 template <typename T>
-static int plan_cluster(int B, int H, int want_cs, ClusterPlan* out, bool* ok) {
+static int plan_cluster(int B, int H, ClusterPlan* out, bool* ok) {
   static std::mutex mu;
-  static std::map<std::tuple<int, int, int, int>, std::pair<bool, ClusterPlan>> plans;
+  static std::map<std::tuple<int, int, int>, std::pair<bool, ClusterPlan>> plans;
   int dev;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
   std::lock_guard<std::mutex> lock(mu);
-  const auto key = std::make_tuple(dev, B, H, want_cs);
+  const auto key = std::make_tuple(dev, B, H);
   auto it = plans.find(key);
   if (it == plans.end()) {
     ClusterPlan c{};
     bool found = false;
-    const int rc = search_cluster_plan<T>(dev, B, H, want_cs, &c, &found);
+    const int rc = search_cluster_plan<T>(dev, B, H, &c, &found);
     if (rc) return rc;
     it = plans.emplace(key, std::make_pair(found, c)).first;
   }
@@ -496,31 +489,28 @@ enum { PLAN_LEN = 10 };
 
 template <typename T>
 static int launch(void* const* in, void* const* out, void* dc_s, int Tn, int B, int H,
-                  int cluster_size, cudaStream_t stream, int* plan_out) {
+                  cudaStream_t stream, int* plan_out) {
   const T *gates = (const T*)in[0], *tcs = (const T*)in[1], *cprev = (const T*)in[2],
           *rw = (const T*)in[3], *dhs = (const T*)in[4], *dcT = (const T*)in[5];
   T* dz = (T*)out[0];
   float *dh0 = (float*)out[1], *dc0 = (float*)out[2], *dcs = (float*)dc_s;
-  if (cluster_size >= 0) {
-    ClusterPlan c;
-    bool ok;
-    int e = plan_cluster<T>(B, H, cluster_size, &c, &ok);
-    if (e) return e;
-    if (ok) {
-      if (plan_out) {
-        const int v[PLAN_LEN] = {1, c.cs, c.clusters, c.rows, c.u, c.cs, c.clusters, CT, 0,
-                                 (int)c.smem};
-        for (int k = 0; k < PLAN_LEN; ++k) plan_out[k] = v[k];
-      }
-      return launch_clusters(lstm_bwd_cluster_kernel<T>, c.cs, c.clusters, CT, c.smem, stream,
-                             gates, tcs, cprev, rw, dhs, dcT, dz, dh0, dc0, Tn, B, H, c.u,
-                             c.rows, c.rp);
+  ClusterPlan c;
+  bool ok;
+  int e = plan_cluster<T>(B, H, &c, &ok);
+  if (e) return e;
+  if (ok) {
+    if (plan_out) {
+      const int v[PLAN_LEN] = {1, c.cs, c.clusters, c.rows, c.u, c.cs, c.clusters, CT, 0,
+                               (int)c.smem};
+      for (int k = 0; k < PLAN_LEN; ++k) plan_out[k] = v[k];
     }
-    if (cluster_size > 0) return ERR_NO_PLAN;  // that cluster size was asked for
+    return launch_clusters(lstm_bwd_cluster_kernel<T>, c.cs, c.clusters, CT, c.smem, stream,
+                           gates, tcs, cprev, rw, dhs, dcT, dz, dh0, dc0, Tn, B, H, c.u, c.rows,
+                           c.rp);
   }
   const void* fn = (const void*)lstm_bwd_grid_kernel<T>;
   Plan p;
-  int e = make_plan(fn, B, H, 4 * H, 1, 1, true, &p);
+  e = make_plan(fn, B, H, 4 * H, 1, 1, true, &p);
   if (e) return e;
   if (plan_out) {
     const int v[PLAN_LEN] = {0,     0,     0,        (B + p.nbb - 1) / p.nbb,
@@ -540,22 +530,16 @@ static int launch(void* const* in, void* const* out, void* dc_s, int Tn, int B, 
 // in: gates (T, B, 4H), tanh(c), c_prev (T, B, H), rw (H, 4H), dhs (T, B, H),
 // dcT (B, H), all in the stream dtype; out: dz (T, B, 4H) in the stream
 // dtype, dh0 and dc0 (B, H) float32. Scratch: dc (B, H) float32, used by the
-// grid route. cluster_size: 0 picks the route by shape; 8 or 16 takes the
-// cluster route with clusters of that size (ERR_NO_PLAN where they do not
-// fit); -1 takes the grid route. Returns 0, a cudaError_t, or a negative
+// grid route. The route is the cluster one wherever a cluster plan fits
+// this H, else the grid one. Returns 0, a cudaError_t, or a negative
 // lstm::Err; plan_out (PLAN_LEN ints) as above.
 extern "C" int lstm_bwd(void* const* in, void* const* out, void* dc_scratch, int T, int B,
-                        int H, int cluster_size, int dtype, int device, void* stream,
-                        int* plan_out) {
+                        int H, int dtype, int device, void* stream, int* plan_out) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  if (cluster_size != 0 && cluster_size != 8 && cluster_size != 16 && cluster_size != -1)
-    return ERR_NO_PLAN;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == F32)
-    return launch<float>(in, out, dc_scratch, T, B, H, cluster_size, s, plan_out);
-  if (dtype == BF16)
-    return launch<__nv_bfloat16>(in, out, dc_scratch, T, B, H, cluster_size, s, plan_out);
+  if (dtype == F32) return launch<float>(in, out, dc_scratch, T, B, H, s, plan_out);
+  if (dtype == BF16) return launch<__nv_bfloat16>(in, out, dc_scratch, T, B, H, s, plan_out);
   return ERR_DTYPE;
 }
 

@@ -45,37 +45,36 @@ from deeplearning4j_tpu_torch.ops import build
 
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
 _PTRS, _PLAN = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
-# entry point -> (source stem, argtypes); every entry returns an int error
-# code and ends with (device, stream, plan_out)
+_PLAN_KEYS = ("units_per_block", "unit_blocks", "batch_blocks", "threads",
+              "k_slice", "shared_bytes")
+# K3 also reports its route (the cluster kernel or the grid-wide one) and its
+# cluster plan
+_BWD_PLAN_KEYS = ("route", "cluster_size", "clusters", "rows_per_cluster"
+                  ) + _PLAN_KEYS
+_BWD_NAMES = {"route": {1: "cluster", 0: "grid"}}
+# entry point -> (source stem, argtypes, keys of its plan, names of coded
+# plan values); every entry returns an int error code and ends with (device,
+# stream, plan_out)
 ENTRIES = {
-    "lstm_fwd": ("lstm_fwd", [_VP] * 7 + [_INT] * 5 + [_VP, _PLAN]),
+    "lstm_fwd": ("lstm_fwd", [_VP] * 7 + [_INT] * 5 + [_VP, _PLAN],
+                 _PLAN_KEYS, {}),
     "lstm_fwd_train": ("lstm_fwd", [_VP] * 7 + [_PTRS] + [_INT] * 5
-                       + [_VP, _PLAN]),
+                       + [_VP, _PLAN], _PLAN_KEYS, {}),
     "lstm2_fwd": ("lstm2_fwd", [_PTRS] * 2 + [_VP] * 3 + [_INT] * 5
-                  + [_VP, _PLAN]),
+                  + [_VP, _PLAN], _PLAN_KEYS, {}),
     "lstm2_fwd_train": ("lstm2_fwd", [_PTRS] * 3 + [_VP] * 2 + [_INT] * 5
-                        + [_VP, _PLAN]),
-    "lstm_bwd": ("lstm_bwd", [_PTRS] * 2 + [_VP] + [_INT] * 6
-                 + [_VP, _PLAN]),
+                        + [_VP, _PLAN], _PLAN_KEYS, {}),
+    "lstm_bwd": ("lstm_bwd", [_PTRS] * 2 + [_VP] + [_INT] * 5 + [_VP, _PLAN],
+                 _BWD_PLAN_KEYS, _BWD_NAMES),
 }
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LAST_PLAN: Dict[str, dict] = {}
-_PLAN_KEYS = ("units_per_block", "unit_blocks", "batch_blocks", "threads",
-              "k_slice", "shared_bytes")
-# K3 reports its route: the cluster kernel or the grid-wide one
-_BWD_PLAN_KEYS = ("route", "cluster_size", "clusters", "rows_per_cluster",
-                  "units_per_block", "unit_blocks", "batch_blocks", "threads",
-                  "k_slice", "shared_bytes")
-_BWD_ROUTES = {1: "cluster", 0: "grid"}
-# cluster_size of fused_lstm_backward: 0 lets the shape pick the route, 8 or
-# 16 takes the cluster route with clusters of that size, -1 the grid route
-_BWD_CLUSTER_SIZES = (0, 8, 16, -1)
 
 
 def _lib(stem: str) -> ctypes.CDLL:
-    return build.load(stem, {e: a for e, (src, a) in ENTRIES.items()
-                             if src == stem}, "lstm_error")
+    return build.load(stem, {e: v[1] for e, v in ENTRIES.items()
+                             if v[0] == stem}, "lstm_error")
 
 
 def last_plan(name: str) -> dict:
@@ -103,17 +102,15 @@ def _check(name, dtype, device, **tensors):
 def _launch(entry: str, *args) -> None:
     """Launch one kernel entry point on the current stream; raise on any
     error it returns, else count the launch."""
-    stem = ENTRIES[entry][0]
+    stem, _, keys, names = ENTRIES[entry]
     lib = _lib(stem)
-    keys = _BWD_PLAN_KEYS if entry == "lstm_bwd" else _PLAN_KEYS
     plan = (ctypes.c_int * len(keys))()
     rc = getattr(lib, entry)(*args, plan)
     if rc != 0:
         raise RuntimeError(f"{entry} kernel failed: "
                            f"{lib.lstm_error(rc).decode()}")
-    _LAST_PLAN[entry] = dict(zip(keys, plan))
-    if entry == "lstm_bwd":
-        _LAST_PLAN[entry]["route"] = _BWD_ROUTES[plan[0]]
+    _LAST_PLAN[entry] = {k: names[k][v] if k in names else v
+                         for k, v in zip(keys, plan)}
     ops.count_launch(entry)
 
 
@@ -291,7 +288,7 @@ def fused_lstm_sequence_train(gate_in, rw, h0, c0
     return hs, tc, cprev, gates, cT
 
 
-def fused_lstm_backward(gates, tc, cprev, rw, dhs, dcT, cluster_size=0
+def fused_lstm_backward(gates, tc, cprev, rw, dhs, dcT
                         ) -> Tuple[torch.Tensor, ...]:
     """Reverse-time LSTM backward over the reserve space (K3), as
     ``_bwd_call``: returns dz (T, B, 4H) in the stream dtype and dh0, dc0
@@ -299,10 +296,8 @@ def fused_lstm_backward(gates, tc, cprev, rw, dhs, dcT, cluster_size=0
 
     On the card the kernel picks its route by shape: thread-block clusters
     exchanging partial products through distributed shared memory where a
-    block's slice of RW fits its shared memory, else the grid-wide kernel.
-    ``cluster_size`` is for tests and measurements: 8 or 16 takes the
-    cluster route with clusters of that size (raising where they do not
-    fit), -1 the grid route; the default 0 lets the shape decide."""
+    block's slice of RW fits its shared memory, else the grid-wide kernel;
+    ``last_plan("lstm_bwd")`` names the route taken."""
     T, B, G = gates.shape
     H = G // 4
     state = {"tc": tc, "cprev": cprev, "dhs": dhs}
@@ -313,9 +308,6 @@ def fused_lstm_backward(gates, tc, cprev, rw, dhs, dcT, cluster_size=0
                          f"{tuple(gates.shape)}, rw {tuple(rw.shape)}, "
                          f"{ {k: tuple(v.shape) for k, v in state.items()} }, "
                          f"dcT {tuple(dcT.shape)}")
-    if cluster_size not in _BWD_CLUSTER_SIZES:
-        raise ValueError(f"fused_lstm_backward: cluster_size must be one of "
-                         f"{_BWD_CLUSTER_SIZES}, got {cluster_size}")
     dev, dt = gates.device, gates.dtype
     _check("fused_lstm_backward", dt, dev, gates=gates, rw=rw, dcT=dcT,
            **state)
@@ -325,8 +317,7 @@ def fused_lstm_backward(gates, tc, cprev, rw, dhs, dcT, cluster_size=0
     dh0, dc0, dc_s = (torch.empty((B, H), dtype=torch.float32, device=dev)
                       for _ in range(3))
     _launch("lstm_bwd", _ptrs([gates, tc, cprev, rw, dhs, dcT]),
-            _ptrs([dz, dh0, dc0]), dc_s.data_ptr(), T, B, H, cluster_size,
-            *_tail(dt, dev))
+            _ptrs([dz, dh0, dc0]), dc_s.data_ptr(), T, B, H, *_tail(dt, dev))
     return dz, dh0, dc0
 
 

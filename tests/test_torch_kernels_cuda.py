@@ -119,22 +119,21 @@ def test_k3_routes_by_shape_and_matches_plain(T, B, H, route, dtype,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cluster_size", [8, 16, -1])
-@pytest.mark.parametrize("T,B,H", [(7, 1, 40), (5, 70, 300), (6, 33, 100)])
-def test_k3_every_route_matches_plain(T, B, H, cluster_size, cuda_device):
-    """Each route forced on ragged shapes: clusters of 8 and of 16 blocks
-    (H not a multiple of the cluster, a block with no units, B=1 in one
-    cluster) and the grid-wide kernel."""
+@pytest.mark.parametrize("T,B,H,route", [
+    (7, 1, 40, "cluster"), (5, 70, 300, "cluster"), (6, 33, 100, "cluster"),
+    (5, 3, 500, "grid"), (6, 33, 700, "grid")])
+def test_k3_every_route_matches_plain(T, B, H, route, cuda_device):
+    """Each route on ragged shapes: the cluster route with H not a multiple
+    of the cluster, a block with no units, B=1 in one cluster, and rows not
+    a multiple of the clusters; the grid-wide kernel with H not a multiple
+    of its blocks' units."""
     args = _args("lstm_bwd", _case(T, B, H, torch.float32, cuda_device))
-    got = ops.fused_lstm_backward(*args, cluster_size=cluster_size)
+    got = ops.fused_lstm_backward(*args)
     torch.cuda.synchronize()
     plan = lstm_cuda.last_plan("lstm_bwd")
-    if cluster_size > 0:
-        assert plan["route"] == "cluster"
-        assert plan["cluster_size"] == cluster_size
+    assert plan["route"] == route
+    if route == "cluster":
         assert plan["clusters"] * plan["rows_per_cluster"] >= B
-    else:
-        assert plan["route"] == "grid"
     _k3_check(got, lstm_cuda.lstm_backward_plain(*args), torch.float32)
 
 

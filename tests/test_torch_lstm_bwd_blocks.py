@@ -132,20 +132,38 @@ def test_cluster_decomposition_matches_plain_and_jax(cs, H, B, dtype):
         assert _rel_err(g, j) <= TOL[dtype]
 
 
-@pytest.mark.parametrize("cluster_size", [0, 8, 16, -1])
-def test_cpu_tensors_take_the_plain_version_whatever_the_route(cluster_size):
-    """On CPU tensors the wrapper runs the plain version: the route asked
-    for changes nothing and launches nothing."""
-    args, plain, _ = _references(3, 40, torch.float32)
+@pytest.mark.parametrize("B,H", [(3, 40), (1, 256), (32, 432), (2, 433)])
+def test_cpu_tensors_take_the_plain_version_whatever_the_route(B, H):
+    """On CPU tensors the wrapper runs the plain version and launches
+    nothing, whichever route the shape would take on the card (on an H100
+    the cluster route up to H=432, the grid-wide one past it)."""
+    args = _inputs(B, H, torch.float32)
     ops.reset_launch_counts()
-    got = ops.fused_lstm_backward(*args, cluster_size=cluster_size)
+    got = ops.fused_lstm_backward(*args)
     assert ops.launch_counts() == {}
-    for g, p in zip(got, plain):
+    for g, p in zip(got, lstm_cuda.lstm_backward_plain(*args)):
         assert torch.equal(g, p)
 
 
-@pytest.mark.parametrize("cluster_size", [1, 4, 32, -2])
-def test_backward_refuses_cluster_sizes_the_kernel_has_not(cluster_size):
-    args, _, _ = _references(3, 40, torch.float32)
-    with pytest.raises(ValueError, match="cluster_size"):
-        ops.fused_lstm_backward(*args, cluster_size=cluster_size)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("B,rows", [(32, 8), (3, 1)])
+def test_clusters_own_their_rows_alone(B, rows, dtype):
+    """Clusters share nothing: each owns `rows` batch rows, and running the
+    model cluster by cluster gives what it gives over the whole batch.
+    Tolerance: float32 1e-6, bfloat16 one ulp of the largest value (2^-8)
+    relative to it -- the rows' arithmetic is the same, but the CPU's
+    matrix product may block a batch of another size differently, which
+    moves the last bit of a float32 sum, and in bfloat16 a dz on a rounding
+    boundary by one ulp."""
+    args = _inputs(B, 40, dtype)
+    whole = cluster_backward_model(*args, cs=16)
+    parts = [cluster_backward_model(
+        *[a[:, r:r + rows] if a.dim() == 3 else a for a in args[:5]],
+        args[5][r:r + rows], cs=16) for r in range(0, B, rows)]
+    split = (torch.cat([p[0] for p in parts], dim=1),
+             torch.cat([p[1] for p in parts]),
+             torch.cat([p[2] for p in parts]))
+    tol = 1e-6 if dtype == torch.float32 else 2.0 ** -8
+    for g, w in zip(split, whole):
+        assert _rel_err(g, w) <= tol
