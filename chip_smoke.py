@@ -19,8 +19,14 @@ result line, when any of them or the port's package is missing. Phases:
    B=32, which the run also checks; every K3 case runs 20 more times and
    must repeat bit for bit, and its line shows the plan (route, cluster
    size, clusters, rows per cluster) and us per reverse step (ms / (T +
-   1)). Tolerance f32 1e-4, bf16 3e-2, on every output (K3's relative to
-   the largest magnitude of the plain version's). The attention family in
+   1)). K4 and K4-train also at (16, 32, 256) and (16, 32, 257) -- on an
+   H100 the largest H of their cluster route and the smallest of their
+   grid-wide route -- and (16, 32, 581), the largest H they take at B=16
+   and 32, which ``k4_hidden_sizes`` checks for both modes; every K4 case
+   runs 20 more times and must repeat bit for bit, and its line shows the
+   plan and us per iteration (ms / (T + 1)). Tolerance f32 1e-4, bf16
+   3e-2, on every output (K3's relative to the largest magnitude of the
+   plain version's). The attention family in
    float32, tolerance 1e-4: K5 (flash attention forward, o and lse) at
    B in {1, 16, 64} x 4 heads, T in {64, 512}, Dh=32, causal and not; K6
    (dq, and the delta it writes for K7) and K7 (dk, dv), the flash
@@ -151,12 +157,20 @@ KERNELS = {
 # K3's extra cases: ragged H=300, both sides of the cluster route's
 # boundary (the largest H whose RW slice fits a 16-block cluster on an
 # H100, and the next, which takes the grid route) and the largest H the
-# grid-wide route takes at B=32 (``k3_hidden_sizes`` on an H100: 1056);
-# and the launches of the bitwise-repeat check
+# grid-wide route takes at B=32 (``k3_hidden_sizes`` on an H100: 1056)
 K3_LARGEST_H = 1056
 K3_SHAPES = ((16, 32, 300), (16, 32, 432), (16, 32, 433),
              (16, 32, K3_LARGEST_H))
-K3_REPEATS = 20
+# K4's and K4-train's: both sides of the cluster route's boundary (the
+# largest H whose weight columns fit a 16-block cluster on an H100, and
+# the next) and the largest H the grid-wide route takes at B=16 and 32
+# (``k4_hidden_sizes`` on an H100: 581, the same before and after the
+# cluster route came)
+K4_LARGEST_H = 581
+K4_SHAPES = ((16, 32, 256), (16, 32, 257), (16, 32, K4_LARGEST_H))
+# the kernels that sum in a fixed order (no atomics), and the launches of
+# their bitwise-repeat check
+REPEATED, REPEATS = ("lstm_bwd", "lstm2_fwd", "lstm2_fwd_train"), 20
 PALLAS = "deeplearning4j_tpu/ops/lstm_pallas.py"
 REPLACES = {"lstm_fwd": f"{PALLAS}:295", "lstm_fwd_train": f"{PALLAS}:282",
             "lstm2_fwd": f"{PALLAS}:634", "lstm2_fwd_train": f"{PALLAS}:634",
@@ -385,14 +399,14 @@ def kernel_case(kernel, T, B, H, dtype_name, seed=0, plain_reps=2):
            "ms": time_ms(lambda: wrapper(*args), reps=10),
            "plain_ms": time_ms(lambda: plain(*args), reps=plain_reps,
                                rounds=3)}
-    if kernel == "lstm_bwd":
-        # K3 sums in a fixed order: every launch must give the same bits
-        for _ in range(K3_REPEATS):
+    if kernel in REPEATED:      # every launch must give the same bits
+        for _ in range(REPEATS):
             again = wrapper(*args)
             if not all(torch.equal(a, b) for a, b in zip(again, got)):
-                raise AssertionError(f"lstm_bwd T={T} B={B} H={H} "
+                raise AssertionError(f"{kernel} T={T} B={B} H={H} "
                                      f"{dtype_name}: a repeat differs")
-        row["repeats_bitwise"] = K3_REPEATS
+        row["repeats_bitwise"] = REPEATS
+        # per reverse step (K3) or wavefront iteration (K4): T + 1 of each
         row["us_per_step"] = row["ms"] * 1e3 / (T + 1)
     row["bound_ms"], row["bound_by"] = bound(kernel, T, B, H, dtype_name)
     try:
@@ -411,22 +425,42 @@ def kernel_case(kernel, T, B, H, dtype_name, seed=0, plain_reps=2):
     return row
 
 
-def k3_hidden_sizes(lo, hi, B=32):
-    """The hidden sizes in [lo, hi] that K3 takes at T=1, batch B, float32
-    on this card (the wrapper raises on the others)."""
+def hidden_sizes(wrapper, shapes, lo, hi):
+    """The hidden sizes H in [lo, hi] that ``wrapper`` takes on float32
+    zeros of ``shapes(H)`` on this card (the kernel refuses the others)."""
     import torch
-    from deeplearning4j_tpu_torch import ops
     took = []
     for H in range(lo, hi + 1):
-        z = [torch.zeros(s, device="cuda") for s in
-             ((1, B, 4 * H), (1, B, H), (1, B, H), (H, 4 * H), (1, B, H),
-              (B, H))]
         try:
-            ops.fused_lstm_backward(*z)
+            wrapper(*[torch.zeros(s, device="cuda") for s in shapes(H)])
             took.append(H)
-        except RuntimeError:
-            pass
+        except RuntimeError as e:   # the kernel refused this H
+            if "kernel failed" not in str(e):
+                raise
     torch.cuda.synchronize()
+    return took
+
+
+def k3_hidden_sizes(lo, hi, B=32):
+    """The hidden sizes in [lo, hi] that K3 takes at T=1, batch B."""
+    from deeplearning4j_tpu_torch import ops
+    return hidden_sizes(ops.fused_lstm_backward, lambda H: (
+        (1, B, 4 * H), (1, B, H), (1, B, H), (H, 4 * H), (1, B, H), (B, H)),
+        lo, hi)
+
+
+def k4_hidden_sizes(lo, hi, batches=(16, 32)):
+    """The hidden sizes in [lo, hi] that K4 and K4-train take at T=1, each
+    batch in ``batches``: {"<kernel> B=<B>": [H, ...]}."""
+    from deeplearning4j_tpu_torch import ops
+    took = {}
+    for name, wrapper in (("lstm2_fwd", ops.fused_lstm2_sequence),
+                          ("lstm2_fwd_train",
+                           ops.fused_lstm2_sequence_train)):
+        for B in batches:
+            took[f"{name} B={B}"] = hidden_sizes(wrapper, lambda H, B=B: (
+                (1, B, 4 * H), (H, 4 * H), (H, 4 * H), (4 * H,), (H, 4 * H),
+                (B, H), (B, H), (B, H), (B, H)), lo, hi)
     return took
 
 
@@ -440,9 +474,11 @@ def fmt(row):
             f"{row['tol']:g})  kernel {row['ms']:.4f} ms  plain "
             f"{row['plain_ms']:.4f} ms  cudnn {lib} ms  bound "
             f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
-    if row["kernel"] == "lstm_bwd":
+    if row["kernel"] in REPEATED:
         p = row["plan"]
-        line += (f"; {row['us_per_step']:.2f} us per reverse step; route "
+        per = ("reverse step" if row["kernel"] == "lstm_bwd"
+               else "iteration")
+        line += (f"; {row['us_per_step']:.2f} us per {per}; route "
                  f"{p['route']}" + (
                      f", clusters of {p['cluster_size']} x {p['clusters']}, "
                      f"{p['rows_per_cluster']} rows each"
@@ -1543,6 +1579,19 @@ def main() -> int:
           f"{K3_LARGEST_H - 8}..{K3_LARGEST_H + 8} [{card}]", flush=True)
     if K3_LARGEST_H not in k3_sizes:
         raise AssertionError(f"lstm_bwd no longer takes H={K3_LARGEST_H}")
+    for T, B, H in K4_SHAPES:
+        for kernel in ("lstm2_fwd", "lstm2_fwd_train"):
+            for dtype in ("float32", "bfloat16"):
+                rows.append(kernel_case(kernel, T, B, H, dtype))
+                print("kernel: " + fmt(rows[-1]) + f" [{card}]", flush=True)
+    k4_sizes = k4_hidden_sizes(K4_LARGEST_H - 8, K4_LARGEST_H + 8)
+    for name, sizes in k4_sizes.items():
+        largest = max(sizes, default=None)
+        print(f"kernel: {name}, T=1, float32 takes H in {sizes} of "
+              f"{K4_LARGEST_H - 8}..{K4_LARGEST_H + 8}: largest {largest} "
+              f"[{card}]", flush=True)
+        if largest is None or largest < K4_LARGEST_H:
+            raise AssertionError(f"{name} no longer takes H={K4_LARGEST_H}")
     for B in (1, 16, 64):
         for T in (64, 512):
             for causal in (False, True):
@@ -1658,7 +1707,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-         "kernel_rows": rows, "k3_hidden_sizes": k3_sizes, "slice": res, "tiny": tiny, "wide": wide,
+         "kernel_rows": rows, "k3_hidden_sizes": k3_sizes,
+         "k4_hidden_sizes": k4_sizes, "slice": res, "tiny": tiny, "wide": wide,
          "train": train,
          "tiny_train": tiny_train, "kernels": entries}, indent=1))
     print(json.dumps({"kernels": entries}))

@@ -47,10 +47,6 @@
 // the full dz_{t+1} rows of its batch rows back from the dz output through
 // L2 after a grid barrier.
 #include <algorithm>
-#include <map>
-#include <mutex>
-#include <tuple>
-#include <utility>
 
 #include "lstm_cluster.cuh"
 #include "lstm_common.cuh"
@@ -88,12 +84,6 @@ __device__ __forceinline__ void fetch(Reserve<T> (&x)[PAIRS], const T* gates, co
       x[p].cp = cprev[row * H + unit];
       x[p].dh = dhs[row * H + unit];
     }
-}
-
-// Round to the stream dtype and back: what the product reads of dz.
-template <typename T>
-__device__ __forceinline__ float rounded(float v) {
-  return to_f32(from_f32<T>(v));
 }
 
 // 16 bytes of dz: 16 / sizeof(T) values already rounded to T.
@@ -338,35 +328,14 @@ static int search_cluster_plan(int dev, int B, int H, ClusterPlan* out, bool* ok
   return 0;
 }
 
-// The plan of (device, B, H), searched once and kept: the search asks the
-// CUDA driver for occupancies, which costs more host time than a training
-// step can spare. Sets the kernel's attributes for the plan on every call,
-// since another shape's plan may have set smaller ones.
+// The plan of (device, B, H), searched once (cached_plan), with the kernel's
+// attributes set for it on every call, since another shape's plan may
+// have set smaller ones.
 template <typename T>
 static int plan_cluster(int B, int H, ClusterPlan* out, bool* ok) {
-  static std::mutex mu;
-  static std::map<std::tuple<int, int, int>, std::pair<bool, ClusterPlan>> plans;
-  int dev;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  std::lock_guard<std::mutex> lock(mu);
-  const auto key = std::make_tuple(dev, B, H);
-  auto it = plans.find(key);
-  if (it == plans.end()) {
-    ClusterPlan c{};
-    bool found = false;
-    const int rc = search_cluster_plan<T>(dev, B, H, &c, &found);
-    if (rc) return rc;
-    it = plans.emplace(key, std::make_pair(found, c)).first;
-  }
-  *ok = it->second.first;
-  *out = it->second.second;
-  if (!*ok) return 0;
-  auto kernel = lstm_bwd_cluster_kernel<T>;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)out->smem);
-  if (e == cudaSuccess && out->cs > 8)
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  return (int)e;
+  const int e = cached_plan<search_cluster_plan<T>>(B, H, out, ok);
+  if (e || !*ok) return e;
+  return (int)cluster_attributes(lstm_bwd_cluster_kernel<T>, out->cs, out->smem);
 }
 
 // ---- the grid route ---------------------------------------------------------

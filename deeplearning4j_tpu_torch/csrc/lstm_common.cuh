@@ -49,6 +49,13 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);  // round to nearest even, as jnp .astype
 }
 
+// Round to the stream dtype and back: what a product reads of a value
+// (h in the forwards, dz in the backward).
+template <typename T>
+__device__ __forceinline__ float rounded(float v) {
+  return to_f32(from_f32<T>(v));
+}
+
 // Load a value another block wrote before the last grid barrier. The load
 // goes to L2 (ld.global.cg) so a stale line in this SM's L1 is never read.
 template <typename T> __device__ __forceinline__ float load_cg(const T* p);

@@ -13,7 +13,9 @@ Counterpart of deeplearning4j_tpu/ops/lstm_pallas.py:
 - ``fused_lstm2_sequence`` (K4, csrc/lstm2_fwd.cu) replaces
   ``_fwd2_kernel`` with ``save_reserve=False``: two stacked LSTMs on a
   wavefront; ``fused_lstm2_sequence_train`` (K4-train) with
-  ``save_reserve=True``, its layer-2 reserves already unshifted.
+  ``save_reserve=True``, its layer-2 reserves already unshifted. Both on
+  thread-block clusters that all-gather h through distributed shared
+  memory where the weights' columns fit, else grid-wide.
 - ``FusedLSTM`` and ``FusedLSTM2`` are the ``torch.autograd.Function``s of
   ``_fused_fwd``/``_fused_bwd`` and ``_fused2_fwd``/``_fused2_bwd``: under
   grad the forward runs K2 (K4-train) and keeps the reserves, the backward
@@ -47,11 +49,11 @@ _VP, _INT = ctypes.c_void_p, ctypes.c_int
 _PTRS, _PLAN = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
 _PLAN_KEYS = ("units_per_block", "unit_blocks", "batch_blocks", "threads",
               "k_slice", "shared_bytes")
-# K3 also reports its route (the cluster kernel or the grid-wide one) and its
-# cluster plan
-_BWD_PLAN_KEYS = ("route", "cluster_size", "clusters", "rows_per_cluster"
-                  ) + _PLAN_KEYS
-_BWD_NAMES = {"route": {1: "cluster", 0: "grid"}}
+# K3 and K4 also report their route (the cluster kernel or the grid-wide
+# one) and their cluster plan
+_ROUTE_PLAN_KEYS = ("route", "cluster_size", "clusters", "rows_per_cluster"
+                    ) + _PLAN_KEYS
+_ROUTE_NAMES = {"route": {1: "cluster", 0: "grid"}}
 # entry point -> (source stem, argtypes, keys of its plan, names of coded
 # plan values); every entry returns an int error code and ends with (device,
 # stream, plan_out)
@@ -61,11 +63,11 @@ ENTRIES = {
     "lstm_fwd_train": ("lstm_fwd", [_VP] * 7 + [_PTRS] + [_INT] * 5
                        + [_VP, _PLAN], _PLAN_KEYS, {}),
     "lstm2_fwd": ("lstm2_fwd", [_PTRS] * 2 + [_VP] * 3 + [_INT] * 5
-                  + [_VP, _PLAN], _PLAN_KEYS, {}),
+                  + [_VP, _PLAN], _ROUTE_PLAN_KEYS, _ROUTE_NAMES),
     "lstm2_fwd_train": ("lstm2_fwd", [_PTRS] * 3 + [_VP] * 2 + [_INT] * 5
-                        + [_VP, _PLAN], _PLAN_KEYS, {}),
+                        + [_VP, _PLAN], _ROUTE_PLAN_KEYS, _ROUTE_NAMES),
     "lstm_bwd": ("lstm_bwd", [_PTRS] * 2 + [_VP] + [_INT] * 5 + [_VP, _PLAN],
-                 _BWD_PLAN_KEYS, _BWD_NAMES),
+                 _ROUTE_PLAN_KEYS, _ROUTE_NAMES),
 }
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -80,9 +82,9 @@ def _lib(stem: str) -> ctypes.CDLL:
 def last_plan(name: str) -> dict:
     """Grid of the kernel's latest launch (units per block, blocks across
     units and batch, threads, depth of a staged slice of the contraction,
-    shared bytes). K3's also names its route ("cluster" or "grid"), and on
-    the cluster route the cluster size, the clusters and the batch rows
-    each owns."""
+    shared bytes). K3's, K4's and K4-train's also name the route ("cluster"
+    or "grid"), and on the cluster route the cluster size, the clusters and
+    the batch rows each owns."""
     return dict(_LAST_PLAN.get(name, {}))
 
 
@@ -344,7 +346,13 @@ def fused_lstm2_sequence(gate_in1, rw1, w2, b2, rw2, h01, c01, h02, c02
 
     gate_in1: (T, B, 4H) = x @ W1 + b1; rw1, w2, rw2: (H, 4H); b2: (4H,);
     four (B, H) carries. Returns (hs2, h1T, c1T, c2T): the layer-2 hidden
-    sequence (T, B, H) and the final states (h2T = hs2[-1])."""
+    sequence (T, B, H) and the final states (h2T = hs2[-1]).
+
+    On the card the kernel picks its route by shape: thread-block clusters
+    that keep each block's columns of RW1, W2 and RW2 in shared memory and
+    all-gather h through distributed shared memory where those columns fit,
+    else the grid-wide kernel; ``last_plan("lstm2_fwd")`` names the route
+    taken."""
     args = (gate_in1, rw1, w2, b2, rw2, h01, c01, h02, c02)
     T, B, H = _check_k4("fused_lstm2_sequence", *args)
     dev, dt = gate_in1.device, gate_in1.dtype
@@ -365,7 +373,8 @@ def fused_lstm2_sequence_train(gate_in1, rw1, w2, b2, rw2, h01, c01, h02,
                                c02) -> Tuple[torch.Tensor, ...]:
     """K4's function plus both layers' reserve space (K4-train). Returns
     (hs2, h1T, c1T, c2T, hs1, tc1, cp1, g1, tc2, cp2, g2), every stream
-    indexed by unshifted time."""
+    indexed by unshifted time. Routes as K4's
+    (``last_plan("lstm2_fwd_train")``)."""
     args = (gate_in1, rw1, w2, b2, rw2, h01, c01, h02, c02)
     T, B, H = _check_k4("fused_lstm2_sequence_train", *args)
     dev, dt = gate_in1.device, gate_in1.dtype

@@ -1,6 +1,7 @@
 """The port's CUDA kernels -- K1 and K2 (csrc/lstm_fwd.cu, inference and
-training modes), K4 and K4-train (csrc/lstm2_fwd.cu), K3 (csrc/lstm_bwd.cu,
-its cluster route and its grid-wide route), K5 (csrc/flash_attn_fwd.cu), K6
+training modes), K4 and K4-train (csrc/lstm2_fwd.cu) and K3
+(csrc/lstm_bwd.cu), each on its cluster route and its grid-wide route, K5
+(csrc/flash_attn_fwd.cu), K6
 and K7 (csrc/flash_attn_bwd.cu), K8 and K9 (csrc/flash_decode.cu) --
 against their plain PyTorch versions on the card, and the autograd
 functions' gradients on the card against the same on the CPU.
@@ -165,6 +166,81 @@ def test_k3_takes_the_cluster_route_on_the_recipe_shape(cuda_device):
     assert plan["cluster_size"] in (8, 16)
     assert plan["clusters"] * plan["rows_per_cluster"] >= 32
     assert plan["units_per_block"] * plan["cluster_size"] >= 256
+
+
+K4_MODES = pytest.mark.parametrize("kernel", ["lstm2_fwd", "lstm2_fwd_train"])
+
+
+def _k4_run(kernel, T, B, H, dtype, device):
+    args = _args(kernel, _case(T, B, H, dtype, device))
+    got = KERNELS[kernel][1](*args)
+    torch.cuda.synchronize()
+    return args, got, lstm_cuda.last_plan(kernel)
+
+
+def _k4_check(kernel, args, got, dtype):
+    want = KERNELS[kernel][2](*args)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert (g.float() - w.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.cuda
+@K4_MODES
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T,B,H,route", [
+    (64, 32, 256, "cluster"),     # the LSTM recipe's train step
+    (64, 16, 256, "cluster"),     # LSTM serving: /predict of 15 windows
+    (16, 32, 256, "cluster"),     # the largest H whose columns fit
+    (16, 32, 257, "grid"),        # the next H, past the boundary
+    (4, 32, 581, "grid"),         # the largest H the grid-wide K4 takes
+])
+def test_k4_routes_by_shape_and_matches_plain(kernel, T, B, H, route, dtype,
+                                              cuda_device):
+    """K4 and K4-train pick their route by shape (on an H100 the cluster
+    route up to H=256) and match their plain version on both sides of the
+    boundary."""
+    args, got, plan = _k4_run(kernel, T, B, H, dtype, cuda_device)
+    assert plan["route"] == route
+    if route == "cluster":
+        assert plan["cluster_size"] in (8, 16)
+        assert plan["clusters"] * plan["rows_per_cluster"] >= B
+        assert plan["units_per_block"] * plan["cluster_size"] >= H
+    _k4_check(kernel, args, got, dtype)
+
+
+@pytest.mark.cuda
+@K4_MODES
+@pytest.mark.parametrize("T,B,H,route", [
+    (7, 1, 40, "cluster"), (6, 33, 100, "cluster"), (5, 3, 250, "cluster"),
+    (3, 256, 256, "cluster"), (5, 70, 300, "grid"), (6, 1, 260, "grid")])
+def test_k4_every_route_matches_plain(kernel, T, B, H, route, cuda_device):
+    """Each route on ragged shapes: the cluster route with H not a multiple
+    of 16 (and blocks with no units at H=40), B=1 in one cluster, rows not
+    a multiple of the clusters, and B=256 in more clusters than fit at once
+    (waves); the grid-wide kernel with H not a multiple of its blocks'
+    units."""
+    args, got, plan = _k4_run(kernel, T, B, H, torch.float32, cuda_device)
+    assert plan["route"] == route
+    if route == "cluster":
+        assert plan["clusters"] * plan["rows_per_cluster"] >= B
+    _k4_check(kernel, args, got, torch.float32)
+
+
+@pytest.mark.cuda
+@K4_MODES
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_repeats_bit_for_bit(kernel, dtype, cuda_device):
+    """K4 sums in a fixed order with no atomics: 20 launches on one input
+    give the same bits (a missing release/acquire around the all-gather
+    between blocks would show as a rare differing value)."""
+    args, first, plan = _k4_run(kernel, 64, 32, 256, dtype, cuda_device)
+    assert plan["route"] == "cluster"
+    for _ in range(20):
+        again = KERNELS[kernel][1](*args)
+        for a, b in zip(again, first):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
