@@ -24,9 +24,14 @@ result line, when any of them or the port's package is missing. Phases:
    grid-wide route -- and (16, 32, 581), the largest H they take at B=16
    and 32, which ``k4_hidden_sizes`` checks for both modes; every K4 case
    runs 20 more times and must repeat bit for bit, and its line shows the
-   plan and us per iteration (ms / (T + 1)). Tolerance f32 1e-4, bf16
-   3e-2, on every output (K3's relative to the largest magnitude of the
-   plain version's). The attention family in
+   plan and us per iteration (ms / (T + 1)). K1 and K2 also at (16, 32,
+   432) and (16, 32, 433) -- on an H100 the largest H of their cluster
+   route and the smallest of their grid-wide route -- and (16, 32, 1056),
+   the largest H they take at B=16 and 32, which ``k12_hidden_sizes``
+   checks for both modes; every K1 and K2 case runs 20 more times and must
+   repeat bit for bit, and its line shows the plan and us per step (ms /
+   T). Tolerance f32 1e-4, bf16 3e-2, on every output (K3's relative to
+   the largest magnitude of the plain version's). The attention family in
    float32, tolerance 1e-4: K5 (flash attention forward, o and lse) at
    B in {1, 16, 64} x 4 heads, T in {64, 512}, Dh=32, causal and not; K6
    (dq, and the delta it writes for K7) and K7 (dk, dv), the flash
@@ -49,9 +54,9 @@ result line, when any of them or the port's package is missing. Phases:
    K7 also ``tc_bound_ms``, the same bytes or the operations at the TF32
    tensor-core rate -- the bound K6 and K7, which run on the tensor cores,
    are held to). K6 and K7 run twice on each case and must repeat bit for
-   bit. The attention family's times are device times (calls replayed
-   from a CUDA graph: a small kernel runs for less than the host takes to
-   launch it), beside the time of a call launched from the host.
+   bit. Every kernel's time is its device time (calls replayed from a
+   CUDA graph: a small kernel runs for less than the host takes to launch
+   it), beside the time of a call launched from the host.
 4. Serving: the bundled TextGenerationLSTM served by ``InferenceServer`` on
    the card: held-out /predict accuracy, concurrent mixed-size /predict
    against unbatched forwards, greedy /generate against the full-prefix
@@ -83,8 +88,10 @@ result line, when any of them or the port's package is missing. Phases:
    then ten more ``fit_scan`` steps timed without and with
    ``torch.profiler`` (device busy time and idle share, device operations
    per step, K4-train's and K3's time, the host operations that take the
-   most time); (c) the same with truncated BPTT in chunks of 16 for 2 epochs, whose
-   held-out loss must fall.
+   most time); (c) the same with truncated BPTT in chunks of 16 for 2
+   epochs, whose held-out loss must fall, then ten more tBPTT batches
+   under ``torch.profiler`` (device busy time and idle share per batch,
+   K2's and K3's time per batch).
 7. Training TinyTransformer at its full default width, every attention
    forward through K5 and its backward through K6 and K7: (a) step-1 loss
    and gradients and three ``fit`` steps on the card against the CPU port
@@ -168,9 +175,17 @@ K3_SHAPES = ((16, 32, 300), (16, 32, 432), (16, 32, 433),
 # cluster route came)
 K4_LARGEST_H = 581
 K4_SHAPES = ((16, 32, 256), (16, 32, 257), (16, 32, K4_LARGEST_H))
+# K1's and K2's: both sides of the cluster route's boundary (the largest H
+# whose RW columns fit a 16-block cluster on an H100, and the next) and the
+# largest H the grid-wide route takes at B=16 and 32 (``k12_hidden_sizes``
+# on an H100: 1056, the same before and after the cluster route came)
+K12_LARGEST_H = 1056
+K12_SHAPES = ((16, 32, 432), (16, 32, 433), (16, 32, K12_LARGEST_H))
 # the kernels that sum in a fixed order (no atomics), and the launches of
 # their bitwise-repeat check
-REPEATED, REPEATS = ("lstm_bwd", "lstm2_fwd", "lstm2_fwd_train"), 20
+REPEATED = ("lstm_fwd", "lstm_fwd_train", "lstm_bwd", "lstm2_fwd",
+            "lstm2_fwd_train")
+REPEATS = 20
 PALLAS = "deeplearning4j_tpu/ops/lstm_pallas.py"
 REPLACES = {"lstm_fwd": f"{PALLAS}:295", "lstm_fwd_train": f"{PALLAS}:282",
             "lstm2_fwd": f"{PALLAS}:634", "lstm2_fwd_train": f"{PALLAS}:634",
@@ -396,7 +411,8 @@ def kernel_case(kernel, T, B, H, dtype_name, seed=0, plain_reps=2):
     row = {"kernel": kernel, "T": T, "B": B, "H": H, "dtype": dtype_name,
            "max_abs_err": err, "tol": tol,
            "plan": lstm_cuda.last_plan(kernel),
-           "ms": time_ms(lambda: wrapper(*args), reps=10),
+           "ms": graph_ms(lambda: wrapper(*args), reps=10),
+           "call_ms": time_ms(lambda: wrapper(*args), reps=10),
            "plain_ms": time_ms(lambda: plain(*args), reps=plain_reps,
                                rounds=3)}
     if kernel in REPEATED:      # every launch must give the same bits
@@ -406,8 +422,10 @@ def kernel_case(kernel, T, B, H, dtype_name, seed=0, plain_reps=2):
                 raise AssertionError(f"{kernel} T={T} B={B} H={H} "
                                      f"{dtype_name}: a repeat differs")
         row["repeats_bitwise"] = REPEATS
-        # per reverse step (K3) or wavefront iteration (K4): T + 1 of each
-        row["us_per_step"] = row["ms"] * 1e3 / (T + 1)
+        # per step (K1, K2: T of them), reverse step (K3) or wavefront
+        # iteration (K4): T + 1 of each
+        steps = T if kernel.startswith("lstm_fwd") else T + 1
+        row["us_per_step"] = row["ms"] * 1e3 / steps
     row["bound_ms"], row["bound_by"] = bound(kernel, T, B, H, dtype_name)
     try:
         lib = cudnn_lstm(kernel, c)
@@ -449,6 +467,19 @@ def k3_hidden_sizes(lo, hi, B=32):
         lo, hi)
 
 
+def k12_hidden_sizes(lo, hi, batches=(16, 32)):
+    """The hidden sizes in [lo, hi] that K1 and K2 take at T=1, each batch
+    in ``batches``: {"<kernel> B=<B>": [H, ...]}."""
+    from deeplearning4j_tpu_torch import ops
+    took = {}
+    for name, wrapper in (("lstm_fwd", ops.fused_lstm_sequence),
+                          ("lstm_fwd_train", ops.fused_lstm_sequence_train)):
+        for B in batches:
+            took[f"{name} B={B}"] = hidden_sizes(wrapper, lambda H, B=B: (
+                (1, B, 4 * H), (H, 4 * H), (B, H), (B, H)), lo, hi)
+    return took
+
+
 def k4_hidden_sizes(lo, hi, batches=(16, 32)):
     """The hidden sizes in [lo, hi] that K4 and K4-train take at T=1, each
     batch in ``batches``: {"<kernel> B=<B>": [H, ...]}."""
@@ -471,13 +502,14 @@ def fmt(row):
         lib += "*"
     line = (f"{row['kernel']:9s} T={row['T']} B={row['B']:<4d} H={row['H']} "
             f"{row['dtype']:8s} err {row['max_abs_err']:.3g} (tol "
-            f"{row['tol']:g})  kernel {row['ms']:.4f} ms  plain "
+            f"{row['tol']:g})  kernel {row['ms']:.4f} ms (a call from the "
+            f"host {row['call_ms']:.4f} ms)  plain "
             f"{row['plain_ms']:.4f} ms  cudnn {lib} ms  bound "
             f"{row['bound_ms']:.5f} ms ({row['bound_by']})")
     if row["kernel"] in REPEATED:
         p = row["plan"]
-        per = ("reverse step" if row["kernel"] == "lstm_bwd"
-               else "iteration")
+        per = {"lstm_bwd": "reverse step", "lstm2_fwd": "iteration",
+               "lstm2_fwd_train": "iteration"}.get(row["kernel"], "step")
         line += (f"; {row['us_per_step']:.2f} us per {per}; route "
                  f"{p['route']}" + (
                      f", clusters of {p['cluster_size']} x {p['clusters']}, "
@@ -1165,10 +1197,7 @@ def train_phase(card):
     print("train (b): " + fmt_profile(prof, tags) + f" [{card}]", flush=True)
 
     # (c) truncated BPTT in chunks of 16 through the single-layer kernels
-    conf = zoo.conf()
-    conf.backprop_type = "tbptt"
-    conf.tbptt_fwd_length = conf.tbptt_back_length = 16
-    tnet = MultiLayerNetwork(conf, device="cuda").init()
+    tnet = tbptt_net(zoo)
     it = ListDataSetIterator(DataSet(xtr, ytr), B, drop_last=True)
     before = tnet.score(x=xte, y=yte)
     ops.reset_launch_counts()
@@ -1189,7 +1218,34 @@ def train_phase(card):
         raise AssertionError(f"tBPTT launches {counts_c}, want {want} each")
     if not after < before:
         raise AssertionError("tBPTT training did not lower the loss")
+    prof = res["tbptt_profile"] = profile_tbptt(tnet, xtr, ytr, B)
+    print("train (c): " + fmt_profile(prof, TBPTT_TAGS, "batch",
+                                      "tBPTT batches") + f" [{card}]",
+          flush=True)
     return res
+
+
+TBPTT_TAGS = ("lstm_fwd", "lstm_bwd")
+
+
+def tbptt_net(zoo):
+    """``zoo``'s network on the card, trained by truncated BPTT in chunks
+    of 16 (each chunk through K2 forward and K3 backward, per layer)."""
+    from deeplearning4j_tpu_torch import MultiLayerNetwork
+    conf = zoo.conf()
+    conf.backprop_type = "tbptt"
+    conf.tbptt_fwd_length = conf.tbptt_back_length = 16
+    return MultiLayerNetwork(conf, device="cuda").init()
+
+
+def profile_tbptt(net, x, y, B, batches=10):
+    """Where a tBPTT batch's time goes: ``batches`` batches of ``B`` rows
+    of x, y fitted by ``net`` under ``profile_steps``, tags TBPTT_TAGS."""
+    from deeplearning4j_tpu_torch.data import DataSet, ListDataSetIterator
+    part = DataSet(x[:batches * B], y[:batches * B])
+    return profile_steps(
+        lambda: net.fit(ListDataSetIterator(part, B, drop_last=True)),
+        batches, TBPTT_TAGS)
 
 
 def _add_counts(total, counts):
@@ -1515,23 +1571,25 @@ def profile_steps(run, steps, tags):
     return out
 
 
-def fmt_profile(prof, tags):
-    """One line of a profile_steps result."""
+def fmt_profile(prof, tags, unit="step", units="fit steps"):
+    """One line of a profile_steps result, per ``unit`` (one of the
+    ``units`` that ``run`` did)."""
     busy = prof["device_busy_ms_per_step"]
-    return (f"torch.profiler over {prof['steps']} fit steps: "
-            f"{prof['wall_ms_per_step']:.3f} ms/step profiled, "
+    per = f"ms/{unit}"
+    return (f"torch.profiler over {prof['steps']} {units}: "
+            f"{prof['wall_ms_per_step']:.3f} {per} profiled, "
             f"{prof['unprofiled_wall_ms_per_step']:.3f} unprofiled; device "
             "busy " + ("not measured (no device events)" if busy is None else
-                       f"{busy:.3f} ms/step (idle "
+                       f"{busy:.3f} {per} (idle "
                        f"{prof['device_idle_share']:.1%} profiled, "
                        f"{prof['device_idle_share_unprofiled']:.1%} "
                        f"unprofiled), {prof['kernels_per_step']:.0f} device "
-                       "operations/step; " + ", ".join(
+                       f"operations/{unit}; " + ", ".join(
                            f"{t} kernels {prof['tagged_ms_per_step'][t]:.4f}"
-                           " ms/step" for t in tags)
+                           f" {per}" for t in tags)
                        + f"; top device kernels "
                        f"{prof['top_device_kernels'][:4]}")
-            + f"; host self time per step, top: {prof['top_host_ops'][:5]}")
+            + f"; host self time per {unit}, top: {prof['top_host_ops'][:5]}")
 
 
 def main() -> int:
@@ -1592,6 +1650,19 @@ def main() -> int:
               f"[{card}]", flush=True)
         if largest is None or largest < K4_LARGEST_H:
             raise AssertionError(f"{name} no longer takes H={K4_LARGEST_H}")
+    for T, B, H in K12_SHAPES:
+        for kernel in ("lstm_fwd", "lstm_fwd_train"):
+            for dtype in ("float32", "bfloat16"):
+                rows.append(kernel_case(kernel, T, B, H, dtype))
+                print("kernel: " + fmt(rows[-1]) + f" [{card}]", flush=True)
+    k12_sizes = k12_hidden_sizes(K12_LARGEST_H - 8, K12_LARGEST_H + 8)
+    for name, sizes in k12_sizes.items():
+        largest = max(sizes, default=None)
+        print(f"kernel: {name}, T=1, float32 takes H in {sizes} of "
+              f"{K12_LARGEST_H - 8}..{K12_LARGEST_H + 8}: largest {largest} "
+              f"[{card}]", flush=True)
+        if largest is None or largest < K12_LARGEST_H:
+            raise AssertionError(f"{name} no longer takes H={K12_LARGEST_H}")
     for B in (1, 16, 64):
         for T in (64, 512):
             for causal in (False, True):
@@ -1708,7 +1779,8 @@ def main() -> int:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
          "kernel_rows": rows, "k3_hidden_sizes": k3_sizes,
-         "k4_hidden_sizes": k4_sizes, "slice": res, "tiny": tiny, "wide": wide,
+         "k4_hidden_sizes": k4_sizes, "k12_hidden_sizes": k12_sizes,
+         "slice": res, "tiny": tiny, "wide": wide,
          "train": train,
          "tiny_train": tiny_train, "kernels": entries}, indent=1))
     print(json.dumps({"kernels": entries}))

@@ -450,12 +450,6 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
 
 // ---- the entry point --------------------------------------------------------
 
-// plan_out: route (1 cluster, 0 grid), cluster size, clusters, batch rows
-// per cluster (per batch block on the grid route), units per block, blocks
-// across the units, blocks across the batch, threads, k slice (grid route),
-// shared bytes.
-enum { PLAN_LEN = 10 };
-
 template <typename T>
 static int launch(void* const* in, void* const* out, void* dc_s, int Tn, int B, int H,
                   cudaStream_t stream, int* plan_out) {
@@ -468,11 +462,7 @@ static int launch(void* const* in, void* const* out, void* dc_s, int Tn, int B, 
   int e = plan_cluster<T>(B, H, &c, &ok);
   if (e) return e;
   if (ok) {
-    if (plan_out) {
-      const int v[PLAN_LEN] = {1, c.cs, c.clusters, c.rows, c.u, c.cs, c.clusters, CT, 0,
-                               (int)c.smem};
-      for (int k = 0; k < PLAN_LEN; ++k) plan_out[k] = v[k];
-    }
+    report_cluster_plan(plan_out, c.cs, c.clusters, c.rows, c.u, CT, c.smem);
     return launch_clusters(lstm_bwd_cluster_kernel<T>, c.cs, c.clusters, CT, c.smem, stream,
                            gates, tcs, cprev, rw, dhs, dcT, dz, dh0, dc0, Tn, B, H, c.u, c.rows,
                            c.rp);
@@ -481,12 +471,7 @@ static int launch(void* const* in, void* const* out, void* dc_s, int Tn, int B, 
   Plan p;
   e = make_plan(fn, B, H, 4 * H, 1, 1, true, &p);
   if (e) return e;
-  if (plan_out) {
-    const int v[PLAN_LEN] = {0,     0,     0,        (B + p.nbb - 1) / p.nbb,
-                             p.hsz, p.nu,  p.nbb,    p.threads,
-                             p.kc,  (int)p.smem};
-    for (int k = 0; k < PLAN_LEN; ++k) plan_out[k] = v[k];
-  }
+  report_grid_plan(plan_out, p, B);
   int hsz = p.hsz, kc = p.kc;
   void* args[] = {&gates, &tcs, &cprev, &rw, &dhs, &dcT, &dz, &dh0,
                   &dc0,   &dcs, &Tn,    &B,  &H,   &hsz, &kc};
@@ -501,7 +486,7 @@ static int launch(void* const* in, void* const* out, void* dc_s, int Tn, int B, 
 // dtype, dh0 and dc0 (B, H) float32. Scratch: dc (B, H) float32, used by the
 // grid route. The route is the cluster one wherever a cluster plan fits
 // this H, else the grid one. Returns 0, a cudaError_t, or a negative
-// lstm::Err; plan_out (PLAN_LEN ints) as above.
+// lstm::Err; plan_out as lstm_common.cuh gives it.
 extern "C" int lstm_bwd(void* const* in, void* const* out, void* dc_scratch, int T, int B,
                         int H, int dtype, int device, void* stream, int* plan_out) {
   cudaError_t e = cudaSetDevice(device);

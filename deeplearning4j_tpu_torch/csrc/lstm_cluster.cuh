@@ -19,13 +19,14 @@
 //   a partial (rows x H) product from the columns it owns; each block reads
 //   its own units' columns of the cs partials and adds them in rank order,
 //   so the sum is the same on every launch (no atomics).
-// - Slices, an all-gather (the stacked forward, lstm2_fwd.cu): a block
+// - Slices, an all-gather (the forwards, lstm_fwd_cluster.cuh): a block
 //   owns its units' values of a few (rows x H) matrices (h of each layer);
 //   each block reads every peer's slices into a full (H x rows) tile.
 //
 // Needs sm_90 (mapa, ld.shared::cluster, barrier.cluster). The cluster
-// routes of K3 and of K4 / K4-train include this header; K1 and K2, and
-// the grid routes of K3 and K4, launch as cooperative grids.
+// routes of K1 / K2, K3 and K4 / K4-train include this header; their grid
+// routes, for hidden sizes whose weight columns do not fit a cluster,
+// launch as cooperative grids.
 #pragma once
 
 #include <cuda_runtime.h>

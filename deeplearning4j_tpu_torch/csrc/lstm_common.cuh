@@ -1,6 +1,7 @@
 // Shared pieces of the persistent LSTM kernels (lstm_fwd.cu, lstm2_fwd.cu,
-// lstm_bwd.cu): stream-type conversions, the cell math, and the launch plan
-// that sizes a cooperative grid so every block is co-resident.
+// lstm_bwd.cu): stream-type conversions, the cell math, the launch plan
+// that sizes a cooperative grid so every block is co-resident, and the
+// plan every entry point reports.
 //
 // Layout contract (the JAX package's, deeplearning4j_tpu/ops/lstm_pallas.py):
 // gate order IFOG, z = gate_in_t + h_{t-1} @ RW, cell math in float32,
@@ -219,14 +220,27 @@ inline int make_plan(const void* kernel, int B, int H, int K, int n_mats, int n_
   return ERR_NO_PLAN;
 }
 
-inline void report_plan(const Plan& p, int* out) {
+// plan_out of every entry point (PLAN_LEN ints, may be null): route (1
+// cluster, 0 grid), cluster size, clusters, batch rows per cluster (per
+// batch block on the grid route), units per block, blocks across the
+// units, blocks across the batch, threads, k slice (grid route), shared
+// bytes.
+enum { PLAN_LEN = 10 };
+
+inline void report_cluster_plan(int* out, int cs, int clusters, int rows, int u, int threads,
+                                size_t smem) {
   if (out) {
-    out[0] = p.hsz;
-    out[1] = p.nu;
-    out[2] = p.nbb;
-    out[3] = p.threads;
-    out[4] = p.kc;
-    out[5] = (int)p.smem;
+    const int v[PLAN_LEN] = {1, cs, clusters, rows, u, cs, clusters, threads, 0, (int)smem};
+    for (int k = 0; k < PLAN_LEN; ++k) out[k] = v[k];
+  }
+}
+
+inline void report_grid_plan(int* out, const Plan& p, int B) {
+  if (out) {
+    const int v[PLAN_LEN] = {0,     0,    0,     (B + p.nbb - 1) / p.nbb,
+                             p.hsz, p.nu, p.nbb, p.threads,
+                             p.kc,  (int)p.smem};
+    for (int k = 0; k < PLAN_LEN; ++k) out[k] = v[k];
   }
 }
 

@@ -12,24 +12,39 @@
 // dtype.
 //
 // What bounds it on the card: the time loop is a chain of T dependent
-// steps, each a small (B, H) x (H, 4H) product followed by a barrier, so at
-// serving shapes it is bound by per-step latency (the barrier and the
-// reads of h through L2), not by bytes or operations. At large B the f32
-// FMA work of the product dominates; the training mode adds 6H stream
-// writes per row and step, which overlap the next step's product.
+// steps, each a small (B, H) x (H, 4H) product, the exchange of h between
+// the blocks that share it and one barrier, so at serving and training
+// shapes it is bound by per-step latency, not by bytes or operations. At
+// large B the float32 FMA work of the product dominates; the training mode
+// adds 6H stream writes per row and step, which overlap the next step.
 //
-// Design: ONE persistent cooperative launch runs all T steps (the TPU
-// kernel's sequential grid becomes a loop inside the kernel). Block
-// (u, v) owns hidden units [u * hsz, u * hsz + hsz) -- all four gate
-// columns of each, so the cell math stays inside the block -- and a
-// contiguous slice of batch rows. Its columns of RW live in shared memory
-// for the whole sequence. h_t is written straight into the hs output,
-// which doubles as the exchange buffer: after a grid barrier every block
-// reads the h_{t-1} rows it needs from L2. c never leaves its owner: it is
-// kept in a register (or, when a block has more than one pass of rows, a
-// float32 scratch row only that thread touches). The reserve writes are
-// the owner thread's own values, so they need no exchange.
+// Two routes, chosen by shape in the entry points below (never on an
+// error):
+//
+// The cluster route (lstm_fwd_cluster.cuh, one layer), wherever a block's
+// columns of RW fit its shared memory (H up to 432 on an H100): clusters of
+// 16 blocks (8 where the device runs no 16-block cluster; 16 was the faster
+// at both main-path shapes on an H100), each owning u = ceil(H / cs) units,
+// their 4u columns of RW in shared memory and the cells of those units;
+// after one cluster barrier a step every block reads the full rows of
+// h_{t-1} from its peers' shared memory (an all-gather through distributed
+// shared memory). No grid barrier, no cooperative launch, no atomics:
+// bitwise repeatable.
+//
+// The grid route (lstm_fwd_grid_kernel) past it: ONE persistent
+// cooperative launch runs all T steps (the TPU kernel's sequential grid
+// becomes a loop inside the kernel). Block (u, v) owns hidden units
+// [u * hsz, u * hsz + hsz) -- all four gate columns of each, so the cell
+// math stays inside the block -- and a contiguous slice of batch rows. Its
+// columns of RW live in shared memory for the whole sequence. h_t is
+// written straight into the hs output, which doubles as the exchange
+// buffer: after a grid barrier every block reads the h_{t-1} rows it needs
+// from L2. c never leaves its owner: it is kept in a register (or, when a
+// block has more than one pass of rows, a float32 scratch row only that
+// thread touches). The reserve writes are the owner thread's own values,
+// so they need no exchange.
 #include "lstm_common.cuh"
+#include "lstm_fwd_cluster.cuh"
 
 using namespace lstm;
 
@@ -41,11 +56,14 @@ struct Reserve {
   T* cprev;  // (T, B, H) c_{t-1}
 };
 
+// ---- the grid route ---------------------------------------------------------
+
 template <typename T, bool TRAIN>
 __global__ void __launch_bounds__(MAX_THREADS)
-    lstm_fwd_kernel(const T* __restrict__ gate_in, const T* __restrict__ rw,
-                    const T* __restrict__ h0, const T* __restrict__ c0, T* hs, T* cT,
-                    float* c_s, Reserve<T> res, int Tn, int B, int H, int hsz, int kc) {
+    lstm_fwd_grid_kernel(const T* __restrict__ gate_in, const T* __restrict__ rw,
+                         const T* __restrict__ h0, const T* __restrict__ c0, T* hs, T* cT,
+                         float* c_s, Reserve<T> res, int Tn, int B, int H, int hsz,
+                         int kc) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
   const int W4 = 4 * hsz, G = 4 * H;
@@ -120,24 +138,44 @@ __global__ void __launch_bounds__(MAX_THREADS)
   }
 }
 
+// ---- the entry points -------------------------------------------------------
+
 template <typename T, bool TRAIN>
 static int launch(const void* gate_in, const void* rw, const void* h0, const void* c0,
                   void* hs, void* cT, void* c_s, void* const* reserve, int Tn, int B, int H,
                   cudaStream_t stream, int* plan_out) {
-  const void* fn = (const void*)lstm_fwd_kernel<T, TRAIN>;
-  Plan p;
-  int e = make_plan(fn, B, H, H, 1, 1, false, &p);
-  if (e) return e;
-  report_plan(p, plan_out);
   const T* a_gi = (const T*)gate_in;
   const T* a_rw = (const T*)rw;
   const T* a_h0 = (const T*)h0;
   const T* a_c0 = (const T*)c0;
   T* a_hs = (T*)hs;
   T* a_cT = (T*)cT;
-  float* a_cs = (float*)c_s;
   Reserve<T> res{nullptr, nullptr, nullptr};
   if (TRAIN) res = Reserve<T>{(T*)reserve[0], (T*)reserve[1], (T*)reserve[2]};
+  ClusterPlan c;
+  bool ok;
+  int e = plan_cluster<T, TRAIN, 1>(B, H, &c, &ok);
+  if (e) return e;
+  if (ok) {
+    report_cluster_plan(plan_out, c.cs, c.clusters, c.rows, c.u, c.threads, c.smem);
+    FwdIO<T> io{};
+    io.gate_in = a_gi;
+    io.rw1 = a_rw;
+    io.h0[0] = a_h0;
+    io.c0[0] = a_c0;
+    io.hs = a_hs;
+    io.cT[0] = a_cT;
+    io.g[0] = res.gates;
+    io.tc[0] = res.tc;
+    io.cp[0] = res.cprev;
+    return launch_cluster_route<T, TRAIN, 1>(c, io, Tn, B, H, stream);
+  }
+  const void* fn = (const void*)lstm_fwd_grid_kernel<T, TRAIN>;
+  Plan p;
+  e = make_plan(fn, B, H, H, 1, 1, false, &p);
+  if (e) return e;
+  report_grid_plan(plan_out, p, B);
+  float* a_cs = (float*)c_s;
   int hsz = p.hsz, kc = p.kc;
   void* args[] = {&a_gi, &a_rw, &a_h0, &a_c0, &a_hs, &a_cT, &a_cs, &res,
                   &Tn,   &B,    &H,    &hsz,  &kc};
@@ -163,8 +201,10 @@ static int dispatch(const void* gate_in, const void* rw, const void* h0, const v
   return ERR_DTYPE;
 }
 
-// Returns 0, a cudaError_t, or a negative lstm::Err. plan_out (6 ints, may
-// be NULL) receives hsz, nu, nbb, threads, kc, shared bytes of the launch.
+// c_scratch: (B, H) float32, used by the grid route. The route is the
+// cluster one wherever a cluster plan fits this H, else the grid one.
+// Returns 0, a cudaError_t, or a negative lstm::Err; plan_out as
+// lstm_common.cuh gives it.
 extern "C" int lstm_fwd(const void* gate_in, const void* rw, const void* h0, const void* c0,
                         void* hs, void* cT, void* c_scratch, int T, int B, int H, int dtype,
                         int device, void* stream, int* plan_out) {

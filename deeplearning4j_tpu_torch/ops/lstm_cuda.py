@@ -6,7 +6,10 @@ Counterpart of deeplearning4j_tpu/ops/lstm_pallas.py:
 - ``fused_lstm_sequence`` (K1, csrc/lstm_fwd.cu) replaces
   ``_fwd_inference_kernel``: one LSTM over precomputed gate inputs.
 - ``fused_lstm_sequence_train`` (K2, csrc/lstm_fwd.cu, training mode)
-  replaces ``_fwd_kernel``: the same, plus the reserve space.
+  replaces ``_fwd_kernel``: the same, plus the reserve space. Both on
+  thread-block clusters that all-gather h through distributed shared
+  memory where RW's columns fit (csrc/lstm_fwd_cluster.cuh, the same
+  kernel template as K4's with one layer), else grid-wide.
 - ``fused_lstm_backward`` (K3, csrc/lstm_bwd.cu) replaces ``_bwd_kernel``:
   the reverse-time backward over the reserve space, on thread-block
   clusters (csrc/lstm_cluster.cuh) where RW's slices fit, else grid-wide.
@@ -47,27 +50,23 @@ from deeplearning4j_tpu_torch.ops import build
 
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
 _PTRS, _PLAN = ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int)
-_PLAN_KEYS = ("units_per_block", "unit_blocks", "batch_blocks", "threads",
+# what every entry point reports of its launch: its route (the cluster
+# kernel or the grid-wide one), its cluster plan and its grid
+_PLAN_KEYS = ("route", "cluster_size", "clusters", "rows_per_cluster",
+              "units_per_block", "unit_blocks", "batch_blocks", "threads",
               "k_slice", "shared_bytes")
-# K3 and K4 also report their route (the cluster kernel or the grid-wide
-# one) and their cluster plan
-_ROUTE_PLAN_KEYS = ("route", "cluster_size", "clusters", "rows_per_cluster"
-                    ) + _PLAN_KEYS
-_ROUTE_NAMES = {"route": {1: "cluster", 0: "grid"}}
-# entry point -> (source stem, argtypes, keys of its plan, names of coded
-# plan values); every entry returns an int error code and ends with (device,
-# stream, plan_out)
+_ROUTES = {1: "cluster", 0: "grid"}
+# entry point -> (source stem, argtypes); every entry returns an int error
+# code and ends with (device, stream, plan_out)
 ENTRIES = {
-    "lstm_fwd": ("lstm_fwd", [_VP] * 7 + [_INT] * 5 + [_VP, _PLAN],
-                 _PLAN_KEYS, {}),
+    "lstm_fwd": ("lstm_fwd", [_VP] * 7 + [_INT] * 5 + [_VP, _PLAN]),
     "lstm_fwd_train": ("lstm_fwd", [_VP] * 7 + [_PTRS] + [_INT] * 5
-                       + [_VP, _PLAN], _PLAN_KEYS, {}),
+                       + [_VP, _PLAN]),
     "lstm2_fwd": ("lstm2_fwd", [_PTRS] * 2 + [_VP] * 3 + [_INT] * 5
-                  + [_VP, _PLAN], _ROUTE_PLAN_KEYS, _ROUTE_NAMES),
+                  + [_VP, _PLAN]),
     "lstm2_fwd_train": ("lstm2_fwd", [_PTRS] * 3 + [_VP] * 2 + [_INT] * 5
-                        + [_VP, _PLAN], _ROUTE_PLAN_KEYS, _ROUTE_NAMES),
-    "lstm_bwd": ("lstm_bwd", [_PTRS] * 2 + [_VP] + [_INT] * 5 + [_VP, _PLAN],
-                 _ROUTE_PLAN_KEYS, _ROUTE_NAMES),
+                        + [_VP, _PLAN]),
+    "lstm_bwd": ("lstm_bwd", [_PTRS] * 2 + [_VP] + [_INT] * 5 + [_VP, _PLAN]),
 }
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -80,11 +79,11 @@ def _lib(stem: str) -> ctypes.CDLL:
 
 
 def last_plan(name: str) -> dict:
-    """Grid of the kernel's latest launch (units per block, blocks across
-    units and batch, threads, depth of a staged slice of the contraction,
-    shared bytes). K3's, K4's and K4-train's also name the route ("cluster"
-    or "grid"), and on the cluster route the cluster size, the clusters and
-    the batch rows each owns."""
+    """Plan of the kernel's latest launch: its route ("cluster" or "grid"),
+    on the cluster route the cluster size, the clusters and the batch rows
+    each owns; units per block, blocks across units and batch, threads,
+    depth of a staged slice of the contraction (grid route), shared
+    bytes."""
     return dict(_LAST_PLAN.get(name, {}))
 
 
@@ -104,15 +103,13 @@ def _check(name, dtype, device, **tensors):
 def _launch(entry: str, *args) -> None:
     """Launch one kernel entry point on the current stream; raise on any
     error it returns, else count the launch."""
-    stem, _, keys, names = ENTRIES[entry]
-    lib = _lib(stem)
-    plan = (ctypes.c_int * len(keys))()
+    lib = _lib(ENTRIES[entry][0])
+    plan = (ctypes.c_int * len(_PLAN_KEYS))()
     rc = getattr(lib, entry)(*args, plan)
     if rc != 0:
         raise RuntimeError(f"{entry} kernel failed: "
                            f"{lib.lstm_error(rc).decode()}")
-    _LAST_PLAN[entry] = {k: names[k][v] if k in names else v
-                         for k, v in zip(keys, plan)}
+    _LAST_PLAN[entry] = dict(zip(_PLAN_KEYS, plan), route=_ROUTES[plan[0]])
     ops.count_launch(entry)
 
 
@@ -255,7 +252,12 @@ def fused_lstm_sequence(gate_in, rw, h0, c0) -> Tuple[torch.Tensor, ...]:
 
     gate_in: (T, B, 4H) = x @ W + b, IFOG order; rw: (H, 4H); h0, c0:
     (B, H); one stream dtype, float32 or bfloat16. Returns (hs, c_last):
-    hs (T, B, H) and the final cell state (B, H)."""
+    hs (T, B, H) and the final cell state (B, H).
+
+    On the card the kernel picks its route by shape: thread-block clusters
+    that keep each block's columns of RW in shared memory and all-gather h
+    through distributed shared memory where those columns fit, else the
+    grid-wide kernel; ``last_plan("lstm_fwd")`` names the route taken."""
     T, B, H = _check_k1("fused_lstm_sequence", gate_in, rw, h0, c0)
     dev, dt = gate_in.device, gate_in.dtype
     if not _on_device("fused_lstm_sequence", dev):
@@ -273,7 +275,8 @@ def fused_lstm_sequence_train(gate_in, rw, h0, c0
                               ) -> Tuple[torch.Tensor, ...]:
     """K1's function plus the reserve space (K2), as
     ``_fwd_call(save_reserve=True)``: returns (hs, tc, cprev, gates, cT),
-    tc and cprev (T, B, H), gates (T, B, 4H) post-activation."""
+    tc and cprev (T, B, H), gates (T, B, 4H) post-activation. Routes as
+    K1's (``last_plan("lstm_fwd_train")``)."""
     T, B, H = _check_k1("fused_lstm_sequence_train", gate_in, rw, h0, c0)
     dev, dt = gate_in.device, gate_in.dtype
     if not _on_device("fused_lstm_sequence_train", dev):

@@ -168,6 +168,63 @@ def test_k3_takes_the_cluster_route_on_the_recipe_shape(cuda_device):
     assert plan["units_per_block"] * plan["cluster_size"] >= 256
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["lstm_fwd", "lstm_fwd_train"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 15, 32])
+@pytest.mark.parametrize("T,H,route", [
+    (6, 40, "cluster"),      # blocks with no units (u = 3 at 16 blocks)
+    (6, 300, "cluster"),     # H not a multiple of 16
+    (6, 432, "cluster"),     # the largest H whose RW columns fit
+    (6, 433, "grid"),        # the next H, past the boundary
+    (4, 1056, "grid"),       # the largest H the grid-wide K1/K2 take
+])
+def test_k12_routes_by_shape_and_matches_plain(kernel, T, H, route, B, dtype,
+                                               cuda_device):
+    """K1 and K2 pick their route by shape (on an H100 the cluster route up
+    to H=432), match their plain version on both sides of the boundary at
+    ragged shapes (B=15: rows that do not divide into the clusters), and
+    repeat bit for bit over 20 launches (no atomics; a missing
+    release/acquire around the all-gather would show as a rare differing
+    value)."""
+    args = _args(kernel, _case(T, B, H, dtype, cuda_device))
+    wrapper, plain = KERNELS[kernel][1:]
+    got = wrapper(*args)
+    torch.cuda.synchronize()
+    plan = lstm_cuda.last_plan(kernel)
+    assert plan["route"] == route
+    if route == "cluster":
+        assert plan["cluster_size"] in (8, 16)
+        assert plan["clusters"] * plan["rows_per_cluster"] >= B
+        assert plan["units_per_block"] * plan["cluster_size"] >= H
+    want = plain(*args)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert (g.float() - w.float()).abs().max().item() <= TOL[dtype]
+    for _ in range(20):
+        for a, b in zip(wrapper(*args), got):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,T,B", [("lstm_fwd", 16, 15),
+                                        ("lstm_fwd_train", 16, 32)])
+def test_k12_take_the_cluster_route_on_their_main_paths(kernel, T, B,
+                                                        cuda_device):
+    """``rnn_time_step``'s 16-step chunks of 15 rows run K1, tBPTT's chunks
+    of 16 steps at B=32 K2, both at H=256: the cluster route, every row
+    owned by one cluster and no cluster idle."""
+    args = _args(kernel, _case(T, B, 256, torch.float32, cuda_device))
+    KERNELS[kernel][1](*args)
+    torch.cuda.synchronize()
+    plan = lstm_cuda.last_plan(kernel)
+    assert plan["route"] == "cluster" and plan["cluster_size"] in (8, 16)
+    assert plan["units_per_block"] * plan["cluster_size"] >= 256
+    assert (plan["clusters"] - 1) * plan["rows_per_cluster"] < B \
+        <= plan["clusters"] * plan["rows_per_cluster"]
+
+
 K4_MODES = pytest.mark.parametrize("kernel", ["lstm2_fwd", "lstm2_fwd_train"])
 
 
