@@ -39,7 +39,10 @@ result line, when any of them or the port's package is missing. Phases:
    512}, Dh=32, causal and not, relative to the largest gradient of the
    plain version; K8 (flash decode, dense cache) and K9 (paged pool,
    bs=16, shuffled page tables) at B in {1, 8, 64}, 4 heads, C=512,
-   positions spread over 0..511. Then head dims past 128, which the
+   positions spread over 0..511 (one stream at 511), each with its plan
+   (blocks per cluster S, clusters), 20 more launches that must repeat
+   bit for bit, and its launch floor (an empty kernel on the same grid and
+   cluster shape, timed the same way). Then head dims past 128, which the
    attention kernels take through their column-chunk split: K5, K6 + K7
    (B=2 x 2 heads) and K8, K9 (B=4, 2 heads) at Dh in {136, 256, 520} and
    T (or C) in {64, 100}, causal and not, at the same tolerances, K6 and
@@ -60,7 +63,12 @@ result line, when any of them or the port's package is missing. Phases:
 4. Serving: the bundled TextGenerationLSTM served by ``InferenceServer`` on
    the card: held-out /predict accuracy, concurrent mixed-size /predict
    against unbatched forwards, greedy /generate against the full-prefix
-   path, ``rnn_time_step`` in chunks against ``output``.
+   path, ``rnn_time_step`` in chunks against ``output``. Then F4's
+   shapes, where the LSTM screens' shape half decides (``f4_phase``): (a)
+   2 x LSTM(600) f32 at B=32, (b) LSTM(2048) f32 at B=32, (c) bfloat16
+   LSTM(1088) at B=1; each net's output, step-1 gradients and one ``fit``
+   step against the CPU port (f32 1e-4, bf16 3e-2), with exactly the
+   launches the plan queries answer for ((a): no wavefront kernel).
 5. TinyTransformer serving at its full default width (d_model 128, 4
    heads, 2 pre-LN blocks, FFN 512, max_len 512, the corpus's 51-char
    vocabulary) from the configuration's seed: (a) /predict of the 15
@@ -72,7 +80,10 @@ result line, when any of them or the port's package is missing. Phases:
    a paged one (kv_block_size 16, the default pool), their tokens against
    each other and against ``generate_naive`` (the full-prefix forward
    through K5); where tokens differ the reference's top-2 probability
-   margin at that step must be <= 1e-4 (a near-tie of the seed weights).
+   margin at that step must be <= 1e-4 (a near-tie of the seed weights);
+   then ten steps of each engine (8 streams of one prompt token and ten
+   new tokens) under ``torch.profiler``: ms per step, device busy time and
+   idle share, and K8's or K9's share of the busy time.
    (c) The same model with 2 heads of 256 (d_model 512, 2 blocks, FFN
    2048; every attention kernel through its column-chunk split): /predict
    of the held-out windows against the CPU port (1e-4), 8 greedy streams
@@ -586,6 +597,23 @@ def attn_inputs(kernel, B, T, causal=False, pos=None, seed=0, dh=HEAD_DIM,
     return c
 
 
+# the /generate engines' positions halfway through their completions (8
+# streams, prompts of 16..64 tokens, 64 new tokens): K8/K9's main path
+DECODE_MID = [n + 32 for n in (16, 22, 28, 34, 40, 46, 52, 64)]
+
+
+def decode_positions(spec, B, C):
+    """K8/K9 positions by name: "last" (every stream at C - 1), "spread"
+    (0..C-1), "mid" (DECODE_MID, 8 streams), or a comma list."""
+    if spec == "last":
+        return [C - 1] * B
+    if spec == "spread":
+        return None
+    if spec == "mid":
+        return list(DECODE_MID)
+    return [int(p) for p in spec.split(",")]
+
+
 def attn_calls(kernel, c):
     """The kernel's wrapper, its plain version (both returning a tuple) and
     one library call (``scaled_dot_product_attention``) computing the same
@@ -628,6 +656,7 @@ def attn_kernel_case(kernel, B, T, causal=False, pos=None, seed=0,
     (K5: o and lse), and the four times. Launches made here are not the
     main path's; the caller resets the counters before the main path."""
     import torch
+    from deeplearning4j_tpu_torch.ops import decode_cuda
     c = attn_inputs(kernel, B, T, causal, pos, seed, dh, heads)
     wrap, plain, lib = attn_calls(kernel, c)
     with torch.no_grad():
@@ -645,6 +674,21 @@ def attn_kernel_case(kernel, B, T, causal=False, pos=None, seed=0,
                "plain_ms": graph_ms(plain, reps=3, rounds=3),
                "library_max_abs_err": (lib() - want[0]).abs().max().item(),
                "library_ms": graph_ms(lib, reps=20)}
+        if kernel.startswith("flash_decode"):
+            # every merge in a fixed order: each launch gives the same bits
+            for _ in range(REPEATS):
+                if not torch.equal(wrap()[0], got[0]):
+                    raise AssertionError(f"{kernel} B={B} T={T} Dh={dh}: a "
+                                         "repeat differs")
+            row["repeats_bitwise"] = REPEATS
+            # the plan, and an empty kernel on its grid and cluster shape
+            # (a checkout whose decode kernels report no plan has neither)
+            if hasattr(decode_cuda, "launch_floor"):
+                row["plan"] = decode_cuda.last_plan(kernel)
+                C = c["kc"].shape[1] if "kc" in c else \
+                    c["tables"].shape[1] * KV_BLOCK
+                row["floor_ms"] = graph_ms(lambda: decode_cuda.launch_floor(
+                    kernel, B, heads, dh, C, KV_BLOCK), reps=20)
     if kernel == "flash_attn_fwd":
         row["causal"] = causal
         row["tc_bound_ms"], row["tc_bound_by"] = attn_bound(kernel, c, "tf32")
@@ -657,6 +701,14 @@ def attn_kernel_case(kernel, B, T, causal=False, pos=None, seed=0,
 def fmt_attn(row):
     what = (f"causal={row['causal']!s:5}" if "causal" in row
             else f"pos {row['pos'][0]}..{row['pos'][-1]}")
+    if "plan" in row:
+        plan = row["plan"]
+        what += (f" plan S={plan['cluster_size']} x {plan['clusters']} "
+                 f"clusters of {plan['threads']} threads (>= "
+                 f"{plan['min_keys_per_block']} keys a busy block), launch "
+                 f"floor {row['floor_ms']:.5f} ms")
+    if "repeats_bitwise" in row:
+        what += f", bitwise over {row['repeats_bitwise']} launches"
     return (f"{row['kernel']:18s} B={row['B']:<3d} T={row['T']:<3d} "
             f"Dh={row['Dh']:<3d} {what} "
             f"err {row['max_abs_err']:.3g} (tol {row['tol']:g})  kernel "
@@ -906,6 +958,107 @@ def slice_phase(card):
     return res
 
 
+# F4's shapes, where the LSTM screens' shape half decides: (a) a pair past
+# K4's largest H, (b) a width no LSTM kernel takes, (c) a bfloat16 width
+# the grid route refuses at one row (it sizes the weights as float32)
+F4_CASES = {"a": (2, 600, 32, "float32"), "b": (1, 2048, 32, "float32"),
+            "c": (1, 1088, 1, "bfloat16")}
+F4_VOCAB, F4_T = 9, 8
+F4_SINGLE = {False: ("lstm_fwd",), True: ("lstm_fwd_train", "lstm_bwd")}
+F4_PAIR = {False: ("lstm2_fwd",), True: ("lstm2_fwd_train", "lstm_bwd")}
+
+
+def f4_net(layers, H, dtype, device, seed=11):
+    """``layers`` x LSTM(H) and a softmax RnnOutputLayer over F4_VOCAB
+    chars; bfloat16 as the compute dtype when asked."""
+    from deeplearning4j_tpu_torch import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.conf import (InputType,
+                                                  NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.layers import LSTM, RnnOutputLayer
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    lb = NeuralNetConfiguration.builder().seed(seed).updater(Adam(1e-3)) \
+        .list()
+    for _ in range(layers):
+        lb = lb.layer(LSTM(n_out=H, activation="tanh"))
+    conf = lb.layer(RnnOutputLayer(n_out=F4_VOCAB, activation="softmax",
+                                   loss="mcxent")) \
+        .set_input_type(InputType.recurrent(F4_VOCAB)).build()
+    if dtype == "bfloat16":
+        conf.global_conf.compute_dtype = "bfloat16"
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def f4_phase(card):
+    """F4's shapes on the card: each net's output, step-1 gradients and one
+    ``fit`` step against the CPU port from the same parameters (f32 1e-4,
+    bf16 3e-2; gradients relative to their largest magnitude, losses
+    relative), with exactly the launches the plan queries answer for: the
+    pair's wavefront where every screen passes, else each layer's kernels,
+    else the layers' own loops. (a) must launch no wavefront kernel. Every
+    check raises on failure; returns what each case took."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.ops import lstm_cuda
+    out = {}
+    for tag, (layers, H, B, dt) in F4_CASES.items():
+        dtype = getattr(torch, dt)
+        tol = F32_TOL if dt == "float32" else BF16_TOL
+        plans = {e: lstm_cuda.has_plan(e, B, H, dtype, torch.device("cuda"))
+                 for e in ("lstm_fwd", "lstm_fwd_train", "lstm_bwd",
+                           "lstm2_fwd", "lstm2_fwd_train")}
+
+        def expect(rec):
+            if not all(plans[e] for e in F4_SINGLE[rec]):
+                return {}, "the layers' own loops"
+            if layers == 2 and all(plans[e] for e in F4_PAIR[rec]):
+                return ({e: 2 if e == "lstm_bwd" else 1
+                         for e in F4_PAIR[rec]}, "the wavefront kernel")
+            return ({e: layers for e in F4_SINGLE[rec]},
+                    "the single-layer kernels, layer by layer")
+        r = np.random.RandomState(0)
+        eye = np.eye(F4_VOCAB, dtype=np.float32)
+        x, y = (eye[r.randint(0, F4_VOCAB, (B, F4_T))] for _ in range(2))
+        gpu = f4_net(layers, H, dt, "cuda")
+        cpu = f4_net(layers, H, dt, "cpu").set_params(gpu.params)
+        res = {"layers": layers, "H": H, "B": B, "dtype": dt, "plans": plans}
+        ops.reset_launch_counts()
+        got = gpu.output(x, bucketed=False)
+        torch.cuda.synchronize()
+        want, res["path_output"] = expect(False)
+        res["launches_output"] = _expect_launches(f"F4 ({tag}) output", want)
+        res["output_err"] = (got.float().cpu() - cpu.output(
+            x, bucketed=False).float()).abs().max().item()
+        ops.reset_launch_counts()
+        g_gpu, s_gpu = gpu.compute_gradient_and_score(x, y)
+        torch.cuda.synchronize()
+        want, res["path_train"] = expect(True)
+        res["launches_train"] = _expect_launches(f"F4 ({tag}) gradients",
+                                                 want)
+        g_cpu, s_cpu = cpu.compute_gradient_and_score(x, y)
+        res["grad_rel_err"] = _max_rel_err(g_gpu, g_cpu)
+        l_gpu, l_cpu = gpu.fit(x, y).get_score(), cpu.fit(x, y).get_score()
+        res["loss_rel_err"] = max(abs(s_gpu - s_cpu) / abs(s_cpu),
+                                  abs(l_gpu - l_cpu) / abs(l_cpu))
+        print(f"F4 ({tag}): {layers} x LSTM({H}) {dt}, B={B}, T={F4_T}: "
+              f"plans {plans}; output through {res['path_output']} "
+              f"{res['launches_output']}, err {res['output_err']:.3g}; "
+              f"training through {res['path_train']} "
+              f"{res['launches_train']}, gradients {res['grad_rel_err']:.3g}"
+              f" of max|grad|, losses {res['loss_rel_err']:.3g} relative "
+              f"(tol {tol}) [{card}]", flush=True)
+        if not (res["output_err"] <= tol and res["grad_rel_err"] <= tol
+                and res["loss_rel_err"] <= tol):
+            raise AssertionError(f"F4 ({tag}): the card disagrees with the "
+                                 "CPU port")
+        if tag == "a" and any(k.startswith("lstm2_fwd")
+                              for k in list(res["launches_output"])
+                              + list(res["launches_train"])):
+            raise AssertionError("F4 (a) launched the wavefront kernel")
+        out[tag] = res
+    return out
+
+
 def _expect_launches(part, want):
     """The launch counts since the last reset must be exactly ``want``."""
     from deeplearning4j_tpu_torch import ops
@@ -1006,6 +1159,42 @@ def _generate_streams(net, ids, vocab, dense, paged, res, card, tag):
                              f"{ties}")
 
 
+DECODE_PROFILE_STEPS = 10
+
+
+def _decode_profile(eng, entry, card, tag):
+    """Ten steps of the engine ``eng`` under ``profile_steps``: 8 streams of
+    one prompt token and ten new tokens each, submitted together, so every
+    step decodes all 8 slots (positions 0..9). Ms per step, device busy ms
+    and idle share, and the share of device time in the decode kernel
+    (``entry``, K8 or K9, exactly 2 launches a step; both are instances of
+    ``flash_decode_kernel``). Returns the profile."""
+    from deeplearning4j_tpu_torch import ops
+    prompts = [[i] for i in range(eng.slots)]
+    kernel = "flash_decode_kernel"
+
+    def run():
+        st0 = eng.stats()["steps"]
+        futs = [eng.submit(p, max_new_tokens=DECODE_PROFILE_STEPS)
+                for p in prompts]
+        for f in futs:
+            f.result(timeout=120)
+        return eng.stats()["steps"] - st0
+    ops.reset_launch_counts()
+    st0 = eng.stats()["steps"]
+    prof = profile_steps(run, DECODE_PROFILE_STEPS, (kernel,))
+    _expect_launches(f"{tag} decode profile",
+                     {entry: 2 * (eng.stats()["steps"] - st0)})
+    busy = prof["device_busy_ms_per_step"]
+    prof["kernel_share_of_busy"] = (None if busy is None else
+                                    prof["tagged_ms_per_step"][kernel] / busy)
+    print(f"{tag}: {entry} engine, " + fmt_profile(
+        prof, (kernel,), units="engine steps") + (
+        "" if busy is None else f"; {entry} {prof['kernel_share_of_busy']:.1%}"
+        " of device busy") + f" [{card}]", flush=True)
+    return prof
+
+
 def transformer_phase(card):
     """Serve TinyTransformer at its full default width on the card from the
     configuration's seed; every check raises on failure. Returns the
@@ -1104,6 +1293,11 @@ def transformer_phase(card):
         # (b) greedy /generate, 8 concurrent streams, on each engine
         _generate_streams(net, xte.argmax(-1), vocab, (cli, dense),
                           (pcli, paged), res, card, "tiny")
+        # where a decode step's time goes, on each engine
+        res["profile_dense"] = _decode_profile(dense, "flash_decode", card,
+                                               "tiny")
+        res["profile_paged"] = _decode_profile(paged, "flash_decode_paged",
+                                               card, "tiny")
     finally:
         srv.stop()
         psrv.stop()
@@ -1520,8 +1714,9 @@ def tiny_train_phase(card):
 
 
 def profile_steps(run, steps, tags):
-    """``run()`` does ``steps`` fit steps; it is called once to warm up
-    (timed, unprofiled) and once under torch.profiler. Returns the wall ms
+    """``run()`` does ``steps`` fit steps (or returns how many steps it
+    did); it is called once to warm up (timed, unprofiled) and once under
+    torch.profiler. Returns the wall ms
     per step of both calls, the device's busy ms per step (the sum of its
     kernels' times: one stream, so they do not overlap) and idle share
     against each wall time, device operations per step, the ms per step of
@@ -1531,15 +1726,17 @@ def profile_steps(run, steps, tags):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    def did(done):
+        return done if isinstance(done, int) else steps
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run()
+    done = did(run())
     torch.cuda.synchronize()
-    plain_wall = (time.perf_counter() - t0) / steps * 1e3
+    plain_wall = (time.perf_counter() - t0) / done * 1e3
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run()
+        steps = did(run())
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / steps * 1e3
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -1676,8 +1873,8 @@ def main() -> int:
                 rows.extend(pair)
                 print("kernel: " + fmt_bwd(pair) + f" [{card}]", flush=True)
     for kernel in ("flash_decode", "flash_decode_paged"):
-        for B in (1, 8, 64):
-            rows.append(attn_kernel_case(kernel, B, 512))
+        for B, pos in ((1, [511]), (8, None), (64, None)):
+            rows.append(attn_kernel_case(kernel, B, 512, pos=pos))
             print("kernel: " + fmt_attn(rows[-1]) + f" [{card}]", flush=True)
     # head dims past 128: K5-K9 through the column-chunk split, 2 heads
     for dh in WIDE_HEAD_DIMS:
@@ -1696,6 +1893,9 @@ def main() -> int:
                       flush=True)
 
     res = slice_phase(card)
+    t0 = time.perf_counter()
+    f4 = f4_phase(card)
+    f4["phase_seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     tiny = transformer_phase(card)
     tiny["phase_seconds"] = time.perf_counter() - t0
@@ -1731,6 +1931,8 @@ def main() -> int:
         if "tc_bound_ms" in row:       # K5-K7: the tensor-core bound too
             entries[-1].update(tc_bound_ms=row["tc_bound_ms"],
                                tc_bound_by=row["tc_bound_by"])
+        if "floor_ms" in row:          # K8/K9: the launch floor and plan
+            entries[-1].update(floor_ms=row["floor_ms"], plan=row["plan"])
         rows.append(row)
     for kernel, (T, B, counts) in main_shapes.items():
         row = kernel_case(kernel, T, B, 256, "float32", seed=1)
@@ -1749,7 +1951,7 @@ def main() -> int:
     for row in bwd_kernel_case(TINY_B, TINY_T, True, seed=1):
         entry(row["kernel"], row, recipe[row["kernel"]])
     print("main-path shape: " + fmt_bwd(rows[-2:]) + f" [{card}]", flush=True)
-    mid = [n + 32 for n in (16, 22, 28, 34, 40, 46, 52, 64)]
+    mid = DECODE_MID
     for kernel, kind in (("flash_decode", "dense"),
                          ("flash_decode_paged", "paged")):
         row = attn_kernel_case(kernel, 8, 512, pos=mid, seed=1)
@@ -1780,7 +1982,7 @@ def main() -> int:
         {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
          "kernel_rows": rows, "k3_hidden_sizes": k3_sizes,
          "k4_hidden_sizes": k4_sizes, "k12_hidden_sizes": k12_sizes,
-         "slice": res, "tiny": tiny, "wide": wide,
+         "slice": res, "f4": f4, "tiny": tiny, "wide": wide,
          "train": train,
          "tiny_train": tiny_train, "kernels": entries}, indent=1))
     print(json.dumps({"kernels": entries}))

@@ -8,48 +8,97 @@
 // ::_paged_kernel (flash_decode_step_paged: pool (NB, bs, H, Dh), page
 // tables (B, MB) int32 mapping logical block j of stream b to a pool
 // block). Same function: softmax over c <= pos of (q . k_c) / sqrt(Dh),
-// times v. Two artefacts of the TPU kernels are not carried over: the
-// 8-row replication of q (a TPU tile floor) and the cast and transpose
-// copies of the whole cache or pool the TPU wrappers make on every step,
-// which read all C positions. These kernels read the cache and the pool in
-// place, through their strides, and only the live rows 0..pos.
+// times v, with pos clamped to 0..C-1. Two artefacts of the TPU kernels are
+// not carried over: the 8-row replication of q (a TPU tile floor) and the
+// cast and transpose copies of the whole cache or pool the TPU wrappers
+// make on every step, which read all C positions. These kernels read the
+// cache and the pool in place, through their strides, and only the live
+// rows 0..pos.
 //
-// What bounds it on the card: bytes. A (b, h) pair reads 2 (pos + 1) Dh
-// float32 values of k and v once and does ~4 Dh FMAs per row: far below
-// the card's operations-per-byte line. At serving batch sizes (B H of a
-// few dozen to a few hundred blocks) the latency of the dependent loads in
-// each thread's key loop, not HBM bandwidth, sets the time.
+// What bounds it on the card: bytes, in principle. A (b, h) pair reads
+// 2 (pos + 1) Dh float32 values of k and v once and does ~4 Dh FMAs per
+// row, far below the card's operations-per-byte line. At serving batch
+// sizes, though, the work is a few dozen (b, h) pairs of a few hundred rows
+// each: what sets the time is how many SMs take part, how many dependent
+// load rounds each walks, and the launch itself.
 //
-// Design: one block per (b, h), 256 threads in groups of G lanes per key
-// row, each lane holding four elements of the row (one 16-byte load of k
-// and of v, neighbouring lanes on neighbouring addresses). The 256 / G
-// groups split the live prefix round-robin: group i takes keys i, i + NG,
-// ...; a group's lanes sum their partial dot products with warp shuffles,
-// so every lane of the group holds the score and runs the same online
-// softmax over its own four output elements. Rounds run to the same count
-// in every warp (a key past pos is a masked, unread slot), so the shuffles
-// never meet an exited lane. At the end the groups' (max, denominator,
-// accumulator) triples merge through shared memory. The paged kernel reads
-// block_tables[b, j / bs] inside the loop and addresses
-// pool[phys, j % bs, h, :]; nothing is gathered or copied.
+// Design: a thread-block cluster of S blocks per (b, h[, chunk]), S in
+// {1, 2, 4, 8, 16}, and the threads of a block (128, or 256 where the
+// grid has a block for every SM unsplit or a key row takes a warp),
+// chosen by shape alone in the entry point (B H chunks, the capacity C
+// and the SM count; never from pos, which lives on the card: reading it
+// would synchronise and break the capture of a decode step in a CUDA
+// graph). S is the largest split that keeps the grid within one block
+// per SM and gives each block a full round of keys at capacity: on an
+// H100 every doubling of S cost 0.2-0.5 us even where the keys left the
+// extra blocks idle, and a longer prefix gains more from S than a short
+// one loses. On the card, the live keys 0..p go to as
+// many of the S blocks as get a full round each (one block at a short
+// prefix, all S at a long one), in contiguous equal ranges -- for K9 in
+// whole pages, so no page is split between blocks; the other blocks get
+// empty ranges and add nothing.
 //
-// Head dims past 128: the column-chunk split. The grid runs over (b, h,
-// chunk) triples, ceil(Dh / 128) chunks of 128 columns (the last one
-// ragged, down to 8), with G = 32 lanes a key row. A group's lanes form
-// each score over the full Dh by looping their 16-byte loads of q and k
-// over the chunks, and accumulate only the block's chunk of v; no register
-// array grows with Dh. Every block recomputes the scores: at Dh 256 that is
-// 2x the q . k reads and work, the price of each output element written
-// once, by one block.
+// Inside a block, groups of G lanes per key row, each lane holding four
+// elements of the row (one 16-byte load of k and of v, neighbouring lanes
+// on neighbouring addresses). A round gives each group UNROLL keys of the
+// block's range, and a lane issues the loads of all of them before it uses
+// any; the group's lanes sum their partial dot products with warp
+// shuffles, the UNROLL sums interleaved, and run one online-softmax update
+// over its own four output columns (UNROLL + 1 exps, the hardware's fast
+// exp). K9 stages the page-table entries of the block's range in shared
+// memory before the key loop (one load per thread, in parallel, TABLE
+// entries at a time), so no key load waits on a table load of its own
+// round.
+//
+// Merges, each in a fixed order, so a launch repeats bit for bit (no
+// atomics, no second kernel, no scratch in global memory): the groups of a
+// warp by an xor butterfly of their (max, denominator, accumulator)
+// triples; the block's warps in warp order, in every thread; then, once
+// every block of the cluster is known to have started (a barrier whose
+// wait comes after the key loop), each block stores its triple's columns
+// into the shared memory of the block that owns them (DSMEM; a block owns
+// ceil(columns / S) of the chunk's columns), and one cluster barrier makes
+// them visible; each block merges its columns from the S triples in rank
+// order 0..S-1 and writes them. No block touches another's shared memory
+// after that barrier, so none waits for its peers before it exits.
+//
+// Head dims past 128: the column-chunk split. A cluster per (b, h, chunk)
+// triple, ceil(Dh / 128) chunks of 128 columns (the last one ragged, down
+// to 8), with G = 32 lanes a key row. A group's lanes form each score over
+// the full Dh by looping their 16-byte loads of q and k over the chunks,
+// and accumulate only the chunk's columns of v; no register array grows
+// with Dh. Every chunk recomputes the scores: at Dh 256 that is 2x the
+// q . k reads and work, the price of each output element written once.
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "cluster.cuh"
+
+using namespace dsmem;
+
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int CHUNK = 128;  // head-dim columns a block accumulates
+constexpr int CHUNK = 128;      // head-dim columns a block accumulates
+constexpr int UNROLL = 4;       // key rows a group loads before it uses any
+constexpr int MAX_SPLIT = 16;   // blocks a cluster splits the live keys over
+constexpr int MAX_THREADS = 256;
+// S grows while the grid stays within this many blocks per SM
+constexpr int BLOCKS_PER_SM = 1;
 
-enum Err { ERR_HEAD_DIM = -1, ERR_SHAPE = -2 };
+enum Err { ERR_HEAD_DIM = -1, ERR_SHAPE = -2, ERR_NO_PLAN = -3 };
+
+// plan_out of the entry points (PLAN_LEN ints, may be null): blocks per
+// cluster S, clusters (B H chunks), threads per block, and the keys a
+// block takes at least before the live keys spread to one more block.
+enum { PLAN_LEN = 4 };
+
+struct Args {
+  const float *q, *k, *v;
+  const int *pos, *tables;
+  float* out;
+  int H, Dh, C, bs, MB;
+  float scale;
+};
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -59,128 +108,331 @@ __device__ __forceinline__ float dot4(float4 a, float4 b) {
   return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
 }
 
+__device__ __forceinline__ float4 shfl4(float4 a, int d) {
+  return make_float4(__shfl_xor_sync(0xffffffffu, a.x, d), __shfl_xor_sync(0xffffffffu, a.y, d),
+                     __shfl_xor_sync(0xffffffffu, a.z, d), __shfl_xor_sync(0xffffffffu, a.w, d));
+}
+
+// Fold the softmax triple (m2, l2, a2) into (m, l, a); a side that saw no
+// key (l == 0, m = -inf) has weight 0.
+__device__ __forceinline__ void combine(float& m, float& l, float4& a, float m2, float l2,
+                                        float4 a2) {
+  const float M = fmaxf(m, m2);
+  const float w1 = l > 0.f ? __expf(m - M) : 0.f;
+  const float w2 = l2 > 0.f ? __expf(m2 - M) : 0.f;
+  l = l * w1 + l2 * w2;
+  a.x = a.x * w1 + a2.x * w2;
+  a.y = a.y * w1 + a2.y * w2;
+  a.z = a.z * w1 + a2.z * w2;
+  a.w = a.w * w1 + a2.w * w2;
+  m = M;
+}
+
+// The keys [lo, hi) of block `rank` over the live keys 0..p: contiguous
+// equal ranges, in whole pages of bs keys for the paged kernel, over as
+// many of the S blocks as give each at least kmin keys (one round of the
+// block's groups); the blocks past those get empty ranges.
+template <bool PAGED>
+__device__ __forceinline__ void block_range(int p, int rank, int S, int bs, int kmin, int& lo,
+                                            int& hi) {
+  const int n = p + 1;
+  const int unit = PAGED ? bs : 1;
+  const int units = (n + unit - 1) / unit;
+  const int umin = (kmin + unit - 1) / unit;
+  const int used = min(S, (units + umin - 1) / umin);
+  const int per = (units + used - 1) / used * unit;
+  lo = min(n, rank * per);
+  hi = min(n, lo + per);
+}
+
 // G: lanes per key row (a power of two, 4 G >= Dh, or G = 32 and 4 G =
-// CHUNK < Dh with WIDE).
-template <int G, bool PAGED, bool WIDE>
-__global__ void __launch_bounds__(THREADS)
-    flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ kc,
-                        const float* __restrict__ vc, const int* __restrict__ pos,
-                        const int* __restrict__ tables, float* __restrict__ out, int H, int Dh,
-                        int C, int bs, int MB, float scale) {
-  constexpr int NG = THREADS / G;  // key groups per block
-  constexpr int W = 4 * G;         // columns a block accumulates
-  __shared__ float m_s[NG], l_s[NG];
-  __shared__ __align__(16) float acc_s[NG][W];
+// CHUNK < Dh with WIDE); TPB threads a block. Grid: S x (B H chunks)
+// blocks along x, clusters of S.
+template <int G, bool PAGED, bool WIDE, int TPB>
+__global__ void __launch_bounds__(TPB) flash_decode_kernel(Args a, int S) {
+  constexpr int NG = TPB / G;  // key groups per block
+  constexpr int W = 4 * G;     // columns a block accumulates
+  constexpr int WARPS = TPB / 32;
+  constexpr int TABLE = 4 * TPB;  // page-table entries a block stages at a time
+  __shared__ float wm[WARPS], wl[WARPS];
+  __shared__ __align__(16) float wacc[WARPS][W];
+  // what the S blocks send this one: their (max, denominator) and their
+  // accumulators over the columns this block owns, by sender rank
+  __shared__ float rm[MAX_SPLIT], rl[MAX_SPLIT];
+  __shared__ float ro[MAX_SPLIT][W];
+  __shared__ int tbl[PAGED ? TABLE : 1];
+  const int H = a.H, Dh = a.Dh, C = a.C, bs = a.bs;
   const int nc = WIDE ? (Dh + W - 1) / W : 1;
-  const int bh = blockIdx.x / nc, oc = blockIdx.x % nc;
+  const int rank = (int)cluster_rank();
+  const int cid = blockIdx.x / S;
+  const int bh = cid / nc, oc = cid % nc;
   const int b = bh / H, h = bh % H;
-  const int gi = threadIdx.x / G, lane = threadIdx.x % G;
+  const int tid = threadIdx.x;
+  const int gi = tid / G, lane = tid % G;
   const int e0 = 4 * lane, eo = oc * W + e0;  // the lane's columns: first chunk, output
   const bool has = eo < Dh;  // Dh is a multiple of 8, so eo + 4 <= Dh
-  const float* qrow = q + (size_t)bh * Dh;
+  const float* qrow = a.q + (size_t)bh * Dh;
   float4 qv = make_float4(0.f, 0.f, 0.f, 0.f);
   if (!WIDE && has) {
     qv = load4(qrow + e0);
-    qv.x *= scale; qv.y *= scale; qv.z *= scale; qv.w *= scale;
+    qv.x *= a.scale; qv.y *= a.scale; qv.z *= a.scale; qv.w *= a.scale;
   }
   // a position past the capacity means every cached row is live
-  const int p = min(max(pos[b], 0), C - 1);
+  const int p = min(max(a.pos[b], 0), C - 1);
+  int lo, hi;
+  block_range<PAGED>(p, rank, S, bs, NG * UNROLL, lo, hi);
+  // a block stores into its peers only once they have all started: the
+  // wait for this arrive comes after the key loop
+  const bool one = S == 1;
+  if (!one) cluster_arrive_relaxed();
+
   float m = -INFINITY, l = 0.f;
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int j0 = 0; j0 <= p; j0 += NG) {
-    const int j = j0 + gi;
-    const bool ok = j <= p;
-    size_t row = 0;
-    if (ok) {
-      if (PAGED) {
-        const int phys = tables[(size_t)b * MB + j / bs];
-        row = ((size_t)phys * bs + j % bs) * H + h;
-      } else {
-        row = ((size_t)b * C + j) * H + h;
-      }
+  // one window for the dense kernel; TABLE pages at a time for the paged
+  for (int w0 = lo; w0 < hi; w0 += PAGED ? TABLE * bs : hi - lo) {
+    const int w1 = PAGED ? min(hi, w0 + TABLE * bs) : hi;
+    const int first = PAGED ? w0 / bs : 0;  // w0 is a page boundary
+    if (PAGED) {
+      if (w0 != lo) __syncthreads();  // the last window's entries are read
+      const int np = (w1 - 1) / bs - first + 1;
+      for (int i = tid; i < np; i += TPB) tbl[i] = a.tables[(size_t)b * a.MB + first + i];
+      __syncthreads();
     }
-    float4 vv = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (ok && has) vv = load4(vc + row * Dh + eo);
-    float part = 0.f;
-    if (WIDE) {
-      if (ok)
-        for (int e = e0; e < Dh; e += W) part += dot4(load4(qrow + e), load4(kc + row * Dh + e));
-    } else if (ok && has) {
-      part = dot4(qv, load4(kc + row * Dh + e0));
-    }
+    // every warp runs the same rounds (a key past w1 is a masked, unread
+    // slot), so the shuffles never meet an exited lane
+    for (int j0 = w0; j0 < w1; j0 += NG * UNROLL) {
+      bool ok[UNROLL];
+      size_t row[UNROLL];
+      float4 vv[UNROLL];
+      float s[UNROLL];
 #pragma unroll
-    for (int w = 1; w < G; w <<= 1) part += __shfl_xor_sync(0xffffffffu, part, w);
-    if (WIDE) part *= scale;
-    if (ok) {
-      const float mn = fmaxf(m, part);
-      const float alpha = expf(m - mn), pe = expf(part - mn);
-      l = l * alpha + pe;
-      acc.x = fmaf(pe, vv.x, acc.x * alpha);
-      acc.y = fmaf(pe, vv.y, acc.y * alpha);
-      acc.z = fmaf(pe, vv.z, acc.z * alpha);
-      acc.w = fmaf(pe, vv.w, acc.w * alpha);
-      m = mn;
-    }
-  }
-  if (lane == 0) {
-    m_s[gi] = m;
-    l_s[gi] = l;
-  }
-  *reinterpret_cast<float4*>(&acc_s[gi][e0]) = acc;
-  __syncthreads();
-  const int e = threadIdx.x;
-  if (e < W && oc * W + e < Dh) {
-    float M = -INFINITY;
-    for (int i = 0; i < NG; ++i) M = fmaxf(M, m_s[i]);
-    float L = 0.f, O = 0.f;
-    for (int i = 0; i < NG; ++i) {
-      if (l_s[i] > 0.f) {  // a group that saw no key adds nothing
-        const float w = expf(m_s[i] - M);
-        L = fmaf(l_s[i], w, L);
-        O = fmaf(acc_s[i][e], w, O);
+      for (int u = 0; u < UNROLL; ++u) {
+        const int j = j0 + u * NG + gi;
+        ok[u] = j < w1;
+        row[u] = 0;
+        if (ok[u]) {
+          if (PAGED) row[u] = ((size_t)tbl[j / bs - first] * bs + j % bs) * H + h;
+          else row[u] = ((size_t)b * C + j) * H + h;
+        }
+        vv[u] = ok[u] && has ? load4(a.v + row[u] * Dh + eo) : make_float4(0.f, 0.f, 0.f, 0.f);
+        s[u] = 0.f;
+      }
+      if (WIDE) {
+        for (int e = e0; e < Dh; e += W) {
+          const float4 qe = load4(qrow + e);
+#pragma unroll
+          for (int u = 0; u < UNROLL; ++u)
+            if (ok[u]) s[u] += dot4(qe, load4(a.k + row[u] * Dh + e));
+        }
+      } else {
+        float4 kv[UNROLL];
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u)
+          kv[u] = ok[u] && has ? load4(a.k + row[u] * Dh + e0) : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) s[u] = dot4(qv, kv[u]);
+      }
+#pragma unroll
+      for (int w = 1; w < G; w <<= 1)
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) s[u] += __shfl_xor_sync(0xffffffffu, s[u], w);
+      if (ok[0]) {  // ok[u] implies ok[u - 1]
+        float mn = m;
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+          if (WIDE) s[u] *= a.scale;
+          if (ok[u]) mn = fmaxf(mn, s[u]);
+        }
+        const float alpha = __expf(m - mn);  // 0 before the first key
+        l *= alpha;
+        acc.x *= alpha; acc.y *= alpha; acc.z *= alpha; acc.w *= alpha;
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u)
+          if (ok[u]) {
+            const float pe = __expf(s[u] - mn);
+            l += pe;
+            acc.x = fmaf(pe, vv[u].x, acc.x);
+            acc.y = fmaf(pe, vv[u].y, acc.y);
+            acc.z = fmaf(pe, vv[u].z, acc.z);
+            acc.w = fmaf(pe, vv[u].w, acc.w);
+          }
+        m = mn;
       }
     }
-    out[(size_t)bh * Dh + oc * W + e] = O / L;
+  }
+
+  // the groups of a warp: an xor butterfly, after which lanes 0..G-1 hold
+  // the warp's triple for their columns
+#pragma unroll
+  for (int d = G; d < 32; d <<= 1)
+    combine(m, l, acc, __shfl_xor_sync(0xffffffffu, m, d), __shfl_xor_sync(0xffffffffu, l, d),
+            shfl4(acc, d));
+  const int warp = tid / 32;
+  if (tid % 32 < G) {
+    *reinterpret_cast<float4*>(&wacc[warp][e0]) = acc;
+    if (lane == 0) {
+      wm[warp] = m;
+      wl[warp] = l;
+    }
+  }
+  __syncthreads();
+  // the block's warps in warp order: its (max, denominator) in every
+  // thread, its accumulator one column a thread
+  float M = -INFINITY, L = 0.f, x[WARPS];
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) M = fmaxf(M, wm[w]);
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    x[w] = wl[w] > 0.f ? __expf(wm[w] - M) : 0.f;  // a warp that saw no key adds nothing
+    L = fmaf(wl[w], x[w], L);
+  }
+  // send each block its share of the chunk's columns and this block's
+  // (max, denominator): one cluster barrier then makes them visible
+  const int wc = WIDE ? min(W, Dh - oc * W) : Dh;  // the chunk's columns
+  const int per = (wc + S - 1) / S;                // columns a block owns
+  if (!one) cluster_wait();
+  if (tid < S) {
+    if (one) {
+      rm[0] = M;
+      rl[0] = L;
+    } else {
+      peer_store(peer_addr((unsigned)__cvta_generic_to_shared(&rm[rank]), tid), M);
+      peer_store(peer_addr((unsigned)__cvta_generic_to_shared(&rl[rank]), tid), L);
+    }
+  }
+  for (int c = tid; c < wc; c += TPB) {
+    float O = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) O = fmaf(wacc[w][c], x[w], O);
+    const int k = c / per;
+    if (one) ro[0][c] = O;
+    else peer_store(peer_addr((unsigned)__cvta_generic_to_shared(&ro[rank][c - k * per]), k), O);
+  }
+  if (one) __syncthreads();
+  else cluster_sync();
+  // this block's columns from the S blocks' triples, in rank order
+  const int c0 = rank * per, cn = min(wc, c0 + per) - c0;
+  for (int t = tid; t < cn; t += TPB) {
+    float Mk = -INFINITY;
+    for (int k = 0; k < S; ++k) Mk = fmaxf(Mk, rm[k]);
+    float Lk = 0.f, Ok = 0.f;
+    for (int k = 0; k < S; ++k)
+      if (rl[k] > 0.f) {  // a block whose range is empty adds nothing
+        const float y = __expf(rm[k] - Mk);
+        Lk = fmaf(rl[k], y, Lk);
+        Ok = fmaf(ro[k][t], y, Ok);
+      }
+    a.out[(size_t)bh * Dh + oc * W + c0 + t] = Ok / Lk;
   }
 }
 
+// An empty kernel: launched with a decode kernel's plan, it times the
+// launch of that grid and cluster shape alone.
+__global__ void empty_kernel(int) {}
+
+struct Plan {
+  int S, threads;
+};
+
+// Threads a block: 256 where the grid already has a block for every SM
+// without splitting, or where a key row takes a whole warp (G = 32: 128
+// threads would leave a block 4 groups), else 128.
+inline int plan_threads(int n, int sms, int G) {
+  return n >= sms || G == 32 ? MAX_THREADS : MAX_THREADS / 2;
+}
+
+// Blocks per cluster for n clusters over a capacity of C keys: the largest
+// power of two up to MAX_SPLIT that keeps the grid within BLOCKS_PER_SM
+// blocks per SM and gives each block at least one round of keys (kmin) at
+// full capacity, and whose clusters the device can schedule. By shape
+// alone: how many of the S blocks take keys follows pos on the card.
+template <typename Kernel>
+int split_for(Kernel kernel, int n, int C, int sms, int threads, int kmin, int* S) {
+  int want = 1;
+  while (want < MAX_SPLIT && (long long)n * want * 2 <= (long long)BLOCKS_PER_SM * sms &&
+         want * 2 * kmin <= C)
+    want *= 2;
+  for (*S = want; *S >= 1; *S /= 2)
+    if (max_active_clusters(kernel, *S, threads, 0) > 0) return 0;
+  return ERR_NO_PLAN;
+}
+
+template <int G, bool PAGED, bool WIDE>
+int search_plan(int dev, int n, int C, Plan* out, bool* ok) {
+  int sms;
+  cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int threads = plan_threads(n, sms, G);
+  int S;
+  const int rc = threads == MAX_THREADS
+                     ? split_for(flash_decode_kernel<G, PAGED, WIDE, MAX_THREADS>, n, C, sms,
+                                 threads, MAX_THREADS / G * UNROLL, &S)
+                     : split_for(flash_decode_kernel<G, PAGED, WIDE, MAX_THREADS / 2>, n, C,
+                                 sms, threads, MAX_THREADS / 2 / G * UNROLL, &S);
+  *ok = rc == 0;
+  if (*ok) *out = Plan{S, threads};
+  return 0;
+}
+
+// Launch one instance on its plan (searched once per device, n and C, and
+// kept); the empty kernel instead where `empty`.
+template <int G, bool PAGED, bool WIDE>
+int run(const Args& a, int n, bool empty, int* plan_out, cudaStream_t s) {
+  Plan p;
+  bool ok;
+  const int e = cached_plan<search_plan<G, PAGED, WIDE>>(n, a.C, &p, &ok);
+  if (e) return e;
+  if (!ok) return ERR_NO_PLAN;
+  if ((long long)p.S * n > 0x7fffffff) return ERR_SHAPE;
+  if (plan_out) {
+    const int v[PLAN_LEN] = {p.S, n, p.threads, p.threads / G * UNROLL};
+    for (int k = 0; k < PLAN_LEN; ++k) plan_out[k] = v[k];
+  }
+  const dim3 grid((unsigned)(p.S * n));
+  if (empty) {
+    const cudaError_t ce = cluster_attributes(empty_kernel, p.S, 0);
+    if (ce != cudaSuccess) return (int)ce;
+    return launch_cluster_grid(empty_kernel, p.S, grid, p.threads, 0, s, 0);
+  }
+  if (p.threads == MAX_THREADS)
+    return launch_cluster_grid(flash_decode_kernel<G, PAGED, WIDE, MAX_THREADS>, p.S, grid,
+                               p.threads, 0, s, a, p.S);
+  return launch_cluster_grid(flash_decode_kernel<G, PAGED, WIDE, MAX_THREADS / 2>, p.S, grid,
+                             p.threads, 0, s, a, p.S);
+}
+
 template <bool PAGED>
-int launch(const void* q, const void* kc, const void* vc, const void* pos, const void* tables,
-           void* out, int B, int H, int Dh, int C, int bs, int MB, int device, void* stream) {
+int launch(Args a, int B, int device, bool empty, int* plan_out, void* stream) {
+  const int Dh = a.Dh;
   if (Dh < 8 || Dh % 8 != 0) return ERR_HEAD_DIM;
   const long long nc = (Dh + CHUNK - 1) / CHUNK;
-  if (B < 1 || H < 1 || C < 1 || (PAGED && (bs < 1 || MB < 1)) ||
-      (long long)B * H * nc > 0x7fffffff)
+  if (B < 1 || a.H < 1 || a.C < 1 || (PAGED && (a.bs < 1 || a.MB < 1)) ||
+      (long long)B * a.H * nc > 0x7fffffff)
     return ERR_SHAPE;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  const float *qf = (const float*)q, *kf = (const float*)kc, *vf = (const float*)vc;
-  const int *pf = (const int*)pos, *tf = (const int*)tables;
-  float* of = (float*)out;
   cudaStream_t s = (cudaStream_t)stream;
-  const float scale = 1.f / sqrtf((float)Dh);
-  const int lanes = Dh / 4;
-#define DECODE_LAUNCH(G_, WIDE_)                                                             \
-  flash_decode_kernel<G_, PAGED, WIDE_><<<(unsigned)(B * H * (WIDE_ ? nc : 1)), THREADS, 0, \
-                                          s>>>(qf, kf, vf, pf, tf, of, H, Dh, C, bs, MB, scale)
-  if (lanes <= 2) DECODE_LAUNCH(2, false);
-  else if (lanes <= 4) DECODE_LAUNCH(4, false);
-  else if (lanes <= 8) DECODE_LAUNCH(8, false);
-  else if (lanes <= 16) DECODE_LAUNCH(16, false);
-  else if (lanes <= 32) DECODE_LAUNCH(32, false);
-  else DECODE_LAUNCH(32, true);
-#undef DECODE_LAUNCH
-  return (int)cudaGetLastError();
+  a.scale = 1.f / sqrtf((float)Dh);
+  const int lanes = Dh / 4, bh = B * a.H;
+  if (lanes <= 2) return run<2, PAGED, false>(a, bh, empty, plan_out, s);
+  if (lanes <= 4) return run<4, PAGED, false>(a, bh, empty, plan_out, s);
+  if (lanes <= 8) return run<8, PAGED, false>(a, bh, empty, plan_out, s);
+  if (lanes <= 16) return run<16, PAGED, false>(a, bh, empty, plan_out, s);
+  if (lanes <= 32) return run<32, PAGED, false>(a, bh, empty, plan_out, s);
+  return run<32, PAGED, true>(a, (int)(bh * nc), empty, plan_out, s);
 }
 
 }  // namespace
 
 // q, out: (B, H, Dh) float32; kc, vc: (B, C, H, Dh) float32; pos: (B,)
 // int32. All contiguous; Dh any multiple of 8. Returns 0, a cudaError_t, or
-// an Err.
+// an Err; plan_out (PLAN_LEN ints, may be null) gets the plan.
 extern "C" int flash_decode(const void* q, const void* kc, const void* vc, const void* pos,
-                            void* out, int B, int H, int Dh, int C, int device, void* stream) {
-  return launch<false>(q, kc, vc, pos, nullptr, out, B, H, Dh, C, 0, 0, device, stream);
+                            void* out, int B, int H, int Dh, int C, int device, void* stream,
+                            int* plan_out) {
+  const Args a{(const float*)q, (const float*)kc, (const float*)vc, (const int*)pos, nullptr,
+               (float*)out, H, Dh, C, 1, 0, 0.f};
+  return launch<false>(a, B, device, false, plan_out, stream);
 }
 
 // As flash_decode over a pool pk, pv (NB, bs, H, Dh) float32 steered by
@@ -188,13 +440,28 @@ extern "C" int flash_decode(const void* q, const void* kc, const void* vc, const
 // logical capacity is MB * bs.
 extern "C" int flash_decode_paged(const void* q, const void* pk, const void* pv,
                                   const void* pos, const void* block_tables, void* out, int B,
-                                  int H, int Dh, int bs, int MB, int device, void* stream) {
-  return launch<true>(q, pk, pv, pos, block_tables, out, B, H, Dh, MB * bs, bs, MB, device,
-                      stream);
+                                  int H, int Dh, int bs, int MB, int device, void* stream,
+                                  int* plan_out) {
+  const Args a{(const float*)q, (const float*)pk, (const float*)pv, (const int*)pos,
+               (const int*)block_tables, (float*)out, H, Dh, MB * bs, bs, MB, 0.f};
+  return launch<true>(a, B, device, false, plan_out, stream);
+}
+
+// The empty kernel on the plan flash_decode (paged 0; C the capacity, bs
+// unused) or flash_decode_paged (paged 1; C = MB * bs) would launch at
+// this shape: a measurement of the launch alone. Touches no memory.
+extern "C" int flash_decode_empty(int paged, int B, int H, int Dh, int C, int bs, int device,
+                                  void* stream, int* plan_out) {
+  if (paged && (bs < 1 || C % bs != 0)) return ERR_SHAPE;
+  const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, H, Dh, C,
+               paged ? bs : 1, paged ? C / bs : 0, 0.f};
+  return paged ? launch<true>(a, B, device, true, plan_out, stream)
+               : launch<false>(a, B, device, true, plan_out, stream);
 }
 
 extern "C" const char* flash_decode_error(int code) {
   if (code == ERR_HEAD_DIM) return "head dim must be a positive multiple of 8";
   if (code == ERR_SHAPE) return "B, H, the capacity and the block size must be >= 1";
+  if (code == ERR_NO_PLAN) return "no cluster of the decode kernel fits this device";
   return cudaGetErrorString((cudaError_t)code);
 }

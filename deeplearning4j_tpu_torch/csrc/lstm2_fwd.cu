@@ -208,6 +208,23 @@ __global__ void __launch_bounds__(MAX_THREADS)
 
 // ---- the entry points -------------------------------------------------------
 
+// The route a launch at (B, H) takes: the cluster plan wherever one fits
+// (*cluster, c), else the grid plan (p); ERR_NO_PLAN where neither fits.
+// The launch and the plan query (lstm2_fwd_plan) both ask it, so the query
+// answers what the launch would do. Reports the plan in plan_out.
+template <typename T, bool TRAIN>
+static int choose_route(int B, int H, bool* cluster, ClusterPlan* c, Plan* p, int* plan_out) {
+  int e = plan_cluster<T, TRAIN, 2>(B, H, c, cluster);
+  if (e) return e;
+  if (*cluster) {
+    report_cluster_plan(plan_out, c->cs, c->clusters, c->rows, c->u, c->threads, c->smem);
+    return 0;
+  }
+  e = make_plan((const void*)lstm2_fwd_grid_kernel<T, TRAIN>, B, H, H, 3, 2, false, p);
+  if (e == 0) report_grid_plan(plan_out, *p, B);
+  return e;
+}
+
 template <typename T, bool TRAIN>
 static int launch(void* const* in, void* const* out, void* const* reserve, void* h1buf,
                   void* c1_s, void* c2_s, int Tn, int B, int H, cudaStream_t stream,
@@ -221,11 +238,11 @@ static int launch(void* const* in, void* const* out, void* const* reserve, void*
     res = Reserve2<T>{(T*)reserve[0], (T*)reserve[1], (T*)reserve[2], (T*)reserve[3],
                       (T*)reserve[4], (T*)reserve[5], (T*)reserve[6]};
   ClusterPlan c;
-  bool ok;
-  int e = plan_cluster<T, TRAIN, 2>(B, H, &c, &ok);
+  Plan p;
+  bool cluster;
+  const int e = choose_route<T, TRAIN>(B, H, &cluster, &c, &p, plan_out);
   if (e) return e;
-  if (ok) {
-    report_cluster_plan(plan_out, c.cs, c.clusters, c.rows, c.u, c.threads, c.smem);
+  if (cluster) {
     const FwdIO<T> io{gi,  rw1, w2,         b2,
                       rw2, {h01, h02}, {c01, c02}, hs2,
                       h1T, {c1T, c2T}, {res.g1, res.g2}, {res.tc1, res.tc2},
@@ -233,10 +250,6 @@ static int launch(void* const* in, void* const* out, void* const* reserve, void*
     return launch_cluster_route<T, TRAIN, 2>(c, io, Tn, B, H, stream);
   }
   const void* fn = (const void*)lstm2_fwd_grid_kernel<T, TRAIN>;
-  Plan p;
-  e = make_plan(fn, B, H, H, 3, 2, false, &p);
-  if (e) return e;
-  report_grid_plan(plan_out, p, B);
   T* hb = (T*)h1buf;
   float *c1 = (float*)c1_s, *c2 = (float*)c2_s;
   int hsz = p.hsz, kc = p.kc;
@@ -285,6 +298,26 @@ extern "C" int lstm2_fwd_train(void* const* in, void* const* out, void* const* r
                                int dtype, int device, void* stream, int* plan_out) {
   return dispatch<true>(in, out, reserve, nullptr, c1_scratch, c2_scratch, T, B, H, dtype,
                         device, stream, plan_out);
+}
+
+template <bool TRAIN>
+static int query(int B, int H, int dtype, int device, int* plan_out) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  ClusterPlan c;
+  Plan p;
+  bool cluster;
+  if (dtype == F32) return choose_route<float, TRAIN>(B, H, &cluster, &c, &p, plan_out);
+  if (dtype == BF16) return choose_route<__nv_bfloat16, TRAIN>(B, H, &cluster, &c, &p, plan_out);
+  return ERR_DTYPE;
+}
+
+// The plan lstm2_fwd (train 0) or lstm2_fwd_train (train 1) would launch
+// at (B, H) in this dtype, any T: 0 with plan_out filled, ERR_NO_PLAN where
+// no route fits, or another error. Launches nothing.
+extern "C" int lstm2_fwd_plan(int train, int B, int H, int dtype, int device, int* plan_out) {
+  return train ? query<true>(B, H, dtype, device, plan_out)
+               : query<false>(B, H, dtype, device, plan_out);
 }
 
 extern "C" const char* lstm_error(int code) { return error_text(code); }

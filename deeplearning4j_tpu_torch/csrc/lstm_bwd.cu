@@ -448,7 +448,24 @@ __global__ void __launch_bounds__(MAX_THREADS, 1)
   }
 }
 
-// ---- the entry point --------------------------------------------------------
+// ---- the entry points -------------------------------------------------------
+
+// The route a launch at (B, H) takes: the cluster plan wherever one fits
+// (*cluster, c), else the grid plan (p); ERR_NO_PLAN where neither fits.
+// The launch and the plan query (lstm_bwd_plan) both ask it, so the query
+// answers what the launch would do. Reports the plan in plan_out.
+template <typename T>
+static int choose_route(int B, int H, bool* cluster, ClusterPlan* c, Plan* p, int* plan_out) {
+  int e = plan_cluster<T>(B, H, c, cluster);
+  if (e) return e;
+  if (*cluster) {
+    report_cluster_plan(plan_out, c->cs, c->clusters, c->rows, c->u, CT, c->smem);
+    return 0;
+  }
+  e = make_plan((const void*)lstm_bwd_grid_kernel<T>, B, H, 4 * H, 1, 1, true, p);
+  if (e == 0) report_grid_plan(plan_out, *p, B);
+  return e;
+}
 
 template <typename T>
 static int launch(void* const* in, void* const* out, void* dc_s, int Tn, int B, int H,
@@ -458,20 +475,15 @@ static int launch(void* const* in, void* const* out, void* dc_s, int Tn, int B, 
   T* dz = (T*)out[0];
   float *dh0 = (float*)out[1], *dc0 = (float*)out[2], *dcs = (float*)dc_s;
   ClusterPlan c;
-  bool ok;
-  int e = plan_cluster<T>(B, H, &c, &ok);
+  Plan p;
+  bool cluster;
+  const int e = choose_route<T>(B, H, &cluster, &c, &p, plan_out);
   if (e) return e;
-  if (ok) {
-    report_cluster_plan(plan_out, c.cs, c.clusters, c.rows, c.u, CT, c.smem);
+  if (cluster)
     return launch_clusters(lstm_bwd_cluster_kernel<T>, c.cs, c.clusters, CT, c.smem, stream,
                            gates, tcs, cprev, rw, dhs, dcT, dz, dh0, dc0, Tn, B, H, c.u, c.rows,
                            c.rp);
-  }
   const void* fn = (const void*)lstm_bwd_grid_kernel<T>;
-  Plan p;
-  e = make_plan(fn, B, H, 4 * H, 1, 1, true, &p);
-  if (e) return e;
-  report_grid_plan(plan_out, p, B);
   int hsz = p.hsz, kc = p.kc;
   void* args[] = {&gates, &tcs, &cprev, &rw, &dhs, &dcT, &dz, &dh0,
                   &dc0,   &dcs, &Tn,    &B,  &H,   &hsz, &kc};
@@ -494,6 +506,20 @@ extern "C" int lstm_bwd(void* const* in, void* const* out, void* dc_scratch, int
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == F32) return launch<float>(in, out, dc_scratch, T, B, H, s, plan_out);
   if (dtype == BF16) return launch<__nv_bfloat16>(in, out, dc_scratch, T, B, H, s, plan_out);
+  return ERR_DTYPE;
+}
+
+// The plan lstm_bwd would launch at (B, H) in this dtype, any T: 0 with
+// plan_out filled, ERR_NO_PLAN where no route fits, or another error.
+// Launches nothing.
+extern "C" int lstm_bwd_plan(int B, int H, int dtype, int device, int* plan_out) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  ClusterPlan c;
+  Plan p;
+  bool cluster;
+  if (dtype == F32) return choose_route<float>(B, H, &cluster, &c, &p, plan_out);
+  if (dtype == BF16) return choose_route<__nv_bfloat16>(B, H, &cluster, &c, &p, plan_out);
   return ERR_DTYPE;
 }
 

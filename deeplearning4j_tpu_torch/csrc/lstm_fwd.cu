@@ -140,6 +140,23 @@ __global__ void __launch_bounds__(MAX_THREADS)
 
 // ---- the entry points -------------------------------------------------------
 
+// The route a launch at (B, H) takes: the cluster plan wherever one fits
+// (*cluster, c), else the grid plan (p); ERR_NO_PLAN where neither fits.
+// The launch and the plan query (lstm_fwd_plan) both ask it, so the query
+// answers what the launch would do. Reports the plan in plan_out.
+template <typename T, bool TRAIN>
+static int choose_route(int B, int H, bool* cluster, ClusterPlan* c, Plan* p, int* plan_out) {
+  int e = plan_cluster<T, TRAIN, 1>(B, H, c, cluster);
+  if (e) return e;
+  if (*cluster) {
+    report_cluster_plan(plan_out, c->cs, c->clusters, c->rows, c->u, c->threads, c->smem);
+    return 0;
+  }
+  e = make_plan((const void*)lstm_fwd_grid_kernel<T, TRAIN>, B, H, H, 1, 1, false, p);
+  if (e == 0) report_grid_plan(plan_out, *p, B);
+  return e;
+}
+
 template <typename T, bool TRAIN>
 static int launch(const void* gate_in, const void* rw, const void* h0, const void* c0,
                   void* hs, void* cT, void* c_s, void* const* reserve, int Tn, int B, int H,
@@ -153,11 +170,11 @@ static int launch(const void* gate_in, const void* rw, const void* h0, const voi
   Reserve<T> res{nullptr, nullptr, nullptr};
   if (TRAIN) res = Reserve<T>{(T*)reserve[0], (T*)reserve[1], (T*)reserve[2]};
   ClusterPlan c;
-  bool ok;
-  int e = plan_cluster<T, TRAIN, 1>(B, H, &c, &ok);
+  Plan p;
+  bool cluster;
+  const int e = choose_route<T, TRAIN>(B, H, &cluster, &c, &p, plan_out);
   if (e) return e;
-  if (ok) {
-    report_cluster_plan(plan_out, c.cs, c.clusters, c.rows, c.u, c.threads, c.smem);
+  if (cluster) {
     FwdIO<T> io{};
     io.gate_in = a_gi;
     io.rw1 = a_rw;
@@ -171,10 +188,6 @@ static int launch(const void* gate_in, const void* rw, const void* h0, const voi
     return launch_cluster_route<T, TRAIN, 1>(c, io, Tn, B, H, stream);
   }
   const void* fn = (const void*)lstm_fwd_grid_kernel<T, TRAIN>;
-  Plan p;
-  e = make_plan(fn, B, H, H, 1, 1, false, &p);
-  if (e) return e;
-  report_grid_plan(plan_out, p, B);
   float* a_cs = (float*)c_s;
   int hsz = p.hsz, kc = p.kc;
   void* args[] = {&a_gi, &a_rw, &a_h0, &a_c0, &a_hs, &a_cT, &a_cs, &res,
@@ -221,6 +234,26 @@ extern "C" int lstm_fwd_train(const void* gate_in, const void* rw, const void* h
                               void* stream, int* plan_out) {
   return dispatch<true>(gate_in, rw, h0, c0, hs, cT, c_scratch, reserve, T, B, H, dtype,
                         device, stream, plan_out);
+}
+
+template <bool TRAIN>
+static int query(int B, int H, int dtype, int device, int* plan_out) {
+  cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return (int)e;
+  ClusterPlan c;
+  Plan p;
+  bool cluster;
+  if (dtype == F32) return choose_route<float, TRAIN>(B, H, &cluster, &c, &p, plan_out);
+  if (dtype == BF16) return choose_route<__nv_bfloat16, TRAIN>(B, H, &cluster, &c, &p, plan_out);
+  return ERR_DTYPE;
+}
+
+// The plan lstm_fwd (train 0) or lstm_fwd_train (train 1) would launch at
+// (B, H) in this dtype, any T: 0 with plan_out filled, ERR_NO_PLAN where no
+// route fits, or another error. Launches nothing.
+extern "C" int lstm_fwd_plan(int train, int B, int H, int dtype, int device, int* plan_out) {
+  return train ? query<true>(B, H, dtype, device, plan_out)
+               : query<false>(B, H, dtype, device, plan_out);
 }
 
 extern "C" const char* lstm_error(int code) { return error_text(code); }

@@ -3,12 +3,15 @@
 Counterpart of deeplearning4j_tpu/nn/layers/rnn.py. The input-to-gate
 projection for the whole sequence is one (B*T, C) x (C, 4H)
 ``torch.matmul`` outside the time loop; the loop itself is the fused
-kernel whenever the layer's configuration is the one the kernel computes:
-``ops.lstm_sequence`` (``ops.lstm2_sequence`` for two stacked layers),
-which runs the inference kernel K1 (K4) under ``no_grad`` and the training
-kernels K2 (K4-train) with the backward K3 when autograd records. Other
-configurations run the layer's own ``_cell`` loop, which autograd
-differentiates. Parameter keys: ``W`` input weights, ``RW`` recurrent
+kernel whenever the layer's configuration is the one the kernel computes
+and, on the card, every kernel the path launches has a launch plan at the
+layer's batch and width: ``ops.lstm_sequence`` (``ops.lstm2_sequence`` for
+two stacked layers), which runs the inference kernel K1 (K4) under
+``no_grad`` and the training kernels K2 (K4-train) with the backward K3
+when autograd records. Other configurations and shapes run the layer's own
+``_cell`` loop, which autograd differentiates; a pair the wavefront kernel
+does not take runs as two single layers, each screened again, as the JAX
+package's pair does. Parameter keys: ``W`` input weights, ``RW`` recurrent
 weights, ``b`` bias, gate order IFOG.
 """
 
@@ -26,8 +29,19 @@ from deeplearning4j_tpu_torch.nn.layers.base import (register_layer,
 from deeplearning4j_tpu_torch.nn.layers.core import OutputLayer
 from deeplearning4j_tpu_torch.nn.losses import get_loss
 from deeplearning4j_tpu_torch.nn.weights import init_weights
+from deeplearning4j_tpu_torch.ops import lstm_cuda
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+# the kernels a single layer (a pair) launches, by whether autograd records
+_SINGLE_KERNELS = {False: ("lstm_fwd",), True: ("lstm_fwd_train", "lstm_bwd")}
+_PAIR_KERNELS = {False: ("lstm2_fwd",), True: ("lstm2_fwd_train", "lstm_bwd")}
+
+
+def _kernels_take(entries, B, H, dt, device) -> bool:
+    """The shape half of the screens: every kernel of ``entries`` has a
+    launch plan at (B, H) in dt on ``device`` (always on the CPU, whose
+    plain versions take every shape)."""
+    return all(lstm_cuda.has_plan(e, B, H, dt, device) for e in entries)
 
 
 def _gate_inputs(params, x, dt):
@@ -82,21 +96,28 @@ class LSTM(Layer):
         h_new = o * act(c_new)
         return h_new.to(h.dtype), c_new.to(c.dtype)
 
-    def fused_supported(self, dt) -> bool:
+    def fused_supported(self, dt, batch, device, recording) -> bool:
         """The configuration the fused kernel computes (the cuDNN-parity
         screen of the JAX package): plain LSTM, sigmoid gates, tanh cell,
-        float32 or bfloat16. Anything else runs the layer's own loop."""
+        float32 or bfloat16; and its shape half: on the card, a launch plan
+        at this batch and width for every kernel the path launches (K1, or
+        K2 and K3 when autograd is ``recording``). Anything else runs the
+        layer's own loop."""
         return (type(self) is LSTM and self.gate_activation == "sigmoid"
                 and (self.activation or "tanh") == "tanh"
-                and dt in _KERNEL_DTYPES)
+                and dt in _KERNEL_DTYPES
+                and _kernels_take(_SINGLE_KERNELS[recording], batch,
+                                  self.n_out, dt, device))
 
     def _scan(self, params, x, h0, c0):
         dt = h0.dtype
         gate_in = _gate_inputs(params, x, dt)
-        if self.fused_supported(dt):
-            hs, c_last = ops.lstm_sequence(
-                gate_in, params["RW"].to(dt).contiguous(), h0.contiguous(),
-                c0.contiguous())
+        rw, h0, c0 = params["RW"].to(dt).contiguous(), h0.contiguous(), \
+            c0.contiguous()
+        if self.fused_supported(
+                dt, x.shape[0], x.device,
+                lstm_cuda.autograd_records(gate_in, rw, h0, c0)):
+            hs, c_last = ops.lstm_sequence(gate_in, rw, h0, c0)
             return hs.transpose(0, 1), (hs[-1], c_last)
         h, c, hs = h0, c0, []
         for t in range(gate_in.shape[0]):
@@ -134,7 +155,10 @@ class LSTM(Layer):
 def lstm_pair_fusable(l1, l2, p1, p2, x) -> bool:
     """True when two consecutive LSTM layers run as ONE wavefront kernel
     (ops.fused_lstm2_sequence): both pass their own fused screen with the
-    promoted dtype, equal widths, and nothing sits between the layers."""
+    promoted dtype, equal widths, nothing sits between the layers, and on
+    the card the wavefront kernels the path launches (K4, or K4-train and
+    K3 when autograd records) have a launch plan at this batch and width.
+    Otherwise the caller runs the two layers one by one."""
     if not (type(l1) is LSTM and type(l2) is LSTM
             and l1.n_out == l2.n_out and l2.n_in == l1.n_out
             and not l2.dropout
@@ -142,7 +166,12 @@ def lstm_pair_fusable(l1, l2, p1, p2, x) -> bool:
         return False
     dt = torch.promote_types(torch.promote_types(x.dtype, p1["W"].dtype),
                              p2["W"].dtype)
-    return l1.fused_supported(dt) and l2.fused_supported(dt)
+    B, dev = x.shape[0], x.device
+    rec = lstm_cuda.autograd_records(
+        x, *(p[k] for p in (p1, p2) for k in ("W", "RW", "b")))
+    return (l1.fused_supported(dt, B, dev, rec)
+            and l2.fused_supported(dt, B, dev, rec)
+            and _kernels_take(_PAIR_KERNELS[rec], B, l1.n_out, dt, dev))
 
 
 def apply_lstm_pair(l1, l2, p1, p2, x):

@@ -11,17 +11,28 @@ Counterpart of deeplearning4j_tpu/ops/flash_decode.py, one source
   (B, MB) int32 page tables name; the logical capacity is MB * bs.
 
 Both return (B, H, Dh) float32, for any head dim that is a multiple of 8
-(``ops.head_dim_supported``). The kernels read the cache and the pool in
-place and only the live rows (the TPU wrappers' cast and transpose copies
-of the whole cache are not carried over). On CPU tensors the wrappers run
-the plain versions: the masked softmax of the attention layer's dense
-decode step, and for K9 a gather of the pages followed by K8's.
+(``ops.head_dim_supported``). On the card each (b, h) pair (each (b, h,
+128-column chunk) past Dh 128) is a thread-block cluster of S blocks that
+split the live keys 0..pos[b] between them in contiguous ranges (whole
+pages for K9; as many blocks as get a full round of keys each) and merge
+their softmax triples through distributed shared memory in rank order; S
+comes from the shape alone (B H chunks, the capacity, the SM count), never
+from ``pos``, which the kernels read on the card only, so a decode step can
+be captured in a CUDA graph and replayed after ``pos`` and the page tables
+change in place. ``last_plan(name)``
+reports the plan of the latest launch. The kernels read the cache and the
+pool in place and only the live rows (the TPU wrappers' cast and transpose
+copies of the whole cache are not carried over). On CPU tensors the
+wrappers run the plain versions: the masked softmax of the attention
+layer's dense decode step, and for K9 a gather of the pages followed by
+K8's.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Dict
 
 import torch
 
@@ -29,8 +40,13 @@ from deeplearning4j_tpu_torch import ops
 from deeplearning4j_tpu_torch.ops import build
 
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
-ENTRIES = {"flash_decode": [_VP] * 5 + [_INT] * 5 + [_VP],
-           "flash_decode_paged": [_VP] * 6 + [_INT] * 6 + [_VP]}
+_PLAN = ctypes.POINTER(ctypes.c_int)
+ENTRIES = {"flash_decode": [_VP] * 5 + [_INT] * 5 + [_VP, _PLAN],
+           "flash_decode_paged": [_VP] * 6 + [_INT] * 6 + [_VP, _PLAN],
+           "flash_decode_empty": [_INT] * 7 + [_VP, _PLAN]}
+# what every entry point reports of its launch
+_PLAN_KEYS = ("cluster_size", "clusters", "threads", "min_keys_per_block")
+_LAST_PLAN: Dict[str, dict] = {}
 
 
 def flash_decode_step_plain(q, kc, vc, pos) -> torch.Tensor:
@@ -97,13 +113,41 @@ def _on_card(name, q, tensors) -> bool:
     return True
 
 
-def _launch(entry, *args) -> None:
+def last_plan(name: str) -> dict:
+    """Plan of the kernel's latest launch (``flash_decode`` or
+    ``flash_decode_paged``): blocks per cluster (S), clusters (B H
+    chunks), threads per block, and the keys a block takes at least (one
+    round of its lane groups) before the live keys spread to one more of
+    the S blocks."""
+    return dict(_LAST_PLAN.get(name, {}))
+
+
+def _call(entry, *args) -> dict:
     lib = build.load("flash_decode", ENTRIES, "flash_decode_error")
-    rc = getattr(lib, entry)(*args)
+    plan = (ctypes.c_int * len(_PLAN_KEYS))()
+    rc = getattr(lib, entry)(*args, plan)
     if rc != 0:
         raise RuntimeError(f"{entry} kernel failed: "
                            + lib.flash_decode_error(rc).decode())
+    return dict(zip(_PLAN_KEYS, plan))
+
+
+def _launch(entry, *args) -> None:
+    _LAST_PLAN[entry] = _call(entry, *args)
     ops.count_launch(entry)
+
+
+def launch_floor(name: str, B: int, H: int, Dh: int, C: int, bs: int = 0,
+                 device=None) -> dict:
+    """A measurement aid: launch an empty kernel on the grid and cluster
+    shape that ``name`` (``flash_decode``, or ``flash_decode_paged`` with
+    block size bs) would launch at this shape, on the current stream. It
+    touches no memory and counts as no launch of the kernel. Returns the
+    plan."""
+    dev = torch.device("cuda" if device is None else device)
+    return _call("flash_decode_empty", int(name == "flash_decode_paged"), B,
+                 H, Dh, C, bs, dev.index or 0,
+                 torch.cuda.current_stream(dev).cuda_stream)
 
 
 def flash_decode_step(q, kc, vc, pos) -> torch.Tensor:

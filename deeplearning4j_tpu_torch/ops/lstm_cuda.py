@@ -25,6 +25,8 @@ Counterpart of deeplearning4j_tpu/ops/lstm_pallas.py:
   runs K3 (twice for the pair) and leaves the weight gradients to batched
   ``torch.matmul``s. ``lstm_sequence``/``lstm2_sequence`` pick them when
   autograd is recording, else the inference kernels K1/K4.
+- ``has_plan(entry, B, H, dtype, device)`` asks a kernel's C plan query
+  whether it launches at a shape: the shape half of the layers' screens.
 
 All keep the JAX package's contract: IFOG gate order,
 ``z = gate_in_t + h_{t-1} @ RW``, cell math in float32, float32 or bfloat16
@@ -33,7 +35,8 @@ bfloat16 before the product and the sum stays float32), outputs and
 reserves in the stream dtype, dh0/dc0 of the backward in float32. The input
 projection ``x @ W + b`` stays outside, as a ``torch.matmul`` in the layer.
 
-On a CUDA tensor a wrapper launches its kernel or raises; on a CPU tensor it
+On a CUDA tensor a wrapper launches its kernel or raises (for a shape
+without a launch plan too); on a CPU tensor it
 runs the plain version beside it, a Python time loop over the same float32
 math. The kernels are built and loaded by ``ops/build.py``.
 """
@@ -57,7 +60,9 @@ _PLAN_KEYS = ("route", "cluster_size", "clusters", "rows_per_cluster",
               "k_slice", "shared_bytes")
 _ROUTES = {1: "cluster", 0: "grid"}
 # entry point -> (source stem, argtypes); every entry returns an int error
-# code and ends with (device, stream, plan_out)
+# code; the kernels' entries end with (device, stream, plan_out), their
+# plan queries (``*_plan``: the same route choice, nothing launched) with
+# (dtype, device, plan_out)
 ENTRIES = {
     "lstm_fwd": ("lstm_fwd", [_VP] * 7 + [_INT] * 5 + [_VP, _PLAN]),
     "lstm_fwd_train": ("lstm_fwd", [_VP] * 7 + [_PTRS] + [_INT] * 5
@@ -67,10 +72,21 @@ ENTRIES = {
     "lstm2_fwd_train": ("lstm2_fwd", [_PTRS] * 3 + [_VP] * 2 + [_INT] * 5
                         + [_VP, _PLAN]),
     "lstm_bwd": ("lstm_bwd", [_PTRS] * 2 + [_VP] + [_INT] * 5 + [_VP, _PLAN]),
+    "lstm_fwd_plan": ("lstm_fwd", [_INT] * 5 + [_PLAN]),
+    "lstm2_fwd_plan": ("lstm2_fwd", [_INT] * 5 + [_PLAN]),
+    "lstm_bwd_plan": ("lstm_bwd", [_INT] * 4 + [_PLAN]),
 }
+# kernel entry -> (its plan query, the query's leading arguments)
+_QUERIES = {"lstm_fwd": ("lstm_fwd_plan", (0,)),
+            "lstm_fwd_train": ("lstm_fwd_plan", (1,)),
+            "lstm2_fwd": ("lstm2_fwd_plan", (0,)),
+            "lstm2_fwd_train": ("lstm2_fwd_plan", (1,)),
+            "lstm_bwd": ("lstm_bwd_plan", ())}
+_ERR_NO_PLAN = -2                    # lstm::ERR_NO_PLAN (lstm_common.cuh)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _LAST_PLAN: Dict[str, dict] = {}
+_HAS_PLAN: Dict[tuple, bool] = {}
 
 
 def _lib(stem: str) -> ctypes.CDLL:
@@ -85,6 +101,34 @@ def last_plan(name: str) -> dict:
     depth of a staged slice of the contraction (grid route), shared
     bytes."""
     return dict(_LAST_PLAN.get(name, {}))
+
+
+def has_plan(entry: str, B: int, H: int, dtype, device) -> bool:
+    """Whether the kernel ``entry`` (a key of ``_QUERIES``) launches at
+    batch B and hidden size H in ``dtype`` on ``device``, for any T: on the
+    card its C plan query runs the route choice the launch runs, once per
+    (entry, B, H, dtype, device) -- the answer is kept, since the host
+    bounds every step. False only where the query answers that no launch
+    plan fits; a failed build or any CUDA error raises. On the CPU the
+    plain version takes every shape: True."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"{entry}: unsupported device {dev}")
+    key = (entry, B, H, dtype, dev.index or 0)
+    hit = _HAS_PLAN.get(key)
+    if hit is None:
+        query, lead = _QUERIES[entry]
+        lib = _lib(ENTRIES[entry][0])
+        plan = (ctypes.c_int * len(_PLAN_KEYS))()
+        rc = getattr(lib, query)(*lead, B, H, _DTYPE_CODE[dtype],
+                                 dev.index or 0, plan)
+        if rc not in (0, _ERR_NO_PLAN):
+            raise RuntimeError(f"{query} failed: "
+                               f"{lib.lstm_error(rc).decode()}")
+        hit = _HAS_PLAN[key] = rc == 0
+    return hit
 
 
 def _check(name, dtype, device, **tensors):
@@ -465,14 +509,17 @@ class FusedLSTM2(torch.autograd.Function):
                 dc01.to(dt), dh02.to(dt), dc02.to(dt))
 
 
-def _recording(*tensors) -> bool:
+def autograd_records(*tensors) -> bool:
+    """Whether autograd records an operation on these tensors: the
+    condition under which the layers run the training kernels (K2, K4-train
+    and K3) instead of the inference ones (K1, K4)."""
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def lstm_sequence(gate_in, rw, h0, c0) -> Tuple[torch.Tensor, ...]:
     """``fused_lstm_sequence`` for the layers: through ``FusedLSTM`` (K2 +
     K3) when autograd records, else the inference kernel K1."""
-    if _recording(gate_in, rw, h0, c0):
+    if autograd_records(gate_in, rw, h0, c0):
         return FusedLSTM.apply(gate_in, rw, h0, c0)
     return fused_lstm_sequence(gate_in, rw, h0, c0)
 
@@ -482,6 +529,6 @@ def lstm2_sequence(gate_in1, rw1, w2, b2, rw2, h01, c01, h02, c02
     """``fused_lstm2_sequence`` for the layers: through ``FusedLSTM2``
     (K4-train + K3) when autograd records, else the inference kernel K4."""
     args = (gate_in1, rw1, w2, b2, rw2, h01, c01, h02, c02)
-    if _recording(*args):
+    if autograd_records(*args):
         return FusedLSTM2.apply(*args)
     return fused_lstm2_sequence(*args)

@@ -4,7 +4,12 @@ training modes), K4 and K4-train (csrc/lstm2_fwd.cu) and K3
 (csrc/flash_attn_fwd.cu), K6
 and K7 (csrc/flash_attn_bwd.cu), K8 and K9 (csrc/flash_decode.cu) --
 against their plain PyTorch versions on the card, and the autograd
-functions' gradients on the card against the same on the CPU.
+functions' gradients on the card against the same on the CPU. Also the
+LSTM screens' shape half at F4's shapes (networks whose widths some
+kernel has no launch plan for, against the CPU port, launching exactly
+what the plan queries answer for), and K8/K9's cluster split: its plan,
+20 launches that repeat bit for bit, and a decode step captured in a CUDA
+graph and replayed after pos and the page tables change in place.
 
 Marked ``cuda``: they skip without a card, since a CUDA kernel has no CPU
 mode. On a machine with one (and ``nvcc``) they run with the usual
@@ -558,3 +563,224 @@ def test_attention_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     x = _rand(2, 8, 12, device=cuda_device)
     with pytest.raises(ValueError, match="head dim"):
         ops.flash_attention_bwd(x, x, x, x, x[..., 0], x)
+
+
+# ---- F4: the LSTM screens' shape half on the card ---------------------------
+
+V = 9
+# (layers, H, B, dtype): past K1's largest H at B=32 (1056 on an H100), a
+# width no kernel takes, a pair past K4's largest H (581) whose single
+# layers K1 takes, and a bf16 width the grid route refuses (it sizes the
+# weights as float32 in either dtype)
+F4_CASES = [(1, 1064, 32, torch.float32), (1, 2048, 32, torch.float32),
+            (2, 600, 32, torch.float32), (1, 1088, 1, torch.bfloat16)]
+SINGLE = {False: ("lstm_fwd",), True: ("lstm_fwd_train", "lstm_bwd")}
+PAIR = {False: ("lstm2_fwd",), True: ("lstm2_fwd_train", "lstm_bwd")}
+
+
+def f4_net(layers, H, dtype, device, seed=11):
+    """``layers`` x LSTM(H) and a softmax RnnOutputLayer over a V-char
+    vocabulary; bfloat16 as the compute dtype when asked."""
+    from deeplearning4j_tpu_torch import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.conf import (InputType,
+                                                  NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.layers import LSTM, RnnOutputLayer
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    lb = NeuralNetConfiguration.builder().seed(seed).updater(Adam(1e-3)) \
+        .list()
+    for _ in range(layers):
+        lb = lb.layer(LSTM(n_out=H, activation="tanh"))
+    conf = lb.layer(RnnOutputLayer(n_out=V, activation="softmax",
+                                   loss="mcxent")) \
+        .set_input_type(InputType.recurrent(V)).build()
+    if dtype == torch.bfloat16:
+        conf.global_conf.compute_dtype = "bfloat16"
+    return MultiLayerNetwork(conf, device=device).init()
+
+
+def f4_launches(layers, H, B, dtype, recording):
+    """The launches one forward makes by what ``has_plan`` answers on this
+    card: the pair's wavefront where every screen passes, else each layer's
+    kernels where its screen passes, else nothing (the layers' loops)."""
+    def take(entries):
+        return all(lstm_cuda.has_plan(e, B, H, dtype, torch.device("cuda"))
+                   for e in entries)
+    if not take(SINGLE[recording]):
+        return {}
+    if layers == 2 and take(PAIR[recording]):
+        return {e: 2 if e == "lstm_bwd" else 1 for e in PAIR[recording]}
+    return {e: layers for e in SINGLE[recording]}
+
+
+def f4_batch(B, T=8, seed=0):
+    r = np.random.RandomState(seed)
+    eye = np.eye(V, dtype=np.float32)
+    return eye[r.randint(0, V, (B, T))], eye[r.randint(0, V, (B, T))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layers,H,B,dtype", F4_CASES)
+def test_lstm_shapes_without_a_plan_run_on_the_card(layers, H, B, dtype,
+                                                    cuda_device):
+    """Output, step-1 gradients and one ``fit`` step on the card against the
+    CPU port from the same parameters (1e-4, bf16 3e-2; gradients relative
+    to their largest magnitude, the loss relative), with exactly the
+    launches the plan queries answered for: a layer without a plan runs its
+    own loop, a pair without one runs as two screened layers."""
+    tol = TOL[dtype]
+    x, y = f4_batch(B)
+    gpu = f4_net(layers, H, dtype, "cuda")
+    cpu = f4_net(layers, H, dtype, "cpu").set_params(
+        [{k: v.cpu() for k, v in p.items()} for p in gpu.params])
+    ops.reset_launch_counts()
+    out = gpu.output(x, bucketed=False)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == f4_launches(layers, H, B, dtype, False)
+    want = cpu.output(x, bucketed=False)
+    assert (out.float().cpu() - want.float()).abs().max().item() <= tol
+    ops.reset_launch_counts()
+    g_gpu, s_gpu = gpu.compute_gradient_and_score(x, y)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == f4_launches(layers, H, B, dtype, True)
+    g_cpu, s_cpu = cpu.compute_gradient_and_score(x, y)
+    assert abs(s_gpu - s_cpu) <= tol * abs(s_cpu)
+    for a, b in zip(g_gpu, g_cpu):
+        for k in b:
+            ref = b[k].float()
+            err = (a[k].float().cpu() - ref).abs().max().item()
+            assert err <= tol * ref.abs().max().item(), k
+    l_gpu = gpu.fit(x, y).get_score()
+    l_cpu = cpu.fit(x, y).get_score()
+    assert abs(l_gpu - l_cpu) <= tol * abs(l_cpu)
+
+
+@pytest.mark.cuda
+def test_pair_past_the_wavefront_runs_no_wavefront_kernel(cuda_device):
+    """2 x LSTM(600) f32 at B=32: on an H100 K4 takes H up to 581, K1 up to
+    1056, so the pair runs as two K1 launches."""
+    assert not lstm_cuda.has_plan("lstm2_fwd", 32, 600, torch.float32,
+                                  cuda_device)
+    assert lstm_cuda.has_plan("lstm_fwd", 32, 600, torch.float32,
+                              cuda_device)
+    net = f4_net(2, 600, torch.float32, "cuda")
+    ops.reset_launch_counts()
+    net.output(f4_batch(32)[0], bucketed=False)
+    torch.cuda.synchronize()
+    assert ops.launch_counts() == {"lstm_fwd": 2}
+
+
+@pytest.mark.cuda
+def test_wrapper_still_raises_for_a_shape_without_a_plan(cuda_device):
+    c = _case(4, 32, 2048, torch.float32, cuda_device)
+    assert not lstm_cuda.has_plan("lstm_fwd", 32, 2048, torch.float32,
+                                  cuda_device)
+    with pytest.raises(RuntimeError, match="no launch plan"):
+        ops.fused_lstm_sequence(*[c[k] for k in K1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", sorted(KERNELS))
+def test_plan_query_answers_what_the_launch_does(entry, cuda_device):
+    """Where the query says a plan exists the launch takes it (the same
+    route and plan); where it says none, the launch raises."""
+    for H in (256, 600, 1056, 1064):
+        c = _case(2, 32, H, torch.float32, cuda_device)
+        ok = lstm_cuda.has_plan(entry, 32, H, torch.float32, cuda_device)
+        run = lambda: KERNELS[entry][1](*_args(entry, c))  # noqa: E731
+        if ok:
+            run()
+            torch.cuda.synchronize()
+        else:
+            with pytest.raises(RuntimeError, match="no launch plan"):
+                run()
+
+
+# ---- K8 / K9: the cluster split ---------------------------------------------
+
+# (B, H, Dh, C, positions): the /generate engines' shape (8 streams halfway
+# through their completions), one long stream, a full batch over the whole
+# cache, the 256-wide heads' engine shape (two column chunks)
+MID = [48, 54, 60, 66, 72, 78, 84, 96]
+DECODE_CASES = [(8, 4, 32, 512, MID), (1, 4, 32, 512, [511]),
+                (64, 4, 32, 512, None), (8, 2, 256, 512, MID)]
+
+
+def _decode_inputs(B, H, Dh, C, pos, paged, device, seed=0):
+    """q, the cache (dense) or the pool and page tables (16-row blocks,
+    shuffled, block 0 left as scratch), and positions (default: spread
+    over 0..C-1)."""
+    if pos is None:
+        pos = torch.linspace(0, C - 1, B).round().long().tolist()
+    q = _rand(B, H, Dh, device=device, seed=seed)
+    posd = torch.tensor(pos, dtype=torch.int32, device=device)
+    if not paged:
+        kc, vc = (_rand(B, C, H, Dh, device=device, seed=seed + s)
+                  for s in (1, 2))
+        return (q, kc, vc, posd)
+    bs, MB = 16, C // 16
+    NB = B * MB + 1
+    pk, pv = (_rand(NB, bs, H, Dh, device=device, seed=seed + s)
+              for s in (1, 2))
+    tables = (torch.randperm(NB - 1, generator=torch.Generator()
+                             .manual_seed(seed + 3))[:B * MB] + 1) \
+        .reshape(B, MB).to(torch.int32).to(device)
+    return (q, pk, pv, posd, tables)
+
+
+def _decode_fns(paged):
+    if paged:
+        return (ops.flash_decode_step_paged,
+                decode_cuda.flash_decode_step_paged_plain,
+                "flash_decode_paged")
+    return (ops.flash_decode_step, decode_cuda.flash_decode_step_plain,
+            "flash_decode")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("B,H,Dh,C,pos", DECODE_CASES)
+def test_flash_decode_clusters_repeat_bit_for_bit(B, H, Dh, C, pos, paged,
+                                                  cuda_device):
+    """The plan (a cluster of S blocks per (b, h, chunk), S from the shape),
+    the result against the plain version, and 20 more launches that repeat
+    the first bit for bit (every merge in a fixed order, no atomics)."""
+    args = _decode_inputs(B, H, Dh, C, pos, paged, cuda_device)
+    fn, plain, name = _decode_fns(paged)
+    first = fn(*args)
+    plan = decode_cuda.last_plan(name)
+    assert plan["cluster_size"] in (1, 2, 4, 8, 16)
+    assert plan["clusters"] == B * H * -(-Dh // 128)
+    assert plan["threads"] in (128, 256)
+    torch.cuda.synchronize()
+    assert (first - plain(*args)).abs().max().item() <= TOL[torch.float32]
+    for _ in range(20):
+        assert torch.equal(fn(*args), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+def test_flash_decode_replays_from_a_cuda_graph(paged, cuda_device):
+    """One decode step captured in a CUDA graph and replayed after pos (and
+    the page tables) change in place: the kernel reads both on the card
+    only, so every replay matches the plain version on the new values."""
+    args = _decode_inputs(8, 4, 32, 512, MID, paged, cuda_device)
+    fn, plain, _ = _decode_fns(paged)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*args)
+    gen = torch.Generator().manual_seed(5)
+    for trial in range(4):
+        pos = torch.randint(0, 512 + 8 * trial, (8,), generator=gen)
+        args[3].copy_(pos.to(torch.int32))
+        if paged:
+            NB = args[1].shape[0]
+            args[4].copy_((torch.randperm(NB - 1, generator=gen)[:8 * 32] + 1)
+                          .reshape(8, 32).to(torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert (out - plain(*args)).abs().max().item() <= TOL[torch.float32]

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Time the LSTM kernels of one or more checkouts of this repository on one
-card, every checkout with the same timers: those of this checkout's
-``chip_smoke.py``.
+"""Time the LSTM and flash decode kernels of one or more checkouts of this
+repository on one card, every checkout with the same timers: those of this
+checkout's ``chip_smoke.py``.
 
     python3 tools/compare_trees.py ROOT [ROOT ...] \\
-        --case lstm_fwd_train:16:32:256:float32 [--case ...] \\
+        --case lstm_fwd_train:16:32:256:float32 \\
+        --case flash_decode:8:512:mid [--case ...] \\
         [--probe k12:1054:1058] [--tbptt-profile]
 
 Each ROOT (a checkout, for example a ``git archive`` of another commit
@@ -20,7 +21,14 @@ result held against the plain version (f32 1e-4, bf16 3e-2) and repeated
 bit for bit.
 
 ``--case KERNEL:T:B:H:DTYPE`` names a ``chip_smoke.KERNELS`` kernel and its
-shape; a case given twice is timed twice. ``--probe NAME:LO:HI`` calls
+shape; ``--case flash_decode:B:C:POS[:DH[:HEADS]]`` (or
+``flash_decode_paged``, pages of 16 rows) a decode step of B streams over a
+capacity of C at positions POS -- ``last``, ``spread``, ``mid`` or a comma
+list (``chip_smoke.decode_positions``) -- head dim DH (32) and HEADS heads
+(4), timed by ``chip_smoke.attn_kernel_case``: ``ms`` by graph replay,
+``call_ms``, ``plain_ms``, ``library_ms`` (SDPA), the result held against
+the plain version (1e-4) and repeated bit for bit over 20 launches. A case
+given twice is timed twice. ``--probe NAME:LO:HI`` calls
 ``chip_smoke.<NAME>_hidden_sizes(LO, HI)`` (``k3``, ``k4`` or ``k12``): the
 hidden sizes in [LO, HI] the kernels take. ``--tbptt-profile`` profiles ten
 batches of the LSTM model's truncated BPTT with ``chip_smoke.tbptt_net`` and
@@ -62,8 +70,13 @@ def emit(row):
     print("ROW " + json.dumps(row), flush=True)
 
 
-for kernel, T, B, H, dt in cases:
-    emit(cs.kernel_case(kernel, T, B, H, dt))
+for case in cases:
+    if case[0].startswith("flash_decode"):
+        kernel, B, C, pos, dh, heads = case
+        emit(cs.attn_kernel_case(kernel, B, C, pos=cs.decode_positions(
+            pos, B, C), seed=1, dh=dh, heads=heads))
+    else:
+        emit(cs.kernel_case(*case))
 for name, lo, hi in probes:
     emit({"probe": name, "lo": lo, "hi": hi,
           "took": getattr(cs, name + "_hidden_sizes")(lo, hi)})
@@ -84,12 +97,24 @@ def spec(text, types):
     return [t(p) for t, p in zip(types, parts)]
 
 
+def case(text):
+    """An LSTM case (KERNEL:T:B:H:DTYPE) or a decode case
+    (flash_decode[_paged]:B:C:POS[:DH[:HEADS]])."""
+    if not text.startswith("flash_decode"):
+        return spec(text, (str, int, int, int, str))
+    parts = text.split(":")
+    if not 4 <= len(parts) <= 6:
+        raise argparse.ArgumentTypeError(f"{text!r}: want KERNEL:B:C:POS"
+                                         "[:DH[:HEADS]]")
+    return ([parts[0], int(parts[1]), int(parts[2]), parts[3]]
+            + [int(p) for p in parts[4:]] + [32, 4][len(parts) - 4:])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("roots", nargs="+", type=Path)
-    ap.add_argument("--case", action="append", default=[],
-                    type=lambda s: spec(s, (str, int, int, int, str)),
-                    metavar="KERNEL:T:B:H:DTYPE")
+    ap.add_argument("--case", action="append", default=[], type=case,
+                    metavar="KERNEL:T:B:H:DTYPE or DECODE:B:C:POS[:DH[:HEADS]]")
     ap.add_argument("--probe", action="append", default=[],
                     type=lambda s: spec(s, (str, int, int)),
                     metavar="NAME:LO:HI")
