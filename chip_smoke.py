@@ -117,8 +117,25 @@ result line, when any of them or the port's package is missing. Phases:
    the trained graph saved with its updater, loaded on the card, one more
    ``fit`` step on both: the same loss and parameters; (d) ten ``fit``
    steps, the same way.
+8. Captured training. Every fit path on the card runs its step through
+   CUDA graphs (the first step of a signature eagerly, as the warm-up),
+   so 6 and 7 above already train captured and keep their bars. Here, per
+   path -- the LSTM recipe's steps, its tBPTT batches, the TinyTransformer
+   recipe's steps -- three nets from one init (the per-layer loop, the
+   fused eager step, the captured step), ten steps each: the fused eager
+   step against the loop bit for bit, the captured against the eager
+   within 1e-5 of max|p| (and whether bit for bit), every step's launches
+   under replay equal to the eager step's; then ten more steps of the
+   eager and of the captured net under ``torch.profiler`` (ms per step,
+   device busy time, idle share, device operations). Then the bf16
+   train-precision policy: three ``fit`` steps of the LSTM model and of
+   TinyTransformer on the card against the CPU port (losses within 3e-2,
+   parameters and updater state float32).
 
-Kernel launch counts are reset right before the LSTM serving phase, before
+A replayed CUDA graph adds to the launch counts the launches its capture
+recorded (the capture itself counts none), so the counts below are the
+kernels that ran. Kernel launch counts are reset right before the LSTM
+serving phase, before
 each TinyTransformer part (the 256-wide heads' too), before training (b)
 and (c) and before each part of the TinyTransformer training, and read
 right after; each
@@ -1713,6 +1730,165 @@ def tiny_train_phase(card):
     return res
 
 
+CAPTURE_TOL = 1e-5         # captured against eager, of max|p|
+CAPTURED_STEPS = 10         # steps of each path from one init
+
+
+def _tensors(net):
+    """A container's parameters and floating updater state, in order."""
+    def items(tree):
+        return tree.values() if isinstance(tree, dict) else tree
+    return [v for tree in (net.params, net.opt_state) for d in items(tree)
+            for v in d.values() if v.is_floating_point()]
+
+
+def _three_nets(make):
+    """From one init: the per-layer loop (fused update off, eager), the
+    fused eager step and the captured step (the default on the card)."""
+    from deeplearning4j_tpu_torch.nn import fused_update as fu
+    fu.set_fused_update(False)
+    try:
+        loop = make()
+    finally:
+        fu.set_fused_update(None)
+    eager, captured = make(), make()
+    eager._capture_steps = False
+    return loop, eager, captured
+
+
+def captured_path(name, make, step, profile, tags, unit, card):
+    """One training path three ways from one init (``_three_nets``),
+    CAPTURED_STEPS steps each (``step(net, k)`` does step k): the fused eager step against the loop bit
+    for bit, the captured against the eager within CAPTURE_TOL of max|p|
+    (and whether bit for bit), every step's launches under replay equal to
+    the eager step's; then ``profile(net)`` of the eager and the captured
+    net under ``profile_steps``. Raises on failure; returns the numbers."""
+    import torch
+    from deeplearning4j_tpu_torch import ops
+    nets = dict(zip(("loop", "eager", "captured"), _three_nets(make)))
+    counts = {}
+    for kind, net in nets.items():
+        counts[kind] = []
+        for k in range(CAPTURED_STEPS):
+            ops.reset_launch_counts()
+            step(net, k)
+            torch.cuda.synchronize()
+            counts[kind].append(ops.launch_counts())
+    units = "batches" if unit == "batch" else f"{unit}s"
+    loop, eager, cap = (_tensors(nets[k]) for k in nets)
+    fused_bitwise = all(torch.equal(a, b) for a, b in zip(eager, loop))
+    scale = max(t.abs().max().item() for t in eager)
+    cap_err = max((a - b).abs().max().item()
+                  for a, b in zip(cap, eager)) / scale
+    res = {"fused_vs_loop_bitwise": fused_bitwise,
+           "captured_vs_eager_rel_err": cap_err,
+           "captured_vs_eager_bitwise": cap_err == 0.0,
+           "launches_per_step": counts["eager"][0],
+           "captures": nets["captured"]._capture_count,
+           "losses": {k: n.get_score() for k, n in nets.items()}}
+    print(f"captured train: {name}: {CAPTURED_STEPS} {units} from one init: "
+          f"fused eager vs the per-layer loop bitwise {fused_bitwise}; "
+          f"captured vs eager max abs err {cap_err:.3g} of max|p| (tol "
+          f"{CAPTURE_TOL}), bitwise {cap_err == 0.0}; launches per {unit} "
+          f"{counts['eager'][0]} in every {unit}, eager and replayed; "
+          f"{res['captures']} graphs captured [{card}]", flush=True)
+    if not fused_bitwise:
+        raise AssertionError(f"{name}: the fused update differs from the "
+                             "per-layer loop")
+    if not cap_err <= CAPTURE_TOL:
+        raise AssertionError(f"{name}: the captured step differs from the "
+                             "eager step")
+    want = counts["eager"][0]
+    if not want or any(c != want for kind in ("eager", "captured")
+                       for c in counts[kind]):
+        raise AssertionError(f"{name}: launches per {unit} {counts}")
+    for kind in ("eager", "captured"):
+        prof = res[f"profile_{kind}"] = profile(nets[kind])
+        print(f"captured train: {name} {kind}: "
+              + fmt_profile(prof, tags, unit, units) + f" [{card}]",
+              flush=True)
+    return res
+
+
+def captured_train_phase(card):
+    """Training captured in CUDA graphs against the eager step, per path:
+    the LSTM recipe's steps (B=32, T=64, ``fit_scan``), its tBPTT batches
+    (chunks of 16, ``fit`` on a DataSet) and the TinyTransformer recipe's
+    steps (``captured_path``); then the bf16 train-precision policy, three
+    ``fit`` steps of the LSTM model and of TinyTransformer on the card
+    against the CPU port (losses within BF16_TOL, parameters float32)."""
+    import torch
+    from deeplearning4j_tpu_torch import (ComputationGraph, MultiLayerNetwork,
+                                          ops)
+    from deeplearning4j_tpu_torch import exec as ex
+    from deeplearning4j_tpu_torch.data import DataSet
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM, TinyTransformer
+    from deeplearning4j_tpu_torch.zoo.corpus import corpus_windows
+
+    (xtr, ytr), _, vocab = corpus_windows(stride=8)
+    B, T = TINY_B, TINY_T
+    steps = len(xtr) // B
+    xs = torch.tensor(xtr[:steps * B].reshape(steps, B, T, -1)).cuda()
+    ys = torch.tensor(ytr[:steps * B].reshape(steps, B, T, -1)).cuda()
+    zoo = TextGenerationLSTM(total_unique_characters=len(vocab))
+    tiny = TinyTransformer(vocab_size=len(vocab))
+    n = CAPTURED_STEPS
+
+    def scan_step(net, k):
+        net.fit_scan(xs[k:k + 1], ys[k:k + 1])
+
+    def scan_profile(tags):
+        return lambda net: profile_steps(
+            lambda: net.fit_scan(xs[n:2 * n], ys[n:2 * n]), n, tags)
+
+    def tbptt_step(net, k):
+        net.fit(DataSet(xtr[k * B:(k + 1) * B], ytr[k * B:(k + 1) * B]))
+
+    res = {"card": card}
+    tags = ("lstm_bwd", "lstm2_fwd")
+    res["lstm"] = captured_path("LSTM recipe", lambda: zoo.init(
+        device="cuda"), scan_step, scan_profile(tags), tags, "step", card)
+    res["tbptt"] = captured_path(
+        "tBPTT(16)", lambda: tbptt_net(zoo), tbptt_step,
+        lambda net: profile_tbptt(net, xtr[n * B:], ytr[n * B:], B),
+        TBPTT_TAGS, "batch", card)
+    tags = ("flash_attn",)
+    res["tiny"] = captured_path("TinyTransformer recipe", lambda: tiny.init(
+        device="cuda"), scan_step, scan_profile(tags), tags, "step", card)
+
+    # the bf16 train-precision policy against the CPU port
+    ex.set_executor(ex.Executor(train_precision="bf16"))
+    try:
+        for name, model, cls in (("lstm", zoo, MultiLayerNetwork),
+                                 ("tiny", tiny, ComputationGraph)):
+            cpu = model.init(device="cpu")
+            gpu = cls(cpu.conf, device="cuda").set_params(cpu.params)
+            losses = {"card": [], "cpu": []}
+            ops.reset_launch_counts()
+            for k in range(3):
+                batch = (xtr[k * B:(k + 1) * B], ytr[k * B:(k + 1) * B])
+                losses["cpu"].append(cpu.fit(*batch).get_score())
+                losses["card"].append(gpu.fit(*batch).get_score())
+            ops_counts = ops.launch_counts()
+            rel = max(abs(a - b) / abs(b) for a, b in
+                      zip(losses["card"], losses["cpu"]))
+            f32 = all(t.dtype == torch.float32 for t in _tensors(gpu))
+            res[f"bf16_{name}"] = {"losses": losses, "loss_rel_err": rel,
+                                   "float32_storage": f32,
+                                   "launches": ops_counts}
+            print(f"captured train: bf16 policy, {name}: 3 fit steps on the "
+                  f"card {losses['card']} vs the CPU port {losses['cpu']}: "
+                  f"max rel err {rel:.3g} (tol {BF16_TOL}); parameters and "
+                  f"updater state float32 {f32}; launches {ops_counts} "
+                  f"[{card}]", flush=True)
+            if not (rel <= BF16_TOL and f32):
+                raise AssertionError(f"bf16 training of {name} on the card "
+                                     "disagrees with the CPU port")
+    finally:
+        ex.set_executor(None)
+    return res
+
+
 def profile_steps(run, steps, tags):
     """``run()`` does ``steps`` fit steps (or returns how many steps it
     did); it is called once to warm up (timed, unprofiled) and once under
@@ -1908,6 +2084,9 @@ def main() -> int:
     t0 = time.perf_counter()
     tiny_train = tiny_train_phase(card)
     tiny_train["phase_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    captured = captured_train_phase(card)
+    captured["phase_seconds"] = time.perf_counter() - t0
 
     # each kernel at its main path's shape, with the launches of the run
     # that drove it: /predict of the 15 held-out windows (bucket 16, T=64)
@@ -1983,8 +2162,8 @@ def main() -> int:
          "kernel_rows": rows, "k3_hidden_sizes": k3_sizes,
          "k4_hidden_sizes": k4_sizes, "k12_hidden_sizes": k12_sizes,
          "slice": res, "f4": f4, "tiny": tiny, "wide": wide,
-         "train": train,
-         "tiny_train": tiny_train, "kernels": entries}, indent=1))
+         "train": train, "tiny_train": tiny_train, "captured": captured,
+         "kernels": entries}, indent=1))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

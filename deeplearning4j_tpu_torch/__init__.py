@@ -8,7 +8,10 @@ through hand-written CUDA kernels for the fused LSTM forward (inference
 and training modes) and backward; serving and training of computation
 graphs with causal self-attention (TinyTransformer), through hand-written
 CUDA kernels for flash attention (forward, and the backward's dq and
-dk/dv) and for flash decode over dense and paged KV caches.
+dk/dv) and for flash decode over dense and paged KV caches. Both
+containers train with the JAX package's default step: the fused flat
+update (nn/fused_update.py), the bf16 train-precision policy, and on the
+card each step replayed from a CUDA graph (exec/executor.py).
 """
 
 from deeplearning4j_tpu_torch.models.computation_graph import (  # noqa: F401

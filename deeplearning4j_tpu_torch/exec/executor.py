@@ -1,0 +1,199 @@
+"""The execution core of the port on one card: the training-precision
+policy, and a train step turned into a captured CUDA graph.
+
+Counterpart of deeplearning4j_tpu/exec/executor.py: ``Executor`` with its
+``train_precision`` policy (``DL4JTPU_TRAIN_PRECISION``, the same values
+and the same ``ValueError``) and ``train_dtype``, and ``get_executor`` /
+``set_executor``. Where the JAX package's ``Executor.jit`` turns a step
+into one compiled, donated program, ``Executor.steps`` here turns it into
+CUDA graphs, one per signature (the shapes and dtypes of its tensors and
+which optional ones are present), each captured at fixed shapes and
+replayed (``CapturedStep``); the step writes its results in place into
+buffers that outlive it (the fused update's flat buffers), the
+counterpart of donation.
+
+The first call of a signature runs the step eagerly on the executor's
+side stream, with host synchronization reported as an error: the warm-up
+of PyTorch's whole-network capture recipe, and a real step. It builds the
+kernels and fills their plan caches (``build.load``, ``lstm_cuda.has_plan``
+and the C plan caches), which must not run inside a capture. The second
+call captures the step and replays it; every later call copies its tensors
+into the graph's static inputs and replays. Nothing falls back: a capture
+or replay that fails raises.
+
+Kernel wrappers count their launches on the host (``ops.count_launch``),
+which happens once, at capture, and never at replay. A captured step
+records the counts its capture added, takes them back (nothing ran), and
+adds them on every replay, so the counts stay the kernels that ran.
+
+Meshes, sharding, routing tables, the serving precision and the program
+registry are not ported.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from deeplearning4j_tpu_torch import ops
+
+
+class Executor:
+    """One policy for the fit path's precision, and the capture of steps
+    into CUDA graphs."""
+
+    def __init__(self, *, train_precision: Optional[str] = None):
+        # declarative TRAINING precision: 'bf16' casts activations and
+        # params to bfloat16 in the fit-path forward of every float32
+        # model built against this executor (loss and updater math stay
+        # float32). Containers read it through the executor they bound.
+        tp = (train_precision if train_precision is not None
+              else os.environ.get("DL4JTPU_TRAIN_PRECISION")) or "f32"
+        tp = tp.strip().lower()
+        if tp not in ("f32", "float32", "bf16", "bfloat16"):
+            raise ValueError(
+                f"train_precision must be 'f32' or 'bf16', got {tp!r}")
+        self.train_precision = "bf16" if tp in ("bf16", "bfloat16") else "f32"
+        self._streams: Dict[int, torch.cuda.Stream] = {}
+
+    @property
+    def train_dtype(self):
+        """The compute dtype the train-precision policy imposes on the fit
+        path (None = storage dtype, i.e. no cast)."""
+        return torch.bfloat16 if self.train_precision == "bf16" else None
+
+    def stream(self, device: torch.device) -> "torch.cuda.Stream":
+        """The side stream warm-ups and captures run on, one per card."""
+        i = device.index if device.index is not None \
+            else torch.cuda.current_device()
+        if i not in self._streams:
+            self._streams[i] = torch.cuda.Stream(device=i)
+        return self._streams[i]
+
+    def steps(self, fn: Callable) -> "StepGraphs":
+        """``fn`` called through CUDA graphs, one per signature."""
+        return StepGraphs(self, fn)
+
+    def warm_up(self, fn: Callable, device: torch.device):
+        """``fn()`` eagerly on the side stream, any host synchronization an
+        error; the caller's stream waits for it."""
+        side, main = self.stream(device), torch.cuda.current_stream(device)
+        side.wait_stream(main)
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with torch.cuda.stream(side):
+                out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        main.wait_stream(side)
+        return out
+
+    def capture(self, fn: Callable, args: tuple, device: torch.device
+                ) -> "CapturedStep":
+        return CapturedStep(fn, args, self.stream(device))
+
+
+def _leaves(tree, out):
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif isinstance(tree, (list, tuple)):
+        for t in tree:
+            _leaves(t, out)
+    elif isinstance(tree, dict):
+        for t in tree.values():
+            _leaves(t, out)
+    return out
+
+
+def _rebuild(tree, it):
+    if isinstance(tree, torch.Tensor):
+        return next(it)
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(t, it) for t in tree)
+    if isinstance(tree, dict):
+        return {k: _rebuild(t, it) for k, t in tree.items()}
+    return tree
+
+
+def signature(tree):
+    """What a graph is fixed to: the nesting, and each tensor's shape,
+    dtype and device (None where an optional argument is absent)."""
+    if isinstance(tree, torch.Tensor):
+        return (tuple(tree.shape), tree.dtype, tree.device)
+    if isinstance(tree, (list, tuple)):
+        return tuple(signature(t) for t in tree)
+    if isinstance(tree, dict):
+        return tuple((k, signature(t)) for k, t in tree.items())
+    return tree
+
+
+class CapturedStep:
+    """``fn(*args)`` captured at ``args``' shapes into one CUDA graph.
+    Calling it copies the tensors of its arguments into the static inputs,
+    replays, adds the launches its capture recorded, and returns the static
+    outputs, which the next replay overwrites."""
+
+    def __init__(self, fn: Callable, args: tuple, stream):
+        self.inputs = [t.detach().clone() for t in _leaves(args, [])]
+        static = _rebuild(args, iter(self.inputs))
+        self.graph = torch.cuda.CUDAGraph()
+        before = ops.launch_counts()
+        with torch.cuda.graph(self.graph, stream=stream):
+            self.outputs = fn(*static)
+        after = ops.launch_counts()
+        self.launches = {k: n - before.get(k, 0) for k, n in after.items()
+                         if n != before.get(k, 0)}
+        ops.add_launch_counts({k: -n for k, n in self.launches.items()})
+
+    def __call__(self, *args) -> Any:
+        for buf, t in zip(self.inputs, _leaves(args, [])):
+            if t is not buf:
+                buf.copy_(t, non_blocking=True)
+        self.graph.replay()
+        ops.add_launch_counts(self.launches)
+        return self.outputs
+
+
+class StepGraphs:
+    """A step function's CUDA graphs, one per signature: the first call of
+    a signature runs the step eagerly (the warm-up), the second captures
+    it, every call from then on replays it. ``captures`` counts the graphs
+    captured, as the JAX containers' ``_compile_count`` counts programs."""
+
+    def __init__(self, executor: Executor, fn: Callable):
+        self.executor, self.fn = executor, fn
+        self.graphs: Dict[Any, CapturedStep] = {}
+        self.warmed = set()
+        self.captures = 0
+
+    def __call__(self, *args):
+        key = signature(args)
+        graph = self.graphs.get(key)
+        if graph is None:
+            device = _leaves(args, [])[0].device
+            if key not in self.warmed:
+                self.warmed.add(key)
+                return self.executor.warm_up(lambda: self.fn(*args), device)
+            graph = self.graphs[key] = self.executor.capture(self.fn, args,
+                                                             device)
+            self.captures += 1
+        return graph(*args)
+
+
+# ------------------------------------------------------- process default
+_default_executor: Optional[Executor] = None
+
+
+def get_executor() -> Executor:
+    global _default_executor
+    if _default_executor is None:
+        _default_executor = Executor()
+    return _default_executor
+
+
+def set_executor(ex: Optional[Executor]) -> None:
+    global _default_executor
+    _default_executor = ex

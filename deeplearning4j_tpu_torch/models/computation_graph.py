@@ -5,23 +5,32 @@ Counterpart of deeplearning4j_tpu/models/computation_graph.py: ``init``,
 the forward along the topological order, ``output`` (bucketed),
 ``serving_engine``, ``init_decode_state`` / ``decode_step`` (dense and
 paged KV caches), training (``fit`` on arrays, a DataSet, a MultiDataSet
-or an iterator, ``fit_scan``, ``score``, ``get_score``, ``evaluate``),
+or an iterator, ``fit_scan``, ``score``, ``get_score``, ``evaluate``,
+``apply_external_updates``, ``backprop_external``, ``fit_external``),
 ``save`` and ``load``. Parameters are a dict node name -> dict of tensors
 under the JAX package's keys; the updater state is a dict node name ->
 dict under the JAX package's optax key paths (see nn/updaters.py), so a
 checkpoint round-trips with the JAX package mid-training.
 
-A train step is the JAX package's per-node path (``_dp_apply_updates``
-with the fused flat update off): the loss (every output node's score plus
+A train step is the JAX package's default step (``_dp_apply_updates``
+with the fused flat update on): the loss (every output node's score plus
 every node's l1/l2), its gradient by autograd (attention through
 ``ops.FlashAttention``: K5 forward, K6 and K7 backward), per-node gradient
-normalization, the node's updater (``layer.updater or gc.updater``), then
-its constraints. Label masks weight the loss. Not ported yet: feature
-masks, dropout, weight noise, truncated BPTT over a graph (carried
-recurrent state), ``backprop_external`` / ``fit_external``, listeners,
-checkpointing inside ``fit``, prefetch and the fused flat update; fitting
-with one of the first four raises ``NotImplementedError`` naming it. Not
-ported for inference: masks, carried recurrent state, chunked prefill and
+normalization, then the fused flat update (nn/fused_update.py, in place
+into flat buffers the per-node dicts view) and the nodes' constraints;
+with the fused update off, each node's updater (``layer.updater or
+gc.updater``), the per-node loop it is held bitwise equal to. Label masks
+weight the loss. The fit-path forward of a float32 graph runs in bfloat16
+under the executor's bf16 train-precision policy (exec/executor.py), the
+loss in float32; stored parameters and updater state stay float32. On the
+card ``fit`` and ``fit_scan`` run the step through CUDA graphs, one per
+signature, as MultiLayerNetwork does (its module docstring), and
+``apply_external_updates`` the fused update alone through its own; on the
+CPU the same step runs eagerly. Not ported yet: feature masks, dropout,
+weight noise, truncated BPTT over a graph (carried recurrent state),
+listeners, checkpointing inside ``fit`` and prefetch; fitting with one of
+the first four raises ``NotImplementedError`` naming it. Not ported for
+inference: masks, carried recurrent state, chunked prefill and
 speculation.
 
 The graph runs on CUDA unless constructed with ``device="cpu"``; without a
@@ -36,11 +45,12 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
-from deeplearning4j_tpu_torch.models.multi_layer_network import DTYPES
+from deeplearning4j_tpu_torch.exec import get_executor
+from deeplearning4j_tpu_torch.models.multi_layer_network import (
+    DTYPES, to_device, updater_plan)
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import \
     ComputationGraphConfiguration
-from deeplearning4j_tpu_torch.nn.updaters import (make_gradient_transform,
-                                                  normalize_layer_grad)
+from deeplearning4j_tpu_torch.nn.updaters import normalize_layer_grad
 from deeplearning4j_tpu_torch.ops import resolve_device
 
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -58,6 +68,13 @@ class ComputationGraph:
         self.params: Optional[Params] = None
         self.opt_state: Optional[Params] = None
         self._transforms = None       # per-node updater (None: no params)
+        self._fused = None            # fused update plan (nn/fused_update.py)
+        self._exec = None             # execution core (lazy; exec/executor.py)
+        self._steps = None            # train step's CUDA graphs, by signature
+        self._updates = None          # apply_external_updates' graphs
+        # the card runs steps through CUDA graphs; the eager step stays
+        # callable (False) as the oracle the tests and chip_smoke.py use
+        self._capture_steps = self.device.type == "cuda"
         self.iteration = 0
         self.epoch = 0
         self._epoch_batch = 0         # batches consumed in the current epoch
@@ -88,34 +105,61 @@ class ComputationGraph:
         self._build_optimizer()
         return self
 
+    @property
+    def _executor(self):
+        """The execution core this graph's steps run through (bound at
+        first use, as in the JAX package)."""
+        if self._exec is None:
+            self._exec = get_executor()
+        return self._exec
+
     def _build_optimizer(self):
         """One gradient transformation per layer node with parameters, from
-        the layer's own updater or the graph's; fresh state for each."""
+        the layer's own updater or the graph's, fresh state for each, and
+        the fused plan over them (when enabled); drops every captured
+        graph."""
         gc = self.conf.global_conf
-        self._transforms = {
-            n: (make_gradient_transform(self.conf.nodes[n].layer.updater
-                                        or gc.updater) if p else None)
-            for n, p in self.params.items()}
-        self.opt_state = {n: t.init(self.params[n]) if t is not None else {}
-                          for n, t in self._transforms.items()}
+        layers = {n: self.conf.nodes[n].layer for n in self.params}
+        self._transforms, self.opt_state, self._fused = updater_plan(
+            self.params, {n: l.updater or gc.updater
+                          for n, l in layers.items()},
+            {n: l.apply_constraints for n, l in layers.items()})
+        self._steps = self._executor.steps(self._step)
+        self._updates = self._executor.steps(self._dp_apply_updates)
         self._serving = None
 
+    @property
+    def _capture_count(self) -> int:
+        """CUDA graphs captured since the optimizer was built (the JAX
+        package's ``_compile_count``)."""
+        return self._steps.captures + self._updates.captures
+
     def _as_input(self, x) -> torch.Tensor:
-        if isinstance(x, torch.Tensor):
-            return x.to(self.device)
-        return torch.as_tensor(np.asarray(x)).to(self.device)
+        return to_device(x, self.device)
 
     # ----------------------------------------------------------- forward core
-    def _forward(self, params: Params, inputs, skip=()):
+    def _compute_dtype(self, train):
+        """The forward's compute dtype: the model's own ``compute_dtype``
+        when configured, else the executor's train-precision policy on the
+        fit path of float32 graphs. None means no cast."""
+        gc = self.conf.global_conf
+        if gc.compute_dtype:
+            return DTYPES[gc.compute_dtype]
+        if train:
+            dt = self._executor.train_dtype
+            if dt is not None and DTYPES[gc.dtype] == torch.float32:
+                return dt
+        return None
+
+    def _forward(self, params: Params, inputs, skip=(), train=False):
         """Forward along the topological order. ``inputs``: one tensor, or
         a list with one per network input; nodes named in ``skip`` are not
         run. Returns (output, activations): the network output (a list
         when there are several) and every node's activation by name."""
         if not isinstance(inputs, (list, tuple)):
             inputs = [inputs]
-        gc = self.conf.global_conf
-        if gc.compute_dtype:
-            cdt = DTYPES[gc.compute_dtype]
+        cdt = self._compute_dtype(train)
+        if cdt is not None:
             inputs = [x.to(cdt) for x in inputs]
             params = _cast_floats(params, cdt)
         acts = dict(zip(self.conf.network_inputs, inputs))
@@ -145,17 +189,24 @@ class ComputationGraph:
                                  "layer")
         consumed = {i for n in self.conf.nodes.values() for i in n.inputs}
         _, acts = self._forward(params, inputs,
-                                skip={n for n in outs if n not in consumed})
+                                skip={n for n in outs if n not in consumed},
+                                train=True)
         total = 0.0
         for oi, name in enumerate(outs):
             node = self.conf.nodes[name]
             lm = None if not label_masks else label_masks[oi]
             total = total + node.layer.compute_score(
                 params.get(name, {}), acts[node.inputs[0]], labels[oi], lm)
+        total = total + self._reg_loss(params)
+        if self._compute_dtype(True) is not None:
+            total = total.float()
+        return total
+
+    def _reg_loss(self, params: Params):
+        """Every node's l1/l2 penalty (0.0 when none has one)."""
+        total = 0.0
         for name, p in params.items():
             total = total + self.conf.nodes[name].layer.reg_loss(p)
-        if self.conf.global_conf.compute_dtype:
-            total = total.float()
         return total
 
     def _check_trainable(self):
@@ -171,16 +222,17 @@ class ComputationGraph:
         if self.params is None:
             raise ValueError("call init() or set_params() before fitting")
 
-    def _gradients(self, inputs, labels, label_masks=None):
-        """Loss and per-node gradients at the current parameters. Returns
-        (loss, grads), grads keyed like the parameters."""
-        leaves = {n: {k: v.detach().requires_grad_(v.is_floating_point())
-                      for k, v in p.items()} for n, p in self.params.items()}
-        with torch.enable_grad():
-            loss = self._loss(leaves, inputs, labels, label_masks)
-            flat = [v for p in leaves.values() for v in p.values()]
-            got = torch.autograd.grad(loss, flat, allow_unused=True) \
-                if flat else ()
+    def _leaves(self) -> Params:
+        return {n: {k: v.detach().requires_grad_(v.is_floating_point())
+                    for k, v in p.items()} for n, p in self.params.items()}
+
+    @staticmethod
+    def _grads_of(outputs, leaves: Params, grad_outputs=None) -> Params:
+        """d(outputs)/d(leaves) keyed like the leaves, zeros where an
+        output does not depend on a leaf."""
+        flat = [v for p in leaves.values() for v in p.values()]
+        got = torch.autograd.grad(outputs, flat, grad_outputs,
+                                  allow_unused=True) if flat else ()
         it = iter(got)
         grads = {}
         for n, p in leaves.items():
@@ -189,6 +241,15 @@ class ComputationGraph:
                 gk = next(it)
                 g[k] = torch.zeros_like(v) if gk is None else gk
             grads[n] = g
+        return grads
+
+    def _gradients(self, inputs, labels, label_masks=None):
+        """Loss and per-node gradients at the current parameters. Returns
+        (loss, grads), grads keyed like the parameters."""
+        leaves = self._leaves()
+        with torch.enable_grad():
+            loss = self._loss(leaves, inputs, labels, label_masks)
+            grads = self._grads_of(loss, leaves)
         return loss.detach(), grads
 
     def _normalize_grads(self, grads):
@@ -201,9 +262,14 @@ class ComputationGraph:
                 for n, g in grads.items()}
 
     @torch.no_grad()
-    def _apply_updates(self, grads):
-        """Normalize, run each node's updater, add, apply constraints."""
+    def _dp_apply_updates(self, grads):
+        """Normalize per node, then the fused plan (in place, reading the
+        staged scalars: capturable) or, with the fused update off, each
+        node's updater, add, constraints (the per-node loop, eager)."""
         grads = self._normalize_grads(grads)
+        if self._fused is not None:
+            self._fused.apply(self.params, self.opt_state, grads)
+            return
         new_params, new_opt = {}, {}
         for n, p in self.params.items():
             t = self._transforms[n]
@@ -215,10 +281,75 @@ class ComputationGraph:
                 {k: (v + u[k]).to(v.dtype) for k, v in p.items()})
         self.params, self.opt_state = new_params, new_opt
 
-    def _train_step(self, inputs, labels, label_masks=None):
+    def _step(self, inputs, labels, label_masks=None):
+        """The device half of a train step (what a graph captures): loss,
+        gradients, the update. Returns the loss."""
         loss, grads = self._gradients(inputs, labels, label_masks)
-        self._apply_updates(grads)
+        self._dp_apply_updates(grads)
         return loss
+
+    def _run(self, graphs, fn, *args):
+        """``fn(*args)`` with the fused update's scalars staged before and
+        its counts advanced after: through ``graphs`` on the card, eagerly
+        on the CPU, with the fused update off, or for the eager oracle."""
+        if self._fused is None:
+            return fn(*args)
+        self._fused.stage(self.opt_state)
+        out = graphs(*args) if self._capture_steps else fn(*args)
+        self._fused.advance(self.opt_state)
+        return out
+
+    def _train_step(self, inputs, labels, label_masks=None):
+        """One train step; returns the loss (on the card, a replay's static
+        output, which its next replay overwrites)."""
+        return self._run(self._steps, self._step, inputs, labels,
+                         label_masks)
+
+    def apply_external_updates(self, grads):
+        """One updater step from externally computed gradients (per-node
+        dicts keyed like the parameters): normalization, the fused update,
+        constraints; on the card through its own graphs (parity:
+        apply_external_updates, the JAX package's donated update
+        program)."""
+        if self.params is None:
+            raise ValueError("call init() or set_params() before updating")
+        grads = {n: {k: self._as_input(v) for k, v in g.items()}
+                 for n, g in grads.items()}
+        self._run(self._updates, self._dp_apply_updates, grads)
+        return self
+
+    def backprop_external(self, inputs, epsilons):
+        """Parameter gradients from externally supplied dL/d(output)
+        epsilons, one per network output shaped like it (parity:
+        backprop_external, ComputationGraph.calcBackpropGradients with
+        external epsilons), the l1/l2 penalty's gradient included as fit()
+        includes it. Returns (grads, new_state); the port keeps no layer
+        state, so new_state is {}."""
+        self._check_trainable()
+        inputs = [self._as_input(x) for x in (
+            inputs if isinstance(inputs, (list, tuple)) else [inputs])]
+        epsilons = [self._as_input(e) for e in (
+            epsilons if isinstance(epsilons, (list, tuple)) else [epsilons])]
+        leaves = self._leaves()
+        with torch.enable_grad():
+            outs, _ = self._forward(leaves, inputs, train=True)
+            outs = list(outs) if isinstance(outs, list) else [outs]
+            eps = [e.to(o.dtype) for e, o in zip(epsilons, outs)]
+            reg = self._reg_loss(leaves)
+            if isinstance(reg, torch.Tensor):
+                outs.append(reg)
+                eps.append(torch.ones_like(reg))
+            grads = self._grads_of(outs, leaves, eps)
+        return grads, {}
+
+    def fit_external(self, inputs, epsilons):
+        """One updater step driven by external epsilons (the training half
+        of the external-epsilons contract), through
+        ``apply_external_updates``."""
+        grads, _ = self.backprop_external(inputs, epsilons)
+        self.apply_external_updates(grads)
+        self.iteration += 1
+        return self
 
     def _batch(self, mds: MultiDataSet):
         """A MultiDataSet's (inputs, labels, label masks or None) on the
@@ -279,7 +410,7 @@ class ComputationGraph:
         return self
 
     def _fit_batch(self, mds: MultiDataSet):
-        self._score = self._train_step(*self._batch(mds))
+        self._score = self._train_step(*self._batch(mds)).clone()
         self.iteration += 1
         self._epoch_batch += 1
         return self
@@ -302,8 +433,9 @@ class ComputationGraph:
         ys = [self._as_input(a) for a in labels_steps]
         n = int(xs[0].shape[0])
         for k in range(n):
-            self._score = self._train_step([a[k] for a in xs],
-                                           [a[k] for a in ys])
+            loss = self._train_step([a[k] for a in xs], [a[k] for a in ys])
+            if k == n - 1:
+                self._score = loss.clone()
         self.iteration += n
         self._epoch_batch += n
         return self
@@ -399,9 +531,8 @@ class ComputationGraph:
             raise ValueError(
                 "incremental decode supports single-input graphs; got "
                 f"inputs {self.conf.network_inputs}")
-        gc = self.conf.global_conf
-        if gc.compute_dtype:
-            cdt = DTYPES[gc.compute_dtype]
+        cdt = self._compute_dtype(False)
+        if cdt is not None:
             x_t = x_t.to(cdt)
             params = _cast_floats(params, cdt)
         acts = {self.conf.network_inputs[0]: x_t}

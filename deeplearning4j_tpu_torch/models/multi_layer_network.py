@@ -10,13 +10,30 @@ on the network's device, under the JAX package's keys; the updater state
 is a list of per-layer dicts under the JAX package's optax key paths (see
 nn/updaters.py).
 
-A train step is the JAX package's per-leaf path: the loss (output layer's
+A train step is the JAX package's default step: the loss (output layer's
 score plus l1/l2), its gradient by autograd (through the LSTM kernels'
-``autograd.Function``s), per-layer gradient normalization, the layer's
-updater (``l.updater or gc.updater``), then its constraints. Not ported
-yet: dropout, weight noise, feature masks, listeners, the fused flat update
-and the bf16 train-precision policy; fitting a network that needs one of
-the first three raises ``NotImplementedError``.
+``autograd.Function``s), per-layer gradient normalization, then the fused
+flat update (nn/fused_update.py: one update per group of layers sharing
+an updater and a dtype, in place into flat buffers that the per-layer
+dicts view) and the layers' constraints. With the fused update switched
+off (``set_fused_update(False)`` before the optimizer is built) each
+layer runs its own updater (``l.updater or gc.updater``), the per-layer
+loop the fused update is held bitwise equal to. The forward of a float32
+network casts its parameters and inputs to bfloat16 under the executor's
+bf16 train-precision policy (exec/executor.py), the loss returning to
+float32; stored parameters and updater state stay float32.
+
+On the card every fit path (``fit`` on arrays, a DataSet or an iterator,
+``fit_scan``, truncated BPTT) runs the step through CUDA graphs, one per
+signature (input shapes and dtypes, a label mask or not, carries or not),
+the counterpart of the JAX package's jitted, donated train step: the
+first step of a signature runs eagerly as the warm-up, the second is
+captured, and from then on each step copies its batch into the graph's
+static inputs, stages the count-derived updater scalars in one copy, and
+replays. ``apply_external_updates`` runs the fused update alone through
+its own graphs. On the CPU the same step runs eagerly. Not ported yet:
+dropout, weight noise, feature masks and listeners; fitting a network
+that needs one of the first three raises ``NotImplementedError``.
 
 The network runs on CUDA unless constructed with ``device="cpu"``; without
 a card and without that argument, construction raises.
@@ -24,18 +41,23 @@ a card and without that argument, construction raises.
 
 from __future__ import annotations
 
+import json
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.data.dataset import DataSet
+from deeplearning4j_tpu_torch.exec import get_executor
 from deeplearning4j_tpu_torch.nn.conf.configuration import \
     MultiLayerConfiguration
+from deeplearning4j_tpu_torch.nn.fused_update import (build_fused_update,
+                                                      fused_update_enabled)
 from deeplearning4j_tpu_torch.nn.layers.rnn import (apply_lstm_pair,
                                                     lstm_pair_fusable)
 from deeplearning4j_tpu_torch.nn.updaters import (make_gradient_transform,
-                                                  normalize_layer_grad)
+                                                  normalize_layer_grad,
+                                                  reduces_across_leaves)
 from deeplearning4j_tpu_torch.ops import resolve_device
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -61,6 +83,41 @@ def _cast_floats(params, dtype):
              for k, v in p.items()} for p in params]
 
 
+def to_device(x, device) -> torch.Tensor:
+    """An array or tensor on ``device``; numpy data goes to a card through
+    pinned memory without a host synchronization."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    t = torch.as_tensor(np.asarray(x))
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def updater_plan(params, updaters, constraints):
+    """A container's optimizer: (transforms, opt_state, fused plan or None)
+    over ``params`` (a dict member -> dict of tensors) from each member's
+    updater (``updaters[k]``; a member without parameters gets None). The
+    fused plan, when the switch is on, rebinds the members' dicts to views
+    of its flat buffers; a chain that reduces across parameters keeps
+    per-member math (group key None)."""
+    transforms, group_keys = {}, {}
+    for k, p in params.items():
+        if not p:
+            transforms[k] = None
+            continue
+        transforms[k] = t = make_gradient_transform(updaters[k])
+        group_keys[k] = None if reduces_across_leaves(t) else json.dumps(
+            updaters[k].to_dict(), sort_keys=True)
+    opt_state = {k: t.init(params[k]) if t is not None else {}
+                 for k, t in transforms.items()}
+    fused = None
+    if fused_update_enabled():
+        fused = build_fused_update(params, opt_state, transforms, group_keys,
+                                   constraints)
+    return transforms, opt_state, fused
+
+
 class MultiLayerNetwork:
     def __init__(self, conf: MultiLayerConfiguration, device=None):
         conf.finalize()
@@ -70,6 +127,13 @@ class MultiLayerNetwork:
         self.params: Optional[List[Dict[str, torch.Tensor]]] = None
         self.opt_state: Optional[List[Dict[str, torch.Tensor]]] = None
         self._transforms = None       # per-layer updater (None: no params)
+        self._fused = None            # fused update plan (nn/fused_update.py)
+        self._exec = None             # execution core (lazy; exec/executor.py)
+        self._steps = None            # train step's CUDA graphs, by signature
+        self._updates = None          # apply_external_updates' graphs
+        # the card runs steps through CUDA graphs; the eager step stays
+        # callable (False) as the oracle the tests and chip_smoke.py use
+        self._capture_steps = self.device.type == "cuda"
         self.iteration = 0
         self.epoch = 0
         self._epoch_batch = 0         # batches consumed in the current epoch
@@ -98,31 +162,61 @@ class MultiLayerNetwork:
         self._build_optimizer()
         return self
 
+    @property
+    def _executor(self):
+        """The execution core this network's steps run through (bound at
+        first use, as in the JAX package)."""
+        if self._exec is None:
+            self._exec = get_executor()
+        return self._exec
+
     def _build_optimizer(self):
         """One gradient transformation per layer with parameters, from the
-        layer's own updater or the network's; fresh state for each."""
+        layer's own updater or the network's, fresh state for each, and the
+        fused plan over them (when enabled); drops every captured graph, as
+        the JAX package drops its compiled steps."""
         gc = self.conf.global_conf
-        self._transforms = [
-            make_gradient_transform(l.updater or gc.updater) if p else None
-            for l, p in zip(self.layers, self.params)]
-        self.opt_state = [t.init(p) if t is not None else {}
-                          for t, p in zip(self._transforms, self.params)]
+        n = len(self.layers)
+        transforms, opt_state, self._fused = updater_plan(
+            dict(enumerate(self.params)),
+            {i: l.updater or gc.updater for i, l in enumerate(self.layers)},
+            {i: l.apply_constraints for i, l in enumerate(self.layers)})
+        self._transforms = [transforms[i] for i in range(n)]
+        self.opt_state = [opt_state[i] for i in range(n)]
+        self._steps = self._executor.steps(self._step)
+        self._updates = self._executor.steps(self._dp_apply_updates)
         self._serving = None
 
+    @property
+    def _capture_count(self) -> int:
+        """CUDA graphs captured since the optimizer was built (the JAX
+        package's ``_compile_count``)."""
+        return self._steps.captures + self._updates.captures
+
     def _as_input(self, x) -> torch.Tensor:
-        if isinstance(x, torch.Tensor):
-            return x.to(self.device)
-        return torch.as_tensor(np.asarray(x)).to(self.device)
+        return to_device(x, self.device)
 
     # ----------------------------------------------------------- forward core
-    def _forward(self, params, x, carries=None, upto=None):
+    def _compute_dtype(self, train):
+        """The forward's compute dtype: the model's own ``compute_dtype``
+        when configured, else the executor's train-precision policy on the
+        fit path of float32 models. None means no cast."""
+        gc = self.conf.global_conf
+        if gc.compute_dtype:
+            return DTYPES[gc.compute_dtype]
+        if train:
+            dt = self._executor.train_dtype
+            if dt is not None and DTYPES[gc.dtype] == torch.float32:
+                return dt
+        return None
+
+    def _forward(self, params, x, carries=None, upto=None, train=False):
         """Forward through layers [0, upto). Returns (act, new_carries).
         Consecutive stacked LSTMs fuse into ONE wavefront kernel; the
         stateful-carry path (rnn_time_step, truncated BPTT) stays per
         layer."""
-        gc = self.conf.global_conf
-        if gc.compute_dtype:
-            cdt = DTYPES[gc.compute_dtype]
+        cdt = self._compute_dtype(train)
+        if cdt is not None:
             x = x.to(cdt)
             params = _cast_floats(params, cdt)
         n = len(self.layers) if upto is None else upto
@@ -155,11 +249,12 @@ class MultiLayerNetwork:
                 f"Last layer {type(out_layer).__name__} has no loss; use an "
                 "OutputLayer/LossLayer variant")
         act, new_carries = self._forward(params, x, carries,
-                                         upto=len(self.layers) - 1)
+                                         upto=len(self.layers) - 1,
+                                         train=True)
         loss = out_layer.compute_score(params[-1], act, y, mask_l)
         for l, p in zip(self.layers, params):
             loss = loss + l.reg_loss(p)
-        if self.conf.global_conf.compute_dtype:
+        if self._compute_dtype(True) is not None:
             loss = loss.float()
         return loss, new_carries
 
@@ -205,9 +300,16 @@ class MultiLayerNetwork:
         return [normalize_layer_grad(g, kind, thr) for g in grads]
 
     @torch.no_grad()
-    def _apply_updates(self, grads):
-        """Normalize, run each layer's updater, add, apply constraints."""
+    def _dp_apply_updates(self, grads):
+        """Normalize per layer, then the fused plan (in place, reading the
+        staged scalars: capturable) or, with the fused update off, each
+        layer's updater, add, constraints (the per-layer loop, eager)."""
         grads = self._normalize_grads(grads)
+        if self._fused is not None:
+            self._fused.apply(dict(enumerate(self.params)),
+                              dict(enumerate(self.opt_state)),
+                              dict(enumerate(grads)))
+            return
         new_params, new_opt = [], []
         for l, t, p, o, g in zip(self.layers, self._transforms, self.params,
                                  self.opt_state, grads):
@@ -221,10 +323,42 @@ class MultiLayerNetwork:
             new_opt.append(o)
         self.params, self.opt_state = new_params, new_opt
 
-    def _train_step(self, x, y, mask_l=None, carries=None):
+    def _step(self, x, y, mask_l=None, carries=None):
+        """The device half of a train step (what a graph captures): loss,
+        gradients, the update. Returns (loss, new_carries)."""
         loss, grads, new_carries = self._gradients(x, y, mask_l, carries)
-        self._apply_updates(grads)
+        self._dp_apply_updates(grads)
         return loss, new_carries
+
+    def _run(self, graphs, fn, *args):
+        """``fn(*args)`` with the fused update's scalars staged before and
+        its counts advanced after: through ``graphs`` on the card, eagerly
+        on the CPU, with the fused update off, or for the eager oracle."""
+        if self._fused is None:
+            return fn(*args)
+        opt = dict(enumerate(self.opt_state))
+        self._fused.stage(opt)
+        out = graphs(*args) if self._capture_steps else fn(*args)
+        self._fused.advance(opt)
+        return out
+
+    def _train_step(self, x, y, mask_l=None, carries=None):
+        """One train step; returns (loss, new_carries). On the card the
+        loss and carries of a replay are the graph's static outputs, which
+        its next replay overwrites."""
+        return self._run(self._steps, self._step, x, y, mask_l, carries)
+
+    def apply_external_updates(self, grads):
+        """One updater step from externally computed gradients (per-layer
+        dicts keyed like the parameters): normalization, the fused update,
+        constraints; on the card through its own graphs (parity:
+        apply_external_updates, the JAX package's donated update
+        program)."""
+        if self.params is None:
+            raise ValueError("call init() or set_params() before updating")
+        grads = [{k: self._as_input(v) for k, v in g.items()} for g in grads]
+        self._run(self._updates, self._dp_apply_updates, grads)
+        return self
 
     def compute_gradient_and_score(self, x, y, labels_mask=None):
         """Gradients of the loss at the current parameters (per-layer
@@ -266,7 +400,9 @@ class MultiLayerNetwork:
         self._check_trainable()
         xs, ys = self._as_input(xs), self._as_input(ys)
         for k in range(xs.shape[0]):
-            self._score, _ = self._train_step(xs[k], ys[k])
+            loss, _ = self._train_step(xs[k], ys[k])
+            if k == xs.shape[0] - 1:
+                self._score = loss.clone()
         self.iteration += int(xs.shape[0])
         self._epoch_batch += int(xs.shape[0])
         return self
@@ -281,7 +417,7 @@ class MultiLayerNetwork:
         if self.conf.backprop_type == "tbptt" and x.ndim == 3:
             self._fit_tbptt(x, y, ml)
         else:
-            self._score, _ = self._train_step(x, y, ml)
+            self._score = self._train_step(x, y, ml)[0].clone()
         self.iteration += 1
         self._epoch_batch += 1
         return self
@@ -299,7 +435,7 @@ class MultiLayerNetwork:
             mls = None if ml is None else ml[:, start:start + L]
             loss, carries = self._train_step(x[:, start:start + L], ys, mls,
                                              carries)
-            losses.append(loss)
+            losses.append(loss.clone())
         self._score = torch.stack(losses).mean()
 
     @torch.no_grad()
@@ -400,9 +536,8 @@ class MultiLayerNetwork:
         """One-token step through the stack: ``x_t`` (B, 1, F) at positions
         ``pos`` (B,); ``block_tables`` routes KV-cache layers through their
         paged step. Returns (y, new_dstate)."""
-        gc = self.conf.global_conf
-        if gc.compute_dtype:
-            cdt = DTYPES[gc.compute_dtype]
+        cdt = self._compute_dtype(False)
+        if cdt is not None:
             x_t = x_t.to(cdt)
             params = _cast_floats(params, cdt)
         x = x_t

@@ -16,6 +16,15 @@ index in the optax chain, then the state field, then the parameter name,
 e.g. ``0/.mu/W`` or ``1/.count``. Counts are int32 scalars on the host; the
 moments live beside their parameters. So ``updaterState.npz`` reads and
 writes under the same keys in both packages.
+
+An update has a host half and a device half, so that a CUDA graph can
+replay the device half. ``scalars(state)`` computes, on the host from the
+counts, the float32 numbers an update reads that change with the count
+(bias corrections, a schedule's rate); ``apply(g, state, params, sc)`` is
+the device half, elementwise tensor code that reads those numbers from
+``sc``, 0-dim float32 tensors on the parameters' device, and returns the
+updates and the new parameter-shaped state slots; ``advance(state)`` adds
+one to every count on the host. ``update`` runs all three.
 """
 
 from __future__ import annotations
@@ -101,19 +110,47 @@ def _int32(n: int) -> torch.Tensor:
 class Transform:
     """One optax transformation: ``init(params) -> state`` and
     ``update(grads, state, params) -> (updates, state)``, state keyed by
-    ``.field`` or ``.field/param``."""
+    ``.field`` or ``.field/param``; ``update`` is ``scalars`` (host),
+    ``apply`` (device) and ``advance`` (host) in turn."""
+
+    n_scalars = 0                  # count-derived scalars ``apply`` reads
 
     def init(self, params: Tensors) -> Tensors:
         return {}
 
+    def scalars(self, state: Tensors) -> List[float]:
+        """The ``n_scalars`` numbers of the next update, float32 values
+        computed on the host from the counts in ``state``."""
+        return []
+
+    def advance(self, state: Tensors) -> Tensors:
+        """``state`` after an update: every count one more (host only)."""
+        return state
+
+    def apply(self, g: Tensors, state: Tensors, params: Tensors,
+              sc: List[torch.Tensor]) -> Tuple[Tensors, Tensors]:
+        """The device half: (updates, new parameter-shaped state slots),
+        reading the count-derived scalars from ``sc``."""
+        raise NotImplementedError
+
     def update(self, g: Tensors, state: Tensors, params: Tensors
                ) -> Tuple[Tensors, Tensors]:
-        raise NotImplementedError
+        dev = next(iter({**params, **g}.values())).device \
+            if (g or params) else torch.device("cpu")
+        sc = [torch.tensor(v, dtype=torch.float32, device=dev)
+              for v in self.scalars(state)]
+        u, slots = self.apply(g, state, params, sc)
+        return u, self.advance({**state, **slots})
 
 
 def _moments(names, params, fill=0.0):
     return {f"{n}/{k}": torch.full_like(v, fill) for n in names
             for k, v in params.items()}
+
+
+def _sub(state, i):
+    pre = f"{i}/"
+    return {k[len(pre):]: v for k, v in state.items() if k.startswith(pre)}
 
 
 class Chain(Transform):
@@ -122,18 +159,29 @@ class Chain(Transform):
     def __init__(self, stages: List[Transform]):
         self.stages = stages
 
+    @property
+    def n_scalars(self):
+        return sum(s.n_scalars for s in self.stages)
+
     def init(self, params):
         return {f"{i}/{k}": v for i, s in enumerate(self.stages)
                 for k, v in s.init(params).items()}
 
-    def update(self, g, state, params):
-        new = {}
+    def scalars(self, state):
+        return [v for i, s in enumerate(self.stages)
+                for v in s.scalars(_sub(state, i))]
+
+    def advance(self, state):
+        return {f"{i}/{k}": v for i, s in enumerate(self.stages)
+                for k, v in s.advance(_sub(state, i)).items()}
+
+    def apply(self, g, state, params, sc):
+        new, j = {}, 0
         for i, s in enumerate(self.stages):
-            pre = f"{i}/"
-            sub = {k[len(pre):]: v for k, v in state.items()
-                   if k.startswith(pre)}
-            g, sub = s.update(g, sub, params)
-            new.update({pre + k: v for k, v in sub.items()})
+            g, slots = s.apply(g, _sub(state, i), params,
+                               sc[j:j + s.n_scalars])
+            j += s.n_scalars
+            new.update({f"{i}/{k}": v for k, v in slots.items()})
         return g, new
 
 
@@ -141,27 +189,40 @@ class Identity(Transform):
     """A stage that changes nothing; it holds the chain index of optax's
     stateless stages, so the stateful ones keep optax's key paths."""
 
-    def update(self, g, state, params):
-        return g, state
+    def apply(self, g, state, params, sc):
+        return g, {}
 
 
-class ScaleByLearningRate(Transform):
+class _Counted(Transform):
+    """A stage with a ``.count`` in its state."""
+
+    def advance(self, state):
+        return {**state, ".count": _int32(int(state[".count"]) + 1)}
+
+
+class ScaleByLearningRate(_Counted):
     """Multiply by -lr: a constant, or a schedule read at the stage's own
     count (``scale_by_schedule``)."""
 
     def __init__(self, lr: float, schedule: Optional[Schedule] = None):
         self.lr, self.schedule = lr, schedule
+        self.n_scalars = 0 if schedule is None else 1
 
     def init(self, params):
         return {".count": _int32(0)} if self.schedule is not None else {}
 
-    def update(self, g, state, params):
+    def scalars(self, state):
         if self.schedule is None:
-            return {k: -self.lr * v for k, v in g.items()}, state
-        n = int(state[".count"])
-        step = -self.schedule.lr(n)
-        return ({k: step * v for k, v in g.items()},
-                {".count": _int32(n + 1)})
+            return []
+        return [-self.schedule.lr(int(state[".count"]))]
+
+    def advance(self, state):
+        return state if self.schedule is None else super().advance(state)
+
+    def apply(self, g, state, params, sc):
+        if self.schedule is None:
+            return {k: -self.lr * v for k, v in g.items()}, {}
+        return {k: sc[0] * v for k, v in g.items()}, {}
 
 
 class Trace(Transform):
@@ -173,43 +234,53 @@ class Trace(Transform):
     def init(self, params):
         return _moments([".trace"], params)
 
-    def update(self, g, state, params):
+    def apply(self, g, state, params, sc):
         d = self.decay
         t = {k: v + d * state[f".trace/{k}"] for k, v in g.items()}
         out = {k: v + d * t[k] for k, v in g.items()} if self.nesterov else t
         return out, {f".trace/{k}": v for k, v in t.items()}
 
 
-class ScaleByAdam(Transform):
+class ScaleByAdam(_Counted):
     """``scale_by_adam`` (``nesterov`` for NAdam): bias-corrected moments,
-    m / (sqrt(v) + eps)."""
+    m / (sqrt(v) + eps). Scalars: the bias corrections of b1 and b2 at the
+    new count n (and of b1 at n + 1 for NAdam)."""
 
     def __init__(self, b1, b2, eps, nesterov=False):
         self.b1, self.b2, self.eps, self.nesterov = b1, b2, eps, nesterov
+        self.n_scalars = 3 if nesterov else 2
 
     def init(self, params):
         return {".count": _int32(0), **_moments([".mu", ".nu"], params)}
 
-    def update(self, g, state, params):
-        b1, b2 = self.b1, self.b2
+    def scalars(self, state):
         n = int(state[".count"]) + 1
-        new, out = {".count": _int32(n)}, {}
+        out = [_bias_correction(self.b1, n), _bias_correction(self.b2, n)]
+        if self.nesterov:
+            out.append(_bias_correction(self.b1, n + 1))
+        return out
+
+    def apply(self, g, state, params, sc):
+        b1, b2 = self.b1, self.b2
+        new, out = {}, {}
         for k, v in g.items():
             mu = (1 - b1) * v + b1 * state[f".mu/{k}"]
             nu = (1 - b2) * (v * v) + b2 * state[f".nu/{k}"]
             if self.nesterov:
-                mu_hat = (b1 * (mu / _bias_correction(b1, n + 1))
-                          + (1 - b1) * (v / _bias_correction(b1, n)))
+                mu_hat = b1 * (mu / sc[2]) + (1 - b1) * (v / sc[0])
             else:
-                mu_hat = mu / _bias_correction(b1, n)
-            nu_hat = nu / _bias_correction(b2, n)
+                mu_hat = mu / sc[0]
+            nu_hat = nu / sc[1]
             out[k] = mu_hat / (torch.sqrt(nu_hat) + self.eps)
             new[f".mu/{k}"], new[f".nu/{k}"] = mu, nu
         return out, new
 
 
-class ScaleByAdamax(Transform):
-    """``scale_by_adamax``: m_hat / max(|g| + eps, b2 * u)."""
+class ScaleByAdamax(_Counted):
+    """``scale_by_adamax``: m_hat / max(|g| + eps, b2 * u). Scalar: the
+    bias correction of b1 at the new count."""
+
+    n_scalars = 1
 
     def __init__(self, b1, b2, eps):
         self.b1, self.b2, self.eps = b1, b2, eps
@@ -217,20 +288,25 @@ class ScaleByAdamax(Transform):
     def init(self, params):
         return {".count": _int32(0), **_moments([".mu", ".nu"], params)}
 
-    def update(self, g, state, params):
+    def scalars(self, state):
+        return [_bias_correction(self.b1, int(state[".count"]) + 1)]
+
+    def apply(self, g, state, params, sc):
         b1, b2 = self.b1, self.b2
-        n = int(state[".count"]) + 1
-        new, out = {".count": _int32(n)}, {}
+        new, out = {}, {}
         for k, v in g.items():
             mu = (1 - b1) * v + b1 * state[f".mu/{k}"]
             nu = torch.maximum(v.abs() + self.eps, b2 * state[f".nu/{k}"])
-            out[k] = (mu / _bias_correction(b1, n)) / nu
+            out[k] = (mu / sc[0]) / nu
             new[f".mu/{k}"], new[f".nu/{k}"] = mu, nu
         return out, new
 
 
-class ScaleByAmsgrad(Transform):
-    """``scale_by_amsgrad``: m_hat / (sqrt(max over time of v_hat) + eps)."""
+class ScaleByAmsgrad(_Counted):
+    """``scale_by_amsgrad``: m_hat / (sqrt(max over time of v_hat) + eps).
+    Scalars: the bias corrections of b1 and b2 at the new count."""
+
+    n_scalars = 2
 
     def __init__(self, b1, b2, eps):
         self.b1, self.b2, self.eps = b1, b2, eps
@@ -239,17 +315,18 @@ class ScaleByAmsgrad(Transform):
         return {".count": _int32(0),
                 **_moments([".mu", ".nu", ".nu_max"], params)}
 
-    def update(self, g, state, params):
-        b1, b2 = self.b1, self.b2
+    def scalars(self, state):
         n = int(state[".count"]) + 1
-        new, out = {".count": _int32(n)}, {}
+        return [_bias_correction(self.b1, n), _bias_correction(self.b2, n)]
+
+    def apply(self, g, state, params, sc):
+        b1, b2 = self.b1, self.b2
+        new, out = {}, {}
         for k, v in g.items():
             mu = (1 - b1) * v + b1 * state[f".mu/{k}"]
             nu = (1 - b2) * (v * v) + b2 * state[f".nu/{k}"]
-            nu_max = torch.maximum(state[f".nu_max/{k}"],
-                                   nu / _bias_correction(b2, n))
-            out[k] = (mu / _bias_correction(b1, n)) / (torch.sqrt(nu_max)
-                                                       + self.eps)
+            nu_max = torch.maximum(state[f".nu_max/{k}"], nu / sc[1])
+            out[k] = (mu / sc[0]) / (torch.sqrt(nu_max) + self.eps)
             new[f".mu/{k}"], new[f".nu/{k}"] = mu, nu
             new[f".nu_max/{k}"] = nu_max
         return out, new
@@ -265,7 +342,7 @@ class ScaleByRss(Transform):
     def init(self, params):
         return _moments([".sum_of_squares"], params, self.initial)
 
-    def update(self, g, state, params):
+    def apply(self, g, state, params, sc):
         out, new = {}, {}
         for k, v in g.items():
             s = v * v + state[f".sum_of_squares/{k}"]
@@ -284,7 +361,7 @@ class ScaleByRms(Transform):
     def init(self, params):
         return _moments([".nu"], params)
 
-    def update(self, g, state, params):
+    def apply(self, g, state, params, sc):
         d, out, new = self.decay, {}, {}
         for k, v in g.items():
             nu = (1 - d) * (v * v) + d * state[f".nu/{k}"]
@@ -301,7 +378,7 @@ class ScaleByAdadelta(Transform):
     def init(self, params):
         return _moments([".e_g", ".e_x"], params)
 
-    def update(self, g, state, params):
+    def apply(self, g, state, params, sc):
         rho, eps, out, new = self.rho, self.eps, {}, {}
         for k, v in g.items():
             e_g = (1 - rho) * (v * v) + rho * state[f".e_g/{k}"]
@@ -318,8 +395,8 @@ class AddDecayedWeights(Transform):
     def __init__(self, wd: float):
         self.wd = wd
 
-    def update(self, g, state, params):
-        return {k: v + self.wd * params[k] for k, v in g.items()}, state
+    def apply(self, g, state, params, sc):
+        return {k: v + self.wd * params[k] for k, v in g.items()}, {}
 
 
 class Clip(Transform):
@@ -328,25 +405,35 @@ class Clip(Transform):
     def __init__(self, d: float):
         self.d = d
 
-    def update(self, g, state, params):
-        return {k: torch.clamp(v, -self.d, self.d) for k, v in g.items()}, \
-            state
+    def apply(self, g, state, params, sc):
+        return {k: torch.clamp(v, -self.d, self.d) for k, v in g.items()}, {}
 
 
 class ClipByGlobalNorm(Transform):
     """``clip_by_global_norm``: rescale to max_norm when the norm over all
-    leaves is not below it."""
+    leaves is not below it. It reduces across leaves, so a chain holding
+    it never runs over a concatenation (``reduces_across_leaves``)."""
 
     def __init__(self, max_norm: float):
         self.max_norm = max_norm
 
-    def update(self, g, state, params):
+    def apply(self, g, state, params, sc):
         if not g:
-            return g, state
+            return g, {}
         norm = torch.sqrt(sum((v * v).sum() for v in g.values()))
         keep = norm < self.max_norm
         return {k: torch.where(keep, v, (v / norm) * self.max_norm)
-                for k, v in g.items()}, state
+                for k, v in g.items()}, {}
+
+
+def reduces_across_leaves(t: Transform) -> bool:
+    """Whether ``t`` has a stage that reduces across parameters
+    (``ClipByGlobalNorm``): its update is then not elementwise and must not
+    run over a concatenation of several parameters."""
+    if isinstance(t, ClipByGlobalNorm):
+        return True
+    return isinstance(t, Chain) and any(reduces_across_leaves(s)
+                                        for s in t.stages)
 
 
 # ---------------------------------------------------------------- updaters

@@ -8,7 +8,8 @@ lie on the CPU.
 
 The launch counters let a run show that its main path went through the
 kernels: a wrapper adds one to its kernel's count each time it launches
-it, and nowhere else.
+it, and nowhere else; a replayed CUDA graph adds the launches its capture
+recorded (``add_launch_counts``, exec/executor.py).
 """
 
 from __future__ import annotations
@@ -51,6 +52,19 @@ def reset_launch_counts() -> None:
         _COUNTS.clear()
 
 
+def add_launch_counts(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (kernel -> launches) to the counters: a replayed CUDA
+    graph adds the launches its capture recorded (exec/executor.py)."""
+    with _COUNTS_LOCK:
+        for name, n in counts.items():
+            left = _COUNTS.get(name, 0) + n
+            # a count taken back to 0 leaves no key, as if never launched
+            if left:
+                _COUNTS[name] = left
+            else:
+                _COUNTS.pop(name, None)
+
+
 def head_dim_supported(head_dim: int) -> bool:
     """The head dims the attention kernels (K5-K9) take: the positive
     multiples of 8, the head-dim clause of the JAX package's flash screens
@@ -71,7 +85,8 @@ from deeplearning4j_tpu_torch.ops.decode_cuda import (  # noqa: E402
     flash_decode_step, flash_decode_step_paged)
 
 __all__ = ["resolve_device", "count_launch", "launch_counts",
-           "reset_launch_counts", "head_dim_supported", "fused_lstm_sequence",
+           "reset_launch_counts", "add_launch_counts", "head_dim_supported",
+           "fused_lstm_sequence",
            "fused_lstm_sequence_train", "fused_lstm_backward",
            "fused_lstm2_sequence", "fused_lstm2_sequence_train", "FusedLSTM",
            "FusedLSTM2", "lstm_sequence", "lstm2_sequence",

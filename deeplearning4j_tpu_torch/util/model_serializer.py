@@ -183,7 +183,12 @@ def _restore(path, device, load_updater, kind):
         templates = [l.init(gen, dtype) for l in model.layers]
     model.set_params(_fill(path, COEFF_NAME, flat, templates))
     if upd is not None:
-        model.opt_state = _fill(path, UPDATER_NAME, upd, model.opt_state)
+        # in place: the state of a fused update views its flat buffers
+        loaded = _fill(path, UPDATER_NAME, upd, model.opt_state)
+        for (_, dst), (_, src) in zip(_items(model.opt_state),
+                                      _items(loaded)):
+            for k, v in src.items():
+                dst[k].copy_(v)
     model.iteration = int(meta.get("iteration", 0))
     model.epoch = int(meta.get("epoch", 0))
     model._epoch_batch = int(meta.get("epoch_batch", 0))
