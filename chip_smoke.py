@@ -131,6 +131,30 @@ result line, when any of them or the port's package is missing. Phases:
    train-precision policy: three ``fit`` steps of the LSTM model and of
    TinyTransformer on the card against the CPU port (losses within 3e-2,
    parameters and updater state float32).
+9. Regularised and masked training, paths S1-S7 at full width (B=32,
+   T=64, float32, from the configurations' seed): S1 the
+   TextGenerationLSTM with dropout 0.5 on layer 1 (the pair still fuses:
+   K4-train + 2 x K3 a step, K4 at inference), S2 with a global dropout
+   0.2 and S3 with a global DropConnect(0.8) (the pair broken: 2 x K2 + 2
+   x K3, 2 x K1), S4 Bidirectional(LSTM(256)) concat -> LastTimeStep(
+   LSTM(256)) -> OutputLayer on the character after each window (3 x K2
+   + 3 x K3, 3 x K1), S5 TinyTransformer with dropout 0.1 on every layer
+   (2 each of K5, K6, K7; K5 at inference), S6 the plain TextGenerationLSTM
+   on windows of lengths 16..64 (seed 123) with feature and label masks,
+   and S7 GravesBidirectionalLSTM -> GravesLSTM -> SimpleRnn ->
+   RnnOutputLayer (S6 and S7 run the layers' own loops: no kernel). Per
+   path: (a) step-1 loss and gradients and three ``fit`` steps of the
+   card's eager step against the CPU port, the card's draws recorded
+   through the port's draw seam and replayed into the CPU port
+   (gradients within 1e-4 of max|grad|, losses rtol 1e-4); (b) ten steps
+   eager and captured from one init, bit for bit, with exactly the
+   launches above in every step, and the capture's seconds and the bytes
+   of its graph's private memory pool; (c) ten more captured steps under ``torch.profiler``; (d)
+   ``output`` of the held-out windows against the CPU port (1e-4) with
+   exactly the inference launches above (S4 also ``evaluate``). Then (e)
+   the card's generator: Dropout(0.5) keeps 0.5 +- 0.005 of 10^6 draws,
+   GaussianDropout's, GaussianNoise's and AlphaDropout's moments within
+   1e-2.
 
 A replayed CUDA graph adds to the launch counts the launches its capture
 recorded (the capture itself counts none), so the counts below are the
@@ -161,7 +185,10 @@ import sys
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 F32_TOL, BF16_TOL = 1e-4, 3e-2
@@ -1889,6 +1916,351 @@ def captured_train_phase(card):
     return res
 
 
+# ---- phase 9: regularised and masked training ------------------------------
+REG_PATHS = ("S1", "S2", "S3", "S4", "S5", "S6", "S7")
+REG_STEPS, REG_FIT_STEPS = 10, 3
+# the kernels of one train step (b) and of one bucketed forward (d) per path
+REG_TRAIN_LAUNCHES = {
+    "S1": {"lstm2_fwd_train": 1, "lstm_bwd": 2},
+    "S2": {"lstm_fwd_train": 2, "lstm_bwd": 2},
+    "S3": {"lstm_fwd_train": 2, "lstm_bwd": 2},
+    "S4": {"lstm_fwd_train": 3, "lstm_bwd": 3},
+    "S5": {"flash_attn_fwd": 2, "flash_attn_dq": 2, "flash_attn_dkv": 2},
+    "S6": {}, "S7": {}}
+REG_INFER_LAUNCHES = {"S1": {"lstm2_fwd": 1}, "S2": {"lstm_fwd": 2},
+                      "S3": {"lstm_fwd": 2}, "S4": {"lstm_fwd": 3},
+                      "S5": {"flash_attn_fwd": 2}, "S6": {}, "S7": {}}
+REG_TAGS = {"S5": ("flash_attn",), "S6": (), "S7": ()}
+MASK_SEED, MASK_MIN = 123, 16   # S6: window lengths drawn from 16..T
+STATS_N, KEEP_TOL, MOMENT_TOL = 1_000_000, 0.005, 1e-2
+
+
+def reg_conf(name, vocab, width=256, d_model=128):
+    """Path ``name``'s configuration (the port's), at ``width``: S1-S3 the
+    TextGenerationLSTM (2 x LSTM, RnnOutputLayer, the zoo's Adam and
+    clipping) with dropout 0.5 on layer 1, a global dropout 0.2, a global
+    DropConnect(0.8); S4 Bidirectional(LSTM) concat -> LastTimeStep(LSTM)
+    -> OutputLayer; S5 TinyTransformer with dropout 0.1 on every layer; S6
+    the plain TextGenerationLSTM (its batches masked); S7
+    GravesBidirectionalLSTM -> GravesLSTM -> SimpleRnn -> RnnOutputLayer."""
+    from deeplearning4j_tpu_torch.nn.conf import (InputType,
+                                                  NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.layers import (
+        LSTM, Bidirectional, GravesBidirectionalLSTM, GravesLSTM,
+        LastTimeStep, OutputLayer, RnnOutputLayer, SimpleRnn)
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    from deeplearning4j_tpu_torch.nn.weightnoise import DropConnect
+    from deeplearning4j_tpu_torch.zoo import TinyTransformer
+    if name == "S5":
+        conf = TinyTransformer(vocab_size=vocab, d_model=d_model).conf()
+        for node in conf.nodes.values():
+            if node.layer is not None:
+                node.layer.dropout = 0.1
+        return conf
+    b = (NeuralNetConfiguration.builder().seed(123).updater(Adam(1e-3))
+         .weight_init("xavier")
+         .gradient_normalization("ClipElementWiseAbsoluteValue", 10.0))
+    if name == "S2":
+        b = b.dropout(0.2)
+    elif name == "S3":
+        b = b.weight_noise(DropConnect(weight_retain_prob=0.8))
+    lb = b.list()
+    out = RnnOutputLayer(n_out=vocab, activation="softmax", loss="mcxent")
+    if name == "S4":
+        lb.layer(Bidirectional(fwd=LSTM(n_out=width, activation="tanh"),
+                               mode="concat"))
+        lb.layer(LastTimeStep(fwd=LSTM(n_out=width, activation="tanh")))
+        out = OutputLayer(n_out=vocab, activation="softmax", loss="mcxent")
+    elif name == "S7":
+        lb.layer(GravesBidirectionalLSTM(n_out=width, activation="tanh"))
+        lb.layer(GravesLSTM(n_out=width, activation="tanh"))
+        lb.layer(SimpleRnn(n_out=width, activation="tanh"))
+    else:
+        lb.layer(LSTM(n_out=width, activation="tanh",
+                      dropout=0.5 if name == "S1" else None))
+        lb.layer(LSTM(n_out=width, activation="tanh"))
+    return lb.layer(out).set_input_type(InputType.recurrent(vocab)).build()
+
+
+def reg_net(name, vocab, device, **kw):
+    """Path ``name``'s network on ``device``, initialised from the
+    configuration's seed (the same weights on every device)."""
+    from deeplearning4j_tpu_torch import ComputationGraph, MultiLayerNetwork
+    conf = reg_conf(name, vocab, **kw)
+    cls = (ComputationGraph if hasattr(conf, "network_inputs")
+           else MultiLayerNetwork)
+    return cls(conf, device=device).init()
+
+
+def reg_batches(name, x, y, B, seed=MASK_SEED):
+    """Batches of B windows of ``x`` / ``y`` for path ``name`` as DataSets:
+    S4's label is the character after the window; S6's windows have
+    lengths drawn from MASK_MIN..T with ``seed``, feature and label masks
+    set."""
+    from deeplearning4j_tpu_torch.data import DataSet
+    n, T = len(x) // B, x.shape[1]
+    lengths = np.random.RandomState(seed).randint(MASK_MIN, T + 1, (n, B))
+    out = []
+    for k in range(n):
+        xb, yb = x[k * B:(k + 1) * B], y[k * B:(k + 1) * B]
+        if name == "S4":
+            yb = yb[:, -1]
+        m = None
+        if name == "S6":
+            m = (np.arange(T)[None, :] < lengths[k][:, None]).astype(
+                np.float32)
+        out.append(DataSet(xb, yb, m, m))
+    return out
+
+
+@contextmanager
+def seam(mode, draws):
+    """The port's draw seam recording every draw (``mode`` "record": the
+    card's, copied to the host) or handing the recorded draws out again in
+    order ("replay": into the CPU port)."""
+    from deeplearning4j_tpu_torch.nn import dropout as D
+    real = (D.uniform, D.normal)
+
+    def wrap(fn):
+        def draw(shape, dtype, device, gen):
+            if mode == "record":
+                t = fn(shape, dtype, device, gen)
+                draws.append(t.detach().cpu())
+                return t
+            t = draws.pop(0)
+            if tuple(t.shape) != tuple(shape):
+                raise AssertionError(f"draw order: {t.shape} for {shape}")
+            return t.to(device=device, dtype=dtype)
+        return draw
+    D.uniform, D.normal = wrap(real[0]), wrap(real[1])
+    try:
+        yield
+    finally:
+        D.uniform, D.normal = real
+
+
+def _loss_and_grads(net, ds):
+    """Step-1 loss and gradients of a train step at iteration 0 (the
+    generator seeded as ``fit`` seeds it)."""
+    from deeplearning4j_tpu_torch.exec.executor import seed_generator
+    seed_generator(net._gen, net.conf.global_conf.seed, 0)
+    if hasattr(net.conf, "network_inputs"):
+        loss, grads = net._gradients(*net._batch(net._as_multi(ds)),
+                                     net._gen)
+        return loss, grads
+    m = None if ds.features_mask is None else net._as_input(ds.features_mask)
+    loss, grads, _ = net._gradients(
+        net._as_input(ds.features), net._as_input(ds.labels),
+        None if ds.labels_mask is None else net._as_input(ds.labels_mask),
+        None, m, net._gen)
+    return loss, grads
+
+
+def _grad_rel_err(got, want):
+    """Largest gradient difference over the largest gradient."""
+    def items(t):
+        return t.items() if isinstance(t, dict) else enumerate(t)
+    pairs = [(g[k].float().cpu(), w[k].float().cpu())
+             for (_, g), (_, w) in zip(items(got), items(want)) for k in w]
+    return (max((a - b).abs().max().item() for a, b in pairs)
+            / max(b.abs().max().item() for _, b in pairs))
+
+
+def graph_pool_bytes(graph):
+    """Bytes the caching allocator holds in ``graph``'s private memory
+    pool, from its segment snapshot; None where the snapshot does not
+    name each segment's pool (not measured)."""
+    import torch
+    segments = torch.cuda.memory_snapshot()
+    if any("segment_pool_id" not in seg for seg in segments):
+        return None
+    pool = tuple(graph.pool())
+    return sum(seg["total_size"] for seg in segments
+               if tuple(seg["segment_pool_id"]) == pool)
+
+
+def reg_statistics(device):
+    """The generator's statistics bars of tests/test_torch_dropout.py on
+    ``device``: Dropout(0.5)'s keep share, GaussianDropout's and
+    GaussianNoise's moments, AlphaDropout on a standard normal."""
+    import torch
+    from deeplearning4j_tpu_torch.exec.executor import seed_generator
+    from deeplearning4j_tpu_torch.nn import dropout as D
+    gen = torch.Generator(device=device)
+    seed_generator(gen, MASK_SEED, 0)
+    ones = torch.ones(STATS_N, device=device)
+    y = D.Dropout(p=0.5).apply(ones, gen)
+    mult = D.GaussianDropout(rate=0.3).apply(ones, gen)
+    noise = D.GaussianNoise(stddev=0.5).apply(torch.zeros_like(ones), gen)
+    z = torch.randn(STATS_N, device=device, generator=gen)
+    alpha = D.AlphaDropout(p=0.1).apply(z, gen)
+    got = {"keep_share": (y != 0).float().mean().item(),
+           "gaussian_dropout_mean": mult.mean().item(),
+           "gaussian_dropout_var": mult.var().item(),
+           "gaussian_noise_mean": noise.mean().item(),
+           "gaussian_noise_var": noise.var().item(),
+           "alpha_mean": alpha.mean().item(),
+           "alpha_var": alpha.var().item()}
+    want = {"keep_share": (0.5, KEEP_TOL),
+            "gaussian_dropout_mean": (1.0, MOMENT_TOL),
+            "gaussian_dropout_var": (0.3 / 0.7, MOMENT_TOL),
+            "gaussian_noise_mean": (0.0, MOMENT_TOL),
+            "gaussian_noise_var": (0.25, MOMENT_TOL),
+            "alpha_mean": (0.0, MOMENT_TOL), "alpha_var": (1.0, MOMENT_TOL)}
+    bad = {k: v for k, v in got.items()
+           if abs(v - want[k][0]) > want[k][1]}
+    return got, bad
+
+
+def reg_path(name, data, vocab, card):
+    """Path ``name`` at full width (B=32, T=64): (a) the card's eager step
+    against the CPU port, the card's draws replayed into it: step-1 loss
+    and gradients, three ``fit`` steps; (b) ten steps eager and captured
+    from one init, bit for bit, with the launches of REG_TRAIN_LAUNCHES in
+    every step, and the capture's seconds and pool bytes; (c) ten more
+    captured steps under ``torch.profiler``; (d) ``output`` of the
+    held-out windows against the CPU port with REG_INFER_LAUNCHES (S4
+    also ``evaluate``). Raises on any failed bar; returns the numbers."""
+    import torch
+    from deeplearning4j_tpu_torch import ops
+    (xtr, ytr), (xte, yte) = data
+    B = TINY_B
+    batches = reg_batches(name, xtr, ytr, B)
+    res = {"path": name}
+
+    # (a) the card against the CPU port, the same draws
+    gpu, cpu = reg_net(name, vocab, "cuda"), reg_net(name, vocab, "cpu")
+    gpu._capture_steps = False
+    draws = []
+    with seam("record", draws):
+        lg, gg = _loss_and_grads(gpu, batches[0])
+    n_draws = len(draws)
+    with seam("replay", draws):
+        lc, gc = _loss_and_grads(cpu, batches[0])
+    grad_err = _grad_rel_err(gg, gc)
+    losses = {"card": [], "cpu": []}
+    for ds in batches[:REG_FIT_STEPS]:
+        with seam("record", draws):
+            losses["card"].append(gpu.fit(ds).get_score())
+        with seam("replay", draws):
+            losses["cpu"].append(cpu.fit(ds).get_score())
+    loss_err = max(abs(a - b) / abs(b) for a, b in
+                   zip([float(lg)] + losses["card"],
+                       [float(lc)] + losses["cpu"]))
+    res["a"] = {"draws_per_step": n_draws, "grad_rel_err": grad_err,
+                "loss_rel_err": loss_err, "losses": losses}
+    print(f"regularised {name} (a): card vs CPU port, {n_draws} draws a "
+          f"step replayed: step-1 gradients max err {grad_err:.3g} of "
+          f"max|grad| (tol {GRAD_TOL}), losses (step 1 and 3 fit steps) "
+          f"max rel err {loss_err:.3g} (tol {LOSS_RTOL}) [{card}]",
+          flush=True)
+    if not (grad_err <= GRAD_TOL and loss_err <= LOSS_RTOL):
+        raise AssertionError(f"{name}: the card disagrees with the CPU port")
+
+    # (d) inference from the card's parameters, on both
+    inf = {}
+    ref = reg_net(name, vocab, "cpu").set_params(
+        {n: {k: v.cpu() for k, v in p.items()} for n, p in gpu.params.items()}
+        if isinstance(gpu.params, dict)
+        else [{k: v.cpu() for k, v in p.items()} for p in gpu.params])
+    held = reg_batches(name, xte, yte, len(xte), seed=MASK_SEED + 1)[0]
+    kw = {} if held.features_mask is None else {"mask": held.features_mask}
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    out = gpu.output(held.features, **kw)
+    torch.cuda.synchronize()
+    inf["launches"] = ops.launch_counts()
+    want = ref.output(held.features, **kw)
+    inf["max_abs_err"] = (out.cpu() - want).abs().max().item()
+    if name == "S4":
+        ops.reset_launch_counts()
+        ev = gpu.evaluate(held)
+        inf["evaluate_launches"] = ops.launch_counts()
+        inf["accuracy"] = ev.accuracy()
+        top1 = float((out.argmax(-1).cpu().numpy()
+                      == held.labels.argmax(-1)).mean())
+        if abs(inf["accuracy"] - top1) > 1e-9 or \
+                inf["evaluate_launches"] != REG_INFER_LAUNCHES[name]:
+            raise AssertionError(f"{name}: evaluate {inf}")
+    res["d"] = inf
+    print(f"regularised {name} (d): output of {len(xte)} held-out windows "
+          f"vs the CPU port max abs err {inf['max_abs_err']:.3g} (tol "
+          f"{PROB_TOL}); launches {inf['launches']}"
+          + (f"; evaluate accuracy {inf['accuracy']:.4f}, launches "
+             f"{inf['evaluate_launches']}" if name == "S4" else "")
+          + f" [{card}]", flush=True)
+    if not (inf["max_abs_err"] <= PROB_TOL
+            and inf["launches"] == REG_INFER_LAUNCHES[name]):
+        raise AssertionError(f"{name}: inference {inf}")
+    del gpu, cpu, ref
+
+    # (b) eager against captured, from one init
+    eager, cap = reg_net(name, vocab, "cuda"), reg_net(name, vocab, "cuda")
+    eager._capture_steps = False
+    counts = {"eager": [], "captured": []}
+    for kind, net in (("eager", eager), ("captured", cap)):
+        for k, ds in enumerate(batches[:REG_STEPS]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ops.reset_launch_counts()
+            net.fit(ds)
+            torch.cuda.synchronize()
+            if kind == "captured" and k == 1:        # the capture
+                res["capture_seconds"] = time.perf_counter() - t0
+                (step,) = net._steps.graphs.values()
+                res["capture_pool_bytes"] = graph_pool_bytes(step.graph)
+            counts[kind].append(ops.launch_counts())
+    bitwise = all(torch.equal(a, b)
+                  for a, b in zip(_tensors(eager), _tensors(cap)))
+    bitwise = bitwise and eager.get_score() == cap.get_score()
+    want = REG_TRAIN_LAUNCHES[name]
+    launches_ok = all(c == want for kind in counts for c in counts[kind])
+    res["b"] = {"bitwise": bitwise, "launches_per_step": counts["eager"][0],
+                "launches_ok": launches_ok, "captures": cap._capture_count}
+    print(f"regularised {name} (b): {REG_STEPS} steps eager and captured "
+          f"from one init: bitwise {bitwise}; launches per step "
+          f"{counts['eager'][0]} (want {want}) in every step, eager and "
+          f"replayed: {launches_ok}; {cap._capture_count} graph captured in "
+          f"{res['capture_seconds']:.3f} s (with its first replay), its "
+          f"private pool {res['capture_pool_bytes']} bytes [{card}]",
+          flush=True)
+    if not (bitwise and launches_ok and cap._capture_count == 1):
+        raise AssertionError(f"{name}: captured vs eager {res['b']}")
+
+    # (c) ten more captured steps under the profiler
+    more = batches[REG_STEPS:2 * REG_STEPS]
+    tags = REG_TAGS.get(name, ("lstm",))
+
+    def run():
+        for ds in more:
+            cap.fit(ds)
+    res["c"] = profile_steps(run, len(more), tags)
+    print(f"regularised {name} (c): " + fmt_profile(res["c"], tags)
+          + f" [{card}]", flush=True)
+    return res
+
+
+def regularised_phase(card):
+    """Phase 9: S1-S7 (``reg_path``) and the generator's statistics on the
+    card (``reg_statistics``)."""
+    from deeplearning4j_tpu_torch.zoo.corpus import corpus_windows
+    train, test, vocab = corpus_windows(stride=8)
+    res = {"card": card}
+    for name in REG_PATHS:
+        t0 = time.perf_counter()
+        res[name] = reg_path(name, (train, test), len(vocab), card)
+        res[name]["seconds"] = time.perf_counter() - t0
+    got, bad = reg_statistics("cuda")
+    res["statistics"] = got
+    print(f"regularised (e): the card's generator over {STATS_N} draws: "
+          + ", ".join(f"{k} {v:.5f}" for k, v in got.items())
+          + f" (keep within {KEEP_TOL}, moments within {MOMENT_TOL}) "
+          f"[{card}]", flush=True)
+    if bad:
+        raise AssertionError(f"generator statistics out of bounds: {bad}")
+    return res
+
+
 def profile_steps(run, steps, tags):
     """``run()`` does ``steps`` fit steps (or returns how many steps it
     did); it is called once to warm up (timed, unprofiled) and once under
@@ -2087,6 +2459,9 @@ def main() -> int:
     t0 = time.perf_counter()
     captured = captured_train_phase(card)
     captured["phase_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    regularised = regularised_phase(card)
+    regularised["phase_seconds"] = time.perf_counter() - t0
 
     # each kernel at its main path's shape, with the launches of the run
     # that drove it: /predict of the 15 held-out windows (bucket 16, T=64)
@@ -2163,7 +2538,7 @@ def main() -> int:
          "k4_hidden_sizes": k4_sizes, "k12_hidden_sizes": k12_sizes,
          "slice": res, "f4": f4, "tiny": tiny, "wide": wide,
          "train": train, "tiny_train": tiny_train, "captured": captured,
-         "kernels": entries}, indent=1))
+         "regularised": regularised, "kernels": entries}, indent=1))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

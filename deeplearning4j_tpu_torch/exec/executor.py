@@ -18,8 +18,22 @@ of PyTorch's whole-network capture recipe, and a real step. It builds the
 kernels and fills their plan caches (``build.load``, ``lstm_cuda.has_plan``
 and the C plan caches), which must not run inside a capture. The second
 call captures the step and replays it; every later call copies its tensors
-into the graph's static inputs and replays. Nothing falls back: a capture
+into the graph's static inputs and replays. Python's cyclic garbage is
+collected before a capture and not during it: a dead network's graph
+freed inside a capture would invalidate it. Nothing falls back: a capture
 or replay that fails raises.
+
+Random numbers under capture: a network whose layers draw (dropout,
+weight noise) owns one ``torch.Generator`` on its device
+(``network_generator``), which the host seeds before every step --
+warm-up, capture, replay or eager -- from a 64-bit mix of the
+configuration's seed and the step's iteration (``seed_generator``, the
+counterpart of the JAX package's ``fold_in(PRNGKey(seed), it)``). A
+captured step registers the generator with its graph, so a replay draws
+from the seed the host just set: the draws of a step depend only on the
+seed and the iteration, a replay equals the eager step, and a resumed
+checkpoint repeats them. A draw from an unregistered CUDA generator
+inside a capture raises; nothing catches it.
 
 Kernel wrappers count their launches on the host (``ops.count_launch``),
 which happens once, at capture, and never at replay. A captured step
@@ -32,6 +46,7 @@ registry are not ported.
 
 from __future__ import annotations
 
+import gc
 import os
 from typing import Any, Callable, Dict, Optional
 
@@ -72,9 +87,11 @@ class Executor:
             self._streams[i] = torch.cuda.Stream(device=i)
         return self._streams[i]
 
-    def steps(self, fn: Callable) -> "StepGraphs":
-        """``fn`` called through CUDA graphs, one per signature."""
-        return StepGraphs(self, fn)
+    def steps(self, fn: Callable, generator=None) -> "StepGraphs":
+        """``fn`` called through CUDA graphs, one per signature, each with
+        ``generator`` (the generator ``fn`` draws from, or None)
+        registered."""
+        return StepGraphs(self, fn, generator)
 
     def warm_up(self, fn: Callable, device: torch.device):
         """``fn()`` eagerly on the side stream, any host synchronization an
@@ -91,9 +108,43 @@ class Executor:
         main.wait_stream(side)
         return out
 
-    def capture(self, fn: Callable, args: tuple, device: torch.device
-                ) -> "CapturedStep":
-        return CapturedStep(fn, args, self.stream(device))
+    def capture(self, fn: Callable, args: tuple, device: torch.device,
+                generator=None) -> "CapturedStep":
+        return CapturedStep(fn, args, self.stream(device), generator)
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def _splitmix64(z: int) -> int:
+    z = (z + 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
+def step_seed(seed: int, iteration: int) -> int:
+    """The 64-bit seed of the step at ``iteration`` of a network seeded
+    with ``seed``: splitmix64 of splitmix64(seed) mixed with the
+    iteration."""
+    return _splitmix64(_splitmix64(seed & _MASK64) ^ (iteration & _MASK64))
+
+
+def seed_generator(gen: Optional[torch.Generator], seed: int,
+                   iteration: int) -> None:
+    """Seed ``gen`` (if any) for the step at ``iteration``: a host-side
+    write, no device synchronization."""
+    if gen is not None:
+        gen.manual_seed(step_seed(seed, iteration))
+
+
+def network_generator(layers, device: torch.device
+                      ) -> Optional[torch.Generator]:
+    """A network's generator on ``device``, or None when none of its
+    ``layers`` draws random numbers."""
+    if not any(l.draws_noise() for l in layers):
+        return None
+    return torch.Generator(device=device)
 
 
 def _leaves(tree, out):
@@ -136,13 +187,25 @@ class CapturedStep:
     replays, adds the launches its capture recorded, and returns the static
     outputs, which the next replay overwrites."""
 
-    def __init__(self, fn: Callable, args: tuple, stream):
+    def __init__(self, fn: Callable, args: tuple, stream, generator=None):
         self.inputs = [t.detach().clone() for t in _leaves(args, [])]
         static = _rebuild(args, iter(self.inputs))
         self.graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            self.graph.register_generator_state(generator)
         before = ops.launch_counts()
-        with torch.cuda.graph(self.graph, stream=stream):
-            self.outputs = fn(*static)
+        # a CUDA graph freed inside a capture (a dead network's, collected
+        # with its reference cycle) would free memory there and invalidate
+        # the capture: collect before it, and not during it
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(self.graph, stream=stream):
+                self.outputs = fn(*static)
+        finally:
+            if collecting:
+                gc.enable()
         after = ops.launch_counts()
         self.launches = {k: n - before.get(k, 0) for k, n in after.items()
                          if n != before.get(k, 0)}
@@ -163,8 +226,8 @@ class StepGraphs:
     it, every call from then on replays it. ``captures`` counts the graphs
     captured, as the JAX containers' ``_compile_count`` counts programs."""
 
-    def __init__(self, executor: Executor, fn: Callable):
-        self.executor, self.fn = executor, fn
+    def __init__(self, executor: Executor, fn: Callable, generator=None):
+        self.executor, self.fn, self.generator = executor, fn, generator
         self.graphs: Dict[Any, CapturedStep] = {}
         self.warmed = set()
         self.captures = 0
@@ -177,8 +240,8 @@ class StepGraphs:
             if key not in self.warmed:
                 self.warmed.add(key)
                 return self.executor.warm_up(lambda: self.fn(*args), device)
-            graph = self.graphs[key] = self.executor.capture(self.fn, args,
-                                                             device)
+            graph = self.graphs[key] = self.executor.capture(
+                self.fn, args, device, self.generator)
             self.captures += 1
         return graph(*args)
 

@@ -20,18 +20,22 @@ normalization, then the fused flat update (nn/fused_update.py, in place
 into flat buffers the per-node dicts view) and the nodes' constraints;
 with the fused update off, each node's updater (``layer.updater or
 gc.updater``), the per-node loop it is held bitwise equal to. Label masks
-weight the loss. The fit-path forward of a float32 graph runs in bfloat16
+weight the loss. Dropout and weight noise train as in the JAX graph, from
+the graph's one generator seeded before every step (see
+MultiLayerNetwork's module docstring); a feature mask reaches a layer only
+where its first input is a network input, as in the JAX graph, on ``fit``
+and ``score``. The fit-path forward of a float32 graph runs in bfloat16
 under the executor's bf16 train-precision policy (exec/executor.py), the
 loss in float32; stored parameters and updater state stay float32. On the
 card ``fit`` and ``fit_scan`` run the step through CUDA graphs, one per
 signature, as MultiLayerNetwork does (its module docstring), and
 ``apply_external_updates`` the fused update alone through its own; on the
-CPU the same step runs eagerly. Not ported yet: feature masks, dropout,
-weight noise, truncated BPTT over a graph (carried recurrent state),
-listeners, checkpointing inside ``fit`` and prefetch; fitting with one of
-the first four raises ``NotImplementedError`` naming it. Not ported for
-inference: masks, carried recurrent state, chunked prefill and
-speculation.
+CPU the same step runs eagerly. Not ported yet: truncated BPTT over a
+graph (carried recurrent state; fitting with it raises
+``NotImplementedError``), listeners, checkpointing inside ``fit`` and
+prefetch. Not ported for inference: carried recurrent state, chunked
+prefill and speculation; ``output`` and ``evaluate`` take no feature mask,
+as the JAX graph's do not.
 
 The graph runs on CUDA unless constructed with ``device="cpu"``; without a
 card and without that argument, construction raises.
@@ -46,10 +50,14 @@ import torch
 
 from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.exec import get_executor
+from deeplearning4j_tpu_torch.exec.executor import (network_generator,
+                                                    seed_generator)
 from deeplearning4j_tpu_torch.models.multi_layer_network import (
     DTYPES, to_device, updater_plan)
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import \
     ComputationGraphConfiguration
+from deeplearning4j_tpu_torch.nn.layers.base import (flatten_params,
+                                                     nest_params)
 from deeplearning4j_tpu_torch.nn.updaters import normalize_layer_grad
 from deeplearning4j_tpu_torch.ops import resolve_device
 
@@ -75,6 +83,9 @@ class ComputationGraph:
         # the card runs steps through CUDA graphs; the eager step stays
         # callable (False) as the oracle the tests and chip_smoke.py use
         self._capture_steps = self.device.type == "cuda"
+        # the train step's random draws (None when no layer draws)
+        self._gen = network_generator(
+            [conf.nodes[n].layer for n in conf.layer_nodes()], self.device)
         self.iteration = 0
         self.epoch = 0
         self._epoch_batch = 0         # batches consumed in the current epoch
@@ -91,16 +102,18 @@ class ComputationGraph:
         gen = torch.Generator().manual_seed(gc.seed if seed is None else seed)
         dtype = DTYPES[gc.dtype]
         self.params = {
-            n: {k: v.to(self.device) for k, v in
-                self.conf.nodes[n].layer.init(gen, dtype).items()}
+            n: {k: v.to(self.device) for k, v in flatten_params(
+                self.conf.nodes[n].layer.init(gen, dtype)).items()}
             for n in self.conf.layer_nodes()}
         self._build_optimizer()
         return self
 
     def set_params(self, params: Params):
         """Install parameters (a dict node name -> dict of tensors, copied
-        onto the graph's device) with a fresh updater state."""
-        self.params = {n: {k: v.to(self.device) for k, v in p.items()}
+        onto the graph's device; nested dicts flattened to path keys) with
+        a fresh updater state."""
+        self.params = {n: {k: v.to(self.device) for k, v in
+                           flatten_params(p).items()}
                        for n, p in params.items()}
         self._build_optimizer()
         return self
@@ -124,7 +137,7 @@ class ComputationGraph:
             self.params, {n: l.updater or gc.updater
                           for n, l in layers.items()},
             {n: l.apply_constraints for n, l in layers.items()})
-        self._steps = self._executor.steps(self._step)
+        self._steps = self._executor.steps(self._step, generator=self._gen)
         self._updates = self._executor.steps(self._dp_apply_updates)
         self._serving = None
 
@@ -151,11 +164,16 @@ class ComputationGraph:
                 return dt
         return None
 
-    def _forward(self, params: Params, inputs, skip=(), train=False):
+    def _forward(self, params: Params, inputs, skip=(), train=False,
+                 masks=None, gen=None):
         """Forward along the topological order. ``inputs``: one tensor, or
         a list with one per network input; nodes named in ``skip`` are not
-        run. Returns (output, activations): the network output (a list
-        when there are several) and every node's activation by name."""
+        run; ``masks`` maps a network input's name to its feature mask,
+        which reaches the layers whose first input it is. With ``train``
+        and a generator each layer's weight noise and dropout draw from
+        ``gen`` in topological order. Returns (output, activations): the
+        network output (a list when there are several) and every node's
+        activation by name."""
         if not isinstance(inputs, (list, tuple)):
             inputs = [inputs]
         cdt = self._compute_dtype(train)
@@ -170,16 +188,24 @@ class ComputationGraph:
             ins = [acts[i] for i in node.inputs]
             if node.kind == "vertex":
                 acts[name] = node.vertex.apply(ins)
-            else:
-                acts[name] = node.layer.apply(params.get(name, {}), ins[0])
+                continue
+            layer = node.layer
+            mask = masks.get(node.inputs[0]) if masks else None
+            p = nest_params(params.get(name, {}))
+            if train and gen is not None and layer.weight_noise is not None:
+                p = layer.weight_noise.apply(p, gen)
+            acts[name] = layer.apply(p, ins[0], train=train, gen=gen,
+                                     mask=mask)
         outs = [acts.get(n) for n in self.conf.network_outputs]
         return (outs[0] if len(outs) == 1 else outs), acts
 
     # -------------------------------------------------------------- training
-    def _loss(self, params: Params, inputs, labels, label_masks=None):
+    def _loss(self, params: Params, inputs, labels, label_masks=None,
+              masks=None, gen=None):
         """Every output node's score on the forward of the nodes before it,
         plus every node's l1/l2 penalty (the output layers themselves are
-        not run: their score takes their input)."""
+        not run: their score takes their input, after their weight noise
+        and with their dropout, which draw after the forward's)."""
         outs = self.conf.network_outputs
         for name in outs:
             node = self.conf.nodes[name]
@@ -190,13 +216,17 @@ class ComputationGraph:
         consumed = {i for n in self.conf.nodes.values() for i in n.inputs}
         _, acts = self._forward(params, inputs,
                                 skip={n for n in outs if n not in consumed},
-                                train=True)
+                                train=True, masks=masks, gen=gen)
         total = 0.0
         for oi, name in enumerate(outs):
-            node = self.conf.nodes[name]
+            layer = self.conf.nodes[name].layer
             lm = None if not label_masks else label_masks[oi]
-            total = total + node.layer.compute_score(
-                params.get(name, {}), acts[node.inputs[0]], labels[oi], lm)
+            p = nest_params(params.get(name, {}))
+            if gen is not None and layer.weight_noise is not None:
+                p = layer.weight_noise.apply(p, gen)
+            total = total + layer.compute_score(
+                p, acts[self.conf.nodes[name].inputs[0]], labels[oi], lm,
+                train=True, gen=gen)
         total = total + self._reg_loss(params)
         if self._compute_dtype(True) is not None:
             total = total.float()
@@ -210,15 +240,10 @@ class ComputationGraph:
         return total
 
     def _check_trainable(self):
-        blockers = sorted({b for n in self.conf.layer_nodes()
-                           for b in self.conf.nodes[n].layer
-                           .training_blockers()})
         if self.conf.backprop_type == "tbptt":
-            blockers.append("truncated BPTT (tbptt) over a graph")
-        if blockers:
             raise NotImplementedError(
-                f"training with {', '.join(blockers)} is not ported to the "
-                "PyTorch package yet")
+                "training with truncated BPTT (tbptt) over a graph is not "
+                "ported to the PyTorch package yet")
         if self.params is None:
             raise ValueError("call init() or set_params() before fitting")
 
@@ -243,12 +268,14 @@ class ComputationGraph:
             grads[n] = g
         return grads
 
-    def _gradients(self, inputs, labels, label_masks=None):
+    def _gradients(self, inputs, labels, label_masks=None, masks=None,
+                   gen=None):
         """Loss and per-node gradients at the current parameters. Returns
         (loss, grads), grads keyed like the parameters."""
         leaves = self._leaves()
         with torch.enable_grad():
-            loss = self._loss(leaves, inputs, labels, label_masks)
+            loss = self._loss(leaves, inputs, labels, label_masks, masks,
+                              gen)
             grads = self._grads_of(loss, leaves)
         return loss.detach(), grads
 
@@ -281,10 +308,12 @@ class ComputationGraph:
                 {k: (v + u[k]).to(v.dtype) for k, v in p.items()})
         self.params, self.opt_state = new_params, new_opt
 
-    def _step(self, inputs, labels, label_masks=None):
+    def _step(self, inputs, labels, label_masks=None, masks=None):
         """The device half of a train step (what a graph captures): loss,
-        gradients, the update. Returns the loss."""
-        loss, grads = self._gradients(inputs, labels, label_masks)
+        gradients, the update, the draws from the graph's generator.
+        Returns the loss."""
+        loss, grads = self._gradients(inputs, labels, label_masks, masks,
+                                      self._gen)
         self._dp_apply_updates(grads)
         return loss
 
@@ -299,11 +328,15 @@ class ComputationGraph:
         self._fused.advance(self.opt_state)
         return out
 
-    def _train_step(self, inputs, labels, label_masks=None):
-        """One train step; returns the loss (on the card, a replay's static
-        output, which its next replay overwrites)."""
+    def _train_step(self, inputs, labels, label_masks=None, masks=None,
+                    iteration=None):
+        """One train step at ``iteration`` (default: the graph's), the
+        generator seeded from it first; returns the loss (on the card, a
+        replay's static output, which its next replay overwrites)."""
+        seed_generator(self._gen, self.conf.global_conf.seed,
+                       self.iteration if iteration is None else iteration)
         return self._run(self._steps, self._step, inputs, labels,
-                         label_masks)
+                         label_masks, masks)
 
     def apply_external_updates(self, grads):
         """One updater step from externally computed gradients (per-node
@@ -323,16 +356,18 @@ class ComputationGraph:
         epsilons, one per network output shaped like it (parity:
         backprop_external, ComputationGraph.calcBackpropGradients with
         external epsilons), the l1/l2 penalty's gradient included as fit()
-        includes it. Returns (grads, new_state); the port keeps no layer
-        state, so new_state is {}."""
+        includes it, with the dropout and weight noise of a fit step at the
+        graph's iteration. Returns (grads, new_state); the port keeps no
+        layer state, so new_state is {}."""
         self._check_trainable()
         inputs = [self._as_input(x) for x in (
             inputs if isinstance(inputs, (list, tuple)) else [inputs])]
         epsilons = [self._as_input(e) for e in (
             epsilons if isinstance(epsilons, (list, tuple)) else [epsilons])]
         leaves = self._leaves()
+        seed_generator(self._gen, self.conf.global_conf.seed, self.iteration)
         with torch.enable_grad():
-            outs, _ = self._forward(leaves, inputs, train=True)
+            outs, _ = self._forward(leaves, inputs, train=True, gen=self._gen)
             outs = list(outs) if isinstance(outs, list) else [outs]
             eps = [e.to(o.dtype) for e, o in zip(epsilons, outs)]
             reg = self._reg_loss(leaves)
@@ -352,19 +387,20 @@ class ComputationGraph:
         return self
 
     def _batch(self, mds: MultiDataSet):
-        """A MultiDataSet's (inputs, labels, label masks or None) on the
-        graph's device."""
+        """A MultiDataSet's (inputs, labels, label masks or None, feature
+        masks by network input name or None) on the graph's device."""
+        masks = None
         if mds.features_masks and any(m is not None
                                       for m in mds.features_masks):
-            raise NotImplementedError(
-                "training with feature masks is not ported to the PyTorch "
-                "package yet")
+            masks = {n: self._as_input(m) for n, m in
+                     zip(self.conf.network_inputs, mds.features_masks)
+                     if m is not None}
         label_masks = None
         if mds.labels_masks and any(m is not None for m in mds.labels_masks):
             label_masks = [None if m is None else self._as_input(m)
                            for m in mds.labels_masks]
         return ([self._as_input(f) for f in mds.features],
-                [self._as_input(y) for y in mds.labels], label_masks)
+                [self._as_input(y) for y in mds.labels], label_masks, masks)
 
     @staticmethod
     def _as_multi(data, labels=None) -> MultiDataSet:
@@ -433,7 +469,8 @@ class ComputationGraph:
         ys = [self._as_input(a) for a in labels_steps]
         n = int(xs[0].shape[0])
         for k in range(n):
-            loss = self._train_step([a[k] for a in xs], [a[k] for a in ys])
+            loss = self._train_step([a[k] for a in xs], [a[k] for a in ys],
+                                    iteration=self.iteration + k)
             if k == n - 1:
                 self._score = loss.clone()
         self.iteration += n
@@ -443,7 +480,9 @@ class ComputationGraph:
     @torch.no_grad()
     def score(self, mds=None, inputs=None, labels=None) -> float:
         """Loss on a (Multi)DataSet or on inputs and labels, l1/l2 included
-        (parity: score); label masks weight it."""
+        (parity: score); label masks weight it and feature masks reach the
+        layers as in ``fit`` (the JAX graph's ``score`` reads neither:
+        caveat R3)."""
         mds = self._as_multi(inputs, labels) if mds is None \
             else self._as_multi(mds)
         return float(self._loss(self.params, *self._batch(mds)))
@@ -457,7 +496,8 @@ class ComputationGraph:
         """First-output classification evaluation (parity: evaluate) over a
         DataSet, a MultiDataSet or an iterator of them, each batch through
         the bucketed ``output``; the first output's label mask, where
-        given, drops rows."""
+        given, drops rows, and no feature mask is read, as in the JAX
+        package."""
         from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
         ev = Evaluation()
         if isinstance(data, (DataSet, MultiDataSet)):
@@ -466,10 +506,6 @@ class ComputationGraph:
             data.reset()
         for batch in data:
             mds = self._as_multi(batch)
-            if mds.features_masks and any(m is not None
-                                          for m in mds.features_masks):
-                raise NotImplementedError(
-                    "feature masks are not ported to the PyTorch package yet")
             out = self.output(*mds.features)
             if isinstance(out, list):
                 out = out[0]

@@ -6,9 +6,22 @@ the forward with stacked-LSTM pair fusion, ``output``, ``rnn_time_step`` /
 training (``fit`` on arrays, a DataSet or an iterator, ``fit_scan``,
 truncated BPTT, ``compute_gradient_and_score``, ``score``, ``evaluate``),
 ``save`` and ``load``. Parameters are a list of per-layer dicts of tensors
-on the network's device, under the JAX package's keys; the updater state
-is a list of per-layer dicts under the JAX package's optax key paths (see
-nn/updaters.py).
+on the network's device, under the JAX package's keys (a wrapper's nested
+parameters flattened to path keys, ``fwd/W``; see nn/layers/base.py); the
+updater state is a list of per-layer dicts under the JAX package's optax
+key paths (see nn/updaters.py).
+
+Dropout, weight noise and feature masks train as in the JAX package: the
+train-time forward applies each layer's weight noise to its parameters
+(the output layer's in the loss) and its dropout to its input, drawing
+from the network's one ``torch.Generator``, which the host seeds before
+every step from ``(seed, iteration)`` (``exec.executor.seed_generator``,
+the counterpart of ``fold_in(PRNGKey(seed), it)``); the chunks of a
+truncated-BPTT batch share it, as in JAX. A feature mask reaches every
+layer until the activations lose their time axis, on ``fit`` (arrays
+excepted), truncated BPTT (sliced per chunk), ``score`` and
+``output(x, mask=)``; ``evaluate`` reads none, as in the JAX package, and
+``fit_scan`` takes none.
 
 A train step is the JAX package's default step: the loss (output layer's
 score plus l1/l2), its gradient by autograd (through the LSTM kernels'
@@ -30,10 +43,10 @@ the counterpart of the JAX package's jitted, donated train step: the
 first step of a signature runs eagerly as the warm-up, the second is
 captured, and from then on each step copies its batch into the graph's
 static inputs, stages the count-derived updater scalars in one copy, and
-replays. ``apply_external_updates`` runs the fused update alone through
-its own graphs. On the CPU the same step runs eagerly. Not ported yet:
-dropout, weight noise, feature masks and listeners; fitting a network
-that needs one of the first three raises ``NotImplementedError``.
+replays; a graph's draws follow the seed the host set before the replay.
+``apply_external_updates`` runs the fused update alone through its own
+graphs. On the CPU the same step runs eagerly. Not ported yet: listeners,
+checkpointing inside ``fit`` and prefetch.
 
 The network runs on CUDA unless constructed with ``device="cpu"``; without
 a card and without that argument, construction raises.
@@ -49,10 +62,14 @@ import torch
 
 from deeplearning4j_tpu_torch.data.dataset import DataSet
 from deeplearning4j_tpu_torch.exec import get_executor
+from deeplearning4j_tpu_torch.exec.executor import (network_generator,
+                                                    seed_generator)
 from deeplearning4j_tpu_torch.nn.conf.configuration import \
     MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.fused_update import (build_fused_update,
                                                       fused_update_enabled)
+from deeplearning4j_tpu_torch.nn.layers.base import (flatten_params,
+                                                     nest_params)
 from deeplearning4j_tpu_torch.nn.layers.rnn import (apply_lstm_pair,
                                                     lstm_pair_fusable)
 from deeplearning4j_tpu_torch.nn.updaters import (make_gradient_transform,
@@ -72,7 +89,8 @@ def params_from_numpy(arrays, device=None):
     dev = resolve_device(device)
 
     def conv(p: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(np.array(v)).to(dev) for k, v in p.items()}
+        return {k: torch.from_numpy(np.array(v)).to(dev)
+                for k, v in flatten_params(p).items()}
     if isinstance(arrays, dict):
         return {n: conv(p) for n, p in arrays.items()}
     return [conv(p) for p in arrays]
@@ -134,6 +152,9 @@ class MultiLayerNetwork:
         # the card runs steps through CUDA graphs; the eager step stays
         # callable (False) as the oracle the tests and chip_smoke.py use
         self._capture_steps = self.device.type == "cuda"
+        # the train step's random draws (None when no layer has dropout
+        # or weight noise)
+        self._gen = network_generator(self.layers, self.device)
         self.iteration = 0
         self.epoch = 0
         self._epoch_batch = 0         # batches consumed in the current epoch
@@ -150,15 +171,16 @@ class MultiLayerNetwork:
         gen = torch.Generator().manual_seed(gc.seed if seed is None else seed)
         dtype = DTYPES[gc.dtype]
         self.params = [{k: v.to(self.device) for k, v in
-                        l.init(gen, dtype).items()} for l in self.layers]
+                        flatten_params(l.init(gen, dtype)).items()}
+                       for l in self.layers]
         self._build_optimizer()
         return self
 
     def set_params(self, params: List[Dict[str, torch.Tensor]]):
-        """Install parameters (copied onto the network's device) with a
-        fresh updater state."""
-        self.params = [{k: v.to(self.device) for k, v in p.items()}
-                       for p in params]
+        """Install parameters (copied onto the network's device; nested
+        dicts flattened to path keys) with a fresh updater state."""
+        self.params = [{k: v.to(self.device) for k, v in
+                        flatten_params(p).items()} for p in params]
         self._build_optimizer()
         return self
 
@@ -183,7 +205,7 @@ class MultiLayerNetwork:
             {i: l.apply_constraints for i, l in enumerate(self.layers)})
         self._transforms = [transforms[i] for i in range(n)]
         self.opt_state = [opt_state[i] for i in range(n)]
-        self._steps = self._executor.steps(self._step)
+        self._steps = self._executor.steps(self._step, generator=self._gen)
         self._updates = self._executor.steps(self._dp_apply_updates)
         self._serving = None
 
@@ -210,11 +232,14 @@ class MultiLayerNetwork:
                 return dt
         return None
 
-    def _forward(self, params, x, carries=None, upto=None, train=False):
+    def _forward(self, params, x, carries=None, upto=None, train=False,
+                 mask=None, gen=None):
         """Forward through layers [0, upto). Returns (act, new_carries).
         Consecutive stacked LSTMs fuse into ONE wavefront kernel; the
         stateful-carry path (rnn_time_step, truncated BPTT) stays per
-        layer."""
+        layer. With ``train`` and a generator each layer's weight noise
+        and dropout draw from ``gen`` in forward order; ``mask`` (B, T)
+        reaches every layer until the activations are 2-D."""
         cdt = self._compute_dtype(train)
         if cdt is not None:
             x = x.to(cdt)
@@ -226,21 +251,27 @@ class MultiLayerNetwork:
             l = self.layers[i]
             if (new_carries is None and i + 1 < n and x.ndim == 3
                     and lstm_pair_fusable(l, self.layers[i + 1], params[i],
-                                          params[i + 1], x)):
+                                          params[i + 1], x, mask)):
                 x = apply_lstm_pair(l, self.layers[i + 1], params[i],
-                                    params[i + 1], x)
+                                    params[i + 1], x, train=train, gen=gen)
                 i += 2
                 continue
+            p = nest_params(params[i])
+            if train and gen is not None and l.weight_noise is not None:
+                p = l.weight_noise.apply(p, gen)
             if new_carries is not None and hasattr(l, "apply_with_carry"):
-                x, new_carries[i] = l.apply_with_carry(params[i], x,
-                                                       new_carries[i])
+                x, new_carries[i] = l.apply_with_carry(p, x, new_carries[i],
+                                                       mask=mask)
             else:
-                x = l.apply(params[i], x)
+                x = l.apply(p, x, train=train, gen=gen, mask=mask)
+            if x.ndim == 2:
+                mask = None    # the sequence collapsed to one row each
             i += 1
         return x, new_carries
 
     # -------------------------------------------------------------- training
-    def _loss(self, params, x, y, mask_l=None, carries=None):
+    def _loss(self, params, x, y, mask_l=None, carries=None, mask_f=None,
+              gen=None):
         """Output layer's score on the forward of the other layers, plus
         every layer's l1/l2 penalty. Returns (loss, new_carries)."""
         out_layer = self.layers[-1]
@@ -250,8 +281,12 @@ class MultiLayerNetwork:
                 "OutputLayer/LossLayer variant")
         act, new_carries = self._forward(params, x, carries,
                                          upto=len(self.layers) - 1,
-                                         train=True)
-        loss = out_layer.compute_score(params[-1], act, y, mask_l)
+                                         train=True, mask=mask_f, gen=gen)
+        p_out = nest_params(params[-1])
+        if gen is not None and out_layer.weight_noise is not None:
+            p_out = out_layer.weight_noise.apply(p_out, gen)
+        loss = out_layer.compute_score(p_out, act, y, mask_l, train=True,
+                                       gen=gen)
         for l, p in zip(self.layers, params):
             loss = loss + l.reg_loss(p)
         if self._compute_dtype(True) is not None:
@@ -259,22 +294,18 @@ class MultiLayerNetwork:
         return loss, new_carries
 
     def _check_trainable(self):
-        blockers = sorted({b for l in self.layers
-                           for b in l.training_blockers()})
-        if blockers:
-            raise NotImplementedError(
-                f"training with {', '.join(blockers)} is not ported to the "
-                "PyTorch package yet")
         if self.params is None:
             raise ValueError("call init() or set_params() before fitting")
 
-    def _gradients(self, x, y, mask_l=None, carries=None):
+    def _gradients(self, x, y, mask_l=None, carries=None, mask_f=None,
+                   gen=None):
         """Loss and per-layer gradients at the current parameters. Returns
         (loss, grads, new_carries), carries detached."""
         leaves = [{k: v.detach().requires_grad_(v.is_floating_point())
                    for k, v in p.items()} for p in self.params]
         with torch.enable_grad():
-            loss, new_carries = self._loss(leaves, x, y, mask_l, carries)
+            loss, new_carries = self._loss(leaves, x, y, mask_l, carries,
+                                           mask_f, gen)
             flat = [v for p in leaves for v in p.values()]
             got = torch.autograd.grad(loss, flat, allow_unused=True) \
                 if flat else ()
@@ -323,10 +354,12 @@ class MultiLayerNetwork:
             new_opt.append(o)
         self.params, self.opt_state = new_params, new_opt
 
-    def _step(self, x, y, mask_l=None, carries=None):
+    def _step(self, x, y, mask_l=None, carries=None, mask_f=None):
         """The device half of a train step (what a graph captures): loss,
-        gradients, the update. Returns (loss, new_carries)."""
-        loss, grads, new_carries = self._gradients(x, y, mask_l, carries)
+        gradients, the update, the draws from the network's generator.
+        Returns (loss, new_carries)."""
+        loss, grads, new_carries = self._gradients(x, y, mask_l, carries,
+                                                   mask_f, self._gen)
         self._dp_apply_updates(grads)
         return loss, new_carries
 
@@ -342,11 +375,16 @@ class MultiLayerNetwork:
         self._fused.advance(opt)
         return out
 
-    def _train_step(self, x, y, mask_l=None, carries=None):
-        """One train step; returns (loss, new_carries). On the card the
-        loss and carries of a replay are the graph's static outputs, which
-        its next replay overwrites."""
-        return self._run(self._steps, self._step, x, y, mask_l, carries)
+    def _train_step(self, x, y, mask_l=None, carries=None, mask_f=None,
+                    iteration=None):
+        """One train step at ``iteration`` (default: the network's), the
+        generator seeded from it first; returns (loss, new_carries). On
+        the card the loss and carries of a replay are the graph's static
+        outputs, which its next replay overwrites."""
+        seed_generator(self._gen, self.conf.global_conf.seed,
+                       self.iteration if iteration is None else iteration)
+        return self._run(self._steps, self._step, x, y, mask_l, carries,
+                         mask_f)
 
     def apply_external_updates(self, grads):
         """One updater step from externally computed gradients (per-layer
@@ -363,7 +401,7 @@ class MultiLayerNetwork:
     def compute_gradient_and_score(self, x, y, labels_mask=None):
         """Gradients of the loss at the current parameters (per-layer
         dicts, before normalization) and the loss, without an update
-        (parity: computeGradientAndScore)."""
+        (parity: computeGradientAndScore): no dropout, no weight noise."""
         self._check_trainable()
         loss, grads, _ = self._gradients(
             self._as_input(x), self._as_input(y),
@@ -400,7 +438,8 @@ class MultiLayerNetwork:
         self._check_trainable()
         xs, ys = self._as_input(xs), self._as_input(ys)
         for k in range(xs.shape[0]):
-            loss, _ = self._train_step(xs[k], ys[k])
+            loss, _ = self._train_step(xs[k], ys[k],
+                                       iteration=self.iteration + k)
             if k == xs.shape[0] - 1:
                 self._score = loss.clone()
         self.iteration += int(xs.shape[0])
@@ -408,48 +447,49 @@ class MultiLayerNetwork:
         return self
 
     def _fit_batch(self, ds: DataSet):
-        if ds.features_mask is not None:
-            raise NotImplementedError(
-                "training with feature masks is not ported to the PyTorch "
-                "package yet")
         x, y = self._as_input(ds.features), self._as_input(ds.labels)
         ml = None if ds.labels_mask is None else self._as_input(ds.labels_mask)
+        mf = None if ds.features_mask is None \
+            else self._as_input(ds.features_mask)
         if self.conf.backprop_type == "tbptt" and x.ndim == 3:
-            self._fit_tbptt(x, y, ml)
+            self._fit_tbptt(x, y, ml, mf)
         else:
-            self._score = self._train_step(x, y, ml)[0].clone()
+            self._score = self._train_step(x, y, ml, mask_f=mf)[0].clone()
         self.iteration += 1
         self._epoch_batch += 1
         return self
 
-    def _fit_tbptt(self, x, y, ml):
+    def _fit_tbptt(self, x, y, ml, mf=None):
         """Truncated BPTT (parity: doTruncatedBPTT): one train step per
         chunk of tbptt_fwd_length steps, the RNN state carried across
-        chunks and entering each detached; the score is the mean of the
-        chunk losses."""
+        chunks and entering each detached, the masks sliced per chunk;
+        every chunk is a step at the batch's iteration (the same draws);
+        the score is the mean of the chunk losses."""
         T, L = x.shape[1], self.conf.tbptt_fwd_length
         carries = [None] * len(self.layers)
         losses = []
         for start in range(0, T, L):
             ys = y[:, start:start + L] if y.ndim == 3 else y
             mls = None if ml is None else ml[:, start:start + L]
+            mfs = None if mf is None else mf[:, start:start + L]
             loss, carries = self._train_step(x[:, start:start + L], ys, mls,
-                                             carries)
+                                             carries, mfs)
             losses.append(loss.clone())
         self._score = torch.stack(losses).mean()
 
     @torch.no_grad()
     def score(self, ds: Optional[DataSet] = None, x=None, y=None) -> float:
-        """Loss on a dataset, l1/l2 included (parity: score)."""
-        ml = None
+        """Loss on a dataset, l1/l2 included, its masks applied, no
+        dropout or weight noise (parity: score)."""
+        ml = mf = None
         if ds is not None:
-            if ds.features_mask is not None:
-                raise NotImplementedError(
-                    "feature masks are not ported to the PyTorch package yet")
-            x, y, ml = ds.features, ds.labels, ds.labels_mask
+            x, y = ds.features, ds.labels
+            ml, mf = ds.labels_mask, ds.features_mask
         loss, _ = self._loss(self.params, self._as_input(x),
                              self._as_input(y),
-                             None if ml is None else self._as_input(ml))
+                             None if ml is None else self._as_input(ml),
+                             mask_f=None if mf is None
+                             else self._as_input(mf))
         return float(loss)
 
     def get_score(self) -> float:
@@ -460,7 +500,8 @@ class MultiLayerNetwork:
     def evaluate(self, data, labels=None):
         """Classification evaluation (parity: evaluate): accuracy,
         precision, recall, F1 and the confusion matrix over the batches,
-        each through the bucketed ``output``."""
+        each through the bucketed ``output``; as in the JAX package, a
+        label mask drops rows and a feature mask is not read."""
         from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
         ev = Evaluation()
         if labels is not None:
@@ -472,9 +513,6 @@ class MultiLayerNetwork:
         for ds in data:
             if not isinstance(ds, DataSet):
                 ds = DataSet(*ds)
-            if ds.features_mask is not None:
-                raise NotImplementedError(
-                    "feature masks are not ported to the PyTorch package yet")
             out = self.output(ds.features)
             ev.eval(np.asarray(ds.labels), out.float().cpu().numpy(),
                     None if ds.labels_mask is None
@@ -492,14 +530,16 @@ class MultiLayerNetwork:
         return self._serving
 
     @torch.no_grad()
-    def output(self, x, bucketed: bool = True) -> torch.Tensor:
-        """Forward pass to network output (parity: output). The default
-        pads the batch up to a power-of-two bucket and slices the pad rows
-        off (serving/engine.py); ``bucketed=False`` runs the exact shape."""
+    def output(self, x, mask=None, bucketed: bool = True) -> torch.Tensor:
+        """Forward pass to network output (parity: output), ``mask`` the
+        (B, T) feature mask. The default pads the batch up to a
+        power-of-two bucket and slices the pad rows off
+        (serving/engine.py); ``bucketed=False`` runs the exact shape."""
         x = self._as_input(x)
+        mask = None if mask is None else self._as_input(mask)
         if bucketed:
-            return self.serving_engine().predict(x)
-        return self._forward(self.params, x)[0]
+            return self.serving_engine().predict(x, mask)
+        return self._forward(self.params, x, mask=mask)[0]
 
     @torch.no_grad()
     def rnn_time_step(self, x) -> torch.Tensor:

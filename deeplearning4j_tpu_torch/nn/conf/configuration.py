@@ -4,8 +4,10 @@ Counterpart of deeplearning4j_tpu/nn/conf/configuration.py: sequential
 networks here, graphs through ``graph_builder()`` (nn/conf/graph_conf.py).
 The JSON is the same document, so a configuration saved by one package
 reads in the other. Updaters are ``nn.updaters.Updater`` objects
-(interpreted by ``fit``); dropout objects and weight noise are kept as the
-dicts the JSON holds.
+(interpreted by ``fit``); the global ``dropout`` (a drop probability or an
+``nn.dropout.IDropout``) and ``weight_noise`` (an
+``nn.weightnoise.IWeightNoise``) are inherited by every layer that sets
+none, under the JSON's ``@dropout`` / ``@noise`` tags.
 
 Usage:
     conf = (NeuralNetConfiguration.builder()
@@ -29,8 +31,10 @@ from dataclasses import dataclass, field as dc_field
 from typing import Any, List, Optional
 
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.dropout import IDropout
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, layer_from_dict
 from deeplearning4j_tpu_torch.nn.updaters import Sgd, Updater
+from deeplearning4j_tpu_torch.nn.weightnoise import IWeightNoise
 
 
 @dataclass
@@ -63,8 +67,15 @@ class GlobalConf:
                 "dropout": self.dropout, "weight_noise": self.weight_noise}
 
     def to_dict(self):
-        d = dataclasses.asdict(dataclasses.replace(self, updater=None))
+        wn, do = self.weight_noise, self.dropout
+        d = dataclasses.asdict(dataclasses.replace(
+            self, updater=None, weight_noise=None,
+            dropout=0.0 if isinstance(do, IDropout) else do))
         d["updater"] = self.updater.to_dict()
+        if wn is not None:
+            d["weight_noise"] = wn.to_dict()
+        if isinstance(do, IDropout):
+            d["dropout"] = do.to_dict()
         return d
 
     @staticmethod
@@ -73,6 +84,10 @@ class GlobalConf:
         d["updater"] = Updater.from_dict(d["updater"])
         if d.get("dist") is not None:
             d["dist"] = tuple(d["dist"])
+        if d.get("weight_noise") is not None:
+            d["weight_noise"] = IWeightNoise.from_dict(d["weight_noise"])
+        if isinstance(d.get("dropout"), dict):
+            d["dropout"] = IDropout.from_dict(d["dropout"])
         return GlobalConf(**d)
 
 
@@ -112,6 +127,17 @@ class Builder:
     def gradient_normalization(self, kind, threshold=1.0):
         self._g.gradient_normalization = kind
         self._g.gradient_normalization_threshold = threshold
+        return self
+
+    def dropout(self, v):
+        """A float drop probability or an ``IDropout`` for every layer."""
+        self._g.dropout = v if isinstance(v, IDropout) else float(v)
+        return self
+
+    def weight_noise(self, wn):
+        """An ``IWeightNoise`` (DropConnect / WeightNoise) for every
+        layer."""
+        self._g.weight_noise = wn
         return self
 
     def list(self) -> "ListBuilder":

@@ -19,7 +19,8 @@ group's parameters into one flat buffer, and each parameter-shaped state
 slot (``.mu``, ``.nu``, ``.trace``, ...) into one flat buffer per slot,
 and rebinds the members' per-layer dicts to views into those buffers. The
 rest of the package, and the checkpoint, keep seeing per-layer dicts under
-the same keys (``0/.mu/W``, ``1/.count``); the update writes in place into
+the same keys (``0/.mu/W``, ``1/.count``; a wrapper's nested parameters
+as path keys, ``0/.mu/fwd/W``); the update writes in place into
 the flat buffers, the counterpart of donation, so a captured CUDA graph of
 a step keeps its addresses. A group's update is a fixed number of
 launches, whatever the number of layers: one ``torch.cat`` of the
@@ -67,10 +68,12 @@ def set_fused_update(flag: Optional[bool]) -> None:
 
 def _split_key(key: str, names) -> Tuple[str, Optional[str]]:
     """A state key as (slot path, parameter name): ``0/.mu/W`` ->
-    (``0/.mu``, ``W``); a scalar slot such as ``0/.count`` -> (key, None)."""
-    head, _, leaf = key.rpartition("/")
-    if head and leaf in names:
-        return head, leaf
+    (``0/.mu``, ``W``), ``0/.mu/fwd/W`` -> (``0/.mu``, ``fwd/W``) for a
+    wrapper's path-keyed parameter; a scalar slot such as ``0/.count`` ->
+    (key, None)."""
+    for name in sorted(names, key=len, reverse=True):
+        if key.endswith("/" + name) and len(key) > len(name) + 1:
+            return key[:-len(name) - 1], name
     return key, None
 
 

@@ -134,7 +134,12 @@ class MultiHeadAttention(Layer):
         8); any other head dim runs the layer's own einsum and softmax."""
         return ops.head_dim_supported(self.head_dim)
 
-    def apply(self, params, x):
+    def apply(self, params, x, *, train=False, gen=None, mask=None):
+        if mask is not None:
+            raise NotImplementedError(
+                "MultiHeadAttention with a feature (key-padding) mask is not "
+                "ported to the PyTorch package yet (ROADMAP queue 1 item 4)")
+        x = self.maybe_dropout(x, train=train, gen=gen)
         B, T, _ = x.shape
         H, Dh = self.n_heads, self.head_dim
         q, k, v = self._project(params, x)
@@ -241,7 +246,7 @@ class LayerNormalization(Layer):
         return {"gamma": torch.ones((self.n_in,), dtype=dtype, device=device),
                 "beta": torch.zeros((self.n_in,), dtype=dtype, device=device)}
 
-    def apply(self, params, x):
+    def apply(self, params, x, *, train=False, gen=None, mask=None):
         mean = x.mean(-1, keepdim=True)
         var = x.var(-1, unbiased=False, keepdim=True)
         xn = (x - mean) * torch.rsqrt(var + self.eps)
@@ -264,7 +269,7 @@ class PositionalEmbedding(Layer):
         P = torch.randn((self.max_len, self.n_in), generator=gen) * 0.02
         return {"P": P.to(dtype=dtype, device=device)}
 
-    def apply(self, params, x):
+    def apply(self, params, x, *, train=False, gen=None, mask=None):
         T = x.shape[1]
         if T > self.max_len:
             raise ValueError(f"sequence length {T} exceeds "

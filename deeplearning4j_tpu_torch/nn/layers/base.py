@@ -4,15 +4,27 @@ Counterpart of deeplearning4j_tpu/nn/layers/base.py. A layer is a
 dataclass holding its configuration; its parameters are a plain dict of
 tensors under the JAX package's keys (``W``, ``RW``, ``b``), so a
 checkpoint's arrays load into either package. A layer's updater is an
-``nn.updaters.Updater`` (the JSON's dict is read into one); dropout and
-weight noise are kept as the JSON data they arrive as (not ported yet:
-training a network that uses them raises).
+``nn.updaters.Updater`` (the JSON's dict is read into one); its dropout a
+float drop probability or an ``nn.dropout.IDropout``, its weight noise an
+``nn.weightnoise.IWeightNoise`` (the JSON's ``@dropout`` / ``@noise``
+dicts are read into them).
+
+A wrapper's parameters nest (Bidirectional: ``{"fwd": {...}, "bwd":
+{...}}``), as in the JAX package. The containers keep every layer's
+parameters as one flat dict keyed by path (``fwd/W``: the JAX package's
+checkpoint and optax key paths), which the updaters, the fused update and
+the checkpoint walk as they walk a plain layer's; ``flatten_params`` /
+``nest_params`` convert, and a layer's ``init`` and ``apply`` see the
+nested form.
 
 Protocol:
 - ``set_n_in(input_type)`` -- infer input width.
 - ``output_type(input_type)`` -- shape inference.
 - ``init(gen, dtype, device)`` -- parameter dict ({} if parameterless).
-- ``apply(params, x)`` -- the forward.
+- ``apply(params, x, *, train=False, gen=None, mask=None)`` -- the
+  forward: ``train`` and a ``torch.Generator`` (where the JAX package
+  takes ``rng``) switch on the layer's dropout; ``mask`` is the (B, T)
+  feature mask of a sequence input.
 - ``reg_loss(params)`` / ``apply_constraints(params)`` -- training.
 - ``init_decode_state`` / ``decode_step`` -- one token at a time, and
   their paged forms (``init_paged_decode_state`` / ``decode_step_paged``).
@@ -27,7 +39,9 @@ from typing import Any, Dict, Optional
 import torch
 
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.dropout import IDropout, apply_dropout
 from deeplearning4j_tpu_torch.nn.updaters import Updater
+from deeplearning4j_tpu_torch.nn.weightnoise import IWeightNoise
 
 LAYER_REGISTRY: Dict[str, type] = {}
 
@@ -54,8 +68,8 @@ class Layer:
     updater: Optional[Updater] = None
     l1: Optional[float] = None
     l2: Optional[float] = None
-    dropout: Optional[Any] = None            # kept as data
-    weight_noise: Optional[Any] = None       # kept as data
+    dropout: Optional[Any] = None            # drop probability or IDropout
+    weight_noise: Optional[Any] = None       # IWeightNoise
     constraints: Optional[tuple] = None
 
     # ---- config protocol -------------------------------------------------
@@ -84,38 +98,65 @@ class Layer:
              device=None) -> Dict[str, torch.Tensor]:
         return {}
 
-    def apply(self, params, x):
+    def apply(self, params, x, *, train=False, gen=None, mask=None):
         raise NotImplementedError
 
     def has_params(self) -> bool:
         return True
 
+    def draws_noise(self) -> bool:
+        """Whether the layer, or a layer it wraps, draws random numbers at
+        train time (a dropout or a weight noise configured)."""
+        d = self.dropout
+        if (isinstance(d, IDropout) or (d is not None and d > 0.0)
+                or self.weight_noise is not None):
+            return True
+        return any(isinstance(getattr(self, f.name), Layer)
+                   and getattr(self, f.name).draws_noise()
+                   for f in dataclasses.fields(self))
+
+    def maybe_dropout(self, x, *, train, gen):
+        """The layer's dropout on its input activations, at train time
+        with a generator only (the reference applies it before the
+        layer's own math)."""
+        if not train or gen is None:
+            return x
+        return apply_dropout(self.dropout, x, gen)
+
     # ---- training ---------------------------------------------------------
     def reg_loss(self, params):
-        """l1/l2 penalty the container adds to the loss; biases and
-        normalisation parameters are exempt, as in the reference."""
+        """l1/l2 penalty the container adds to the loss over a layer's
+        (path-keyed) parameters; biases and normalisation parameters are
+        exempt, as in the reference."""
         l1 = self.l1 or 0.0
         l2 = self.l2 or 0.0
         if (l1 == 0.0 and l2 == 0.0) or not params:
             return 0.0
         total = 0.0
         for k, v in params.items():
-            if k.startswith("b") or k in ("beta", "gamma", "mean", "var"):
+            # the first element of a path key decides, as the JAX package
+            # tests the top-level key (a nested ``bwd`` is exempt whole)
+            top = k.split("/")[0]
+            if top.startswith("b") or top in ("beta", "gamma", "mean", "var"):
                 continue
-            total = total + l1 * v.abs().sum() + 0.5 * l2 * (v ** 2).sum()
+            # |v| as where(v >= 0, v, -v): its gradient at exactly 0 is
+            # 1, as jnp.abs's is (torch's abs gives 0 there)
+            total = (total + l1 * torch.where(v >= 0, v, -v).sum()
+                     + 0.5 * l2 * (v ** 2).sum())
         return total
 
     def apply_constraints(self, params):
         """Post-update parameter constraints (parity: nn/conf/constraint/*):
         ('maxnorm', m), ('unitnorm',), ('nonneg',), ('minmaxnorm', lo, hi),
-        over every axis but the last; biases are exempt."""
+        over every axis but the last; biases are exempt, and so are nested
+        parameters (path keys), as in the JAX package."""
         if not self.constraints or not params:
             return params
         kind = self.constraints[0]
         arg = self.constraints[1] if len(self.constraints) > 1 else 1.0
         out = dict(params)
         for k, v in params.items():
-            if k.startswith("b"):
+            if k.startswith("b") or "/" in k:
                 continue
             if kind == "nonneg":
                 out[k] = torch.clamp(v, min=0.0)
@@ -129,18 +170,6 @@ class Layer:
             elif kind == "minmaxnorm":
                 lo, hi = self.constraints[1], self.constraints[2]
                 out[k] = v * torch.clamp(n, lo, hi) / torch.clamp(n, min=1e-8)
-        return out
-
-    def training_blockers(self):
-        """Configured features whose training is not ported yet: fitting a
-        network with any of them raises instead of training something
-        different."""
-        out = []
-        if self.dropout and not (isinstance(self.dropout, (int, float))
-                                 and self.dropout <= 0.0):
-            out.append("dropout")
-        if self.weight_noise is not None:
-            out.append("weight noise")
         return out
 
     # ---- incremental decode protocol --------------------------------------
@@ -171,7 +200,7 @@ class Layer:
         d = {}
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
-            if isinstance(v, (Layer, Updater)):
+            if isinstance(v, (Layer, Updater, IDropout, IWeightNoise)):
                 v = v.to_dict()
             elif isinstance(v, tuple):
                 v = list(v)
@@ -188,6 +217,10 @@ class Layer:
                 continue
             if k == "updater" and isinstance(v, dict):
                 v = Updater.from_dict(v)
+            elif isinstance(v, dict) and "@noise" in v:
+                v = IWeightNoise.from_dict(v)
+            elif isinstance(v, dict) and "@dropout" in v:
+                v = IDropout.from_dict(v)
             elif isinstance(v, dict) and "@type" in v:
                 v = layer_from_dict(v)
             elif isinstance(v, list):
@@ -202,6 +235,33 @@ def layer_from_dict(d: Dict[str, Any]) -> Layer:
         raise ValueError(f"layer type {kind!r} is not ported yet "
                          f"(ported: {sorted(LAYER_REGISTRY)})")
     return LAYER_REGISTRY[kind]._from_dict_fields(d)
+
+
+def flatten_params(params: Dict[str, Any], prefix: str = "") -> Dict:
+    """A (possibly nested) parameter dict as one flat dict keyed by path
+    (``{"fwd": {"W": w}}`` -> ``{"fwd/W": w}``), in the nested order."""
+    out = {}
+    for k, v in params.items():
+        if isinstance(v, dict):
+            out.update(flatten_params(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def nest_params(flat: Dict[str, Any]) -> Dict:
+    """The inverse of ``flatten_params``; a dict without path keys is
+    returned as it is."""
+    if not any("/" in k for k in flat):
+        return flat
+    out: Dict[str, Any] = {}
+    for k, v in flat.items():
+        *path, leaf = k.split("/")
+        d = out
+        for p in path:
+            d = d.setdefault(p, {})
+        d[leaf] = v
+    return out
 
 
 def require_dims(layer, **dims):

@@ -1,8 +1,10 @@
-"""Core feed-forward layers: DenseLayer, OutputLayer and LossLayer.
+"""Core feed-forward layers: DenseLayer, OutputLayer, LossLayer and
+DropoutLayer.
 
 Counterpart of deeplearning4j_tpu/nn/layers/core.py (parameter keys ``W``
 (n_in, n_out) and ``b``, as the reference's DefaultParamInitializer). The
-output layers' ``compute_score`` is the loss ``fit`` differentiates.
+output layers' ``compute_score`` is the loss ``fit`` differentiates. A
+layer's dropout acts on its input at train time (``maybe_dropout``).
 """
 
 from __future__ import annotations
@@ -48,7 +50,8 @@ class DenseLayer(Layer):
                                 dtype=dtype, device=device)
         return p
 
-    def apply(self, params, x):
+    def apply(self, params, x, *, train=False, gen=None, mask=None):
+        x = self.maybe_dropout(x, train=train, gen=gen)
         if x.ndim >= 4 or (x.ndim == 3 and x.shape[-1] != self.n_in):
             x = x.reshape(x.shape[0], -1)  # implicit CNN->FF flatten
         y = x @ params["W"]
@@ -64,7 +67,9 @@ class OutputLayer(DenseLayer):
     container calls ``compute_score`` with labels during training."""
     loss: str = "mcxent"
 
-    def compute_score(self, params, x, labels, mask=None):
+    def compute_score(self, params, x, labels, mask=None, *, train=False,
+                      gen=None):
+        x = self.maybe_dropout(x, train=train, gen=gen)
         if x.ndim >= 4 or (x.ndim == 3 and x.shape[-1] != self.n_in):
             x = x.reshape(x.shape[0], -1)
         w = params["W"]
@@ -93,9 +98,22 @@ class LossLayer(Layer):
     def has_params(self):
         return False
 
-    def apply(self, params, x):
+    def apply(self, params, x, *, train=False, gen=None, mask=None):
         return get_activation(self.activation or "identity")(x)
 
-    def compute_score(self, params, x, labels, mask=None):
+    def compute_score(self, params, x, labels, mask=None, *, train=False,
+                      gen=None):
         return get_loss(self.loss)(labels, x, self.activation or "identity",
                                    mask)
+
+
+@register_layer
+@dataclass
+class DropoutLayer(Layer):
+    """The layer's dropout alone (parity: nn/conf/layers/DropoutLayer)."""
+
+    def has_params(self):
+        return False
+
+    def apply(self, params, x, *, train=False, gen=None, mask=None):
+        return self.maybe_dropout(x, train=train, gen=gen)

@@ -64,15 +64,22 @@ class InferenceEngine:
         self._calls = 0
         self._buckets = set()
 
-    def _dispatch(self, x: torch.Tensor) -> torch.Tensor:
+    def _dispatch(self, x: torch.Tensor, mask=None) -> torch.Tensor:
         n = x.shape[0]
         if n > self.max_batch:
-            return torch.cat([self._dispatch(x[i:i + self.max_batch])
-                              for i in range(0, n, self.max_batch)])
+            return torch.cat([
+                self._dispatch(x[i:i + self.max_batch],
+                               None if mask is None
+                               else mask[i:i + self.max_batch])
+                for i in range(0, n, self.max_batch)])
         b = bucket_for(n, self.max_batch)
         if b > n:
             x = torch.cat([x, x.new_zeros((b - n,) + tuple(x.shape[1:]))])
-        out, _ = self.model._forward(self.model.params, x)
+            if mask is not None:
+                mask = torch.cat([mask, mask.new_zeros(
+                    (b - n,) + tuple(mask.shape[1:]))])
+        kw = {} if mask is None else {"mask": mask}
+        out, _ = self.model._forward(self.model.params, x, **kw)
         with self._lock:
             self._rows += n
             self._pad_rows += b - n
@@ -81,12 +88,18 @@ class InferenceEngine:
         return out[:n]
 
     @torch.no_grad()
-    def predict(self, x) -> torch.Tensor:
-        """Bucketed forward of one batch; returns the output on the
-        model's device, shaped like ``model.output(x, bucketed=False)``."""
+    def predict(self, x, mask=None) -> torch.Tensor:
+        """Bucketed forward of one batch (``mask``: a MultiLayerNetwork's
+        (B, T) feature mask, padded with zero rows); returns the output
+        on the model's device, shaped like ``model.output(x,
+        bucketed=False)``."""
         if not isinstance(x, torch.Tensor):
             x = torch.as_tensor(np.asarray(x))
-        return self._dispatch(x.to(self.model.device))
+        if mask is not None:
+            mask = torch.as_tensor(np.asarray(mask)) if not isinstance(
+                mask, torch.Tensor) else mask
+            mask = mask.to(self.model.device)
+        return self._dispatch(x.to(self.model.device), mask)
 
     def predict_host(self, x) -> np.ndarray:
         """``predict`` + host read (float32 numpy)."""

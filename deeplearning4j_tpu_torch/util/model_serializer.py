@@ -4,8 +4,9 @@ Counterpart of deeplearning4j_tpu/util/model_serializer.py for
 MultiLayerNetworks and ComputationGraphs. The zip holds ``meta.json`` (the
 kind, and the ``iteration``, ``epoch`` and ``epoch_batch`` counters),
 ``configuration.json``, ``coefficients.npz`` (one array per parameter
-under keys like ``0/RW`` -- layer index / parameter name -- or, for a
-graph, ``b0_attn/Wq`` -- node name / parameter name), ``modelState.npz``
+under keys like ``0/RW`` -- layer index / parameter name, a wrapper's
+nested parameters by path, ``0/fwd/RW`` -- or, for a graph,
+``b0_attn/Wq`` -- node name / parameter name), ``modelState.npz``
 and, when saved, ``updaterState.npz`` (the updater state under the JAX
 package's optax key paths, e.g. ``0/0/.mu/W`` -- layer index or node name
 / chain index / field / parameter). Arrays go
@@ -147,6 +148,7 @@ def _restore(path, device, load_updater, kind):
     with the shape the configuration gives it."""
     from deeplearning4j_tpu_torch.models.computation_graph import \
         ComputationGraph
+    from deeplearning4j_tpu_torch.nn.layers.base import flatten_params
     from deeplearning4j_tpu_torch.models.multi_layer_network import (
         DTYPES, MultiLayerNetwork)
     from deeplearning4j_tpu_torch.nn.conf.configuration import (
@@ -174,13 +176,14 @@ def _restore(path, device, load_updater, kind):
         conf = ComputationGraphConfiguration.from_json(conf_json)
         model = ComputationGraph(conf, device=device)
         dtype = DTYPES[conf.global_conf.dtype]
-        templates = {n: conf.nodes[n].layer.init(gen, dtype)
+        templates = {n: flatten_params(conf.nodes[n].layer.init(gen, dtype))
                      for n in conf.layer_nodes()}
     else:
         conf = MultiLayerConfiguration.from_json(conf_json)
         model = MultiLayerNetwork(conf, device=device)
         dtype = DTYPES[conf.global_conf.dtype]
-        templates = [l.init(gen, dtype) for l in model.layers]
+        templates = [flatten_params(l.init(gen, dtype))
+                     for l in model.layers]
     model.set_params(_fill(path, COEFF_NAME, flat, templates))
     if upd is not None:
         # in place: the state of a fused update views its flat buffers

@@ -270,22 +270,17 @@ def test_checkpoint_zip_resumes_training_both_ways(tmp_path):
     assert int(again.opt_state["out"]["0/.count"]) == 0
 
 
-@pytest.mark.parametrize("what", ["dropout", "feature_mask", "tbptt"])
+@pytest.mark.parametrize("what", ["tbptt"])
 def test_unported_graph_training_features_raise(what):
     conf = TinyTransformer(**SMALL).conf()
-    if what == "dropout":
-        conf.nodes["b0_ff1"].layer.dropout = 0.5
-    elif what == "tbptt":
-        conf.backprop_type = "tbptt"
+    conf.backprop_type = "tbptt"
     net = ComputationGraph(conf, device="cpu").init()
     x, y = _batch(10)
-    mask = np.ones((B, T), np.float32) if what == "feature_mask" else None
-    with pytest.raises(NotImplementedError, match=what.split("_")[0]):
-        net.fit(DataSet(x, y, features_mask=mask))
+    with pytest.raises(NotImplementedError, match=what):
+        net.fit(DataSet(x, y))
     assert net.iteration == 0
-    if what == "tbptt":
-        with pytest.raises(ValueError, match="tbptt"):
-            net.fit_scan(x[None], y[None])
+    with pytest.raises(ValueError, match="tbptt"):
+        net.fit_scan(x[None], y[None])
 
 
 def test_zoo_model_at_full_width_fits_on_cpu_without_kernel_launches():

@@ -245,7 +245,7 @@ def test_step_graphs_warm_up_then_capture_then_replay(monkeypatch):
             calls.append("warm")
             return fn()
 
-        def capture(self, fn, args, device):
+        def capture(self, fn, args, device, generator=None):
             calls.append("capture")
 
             def replay(*a):

@@ -284,23 +284,6 @@ def test_checkpoint_updater_state_resumes_across_packages(tmp_path):
     assert int(bare.opt_state[0][0].count) == 0
 
 
-@pytest.mark.parametrize("what", ["dropout", "weight_noise", "feature_mask"])
-def test_unported_training_features_raise(what):
-    conf = (NeuralNetConfiguration.builder().updater(Adam(1e-3)).list()
-            .layer(LSTM(n_out=4, activation="tanh",
-                        dropout=0.5 if what == "dropout" else None,
-                        weight_noise=({"@noise": "DropConnect", "p": 0.5}
-                                      if what == "weight_noise" else None)))
-            .layer(RnnOutputLayer(n_out=V, activation="softmax"))
-            .set_input_type(InputType.recurrent(V)).build())
-    net = MultiLayerNetwork(conf, device="cpu").init()
-    x, y = _batch(9)
-    mask = np.ones((B, T), np.float32) if what == "feature_mask" else None
-    with pytest.raises(NotImplementedError, match=what.split("_")[0]):
-        net.fit(DataSet(x, y, features_mask=mask))
-    assert net.iteration == 0
-
-
 def test_fit_trains_the_zoo_model_on_cpu_without_kernel_launches():
     net = TextGenerationLSTM(total_unique_characters=V).init(device="cpu")
     assert net.conf.global_conf.updater == Adam(1e-3)
