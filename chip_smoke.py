@@ -155,6 +155,44 @@ result line, when any of them or the port's package is missing. Phases:
    the card's generator: Dropout(0.5) keeps 0.5 +- 0.005 of 10^6 draws,
    GaussianDropout's, GaussianNoise's and AlphaDropout's moments within
    1e-2.
+10. The fit contract, F1-F7 (the default f32 train-precision policy;
+   B=32, T=64; the corpus's stride-8 windows one-hot over the zoo's 77
+   columns, 26 batches an epoch, shuffled from seed 5). F1: the zoo's
+   TextGenerationLSTM (2 x LSTM(256), RnnOutputLayer 77) streams 2 epochs
+   through ``fit(iterator, prefetch=2, checkpoint=CheckpointListener(dir,
+   every_n_iterations=8, keep_last=3))`` with a recording listener,
+   ``ScoreIterationListener(10)`` and ``CollectScoresIterationListener(1)``,
+   chunks of at most 8 steps (``_CHUNK_MAX_STEPS`` on the instance): the
+   listeners' (iteration, epoch) calls and the number of saves equal the
+   CPU port's on the same stream, the losses at each call within 1e-4
+   relative, K4-train once and K3 twice a step, one capture. F2: the same
+   with prefetch 0, the final parameters and updater state bit for bit
+   those of prefetch 2, and a ``DevicePrefetcher`` over the stream keeps
+   at least one item staged until the last. F3: F1 stopped by a listener
+   at the first call past iteration 48 in epoch 2, then a fresh network
+   ``fit(iterator, epochs=2, resume_from=dir)``: the directory holds 3
+   zips and a manifest whose largest (iteration, epoch) entry, read from
+   the JSON and the file names alone, is the zip the port resumed from;
+   the final parameters and updater state bit for bit those of F1. Then
+   ms per step of a warm 3-epoch fit with prefetch 0 and 2 (in turns 0,
+   2, 2, 0), with their pipeline stats, against ``fit_scan`` over the same
+   batches already on the card, and ms per checkpoint save. F4: the same
+   layers as a ComputationGraph with ``backprop_type("tbptt", 16, 16)``,
+   4 batches: parameters within 1e-4 of the CPU port fed the same
+   batches, K2 twice and K3 twice a chunk, 2 captures; ms per batch
+   against the MultiLayerNetwork's truncated BPTT (in turns). F5: F4's
+   graph, ``rnn_time_step``: 256 greedy characters at B=1 (ms per
+   character), each step within 1e-4 of the same step of ``output`` over
+   the whole prefix and the same character unless a top-2 margin is at
+   most 1e-4, K1 twice a call; one call at B=15, T=16 within 1e-4 of
+   ``output``; after ``rnn_clear_previous_state`` the first 8 steps repeat
+   bit for bit. F6: TinyTransformer (d_model 128, 4 heads, 2 blocks, vocab
+   51) streams 2 epochs with ``prefetch=2`` and a ``PerformanceListener``:
+   K5, K6 and K7 twice each a step, its losses and the listener's
+   samples/s. F7: F1's network with dropout 0.5 on layer 1, with
+   ``remat`` and without: the step-1 gradient under the same draws bit for
+   bit, K4-train twice (forward and recompute) and K3 twice; 5 captured
+   fit steps to the same bits, and warm ms per step of both.
 
 A replayed CUDA graph adds to the launch counts the launches its capture
 recorded (the capture itself counts none), so the counts below are the
@@ -2045,8 +2083,8 @@ def _loss_and_grads(net, ds):
     from deeplearning4j_tpu_torch.exec.executor import seed_generator
     seed_generator(net._gen, net.conf.global_conf.seed, 0)
     if hasattr(net.conf, "network_inputs"):
-        loss, grads = net._gradients(*net._batch(net._as_multi(ds)),
-                                     net._gen)
+        loss, grads, _ = net._gradients(*net._batch(net._as_multi(ds)),
+                                        net._gen)
         return loss, grads
     m = None if ds.features_mask is None else net._as_input(ds.features_mask)
     loss, grads, _ = net._gradients(
@@ -2261,6 +2299,547 @@ def regularised_phase(card):
     return res
 
 
+# ---- phase 10: the fit contract --------------------------------------------
+FIT_WIDTH = 77               # TextGenerationLSTM's width in the zoo
+FIT_B, FIT_T = 32, 64
+FIT_CHUNK, FIT_EVERY, FIT_KEEP, FIT_CRASH = 8, 8, 3, 48
+FIT_STEP = {"lstm2_fwd_train": 1, "lstm_bwd": 2}          # F1-F3, F7 plain
+FIT_TIMED_EPOCHS = 3
+F4_L, F4_BATCHES, F4_TIMED = 16, 4, 10
+F5_CHARS, F5_RESTART = 256, 8
+F7_STEPS, F7_TIMED = 5, 10
+FIT_DIR = ROOT / "build" / "fit_contract"
+CKPT_RE = r"^checkpoint_iter(\d{10})_epoch(\d{4})\.zip$"
+
+
+class FitInterrupted(RuntimeError):
+    pass
+
+
+class CallRecorder:
+    """A listener recording every ``iteration_done`` (iteration, epoch)
+    and every epoch end; it reads nothing from the card."""
+
+    def __init__(self, stop_after=None):
+        self.calls, self.ends = [], []
+        self.stop_after = stop_after
+
+    def iteration_done(self, model, iteration, epoch):
+        if self.stop_after is not None and epoch == 1 \
+                and iteration > self.stop_after:
+            raise FitInterrupted(iteration)
+        self.calls.append((iteration, epoch))
+
+    def on_epoch_end(self, model):
+        self.ends.append((model.iteration, model.epoch))
+
+
+def _sync(device):
+    import torch
+    if str(device).startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def fit_data():
+    """The bundled corpus's stride-8 training windows, one-hot over the
+    zoo's 77 columns (the corpus fills the first 51), and its held-out
+    windows the same way."""
+    from deeplearning4j_tpu_torch.zoo.corpus import corpus_windows
+    (xtr, ytr), (xte, yte), _ = corpus_windows(stride=8)
+
+    def pad(a):
+        return np.pad(a, ((0, 0), (0, 0), (0, FIT_WIDTH - a.shape[-1])))
+    return pad(xtr), pad(ytr), pad(xte), pad(yte)
+
+
+def fit_iterator(x, y):
+    """F1-F3's stream: 26 batches of 32 an epoch, shuffled from seed 5."""
+    from deeplearning4j_tpu_torch.data import DataSet, ListDataSetIterator
+    return ListDataSetIterator(DataSet(x, y), FIT_B, shuffle=True, seed=5,
+                               drop_last=True)
+
+
+def fit_f1_run(device, data, directory, prefetch=2, crash=None, resume=False):
+    """F1 on ``device``: the zoo's TextGenerationLSTM (width 77) streams 2
+    epochs through ``fit`` with chunks of at most 8 steps, the recording,
+    score (every 10) and collect-scores listeners, and a checkpoint every 8
+    iterations (keep 3) into ``directory``, each save timed; ``crash``:
+    the recorder raises past that iteration in epoch 2; ``resume``: a
+    fresh network continues from ``directory`` instead of saving. Returns
+    (net, recorder, collect, seconds, save ms)."""
+    from deeplearning4j_tpu_torch.optimize import (
+        CollectScoresIterationListener, ScoreIterationListener)
+    from deeplearning4j_tpu_torch.resilience import CheckpointListener
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+    net = TextGenerationLSTM(
+        total_unique_characters=FIT_WIDTH).init(device=device)
+    net._CHUNK_MAX_STEPS = FIT_CHUNK
+    rec, collect = CallRecorder(crash), CollectScoresIterationListener(1)
+    net.set_listeners(rec, ScoreIterationListener(10), collect)
+    saves, kw = [], {"prefetch": prefetch}
+    if resume:
+        kw["resume_from"] = directory
+    else:
+        ckpt = CheckpointListener(directory, every_n_iterations=FIT_EVERY,
+                                  keep_last=FIT_KEEP)
+        save = ckpt.manager.save
+
+        def timed_save(model):
+            t0 = time.perf_counter()
+            path = save(model)
+            saves.append((time.perf_counter() - t0) * 1e3)
+            return path
+        ckpt.manager.save = timed_save
+        kw["checkpoint"] = ckpt
+    _sync(device)
+    t0 = time.perf_counter()
+    try:
+        net.fit(fit_iterator(*data[:2]), epochs=2, **kw)
+    except FitInterrupted:
+        pass
+    _sync(device)
+    return net, rec, collect, time.perf_counter() - t0, saves
+
+
+def _trees_equal(a, b):
+    """Every tensor of two per-layer trees (lists or dicts of dicts) equal
+    bit for bit."""
+    import torch
+    ia = a.items() if isinstance(a, dict) else enumerate(a)
+    ib = dict(b.items() if isinstance(b, dict) else enumerate(b))
+    return all(torch.equal(p[k].cpu(), ib[n][k].cpu())
+               for n, p in ia for k in p)
+
+
+def _tree_diff(a, b):
+    ia = a.items() if isinstance(a, dict) else enumerate(a)
+    ib = dict(b.items() if isinstance(b, dict) else enumerate(b))
+    return max((p[k].float().cpu() - ib[n][k].float().cpu()).abs().max()
+               .item() for n, p in ia for k in p)
+
+
+def _manifest_pick(directory):
+    """The checkpoint the JAX package's ``latest_checkpoint`` would pick,
+    read from the file names and the manifest JSON alone: the manifest
+    entry of the largest (iteration, epoch), whose zip exists and is
+    named as both packages name them."""
+    import re
+    doc = json.loads((directory / "manifest.json").read_text())
+    best = max(doc["checkpoints"], key=lambda e: (e["iteration"],
+                                                 e["epoch"]))
+    m = re.match(CKPT_RE, best["filename"])
+    if not (m and (directory / best["filename"]).exists()
+            and (int(m.group(1)), int(m.group(2)))
+            == (best["iteration"], best["epoch"])):
+        raise AssertionError(f"manifest entry {best} names no checkpoint")
+    return best, doc
+
+
+def fit_f1_f3(card, data, res):
+    """F1 (card and CPU), F2 (prefetch 0 against 2) and F3 (interrupted and
+    resumed), with their launches; returns the F1 networks for timing."""
+    import shutil
+    from deeplearning4j_tpu_torch import ops, latest_checkpoint
+    from deeplearning4j_tpu_torch.data.prefetcher import DevicePrefetcher
+    from deeplearning4j_tpu_torch.util.timing import PipelineTimer
+    shutil.rmtree(FIT_DIR, ignore_errors=True)
+    steps = 2 * (len(data[0]) // FIT_B)
+    want = {k: n * steps for k, n in FIT_STEP.items()}
+    nets = {}
+    for p in (2, 0):
+        ops.reset_launch_counts()
+        net, rec, collect, secs, saves = fit_f1_run(
+            "cuda", data, FIT_DIR / f"f1_p{p}", prefetch=p)
+        counts = ops.launch_counts()
+        nets[p] = net
+        res[f"f1_p{p}"] = {
+            "calls": rec.calls, "epoch_ends": rec.ends,
+            "scores": collect.scores, "seconds": secs, "save_ms": saves,
+            "launches": counts, "captures": net._capture_count,
+            "pipeline": net.last_pipeline_stats}
+        print(f"fit (F1{'' if p == 2 else ', F2'}): prefetch {p}: {steps} "
+              f"steps in {secs:.3f} s (warm-up and capture included), "
+              f"{len(rec.calls)} listener calls, {len(saves)} saves "
+              f"({', '.join(f'{s:.1f}' for s in saves)} ms), launches "
+              f"{counts}, {net._capture_count} capture; pipeline "
+              f"{net.last_pipeline_stats} [{card}]", flush=True)
+        if counts != want or net._capture_count != 1:
+            raise AssertionError(f"F1 prefetch {p}: launches {counts} "
+                                 f"(want {want}), {net._capture_count} "
+                                 "captures (want 1)")
+    # F1 on the CPU port: the same stream, calls, saves and losses
+    cpu, crec, ccollect, csecs, csaves = fit_f1_run("cpu", data,
+                                                FIT_DIR / "f1_cpu")
+    card_scores = res["f1_p2"]["scores"]
+    rel = max(abs(a[1] - b[1]) / abs(b[1])
+              for a, b in zip(card_scores, ccollect.scores))
+    res["f1_cpu"] = {"calls": crec.calls, "scores": ccollect.scores,
+                     "saves": len(csaves), "seconds": csecs,
+                     "loss_rel_err": rel}
+    print(f"fit (F1): card vs CPU port: calls {res['f1_p2']['calls']} "
+          f"(CPU {crec.calls}), epoch ends {res['f1_p2']['epoch_ends']}, "
+          f"saves {len(res['f1_p2']['save_ms'])} (CPU {len(csaves)}); "
+          f"losses at each call max rel err {rel:.3g} (tol {LOSS_RTOL}) "
+          f"[{card}]", flush=True)
+    if (crec.calls != res["f1_p2"]["calls"]
+            or len(csaves) != len(res["f1_p2"]["save_ms"])
+            or [i for i, _ in ccollect.scores]
+            != [i for i, _ in card_scores] or not rel <= LOSS_RTOL):
+        raise AssertionError("F1 on the card disagrees with the CPU port")
+    # F2: prefetch changes no bit; the prefetcher keeps items staged
+    same = _trees_equal(nets[0].params, nets[2].params) and _trees_equal(
+        nets[0].opt_state, nets[2].opt_state)
+    pf = DevicePrefetcher(nets[2]._stream_chunks(
+        fit_iterator(*data[:2]), PipelineTimer()), depth=2, device="cuda")
+    staged = []
+    for kind, payload in pf:
+        staged.append(pf.buffered)
+        if not all(t.is_cuda for t in (payload if kind == "chunk"
+                                        else (payload.features,))):
+            raise AssertionError("a prefetched item is not on the card")
+    res["f2"] = {"bitwise": same, "buffered": staged}
+    print(f"fit (F2): prefetch 0 and 2 final parameters and updater state "
+          f"bitwise equal: {same}; items staged after each next(): "
+          f"{staged} [{card}]", flush=True)
+    if not same or min(staged[:-1]) < 1:
+        raise AssertionError("F2: prefetch changed the result or staged "
+                             "nothing mid-stream")
+    # F3: interrupted past FIT_CRASH in epoch 2, resumed by a fresh net
+    run_dir = FIT_DIR / "f3"
+    ops.reset_launch_counts()
+    crashed, crec3, _, _, _ = fit_f1_run("cuda", data, run_dir,
+                                         crash=FIT_CRASH)
+    c_crash = ops.launch_counts()
+    zips = sorted(p.name for p in run_dir.glob("*.zip"))
+    best, doc = _manifest_pick(run_dir)
+    ours = Path(latest_checkpoint(run_dir)).name
+    ops.reset_launch_counts()
+    resumed, rrec, _, rsecs, _ = fit_f1_run("cuda", data, run_dir, resume=True)
+    c_resume = ops.launch_counts()
+    whole = nets[2]
+    same = (_trees_equal(resumed.params, whole.params)
+            and _trees_equal(resumed.opt_state, whole.opt_state)
+            and resumed.iteration == whole.iteration
+            and resumed.epoch == whole.epoch)
+    res["f3"] = {"stopped_at": crashed.iteration, "zips": zips,
+                 "manifest": doc, "picked": best["filename"],
+                 "resumed_from": ours, "resume_calls": rrec.calls,
+                 "bitwise": same, "launches_crashed": c_crash,
+                 "launches_resumed": c_resume, "resume_seconds": rsecs}
+    print(f"fit (F3): stopped at iteration {crashed.iteration} (calls "
+          f"{crec3.calls}); directory {zips} (keep {FIT_KEEP}), manifest "
+          f"save_count {doc['save_count']}, the JAX rule picks "
+          f"{best['filename']}, the port resumed from {ours}; resumed calls "
+          f"{rrec.calls}; final parameters and updater state bitwise the "
+          f"uninterrupted run's: {same}; launches {c_crash} then {c_resume} "
+          f"[{card}]", flush=True)
+    done = resumed.iteration - int(best["iteration"])
+    if not (same and len(zips) == FIT_KEEP and ours == best["filename"]
+            and c_resume == {k: n * done for k, n in FIT_STEP.items()}):
+        raise AssertionError("F3: the resumed run is not the uninterrupted "
+                             "run, or the directory is not as kept")
+    shutil.rmtree(FIT_DIR, ignore_errors=True)
+    return nets
+
+
+def fit_timing(card, data, nets, res):
+    """ms per step of warm streamed fits of FIT_TIMED_EPOCHS epochs with
+    prefetch 0 and 2 (in turns 0, 2, 2, 0; synchronized before and after
+    each fit, not between its epochs) against fit_scan over the same
+    number of epochs' batches already on the card; the last epoch's
+    pipeline stats."""
+    import torch
+    n = len(data[0]) // FIT_B
+    steps = FIT_TIMED_EPOCHS * n
+    rows = []
+    for p in (0, 2, 2, 0):
+        net = nets[p]
+        _sync("cuda")
+        t0 = time.perf_counter()
+        net.fit(fit_iterator(*data[:2]), epochs=FIT_TIMED_EPOCHS, prefetch=p)
+        _sync("cuda")
+        rows.append({"prefetch": p,
+                     "ms_per_step": (time.perf_counter() - t0) / steps * 1e3,
+                     "pipeline": net.last_pipeline_stats})
+    xs = torch.tensor(data[0][:n * FIT_B].reshape(n, FIT_B, FIT_T, -1),
+                      device="cuda")
+    ys = torch.tensor(data[1][:n * FIT_B].reshape(n, FIT_B, FIT_T, -1),
+                      device="cuda")
+    scan = []
+    for _ in range(2):
+        _sync("cuda")
+        t0 = time.perf_counter()
+        for _ in range(FIT_TIMED_EPOCHS):
+            nets[2].fit_scan(xs, ys)
+        _sync("cuda")
+        scan.append((time.perf_counter() - t0) / steps * 1e3)
+    res["timing"] = {"epochs": FIT_TIMED_EPOCHS, "fits": rows,
+                     "fit_scan_staged_ms_per_step": scan}
+    for r in rows:
+        print(f"fit (timing): a warm fit of {FIT_TIMED_EPOCHS} epochs, "
+              f"{steps} steps, prefetch {r['prefetch']}: "
+              f"{r['ms_per_step']:.3f} ms/step; last epoch's pipeline "
+              f"{r['pipeline']} [{card}]", flush=True)
+    print(f"fit (timing): fit_scan over the same {steps} steps' batches "
+          f"already on the card: {', '.join(f'{s:.3f}' for s in scan)} "
+          f"ms/step [{card}]", flush=True)
+
+
+def fit_f4_graph(device, tbptt=True):
+    """TextGenerationLSTM's layers (the zoo's seed, Adam, clipping; width
+    77) as a ComputationGraph in -> LSTM -> LSTM -> RnnOutputLayer,
+    truncated BPTT in chunks of 16."""
+    from deeplearning4j_tpu_torch import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.conf import (InputType,
+                                                  NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.layers import LSTM, RnnOutputLayer
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    g = (NeuralNetConfiguration.builder().seed(123).updater(Adam(1e-3))
+         .weight_init("xavier")
+         .gradient_normalization("ClipElementWiseAbsoluteValue", 10.0)
+         .graph_builder().add_inputs("in")
+         .set_input_types(InputType.recurrent(FIT_WIDTH))
+         .add_layer("lstm1", LSTM(n_out=256, activation="tanh"), "in")
+         .add_layer("lstm2", LSTM(n_out=256, activation="tanh"), "lstm1")
+         .add_layer("out", RnnOutputLayer(n_out=FIT_WIDTH,
+                                          activation="softmax",
+                                          loss="mcxent"), "lstm2")
+         .set_outputs("out"))
+    if tbptt:
+        g.backprop_type("tbptt", F4_L, F4_L)
+    return ComputationGraph(g.build(), device=device).init()
+
+
+def _timed_batches(net, x, y, n):
+    _sync("cuda")
+    t0 = time.perf_counter()
+    for k in range(n):
+        net.fit(x[k * FIT_B:(k + 1) * FIT_B], y[k * FIT_B:(k + 1) * FIT_B])
+    _sync("cuda")
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def fit_f4(card, data, res):
+    """F4: graph truncated BPTT on the card against the CPU port fed the
+    same batches, exact launches, and ms per batch against the MLN's
+    truncated BPTT at the same shape. Returns the trained graph."""
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+    x, y = data[0], data[1]
+    g = fit_f4_graph("cuda")
+    cpu = fit_f4_graph("cpu").set_params(g.params)
+    chunks = FIT_T // F4_L
+    ops.reset_launch_counts()
+    losses = []
+    for k in range(F4_BATCHES):
+        b = slice(k * FIT_B, (k + 1) * FIT_B)
+        g.fit(x[b], y[b])
+        cpu.fit(x[b], y[b])
+        losses.append((g.get_score(), cpu.get_score()))
+    counts = ops.launch_counts()
+    err = _tree_diff(g.params, cpu.params)
+    want = {"lstm_fwd_train": 2 * chunks * F4_BATCHES,
+            "lstm_bwd": 2 * chunks * F4_BATCHES}
+    res["f4"] = {"losses_card_cpu": losses, "param_max_abs_err": err,
+                 "launches": counts, "captures": g._capture_count}
+    print(f"fit (F4): graph tBPTT({F4_L}) over T={FIT_T}, B={FIT_B}: "
+          f"{F4_BATCHES} batches, losses card/CPU {losses}; parameters max "
+          f"abs err {err:.3g} (tol {F32_TOL}); launches {counts} (want "
+          f"{want}); {g._capture_count} captures [{card}]", flush=True)
+    if counts != want or not err <= F32_TOL or g._capture_count != 2:
+        raise AssertionError("F4: graph tBPTT disagrees with the CPU port "
+                             "or launched other kernels")
+    # ms per batch, warm, against the MLN's truncated BPTT (in turns)
+    conf = TextGenerationLSTM(total_unique_characters=FIT_WIDTH).conf()
+    conf.backprop_type = "tbptt"
+    conf.tbptt_fwd_length = conf.tbptt_back_length = F4_L
+    from deeplearning4j_tpu_torch import MultiLayerNetwork
+    mln = MultiLayerNetwork(conf, device="cuda").init()
+    _timed_batches(mln, x, y, 2)                 # warm-up and capture
+    times = {"graph": [], "mln": []}
+    for who in ("graph", "mln", "mln", "graph"):
+        times[who].append(_timed_batches(g if who == "graph" else mln,
+                                         x, y, F4_TIMED))
+    res["f4"]["ms_per_batch"] = times
+    print(f"fit (F4 timing): ms per tBPTT batch ({chunks} chunks), graph "
+          f"{times['graph']}, MultiLayerNetwork {times['mln']} [{card}]",
+          flush=True)
+    return g
+
+
+def fit_f5(card, g, data, res):
+    """F5: rnn_time_step over F4's trained graph: greedy characters at B=1
+    against the full-prefix output, one call at B=15, T=16, and a restart
+    after rnn_clear_previous_state."""
+    import torch
+    from deeplearning4j_tpu_torch import ops
+    eye = torch.eye(FIT_WIDTH, device="cuda")
+    x_t = torch.from_numpy(data[2][:1, 0]).cuda()
+    g.rnn_clear_previous_state()
+    ops.reset_launch_counts()
+    _sync("cuda")
+    t0 = time.perf_counter()
+    ins, outs = [], []
+    for _ in range(F5_CHARS):
+        ins.append(x_t)
+        o = g.rnn_time_step(x_t)[:, -1]
+        outs.append(o)
+        x_t = eye[o.argmax(-1)]
+    _sync("cuda")
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    steps = torch.cat(outs)
+    ref = g.output(torch.stack(ins, 1), bucketed=False)[0]
+    err = (steps - ref).abs().max().item()
+    top2 = ref.topk(2, -1).values
+    differ = (steps.argmax(-1) != ref.argmax(-1)).nonzero().flatten()
+    ties = [int(t) for t in differ
+            if (top2[t, 0] - top2[t, 1]).item() <= F32_TOL]
+    # K1's shape: 15 held-out windows' first 16 steps in one call
+    g.rnn_clear_previous_state()
+    xb = torch.from_numpy(data[2][:15, :16]).cuda()
+    ops.reset_launch_counts()
+    got = g.rnn_time_step(xb)
+    counts_b = ops.launch_counts()
+    err_b = (got - g.output(xb, bucketed=False)).abs().max().item()
+    g.rnn_clear_previous_state()
+    again = [g.rnn_time_step(ins[t])[:, -1] for t in range(F5_RESTART)]
+    restart = all(torch.equal(a, b) for a, b in zip(again, outs))
+    res["f5"] = {"chars": F5_CHARS, "ms_per_char": secs / F5_CHARS * 1e3,
+                 "max_abs_err": err, "greedy_differ": differ.tolist(),
+                 "ties": ties, "launches": counts, "launches_b15": counts_b,
+                 "b15_max_abs_err": err_b, "restart_equal": restart}
+    print(f"fit (F5): rnn_time_step, {F5_CHARS} greedy characters at B=1: "
+          f"{secs / F5_CHARS * 1e3:.4f} ms/char; each step vs the last step "
+          f"of output over the prefix max abs err {err:.3g} (tol "
+          f"{F32_TOL}), greedy characters differ at {differ.tolist()} (ties "
+          f"within {F32_TOL}: {ties}); launches {counts}; B=15, T=16: max "
+          f"abs err {err_b:.3g}, launches {counts_b}; after "
+          f"rnn_clear_previous_state the first {F5_RESTART} steps repeat: "
+          f"{restart} [{card}]", flush=True)
+    if not (err <= F32_TOL and len(ties) == len(differ)
+            and counts == {"lstm_fwd": 2 * F5_CHARS}
+            and counts_b == {"lstm_fwd": 2} and err_b <= F32_TOL
+            and restart):
+        raise AssertionError("F5: rnn_time_step disagrees with output")
+
+
+def fit_f6(card, res):
+    """F6: TinyTransformer at its full default width streams 2 epochs
+    through fit(iterator, prefetch=2) with a PerformanceListener."""
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.data import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.monitor import get_registry
+    from deeplearning4j_tpu_torch.optimize import (
+        CollectScoresIterationListener, PerformanceListener)
+    from deeplearning4j_tpu_torch.zoo import TinyTransformer
+    from deeplearning4j_tpu_torch.zoo.corpus import corpus_windows
+    (xtr, ytr), _, vocab = corpus_windows(stride=8)
+    net = TinyTransformer(vocab_size=len(vocab)).init(device="cuda")
+    net._CHUNK_MAX_STEPS = FIT_CHUNK
+    collect = CollectScoresIterationListener(1)
+    net.set_listeners(PerformanceListener(frequency=FIT_CHUNK), collect)
+    steps = 2 * (len(xtr) // FIT_B)
+    ops.reset_launch_counts()
+    _sync("cuda")
+    t0 = time.perf_counter()
+    net.fit(ListDataSetIterator(DataSet(xtr, ytr), FIT_B, drop_last=True),
+            epochs=2, prefetch=2)
+    _sync("cuda")
+    secs = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    warm = []
+    for _ in range(2):          # a warm epoch each, synchronized
+        _sync("cuda")
+        t1 = time.perf_counter()
+        net.fit(ListDataSetIterator(DataSet(xtr, ytr), FIT_B,
+                                    drop_last=True), prefetch=2)
+        _sync("cuda")
+        warm.append((time.perf_counter() - t1) / (steps // 2) * 1e3)
+    reg = get_registry()
+    sps = reg.get("dl4jtpu_listener_samples_per_sec").value
+    bps = reg.get("dl4jtpu_listener_batches_per_sec").value
+    want = {k: 2 * steps for k in ("flash_attn_fwd", "flash_attn_dq",
+                                   "flash_attn_dkv")}
+    res["f6"] = {"steps": steps, "seconds": secs, "launches": counts,
+                 "losses": collect.scores[:8], "samples_per_sec": sps,
+                 "warm_ms_per_step": warm,
+                 "batches_per_sec": bps, "captures": net._capture_count,
+                 "pipeline": net.last_pipeline_stats}
+    print(f"fit (F6): TinyTransformer, {steps} steps in {secs:.3f} s "
+          f"(warm-up and capture included); launches {counts}; losses "
+          f"{[(i, round(s, 4)) for i, s in collect.scores[:8]]}; the "
+          f"listener's last window {sps:.0f} samples/s, {bps:.1f} batches/s "
+          f"(host dispatch: nothing synchronizes); warm epochs "
+          f"{', '.join(f'{w:.3f}' for w in warm)} ms/step synchronized; "
+          f"pipeline {net.last_pipeline_stats} [{card}]", flush=True)
+    if counts != want or net._capture_count != 1:
+        raise AssertionError(f"F6 launches {counts}, want {want}")
+
+
+def fit_f7(card, data, res):
+    """F7: F1's network with dropout 0.5 on layer 1, remat and not: the
+    step-1 gradient bit for bit, the recompute's launches, and captured
+    fit steps to the same bits."""
+    import torch
+    from deeplearning4j_tpu_torch import MultiLayerNetwork, ops
+    from deeplearning4j_tpu_torch.exec.executor import seed_generator
+    nets = {}
+    for remat in (False, True):
+        conf = reg_conf("S1", FIT_WIDTH)
+        conf.global_conf.remat = remat
+        nets[remat] = MultiLayerNetwork(conf, device="cuda").init()
+    x = torch.from_numpy(data[0][:FIT_B]).cuda()
+    y = torch.from_numpy(data[1][:FIT_B]).cuda()
+    grads, eager = {}, {}
+    for remat, net in nets.items():
+        seed_generator(net._gen, net.conf.global_conf.seed, 0)
+        ops.reset_launch_counts()
+        grads[remat] = net._gradients(x, y, gen=net._gen)[1]
+        _sync("cuda")
+        eager[remat] = ops.launch_counts()
+    same_grad = _trees_equal(grads[True], grads[False])
+    steps = {}
+    for remat, net in nets.items():
+        ops.reset_launch_counts()
+        _timed_batches(net, data[0], data[1], F7_STEPS)
+        steps[remat] = ops.launch_counts()
+    same = _trees_equal(nets[True].params, nets[False].params)
+    times = {r: _timed_batches(n, data[0], data[1], F7_TIMED)
+             for r, n in nets.items()}
+    want = {True: {"lstm2_fwd_train": 2 * F7_STEPS,
+                   "lstm_bwd": 2 * F7_STEPS},
+            False: {"lstm2_fwd_train": F7_STEPS, "lstm_bwd": 2 * F7_STEPS}}
+    res["f7"] = {"gradient_bitwise": same_grad, "launches_gradient": {
+        str(k): v for k, v in eager.items()}, "launches_fit": {
+        str(k): v for k, v in steps.items()}, "params_bitwise": same,
+        "ms_per_step": {str(k): v for k, v in times.items()}}
+    print(f"fit (F7): dropout 0.5 on layer 1, remat vs not: step-1 gradient "
+          f"bitwise {same_grad}, launches {eager[True]} vs {eager[False]}; "
+          f"{F7_STEPS} captured fit steps: launches {steps[True]} vs "
+          f"{steps[False]}, parameters bitwise {same}; warm ms/step "
+          f"{times[True]:.3f} vs {times[False]:.3f} [{card}]", flush=True)
+    if not (same_grad and same and steps == want
+            and eager[True] == {"lstm2_fwd_train": 2, "lstm_bwd": 2}
+            and eager[False] == {"lstm2_fwd_train": 1, "lstm_bwd": 2}
+            and all(n._capture_count == 1 for n in nets.values())):
+        raise AssertionError("F7: remat changed the gradient or launched "
+                             "other kernels")
+
+
+def fit_contract_phase(card):
+    """Phase 10: the fit contract, F1-F7 (``chip_smoke.py`` docstring)."""
+    data = fit_data()
+    res = {"card": card}
+    nets = fit_f1_f3(card, data, res)
+    fit_timing(card, data, nets, res)
+    g = fit_f4(card, data, res)
+    fit_f5(card, g, data, res)
+    fit_f6(card, res)
+    fit_f7(card, data, res)
+    return res
+
+
 def profile_steps(run, steps, tags):
     """``run()`` does ``steps`` fit steps (or returns how many steps it
     did); it is called once to warm up (timed, unprofiled) and once under
@@ -2462,6 +3041,9 @@ def main() -> int:
     t0 = time.perf_counter()
     regularised = regularised_phase(card)
     regularised["phase_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fit_contract = fit_contract_phase(card)
+    fit_contract["phase_seconds"] = time.perf_counter() - t0
 
     # each kernel at its main path's shape, with the launches of the run
     # that drove it: /predict of the 15 held-out windows (bucket 16, T=64)
@@ -2538,7 +3120,8 @@ def main() -> int:
          "k4_hidden_sizes": k4_sizes, "k12_hidden_sizes": k12_sizes,
          "slice": res, "f4": f4, "tiny": tiny, "wide": wide,
          "train": train, "tiny_train": tiny_train, "captured": captured,
-         "regularised": regularised, "kernels": entries}, indent=1))
+         "regularised": regularised, "fit_contract": fit_contract,
+         "kernels": entries}, indent=1))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,10 +11,16 @@ CUDA kernels for flash attention (forward, and the backward's dq and
 dk/dv) and for flash decode over dense and paged KV caches. Both
 containers train with the JAX package's default step: the fused flat
 update (nn/fused_update.py), the bf16 train-precision policy, and on the
-card each step replayed from a CUDA graph (exec/executor.py).
+card each step replayed from a CUDA graph (exec/executor.py); and with its
+``fit`` contract: streamed chunks, device prefetch, listeners
+(``optimize``), crash-safe checkpoints and resume (``resilience``), the
+pipeline's metrics and spans (``monitor``).
 """
 
+from deeplearning4j_tpu_torch import monitor, optimize, resilience  # noqa: F401
 from deeplearning4j_tpu_torch.models.computation_graph import (  # noqa: F401
     ComputationGraph)
 from deeplearning4j_tpu_torch.models.multi_layer_network import (  # noqa: F401
     MultiLayerNetwork, params_from_numpy)
+from deeplearning4j_tpu_torch.resilience import (  # noqa: F401
+    CheckpointListener, CheckpointManager, latest_checkpoint)

@@ -72,6 +72,7 @@ class Executor:
                 f"train_precision must be 'f32' or 'bf16', got {tp!r}")
         self.train_precision = "bf16" if tp in ("bf16", "bfloat16") else "f32"
         self._streams: Dict[int, torch.cuda.Stream] = {}
+        self._copy_streams: Dict[int, torch.cuda.Stream] = {}
 
     @property
     def train_dtype(self):
@@ -81,11 +82,21 @@ class Executor:
 
     def stream(self, device: torch.device) -> "torch.cuda.Stream":
         """The side stream warm-ups and captures run on, one per card."""
+        return self._side(self._streams, device)
+
+    def copy_stream(self, device: torch.device) -> "torch.cuda.Stream":
+        """The side stream input prefetch copies run on, one per card and
+        kept: the caching allocator keeps its blocks per stream, so a new
+        stream each epoch would allocate its buffers anew."""
+        return self._side(self._copy_streams, device)
+
+    @staticmethod
+    def _side(streams, device):
         i = device.index if device.index is not None \
             else torch.cuda.current_device()
-        if i not in self._streams:
-            self._streams[i] = torch.cuda.Stream(device=i)
-        return self._streams[i]
+        if i not in streams:
+            streams[i] = torch.cuda.Stream(device=i)
+        return streams[i]
 
     def steps(self, fn: Callable, generator=None) -> "StepGraphs":
         """``fn`` called through CUDA graphs, one per signature, each with

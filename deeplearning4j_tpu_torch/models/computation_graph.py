@@ -4,10 +4,14 @@ training.
 Counterpart of deeplearning4j_tpu/models/computation_graph.py: ``init``,
 the forward along the topological order, ``output`` (bucketed),
 ``serving_engine``, ``init_decode_state`` / ``decode_step`` (dense and
-paged KV caches), training (``fit`` on arrays, a DataSet, a MultiDataSet
-or an iterator, ``fit_scan``, ``score``, ``get_score``, ``evaluate``,
+paged KV caches), ``rnn_time_step`` / ``rnn_clear_previous_state``,
+training (``fit`` on arrays, a DataSet, a MultiDataSet or an iterator,
+``fit_scan``, truncated BPTT, ``score``, ``get_score``, ``evaluate``,
 ``apply_external_updates``, ``backprop_external``, ``fit_external``),
-``save`` and ``load``. Parameters are a dict node name -> dict of tensors
+listeners, ``save`` and ``load``. ``fit`` is the JAX package's whole
+contract, shared with MultiLayerNetwork (models/fitting.py): streamed
+chunks through ``fit_scan``, device prefetch, listeners, ``checkpoint=``
+and ``resume_from=``. Parameters are a dict node name -> dict of tensors
 under the JAX package's keys; the updater state is a dict node name ->
 dict under the JAX package's optax key paths (see nn/updaters.py), so a
 checkpoint round-trips with the JAX package mid-training.
@@ -30,12 +34,19 @@ loss in float32; stored parameters and updater state stay float32. On the
 card ``fit`` and ``fit_scan`` run the step through CUDA graphs, one per
 signature, as MultiLayerNetwork does (its module docstring), and
 ``apply_external_updates`` the fused update alone through its own; on the
-CPU the same step runs eagerly. Not ported yet: truncated BPTT over a
-graph (carried recurrent state; fitting with it raises
-``NotImplementedError``), listeners, checkpointing inside ``fit`` and
-prefetch. Not ported for inference: carried recurrent state, chunked
-prefill and speculation; ``output`` and ``evaluate`` take no feature mask,
-as the JAX graph's do not.
+CPU the same step runs eagerly. With ``remat`` configured the
+differentiated loss is rematerialized (util/remat.py).
+
+Carried recurrent state, as in the JAX graph: ``_forward(...,
+carries=)`` takes a map node name -> carry (a missing entry is zero
+state), runs every layer with ``apply_with_carry`` (the LSTMs) from its
+carry, and returns the updated map. Truncated BPTT trains in chunks of
+``tbptt_fwd_length`` steps with the map carried across chunks, entering
+each step detached; ``rnn_time_step`` keeps it between calls. On the carry
+path the recurrent layers drop nothing (their weight noise still applies,
+caveat R5). Not ported for inference: chunked prefill and speculation;
+``output`` and ``evaluate`` take no feature mask, as the JAX graph's do
+not.
 
 The graph runs on CUDA unless constructed with ``device="cpu"``; without a
 card and without that argument, construction raises.
@@ -43,7 +54,8 @@ card and without that argument, construction raises.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import time
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -52,6 +64,7 @@ from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
 from deeplearning4j_tpu_torch.exec import get_executor
 from deeplearning4j_tpu_torch.exec.executor import (network_generator,
                                                     seed_generator)
+from deeplearning4j_tpu_torch.models.fitting import FitContract
 from deeplearning4j_tpu_torch.models.multi_layer_network import (
     DTYPES, to_device, updater_plan)
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import \
@@ -60,6 +73,7 @@ from deeplearning4j_tpu_torch.nn.layers.base import (flatten_params,
                                                      nest_params)
 from deeplearning4j_tpu_torch.nn.updaters import normalize_layer_grad
 from deeplearning4j_tpu_torch.ops import resolve_device
+from deeplearning4j_tpu_torch.util.remat import remat_loss
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
@@ -69,7 +83,7 @@ def _cast_floats(params: Params, dtype) -> Params:
                 for k, v in p.items()} for n, p in params.items()}
 
 
-class ComputationGraph:
+class ComputationGraph(FitContract):
     def __init__(self, conf: ComputationGraphConfiguration, device=None):
         self.conf = conf
         self.device = resolve_device(device)
@@ -90,6 +104,10 @@ class ComputationGraph:
         self.epoch = 0
         self._epoch_batch = 0         # batches consumed in the current epoch
         self._score = float("nan")    # last fit loss (tensor until read)
+        self.listeners: List = []
+        self._last_input = None       # last fit batch's inputs (listeners)
+        self._last_fit_time = None    # host seconds of the last _fit_batch
+        self._rnn_carries = None      # rnn_time_step's carry map
         self._serving = None          # bucketed inference engine (lazy)
 
     # ------------------------------------------------------------------ init
@@ -164,22 +182,36 @@ class ComputationGraph:
                 return dt
         return None
 
-    def _forward(self, params: Params, inputs, skip=(), train=False,
-                 masks=None, gen=None):
+    def _forward(self, params: Params, inputs, train=False, masks=None,
+                 gen=None, carries=None):
+        """The network output (a list when there are several) and the
+        updated carry map (None without ``carries``); see
+        ``_activations``."""
+        acts, new_carries = self._activations(params, inputs, train=train,
+                                              masks=masks, gen=gen,
+                                              carries=carries)
+        outs = [acts.get(n) for n in self.conf.network_outputs]
+        return (outs[0] if len(outs) == 1 else outs), new_carries
+
+    def _activations(self, params: Params, inputs, skip=(), train=False,
+                     masks=None, gen=None, carries=None):
         """Forward along the topological order. ``inputs``: one tensor, or
         a list with one per network input; nodes named in ``skip`` are not
         run; ``masks`` maps a network input's name to its feature mask,
         which reaches the layers whose first input it is. With ``train``
         and a generator each layer's weight noise and dropout draw from
-        ``gen`` in topological order. Returns (output, activations): the
-        network output (a list when there are several) and every node's
-        activation by name."""
+        ``gen`` in topological order. ``carries`` (a map node name ->
+        carry) runs every layer that has ``apply_with_carry`` from its
+        carry (zero state where the map has none). Returns (activations,
+        new carries): every node's activation by name, and the updated
+        carry map (None without ``carries``)."""
         if not isinstance(inputs, (list, tuple)):
             inputs = [inputs]
         cdt = self._compute_dtype(train)
         if cdt is not None:
             inputs = [x.to(cdt) for x in inputs]
             params = _cast_floats(params, cdt)
+        new_carries = None if carries is None else dict(carries)
         acts = dict(zip(self.conf.network_inputs, inputs))
         for name in self.conf.topological_order:
             node = self.conf.nodes[name]
@@ -194,18 +226,22 @@ class ComputationGraph:
             p = nest_params(params.get(name, {}))
             if train and gen is not None and layer.weight_noise is not None:
                 p = layer.weight_noise.apply(p, gen)
-            acts[name] = layer.apply(p, ins[0], train=train, gen=gen,
-                                     mask=mask)
-        outs = [acts.get(n) for n in self.conf.network_outputs]
-        return (outs[0] if len(outs) == 1 else outs), acts
+            if new_carries is not None and hasattr(layer, "apply_with_carry"):
+                acts[name], new_carries[name] = layer.apply_with_carry(
+                    p, ins[0], new_carries.get(name), mask=mask)
+            else:
+                acts[name] = layer.apply(p, ins[0], train=train, gen=gen,
+                                         mask=mask)
+        return acts, new_carries
 
     # -------------------------------------------------------------- training
     def _loss(self, params: Params, inputs, labels, label_masks=None,
-              masks=None, gen=None):
+              masks=None, gen=None, carries=None):
         """Every output node's score on the forward of the nodes before it,
         plus every node's l1/l2 penalty (the output layers themselves are
         not run: their score takes their input, after their weight noise
-        and with their dropout, which draw after the forward's)."""
+        and with their dropout, which draw after the forward's). Returns
+        (loss, new carries)."""
         outs = self.conf.network_outputs
         for name in outs:
             node = self.conf.nodes[name]
@@ -214,9 +250,9 @@ class ComputationGraph:
                 raise ValueError(f"Output '{name}' is not a loss-bearing "
                                  "layer")
         consumed = {i for n in self.conf.nodes.values() for i in n.inputs}
-        _, acts = self._forward(params, inputs,
-                                skip={n for n in outs if n not in consumed},
-                                train=True, masks=masks, gen=gen)
+        acts, new_carries = self._activations(
+            params, inputs, skip={n for n in outs if n not in consumed},
+            train=True, masks=masks, gen=gen, carries=carries)
         total = 0.0
         for oi, name in enumerate(outs):
             layer = self.conf.nodes[name].layer
@@ -230,7 +266,7 @@ class ComputationGraph:
         total = total + self._reg_loss(params)
         if self._compute_dtype(True) is not None:
             total = total.float()
-        return total
+        return total, new_carries
 
     def _reg_loss(self, params: Params):
         """Every node's l1/l2 penalty (0.0 when none has one)."""
@@ -240,10 +276,6 @@ class ComputationGraph:
         return total
 
     def _check_trainable(self):
-        if self.conf.backprop_type == "tbptt":
-            raise NotImplementedError(
-                "training with truncated BPTT (tbptt) over a graph is not "
-                "ported to the PyTorch package yet")
         if self.params is None:
             raise ValueError("call init() or set_params() before fitting")
 
@@ -269,15 +301,20 @@ class ComputationGraph:
         return grads
 
     def _gradients(self, inputs, labels, label_masks=None, masks=None,
-                   gen=None):
+                   gen=None, carries=None):
         """Loss and per-node gradients at the current parameters. Returns
-        (loss, grads), grads keyed like the parameters."""
+        (loss, grads, new carries), grads keyed like the parameters, the
+        carries detached."""
         leaves = self._leaves()
+        loss_fn = remat_loss(self._loss, self.conf.global_conf.remat)
         with torch.enable_grad():
-            loss = self._loss(leaves, inputs, labels, label_masks, masks,
-                              gen)
+            loss, new_carries = loss_fn(leaves, inputs, labels, label_masks,
+                                        masks, gen=gen, carries=carries)
             grads = self._grads_of(loss, leaves)
-        return loss.detach(), grads
+        if new_carries is not None:
+            new_carries = {n: tuple(t.detach() for t in c)
+                           for n, c in new_carries.items()}
+        return loss.detach(), grads, new_carries
 
     def _normalize_grads(self, grads):
         gc = self.conf.global_conf
@@ -308,14 +345,15 @@ class ComputationGraph:
                 {k: (v + u[k]).to(v.dtype) for k, v in p.items()})
         self.params, self.opt_state = new_params, new_opt
 
-    def _step(self, inputs, labels, label_masks=None, masks=None):
+    def _step(self, inputs, labels, label_masks=None, masks=None,
+              carries=None):
         """The device half of a train step (what a graph captures): loss,
         gradients, the update, the draws from the graph's generator.
-        Returns the loss."""
-        loss, grads = self._gradients(inputs, labels, label_masks, masks,
-                                      self._gen)
+        Returns (loss, new carries)."""
+        loss, grads, new_carries = self._gradients(
+            inputs, labels, label_masks, masks, self._gen, carries)
         self._dp_apply_updates(grads)
-        return loss
+        return loss, new_carries
 
     def _run(self, graphs, fn, *args):
         """``fn(*args)`` with the fused update's scalars staged before and
@@ -329,14 +367,15 @@ class ComputationGraph:
         return out
 
     def _train_step(self, inputs, labels, label_masks=None, masks=None,
-                    iteration=None):
+                    carries=None, iteration=None):
         """One train step at ``iteration`` (default: the graph's), the
-        generator seeded from it first; returns the loss (on the card, a
-        replay's static output, which its next replay overwrites)."""
+        generator seeded from it first; returns (loss, new carries) (on
+        the card, a replay's static outputs, which its next replay
+        overwrites)."""
         seed_generator(self._gen, self.conf.global_conf.seed,
                        self.iteration if iteration is None else iteration)
         return self._run(self._steps, self._step, inputs, labels,
-                         label_masks, masks)
+                         label_masks, masks, carries)
 
     def apply_external_updates(self, grads):
         """One updater step from externally computed gradients (per-node
@@ -423,33 +462,65 @@ class ComputationGraph:
         before normalization) and the loss, without an update (parity:
         computeGradientAndScore)."""
         self._check_trainable()
-        loss, grads = self._gradients(*self._batch(self._as_multi(inputs,
-                                                                  labels)))
+        loss, grads, _ = self._gradients(
+            *self._batch(self._as_multi(inputs, labels)))
         return grads, float(loss)
 
-    def fit(self, data, labels=None, epochs=1):
-        """fit(inputs, labels) | fit(DataSet | MultiDataSet) |
-        fit(iterator, epochs=N) (parity: ComputationGraph.fit). Inputs and
-        labels are one array each or a list per network input and output.
-        An iterator is reset before each epoch, as in the JAX package;
-        every batch is one train step."""
-        self._check_trainable()
+    # ---- the fit contract's hooks (models/fitting.py)
+    @classmethod
+    def _direct_batch(cls, data, labels):
         if labels is not None or isinstance(data, (DataSet, MultiDataSet)):
-            return self._fit_batch(self._as_multi(data, labels))
-        for _ in range(epochs):
-            if hasattr(data, "reset"):
-                data.reset()
-            for batch in data:
-                self._fit_batch(self._as_multi(batch))
-            self.epoch += 1
-            self._epoch_batch = 0
-        return self
+            return cls._as_multi(data, labels)
+        return None
+
+    @classmethod
+    def _stream_batch(cls, item):
+        mds = cls._as_multi(item)
+        has_mask = any(m is not None for m in (
+            *(mds.features_masks or ()), *(mds.labels_masks or ())))
+        return mds, mds.features, mds.labels, has_mask
+
+    @staticmethod
+    def _chunk_payload(xs, ys):
+        return xs, ys
 
     def _fit_batch(self, mds: MultiDataSet):
-        self._score = self._train_step(*self._batch(mds)).clone()
+        inputs, labels, label_masks, masks = self._batch(mds)
+        self._last_input = inputs
+        t0 = time.perf_counter()
+        if self.conf.backprop_type == "tbptt" and inputs[0].ndim == 3:
+            self._fit_tbptt(inputs, labels, label_masks, masks)
+        else:
+            self._score = self._train_step(inputs, labels, label_masks,
+                                           masks)[0].clone()
+        self._last_fit_time = time.perf_counter() - t0
         self.iteration += 1
         self._epoch_batch += 1
+        self._fire_listeners()
         return self
+
+    def _fit_tbptt(self, inputs, labels, label_masks, masks):
+        """Truncated BPTT over the graph (parity: the JAX graph's
+        ``_fit_tbptt``): one train step per chunk of ``tbptt_fwd_length``
+        steps, every 3-D input, label and (B, T) mask sliced per chunk, the
+        carry map carried across chunks and entering each step detached
+        (the first chunk from zero state); every chunk is a step at the
+        batch's iteration (the same draws); the score is the mean of the
+        chunk losses."""
+        T, L = inputs[0].shape[1], self.conf.tbptt_fwd_length
+        carries, losses = {}, []
+        for start in range(0, T, L):
+            sl = slice(start, start + L)
+            ins = [x[:, sl] if x.ndim == 3 else x for x in inputs]
+            lbs = [y[:, sl] if y.ndim == 3 else y for y in labels]
+            mks = None if masks is None else {
+                n: (m[:, sl] if m.ndim >= 2 else m) for n, m in masks.items()}
+            lms = None if label_masks is None else [
+                None if m is None else (m[:, sl] if m.ndim >= 2 else m)
+                for m in label_masks]
+            loss, carries = self._train_step(ins, lbs, lms, mks, carries)
+            losses.append(loss.clone())
+        self._score = torch.stack(losses).mean()
 
     def fit_scan(self, inputs_steps, labels_steps):
         """``n`` train steps over a leading step axis: one array per network
@@ -469,12 +540,15 @@ class ComputationGraph:
         ys = [self._as_input(a) for a in labels_steps]
         n = int(xs[0].shape[0])
         for k in range(n):
-            loss = self._train_step([a[k] for a in xs], [a[k] for a in ys],
-                                    iteration=self.iteration + k)
+            loss, _ = self._train_step([a[k] for a in xs],
+                                       [a[k] for a in ys],
+                                       iteration=self.iteration + k)
             if k == n - 1:
                 self._score = loss.clone()
+        self._last_input = [a[-1] for a in xs]
         self.iteration += n
         self._epoch_batch += n
+        self._fire_listeners()
         return self
 
     @torch.no_grad()
@@ -485,7 +559,7 @@ class ComputationGraph:
         caveat R3)."""
         mds = self._as_multi(inputs, labels) if mds is None \
             else self._as_multi(mds)
-        return float(self._loss(self.params, *self._batch(mds)))
+        return float(self._loss(self.params, *self._batch(mds))[0])
 
     def get_score(self) -> float:
         """The last fit's loss (a host read of the device scalar)."""
@@ -534,6 +608,23 @@ class ComputationGraph:
         if bucketed and len(inputs) == 1:
             return self.serving_engine().predict(inputs[0])
         return self._forward(self.params, inputs)[0]
+
+    @torch.no_grad()
+    def rnn_time_step(self, *inputs):
+        """Stateful streaming inference (parity: rnnTimeStep): the
+        recurrent layers resume from the carry map stored on the graph and
+        leave theirs in it. A 2-D input (B, F) is one time step."""
+        inputs = [self._as_input(x) for x in inputs]
+        inputs = [x[:, None, :] if x.ndim == 2 else x for x in inputs]
+        if self._rnn_carries is None:
+            self._rnn_carries = {}
+        out, self._rnn_carries = self._forward(self.params, inputs,
+                                               carries=self._rnn_carries)
+        return out
+
+    def rnn_clear_previous_state(self):
+        """Parity: rnnClearPreviousState."""
+        self._rnn_carries = None
 
     # --------------------------------------------------- incremental decode
     def init_decode_state(self, batch: int, max_len: int = 256, kv=None):

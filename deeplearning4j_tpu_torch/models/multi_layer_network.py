@@ -5,11 +5,16 @@ the forward with stacked-LSTM pair fusion, ``output``, ``rnn_time_step`` /
 ``rnn_clear_previous_state``, ``init_decode_state`` / ``decode_step``,
 training (``fit`` on arrays, a DataSet or an iterator, ``fit_scan``,
 truncated BPTT, ``compute_gradient_and_score``, ``score``, ``evaluate``),
-``save`` and ``load``. Parameters are a list of per-layer dicts of tensors
-on the network's device, under the JAX package's keys (a wrapper's nested
-parameters flattened to path keys, ``fwd/W``; see nn/layers/base.py); the
-updater state is a list of per-layer dicts under the JAX package's optax
-key paths (see nn/updaters.py).
+listeners, ``save`` and ``load``. ``fit`` is the JAX package's whole
+contract (models/fitting.py): an iterator streams in chunks through
+``fit_scan``, staged on the device ahead of the step (``prefetch``),
+listeners fire once a batch or chunk, ``checkpoint=`` saves crash-safely
+and ``resume_from=`` continues the same run. Parameters are a list of
+per-layer dicts of tensors on the network's device, under the JAX
+package's keys (a wrapper's nested parameters flattened to path keys,
+``fwd/W``; see nn/layers/base.py); the updater state is a list of
+per-layer dicts under the JAX package's optax key paths (see
+nn/updaters.py).
 
 Dropout, weight noise and feature masks train as in the JAX package: the
 train-time forward applies each layer's weight noise to its parameters
@@ -45,8 +50,9 @@ captured, and from then on each step copies its batch into the graph's
 static inputs, stages the count-derived updater scalars in one copy, and
 replays; a graph's draws follow the seed the host set before the replay.
 ``apply_external_updates`` runs the fused update alone through its own
-graphs. On the CPU the same step runs eagerly. Not ported yet: listeners,
-checkpointing inside ``fit`` and prefetch.
+graphs. On the CPU the same step runs eagerly. With ``remat`` configured
+the differentiated loss is rematerialized (util/remat.py): the forward
+runs again in the backward, with the forward's draws.
 
 The network runs on CUDA unless constructed with ``device="cpu"``; without
 a card and without that argument, construction raises.
@@ -55,6 +61,7 @@ a card and without that argument, construction raises.
 from __future__ import annotations
 
 import json
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -64,6 +71,7 @@ from deeplearning4j_tpu_torch.data.dataset import DataSet
 from deeplearning4j_tpu_torch.exec import get_executor
 from deeplearning4j_tpu_torch.exec.executor import (network_generator,
                                                     seed_generator)
+from deeplearning4j_tpu_torch.models.fitting import FitContract
 from deeplearning4j_tpu_torch.nn.conf.configuration import \
     MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.fused_update import (build_fused_update,
@@ -76,6 +84,7 @@ from deeplearning4j_tpu_torch.nn.updaters import (make_gradient_transform,
                                                   normalize_layer_grad,
                                                   reduces_across_leaves)
 from deeplearning4j_tpu_torch.ops import resolve_device
+from deeplearning4j_tpu_torch.util.remat import remat_loss
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16, "float64": torch.float64}
@@ -136,7 +145,7 @@ def updater_plan(params, updaters, constraints):
     return transforms, opt_state, fused
 
 
-class MultiLayerNetwork:
+class MultiLayerNetwork(FitContract):
     def __init__(self, conf: MultiLayerConfiguration, device=None):
         conf.finalize()
         self.conf = conf
@@ -159,6 +168,9 @@ class MultiLayerNetwork:
         self.epoch = 0
         self._epoch_batch = 0         # batches consumed in the current epoch
         self._score = float("nan")    # last fit loss (tensor until read)
+        self.listeners: List = []
+        self._last_input = None       # last fit batch (for listeners)
+        self._last_fit_time = None    # host seconds of the last _fit_batch
         self._rnn_carries = None      # stored state for rnn_time_step
         self._serving = None          # bucketed inference engine (lazy)
 
@@ -303,9 +315,10 @@ class MultiLayerNetwork:
         (loss, grads, new_carries), carries detached."""
         leaves = [{k: v.detach().requires_grad_(v.is_floating_point())
                    for k, v in p.items()} for p in self.params]
+        loss_fn = remat_loss(self._loss, self.conf.global_conf.remat)
         with torch.enable_grad():
-            loss, new_carries = self._loss(leaves, x, y, mask_l, carries,
-                                           mask_f, gen)
+            loss, new_carries = loss_fn(leaves, x, y, mask_l, carries,
+                                        mask_f, gen=gen)
             flat = [v for p in leaves for v in p.values()]
             got = torch.autograd.grad(loss, flat, allow_unused=True) \
                 if flat else ()
@@ -408,24 +421,22 @@ class MultiLayerNetwork:
             None if labels_mask is None else self._as_input(labels_mask))
         return grads, float(loss)
 
-    def fit(self, data, labels=None, epochs=1):
-        """fit(x, y) | fit(DataSet) | fit(iterator, epochs=N) (parity:
-        MultiLayerNetwork.fit). An iterator is reset before each epoch, as
-        in the JAX package; every batch is one train step (truncated BPTT:
-        one step per chunk)."""
-        self._check_trainable()
-        if labels is not None or isinstance(data, DataSet):
-            return self._fit_batch(data if labels is None
-                                   else DataSet(data, labels))
-        for _ in range(epochs):
-            if hasattr(data, "reset"):
-                data.reset()
-            for batch in data:
-                self._fit_batch(batch if isinstance(batch, DataSet)
-                                else DataSet(*batch))
-            self.epoch += 1
-            self._epoch_batch = 0
-        return self
+    # ---- the fit contract's hooks (models/fitting.py)
+    @staticmethod
+    def _direct_batch(data, labels):
+        if labels is not None:
+            return DataSet(data, labels)
+        return data if isinstance(data, DataSet) else None
+
+    @staticmethod
+    def _stream_batch(item):
+        ds = item if isinstance(item, DataSet) else DataSet(*item)
+        return (ds, [ds.features], [ds.labels],
+                ds.features_mask is not None or ds.labels_mask is not None)
+
+    @staticmethod
+    def _chunk_payload(xs, ys):
+        return xs[0], ys[0]
 
     def fit_scan(self, xs, ys):
         """``xs.shape[0]`` train steps over a leading step axis: xs (n_steps,
@@ -442,8 +453,10 @@ class MultiLayerNetwork:
                                        iteration=self.iteration + k)
             if k == xs.shape[0] - 1:
                 self._score = loss.clone()
+        self._last_input = xs[-1]
         self.iteration += int(xs.shape[0])
         self._epoch_batch += int(xs.shape[0])
+        self._fire_listeners()
         return self
 
     def _fit_batch(self, ds: DataSet):
@@ -451,12 +464,16 @@ class MultiLayerNetwork:
         ml = None if ds.labels_mask is None else self._as_input(ds.labels_mask)
         mf = None if ds.features_mask is None \
             else self._as_input(ds.features_mask)
+        self._last_input = x
+        t0 = time.perf_counter()
         if self.conf.backprop_type == "tbptt" and x.ndim == 3:
             self._fit_tbptt(x, y, ml, mf)
         else:
             self._score = self._train_step(x, y, ml, mask_f=mf)[0].clone()
+        self._last_fit_time = time.perf_counter() - t0
         self.iteration += 1
         self._epoch_batch += 1
+        self._fire_listeners()
         return self
 
     def _fit_tbptt(self, x, y, ml, mf=None):

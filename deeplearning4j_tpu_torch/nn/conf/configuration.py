@@ -140,6 +140,13 @@ class Builder:
         self._g.weight_noise = wn
         return self
 
+    def remat(self, flag=True):
+        """Rematerialize the forward in the backward (util/remat.py):
+        False, True, 'full', 'save_convs' or 'selective'."""
+        from deeplearning4j_tpu_torch.util.remat import check_remat_mode
+        self._g.remat = check_remat_mode(flag)
+        return self
+
     def list(self) -> "ListBuilder":
         return ListBuilder(self._g)
 

@@ -11,8 +11,11 @@ and, when saved, ``updaterState.npz`` (the updater state under the JAX
 package's optax key paths, e.g. ``0/0/.mu/W`` -- layer index or node name
 / chain index / field / parameter). Arrays go
 through numpy, so a zip written by either package loads, and resumes
-training, in the other. Writing to a path is atomic: staged to a temp
-file, fsynced, then renamed over the destination.
+training, in the other. Writing to a path is atomic and durable: staged to
+a temp file, fsynced, renamed over the destination, and the directory
+fsynced so the rename survives a crash. ``restore_into`` loads a zip into
+an existing network in place (``fit(resume_from=)``); ``read_meta`` reads
+the counters alone.
 """
 
 from __future__ import annotations
@@ -116,6 +119,14 @@ def write_model(model, path, save_updater=True):
         except OSError:
             pass
         raise
+    try:        # make the rename itself durable; best effort on odd FSes
+        dfd = os.open(os.path.dirname(os.path.abspath(path)), os.O_RDONLY)
+        try:
+            os.fsync(dfd)
+        finally:
+            os.close(dfd)
+    except OSError:
+        pass
 
 
 def _fill(path, member, flat, templates):
@@ -141,6 +152,72 @@ def _fill(path, member, flat, templates):
     return out if isinstance(templates, dict) else list(out.values())
 
 
+def _open_zip(path) -> zipfile.ZipFile:
+    try:
+        return zipfile.ZipFile(path, "r")
+    except zipfile.BadZipFile as e:
+        raise CorruptCheckpointError(path, detail=str(e)) from e
+
+
+def _read_meta(z: zipfile.ZipFile, path) -> dict:
+    try:
+        return json.loads(_read_member(z, path, META_NAME))
+    except json.JSONDecodeError as e:
+        raise CorruptCheckpointError(path, member=META_NAME,
+                                     detail=str(e)) from e
+
+
+def read_meta(path) -> dict:
+    """A checkpoint's metadata (kind, iteration, epoch, epoch_batch)
+    without loading any tensor."""
+    with _open_zip(path) as z:
+        return _read_meta(z, path)
+
+
+def _set_counters(model, meta):
+    model.iteration = int(meta.get("iteration", 0))
+    model.epoch = int(meta.get("epoch", 0))
+    model._epoch_batch = int(meta.get("epoch_batch", 0))
+
+
+def _copy_into(dst_tree, src_tree):
+    """Copy every tensor of ``src_tree`` into the same key of ``dst_tree``
+    in place: a fused update's per-layer dicts view its flat buffers, which
+    captured graphs read by address."""
+    for (_, dst), (_, src) in zip(_items(dst_tree), _items(src_tree)):
+        for k, v in src.items():
+            dst[k].copy_(v)
+
+
+def restore_into(model, path, load_updater=True):
+    """Load a checkpoint's parameters, counters and (when the zip has it
+    and ``load_updater``) updater state into ``model``, an existing
+    network of the zip's kind, in place: every tensor is copied into the
+    network's own, so its fused update and captured graphs keep their
+    buffers, and the host-side updater counts (which stage Adam's bias
+    correction) follow the zip's. The zip's configuration is not read.
+    Returns ``model``."""
+    kind = type(model).__name__
+    with _open_zip(path) as z:
+        meta = _read_meta(z, path)
+        if meta.get("kind") != kind:
+            raise ValueError(f"Expected {kind}, zip holds {meta.get('kind')}")
+        flat = _loadz(z, path, COEFF_NAME)
+        upd = (_loadz(z, path, UPDATER_NAME)
+               if load_updater and UPDATER_NAME in z.namelist() else None)
+    if model.params is None:
+        model.init()
+    params = _fill(path, COEFF_NAME, flat, model.params)
+    opt = None if upd is None else _fill(path, UPDATER_NAME, upd,
+                                         model.opt_state)
+    with torch.no_grad():
+        _copy_into(model.params, params)
+        if opt is not None:
+            _copy_into(model.opt_state, opt)
+    _set_counters(model, meta)
+    return model
+
+
 def _restore(path, device, load_updater, kind):
     """Build the network the zip describes on ``device`` and load its
     parameters, counters and (when the zip has it and ``load_updater``)
@@ -155,16 +232,8 @@ def _restore(path, device, load_updater, kind):
         MultiLayerConfiguration)
     from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
         ComputationGraphConfiguration)
-    try:
-        z = zipfile.ZipFile(path, "r")
-    except zipfile.BadZipFile as e:
-        raise CorruptCheckpointError(path, detail=str(e)) from e
-    with z:
-        try:
-            meta = json.loads(_read_member(z, path, META_NAME))
-        except json.JSONDecodeError as e:
-            raise CorruptCheckpointError(path, member=META_NAME,
-                                         detail=str(e)) from e
+    with _open_zip(path) as z:
+        meta = _read_meta(z, path)
         if meta.get("kind") != kind:
             raise ValueError(f"Expected {kind}, zip holds {meta.get('kind')}")
         conf_json = _read_member(z, path, CONFIG_NAME).decode()
@@ -186,15 +255,9 @@ def _restore(path, device, load_updater, kind):
                      for l in model.layers]
     model.set_params(_fill(path, COEFF_NAME, flat, templates))
     if upd is not None:
-        # in place: the state of a fused update views its flat buffers
-        loaded = _fill(path, UPDATER_NAME, upd, model.opt_state)
-        for (_, dst), (_, src) in zip(_items(model.opt_state),
-                                      _items(loaded)):
-            for k, v in src.items():
-                dst[k].copy_(v)
-    model.iteration = int(meta.get("iteration", 0))
-    model.epoch = int(meta.get("epoch", 0))
-    model._epoch_batch = int(meta.get("epoch_batch", 0))
+        _copy_into(model.opt_state, _fill(path, UPDATER_NAME, upd,
+                                          model.opt_state))
+    _set_counters(model, meta)
     return model
 
 
