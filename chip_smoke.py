@@ -193,6 +193,43 @@ result line, when any of them or the port's package is missing. Phases:
    ``remat`` and without: the step-1 gradient under the same draws bit for
    bit, K4-train twice (forward and recompute) and K3 twice; 5 captured
    fit steps to the same bits, and warm ms per step of both.
+11. The decode engine's default paged path and speculation
+   (``serving_features_phase``). (a) TinyTransformer at its full default
+   width from the configuration's seed (as 5) on a paged engine (8 slots,
+   max_len 512, kv_block_size 16, the default pool, the prefix cache,
+   chunk_tokens 32): wave 1, 8 greedy streams of 64 new tokens whose
+   prompts share the corpus's first 48 tokens (3 full blocks) followed by
+   distinct tails of 8..40 corpus tokens; wave 2, the same 8 prompts and
+   the longest cut to 72 tokens (4 full blocks and 8 positions of the
+   fifth, which wave 1 published: a copy-on-write). Tokens against a paged
+   engine with neither the prefix cache nor chunks and against
+   ``generate_naive`` under the near-tie rule of 5; K9 exactly twice a
+   plain step (a chunk and a copy launch none); no block in use after the
+   last request; wave 2 all prefix hits and at least one copy; the prefix
+   hits, tokens saved, copies, chunks and cached blocks of the 17 prompts
+   one at a time (8 new tokens each) equal the CPU port's; time to first
+   token of wave 1's prompts submitted together with and without chunks
+   (no prefix cache); ms per step of wave 2 against wave 1. (b) The same
+   model, dense and paged (prefix cache) engines, 8 streams of 64 new
+   tokens from held-out prompts of 16..64 tokens, greedy and sampled
+   (temperature 0.9, seed 123), with two drafts: the target itself, k=4,
+   and a 1-block TinyTransformer (d_model 128, 4 heads) from seed 3 with
+   the tree (3, 2, 2). Greedy tokens against the plain engine's under the
+   near-tie rule; sampled ones identical unless the plain engine's
+   Gumbel-score top-2 gap at the first difference is at most 1e-4; K8's
+   plan at a plain step's 8 rows and at a verify's 8 x nodes rows; exactly
+   the launches of the plain steps (K8 dense, K9 paged), the verifies (K8)
+   and the draft's steps (K8 once a draft attention layer); acceptance,
+   tokens a tick, ms a tick and tokens/s against the plain engine; ten
+   ticks of one-token prompts under ``torch.profiler`` (busy ms, idle
+   share, K8/K9's share). (c) The bundled TextGenerationLSTM (2 x
+   LSTM(256)) with ``SpecConfig(self_draft="early_exit:1", tree=(3, 2))``
+   on a dense engine and on a paged one without the prefix cache and with
+   chunks of 32: greedy tokens of 8 streams equal the plain engine's, and
+   the plain engine's the CPU port's under the near-tie rule; no kernel
+   launched (the LSTM's decode step is a plain cell step); acceptance and
+   tokens/s; ``DecodeEngine(lstm, kv="paged")`` raises the JAX package's
+   ValueError.
 
 A replayed CUDA graph adds to the launch counts the launches its capture
 recorded (the capture itself counts none), so the counts below are the
@@ -200,7 +237,7 @@ kernels that ran. Kernel launch counts are reset right before the LSTM
 serving phase, before
 each TinyTransformer part (the 256-wide heads' too), before training (b)
 and (c) and before each part of the TinyTransformer training, and read
-right after; each
+right after (and around each counted run of 11); each
 TinyTransformer part and the training runs must launch exactly the kernels
 their call or step counts call for (K5 twice per bucketed forward, K8 or
 K9 twice per engine step; K5, K6 and K7 twice each per TinyTransformer
@@ -2840,6 +2877,436 @@ def fit_contract_phase(card):
     return res
 
 
+# ------------------------------------------------------------- phase 11
+STEM, TAIL_LENS, SERVE_NEW = 48, (8, 12, 16, 20, 24, 28, 32, 40), 64
+CHUNK = 32
+SPEC_TEMP, SPEC_SEED = 0.9, 123
+SCORE_TIE = 1e-4     # top-2 gap of a sampled step's Gumbel scores
+PROFILE_TICKS = 10
+
+
+def _sampled_tie(net, prompt, got, want, temp, seed):
+    """Where two sampled streams first differ, the top-2 gap of the
+    reference's Gumbel scores (log-probabilities over ``temp`` plus the
+    draw's noise) at that step. None when they agree."""
+    import torch
+    from deeplearning4j_tpu_torch.serving.engine import input_type_of
+    from deeplearning4j_tpu_torch.serving.spec.accept import gumbel_noise
+    diff = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    if not diff and len(got) == len(want):
+        return None
+    step = diff[0] if diff else min(len(got), len(want))
+    toks = list(prompt) + list(want[:step])
+    V = input_type_of(net).size
+    eye = torch.eye(V, device=net.device)
+    probs = net.output(eye[torch.tensor(toks, device=net.device)][None],
+                       bucketed=False)[0, -1]
+    scores = (np.log(probs.double().cpu().numpy()) / temp
+              + gumbel_noise(seed, len(toks) - 1, V))
+    top = np.sort(scores)[::-1][:2]
+    return step, float(top[0] - top[1])
+
+
+def _ties(net, prompts, gots, wants, temp=0.0, seed=0):
+    """Near-tie records of every stream that differs from the reference,
+    or raise when one differs beyond a near-tie."""
+    ties = []
+    for p, got, want in zip(prompts, gots, wants):
+        tie = (_first_tie(net, p, got, want) if temp == 0 else
+               _sampled_tie(net, p, got, want, temp, seed))
+        if tie is not None:
+            ties.append({"prompt_len": len(p), "step": tie[0],
+                         "margin": tie[1]})
+    bar = TIE_MARGIN if temp == 0 else SCORE_TIE
+    if any(t["margin"] > bar for t in ties):
+        raise AssertionError(f"tokens differ beyond a near-tie: {ties}")
+    return ties
+
+
+def _serve(eng, prompts, new, temp=0.0, seed=0):
+    """``prompts`` submitted together; tokens, wall seconds and the
+    engine's stats before and after."""
+    st0 = eng.stats()
+    t0 = time.perf_counter()
+    futs = [eng.submit(p, max_new_tokens=new, seed=seed, temperature=temp)
+            for p in prompts]
+    toks = [f.result(timeout=600)["tokens"] for f in futs]
+    return toks, time.perf_counter() - t0, st0, eng.stats()
+
+
+def _ttft_ms(eng, prompts):
+    """Time to first token of ``prompts`` submitted together (requests of
+    one new token: prefill and the first step), ms each."""
+    done = {}
+    t0 = time.perf_counter()
+    futs = [eng.submit(p, max_new_tokens=1) for p in prompts]
+    for i, f in enumerate(futs):
+        f.add_done_callback(
+            lambda _, i=i: done.__setitem__(i, time.perf_counter()))
+    for f in futs:
+        f.result(timeout=600)
+    return [(done[i] - t0) * 1e3 for i in range(len(prompts))]
+
+
+def _kv_delta(st0, st1, keys=("prefix_hits", "prefix_tokens_saved",
+                              "cow_copies", "prefill_chunks",
+                              "prefill_tokens")):
+    return {k: st1["kv"][k] - st0["kv"][k] for k in keys}
+
+
+def prefix_part(net, cpu, ids, card, res):
+    """Phase 11 (a): the prefix cache and chunked prefill (docstring)."""
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.serving import DecodeEngine
+    from deeplearning4j_tpu_torch.serving.decode import generate_naive
+    stem = ids[:STEM]
+    prompts = [stem + ids[4000 + 211 * i:4000 + 211 * i + n]
+               for i, n in enumerate(TAIL_LENS)]
+    # 4 full blocks and 8 positions of the fifth, which wave 1's last
+    # prompt published: a copy-on-write
+    cut = prompts[-1][:STEM + KV_BLOCK + 8]
+    kw = dict(slots=8, max_len=512, kv="paged", kv_block_size=KV_BLOCK)
+    out = {"prompt_lens": [len(p) for p in prompts], "cut_len": len(cut)}
+    eng = DecodeEngine(net, chunk_tokens=CHUNK, **kw).start()
+    ref = DecodeEngine(net, prefix_cache=False, **kw).start()
+    try:
+        for e in (eng, ref):
+            e.generate(ids[-4:], max_new_tokens=2)          # first use
+        gens = {}
+        for wave, ps in (("wave1", prompts), ("wave2", prompts + [cut])):
+            ops.reset_launch_counts()
+            toks, wall, st0, st1 = _serve(eng, ps, SERVE_NEW)
+            steps = st1["steps"] - st0["steps"]
+            launches = _expect_launches(
+                f"phase 11 (a) {wave}", {"flash_decode_paged": 2 * steps})
+            secs = st1["decode_seconds"] - st0["decode_seconds"]
+            gens[wave] = toks
+            out[wave] = {"steps": steps, "launches": launches,
+                         "ms_per_step": secs / steps * 1e3,
+                         "wall_s": wall,
+                         "tokens_per_s": len(ps) * SERVE_NEW / wall,
+                         "kv": _kv_delta(st0, st1)}
+            print(f"serve (a): {wave}, {len(ps)} streams x {SERVE_NEW} "
+                  f"tokens, prefix cache + chunks of {CHUNK}: {steps} steps,"
+                  f" {out[wave]['ms_per_step']:.3f} ms/step, "
+                  f"{out[wave]['tokens_per_s']:.1f} tokens/s, wall "
+                  f"{wall:.3f} s; {out[wave]['kv']}; launches {launches} "
+                  f"[{card}]", flush=True)
+        kv = out["kv_after"] = eng.stats()["kv"]
+        if kv["blocks_in_use"] != 0 or out["wave2"]["kv"]["cow_copies"] < 1 \
+                or out["wave2"]["kv"]["prefix_hits"] < len(prompts) + 1:
+            raise AssertionError(f"prefix cache: {out['wave2']['kv']}, "
+                                 f"{kv}")
+        ops.reset_launch_counts()
+        want, wall, st0, st1 = _serve(ref, prompts + [cut], SERVE_NEW)
+        steps = st1["steps"] - st0["steps"]
+        out["reference"] = {
+            "steps": steps, "wall_s": wall,
+            "ms_per_step": (st1["decode_seconds"] - st0["decode_seconds"])
+            / steps * 1e3,
+            "launches": _expect_launches("phase 11 (a) reference",
+                                         {"flash_decode_paged": 2 * steps})}
+    finally:
+        eng.stop()
+        ref.stop()
+    naive = [generate_naive(net, p, SERVE_NEW)["tokens"]
+             for p in prompts + [cut]]
+    out["ties"] = {
+        "wave1_vs_reference": _ties(net, prompts, gens["wave1"], want),
+        "wave2_vs_reference": _ties(net, prompts + [cut], gens["wave2"],
+                                    want),
+        "reference_vs_naive": _ties(net, prompts + [cut], want, naive),
+        "wave2_vs_naive": _ties(net, prompts + [cut], gens["wave2"], naive)}
+    # time to first token of wave 1 with and without chunks (no cache)
+    for chunk in (None, CHUNK):
+        e = DecodeEngine(net, prefix_cache=False, chunk_tokens=chunk,
+                         **kw).start()
+        try:
+            e.generate(ids[-4:], max_new_tokens=2)
+            ms = _ttft_ms(e, prompts)
+        finally:
+            e.stop()
+        out[f"ttft_ms_chunk_{chunk}"] = ms
+        print(f"serve (a): time to first token, {len(prompts)} prompts of "
+              f"{out['prompt_lens']} together, chunk_tokens={chunk}: mean "
+              f"{np.mean(ms):.2f} ms, max {max(ms):.2f} ms [{card}]",
+              flush=True)
+
+    def one_at_a_time(model):
+        e = DecodeEngine(model, chunk_tokens=CHUNK, **kw).start()
+        try:
+            for p in prompts + prompts + [cut]:
+                e.generate(p, max_new_tokens=8, timeout=600)
+            st = e.stats()["kv"]
+        finally:
+            e.stop()
+        return {k: st[k] for k in ("prefix_hits", "prefix_tokens_saved",
+                                   "cow_copies", "prefill_chunks",
+                                   "prefill_tokens", "blocks_in_use",
+                                   "blocks_cached")}
+    out["one_at_a_time"] = one_at_a_time(net)
+    out["one_at_a_time_cpu"] = one_at_a_time(cpu)
+    print(f"serve (a): wave 2 {out['wave2']['ms_per_step']:.3f} ms/step "
+          f"against wave 1 {out['wave1']['ms_per_step']:.3f} and the "
+          f"reference (no cache, no chunks) "
+          f"{out['reference']['ms_per_step']:.3f} "
+          f"({out['reference']['steps']} steps against "
+          f"{out['wave2']['steps']}); one request at a time, card "
+          f"{out['one_at_a_time']} == CPU port "
+          f"{out['one_at_a_time'] == out['one_at_a_time_cpu']}; near-ties "
+          f"{out['ties']} [{card}]", flush=True)
+    if out["one_at_a_time"] != out["one_at_a_time_cpu"] \
+            or out["one_at_a_time"]["cow_copies"] < 1:
+        raise AssertionError(f"card counters {out['one_at_a_time']} != CPU "
+                             f"port {out['one_at_a_time_cpu']}")
+    res["prefix"] = out
+
+
+def decode_plans(n_rows):
+    """K8's plan (``last_plan``) at the TinyTransformer engines' shapes:
+    the plain step's B = 8 rows and a verify's 8 x ``n_rows`` nodes, C =
+    512. Launched outside the counted windows."""
+    import torch
+    from deeplearning4j_tpu_torch.ops import decode_cuda
+    plans = {}
+    for name, B in (("plain_step", 8), ("verify", 8 * n_rows)):
+        q = torch.zeros((B, HEADS, HEAD_DIM), device="cuda")
+        kc = torch.zeros((B, 512, HEADS, HEAD_DIM), device="cuda")
+        pos = torch.full((B,), 100, dtype=torch.int32, device="cuda")
+        decode_cuda.flash_decode_step(q, kc, kc, pos)
+        plans[name] = dict(decode_cuda.last_plan("flash_decode"), rows=B)
+    return plans
+
+
+def _spec_launches(eng, st0, st1):
+    """The decode kernels a speculative engine's run must have launched:
+    the target's plain steps (K8 dense, K9 paged) and verifies (K8) twice
+    each, and the draft's steps once a draft attention layer (K8)."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import \
+        MultiHeadAttention
+    from deeplearning4j_tpu_torch.serving.spec.rewind import layer_entries
+    sp0, sp1 = st0["spec"], st1["spec"]
+    steps = st1["steps"] - st0["steps"]
+    verifies = sp1["verifies"] - sp0["verifies"]
+    dsteps = sp1["draft_steps"] - sp0["draft_steps"]
+    heads = sum(isinstance(l, MultiHeadAttention)
+                for _, l in layer_entries(eng._draft.model))
+    tgt = sum(isinstance(l, MultiHeadAttention)
+              for _, l in layer_entries(eng.model))
+    want = {"flash_decode": tgt * verifies + heads * dsteps}
+    plain = tgt * (steps - verifies)
+    if eng.kv == "paged":
+        want["flash_decode_paged"] = plain
+    else:
+        want["flash_decode"] += plain
+    return {k: v for k, v in want.items() if v}
+
+
+def spec_part(net, ids, card, res):
+    """Phase 11 (b): speculation over TinyTransformer (docstring)."""
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.serving import DecodeEngine
+    from deeplearning4j_tpu_torch.serving.spec import SpecConfig
+    from deeplearning4j_tpu_torch.zoo import TinyTransformer
+    vocab = res["vocab"]
+    draft = TinyTransformer(vocab_size=vocab, n_layers=1, seed=3).init(
+        device=net.device)
+    held = ids[len(ids) * 7 // 8:]
+    lens = [16, 22, 28, 34, 40, 46, 52, 64]
+    prompts = [held[64 * i:64 * i + n] for i, n in enumerate(lens)]
+    kvs = {"dense": {}, "paged": dict(kv="paged", kv_block_size=KV_BLOCK)}
+    drafts = {"self k=4": lambda: SpecConfig(net, k=4),
+              "draft (3,2,2)": lambda: SpecConfig(draft, tree=(3, 2, 2))}
+    out = {"plans": decode_plans(1 + 4), "plans_tree": decode_plans(8)}
+    print(f"spec (b): K8 plans, plain step {out['plans']['plain_step']}, "
+          f"verify k=4 {out['plans']['verify']}, verify (3,2,2) "
+          f"{out['plans_tree']['verify']} [{card}]", flush=True)
+    plain = {}
+    for kind, kw in kvs.items():
+        eng = DecodeEngine(net, slots=8, max_len=512, **kw).start()
+        try:
+            eng.generate(ids[-4:], max_new_tokens=2)
+            kernel = "flash_decode" if kind == "dense" else \
+                "flash_decode_paged"
+            ops.reset_launch_counts()
+            toks, wall, st0, st1 = _serve(eng, prompts, SERVE_NEW)
+            steps = st1["steps"] - st0["steps"]
+            launches = _expect_launches(f"phase 11 (b) plain {kind}",
+                                        {kernel: 2 * steps})
+            sampled = _serve(eng, prompts, SERVE_NEW, SPEC_TEMP,
+                             SPEC_SEED)[0]
+        finally:
+            eng.stop()
+        plain[kind] = {"greedy": toks, "sampled": sampled}
+        out[f"plain_{kind}"] = {
+            "steps": steps, "wall_s": wall, "launches": launches,
+            "tokens_per_s": len(prompts) * SERVE_NEW / wall,
+            "ms_per_step": (st1["decode_seconds"] - st0["decode_seconds"])
+            / steps * 1e3}
+        print(f"spec (b): plain {kind} engine, {len(prompts)} streams x "
+              f"{SERVE_NEW}: {steps} steps, "
+              f"{out[f'plain_{kind}']['ms_per_step']:.3f} ms/step, "
+              f"{out[f'plain_{kind}']['tokens_per_s']:.1f} tokens/s "
+              f"[{card}]", flush=True)
+    for kind, kw in kvs.items():
+        for dname, make in drafts.items():
+            tag = f"{kind}, {dname}"
+            eng = DecodeEngine(net, slots=8, max_len=512, spec=make(),
+                               **kw).start()
+            try:
+                eng.generate(ids[-4:], max_new_tokens=2)
+                ops.reset_launch_counts()
+                toks, wall, st0, st1 = _serve(eng, prompts, SERVE_NEW)
+                launches = _expect_launches(f"phase 11 (b) {tag}",
+                                            _spec_launches(eng, st0, st1))
+                sampled = _serve(eng, prompts, SERVE_NEW, SPEC_TEMP,
+                                 SPEC_SEED)[0]
+                sp = st1["spec"]
+                ticks = sp["verifies"] - st0["spec"]["verifies"]
+                per_tick = len(prompts) * SERVE_NEW / ticks
+                row = {"launches": launches, "wall_s": wall, "ticks": ticks,
+                       "acceptance_rate": sp["acceptance_rate"],
+                       "mean_accepted_depth": sp["mean_accepted_depth"],
+                       "tokens_per_tick": per_tick,
+                       "ms_per_tick": wall / ticks * 1e3,
+                       "tokens_per_s": len(prompts) * SERVE_NEW / wall}
+                row["ties_greedy"] = _ties(net, prompts, toks,
+                                           plain[kind]["greedy"])
+                row["ties_sampled"] = _ties(net, prompts, sampled,
+                                            plain[kind]["sampled"],
+                                            SPEC_TEMP, SPEC_SEED)
+                # one-token prompts in step: a tick emits the accepted
+                # depth + 1 tokens a stream
+                new = min(200, max(8, round(
+                    PROFILE_TICKS * (1 + row["mean_accepted_depth"]))))
+
+                def run():
+                    v0 = eng.stats()["spec"]["verifies"]
+                    futs = [eng.submit([t], max_new_tokens=new)
+                            for t in range(len(prompts))]
+                    for f in futs:
+                        f.result(timeout=600)
+                    return eng.stats()["spec"]["verifies"] - v0
+                row["profile"] = profile_steps(run, PROFILE_TICKS,
+                                               ("flash_decode_kernel",))
+            finally:
+                eng.stop()
+            prof = row["profile"]
+            busy = prof["device_busy_ms_per_step"]
+            row["decode_kernel_share"] = (
+                None if busy is None else
+                prof["tagged_ms_per_step"]["flash_decode_kernel"] / busy)
+            out[tag] = row
+            print(f"spec (b): {tag}: acceptance {row['acceptance_rate']:.3f}"
+                  f" (mean accepted depth "
+                  f"{row['mean_accepted_depth']:.2f}), {ticks} ticks, "
+                  f"{per_tick:.2f} tokens a tick, {row['ms_per_tick']:.3f}"
+                  f" ms a tick, {row['tokens_per_s']:.1f} tokens/s (plain "
+                  f"{out[f'plain_{kind}']['tokens_per_s']:.1f}); near-ties "
+                  f"greedy {row['ties_greedy']}, sampled "
+                  f"{row['ties_sampled']}; launches {launches}; "
+                  + fmt_profile(prof, ("flash_decode_kernel",),
+                                unit="tick", units="ticks")
+                  + f" [{card}]", flush=True)
+    res["spec"] = out
+
+
+def spec_lstm_part(card, res):
+    """Phase 11 (c): speculation over the LSTM's carries (docstring)."""
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.serving import DecodeEngine
+    from deeplearning4j_tpu_torch.serving.spec import SpecConfig
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+    from deeplearning4j_tpu_torch.zoo.corpus import corpus_windows
+    _, (xte, _), vocab = corpus_windows(T=64)
+    zoo = TextGenerationLSTM(total_unique_characters=len(vocab))
+    net = zoo.init_pretrained(device="cuda")
+    cpu = zoo.init_pretrained(device="cpu")
+    out = {}
+    try:
+        DecodeEngine(net, kv="paged")
+    except ValueError as e:
+        if "prefix_cache" not in str(e):
+            raise
+        out["paged_default_raises"] = str(e)
+    else:
+        raise AssertionError("DecodeEngine(lstm, kv='paged') did not raise")
+    text = xte.argmax(-1)
+    prompts = [list(map(int, text[i, :n])) for i, n in
+               enumerate((16, 22, 28, 34, 40, 46, 52, 64))]
+    spec = SpecConfig(self_draft="early_exit:1", tree=(3, 2))
+    runs = {"plain": (net, {}), "cpu": (cpu, {}),
+            "spec dense": (net, {"spec": spec}),
+            "spec paged": (net, {"spec": spec, "kv": "paged",
+                                 "prefix_cache": False,
+                                 "chunk_tokens": CHUNK})}
+    toks = {}
+    for name, (model, kw) in runs.items():
+        eng = DecodeEngine(model, slots=8, max_len=256, **kw).start()
+        try:
+            eng.generate(prompts[0][:2], max_new_tokens=2)
+            ops.reset_launch_counts()
+            toks[name], wall, st0, st1 = _serve(eng, prompts, SERVE_NEW)
+            row = {"wall_s": wall, "launches": ops.launch_counts(),
+                   "tokens_per_s": len(prompts) * SERVE_NEW / wall}
+        finally:
+            eng.stop()
+        if row["launches"]:
+            raise AssertionError(f"LSTM {name}: launches {row['launches']}"
+                                 " (its decode step runs no kernel)")
+        if "spec" in kw:
+            sp = st1["spec"]
+            ticks = sp["verifies"] - st0["spec"]["verifies"]
+            row.update(acceptance_rate=sp["acceptance_rate"], ticks=ticks,
+                       tokens_per_tick=len(prompts) * SERVE_NEW / ticks,
+                       ms_per_tick=wall / ticks * 1e3)
+        out[name] = row
+    out["ties_cpu"] = _ties(net, prompts, toks["plain"], toks["cpu"])
+    for name in ("spec dense", "spec paged"):
+        if toks[name] != toks["plain"]:
+            raise AssertionError(f"LSTM {name} tokens differ from the plain "
+                                 "engine's")
+    print(f"spec (c): TextGenerationLSTM, early_exit:1 tree (3, 2), "
+          f"{len(prompts)} streams x {SERVE_NEW}: tokens equal the plain "
+          f"engine's (dense and paged + chunks of {CHUNK}); acceptance "
+          f"{out['spec dense']['acceptance_rate']:.3f} / "
+          f"{out['spec paged']['acceptance_rate']:.3f}, tokens a tick "
+          f"{out['spec dense']['tokens_per_tick']:.2f}, ms a tick "
+          f"{out['spec dense']['ms_per_tick']:.3f}, tokens/s "
+          f"{out['spec dense']['tokens_per_s']:.1f} / "
+          f"{out['spec paged']['tokens_per_s']:.1f} against plain "
+          f"{out['plain']['tokens_per_s']:.1f}; plain vs CPU port near-ties "
+          f"{out['ties_cpu']}; kv='paged' alone raises: "
+          f"{out['paged_default_raises'][:60]!r}... [{card}]", flush=True)
+    res["lstm"] = out
+
+
+def counted_launches(tree, kernel):
+    """The launches of ``kernel`` over every counted window (each dict
+    entry ``launches``) of a phase's results."""
+    if isinstance(tree, dict):
+        return sum(v.get(kernel, 0) if k == "launches" else
+                   counted_launches(v, kernel) for k, v in tree.items())
+    return 0
+
+
+def serving_features_phase(card):
+    """Phase 11: the prefix cache, chunked prefill and speculation
+    (``chip_smoke.py`` docstring)."""
+    from deeplearning4j_tpu_torch import ComputationGraph
+    from deeplearning4j_tpu_torch.zoo import TinyTransformer
+    from deeplearning4j_tpu_torch.zoo.corpus import corpus_ids
+    ids, vocab = corpus_ids()
+    ids = [int(t) for t in ids]
+    net = TinyTransformer(vocab_size=len(vocab)).init(device="cuda")
+    cpu = ComputationGraph(net.conf, device="cpu").set_params(net.params)
+    res = {"card": card, "vocab": len(vocab)}
+    prefix_part(net, cpu, ids, card, res)
+    spec_part(net, ids, card, res)
+    spec_lstm_part(card, res)
+    return res
+
+
 def profile_steps(run, steps, tags):
     """``run()`` does ``steps`` fit steps (or returns how many steps it
     did); it is called once to warm up (timed, unprofiled) and once under
@@ -3044,6 +3511,9 @@ def main() -> int:
     t0 = time.perf_counter()
     fit_contract = fit_contract_phase(card)
     fit_contract["phase_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serving = serving_features_phase(card)
+    serving["phase_seconds"] = time.perf_counter() - t0
 
     # each kernel at its main path's shape, with the launches of the run
     # that drove it: /predict of the 15 held-out windows (bucket 16, T=64)
@@ -3092,7 +3562,11 @@ def main() -> int:
                          ("flash_decode_paged", "paged")):
         row = attn_kernel_case(kernel, 8, 512, pos=mid, seed=1)
         print("main-path shape: " + fmt_attn(row) + f" [{card}]", flush=True)
-        entry(kernel, row, tiny[f"launches_{kind}"][kernel])
+        by_path = {f"tiny {kind} /generate":
+                   tiny[f"launches_{kind}"][kernel],
+                   "phase 11": counted_launches(serving, kernel)}
+        entry(kernel, row, sum(by_path.values()))
+        entries[-1]["launches_by_path"] = by_path
     # the wide-head phase's shapes (Dh 256, 2 heads): /predict of 15 windows
     # (bucket 16, T=64, causal), train steps (B=32, T=64), the engines; K5-K7
     # also at Dh 128 (one chunk), the split's cost beside it
@@ -3121,7 +3595,7 @@ def main() -> int:
          "slice": res, "f4": f4, "tiny": tiny, "wide": wide,
          "train": train, "tiny_train": tiny_train, "captured": captured,
          "regularised": regularised, "fit_contract": fit_contract,
-         "kernels": entries}, indent=1))
+         "serving_features": serving, "kernels": entries}, indent=1))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

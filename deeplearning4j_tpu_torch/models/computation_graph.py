@@ -4,11 +4,13 @@ training.
 Counterpart of deeplearning4j_tpu/models/computation_graph.py: ``init``,
 the forward along the topological order, ``output`` (bucketed),
 ``serving_engine``, ``init_decode_state`` / ``decode_step`` (dense and
-paged KV caches), ``rnn_time_step`` / ``rnn_clear_previous_state``,
-training (``fit`` on arrays, a DataSet, a MultiDataSet or an iterator,
-``fit_scan``, truncated BPTT, ``score``, ``get_score``, ``evaluate``,
-``apply_external_updates``, ``backprop_external``, ``fit_external``),
-listeners, ``save`` and ``load``. ``fit`` is the JAX package's whole
+paged KV caches), ``prefill_chunk``, ``tree_chunk`` / ``tree_commit``
+(chunked prefill and tree speculation), ``rnn_time_step`` /
+``rnn_clear_previous_state``, training (``fit`` on arrays, a DataSet, a
+MultiDataSet or an iterator, ``fit_scan``, truncated BPTT, ``score``,
+``get_score``, ``evaluate``, ``apply_external_updates``,
+``backprop_external``, ``fit_external``), listeners, ``save`` and
+``load``. ``fit`` is the JAX package's whole
 contract, shared with MultiLayerNetwork (models/fitting.py): streamed
 chunks through ``fit_scan``, device prefetch, listeners, ``checkpoint=``
 and ``resume_from=``. Parameters are a dict node name -> dict of tensors
@@ -44,9 +46,8 @@ carry, and returns the updated map. Truncated BPTT trains in chunks of
 ``tbptt_fwd_length`` steps with the map carried across chunks, entering
 each step detached; ``rnn_time_step`` keeps it between calls. On the carry
 path the recurrent layers drop nothing (their weight noise still applies,
-caveat R5). Not ported for inference: chunked prefill and speculation;
-``output`` and ``evaluate`` take no feature mask, as the JAX graph's do
-not.
+caveat R5). ``output`` and ``evaluate`` take no feature mask, as the JAX
+graph's do not.
 
 The graph runs on CUDA unless constructed with ``device="cpu"``; without a
 card and without that argument, construction raises.
@@ -654,16 +655,32 @@ class ComputationGraph(FitContract):
         as residual adds apply to the (B, 1, F) slices unchanged.
         ``block_tables`` (B, max_blocks) routes attention nodes through the
         paged KV cache. Returns (y, new_dstate)."""
+        new_d = dict(dstate)
+
+        def run(name, layer, p, inp):
+            if block_tables is None:
+                y, new_d[name] = layer.decode_step(p, dstate.get(name), inp,
+                                                   pos)
+            else:
+                y, new_d[name] = layer.decode_step_paged(
+                    p, dstate.get(name), inp, pos, block_tables)
+            return y
+        return self._walk_decode(params, x_t, run), new_d
+
+    def _walk_decode(self, params, x, layer_fn):
+        """Route ``x`` (B, T, F) along the topological order as
+        ``decode_step`` does: vertices apply to the slices, each layer node
+        runs ``layer_fn(name, layer, params, input)``, which returns its
+        output. Returns the network output."""
         if len(self.conf.network_inputs) != 1:
             raise ValueError(
                 "incremental decode supports single-input graphs; got "
                 f"inputs {self.conf.network_inputs}")
         cdt = self._compute_dtype(False)
         if cdt is not None:
-            x_t = x_t.to(cdt)
+            x = x.to(cdt)
             params = _cast_floats(params, cdt)
-        acts = {self.conf.network_inputs[0]: x_t}
-        new_d = dict(dstate)
+        acts = {self.conf.network_inputs[0]: x}
         for name in self.conf.topological_order:
             node = self.conf.nodes[name]
             if node.kind == "input":
@@ -672,16 +689,59 @@ class ComputationGraph(FitContract):
             if node.kind == "vertex":
                 acts[name] = node.vertex.apply(ins)
                 continue
-            p = params.get(name, {})
-            if block_tables is None:
-                y, new_d[name] = node.layer.decode_step(
-                    p, dstate.get(name), ins[0], pos)
-            else:
-                y, new_d[name] = node.layer.decode_step_paged(
-                    p, dstate.get(name), ins[0], pos, block_tables)
-            acts[name] = y
+            acts[name] = layer_fn(name, node.layer, params.get(name, {}),
+                                  ins[0])
         outs = [acts[n] for n in self.conf.network_outputs]
-        return (outs[0] if len(outs) == 1 else outs), new_d
+        return outs[0] if len(outs) == 1 else outs
+
+    @torch.no_grad()
+    def prefill_chunk(self, params: Params, dstate, x, start, n,
+                      block_tables=None, carry_stack=False):
+        """A prefill chunk along the topological order: ``x`` (B, K, F) at
+        positions ``start .. start+K-1``, ``n`` (B,) valid rows (Layer.
+        prefill_chunk). With ``carry_stack`` also a dict of carry snapshot
+        stacks by layer node."""
+        new_d, stacks = dict(dstate), {}
+
+        def run(name, layer, p, inp):
+            out = layer.prefill_chunk(p, dstate.get(name), inp, start, n,
+                                      block_tables=block_tables,
+                                      carry_stack=carry_stack)
+            new_d[name] = out[1]
+            if carry_stack:
+                stacks[name] = out[2]
+            return out[0]
+        y = self._walk_decode(params, x, run)
+        return (y, new_d, stacks) if carry_stack else (y, new_d)
+
+    @torch.no_grad()
+    def tree_chunk(self, params: Params, dstate, x, pos0, tree, n,
+                   block_tables=None):
+        """Score a speculation token tree along the topological order:
+        ``x`` (B, N, F) in ``tree`` order (Layer.tree_chunk). Returns
+        ``(y, stacks, kv_windows)`` by layer node; ``dstate`` is not
+        advanced."""
+        stacks, wins = {}, {}
+
+        def run(name, layer, p, inp):
+            y, _, stacks[name], wins[name] = layer.tree_chunk(
+                p, dstate.get(name), inp, pos0, tree, n,
+                block_tables=block_tables)
+            return y
+        return self._walk_decode(params, x, run), stacks, wins
+
+    @torch.no_grad()
+    def tree_commit(self, dstate, kv_windows, path, pos0, commit_n,
+                    block_tables=None):
+        """Write the accepted root-path's KV (Layer.tree_commit); nodes
+        without a KV window pass through."""
+        new_d = dict(dstate)
+        for name, win in kv_windows.items():
+            if win is not None:
+                new_d[name] = self.conf.nodes[name].layer.tree_commit(
+                    None, dstate.get(name), win, path, pos0, commit_n,
+                    block_tables=block_tables)
+        return new_d
 
     # ------------------------------------------------------------- utilities
     def save(self, path, save_updater=True):

@@ -3,10 +3,11 @@
 Counterpart of deeplearning4j_tpu/models/multi_layer_network.py: ``init``,
 the forward with stacked-LSTM pair fusion, ``output``, ``rnn_time_step`` /
 ``rnn_clear_previous_state``, ``init_decode_state`` / ``decode_step``,
-training (``fit`` on arrays, a DataSet or an iterator, ``fit_scan``,
-truncated BPTT, ``compute_gradient_and_score``, ``score``, ``evaluate``),
-listeners, ``save`` and ``load``. ``fit`` is the JAX package's whole
-contract (models/fitting.py): an iterator streams in chunks through
+``prefill_chunk``, ``tree_chunk`` / ``tree_commit``, training (``fit``
+on arrays, a DataSet or an iterator, ``fit_scan``, truncated BPTT,
+``compute_gradient_and_score``, ``score``, ``evaluate``), listeners,
+``save`` and ``load``. ``fit`` is the JAX package's whole contract
+(models/fitting.py): an iterator streams in chunks through
 ``fit_scan``, staged on the device ahead of the step (``prefetch``),
 listeners fire once a batch or chunk, ``checkpoint=`` saves crash-safely
 and ``resume_from=`` continues the same run. Parameters are a list of
@@ -606,6 +607,58 @@ class MultiLayerNetwork(FitContract):
                 x, new_d[i] = l.decode_step_paged(params[i], dstate[i], x,
                                                   pos, block_tables)
         return x, new_d
+
+    def _cast_decode(self, params, x):
+        cdt = self._compute_dtype(False)
+        if cdt is None:
+            return params, x
+        return _cast_floats(params, cdt), x.to(cdt)
+
+    @torch.no_grad()
+    def prefill_chunk(self, params, dstate, x, start, n, block_tables=None,
+                      carry_stack=False):
+        """A prefill chunk through the stack: ``x`` (B, K, F) at positions
+        ``start .. start+K-1``, ``n`` (B,) valid rows (Layer.
+        prefill_chunk). With ``carry_stack`` also each layer's carry
+        snapshot stack (None where a layer keeps no carry)."""
+        params, x = self._cast_decode(params, x)
+        new_d = list(dstate)
+        stacks = [None] * len(self.layers)
+        for i, l in enumerate(self.layers):
+            out = l.prefill_chunk(params[i], dstate[i], x, start, n,
+                                  block_tables=block_tables,
+                                  carry_stack=carry_stack)
+            x, new_d[i] = out[0], out[1]
+            if carry_stack:
+                stacks[i] = out[2]
+        return (x, new_d, stacks) if carry_stack else (x, new_d)
+
+    @torch.no_grad()
+    def tree_chunk(self, params, dstate, x, pos0, tree, n, block_tables=None):
+        """Score a speculation token tree through the stack: ``x`` (B, N,
+        F) in ``tree`` order (Layer.tree_chunk). Returns ``(y, stacks,
+        kv_windows)``, per layer; ``dstate`` is not advanced."""
+        params, x = self._cast_decode(params, x)
+        stacks = [None] * len(self.layers)
+        wins = [None] * len(self.layers)
+        for i, l in enumerate(self.layers):
+            x, _, stacks[i], wins[i] = l.tree_chunk(
+                params[i], dstate[i], x, pos0, tree, n,
+                block_tables=block_tables)
+        return x, stacks, wins
+
+    @torch.no_grad()
+    def tree_commit(self, dstate, kv_windows, path, pos0, commit_n,
+                    block_tables=None):
+        """Write the accepted root-path's KV (Layer.tree_commit); layers
+        without a KV window pass through."""
+        new_d = list(dstate)
+        for i, l in enumerate(self.layers):
+            if kv_windows[i] is not None:
+                new_d[i] = l.tree_commit(None, dstate[i], kv_windows[i],
+                                         path, pos0, commit_n,
+                                         block_tables=block_tables)
+        return new_d
 
     # ------------------------------------------------------------- utilities
     def save(self, path, save_updater=True):

@@ -1,9 +1,10 @@
 """Attention layers: MultiHeadAttention, LayerNormalization and
 PositionalEmbedding.
 
-Counterpart of deeplearning4j_tpu/nn/layers/attention.py (the forward,
-the dense and the paged decode steps; chunked prefill and tree
-speculation are not ported yet). Parameter keys are the JAX package's:
+Counterpart of deeplearning4j_tpu/nn/layers/attention.py: the forward,
+the dense and the paged decode steps, chunked prefill (``prefill_chunk``)
+and tree speculation (``tree_chunk``, ``tree_commit``). Parameter keys are
+the JAX package's:
 ``Wq``/``Wk``/``Wv``/``Wo`` (+ ``bq``/``bk``/``bv``/``bo``), ``gamma`` /
 ``beta``, ``P``.
 
@@ -17,7 +18,11 @@ takes no key mask and no offsets, so q, k and v always share one shape,
 the conditions under which the JAX layer's flash path computes the same
 function as its einsum path.
 The dense decode step always runs K8 (``ops.flash_decode_step``), the
-paged one K9 (``ops.flash_decode_step_paged``). On CPU tensors those
+paged one K9 (``ops.flash_decode_step_paged``), and so does a tree
+verify: ``tree_chunk`` runs K8 over every node's effective cache, the
+plain step's own attention (the JAX layer calls its step's
+``_finish_step`` there). A prefill chunk runs the layer's own einsum and
+softmax over the gathered cache, as the JAX layer's does. On CPU tensors those
 wrappers run their plain versions. The kernels take every head dim that
 is a multiple of 8, as the head-dim clause of the JAX layer's flash
 screens does (``ops.head_dim_supported``, which both the layer and the
@@ -47,6 +52,7 @@ from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import (Layer, register_layer,
                                                      require_dims)
 from deeplearning4j_tpu_torch.nn.weights import init_weights
+from deeplearning4j_tpu_torch.ops.decode_cuda import gather_pages
 
 
 def _attend(q, k, v, keep=None) -> torch.Tensor:
@@ -229,6 +235,136 @@ class MultiHeadAttention(Layer):
                                         pos, tables)
         return self._project_out(params, o, B, 1, q.dtype), dstate
 
+    # ---- chunked prefill (serving/kv/prefill.py) -------------------------
+    def prefill_chunk(self, params, dstate, x, start, n, block_tables=None,
+                      carry_stack=False):
+        """Write the K/V of chunk rows ``start .. start+K-1`` into the
+        cache (in place), then attend each row causally over the gathered
+        cache with the layer's own softmax: teacher forcing, row by row.
+        Paged: padding rows (t >= n) write into the scratch block. Dense:
+        cache position c takes chunk row c - start only where that row is
+        valid, so a padding row never overwrites anything. KV is
+        positional, so ``carry_stack`` gives a None stack."""
+        self._check_causal()
+        B, K, _ = x.shape
+        dev = x.device
+        q, k, v = self._project(params, x)              # (B, K, H, Dh)
+        start = _positions(start, B, dev).long()
+        n = _positions(n, B, dev).long()
+        t = torch.arange(K, device=dev)
+        poss = start[:, None] + t[None, :]              # (B, K)
+        valid = t[None, :] < n[:, None]
+        if "pk" in dstate:
+            pk, pv = dstate["pk"], dstate["pv"]
+            bs = pk.shape[1]
+            tables = block_tables.to(device=dev).long()
+            bidx = (poss // bs).clamp(0, tables.shape[1] - 1)
+            phys = torch.where(valid, tables.gather(1, bidx), 0)
+            pk[phys, poss % bs] = k.to(pk.dtype)
+            pv[phys, poss % bs] = v.to(pv.dtype)
+            # gathered after the writes: a row sees the rows before it in
+            # the same chunk
+            kc, vc = gather_pages(pk, tables), gather_pages(pv, tables)
+        else:
+            kc, vc = dstate["k"], dstate["v"]
+            C = kc.shape[1]
+            coff = torch.arange(C, device=dev)[None, :] - start[:, None]
+            wr = ((coff >= 0) & (coff < n.clamp(max=K)[:, None]))[..., None,
+                                                                    None]
+            tidx = coff.clamp(0, K - 1)[:, :, None, None].expand(
+                (B, C) + tuple(k.shape[2:]))
+            kc.copy_(torch.where(wr, torch.gather(k, 1, tidx).to(kc.dtype),
+                                 kc))
+            vc.copy_(torch.where(wr, torch.gather(v, 1, tidx).to(vc.dtype),
+                                 vc))
+        C = kc.shape[1]
+        causal = torch.arange(C, device=dev)[None, None, :] <= poss[:, :, None]
+        o = _attend(q, kc.to(q.dtype), vc.to(q.dtype), causal[:, None])
+        y = self._project_out(params, o, B, K, q.dtype)
+        return (y, dstate, None) if carry_stack else (y, dstate)
+
+    # ---- tree speculation (serving/spec/tree.py) -------------------------
+    def tree_chunk(self, params, dstate, x, pos0, tree, n, block_tables=None):
+        """Score N tree nodes without writing the cache (siblings share
+        positions). Node i attends to its effective cache: the cache with
+        positions ``pos0 .. pos0+depth(i)`` replaced by its own
+        root-path's K/V (``tree.anc_at_depth`` row i), element for element
+        the cache the plain engine would hold after feeding that path. The
+        attention is the plain step's, K8 (``ops.flash_decode_step``) over
+        B N rows at positions ``pos0 + depth``, so every node's output is
+        the plain step's for its prefix. Returns ``(y, dstate, None,
+        {"k", "v"})``: the nodes' K/V rows for ``tree_commit``."""
+        self._check_causal()
+        B, N, _ = x.shape
+        dev = x.device
+        q, k, v = self._project(params, x)              # (B, N, H, Dh)
+        H, Dh = k.shape[2], k.shape[3]
+        pos0 = _positions(pos0, B, dev).long()
+        if "pk" in dstate:
+            tables = block_tables.to(device=dev).long()
+            kc = gather_pages(dstate["pk"], tables)
+            vc = gather_pages(dstate["pv"], tables)
+        else:
+            kc, vc = dstate["k"], dstate["v"]
+        C = kc.shape[1]
+        depth = torch.as_tensor(tree.depth, device=dev).long()       # (N,)
+        aad = torch.as_tensor(tree.anc_at_depth, device=dev).long()  # (N, D+1)
+        coff = torch.arange(C, device=dev)[None, :] - pos0[:, None]  # (B, C)
+        on_path = ((coff[:, None, :] >= 0)
+                   & (coff[:, None, :] <= depth[None, :, None]))[..., None,
+                                                                  None]
+        didx = coff.clamp(0, aad.shape[1] - 1)[:, None, :, None, None] \
+            .expand(B, N, C, H, Dh)
+
+        def effective(cache, win):
+            path = win.to(cache.dtype)[:, aad]           # (B, N, D+1, H, Dh)
+            g = torch.gather(path, 2, didx)              # (B, N, C, H, Dh)
+            return torch.where(on_path, g, cache[:, None]).reshape(
+                B * N, C, H, Dh)
+
+        effk, effv = effective(kc, k), effective(vc, v)
+        posn = (pos0[:, None] + depth[None, :]).reshape(B * N).to(torch.int32)
+        qn = q.reshape(B * N, 1, H, Dh)
+        if not self.flash_supported():
+            o = self._finish_step(params, qn, effk, effv, posn)
+        else:
+            o = ops.flash_decode_step(qn[:, 0].float().contiguous(), effk,
+                                      effv, posn)
+            o = self._project_out(params, o, B * N, 1, q.dtype)
+        return o.reshape(B, N, self.n_out), dstate, None, {"k": k, "v": v}
+
+    def tree_commit(self, params, dstate, kv_window, path, pos0, commit_n,
+                    block_tables=None):
+        """Write the accepted root-path's K/V (``kv_window`` rows at the
+        (B, D+1) ``path`` nodes) at positions ``pos0 + d`` for ``d <
+        commit_n``, in place. Paged: the other depths write into the
+        scratch block. Dense: they rewrite the value they hold."""
+        B, Dp1 = path.shape
+        dev = kv_window["k"].device
+        rows = torch.arange(B, device=dev)[:, None]
+        path = torch.as_tensor(path, device=dev).long()
+        pos0 = _positions(pos0, B, dev).long()
+        commit_n = _positions(commit_n, B, dev).long()
+        d = torch.arange(Dp1, device=dev)
+        poss = pos0[:, None] + d[None, :]               # (B, D+1)
+        valid = d[None, :] < commit_n[:, None]
+        kg, vg = kv_window["k"][rows, path], kv_window["v"][rows, path]
+        if "pk" in dstate:
+            pk, pv = dstate["pk"], dstate["pv"]
+            bs = pk.shape[1]
+            tables = block_tables.to(device=dev).long()
+            bidx = (poss // bs).clamp(0, tables.shape[1] - 1)
+            phys = torch.where(valid, tables.gather(1, bidx), 0)
+            pk[phys, poss % bs] = kg.to(pk.dtype)
+            pv[phys, poss % bs] = vg.to(pv.dtype)
+            return dstate
+        kc, vc = dstate["k"], dstate["v"]
+        cpos = poss.clamp(0, kc.shape[1] - 1)
+        keep = valid[..., None, None]
+        kc[rows, cpos] = torch.where(keep, kg.to(kc.dtype), kc[rows, cpos])
+        vc[rows, cpos] = torch.where(keep, vg.to(vc.dtype), vc[rows, cpos])
+        return dstate
+
 
 @register_layer
 @dataclass
@@ -279,3 +415,24 @@ class PositionalEmbedding(Layer):
     def decode_step(self, params, dstate, x, pos=None):
         pos = _positions(pos, x.shape[0], x.device)
         return x + params["P"][pos.long()][:, None, :], dstate
+
+    def _at(self, params, x, poss):
+        """``x`` plus the embedding at positions ``poss`` (B, T), clipped
+        to the table (padding rows may run past it)."""
+        return x + params["P"][poss.clamp(0, self.max_len - 1)]
+
+    def prefill_chunk(self, params, dstate, x, start, n, block_tables=None,
+                      carry_stack=False):
+        """Chunk row t sits at position ``start + t``, not t."""
+        B, K = x.shape[:2]
+        start = _positions(start, B, x.device).long()
+        y = self._at(params, x, start[:, None]
+                     + torch.arange(K, device=x.device)[None, :])
+        return (y, dstate, None) if carry_stack else (y, dstate)
+
+    def tree_chunk(self, params, dstate, x, pos0, tree, n, block_tables=None):
+        """Tree node i sits at position ``pos0 + depth(i)``."""
+        pos0 = _positions(pos0, x.shape[0], x.device).long()
+        depth = torch.as_tensor(tree.depth, device=x.device).long()
+        return (self._at(params, x, pos0[:, None] + depth[None, :]), dstate,
+                None, None)

@@ -28,6 +28,10 @@ Protocol:
 - ``reg_loss(params)`` / ``apply_constraints(params)`` -- training.
 - ``init_decode_state`` / ``decode_step`` -- one token at a time, and
   their paged forms (``init_paged_decode_state`` / ``decode_step_paged``).
+- ``prefill_chunk`` -- a chunk of prompt positions in one call;
+  ``tree_chunk`` / ``tree_commit`` -- score a speculation token tree, then
+  write the accepted path's positional state (``positional_state_keys``
+  names a layer's position-indexed decode-state keys).
 """
 
 from __future__ import annotations
@@ -49,6 +53,26 @@ LAYER_REGISTRY: Dict[str, type] = {}
 def register_layer(cls):
     LAYER_REGISTRY[cls.__name__] = cls
     return cls
+
+
+def map_tree(fn, tree, *rest):
+    """``fn`` over the tensor leaves of a tree of dicts, lists and tuples
+    (None passes through), with the matching leaves of ``rest`` as extra
+    arguments."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v, *[r[k] for r in rest])
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tree(fn, v, *[r[i] for r in rest])
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def where_rows(keep, new, old):
+    """``new`` where the (B,) mask ``keep`` holds, else ``old``."""
+    return torch.where(keep.reshape((-1,) + (1,) * (new.ndim - 1)), new, old)
 
 
 # fields every layer may inherit from the global configuration
@@ -194,6 +218,79 @@ class Layer:
 
     def decode_step_paged(self, params, dstate, x, pos, block_tables):
         return self.decode_step(params, dstate, x, pos)
+
+    # decode-state dict keys indexed by token position (attention's KV
+    # caches): speculative rewind leaves them in place and restores only
+    # the other leaves, the recurrent carries, from snapshots
+    positional_state_keys = ()
+
+    def _decode_one(self, params, dstate, x, pos, block_tables):
+        if block_tables is None:
+            return self.decode_step(params, dstate, x, pos)
+        return self.decode_step_paged(params, dstate, x, pos, block_tables)
+
+    def prefill_chunk(self, params, dstate, x, start, n, block_tables=None,
+                      carry_stack=False):
+        """Advance prompt positions ``start .. start+K-1`` in one call:
+        ``x`` (B, K, F), ``start`` and ``n`` (B,) (rows t >= n[b] are
+        padding: their state is not advanced and their outputs are
+        garbage). Returns ``(y, new_dstate)``, y (B, K, F_out); with
+        ``carry_stack`` also the carry after every position stacked along
+        a leading (K, ...) axis (None for a layer without a carry).
+
+        A stateless layer applies the whole chunk; a stateful one steps
+        ``decode_step`` through it, each row frozen past its count: the
+        trajectory of a token-at-a-time prefill."""
+        if dstate is None:
+            y = self.apply(params, x)
+            return (y, dstate, None) if carry_stack else (y, dstate)
+        K = x.shape[1]
+        ys, snaps, d = [], [], dstate
+        for t in range(K):
+            y, nd = self._decode_one(params, d, x[:, t:t + 1], start + t,
+                                     block_tables)
+            live = t < n
+            d = map_tree(lambda a, b: where_rows(live, a, b), nd, d)
+            ys.append(y[:, 0])
+            snaps.append(d)
+        y = torch.stack(ys, dim=1)
+        if not carry_stack:
+            return y, d
+        return y, d, map_tree(lambda *s: torch.stack(s), *snaps)
+
+    def tree_chunk(self, params, dstate, x, pos0, tree, n,
+                   block_tables=None):
+        """Score the N nodes of a speculation token tree
+        (``serving.spec.tree.TreeSpec``) in one call: ``x`` (B, N, F) in
+        tree order, node i at position ``pos0 + tree.depth[i]`` seeing its
+        own root-path only; ``n`` (B,) the emit budget. Returns ``(y,
+        dstate, carry_stack, kv_window)``: outputs (B, N, F_out), the
+        state unchanged, the carry after each node stacked along a leading
+        (N, ...) axis (None without a carry) and the nodes' fresh K/V rows
+        (attention only, else None).
+
+        A stateless layer applies the nodes; a stateful one steps
+        ``decode_step`` over them, each node from its parent's carry."""
+        if dstate is None:
+            return self.apply(params, x), dstate, None, None
+        snaps, ys = [], []
+        for i in range(x.shape[1]):
+            par = int(tree.parent[i])
+            y, nd = self._decode_one(
+                params, dstate if par < 0 else snaps[par], x[:, i:i + 1],
+                pos0 + int(tree.depth[i]), block_tables)
+            snaps.append(nd)
+            ys.append(y[:, 0])
+        return (torch.stack(ys, dim=1), dstate,
+                map_tree(lambda *s: torch.stack(s), *snaps), None)
+
+    def tree_commit(self, params, dstate, kv_window, path, pos0, commit_n,
+                    block_tables=None):
+        """Write the accepted root-path's positional state: ``path`` (B,
+        D+1) the accepted node at each depth, ``commit_n`` (B,) the depths
+        to write (0 = an inert row). A no-op here: carries roll back
+        through the snapshot stack instead (serving/spec/rewind.py)."""
+        return dstate
 
     # ---- serde -----------------------------------------------------------
     def to_dict(self) -> Dict[str, Any]:

@@ -1,88 +1,97 @@
 """Incremental decoding with slot-based continuous batching.
 
 Counterpart of deeplearning4j_tpu/serving/decode.py, over a
-MultiLayerNetwork or a ComputationGraph, with dense or paged KV caches
-(the prefix cache, chunked prefill, speculation, AOT and hot swap are not
-ported yet; asking for the first three raises ``NotImplementedError``).
-Decode state -- each recurrent layer's (h, c) carry, each attention
-layer's KV cache -- stays on the device in ONE batched state of S slots;
-every step advances all active streams by one token at their positions,
-new requests claim free slots between steps, and finished streams free
-theirs.
+MultiLayerNetwork or a ComputationGraph, with dense or paged KV caches, the
+prefix cache with copy-on-write, chunked prefill and speculative decoding
+(the host KV tier, AOT warm-up, hot swap, ``eos_id`` and the request
+journal are not ported yet). Decode state -- each recurrent layer's (h, c)
+carry, each attention layer's KV cache -- stays on the device in ONE
+batched state of S slots; every step advances all active streams by one
+token at their positions, new requests claim free slots between steps,
+and finished streams free theirs.
 
-- Per-slot carries are wiped inside the step when a slot is re-claimed
-  (reset mask), so a slot never sees a previous request's carries, and
-  inactive slots' carries are frozen by an active mask. KV caches are
-  positional and written in place by the attention layers: no slot mask
-  touches them (nn/layers/attention.py says why that is safe).
+- Per-slot carries are wiped when a slot is re-claimed (reset mask), so a
+  slot never sees a previous request's carries, and inactive slots'
+  carries are frozen by an active mask. KV caches are positional and
+  written in place by the attention layers: no slot mask touches them. A
+  dense row that is not fed this call writes at the position its stream
+  feeds next (0 for an empty slot), which is rewritten before any read;
+  a paged one has an all-zero page-table row and writes into the scratch
+  block.
 - ``kv="dense"``: each slot owns ``max_len`` cache rows. ``kv="paged"``:
   the attention layers keep one block pool (serving/kv/pool.py) and the
   engine keeps an (S, max_len / kv_block_size) int32 page table; a request
   claims the blocks its prompt and completion need on admission (the
   queue head waits while the pool is short) and frees them when it
-  finishes.
+  finishes. ``prefix_cache`` (the default, as in the JAX package) shares
+  finished prompts' full blocks with later requests (kv/prefix.py), a
+  partial block by copy-on-write; ``chunk_tokens`` feeds prompts that many
+  positions a tick in one ``prefill_chunk`` call beside the decoding
+  slots.
+- ``spec``: a ``serving.spec.SpecConfig``; each tick makes at most one
+  draft call, one plain step for rows still consuming their prompt and
+  one verify (serving/spec/).
 - Sampling is a pure function of (distribution, request seed, position):
-  see ``oracle_token``. Any arrival schedule gives the same text for the
-  same seed.
+  ``serving.spec.accept.oracle_token``, the one rule of the plain step,
+  the draft, the verify and ``generate_naive``. Any arrival schedule gives
+  the same text for the same seed.
 """
 
 from __future__ import annotations
 
+import itertools
 import threading
 import time
-from collections import deque
+from collections import Counter, deque
 from concurrent.futures import Future
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.monitor.metrics import get_registry
 from deeplearning4j_tpu_torch.nn.layers.attention import MultiHeadAttention
+from deeplearning4j_tpu_torch.nn.layers.base import where_rows
 from deeplearning4j_tpu_torch.resilience.errors import (
     BatcherStoppedError, ServerOverloadedError)
 from deeplearning4j_tpu_torch.serving.engine import input_type_of
 from deeplearning4j_tpu_torch.serving.kv import (BlockPool,
                                                  PoolExhaustedError,
+                                                 PrefixCache,
                                                  blocks_for_span,
+                                                 map_pool_leaves,
                                                  map_slot_leaves)
+from deeplearning4j_tpu_torch.serving.spec.accept import oracle_token
 
 # decode-state keys the per-slot wipe and freeze skip (KV caches)
 POSITIONAL_KEYS = MultiHeadAttention.positional_state_keys
 
-
-def _stream_seed(seed: int, pos: int) -> int:
-    """A 32-bit generator seed from (seed, pos): the CPU generator keeps
-    only the low 32 bits of its seed, so the pair is mixed (splitmix64)
-    before it is folded."""
-    x = (((int(seed) & 0xFFFFFFFF) << 32) | (int(pos) & 0xFFFFFFFF))
-    x = (x + 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
-    x ^= x >> 31
-    return (x ^ (x >> 32)) & 0xFFFFFFFF
-
-
-def oracle_token(logits: np.ndarray, seed: int, pos: int, temp: float,
-                 top_k: int) -> int:
-    """The engine's sampling rule for ONE distribution row
-    (deeplearning4j_tpu/serving/spec/accept.py ``oracle_token``).
-
-    ``logits``: (V,) log-probabilities. Top-k filter, then the argmax when
-    ``temp == 0``; otherwise a Gumbel-max draw from ``logits / temp`` with
-    noise from a ``torch.Generator`` seeded by (seed, pos). The JAX package
-    draws from ``jax.random``, whose bits this package cannot reproduce:
-    greedy tokens agree between the packages, sampled ones only in
-    distribution."""
-    V = logits.shape[-1]
-    k = V if top_k <= 0 else min(max(int(top_k), 1), V)
-    thr = np.sort(logits)[::-1][k - 1]
-    filt = np.where(logits >= thr, logits, -np.inf)
-    if temp <= 0:
-        return int(np.argmax(filt))
-    gen = torch.Generator().manual_seed(_stream_seed(seed, pos))
-    u = torch.rand(V, generator=gen, dtype=torch.float64).numpy()
-    gumbel = -np.log(-np.log(np.clip(u, 1e-300, 1.0 - 1e-16)))
-    return int(np.argmax(filt / float(temp) + gumbel))
+# engine counters: stats() key -> (registry name, help)
+_KV_COUNTERS = {
+    "prefix_hits": ("dl4jtpu_kv_prefix_hits_total",
+                    "Requests that reused at least one cached prefix block."),
+    "prefix_tokens_saved": ("dl4jtpu_kv_prefix_tokens_saved_total",
+                            "Prefill positions skipped by prefix-cache "
+                            "reuse."),
+    "cow_copies": ("dl4jtpu_kv_cow_copies_total",
+                   "Copy-on-write block copies (partial prefix match "
+                   "claimed then diverged into a private block)."),
+    "prefill_chunks": ("dl4jtpu_kv_prefill_chunks_total",
+                       "Chunked-prefill slot-chunks executed."),
+    "prefill_tokens": ("dl4jtpu_kv_prefill_tokens_total",
+                       "Prompt tokens prefilled through the chunked-prefill "
+                       "call."),
+    "exhausted_events": ("dl4jtpu_kv_pool_exhausted_total",
+                         "Admissions stalled because the KV block pool "
+                         "could not cover the request at the queue head."),
+}
+_SPEC_COUNTERS = {
+    "drafted_tokens": ("dl4jtpu_spec_drafted_tokens_total",
+                       "Tokens proposed by the speculative draft model."),
+    "accepted_tokens": ("dl4jtpu_spec_accepted_tokens_total",
+                        "Drafted tokens accepted by target verification "
+                        "(exact-match against the sampling oracle)."),
+}
 
 
 class _Request:
@@ -90,7 +99,8 @@ class _Request:
 
     __slots__ = ("prompt", "max_new", "seed", "temperature", "top_k",
                  "cursor", "generated", "future", "fresh", "kv_blocks",
-                 "t_start", "t_first", "t_last")
+                 "draft_cursor", "draft_sel", "draft_fresh", "t_start",
+                 "t_first", "t_last")
 
     def __init__(self, prompt, max_new, seed, temperature, top_k, future):
         self.prompt = list(prompt)
@@ -101,11 +111,20 @@ class _Request:
         self.cursor = 0          # next input position to feed
         self.generated: List[int] = []
         self.future = future
-        self.fresh = True        # first step must wipe the slot's state
+        self.fresh = True        # first call must wipe the slot's state
         self.kv_blocks: List[int] = []   # paged engines: claimed blocks
+        # speculative engines: the draft's own progress through the stream
+        self.draft_cursor = 0    # next position the draft feeds
+        self.draft_sel = 0       # snapshot to resume the draft's carries at
+        self.draft_fresh = True  # first draft call must wipe its state
         self.t_start = time.perf_counter()
         self.t_first = None
         self.t_last = None
+
+    def token_at(self, p: int) -> int:
+        """The stream's token at position ``p`` (prompt, then generated)."""
+        n = len(self.prompt)
+        return self.prompt[p] if p < n else self.generated[p - n]
 
 
 class DecodeEngine:
@@ -119,90 +138,220 @@ class DecodeEngine:
 
     ``max_len``: positions per stream (prompt + generated). ``kv``:
     ``"dense"`` or ``"paged"``; a paged engine takes ``kv_block_size``
-    (positions per block, dividing ``max_len``) and ``kv_blocks`` (pool
-    size; the default, ``slots * max_len / kv_block_size + 1``, holds every
-    slot at full length beside the scratch block).
+    (positions per block, dividing ``max_len``), ``kv_blocks`` (pool size;
+    the default, ``slots * max_len / kv_block_size + 1``, holds every slot
+    at full length beside the scratch block), ``prefix_cache`` (needs a
+    model whose only per-slot decode state is the paged KV cache: pass
+    False for a recurrent model) and ``chunk_tokens``. ``spec``: a
+    ``SpecConfig``. ``host_kv_bytes`` is validated as in the JAX package
+    and then refused: the host tier is not ported (ROADMAP queue 1 item
+    5).
     """
+
+    _ids = itertools.count()
 
     def __init__(self, model, slots: int = 8, max_len: int = 256,
                  max_queue: int = 256, kv: str = "dense",
                  kv_block_size: int = 16, kv_blocks: Optional[int] = None,
-                 prefix_cache: bool = False,
-                 chunk_tokens: Optional[int] = None, spec=None):
-        for name, asked in (("prefix_cache", prefix_cache),
-                            ("chunk_tokens", chunk_tokens is not None),
-                            ("spec", spec is not None)):
-            if asked:
-                raise NotImplementedError(
-                    f"DecodeEngine({name}=...) is not ported to the PyTorch "
-                    "package yet")
-        if kv not in ("dense", "paged"):
-            raise ValueError(f"kv must be 'dense' or 'paged', got {kv!r}")
+                 prefix_cache: bool = True,
+                 chunk_tokens: Optional[int] = None,
+                 host_kv_bytes: Optional[int] = None, spec=None):
         self.model = model
         self.slots = int(slots)
         self.max_len = int(max_len)
         self.max_queue = int(max_queue)
-        self.vocab = input_type_of(model).size
-        self.kv_block_size = int(kv_block_size)
-        self._pool: Optional[BlockPool] = None
-        self._tables: Optional[np.ndarray] = None
-        if kv == "paged":
-            if self.max_len % self.kv_block_size != 0:
+        if kv not in ("dense", "paged"):
+            raise ValueError(f"kv must be 'dense' or 'paged', got {kv!r}")
+        if kv == "dense" and chunk_tokens is not None:
+            raise ValueError("chunk_tokens requires kv='paged'")
+        if kv == "paged" and self.max_len % int(kv_block_size) != 0:
+            raise ValueError(
+                f"max_len ({max_len}) must be a multiple of kv_block_size "
+                f"({kv_block_size})")
+        if chunk_tokens is not None and int(chunk_tokens) < 1:
+            raise ValueError("chunk_tokens must be >= 1")
+        if host_kv_bytes is not None:
+            if kv != "paged" or not prefix_cache:
                 raise ValueError(
-                    f"max_len ({max_len}) must be a multiple of "
-                    f"kv_block_size ({kv_block_size})")
+                    "host_kv_bytes requires kv='paged' with "
+                    "prefix_cache=True (the tier holds evicted prefix-cache "
+                    "blocks)")
+            raise NotImplementedError(
+                "DecodeEngine(host_kv_bytes=...): the host KV tier is not "
+                "ported to the PyTorch package yet (ROADMAP queue 1 item 5)")
+        self.kv = kv
+        self.kv_block_size = int(kv_block_size)
+        self.chunk_tokens = (int(chunk_tokens) if chunk_tokens is not None
+                             else None)
+        self.vocab = input_type_of(model).size
+        self.id = f"decode{next(DecodeEngine._ids)}"
+        self._spec = spec
+        self._draft = self._verifier = None
+        if spec is not None:
+            self._build_spec(spec)
+        self._pool: Optional[BlockPool] = None
+        self._prefix: Optional[PrefixCache] = None
+        self._tables: Optional[np.ndarray] = None
+        self._pending_cows: List[tuple] = []
+        if kv == "paged":
             max_blocks = self.max_len // self.kv_block_size
             if kv_blocks is None:
                 kv_blocks = self.slots * max_blocks + 1
             self._pool = BlockPool(int(kv_blocks), self.kv_block_size)
             self._tables = np.zeros((self.slots, max_blocks), np.int32)
+            if prefix_cache:
+                self._check_no_carries()
+                self._prefix = PrefixCache(self._pool)
         self._dstate = None
         self._slot_reqs: List[Optional[_Request]] = [None] * self.slots
         self._queue: deque = deque()
         self._cv = threading.Condition()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        self._kv_blocked = False
         self._steps = 0
         self._tokens = 0
         self._requests = 0
         self._decode_seconds = 0.0
+        # the counters stats() reads, also published under the JAX
+        # package's names
+        self._n = Counter()
+        reg = get_registry()
+        lab = {"engine": self.id}
+        counters = ({} if self._pool is None else dict(_KV_COUNTERS))
+        if spec is not None:
+            counters.update(_SPEC_COUNTERS)
+        self._m = {key: reg.counter(name, help_, ("engine",)).labels(**lab)
+                   for key, (name, help_) in counters.items()}
+        if spec is not None:
+            self._m_spec_rate = reg.gauge(
+                "dl4jtpu_spec_acceptance_rate",
+                "Lifetime accepted/drafted ratio.", ("engine",)).labels(**lab)
+            self._m_spec_depth = reg.histogram(
+                "dl4jtpu_spec_accepted_depth",
+                "Accepted tree depth per verify (0 = root correction only).",
+                ("engine",), buckets=tuple(
+                    float(d) for d in range(self._spec_tree.d + 1))
+            ).labels(**lab)
 
-    # ------------------------------------------------------------- the step
+    def _build_spec(self, spec):
+        """Validate ``spec`` as the JAX engine does and build the draft
+        and the verifier."""
+        from deeplearning4j_tpu_torch.serving.spec import (DraftEngine,
+                                                           SpecVerifier,
+                                                           TreeSpec)
+        from deeplearning4j_tpu_torch.serving.spec.selfdraft import \
+            build_self_draft
+        if int(spec.k) < 1:
+            raise ValueError(f"spec.k must be >= 1, got {spec.k}")
+        self._spec_tree = TreeSpec(spec.kvec())
+        # draft positions a call: the spine's depth + 1 (the extra one
+        # keeps a resume snapshot at full acceptance)
+        self._spec_k = self._spec_tree.d + 1
+        dm = spec.draft_model
+        if (dm is None) == (spec.self_draft is None):
+            raise ValueError(
+                "spec needs exactly one of draft_model or self_draft "
+                f"(got draft_model={dm!r}, "
+                f"self_draft={spec.self_draft!r})")
+        if spec.self_draft is not None:
+            dm = build_self_draft(self.model, spec)
+        elif input_type_of(dm).size != self.vocab:
+            raise ValueError(
+                f"draft model vocabulary ({input_type_of(dm).size}) must "
+                f"match the target's ({self.vocab})")
+        self._verifier = SpecVerifier(self.model, self.slots,
+                                      self._spec_tree, self.vocab)
+        self._draft = DraftEngine(dm, self.slots, self.max_len, self._spec_k,
+                                  self.vocab,
+                                  precision=spec.draft_precision,
+                                  side_k=max(self._spec_tree.kvec) - 1)
+
+    def _check_no_carries(self):
+        """The prefix cache shares KV blocks between requests; a recurrent
+        carry depends on every earlier token and cannot be shared."""
+        probe = self.model.init_decode_state(
+            1, self.max_len, kv={"num_blocks": 2,
+                                 "block_size": self.kv_block_size})
+        carries = []
+        map_slot_leaves(carries.append, probe)
+        if carries:
+            raise ValueError(
+                "prefix_cache=True requires a model whose only per-slot "
+                "decode state is the paged KV cache; this model carries "
+                f"recurrent state ({len(carries)} non-pool leaves). Pass "
+                "prefix_cache=False.")
+
+    def _inc(self, key, n=1):
+        self._n[key] += n
+        self._m[key].inc(n)
+
+    # ------------------------------------------------------------ the calls
+    def _btab(self, active):
+        """The page tables with all-zero rows where ``active`` is False,
+        whose writes land in the scratch block."""
+        btab = np.where(np.asarray(active)[:, None], self._tables, 0)
+        return torch.as_tensor(btab.astype(np.int32), device=self.model.device)
+
     @torch.no_grad()
-    def _step(self, tokens, pos, reset, active, seeds, temps, topk):
-        """ONE iteration for all S slots; scheduling rides in as masks."""
+    def _step(self, tokens, pos, reset, active, seeds, temps, topk,
+              sample=True):
+        """ONE plain step for all S slots; scheduling rides in as masks.
+        Returns the oracle token of every active row (``sample``)."""
         dev = self.model.device
         reset_t = torch.as_tensor(reset, device=dev)
         active_t = torch.as_tensor(active, device=dev)
-
-        def where(mask, a, b):
-            return torch.where(mask.reshape((-1,) + (1,) * (a.ndim - 1)),
-                               a, b)
-
         dstate = map_slot_leaves(
-            lambda a: where(reset_t, torch.zeros_like(a), a), self._dstate,
-            keys=POSITIONAL_KEYS)
+            lambda a: where_rows(reset_t, torch.zeros_like(a), a),
+            self._dstate, keys=POSITIONAL_KEYS)
         x = torch.nn.functional.one_hot(
             torch.as_tensor(tokens, dtype=torch.long, device=dev),
             self.vocab).to(torch.float32)[:, None, :]
         pos_t = torch.as_tensor(pos, dtype=torch.int32, device=dev)
-        if self._pool is None:
-            y, new_d = self.model.decode_step(self.model.params, dstate, x,
-                                              pos_t)
-        else:
-            # inactive slots get an all-zero table row: their write lands in
-            # the scratch block
-            btab = np.where(active[:, None], self._tables, 0)
-            y, new_d = self.model.decode_step(
-                self.model.params, dstate, x, pos_t,
-                block_tables=torch.as_tensor(btab, device=dev))
+        kw = {} if self._pool is None else {"block_tables": self._btab(active)}
+        y, new_d = self.model.decode_step(self.model.params, dstate, x, pos_t,
+                                          **kw)
         self._dstate = map_slot_leaves(
-            lambda n, o: where(active_t, n, o), new_d, dstate,
+            lambda n, o: where_rows(active_t, n, o), new_d, dstate,
             keys=POSITIONAL_KEYS)
+        if not sample:
+            return None
         logits = torch.log(y[:, 0, :].float()).cpu().numpy()
         return np.array([oracle_token(logits[i], seeds[i], pos[i], temps[i],
                                       topk[i]) if active[i] else 0
                          for i in range(self.slots)], np.int64)
+
+    @torch.no_grad()
+    def _prefill(self, tokens, start, n, reset):
+        """Chunked prefill for all S slots in ONE call: slot i feeds
+        ``tokens[i, :n[i]]`` at positions ``start[i] ..``; ``n == 0`` rows
+        are inert (KV writes into the scratch block, carries frozen)."""
+        dev = self.model.device
+        reset_t = torch.as_tensor(reset, device=dev)
+        live_t = torch.as_tensor(n > 0, device=dev)
+        dstate = map_slot_leaves(
+            lambda a: where_rows(reset_t, torch.zeros_like(a), a),
+            self._dstate, keys=POSITIONAL_KEYS)
+        x = torch.nn.functional.one_hot(
+            torch.as_tensor(tokens, dtype=torch.long, device=dev),
+            self.vocab).to(torch.float32)
+        _, new_d = self.model.prefill_chunk(
+            self.model.params, dstate, x,
+            torch.as_tensor(start, dtype=torch.int32, device=dev),
+            torch.as_tensor(n, dtype=torch.int32, device=dev),
+            block_tables=torch.as_tensor(self._tables, device=dev))
+        self._dstate = map_slot_leaves(
+            lambda a, b: where_rows(live_t, a, b), new_d, dstate,
+            keys=POSITIONAL_KEYS)
+
+    @torch.no_grad()
+    def _cow(self, src, dst):
+        """Copy-on-write: pool block ``src`` into ``dst`` across every pool
+        leaf, in place."""
+        def copy(a):
+            a[dst] = a[src]
+            return a
+        map_pool_leaves(copy, self._dstate)
 
     # ------------------------------------------------------------ lifecycle
     def start(self) -> "DecodeEngine":
@@ -212,6 +361,8 @@ class DecodeEngine:
                    "block_size": self.kv_block_size})
             self._dstate = self.model.init_decode_state(self.slots,
                                                         self.max_len, kv=kv)
+        if self._draft is not None:
+            self._draft.ensure_state()
         if self._thread is None or not self._thread.is_alive():
             self._stop.clear()
             self._thread = threading.Thread(target=self._loop, daemon=True)
@@ -227,13 +378,21 @@ class DecodeEngine:
         err = BatcherStoppedError("decode engine stopped")
         with self._cv:
             pending = list(self._queue)
-            for i, r in enumerate(self._slot_reqs):
-                if r is not None:
-                    self._release_kv(i, r)
-                    pending.append(r)
             self._queue.clear()
+            live = [r for r in self._slot_reqs if r is not None]
             self._slot_reqs = [None] * self.slots
-        for r in pending:
+            if self._pool is not None:
+                # aborted streams publish nothing (their KV is incomplete)
+                for r in live:
+                    for b in r.kv_blocks:
+                        self._pool.decref(b)
+                    r.kv_blocks = []
+                for src, _dst in self._pending_cows:
+                    self._pool.decref(src)
+                self._pending_cows = []
+                self._tables[:] = 0
+                self._kv_blocked = False
+        for r in pending + live:
             if not r.future.done():
                 r.future.set_exception(err)
 
@@ -288,6 +447,7 @@ class DecodeEngine:
                            top_k).result(timeout=timeout)
 
     def _admit_locked(self):
+        blocked = False
         for i in range(self.slots):
             if not self._queue:
                 break
@@ -300,24 +460,53 @@ class DecodeEngine:
                 except PoolExhaustedError:
                     # head-of-line blocking: the queue head admits as soon
                     # as a finishing request frees enough blocks
+                    if not self._kv_blocked:
+                        self._inc("exhausted_events")
+                    blocked = True
                     break
             self._slot_reqs[i] = self._queue.popleft()
+        if self._pool is not None:
+            self._kv_blocked = blocked
 
     def _claim_kv(self, r, slot):
         """Claim the pool blocks for positions 0 .. prompt + max_new - 2
         (the last sampled token is returned, never fed back) and write the
-        slot's page-table row. All or nothing."""
-        need = blocks_for_span(len(r.prompt) + r.max_new - 1,
-                               self.kv_block_size)
-        r.kv_blocks = self._pool.alloc(need)
+        slot's page-table row. Prefix hits are claimed read-only and skip
+        their prefill; a partial tail match is copied into the first fresh
+        block (copy-on-write, before the slot's first call). All or
+        nothing."""
+        bs = self.kv_block_size
+        need = blocks_for_span(len(r.prompt) + r.max_new - 1, bs)
+        shared, cow, skip = [], None, 0
+        if self._prefix is not None:
+            shared, cow, skip = self._prefix.match(r.prompt)
+        try:
+            fresh = self._pool.alloc(need - len(shared))
+        except PoolExhaustedError:
+            for b in shared:
+                self._pool.decref(b)
+            if cow is not None:
+                self._pool.decref(cow[0])
+            raise
+        if cow is not None:
+            self._pending_cows.append((cow[0], fresh[0]))
+        if skip:
+            self._inc("prefix_hits")
+            self._inc("prefix_tokens_saved", skip)
+        r.kv_blocks = shared + fresh
+        r.cursor = skip
         row = self._tables[slot]
         row[:] = 0
         row[:need] = r.kv_blocks
 
     def _release_kv(self, slot, r):
-        """Return a request's blocks to the pool and clear its table row."""
+        """Return a finished request's blocks to the pool and clear its
+        table row. The prompt's full blocks are published first, so blocks
+        whose count drops to 0 park on the evictable LRU."""
         if self._pool is None or not r.kv_blocks:
             return
+        if self._prefix is not None:
+            self._prefix.insert(r.prompt, r.kv_blocks)
         for b in r.kv_blocks:
             self._pool.decref(b)
         r.kv_blocks = []
@@ -328,8 +517,36 @@ class DecodeEngine:
             self._release_kv(slot, r)
             self._slot_reqs[slot] = None
 
+    def _finish(self, slot, r):
+        self._free_slot(slot, r)
+        self._requests += 1
+        r.future.set_result({"tokens": r.generated,
+                             "prompt_len": len(r.prompt)})
+
+    def _fail(self, live, err):
+        """Fail the live requests of a tick whose call raised; their
+        blocks return to the pool unpublished."""
+        with self._cv:
+            for i, r in live:
+                if self._pool is not None:
+                    for b in r.kv_blocks:
+                        self._pool.decref(b)
+                    r.kv_blocks = []
+                    self._tables[i][:] = 0
+                self._slot_reqs[i] = None
+        for _, r in live:
+            r.future.set_exception(err)
+
+    def _emit(self, r, tok, now) -> bool:
+        """Append one generated token; True when the stream is done."""
+        r.generated.append(tok)
+        self._tokens += 1
+        if r.t_first is None:
+            r.t_first = now
+        r.t_last = now
+        return len(r.generated) >= r.max_new
+
     def _loop(self):
-        S = self.slots
         while not self._stop.is_set():
             with self._cv:
                 self._admit_locked()
@@ -338,52 +555,215 @@ class DecodeEngine:
                 if not live:
                     self._cv.wait(timeout=0.05)
                     continue
-            tokens = np.zeros(S, np.int64)
-            pos = np.zeros(S, np.int64)
-            reset = np.zeros(S, bool)
-            active = np.zeros(S, bool)
-            seeds = np.zeros(S, np.int64)
-            temps = np.zeros(S, np.float32)
-            topk = np.zeros(S, np.int64)
-            for i, r in live:
-                active[i] = True
-                reset[i] = r.fresh
-                r.fresh = False
-                p = r.cursor
-                tokens[i] = (r.prompt[p] if p < len(r.prompt)
-                             else r.generated[-1])
-                pos[i] = p
-                seeds[i] = r.seed & 0xFFFFFFFF
-                temps[i] = r.temperature
-                topk[i] = r.top_k
-            t0 = time.perf_counter()
             try:
-                nt = self._step(tokens, pos, reset, active, seeds, temps,
-                                topk)
+                self._tick(live)
             except Exception as e:  # noqa: BLE001 -- fail the live requests
-                for i, r in live:
-                    self._free_slot(i, r)
-                for _, r in live:
-                    r.future.set_exception(e)
-                continue
-            now = time.perf_counter()
-            self._decode_seconds += now - t0
+                self._fail(live, e)
+
+    def _tick(self, live):
+        S = self.slots
+        if self._pending_cows:
+            # before the claimer's first call reads or overwrites the copy
+            cows, self._pending_cows = self._pending_cows, []
+            for src, dst in cows:
+                self._cow(src, dst)
+                self._pool.decref(src)
+                self._inc("cow_copies")
+        if self.chunk_tokens is not None:
+            pre = [(i, r) for i, r in live if r.cursor < len(r.prompt) - 1]
+            if pre:
+                K = self.chunk_tokens
+                ptok = np.zeros((S, K), np.int64)
+                pstart = np.zeros(S, np.int64)
+                pn = np.zeros(S, np.int64)
+                preset = np.zeros(S, bool)
+                for i, r in pre:
+                    k = min(K, len(r.prompt) - 1 - r.cursor)
+                    ptok[i, :k] = r.prompt[r.cursor:r.cursor + k]
+                    pstart[i] = r.cursor
+                    pn[i] = k
+                    preset[i] = r.fresh
+                    r.fresh = False
+                    r.cursor += k
+                self._prefill(ptok, pstart, pn, preset)
+                self._inc("prefill_chunks", len(pre))
+                self._inc("prefill_tokens", int(pn.sum()))
+            # slots whose prompt is consumed up to its last token step now
+            live = [(i, r) for i, r in live if r.cursor >= len(r.prompt) - 1]
+            if not live:
+                return
+        if self._spec is not None:
+            self._tick_spec(live)
+            return
+        args = self._step_args(live)
+        t0 = time.perf_counter()
+        nt = self._step(*args)
+        now = time.perf_counter()
+        self._decode_seconds += now - t0
+        self._steps += 1
+        for i, r in live:
+            r.cursor += 1
+            if r.cursor < len(r.prompt):
+                continue                     # still prefilling
+            if self._emit(r, int(nt[i]), now):
+                self._finish(i, r)
+
+    def _step_args(self, rows):
+        """The plain step's (S,) arrays with ``rows`` active. Every other
+        occupied slot is fed nothing and writes at its cursor, the position
+        it feeds next."""
+        S = self.slots
+        tokens = np.zeros(S, np.int64)
+        pos = np.zeros(S, np.int64)
+        reset = np.zeros(S, bool)
+        active = np.zeros(S, bool)
+        seeds = np.zeros(S, np.int64)
+        temps = np.zeros(S, np.float32)
+        topk = np.zeros(S, np.int64)
+        for i, r in enumerate(self._slot_reqs):
+            if r is not None:
+                pos[i] = min(r.cursor, self.max_len - 1)
+        for i, r in rows:
+            active[i] = True
+            reset[i] = r.fresh
+            r.fresh = False
+            tokens[i] = r.token_at(r.cursor)
+            seeds[i] = r.seed & 0xFFFFFFFF
+            temps[i] = r.temperature
+            topk[i] = r.top_k
+        return tokens, pos, reset, active, seeds, temps, topk
+
+    # ------------------------------------------------------- speculative tick
+    def _tick_spec(self, live):
+        """One speculative iteration: at most one draft call (prompt
+        catch-up rows and ready rows share it), one plain step for rows
+        still consuming their prompt (its token ignored), and one verify
+        of every ready row's tree. A row is ready once the draft has caught
+        up with the target's cursor; catch-up feeds the known stream
+        (prompt and generated), which also resyncs the draft after a
+        side-branch acceptance left it behind."""
+        S, K, tr = self.slots, self._spec_k, self._spec_tree
+        catchup, ready, tpre = [], [], []
+        for i, r in live:
+            plen = len(r.prompt)
+            known = plen + len(r.generated)
+            if r.cursor < plen - 1:
+                tpre.append((i, r))
+            if r.draft_cursor < known - 1:
+                catchup.append((i, r, known))
+            elif r.cursor >= plen - 1 and r.draft_cursor == r.cursor:
+                # the window may not outrun the request or the KV capacity
+                n_in = min(K, r.max_new - len(r.generated),
+                           self.max_len - r.cursor)
+                if n_in > 0:
+                    ready.append((i, r, n_in))
+        given = np.zeros((S, K), np.int64)
+        if catchup or ready:
+            n_given = np.zeros(S, np.int64)
+            n_steps = np.zeros(S, np.int64)
+            dpos = np.zeros(S, np.int64)
+            sel = np.zeros(S, np.int64)
+            dreset = np.zeros(S, bool)
+            dseeds = np.zeros(S, np.int64)
+            dtemps = np.zeros(S, np.float32)
+            dtopk = np.zeros(S, np.int64)
+            for i, r in enumerate(self._slot_reqs):
+                if r is not None:   # rows outside the call park here
+                    dpos[i] = min(r.draft_cursor, self.max_len - 1)
+            for i, r, known in catchup:
+                m = min(K, known - 1 - r.draft_cursor)
+                given[i, :m] = [r.token_at(p) for p in
+                                range(r.draft_cursor, r.draft_cursor + m)]
+                n_given[i] = n_steps[i] = m
+                dpos[i] = r.draft_cursor
+                sel[i] = r.draft_sel
+                dreset[i] = r.draft_fresh
+                r.draft_fresh = False
+                r.draft_cursor += m
+                r.draft_sel = m - 1
+            for i, r, n_in in ready:
+                given[i, 0] = r.token_at(r.cursor)
+                n_given[i] = 1
+                n_steps[i] = n_in
+                dpos[i] = r.cursor
+                sel[i] = r.draft_sel
+                dreset[i] = r.draft_fresh
+                r.draft_fresh = False
+                dseeds[i] = r.seed & 0xFFFFFFFF
+                dtemps[i] = r.temperature
+                dtopk[i] = r.top_k
+            dprops, dsides = self._draft.step(given, n_given, n_steps, dpos,
+                                              sel, dreset, dseeds, dtemps,
+                                              dtopk)
+        if tpre:
+            t0 = time.perf_counter()
+            self._step(*self._step_args(tpre), sample=False)
+            self._decode_seconds += time.perf_counter() - t0
             self._steps += 1
-            for i, r in live:
+            for _, r in tpre:
                 r.cursor += 1
-                if r.cursor < len(r.prompt):
-                    continue                     # still prefilling
-                tok = int(nt[i])
-                r.generated.append(tok)
-                self._tokens += 1
-                if r.t_first is None:
-                    r.t_first = now
-                r.t_last = now
-                if len(r.generated) >= r.max_new:
-                    self._free_slot(i, r)
-                    self._requests += 1
-                    r.future.set_result({"tokens": r.generated,
-                                         "prompt_len": len(r.prompt)})
+        if not ready:
+            return
+        vtok = np.zeros((S, tr.n_nodes), np.int64)
+        vpos = np.zeros(S, np.int64)
+        vn = np.zeros(S, np.int64)
+        vreset = np.zeros(S, bool)
+        vseeds = np.zeros(S, np.int64)
+        vtemps = np.zeros(S, np.float32)
+        vtopk = np.zeros(S, np.int64)
+        for i, r in enumerate(self._slot_reqs):
+            if r is not None:
+                vpos[i] = min(r.cursor, self.max_len - 1)
+        for i, r, n_in in ready:
+            # node 0: the last emitted (or last prompt) token; each depth's
+            # group: the draft's own token, then its alternatives
+            vtok[i, 0] = given[i, 0]
+            for dd in range(1, tr.d + 1):
+                fst, kd = int(tr.first[dd - 1]), tr.kvec[dd - 1]
+                vtok[i, fst] = dprops[i, dd - 1]
+                vtok[i, fst + 1:fst + kd] = dsides[i, dd - 1, :kd - 1]
+            vpos[i] = r.cursor
+            vn[i] = n_in
+            vreset[i] = r.fresh
+            r.fresh = False
+            vseeds[i] = r.seed & 0xFFFFFFFF
+            vtemps[i] = r.temperature
+            vtopk[i] = r.top_k
+        btab = None if self._pool is None else self._btab(vn > 0)
+        t0 = time.perf_counter()
+        etoks, acc, emit, sacc, self._dstate = self._verifier.run(
+            self._dstate, vtok, vpos, vn, vreset, vseeds, vtemps, vtopk,
+            btab=btab)
+        now = time.perf_counter()
+        self._decode_seconds += now - t0
+        self._steps += 1
+        done = []
+        for i, r, n_in in ready:
+            # judged proposals: depths 1..min(d, n_in - 1) and the bonus
+            self._inc("drafted_tokens", min(tr.d, n_in))
+            self._inc("accepted_tokens", int(acc[i]))
+            self._m_spec_depth.observe(float(acc[i]))
+            p0, consumed, finished = r.cursor, 0, False
+            for j in range(int(emit[i])):
+                consumed += 1
+                if self._emit(r, int(etoks[i, j]), now) \
+                        or r.cursor + consumed >= self.max_len:
+                    finished = True
+                    break
+            r.cursor += consumed
+            # the draft's snapshots follow its own spine: resume from the
+            # spine-consistent accepted prefix; a side-branch acceptance
+            # leaves the draft short and catch-up replays the gap
+            js = max(0, min(consumed - 1, int(sacc[i])))
+            r.draft_cursor = p0 + js + 1
+            r.draft_sel = js
+            if finished:
+                done.append((i, r))
+        drafted = self._n["drafted_tokens"]
+        self._m_spec_rate.set(self._n["accepted_tokens"] / drafted
+                              if drafted else 0.0)
+        for i, r in done:
+            self._finish(i, r)
 
     # --------------------------------------------------------------- stats
     def stats(self) -> dict:
@@ -396,8 +776,34 @@ class DecodeEngine:
                   "blocks": self._pool.usable,
                   "blocks_free": self._pool.free_count,
                   "blocks_in_use": self._pool.in_use,
-                  "high_water": self._pool.high_water}
-        return {"slots": self.slots, "max_len": self.max_len, "kv": kv,
+                  "blocks_cached": self._pool.cached_count,
+                  "high_water": self._pool.high_water,
+                  "prefix_cache": self._prefix is not None,
+                  "chunk_tokens": self.chunk_tokens}
+            kv.update({k: int(self._n[k]) for k in _KV_COUNTERS})
+            if self._prefix is not None:
+                kv["chain_heads"] = self._prefix.chain_heads()
+        spec = None
+        if self._spec is not None:
+            drafted = int(self._n["drafted_tokens"])
+            accepted = int(self._n["accepted_tokens"])
+            depth = self._m_spec_depth
+            spec = {"k": self._spec_tree.d,
+                    "tree": list(self._spec_tree.kvec),
+                    "tree_nodes": self._spec_tree.n_nodes,
+                    "self_draft": self._spec.self_draft,
+                    "draft_precision": None,
+                    "drafted_tokens": drafted,
+                    "accepted_tokens": accepted,
+                    "acceptance_rate": (accepted / drafted if drafted
+                                        else 0.0),
+                    "mean_accepted_depth": (depth.sum / depth.count
+                                            if depth.count else 0.0),
+                    "verifies": self._verifier.calls,
+                    "draft_calls": self._draft.calls,
+                    "draft_steps": self._draft.steps}
+        return {"id": self.id, "slots": self.slots, "max_len": self.max_len,
+                "kv": kv, "spec": spec,
                 "occupied_slots": occupied, "queued_requests": queued,
                 "steps": self._steps, "tokens": self._tokens,
                 "requests": self._requests,

@@ -1,5 +1,11 @@
-"""Paged KV cache for the decode engine (see kv/pool.py)."""
+"""Paged KV cache for the decode engine: the block pool (kv/pool.py), the
+prefix cache (kv/prefix.py) and chunked-prefill planning
+(kv/prefill.py)."""
 
 from deeplearning4j_tpu_torch.serving.kv.pool import (  # noqa: F401
-    POOL_KEYS, SCRATCH_BLOCK, BlockPool, PoolExhaustedError, blocks_for_span,
-    is_pool_path, map_slot_leaves)
+    POOL_KEYS, SCRATCH_BLOCK, BlockPool, PoolExhaustedError, is_pool_path,
+    map_pool_leaves, map_slot_leaves)
+from deeplearning4j_tpu_torch.serving.kv.prefill import (  # noqa: F401
+    blocks_for_span, plan_chunks)
+from deeplearning4j_tpu_torch.serving.kv.prefix import (  # noqa: F401
+    PrefixCache, chain_hashes)

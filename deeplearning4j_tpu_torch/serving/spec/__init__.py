@@ -1,0 +1,59 @@
+"""Speculative decoding: a draft proposes a token tree a tick, the target
+verifies every node in one batched call, and the emitted stream stays the
+plain engine's token for token (greedy and seeded sampling), because the
+draft, the verify and the plain step share one sampling rule
+(accept.py).
+
+Counterpart of deeplearning4j_tpu/serving/spec/. Modules:
+
+- ``accept.py`` -- ``oracle_token`` and ``accept_length``;
+- ``tree.py`` -- static tree shapes and the acceptance walk;
+- ``draft.py`` -- the draft scan (spine and side proposals, carry
+  snapshot stacks for rewind);
+- ``verify.py`` -- the batched target ``tree_chunk``, then the accepted
+  path's ``tree_commit`` and the carries' rewind;
+- ``rewind.py`` -- carry and positional decode state;
+- ``selfdraft.py`` -- the target as its own draft (``early_exit:M``).
+
+Wiring: ``DecodeEngine(spec=SpecConfig(...))``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Optional, Tuple
+
+from deeplearning4j_tpu_torch.serving.spec.accept import (accept_length,
+                                                          oracle_token)
+from deeplearning4j_tpu_torch.serving.spec.draft import DraftEngine
+from deeplearning4j_tpu_torch.serving.spec.tree import TreeSpec, parse_kvec
+from deeplearning4j_tpu_torch.serving.spec.verify import SpecVerifier
+
+
+@dataclass
+class SpecConfig:
+    """Speculative decoding settings for ``DecodeEngine(spec=...)``.
+
+    ``draft_model``: a MultiLayerNetwork or ComputationGraph with the
+    decode protocol over the target's vocabulary, or None with
+    ``self_draft`` set. ``k``: spine length of the default linear tree
+    (ignored when ``tree`` is given). ``tree``: branching factors per
+    depth, e.g. ``(3, 2, 2)``. ``self_draft``: ``"early_exit:M"`` (the
+    target's first M layers and its readout); ``"int8"`` / ``"fp8"`` and
+    ``draft_precision`` are not ported yet (ROADMAP queue 1 item 6)."""
+
+    draft_model: Any = None
+    k: int = 4
+    tree: Optional[Tuple[int, ...]] = None
+    self_draft: Optional[str] = None
+    draft_precision: Optional[str] = None
+
+    def kvec(self) -> Tuple[int, ...]:
+        """The tree's shape: ``tree``, or the linear ``(1,) * k``."""
+        if self.tree is not None:
+            return tuple(int(v) for v in self.tree)
+        return (1,) * int(self.k)
+
+
+__all__ = ["SpecConfig", "DraftEngine", "SpecVerifier", "TreeSpec",
+           "parse_kvec", "accept_length", "oracle_token"]

@@ -14,16 +14,22 @@ from deeplearning4j_tpu_torch.zoo.zoo_model import BUNDLED_DIR
 CORPUS_PATH = BUNDLED_DIR / "corpus_textgen.txt"
 
 
+def corpus_ids():
+    """The bundled corpus as token ids (an int64 array) and its vocabulary
+    string (the sorted distinct characters)."""
+    text = CORPUS_PATH.read_text(encoding="utf-8")
+    vocab = "".join(sorted(set(text)))
+    idx = {c: i for i, c in enumerate(vocab)}
+    return np.array([idx[c] for c in text], np.int64), vocab
+
+
 def corpus_windows(T: int = 64, stride=None):
     """The bundled corpus as one-hot next-char windows + the vocab string.
 
     The last 1/8th of the TEXT is the held-out split (no window from it
     overlaps training text); training windows may overlap via ``stride``.
     Returns ``(xtr, ytr), (xte, yte), vocab`` as float32 numpy arrays."""
-    text = CORPUS_PATH.read_text(encoding="utf-8")
-    vocab = "".join(sorted(set(text)))
-    idx = {c: i for i, c in enumerate(vocab)}
-    ids = np.array([idx[c] for c in text], np.int64)
+    ids, vocab = corpus_ids()
     eye = np.eye(len(vocab), dtype=np.float32)
     cut = (len(ids) * 7 // 8)
 

@@ -46,6 +46,7 @@ from deeplearning4j_tpu_torch.serving import (DecodeEngine, InferenceClient,
 from deeplearning4j_tpu_torch.serving.decode import _Request, generate_naive
 from deeplearning4j_tpu_torch.serving.kv import (SCRATCH_BLOCK, BlockPool,
                                                  PoolExhaustedError)
+from deeplearning4j_tpu_torch.serving.spec import SpecConfig
 from deeplearning4j_tpu_torch.util import model_serializer
 from deeplearning4j_tpu_torch.zoo import TinyTransformer
 
@@ -329,9 +330,16 @@ def test_checkpoint_zip_reads_both_ways(nets, tmp_path):
         model_serializer.restore_multi_layer_network(port_zip, device="cpu")
 
 
-@pytest.mark.parametrize("option", [{"prefix_cache": True},
-                                    {"chunk_tokens": 4}, {"spec": object()}])
+@pytest.mark.parametrize("option", ["host_kv_bytes", "self_draft",
+                                    "draft_precision"])
 def test_unported_engine_options_raise(nets, option):
+    """The options still unported raise NotImplementedError naming their
+    ROADMAP item: the host KV tier (item 5), int8/fp8 drafts (item 6)."""
     _, net = nets
-    with pytest.raises(NotImplementedError, match=next(iter(option))):
-        DecodeEngine(net, kv="paged", **option)
+    kw = {"host_kv_bytes": {"host_kv_bytes": 1 << 20},
+          "self_draft": {"spec": SpecConfig(self_draft="int8")},
+          "draft_precision": {"spec": SpecConfig(net, k=2,
+                                                 draft_precision="fp8")}}
+    item = "item 5" if option == "host_kv_bytes" else "item 6"
+    with pytest.raises(NotImplementedError, match=f"{option}.*{item}"):
+        DecodeEngine(net, kv="paged", **kw[option])
