@@ -229,7 +229,35 @@ result line, when any of them or the port's package is missing. Phases:
    the plain engine's the CPU port's under the near-tie rule; no kernel
    launched (the LSTM's decode step is a plain cell step); acceptance and
    tokens/s; ``DecodeEngine(lstm, kv="paged")`` raises the JAX package's
-   ValueError.
+   ValueError. (d) The captured decode engine (``captured_engine_part``):
+   every program of the engine -- the plain step, the prefill chunk, the
+   copy-on-write, the draft, the verify -- a CUDA graph captured in
+   ``warmup()``. The same TinyTransformer, 8 slots, max_len 512, 8 streams
+   of 64 new tokens from held-out prompts of 16..64 tokens, in six parts:
+   the plain dense engine; the plain paged engine with the prefix cache
+   and chunks of 32; the target as its own draft (k=4), dense; the seed-3
+   draft with tree (3, 2, 2), dense, paged, and paged with chunks of 32
+   (speculation with chunked prefill); and the TextGenerationLSTM with
+   ``early_exit:1``, tree (3, 2), dense. Each part runs the eager engine
+   (the ``_capture_programs = False`` seam) and the captured one in turns
+   over 5 rounds in this call: tokens identical between them and across
+   rounds, greedy tokens against ``generate_naive`` under the near-tie
+   rule, the launches of every round exactly the plain steps', verifies'
+   and draft steps' (as (b)), each program one capture whose replay
+   launches its K8 or K9 once an attention layer (and position for the
+   draft) and nothing for a chunk or a copy, no new capture after
+   ``warmup()``, ``trace_count`` 1, no block in use at the end; ms a step
+   (plain: decode seconds a step) or a tick (wall a verify) eager and
+   captured, min / median / max of the 5 rounds; ten captured steps or
+   ticks under ``torch.profiler``; the counters of 3 prompts one at a time
+   (24 new tokens) against the CPU port's where the tokens agree.
+   Then tokens/s of each part against the captured plain engine, time to
+   first token of the 8 prompts with and without chunks (captured paged
+   engines without the prefix cache), one ``swap_weights`` (a seed-7
+   TinyTransformer) staged while 8 streams run (they finish on the old
+   weights; the next 8 equal ``generate_naive`` of the new weights under
+   the near-tie rule; no new capture) and one ``eos_id`` run (every stream
+   ends at its first ``eos_id``).
 
 A replayed CUDA graph adds to the launch counts the launches its capture
 recorded (the capture itself counts none), so the counts below are the
@@ -1037,7 +1065,7 @@ def slice_phase(card):
                 round(32 * len(prompts) / wall, 2))
             res["generate_request_s"].append([round(s, 4) for _, s in gens])
             for p, (toks, _) in zip(prompts, gens):
-                want = generate_naive(net, p, 32)["tokens"]
+                want = generate_naive(net, p, 32, 256)["tokens"]
                 if toks != want:
                     raise AssertionError(
                         f"/generate {toks} != full-prefix {want}")
@@ -1253,7 +1281,8 @@ def _generate_streams(net, ids, vocab, dense, paged, res, card, tag):
     # the full-prefix reference, through K5 at every length
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    naive = [generate_naive(net, p, new)["tokens"] for p in prompts]
+    naive = [generate_naive(net, p, new, dense[1].max_len)["tokens"]
+             for p in prompts]
     res["naive_seconds"] = time.perf_counter() - t0
     res["launches_naive"] = _expect_launches(
         f"{tag} generate_naive", {"flash_attn_fwd": 2 * len(prompts) * new})
@@ -3009,7 +3038,7 @@ def prefix_part(net, cpu, ids, card, res):
     finally:
         eng.stop()
         ref.stop()
-    naive = [generate_naive(net, p, SERVE_NEW)["tokens"]
+    naive = [generate_naive(net, p, SERVE_NEW, 512)["tokens"]
              for p in prompts + [cut]]
     out["ties"] = {
         "wave1_vs_reference": _ties(net, prompts, gens["wave1"], want),
@@ -3281,18 +3310,383 @@ def spec_lstm_part(card, res):
     res["lstm"] = out
 
 
+# ------------------------------------------------------------- phase 11 (d)
+ROUNDS = 5            # eager and captured rounds, in turns, in one call
+ONE_AT_A_TIME, ONE_NEW = 3, 24   # prompts and new tokens of the CPU check
+
+
+def _decode_round(eng, prompts, new, spec):
+    """``prompts`` served together once: tokens, the round's numbers (wall,
+    tokens/s, ms a step or a tick, steps, ticks) and the stats around
+    it."""
+    st0 = eng.stats()
+    t0 = time.perf_counter()
+    futs = [eng.submit(p, max_new_tokens=new) for p in prompts]
+    toks = [f.result(timeout=600)["tokens"] for f in futs]
+    wall = time.perf_counter() - t0
+    st1 = eng.stats()
+    steps = st1["steps"] - st0["steps"]
+    row = {"wall_s": wall, "tokens_per_s": len(prompts) * new / wall,
+           "steps": steps}
+    if spec:
+        row["ticks"] = st1["spec"]["verifies"] - st0["spec"]["verifies"]
+        row["ms"] = wall / row["ticks"] * 1e3
+    else:
+        row["ms"] = (st1["decode_seconds"] - st0["decode_seconds"]) \
+            / steps * 1e3
+    return toks, row, st0, st1
+
+
+def _expected_launches(eng, st0, st1):
+    """The decode kernels a run of ``eng`` between two stats must launch:
+    K8 (dense) or K9 (paged) twice a plain step and the verifies' and the
+    draft's K8 (``_spec_launches``); none for a model without attention."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import \
+        MultiHeadAttention
+    from deeplearning4j_tpu_torch.serving.spec.rewind import layer_entries
+    if eng._spec is not None:
+        return _spec_launches(eng, st0, st1)
+    heads = sum(isinstance(l, MultiHeadAttention)
+                for _, l in layer_entries(eng.model))
+    kernel = "flash_decode_paged" if eng.kv == "paged" else "flash_decode"
+    n = heads * (st1["steps"] - st0["steps"])
+    return {kernel: n} if n else {}
+
+
+def _program_launches(eng):
+    """What one replay of each program must launch: the step K8 or K9 once
+    an attention layer, the verify K8 once a target attention layer, the
+    draft K8 once a draft attention layer and position; the prefill (the
+    layer's own softmax) and the copy none."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import \
+        MultiHeadAttention
+    from deeplearning4j_tpu_torch.serving.spec.rewind import layer_entries
+
+    def heads(m):
+        return sum(isinstance(l, MultiHeadAttention)
+                   for _, l in layer_entries(m))
+    tgt = heads(eng.model)
+    kernel = "flash_decode_paged" if eng.kv == "paged" else "flash_decode"
+    want = {"step": {kernel: tgt}, "prefill": {}, "cow": {},
+            "verify": {"flash_decode": tgt}}
+    if eng._draft is not None:
+        want["draft"] = {"flash_decode": heads(eng._draft.model)
+                         * eng._draft.k}
+    return {k: {n: c for n, c in v.items() if c} for k, v in want.items()}
+
+
+def _spread(xs):
+    return {"min": min(xs), "median": statistics.median(xs), "max": max(xs)}
+
+
+def _counters(st):
+    """The counters a one-at-a-time run must share with the CPU port."""
+    out = {k: st[k] for k in ("steps", "tokens", "requests",
+                              "compiled_programs")}
+    if st["kv"] is not None:
+        out.update({k: st["kv"][k] for k in (
+            "prefix_hits", "prefix_tokens_saved", "cow_copies",
+            "prefill_chunks", "prefill_tokens", "blocks_in_use",
+            "blocks_cached", "kv_programs")})
+    if st["spec"] is not None:
+        out.update({k: st["spec"][k] for k in (
+            "drafted_tokens", "accepted_tokens", "verifies", "draft_calls",
+            "draft_steps", "verify_programs", "draft_programs")})
+    return out
+
+
+def _one_at_a_time(model, kw, prompts, max_len):
+    from deeplearning4j_tpu_torch.serving import DecodeEngine
+    eng = DecodeEngine(model, slots=8, max_len=max_len, **kw).start()
+    try:
+        toks = [eng.generate(p, max_new_tokens=ONE_NEW, timeout=600)["tokens"]
+                for p in prompts[:ONE_AT_A_TIME]]
+        return toks, _counters(eng.stats())
+    finally:
+        eng.stop()
+
+
+def captured_part(name, models, make_kw, prompts, naive, max_len, card):
+    """One part of phase 11 (d): ``make_kw(target, draft)`` gives the
+    engine's arguments for a pair of models (``models``: {"card": (target,
+    draft), "cpu": (...)}). The eager engine (the private seam) against the
+    captured one, in turns over ROUNDS rounds of ``prompts``, with the
+    bars of the docstring; the one-at-a-time counters against the CPU
+    port's; ten captured steps or ticks under torch.profiler."""
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.serving import DecodeEngine
+    kw = make_kw(*models["card"])
+    spec = "spec" in kw
+    eager = DecodeEngine(models["card"][0], slots=8, max_len=max_len, **kw)
+    eager._capture_programs = False
+    eager.start()
+    capt = DecodeEngine(models["card"][0], slots=8, max_len=max_len,
+                        **kw).start()
+    out = {"rounds": {"eager": [], "captured": []}}
+    try:
+        progs0 = capt.program_stats()
+        want = _program_launches(capt)
+        for k, p in progs0.items():
+            if p["programs"] != 1 or p["captures"] != 1 \
+                    or p["launches"] != [want[k]]:
+                raise AssertionError(f"phase 11 (d) {name}: program {k} "
+                                     f"{p}, want one capture launching "
+                                     f"{want[k]}")
+        if any(p["captures"] for p in eager.program_stats().values()):
+            raise AssertionError(f"phase 11 (d) {name}: the eager engine "
+                                 "captured")
+        toks = {}
+        for r in range(ROUNDS):
+            order = [("eager", eager), ("captured", capt)]
+            for mode, eng in (order if r % 2 == 0 else order[::-1]):
+                ops.reset_launch_counts()
+                t, row, st0, st1 = _decode_round(eng, prompts, SERVE_NEW,
+                                                 spec)
+                row["launches"] = _expect_launches(
+                    f"phase 11 (d) {name} {mode}",
+                    _expected_launches(eng, st0, st1))
+                out["rounds"][mode].append(row)
+                if toks.setdefault(mode, t) != t:
+                    raise AssertionError(f"phase 11 (d) {name}: {mode} "
+                                         "tokens changed between rounds")
+        if toks["eager"] != toks["captured"]:
+            raise AssertionError(f"phase 11 (d) {name}: captured tokens "
+                                 "differ from eager")
+        out["launches"] = {}
+        for rows in out["rounds"].values():
+            for row in rows:
+                _add_counts(out["launches"], row["launches"])
+        out["ties_vs_naive"] = _ties(models["card"][0], prompts,
+                                     toks["captured"], naive)
+        progs1 = capt.program_stats()
+        out["programs"] = progs1
+        if {k: p["captures"] for k, p in progs1.items()} != \
+                {k: p["captures"] for k, p in progs0.items()}:
+            raise AssertionError(f"phase 11 (d) {name}: captures after "
+                                 f"warmup: {progs0} -> {progs1}")
+        st = capt.stats()
+        out["trace_count"] = (capt.trace_count, eager.trace_count)
+        if out["trace_count"] != (1, 1):
+            raise AssertionError(f"phase 11 (d) {name}: trace_count "
+                                 f"{out['trace_count']}")
+        if st["kv"] is not None and (st["kv"]["blocks_in_use"]
+                                     or eager.stats()["kv"]["blocks_in_use"]):
+            raise AssertionError(f"phase 11 (d) {name}: blocks in use at "
+                                 "the end")
+        if spec:
+            out["acceptance_rate"] = st["spec"]["acceptance_rate"]
+            out["mean_accepted_depth"] = st["spec"]["mean_accepted_depth"]
+        new = PROFILE_TICKS if not spec else min(200, max(8, round(
+            PROFILE_TICKS * (1 + out["mean_accepted_depth"]))))
+        unit = "verifies" if spec else "steps"
+
+        def run():
+            st0 = capt.stats()
+            futs = [capt.submit([t], max_new_tokens=new)
+                    for t in range(len(prompts))]
+            for f in futs:
+                f.result(timeout=600)
+            st1 = capt.stats()
+            return (st1["spec"][unit] - st0["spec"][unit] if spec
+                    else st1[unit] - st0[unit])
+        prof = out["profile"] = profile_steps(run, PROFILE_TICKS,
+                                              ("flash_decode",))
+        busy = prof["device_busy_ms_per_step"]
+        out["decode_kernel_share"] = (
+            None if busy is None else
+            prof["tagged_ms_per_step"]["flash_decode"] / busy)
+    finally:
+        eager.stop()
+        capt.stop()
+    got, cnt = _one_at_a_time(models["card"][0], kw, prompts, max_len)
+    want_t, cpu_cnt = _one_at_a_time(models["cpu"][0],
+                                     make_kw(*models["cpu"]), prompts,
+                                     max_len)
+    out["one_at_a_time"] = {"card": cnt, "cpu": cpu_cnt,
+                            "tokens_equal": got == want_t}
+    if got == want_t and cnt != cpu_cnt:
+        raise AssertionError(f"phase 11 (d) {name}: counters {cnt} != CPU "
+                             f"port {cpu_cnt}")
+    if got != want_t:
+        out["one_at_a_time"]["ties"] = _ties(models["card"][0],
+                                             prompts[:ONE_AT_A_TIME], got,
+                                             want_t)
+    for mode in ("eager", "captured"):
+        rows = out["rounds"][mode]
+        out[mode] = {"ms": _spread([r["ms"] for r in rows]),
+                     "tokens_per_s": _spread([r["tokens_per_s"]
+                                              for r in rows])}
+    u = "tick" if spec else "step"
+    e, c = out["eager"]["ms"], out["captured"]["ms"]
+    print(f"captured (d): {name}: {len(prompts)} streams x {SERVE_NEW}, "
+          f"{ROUNDS} rounds each in turns: ms/{u} eager min "
+          f"{e['min']:.3f} / median {e['median']:.3f} / max {e['max']:.3f},"
+          f" captured {c['min']:.3f} / {c['median']:.3f} / {c['max']:.3f};"
+          f" tokens/s captured median "
+          f"{out['captured']['tokens_per_s']['median']:.1f}, eager "
+          f"{out['eager']['tokens_per_s']['median']:.1f}; tokens eager == "
+          f"captured, near-ties vs naive {out['ties_vs_naive']}; programs "
+          + ", ".join(f"{k} {p['captures']} capture(s), "
+                      f"{p['launches'][0] if p['launches'] else {}}/replay"
+                      for k, p in out["programs"].items())
+          + f"; one at a time card == CPU port "
+          f"{cnt == cpu_cnt} (tokens equal {got == want_t}); "
+          + fmt_profile(prof, ("flash_decode",), unit=u, units=u + "s")
+          + f" [{card}]", flush=True)
+    return out, toks["captured"]
+
+
+def _swap_and_eos(net, vocab, prompts, plain, max_len, card):
+    """On a captured dense engine: one ``swap_weights`` while 8 streams
+    run (applied when they drained; the next streams against
+    ``generate_naive`` of the new weights under the near-tie rule; 0 new
+    captures), and one ``eos_id`` run (every stream ends at its first
+    ``eos_id``: the plain captured streams cut there)."""
+    from deeplearning4j_tpu_torch.serving import DecodeEngine
+    from deeplearning4j_tpu_torch.serving.decode import generate_naive
+    from deeplearning4j_tpu_torch.zoo import TinyTransformer
+    new = TinyTransformer(vocab_size=vocab, seed=7).init(device="cuda")
+    out = {}
+    eng = DecodeEngine(net, slots=8, max_len=max_len).start()
+    try:
+        caps0 = {k: p["captures"] for k, p in eng.program_stats().items()}
+        futs = [eng.submit(p, max_new_tokens=SERVE_NEW) for p in prompts]
+        t0 = time.perf_counter()
+        version = eng.swap_weights(new.params, timeout=600)
+        out["swap_wait_s"] = time.perf_counter() - t0
+        old = [f.result(timeout=600)["tokens"] for f in futs]
+        if old != plain:
+            raise AssertionError("phase 11 (d) swap: the streams in flight "
+                                 "did not finish on the old weights")
+        toks = _serve(eng, prompts, SERVE_NEW)[0]
+        caps1 = {k: p["captures"] for k, p in eng.program_stats().items()}
+    finally:
+        eng.stop()
+    naive = [generate_naive(new, p, SERVE_NEW, max_len)["tokens"]
+             for p in prompts]
+    out.update(version=version, captures=(caps0, caps1),
+               ties_vs_naive=_ties(new, prompts, toks, naive))
+    if version != 1 or caps0 != caps1:
+        raise AssertionError(f"phase 11 (d) swap: version {version}, "
+                             f"captures {caps0} -> {caps1}")
+    eos = plain[0][10]
+    eng = DecodeEngine(net, slots=8, max_len=max_len, eos_id=eos).start()
+    try:
+        got = _serve(eng, prompts, SERVE_NEW)[0]
+        if eng.stats()["compiled_programs"] != 1:
+            raise AssertionError("phase 11 (d) eos: more than one program")
+    finally:
+        eng.stop()
+    want = [t[:t.index(eos) + 1] if eos in t else t for t in plain]
+    if got != want:
+        raise AssertionError(f"phase 11 (d) eos {eos}: {got} != {want}")
+    out["eos"] = {"eos_id": eos, "lengths": [len(t) for t in got]}
+    print(f"captured (d): swap_weights while {len(prompts)} streams ran: "
+          f"applied after {out['swap_wait_s']:.3f} s (the streams drained "
+          f"on the old weights), version {version}, captures {caps0} -> "
+          f"{caps1}, new tokens vs generate_naive near-ties "
+          f"{out['ties_vs_naive']}; eos_id {eos}: streams end at their "
+          f"first eos_id, lengths {out['eos']['lengths']} [{card}]",
+          flush=True)
+    return out
+
+
+def captured_engine_part(net, cpu, ids, card, res):
+    """Phase 11 (d): the captured decode engine (docstring)."""
+    from deeplearning4j_tpu_torch import ComputationGraph
+    from deeplearning4j_tpu_torch.serving import DecodeEngine
+    from deeplearning4j_tpu_torch.serving.decode import generate_naive
+    from deeplearning4j_tpu_torch.serving.spec import SpecConfig
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM, \
+        TinyTransformer
+    from deeplearning4j_tpu_torch.zoo.corpus import corpus_windows
+    vocab = res["vocab"]
+    draft = TinyTransformer(vocab_size=vocab, n_layers=1, seed=3).init(
+        device="cuda")
+    cpu_draft = ComputationGraph(draft.conf, device="cpu").set_params(
+        draft.params)
+    held = ids[len(ids) * 7 // 8:]
+    lens = [16, 22, 28, 34, 40, 46, 52, 64]
+    prompts = [held[64 * i:64 * i + n] for i, n in enumerate(lens)]
+    naive = [generate_naive(net, p, SERVE_NEW, 512)["tokens"]
+             for p in prompts]
+    paged = dict(kv="paged", kv_block_size=KV_BLOCK)
+    tree = (3, 2, 2)
+    parts = {
+        "plain dense": lambda t, d: {},
+        "plain paged, prefix cache, chunks of 32": lambda t, d: dict(
+            paged, chunk_tokens=CHUNK),
+        "target as draft k=4, dense": lambda t, d: dict(
+            spec=SpecConfig(t, k=4)),
+        "draft (3,2,2), dense": lambda t, d: dict(
+            spec=SpecConfig(d, tree=tree)),
+        "draft (3,2,2), paged": lambda t, d: dict(
+            paged, spec=SpecConfig(d, tree=tree)),
+        "draft (3,2,2), paged, chunks of 32": lambda t, d: dict(
+            paged, chunk_tokens=CHUNK, spec=SpecConfig(d, tree=tree))}
+    models = {"card": (net, draft), "cpu": (cpu, cpu_draft)}
+    out, toks = {}, {}
+    for name, make in parts.items():
+        out[name], toks[name] = captured_part(name, models, make, prompts,
+                                              naive, 512, card)
+    # LSTM: the early-exit self-draft
+    _, (xte, _), lvocab = corpus_windows(T=64)
+    zoo = TextGenerationLSTM(total_unique_characters=len(lvocab))
+    lstm, lcpu = zoo.init_pretrained(device="cuda"), \
+        zoo.init_pretrained(device="cpu")
+    text = xte.argmax(-1)
+    lprompts = [list(map(int, text[i, :n])) for i, n in enumerate(lens)]
+    lnaive = [generate_naive(lstm, p, SERVE_NEW, 256)["tokens"]
+              for p in lprompts]
+    name = "LSTM early_exit:1 (3,2), dense"
+    out[name], _ = captured_part(
+        name, {"card": (lstm, None), "cpu": (lcpu, None)},
+        lambda t, d: dict(spec=SpecConfig(self_draft="early_exit:1",
+                                          tree=(3, 2))),
+        lprompts, lnaive, 256, card)
+    # rates against the captured plain engine, time to first token
+    for name, row in out.items():
+        base = ("plain paged, prefix cache, chunks of 32" if "paged" in name
+                else "plain dense")
+        if not name.startswith("LSTM"):
+            row["tokens_per_s_vs_plain"] = (
+                row["captured"]["tokens_per_s"]["median"]
+                / out[base]["captured"]["tokens_per_s"]["median"])
+    for chunk in (None, CHUNK):
+        e = DecodeEngine(net, slots=8, max_len=512, prefix_cache=False,
+                         chunk_tokens=chunk, **paged).start()
+        try:
+            e.generate(ids[-4:], max_new_tokens=2)
+            ms = _ttft_ms(e, prompts)
+        finally:
+            e.stop()
+        out[f"ttft_ms_chunk_{chunk}"] = ms
+    print("captured (d): tokens/s against the captured plain engine: "
+          + ", ".join(f"{k} {v['tokens_per_s_vs_plain']:.3f}"
+                      for k, v in out.items()
+                      if isinstance(v, dict) and "tokens_per_s_vs_plain" in v)
+          + f"; time to first token of {len(prompts)} prompts together, "
+          f"captured paged engine: mean "
+          f"{np.mean(out['ttft_ms_chunk_None']):.2f} ms without chunks, "
+          f"{np.mean(out[f'ttft_ms_chunk_{CHUNK}']):.2f} ms with chunks of "
+          f"{CHUNK} [{card}]", flush=True)
+    out["swap_and_eos"] = _swap_and_eos(net, vocab, prompts,
+                                        toks["plain dense"], 512, card)
+    res["captured"] = out
+
+
 def counted_launches(tree, kernel):
     """The launches of ``kernel`` over every counted window (each dict
     entry ``launches``) of a phase's results."""
     if isinstance(tree, dict):
-        return sum(v.get(kernel, 0) if k == "launches" else
-                   counted_launches(v, kernel) for k, v in tree.items())
+        return sum(v.get(kernel, 0) if k == "launches" and isinstance(v, dict)
+                   else counted_launches(v, kernel) for k, v in tree.items())
     return 0
 
 
 def serving_features_phase(card):
-    """Phase 11: the prefix cache, chunked prefill and speculation
-    (``chip_smoke.py`` docstring)."""
+    """Phase 11: the prefix cache, chunked prefill, speculation and the
+    captured engine (``chip_smoke.py`` docstring)."""
     from deeplearning4j_tpu_torch import ComputationGraph
     from deeplearning4j_tpu_torch.zoo import TinyTransformer
     from deeplearning4j_tpu_torch.zoo.corpus import corpus_ids
@@ -3304,6 +3698,7 @@ def serving_features_phase(card):
     prefix_part(net, cpu, ids, card, res)
     spec_part(net, ids, card, res)
     spec_lstm_part(card, res)
+    captured_engine_part(net, cpu, ids, card, res)
     return res
 
 

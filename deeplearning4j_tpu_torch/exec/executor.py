@@ -40,6 +40,26 @@ which happens once, at capture, and never at replay. A captured step
 records the counts its capture added, takes them back (nothing ran), and
 adds them on every replay, so the counts stay the kernels that ran.
 
+Programs over resident state (``ResidentProgram``, the decode engine's):
+where a train step's graph copies its tensors into inputs of its own, a
+decode program reads and writes RESIDENT tensors -- the KV cache or block
+pool, the carries, the draft's snapshot stacks, the engine's parameter
+set -- in place and by address, the counterpart of the JAX engine's
+donated state (``donate_argnums``), and only its small STAGED inputs are
+copied in: one packed int32 buffer (``Layout``), filled on the host in
+pinned memory (``HostStage``) and copied to the card once a call. Results
+come back the same way (``HostResult``): one copy into pinned memory and
+one event wait. A call that passes a resident tensor at another address
+(or shape, or dtype) raises. On the card the first call of a signature
+runs eagerly (the warm-up above, a real call) and captures the graph
+right after it; every later call replays. Elsewhere the same object runs
+its function eagerly and only counts the signatures it has seen, so "one
+program per signature" holds, and is tested, on a CPU too. A sealed
+program (``seal()``) refuses a new signature: the decode engine captures
+everything in ``warmup()``, on the caller's thread, before its loop
+thread starts (a capture is global: another thread's CUDA work during it
+fails it).
+
 Meshes, sharding, routing tables, the serving precision and the program
 registry are not ported.
 """
@@ -50,6 +70,7 @@ import gc
 import os
 from typing import Any, Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import ops
@@ -255,6 +276,152 @@ class StepGraphs:
                 self.fn, args, device, self.generator)
             self.captures += 1
         return graph(*args)
+
+
+class ResidentProgram:
+    """``fn(resident, *staged)`` as a program over resident tensors (module
+    docstring). ``resident``: a tree of tensors read and written in place,
+    fixed by address at the first call; ``staged``: small tensors (on the
+    host, or on the card), copied into the graph's inputs each call.
+    ``programs`` counts the signatures seen (captured graphs on the card,
+    eager programs elsewhere) and calls ``on_program`` for each;
+    ``captures`` counts the CUDA graphs captured. ``capture=False`` runs
+    every call eagerly (the eager seam a measurement compares with)."""
+
+    def __init__(self, executor: Executor, fn: Callable, name: str,
+                 capture: bool = True, on_program: Optional[Callable] = None):
+        self.executor, self.fn, self.name = executor, fn, name
+        self.capture = capture
+        self.on_program = on_program
+        self.graphs: Dict[Any, CapturedStep] = {}
+        self.signatures = set()
+        self.programs = 0
+        self.captures = 0
+        self.sealed = False
+        self._resident = None
+
+    def seal(self) -> None:
+        """Refuse any signature not seen yet (no capture from now on)."""
+        self.sealed = True
+
+    def _device(self, resident) -> torch.device:
+        leaves = _leaves(resident, [])
+        addrs = [(t.data_ptr(), tuple(t.shape), t.dtype) for t in leaves]
+        if self._resident is None:
+            self._resident = addrs
+        elif addrs != self._resident:
+            raise ValueError(
+                f"program {self.name!r}: a resident tensor is not the one "
+                "the program was built over (another address, shape or "
+                "dtype); resident state is written in place, never rebound")
+        return leaves[0].device
+
+    def __call__(self, resident, *staged):
+        device = self._device(resident)
+        key = signature(staged)
+        if key not in self.signatures:
+            if self.sealed:
+                raise RuntimeError(
+                    f"program {self.name!r}: new signature {key} after "
+                    "warmup (no capture may happen while serving)")
+            self.signatures.add(key)
+            self.programs += 1
+            if self.on_program is not None:
+                self.on_program()
+        graph = self.graphs.get(key)
+        if graph is not None:
+            return graph(*staged)
+        staged = _rebuild(staged, iter(
+            [t.to(device, non_blocking=True) for t in _leaves(staged, [])]))
+        if device.type != "cuda" or not self.capture:
+            return self.fn(resident, *staged)
+        out = self.executor.warm_up(lambda: self.fn(resident, *staged),
+                                    device)
+        self.graphs[key] = self.executor.capture(
+            lambda *s: self.fn(resident, *s), staged, device)
+        self.captures += 1
+        return out
+
+
+class Layout:
+    """Named fields packed into one int32 buffer: ``fields`` maps a name to
+    its shape, or to (shape, numpy dtype) with dtype int32 (the default),
+    uint32 or float32. ``host(array)`` views a host buffer's fields as
+    numpy arrays of their dtypes; ``unpack(tensor)`` views a device
+    buffer's as tensors (a uint32 field as int32: mask it with
+    ``& 0xFFFFFFFF`` after widening)."""
+
+    def __init__(self, **fields):
+        self.fields = {}
+        off = 0
+        for name, spec in fields.items():
+            shape, dt = (spec if len(spec) == 2 and isinstance(spec[1], type)
+                         else (spec, np.int32))
+            shape = tuple(int(d) for d in shape)
+            n = int(np.prod(shape))
+            self.fields[name] = (off, n, shape, np.dtype(dt))
+            off += n
+        self.size = off
+
+    def host(self, array: np.ndarray) -> Dict[str, np.ndarray]:
+        return {name: array[o:o + n].view(dt).reshape(shape)
+                for name, (o, n, shape, dt) in self.fields.items()}
+
+    def unpack(self, t: torch.Tensor) -> Dict[str, torch.Tensor]:
+        out = {}
+        for name, (o, n, shape, dt) in self.fields.items():
+            v = t[o:o + n].view(shape)
+            out[name] = v.view(torch.float32) if dt == np.float32 else v
+        return out
+
+
+class HostStage:
+    """The host buffer a program's staged inputs are packed into (a
+    ``Layout``): pinned for a card, so its one copy to the device is
+    asynchronous, with an event so that the host does not refill it
+    before that copy has run."""
+
+    def __init__(self, layout: Layout, device: torch.device):
+        self.layout = layout
+        pinned = device.type == "cuda"
+        self.tensor = torch.zeros(layout.size, dtype=torch.int32,
+                                  pin_memory=pinned)
+        self._array = self.tensor.numpy()
+        self._event = torch.cuda.Event() if pinned else None
+        self._pending = False
+
+    def open(self) -> Dict[str, np.ndarray]:
+        """The zeroed fields, once the last copy out of them has run."""
+        if self._pending:
+            self._event.synchronize()
+            self._pending = False
+        self._array[:] = 0
+        return self.layout.host(self._array)
+
+    def sent(self) -> None:
+        """Mark the copy of the buffer just enqueued on the current
+        stream."""
+        if self._event is not None:
+            self._event.record()
+            self._pending = True
+
+
+class HostResult:
+    """A program's result read back: one copy into pinned memory, then one
+    event wait."""
+
+    def __init__(self, shape, device: torch.device):
+        pinned = device.type == "cuda"
+        self.tensor = torch.zeros(shape, dtype=torch.int32,
+                                  pin_memory=pinned)
+        self._event = torch.cuda.Event() if pinned else None
+
+    def read(self, t: torch.Tensor) -> np.ndarray:
+        self.tensor.copy_(t, non_blocking=self._event is not None)
+        if self._event is not None:
+            self._event.record()
+            self._event.synchronize()
+        return self.tensor.numpy().copy()
 
 
 # ------------------------------------------------------- process default

@@ -110,6 +110,9 @@ class ComputationGraph(FitContract):
         self._last_fit_time = None    # host seconds of the last _fit_batch
         self._rnn_carries = None      # rnn_time_step's carry map
         self._serving = None          # bucketed inference engine (lazy)
+        # bumped whenever the parameters change (an update, init, a load):
+        # a decode engine copies them into its own set when it moves
+        self._params_version = 0
 
     # ------------------------------------------------------------------ init
     def init(self, seed: Optional[int] = None):
@@ -125,6 +128,7 @@ class ComputationGraph(FitContract):
                 self.conf.nodes[n].layer.init(gen, dtype)).items()}
             for n in self.conf.layer_nodes()}
         self._build_optimizer()
+        self._params_version += 1
         return self
 
     def set_params(self, params: Params):
@@ -135,6 +139,7 @@ class ComputationGraph(FitContract):
                            flatten_params(p).items()}
                        for n, p in params.items()}
         self._build_optimizer()
+        self._params_version += 1
         return self
 
     @property
@@ -360,6 +365,7 @@ class ComputationGraph(FitContract):
         """``fn(*args)`` with the fused update's scalars staged before and
         its counts advanced after: through ``graphs`` on the card, eagerly
         on the CPU, with the fused update off, or for the eager oracle."""
+        self._params_version += 1
         if self._fused is None:
             return fn(*args)
         self._fused.stage(self.opt_state)
@@ -600,11 +606,12 @@ class ComputationGraph(FitContract):
         return self._serving
 
     @torch.no_grad()
-    def output(self, *inputs, bucketed: bool = True):
+    def output(self, *inputs, train: bool = False, bucketed: bool = True):
         """Inference on the network inputs (parity: ComputationGraph.output).
-        A single-input graph's batch goes through the bucketed engine by
-        default (see MultiLayerNetwork.output); ``bucketed=False`` runs the
-        exact shape."""
+        ``train`` is taken for the JAX package's signature and ignored, as
+        there. A single-input graph's batch goes through the bucketed
+        engine by default (see MultiLayerNetwork.output);
+        ``bucketed=False`` runs the exact shape."""
         inputs = [self._as_input(x) for x in inputs]
         if bucketed and len(inputs) == 1:
             return self.serving_engine().predict(inputs[0])
@@ -749,8 +756,7 @@ class ComputationGraph(FitContract):
         write_model(self, path, save_updater)
 
     @staticmethod
-    def load(path, device=None, load_updater=True) -> "ComputationGraph":
+    def load(path, load_updater=True, *, device=None) -> "ComputationGraph":
         from deeplearning4j_tpu_torch.util.model_serializer import \
             restore_computation_graph
-        return restore_computation_graph(path, device=device,
-                                         load_updater=load_updater)
+        return restore_computation_graph(path, load_updater, device=device)

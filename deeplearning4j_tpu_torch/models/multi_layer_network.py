@@ -174,6 +174,9 @@ class MultiLayerNetwork(FitContract):
         self._last_fit_time = None    # host seconds of the last _fit_batch
         self._rnn_carries = None      # stored state for rnn_time_step
         self._serving = None          # bucketed inference engine (lazy)
+        # bumped whenever the parameters change (an update, init, a load):
+        # a decode engine copies them into its own set when it moves
+        self._params_version = 0
 
     # ------------------------------------------------------------------ init
     def init(self, seed: Optional[int] = None):
@@ -187,6 +190,7 @@ class MultiLayerNetwork(FitContract):
                         flatten_params(l.init(gen, dtype)).items()}
                        for l in self.layers]
         self._build_optimizer()
+        self._params_version += 1
         return self
 
     def set_params(self, params: List[Dict[str, torch.Tensor]]):
@@ -195,6 +199,7 @@ class MultiLayerNetwork(FitContract):
         self.params = [{k: v.to(self.device) for k, v in
                         flatten_params(p).items()} for p in params]
         self._build_optimizer()
+        self._params_version += 1
         return self
 
     @property
@@ -381,6 +386,7 @@ class MultiLayerNetwork(FitContract):
         """``fn(*args)`` with the fused update's scalars staged before and
         its counts advanced after: through ``graphs`` on the card, eagerly
         on the CPU, with the fused update off, or for the eager oracle."""
+        self._params_version += 1
         if self._fused is None:
             return fn(*args)
         opt = dict(enumerate(self.opt_state))
@@ -548,11 +554,14 @@ class MultiLayerNetwork(FitContract):
         return self._serving
 
     @torch.no_grad()
-    def output(self, x, mask=None, bucketed: bool = True) -> torch.Tensor:
+    def output(self, x, train: bool = False, mask=None,
+               bucketed: bool = True) -> torch.Tensor:
         """Forward pass to network output (parity: output), ``mask`` the
-        (B, T) feature mask. The default pads the batch up to a
-        power-of-two bucket and slices the pad rows off
-        (serving/engine.py); ``bucketed=False`` runs the exact shape."""
+        (B, T) feature mask. ``train`` is taken for the JAX package's
+        signature and ignored: inference runs without dropout, as there.
+        The default pads the batch up to a power-of-two bucket and slices
+        the pad rows off (serving/engine.py); ``bucketed=False`` runs the
+        exact shape."""
         x = self._as_input(x)
         mask = None if mask is None else self._as_input(mask)
         if bucketed:
@@ -666,8 +675,8 @@ class MultiLayerNetwork(FitContract):
         write_model(self, path, save_updater)
 
     @staticmethod
-    def load(path, device=None, load_updater=True) -> "MultiLayerNetwork":
+    def load(path, load_updater=True, *, device=None) -> "MultiLayerNetwork":
         from deeplearning4j_tpu_torch.util.model_serializer import \
             restore_multi_layer_network
-        return restore_multi_layer_network(path, device=device,
-                                           load_updater=load_updater)
+        return restore_multi_layer_network(path, load_updater,
+                                           device=device)

@@ -307,8 +307,8 @@ class MultiHeadAttention(Layer):
         else:
             kc, vc = dstate["k"], dstate["v"]
         C = kc.shape[1]
-        depth = torch.as_tensor(tree.depth, device=dev).long()       # (N,)
-        aad = torch.as_tensor(tree.anc_at_depth, device=dev).long()  # (N, D+1)
+        tt = tree.tensors(dev)
+        depth, aad = tt.depth, tt.anc_at_depth                 # (N,), (N, D+1)
         coff = torch.arange(C, device=dev)[None, :] - pos0[:, None]  # (B, C)
         on_path = ((coff[:, None, :] >= 0)
                    & (coff[:, None, :] <= depth[None, :, None]))[..., None,
@@ -342,7 +342,7 @@ class MultiHeadAttention(Layer):
         B, Dp1 = path.shape
         dev = kv_window["k"].device
         rows = torch.arange(B, device=dev)[:, None]
-        path = torch.as_tensor(path, device=dev).long()
+        path = path.long()
         pos0 = _positions(pos0, B, dev).long()
         commit_n = _positions(commit_n, B, dev).long()
         d = torch.arange(Dp1, device=dev)
@@ -433,6 +433,6 @@ class PositionalEmbedding(Layer):
     def tree_chunk(self, params, dstate, x, pos0, tree, n, block_tables=None):
         """Tree node i sits at position ``pos0 + depth(i)``."""
         pos0 = _positions(pos0, x.shape[0], x.device).long()
-        depth = torch.as_tensor(tree.depth, device=x.device).long()
+        depth = tree.tensors(x.device).depth
         return (self._at(params, x, pos0[:, None] + depth[None, :]), dstate,
                 None, None)

@@ -70,6 +70,19 @@ def map_tree(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def copy_into(dst, src):
+    """Copy every tensor leaf of ``src`` into the matching leaf of ``dst``
+    in place, skipping a leaf that already is ``dst``'s (state written in
+    place, such as a KV cache): a program's new carries land in the
+    resident state it read. Returns ``dst``."""
+    def put(d, s):
+        if s is not d:
+            d.copy_(s)
+        return d
+    map_tree(put, dst, src)
+    return dst
+
+
 def where_rows(keep, new, old):
     """``new`` where the (B,) mask ``keep`` holds, else ``old``."""
     return torch.where(keep.reshape((-1,) + (1,) * (new.ndim - 1)), new, old)

@@ -29,3 +29,21 @@ class CorruptCheckpointError(ValueError):
         why = f": {detail}" if detail else ""
         super().__init__(
             f"corrupt or truncated checkpoint {self.path}{where}{why}")
+
+
+class WeightSwapError(ValueError):
+    """A hot-swap candidate does not match the serving engine's live
+    weights: missing or extra arrays, or a shape or dtype mismatch. Raised
+    before any engine state is touched, so a rejected swap leaves serving
+    exactly as it was. ``mismatches`` lists the offending array paths with
+    the expected and the given shape and dtype."""
+
+    def __init__(self, message: str, mismatches=None):
+        self.mismatches = list(mismatches or ())
+        if self.mismatches:
+            shown = "; ".join(self.mismatches[:3])
+            more = len(self.mismatches) - 3
+            if more > 0:
+                shown += f"; ... {more} more"
+            message = f"{message}: {shown}"
+        super().__init__(message)

@@ -2,14 +2,35 @@
 
 Counterpart of deeplearning4j_tpu/serving/decode.py, over a
 MultiLayerNetwork or a ComputationGraph, with dense or paged KV caches, the
-prefix cache with copy-on-write, chunked prefill and speculative decoding
-(the host KV tier, AOT warm-up, hot swap, ``eos_id`` and the request
-journal are not ported yet). Decode state -- each recurrent layer's (h, c)
-carry, each attention layer's KV cache -- stays on the device in ONE
-batched state of S slots; every step advances all active streams by one
-token at their positions, new requests claim free slots between steps,
-and finished streams free theirs.
+prefix cache with copy-on-write, chunked prefill, speculative decoding,
+``eos_id``, ``warmup()`` and ``swap_weights`` (the host KV tier, AOT
+warm-up, the int8/fp8 precisions and the request journal are not ported
+yet). Decode state -- each recurrent layer's (h, c) carry, each attention
+layer's KV cache -- stays on the device in ONE batched state of S slots;
+every step advances all active streams by one token at their positions,
+new requests claim free slots between steps, and finished streams free
+theirs.
 
+- Programs. The plain step (dense or paged), the prefill chunk, the
+  copy-on-write, the draft and the verify are each ONE program
+  (``exec.ResidentProgram``): a function of the engine's RESIDENT tensors
+  -- its parameter set, its decode state, the draft's stacks and
+  proposals, read and written in place by address, the counterpart of the
+  JAX engine's donated state -- and of one small staged int32 buffer of
+  the call's inputs (tokens, positions, masks, seeds, temperatures, top-k,
+  page tables), packed on the host in pinned memory and copied to the card
+  once a call. On the card each program is a CUDA graph, captured in
+  ``warmup()``, which ``start()`` calls on the caller's thread before the
+  loop thread starts, so the loop never captures. ``trace_count`` counts
+  the plain step's programs (``dl4jtpu_decode_compiled_programs_total``,
+  exactly one per engine); ``dl4jtpu_kv_compiled_programs_total`` the
+  prefill's and the copy-on-write's. A tick reads its results once: one
+  copy into pinned memory and one event wait.
+- Sampling is a pure function of (distribution, request seed, position):
+  ``serving.spec.accept.oracle_tokens``, tensor code inside the programs,
+  the one rule of the plain step, the draft, the verify and
+  ``generate_naive``. Any arrival schedule gives the same text for the
+  same seed.
 - Per-slot carries are wiped when a slot is re-claimed (reset mask), so a
   slot never sees a previous request's carries, and inactive slots'
   carries are frozen by an active mask. KV caches are positional and
@@ -20,9 +41,10 @@ and finished streams free theirs.
   block.
 - ``kv="dense"``: each slot owns ``max_len`` cache rows. ``kv="paged"``:
   the attention layers keep one block pool (serving/kv/pool.py) and the
-  engine keeps an (S, max_len / kv_block_size) int32 page table; a request
-  claims the blocks its prompt and completion need on admission (the
-  queue head waits while the pool is short) and frees them when it
+  engine keeps an (S, max_len / kv_block_size) int32 page table on the
+  host, which reaches the card only inside a program's staged inputs; a
+  request claims the blocks its prompt and completion need on admission
+  (the queue head waits while the pool is short) and frees them when it
   finishes. ``prefix_cache`` (the default, as in the JAX package) shares
   finished prompts' full blocks with later requests (kv/prefix.py), a
   partial block by copy-on-write; ``chunk_tokens`` feeds prompts that many
@@ -31,10 +53,12 @@ and finished streams free theirs.
 - ``spec``: a ``serving.spec.SpecConfig``; each tick makes at most one
   draft call, one plain step for rows still consuming their prompt and
   one verify (serving/spec/).
-- Sampling is a pure function of (distribution, request seed, position):
-  ``serving.spec.accept.oracle_token``, the one rule of the plain step,
-  the draft, the verify and ``generate_naive``. Any arrival schedule gives
-  the same text for the same seed.
+- Weights: the programs read an engine-owned parameter set. Until the
+  first ``swap_weights`` it follows the model: before a tick whose model
+  parameters moved (the containers' ``_params_version``, bumped by every
+  update and load) the model's are copied into it in place. A swap copies
+  the new weights into it at a tick boundary with no live slot: no new
+  capture.
 """
 
 from __future__ import annotations
@@ -49,19 +73,26 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.exec import get_executor
+from deeplearning4j_tpu_torch.exec.executor import (HostResult, HostStage,
+                                                    Layout, ResidentProgram)
 from deeplearning4j_tpu_torch.monitor.metrics import get_registry
 from deeplearning4j_tpu_torch.nn.layers.attention import MultiHeadAttention
-from deeplearning4j_tpu_torch.nn.layers.base import where_rows
+from deeplearning4j_tpu_torch.nn.layers.base import (copy_into, map_tree,
+                                                     where_rows)
 from deeplearning4j_tpu_torch.resilience.errors import (
     BatcherStoppedError, ServerOverloadedError)
-from deeplearning4j_tpu_torch.serving.engine import input_type_of
+from deeplearning4j_tpu_torch.serving.engine import (input_type_of,
+                                                     leaves_by_path,
+                                                     validate_swap)
 from deeplearning4j_tpu_torch.serving.kv import (BlockPool,
                                                  PoolExhaustedError,
                                                  PrefixCache,
                                                  blocks_for_span,
                                                  map_pool_leaves,
                                                  map_slot_leaves)
-from deeplearning4j_tpu_torch.serving.spec.accept import oracle_token
+from deeplearning4j_tpu_torch.serving.spec.accept import (  # noqa: F401
+    oracle_token, oracle_tokens)
 
 # decode-state keys the per-slot wipe and freeze skip (KV caches)
 POSITIONAL_KEYS = MultiHeadAttention.positional_state_keys
@@ -92,6 +123,12 @@ _SPEC_COUNTERS = {
                         "Drafted tokens accepted by target verification "
                         "(exact-match against the sampling oracle)."),
 }
+
+
+def _unsupported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what}: not ported to the PyTorch package yet (ROADMAP queue 1 "
+        "item 6)")
 
 
 class _Request:
@@ -136,7 +173,10 @@ class DecodeEngine:
         eng = DecodeEngine(net, slots=8, max_len=256, kv="paged").start()
         toks = eng.generate([3, 1, 4], max_new_tokens=32)["tokens"]
 
-    ``max_len``: positions per stream (prompt + generated). ``kv``:
+    ``max_len``: positions per stream (prompt + generated). ``eos_id``: a
+    token that ends its stream (emitted, then the slot is freed); None:
+    length only. ``precision``: None or ``"f32"`` (the int8/fp8 serving
+    precisions are not ported: ROADMAP queue 1 item 6). ``kv``:
     ``"dense"`` or ``"paged"``; a paged engine takes ``kv_block_size``
     (positions per block, dividing ``max_len``), ``kv_blocks`` (pool size;
     the default, ``slots * max_len / kv_block_size + 1``, holds every slot
@@ -151,7 +191,8 @@ class DecodeEngine:
     _ids = itertools.count()
 
     def __init__(self, model, slots: int = 8, max_len: int = 256,
-                 max_queue: int = 256, kv: str = "dense",
+                 eos_id: Optional[int] = None, max_queue: int = 256,
+                 precision: Optional[str] = None, kv: str = "dense",
                  kv_block_size: int = 16, kv_blocks: Optional[int] = None,
                  prefix_cache: bool = True,
                  chunk_tokens: Optional[int] = None,
@@ -159,7 +200,12 @@ class DecodeEngine:
         self.model = model
         self.slots = int(slots)
         self.max_len = int(max_len)
+        self.eos_id = None if eos_id is None else int(eos_id)
         self.max_queue = int(max_queue)
+        if precision not in (None, "f32"):
+            raise _unsupported(f"DecodeEngine(precision={precision!r}): "
+                               "serving precisions other than f32")
+        self.precision = "f32"
         if kv not in ("dense", "paged"):
             raise ValueError(f"kv must be 'dense' or 'paged', got {kv!r}")
         if kv == "dense" and chunk_tokens is not None:
@@ -184,24 +230,32 @@ class DecodeEngine:
         self.chunk_tokens = (int(chunk_tokens) if chunk_tokens is not None
                              else None)
         self.vocab = input_type_of(model).size
+        self.device = model.device
         self.id = f"decode{next(DecodeEngine._ids)}"
+        # the engine-owned parameter set the programs read by address
+        self._params = map_tree(lambda t: t.detach().clone(), model.params)
+        self._params_seen = getattr(model, "_params_version", 0)
+        self._swapped = False
+        self._pending_swap = None
+        self._version = 0
         self._spec = spec
         self._draft = self._verifier = None
-        if spec is not None:
-            self._build_spec(spec)
         self._pool: Optional[BlockPool] = None
         self._prefix: Optional[PrefixCache] = None
         self._tables: Optional[np.ndarray] = None
+        self._max_blocks = None
         self._pending_cows: List[tuple] = []
         if kv == "paged":
-            max_blocks = self.max_len // self.kv_block_size
+            self._max_blocks = self.max_len // self.kv_block_size
             if kv_blocks is None:
-                kv_blocks = self.slots * max_blocks + 1
+                kv_blocks = self.slots * self._max_blocks + 1
             self._pool = BlockPool(int(kv_blocks), self.kv_block_size)
-            self._tables = np.zeros((self.slots, max_blocks), np.int32)
+            self._tables = np.zeros((self.slots, self._max_blocks), np.int32)
             if prefix_cache:
                 self._check_no_carries()
                 self._prefix = PrefixCache(self._pool)
+        if spec is not None:
+            self._build_spec(spec)
         self._dstate = None
         self._slot_reqs: List[Optional[_Request]] = [None] * self.slots
         self._queue: deque = deque()
@@ -213,6 +267,12 @@ class DecodeEngine:
         self._tokens = 0
         self._requests = 0
         self._decode_seconds = 0.0
+        self.warmup_seconds = None
+        # programs: built by warmup(); captured on the card unless the
+        # eager seam (False) is set first, the oracle a measurement
+        # compares the captured engine with
+        self._capture_programs = self.device.type == "cuda"
+        self._programs = {}
         # the counters stats() reads, also published under the JAX
         # package's names
         self._n = Counter()
@@ -223,6 +283,27 @@ class DecodeEngine:
             counters.update(_SPEC_COUNTERS)
         self._m = {key: reg.counter(name, help_, ("engine",)).labels(**lab)
                    for key, (name, help_) in counters.items()}
+        self._m_compiled = reg.counter(
+            "dl4jtpu_decode_compiled_programs_total",
+            "Programs of the batched decode step: CUDA graphs captured on "
+            "the card, signatures run elsewhere (design target: exactly "
+            "one per model).", ("engine",)).labels(**lab)
+        if self._pool is not None:
+            self._m_kv_programs = reg.counter(
+                "dl4jtpu_kv_compiled_programs_total",
+                "Programs of the paged-KV side programs (chunked prefill + "
+                "copy-on-write; design target: at most one each).",
+                ("engine",)).labels(**lab)
+        self._m_version = reg.gauge(
+            "dl4jtpu_model_version",
+            "Version of the weights currently serving (0 = the model's "
+            "initial weights; bumped by every hot swap).",
+            ("engine",)).labels(**lab)
+        self._m_swaps = reg.counter(
+            "dl4jtpu_model_swaps_total",
+            "Weight hot-swaps applied with zero new captures.",
+            ("engine",)).labels(**lab)
+        self._m_version.set(0.0)
         if spec is not None:
             self._m_spec_rate = reg.gauge(
                 "dl4jtpu_spec_acceptance_rate",
@@ -254,18 +335,27 @@ class DecodeEngine:
                 "spec needs exactly one of draft_model or self_draft "
                 f"(got draft_model={dm!r}, "
                 f"self_draft={spec.self_draft!r})")
+        own = self._params
         if spec.self_draft is not None:
             dm = build_self_draft(self.model, spec)
+            # the target's first M layers and readout, in the engine's set
+            dparams = [own[i] for i in range(dm.m)] + [own[-1]]
         elif input_type_of(dm).size != self.vocab:
             raise ValueError(
                 f"draft model vocabulary ({input_type_of(dm).size}) must "
                 f"match the target's ({self.vocab})")
+        else:
+            # the target as its own draft reads the engine's set too
+            dparams = own if dm is self.model else None
+        self._spec_tree.tensors(self.device)
         self._verifier = SpecVerifier(self.model, self.slots,
-                                      self._spec_tree, self.vocab)
+                                      self._spec_tree, self.vocab,
+                                      max_blocks=self._max_blocks)
         self._draft = DraftEngine(dm, self.slots, self.max_len, self._spec_k,
                                   self.vocab,
                                   precision=spec.draft_precision,
-                                  side_k=max(self._spec_tree.kvec) - 1)
+                                  side_k=max(self._spec_tree.kvec) - 1,
+                                  params=dparams)
 
     def _check_no_carries(self):
         """The prefix cache shares KV blocks between requests; a recurrent
@@ -286,75 +376,17 @@ class DecodeEngine:
         self._n[key] += n
         self._m[key].inc(n)
 
-    # ------------------------------------------------------------ the calls
-    def _btab(self, active):
-        """The page tables with all-zero rows where ``active`` is False,
-        whose writes land in the scratch block."""
-        btab = np.where(np.asarray(active)[:, None], self._tables, 0)
-        return torch.as_tensor(btab.astype(np.int32), device=self.model.device)
+    @property
+    def trace_count(self) -> int:
+        """Programs of the plain step (one per engine)."""
+        return int(self._m_compiled.value)
 
-    @torch.no_grad()
-    def _step(self, tokens, pos, reset, active, seeds, temps, topk,
-              sample=True):
-        """ONE plain step for all S slots; scheduling rides in as masks.
-        Returns the oracle token of every active row (``sample``)."""
-        dev = self.model.device
-        reset_t = torch.as_tensor(reset, device=dev)
-        active_t = torch.as_tensor(active, device=dev)
-        dstate = map_slot_leaves(
-            lambda a: where_rows(reset_t, torch.zeros_like(a), a),
-            self._dstate, keys=POSITIONAL_KEYS)
-        x = torch.nn.functional.one_hot(
-            torch.as_tensor(tokens, dtype=torch.long, device=dev),
-            self.vocab).to(torch.float32)[:, None, :]
-        pos_t = torch.as_tensor(pos, dtype=torch.int32, device=dev)
-        kw = {} if self._pool is None else {"block_tables": self._btab(active)}
-        y, new_d = self.model.decode_step(self.model.params, dstate, x, pos_t,
-                                          **kw)
-        self._dstate = map_slot_leaves(
-            lambda n, o: where_rows(active_t, n, o), new_d, dstate,
-            keys=POSITIONAL_KEYS)
-        if not sample:
-            return None
-        logits = torch.log(y[:, 0, :].float()).cpu().numpy()
-        return np.array([oracle_token(logits[i], seeds[i], pos[i], temps[i],
-                                      topk[i]) if active[i] else 0
-                         for i in range(self.slots)], np.int64)
+    @property
+    def model_version(self) -> int:
+        return self._version
 
-    @torch.no_grad()
-    def _prefill(self, tokens, start, n, reset):
-        """Chunked prefill for all S slots in ONE call: slot i feeds
-        ``tokens[i, :n[i]]`` at positions ``start[i] ..``; ``n == 0`` rows
-        are inert (KV writes into the scratch block, carries frozen)."""
-        dev = self.model.device
-        reset_t = torch.as_tensor(reset, device=dev)
-        live_t = torch.as_tensor(n > 0, device=dev)
-        dstate = map_slot_leaves(
-            lambda a: where_rows(reset_t, torch.zeros_like(a), a),
-            self._dstate, keys=POSITIONAL_KEYS)
-        x = torch.nn.functional.one_hot(
-            torch.as_tensor(tokens, dtype=torch.long, device=dev),
-            self.vocab).to(torch.float32)
-        _, new_d = self.model.prefill_chunk(
-            self.model.params, dstate, x,
-            torch.as_tensor(start, dtype=torch.int32, device=dev),
-            torch.as_tensor(n, dtype=torch.int32, device=dev),
-            block_tables=torch.as_tensor(self._tables, device=dev))
-        self._dstate = map_slot_leaves(
-            lambda a, b: where_rows(live_t, a, b), new_d, dstate,
-            keys=POSITIONAL_KEYS)
-
-    @torch.no_grad()
-    def _cow(self, src, dst):
-        """Copy-on-write: pool block ``src`` into ``dst`` across every pool
-        leaf, in place."""
-        def copy(a):
-            a[dst] = a[src]
-            return a
-        map_pool_leaves(copy, self._dstate)
-
-    # ------------------------------------------------------------ lifecycle
-    def start(self) -> "DecodeEngine":
+    # ------------------------------------------------------------ programs
+    def _ensure_state(self):
         if self._dstate is None:
             kv = (None if self._pool is None else
                   {"num_blocks": self._pool.num_blocks,
@@ -363,7 +395,160 @@ class DecodeEngine:
                                                         self.max_len, kv=kv)
         if self._draft is not None:
             self._draft.ensure_state()
+
+    def _resident(self) -> dict:
+        return {"params": self._params, "state": self._dstate}
+
+    def _build_programs(self):
+        """Every program of the engine, each with its staged layout."""
+        if self._programs:
+            return
+        S, ex, cap = self.slots, get_executor(), self._capture_programs
+        dev = self.device
+        fields = dict(tokens=(S,), pos=(S,), reset=(S,), active=(S,),
+                      seeds=((S,), np.uint32), temps=((S,), np.float32),
+                      topk=(S,))
+        if self._pool is not None:
+            fields["tables"] = (S, self._max_blocks)
+        self._layouts = {"step": Layout(**fields)}
+        progs = {"step": ResidentProgram(ex, self._step_body, "step", cap,
+                                         self._m_compiled.inc)}
+        if self.chunk_tokens is not None:
+            self._layouts["prefill"] = Layout(
+                tokens=(S, self.chunk_tokens), start=(S,), n=(S,),
+                reset=(S,), tables=(S, self._max_blocks))
+            progs["prefill"] = ResidentProgram(
+                ex, self._prefill_body, "prefill", cap,
+                self._m_kv_programs.inc)
+        if self._prefix is not None:
+            self._layouts["cow"] = Layout(src=(1,), dst=(1,))
+            progs["cow"] = ResidentProgram(ex, self._cow_body, "cow", cap,
+                                           self._m_kv_programs.inc)
+        self._stages = {k: HostStage(l, dev) for k, l in self._layouts.items()}
+        self._step_out = HostResult((S,), dev)
+        if self._spec is not None:
+            progs["draft"] = self._draft.build(ex, cap)
+            progs["verify"] = self._verifier.build(
+                ex, cap, dict(self._resident(), props=self._draft.props,
+                              sides=self._draft.sides))
+        self._programs = progs
+
+    def program_stats(self) -> dict:
+        """Per program: its signatures (``programs``), the CUDA graphs it
+        captured and the kernel launches one replay adds."""
+        return {k: {"programs": p.programs, "captures": p.captures,
+                    "launches": [dict(g.launches) for g in p.graphs.values()]}
+                for k, p in self._programs.items()}
+
+    @torch.no_grad()
+    def _step_body(self, res, buf):
+        """ONE plain step for all S slots; scheduling rides in as masks.
+        Returns the oracle token of every active row, 0 elsewhere."""
+        f = self._layouts["step"].unpack(buf)
+        dstate = res["state"]
+        reset, active = f["reset"] != 0, f["active"] != 0
+        pos = f["pos"]
+        d0 = map_slot_leaves(
+            lambda a: where_rows(reset, torch.zeros_like(a), a), dstate,
+            keys=POSITIONAL_KEYS)
+        x = torch.nn.functional.one_hot(f["tokens"].long(), self.vocab).to(
+            torch.float32)[:, None, :]
+        kw = ({} if self._pool is None else
+              {"block_tables": torch.where(active[:, None], f["tables"], 0)})
+        y, new_d = self.model.decode_step(res["params"], d0, x, pos, **kw)
+        copy_into(dstate, map_slot_leaves(
+            lambda n, o: where_rows(active, n, o), new_d, d0,
+            keys=POSITIONAL_KEYS))
+        tok = oracle_tokens(torch.log(y[:, 0, :].float()), f["seeds"], pos,
+                            f["temps"], f["topk"])
+        return torch.where(active, tok, 0).to(torch.int32)
+
+    @torch.no_grad()
+    def _prefill_body(self, res, buf):
+        """Chunked prefill for all S slots in ONE call: slot i feeds
+        ``tokens[i, :n[i]]`` at positions ``start[i] ..``; ``n == 0`` rows
+        are inert (KV writes into the scratch block, carries frozen)."""
+        f = self._layouts["prefill"].unpack(buf)
+        dstate = res["state"]
+        reset, live = f["reset"] != 0, f["n"] > 0
+        d0 = map_slot_leaves(
+            lambda a: where_rows(reset, torch.zeros_like(a), a), dstate,
+            keys=POSITIONAL_KEYS)
+        x = torch.nn.functional.one_hot(f["tokens"].long(), self.vocab).to(
+            torch.float32)
+        _, new_d = self.model.prefill_chunk(res["params"], d0, x, f["start"],
+                                            f["n"],
+                                            block_tables=f["tables"])
+        copy_into(dstate, map_slot_leaves(
+            lambda a, b: where_rows(live, a, b), new_d, d0,
+            keys=POSITIONAL_KEYS))
+
+    @torch.no_grad()
+    def _cow_body(self, res, buf):
+        """Copy-on-write: pool block ``src`` into ``dst`` across every pool
+        leaf, in place."""
+        f = self._layouts["cow"].unpack(buf)
+        src, dst = f["src"].long(), f["dst"].long()
+        map_pool_leaves(
+            lambda a: a.index_copy_(0, dst, a.index_select(0, src)),
+            res["state"])
+
+    def _call(self, kind, fill):
+        """Stage a call's inputs (``fill`` writes them into the zeroed
+        fields) and run program ``kind``; returns its device output."""
+        stage = self._stages[kind]
+        fill(stage.open())
+        out = self._programs[kind](self._resident(), stage.tensor)
+        stage.sent()
+        return out
+
+    # ------------------------------------------------------------ lifecycle
+    def warmup(self, aot: Optional[str] = None) -> float:
+        """Run every program of the engine once, inertly, so that each is
+        captured (on the card) before the first request: the plain step
+        with every slot inactive, a prefill chunk with every ``n == 0``, a
+        scratch self-copy, an all-inert draft and an all-inert verify, as
+        the JAX engine's ``_warmup_run``. The inert calls write only where
+        idle rows park (rewritten before any read); the state found is put
+        back, so it is left bit for bit as it was. Then the programs are
+        sealed: the loop thread never captures. Returns
+        ``warmup_seconds``. ``aot`` (the JAX package's artifacts) is not
+        ported."""
+        if aot is not None:
+            raise _unsupported(f"DecodeEngine.warmup(aot={aot!r})")
+        self._ensure_state()
+        if self._thread is not None and self._thread.is_alive():
+            return self.warmup_seconds    # the loop thread owns the state
+        self._build_programs()
+        t0 = time.perf_counter()
+        keep = [self._dstate]
+        if self._draft is not None:
+            keep += [self._draft._tree, self._draft.props, self._draft.sides]
+        saved = [map_tree(lambda t: t.clone(), k) for k in keep]
+        S = self.slots
+        self._call("step", lambda f: None)
+        if "prefill" in self._programs:
+            self._call("prefill", lambda f: None)
+        if "cow" in self._programs:
+            self._call("cow", lambda f: None)
+        if self._spec is not None:
+            z = np.zeros(S, np.int64)
+            self._draft.step(np.zeros((S, self._spec_k), np.int64), z, z, z,
+                             z, z, z, np.zeros(S, np.float32), z)
+            self._verifier.stage()
+            self._verifier.run()
+        for k, s in zip(keep, saved):
+            copy_into(k, s)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        for p in self._programs.values():
+            p.seal()
+        self.warmup_seconds = time.perf_counter() - t0
+        return self.warmup_seconds
+
+    def start(self) -> "DecodeEngine":
         if self._thread is None or not self._thread.is_alive():
+            self.warmup()
             self._stop.clear()
             self._thread = threading.Thread(target=self._loop, daemon=True)
             self._thread.start()
@@ -377,6 +562,11 @@ class DecodeEngine:
             self._thread.join(timeout=10.0)
         err = BatcherStoppedError("decode engine stopped")
         with self._cv:
+            if self._pending_swap is not None:
+                # a swap staged against a stopping engine still applies
+                # (and unblocks its waiter): a restart serves the new
+                # weights
+                self._apply_swap_locked()
             pending = list(self._queue)
             self._queue.clear()
             live = [r for r in self._slot_reqs if r is not None]
@@ -401,6 +591,63 @@ class DecodeEngine:
         """All S slots busy: a new request would queue behind them."""
         with self._cv:
             return all(r is not None for r in self._slot_reqs)
+
+    # --------------------------------------------------------------- weights
+    def swap_weights(self, params, state=None, version: Optional[int] = None,
+                     timeout: Optional[float] = 60.0) -> int:
+        """Stage a same-shape weight swap and wait for it to apply.
+
+        The candidate is validated first (the same keys, shapes and
+        dtypes as the engine's parameters, else ``WeightSwapError`` with
+        the engine untouched; the port's models carry no ``state``, so a
+        non-empty one is refused too). Admission pauses, the live
+        generations finish on the old weights, and the loop applies the
+        swap at the first tick boundary with no live slot: the new weights
+        are copied into the engine's parameter set in place (no new
+        capture), the prefix cache is cleared (its KV was computed under
+        the old weights), the version bumps (``version`` when given).
+        Returns the new version."""
+        validate_swap(self._params, params, "decode params")
+        if state:
+            validate_swap({}, state, "decode state")
+        applied = threading.Event()
+        with self._cv:
+            self._pending_swap = (params, version, applied)
+            self._cv.notify_all()
+            if self._thread is None or not self._thread.is_alive():
+                self._apply_swap_locked()   # no loop running: apply now
+        if timeout is not None and not applied.wait(timeout):
+            raise TimeoutError(
+                f"decode weight swap not applied within {timeout}s "
+                f"(in-flight generations still draining)")
+        return self._version
+
+    @torch.no_grad()
+    def _apply_swap_locked(self) -> None:
+        """Apply the staged swap (the caller holds ``self._cv``; no live
+        slot)."""
+        params, version, applied = self._pending_swap
+        self._pending_swap = None
+        new = leaves_by_path(params)
+        for path, dst in leaves_by_path(self._params).items():
+            dst.copy_(torch.as_tensor(new[path]))
+        self._swapped = True
+        if self._prefix is not None:
+            self._prefix.clear()
+        self._version = (int(version) if version is not None
+                         else self._version + 1)
+        self._m_version.set(float(self._version))
+        self._m_swaps.inc()
+        applied.set()
+
+    @torch.no_grad()
+    def _follow_model(self):
+        """Until the first swap, copy the model's parameters into the
+        engine's set in place whenever they moved."""
+        v = getattr(self.model, "_params_version", 0)
+        if not self._swapped and v != self._params_seen:
+            copy_into(self._params, self.model.params)
+            self._params_seen = v
 
     # ------------------------------------------------------------ scheduler
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 32,
@@ -447,6 +694,8 @@ class DecodeEngine:
                            top_k).result(timeout=timeout)
 
     def _admit_locked(self):
+        if self._pending_swap is not None:
+            return          # admission pauses so that live slots drain
         blocked = False
         for i in range(self.slots):
             if not self._queue:
@@ -538,17 +787,24 @@ class DecodeEngine:
             r.future.set_exception(err)
 
     def _emit(self, r, tok, now) -> bool:
-        """Append one generated token; True when the stream is done."""
+        """Append one generated token; True when the stream is done (its
+        ``eos_id``, or its length)."""
         r.generated.append(tok)
         self._tokens += 1
         if r.t_first is None:
             r.t_first = now
         r.t_last = now
-        return len(r.generated) >= r.max_new
+        return ((self.eos_id is not None and tok == self.eos_id)
+                or len(r.generated) >= r.max_new)
 
     def _loop(self):
         while not self._stop.is_set():
             with self._cv:
+                if (self._pending_swap is not None
+                        and all(r is None for r in self._slot_reqs)):
+                    # a tick boundary with no live slot: every generation
+                    # in flight ran end to end on the old weights
+                    self._apply_swap_locked()
                 self._admit_locked()
                 live = [(i, r) for i, r in enumerate(self._slot_reqs)
                         if r is not None]
@@ -561,33 +817,20 @@ class DecodeEngine:
                 self._fail(live, e)
 
     def _tick(self, live):
-        S = self.slots
+        self._follow_model()
         if self._pending_cows:
             # before the claimer's first call reads or overwrites the copy
             cows, self._pending_cows = self._pending_cows, []
             for src, dst in cows:
-                self._cow(src, dst)
+                def fill(f, src=src, dst=dst):
+                    f["src"][0], f["dst"][0] = src, dst
+                self._call("cow", fill)
                 self._pool.decref(src)
                 self._inc("cow_copies")
         if self.chunk_tokens is not None:
             pre = [(i, r) for i, r in live if r.cursor < len(r.prompt) - 1]
             if pre:
-                K = self.chunk_tokens
-                ptok = np.zeros((S, K), np.int64)
-                pstart = np.zeros(S, np.int64)
-                pn = np.zeros(S, np.int64)
-                preset = np.zeros(S, bool)
-                for i, r in pre:
-                    k = min(K, len(r.prompt) - 1 - r.cursor)
-                    ptok[i, :k] = r.prompt[r.cursor:r.cursor + k]
-                    pstart[i] = r.cursor
-                    pn[i] = k
-                    preset[i] = r.fresh
-                    r.fresh = False
-                    r.cursor += k
-                self._prefill(ptok, pstart, pn, preset)
-                self._inc("prefill_chunks", len(pre))
-                self._inc("prefill_tokens", int(pn.sum()))
+                self._prefill(pre)
             # slots whose prompt is consumed up to its last token step now
             live = [(i, r) for i, r in live if r.cursor >= len(r.prompt) - 1]
             if not live:
@@ -595,9 +838,8 @@ class DecodeEngine:
         if self._spec is not None:
             self._tick_spec(live)
             return
-        args = self._step_args(live)
         t0 = time.perf_counter()
-        nt = self._step(*args)
+        nt = self._step_out.read(self._step(live))
         now = time.perf_counter()
         self._decode_seconds += now - t0
         self._steps += 1
@@ -608,40 +850,57 @@ class DecodeEngine:
             if self._emit(r, int(nt[i]), now):
                 self._finish(i, r)
 
-    def _step_args(self, rows):
-        """The plain step's (S,) arrays with ``rows`` active. Every other
-        occupied slot is fed nothing and writes at its cursor, the position
-        it feeds next."""
-        S = self.slots
-        tokens = np.zeros(S, np.int64)
-        pos = np.zeros(S, np.int64)
-        reset = np.zeros(S, bool)
-        active = np.zeros(S, bool)
-        seeds = np.zeros(S, np.int64)
-        temps = np.zeros(S, np.float32)
-        topk = np.zeros(S, np.int64)
-        for i, r in enumerate(self._slot_reqs):
-            if r is not None:
-                pos[i] = min(r.cursor, self.max_len - 1)
-        for i, r in rows:
-            active[i] = True
-            reset[i] = r.fresh
-            r.fresh = False
-            tokens[i] = r.token_at(r.cursor)
-            seeds[i] = r.seed & 0xFFFFFFFF
-            temps[i] = r.temperature
-            topk[i] = r.top_k
-        return tokens, pos, reset, active, seeds, temps, topk
+    def _prefill(self, pre):
+        """One chunk of every row in ``pre`` (rows still consuming their
+        prompt), ``chunk_tokens`` positions at most."""
+        K = self.chunk_tokens
+        fed = [0]
+
+        def fill(f):
+            f["tables"][...] = self._tables
+            for i, r in pre:
+                k = min(K, len(r.prompt) - 1 - r.cursor)
+                f["tokens"][i, :k] = r.prompt[r.cursor:r.cursor + k]
+                f["start"][i] = r.cursor
+                f["n"][i] = k
+                f["reset"][i] = r.fresh
+                r.fresh = False
+                r.cursor += k
+                fed[0] += k
+        self._call("prefill", fill)
+        self._inc("prefill_chunks", len(pre))
+        self._inc("prefill_tokens", fed[0])
+
+    def _step(self, rows):
+        """The plain step with ``rows`` active; returns its device output.
+        Every other occupied slot is fed nothing and writes at its cursor,
+        the position it feeds next."""
+        def fill(f):
+            for i, r in enumerate(self._slot_reqs):
+                if r is not None:
+                    f["pos"][i] = min(r.cursor, self.max_len - 1)
+            for i, r in rows:
+                f["active"][i] = 1
+                f["reset"][i] = r.fresh
+                r.fresh = False
+                f["tokens"][i] = r.token_at(r.cursor)
+                f["seeds"][i] = r.seed & 0xFFFFFFFF
+                f["temps"][i] = r.temperature
+                f["topk"][i] = r.top_k
+            if self._pool is not None:
+                f["tables"][...] = self._tables
+        return self._call("step", fill)
 
     # ------------------------------------------------------- speculative tick
     def _tick_spec(self, live):
         """One speculative iteration: at most one draft call (prompt
         catch-up rows and ready rows share it), one plain step for rows
-        still consuming their prompt (its token ignored), and one verify
-        of every ready row's tree. A row is ready once the draft has caught
-        up with the target's cursor; catch-up feeds the known stream
-        (prompt and generated), which also resyncs the draft after a
-        side-branch acceptance left it behind."""
+        still consuming their prompt (its tokens ignored), and one verify
+        of every ready row's tree, whose result is the tick's one read. A
+        row is ready once the draft has caught up with the target's
+        cursor; catch-up feeds the known stream (prompt and generated),
+        which also resyncs the draft after a side-branch acceptance left
+        it behind."""
         S, K, tr = self.slots, self._spec_k, self._spec_tree
         catchup, ready, tpre = [], [], []
         for i, r in live:
@@ -657,8 +916,8 @@ class DecodeEngine:
                            self.max_len - r.cursor)
                 if n_in > 0:
                     ready.append((i, r, n_in))
-        given = np.zeros((S, K), np.int64)
         if catchup or ready:
+            given = np.zeros((S, K), np.int64)
             n_given = np.zeros(S, np.int64)
             n_steps = np.zeros(S, np.int64)
             dpos = np.zeros(S, np.int64)
@@ -692,48 +951,36 @@ class DecodeEngine:
                 dseeds[i] = r.seed & 0xFFFFFFFF
                 dtemps[i] = r.temperature
                 dtopk[i] = r.top_k
-            dprops, dsides = self._draft.step(given, n_given, n_steps, dpos,
-                                              sel, dreset, dseeds, dtemps,
-                                              dtopk)
+            self._draft.step(given, n_given, n_steps, dpos, sel, dreset,
+                             dseeds, dtemps, dtopk)
         if tpre:
             t0 = time.perf_counter()
-            self._step(*self._step_args(tpre), sample=False)
+            self._step(tpre)
             self._decode_seconds += time.perf_counter() - t0
             self._steps += 1
             for _, r in tpre:
                 r.cursor += 1
         if not ready:
             return
-        vtok = np.zeros((S, tr.n_nodes), np.int64)
-        vpos = np.zeros(S, np.int64)
-        vn = np.zeros(S, np.int64)
-        vreset = np.zeros(S, bool)
-        vseeds = np.zeros(S, np.int64)
-        vtemps = np.zeros(S, np.float32)
-        vtopk = np.zeros(S, np.int64)
+        f = self._verifier.stage()
         for i, r in enumerate(self._slot_reqs):
             if r is not None:
-                vpos[i] = min(r.cursor, self.max_len - 1)
+                f["pos0"][i] = min(r.cursor, self.max_len - 1)
         for i, r, n_in in ready:
-            # node 0: the last emitted (or last prompt) token; each depth's
-            # group: the draft's own token, then its alternatives
-            vtok[i, 0] = given[i, 0]
-            for dd in range(1, tr.d + 1):
-                fst, kd = int(tr.first[dd - 1]), tr.kvec[dd - 1]
-                vtok[i, fst] = dprops[i, dd - 1]
-                vtok[i, fst + 1:fst + kd] = dsides[i, dd - 1, :kd - 1]
-            vpos[i] = r.cursor
-            vn[i] = n_in
-            vreset[i] = r.fresh
+            # node 0: the last emitted (or last prompt) token; the draft's
+            # proposals fill the other nodes on the card
+            f["node0"][i] = r.token_at(r.cursor)
+            f["pos0"][i] = r.cursor
+            f["n_in"][i] = n_in
+            f["reset"][i] = r.fresh
             r.fresh = False
-            vseeds[i] = r.seed & 0xFFFFFFFF
-            vtemps[i] = r.temperature
-            vtopk[i] = r.top_k
-        btab = None if self._pool is None else self._btab(vn > 0)
+            f["seeds"][i] = r.seed & 0xFFFFFFFF
+            f["temps"][i] = r.temperature
+            f["topk"][i] = r.top_k
+        if self._pool is not None:
+            f["tables"][...] = self._tables
         t0 = time.perf_counter()
-        etoks, acc, emit, sacc, self._dstate = self._verifier.run(
-            self._dstate, vtok, vpos, vn, vreset, vseeds, vtemps, vtopk,
-            btab=btab)
+        etoks, acc, emit, sacc = self._verifier.run()
         now = time.perf_counter()
         self._decode_seconds += now - t0
         self._steps += 1
@@ -746,6 +993,7 @@ class DecodeEngine:
             p0, consumed, finished = r.cursor, 0, False
             for j in range(int(emit[i])):
                 consumed += 1
+                # the accepted run is cut at its first eos_id
                 if self._emit(r, int(etoks[i, j]), now) \
                         or r.cursor + consumed >= self.max_len:
                     finished = True
@@ -779,7 +1027,8 @@ class DecodeEngine:
                   "blocks_cached": self._pool.cached_count,
                   "high_water": self._pool.high_water,
                   "prefix_cache": self._prefix is not None,
-                  "chunk_tokens": self.chunk_tokens}
+                  "chunk_tokens": self.chunk_tokens,
+                  "kv_programs": int(self._m_kv_programs.value)}
             kv.update({k: int(self._n[k]) for k in _KV_COUNTERS})
             if self._prefix is not None:
                 kv["chain_heads"] = self._prefix.chain_heads()
@@ -799,37 +1048,54 @@ class DecodeEngine:
                                         else 0.0),
                     "mean_accepted_depth": (depth.sum / depth.count
                                             if depth.count else 0.0),
+                    "verify_programs": self._verifier.programs,
+                    "draft_programs": self._draft.programs,
                     "verifies": self._verifier.calls,
                     "draft_calls": self._draft.calls,
                     "draft_steps": self._draft.steps}
         return {"id": self.id, "slots": self.slots, "max_len": self.max_len,
-                "kv": kv, "spec": spec,
+                "kv": kv, "spec": spec, "precision": self.precision,
+                "model_version": self._version,
                 "occupied_slots": occupied, "queued_requests": queued,
+                "compiled_programs": self.trace_count,
                 "steps": self._steps, "tokens": self._tokens,
                 "requests": self._requests,
                 "decode_seconds": self._decode_seconds,
                 "tokens_per_second": (self._tokens / self._decode_seconds
-                                      if self._decode_seconds else 0.0)}
+                                      if self._decode_seconds else 0.0),
+                "warmup_seconds": self.warmup_seconds}
 
 
 @torch.no_grad()
 def generate_naive(model, prompt: Sequence[int], max_new_tokens: int,
-                   seed: int = 0, temperature: float = 0.0,
+                   max_len: int, seed: int = 0, temperature: float = 0.0,
                    top_k: int = 0) -> dict:
     """Baseline generator: re-runs the FULL prefix forward for every token
     (the model's own ``_forward``: the stacked-LSTM kernel, or the flash
-    attention kernel) with the same sampling rule as DecodeEngine, so
-    greedy outputs match the engine token for token."""
-    vocab = input_type_of(model).size
+    attention kernel) with the same sampling rule as DecodeEngine
+    (``oracle_tokens``), so greedy outputs match the engine token for
+    token. ``max_len`` bounds prompt plus new tokens, as in the JAX
+    package."""
     toks = [int(t) for t in prompt]
-    eye = torch.eye(vocab, dtype=torch.float32, device=model.device)
+    if len(toks) + max_new_tokens > max_len:
+        raise ValueError("prompt + max_new_tokens exceeds max_len")
+    vocab = input_type_of(model).size
+    dev = model.device
+    eye = torch.eye(vocab, dtype=torch.float32, device=dev)
+
+    def one(v, dt):
+        return torch.tensor([v], dtype=dt, device=dev)
+    seed_t = one(int(seed) & 0xFFFFFFFF, torch.int64)
+    temp_t = one(float(temperature), torch.float32)
+    topk_t = one(int(top_k), torch.int64)
     out = []
     for _ in range(max_new_tokens):
-        x = eye[torch.as_tensor(toks, device=model.device)][None]
+        x = eye[torch.as_tensor(toks, device=dev)][None]
         probs, _ = model._forward(model.params, x)
         last = len(toks) - 1
-        logits = torch.log(probs[0, last].float()).cpu().numpy()
-        tok = oracle_token(logits, seed, last, temperature, top_k)
+        tok = int(oracle_tokens(torch.log(probs[0, last:last + 1].float()),
+                                seed_t, one(last, torch.int64), temp_t,
+                                topk_t)[0])
         out.append(tok)
         toks.append(tok)
     return {"tokens": out, "prompt_len": len(prompt)}

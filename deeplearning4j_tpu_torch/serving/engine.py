@@ -17,6 +17,8 @@ from typing import List
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.resilience.errors import WeightSwapError
+
 
 def input_type_of(model):
     """The model's declared input type: ``conf.input_types[0]`` for a
@@ -26,6 +28,48 @@ def input_type_of(model):
     if hasattr(conf, "network_inputs"):
         return conf.input_types[0] if conf.input_types else None
     return conf.input_type
+
+
+def leaves_by_path(tree, prefix=""):
+    """``{path: leaf}`` of a tree of dicts and lists of tensors or numpy
+    arrays, paths as the checkpoint's (``0/W``; a nested ``{"fwd": {"W":
+    w}}`` and a flat ``{"fwd/W": w}`` give the same ``0/fwd/W``)."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for k, v in items:
+        out.update(leaves_by_path(v, f"{prefix}/{k}" if prefix else str(k)))
+    return out
+
+
+def _tree_signature(tree):
+    """Flattened ``{path: (shape, dtype)}``: the swap compatibility key."""
+    return {k: (tuple(v.shape), str(torch.as_tensor(v).dtype))
+            for k, v in leaves_by_path(tree).items()}
+
+
+def validate_swap(current, candidate, what: str = "params") -> None:
+    """Reject a hot-swap candidate whose tree does not match the live
+    weights array for array (path set, shapes, dtypes), before any engine
+    state is touched: a rejected swap is a no-op."""
+    cur, new = _tree_signature(current), _tree_signature(candidate)
+    problems = []
+    for key in sorted(set(cur) - set(new)):
+        problems.append(f"missing array {key!r}")
+    for key in sorted(set(new) - set(cur)):
+        problems.append(f"unexpected array {key!r}")
+    for key in sorted(set(cur) & set(new)):
+        if cur[key] != new[key]:
+            problems.append(
+                f"{key!r} expected {cur[key][0]}/{cur[key][1]}, "
+                f"got {new[key][0]}/{new[key][1]}")
+    if problems:
+        raise WeightSwapError(
+            f"candidate {what} incompatible with live weights", problems)
 
 
 def bucket_for(n: int, max_batch: int, min_bucket: int = 1) -> int:

@@ -6,12 +6,15 @@ draft, the verify and the plain step share one sampling rule
 
 Counterpart of deeplearning4j_tpu/serving/spec/. Modules:
 
-- ``accept.py`` -- ``oracle_token`` and ``accept_length``;
-- ``tree.py`` -- static tree shapes and the acceptance walk;
-- ``draft.py`` -- the draft scan (spine and side proposals, carry
-  snapshot stacks for rewind);
-- ``verify.py`` -- the batched target ``tree_chunk``, then the accepted
-  path's ``tree_commit`` and the carries' rewind;
+- ``accept.py`` -- the sampling rule ``oracle_tokens`` (tensor code, run
+  inside the programs) and ``accept_length``;
+- ``tree.py`` -- static tree shapes, their device tables and the
+  acceptance walk;
+- ``draft.py`` -- the draft program (spine and side proposals over all
+  k positions, carry snapshot stacks for rewind);
+- ``verify.py`` -- the verify program: the batched target ``tree_chunk``,
+  the rule at every node, the walk, the carries' rewind and the accepted
+  path's ``tree_commit``;
 - ``rewind.py`` -- carry and positional decode state;
 - ``selfdraft.py`` -- the target as its own draft (``early_exit:M``).
 
@@ -24,7 +27,8 @@ from dataclasses import dataclass
 from typing import Any, Optional, Tuple
 
 from deeplearning4j_tpu_torch.serving.spec.accept import (accept_length,
-                                                          oracle_token)
+                                                          oracle_token,
+                                                          oracle_tokens)
 from deeplearning4j_tpu_torch.serving.spec.draft import DraftEngine
 from deeplearning4j_tpu_torch.serving.spec.tree import TreeSpec, parse_kvec
 from deeplearning4j_tpu_torch.serving.spec.verify import SpecVerifier
@@ -56,4 +60,4 @@ class SpecConfig:
 
 
 __all__ = ["SpecConfig", "DraftEngine", "SpecVerifier", "TreeSpec",
-           "parse_kvec", "accept_length", "oracle_token"]
+           "parse_kvec", "accept_length", "oracle_token", "oracle_tokens"]

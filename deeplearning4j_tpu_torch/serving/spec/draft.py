@@ -3,24 +3,26 @@ a scheduler tick.
 
 Counterpart of deeplearning4j_tpu/serving/spec/draft.py. The draft's state
 is slot-aligned with the owning engine's: slot i shadows slot i. One call
-steps the draft model's ``decode_step`` over up to ``k`` positions for
-all S slots at once: position t feeds ``given[:, t]`` while t < n_given
-(prompt or correction tokens from the host), the draft's own previous
-proposal after that, and proposes through the engine's sampling rule
-(``oracle_token``) at the stream's (seed, position), so under sampling the
-draft's draw shares the target's noise. Each position also yields
-``side_k`` alternatives (the best other tokens, the proposal masked out)
-for the tree's side branches.
+is ONE program (exec.ResidentProgram): it steps the draft model's
+``decode_step`` over all ``k`` positions for all S slots, as the JAX
+package's ``lax.scan`` does, whatever the rows ask for; position t feeds
+``given[:, t]`` while t < n_given (prompt or correction tokens from the
+host), the draft's own previous proposal after that, and proposes through
+the engine's sampling rule (``oracle_tokens``, on the card) at the
+stream's (seed, position), so under sampling the draft's draw shares the
+target's noise. Positions at or past a row's step count are inert: its
+carries stay frozen and its proposals are 0. Each position also yields
+``side_k`` alternatives (the best other tokens, the proposal masked out,
+a stable descending sort so ties go to the lower id) for the tree's side
+branches. The proposals land in the resident ``props`` / ``sides``
+tensors, which the verify program reads on the card: nothing comes back
+to the host.
 
 Recurrent carries are snapshotted after every position in (S, k, ...)
 stacks; the next call resumes each slot from stack entry ``sel``.
 Attention KV is always dense here and positional: a row past its step
 count, or a slot outside this call, writes at the position its stream
 feeds next, which is rewritten before it is read.
-
-The sampling rule runs on the host, so each position copies the (S, V)
-log-probabilities from the card before the next can be fed; the JAX
-package scans all k positions inside one program.
 """
 
 from __future__ import annotations
@@ -28,28 +30,32 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.exec.executor import (HostStage, Layout,
+                                                    ResidentProgram)
 from deeplearning4j_tpu_torch.nn.layers.base import where_rows
-from deeplearning4j_tpu_torch.serving.spec.accept import oracle_token
+from deeplearning4j_tpu_torch.serving.spec.accept import oracle_tokens
 from deeplearning4j_tpu_torch.serving.spec.rewind import map_state
 from deeplearning4j_tpu_torch.serving.spec.selfdraft import quant_not_ported
 
 
-def side_tokens(logits: np.ndarray, prop: int, side_k: int) -> np.ndarray:
-    """The ``side_k`` best tokens of one row other than ``prop``, best
-    first, ties to the lower id."""
-    masked = logits.astype(np.float64).copy()
-    masked[prop] = -np.inf
-    return np.argsort(-masked, kind="stable")[:side_k]
+def side_tokens(logits, props, side_k):
+    """The ``side_k`` best tokens of each row of ``logits`` (S, V) other
+    than ``props`` (S,), best first, ties to the lower id."""
+    masked = logits.scatter(1, props[:, None], float("-inf"))
+    order = torch.sort(masked, dim=1, descending=True, stable=True).indices
+    return order[:, :side_k]
 
 
 class DraftEngine:
     """Tree-draft proposer for one DecodeEngine. ``k``: positions a call
     (the tree's depth + 1, the extra one keeping a resume snapshot at full
     acceptance); ``side_k``: alternatives a position (0 for a linear
-    draft). ``precision`` (int8/fp8 weights) is not ported and raises."""
+    draft); ``params``: the parameter set the program reads (the draft
+    model's own by default). ``precision`` (int8/fp8 weights) is not
+    ported and raises."""
 
     def __init__(self, model, slots, max_len, k, vocab, precision=None,
-                 side_k=0):
+                 side_k=0, params=None):
         if precision is not None:
             raise quant_not_ported(f"draft_precision={precision!r}")
         self.model = model
@@ -58,13 +64,26 @@ class DraftEngine:
         self.k = int(k)
         self.side_k = int(side_k)
         self.vocab = int(vocab)
+        self.params = model.params if params is None else params
         self.calls = 0           # draft calls
         self.steps = 0           # batched decode steps of the draft model
         self._tree = None
+        self.props = self.sides = None
+        S, K = self.slots, self.k
+        self.layout = Layout(given=(S, K), n_given=(S,), n_steps=(S,),
+                             pos0=(S,), sel=(S,), reset=(S,),
+                             seeds=((S,), np.uint32),
+                             temps=((S,), np.float32), topk=(S,))
+        self._program = self._stage = None
+
+    @property
+    def programs(self) -> int:
+        """Programs of the draft (captured graphs on the card)."""
+        return 0 if self._program is None else self._program.programs
 
     def ensure_state(self):
         """The draft's decode state (dense KV), every carry leaf widened to
-        an (S, k, ...) snapshot stack."""
+        an (S, k, ...) snapshot stack, and the resident proposals."""
         if self._tree is None:
             base = self.model.init_decode_state(self.slots, self.max_len)
             self._tree = map_state(
@@ -73,8 +92,25 @@ class DraftEngine:
                     (a.shape[0], self.k) + tuple(a.shape[1:]),
                     dtype=a.dtype, device=a.device),
                 on_positional=lambda a: a)
+            dev = self.model.device
+            self.props = torch.zeros((self.slots, self.k), dtype=torch.int64,
+                                     device=dev)
+            self.sides = torch.zeros((self.slots, self.k, self.side_k),
+                                     dtype=torch.int64, device=dev)
 
-    @torch.no_grad()
+    def resident(self) -> dict:
+        """What the draft program reads and writes by address."""
+        return {"params": self.params, "state": self._tree,
+                "props": self.props, "sides": self.sides}
+
+    def build(self, executor, capture):
+        """The draft program (``capture=False``: eager on the card)."""
+        self.ensure_state()
+        self._program = ResidentProgram(executor, self._run, "draft",
+                                        capture=capture)
+        self._stage = HostStage(self.layout, self.model.device)
+        return self._program
+
     def step(self, given, n_given, n_steps, pos0, sel, reset, seeds, temps,
              topk):
         """One draft tick for all S slots (numpy (S,) arrays, ``given``
@@ -82,62 +118,69 @@ class DraftEngine:
         a zero wipe where ``reset``), feeds ``given[i, :n_given[i]]`` then
         its own proposals for ``n_steps[i]`` positions from ``pos0[i]`` (0
         = an inert slot, its snapshots unchanged; its KV writes go to
-        ``pos0[i]``, the position it feeds next). Returns the (S, k) spine
-        proposals and the (S, k, side_k) alternatives."""
-        self.ensure_state()
+        ``pos0[i]``, the position it feeds next). Returns the resident
+        (S, k) spine proposals and (S, k, side_k) alternatives, which the
+        program just wrote on the device."""
+        f = self._stage.open()
+        for name, v in (("given", given), ("n_given", n_given),
+                        ("n_steps", n_steps), ("pos0", pos0), ("sel", sel),
+                        ("reset", reset), ("seeds", seeds),
+                        ("temps", temps), ("topk", topk)):
+            f[name][...] = v
+        self._program(self.resident(), self._stage.tensor)
+        self._stage.sent()
+        self.calls += 1
+        self.steps += self.k
+        return self.props, self.sides
+
+    @torch.no_grad()
+    def _run(self, res, buf):
+        """The program body: all ``k`` positions, then the snapshot stacks,
+        proposals and alternatives written into the resident tensors."""
+        f = self.layout.unpack(buf)
         S, K, m = self.slots, self.k, self.model
-        dev = m.device
-        n_steps = np.asarray(n_steps)
-        live_rows = torch.as_tensor(n_steps > 0, device=dev)
-        reset_t = torch.as_tensor(np.asarray(reset, bool), device=dev)
+        dev = buf.device
+        params = res["params"]
+        given = f["given"].long()
+        n_given, n_steps = f["n_given"].long(), f["n_steps"].long()
+        pos0, sel = f["pos0"].long(), f["sel"].long()
+        reset = f["reset"] != 0
+        seeds, temps, topk = f["seeds"], f["temps"], f["topk"]
+        live_rows = n_steps > 0
         rows = torch.arange(S, device=dev)
-        sel_t = torch.as_tensor(np.asarray(sel), device=dev).long()
-        stacks0 = map_state(m, self._tree,
+        stacks0 = map_state(m, res["state"],
                             on_carry=lambda a: where_rows(
-                                reset_t, torch.zeros_like(a), a),
+                                reset, torch.zeros_like(a), a),
                             on_positional=lambda a: a)
-        d = map_state(m, stacks0, on_carry=lambda a: a[rows, sel_t],
+        d = map_state(m, stacks0, on_carry=lambda a: a[rows, sel],
                       on_positional=lambda a: a)
-        props = np.zeros((S, K), np.int64)
-        sides = np.zeros((S, K, self.side_k), np.int64)
-        eye = torch.eye(self.vocab, dtype=torch.float32, device=dev)
-        snaps = []
-        prev = np.zeros(S, np.int64)
-        for t in range(int(n_steps.max(initial=0))):
-            tok = np.where(t < np.asarray(n_given), np.asarray(given)[:, t],
-                           prev)
-            pos = np.minimum(np.asarray(pos0) + np.minimum(t, n_steps),
-                             self.max_len - 1)
-            y, nd = m.decode_step(
-                m.params, d, eye[torch.as_tensor(tok, device=dev)][:, None],
-                torch.as_tensor(pos, dtype=torch.int32, device=dev))
-            self.steps += 1
+        snaps, props, sides = [], [], []
+        prev = torch.zeros(S, dtype=torch.int64, device=dev)
+        for t in range(K):
+            tok = torch.where(t < n_given, given[:, t], prev)
+            pos = (pos0 + n_steps.clamp(max=t)).clamp(max=self.max_len - 1)
+            x = torch.nn.functional.one_hot(tok, self.vocab).to(
+                torch.float32)[:, None]
+            y, nd = m.decode_step(params, d, x, pos.to(torch.int32))
             live = t < n_steps
-            live_t = torch.as_tensor(live, device=dev)
             d = map_state(m, nd,
-                          on_carry=lambda a, b: where_rows(live_t, a, b),
+                          on_carry=lambda a, b: where_rows(live, a, b),
                           on_positional=lambda a, b: a, rest=(d,))
             snaps.append(d)
-            logits = torch.log(y[:, 0, :].float()).cpu().numpy()
-            for i in np.flatnonzero(live):
-                props[i, t] = oracle_token(logits[i], seeds[i], pos0[i] + t,
-                                           temps[i], topk[i])
-                if self.side_k:
-                    sides[i, t] = side_tokens(logits[i], props[i, t],
-                                              self.side_k)
-            prev = props[:, t]
-        if snaps:
-            T = len(snaps)
+            logits = torch.log(y[:, 0, :].float())
+            p = torch.where(live, oracle_tokens(logits, seeds, pos0 + t,
+                                                temps, topk), 0)
+            props.append(p)
+            if self.side_k:
+                sides.append(torch.where(
+                    live[:, None], side_tokens(logits, p, self.side_k), 0))
+            prev = p
 
-            def restack(old, *snap):
-                new = old.clone()
-                new[:, :T] = torch.stack(snap, dim=1)
-                return where_rows(live_rows, new, old)
-            self._tree = map_state(m, stacks0, on_carry=restack,
-                                   on_positional=lambda a, *s: a,
-                                   rest=tuple(snaps))
-        else:
-            self._tree = stacks0
-        self.calls += 1
-        return props, sides
-
+        def restack(old, *snap):
+            return where_rows(live_rows, torch.stack(snap, dim=1), old)
+        map_state(m, stacks0, on_carry=restack,
+                  on_positional=lambda a, *s: a, rest=tuple(snaps),
+                  into=res["state"])
+        res["props"].copy_(torch.stack(props, dim=1))
+        if self.side_k:
+            res["sides"].copy_(torch.stack(sides, dim=1))

@@ -14,12 +14,15 @@ accepted prefix:
 
 The helpers walk a model's decode state (a list for a MultiLayerNetwork,
 a dict by node name for a ComputationGraph) with the owning layer in
-hand.
+hand. Inside a program the result is written into the resident state
+(``into``): new carries and stacks are copied into its tensors, which a
+captured graph reads and writes by address; positional leaves are the
+resident ones already.
 """
 
 from __future__ import annotations
 
-from deeplearning4j_tpu_torch.nn.layers.base import map_tree
+from deeplearning4j_tpu_torch.nn.layers.base import copy_into, map_tree
 
 
 def layer_entries(model):
@@ -45,23 +48,26 @@ def _map_sub(sub, pos_keys, on_carry, on_positional, rest):
     return map_tree(on_carry, sub, *rest)
 
 
-def map_state(model, dstate, on_carry, on_positional, rest=()):
+def map_state(model, dstate, on_carry, on_positional, rest=(), into=None):
     """``dstate`` rebuilt with ``on_carry`` over carry leaves and
     ``on_positional`` over positional ones; the matching leaves of the
-    ``rest`` trees ride along as extra arguments."""
+    ``rest`` trees ride along as extra arguments. With ``into`` (a state
+    of the same structure) the result is copied into it in place, and
+    ``into`` returned."""
     out = dict(dstate) if isinstance(dstate, dict) else list(dstate)
     for key, layer in layer_entries(model):
         pos_keys = frozenset(getattr(layer, "positional_state_keys", ()))
         out[key] = _map_sub(dstate[key], pos_keys, on_carry, on_positional,
                             [r[key] for r in rest])
-    return out
+    return out if into is None else copy_into(into, out)
 
 
 def rewound_state(model, new_d, stacks, idx, rows):
     """Post-verify state: positional leaves pass through; a layer that
     returned a carry snapshot stack (K, B, ...) is rolled back to
     ``stack[idx, rows]`` (the carry after each row's last emitted
-    token)."""
+    token). The verify program copies the state it ends with (after the
+    commit and the freeze) into the resident one."""
     out = dict(new_d) if isinstance(new_d, dict) else list(new_d)
     for key, _layer in layer_entries(model):
         st = stacks[key]

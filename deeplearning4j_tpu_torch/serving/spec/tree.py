@@ -6,13 +6,19 @@ has ``k_d`` children, the draft's own token first (the spine
 continuation) and ``k_d - 1`` alternatives with the spine token masked
 out, so siblings are distinct and at most one can match the oracle. Side
 nodes are leaves. A linear draft is the ``(1,) * k`` tree. The tables are
-numpy, and so is the acceptance walk: here it runs on the host, over the
-oracle tokens of every node.
+numpy on the host; ``tensors(device)`` holds them as device tensors, built
+once per device (an engine builds its own at construction, so that no
+program copies them in). The acceptance walk is tensor code, a static
+loop over the depths, run inside the verify program as the JAX package
+traces its walk into its own.
 """
 
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import numpy as np
+import torch
 
 
 def parse_kvec(text):
@@ -67,6 +73,24 @@ class TreeSpec:
             aad[n, :len(chain)] = chain
             aad[n, len(chain):] = n
         self.anc_at_depth = aad
+        self._tensors = {}
+
+    def tensors(self, device) -> SimpleNamespace:
+        """The tables (``parent``, ``depth``, ``spine``, ``first``,
+        ``anc_at_depth``) as int64 tensors on ``device``, built at the first
+        call for that device and kept."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        key = str(device)
+        t = self._tensors.get(key)
+        if t is None:
+            t = self._tensors[key] = SimpleNamespace(**{
+                name: torch.as_tensor(getattr(self, name),
+                                      device=device).long()
+                for name in ("parent", "depth", "spine", "first",
+                             "anc_at_depth")})
+        return t
 
     def ancestor_matrix(self) -> np.ndarray:
         """(N, N) bool: ``anc[i, j]`` when node j is on node i's
@@ -78,7 +102,8 @@ class TreeSpec:
         return anc
 
     def walk(self, node_tokens, oracle, n_in):
-        """The longest accepted root-path of every row. ``node_tokens`` /
+        """The longest accepted root-path of every row, as tensors on the
+        inputs' device (numpy inputs run on the CPU). ``node_tokens`` /
         ``oracle`` (S, N): each node's drafted token and the oracle token
         the target gives AFTER that node's path; ``n_in`` (S,): the emit
         budget (0 = an inert row). A depth-d node extends the path when the
@@ -89,29 +114,29 @@ class TreeSpec:
         most n_in - 1), the tokens to emit (a + 1, 0 for inert rows), the
         accepted prefix that followed the draft's own spine, and (S, D+1)
         the path's node at each depth (saturating past ``a``)."""
-        node_tokens = np.asarray(node_tokens)
-        oracle = np.asarray(oracle)
-        n_in = np.asarray(n_in)
+        node_tokens = torch.as_tensor(node_tokens).long()
+        dev = node_tokens.device
+        oracle = torch.as_tensor(oracle, device=dev).long()
+        n_in = torch.as_tensor(n_in, device=dev).long()
         S = node_tokens.shape[0]
-        rows = np.arange(S)
-        cur = np.zeros(S, np.int64)
-        a = np.zeros(S, np.int64)
-        ok = np.ones(S, bool)
-        on_spine = np.ones(S, bool)
-        spine_acc = np.zeros(S, np.int64)
+        cur = torch.zeros(S, dtype=torch.int64, device=dev)
+        a = torch.zeros_like(cur)
+        ok = torch.ones(S, dtype=torch.bool, device=dev)
+        on_spine = torch.ones_like(ok)
+        spine_acc = torch.zeros_like(cur)
         path = [cur]
         for dd in range(1, self.d + 1):
             f, kd = int(self.first[dd - 1]), self.kvec[dd - 1]
-            want = oracle[rows, cur]
-            m = node_tokens[:, f:f + kd] == want[:, None]
-            hit = (m.any(axis=1) & ok & (cur == int(self.spine[dd - 1]))
+            want = oracle.gather(1, cur[:, None])
+            m = node_tokens[:, f:f + kd] == want
+            hit = (m.any(dim=1) & ok & (cur == int(self.spine[dd - 1]))
                    & (dd < n_in))
-            child = f + np.argmax(m, axis=1)
-            cur = np.where(hit, child, cur)
-            a = a + hit
+            child = f + torch.argmax(m.long(), dim=1)
+            cur = torch.where(hit, child, cur)
+            a = a + hit.long()
             on_spine = on_spine & hit & (child == int(self.spine[dd]))
-            spine_acc = spine_acc + on_spine
+            spine_acc = spine_acc + on_spine.long()
             ok = ok & hit
             path.append(cur)
-        emitted = np.where(n_in > 0, a + 1, 0)
-        return a, emitted, spine_acc, np.stack(path, axis=1)
+        emitted = torch.where(n_in > 0, a + 1, 0)
+        return a, emitted, spine_acc, torch.stack(path, dim=1)

@@ -212,6 +212,7 @@ def restore_into(model, path, load_updater=True):
                                          model.opt_state)
     with torch.no_grad():
         _copy_into(model.params, params)
+        model._params_version += 1
         if opt is not None:
             _copy_into(model.opt_state, opt)
     _set_counters(model, meta)
@@ -261,11 +262,11 @@ def _restore(path, device, load_updater, kind):
     return model
 
 
-def restore_multi_layer_network(path, device=None, load_updater=True):
+def restore_multi_layer_network(path, load_updater=True, *, device=None):
     """The MultiLayerNetwork a checkpoint zip holds, on ``device``."""
     return _restore(path, device, load_updater, "MultiLayerNetwork")
 
 
-def restore_computation_graph(path, device=None, load_updater=True):
+def restore_computation_graph(path, load_updater=True, *, device=None):
     """The ComputationGraph a checkpoint zip holds, on ``device``."""
     return _restore(path, device, load_updater, "ComputationGraph")

@@ -371,7 +371,8 @@ def test_greedy_tokens_and_counters_equal_the_jax_engine(tiny):
             "blocks_free", "high_water", "chain_heads")
     assert {k: st["kv"][k] for k in keys} == {k: jst["kv"][k] for k in keys}
     assert st["kv"]["cow_copies"] > 0 and st["kv"]["prefix_hits"] > 0
-    assert [generate_naive(net, p, 10)["tokens"] for p, *_ in reqs] == want
+    assert [generate_naive(net, p, 10, MAXLEN)["tokens"]
+            for p, *_ in reqs] == want
 
 
 def test_shared_prefix_reuse_and_cow_divergence():

@@ -357,8 +357,11 @@ def test_fully_rejected_windows_rewind_bitwise_paged(tinies, prefix_cache,
     real_step = spec._draft.step
 
     def adversarial_step(*args, **kw):
+        # the proposals are resident tensors the verify reads in place
         props, sides = real_step(*args, **kw)
-        return np.full_like(props, wrong), np.full_like(sides, wrong)
+        props.fill_(wrong)
+        sides.fill_(wrong)
+        return props, sides
 
     spec._draft.step = adversarial_step
     try:
@@ -381,7 +384,7 @@ def test_generate_naive_shares_the_sampling_oracle(lstms):
     eng = DecodeEngine(net, slots=2, max_len=48).start()
     try:
         for temp, seed, tk in [(0.0, 0, 0), (0.8, 42, 0), (0.6, 9, 4)]:
-            naive = generate_naive(net, [1, 2, 3], 12, seed=seed,
+            naive = generate_naive(net, [1, 2, 3], 12, 48, seed=seed,
                                    temperature=temp, top_k=tk)
             served = eng.generate([1, 2, 3], max_new_tokens=12, seed=seed,
                                   temperature=temp, top_k=tk, timeout=120)

@@ -250,7 +250,7 @@ def test_greedy_tokens_agree_across_engines_and_packages(nets):
     finally:
         srv.stop()
         paged.stop()
-    naive = [generate_naive(net, p, n)["tokens"] for p in prompts]
+    naive = [generate_naive(net, p, n, MAXLEN)["tokens"] for p in prompts]
     assert got_dense == want
     assert got_paged == want
     assert naive == want
