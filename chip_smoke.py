@@ -258,6 +258,36 @@ result line, when any of them or the port's package is missing. Phases:
    weights; the next 8 equal ``generate_naive`` of the new weights under
    the near-tie rule; no new capture) and one ``eos_id`` run (every stream
    ends at its first ``eos_id``).
+12. The convolutional path (``cnn_phase``), which runs no hand-written
+   kernel (cuDNN convolutions and plain PyTorch pooling and batch
+   normalization, as the JAX package leaves them to XLA): every kernel
+   count must stay 0. (a) The three bundled CNN zips served with
+   ``InferenceServer`` on the card: ``lenet.zip`` on 2000 synthetic MNIST
+   test images, ``simplecnn.zip`` on 800 48 x 48 images of test seed 77,
+   ``resnet50_cifar10.zip`` on 2000 synthetic CIFAR-10 images, each
+   within 0.02 of its manifest accuracy through /predict, its
+   probabilities within 1e-4 (LeNet, SimpleCNN) or 1e-3 (ResNet50Cifar)
+   of the CPU port's from the same zip, and eight concurrent mixed-size
+   /predict calls within 1e-5 of one unbatched forward each. (b) LeNet
+   from its seed on ``MnistDataSetIterator(128, num_examples=6400,
+   flatten=False)`` (uint8 on the wire, the device-side /255 after the
+   copy): its first 5 steps' losses and parameters within 1e-4 of the CPU
+   port's; 10 captured steps equal 10 eager steps bit for bit
+   (deterministic cuDNN); 6 epochs captured, held-out accuracy on 2000
+   test images above 0.85 and below 1.0, ms a step; ten captured steps
+   profiled (busy ms, idle share, device operations, cuDNN's convolution
+   kernels' share). (c) ResNet50 at full width (224 x 224 x 3, 1000
+   classes) from its configuration's seed, trained with Sgd(1e-2), on
+   numpy images: /predict at B=1 and B=32 (ms a request; B=1 within 1e-3
+   of the CPU port); at B=4 one float32 step (loss, running statistics)
+   and two float64 steps within 1e-3 of the CPU port; 3 captured steps
+   equal 3 eager ones bit for bit (deterministic cuDNN), eager ms a step;
+   20 captured steps at B=32 (ms a step, images/s) and ten profiled. (d)
+   SimpleCNN (48 x 48 x 3, 5 classes), 2 epochs of 16 uint8 batches with
+   the device scaler, checkpointed every 4 iterations with its
+   normalizer, stopped past iteration 22 and resumed in a fresh network:
+   parameters and BatchNormalization state equal the uninterrupted run's
+   bit for bit, the checkpoint's normalizer the scaler.
 
 A replayed CUDA graph adds to the launch counts the launches its capture
 recorded (the capture itself counts none), so the counts below are the
@@ -2450,9 +2480,9 @@ def fit_f1_run(device, data, directory, prefetch=2, crash=None, resume=False):
                                   keep_last=FIT_KEEP)
         save = ckpt.manager.save
 
-        def timed_save(model):
+        def timed_save(model, **kw):
             t0 = time.perf_counter()
-            path = save(model)
+            path = save(model, **kw)
             saves.append((time.perf_counter() - t0) * 1e3)
             return path
         ckpt.manager.save = timed_save
@@ -3675,6 +3705,518 @@ def captured_engine_part(net, cpu, ids, card, res):
     res["captured"] = out
 
 
+# ------------------------------------------------------------- phase 12
+CNN_SERVE_SLACK = 0.02          # manifest accuracy, as tests/test_pretrained
+CNN_PROB_TOL = {"lenet": 1e-4, "simplecnn": 1e-4, "resnet50_cifar10": 1e-3}
+CNN_BATCH_TOL = 1e-5            # a merged /predict against one forward
+LENET_B, LENET_ROWS, LENET_EPOCHS, LENET_BAR = 128, 6400, 6, 0.85
+LENET_PARITY_STEPS, LENET_BITWISE_STEPS = 5, 10
+RESNET_B, RESNET_STEPS, RESNET_PARITY_B, RESNET_TOL = 32, 20, 4, 1e-3
+CNN_PROFILE_STEPS = 10
+# kernel-name fragments of cuDNN's convolution kernels (forward, dgrad,
+# wgrad) on Hopper: the share of busy time reads these
+CONV_TAGS = ("conv", "xmma", "cudnn", "fprop", "dgrad", "wgrad",
+             "implicit_gemm")
+CNN_DIR = ROOT / "build" / "cnn_resume"
+
+
+@contextmanager
+def deterministic_cudnn():
+    """cuDNN restricted to deterministic algorithms (no atomics in a
+    backward), for the bit-for-bit comparisons of phase 12."""
+    import torch
+    old = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = old
+
+
+def _artifact_data(name):
+    """An artifact's test images and integer labels, as the JAX package's
+    tests/test_pretrained.py makes them."""
+    from deeplearning4j_tpu_torch.data.fetchers import (_synthetic_images,
+                                                        load_cifar10,
+                                                        load_mnist)
+    from deeplearning4j_tpu_torch.zoo import ZooModel
+    entry = ZooModel.manifest()[name]
+    if name == "lenet":
+        x, y = load_mnist(train=False, num_examples=entry["n_test"],
+                          flatten=False)
+        return entry, x.astype(np.float32), y.argmax(-1)
+    if name == "simplecnn":
+        x, y = _synthetic_images(entry["n_test"], 48, 48, 3,
+                                 entry["n_classes"], seed=entry["test_seed"])
+        return entry, x.astype(np.float32), y
+    x, y = load_cifar10(train=False, num_examples=entry["n_test"])
+    return entry, x.astype(np.float32), y.argmax(-1)
+
+
+def cnn_serving_part(card, res):
+    """(a) The three bundled CNN zips served on the card: held-out
+    accuracy through /predict, probabilities against the CPU port's from
+    the same zip, eight concurrent mixed-size requests against one
+    unbatched forward each."""
+    from deeplearning4j_tpu_torch.serving import (InferenceClient,
+                                                  InferenceServer)
+    from deeplearning4j_tpu_torch.zoo import LeNet, ResNet50Cifar, SimpleCNN
+    zoos = {"lenet": lambda e: LeNet(num_classes=10),
+            "simplecnn": lambda e: SimpleCNN(num_classes=e["n_classes"]),
+            "resnet50_cifar10": lambda e: ResNet50Cifar(num_classes=10)}
+    out = {}
+    for name, make in zoos.items():
+        entry, x, y = _artifact_data(name)
+        zoo = make(entry)
+        net, cpu = zoo.init_pretrained(device="cuda"), \
+            zoo.init_pretrained(device="cpu")
+        srv = InferenceServer(net, port=0, max_latency_ms=2.0).start()
+        cli = InferenceClient(f"http://127.0.0.1:{srv.port}")
+        row = {}
+        try:
+            ms = []
+            for _ in range(2):      # the first pays the card's first use
+                t0 = time.perf_counter()
+                probs = np.concatenate([cli.predict(x[i:i + 500])
+                                        for i in range(0, len(x), 500)])
+                ms.append(round((time.perf_counter() - t0) * 1e3, 3))
+            want = cpu.output(x).numpy()
+            if probs.shape != want.shape or not np.isfinite(probs).all():
+                raise AssertionError(f"phase 12 (a) {name}: /predict "
+                                     f"returned {probs.shape}")
+            acc = float((probs.argmax(-1) == y).mean())
+            err = float(np.abs(probs - want).max())
+            sizes = [1, 3, 7, 2, 5, 16, 4, 9]
+            starts = np.cumsum([0] + sizes)
+            reqs = [x[a:b] for a, b in zip(starts[:-1], starts[1:])]
+            with ThreadPoolExecutor(len(reqs)) as pool:
+                answers = list(pool.map(cli.predict, reqs))
+            worst = max(float(np.abs(
+                got - net.output(r, bucketed=False).float().cpu().numpy())
+                .max()) for got, r in zip(answers, reqs))
+        finally:
+            srv.stop()
+        row.update(accuracy=acc, manifest=entry["accuracy"],
+                   predict_ms=ms, rows=len(x), max_abs_err_vs_cpu=err,
+                   mixed_max_abs_err=worst)
+        out[name] = row
+        print(f"cnn (a): {name} /predict of {len(x)} held-out images in "
+              f"batches of 500: accuracy {acc:.4f} (manifest "
+              f"{entry['accuracy']} +- {CNN_SERVE_SLACK}), {ms} ms (first, "
+              f"second); probabilities against the CPU port's from the "
+              f"same zip: max abs err {err:.3g} (tol {CNN_PROB_TOL[name]}); "
+              f"8 concurrent /predict of sizes {sizes} against unbatched "
+              f"forwards: max abs err {worst:.3g} [{card}]", flush=True)
+        if abs(acc - entry["accuracy"]) > CNN_SERVE_SLACK:
+            raise AssertionError(f"phase 12 (a) {name}: accuracy {acc}")
+        if err > CNN_PROB_TOL[name]:
+            raise AssertionError(f"phase 12 (a) {name}: card vs CPU {err}")
+        if worst > CNN_BATCH_TOL:
+            raise AssertionError(f"phase 12 (a) {name}: batched {worst}")
+    res["serving"] = out
+
+
+def _lenet_pair(device="cuda"):
+    """LeNet from its configuration's seed on ``device`` and the CPU
+    port's copy of its parameters."""
+    from deeplearning4j_tpu_torch import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.zoo import LeNet
+    net = LeNet(num_classes=10).init(device=device)
+    cpu = MultiLayerNetwork(net.conf, device="cpu").set_params(net.params,
+                                                               net.state)
+    return net, cpu
+
+
+class ScoreRecorder:
+    """A listener keeping each fit call's loss (a host read)."""
+
+    def __init__(self):
+        self.scores = []
+
+    def iteration_done(self, model, iteration, epoch):
+        self.scores.append(model.get_score())
+
+
+def _first_batches(it, n):
+    """An iterator over the first ``n`` batches of ``it`` (its rows in
+    its order, unshuffled), with its pre-processor."""
+    from deeplearning4j_tpu_torch.data import DataSet, ListDataSetIterator
+    it.reset()
+    rows = [next(it) for _ in range(n)]
+    sub = ListDataSetIterator(DataSet.merge(rows), it.batch_size)
+    return sub.set_pre_processor(it.pre_processor)
+
+
+def lenet_part(card, res):
+    """(b) LeNet trained from its seed on the uint8 wire: the first steps
+    against the CPU port, captured against eager bit for bit, the 6-epoch
+    recipe with its held-out accuracy and ms a step, ten captured steps
+    profiled."""
+    import torch
+    from deeplearning4j_tpu_torch.data.fetchers import MnistDataSetIterator
+    out = {}
+    t0 = time.perf_counter()
+    train = MnistDataSetIterator(LENET_B, num_examples=LENET_ROWS,
+                                 flatten=False)
+    test = MnistDataSetIterator(500, train=False, num_examples=2000,
+                                flatten=False)
+    out["data_s"] = time.perf_counter() - t0
+    if train.dataset.features.dtype != np.uint8 \
+            or not train.pre_processor.device_side:
+        raise AssertionError("phase 12 (b): the MNIST iterator is not on "
+                             "the uint8 wire")
+    with deterministic_cudnn():
+        # the first steps against the CPU port, one step a fit call
+        net, cpu = _lenet_pair()
+        first = _first_batches(train, LENET_PARITY_STEPS)
+        recs = []
+        for m in (net, cpu):
+            m._CHUNK_MAX_STEPS = 1
+            recs.append(ScoreRecorder())
+            m.set_listeners(recs[-1])
+            m.fit(first)
+        losses = np.array(recs[0].scores), np.array(recs[1].scores)
+        loss_err = float(np.max(np.abs(losses[0] - losses[1])
+                                / np.abs(losses[1])))
+        p_err = max(float((a[k].cpu() - b[k]).abs().max()
+                          / max(b[k].abs().max().item(), 1e-30))
+                    for a, b in zip(net.params, cpu.params) for k in a)
+        out.update(first_losses=losses[0].tolist(),
+                   cpu_losses=losses[1].tolist(), loss_rel_err=loss_err,
+                   param_rel_err=p_err)
+        print(f"cnn (b): LeNet, first {LENET_PARITY_STEPS} steps (B="
+              f"{LENET_B}, uint8 wire) against the CPU port: losses "
+              f"{[round(float(v), 5) for v in losses[0]]}, max relative err "
+              f"{loss_err:.3g}, parameters {p_err:.3g} of each tensor's "
+              f"largest (tol {LOSS_RTOL}) [{card}]", flush=True)
+        if loss_err > LOSS_RTOL or p_err > LOSS_RTOL:
+            raise AssertionError("phase 12 (b): card vs CPU port")
+        # captured against eager, bit for bit
+        cap, _ = _lenet_pair()
+        eager, _ = _lenet_pair()
+        eager._capture_steps = False
+        some = _first_batches(train, LENET_BITWISE_STEPS)
+        for m in (cap, eager):
+            m._CHUNK_MAX_STEPS = 4
+            m.fit(some)
+        if cap._capture_count == 0 or not _trees_equal(cap.params,
+                                                       eager.params):
+            raise AssertionError(
+                f"phase 12 (b): captured vs eager differ by "
+                f"{_tree_diff(cap.params, eager.params)}")
+        print(f"cnn (b): LeNet, {LENET_BITWISE_STEPS} captured steps equal "
+              f"{LENET_BITWISE_STEPS} eager steps bit for bit ("
+              f"{cap._capture_count} captures, deterministic cuDNN) "
+              f"[{card}]", flush=True)
+    # the recipe from the seed, captured
+    net, _ = _lenet_pair()
+    times = []
+    for epoch in range(LENET_EPOCHS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net.fit(train)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    steps = LENET_ROWS // LENET_B
+    acc = float(net.evaluate(test).accuracy())
+    out.update(epoch_s=times, heldout_accuracy=acc,
+               ms_per_step_warm=min(times[1:]) / steps * 1e3,
+               captures=net._capture_count)
+    ten = _first_batches(train, CNN_PROFILE_STEPS)
+    prof = profile_steps(lambda: net.fit(ten) and CNN_PROFILE_STEPS,
+                         CNN_PROFILE_STEPS, (CONV_TAGS,))
+    out["profile"] = prof
+    print(f"cnn (b): LeNet recipe, {LENET_EPOCHS} epochs of {steps} "
+          f"captured steps (B={LENET_B}, uint8 wire, /255 on the card): "
+          f"held-out accuracy {acc:.4f} (bar > {LENET_BAR}, < 1.0); epochs "
+          f"{[round(t, 3) for t in times]} s, {out['ms_per_step_warm']:.3f} "
+          f"ms a step warm; {fmt_profile(prof, (CONV_TAGS,))} [{card}]",
+          flush=True)
+    if not LENET_BAR < acc < 1.0:
+        raise AssertionError(f"phase 12 (b): held-out accuracy {acc}")
+    res["lenet"] = out
+
+
+def _resnet(device="cuda"):
+    """ResNet50 at full width from its configuration's seed, trained with
+    Sgd(1e-2): the zoo's default Nesterovs(0.1) diverges from this
+    initialization in a few small-batch steps (on the CPU at 64 x 64, B=2:
+    loss 11 -> 240 -> 8.9e8), and an Adam step moves every weight whose
+    gradient is near zero by +-lr with the sign of its rounding, so two
+    implementations part after one step."""
+    from deeplearning4j_tpu_torch.nn.updaters import Sgd
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+    return ResNet50(num_classes=1000, updater=Sgd(1e-2)).init(device=device)
+
+
+def _resnet_float64():
+    """The seed's ResNet50 in float64 on the card and on the CPU, from
+    one set of weights."""
+    from deeplearning4j_tpu_torch import ComputationGraph
+    base = _resnet("cpu")
+    conf = base.conf
+    conf.global_conf.dtype = "float64"
+    params = {n: {k: v.double() for k, v in p.items()}
+              for n, p in base.params.items()}
+    return (ComputationGraph(conf, device="cuda").set_params(params),
+            ComputationGraph(conf, device="cpu").set_params(params))
+
+
+def _images(n, seed, classes=1000, size=224):
+    r = np.random.RandomState(seed)
+    x = r.rand(n, size, size, 3).astype(np.float32)
+    return x, np.eye(classes, dtype=np.float32)[r.randint(0, classes, n)]
+
+
+def _bn_state_err(net, cpu):
+    """The largest difference of the running statistics, relative to each
+    tensor's largest magnitude."""
+    return max(float((d[k].cpu() - cpu.state[n][k]).abs().max()
+                     / max(cpu.state[n][k].abs().max().item(), 1e-30))
+               for n, d in net.state.items() for k in d)
+
+
+def resnet_part(card, res):
+    """(c) ResNet50 at full width (224 x 224 x 3, 1000 classes) from its
+    configuration's seed: /predict at B=1 and 32, two B=4 steps against
+    the CPU port, captured against eager bit for bit, 20 captured steps at
+    B=32, ten profiled."""
+    import torch
+    from deeplearning4j_tpu_torch import ComputationGraph
+    from deeplearning4j_tpu_torch.serving import (InferenceClient,
+                                                  InferenceServer)
+    out = {}
+    net = _resnet()
+    out["num_params"] = net.num_params()
+    cpu = ComputationGraph(net.conf, device="cpu").set_params(
+        {n: {k: v.cpu() for k, v in p.items()} for n, p in
+         net.params.items()}, net.state)
+    srv = InferenceServer(net, port=0, max_latency_ms=2.0).start()
+    cli = InferenceClient(f"http://127.0.0.1:{srv.port}")
+    try:
+        for b in (1, RESNET_B):
+            x, _ = _images(b, seed=b)
+            ms = []
+            for _ in range(6):
+                t0 = time.perf_counter()
+                probs = cli.predict(x)
+                ms.append((time.perf_counter() - t0) * 1e3)
+            if probs.shape != (b, 1000) or not np.isfinite(probs).all():
+                raise AssertionError(f"phase 12 (c): /predict {probs.shape}")
+            out[f"predict_ms_b{b}"] = ms
+            if b == 1:
+                err = float(np.abs(probs - cpu.output(x).numpy()).max())
+                out["predict_b1_max_abs_err_vs_cpu"] = err
+                if err > RESNET_TOL:
+                    raise AssertionError(f"phase 12 (c): /predict vs CPU "
+                                         f"{err}")
+    finally:
+        srv.stop()
+    print(f"cnn (c): ResNet50 (224 x 224 x 3, 1000 classes, "
+          f"{out['num_params']} parameters) /predict: B=1 median "
+          f"{statistics.median(out['predict_ms_b1'][1:]):.2f} ms, B="
+          f"{RESNET_B} median "
+          f"{statistics.median(out[f'predict_ms_b{RESNET_B}'][1:]):.2f} ms "
+          f"a request (first requests {out['predict_ms_b1'][0]:.1f} / "
+          f"{out[f'predict_ms_b{RESNET_B}'][0]:.1f} ms); B=1 probabilities "
+          f"against the CPU port: max abs err "
+          f"{out['predict_b1_max_abs_err_vs_cpu']:.3g} [{card}]", flush=True)
+    # against the CPU port at B=4: one float32 step, and two float64 steps
+    # (this configuration's train-mode backward runs 53 batch
+    # normalizations over sigmoid convolutions of near-constant output,
+    # and loses most of float32's digits: on the CPU at 96 x 96 the
+    # float32 port's second loss is 2-4% off its float64 one at any lr,
+    # PERF.md; two float64 implementations stay close)
+    x4, y4 = _images(RESNET_PARITY_B, seed=4)
+    for m in (net, cpu):
+        m.fit([x4], [y4])
+    loss32 = (net.get_score(), cpu.get_score())
+    loss32_err = abs(loss32[0] - loss32[1]) / abs(loss32[1])
+    st32_err = _bn_state_err(net, cpu)
+    del cpu
+    losses, (net64, cpu64) = [], _resnet_float64()
+    t64 = [torch.from_numpy(a).double() for a in (x4, y4)]
+    for m in (net64, cpu64):
+        xs4, ys4 = (t.to(m.device) for t in t64)
+        ls = []
+        for _ in range(2):
+            m.fit([xs4], [ys4])
+            ls.append(m.get_score())
+        losses.append(ls)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+    st_err = _bn_state_err(net64, cpu64)
+    del net64, cpu64
+    out.update(parity_float32_losses=loss32,
+               parity_float32_loss_rel_err=loss32_err,
+               parity_float32_state_rel_err=st32_err,
+               parity_float64_losses=losses,
+               parity_float64_loss_rel_err=loss_err,
+               parity_float64_state_rel_err=st_err)
+    print(f"cnn (c): ResNet50 at B={RESNET_PARITY_B} against the CPU port: "
+          f"one float32 step, loss {loss32[0]} vs {loss32[1]} (relative err "
+          f"{loss32_err:.3g}), BatchNormalization running mean and variance "
+          f"within {st32_err:.3g} of each tensor's largest; two float64 "
+          f"steps, losses {losses[0]} vs {losses[1]} (max relative err "
+          f"{loss_err:.3g}), running statistics within {st_err:.3g} (tol "
+          f"{RESNET_TOL}) [{card}]", flush=True)
+    if max(loss32_err, st32_err, loss_err, st_err) > RESNET_TOL:
+        raise AssertionError("phase 12 (c): card vs CPU port")
+    # captured against eager, bit for bit, 3 steps
+    xb, yb = _images(RESNET_B, seed=32)
+    with deterministic_cudnn():
+        cap, eager = _resnet(), _resnet()
+        eager._capture_steps = False
+        for m in (cap, eager):
+            for _ in range(3):
+                m.fit([xb], [yb])
+        same = (_trees_equal(cap.params, eager.params)
+                and _trees_equal(cap.state, eager.state))
+        print(f"cnn (c): ResNet50, 3 captured steps at B={RESNET_B} "
+              f"{'equal' if same else 'differ from'} 3 eager steps bit for "
+              f"bit, parameters and running statistics ("
+              f"{cap._capture_count} capture, deterministic cuDNN) "
+              f"[{card}]", flush=True)
+        if not same or cap._capture_count != 1:
+            raise AssertionError(
+                f"phase 12 (c): captured vs eager differ by "
+                f"{_tree_diff(cap.params, eager.params)}")
+        del cap
+        # eager ms a step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            eager.fit([xb], [yb])
+        torch.cuda.synchronize()
+        out["eager_ms_per_step"] = (time.perf_counter() - t0) / 5 * 1e3
+        del eager
+    # 20 captured steps at B=32 (the default cuDNN algorithms)
+    net = _resnet()
+    xs, ys = (torch.from_numpy(a).cuda().reshape(
+        (RESNET_STEPS, RESNET_B) + a.shape[1:])
+        for a in _images(RESNET_STEPS * RESNET_B, seed=7))
+    net.fit_scan([xs[:2]], [ys[:2]])         # warm-up and capture
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.fit_scan([xs], [ys])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    loss = net.get_score()
+    out.update(captured_ms_per_step=wall / RESNET_STEPS * 1e3,
+               images_per_s=RESNET_STEPS * RESNET_B / wall,
+               captured_loss=loss, captures=net._capture_count)
+    if not np.isfinite(loss):
+        raise AssertionError("phase 12 (c): the loss is not finite")
+    prof = profile_steps(lambda: net.fit_scan([xs[:CNN_PROFILE_STEPS]],
+                                              [ys[:CNN_PROFILE_STEPS]]),
+                         CNN_PROFILE_STEPS, (CONV_TAGS,))
+    out["profile"] = prof
+    busy = prof["device_busy_ms_per_step"]
+    conv = (None if busy is None else
+            prof["tagged_ms_per_step"][_tag(CONV_TAGS)] / busy)
+    out["conv_share_of_busy"] = conv
+    print(f"cnn (c): ResNet50, {RESNET_STEPS} captured steps at B="
+          f"{RESNET_B}: {out['captured_ms_per_step']:.2f} ms a step "
+          f"({out['images_per_s']:.0f} images/s; eager "
+          f"{out['eager_ms_per_step']:.2f} ms a step, deterministic cuDNN), "
+          f"last loss {loss:.4f}; {fmt_profile(prof, (CONV_TAGS,))}; "
+          f"convolution kernels' share of busy time "
+          + ("not measured" if conv is None else f"{conv:.1%}")
+          + f" [{card}]", flush=True)
+    res["resnet50"] = out
+
+
+def _simplecnn_run(directory, crash=None, resume=False):
+    """SimpleCNN (48 x 48 x 3, 5 classes) streaming 2 epochs of 16 uint8
+    batches (shuffled, the device scaler) in chunks of 4, a checkpoint
+    with the scaler every 4 iterations; ``crash`` stops it past that
+    iteration in epoch 2, ``resume`` continues a fresh network from
+    ``directory``."""
+    from deeplearning4j_tpu_torch.data import DataSet, ListDataSetIterator
+    from deeplearning4j_tpu_torch.data.fetchers import (_synthetic_images,
+                                                        _uint8_wire)
+    from deeplearning4j_tpu_torch.data.normalizers import \
+        ImagePreProcessingScaler
+    from deeplearning4j_tpu_torch.resilience import CheckpointListener
+    from deeplearning4j_tpu_torch.zoo import SimpleCNN
+    x, y = _synthetic_images(512, 48, 48, 3, 5, seed=11)
+    it = ListDataSetIterator(DataSet(_uint8_wire(x),
+                                     np.eye(5, dtype=np.float32)[y]), 32,
+                             shuffle=True, seed=5)
+    scaler = ImagePreProcessingScaler(device_side=True)
+    it.set_pre_processor(scaler)
+    net = SimpleCNN(num_classes=5).init(device="cuda")
+    net._CHUNK_MAX_STEPS = 4
+    net.set_listeners(CallRecorder(crash))
+    kw = ({"resume_from": directory} if resume else
+          {"checkpoint": CheckpointListener(directory, every_n_iterations=4,
+                                            normalizer=scaler)})
+    try:
+        net.fit(it, epochs=2, **kw)
+    except FitInterrupted:
+        pass
+    return net, scaler
+
+
+def simplecnn_resume_part(card, res):
+    """(d) A checkpointed SimpleCNN fit interrupted and resumed: the
+    parameters, the BatchNormalization state and the normalizer as the
+    uninterrupted run's, bit for bit."""
+    import shutil
+    import torch
+    from deeplearning4j_tpu_torch import latest_checkpoint
+    from deeplearning4j_tpu_torch.util.model_serializer import \
+        restore_normalizer
+    whole, crashed = CNN_DIR / "whole", CNN_DIR / "crashed"
+    shutil.rmtree(CNN_DIR, ignore_errors=True)
+    try:
+        with deterministic_cudnn():
+            ref, scaler = _simplecnn_run(whole)
+            _, _ = _simplecnn_run(crashed, crash=22)
+            stopped = latest_checkpoint(crashed)
+            resumed, _ = _simplecnn_run(crashed, resume=True)
+        norm = restore_normalizer(stopped)
+        same = (_trees_equal(ref.params, resumed.params)
+                and _trees_equal(ref.state, resumed.state)
+                and ref.iteration == resumed.iteration)
+        print(f"cnn (d): SimpleCNN, 2 epochs of 16 uint8 batches with "
+              f"dropout and BatchNormalization, checkpointed every 4 "
+              f"iterations with its scaler, stopped past iteration 22 and "
+              f"resumed from {Path(stopped).name}: parameters and running "
+              f"statistics {'equal' if same else 'differ from'} the "
+              f"uninterrupted run's bit for bit (iteration "
+              f"{resumed.iteration}); the checkpoint's normalizer "
+              f"{norm.to_dict() if norm else None} [{card}]", flush=True)
+        if not same or norm is None or norm.to_dict() != scaler.to_dict():
+            raise AssertionError(
+                f"phase 12 (d): resume differs by "
+                f"{_tree_diff(ref.params, resumed.params)}")
+        if not any(torch.count_nonzero(d["mean"]) for d in ref.state if d):
+            raise AssertionError("phase 12 (d): no running statistics")
+    finally:
+        shutil.rmtree(CNN_DIR, ignore_errors=True)
+    res["simplecnn_resume"] = {"bitwise": same,
+                               "iteration": resumed.iteration}
+
+
+def cnn_phase(card):
+    """Phase 12: the convolutional path (``chip_smoke.py`` docstring)."""
+    from deeplearning4j_tpu_torch import ops
+    res = {"card": card}
+    ops.reset_launch_counts()
+    for part in (cnn_serving_part, lenet_part, resnet_part,
+                 simplecnn_resume_part):
+        t0 = time.perf_counter()
+        part(card, res)
+        res[f"{part.__name__}_s"] = time.perf_counter() - t0
+    res["launches"] = ops.launch_counts()
+    if any(res["launches"].values()):
+        raise AssertionError(f"phase 12 launched a hand-written kernel: "
+                             f"{res['launches']}")
+    return res
+
+
 def counted_launches(tree, kernel):
     """The launches of ``kernel`` over every counted window (each dict
     entry ``launches``) of a phase's results."""
@@ -3700,6 +4242,15 @@ def serving_features_phase(card):
     spec_lstm_part(card, res)
     captured_engine_part(net, cpu, ids, card, res)
     return res
+
+
+def _tag(t):
+    """A profile tag's name: a tuple of fragments is their union."""
+    return "|".join(t) if isinstance(t, tuple) else t
+
+
+def _tagged(t, name):
+    return any(f in name for f in t) if isinstance(t, tuple) else t in name
 
 
 def profile_steps(run, steps, tags):
@@ -3748,7 +4299,8 @@ def profile_steps(run, steps, tags):
             device_busy_ms_per_step=busy, device_idle_share=1 - busy / wall,
             device_idle_share_unprofiled=1 - busy / plain_wall,
             kernels_per_step=len(kernels) / steps,
-            tagged_ms_per_step={t: ms([e for e in kernels if t in e.name])
+            tagged_ms_per_step={_tag(t): ms([e for e in kernels
+                                             if _tagged(t, e.name)])
                                 for t in tags},
             top_device_kernels=[
                 [name[:80], len(es) / steps, round(ms(es), 4)]
@@ -3771,7 +4323,8 @@ def fmt_profile(prof, tags, unit="step", units="fit steps"):
                        f"{prof['device_idle_share_unprofiled']:.1%} "
                        f"unprofiled), {prof['kernels_per_step']:.0f} device "
                        f"operations/{unit}; " + ", ".join(
-                           f"{t} kernels {prof['tagged_ms_per_step'][t]:.4f}"
+                           f"{_tag(t)} kernels "
+                           f"{prof['tagged_ms_per_step'][_tag(t)]:.4f}"
                            f" {per}" for t in tags)
                        + f"; top device kernels "
                        f"{prof['top_device_kernels'][:4]}")
@@ -3909,6 +4462,9 @@ def main() -> int:
     t0 = time.perf_counter()
     serving = serving_features_phase(card)
     serving["phase_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cnn = cnn_phase(card)
+    cnn["phase_seconds"] = time.perf_counter() - t0
 
     # each kernel at its main path's shape, with the launches of the run
     # that drove it: /predict of the 15 held-out windows (bucket 16, T=64)
@@ -3990,7 +4546,8 @@ def main() -> int:
          "slice": res, "f4": f4, "tiny": tiny, "wide": wide,
          "train": train, "tiny_train": tiny_train, "captured": captured,
          "regularised": regularised, "fit_contract": fit_contract,
-         "serving_features": serving, "kernels": entries}, indent=1))
+         "serving_features": serving, "cnn": cnn, "kernels": entries},
+        indent=1))
     print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {

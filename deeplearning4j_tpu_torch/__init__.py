@@ -14,7 +14,12 @@ update (nn/fused_update.py), the bf16 train-precision policy, and on the
 card each step replayed from a CUDA graph (exec/executor.py); and with its
 ``fit`` contract: streamed chunks, device prefetch, listeners
 (``optimize``), crash-safe checkpoints and resume (``resilience``), the
-pipeline's metrics and spans (``monitor``).
+pipeline's metrics and spans (``monitor``). The convolutional path --
+LeNet, SimpleCNN, AlexNet, VGG, Darknet19 and ResNet50 served and
+trained, with BatchNormalization's running statistics as layer state,
+every graph vertex, the normalizers with the device-side image scaler
+and the standard datasets' fetchers -- runs on cuDNN and plain PyTorch,
+as the JAX package leaves it to XLA.
 """
 
 from deeplearning4j_tpu_torch import monitor, optimize, resilience  # noqa: F401

@@ -13,6 +13,16 @@ from dataclasses import dataclass, field
 from typing import List, Optional
 
 import numpy as np
+import torch
+
+
+def host_tensor(a) -> torch.Tensor:
+    """A host array as a CPU tensor, float64 as float32: the JAX
+    package's arrays are 32-bit (``jnp.asarray`` with x64 off), so a
+    float64 batch (numpy's default) trains and serves as float32 in both
+    packages."""
+    t = torch.as_tensor(np.ascontiguousarray(a))
+    return t.float() if t.dtype == torch.float64 else t
 
 
 def _take(a, idx):

@@ -1,8 +1,11 @@
 """DataSet iterators: the base contract and in-memory batching.
 
 Counterpart of deeplearning4j_tpu/data/iterators.py (``DataSetIterator``
-and ``ListDataSetIterator``; parity surface: the reference's
-DataSetIterator contract). Pre-processors (normalizers) are not ported.
+with ``set_pre_processor``, ``ListDataSetIterator`` and
+``resolve_pre_processor``; parity surface: the reference's
+DataSetIterator contract). A pre-processor (data/normalizers.py) applies
+to every batch an iterator emits, unless it is ``device_side``: then the
+containers apply its device transform after the copy to the card.
 """
 
 from __future__ import annotations
@@ -16,6 +19,19 @@ class DataSetIterator:
     """Base contract: iterable of DataSet with reset(). ``iter()`` resets,
     as in the JAX package (and ``fit`` resets before each epoch too, so a
     shuffling iterator advances its seed the same way in both)."""
+
+    pre_processor = None
+
+    def set_pre_processor(self, pp):
+        """Attach a normalizer (parity: setPreProcessor)."""
+        self.pre_processor = pp
+        return self
+
+    def _emit(self, ds: DataSet) -> DataSet:
+        pp = self.pre_processor
+        if pp is not None and not getattr(pp, "device_side", False):
+            ds = pp.pre_process(ds)
+        return ds
 
     def __iter__(self):
         self.reset()
@@ -68,7 +84,7 @@ class ListDataSetIterator(DataSetIterator):
             raise StopIteration
         idx = self._order[self._pos:end]
         self._pos = end
-        return self.dataset._rows(idx)
+        return self._emit(self.dataset._rows(idx))
 
     def batch(self):
         return self.batch_size
@@ -78,3 +94,16 @@ class ListDataSetIterator(DataSetIterator):
 
     def input_columns(self):
         return int(np.prod(self.dataset.features.shape[1:]))
+
+
+def resolve_pre_processor(data):
+    """The pre-processor attached to ``data`` or to an iterator it wraps
+    (its ``base``, up to 8 hops), or None."""
+    d, hops = data, 0
+    while d is not None and hops < 8:
+        pp = getattr(d, "pre_processor", None)
+        if pp is not None:
+            return pp
+        d = getattr(d, "base", None)
+        hops += 1
+    return None

@@ -30,7 +30,8 @@ from collections import deque
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.data.dataset import DataSet, MultiDataSet
+from deeplearning4j_tpu_torch.data.dataset import (DataSet, MultiDataSet,
+                                                   host_tensor)
 from deeplearning4j_tpu_torch.exec import get_executor
 from deeplearning4j_tpu_torch.monitor.tracing import trace
 from deeplearning4j_tpu_torch.ops import resolve_device
@@ -108,15 +109,13 @@ class DevicePrefetcher:
         transform are queued on the side stream, and the event follows
         them."""
         if self._stream is None:
-            staged = _map_leaves(item, lambda a: torch.as_tensor(
-                np.asarray(a)))
+            staged = _map_leaves(item, host_tensor)
             if self.transform is not None:
                 staged = self.transform(staged)
             return staged, None
         with torch.cuda.stream(self._stream):
-            staged = _map_leaves(item, lambda a: torch.as_tensor(
-                np.ascontiguousarray(a)).pin_memory().to(self.device,
-                                                          non_blocking=True))
+            staged = _map_leaves(item, lambda a: host_tensor(a).pin_memory()
+                                 .to(self.device, non_blocking=True))
             if self.transform is not None:
                 staged = self.transform(staged)
             event = torch.cuda.Event()

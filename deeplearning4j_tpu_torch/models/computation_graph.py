@@ -49,6 +49,13 @@ path the recurrent layers drop nothing (their weight noise still applies,
 caveat R5). ``output`` and ``evaluate`` take no feature mask, as the JAX
 graph's do not.
 
+Layer state (BatchNormalization's running statistics) is ``self.state``,
+a dict node name -> dict of tensors, with MultiLayerNetwork's commit
+points (its module docstring): a fit step writes it in place, nothing
+else does; ``backprop_external`` returns the step's new state without
+writing it. A ``device_side`` pre-processor runs on the card on every
+network input (models/fitting.py).
+
 The graph runs on CUDA unless constructed with ``device="cpu"``; without a
 card and without that argument, construction raises.
 """
@@ -67,7 +74,7 @@ from deeplearning4j_tpu_torch.exec.executor import (network_generator,
                                                     seed_generator)
 from deeplearning4j_tpu_torch.models.fitting import FitContract
 from deeplearning4j_tpu_torch.models.multi_layer_network import (
-    DTYPES, to_device, updater_plan)
+    DTYPES, count_params, load_state, to_device, updater_plan)
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import \
     ComputationGraphConfiguration
 from deeplearning4j_tpu_torch.nn.layers.base import (flatten_params,
@@ -89,6 +96,7 @@ class ComputationGraph(FitContract):
         self.conf = conf
         self.device = resolve_device(device)
         self.params: Optional[Params] = None
+        self.state: Optional[Params] = None
         self.opt_state: Optional[Params] = None
         self._transforms = None       # per-node updater (None: no params)
         self._fused = None            # fused update plan (nn/fused_update.py)
@@ -127,17 +135,28 @@ class ComputationGraph(FitContract):
             n: {k: v.to(self.device) for k, v in flatten_params(
                 self.conf.nodes[n].layer.init(gen, dtype)).items()}
             for n in self.conf.layer_nodes()}
+        self.state = self._init_state()
         self._build_optimizer()
         self._params_version += 1
         return self
 
-    def set_params(self, params: Params):
+    def _init_state(self) -> Params:
+        dtype = DTYPES[self.conf.global_conf.dtype]
+        return {n: self.conf.nodes[n].layer.init_state(dtype, self.device)
+                for n in self.conf.layer_nodes()}
+
+    def set_params(self, params: Params, state=None):
         """Install parameters (a dict node name -> dict of tensors, copied
         onto the graph's device; nested dicts flattened to path keys) with
-        a fresh updater state."""
+        a fresh updater state, and ``state`` (a dict node name -> dict)
+        copied into the graph's own state tensors when given."""
         self.params = {n: {k: v.to(self.device) for k, v in
                            flatten_params(p).items()}
                        for n, p in params.items()}
+        if self.state is None:
+            self.state = self._init_state()
+        if state is not None:
+            load_state(self.state, state)
         self._build_optimizer()
         self._params_version += 1
         return self
@@ -189,18 +208,18 @@ class ComputationGraph(FitContract):
         return None
 
     def _forward(self, params: Params, inputs, train=False, masks=None,
-                 gen=None, carries=None):
+                 gen=None, carries=None, state=None):
         """The network output (a list when there are several) and the
         updated carry map (None without ``carries``); see
         ``_activations``."""
         acts, new_carries = self._activations(params, inputs, train=train,
                                               masks=masks, gen=gen,
-                                              carries=carries)
+                                              carries=carries, state=state)
         outs = [acts.get(n) for n in self.conf.network_outputs]
         return (outs[0] if len(outs) == 1 else outs), new_carries
 
     def _activations(self, params: Params, inputs, skip=(), train=False,
-                     masks=None, gen=None, carries=None):
+                     masks=None, gen=None, carries=None, state=None):
         """Forward along the topological order. ``inputs``: one tensor, or
         a list with one per network input; nodes named in ``skip`` are not
         run; ``masks`` maps a network input's name to its feature mask,
@@ -208,9 +227,15 @@ class ComputationGraph(FitContract):
         and a generator each layer's weight noise and dropout draw from
         ``gen`` in topological order. ``carries`` (a map node name ->
         carry) runs every layer that has ``apply_with_carry`` from its
-        carry (zero state where the map has none). Returns (activations,
-        new carries): every node's activation by name, and the updated
-        carry map (None without ``carries``)."""
+        carry (zero state where the map has none). ``state`` (by node
+        name) is read by the layers with state and, under ``train``,
+        written in place; None means the graph's own in inference and no
+        write under ``train``. A vertex with a ``mask_input``
+        (LastTimeStepVertex) reads that network input's mask. Returns
+        (activations, new carries): every node's activation by name, and
+        the updated carry map (None without ``carries``)."""
+        if state is None and not train:
+            state = self.state
         if not isinstance(inputs, (list, tuple)):
             inputs = [inputs]
         cdt = self._compute_dtype(train)
@@ -225,7 +250,12 @@ class ComputationGraph(FitContract):
                 continue
             ins = [acts[i] for i in node.inputs]
             if node.kind == "vertex":
-                acts[name] = node.vertex.apply(ins)
+                v = node.vertex
+                if getattr(v, "mask_input", None) is not None:
+                    acts[name] = v.apply(ins, mask=masks.get(v.mask_input)
+                                         if masks else None)
+                else:
+                    acts[name] = v.apply(ins)
                 continue
             layer = node.layer
             mask = masks.get(node.inputs[0]) if masks else None
@@ -236,13 +266,15 @@ class ComputationGraph(FitContract):
                 acts[name], new_carries[name] = layer.apply_with_carry(
                     p, ins[0], new_carries.get(name), mask=mask)
             else:
+                kw = {} if not self.state or not self.state.get(name) else {
+                    "state": None if state is None else state[name]}
                 acts[name] = layer.apply(p, ins[0], train=train, gen=gen,
-                                         mask=mask)
+                                         mask=mask, **kw)
         return acts, new_carries
 
     # -------------------------------------------------------------- training
     def _loss(self, params: Params, inputs, labels, label_masks=None,
-              masks=None, gen=None, carries=None):
+              masks=None, gen=None, carries=None, state=None):
         """Every output node's score on the forward of the nodes before it,
         plus every node's l1/l2 penalty (the output layers themselves are
         not run: their score takes their input, after their weight noise
@@ -258,7 +290,7 @@ class ComputationGraph(FitContract):
         consumed = {i for n in self.conf.nodes.values() for i in n.inputs}
         acts, new_carries = self._activations(
             params, inputs, skip={n for n in outs if n not in consumed},
-            train=True, masks=masks, gen=gen, carries=carries)
+            train=True, masks=masks, gen=gen, carries=carries, state=state)
         total = 0.0
         for oi, name in enumerate(outs):
             layer = self.conf.nodes[name].layer
@@ -307,15 +339,17 @@ class ComputationGraph(FitContract):
         return grads
 
     def _gradients(self, inputs, labels, label_masks=None, masks=None,
-                   gen=None, carries=None):
-        """Loss and per-node gradients at the current parameters. Returns
-        (loss, grads, new carries), grads keyed like the parameters, the
-        carries detached."""
+                   gen=None, carries=None, state=None):
+        """Loss and per-node gradients at the current parameters, the new
+        layer state written into ``state`` (None: nowhere). Returns (loss,
+        grads, new carries), grads keyed like the parameters, the carries
+        detached."""
         leaves = self._leaves()
         loss_fn = remat_loss(self._loss, self.conf.global_conf.remat)
         with torch.enable_grad():
             loss, new_carries = loss_fn(leaves, inputs, labels, label_masks,
-                                        masks, gen=gen, carries=carries)
+                                        masks, gen=gen, carries=carries,
+                                        state=state)
             grads = self._grads_of(loss, leaves)
         if new_carries is not None:
             new_carries = {n: tuple(t.detach() for t in c)
@@ -357,7 +391,8 @@ class ComputationGraph(FitContract):
         gradients, the update, the draws from the graph's generator.
         Returns (loss, new carries)."""
         loss, grads, new_carries = self._gradients(
-            inputs, labels, label_masks, masks, self._gen, carries)
+            inputs, labels, label_masks, masks, self._gen, carries,
+            self.state)
         self._dp_apply_updates(grads)
         return loss, new_carries
 
@@ -403,17 +438,20 @@ class ComputationGraph(FitContract):
         backprop_external, ComputationGraph.calcBackpropGradients with
         external epsilons), the l1/l2 penalty's gradient included as fit()
         includes it, with the dropout and weight noise of a fit step at the
-        graph's iteration. Returns (grads, new_state); the port keeps no
-        layer state, so new_state is {}."""
+        graph's iteration. Returns (grads, new_state): the layer state
+        after this forward, on copies (the graph's own is not written)."""
         self._check_trainable()
         inputs = [self._as_input(x) for x in (
             inputs if isinstance(inputs, (list, tuple)) else [inputs])]
         epsilons = [self._as_input(e) for e in (
             epsilons if isinstance(epsilons, (list, tuple)) else [epsilons])]
         leaves = self._leaves()
+        new_state = {n: {k: v.clone() for k, v in d.items()}
+                     for n, d in self.state.items()}
         seed_generator(self._gen, self.conf.global_conf.seed, self.iteration)
         with torch.enable_grad():
-            outs, _ = self._forward(leaves, inputs, train=True, gen=self._gen)
+            outs, _ = self._forward(leaves, inputs, train=True, gen=self._gen,
+                                    state=new_state)
             outs = list(outs) if isinstance(outs, list) else [outs]
             eps = [e.to(o.dtype) for e, o in zip(epsilons, outs)]
             reg = self._reg_loss(leaves)
@@ -421,7 +459,7 @@ class ComputationGraph(FitContract):
                 outs.append(reg)
                 eps.append(torch.ones_like(reg))
             grads = self._grads_of(outs, leaves, eps)
-        return grads, {}
+        return grads, new_state
 
     def fit_external(self, inputs, epsilons):
         """One updater step driven by external epsilons (the training half
@@ -467,7 +505,7 @@ class ComputationGraph(FitContract):
     def compute_gradient_and_score(self, inputs, labels):
         """Gradients of the loss at the current parameters (per-node dicts,
         before normalization) and the loss, without an update (parity:
-        computeGradientAndScore)."""
+        computeGradientAndScore); the layer state is not written."""
         self._check_trainable()
         loss, grads, _ = self._gradients(
             *self._batch(self._as_multi(inputs, labels)))
@@ -563,7 +601,7 @@ class ComputationGraph(FitContract):
         """Loss on a (Multi)DataSet or on inputs and labels, l1/l2 included
         (parity: score); label masks weight it and feature masks reach the
         layers as in ``fit`` (the JAX graph's ``score`` reads neither:
-        caveat R3)."""
+        caveat R3); the layer state is not written."""
         mds = self._as_multi(inputs, labels) if mds is None \
             else self._as_multi(mds)
         return float(self._loss(self.params, *self._batch(mds))[0])
@@ -578,16 +616,23 @@ class ComputationGraph(FitContract):
         DataSet, a MultiDataSet or an iterator of them, each batch through
         the bucketed ``output``; the first output's label mask, where
         given, drops rows, and no feature mask is read, as in the JAX
-        package."""
+        package; a ``device_side`` pre-processor on the iterator runs on
+        the card."""
         from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
         ev = Evaluation()
+        dev_fn, host_pp = self._resolve_device_pp(data)
         if isinstance(data, (DataSet, MultiDataSet)):
             data = [data]
         elif hasattr(data, "reset"):
             data.reset()
         for batch in data:
+            if host_pp is not None and isinstance(batch, DataSet):
+                batch = host_pp.pre_process(batch)
             mds = self._as_multi(batch)
-            out = self.output(*mds.features)
+            feats = mds.features
+            if dev_fn is not None:
+                feats = [dev_fn(self._as_input(f)) for f in feats]
+            out = self.output(*feats)
             if isinstance(out, list):
                 out = out[0]
             lm = mds.labels_masks[0] if mds.labels_masks else None
@@ -751,9 +796,32 @@ class ComputationGraph(FitContract):
         return new_d
 
     # ------------------------------------------------------------- utilities
-    def save(self, path, save_updater=True):
+    def num_params(self) -> int:
+        return count_params(self.params)
+
+    def summary(self) -> str:
+        """The JAX package's table: vertex, type, inputs, parameters."""
+        lines = ["=" * 78,
+                 f"{'Vertex':<28}{'Type':<26}{'Inputs':<14}{'Params':>10}",
+                 "=" * 78]
+        for name in self.conf.topological_order:
+            node = self.conf.nodes[name]
+            if node.kind == "input":
+                lines.append(f"{name:<28}{'(input)':<26}{'':<14}{0:>10}")
+                continue
+            tname = type(node.layer if node.kind == "layer"
+                         else node.vertex).__name__
+            n = (count_params([self.params[name]])
+                 if self.params and name in self.params else 0)
+            ins = ",".join(node.inputs)[:13]
+            lines.append(f"{name:<28}{tname:<26}{ins:<14}{n:>10,}")
+        lines.append("=" * 78)
+        lines.append(f"Total params: {self.num_params():,}")
+        return "\n".join(lines)
+
+    def save(self, path, save_updater=True, normalizer=None):
         from deeplearning4j_tpu_torch.util.model_serializer import write_model
-        write_model(self, path, save_updater)
+        write_model(self, path, save_updater, normalizer)
 
     @staticmethod
     def load(path, load_updater=True, *, device=None) -> "ComputationGraph":

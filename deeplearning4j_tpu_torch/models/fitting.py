@@ -36,13 +36,22 @@ A container supplies ``_check_trainable``, ``_fit_batch``, ``fit_scan``,
 ``_direct_batch`` (a bare batch, or None for an iterator),
 ``_stream_batch`` (an iterator's item as the container's batch, with its
 feature and label arrays and whether it has a mask) and
-``_chunk_payload`` (stacked arrays as ``fit_scan``'s arguments). The
-device-side pre-processor seam of the JAX stream waits for
-``data/normalizers.py``.
+``_chunk_payload`` (stacked arrays as ``fit_scan``'s arguments).
+
+The pre-processor seam is the JAX stream's (``_resolve_device_pp``): a
+pre-processor on the iterator chain (``data.iterators.
+resolve_pre_processor``) with ``device_side`` set is not applied by the
+iterator; its ``as_device_transform()`` (torch ops) runs on the card on
+every feature array of a chunk or batch, right after the copy, on the
+prefetcher's copy stream (on the consumer's stream without a
+prefetcher). A uint8 image batch crosses the link at a byte a pixel and
+is scaled on the card. A ``device_side`` pre-processor with no device
+transform is applied on the host instead.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 
@@ -156,17 +165,48 @@ class FitContract:
                     break
         return self._epoch_batch
 
+    @staticmethod
+    def _resolve_device_pp(data):
+        """(device transform, host pre-processor) of ``data``'s
+        ``device_side`` pre-processor; (None, None) without one."""
+        from deeplearning4j_tpu_torch.data.iterators import \
+            resolve_pre_processor
+        pp = resolve_pre_processor(data)
+        if pp is None or not getattr(pp, "device_side", False):
+            return None, None
+        fn = pp.as_device_transform()
+        return (fn, None) if fn is not None else (None, pp)
+
+    def _dev_item(self, item, dev_fn):
+        """A stream item with ``dev_fn`` applied on the device to each of
+        its feature arrays."""
+        from deeplearning4j_tpu_torch.data.dataset import MultiDataSet
+        from deeplearning4j_tpu_torch.models.multi_layer_network import \
+            to_device
+
+        def f(a):
+            return dev_fn(to_device(a, self.device))
+        kind, payload = item
+        if kind == "chunk":
+            xs, ys = payload
+            return kind, ([f(a) for a in xs] if isinstance(xs, list)
+                          else f(xs), ys)
+        if isinstance(payload, MultiDataSet):
+            return kind, dataclasses.replace(
+                payload, features=[f(a) for a in payload.features])
+        return kind, dataclasses.replace(payload, features=f(payload.features))
+
     def _chunk_len(self, features, labels) -> int:
         """Steps a chunk of batches of these arrays may hold."""
         per = sum(np.asarray(a).nbytes for a in (*features, *labels))
         return max(1, min(self._CHUNK_MAX_STEPS,
                           self._CHUNK_MAX_BYTES // max(1, per)))
 
-    def _stream_chunks(self, data, timer, skip_batches=0):
-        """Host stage of the streamed fit: pull batches, stack runs of
-        mask-free same-shape batches. Yields ``("chunk", payload)``
-        (``fit_scan``'s arguments, stacked numpy blocks) or ``("batch",
-        batch)``, in the iterator's order."""
+    def _stream_chunks(self, data, timer, skip_batches=0, host_pp=None):
+        """Host stage of the streamed fit: pull batches (``host_pp``
+        applied to each), stack runs of mask-free same-shape batches.
+        Yields ``("chunk", payload)`` (``fit_scan``'s arguments, stacked
+        numpy blocks) or ``("batch", batch)``, in the iterator's order."""
         chunkable = self.conf.backprop_type != "tbptt"
         buf, shape = [], None
 
@@ -201,6 +241,9 @@ class FitContract:
             except StopIteration:
                 break
             timer.add("fetch", time.perf_counter() - t0)
+            if host_pp is not None:
+                with timer.stage("decode"):
+                    item = host_pp.pre_process(item)
             batch, features, labels, has_mask = self._stream_batch(item)
             if not chunkable or has_mask:
                 out = flush()
@@ -229,12 +272,19 @@ class FitContract:
         the epoch's wall time the consumer spent waiting on data."""
         from deeplearning4j_tpu_torch.data.prefetcher import DevicePrefetcher
         from deeplearning4j_tpu_torch.util.timing import PipelineTimer
+        dev_fn, host_pp = self._resolve_device_pp(data)
         depth = self.prefetch_depth if prefetch is None else int(prefetch)
         timer = PipelineTimer()
-        stream = self._stream_chunks(data, timer, skip_batches=skip_batches)
+        stream = self._stream_chunks(data, timer, skip_batches=skip_batches,
+                                     host_pp=host_pp)
+        transform = (None if dev_fn is None
+                     else lambda item: self._dev_item(item, dev_fn))
         if depth > 0:
             stream = DevicePrefetcher(stream, depth=depth,
-                                      device=self.device, timer=timer)
+                                      device=self.device,
+                                      transform=transform, timer=timer)
+        elif transform is not None:
+            stream = map(transform, stream)
         it = iter(stream)
         timer.start()
         while True:

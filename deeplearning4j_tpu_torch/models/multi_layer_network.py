@@ -42,6 +42,19 @@ network casts its parameters and inputs to bfloat16 under the executor's
 bf16 train-precision policy (exec/executor.py), the loss returning to
 float32; stored parameters and updater state stay float32.
 
+Layer state (BatchNormalization's running statistics) is ``self.state``,
+a list of per-layer dicts of tensors (``{}`` for a stateless layer),
+float32 under the bf16 policy too. The commit points are the JAX
+package's: a fit step (``fit``, ``fit_scan``, each truncated-BPTT chunk)
+writes the new statistics into those tensors in place, inside the step
+(and so inside its CUDA graph, which reads them by address);
+``output``, ``score``, ``compute_gradient_and_score``, ``feed_forward``
+and ``evaluate`` write nothing, under ``train=True`` too. Whatever loads
+state (``set_params``, ``restore_into``, a resume, ``init_pretrained``)
+copies into those tensors. A ``device_side`` pre-processor on the
+iterator (data/normalizers.py) runs on the card after the copy: a uint8
+image batch crosses the link at a byte a pixel (models/fitting.py).
+
 On the card every fit path (``fit`` on arrays, a DataSet or an iterator,
 ``fit_scan``, truncated BPTT) runs the step through CUDA graphs, one per
 signature (input shapes and dtypes, a label mask or not, carries or not),
@@ -68,7 +81,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.data.dataset import DataSet
+from deeplearning4j_tpu_torch.data.dataset import DataSet, host_tensor
 from deeplearning4j_tpu_torch.exec import get_executor
 from deeplearning4j_tpu_torch.exec.executor import (network_generator,
                                                     seed_generator)
@@ -116,10 +129,29 @@ def to_device(x, device) -> torch.Tensor:
     pinned memory without a host synchronization."""
     if isinstance(x, torch.Tensor):
         return x.to(device)
-    t = torch.as_tensor(np.asarray(x))
+    t = host_tensor(x)
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def load_state(dst, src):
+    """Copy layer state ``src`` (per-layer dicts of tensors or arrays, in
+    a list or by node name) into the tensors of ``dst`` in place: the
+    state a captured step reads by address is never rebound."""
+    items = dst.items() if isinstance(dst, dict) else enumerate(dst)
+    with torch.no_grad():
+        for i, d in items:
+            for k, t in d.items():
+                v = src[i][k]
+                t.copy_(v if isinstance(v, torch.Tensor)
+                        else torch.from_numpy(np.array(v)))
+
+
+def count_params(tree) -> int:
+    """Elements of every tensor in per-layer dicts (a list or by name)."""
+    items = tree.values() if isinstance(tree, dict) else tree
+    return sum(int(v.numel()) for p in items for v in p.values())
 
 
 def updater_plan(params, updaters, constraints):
@@ -153,6 +185,7 @@ class MultiLayerNetwork(FitContract):
         self.layers = conf.layers
         self.device = resolve_device(device)
         self.params: Optional[List[Dict[str, torch.Tensor]]] = None
+        self.state: Optional[List[Dict[str, torch.Tensor]]] = None
         self.opt_state: Optional[List[Dict[str, torch.Tensor]]] = None
         self._transforms = None       # per-layer updater (None: no params)
         self._fused = None            # fused update plan (nn/fused_update.py)
@@ -189,15 +222,24 @@ class MultiLayerNetwork(FitContract):
         self.params = [{k: v.to(self.device) for k, v in
                         flatten_params(l.init(gen, dtype)).items()}
                        for l in self.layers]
+        self.state = [l.init_state(dtype, self.device) for l in self.layers]
         self._build_optimizer()
         self._params_version += 1
         return self
 
-    def set_params(self, params: List[Dict[str, torch.Tensor]]):
+    def set_params(self, params: List[Dict[str, torch.Tensor]], state=None):
         """Install parameters (copied onto the network's device; nested
-        dicts flattened to path keys) with a fresh updater state."""
+        dicts flattened to path keys) with a fresh updater state, and
+        ``state`` (per-layer dicts) copied into the network's own state
+        tensors when given."""
         self.params = [{k: v.to(self.device) for k, v in
                         flatten_params(p).items()} for p in params]
+        if self.state is None:
+            dtype = DTYPES[self.conf.global_conf.dtype]
+            self.state = [l.init_state(dtype, self.device)
+                          for l in self.layers]
+        if state is not None:
+            load_state(self.state, state)
         self._build_optimizer()
         self._params_version += 1
         return self
@@ -251,13 +293,18 @@ class MultiLayerNetwork(FitContract):
         return None
 
     def _forward(self, params, x, carries=None, upto=None, train=False,
-                 mask=None, gen=None):
+                 mask=None, gen=None, state=None):
         """Forward through layers [0, upto). Returns (act, new_carries).
         Consecutive stacked LSTMs fuse into ONE wavefront kernel; the
         stateful-carry path (rnn_time_step, truncated BPTT) stays per
         layer. With ``train`` and a generator each layer's weight noise
         and dropout draw from ``gen`` in forward order; ``mask`` (B, T)
-        reaches every layer until the activations are 2-D."""
+        reaches every layer until the activations are 2-D. ``state`` is
+        the per-layer state the layers with state read and, under
+        ``train``, write in place; None means the network's own in
+        inference and no write under ``train``."""
+        if state is None and not train:
+            state = self.state
         cdt = self._compute_dtype(train)
         if cdt is not None:
             x = x.to(cdt)
@@ -281,17 +328,26 @@ class MultiLayerNetwork(FitContract):
                 x, new_carries[i] = l.apply_with_carry(p, x, new_carries[i],
                                                        mask=mask)
             else:
-                x = l.apply(p, x, train=train, gen=gen, mask=mask)
+                x = l.apply(p, x, train=train, gen=gen, mask=mask,
+                            **self._state_kw(state, i))
             if x.ndim == 2:
                 mask = None    # the sequence collapsed to one row each
             i += 1
         return x, new_carries
 
+    def _state_kw(self, state, i):
+        """``apply``'s state argument for layer ``i``: only a layer that
+        keeps state takes one."""
+        if not self.state or not self.state[i]:
+            return {}
+        return {"state": None if state is None else state[i]}
+
     # -------------------------------------------------------------- training
     def _loss(self, params, x, y, mask_l=None, carries=None, mask_f=None,
-              gen=None):
+              gen=None, state=None):
         """Output layer's score on the forward of the other layers, plus
-        every layer's l1/l2 penalty. Returns (loss, new_carries)."""
+        every layer's l1/l2 penalty; the layers write their new state into
+        ``state`` (None: nowhere). Returns (loss, new_carries)."""
         out_layer = self.layers[-1]
         if not hasattr(out_layer, "compute_score"):
             raise ValueError(
@@ -299,7 +355,8 @@ class MultiLayerNetwork(FitContract):
                 "OutputLayer/LossLayer variant")
         act, new_carries = self._forward(params, x, carries,
                                          upto=len(self.layers) - 1,
-                                         train=True, mask=mask_f, gen=gen)
+                                         train=True, mask=mask_f, gen=gen,
+                                         state=state)
         p_out = nest_params(params[-1])
         if gen is not None and out_layer.weight_noise is not None:
             p_out = out_layer.weight_noise.apply(p_out, gen)
@@ -316,15 +373,16 @@ class MultiLayerNetwork(FitContract):
             raise ValueError("call init() or set_params() before fitting")
 
     def _gradients(self, x, y, mask_l=None, carries=None, mask_f=None,
-                   gen=None):
-        """Loss and per-layer gradients at the current parameters. Returns
-        (loss, grads, new_carries), carries detached."""
+                   gen=None, state=None):
+        """Loss and per-layer gradients at the current parameters, the new
+        layer state written into ``state`` (None: nowhere). Returns (loss,
+        grads, new_carries), carries detached."""
         leaves = [{k: v.detach().requires_grad_(v.is_floating_point())
                    for k, v in p.items()} for p in self.params]
         loss_fn = remat_loss(self._loss, self.conf.global_conf.remat)
         with torch.enable_grad():
             loss, new_carries = loss_fn(leaves, x, y, mask_l, carries,
-                                        mask_f, gen=gen)
+                                        mask_f, gen=gen, state=state)
             flat = [v for p in leaves for v in p.values()]
             got = torch.autograd.grad(loss, flat, allow_unused=True) \
                 if flat else ()
@@ -378,7 +436,8 @@ class MultiLayerNetwork(FitContract):
         gradients, the update, the draws from the network's generator.
         Returns (loss, new_carries)."""
         loss, grads, new_carries = self._gradients(x, y, mask_l, carries,
-                                                   mask_f, self._gen)
+                                                   mask_f, self._gen,
+                                                   self.state)
         self._dp_apply_updates(grads)
         return loss, new_carries
 
@@ -421,7 +480,8 @@ class MultiLayerNetwork(FitContract):
     def compute_gradient_and_score(self, x, y, labels_mask=None):
         """Gradients of the loss at the current parameters (per-layer
         dicts, before normalization) and the loss, without an update
-        (parity: computeGradientAndScore): no dropout, no weight noise."""
+        (parity: computeGradientAndScore): no dropout, no weight noise, the
+        layer state untouched."""
         self._check_trainable()
         loss, grads, _ = self._gradients(
             self._as_input(x), self._as_input(y),
@@ -504,7 +564,8 @@ class MultiLayerNetwork(FitContract):
     @torch.no_grad()
     def score(self, ds: Optional[DataSet] = None, x=None, y=None) -> float:
         """Loss on a dataset, l1/l2 included, its masks applied, no
-        dropout or weight noise (parity: score)."""
+        dropout or weight noise, the layer state untouched (parity:
+        score)."""
         ml = mf = None
         if ds is not None:
             x, y = ds.features, ds.labels
@@ -525,9 +586,11 @@ class MultiLayerNetwork(FitContract):
         """Classification evaluation (parity: evaluate): accuracy,
         precision, recall, F1 and the confusion matrix over the batches,
         each through the bucketed ``output``; as in the JAX package, a
-        label mask drops rows and a feature mask is not read."""
+        label mask drops rows, a feature mask is not read, and a
+        ``device_side`` pre-processor on the iterator runs on the card."""
         from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
         ev = Evaluation()
+        dev_fn, host_pp = self._resolve_device_pp(data)
         if labels is not None:
             data = [DataSet(data, labels)]
         elif isinstance(data, DataSet):
@@ -537,7 +600,12 @@ class MultiLayerNetwork(FitContract):
         for ds in data:
             if not isinstance(ds, DataSet):
                 ds = DataSet(*ds)
-            out = self.output(ds.features)
+            if host_pp is not None:
+                ds = host_pp.pre_process(ds)
+            x = ds.features
+            if dev_fn is not None:
+                x = dev_fn(self._as_input(x))
+            out = self.output(x)
             ev.eval(np.asarray(ds.labels), out.float().cpu().numpy(),
                     None if ds.labels_mask is None
                     else np.asarray(ds.labels_mask))
@@ -567,6 +635,19 @@ class MultiLayerNetwork(FitContract):
         if bucketed:
             return self.serving_engine().predict(x, mask)
         return self._forward(self.params, x, mask=mask)[0]
+
+    @torch.no_grad()
+    def feed_forward(self, x, train: bool = False):
+        """Every layer's activation, the input first (parity:
+        feedForward): one layer at a time, no cast, no pair fusion; under
+        ``train`` with batch statistics and no state written."""
+        x = self._as_input(x)
+        acts = [x]
+        for i, (l, p) in enumerate(zip(self.layers, self.params)):
+            x = l.apply(nest_params(p), x, train=train,
+                        **self._state_kw(None if train else self.state, i))
+            acts.append(x)
+        return acts
 
     @torch.no_grad()
     def rnn_time_step(self, x) -> torch.Tensor:
@@ -670,9 +751,35 @@ class MultiLayerNetwork(FitContract):
         return new_d
 
     # ------------------------------------------------------------- utilities
-    def save(self, path, save_updater=True):
+    def num_params(self) -> int:
+        return count_params(self.params)
+
+    def summary(self) -> str:
+        """The JAX package's table: layer, type, parameters, total."""
+        lines = ["=" * 70,
+                 f"{'Layer':<30}{'Type':<25}{'Params':>12}", "=" * 70]
+        for i, (l, p) in enumerate(zip(self.layers, self.params)):
+            name = l.name or f"layer_{i}"
+            lines.append(f"{name:<30}{type(l).__name__:<25}"
+                         f"{count_params([p]):>12,}")
+        lines.append("=" * 70)
+        lines.append(f"Total params: {self.num_params():,}")
+        return "\n".join(lines)
+
+    def clone(self) -> "MultiLayerNetwork":
+        """A network of the same configuration on the same device with
+        copies of the parameters and state and a fresh updater state."""
+        net = MultiLayerNetwork(
+            MultiLayerConfiguration.from_json(self.conf.to_json()),
+            device=self.device)
+        if self.params is not None:
+            net.set_params([{k: v.clone() for k, v in p.items()}
+                            for p in self.params], self.state)
+        return net
+
+    def save(self, path, save_updater=True, normalizer=None):
         from deeplearning4j_tpu_torch.util.model_serializer import write_model
-        write_model(self, path, save_updater)
+        write_model(self, path, save_updater, normalizer)
 
     @staticmethod
     def load(path, load_updater=True, *, device=None) -> "MultiLayerNetwork":

@@ -106,10 +106,19 @@ class Builder:
     def seed(self, s):
         self._g.seed = int(s); return self
 
+    def activation(self, a):
+        self._g.activation = a; return self
+
     def weight_init(self, w, dist=None):
         self._g.weight_init = w
         if dist is not None:
             self._g.dist = tuple(dist)
+        return self
+
+    def dist(self, *d):
+        """Weights drawn from ``d`` (e.g. "normal", mean, std)."""
+        self._g.dist = tuple(d)
+        self._g.weight_init = "distribution"
         return self
 
     def updater(self, u):

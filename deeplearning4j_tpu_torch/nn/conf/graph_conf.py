@@ -5,8 +5,11 @@ the reference's ComputationGraphConfiguration and GraphBuilder). A node is
 a network input, a layer, or a parameterless vertex, with a list of input
 names; the topological order is computed once at build. The JSON is the
 JAX package's document, so a configuration saved by one package reads in
-the other. Ported vertices: ``ElementWiseVertex``; reading a configuration
-that holds another raises, naming it.
+the other. Every vertex of the JAX package is ported (MergeVertex,
+ElementWiseVertex, SubsetVertex, StackVertex, UnstackVertex, ScaleVertex,
+ShiftVertex, L2NormalizeVertex, ReshapeVertex, LastTimeStepVertex,
+DuplicateToTimeSeriesVertex, L2Vertex, PreprocessorVertex,
+PoolHelperVertex), under the same JSON names.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import copy
 import dataclasses
 import json
 from dataclasses import dataclass, field as dc_field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -83,6 +86,211 @@ class ElementWiseVertex(GraphVertex):
         else:
             raise ValueError(self.op)
         return out
+
+
+@register_vertex
+@dataclass
+class MergeVertex(GraphVertex):
+    """Concatenation along the feature (last) axis."""
+
+    def apply(self, inputs):
+        return torch.cat(inputs, dim=-1)
+
+    def output_type(self, input_types):
+        t0 = input_types[0]
+        if t0.kind == "cnn":
+            ch = sum(t.channels for t in input_types)
+            return InputType.convolutional(t0.height, t0.width, ch)
+        if t0.kind == "rnn":
+            return InputType.recurrent(sum(t.size for t in input_types),
+                                       t0.timeseries_length)
+        return InputType.feed_forward(sum(t.flat_size() for t in input_types))
+
+
+@register_vertex
+@dataclass
+class SubsetVertex(GraphVertex):
+    """Features ``from_idx`` to ``to_idx``, inclusive."""
+    from_idx: int = 0
+    to_idx: int = 0
+
+    def apply(self, inputs):
+        return inputs[0][..., self.from_idx:self.to_idx + 1]
+
+    def output_type(self, input_types):
+        n = self.to_idx - self.from_idx + 1
+        t0 = input_types[0]
+        if t0.kind == "rnn":
+            return InputType.recurrent(n, t0.timeseries_length)
+        return InputType.feed_forward(n)
+
+
+@register_vertex
+@dataclass
+class StackVertex(GraphVertex):
+    """Concatenation along the batch axis."""
+
+    def apply(self, inputs):
+        return torch.cat(inputs, dim=0)
+
+
+@register_vertex
+@dataclass
+class UnstackVertex(GraphVertex):
+    """Slice ``from_idx`` of ``stack_size`` equal slices of the batch."""
+    from_idx: int = 0
+    stack_size: int = 1
+
+    def apply(self, inputs):
+        x = inputs[0]
+        step = x.shape[0] // self.stack_size
+        return x[self.from_idx * step:(self.from_idx + 1) * step]
+
+
+@register_vertex
+@dataclass
+class ScaleVertex(GraphVertex):
+    scale: float = 1.0
+
+    def apply(self, inputs):
+        return inputs[0] * self.scale
+
+
+@register_vertex
+@dataclass
+class ShiftVertex(GraphVertex):
+    shift: float = 0.0
+
+    def apply(self, inputs):
+        return inputs[0] + self.shift
+
+
+@register_vertex
+@dataclass
+class L2NormalizeVertex(GraphVertex):
+    eps: float = 1e-8
+
+    def apply(self, inputs):
+        x = inputs[0]
+        n = torch.sqrt((x ** 2).sum(dim=-1, keepdim=True))
+        return x / torch.clamp(n, min=self.eps)
+
+
+@register_vertex
+@dataclass
+class ReshapeVertex(GraphVertex):
+    shape: Tuple[int, ...] = ()
+
+    def apply(self, inputs):
+        return inputs[0].reshape((inputs[0].shape[0],) + tuple(self.shape))
+
+
+@register_vertex
+@dataclass
+class LastTimeStepVertex(GraphVertex):
+    """(B, T, C) -> (B, C): each row's last real step, located by the (B,
+    T) feature mask of the network input ``mask_input`` (the last nonzero
+    entry; a row without one takes step 0), or the final step without a
+    mask."""
+    mask_input: Optional[str] = None
+
+    def apply(self, inputs, mask=None):
+        x = inputs[0]
+        if mask is None:
+            return x[:, -1, :]
+        T = mask.shape[1]
+        live = mask > 0
+        idx = T - 1 - live.flip(1).to(torch.int8).argmax(dim=1)
+        idx = torch.where(live.any(dim=1), idx, torch.zeros_like(idx))
+        return x[torch.arange(x.shape[0], device=x.device), idx]
+
+    def output_type(self, input_types):
+        return InputType.feed_forward(input_types[0].size)
+
+
+@register_vertex
+@dataclass
+class DuplicateToTimeSeriesVertex(GraphVertex):
+    """(B, C) -> (B, T, C), T from the sequence ``ref_input`` (which
+    ``GraphBuilder.add_vertex`` appends to the vertex's inputs)."""
+    ref_input: Optional[str] = None
+
+    def apply(self, inputs):
+        x, ref = inputs[0], inputs[-1]
+        return x[:, None, :].expand(x.shape[0], ref.shape[1], x.shape[1])
+
+    def output_type(self, input_types):
+        t0, tref = input_types[0], input_types[-1]
+        return InputType.recurrent(t0.flat_size(),
+                                   getattr(tref, "timeseries_length", None))
+
+
+@register_vertex
+@dataclass
+class L2Vertex(GraphVertex):
+    """The L2 distance between two activations, (B, 1)."""
+    eps: float = 1e-8
+
+    def apply(self, inputs):
+        d = inputs[0] - inputs[1]
+        ss = (d * d).sum(dim=tuple(range(1, d.ndim)))
+        return torch.sqrt(torch.clamp(ss, min=self.eps))[:, None]
+
+    def output_type(self, input_types):
+        return InputType.feed_forward(1)
+
+
+@register_vertex
+@dataclass
+class PreprocessorVertex(GraphVertex):
+    """A named shape transform: ``cnn_to_ff`` (B, H, W, C) -> (B, HWC),
+    ``ff_to_cnn`` (B, HWC) -> (B, height, width, channels), ``rnn_to_ff``
+    (B, T, C) -> (B T, C), ``ff_to_rnn`` (B T, C) -> (B, tsteps, C)."""
+    preprocessor: str = "cnn_to_ff"
+    height: int = 0
+    width: int = 0
+    channels: int = 0
+    tsteps: int = 0
+
+    def apply(self, inputs):
+        x = inputs[0]
+        if self.preprocessor == "cnn_to_ff":
+            return x.reshape(x.shape[0], -1)
+        if self.preprocessor == "ff_to_cnn":
+            return x.reshape(x.shape[0], self.height, self.width,
+                             self.channels)
+        if self.preprocessor == "rnn_to_ff":
+            return x.reshape(x.shape[0] * x.shape[1], x.shape[2])
+        if self.preprocessor == "ff_to_rnn":
+            return x.reshape(x.shape[0] // self.tsteps, self.tsteps,
+                             x.shape[1])
+        raise ValueError(f"Unknown preprocessor '{self.preprocessor}'")
+
+    def output_type(self, input_types):
+        t = input_types[0]
+        if self.preprocessor == "cnn_to_ff":
+            return InputType.feed_forward(t.flat_size())
+        if self.preprocessor == "ff_to_cnn":
+            return InputType.convolutional(self.height, self.width,
+                                           self.channels)
+        if self.preprocessor == "rnn_to_ff":
+            return InputType.feed_forward(t.size)
+        if self.preprocessor == "ff_to_rnn":
+            return InputType.recurrent(t.flat_size(), self.tsteps)
+        raise ValueError(f"Unknown preprocessor '{self.preprocessor}'")
+
+
+@register_vertex
+@dataclass
+class PoolHelperVertex(GraphVertex):
+    """Crops the first row and column (GoogLeNet's helper)."""
+
+    def apply(self, inputs):
+        return inputs[0][:, 1:, 1:, :]
+
+    def output_type(self, input_types):
+        t = input_types[0]
+        return InputType.convolutional(t.height - 1, t.width - 1, t.channels)
 
 
 @dataclass
@@ -232,8 +440,14 @@ class GraphBuilder:
         return self
 
     def add_vertex(self, name: str, vertex: GraphVertex, *inputs: str):
+        inputs = list(inputs)
+        ref = getattr(vertex, "ref_input", None)
+        if ref and ref not in inputs:
+            # DuplicateToTimeSeriesVertex's reference sequence is an input
+            # of the vertex: the topological order and the JSON carry it
+            inputs.append(ref)
         self._conf.nodes[name] = _Node(name=name, kind="vertex",
-                                       vertex=vertex, inputs=list(inputs))
+                                       vertex=vertex, inputs=inputs)
         return self
 
     def set_outputs(self, *names):

@@ -70,3 +70,13 @@ class InputType:
     @staticmethod
     def from_dict(d):
         return InputType(**d)
+
+
+def conv_output_size(size, kernel, stride, pad, dilation=1, mode="truncate"):
+    """Spatial output size of a convolution or pooling window. ``mode``:
+    'same' (ceil(size / stride), dilation ignored, as in the JAX package)
+    or 'truncate'/'strict' (the reference's ConvolutionMode)."""
+    if mode == "same":
+        return -(-size // stride)
+    eff_k = kernel + (kernel - 1) * (dilation - 1)
+    return (size + 2 * pad - eff_k) // stride + 1

@@ -12,11 +12,12 @@ Which kernel runs: the JAX layer launches its flash kernels only where
 its TPU route tables say so; here the routing is by the function alone.
 ``MultiHeadAttention.apply`` runs K5 (``ops.flash_attention``) on every
 call whose head dim the JAX layer's flash screens take, and under autograd
-its backward runs K6 and K7 (the kernels of ``ops.FlashAttention``) -- the
-port's layer
-takes no key mask and no offsets, so q, k and v always share one shape,
-the conditions under which the JAX layer's flash path computes the same
-function as its einsum path.
+its backward runs K6 and K7 (the kernels of ``ops.FlashAttention``) --
+without a key mask, and with no offsets (the port's layer takes none), q,
+k and v share one shape, the conditions under which the JAX layer's flash
+path computes the same function as its einsum path. A call with a (B, T)
+key-padding mask runs the layer's own einsum and softmax with the masked
+keys' scores at -inf, as the JAX layer's einsum path does.
 The dense decode step always runs K8 (``ops.flash_decode_step``), the
 paged one K9 (``ops.flash_decode_step_paged``), and so does a tree
 verify: ``tree_chunk`` runs K8 over every node's effective cache, the
@@ -141,17 +142,21 @@ class MultiHeadAttention(Layer):
         return ops.head_dim_supported(self.head_dim)
 
     def apply(self, params, x, *, train=False, gen=None, mask=None):
-        if mask is not None:
-            raise NotImplementedError(
-                "MultiHeadAttention with a feature (key-padding) mask is not "
-                "ported to the PyTorch package yet (ROADMAP queue 1 item 4)")
+        """Self-attention of ``x`` (B, T, C); ``mask`` (B, T) is a
+        key-padding mask: the JAX layer's einsum path drops the masked
+        keys' scores (after the causal mask), and so does the layer's own
+        attention here, as a different function from K5's (a row whose
+        keys are all masked gives NaN in both)."""
         x = self.maybe_dropout(x, train=train, gen=gen)
         B, T, _ = x.shape
         H, Dh = self.n_heads, self.head_dim
         q, k, v = self._project(params, x)
-        if not self.flash_supported():
+        if mask is not None or not self.flash_supported():
             keep = (torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
                     if self.causal else None)
+            if mask is not None:
+                keys = mask[:, None, None, :] > 0
+                keep = keys if keep is None else keep & keys
             return self._project_out(params, _attend(q, k, v, keep), B, T,
                                      q.dtype)
 

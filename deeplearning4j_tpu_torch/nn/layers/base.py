@@ -21,10 +21,17 @@ Protocol:
 - ``set_n_in(input_type)`` -- infer input width.
 - ``output_type(input_type)`` -- shape inference.
 - ``init(gen, dtype, device)`` -- parameter dict ({} if parameterless).
-- ``apply(params, x, *, train=False, gen=None, mask=None)`` -- the
-  forward: ``train`` and a ``torch.Generator`` (where the JAX package
-  takes ``rng``) switch on the layer's dropout; ``mask`` is the (B, T)
-  feature mask of a sequence input.
+- ``init_state(dtype, device)`` -- the non-trainable state, a dict of
+  tensors ({} when the layer keeps none; BatchNormalization's running
+  mean and variance).
+- ``apply(params, x, *, train=False, gen=None, mask=None[, state=None])``
+  -- the forward: ``train`` and a ``torch.Generator`` (where the JAX
+  package takes ``rng``) switch on the layer's dropout; ``mask`` is the
+  (B, T) feature mask of a sequence input. A layer with state takes
+  ``state`` (the containers pass it to such layers only): it reads it,
+  and under ``train`` writes its new value into the tensors it was given,
+  in place (where the JAX layer returns it); given ``state=None`` under
+  ``train`` it writes nothing.
 - ``reg_loss(params)`` / ``apply_constraints(params)`` -- training.
 - ``init_decode_state`` / ``decode_step`` -- one token at a time, and
   their paged forms (``init_paged_decode_state`` / ``decode_step_paged``).
@@ -133,6 +140,10 @@ class Layer:
     # ---- runtime protocol ------------------------------------------------
     def init(self, gen: torch.Generator, dtype=torch.float32,
              device=None) -> Dict[str, torch.Tensor]:
+        return {}
+
+    def init_state(self, dtype=torch.float32, device=None
+                   ) -> Dict[str, torch.Tensor]:
         return {}
 
     def apply(self, params, x, *, train=False, gen=None, mask=None):
@@ -382,3 +393,10 @@ def require_dims(layer, **dims):
                 f"{type(layer).__name__}: {k}={v} is not set. Provide "
                 f"set_input_type(...) on the ListBuilder or set {k} "
                 f"explicitly on the layer.")
+
+
+def as_pair(v):
+    """An int-or-pair hyperparameter as a 2-tuple."""
+    if isinstance(v, (tuple, list)):
+        return tuple(v)
+    return (v, v)

@@ -26,7 +26,8 @@ modulo test can skip its own cadence forever.
 Not ported yet: the AOT companion artifact (``exec/aot.py``), which the
 JAX manager rotates with its checkpoint and ``latest_aot`` returns; here
 rotation removes the zip alone and ``latest_aot`` raises. A normalizer
-(``data/normalizers.py``) cannot be saved with a checkpoint yet.
+(``data/normalizers.py``) given to the manager's ``save`` or to the
+listener is written into each zip (``normalizer.json``).
 """
 
 from __future__ import annotations
@@ -158,13 +159,13 @@ class CheckpointManager:
     # -- public surface ----------------------------------------------------
 
     def save(self, model, normalizer=None) -> str:
-        """Write one checkpoint atomically, record it, rotate. Returns the
-        checkpoint path."""
-        _no_normalizer(normalizer)
+        """Write one checkpoint atomically (with ``normalizer`` when
+        given), record it, rotate. Returns the checkpoint path."""
         name = checkpoint_filename(model.iteration, model.epoch)
         path = os.path.join(self.directory, name)
         model_serializer.write_model(model, path,
-                                     save_updater=self.save_updater)
+                                     save_updater=self.save_updater,
+                                     normalizer=normalizer)
         self._save_count += 1
         pinned = (self.keep_every is not None
                   and (self._save_count - 1) % self.keep_every == 0)
@@ -269,13 +270,6 @@ class CheckpointManager:
             "package yet (ROADMAP queue 1 item 6)")
 
 
-def _no_normalizer(normalizer):
-    if normalizer is not None:
-        raise NotImplementedError(
-            "saving a normalizer with a checkpoint waits for "
-            "data/normalizers.py, not ported to the PyTorch package yet")
-
-
 def latest_checkpoint(directory) -> Optional[str]:
     """Most recent checkpoint in ``directory`` (manifest first, filename
     scan as fallback), or None. What ``fit(resume_from=...)`` accepts when
@@ -301,17 +295,18 @@ class CheckpointListener:
         if not every_n_iterations and not every_n_epochs:
             raise ValueError("CheckpointListener needs every_n_iterations "
                              "and/or every_n_epochs")
-        _no_normalizer(normalizer)
         self.manager = CheckpointManager(directory, keep_last=keep_last,
                                          keep_every=keep_every,
                                          save_updater=save_updater)
         self.every_n_iterations = every_n_iterations
         self.every_n_epochs = every_n_epochs
+        self.normalizer = normalizer
         self._baseline_iter: Optional[int] = None
         self.last_saved_path: Optional[str] = None
 
     def _save(self, model):
-        self.last_saved_path = self.manager.save(model)
+        self.last_saved_path = self.manager.save(model,
+                                                 normalizer=self.normalizer)
 
     def iteration_done(self, model, iteration: int, epoch: int):
         if not self.every_n_iterations:

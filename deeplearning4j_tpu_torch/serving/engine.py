@@ -17,6 +17,7 @@ from typing import List
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.data.dataset import host_tensor
 from deeplearning4j_tpu_torch.resilience.errors import WeightSwapError
 
 
@@ -138,7 +139,7 @@ class InferenceEngine:
         on the model's device, shaped like ``model.output(x,
         bucketed=False)``."""
         if not isinstance(x, torch.Tensor):
-            x = torch.as_tensor(np.asarray(x))
+            x = host_tensor(x)
         if mask is not None:
             mask = torch.as_tensor(np.asarray(mask)) if not isinstance(
                 mask, torch.Tensor) else mask

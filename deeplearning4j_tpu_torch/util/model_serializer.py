@@ -6,16 +6,20 @@ kind, and the ``iteration``, ``epoch`` and ``epoch_batch`` counters),
 ``configuration.json``, ``coefficients.npz`` (one array per parameter
 under keys like ``0/RW`` -- layer index / parameter name, a wrapper's
 nested parameters by path, ``0/fwd/RW`` -- or, for a graph,
-``b0_attn/Wq`` -- node name / parameter name), ``modelState.npz``
-and, when saved, ``updaterState.npz`` (the updater state under the JAX
-package's optax key paths, e.g. ``0/0/.mu/W`` -- layer index or node name
-/ chain index / field / parameter). Arrays go
+``b0_attn/Wq`` -- node name / parameter name), ``modelState.npz`` (the
+layer state, BatchNormalization's running statistics, under the same
+keys: ``1/mean``, ``stem_bn/var``), when saved ``updaterState.npz`` (the
+updater state under the JAX package's optax key paths, e.g.
+``0/0/.mu/W`` -- layer index or node name / chain index / field /
+parameter), and, when given, ``normalizer.json`` (data/normalizers.py's
+document; ``restore_normalizer`` reads it). Arrays go
 through numpy, so a zip written by either package loads, and resumes
 training, in the other. Writing to a path is atomic and durable: staged to
 a temp file, fsynced, renamed over the destination, and the directory
 fsynced so the rename survives a crash. ``restore_into`` loads a zip into
-an existing network in place (``fit(resume_from=)``); ``read_meta`` reads
-the counters alone.
+an existing network in place (``fit(resume_from=)``), the state copied
+into the network's own tensors; ``read_meta`` reads the counters alone;
+``guess_model`` restores whichever container a zip holds.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ CONFIG_NAME = "configuration.json"
 COEFF_NAME = "coefficients.npz"
 STATE_NAME = "modelState.npz"
 UPDATER_NAME = "updaterState.npz"
+NORMALIZER_NAME = "normalizer.json"
 META_NAME = "meta.json"
 
 
@@ -88,10 +93,10 @@ def _kind(model) -> str:
             else "MultiLayerNetwork")
 
 
-def write_model(model, path, save_updater=True):
+def write_model(model, path, save_updater=True, normalizer=None):
     """Write ``model`` (a MultiLayerNetwork or a ComputationGraph) to a
     checkpoint zip, with its updater state unless ``save_updater`` is
-    False."""
+    False, and ``normalizer`` when given."""
     flat = _flatten(model.params)
     path = os.fspath(path)
     tmp = os.path.join(os.path.dirname(os.path.abspath(path)),
@@ -107,9 +112,12 @@ def write_model(model, path, save_updater=True):
                     "epoch_batch": int(model._epoch_batch)}))
                 z.writestr(CONFIG_NAME, model.conf.to_json())
                 _savez(z, COEFF_NAME, flat)
-                _savez(z, STATE_NAME, {})
+                _savez(z, STATE_NAME, _flatten(model.state or {}))
                 if save_updater and model.opt_state is not None:
                     _savez(z, UPDATER_NAME, _flatten(model.opt_state))
+                if normalizer is not None:
+                    z.writestr(NORMALIZER_NAME,
+                               json.dumps(normalizer.to_dict()))
             fh.flush()
             os.fsync(fh.fileno())
         os.replace(tmp, path)
@@ -203,15 +211,18 @@ def restore_into(model, path, load_updater=True):
         if meta.get("kind") != kind:
             raise ValueError(f"Expected {kind}, zip holds {meta.get('kind')}")
         flat = _loadz(z, path, COEFF_NAME)
+        st = _loadz(z, path, STATE_NAME)
         upd = (_loadz(z, path, UPDATER_NAME)
                if load_updater and UPDATER_NAME in z.namelist() else None)
     if model.params is None:
         model.init()
     params = _fill(path, COEFF_NAME, flat, model.params)
+    state = _fill(path, STATE_NAME, st, model.state)
     opt = None if upd is None else _fill(path, UPDATER_NAME, upd,
                                          model.opt_state)
     with torch.no_grad():
         _copy_into(model.params, params)
+        _copy_into(model.state, state)
         model._params_version += 1
         if opt is not None:
             _copy_into(model.opt_state, opt)
@@ -221,14 +232,14 @@ def restore_into(model, path, load_updater=True):
 
 def _restore(path, device, load_updater, kind):
     """Build the network the zip describes on ``device`` and load its
-    parameters, counters and (when the zip has it and ``load_updater``)
-    updater state. Every array the configuration needs must be present
-    with the shape the configuration gives it."""
+    parameters, state, counters and (when the zip has it and
+    ``load_updater``) updater state. Every array the configuration needs
+    must be present with the shape the configuration gives it."""
     from deeplearning4j_tpu_torch.models.computation_graph import \
         ComputationGraph
     from deeplearning4j_tpu_torch.nn.layers.base import flatten_params
     from deeplearning4j_tpu_torch.models.multi_layer_network import (
-        DTYPES, MultiLayerNetwork)
+        DTYPES, MultiLayerNetwork, load_state)
     from deeplearning4j_tpu_torch.nn.conf.configuration import (
         MultiLayerConfiguration)
     from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
@@ -239,6 +250,7 @@ def _restore(path, device, load_updater, kind):
             raise ValueError(f"Expected {kind}, zip holds {meta.get('kind')}")
         conf_json = _read_member(z, path, CONFIG_NAME).decode()
         flat = _loadz(z, path, COEFF_NAME)
+        st = _loadz(z, path, STATE_NAME)
         upd = (_loadz(z, path, UPDATER_NAME)
                if load_updater and UPDATER_NAME in z.namelist() else None)
     gen = torch.Generator().manual_seed(0)
@@ -255,6 +267,7 @@ def _restore(path, device, load_updater, kind):
         templates = [flatten_params(l.init(gen, dtype))
                      for l in model.layers]
     model.set_params(_fill(path, COEFF_NAME, flat, templates))
+    load_state(model.state, _fill(path, STATE_NAME, st, model.state))
     if upd is not None:
         _copy_into(model.opt_state, _fill(path, UPDATER_NAME, upd,
                                           model.opt_state))
@@ -270,3 +283,24 @@ def restore_multi_layer_network(path, load_updater=True, *, device=None):
 def restore_computation_graph(path, load_updater=True, *, device=None):
     """The ComputationGraph a checkpoint zip holds, on ``device``."""
     return _restore(path, device, load_updater, "ComputationGraph")
+
+
+def guess_model(path, load_updater=True, *, device=None):
+    """The network a checkpoint zip holds, of the kind its ``meta.json``
+    names, on ``device``."""
+    kind = read_meta(path).get("kind")
+    if kind not in ("MultiLayerNetwork", "ComputationGraph"):
+        raise CorruptCheckpointError(path, member=META_NAME,
+                                     detail=f"unknown kind {kind!r}")
+    return _restore(path, device, load_updater, kind)
+
+
+def restore_normalizer(path):
+    """The normalizer a checkpoint zip holds (data/normalizers.py), or
+    None."""
+    from deeplearning4j_tpu_torch.data.normalizers import Normalizer
+    with _open_zip(path) as z:
+        if NORMALIZER_NAME not in z.namelist():
+            return None
+        return Normalizer.from_dict(
+            json.loads(_read_member(z, path, NORMALIZER_NAME)))

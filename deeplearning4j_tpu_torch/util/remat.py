@@ -19,14 +19,26 @@ recompute replays them in order. The gradient is then the one without
 remat, on the CPU and inside a captured graph alike; the kept draws are
 the memory remat does not save.
 
-``'save_convs'`` and ``'selective'`` save only the outputs the JAX package
-tags ``conv_out``. The port has no convolution layer yet, so nothing is
-tagged and they recompute everything, as ``True`` / ``'full'`` do.
+The recompute must not write layer state a second time: the loss takes
+the state to write as the keyword ``state``, and the recompute gets None
+(BatchNormalization's train-mode output reads batch statistics only, so
+it is the same).
+
+``'save_convs'`` and ``'selective'`` keep the outputs the JAX package
+tags ``conv_out`` (a convolution layer's, before its bias and
+activation) and recompute the rest: a selective checkpoint whose policy
+saves every ``aten.convolution`` result. The port's convolution layers
+add their bias inside the call, so the saved tensor is the output with
+its bias, which the backward needs all the same.
 """
 
 from __future__ import annotations
 
-from torch.utils.checkpoint import checkpoint
+import functools
+
+import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from deeplearning4j_tpu_torch.nn.dropout import SameDraws
 
@@ -43,24 +55,37 @@ def check_remat_mode(mode):
     return mode
 
 
+def _save_convs(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE
+            if op is torch.ops.aten.convolution.default
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def remat_loss(loss_fn, mode):
     """``loss_fn`` wrapped per the configured remat ``mode``: False ->
-    unchanged; any other mode -> rematerialized. ``loss_fn`` takes its
-    generator as the keyword ``gen``."""
+    unchanged; 'save_convs' / 'selective' -> rematerialized but for the
+    convolutions' outputs; any other mode -> rematerialized whole.
+    ``loss_fn`` takes its generator as the keyword ``gen`` and the layer
+    state it writes as ``state``."""
     if not check_remat_mode(mode):
         return loss_fn
+    extra = {}
+    if mode in ("save_convs", "selective"):
+        extra["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_convs)
 
-    def rematerialized(*args, gen=None, **kw):
+    def rematerialized(*args, gen=None, state=None, **kw):
         draws = None if gen is None else SameDraws(gen)
         calls = []
 
         def run(*a):
             if calls and draws is not None:
                 draws.replay()           # the recompute: the same draws
+            st = None if calls else state    # written once, not again
             calls.append(1)
-            return loss_fn(*a, gen=draws, **kw)
+            return loss_fn(*a, gen=draws, state=st, **kw)
 
         return checkpoint(run, *args, use_reentrant=False,
-                          preserve_rng_state=False)
+                          preserve_rng_state=False, **extra)
 
     return rematerialized

@@ -1,9 +1,9 @@
-"""Zoo models: TextGenerationLSTM and TinyTransformer.
+"""Sequential zoo models and the char-level LMs: LeNet, SimpleCNN,
+AlexNet, VGG16, VGG19, Darknet19, TextGenerationLSTM and TinyTransformer.
 
-Counterpart of deeplearning4j_tpu/zoo/simple.py (the two char-level LMs
-are ported so far; parity surface: the reference's
-zoo/model/TextGenerationLSTM.java, and the JAX package's own
-TinyTransformer).
+Counterpart of deeplearning4j_tpu/zoo/simple.py, layer for layer (parity
+surface: the reference's zoo/model/*.java; NHWC), and the JAX package's
+own TinyTransformer.
 """
 
 from __future__ import annotations
@@ -12,13 +12,182 @@ from deeplearning4j_tpu_torch.nn.conf.configuration import \
     NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import ElementWiseVertex
-from deeplearning4j_tpu_torch.nn.layers import (LSTM, DenseLayer,
-                                                LayerNormalization,
-                                                MultiHeadAttention,
-                                                PositionalEmbedding,
-                                                RnnOutputLayer)
-from deeplearning4j_tpu_torch.nn.updaters import Adam
+from deeplearning4j_tpu_torch.nn.layers import (
+    LSTM, BatchNormalization, ConvolutionLayer, DenseLayer, DropoutLayer,
+    GlobalPoolingLayer, LayerNormalization, LocalResponseNormalization,
+    MultiHeadAttention, OutputLayer, PositionalEmbedding, RnnOutputLayer,
+    SubsamplingLayer)
+from deeplearning4j_tpu_torch.nn.updaters import Adam, Nesterovs
 from deeplearning4j_tpu_torch.zoo.zoo_model import ZooModel
+
+
+class LeNet(ZooModel):
+    name = "lenet"
+    default_input_shape = (28, 28, 1)
+
+    def conf(self):
+        h, w, c = self.input_shape
+        return (NeuralNetConfiguration.builder()
+                .seed(self.seed)
+                .updater(self.updater(Adam(1e-3)))
+                .weight_init("xavier")
+                .list()
+                .layer(ConvolutionLayer(n_out=20, kernel_size=5, stride=1,
+                                        activation="relu"))
+                .layer(SubsamplingLayer(pooling_type="max", kernel_size=2,
+                                        stride=2))
+                .layer(ConvolutionLayer(n_out=50, kernel_size=5, stride=1,
+                                        activation="relu"))
+                .layer(SubsamplingLayer(pooling_type="max", kernel_size=2,
+                                        stride=2))
+                .layer(DenseLayer(n_out=500, activation="relu"))
+                .layer(OutputLayer(n_out=self.num_classes,
+                                   activation="softmax", loss="mcxent"))
+                .set_input_type(InputType.convolutional(h, w, c))
+                .build())
+
+
+class SimpleCNN(ZooModel):
+    name = "simplecnn"
+    default_input_shape = (48, 48, 3)
+
+    def conf(self):
+        h, w, c = self.input_shape
+        b = (NeuralNetConfiguration.builder()
+             .seed(self.seed)
+             .updater(self.updater(Adam(1e-3)))
+             .activation("relu")
+             .weight_init("relu")
+             .list())
+        for n_out, pool in [(16, False), (16, True), (32, False), (32, True),
+                            (64, False), (64, True)]:
+            b.layer(ConvolutionLayer(n_out=n_out, kernel_size=3, padding=1))
+            b.layer(BatchNormalization())
+            if pool:
+                b.layer(SubsamplingLayer(pooling_type="max", kernel_size=2,
+                                         stride=2))
+        b.layer(DropoutLayer(dropout=0.5))
+        b.layer(GlobalPoolingLayer(pooling_type="avg"))
+        b.layer(OutputLayer(n_out=self.num_classes, activation="softmax",
+                            loss="mcxent"))
+        return b.set_input_type(InputType.convolutional(h, w, c)).build()
+
+
+class AlexNet(ZooModel):
+    name = "alexnet"
+    default_input_shape = (224, 224, 3)
+
+    def conf(self):
+        h, w, c = self.input_shape
+        return (NeuralNetConfiguration.builder()
+                .seed(self.seed)
+                .updater(self.updater(Nesterovs(1e-2, momentum=0.9)))
+                .weight_init("distribution").dist("normal", 0.0, 0.01)
+                .activation("relu")
+                .l2(5e-4)
+                .list()
+                .layer(ConvolutionLayer(n_out=96, kernel_size=11, stride=4,
+                                        padding=2))
+                .layer(LocalResponseNormalization())
+                .layer(SubsamplingLayer(pooling_type="max", kernel_size=3,
+                                        stride=2))
+                .layer(ConvolutionLayer(n_out=256, kernel_size=5, padding=2,
+                                        bias_init=1.0))
+                .layer(LocalResponseNormalization())
+                .layer(SubsamplingLayer(pooling_type="max", kernel_size=3,
+                                        stride=2))
+                .layer(ConvolutionLayer(n_out=384, kernel_size=3, padding=1))
+                .layer(ConvolutionLayer(n_out=384, kernel_size=3, padding=1,
+                                        bias_init=1.0))
+                .layer(ConvolutionLayer(n_out=256, kernel_size=3, padding=1,
+                                        bias_init=1.0))
+                .layer(SubsamplingLayer(pooling_type="max", kernel_size=3,
+                                        stride=2))
+                .layer(DenseLayer(n_out=4096, bias_init=1.0, dropout=0.5))
+                .layer(DenseLayer(n_out=4096, bias_init=1.0, dropout=0.5))
+                .layer(OutputLayer(n_out=self.num_classes,
+                                   activation="softmax", loss="mcxent"))
+                .set_input_type(InputType.convolutional(h, w, c))
+                .build())
+
+
+def _vgg_blocks(b, cfg):
+    for item in cfg:
+        if item == "M":
+            b.layer(SubsamplingLayer(pooling_type="max", kernel_size=2,
+                                     stride=2))
+        else:
+            b.layer(ConvolutionLayer(n_out=item, kernel_size=3, padding=1,
+                                     activation="relu"))
+    return b
+
+
+class VGG16(ZooModel):
+    name = "vgg16"
+    default_input_shape = (224, 224, 3)
+    _cfg = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
+            512, 512, 512, "M", 512, 512, 512, "M"]
+
+    def conf(self):
+        h, w, c = self.input_shape
+        b = (NeuralNetConfiguration.builder()
+             .seed(self.seed)
+             .updater(self.updater(Nesterovs(1e-2, momentum=0.9)))
+             .weight_init("relu")
+             .list())
+        _vgg_blocks(b, self._cfg)
+        b.layer(DenseLayer(n_out=4096, activation="relu", dropout=0.5))
+        b.layer(DenseLayer(n_out=4096, activation="relu", dropout=0.5))
+        b.layer(OutputLayer(n_out=self.num_classes, activation="softmax",
+                            loss="mcxent"))
+        return b.set_input_type(InputType.convolutional(h, w, c)).build()
+
+
+class VGG19(VGG16):
+    name = "vgg19"
+    _cfg = [64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M",
+            512, 512, 512, 512, "M", 512, 512, 512, 512, "M"]
+
+
+class Darknet19(ZooModel):
+    name = "darknet19"
+    default_input_shape = (224, 224, 3)
+
+    def conf(self):
+        h, w, c = self.input_shape
+        b = (NeuralNetConfiguration.builder()
+             .seed(self.seed)
+             .updater(self.updater(Adam(1e-3)))
+             .weight_init("relu")
+             .list())
+
+        def conv_bn(n_out, k):
+            b.layer(ConvolutionLayer(n_out=n_out, kernel_size=k,
+                                     padding=k // 2, has_bias=False))
+            b.layer(BatchNormalization(activation="leakyrelu"))
+
+        conv_bn(32, 3)
+        b.layer(SubsamplingLayer(pooling_type="max", kernel_size=2, stride=2))
+        conv_bn(64, 3)
+        b.layer(SubsamplingLayer(pooling_type="max", kernel_size=2, stride=2))
+        for ns in [(128, 64, 128), (256, 128, 256)]:
+            conv_bn(ns[0], 3)
+            conv_bn(ns[1], 1)
+            conv_bn(ns[2], 3)
+            b.layer(SubsamplingLayer(pooling_type="max", kernel_size=2,
+                                     stride=2))
+        for ns in [(512, 256, 512, 256, 512), (1024, 512, 1024, 512, 1024)]:
+            for i, n in enumerate(ns):
+                conv_bn(n, 3 if i % 2 == 0 else 1)
+            if ns[0] == 512:
+                b.layer(SubsamplingLayer(pooling_type="max", kernel_size=2,
+                                         stride=2))
+        b.layer(ConvolutionLayer(n_out=self.num_classes, kernel_size=1))
+        b.layer(GlobalPoolingLayer(pooling_type="avg"))
+        b.layer(OutputLayer(n_out=self.num_classes, activation="softmax",
+                            loss="mcxent", has_bias=True,
+                            n_in=self.num_classes))
+        return b.set_input_type(InputType.convolutional(h, w, c)).build()
 
 
 class TextGenerationLSTM(ZooModel):
@@ -38,7 +207,7 @@ class TextGenerationLSTM(ZooModel):
         vocab = self.input_shape[0]
         return (NeuralNetConfiguration.builder()
                 .seed(self.seed)
-                .updater(Adam(1e-3))
+                .updater(self.updater(Adam(1e-3)))
                 .weight_init("xavier")
                 .gradient_normalization("ClipElementWiseAbsoluteValue", 10.0)
                 .list()
@@ -75,7 +244,7 @@ class TinyTransformer(ZooModel):
         vocab = self.input_shape[0]
         g = (NeuralNetConfiguration.builder()
              .seed(self.seed)
-             .updater(Adam(3e-4))
+             .updater(self.updater(Adam(3e-4)))
              .weight_init("xavier")
              .graph_builder()
              .add_inputs("tokens")

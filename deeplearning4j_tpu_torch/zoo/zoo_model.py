@@ -34,6 +34,11 @@ class ZooModel:
         ComputationGraphConfiguration."""
         raise NotImplementedError
 
+    def updater(self, default):
+        """The ``updater=`` constructor keyword when given, else the
+        model's default."""
+        return self.kwargs.get("updater") or default
+
     def init(self, device=None):
         """Build and initialize the network (random weights from the seed):
         a ComputationGraph for a graph configuration, else a
@@ -53,9 +58,10 @@ class ZooModel:
         return json.loads((BUNDLED_DIR / "manifest.json").read_text())
 
     def init_pretrained(self, device=None):
-        """Load the bundled pretrained weights after checking the zip's
-        SHA-256 against the manifest: a corrupt or replaced file raises
-        instead of loading garbage weights."""
+        """Load the bundled pretrained network (its parameters and layer
+        state; a MultiLayerNetwork or a ComputationGraph, as the zip says)
+        after checking the zip's SHA-256 against the manifest: a corrupt
+        or replaced file raises instead of loading garbage weights."""
         p = self.pretrained_path()
         if not p.exists():
             raise FileNotFoundError(
@@ -70,5 +76,5 @@ class ZooModel:
                     f"Checksum mismatch for pretrained '{self.name}': "
                     f"manifest says sha256={want} but {p} hashes to {got}.")
         from deeplearning4j_tpu_torch.util.model_serializer import \
-            restore_multi_layer_network
-        return restore_multi_layer_network(p, device=device)
+            guess_model
+        return guess_model(p, device=device)

@@ -94,8 +94,15 @@ def test_manager_rotation_pins_and_anchor_match_jax(tmp_path):
         pm.pin(3)
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         pm.latest_aot()
-    with pytest.raises(NotImplementedError, match="normalizers"):
-        pm.save(net, normalizer=object())
+    # a normalizer saved with a checkpoint reads back in both packages
+    from deeplearning4j_tpu.util.model_serializer import \
+        restore_normalizer as jax_restore_normalizer
+    from deeplearning4j_tpu_torch.data.normalizers import \
+        ImagePreProcessingScaler
+    path = pm.save(net, normalizer=ImagePreProcessingScaler(0.0, 2.0))
+    for norm in (model_serializer.restore_normalizer(path),
+                 jax_restore_normalizer(path)):
+        assert norm.to_dict() == ImagePreProcessingScaler(0.0, 2.0).to_dict()
 
 
 def test_manager_recovers_from_a_scan_as_jax(tmp_path):

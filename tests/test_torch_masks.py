@@ -16,8 +16,11 @@ no feature mask in either package, caveat R8) and ``output(x, mask=)``;
 the graph's ``fit`` and ``score``. Tolerances: losses 1e-6 relative,
 outputs 1e-6 absolute, parameters 2e-6 absolute (the Adam rule of
 tests/test_torch_regularised_training.py). With a mask the LSTM screen
-refuses before it asks for a launch plan, and the pair does not fuse; a
-mask reaching MultiHeadAttention raises.
+refuses before it asks for a launch plan, and the pair does not fuse. A
+key-padding mask reaching MultiHeadAttention drops the masked keys'
+scores, as the JAX layer's einsum path does, through the layer's own
+attention (not K5): the output and one graph ``fit`` step agree with the
+JAX package's at float32 rtol 1e-5 / atol 1e-6, causal or not.
 """
 
 import numpy as np
@@ -41,8 +44,9 @@ from deeplearning4j_tpu.nn.conf.inputs import InputType as JaxInputType
 from deeplearning4j_tpu.nn.layers import LSTM as JaxLSTM
 from deeplearning4j_tpu.nn.layers import RnnOutputLayer as JaxRnnOut
 from deeplearning4j_tpu.nn.updaters import Adam as JaxAdam
+from deeplearning4j_tpu.nn.updaters import Sgd as JaxSgd
 
-from deeplearning4j_tpu_torch import ComputationGraph
+from deeplearning4j_tpu_torch import ComputationGraph, ops
 from deeplearning4j_tpu_torch.data import (DataSet, ListDataSetIterator,
                                            MultiDataSet)
 from deeplearning4j_tpu_torch.nn.conf import (InputType,
@@ -206,19 +210,99 @@ def test_graph_mask_reaches_only_input_fed_layers():
     params_close(jnet, net, jg, 3)
 
 
+ATTN_RTOL, ATTN_ATOL = 1e-5, 1e-6
+
+
+def _attention_graph(causal, heads=1, width=8):
+    """A JAX graph with MultiHeadAttention on its input (so the feature
+    mask reaches it: caveat R6) and the port's graph of its JSON and
+    parameters."""
+    from deeplearning4j_tpu.nn.layers import \
+        MultiHeadAttention as JaxMHA
+    g = (JaxNNC.builder().seed(4).updater(JaxSgd(0.1)).graph_builder()
+         .add_inputs("in").set_input_types(JaxInputType.recurrent(width)))
+    g.add_layer("attn", JaxMHA(n_out=width, n_heads=heads, causal=causal),
+                "in")
+    g.add_layer("out", JaxRnnOut(n_out=V, activation="softmax"), "attn")
+    jnet = JaxCG(g.set_outputs("out").build()).init()
+    return jnet, port_of(jnet)
+
+
+def _attention_batch(seed, width=8):
+    x, y = batch(seed)
+    x = np.random.RandomState(seed).randn(B, T, width).astype(np.float32)
+    mf, ml = masks(seed)
+    mf[-1, :2] = 1.0        # no row without a key (NaN in both packages)
+    return x, y, mf, ml
+
+
+def _attention_step_matches(jnet, net, x, y, mf, ml):
+    """One masked fit step (Sgd: the key bias ``bk`` has no gradient but
+    rounding noise, which Sgd moves by lr x noise and Adam by up to lr)."""
+    jnet.fit(JaxMDS([x], [y], [mf], [ml]))
+    net.fit(MultiDataSet([x], [y], [mf], [ml]))
+    np.testing.assert_allclose(net.get_score(), float(jnet.get_score()),
+                               rtol=ATTN_RTOL)
+    for n, p in jnet.params.items():
+        for k, v in p.items():
+            np.testing.assert_allclose(net.params[n][k].numpy(),
+                                       np.asarray(v), rtol=ATTN_RTOL,
+                                       atol=ATTN_ATOL, err_msg=f"{n}/{k}")
+
+
 def test_a_mask_reaching_attention_raises():
-    g = (NeuralNetConfiguration.builder().graph_builder().add_inputs("in")
-         .set_input_types(InputType.recurrent(8)))
-    g.add_layer("attn", MultiHeadAttention(n_out=8, n_heads=2), "in")
-    g.add_layer("out", RnnOutputLayer(n_out=V, activation="softmax"), "attn")
-    net = ComputationGraph(g.set_outputs("out").build(), device="cpu").init()
-    x = np.zeros((2, 5, 8), np.float32)
-    y = np.zeros((2, 5, V), np.float32)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        net.fit(DataSet(x, y, features_mask=np.ones((2, 5), np.float32)))
-    assert net.iteration == 0
-    net.fit(DataSet(x, y))
-    assert net.iteration == 1
+    """Formerly the raise of a mask reaching attention; now the layer
+    computes the JAX layer's masked attention: a masked graph fit step
+    (with a head dim K5 takes, so the masked call leaves it for the
+    layer's own attention) and the layer's masked output, against the
+    JAX graph."""
+    jnet, net = _attention_graph(causal=False)
+    x, y, mf, ml = _attention_batch(7)
+    calls = []
+    real = ops.flash_attention
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+    ops.flash_attention = spy
+    try:
+        _attention_step_matches(jnet, net, x, y, mf, ml)
+        jlayer, layer = jnet.conf.nodes["attn"].layer, \
+            net.conf.nodes["attn"].layer
+        jy, _ = jlayer.apply(jnet.params["attn"], jnp.asarray(x), None,
+                             mask=jnp.asarray(mf))
+        got = layer.apply(net.params["attn"], torch.from_numpy(x),
+                          mask=torch.from_numpy(mf))
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(jy),
+                                   rtol=ATTN_RTOL, atol=ATTN_ATOL)
+        assert not calls            # the masked calls ran no K5
+        net.fit(DataSet(x, y))      # the unmasked one runs K5
+        assert calls
+    finally:
+        ops.flash_attention = real
+
+
+@pytest.mark.parametrize("causal", [True, False],
+                         ids=["causal", "non_causal"])
+def test_masked_attention_matches_jax(causal):
+    """A masked MultiHeadAttention (two heads of 8) through both
+    packages' ``output(x, mask=)`` (a MultiLayerNetwork, whose mask
+    reaches every layer) and one masked graph ``fit`` step."""
+    from deeplearning4j_tpu.nn.layers import \
+        MultiHeadAttention as JaxMHA
+    x, y, mf, ml = _attention_batch(8, width=16)
+    jconf = (JaxNNC.builder().seed(6).updater(JaxAdam(1e-3)).list()
+             .layer(JaxMHA(n_out=16, n_heads=2, causal=causal))
+             .layer(JaxRnnOut(n_out=V, activation="softmax"))
+             .set_input_type(JaxInputType.recurrent(16)).build())
+    jmln = JaxMLN(jconf).init()
+    mln = port_of(jmln)
+    np.testing.assert_allclose(
+        mln.output(x, mask=mf).numpy(),
+        np.asarray(jmln.output(x, mask=jnp.asarray(mf))),
+        rtol=ATTN_RTOL, atol=ATTN_ATOL)
+    jnet, net = _attention_graph(causal, heads=2, width=16)
+    _attention_step_matches(jnet, net, x, y, mf, ml)
 
 
 def test_an_all_ones_mask_trains_as_no_mask():

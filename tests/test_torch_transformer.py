@@ -98,13 +98,18 @@ def test_one_configuration_json_in_both_packages():
 
 
 def test_unported_vertex_is_named():
+    """Every JAX vertex reads now (MergeVertex among them); a vertex type
+    the port does not know raises, naming it."""
     g = (JaxNNC.builder().graph_builder().add_inputs("a", "b")
          .set_input_types(JaxInputType.feed_forward(3),
                           JaxInputType.feed_forward(3))
          .add_vertex("m", JaxMerge(), "a", "b")
          .add_layer("d", JaxDense(n_out=2), "m").set_outputs("d").build())
-    with pytest.raises(ValueError, match="MergeVertex"):
-        ComputationGraphConfiguration.from_json(g.to_json())
+    conf = ComputationGraphConfiguration.from_json(g.to_json())
+    assert type(conf.nodes["m"].vertex).__name__ == "MergeVertex"
+    with pytest.raises(ValueError, match="NoSuchVertex"):
+        ComputationGraphConfiguration.from_json(
+            g.to_json().replace('"MergeVertex"', '"NoSuchVertex"'))
 
 
 def test_port_init_shapes_match_jax_params(nets):
