@@ -288,6 +288,47 @@ result line, when any of them or the port's package is missing. Phases:
    normalizer, stopped past iteration 22 and resumed in a fresh network:
    parameters and BatchNormalization state equal the uninterrupted run's
    bit for bit, the checkpoint's normalizer the scaler.
+13. The Inception zoo, the special layers, pretraining, the evaluations
+   and the iterator wrappers (``inception_phase``), which run no
+   hand-written kernel: every kernel count must stay 0. (a)
+   InceptionResNetV1 at the zoo's defaults (160 x 160 x 3, 1000 classes,
+   Adam) from its configuration's seed, on numpy images: /predict at B=1
+   and B=32 (ms a request; B=1 within 1e-3 of the CPU port), the
+   ``embeddings`` of 32 images of unit norm within 1e-5; at B=4 one
+   float32 step (loss and running statistics within 1e-3 of the CPU
+   port, the center-loss centers reported) and two float64 steps (loss,
+   running statistics and centers within 1e-3), the card's dropout draws
+   replayed into the CPU port; 3 captured steps at B=32 equal 3 eager ones
+   bit for bit (deterministic cuDNN), eager ms a step; 20 captured steps
+   at B=32 (ms a step, images/s) and ten profiled (busy ms, idle share,
+   device operations, cuDNN's convolution share). (b) FaceNetNN4Small2 (96
+   x 96 x 3) and GoogLeNet (224 x 224 x 3), 1000 classes: /predict at B=1
+   within 1e-3 of the CPU port, one float32 B=4 step within 1e-3 of it
+   (loss and running statistics; GoogLeNet's Nesterovs step also the
+   parameters, against the step's largest update), 5 captured steps at
+   B=32. (c) RBM(784 -> 500, k=1) -> AutoEncoder(500 -> 250, corruption
+   0.3) -> softmax on ``MnistDataSetIterator(128, num_examples=6400)``:
+   each layer's first
+   pretrain step, fed the card's draws, within 1e-4 of the CPU port's;
+   then ``pretrain`` 1 epoch, ``fit`` 3 epochs and held-out accuracy on
+   2000 test images above the CPU port's 0.6690 less 0.03; a
+   VariationalAutoencoder(784, (256,), (256,), nZ 32, Bernoulli) network:
+   its first step within 1e-4 of the CPU port's, 2 epochs of pretraining
+   lowering a held-out batch's -ELBO, ``reconstruct`` and ``generate`` of
+   the right shapes in [0, 1]. (d) LeNet with both convolutions in
+   FrozenLayer, 5 captured steps: the frozen parameters as they started
+   bit for bit and without updater state, the others moved, losses and
+   parameters within 1e-4 of the CPU port's; Yolo2OutputLayer at the VOC
+   layout (yolo-voc.cfg's 5 anchors, 20 classes, 125 channels, a 13 x 13
+   grid) on five stride-2 3 x 3 convolutions and a 1 x 1 one over 416 x
+   416 x 3 synthetic images and labels: loss and gradients within 1e-4 of
+   the CPU port's, 5 captured steps. (e) LeNet on MNIST's uint8 wire
+   through ``AsyncDataSetIterator(base, workers=2)`` equals it through
+   the base bit for bit, ``MultipleEpochsIterator(3, base)`` equals
+   ``epochs=3`` (ms a step and ``host_stall_frac`` of each), and ROC,
+   ROCMultiClass, EvaluationBinary, RegressionEvaluation and
+   EvaluationCalibration of the card's outputs on 2000 test images equal
+   the CPU port's within 1e-6. The phase prints its seconds.
 
 A replayed CUDA graph adds to the launch counts the launches its capture
 recorded (the capture itself counts none), so the counts below are the
@@ -4217,6 +4258,786 @@ def cnn_phase(card):
     return res
 
 
+# ------------------------------------------------------------- phase 13
+# InceptionResNetV1 at the zoo's defaults (160 x 160 x 3, 1000 classes)
+INC_SIZE, INC_CLASSES = 160, 1000
+INC_B, INC_STEPS, INC_PARITY_B, INC_TOL = 32, 20, 4, 1e-3
+INC_BITWISE_STEPS, INC_EAGER_STEPS = 3, 5
+EMBED_TOL = 1e-5                # |embedding| - 1
+# the other two nets at their defaults: (size, classes)
+ZOO13 = {"facenet_nn4_small2": (96, 1000), "googlenet": (224, 1000)}
+ZOO13_STEPS = 5
+# pretraining: RBM(784 -> 500, k=1) -> AutoEncoder(500 -> 250) -> softmax on
+# MNIST's uint8 wire; the held-out bar is the CPU port's own run of this
+# recipe (``pretrain_recipe("cpu")``: 0.6690 on 2000 test images; 0.6690 to
+# 0.6705 with four other streams of draws; the same network without
+# pretraining 0.7875) less RECIPE_SLACK
+PRETRAIN_B, PRETRAIN_ROWS, PRETRAIN_FIT_EPOCHS = 128, 6400, 3
+PRETRAIN_CPU_ACC = 0.6690
+PRETRAIN_TOL = 1e-4             # first pretrain step, card vs CPU port
+VAE_EPOCHS, VAE_LATENT = 2, 32
+FROZEN_STEPS, FROZEN_TOL = 5, 1e-4
+# YOLOv2 at the VOC layout: yolo-voc.cfg's five anchors, 20 classes, a
+# 13 x 13 grid over 416 x 416 images
+YOLO_ANCHORS = ((1.3221, 1.73145), (3.19275, 4.00944), (5.05587, 8.09892),
+                (9.47112, 4.84053), (11.2364, 10.0071))
+YOLO_CLASSES, YOLO_SIZE, YOLO_B, YOLO_STEPS, YOLO_TOL = 20, 416, 4, 5, 1e-4
+YOLO_OBJECTS = 3                # objects an image
+EVAL_TOL = 1e-6                 # evaluations of card vs CPU outputs
+ITER_ROWS = 6400                # LeNet through the iterator wrappers
+
+
+def _cpu_copy(net):
+    """The CPU port's network of ``net``'s configuration, parameters and
+    layer state."""
+    from deeplearning4j_tpu_torch import ComputationGraph, MultiLayerNetwork
+    if isinstance(net.params, dict):
+        return ComputationGraph(net.conf, device="cpu").set_params(
+            {n: {k: v.cpu() for k, v in p.items()}
+             for n, p in net.params.items()}, net.state)
+    return MultiLayerNetwork(net.conf, device="cpu").set_params(
+        [{k: v.cpu() for k, v in p.items()} for p in net.params], net.state)
+
+
+def _tree_rel(got, want):
+    """The largest difference of two trees (lists or dicts of dicts of
+    tensors), each tensor's relative to its largest magnitude (0 for two
+    empty trees)."""
+    ig = dict(got.items() if isinstance(got, dict) else enumerate(got))
+    iw = want.items() if isinstance(want, dict) else enumerate(want)
+    errs = [float((ig[n][k].double().cpu() - t.double().cpu()).abs().max()
+                  / max(t.abs().max().item(), 1e-30))
+            for n, d in iw for k, t in d.items()]
+    return max(errs, default=0.0)
+
+
+def _paired_steps(net, cpu, batches):
+    """``fit`` of each batch on the card's eager step (its draws recorded)
+    and then on the CPU port (the same draws replayed). Returns the two
+    lists of losses."""
+    net._capture_steps = False
+    draws, losses = [], ([], [])
+    for b in batches:
+        with seam("record", draws):
+            losses[0].append(net.fit(*b).get_score())
+    for b in batches:
+        with seam("replay", draws):
+            losses[1].append(cpu.fit(*b).get_score())
+    if draws:
+        raise AssertionError(f"{len(draws)} draws left over")
+    return losses
+
+
+def _rel_losses(losses):
+    return max(abs(a - b) / abs(b) for a, b in zip(*losses))
+
+
+def _centers_rel(net, cpu):
+    """The center-loss head's centers, card against CPU port (relative to
+    the largest)."""
+    head = net.conf.network_outputs[0]
+    return _tree_rel({head: {"centers": net.params[head]["centers"]}},
+                     {head: {"centers": cpu.params[head]["centers"]}})
+
+
+def _float64_pair(make, dev):
+    """The seed's network of ``make`` in float64 on ``dev`` and on the CPU,
+    from one set of weights."""
+    from deeplearning4j_tpu_torch import ComputationGraph
+    base = make("cpu")
+    conf = base.conf
+    conf.global_conf.dtype = "float64"
+    params = {n: {k: v.double() for k, v in p.items()}
+              for n, p in base.params.items()}
+    return (ComputationGraph(conf, device=dev).set_params(params),
+            ComputationGraph(conf, device="cpu").set_params(params))
+
+
+def _predict_ms(net, cpu, x, reps=6):
+    """``x`` through /predict of an InferenceServer over ``net``: ms of
+    each request, the probabilities, and (given ``cpu``) their largest
+    difference from the CPU port's forward."""
+    from deeplearning4j_tpu_torch.serving import (InferenceClient,
+                                                  InferenceServer)
+    srv = InferenceServer(net, port=0, max_latency_ms=2.0).start()
+    cli = InferenceClient(f"http://127.0.0.1:{srv.port}")
+    try:
+        ms = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            probs = cli.predict(x)
+            ms.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        srv.stop()
+    if probs.shape[0] != len(x) or not np.isfinite(probs).all():
+        raise AssertionError(f"/predict returned {probs.shape}")
+    err = None if cpu is None else float(
+        np.abs(probs - cpu.output(x).numpy()).max())
+    return ms, probs, err
+
+
+def _captured_ms(net, dev, size, classes, steps, seed=7):
+    """ms per captured step of ``steps`` fit_scan steps at B=INC_B after a
+    two-step warm-up and capture; returns (ms, images/s, last loss, the
+    staged batches)."""
+    import torch
+    xs, ys = (torch.from_numpy(a).to(dev).reshape(
+        (steps, INC_B) + a.shape[1:])
+        for a in _images(steps * INC_B, seed, classes, size))
+    net.fit_scan([xs[:2]], [ys[:2]])
+    _sync(dev)
+    t0 = time.perf_counter()
+    net.fit_scan([xs], [ys])
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    loss = net.get_score()
+    if not np.isfinite(loss):
+        raise AssertionError("the loss is not finite")
+    return wall / steps * 1e3, steps * INC_B / wall, loss, (xs, ys)
+
+
+def _inception(dev):
+    from deeplearning4j_tpu_torch.zoo import InceptionResNetV1
+    return InceptionResNetV1(num_classes=INC_CLASSES,
+                             input_shape=(INC_SIZE, INC_SIZE, 3)).init(
+                                 device=dev)
+
+
+def inception_part(card, res, dev="cuda"):
+    """(a) InceptionResNetV1 at full width from its configuration's seed
+    (Adam, the zoo's updater): /predict at B=1 and 32, unit embeddings,
+    one float32 and two float64 B=4 steps against the CPU port, captured
+    against eager bit for bit, 20 captured B=32 steps, ten profiled."""
+    import torch
+    out = {}
+    net = _inception(dev)
+    out["num_params"] = net.num_params()
+    cpu = _cpu_copy(net)
+    for b in (1, INC_B):
+        x, _ = _images(b, b, INC_CLASSES, INC_SIZE)
+        ms, probs, err = _predict_ms(net, cpu if b == 1 else None, x)
+        out[f"predict_ms_b{b}"] = ms
+        if b == 1:
+            out["predict_b1_max_abs_err_vs_cpu"] = err
+            if err > INC_TOL:
+                raise AssertionError(f"phase 13 (a): /predict vs CPU {err}")
+    xe = torch.from_numpy(_images(INC_B, 9, INC_CLASSES, INC_SIZE)[0])
+    with torch.no_grad():
+        emb = net._activations(net.params, [xe.to(dev)])[0]["embeddings"]
+    norm_err = float((emb.norm(dim=-1) - 1).abs().max())
+    out["embedding_norm_err"] = norm_err
+    print(f"inception (a): InceptionResNetV1 ({INC_SIZE} x {INC_SIZE} x 3, "
+          f"{INC_CLASSES} classes, {out['num_params']} parameters) "
+          f"/predict: B=1 median "
+          f"{statistics.median(out['predict_ms_b1'][1:]):.2f} ms, B="
+          f"{INC_B} median "
+          f"{statistics.median(out[f'predict_ms_b{INC_B}'][1:]):.2f} ms a "
+          f"request (first {out['predict_ms_b1'][0]:.1f} / "
+          f"{out[f'predict_ms_b{INC_B}'][0]:.1f} ms); B=1 against the CPU "
+          f"port: max abs err {out['predict_b1_max_abs_err_vs_cpu']:.3g} "
+          f"(tol {INC_TOL}); embeddings of {INC_B} images: | |e| - 1 | <= "
+          f"{norm_err:.3g} (tol {EMBED_TOL}) [{card}]", flush=True)
+    if norm_err > EMBED_TOL:
+        raise AssertionError(f"phase 13 (a): embedding norms {norm_err}")
+    # against the CPU port at B=4, the card's dropout draws replayed: a
+    # float32 step (loss, running statistics; the centers reported: an
+    # Adam step maps a center's gradient g to lr g / (|g| + 1e-8), which
+    # float32's differences in the embeddings move where |g| is near
+    # 1e-8), and two float64 steps (loss, running statistics, centers)
+    x4, y4 = _images(INC_PARITY_B, 4, INC_CLASSES, INC_SIZE)
+    losses = _paired_steps(net, cpu, [([x4], [y4])])
+    f32 = {"losses": losses, "loss_rel_err": _rel_losses(losses),
+           "state_rel_err": _tree_rel(net.state, cpu.state),
+           "centers_rel_err": _centers_rel(net, cpu)}
+    del net, cpu
+    net64, cpu64 = _float64_pair(_inception, dev)
+    t64 = [torch.from_numpy(a).double() for a in (x4, y4)]
+    losses = _paired_steps(net64, cpu64, [([t64[0]], [t64[1]])] * 2)
+    f64 = {"losses": losses, "loss_rel_err": _rel_losses(losses),
+           "state_rel_err": _tree_rel(net64.state, cpu64.state),
+           "centers_rel_err": _centers_rel(net64, cpu64)}
+    del net64, cpu64
+    out.update(parity_float32=f32, parity_float64=f64)
+    print(f"inception (a): B={INC_PARITY_B} against the CPU port (the "
+          f"card's dropout draws replayed): one float32 step, loss "
+          f"{f32['losses'][0][0]} vs {f32['losses'][1][0]} (rel err "
+          f"{f32['loss_rel_err']:.3g}), running statistics within "
+          f"{f32['state_rel_err']:.3g} of each tensor's largest, centers "
+          f"{f32['centers_rel_err']:.3g} (reported); two float64 steps, "
+          f"losses {f64['losses'][0]} vs {f64['losses'][1]} (max rel err "
+          f"{f64['loss_rel_err']:.3g}), running statistics "
+          f"{f64['state_rel_err']:.3g}, centers {f64['centers_rel_err']:.3g} "
+          f"(tol {INC_TOL}) [{card}]", flush=True)
+    if max(f32["loss_rel_err"], f32["state_rel_err"], f64["loss_rel_err"],
+           f64["state_rel_err"], f64["centers_rel_err"]) > INC_TOL:
+        raise AssertionError("phase 13 (a): card vs CPU port")
+    # captured against eager, bit for bit
+    xb, yb = _images(INC_B, 32, INC_CLASSES, INC_SIZE)
+    with deterministic_cudnn():
+        cap, eager = _inception(dev), _inception(dev)
+        eager._capture_steps = False
+        for m in (cap, eager):
+            for _ in range(INC_BITWISE_STEPS):
+                m.fit([xb], [yb])
+        same = (_trees_equal(cap.params, eager.params)
+                and _trees_equal(cap.state, eager.state))
+        diff = _tree_diff(cap.params, eager.params)
+        captures = cap._capture_count
+        del cap
+        print(f"inception (a): {INC_BITWISE_STEPS} captured steps at B="
+              f"{INC_B} {'equal' if same else 'differ from'} "
+              f"{INC_BITWISE_STEPS} eager steps bit for bit, parameters and "
+              f"running statistics ({captures} capture, deterministic "
+              f"cuDNN) [{card}]", flush=True)
+        if not same or (dev == "cuda" and captures != 1):
+            raise AssertionError(
+                f"phase 13 (a): captured vs eager differ by {diff}")
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(INC_EAGER_STEPS):
+            eager.fit([xb], [yb])
+        _sync(dev)
+        out["eager_ms_per_step"] = ((time.perf_counter() - t0)
+                                    / INC_EAGER_STEPS * 1e3)
+        del eager
+    net = _inception(dev)
+    ms, ips, loss, (xs, ys) = _captured_ms(net, dev, INC_SIZE, INC_CLASSES,
+                                           INC_STEPS)
+    out.update(captured_ms_per_step=ms, images_per_s=ips, captured_loss=loss,
+               captures=net._capture_count)
+    prof = None
+    if dev == "cuda":
+        prof = profile_steps(
+            lambda: net.fit_scan([xs[:CNN_PROFILE_STEPS]],
+                                 [ys[:CNN_PROFILE_STEPS]]),
+            CNN_PROFILE_STEPS, (CONV_TAGS,))
+    out["profile"] = prof
+    busy = None if prof is None else prof["device_busy_ms_per_step"]
+    conv = (None if busy is None else
+            prof["tagged_ms_per_step"][_tag(CONV_TAGS)] / busy)
+    out["conv_share_of_busy"] = conv
+    print(f"inception (a): {INC_STEPS} captured steps at B={INC_B}: "
+          f"{ms:.2f} ms a step ({ips:.0f} images/s; eager "
+          f"{out['eager_ms_per_step']:.2f} ms a step, deterministic cuDNN), "
+          f"last loss {loss:.4f}; "
+          + ("not profiled" if prof is None
+             else fmt_profile(prof, (CONV_TAGS,)))
+          + "; convolution kernels' share of busy time "
+          + ("not measured" if conv is None else f"{conv:.1%}")
+          + f" [{card}]", flush=True)
+    res["inception_resnet_v1"] = out
+
+
+def _zoo13(name, dev):
+    from deeplearning4j_tpu_torch.zoo import FaceNetNN4Small2, GoogLeNet
+    size, classes = ZOO13[name]
+    cls = FaceNetNN4Small2 if name == "facenet_nn4_small2" else GoogLeNet
+    return cls(num_classes=classes, input_shape=(size, size, 3)).init(
+        device=dev)
+
+
+def zoo_part(card, res, dev="cuda"):
+    """(b) FaceNetNN4Small2 and GoogLeNet at full width from their seeds:
+    /predict at B=1 against the CPU port, one float32 B=4 step against it
+    (the card's dropout draws replayed), 5 captured steps at B=32."""
+    out = {}
+    for name, (size, classes) in ZOO13.items():
+        row = {}
+        net = _zoo13(name, dev)
+        cpu = _cpu_copy(net)
+        row["num_params"] = net.num_params()
+        x1, _ = _images(1, 1, classes, size)
+        ms, _, err = _predict_ms(net, cpu, x1)
+        row.update(predict_ms_b1=ms, predict_b1_max_abs_err_vs_cpu=err)
+        x4, y4 = _images(INC_PARITY_B, 4, classes, size)
+        p0 = {n: {k: v.clone() for k, v in p.items()}
+              for n, p in cpu.params.items()}
+        losses = _paired_steps(net, cpu, [([x4], [y4])])
+        # Adam (FaceNetNN4Small2): loss and running statistics, the
+        # centers reported (see inception_part); Nesterovs (GoogLeNet): the
+        # parameters too, against the step's largest update (a bias that
+        # starts at zero holds lr x its gradient after a step, which
+        # float32 sums with cancellation: on the CPU, float32 against
+        # float64, up to 3.1e-3 of that bias's largest and 4.1e-4 of the
+        # step's largest update)
+        row.update(losses=losses, loss_rel_err=_rel_losses(losses),
+                   state_rel_err=_tree_rel(net.state, cpu.state))
+        held = [row["loss_rel_err"], row["state_rel_err"]]
+        if name == "googlenet":
+            row["param_rel_err"] = _tree_rel(net.params, cpu.params)
+            row["param_err_of_update"] = (
+                max(float((net.params[n][k].cpu() - v).abs().max())
+                    for n, d in cpu.params.items() for k, v in d.items())
+                / max(float((v - p0[n][k]).abs().max())
+                      for n, d in cpu.params.items()
+                      for k, v in d.items()))
+            held.append(row["param_err_of_update"])
+        else:
+            row["centers_rel_err"] = _centers_rel(net, cpu)
+        del net, cpu
+        net = _zoo13(name, dev)
+        ms_step, ips, loss, _ = _captured_ms(net, dev, size, classes,
+                                             ZOO13_STEPS)
+        row.update(captured_ms_per_step=ms_step, images_per_s=ips,
+                   captured_loss=loss)
+        del net
+        out[name] = row
+        print(f"inception (b): {name} ({size} x {size} x 3, {classes} "
+              f"classes, {row['num_params']} parameters): /predict B=1 "
+              f"median {statistics.median(ms[1:]):.2f} ms, max abs err "
+              f"{err:.3g} against the CPU port; one float32 B="
+              f"{INC_PARITY_B} step against it: loss rel err "
+              f"{row['loss_rel_err']:.3g}, running statistics "
+              f"{row['state_rel_err']:.3g}"
+              + (f", parameters {row['param_err_of_update']:.3g} of the "
+                 f"step's largest update ({row['param_rel_err']:.3g} of "
+                 f"each tensor's largest, reported)"
+                 if "param_rel_err" in row else
+                 f", centers {row['centers_rel_err']:.3g} (reported)")
+              + f" (tol {INC_TOL}); {ZOO13_STEPS} captured steps at B="
+              f"{INC_B}: {ms_step:.2f} ms a step ({ips:.0f} images/s), "
+              f"last loss {loss:.4f} [{card}]", flush=True)
+        if err > INC_TOL or max(held) > INC_TOL:
+            raise AssertionError(f"phase 13 (b) {name}: card vs CPU port")
+    res["zoo"] = out
+
+
+def _mnist(train=True, rows=None, batch=PRETRAIN_B, flatten=True,
+           shuffle=True):
+    from deeplearning4j_tpu_torch.data.fetchers import MnistDataSetIterator
+    return MnistDataSetIterator(batch, train=train, shuffle=shuffle,
+                                num_examples=rows or PRETRAIN_ROWS,
+                                flatten=flatten)
+
+
+def pretrain_net(dev, vae=False):
+    """RBM(784 -> 500, k=1) -> AutoEncoder(500 -> 250, corruption 0.3) ->
+    softmax(10), or VariationalAutoencoder(784, encoder (256,), decoder
+    (256,), nZ 32, Bernoulli) -> softmax(10), Adam(1e-3), seed 123."""
+    from deeplearning4j_tpu_torch import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.conf import (InputType,
+                                                  NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.layers import (RBM, AutoEncoder,
+                                                    OutputLayer,
+                                                    VariationalAutoencoder)
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    b = NeuralNetConfiguration.builder().seed(123).updater(Adam(1e-3)).list()
+    if vae:
+        b = b.layer(VariationalAutoencoder(
+            n_out=VAE_LATENT, encoder_layer_sizes=(256,),
+            decoder_layer_sizes=(256,), recon="bernoulli"))
+    else:
+        b = (b.layer(RBM(n_out=500, k=1))
+             .layer(AutoEncoder(n_out=250, corruption_level=0.3)))
+    conf = (b.layer(OutputLayer(n_out=10, activation="softmax",
+                                loss="mcxent"))
+            .set_input_type(InputType.feed_forward(784)).build())
+    return MultiLayerNetwork(conf, device=dev).init()
+
+
+def pretrain_recipe(dev):
+    """The pretraining recipe from the seed: ``pretrain`` 1 epoch, ``fit``
+    PRETRAIN_FIT_EPOCHS epochs, held-out accuracy on 2000 test images.
+    Returns (network, accuracy, pretrain seconds, fit seconds)."""
+    net = pretrain_net(dev)
+    train = _mnist()
+    _sync(dev)
+    t0 = time.perf_counter()
+    net.pretrain(train, epochs=1)
+    _sync(dev)
+    t1 = time.perf_counter()
+    net.fit(train, epochs=PRETRAIN_FIT_EPOCHS)
+    _sync(dev)
+    t2 = time.perf_counter()
+    acc = float(net.evaluate(_mnist(False, 2000, 500)).accuracy())
+    return net, acc, t1 - t0, t2 - t1
+
+
+def _first_pretrain(net, cpu, data):
+    """One pretrain step of each pretrainable layer on the card (draws
+    recorded) and on the CPU port (replayed): the largest parameter
+    difference (relative to each tensor's largest) and the two scores."""
+    draws = []
+    with seam("record", draws):
+        net.pretrain(data, epochs=1)
+    with seam("replay", draws):
+        cpu.pretrain(data, epochs=1)
+    if draws:
+        raise AssertionError(f"{len(draws)} draws left over")
+    return (_tree_rel(net.params, cpu.params),
+            (net.get_score(), cpu.get_score()))
+
+
+def pretrain_part(card, res, dev="cuda"):
+    """(c) RBM -> AutoEncoder -> softmax on MNIST's uint8 wire: each
+    layer's first pretrain step against the CPU port (the same draws),
+    then the recipe with its bar; a VAE network pretrained for VAE_EPOCHS
+    epochs: its first step against the CPU port, -ELBO falling,
+    ``reconstruct`` and ``generate`` in [0, 1]."""
+    import torch
+    from deeplearning4j_tpu_torch.nn.layers.base import nest_params
+    out = {}
+    train = _mnist()
+    one = _first_batches(train, 1)
+    net = pretrain_net(dev)
+    err, scores = _first_pretrain(net, _cpu_copy(net), one)
+    out["first_step"] = {"param_rel_err": err, "scores": scores}
+    net, acc, t_pre, t_fit = pretrain_recipe(dev)
+    steps = PRETRAIN_ROWS // PRETRAIN_B
+    bar = PRETRAIN_CPU_ACC - RECIPE_SLACK
+    out["recipe"] = {"heldout_accuracy": acc, "bar": bar,
+                     "pretrain_ms_per_step": t_pre / (2 * steps) * 1e3,
+                     "fit_ms_per_step":
+                         t_fit / (PRETRAIN_FIT_EPOCHS * steps) * 1e3}
+    print(f"inception (c): RBM(784 -> 500, k=1) -> AutoEncoder(500 -> 250) "
+          f"-> softmax on MNIST (B={PRETRAIN_B}, uint8 wire): each layer's "
+          f"first pretrain step against the CPU port, the same draws: "
+          f"parameters within {err:.3g} of each tensor's largest, score "
+          f"{scores[0]:.6f} vs {scores[1]:.6f} (tol {PRETRAIN_TOL}); "
+          f"pretrain 1 epoch ({out['recipe']['pretrain_ms_per_step']:.3f} "
+          f"ms a layer step, eager), fit {PRETRAIN_FIT_EPOCHS} epochs "
+          f"({out['recipe']['fit_ms_per_step']:.3f} ms a step): held-out "
+          f"accuracy {acc:.4f} (bar {bar}, the CPU port's "
+          f"{PRETRAIN_CPU_ACC} less {RECIPE_SLACK}) [{card}]", flush=True)
+    if err > PRETRAIN_TOL or abs(scores[0] - scores[1]) > PRETRAIN_TOL * \
+            max(1.0, abs(scores[1])) or acc < bar:
+        raise AssertionError(f"phase 13 (c): {out}")
+    del net
+    vae = pretrain_net(dev, vae=True)
+    err, scores = _first_pretrain(vae, _cpu_copy(vae), one)
+    layer = vae.layers[0]
+    held = _mnist(False, PRETRAIN_B).dataset.features
+    xh = torch.from_numpy(held.astype(np.float32) / 255.0).to(dev)
+
+    def elbo():
+        with torch.no_grad():
+            return float(layer.compute_score(nest_params(vae.params[0]), xh))
+    before = elbo()
+    _sync(dev)
+    t0 = time.perf_counter()
+    vae.pretrain(train, epochs=VAE_EPOCHS)
+    _sync(dev)
+    t_vae = time.perf_counter() - t0
+    after = elbo()
+    p = nest_params(vae.params[0])
+    with torch.no_grad():
+        rec = layer.reconstruct(p, xh)
+        gen = layer.generate(p, torch.randn(16, VAE_LATENT, device=dev))
+    in_range = bool(((rec >= 0) & (rec <= 1)).all()
+                    and ((gen >= 0) & (gen <= 1)).all())
+    out["vae"] = {"first_step_param_rel_err": err, "first_scores": scores,
+                  "neg_elbo_before": before, "neg_elbo_after": after,
+                  "ms_per_step": t_vae / (VAE_EPOCHS * steps) * 1e3,
+                  "reconstruct_shape": list(rec.shape),
+                  "generate_shape": list(gen.shape), "in_range": in_range}
+    print(f"inception (c): VAE(784, (256,), (256,), nZ {VAE_LATENT}, "
+          f"Bernoulli): first pretrain step against the CPU port, the same "
+          f"draws: parameters within {err:.3g}, -ELBO {scores[0]:.6f} vs "
+          f"{scores[1]:.6f}; {VAE_EPOCHS} epochs "
+          f"({out['vae']['ms_per_step']:.3f} ms a step): held-out -ELBO "
+          f"{before:.3f} -> {after:.3f}; reconstruct {tuple(rec.shape)}, "
+          f"generate {tuple(gen.shape)}, in [0, 1]: {in_range} [{card}]",
+          flush=True)
+    if (err > PRETRAIN_TOL or abs(scores[0] - scores[1]) > PRETRAIN_TOL
+            * max(1.0, abs(scores[1])) or not after < before
+            or not in_range or tuple(rec.shape) != (PRETRAIN_B, 784)
+            or tuple(gen.shape) != (16, 784)):
+        raise AssertionError(f"phase 13 (c) VAE: {out['vae']}")
+    res["pretrain"] = out
+
+
+def frozen_lenet(dev):
+    """LeNet with both convolutions wrapped in FrozenLayer (the zoo's
+    configuration otherwise: Adam(1e-3), Xavier, seed 123)."""
+    from deeplearning4j_tpu_torch import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.conf import (InputType,
+                                                  NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.layers import (ConvolutionLayer,
+                                                    DenseLayer, FrozenLayer,
+                                                    OutputLayer,
+                                                    SubsamplingLayer)
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    conf = (NeuralNetConfiguration.builder().seed(123).updater(Adam(1e-3))
+            .weight_init("xavier").list()
+            .layer(FrozenLayer(inner=ConvolutionLayer(
+                n_out=20, kernel_size=5, stride=1, activation="relu")))
+            .layer(SubsamplingLayer(pooling_type="max", kernel_size=2,
+                                    stride=2))
+            .layer(FrozenLayer(inner=ConvolutionLayer(
+                n_out=50, kernel_size=5, stride=1, activation="relu")))
+            .layer(SubsamplingLayer(pooling_type="max", kernel_size=2,
+                                    stride=2))
+            .layer(DenseLayer(n_out=500, activation="relu"))
+            .layer(OutputLayer(n_out=10, activation="softmax",
+                               loss="mcxent"))
+            .set_input_type(InputType.convolutional(28, 28, 1)).build())
+    return MultiLayerNetwork(conf, device=dev).init()
+
+
+def yolo_net(dev):
+    """A YOLOv2 head at the VOC layout on a trunk of five stride-2 3 x 3
+    convolutions (416 -> 13) and a 1 x 1 convolution to A x (5 + C) = 125
+    channels; Adam(1e-3), seed 123."""
+    from deeplearning4j_tpu_torch import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.conf import (InputType,
+                                                  NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.layers import (ConvolutionLayer,
+                                                    Yolo2OutputLayer)
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    b = (NeuralNetConfiguration.builder().seed(123).updater(Adam(1e-3))
+         .weight_init("relu").activation("leakyrelu").list())
+    for c in (16, 32, 64, 128, 256):
+        b = b.layer(ConvolutionLayer(n_out=c, kernel_size=3, stride=2,
+                                     padding=1))
+    conf = (b.layer(ConvolutionLayer(
+                n_out=len(YOLO_ANCHORS) * (5 + YOLO_CLASSES), kernel_size=1,
+                activation="identity"))
+            .layer(Yolo2OutputLayer(anchors=YOLO_ANCHORS,
+                                    n_classes=YOLO_CLASSES))
+            .set_input_type(InputType.convolutional(YOLO_SIZE, YOLO_SIZE, 3))
+            .build())
+    return MultiLayerNetwork(conf, device=dev).init()
+
+
+def yolo_data(n, seed):
+    """Synthetic images and YOLOv2 labels: YOLO_OBJECTS objects an image,
+    each in a random cell and anchor with its offsets in (0, 1), log-scale
+    sizes, objectness 1 and a class one-hot."""
+    r = np.random.RandomState(seed)
+    g, A, C = YOLO_SIZE // 32, len(YOLO_ANCHORS), YOLO_CLASSES
+    x = r.rand(n, YOLO_SIZE, YOLO_SIZE, 3).astype(np.float32)
+    y = np.zeros((n, g, g, A, 5 + C), np.float32)
+    for i in range(n):
+        for _ in range(YOLO_OBJECTS):
+            cy, cx, a = r.randint(0, g), r.randint(0, g), r.randint(0, A)
+            y[i, cy, cx, a, 0:2] = r.rand(2)
+            y[i, cy, cx, a, 2:4] = 0.5 * r.randn(2)
+            y[i, cy, cx, a, 4] = 1.0
+            y[i, cy, cx, a, 5 + r.randint(0, C)] = 1.0
+    return x, y.reshape(n, g, g, A * (5 + C))
+
+
+def frozen_yolo_part(card, res, dev="cuda"):
+    """(d) LeNet with frozen convolutions, 5 captured steps: the frozen
+    parameters as they started, bit for bit, the rest moved, the result
+    against the CPU port; YOLOv2 at the VOC layout: loss and gradients
+    against the CPU port, 5 captured steps."""
+    import torch
+    from deeplearning4j_tpu_torch.data import DataSet
+    out = {}
+    some = _first_batches(_mnist(flatten=False), FROZEN_STEPS)
+    with deterministic_cudnn():
+        net = frozen_lenet(dev)
+        cpu = _cpu_copy(net)
+        start = [{k: v.clone() for k, v in p.items()} for p in net.params]
+        recs = []
+        for m in (net, cpu):
+            m._CHUNK_MAX_STEPS = 1
+            recs.append(ScoreRecorder())
+            m.set_listeners(recs[-1])
+            m.fit(some)
+    frozen = [i for i, l in enumerate(net.layers) if l.frozen]
+    kept = all(torch.equal(net.params[i][k], start[i][k])
+               for i in frozen for k in start[i])
+    moved = all(not torch.equal(net.params[i][k], start[i][k])
+                for i, l in enumerate(net.layers) if not l.frozen
+                for k in start[i])
+    no_state = all(net.opt_state[i] == {} for i in frozen)
+    loss_err = _rel_losses((recs[0].scores, recs[1].scores))
+    p_err = _tree_rel(net.params, cpu.params)
+    out["frozen"] = {"kept": kept, "moved": moved, "no_updater_state":
+                     no_state, "losses": recs[0].scores,
+                     "loss_rel_err": loss_err, "param_rel_err": p_err,
+                     "captures": net._capture_count}
+    print(f"inception (d): LeNet with frozen convolutions, "
+          f"{FROZEN_STEPS} captured steps ({net._capture_count} captures, "
+          f"uint8 wire): frozen parameters as they started bit for bit: "
+          f"{kept}, no updater state: {no_state}, the others moved: "
+          f"{moved}; against the CPU port: losses rel err {loss_err:.3g}, "
+          f"parameters {p_err:.3g} (tol {FROZEN_TOL}) [{card}]", flush=True)
+    if not (kept and moved and no_state) or max(loss_err, p_err) > FROZEN_TOL:
+        raise AssertionError(f"phase 13 (d) frozen: {out['frozen']}")
+    del net, cpu
+    net = yolo_net(dev)
+    cpu = _cpu_copy(net)
+    x, y = yolo_data(YOLO_B, 5)
+    ds = DataSet(x, y)
+    lg, gg = _loss_and_grads(net, ds)
+    lc, gc = _loss_and_grads(cpu, ds)
+    grad_err = _grad_rel_err(gg, gc)
+    loss_err = abs(float(lg) - float(lc)) / abs(float(lc))
+    xs, ys = (torch.from_numpy(a).to(dev) for a in yolo_data(
+        YOLO_STEPS * YOLO_B, 6))
+    xs = xs.reshape((YOLO_STEPS, YOLO_B) + xs.shape[1:])
+    ys = ys.reshape((YOLO_STEPS, YOLO_B) + ys.shape[1:])
+    net.fit_scan(xs[:2], ys[:2])
+    _sync(dev)
+    t0 = time.perf_counter()
+    net.fit_scan(xs, ys)
+    _sync(dev)
+    ms = (time.perf_counter() - t0) / YOLO_STEPS * 1e3
+    last = net.get_score()
+    out["yolo"] = {"loss": float(lg), "loss_rel_err": loss_err,
+                   "grad_rel_err": grad_err, "captured_ms_per_step": ms,
+                   "captures": net._capture_count, "last_loss": last}
+    print(f"inception (d): Yolo2OutputLayer, {len(YOLO_ANCHORS)} VOC "
+          f"anchors, {YOLO_CLASSES} classes, {YOLO_SIZE // 32} x "
+          f"{YOLO_SIZE // 32} grid over {YOLO_SIZE} x {YOLO_SIZE} x 3 (B="
+          f"{YOLO_B}): loss {float(lg):.5f}, against the CPU port rel err "
+          f"{loss_err:.3g}, gradients {grad_err:.3g} of max|grad| (tol "
+          f"{YOLO_TOL}); {YOLO_STEPS} captured steps: {ms:.3f} ms a step, "
+          f"last loss {last:.4f} [{card}]", flush=True)
+    if max(loss_err, grad_err) > YOLO_TOL or not np.isfinite(last):
+        raise AssertionError(f"phase 13 (d) yolo: {out['yolo']}")
+    res["frozen_yolo"] = out
+
+
+def _evaluations(labels, probs):
+    """Every evaluation of eval/ on (labels, probabilities): the numbers
+    each reports."""
+    from deeplearning4j_tpu_torch.eval import (ROC, EvaluationBinary,
+                                               EvaluationCalibration,
+                                               RegressionEvaluation,
+                                               ROCMultiClass)
+    roc = ROC().eval(labels[:, 0], probs[:, 0])
+    multi = ROCMultiClass().eval(labels, probs)
+    binary = EvaluationBinary().eval(labels, probs)
+    reg = RegressionEvaluation().eval(labels, probs)
+    cal = EvaluationCalibration().eval(labels, probs)
+    C = labels.shape[-1]
+    return {"roc_auc": roc.calculate_auc(),
+            "roc_multiclass_auc": [multi.calculate_auc(c) for c in range(C)],
+            "roc_multiclass_average": multi.calculate_average_auc(),
+            "binary_accuracy": [binary.accuracy(c) for c in range(C)],
+            "binary_f1": [binary.f1(c) for c in range(C)],
+            "mse": reg.mean_squared_error(), "r2": reg.r_squared(),
+            "ece": cal.expected_calibration_error(),
+            "prediction_counts":
+                cal.get_prediction_counts_each_class().tolist()}
+
+
+def iterators_eval_part(card, res, dev="cuda"):
+    """(e) LeNet through AsyncDataSetIterator(workers=2) and
+    MultipleEpochsIterator(3, base) against the base alone and
+    ``epochs=3``, bit for bit (deterministic cuDNN), with ms a step and
+    the host stall share; every evaluation of the card's outputs against
+    the CPU port's."""
+    from deeplearning4j_tpu_torch.data import (AsyncDataSetIterator,
+                                               MultipleEpochsIterator)
+    from deeplearning4j_tpu_torch.zoo import LeNet
+    out = {}
+
+    def base():
+        return _mnist(rows=ITER_ROWS, flatten=False, shuffle=False)
+    steps = ITER_ROWS // PRETRAIN_B
+    runs = {}
+    with deterministic_cudnn():
+        for name, epochs, make in (
+                ("base", 1, base),
+                ("async", 1, lambda: AsyncDataSetIterator(base(),
+                                                          workers=2)),
+                ("base_x3", 3, base),
+                ("multiple_epochs", 1,
+                 lambda: MultipleEpochsIterator(3, base()))):
+            net = LeNet(num_classes=10).init(device=dev)
+            data = make()
+            _sync(dev)
+            t0 = time.perf_counter()
+            net.fit(data, epochs=epochs)
+            _sync(dev)
+            wall = time.perf_counter() - t0
+            if hasattr(data, "_shutdown"):
+                data._shutdown()
+            runs[name] = net
+            n = steps * (3 if name in ("base_x3", "multiple_epochs") else 1)
+            out[name] = {"ms_per_step": wall / n * 1e3,
+                         "host_stall_frac":
+                             net.last_pipeline_stats.get("host_stall_frac"),
+                         "iteration": net.iteration}
+    same_async = _trees_equal(runs["base"].params, runs["async"].params)
+    same_epochs = (_trees_equal(runs["base_x3"].params,
+                                runs["multiple_epochs"].params)
+                   and runs["base_x3"].iteration
+                   == runs["multiple_epochs"].iteration)
+    out.update(async_bitwise=same_async, multiple_epochs_bitwise=same_epochs)
+    print(f"inception (e): LeNet on MNIST's uint8 wire ({steps} steps an "
+          f"epoch, B={PRETRAIN_B}): through AsyncDataSetIterator(workers=2) "
+          f"{'equal' if same_async else 'differ from'} the base bit for "
+          f"bit; MultipleEpochsIterator(3, base) "
+          f"{'equals' if same_epochs else 'differs from'} epochs=3 bit for "
+          f"bit; ms a step and host stall share: "
+          + ", ".join(f"{k} {v['ms_per_step']:.3f} / {v['host_stall_frac']}"
+                      for k, v in out.items() if isinstance(v, dict))
+          + f" [{card}]", flush=True)
+    if not (same_async and same_epochs):
+        raise AssertionError(f"phase 13 (e): iterators {out}")
+    # one more epoch of the base and the async nets, warm (captured)
+    for name, make in (("base", base), ("async", lambda: AsyncDataSetIterator(
+            base(), workers=2))):
+        data = make()
+        _sync(dev)
+        t0 = time.perf_counter()
+        runs[name].fit(data)
+        _sync(dev)
+        out[name].update(
+            warm_ms_per_step=(time.perf_counter() - t0) / steps * 1e3,
+            warm_host_stall_frac=runs[name].last_pipeline_stats.get(
+                "host_stall_frac"))
+        if hasattr(data, "_shutdown"):
+            data._shutdown()
+    print(f"inception (e): a warm epoch through the base "
+          f"{out['base']['warm_ms_per_step']:.3f} ms a step "
+          f"(host_stall_frac {out['base']['warm_host_stall_frac']}), through "
+          f"AsyncDataSetIterator(workers=2) "
+          f"{out['async']['warm_ms_per_step']:.3f} "
+          f"({out['async']['warm_host_stall_frac']}) [{card}]", flush=True)
+    net = runs["multiple_epochs"]
+    cpu = _cpu_copy(net)
+    test = _mnist(False, 2000, 2000, flatten=False)
+    x = test.dataset.features.astype(np.float32) / 255.0
+    y = test.dataset.labels
+    card_ev = _evaluations(y, net.output(x).float().cpu().numpy())
+    cpu_ev = _evaluations(y, cpu.output(x).numpy())
+    worst = max(float(np.max(np.abs(np.asarray(card_ev[k], np.float64)
+                                    - np.asarray(cpu_ev[k], np.float64))))
+                for k in card_ev)
+    out["evaluations"] = {"card": card_ev, "cpu": cpu_ev, "max_diff": worst}
+    print(f"inception (e): ROC, ROCMultiClass, EvaluationBinary, "
+          f"RegressionEvaluation and EvaluationCalibration of the card's "
+          f"outputs on 2000 test images against the CPU port's: max diff "
+          f"{worst:.3g} (tol {EVAL_TOL}); AUC {card_ev['roc_auc']:.6f}, "
+          f"average AUC {card_ev['roc_multiclass_average']:.6f}, MSE "
+          f"{card_ev['mse']:.6f}, R^2 {card_ev['r2']:.6f}, ECE "
+          f"{card_ev['ece']:.6f} [{card}]", flush=True)
+    if worst > EVAL_TOL:
+        raise AssertionError(f"phase 13 (e): evaluations {worst}")
+    res["iterators_eval"] = out
+
+
+def inception_phase(card, dev="cuda"):
+    """Phase 13: the Inception zoo, the special layers, pretraining, the
+    evaluations and the iterator wrappers (``chip_smoke.py`` docstring)."""
+    from deeplearning4j_tpu_torch import ops
+    res = {"card": card}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for part in (inception_part, zoo_part, pretrain_part, frozen_yolo_part,
+                 iterators_eval_part):
+        t1 = time.perf_counter()
+        part(card, res, dev)
+        res[f"{part.__name__}_s"] = time.perf_counter() - t1
+    res["launches"] = ops.launch_counts()
+    res["seconds"] = time.perf_counter() - t0
+    print(f"inception: phase 13 took {res['seconds']:.1f} s ("
+          + ", ".join(f"{k[:-2]} {v:.1f} s" for k, v in res.items()
+                      if k.endswith("_part_s"))
+          + f"); kernel launches {res['launches']} [{card}]", flush=True)
+    if any(res["launches"].values()):
+        raise AssertionError(f"phase 13 launched a hand-written kernel: "
+                             f"{res['launches']}")
+    return res
+
+
 def counted_launches(tree, kernel):
     """The launches of ``kernel`` over every counted window (each dict
     entry ``launches``) of a phase's results."""
@@ -4465,6 +5286,7 @@ def main() -> int:
     t0 = time.perf_counter()
     cnn = cnn_phase(card)
     cnn["phase_seconds"] = time.perf_counter() - t0
+    inception = inception_phase(card)
 
     # each kernel at its main path's shape, with the launches of the run
     # that drove it: /predict of the 15 held-out windows (bucket 16, T=64)
@@ -4546,7 +5368,8 @@ def main() -> int:
          "slice": res, "f4": f4, "tiny": tiny, "wide": wide,
          "train": train, "tiny_train": tiny_train, "captured": captured,
          "regularised": regularised, "fit_contract": fit_contract,
-         "serving_features": serving, "cnn": cnn, "kernels": entries},
+         "serving_features": serving, "cnn": cnn, "inception": inception,
+         "kernels": entries},
         indent=1))
     print(json.dumps({"kernels": entries}))
     print(card)

@@ -1,7 +1,9 @@
-"""In-memory datasets, their batch iterators, the standard datasets'
-fetchers and the normalizers."""
+"""In-memory datasets, their batch iterators and the iterator wrappers,
+the standard datasets' fetchers and the normalizers."""
 
 from deeplearning4j_tpu_torch.data.dataset import (  # noqa: F401
     DataSet, MultiDataSet)
 from deeplearning4j_tpu_torch.data.iterators import (  # noqa: F401
-    DataSetIterator, ListDataSetIterator, resolve_pre_processor)
+    AsyncDataSetIterator, AsyncMultiDataSetIterator, DataSetIterator,
+    ExistingDataSetIterator, InequalityHandling, JointParallelDataSetIterator,
+    ListDataSetIterator, MultipleEpochsIterator, resolve_pre_processor)

@@ -177,7 +177,7 @@ class ComputationGraph(FitContract):
         gc = self.conf.global_conf
         layers = {n: self.conf.nodes[n].layer for n in self.params}
         self._transforms, self.opt_state, self._fused = updater_plan(
-            self.params, {n: l.updater or gc.updater
+            self.params, {n: None if l.frozen else l.updater or gc.updater
                           for n, l in layers.items()},
             {n: l.apply_constraints for n, l in layers.items()})
         self._steps = self._executor.steps(self._step, generator=self._gen)
@@ -266,8 +266,11 @@ class ComputationGraph(FitContract):
                 acts[name], new_carries[name] = layer.apply_with_carry(
                     p, ins[0], new_carries.get(name), mask=mask)
             else:
+                # a frozen layer reads the graph's own state where the
+                # step writes none
+                st = self.state if state is None and layer.frozen else state
                 kw = {} if not self.state or not self.state.get(name) else {
-                    "state": None if state is None else state[name]}
+                    "state": None if st is None else st[name]}
                 acts[name] = layer.apply(p, ins[0], train=train, gen=gen,
                                          mask=mask, **kw)
         return acts, new_carries

@@ -5,7 +5,8 @@ the forward with stacked-LSTM pair fusion, ``output``, ``rnn_time_step`` /
 ``rnn_clear_previous_state``, ``init_decode_state`` / ``decode_step``,
 ``prefill_chunk``, ``tree_chunk`` / ``tree_commit``, training (``fit``
 on arrays, a DataSet or an iterator, ``fit_scan``, truncated BPTT,
-``compute_gradient_and_score``, ``score``, ``evaluate``), listeners,
+``compute_gradient_and_score``, ``score``, ``evaluate``,
+``evaluate_regression``), greedy layerwise ``pretrain``, listeners,
 ``save`` and ``load``. ``fit`` is the JAX package's whole contract
 (models/fitting.py): an iterator streams in chunks through
 ``fit_scan``, staged on the device ahead of the step (``prefetch``),
@@ -15,7 +16,8 @@ per-layer dicts of tensors on the network's device, under the JAX
 package's keys (a wrapper's nested parameters flattened to path keys,
 ``fwd/W``; see nn/layers/base.py); the updater state is a list of
 per-layer dicts under the JAX package's optax key paths (see
-nn/updaters.py).
+nn/updaters.py); a frozen layer (nn/layers/special.py) has no updater and
+no updater state.
 
 Dropout, weight noise and feature masks train as in the JAX package: the
 train-time forward applies each layer's weight noise to its parameters
@@ -157,13 +159,15 @@ def count_params(tree) -> int:
 def updater_plan(params, updaters, constraints):
     """A container's optimizer: (transforms, opt_state, fused plan or None)
     over ``params`` (a dict member -> dict of tensors) from each member's
-    updater (``updaters[k]``; a member without parameters gets None). The
-    fused plan, when the switch is on, rebinds the members' dicts to views
-    of its flat buffers; a chain that reduces across parameters keeps
-    per-member math (group key None)."""
+    updater (``updaters[k]``; None for a frozen member, which, like a
+    member without parameters, gets no transform and no state: the JAX
+    package's ``optax.set_to_zero()``). The fused plan, when the switch is
+    on, rebinds the members' dicts to views of its flat buffers; a chain
+    that reduces across parameters keeps per-member math (group key
+    None)."""
     transforms, group_keys = {}, {}
     for k, p in params.items():
-        if not p:
+        if not p or updaters[k] is None:
             transforms[k] = None
             continue
         transforms[k] = t = make_gradient_transform(updaters[k])
@@ -261,7 +265,8 @@ class MultiLayerNetwork(FitContract):
         n = len(self.layers)
         transforms, opt_state, self._fused = updater_plan(
             dict(enumerate(self.params)),
-            {i: l.updater or gc.updater for i, l in enumerate(self.layers)},
+            {i: None if l.frozen else l.updater or gc.updater
+             for i, l in enumerate(self.layers)},
             {i: l.apply_constraints for i, l in enumerate(self.layers)})
         self._transforms = [transforms[i] for i in range(n)]
         self.opt_state = [opt_state[i] for i in range(n)]
@@ -337,9 +342,12 @@ class MultiLayerNetwork(FitContract):
 
     def _state_kw(self, state, i):
         """``apply``'s state argument for layer ``i``: only a layer that
-        keeps state takes one."""
+        keeps state takes one; a frozen layer, which writes none, reads
+        the network's own where ``state`` is None."""
         if not self.state or not self.state[i]:
             return {}
+        if state is None and self.layers[i].frozen:
+            state = self.state
         return {"state": None if state is None else state[i]}
 
     # -------------------------------------------------------------- training
@@ -582,18 +590,13 @@ class MultiLayerNetwork(FitContract):
         self._score = float(self._score)
         return self._score
 
-    def evaluate(self, data, labels=None):
-        """Classification evaluation (parity: evaluate): accuracy,
-        precision, recall, F1 and the confusion matrix over the batches,
-        each through the bucketed ``output``; as in the JAX package, a
-        label mask drops rows, a feature mask is not read, and a
-        ``device_side`` pre-processor on the iterator runs on the card."""
-        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
-        ev = Evaluation()
+    def _eval_stream(self, data, fn):
+        """``fn(labels, outputs, labels_mask)`` over the batches of
+        ``data`` (a DataSet, an iterator, reset first, or a list), each
+        through the bucketed ``output``, with a ``device_side``
+        pre-processor on the iterator run on the card."""
         dev_fn, host_pp = self._resolve_device_pp(data)
-        if labels is not None:
-            data = [DataSet(data, labels)]
-        elif isinstance(data, DataSet):
+        if isinstance(data, DataSet):
             data = [data]
         elif hasattr(data, "reset"):
             data.reset()
@@ -606,10 +609,83 @@ class MultiLayerNetwork(FitContract):
             if dev_fn is not None:
                 x = dev_fn(self._as_input(x))
             out = self.output(x)
-            ev.eval(np.asarray(ds.labels), out.float().cpu().numpy(),
-                    None if ds.labels_mask is None
-                    else np.asarray(ds.labels_mask))
+            fn(np.asarray(ds.labels), out.float().cpu().numpy(),
+               None if ds.labels_mask is None
+               else np.asarray(ds.labels_mask))
+
+    def evaluate(self, data, labels=None):
+        """Classification evaluation (parity: evaluate): accuracy,
+        precision, recall, F1 and the confusion matrix over the batches,
+        each through the bucketed ``output``; as in the JAX package, a
+        label mask drops rows, a feature mask is not read, and a
+        ``device_side`` pre-processor on the iterator runs on the card."""
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+        ev = Evaluation()
+        self._eval_stream(data if labels is None else DataSet(data, labels),
+                          ev.eval)
         return ev
+
+    def evaluate_regression(self, data):
+        """Per-column regression evaluation (parity: evaluateRegression):
+        MSE, MAE, RMSE, R^2 and Pearson correlation over the batches of a
+        DataSet or an iterator; masks are not read, as in the JAX
+        package."""
+        from deeplearning4j_tpu_torch.eval.evaluation import \
+            RegressionEvaluation
+        ev = RegressionEvaluation()
+        self._eval_stream(data, lambda y, out, _lm: ev.eval(y, out))
+        return ev
+
+    # -------------------------------------------------------------- pretrain
+    def pretrain(self, data, epochs: int = 1, lr: float = 0.01):
+        """Greedy layerwise pretraining (parity: pretrain) of every layer
+        that has a pretrain step (nn/layers/pretrain.py: RBM, AutoEncoder,
+        VariationalAutoencoder), in order, each for ``epochs`` passes over
+        ``data`` (a DataSet or an iterator of them; anything else is read
+        into a list first, since it is passed over once per layer and
+        epoch). A layer's input is the features through layers [0, i) in
+        inference mode, flattened past two dimensions; its step at batch
+        ``j`` of epoch ``ep`` draws from a generator seeded with ``i *
+        100003 + ep * 1009 + j``, as the JAX package folds its key, and
+        writes the layer's parameters in place. A ``device_side``
+        pre-processor on the iterator runs on the card, as in ``fit`` (the
+        JAX package's pretrain applies none: caveat R11). The last step's
+        loss is the score."""
+        from deeplearning4j_tpu_torch.nn.layers.pretrain import \
+            get_pretrain_step
+        self._check_trainable()
+        if not isinstance(data, DataSet) and not hasattr(data, "reset"):
+            data = list(data)
+        dev_fn, host_pp = self._resolve_device_pp(data)
+        seed = self.conf.global_conf.seed
+        gen = torch.Generator(device=self.device)
+        for i, layer in enumerate(self.layers):
+            step = get_pretrain_step(layer)
+            if step is None:
+                continue
+            for ep in range(epochs):
+                if hasattr(data, "reset"):
+                    data.reset()
+                for j, ds in enumerate([data] if isinstance(data, DataSet)
+                                       else data):
+                    if not isinstance(ds, DataSet):
+                        ds = DataSet(*ds)
+                    if host_pp is not None:
+                        ds = host_pp.pre_process(ds)
+                    x = self._as_input(ds.features)
+                    if dev_fn is not None:
+                        x = dev_fn(x)
+                    with torch.no_grad():
+                        x = self._forward(self.params, x, upto=i)[0]
+                    if x.ndim > 2:
+                        x = x.reshape(x.shape[0], -1)
+                    seed_generator(gen, seed, i * 100003 + ep * 1009 + j)
+                    new, self._score = step(self.params[i], x, gen, lr)
+                    with torch.no_grad():
+                        for k, v in new.items():
+                            self.params[i][k].copy_(v)
+                    self._params_version += 1
+        return self
 
     # ------------------------------------------------------------- inference
     def serving_engine(self, **kw):

@@ -203,7 +203,8 @@ def build_fused_update(params: Dict, opt_state: Dict, transforms: Dict,
     any hashable describing the updater configuration (the containers use
     the updater's sorted-JSON dict): members fuse only when the key and
     every parameter's dtype match. ``None`` marks a member non-fusable
-    (cross-leaf clipping); members without parameters pass through.
+    (cross-leaf clipping); members without parameters or without a
+    transform (a frozen layer) pass through.
 
     Each group's parameters and parameter-shaped state move into flat
     buffers, and the entries of ``params[k]`` / ``opt_state[k]`` become
@@ -215,7 +216,7 @@ def build_fused_update(params: Dict, opt_state: Dict, transforms: Dict,
     passthrough: List[Any] = []
     device = None
     for k, p in params.items():
-        if not p:
+        if not p or transforms.get(k) is None:
             passthrough.append(k)
             continue
         device = device or next(iter(p.values())).device

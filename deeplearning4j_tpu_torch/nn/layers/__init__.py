@@ -11,7 +11,9 @@ from deeplearning4j_tpu_torch.nn.layers.conv import (  # noqa: F401
     Subsampling1DLayer, SubsamplingLayer, Upsampling1D, Upsampling2D,
     ZeroPadding1DLayer, ZeroPaddingLayer)
 from deeplearning4j_tpu_torch.nn.layers.special import (  # noqa: F401
-    GlobalPoolingLayer)
+    AutoEncoder, CenterLossOutputLayer, FrozenLayer, GlobalPoolingLayer,
+    VariationalAutoencoder, Yolo2OutputLayer)
+from deeplearning4j_tpu_torch.nn.layers.pretrain import RBM  # noqa: F401
 from deeplearning4j_tpu_torch.nn.layers.rnn import (  # noqa: F401
     LSTM, Bidirectional, GravesBidirectionalLSTM, GravesLSTM, LastTimeStep,
     RnnLossLayer, RnnOutputLayer, SimpleRnn, apply_lstm_pair,

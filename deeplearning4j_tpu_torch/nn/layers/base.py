@@ -10,10 +10,11 @@ float drop probability or an ``nn.dropout.IDropout``, its weight noise an
 dicts are read into them).
 
 A wrapper's parameters nest (Bidirectional: ``{"fwd": {...}, "bwd":
-{...}}``), as in the JAX package. The containers keep every layer's
-parameters as one flat dict keyed by path (``fwd/W``: the JAX package's
-checkpoint and optax key paths), which the updaters, the fused update and
-the checkpoint walk as they walk a plain layer's; ``flatten_params`` /
+{...}}``; the VAE's stacks are lists, ``{"enc": [{...}, ...]}``), as in
+the JAX package. The containers keep every layer's parameters as one flat
+dict keyed by path (``fwd/W``, ``enc/0/W``: the JAX package's checkpoint
+and optax key paths), which the updaters, the fused update and the
+checkpoint walk as they walk a plain layer's; ``flatten_params`` /
 ``nest_params`` convert, and a layer's ``init`` and ``apply`` see the
 nested form.
 
@@ -115,6 +116,10 @@ class Layer:
     dropout: Optional[Any] = None            # drop probability or IDropout
     weight_noise: Optional[Any] = None       # IWeightNoise
     constraints: Optional[tuple] = None
+
+    # a frozen layer (special.FrozenLayer) gets no updater and writes no
+    # state; the containers read this
+    frozen = False
 
     # ---- config protocol -------------------------------------------------
     def apply_defaults(self, defaults: Dict[str, Any]):
@@ -358,21 +363,34 @@ def layer_from_dict(d: Dict[str, Any]) -> Layer:
     return LAYER_REGISTRY[kind]._from_dict_fields(d)
 
 
-def flatten_params(params: Dict[str, Any], prefix: str = "") -> Dict:
-    """A (possibly nested) parameter dict as one flat dict keyed by path
-    (``{"fwd": {"W": w}}`` -> ``{"fwd/W": w}``), in the nested order."""
+def flatten_params(params, prefix: str = "") -> Dict:
+    """A (possibly nested) parameter tree as one flat dict keyed by path,
+    in the nested order: ``{"fwd": {"W": w}}`` -> ``{"fwd/W": w}``, and a
+    list by index, ``{"enc": [{"W": w}]}`` -> ``{"enc/0/W": w}`` (the JAX
+    package's checkpoint and optax key paths)."""
     out = {}
-    for k, v in params.items():
-        if isinstance(v, dict):
+    items = params.items() if isinstance(params, dict) else enumerate(params)
+    for k, v in items:
+        if isinstance(v, (dict, list, tuple)):
             out.update(flatten_params(v, f"{prefix}{k}/"))
         else:
             out[f"{prefix}{k}"] = v
     return out
 
 
+def _lists(tree):
+    """Every dict of ``tree`` whose keys are 0..n-1 as a list."""
+    if not isinstance(tree, dict):
+        return tree
+    tree = {k: _lists(v) for k, v in tree.items()}
+    if tree and set(tree) == {str(i) for i in range(len(tree))}:
+        return [tree[str(i)] for i in range(len(tree))]
+    return tree
+
+
 def nest_params(flat: Dict[str, Any]) -> Dict:
-    """The inverse of ``flatten_params``; a dict without path keys is
-    returned as it is."""
+    """The inverse of ``flatten_params`` (an index path segment rebuilds
+    a list); a dict without path keys is returned as it is."""
     if not any("/" in k for k in flat):
         return flat
     out: Dict[str, Any] = {}
@@ -382,7 +400,7 @@ def nest_params(flat: Dict[str, Any]) -> Dict:
         for p in path:
             d = d.setdefault(p, {})
         d[leaf] = v
-    return out
+    return {k: _lists(v) for k, v in out.items()}
 
 
 def require_dims(layer, **dims):
