@@ -329,6 +329,57 @@ result line, when any of them or the port's package is missing. Phases:
    ROCMultiClass, EvaluationBinary, RegressionEvaluation and
    EvaluationCalibration of the card's outputs on 2000 test images equal
    the CPU port's within 1e-6. The phase prints its seconds.
+14. The host KV tier, KV-chain migration, the request journal and the
+   pool's health signal (``kv_tier_phase``), on TinyTransformer at its
+   full default width from the configuration's seed, every engine a
+   captured paged one (8 slots, max_len 512, kv_block_size 16, chunks of
+   32, the prefix cache) fed corpus prompts of 128 tokens that each open
+   with their own token (no copy-on-write between them). (a) A pool of 97
+   blocks and a 64 MiB host tier: wave A (8 greedy streams of 64 new
+   tokens), wave B (8 other prompts: it needs the whole pool, so it
+   evicts, and spills, A's cached blocks) and wave C (A's prompts again:
+   each restores its 7 claimable blocks and evicts B's). Bars: every
+   wave's tokens equal, bit for bit, the same engine's without a tier
+   (which prefills C again); at least 112 spills and exactly 56
+   restores; every C request a prefix hit of 112 tokens with 7 restores
+   in its journal record; K9 exactly twice a plain step; no capture
+   after ``warmup()``, ``trace_count`` 1, the programs unchanged, every
+   pool leaf at its address; no block in use at the end; a
+   ``swap_weights`` of a seed-7 TinyTransformer leaves the tier empty and
+   no chain head. Reported: time to first token of wave C with and
+   without the tier (median, max, from the journal), ms an eviction, the
+   batched reads of evicted blocks (blocks, ms) and the restore batch,
+   the tier's bytes a block. (b) Two engines with the default pool: the
+   source runs wave A, then each prompt's claimable chain (7 blocks) is
+   exported, sent through JSON and imported into the destination (7
+   imported, none duplicate, no kernel launched); the destination's
+   tokens for A equal the source's bit for bit, 8 hits of 112; its
+   re-export gives the same leaf data, a re-import 0 imported and 7
+   duplicate; a payload with one base64 character changed, one from a
+   kv_block_size-32 engine and one from a d_model-64 TinyTransformer are
+   rejected (``torn``, ``block_size``, ``model_sig``) with the
+   destination's pool unchanged and the reject counter moved; exports
+   taken while 8 other streams decode on the source leave their tokens
+   equal to (a)'s tierless wave B; a card payload imported into the CPU
+   port and a CPU payload into the card continue under the near-tie
+   rule. Reported: ms an export and an import (median of 8), the
+   payload's bytes, time to first token after the import against the
+   source's cold prefill. (c) Over HTTP: (b)'s engines behind
+   ``InferenceServer``s, a dense engine (K8), a 4-slot engine whose queue
+   holds 2 (40 blocks) and a /predict server whose journal keeps 8:
+   /kv/export, /kv/import, then /generate on the second equals the first;
+   a torn payload answers 409 ``kv_migrate_rejected``, the dense server
+   404; ``/requests`` records with ``x-request-id`` echoed or minted,
+   ``x-tenant`` / ``x-priority`` carried, the phases queue, prefill and
+   decode and the ``kv`` fields, ``?n=junk`` 400; a burst of 16 on the
+   4-slot engine answers 429s, each with one ``shed`` record; ``/healthz``
+   reads ``degraded`` / ``kv_pool_exhausted`` with the pool while a
+   request of 32 blocks waits behind another, ``ok`` after; 12 /predict
+   records (K5) carry bucket, pad, device and readback and the journal
+   wraps (total - dropped = 8); ``/metrics`` renders the tier, migration
+   and time-to-first-token series; the p99 time to first token's
+   exemplar resolves to a ``/requests`` record; exactly K9 twice a paged
+   step, K8 twice a dense step and K5 twice a /predict forward.
 
 A replayed CUDA graph adds to the launch counts the launches its capture
 recorded (the capture itself counts none), so the counts below are the
@@ -336,7 +387,7 @@ kernels that ran. Kernel launch counts are reset right before the LSTM
 serving phase, before
 each TinyTransformer part (the 256-wide heads' too), before training (b)
 and (c) and before each part of the TinyTransformer training, and read
-right after (and around each counted run of 11); each
+right after (and around each counted run of 11 and 14); each
 TinyTransformer part and the training runs must launch exactly the kernels
 their call or step counts call for (K5 twice per bucketed forward, K8 or
 K9 twice per engine step; K5, K6 and K7 twice each per TinyTransformer
@@ -5038,6 +5089,547 @@ def inception_phase(card, dev="cuda"):
     return res
 
 
+# --------------------------------------------------------------- phase 14
+TIER_PROMPT, TIER_NEW, TIER_STREAMS = 128, 64, 8
+TIER_BLOCKS = TIER_STREAMS * 12 + 1   # 8 streams of 191 positions + scratch
+TIER_BYTES = 64 << 20
+TIER_CLAIM = (TIER_PROMPT - 1) // KV_BLOCK * KV_BLOCK     # 112 positions
+EXHAUST_NEW = 380     # two such requests cannot share a 40-block pool
+
+
+def tier_prompts(ids, n, taken, start, length=TIER_PROMPT):
+    """``n`` prompts of ``length`` corpus tokens at distinct offsets from
+    ``start``, each opening with a token no prompt in ``taken`` opens with,
+    so that no prompt claims another's block by copy-on-write."""
+    out, off = [], start
+    for _ in range(len(ids)):
+        p = ids[off:off + length]
+        if p[0] not in taken:
+            taken.add(p[0])
+            out.append(p)
+            if len(out) == n:
+                return out
+        off = (off + 37) % (len(ids) - length)
+    raise AssertionError(f"no {n} corpus prompts with distinct first tokens")
+
+
+def _median_max(xs):
+    return {"median": statistics.median(xs), "max": max(xs)}
+
+
+def _pool_snapshot(eng):
+    p = eng._pool
+    return (p.in_use, p.free_count, p.cached_count)
+
+
+def _rejects(eng, reason):
+    from deeplearning4j_tpu_torch.monitor import get_registry
+    fam = get_registry().get("dl4jtpu_kv_migrate_rejects_total")
+    return sum(c.value for key, c in fam.children()
+               if key == (eng.id, reason))
+
+
+def _wave(eng, prompts, tag, new=TIER_NEW):
+    """``prompts`` submitted together under request ids ``tag-i``: tokens,
+    steps, the launches (K9 twice a step, nothing else), time to first
+    token from the journal, and the records."""
+    from deeplearning4j_tpu_torch import ops
+    ops.reset_launch_counts()
+    st0 = eng.stats()
+    t0 = time.perf_counter()
+    futs = [eng.submit(p, max_new_tokens=new, request_id=f"{tag}-{i}")
+            for i, p in enumerate(prompts)]
+    toks = [f.result(timeout=600)["tokens"] for f in futs]
+    wall = time.perf_counter() - t0
+    st1 = eng.stats()
+    steps = st1["steps"] - st0["steps"]
+    launches = _expect_launches(f"phase 14 {tag}",
+                                {"flash_decode_paged": 2 * steps})
+    recs = [eng.journal.find(f"{tag}-{i}") for i in range(len(prompts))]
+    return toks, {"steps": steps, "launches": launches, "wall_s": wall,
+                  "ttft_ms": [r["ttft_seconds"] * 1e3 for r in recs],
+                  "prefix_hit_depth": [r["kv"]["prefix_hit_depth"]
+                                       for r in recs],
+                  "host_restores": [r["kv"]["host_restores"] for r in recs],
+                  "kv": _kv_delta(st0, st1)}
+
+
+def _timed(fn, into):
+    def run(*a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        into.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return run
+
+
+def tier_part(net, card, res, waves):
+    """Phase 14 (a): the host tier (docstring)."""
+    from deeplearning4j_tpu_torch.serving import DecodeEngine
+    from deeplearning4j_tpu_torch.serving.engine import input_type_of
+    from deeplearning4j_tpu_torch.zoo import TinyTransformer
+    kw = dict(slots=TIER_STREAMS, max_len=512, kv="paged",
+              kv_block_size=KV_BLOCK, chunk_tokens=CHUNK,
+              kv_blocks=TIER_BLOCKS)
+    out, toks = {}, {}
+    for tier in (None, TIER_BYTES):
+        tag = "tier" if tier else "no_tier"
+        eng = DecodeEngine(net, host_kv_bytes=tier, **kw).start()
+        spill_ms, flushes, restore_ms = [], [], []
+        if tier:
+            # an eviction registers its tier entry (spill_ms); the rows of
+            # the evicted blocks are read in batches (flushes: blocks, ms);
+            # a restore batch's scatter (restore_ms, its flush set aside)
+            eng._prefix.spill_fn = _timed(eng._spill_block, spill_ms)
+            flush, apply = eng._flush_spills, eng._apply_host_rows
+
+            def timed_flush():
+                n, t0 = len(eng._pending_spills), time.perf_counter()
+                flush()
+                if n:
+                    flushes.append((n, (time.perf_counter() - t0) * 1e3))
+
+            def timed_apply(writes):
+                k, t0 = len(flushes), time.perf_counter()
+                apply(writes)
+                if writes:
+                    restore_ms.append((time.perf_counter() - t0) * 1e3
+                                      - sum(ms for _, ms in flushes[k:]))
+            eng._flush_spills, eng._apply_host_rows = timed_flush, timed_apply
+        try:
+            ptrs = [t.data_ptr() for _, t in eng._pool_leaf_items()]
+            progs = eng.program_stats()
+            w = out[tag] = {}
+            for name, prompts in waves.items():
+                toks[tag, name], w[name] = _wave(eng, prompts,
+                                                 f"14a-{tag}-{name}")
+                print(f"kv tier (a): {tag}, wave {name}: {w[name]['steps']}"
+                      f" steps, wall {w[name]['wall_s']:.3f} s, time to "
+                      f"first token (ms) {_median_max(w[name]['ttft_ms'])};"
+                      f" prefix hit depths {w[name]['prefix_hit_depth']}, "
+                      f"restores {w[name]['host_restores']}; "
+                      f"{w[name]['kv']} [{card}]", flush=True)
+            st = eng.stats()
+            w["kv"] = st["kv"]
+            problems = []
+            if [t.data_ptr() for _, t in eng._pool_leaf_items()] != ptrs:
+                problems.append("a pool leaf moved")
+            if eng.program_stats() != progs or eng.trace_count != 1:
+                problems.append(f"programs {eng.program_stats()} after "
+                                f"warmup {progs}")
+            if st["kv"]["blocks_in_use"] != 0:
+                problems.append(f"{st['kv']['blocks_in_use']} blocks in use")
+            if tier:
+                t = st["kv"]["host_tier"]
+                w["spill_ms"] = _median_max(spill_ms)
+                w["spill_ms"]["n"] = len(spill_ms)
+                w["spill_batches"] = flushes
+                w["restore_batch_ms"] = _median_max(restore_ms)
+                w["restore_batch_ms"]["n"] = len(restore_ms)
+                w["bytes_per_block"] = t["bytes"] / t["blocks"]
+                c = w["C"]
+                if (t["spills"] < 112 or st["kv"]["host_restores"] != 56
+                        or c["prefix_hit_depth"] != [TIER_CLAIM] * 8
+                        or c["host_restores"] != [7] * 8):
+                    problems.append(f"tier {t}, restores "
+                                    f"{st['kv']['host_restores']}, wave C "
+                                    f"{c['prefix_hit_depth']} "
+                                    f"{c['host_restores']}")
+                other = TinyTransformer(vocab_size=input_type_of(net).size,
+                                        seed=7).init(device=net.device)
+                eng.swap_weights(other.params)
+                kv = eng.stats()["kv"]
+                w["after_swap"] = {"host_tier": kv["host_tier"],
+                                   "chain_heads": kv["chain_heads"]}
+                if (kv["host_tier"]["blocks"], kv["host_tier"]["bytes"],
+                        kv["chain_heads"]) != (0, 0, []):
+                    problems.append(f"after the swap {w['after_swap']}")
+                print(f"kv tier (a): {t['spills']} spills "
+                      f"({w['spill_ms']} ms each), read in batches of "
+                      f"(blocks, ms) {flushes}, "
+                      f"{st['kv']['host_restores']} restores in "
+                      f"{len(restore_ms)} batches ({w['restore_batch_ms']} "
+                      f"ms each), tier {t['blocks']} blocks, {t['bytes']} "
+                      f"bytes ({w['bytes_per_block']:.0f} a block); after "
+                      f"a swap {w['after_swap']} [{card}]", flush=True)
+            if problems:
+                raise AssertionError(f"phase 14 (a) {tag}: {problems}")
+        finally:
+            eng.stop()
+    diff = [n for n in waves if toks["tier", n] != toks["no_tier", n]]
+    if diff:
+        raise AssertionError(f"phase 14 (a): waves {diff} differ with the "
+                             "tier")
+    c = {k: _median_max(out[k]["C"]["ttft_ms"]) for k in out}
+    out["ttft_ms_wave_C"] = c
+    print(f"kv tier (a): tokens of waves A, B, C equal with and without the "
+          f"tier; wave C time to first token (ms) with the tier "
+          f"{c['tier']}, without {c['no_tier']} [{card}]", flush=True)
+    res["tier"] = out
+    return toks
+
+
+def migrate_part(net, cpu, card, res, waves, want_b):
+    """Phase 14 (b): migration between engines (docstring). Returns the
+    source and destination engines, running, for (c)."""
+    import copy
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.serving import DecodeEngine
+    from deeplearning4j_tpu_torch.serving.engine import input_type_of
+    from deeplearning4j_tpu_torch.serving.kv import KVMigrateError
+    from deeplearning4j_tpu_torch.zoo import TinyTransformer
+    kw = dict(slots=TIER_STREAMS, max_len=512, kv="paged",
+              kv_block_size=KV_BLOCK, chunk_tokens=CHUNK)
+    A, B = waves["A"], waves["B"]
+    # the claimable chain: the destination claims (128 - 1) // 16 = 7
+    # blocks read-only, the last prompt token runs through a step
+    chain = [p[:-1] for p in A]
+    out = {}
+    src = DecodeEngine(net, **kw).start()
+    dst = DecodeEngine(net, **kw).start()
+    others = []
+    try:
+        src_toks, out["source"] = _wave(src, A, "14b-src")
+        ptrs = [t.data_ptr() for _, t in dst._pool_leaf_items()]
+        progs = dst.program_stats()
+        exp_ms, imp_ms, sizes, payloads = [], [], [], []
+        ops.reset_launch_counts()
+        for c in chain:
+            t0 = time.perf_counter()
+            p = src.kv_export(c)
+            exp_ms.append((time.perf_counter() - t0) * 1e3)
+            wire = json.dumps(p)
+            sizes.append(len(wire))
+            p = json.loads(wire)
+            payloads.append(p)
+            t0 = time.perf_counter()
+            got = dst.kv_import(p)
+            imp_ms.append((time.perf_counter() - t0) * 1e3)
+            if got != {"imported_blocks": 7, "duplicate_blocks": 0,
+                       "tokens": TIER_CLAIM}:
+                raise AssertionError(f"phase 14 (b) import {got}")
+        _expect_launches("phase 14 (b) exports and imports", {})
+        out.update(export_ms=_median_max(exp_ms), import_ms=_median_max(
+            imp_ms), payload_bytes=sizes)
+        dst_toks, out["destination"] = _wave(dst, A, "14b-dst")
+        problems = []
+        if dst_toks != src_toks:
+            problems.append("the destination's tokens differ")
+        if out["destination"]["prefix_hit_depth"] != [TIER_CLAIM] * 8:
+            problems.append(f"hits {out['destination']['prefix_hit_depth']}")
+        back = [dst.kv_export(c) for c in chain]
+        if [[l["data"] for l in b["leaves"]] for b in back] != \
+                [[l["data"] for l in p["leaves"]] for p in payloads]:
+            problems.append("a re-export differs")
+        again = dst.kv_import(copy.deepcopy(payloads[0]))
+        if (again["imported_blocks"], again["duplicate_blocks"]) != (0, 7):
+            problems.append(f"re-import {again}")
+        if [t.data_ptr() for _, t in dst._pool_leaf_items()] != ptrs \
+                or dst.program_stats() != progs:
+            problems.append("a pool leaf moved or a program was added")
+        # rejections: a torn payload, another block size, another model
+        torn = copy.deepcopy(payloads[0])
+        d = torn["leaves"][0]["data"]
+        torn["leaves"][0]["data"] = d[:10] + ("B" if d[10] == "A"
+                                              else "A") + d[11:]
+        e32 = DecodeEngine(net, **dict(kw, kv_block_size=32)).start()
+        n64 = TinyTransformer(vocab_size=input_type_of(net).size,
+                              d_model=64).init(device=net.device)
+        e64 = DecodeEngine(n64, **kw).start()
+        others += [e32, e64]
+        bad = {"torn": torn}
+        for reason, e in (("block_size", e32), ("model_sig", e64)):
+            e.generate(A[0], max_new_tokens=2)
+            bad[reason] = json.loads(json.dumps(e.kv_export(chain[0])))
+        out["rejects"] = {}
+        for reason, p in bad.items():
+            before, n0 = _pool_snapshot(dst), _rejects(dst, reason)
+            try:
+                dst.kv_import(p)
+                problems.append(f"{reason}: imported")
+            except KVMigrateError as err:
+                out["rejects"][reason] = err.reason
+                if err.reason != reason or _pool_snapshot(dst) != before \
+                        or _rejects(dst, reason) != n0 + 1:
+                    problems.append(f"{reason}: {err.reason}, pool "
+                                    f"{before} -> {_pool_snapshot(dst)}")
+        # an export while 8 other streams decode on the source
+        ops.reset_launch_counts()
+        st0 = src.stats()
+        futs = [src.submit(p, max_new_tokens=TIER_NEW,
+                           request_id=f"14b-busy-{i}")
+                for i, p in enumerate(B)]
+        busy_exports = 0
+        while not all(f.done() for f in futs) or not busy_exports:
+            src.kv_export(chain[busy_exports % len(chain)])
+            busy_exports += 1
+        busy = [f.result(timeout=600)["tokens"] for f in futs]
+        steps = src.stats()["steps"] - st0["steps"]
+        out["busy"] = {"exports": busy_exports, "steps": steps,
+                       "launches": _expect_launches(
+                           "phase 14 (b) busy source",
+                           {"flash_decode_paged": 2 * steps})}
+        if busy != want_b:
+            problems.append("streams decoding beside exports differ")
+        # across devices: the card's chain into the CPU port, and back
+        ops.reset_launch_counts()
+        to_cpu = DecodeEngine(cpu, **kw)
+        to_cpu.kv_import(copy.deepcopy(payloads[0]))
+        cpu_toks = to_cpu.start().generate(A[0], TIER_NEW)["tokens"]
+        to_cpu.stop()
+        from_cpu = DecodeEngine(cpu, **kw).start()
+        cpu_b = from_cpu.generate(B[0], TIER_NEW)["tokens"]
+        payload = json.loads(json.dumps(from_cpu.kv_export(B[0][:-1])))
+        from_cpu.stop()
+        st0 = dst.stats()
+        dst.kv_import(payload)
+        card_b = dst.generate(B[0], TIER_NEW)["tokens"]
+        steps = dst.stats()["steps"] - st0["steps"]
+        out["cross"] = {"steps": steps, "launches": _expect_launches(
+            "phase 14 (b) across devices", {"flash_decode_paged": 2 * steps})}
+        out["cross"]["ties"] = {
+            "card_to_cpu": _ties(net, [A[0]], [cpu_toks], [src_toks[0]]),
+            "cpu_to_card": _ties(net, [B[0]], [card_b], [cpu_b])}
+        if problems:
+            raise AssertionError(f"phase 14 (b): {problems}")
+    except BaseException:
+        for e in (src, dst):
+            e.stop()
+        raise
+    finally:
+        for e in others:
+            e.stop()
+    cold = _median_max(out["source"]["ttft_ms"])
+    warm = _median_max(out["destination"]["ttft_ms"])
+    out["ttft_ms"] = {"cold": cold, "after_import": warm}
+    print(f"kv migrate (b): 8 chains of 7 blocks, export {out['export_ms']}"
+          f" ms, import {out['import_ms']} ms, payload {sizes[0]} bytes; "
+          f"destination tokens equal the source's, 8 hits of {TIER_CLAIM}; "
+          f"time to first token (ms) after the import {warm}, cold {cold}; "
+          f"rejects {out['rejects']}; {busy_exports} exports beside 8 "
+          f"decoding streams, their tokens unchanged; across devices "
+          f"{out['cross']['ties']} [{card}]", flush=True)
+    res["migrate"] = out
+    return src, dst
+
+
+def _http(url, path, payload=None, headers=None):
+    """(status, JSON body or text, headers) of one request."""
+    import urllib.error
+    import urllib.request
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(url + path, data=data, headers=dict(
+        {"Content-Type": "application/json"}, **(headers or {})))
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            body, status, hdrs = r.read().decode(), r.status, r.headers
+    except urllib.error.HTTPError as e:
+        body, status, hdrs = e.read().decode(), e.code, e.headers
+    try:
+        body = json.loads(body)
+    except ValueError:
+        pass
+    return status, body, dict(hdrs)
+
+
+def http_part(net, card, res, src, dst, prompts):
+    """Phase 14 (c): migration, the journal, /healthz and /metrics over
+    HTTP (docstring)."""
+    import copy
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.serving import (DecodeEngine,
+                                                  InferenceServer)
+    from deeplearning4j_tpu_torch.serving.engine import input_type_of
+    from deeplearning4j_tpu_torch.serving.wire import ndarray_to_b64
+    out, problems = {}, []
+    dense = DecodeEngine(net, slots=TIER_STREAMS, max_len=512)
+    small = DecodeEngine(net, slots=4, max_len=512, kv="paged",
+                         kv_block_size=KV_BLOCK, chunk_tokens=CHUNK,
+                         kv_blocks=41, max_queue=2)
+    servers = [InferenceServer(net, port=0, decode_engine=e).start()
+               for e in (src, dst, dense, small)]
+    servers.append(InferenceServer(net, port=0, journal_capacity=8).start())
+    s1, s2, s3, s4, s5 = [f"http://127.0.0.1:{s.port}" for s in servers]
+    paged = (src, dst, small)
+    try:
+        ops.reset_launch_counts()
+        steps0 = [e.stats()["steps"] for e in paged + (dense,)]
+        p = prompts[0]
+        gen = {"tokens": p, "max_new_tokens": TIER_NEW}
+        st, r1, h1 = _http(s1, "/generate", gen, {
+            "x-request-id": "14c-gen", "x-tenant": "acme",
+            "x-priority": "batch"})
+        st_e, payload, _ = _http(s1, "/kv/export", {"tokens": p[:-1]})
+        st_i, imp, hi = _http(s2, "/kv/import", payload)
+        st2, r2, h2 = _http(s2, "/generate", gen)
+        torn = copy.deepcopy(payload)
+        d = torn["leaves"][0]["data"]
+        torn["leaves"][0]["data"] = d[:10] + ("B" if d[10] == "A"
+                                              else "A") + d[11:]
+        st_t, bt, _ = _http(s2, "/kv/import", torn)
+        st_d, _, _ = _http(s3, "/kv/export", {"tokens": p[:-1]})
+        out["migration"] = {
+            "statuses": [st, st_e, st_i, st2, st_t, st_d], "import": imp,
+            "torn_error": bt.get("error", {}).get("type"),
+            "same_tokens": r1.get("tokens") == r2.get("tokens")}
+        if ([st, st_e, st_i, st2, st_t, st_d] != [200, 200, 200, 200, 409,
+                                                  404]
+                or bt["error"]["type"] != "kv_migrate_rejected"
+                or r1["tokens"] != r2["tokens"]
+                or imp["imported_blocks"] != 7
+                or h1.get("x-request-id") != "14c-gen"
+                or not h2.get("x-request-id", "").startswith("req-")
+                or hi.get("x-model-version") != "0"):
+            problems.append(f"migration {out['migration']}, ids "
+                            f"{h1.get('x-request-id')} "
+                            f"{h2.get('x-request-id')}")
+        # the journal: records of /generate on the paged and dense servers
+        for i in range(2):
+            _http(s3, "/generate", {"tokens": prompts[1 + i],
+                                    "max_new_tokens": 16},
+                  {"x-request-id": f"14c-dense-{i}"})
+        _, j1, _ = _http(s1, "/requests?n=4")
+        _, j2, _ = _http(s2, "/requests")
+        _, j3, _ = _http(s3, "/requests?n=2")
+        bad_n = _http(s1, "/requests?n=junk")[0]
+        rec = {r["request_id"]: r for r in j1["records"]}.get("14c-gen")
+        minted = {r["request_id"]: r for r in j2["records"]}.get(
+            h2.get("x-request-id"))
+        dense_recs = [r for r in j3["records"]
+                      if r["request_id"].startswith("14c-dense-")]
+        out["journal"] = {"record": rec, "minted": minted is not None,
+                          "dense": dense_recs, "bad_n": bad_n}
+        if (rec is None or (rec["tenant"], rec["priority"], rec["outcome"])
+                != ("acme", "batch", "max_new")
+                or sorted(rec["phases"]) != ["decode", "prefill", "queue"]
+                or sorted(rec["kv"]) != ["host_restores", "peak_blocks",
+                                         "prefix_hit_depth"]
+                or minted is None or minted["kv"]["prefix_hit_depth"]
+                != TIER_CLAIM or len(dense_recs) != 2
+                or any("kv" in r for r in dense_recs) or bad_n != 400):
+            problems.append(f"journal {out['journal']}")
+        # a burst of 16 on a 4-slot engine whose queue holds 2
+        burst, statuses = prompts[3:19], {}
+
+        def shoot(i):
+            statuses[i] = _http(s4, "/generate", {
+                "tokens": burst[i][:32], "max_new_tokens": 32},
+                {"x-request-id": f"14c-burst-{i}"})[0]
+        with ThreadPoolExecutor(16) as ex:
+            list(ex.map(shoot, range(16)))
+        shed = [r for r in small.journal.tail()
+                if r["request_id"].startswith("14c-burst-")]
+        n429 = sum(s == 429 for s in statuses.values())
+        out["burst"] = {"statuses": sorted(statuses.values()),
+                        "records": len(shed), "shed": sum(
+                            r["outcome"] == "shed" for r in shed)}
+        if (not n429 or out["burst"]["shed"] != n429 or len(shed) != 16
+                or len({r["request_id"] for r in shed}) != 16):
+            problems.append(f"burst {out['burst']}")
+        # /healthz while the head of the queue cannot claim its blocks
+        a = small.submit(prompts[1], max_new_tokens=EXHAUST_NEW)
+        b = small.submit(prompts[2], max_new_tokens=EXHAUST_NEW)
+        seen, t0 = None, time.perf_counter()
+        while time.perf_counter() - t0 < 120 and not a.done():
+            h = _http(s4, "/healthz")[1]
+            if h.get("reason") == "kv_pool_exhausted":
+                seen = h
+                break
+            time.sleep(0.002)
+        a.result(timeout=600)
+        b.result(timeout=600)
+        after = _http(s4, "/healthz")[1]
+        out["healthz"] = {"exhausted": seen, "after": after}
+        if (seen is None or seen["status"] != "degraded"
+                or seen["kv"]["blocks_in_use"] < 32
+                or after != {"status": "ok"}):
+            problems.append(f"healthz {out['healthz']}")
+        # /predict records (K5) on a server whose journal keeps 8
+        x = np.eye(input_type_of(net).size, dtype=np.float32)[
+            np.asarray(prompts[0][:64])][None]
+        for i in range(12):
+            _http(s5, "/predict", {"ndarray": ndarray_to_b64(x)},
+                  {"x-request-id": f"14c-predict-{i}"})
+        _, j5, _ = _http(s5, "/requests")
+        out["predict"] = {"total": j5["total"], "dropped": j5["dropped"],
+                          "phases": sorted(j5["records"][-1]["phases"])}
+        if (j5["total"] - j5["dropped"] != 8 or len(j5["records"]) != 8
+                or out["predict"]["phases"] != ["bucket", "device", "pad",
+                                                "queue", "readback"]):
+            problems.append(f"predict journal {out['predict']}")
+        steps = [e.stats()["steps"] - s0
+                 for e, s0 in zip(paged + (dense,), steps0)]
+        calls = servers[4].batcher.stats()["device_calls"]
+        out["steps"] = {"paged": sum(steps[:3]), "dense": steps[3],
+                        "predict_calls": calls}
+        out["launches"] = _expect_launches("phase 14 (c)", {
+            "flash_decode_paged": 2 * sum(steps[:3]),
+            "flash_decode": 2 * steps[3], "flash_attn_fwd": 2 * calls})
+        # /metrics, and the p99 time to first token back to its record
+        _, text, mh = _http(s1, "/metrics")
+        series = ("dl4jtpu_kv_host_tier_bytes", "dl4jtpu_kv_host_spills_total",
+                  "dl4jtpu_kv_migrate_imports_total",
+                  "dl4jtpu_kv_migrate_rejects_total",
+                  "dl4jtpu_decode_ttft_seconds_bucket")
+        missing = [s for s in series if f"{s}{{" not in text]
+        slo = _http(s1, "/stats")[1]["decode"]["slo"]["ttft"]
+        rid, _v = src._m_ttft.exemplar_for(src._m_ttft.percentile(0.99))
+        _, j1, _ = _http(s1, "/requests")
+        out["metrics"] = {"missing": missing, "p99_ms": slo["p99_ms"],
+                          "p99_exemplar": rid, "resolves": rid in {
+                              r["request_id"] for r in j1["records"]}}
+        if missing or not out["metrics"]["resolves"] \
+                or not mh.get("Content-Type", "").startswith("text/plain"):
+            problems.append(f"metrics {out['metrics']}")
+        if problems:
+            raise AssertionError(f"phase 14 (c): {problems}")
+    finally:
+        for s in servers:
+            s.stop()
+    print(f"kv http (c): /kv/export -> /kv/import -> /generate equal, torn "
+          f"409, dense 404; journal {out['journal']['record']['phases']}, "
+          f"burst {out['burst']}, healthz {out['healthz']['exhausted']} then "
+          f"{out['healthz']['after']}, /predict journal {out['predict']}, "
+          f"p99 time to first token {out['metrics']['p99_ms']} ms -> "
+          f"{out['metrics']['p99_exemplar']}; launches {out['launches']} "
+          f"[{card}]", flush=True)
+    res["http"] = out
+
+
+def kv_tier_phase(card, dev="cuda"):
+    """Phase 14: the host KV tier, KV-chain migration, the request journal
+    and the pool's health signal (``chip_smoke.py`` docstring)."""
+    from deeplearning4j_tpu_torch import ComputationGraph
+    from deeplearning4j_tpu_torch.zoo import TinyTransformer
+    from deeplearning4j_tpu_torch.zoo.corpus import corpus_ids
+    ids, vocab = corpus_ids()
+    ids = [int(t) for t in ids]
+    net = TinyTransformer(vocab_size=len(vocab)).init(device=dev)
+    cpu = ComputationGraph(net.conf, device="cpu").set_params(net.params)
+    res = {"card": card}
+    t0 = time.perf_counter()
+    taken = set()
+    A = tier_prompts(ids, TIER_STREAMS, taken, 0)
+    B = tier_prompts(ids, TIER_STREAMS, taken, 3001)
+    http_prompts = tier_prompts(ids, 3, taken, 5003) + [
+        ids[101 * i:101 * i + 48] for i in range(16)]
+    waves = {"A": A, "B": B, "C": A}
+    toks = tier_part(net, card, res, waves)
+    res["tier_part_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    src, dst = migrate_part(net, cpu, card, res, waves,
+                            toks["no_tier", "B"])
+    res["migrate_part_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    http_part(net, card, res, src, dst, http_prompts)
+    res["http_part_s"] = time.perf_counter() - t1
+    res["seconds"] = time.perf_counter() - t0
+    print(f"kv: phase 14 took {res['seconds']:.1f} s (tier "
+          f"{res['tier_part_s']:.1f} s, migrate {res['migrate_part_s']:.1f} "
+          f"s, http {res['http_part_s']:.1f} s) [{card}]", flush=True)
+    return res
+
+
 def counted_launches(tree, kernel):
     """The launches of ``kernel`` over every counted window (each dict
     entry ``launches``) of a phase's results."""
@@ -5287,6 +5879,7 @@ def main() -> int:
     cnn = cnn_phase(card)
     cnn["phase_seconds"] = time.perf_counter() - t0
     inception = inception_phase(card)
+    kv_tier = kv_tier_phase(card)
 
     # each kernel at its main path's shape, with the launches of the run
     # that drove it: /predict of the 15 held-out windows (bucket 16, T=64)
@@ -5322,9 +5915,11 @@ def main() -> int:
     # at the streams' positions halfway through their completions
     row = attn_kernel_case("flash_attn_fwd", 16, 64, True, seed=1)
     print("main-path shape: " + fmt_attn(row) + f" [{card}]", flush=True)
-    entry("flash_attn_fwd", row,
-          tiny["launches_predict"]["flash_attn_fwd"]
-          + tiny["launches_mixed"]["flash_attn_fwd"])
+    by_path = {"tiny /predict": tiny["launches_predict"]["flash_attn_fwd"]
+               + tiny["launches_mixed"]["flash_attn_fwd"],
+               "phase 14": counted_launches(kv_tier, "flash_attn_fwd")}
+    entry("flash_attn_fwd", row, sum(by_path.values()))
+    entries[-1]["launches_by_path"] = by_path
     # the recipe's train steps (B=32, T=64) run K6 and K7 at BH 128, causal
     recipe = tiny_train["recipe"]["launches_train"]
     for row in bwd_kernel_case(TINY_B, TINY_T, True, seed=1):
@@ -5337,7 +5932,8 @@ def main() -> int:
         print("main-path shape: " + fmt_attn(row) + f" [{card}]", flush=True)
         by_path = {f"tiny {kind} /generate":
                    tiny[f"launches_{kind}"][kernel],
-                   "phase 11": counted_launches(serving, kernel)}
+                   "phase 11": counted_launches(serving, kernel),
+                   "phase 14": counted_launches(kv_tier, kernel)}
         entry(kernel, row, sum(by_path.values()))
         entries[-1]["launches_by_path"] = by_path
     # the wide-head phase's shapes (Dh 256, 2 heads): /predict of 15 windows
@@ -5369,7 +5965,7 @@ def main() -> int:
          "train": train, "tiny_train": tiny_train, "captured": captured,
          "regularised": regularised, "fit_contract": fit_contract,
          "serving_features": serving, "cnn": cnn, "inception": inception,
-         "kernels": entries},
+         "kv_tier": kv_tier, "kernels": entries},
         indent=1))
     print(json.dumps({"kernels": entries}))
     print(card)

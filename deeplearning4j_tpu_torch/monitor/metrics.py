@@ -5,8 +5,9 @@ and the same names: metric FAMILIES addressed by name, label sets
 addressing CHILDREN inside a family, fixed-bucket histograms rendered in
 the Prometheus text exposition format, no dependency beyond the standard
 library. The fit path publishes into it (``util.timing.PipelineTimer.
-publish``, ``optimize.listeners.PerformanceListener``); the serving
-surfaces that scrape it (``/metrics``, ``/stats``) are not ported yet.
+publish``, ``optimize.listeners.PerformanceListener``), the serving
+path too (the batcher, the decode engine, the host KV tier), and the
+server renders it at ``GET /metrics``.
 
 Hot-path cost: one dict lookup + one locked float add per event;
 instrumented code caches its children. ``registry.enabled = False`` turns

@@ -4,7 +4,8 @@ Counterpart of deeplearning4j_tpu/serving/client.py. One persistent
 keep-alive connection per thread; a dropped socket reconnects once within
 the call. Status codes map to the server's error types: 429 ->
 ServerOverloadedError (retried with backoff), 503 -> BatcherStoppedError,
-504 -> DeadlineExceededError, other 4xx -> ValueError, 5xx -> RuntimeError.
+504 -> DeadlineExceededError, other 4xx (a 409 migration reject among them)
+-> ValueError, 5xx -> RuntimeError.
 """
 
 from __future__ import annotations
@@ -108,6 +109,19 @@ class InferenceClient:
             "tokens": [int(t) for t in tokens],
             "max_new_tokens": int(max_new_tokens), "seed": int(seed),
             "temperature": float(temperature), "top_k": int(top_k)})
+
+    def kv_export(self, tokens) -> dict:
+        """POST /kv/export: the server's cached KV block chain for this
+        prompt as a migration payload (serving/kv/migrate.py), for another
+        server's ``kv_import``."""
+        return self._request("/kv/export",
+                             {"tokens": [int(t) for t in tokens]})
+
+    def kv_import(self, payload: dict) -> dict:
+        """POST /kv/import: restore a ``kv_export`` payload into the
+        server's pool. A rejected payload (HTTP 409, the pool untouched)
+        raises ValueError."""
+        return self._request("/kv/import", dict(payload))
 
     def health(self) -> dict:
         try:

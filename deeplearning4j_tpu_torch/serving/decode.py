@@ -2,9 +2,10 @@
 
 Counterpart of deeplearning4j_tpu/serving/decode.py, over a
 MultiLayerNetwork or a ComputationGraph, with dense or paged KV caches, the
-prefix cache with copy-on-write, chunked prefill, speculative decoding,
-``eos_id``, ``warmup()`` and ``swap_weights`` (the host KV tier, AOT
-warm-up, the int8/fp8 precisions and the request journal are not ported
+prefix cache with copy-on-write and its host tier, chunked prefill,
+speculative decoding, KV-chain migration (``kv_export`` / ``kv_import``),
+the request journal with its SLO histograms, ``eos_id``, ``warmup()`` and
+``swap_weights`` (AOT warm-up and the int8/fp8 precisions are not ported
 yet). Decode state -- each recurrent layer's (h, c) carry, each attention
 layer's KV cache -- stays on the device in ONE batched state of S slots;
 every step advances all active streams by one token at their positions,
@@ -59,6 +60,26 @@ theirs.
   update and load) the model's are copied into it in place. A swap copies
   the new weights into it at a tick boundary with no live slot: no new
   capture.
+- KV as host bytes. The host tier's spills and restores and a chain's
+  export and import move rows between the pool tensors and host numpy
+  arrays: ``index_select`` and a read, ``index_copy_`` of a staged copy.
+  The programs read the pool by address, so rows are written into the
+  resident tensors in place and no program is added or captured. Every
+  move runs on the loop thread (or inline when no loop runs) on the
+  stream the programs replay on, so a gather reads after the last replay
+  that wrote its rows and a scatter lands before the next replay reads
+  them. An evicted block enters the tier at once, its rows read in one
+  batch with the other evictions before anything writes to the pool (the
+  top of the next tick, or a scatter): an eviction is host bookkeeping,
+  not a device round trip. A restore claims its block at once and lands
+  its rows after those reads, before any copy-on-write (whose source may
+  be the restored block).
+- The journal. Every request leaves one terminal record in
+  ``self.journal`` (monitor/reqlog.py): ``eos`` or ``max_new``, ``shed``
+  on a full queue, ``error`` when ``stop()`` or a failed tick leaves it
+  unanswered; time to first token, inter-token latency and queue wait
+  feed histograms whose exemplars are request ids. Host clocks only: no
+  device synchronization is added.
 """
 
 from __future__ import annotations
@@ -77,6 +98,7 @@ from deeplearning4j_tpu_torch.exec import get_executor
 from deeplearning4j_tpu_torch.exec.executor import (HostResult, HostStage,
                                                     Layout, ResidentProgram)
 from deeplearning4j_tpu_torch.monitor.metrics import get_registry
+from deeplearning4j_tpu_torch.monitor.reqlog import RequestLog, new_record
 from deeplearning4j_tpu_torch.nn.layers.attention import MultiHeadAttention
 from deeplearning4j_tpu_torch.nn.layers.base import (copy_into, map_tree,
                                                      where_rows)
@@ -84,13 +106,19 @@ from deeplearning4j_tpu_torch.resilience.errors import (
     BatcherStoppedError, ServerOverloadedError)
 from deeplearning4j_tpu_torch.serving.engine import (input_type_of,
                                                      leaves_by_path,
+                                                     model_signature,
                                                      validate_swap)
-from deeplearning4j_tpu_torch.serving.kv import (BlockPool,
+from deeplearning4j_tpu_torch.serving.kv import (BlockPool, HostKVTier,
+                                                 KVMigrateError,
                                                  PoolExhaustedError,
                                                  PrefixCache,
                                                  blocks_for_span,
+                                                 is_pool_path,
                                                  map_pool_leaves,
-                                                 map_slot_leaves)
+                                                 map_slot_leaves,
+                                                 pack_chain, unpack_chain)
+from deeplearning4j_tpu_torch.serving.kv.migrate import row_dtype
+from deeplearning4j_tpu_torch.serving.kv.prefix import _ROOT, _chain_hash
 from deeplearning4j_tpu_torch.serving.spec.accept import (  # noqa: F401
     oracle_token, oracle_tokens)
 
@@ -115,6 +143,15 @@ _KV_COUNTERS = {
     "exhausted_events": ("dl4jtpu_kv_pool_exhausted_total",
                          "Admissions stalled because the KV block pool "
                          "could not cover the request at the queue head."),
+    "host_restores": ("dl4jtpu_kv_host_restores_total",
+                      "Spilled prefix blocks promoted back from the host "
+                      "tier on a second-chance match hit."),
+    "migrate_exports": ("dl4jtpu_kv_migrate_exports_total",
+                        "Block chains serialized for engine-to-engine KV "
+                        "migration (/kv/export)."),
+    "migrate_imports": ("dl4jtpu_kv_migrate_imports_total",
+                        "Block chains restored from a migration payload "
+                        "(/kv/import)."),
 }
 _SPEC_COUNTERS = {
     "drafted_tokens": ("dl4jtpu_spec_drafted_tokens_total",
@@ -136,10 +173,14 @@ class _Request:
 
     __slots__ = ("prompt", "max_new", "seed", "temperature", "top_k",
                  "cursor", "generated", "future", "fresh", "kv_blocks",
-                 "draft_cursor", "draft_sel", "draft_fresh", "t_start",
-                 "t_first", "t_last")
+                 "draft_cursor", "draft_sel", "draft_fresh", "rid",
+                 "tenant", "priority", "trace_id", "t_start", "t_admit",
+                 "t_prefill0", "t_first", "t_last", "verify_s", "drafted",
+                 "accepted", "prefix_hit", "host_restores")
 
-    def __init__(self, prompt, max_new, seed, temperature, top_k, future):
+    def __init__(self, prompt, max_new, seed, temperature, top_k, future,
+                 rid=None, tenant="default", priority="normal",
+                 trace_id=None):
         self.prompt = list(prompt)
         self.max_new = int(max_new)
         self.seed = int(seed)
@@ -154,9 +195,21 @@ class _Request:
         self.draft_cursor = 0    # next position the draft feeds
         self.draft_sel = 0       # snapshot to resume the draft's carries at
         self.draft_fresh = True  # first draft call must wipe its state
+        # the journal record's identity and host perf_counter stamps
+        self.rid = rid
+        self.tenant = tenant
+        self.priority = priority
+        self.trace_id = trace_id  # None: trace contexts are not ported
         self.t_start = time.perf_counter()
-        self.t_first = None
-        self.t_last = None
+        self.t_admit = None      # slot claimed (the queue phase ends)
+        self.t_prefill0 = None   # first prefill work dispatched
+        self.t_first = None      # first token emitted
+        self.t_last = None       # latest emission
+        self.verify_s = 0.0      # spec: wall of its verify calls
+        self.drafted = 0         # spec: tokens proposed for it
+        self.accepted = 0        # spec: tokens accepted for it
+        self.prefix_hit = 0      # paged: prompt positions reused
+        self.host_restores = 0   # paged: blocks restored from the tier
 
     def token_at(self, p: int) -> int:
         """The stream's token at position ``p`` (prompt, then generated)."""
@@ -183,9 +236,10 @@ class DecodeEngine:
     at full length beside the scratch block), ``prefix_cache`` (needs a
     model whose only per-slot decode state is the paged KV cache: pass
     False for a recurrent model) and ``chunk_tokens``. ``spec``: a
-    ``SpecConfig``. ``host_kv_bytes`` is validated as in the JAX package
-    and then refused: the host tier is not ported (ROADMAP queue 1 item
-    5).
+    ``SpecConfig``. ``host_kv_bytes`` (paged with the prefix cache): the
+    byte budget of a host tier that evicted prefix blocks spill to and are
+    restored from (kv/hosttier.py). ``journal_capacity``: the records the
+    request journal keeps.
     """
 
     _ids = itertools.count()
@@ -196,7 +250,8 @@ class DecodeEngine:
                  kv_block_size: int = 16, kv_blocks: Optional[int] = None,
                  prefix_cache: bool = True,
                  chunk_tokens: Optional[int] = None,
-                 host_kv_bytes: Optional[int] = None, spec=None):
+                 host_kv_bytes: Optional[int] = None, spec=None,
+                 journal_capacity: int = 512):
         self.model = model
         self.slots = int(slots)
         self.max_len = int(max_len)
@@ -216,15 +271,10 @@ class DecodeEngine:
                 f"({kv_block_size})")
         if chunk_tokens is not None and int(chunk_tokens) < 1:
             raise ValueError("chunk_tokens must be >= 1")
-        if host_kv_bytes is not None:
-            if kv != "paged" or not prefix_cache:
-                raise ValueError(
-                    "host_kv_bytes requires kv='paged' with "
-                    "prefix_cache=True (the tier holds evicted prefix-cache "
-                    "blocks)")
-            raise NotImplementedError(
-                "DecodeEngine(host_kv_bytes=...): the host KV tier is not "
-                "ported to the PyTorch package yet (ROADMAP queue 1 item 5)")
+        if host_kv_bytes is not None and (kv != "paged" or not prefix_cache):
+            raise ValueError(
+                "host_kv_bytes requires kv='paged' with prefix_cache=True "
+                "(the tier holds evicted prefix-cache blocks)")
         self.kv = kv
         self.kv_block_size = int(kv_block_size)
         self.chunk_tokens = (int(chunk_tokens) if chunk_tokens is not None
@@ -245,6 +295,18 @@ class DecodeEngine:
         self._tables: Optional[np.ndarray] = None
         self._max_blocks = None
         self._pending_cows: List[tuple] = []
+        self._host_tier: Optional[HostKVTier] = None
+        # block -> rows per leaf: tier restores claimed in a match whose
+        # copy onto the card lands at the top of the next tick
+        self._pending_restores: dict = {}
+        # (block, rows to fill): evicted blocks already in the tier whose
+        # rows are read in one batch before anything can overwrite them
+        self._pending_spills: List[tuple] = []
+        self._leaf_items = None     # (decode state, its pool leaves)
+        # export / import closures run on the loop thread, the only one
+        # that touches the pool tensors while the loop runs
+        self._kv_ops: deque = deque()
+        self._model_sig = None
         if kv == "paged":
             self._max_blocks = self.max_len // self.kv_block_size
             if kv_blocks is None:
@@ -254,6 +316,12 @@ class DecodeEngine:
             if prefix_cache:
                 self._check_no_carries()
                 self._prefix = PrefixCache(self._pool)
+                if host_kv_bytes is not None:
+                    self._host_tier = HostKVTier(int(host_kv_bytes),
+                                                 engine=self.id)
+                    self._prefix.tier = self._host_tier
+                    self._prefix.spill_fn = self._spill_block
+                    self._prefix.restore_fn = self._restore_block
         if spec is not None:
             self._build_spec(spec)
         self._dstate = None
@@ -304,6 +372,28 @@ class DecodeEngine:
             "Weight hot-swaps applied with zero new captures.",
             ("engine",)).labels(**lab)
         self._m_version.set(0.0)
+        # the request-lifecycle histograms (host stamps, ids as exemplars)
+        self._m_ttft = reg.histogram(
+            "dl4jtpu_decode_ttft_seconds",
+            "Time-to-first-token: submit to first emitted token, queue "
+            "wait included (the prefill-dominated serving SLO).",
+            ("engine",)).labels(**lab)
+        self._m_itl = reg.histogram(
+            "dl4jtpu_decode_itl_seconds",
+            "Inter-token latency: wall between consecutive emitted "
+            "tokens; speculative runs contribute one sample per accepted "
+            "token (run wall / run length).", ("engine",)).labels(**lab)
+        self._m_queue = reg.histogram(
+            "dl4jtpu_decode_queue_seconds",
+            "Admission queue wait: submit to slot claim.",
+            ("engine",)).labels(**lab)
+        self.journal = RequestLog(journal_capacity)
+        if self._pool is not None:
+            self._m_migrate_rejects = reg.counter(
+                "dl4jtpu_kv_migrate_rejects_total",
+                "Migration payloads rejected before touching the pool "
+                "(envelope mismatch, torn bytes, exhausted destination).",
+                ("engine", "reason"))
         if spec is not None:
             self._m_spec_rate = reg.gauge(
                 "dl4jtpu_spec_acceptance_rate",
@@ -562,6 +652,13 @@ class DecodeEngine:
             self._thread.join(timeout=10.0)
         err = BatcherStoppedError("decode engine stopped")
         with self._cv:
+            while self._kv_ops:
+                _fn, fut = self._kv_ops.popleft()
+                if fut.set_running_or_notify_cancel():
+                    fut.set_exception(err)
+            # restores claimed but not landed land now, so that restored
+            # blocks hold their content across a restart
+            self._land_restores()
             if self._pending_swap is not None:
                 # a swap staged against a stopping engine still applies
                 # (and unblocks its waiter): a restart serves the new
@@ -584,6 +681,7 @@ class DecodeEngine:
                 self._kv_blocked = False
         for r in pending + live:
             if not r.future.done():
+                self._journal_terminal(r, "error")
                 r.future.set_exception(err)
 
     @property
@@ -591,6 +689,31 @@ class DecodeEngine:
         """All S slots busy: a new request would queue behind them."""
         with self._cv:
             return all(r is not None for r in self._slot_reqs)
+
+    @property
+    def kv_exhausted(self) -> bool:
+        """Paged engines: the request at the queue head could not claim
+        its blocks at the last admission pass (clears as blocks return).
+        /healthz reports ``degraded`` with the pool's occupancy."""
+        if self._pool is None:
+            return False
+        with self._cv:
+            return self._kv_blocked
+
+    def kv_pool_info(self) -> Optional[dict]:
+        """The pool's occupancy for /healthz and ``stats()`` (None for a
+        dense engine), with the host tier's stats when one is attached."""
+        if self._pool is None:
+            return None
+        info = {"blocks": self._pool.usable,
+                "blocks_free": self._pool.free_count,
+                "blocks_in_use": self._pool.in_use,
+                "blocks_cached": self._pool.cached_count,
+                "block_size": self.kv_block_size,
+                "high_water": self._pool.high_water}
+        if self._host_tier is not None:
+            info["host_tier"] = self._host_tier.stats()
+        return info
 
     # --------------------------------------------------------------- weights
     def swap_weights(self, params, state=None, version: Optional[int] = None,
@@ -633,7 +756,12 @@ class DecodeEngine:
             dst.copy_(torch.as_tensor(new[path]))
         self._swapped = True
         if self._prefix is not None:
+            # the flush purges the host tier too; a restore still pending
+            # for a block it freed has nowhere to land
             self._prefix.clear()
+            self._pending_restores = {
+                b: rows for b, rows in self._pending_restores.items()
+                if self._pool.refcount(b) > 0}
         self._version = (int(version) if version is not None
                          else self._version + 1)
         self._m_version.set(float(self._version))
@@ -652,9 +780,12 @@ class DecodeEngine:
     # ------------------------------------------------------------ scheduler
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 32,
                seed: int = 0, temperature: float = 0.0,
-               top_k: int = 0) -> Future:
+               top_k: int = 0, request_id: Optional[str] = None,
+               tenant: str = "default", priority: str = "normal") -> Future:
         """Enqueue one generation request; returns a Future resolving to
-        ``{"tokens": [...], "prompt_len": int}``."""
+        ``{"tokens": [...], "prompt_len": int}``. ``request_id``,
+        ``tenant`` and ``priority`` ride into the request's journal record
+        (and the histograms' exemplars)."""
         prompt = [int(t) for t in prompt]
         if not prompt:
             raise ValueError("prompt must contain at least one token id")
@@ -677,9 +808,12 @@ class DecodeEngine:
         if self._stop.is_set() and self._thread is not None:
             raise BatcherStoppedError("decode engine stopped")
         fut = Future()
-        req = _Request(prompt, max_new_tokens, seed, temperature, top_k, fut)
+        req = _Request(prompt, max_new_tokens, seed, temperature, top_k, fut,
+                       rid=request_id, tenant=tenant, priority=priority)
         with self._cv:
             if len(self._queue) >= self.max_queue:
+                # a rejected request leaves its one record too
+                self._journal_terminal(req, "shed")
                 raise ServerOverloadedError(
                     f"decode queue full ({self.max_queue})")
             self._queue.append(req)
@@ -688,10 +822,13 @@ class DecodeEngine:
 
     def generate(self, prompt: Sequence[int], max_new_tokens: int = 32,
                  seed: int = 0, temperature: float = 0.0, top_k: int = 0,
-                 timeout: Optional[float] = None) -> dict:
+                 timeout: Optional[float] = None,
+                 request_id: Optional[str] = None, tenant: str = "default",
+                 priority: str = "normal") -> dict:
         """Blocking ``submit`` -- the call the HTTP endpoint makes."""
         return self.submit(prompt, max_new_tokens, seed, temperature,
-                           top_k).result(timeout=timeout)
+                           top_k, request_id=request_id, tenant=tenant,
+                           priority=priority).result(timeout=timeout)
 
     def _admit_locked(self):
         if self._pending_swap is not None:
@@ -714,6 +851,8 @@ class DecodeEngine:
                     blocked = True
                     break
             self._slot_reqs[i] = self._queue.popleft()
+            r.t_admit = time.perf_counter()
+            self._m_queue.observe(r.t_admit - r.t_start, exemplar=r.rid)
         if self._pool is not None:
             self._kv_blocked = blocked
 
@@ -728,7 +867,11 @@ class DecodeEngine:
         need = blocks_for_span(len(r.prompt) + r.max_new - 1, bs)
         shared, cow, skip = [], None, 0
         if self._prefix is not None:
+            # the match runs on the loop thread alone, so the counter's
+            # move is this request's restores
+            r0 = self._n["host_restores"]
             shared, cow, skip = self._prefix.match(r.prompt)
+            r.host_restores = self._n["host_restores"] - r0
         try:
             fresh = self._pool.alloc(need - len(shared))
         except PoolExhaustedError:
@@ -744,6 +887,7 @@ class DecodeEngine:
             self._inc("prefix_tokens_saved", skip)
         r.kv_blocks = shared + fresh
         r.cursor = skip
+        r.prefix_hit = skip
         row = self._tables[slot]
         row[:] = 0
         row[:need] = r.kv_blocks
@@ -766,9 +910,14 @@ class DecodeEngine:
             self._release_kv(slot, r)
             self._slot_reqs[slot] = None
 
-    def _finish(self, slot, r):
+    def _finish(self, slot, r, outcome):
+        """A completed stream: its blocks (the peak, counted before they
+        go) return, the slot frees, its record lands, its future
+        resolves."""
+        kv_peak = len(r.kv_blocks)
         self._free_slot(slot, r)
         self._requests += 1
+        self._journal_terminal(r, outcome, kv_peak=kv_peak)
         r.future.set_result({"tokens": r.generated,
                              "prompt_len": len(r.prompt)})
 
@@ -784,22 +933,36 @@ class DecodeEngine:
                     self._tables[i][:] = 0
                 self._slot_reqs[i] = None
         for _, r in live:
+            self._journal_terminal(r, "error")
             r.future.set_exception(err)
 
-    def _emit(self, r, tok, now) -> bool:
-        """Append one generated token; True when the stream is done (its
-        ``eos_id``, or its length)."""
+    def _emit(self, r, tok) -> Optional[str]:
+        """Append one generated token; the stream's outcome when it is
+        done (``eos`` at its ``eos_id``, ``max_new`` at its length), else
+        None."""
         r.generated.append(tok)
         self._tokens += 1
+        if self.eos_id is not None and tok == self.eos_id:
+            return "eos"
+        return "max_new" if len(r.generated) >= r.max_new else None
+
+    def _stamp(self, r, now, n):
+        """A run of ``n`` tokens emitted at ``now``: time to first token on
+        the stream's first, one inter-token sample per other token (the
+        run's wall spread over it)."""
+        per = (now - (r.t_last if r.t_last is not None else r.t_start)) / n
         if r.t_first is None:
             r.t_first = now
+            self._m_ttft.observe(now - r.t_start, exemplar=r.rid)
+            n -= 1
+        for _ in range(n):
+            self._m_itl.observe(per, exemplar=r.rid)
         r.t_last = now
-        return ((self.eos_id is not None and tok == self.eos_id)
-                or len(r.generated) >= r.max_new)
 
     def _loop(self):
         while not self._stop.is_set():
             with self._cv:
+                self._drain_kv_ops_locked()
                 if (self._pending_swap is not None
                         and all(r is None for r in self._slot_reqs)):
                     # a tick boundary with no live slot: every generation
@@ -818,6 +981,12 @@ class DecodeEngine:
 
     def _tick(self, live):
         self._follow_model()
+        if self._pending_restores or self._pending_spills:
+            # before anything writes to the evicted blocks or reads the
+            # restored ones, the copy-on-write below included (its source
+            # may be a block just restored)
+            with self._cv:
+                self._land_restores()
         if self._pending_cows:
             # before the claimer's first call reads or overwrites the copy
             cows, self._pending_cows = self._pending_cows, []
@@ -843,22 +1012,32 @@ class DecodeEngine:
         now = time.perf_counter()
         self._decode_seconds += now - t0
         self._steps += 1
+        done = []
         for i, r in live:
             r.cursor += 1
+            if r.t_prefill0 is None:
+                r.t_prefill0 = now           # a 1-token prompt's prefill
             if r.cursor < len(r.prompt):
                 continue                     # still prefilling
-            if self._emit(r, int(nt[i]), now):
-                self._finish(i, r)
+            outcome = self._emit(r, int(nt[i]))
+            self._stamp(r, now, 1)
+            if outcome is not None:
+                done.append((i, r, outcome))
+        for i, r, outcome in done:
+            self._finish(i, r, outcome)
 
     def _prefill(self, pre):
         """One chunk of every row in ``pre`` (rows still consuming their
         prompt), ``chunk_tokens`` positions at most."""
         K = self.chunk_tokens
         fed = [0]
+        t_chunk = time.perf_counter()
 
         def fill(f):
             f["tables"][...] = self._tables
             for i, r in pre:
+                if r.t_prefill0 is None:
+                    r.t_prefill0 = t_chunk
                 k = min(K, len(r.prompt) - 1 - r.cursor)
                 f["tokens"][i, :k] = r.prompt[r.cursor:r.cursor + k]
                 f["start"][i] = r.cursor
@@ -956,10 +1135,13 @@ class DecodeEngine:
         if tpre:
             t0 = time.perf_counter()
             self._step(tpre)
-            self._decode_seconds += time.perf_counter() - t0
+            now = time.perf_counter()
+            self._decode_seconds += now - t0
             self._steps += 1
             for _, r in tpre:
                 r.cursor += 1
+                if r.t_prefill0 is None:
+                    r.t_prefill0 = now
         if not ready:
             return
         f = self._verifier.stage()
@@ -989,15 +1171,21 @@ class DecodeEngine:
             # judged proposals: depths 1..min(d, n_in - 1) and the bonus
             self._inc("drafted_tokens", min(tr.d, n_in))
             self._inc("accepted_tokens", int(acc[i]))
+            r.drafted += min(tr.d, n_in)
+            r.accepted += int(acc[i])
+            r.verify_s += now - t0
             self._m_spec_depth.observe(float(acc[i]))
-            p0, consumed, finished = r.cursor, 0, False
+            p0, consumed, outcome = r.cursor, 0, None
             for j in range(int(emit[i])):
                 consumed += 1
                 # the accepted run is cut at its first eos_id
-                if self._emit(r, int(etoks[i, j]), now) \
-                        or r.cursor + consumed >= self.max_len:
-                    finished = True
+                outcome = self._emit(r, int(etoks[i, j]))
+                if outcome is None and r.cursor + consumed >= self.max_len:
+                    outcome = "max_new"
+                if outcome is not None:
                     break
+            if consumed:
+                self._stamp(r, now, consumed)
             r.cursor += consumed
             # the draft's snapshots follow its own spine: resume from the
             # spine-consistent accepted prefix; a side-branch acceptance
@@ -1005,31 +1193,312 @@ class DecodeEngine:
             js = max(0, min(consumed - 1, int(sacc[i])))
             r.draft_cursor = p0 + js + 1
             r.draft_sel = js
-            if finished:
-                done.append((i, r))
+            if outcome is not None:
+                done.append((i, r, outcome))
         drafted = self._n["drafted_tokens"]
         self._m_spec_rate.set(self._n["accepted_tokens"] / drafted
                               if drafted else 0.0)
-        for i, r in done:
-            self._finish(i, r)
+        for i, r, outcome in done:
+            self._finish(i, r, outcome)
+
+    # --------------------------------------------------------------- journal
+    def _journal_terminal(self, r, outcome, kv_peak: int = 0):
+        """Append the request's ONE terminal record (completions and
+        rejections alike): host bookkeeping, no device work."""
+        now = time.perf_counter()
+        phases = {}
+        if r.t_admit is not None:
+            phases["queue"] = r.t_admit - r.t_start
+            if r.t_first is not None:
+                phases["prefill"] = r.t_first - r.t_admit
+                phases["decode"] = (r.t_last or r.t_first) - r.t_first
+        else:
+            phases["queue"] = now - r.t_start
+        if r.verify_s:
+            phases["verify"] = r.verify_s
+        rec = new_record(
+            r.rid, "decode",
+            trace_id=r.trace_id, outcome=outcome,
+            tenant=r.tenant, priority=r.priority,
+            engine=self.id, model_version=self._version,
+            tokens_in=len(r.prompt), tokens_out=len(r.generated),
+            wall_seconds=(r.t_last or now) - r.t_start,
+            ttft_seconds=(r.t_first - r.t_start
+                          if r.t_first is not None else None),
+            first_prefill_chunk_seconds=(r.t_prefill0 - r.t_start
+                                         if r.t_prefill0 is not None
+                                         else None),
+            phases=phases)
+        if self._spec is not None:
+            rec["spec"] = {"drafted": r.drafted, "accepted": r.accepted}
+        if self._pool is not None:
+            rec["kv"] = {"peak_blocks": kv_peak,
+                         "prefix_hit_depth": r.prefix_hit,
+                         "host_restores": r.host_restores}
+        self.journal.append(rec)
+
+    # ------------------------------------------------- KV rows on the host
+    def _pool_leaf_items(self):
+        """``[(key, leaf)]`` of the decode state's pool tensors, keyed by
+        the JAX package's path strings (``jax.tree_util.keystr``:
+        ``['b0_attn']['pk']``), the migration wire's leaf identity. The
+        state is resident (never rebound), so the walk is made once."""
+        if self._leaf_items is not None and \
+                self._leaf_items[0] is self._dstate:
+            return self._leaf_items[1]
+        out = []
+
+        def walk(t, path, keys):
+            if isinstance(t, dict):
+                for k, v in t.items():
+                    walk(v, f"{path}[{k!r}]", keys + (k,))
+            elif isinstance(t, (list, tuple)):
+                for i, v in enumerate(t):
+                    walk(v, f"{path}[{i}]", keys + (i,))
+            elif isinstance(t, torch.Tensor) and is_pool_path(keys):
+                out.append((path, t))
+        walk(self._dstate, "", ())
+        self._leaf_items = (self._dstate, out)
+        return out
+
+    def _gather_rows(self, bids):
+        """The given blocks of every pool leaf, read to the host in ONE
+        copy (the leaves' bytes side by side): key -> ``(n, bs, H, Dh)``
+        numpy array (bfloat16 as its uint16 words). On the programs'
+        stream, so it reads after the replays that wrote them."""
+        n = len(bids)
+        idx = torch.as_tensor(list(bids), dtype=torch.long).to(self.device)
+        items = self._pool_leaf_items()
+        raw = torch.cat([leaf.index_select(0, idx).reshape(n, -1)
+                         .view(torch.uint8) for _, leaf in items],
+                        dim=1).cpu().numpy()
+        out, ofs = {}, 0
+        for key, leaf in items:
+            dt = (np.dtype(np.uint16) if leaf.dtype == torch.bfloat16
+                  else np.dtype(row_dtype(leaf)))
+            width = leaf[0].numel() * dt.itemsize
+            out[key] = raw[:, ofs:ofs + width].copy().view(dt).reshape(
+                (n,) + tuple(leaf.shape[1:]))
+            ofs += width
+        return out
+
+    def _flush_spills(self):
+        """Read the rows of every block evicted since the last flush into
+        the tier entries registered for them (one gather)."""
+        if not self._pending_spills:
+            return
+        pend, self._pending_spills = self._pending_spills, []
+        got = self._gather_rows([b for b, _ in pend])
+        for j, (_, rows) in enumerate(pend):
+            for key, row in rows.items():
+                row[...] = got[key][j]
+
+    @torch.no_grad()
+    def _apply_host_rows(self, writes):
+        """Write ``[(block, {leaf key: (bs, H, Dh) row})]`` into the pool
+        leaves IN PLACE (the programs read them by address): one staged
+        copy and one ``index_copy_`` a leaf. Rows still to be spilled are
+        read first: a written block may be one just evicted."""
+        self._flush_spills()
+        if not writes:
+            return
+        idx = torch.as_tensor([b for b, _ in writes],
+                              dtype=torch.long).to(self.device)
+        for key, leaf in self._pool_leaf_items():
+            rows = np.stack([r[key] for _, r in writes])
+            t = (torch.from_numpy(rows.view(np.int16)).view(torch.bfloat16)
+                 if leaf.dtype == torch.bfloat16 else torch.from_numpy(rows))
+            leaf.index_copy_(0, idx, t.to(self.device))
+
+    def _land_restores(self):
+        """Read the pending spills, then land every pending tier restore
+        (loop thread, or no loop)."""
+        pend, self._pending_restores = self._pending_restores, {}
+        self._apply_host_rows(list(pend.items()))
+
+    def _spill_block(self, chain_hash, parent, tokens, bid):
+        """The prefix cache's eviction hook (loop thread, inside an
+        allocation): demote the evicted block to the host tier. The entry
+        is put now (the next match may restore it), its rows are read by
+        ``_flush_spills`` before anything writes to the pool."""
+        if self._pending_restores.pop(bid, None) is not None:
+            # restored from the tier but never landed: the tier still
+            # holds its content
+            return
+        rows = {key: np.empty(tuple(leaf.shape[1:]), np.uint16
+                              if leaf.dtype == torch.bfloat16 else
+                              np.dtype(row_dtype(leaf)))
+                for key, leaf in self._pool_leaf_items()}
+        self._host_tier.put(chain_hash, parent, tokens, rows)
+        self._pending_spills.append((bid, rows))
+
+    def _restore_block(self, chain_hash, tokens):
+        """The prefix cache's second chance (loop thread, in a match):
+        claim a fresh block for a tier hit and queue its rows for the next
+        tick. Returns the block (refcount 1, the matching request's claim)
+        or None when the pool cannot spare one (a plain miss)."""
+        entry = self._host_tier.get(chain_hash)
+        if entry is None:
+            return None
+        try:
+            bid = self._pool.alloc(1)[0]
+        except PoolExhaustedError:
+            return None
+        self._pending_restores[bid] = entry.rows
+        self._inc("host_restores")
+        return bid
+
+    # ------------------------------------------------------------ migration
+    def _drain_kv_ops_locked(self):
+        """Run the queued export and import closures (the caller holds
+        ``self._cv``; loop thread, between ticks)."""
+        while self._kv_ops:
+            fn, fut = self._kv_ops.popleft()
+            if fut.set_running_or_notify_cancel():
+                try:
+                    fut.set_result(fn())
+                except BaseException as e:  # noqa: BLE001 -- to the caller
+                    fut.set_exception(e)
+
+    def _run_kv_op(self, fn):
+        """``fn()`` on the loop thread, or inline when no loop runs (the
+        decode state made first); returns its result."""
+        fut = Future()
+        with self._cv:
+            if self._thread is not None and self._thread.is_alive():
+                self._kv_ops.append((fn, fut))
+                self._cv.notify_all()
+            else:
+                self._ensure_state()
+                if fut.set_running_or_notify_cancel():
+                    try:
+                        fut.set_result(fn())
+                    except BaseException as e:  # noqa: BLE001
+                        fut.set_exception(e)
+        return fut.result(timeout=60.0)
+
+    def _migrate_envelope(self) -> dict:
+        """What a payload must match to land here: the serving weights'
+        shapes and dtypes (``model_signature``, the JAX package's), the
+        serving precision, the block size and the vocabulary."""
+        if self._model_sig is None:
+            self._model_sig = model_signature(
+                self._params, getattr(self.model, "state", None) or {})
+        return {"model_sig": self._model_sig,
+                "precision": self.precision,
+                "block_size": self.kv_block_size,
+                "vocab": int(self.vocab)}
+
+    def kv_export(self, prompt: Sequence[int]) -> dict:
+        """The cached block chain covering ``prompt``'s full blocks as a
+        migration payload (kv/migrate.py): the prefill engine's half of
+        disaggregated serving. The chain must be published here already
+        (its prefill ran to completion), else ``KVMigrateError(reason=
+        'no_chain')``."""
+        if self._prefix is None:
+            raise ValueError(
+                "kv_export requires kv='paged' with prefix_cache=True")
+        toks = [int(t) for t in prompt]
+
+        def op():
+            self._land_restores()
+            bs = self.kv_block_size
+            bids, chain = [], []
+            h = _ROOT
+            for j in range(len(toks) // bs):
+                blk = toks[j * bs:(j + 1) * bs]
+                h = _chain_hash(h, blk)
+                bid = self._prefix._by_hash.get(h)
+                if bid is None:
+                    break
+                bids.append(bid)
+                chain.extend(blk)
+            if not bids:
+                raise KVMigrateError(
+                    "no cached chain covers this prompt's first block -- "
+                    "run the prefill to completion here before exporting",
+                    reason="no_chain")
+            dtypes = {k: row_dtype(leaf)
+                      for k, leaf in self._pool_leaf_items()}
+            payload = pack_chain(self._gather_rows(bids), chain,
+                                 self._migrate_envelope(), dtypes)
+            self._inc("migrate_exports")
+            return payload
+
+        return self._run_kv_op(op)
+
+    def kv_import(self, payload: dict) -> dict:
+        """Restore a migrated chain into this engine's pool: the whole
+        payload is validated against the local envelope first (a mismatch
+        changes nothing), then fresh blocks are claimed, the rows written
+        in place and the chain indexed in the prefix cache under the same
+        hashes, so the continued decode is an ordinary prefix hit. The
+        decode engine's half."""
+        if self._prefix is None:
+            raise ValueError(
+                "kv_import requires kv='paged' with prefix_cache=True")
+
+        def op():
+            leaves = dict(self._pool_leaf_items())
+            tokens, rows = unpack_chain(payload, self._migrate_envelope(),
+                                        leaves)
+            n = len(tokens) // self.kv_block_size
+            try:
+                bids = self._pool.alloc(n)
+            except PoolExhaustedError as e:
+                raise KVMigrateError(
+                    f"destination pool cannot hold the chain: {e}",
+                    reason="exhausted")
+            self._apply_host_rows(
+                [(bid, {k: rows[k][j] for k in rows})
+                 for j, bid in enumerate(bids)])
+            added = self._prefix.insert(tokens, bids)
+            for b in bids:
+                # indexed blocks park on the evictable LRU; a block whose
+                # chain was already here goes straight back
+                self._pool.decref(b)
+            self._inc("migrate_imports")
+            return {"imported_blocks": added,
+                    "duplicate_blocks": n - added, "tokens": len(tokens)}
+
+        try:
+            return self._run_kv_op(op)
+        except KVMigrateError as e:
+            self._m_migrate_rejects.labels(
+                engine=self.id, reason=e.reason).inc()
+            raise
 
     # --------------------------------------------------------------- stats
+    def _slo_stats(self) -> dict:
+        """Percentiles of the request-lifecycle histograms and each
+        bucket's last exemplar (a request id that resolves to its journal
+        record)."""
+        def block(h):
+            out = {"count": int(h.count)}
+            for q, key in ((0.5, "p50_ms"), (0.99, "p99_ms")):
+                p = h.percentile(q)
+                out[key] = round(p * 1e3, 4) if p is not None else None
+            out["exemplars"] = [
+                ["+Inf" if b == float("inf") else b, rid, v]
+                for b, rid, v in h.exemplars()]
+            return out
+        return {"ttft": block(self._m_ttft),
+                "itl": block(self._m_itl),
+                "queue": block(self._m_queue)}
+
     def stats(self) -> dict:
         with self._cv:
             occupied = sum(r is not None for r in self._slot_reqs)
             queued = len(self._queue)
         kv = None
         if self._pool is not None:
-            kv = {"block_size": self.kv_block_size,
-                  "blocks": self._pool.usable,
-                  "blocks_free": self._pool.free_count,
-                  "blocks_in_use": self._pool.in_use,
-                  "blocks_cached": self._pool.cached_count,
-                  "high_water": self._pool.high_water,
-                  "prefix_cache": self._prefix is not None,
-                  "chunk_tokens": self.chunk_tokens,
-                  "kv_programs": int(self._m_kv_programs.value)}
+            kv = dict(self.kv_pool_info(),
+                      prefix_cache=self._prefix is not None,
+                      chunk_tokens=self.chunk_tokens,
+                      kv_programs=int(self._m_kv_programs.value))
             kv.update({k: int(self._n[k]) for k in _KV_COUNTERS})
+            if self._host_tier is None:
+                del kv["host_restores"]
             if self._prefix is not None:
                 kv["chain_heads"] = self._prefix.chain_heads()
         spec = None
@@ -1055,6 +1524,9 @@ class DecodeEngine:
                     "draft_steps": self._draft.steps}
         return {"id": self.id, "slots": self.slots, "max_len": self.max_len,
                 "kv": kv, "spec": spec, "precision": self.precision,
+                "weight_bytes": sum(t.numel() * t.element_size()
+                                    for t in leaves_by_path(
+                                        self._params).values()),
                 "model_version": self._version,
                 "occupied_slots": occupied, "queued_requests": queued,
                 "compiled_programs": self.trace_count,
@@ -1063,6 +1535,11 @@ class DecodeEngine:
                 "decode_seconds": self._decode_seconds,
                 "tokens_per_second": (self._tokens / self._decode_seconds
                                       if self._decode_seconds else 0.0),
+                "slo": self._slo_stats(),
+                "journal": {"capacity": self.journal.capacity,
+                            "records": len(self.journal),
+                            "total": self.journal.total,
+                            "dropped": self.journal.dropped},
                 "warmup_seconds": self.warmup_seconds}
 
 

@@ -11,7 +11,10 @@ Batches above ``max_batch`` are chunked through the top bucket.
 
 from __future__ import annotations
 
+import hashlib
+import json
 import threading
+import time
 from typing import List
 
 import numpy as np
@@ -51,6 +54,20 @@ def _tree_signature(tree):
     """Flattened ``{path: (shape, dtype)}``: the swap compatibility key."""
     return {k: (tuple(v.shape), str(torch.as_tensor(v).dtype))
             for k, v in leaves_by_path(tree).items()}
+
+
+def model_signature(*trees) -> str:
+    """Hash of the shapes and dtypes of ``trees`` (values do not enter):
+    the JAX package's ``exec.aot.model_signature``, blake2b over the same
+    JSON (each tree's sorted ``[path, [shape, dtype]]`` pairs, dtype by
+    numpy's name), so one configuration gets one signature in both
+    packages. Empty dicts add nothing. The KV migration envelope's
+    ``model_sig``."""
+    sig = [sorted((k, (list(shape), dt.replace("torch.", "")))
+                  for k, (shape, dt) in _tree_signature(t).items())
+           for t in trees]
+    blob = json.dumps(sig, sort_keys=True).encode()
+    return hashlib.blake2b(blob, digest_size=16).hexdigest()
 
 
 def validate_swap(current, candidate, what: str = "params") -> None:
@@ -98,7 +115,10 @@ class InferenceEngine:
     """Bucketed inference over a MultiLayerNetwork or a single-input,
     single-output ComputationGraph (both take ``_forward(params, x)`` and
     return the output first). Parameters are read from the model at call
-    time."""
+    time, so the engine has no hot swap of its own and ``model_version``
+    stays 0."""
+
+    model_version = 0
 
     def __init__(self, model, max_batch: int = 1024):
         self.model = model
@@ -109,22 +129,37 @@ class InferenceEngine:
         self._calls = 0
         self._buckets = set()
 
-    def _dispatch(self, x: torch.Tensor, mask=None) -> torch.Tensor:
+    def _dispatch(self, x: torch.Tensor, mask=None,
+                  phases=None) -> torch.Tensor:
+        """One bucketed call: pad, run, slice. ``phases``: a dict that
+        ACCUMULATES wall seconds under ``bucket``, ``pad`` and ``device``
+        (the launch; the card runs on until the read)."""
         n = x.shape[0]
         if n > self.max_batch:
             return torch.cat([
                 self._dispatch(x[i:i + self.max_batch],
                                None if mask is None
-                               else mask[i:i + self.max_batch])
+                               else mask[i:i + self.max_batch], phases)
                 for i in range(0, n, self.max_batch)])
+        tp = time.perf_counter()
+
+        def lap(key):
+            nonlocal tp
+            if phases is not None:
+                t = time.perf_counter()
+                phases[key] = phases.get(key, 0.0) + (t - tp)
+                tp = t
         b = bucket_for(n, self.max_batch)
+        lap("bucket")
         if b > n:
             x = torch.cat([x, x.new_zeros((b - n,) + tuple(x.shape[1:]))])
             if mask is not None:
                 mask = torch.cat([mask, mask.new_zeros(
                     (b - n,) + tuple(mask.shape[1:]))])
+        lap("pad")
         kw = {} if mask is None else {"mask": mask}
         out, _ = self.model._forward(self.model.params, x, **kw)
+        lap("device")
         with self._lock:
             self._rows += n
             self._pad_rows += b - n
@@ -133,22 +168,29 @@ class InferenceEngine:
         return out[:n]
 
     @torch.no_grad()
-    def predict(self, x, mask=None) -> torch.Tensor:
+    def predict(self, x, mask=None, phases=None) -> torch.Tensor:
         """Bucketed forward of one batch (``mask``: a MultiLayerNetwork's
         (B, T) feature mask, padded with zero rows); returns the output
         on the model's device, shaped like ``model.output(x,
-        bucketed=False)``."""
+        bucketed=False)``. ``phases``: see ``_dispatch``."""
         if not isinstance(x, torch.Tensor):
             x = host_tensor(x)
         if mask is not None:
             mask = torch.as_tensor(np.asarray(mask)) if not isinstance(
                 mask, torch.Tensor) else mask
             mask = mask.to(self.model.device)
-        return self._dispatch(x.to(self.model.device), mask)
+        return self._dispatch(x.to(self.model.device), mask, phases)
 
-    def predict_host(self, x) -> np.ndarray:
-        """``predict`` + host read (float32 numpy)."""
-        return self.predict(x).float().cpu().numpy()
+    def predict_host(self, x, phases=None) -> np.ndarray:
+        """``predict`` + host read (float32 numpy). With ``phases``, the
+        read's wall seconds accumulate under ``readback``."""
+        out = self.predict(x, phases=phases)
+        t0 = time.perf_counter()
+        out = out.float().cpu().numpy()
+        if phases is not None:
+            phases["readback"] = (phases.get("readback", 0.0)
+                                  + time.perf_counter() - t0)
+        return out
 
     def stats(self) -> dict:
         with self._lock:

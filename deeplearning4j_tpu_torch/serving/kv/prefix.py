@@ -17,8 +17,11 @@ of the next block: that block is claimed by copy-on-write (the engine
 copies it into a fresh block on the device and the request overwrites it
 from the first divergent position), so shared content is never written.
 
-The host tier that evicted blocks spill to (``tier=``) is not ported
-(ROADMAP queue 1 item 5). Single-threaded like the pool.
+With a host tier (``tier=``, kv/hosttier.py) an evicted block is spilled
+to host memory instead of lost, and a chain that breaks on the card takes
+a second chance there: the engine claims a fresh block for the hit and
+copies its rows back before the next program reads it. Single-threaded
+like the pool.
 """
 
 from __future__ import annotations
@@ -59,13 +62,9 @@ class PrefixCache:
     prompt's longest cached chain and its best copy-on-write candidate;
     ``insert`` publishes a finished request's full prompt blocks; the
     pool's eviction calls ``_drop`` so the index never names a recycled
-    block."""
+    block, spilling it to the host tier first when one is attached."""
 
     def __init__(self, pool: BlockPool, tier=None):
-        if tier is not None:
-            raise NotImplementedError(
-                "PrefixCache(tier=...): the host KV tier is not ported to "
-                "the PyTorch package yet (ROADMAP queue 1 item 5)")
         self.pool = pool
         self._by_hash: Dict[bytes, int] = {}        # chain hash -> block
         self._by_bid: Dict[int, bytes] = {}
@@ -73,6 +72,15 @@ class PrefixCache:
         # the block after a matched chain
         self._children: Dict[bytes, List[Tuple[int, Tuple[int, ...]]]] = {}
         self._child_of: Dict[int, bytes] = {}
+        # the host tier and the engine's data movers: spill_fn(hash,
+        # parent, tokens, block) gathers an evicted block's rows into the
+        # tier; restore_fn(hash, tokens) claims a fresh block for a tier
+        # hit (its id, or None when the pool cannot spare one) and queues
+        # the copy back onto the card
+        self.tier = tier
+        self.spill_fn = None
+        self.restore_fn = None
+        self._spill_enabled = True
         pool.on_evict = self._drop
 
     def __len__(self) -> int:
@@ -86,15 +94,29 @@ class PrefixCache:
         partial candidate for the next block, or None; and the prompt
         positions whose prefill is skipped, at most ``len(prompt) - 1``
         (the last prompt token must run through a step to give the first
-        output)."""
+        output). A block missing on the card but held by the host tier is
+        restored: claimed fresh (refcount 1, the claim this request holds),
+        indexed and marked cached."""
         bs = self.pool.block_size
         plen = len(prompt)
         shared: List[int] = []
         h = _ROOT
         for j in range((plen - 1) // bs):
-            nxt = _chain_hash(h, prompt[j * bs:(j + 1) * bs])
+            toks = prompt[j * bs:(j + 1) * bs]
+            nxt = _chain_hash(h, toks)
             bid = self._by_hash.get(nxt)
             if bid is None:
+                # second chance: the chain may go on in the host tier; on
+                # a pool too short for even one block it ends as a miss
+                if (self.tier is not None and self.restore_fn is not None
+                        and self.tier.has(nxt)):
+                    bid = self.restore_fn(nxt, tuple(int(t) for t in toks))
+                    if bid is not None:
+                        self._index(nxt, bid, toks, h)
+                        self.pool.mark_cached(bid)
+                        shared.append(bid)
+                        h = nxt
+                        continue
                 break
             self.pool.incref(bid)
             shared.append(bid)
@@ -150,20 +172,34 @@ class PrefixCache:
         return heads[-limit:] if limit is not None else heads
 
     def _drop(self, bid: int) -> None:
-        """The pool's eviction hook: forget every entry for ``bid``."""
+        """The pool's eviction hook: forget every entry for ``bid``,
+        spilling the block to the host tier first when one is attached."""
         h = self._by_bid.pop(bid, None)
         parent = self._child_of.pop(bid, None)
+        tok = None
         if parent is not None:
-            kids = [(b, t) for b, t in self._children.get(parent, ())
-                    if b != bid]
+            kids = self._children.get(parent, ())
+            tok = next((t for b, t in kids if b == bid), None)
+            kids = [(b, t) for b, t in kids if b != bid]
             if kids:
                 self._children[parent] = kids
             else:
                 self._children.pop(parent, None)
         if h is not None:
             self._by_hash.pop(h, None)
+            if (self._spill_enabled and self.tier is not None
+                    and self.spill_fn is not None and tok is not None):
+                self.spill_fn(h, parent, tok, bid)
 
     def clear(self) -> int:
         """Drop every entry no one references (a weight swap: cached KV
-        was computed under the old weights); returns the blocks freed."""
-        return self.pool.flush_cached()
+        was computed under the old weights); returns the blocks freed. The
+        host tier is purged and spilling is off during the flush, which
+        would otherwise demote the stale blocks into it."""
+        if self.tier is not None:
+            self.tier.purge()
+        self._spill_enabled = False
+        try:
+            return self.pool.flush_cached()
+        finally:
+            self._spill_enabled = True

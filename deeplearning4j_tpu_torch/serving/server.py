@@ -3,33 +3,49 @@
 Counterpart of deeplearning4j_tpu/serving/server.py, with the same JSON +
 base64 float32 wire format (serving/wire.py). Endpoints:
 
-  POST /predict  {"ndarray": {shape, data}, "deadline_ms"?} -> {"ndarray": ...}
-  POST /generate {"tokens": [...], "max_new_tokens"?, "seed"?,
-                  "temperature"?, "top_k"?}                 -> {"tokens": [...]}
+  POST /predict   {"ndarray": {shape, data}, "deadline_ms"?} -> {"ndarray": ...}
+  POST /generate  {"tokens": [...], "max_new_tokens"?, "seed"?,
+                   "temperature"?, "top_k"?}                -> {"tokens": [...]}
+  POST /kv/export {"tokens": [...]}                         -> migration payload
+  POST /kv/import <a /kv/export payload>                    -> {"imported_blocks", ...}
   GET  /stats                                               -> engine+batcher stats
+  GET  /metrics                                             -> Prometheus text
+  GET  /requests?n=                                         -> the request journal
   GET  /healthz                                             -> {"status": ...}
 
-Every error body is ``{"error": {"type", "message"}}`` and the status
-classifies it: 400 malformed payload, 404 unknown path or no decode engine,
-429 queue full, 503 draining, 504 deadline expired, 500 engine fault.
+Every request carries an id: the client's ``x-request-id``, or one minted
+here (``req-<pid hex>-<server id>-NNNNNN``), echoed on every response and
+in error bodies and written into the journal with the ``x-tenant`` and
+``x-priority`` headers. /predict, /generate and /kv/* answer with
+``x-model-version``. Every error body is ``{"error": {"type", "message",
+"request_id"}}`` and the status classifies it: 400 malformed payload, 404
+unknown path, no decode engine, or /kv/* without a paged engine with a
+prefix cache, 409 a migration payload rejected (``kv_migrate_rejected``,
+the pool untouched), 429 queue full, 503 draining, 504 deadline expired,
+500 engine fault. ``/trace``, ``/programs`` and ``/admin/*`` are not
+ported.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
+import os
 import socket
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
-from urllib.parse import urlparse
+from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
+from deeplearning4j_tpu_torch.monitor.metrics import get_registry
 from deeplearning4j_tpu_torch.resilience.errors import (
     BatcherStoppedError, DeadlineExceededError, ServerOverloadedError)
 from deeplearning4j_tpu_torch.serving.batcher import MicroBatcher
 from deeplearning4j_tpu_torch.serving.engine import (InferenceEngine,
                                                      input_type_of)
+from deeplearning4j_tpu_torch.serving.kv import KVMigrateError
 from deeplearning4j_tpu_torch.serving.wire import (ndarray_from_b64,
                                                    ndarray_to_b64)
 
@@ -45,25 +61,65 @@ class _Handler(BaseHTTPRequestHandler):
     def log_message(self, *args):
         pass
 
-    def _json(self, obj, code=200):
-        data = json.dumps(obj).encode()
+    @property
+    def _rid(self):
+        """The request's id: the client's ``x-request-id``, else one minted
+        once per request (cached against this request's header object,
+        which a keep-alive connection renews per request)."""
+        rid = self.headers.get("x-request-id")
+        if rid:
+            return rid
+        minted = getattr(self, "_rid_minted", None)
+        if minted is None or minted[0] is not self.headers:
+            minted = (self.headers, self.server.inference.mint_rid())
+            self._rid_minted = minted
+        return minted[1]
+
+    def _send(self, data: bytes, content_type: str, code: int,
+              extra_headers=None):
         self.send_response(code)
-        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(data)))
+        self.send_header("x-request-id", self._rid)
+        for k, v in (extra_headers or {}).items():
+            self.send_header(k, v)
         self.end_headers()
         self.wfile.write(data)
 
+    def _json(self, obj, code=200, extra_headers=None):
+        self._send(json.dumps(obj).encode(), "application/json", code,
+                   extra_headers)
+
     def _error(self, code: int, err_type: str, message: str):
-        self._json({"error": {"type": err_type, "message": message}}, code)
+        self._json({"error": {"type": err_type, "message": message,
+                              "request_id": self._rid}}, code)
+
+    def _identity(self) -> dict:
+        return {"request_id": self._rid,
+                "tenant": self.headers.get("x-tenant", "default"),
+                "priority": self.headers.get("x-priority", "normal")}
 
     def do_GET(self):
         srv = self.server.inference
-        path = urlparse(self.path).path
+        url = urlparse(self.path)
+        path = url.path
         if path == "/stats":
             self._json(srv.stats())
         elif path == "/healthz":
             info = srv.health_info()
             self._json(info, 503 if info["status"] == "draining" else 200)
+        elif path == "/metrics":
+            self._send(get_registry().render().encode(),
+                       "text/plain; version=0.0.4; charset=utf-8", 200)
+        elif path == "/requests":
+            n = parse_qs(url.query).get("n", [None])[0]
+            try:
+                n = None if n is None else int(n)
+            except ValueError:
+                self._error(400, "bad_request",
+                            f"n must be an integer, got {n!r}")
+                return
+            self._json(srv.request_journal(n))
         else:
             self._error(404, "not_found", f"no such path: {path}")
 
@@ -83,10 +139,17 @@ class _Handler(BaseHTTPRequestHandler):
                 self._predict(srv, payload)
             elif path == "/generate":
                 self._generate(srv, payload)
+            elif path == "/kv/export":
+                self._kv_export(srv, payload)
+            elif path == "/kv/import":
+                self._kv_import(srv, payload)
             else:
                 self._error(404, "not_found", f"no such path: {path}")
         except BadRequestError as e:
             self._error(400, "bad_request", str(e))
+        except KVMigrateError as e:
+            # validation rejected the payload before the pool was touched
+            self._error(409, "kv_migrate_rejected", str(e))
         except ServerOverloadedError as e:
             self._error(429, "overloaded", str(e))
         except BatcherStoppedError as e:
@@ -118,9 +181,41 @@ class _Handler(BaseHTTPRequestHandler):
         srv.validate_features(x)
         # block=False: a full queue answers 429 now instead of parking the
         # handler thread on backpressure
-        out = srv.batcher.submit(x, deadline_ms=deadline_ms,
-                                 block=False).result()
-        self._json({"ndarray": ndarray_to_b64(out[0] if squeeze else out)})
+        out = srv.batcher.submit(x, deadline_ms=deadline_ms, block=False,
+                                 **self._identity()).result()
+        self._json({"ndarray": ndarray_to_b64(out[0] if squeeze else out)},
+                   extra_headers={
+                       "x-model-version": str(
+                           getattr(srv.engine, "model_version", 0))})
+
+    def _kv_gate(self, srv):
+        """The decode engine, when it is paged with a prefix cache (the
+        chain index is what migrates); else a 404 and None."""
+        dec = srv.decode_engine
+        if dec is None or getattr(dec, "_prefix", None) is None:
+            self._error(404, "not_found",
+                        "KV migration requires a paged decode engine with "
+                        "prefix_cache on this server")
+            return None
+        return dec
+
+    def _kv_export(self, srv, payload):
+        dec = self._kv_gate(srv)
+        if dec is None:
+            return
+        tokens = payload.get("tokens")
+        if (not isinstance(tokens, list)
+                or not all(isinstance(t, int) for t in tokens)):
+            raise BadRequestError("'tokens' must be a list of token ids")
+        self._json(dec.kv_export(tokens), extra_headers={
+            "x-model-version": str(dec.model_version)})
+
+    def _kv_import(self, srv, payload):
+        dec = self._kv_gate(srv)
+        if dec is None:
+            return
+        self._json(dec.kv_import(payload), extra_headers={
+            "x-model-version": str(dec.model_version)})
 
     def _generate(self, srv, payload):
         if srv.decode_engine is None:
@@ -137,10 +232,11 @@ class _Handler(BaseHTTPRequestHandler):
                 max_new_tokens=int(payload.get("max_new_tokens", 32)),
                 seed=int(payload.get("seed", 0)),
                 temperature=float(payload.get("temperature", 0.0)),
-                top_k=int(payload.get("top_k", 0)))
+                top_k=int(payload.get("top_k", 0)), **self._identity())
         except ValueError as e:     # capacity / id-range problems -> 400
             raise BadRequestError(str(e)) from None
-        self._json(out)
+        self._json(out, extra_headers={
+            "x-model-version": str(srv.decode_engine.model_version)})
 
 
 class InferenceServer:
@@ -151,18 +247,29 @@ class InferenceServer:
         out = InferenceClient(f"http://127.0.0.1:{srv.port}").predict(x)
 
     ``max_queue``: bound on queued requests (beyond it: HTTP 429).
+    ``journal_capacity``: the records the /predict journal keeps (the
+    decode engine keeps its own).
     """
+
+    _ids = itertools.count()
 
     def __init__(self, model, port: int = 9300, host: str = "127.0.0.1",
                  max_batch: int = 256, max_latency_ms: float = 2.0,
                  engine: Optional[InferenceEngine] = None,
-                 max_queue: int = 1024, decode_engine=None):
+                 max_queue: int = 1024, decode_engine=None,
+                 journal_capacity: int = 512):
         self.model = model
         self.engine = engine or InferenceEngine(model)
         self.decode_engine = decode_engine
         self.batcher = MicroBatcher(self.engine, max_batch=max_batch,
                                     max_latency_ms=max_latency_ms,
-                                    max_queue=max_queue)
+                                    max_queue=max_queue,
+                                    journal_capacity=journal_capacity)
+        self.id = f"server{next(InferenceServer._ids)}"
+        # ids minted for requests that came without one: the pid and the
+        # server keep them unique across the servers of one host
+        self._rid_prefix = f"{os.getpid():x}-{self.id}"
+        self._rid_counter = itertools.count(1)
         self._port_req = port
         self._host = host
         self._httpd = None
@@ -189,13 +296,25 @@ class InferenceServer:
             raise BadRequestError(f"input shape {tuple(x.shape)} does not "
                                   f"match model input {want}")
 
+    def mint_rid(self) -> str:
+        return f"req-{self._rid_prefix}-{next(self._rid_counter):06d}"
+
     def health_info(self) -> dict:
+        """``{"status": ...}`` and a ``reason`` when degraded:
+        ``queue_pressure`` (the /predict queue at least 80% full),
+        ``kv_pool_exhausted`` (a paged decode engine's queue head cannot
+        claim its blocks; with the pool's ``kv`` occupancy) or
+        ``decode_saturated`` (every decode slot busy)."""
         if self._draining.is_set() or self.batcher.stopping:
             return {"status": "draining"}
         st = self.batcher.stats()
         if st["queue_depth"] >= 0.8 * st["queue_capacity"]:
             return {"status": "degraded", "reason": "queue_pressure"}
-        if self.decode_engine is not None and self.decode_engine.saturated:
+        dec = self.decode_engine
+        if dec is not None and getattr(dec, "kv_exhausted", False):
+            return {"status": "degraded", "reason": "kv_pool_exhausted",
+                    "kv": dec.kv_pool_info()}
+        if dec is not None and dec.saturated:
             return {"status": "degraded", "reason": "decode_saturated"}
         return {"status": "ok"}
 
@@ -208,6 +327,24 @@ class InferenceServer:
         if self.decode_engine is not None:
             out["decode"] = self.decode_engine.stats()
         return out
+
+    def request_journal(self, n: Optional[int] = None) -> dict:
+        """What ``GET /requests?n=`` serves: the /predict (batcher) and
+        /generate (decode) journals merged on ``ts``, newest last."""
+        logs = [self.batcher.journal]
+        if self.decode_engine is not None:
+            logs.append(self.decode_engine.journal)
+        recs, total, dropped = [], 0, 0
+        for lg in logs:
+            snap = lg.snapshot()
+            recs.extend(snap["records"])
+            total += snap["total"]
+            dropped += snap["dropped"]
+        recs.sort(key=lambda r: r.get("ts") or 0.0)
+        if n is not None:
+            recs = recs[-n:] if n > 0 else []
+        return {"server": self.id, "total": total, "dropped": dropped,
+                "records": recs}
 
     def start(self) -> "InferenceServer":
         self.batcher.start()

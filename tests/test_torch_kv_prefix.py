@@ -42,6 +42,7 @@ from deeplearning4j_tpu_torch.nn.layers.base import layer_from_dict
 from deeplearning4j_tpu_torch.serving import DecodeEngine
 from deeplearning4j_tpu_torch.serving.decode import _Request, generate_naive
 from deeplearning4j_tpu_torch.serving.kv import (SCRATCH_BLOCK, BlockPool,
+                                                 HostKVTier,
                                                  PoolExhaustedError,
                                                  PrefixCache,
                                                  blocks_for_span,
@@ -193,8 +194,46 @@ def test_chain_hashes_equal_the_jax_bytes(bs):
 
 
 def test_prefix_cache_tier_is_not_ported():
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        PrefixCache(BlockPool(4, 4), tier=object())
+    """The tier is ported now (the name is the test's history): a cache
+    over a tier spills each evicted published block with its chain hash,
+    parent hash and tokens, and a later match restores it through the
+    engine's hook, claimed at refcount 1 and cached, as the JAX cache
+    does."""
+    tier = HostKVTier(1 << 20, engine="prefix-test")
+    pool = BlockPool(4, 4)
+    pc = PrefixCache(pool, tier=tier)
+    spilled, restored = [], []
+
+    def spill(h, parent, toks, bid):
+        spilled.append((h, parent, toks, bid))
+        tier.put(h, parent, toks, {"k": np.full(4, bid, np.float32)})
+
+    def restore(h, toks):
+        restored.append((h, toks))
+        return pool.alloc(1)[0]
+    pc.spill_fn, pc.restore_fn = spill, restore
+    prompt = list(range(9))
+    a = pool.alloc(2)
+    assert pc.insert(prompt, a) == 2
+    for b in a:
+        pool.decref(b)
+    c = pool.alloc(3)                  # evicts both published blocks
+    hashes = [bytes.fromhex(h) for h in chain_hashes(prompt, 4)]
+    assert [(s[0], s[2], s[3]) for s in spilled] == [
+        (hashes[0], (0, 1, 2, 3), a[0]), (hashes[1], (4, 5, 6, 7), a[1])]
+    assert spilled[1][1] == hashes[0] and len(pc) == 0
+    assert tier.stats()["spills"] == 2 and len(tier) == 2
+    for b in c:
+        pool.decref(b)
+    shared, cow, skip = pc.match(prompt)
+    assert restored == [(hashes[0], (0, 1, 2, 3)), (hashes[1], (4, 5, 6, 7))]
+    assert (len(shared), cow, skip) == (2, None, 8)
+    assert all(pool.refcount(b) == 1 and pool.is_cached(b) for b in shared)
+    assert pc.chain_heads() == [h.hex() for h in hashes]
+    for b in shared:
+        pool.decref(b)
+    assert pc.clear() == 2             # a swap's flush: the tier purged,
+    assert len(tier) == 0 and len(spilled) == 2     # nothing spilled
 
 
 def test_plan_chunks_and_blocks_for_span_match_jax_over_a_grid():

@@ -103,3 +103,28 @@ def test_decode_engine_takes_the_jax_positional_order(nets):
             DecodeEngine(lstm, 2, 24, None, 16, precision)
     with pytest.raises(NotImplementedError, match="item 6"):
         DecodeEngine(lstm, 2, 24).warmup(aot="artifact")
+
+
+@pytest.mark.parametrize("entry", ["DecodeEngine.__init__",
+                                   "DecodeEngine.submit",
+                                   "DecodeEngine.generate",
+                                   "MicroBatcher.__init__",
+                                   "MicroBatcher.submit"])
+def test_serving_entry_points_take_the_jax_positions(entry):
+    """The journal's and the host tier's arguments (``journal_capacity``,
+    ``host_kv_bytes``, ``request_id``, ``tenant``, ``priority``) sit where
+    the JAX package puts them, with its defaults."""
+    import inspect
+
+    from deeplearning4j_tpu.serving.batcher import MicroBatcher as JaxBatcher
+    from deeplearning4j_tpu.serving.decode import DecodeEngine as JaxDecode
+
+    from deeplearning4j_tpu_torch.serving import MicroBatcher
+    cls, meth = entry.split(".")
+    ours = {"DecodeEngine": DecodeEngine, "MicroBatcher": MicroBatcher}[cls]
+    theirs = {"DecodeEngine": JaxDecode, "MicroBatcher": JaxBatcher}[cls]
+
+    def params(c):
+        return [(p.name, p.default) for p in
+                inspect.signature(getattr(c, meth)).parameters.values()]
+    assert params(ours) == params(theirs)

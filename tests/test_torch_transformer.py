@@ -339,12 +339,23 @@ def test_checkpoint_zip_reads_both_ways(nets, tmp_path):
                                     "draft_precision"])
 def test_unported_engine_options_raise(nets, option):
     """The options still unported raise NotImplementedError naming their
-    ROADMAP item: the host KV tier (item 5), int8/fp8 drafts (item 6)."""
+    ROADMAP item: int8/fp8 drafts (item 6). ``host_kv_bytes`` is ported
+    now: the engine builds with a host tier of that budget and reports it
+    in ``kv_pool_info()``, and refuses it, as the JAX engine does, without
+    the prefix cache."""
     _, net = nets
-    kw = {"host_kv_bytes": {"host_kv_bytes": 1 << 20},
-          "self_draft": {"spec": SpecConfig(self_draft="int8")},
+    if option == "host_kv_bytes":
+        eng = DecodeEngine(net, kv="paged", host_kv_bytes=1 << 20)
+        assert eng.kv_pool_info()["host_tier"] == {
+            "blocks": 0, "bytes": 0, "byte_budget": 1 << 20, "spills": 0,
+            "drops": 0}
+        assert eng.stats()["kv"]["host_restores"] == 0
+        with pytest.raises(ValueError, match="host_kv_bytes requires"):
+            DecodeEngine(net, kv="paged", prefix_cache=False,
+                         host_kv_bytes=1 << 20)
+        return
+    kw = {"self_draft": {"spec": SpecConfig(self_draft="int8")},
           "draft_precision": {"spec": SpecConfig(net, k=2,
                                                  draft_precision="fp8")}}
-    item = "item 5" if option == "host_kv_bytes" else "item 6"
-    with pytest.raises(NotImplementedError, match=f"{option}.*{item}"):
+    with pytest.raises(NotImplementedError, match=f"{option}.*item 6"):
         DecodeEngine(net, kv="paged", **kw[option])
