@@ -39,14 +39,17 @@ result line, when any of them or the port's package is missing. Phases:
    512}, Dh=32, causal and not, relative to the largest gradient of the
    plain version; K8 (flash decode, dense cache) and K9 (paged pool,
    bs=16, shuffled page tables) at B in {1, 8, 64}, 4 heads, C=512,
-   positions spread over 0..511 (one stream at 511), each with its plan
-   (blocks per cluster S, clusters), 20 more launches that must repeat
-   bit for bit, and its launch floor (an empty kernel on the same grid and
-   cluster shape, timed the same way). Then head dims past 128, which the
-   attention kernels take through their column-chunk split: K5, K6 + K7
-   (B=2 x 2 heads) and K8, K9 (B=4, 2 heads) at Dh in {136, 256, 520} and
-   T (or C) in {64, 100}, causal and not, at the same tolerances, K6 and
-   K7 repeating bit for bit. With CUDA-event medians of the kernel,
+   positions spread over 0..511 (one stream at 511), over a float32 and
+   over a bfloat16 cache or pool (a bf16-compute model's decode state,
+   read in its own type; the plain version widens it exactly, so both
+   hold to 1e-4), each with its plan (blocks per cluster S, clusters),
+   20 more launches that must repeat bit for bit, and its launch floor
+   (an empty kernel on the same grid and cluster shape, timed the same
+   way); the bound counts the cache's bytes at its width. Then head dims
+   past 128, which the attention kernels take through their column-chunk
+   split: K5, K6 + K7 (B=2 x 2 heads) and K8, K9 (B=4, 2 heads; both
+   cache types) at Dh in {136, 256, 520} and T (or C) in {64, 100}, causal
+   and not, at the same tolerances, K6 and K7 repeating bit for bit. With CUDA-event medians of the kernel,
    the plain version and one library call computing the same work
    (cuDNN's ``torch.nn.LSTM``: the forward with grad enabled for the
    training forwards, the backward of that output alone for K3;
@@ -381,6 +384,40 @@ result line, when any of them or the port's package is missing. Phases:
    exemplar resolves to a ``/requests`` record; exactly K9 twice a paged
    step, K8 twice a dense step and K5 twice a /predict forward.
 
+15. The serving precisions and the bucketed engine's program contract
+   (``serving_precision_phase``). (a) The bundled TextGenerationLSTM
+   through ``InferenceEngine(net, 32, precision=...)`` at f32, int8 and
+   fp8: ``warmup`` captures the ladder 1..32 (rungs and their costs);
+   held-out top-1 of the 15 windows (int8 within 0.01 and fp8 within 0.02
+   of f32, docs/QUANTIZATION.md), weight bytes, the card against the CPU
+   port at the same precision (1e-4), 13 mixed-size /predict calls with
+   no new capture and no new program, the captured rungs equal to an
+   eager engine's bit for bit, exactly one K4 a forward, /predict ms at
+   B=1 and B=32 (captured and eager, median of 20). (b) TinyTransformer
+   at its default width from its seed on captured dense and paged engines
+   (8 slots, max_len 512, blocks of 16) at f32, with bfloat16 compute (a
+   bfloat16 cache and pool: K8 / K9's bfloat16 instantiation), int8 and
+   fp8: 8 greedy streams of 64 tokens from held-out prompts of 16..58
+   tokens against the CPU port's engine at the same precision under the
+   near-tie rule (1e-4; 2e-2 in bfloat16, against the reference's
+   dequantized or bfloat16 forward), K8 / K9 exactly twice a step, one
+   capture a program, ms a captured step, tokens/s, weight bytes, and ten
+   dense steps of each under ``torch.profiler`` (the dequantization's
+   device operations and busy ms a step: int8's or fp8's less f32's).
+   (c) ``SpecConfig(self_draft="int8" | "fp8", k=4)`` on the dense f32
+   engine: tokens against the plain engine's under the near-tie rule,
+   exact launches, acceptance, tokens/s against the plain captured
+   engine's. (d) Over HTTP at int8 (a dense captured decode engine and a
+   max_batch-16 /predict engine): ``/warmup`` captures 1..16 (run on the
+   decode loop's thread); ``/admin/swap`` of a seed-7 zip while 8
+   /generate streams and mixed /predict run answers version 1, after
+   which ``x-model-version`` is 1, /generate equals a fresh int8 engine's
+   on the seed-7 weights token for token and /predict a fresh engine's
+   (1e-6), and no capture follows ``/warmup``; a d_model-64 zip answers
+   409 ``weight_mismatch`` and a payload without ``checkpoint`` 400, with
+   serving unchanged; K5 twice a /predict forward and K8 twice a decode
+   step. The phase prints its seconds.
+
 A replayed CUDA graph adds to the launch counts the launches its capture
 recorded (the capture itself counts none), so the counts below are the
 kernels that ran. Kernel launch counts are reset right before the LSTM
@@ -395,7 +432,9 @@ train step, K5 alone for ``score`` and ``evaluate``), and nothing else.
 
 After the phases each kernel is timed again at its main path's shape, and
 K5-K9 at the wide-heads phase's shapes (K5-K7 also at Dh 128 beside them,
-the split's cost). Prints, before the last line, one JSON line of
+the split's cost); K8 and K9 also over a bfloat16 cache at their main
+path's shape, reported under ``bf16`` in their entries with phase 15's
+bfloat16 launches. Prints, before the last line, one JSON line of
 per-kernel numbers and the card's name and power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Detailed results also go to ``chiprun_out/chip_smoke.json``.
@@ -806,8 +845,8 @@ def attn_bound(kernel, c, peak="float32"):
     card's ``peak`` rate (float32 outside the tensor cores by default;
     "tf32" for the tensor-core bound of K5-K7), whichever is larger. K5, K6
     and K7 count the (query, key) pairs the mask keeps; K8/K9 only the live
-    rows 0..pos of each stream (and K9 the page-table entries they
-    need)."""
+    rows 0..pos of each stream, at the cache's width (2 bytes in
+    bfloat16), and K9 the page-table entries they need."""
     if kernel.startswith("flash_attn"):
         BH, T, Dh = c["q"].shape
         pairs = BH * (T * (T + 1) // 2 if c["causal"] else T * T)
@@ -826,7 +865,9 @@ def attn_bound(kernel, c, peak="float32"):
     else:
         B, H, Dh = c["q"].shape
         live = int((c["pos"].long() + 1).sum())
-        nbytes = 4 * (2 * B * H * Dh + 2 * live * H * Dh + B)
+        # q and the output in float32, the live rows at the cache's width
+        kv = (c["kc"] if "kc" in c else c["pk"]).element_size()
+        nbytes = 4 * (2 * B * H * Dh + B) + kv * 2 * live * H * Dh
         if kernel == "flash_decode_paged":
             nbytes += 4 * int((c["pos"].long() // c["pk"].shape[1] + 1).sum())
         flops = 4.0 * Dh * H * live
@@ -836,11 +877,11 @@ def attn_bound(kernel, c, peak="float32"):
 
 
 def attn_inputs(kernel, B, T, causal=False, pos=None, seed=0, dh=HEAD_DIM,
-                heads=HEADS):
+                heads=HEADS, kv_dtype="float32"):
     """K5: q, k, v (B*heads, T, dh). K8/K9: q (B, heads, dh), a cache of
-    capacity T (dense, or a pool of 16-row blocks behind shuffled page
-    tables with block 0 as scratch, T rounded up to whole blocks), and
-    positions (default: spread over 0..T-1)."""
+    capacity T in ``kv_dtype`` (dense, or a pool of 16-row blocks behind
+    shuffled page tables with block 0 as scratch, T rounded up to whole
+    blocks), and positions (default: spread over 0..T-1)."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -855,12 +896,14 @@ def attn_inputs(kernel, B, T, causal=False, pos=None, seed=0, dh=HEAD_DIM,
             torch.linspace(0, T - 1, B).round().long().tolist()
     c = {"q": rnd(B, heads, dh),
          "pos": torch.tensor(pos, dtype=torch.int32, device="cuda")}
+    kvt = getattr(torch, kv_dtype)
     if kernel == "flash_decode":
-        c["kc"], c["vc"] = rnd(B, T, heads, dh), rnd(B, T, heads, dh)
+        c["kc"], c["vc"] = (rnd(B, T, heads, dh).to(kvt) for _ in range(2))
         return c
     MB = -(-T // KV_BLOCK)
     NB = B * MB + 1
-    c["pk"], c["pv"] = (rnd(NB, KV_BLOCK, heads, dh) for _ in range(2))
+    c["pk"], c["pv"] = (rnd(NB, KV_BLOCK, heads, dh).to(kvt)
+                        for _ in range(2))
     perm = torch.randperm(NB - 1, generator=g, device="cuda") + 1
     c["tables"] = perm[:B * MB].reshape(B, MB).to(torch.int32).contiguous()
     return c
@@ -915,18 +958,22 @@ def attn_calls(kernel, c):
     mask = (torch.arange(C, device="cuda")[None, :]
             <= pos.long()[:, None])[:, None, None, :]
     kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
+    # SDPA over the (gathered) cache in the cache's type: a bfloat16
+    # query beside a bfloat16 cache, the output widened
+    ql = q.to(kc.dtype)
     return wrap, plain, lambda: F.scaled_dot_product_attention(
-        q[:, :, None, :], kt, vt, attn_mask=mask)[:, :, 0, :]
+        ql[:, :, None, :], kt, vt, attn_mask=mask)[:, :, 0, :].float()
 
 
 def attn_kernel_case(kernel, B, T, causal=False, pos=None, seed=0,
-                     dh=HEAD_DIM, heads=HEADS):
+                     dh=HEAD_DIM, heads=HEADS, kv_dtype="float32"):
     """One attention kernel at one shape: error against the plain version
-    (K5: o and lse), and the four times. Launches made here are not the
-    main path's; the caller resets the counters before the main path."""
+    (K5: o and lse), and the four times; K8/K9 over a ``kv_dtype`` cache.
+    Launches made here are not the main path's; the caller resets the
+    counters before the main path."""
     import torch
     from deeplearning4j_tpu_torch.ops import decode_cuda
-    c = attn_inputs(kernel, B, T, causal, pos, seed, dh, heads)
+    c = attn_inputs(kernel, B, T, causal, pos, seed, dh, heads, kv_dtype)
     wrap, plain, lib = attn_calls(kernel, c)
     with torch.no_grad():
         got = wrap()
@@ -937,7 +984,7 @@ def attn_kernel_case(kernel, B, T, causal=False, pos=None, seed=0,
             raise AssertionError(f"{kernel} B={B} T={T} Dh={dh} causal="
                                  f"{causal}: max abs err {err} > {ATTN_TOL}")
         row = {"kernel": kernel, "B": B, "T": T, "H": heads, "Dh": dh,
-               "dtype": "float32", "max_abs_err": err, "tol": ATTN_TOL,
+               "dtype": kv_dtype, "max_abs_err": err, "tol": ATTN_TOL,
                "ms": graph_ms(wrap, reps=20),
                "call_ms": time_ms(wrap, reps=20),
                "plain_ms": graph_ms(plain, reps=3, rounds=3),
@@ -956,8 +1003,10 @@ def attn_kernel_case(kernel, B, T, causal=False, pos=None, seed=0,
                 row["plan"] = decode_cuda.last_plan(kernel)
                 C = c["kc"].shape[1] if "kc" in c else \
                     c["tables"].shape[1] * KV_BLOCK
+                kw = ({} if kv_dtype == "float32"
+                      else {"dtype": getattr(torch, kv_dtype)})
                 row["floor_ms"] = graph_ms(lambda: decode_cuda.launch_floor(
-                    kernel, B, heads, dh, C, KV_BLOCK), reps=20)
+                    kernel, B, heads, dh, C, KV_BLOCK, **kw), reps=20)
     if kernel == "flash_attn_fwd":
         row["causal"] = causal
         row["tc_bound_ms"], row["tc_bound_by"] = attn_bound(kernel, c, "tf32")
@@ -978,8 +1027,10 @@ def fmt_attn(row):
                  f"floor {row['floor_ms']:.5f} ms")
     if "repeats_bitwise" in row:
         what += f", bitwise over {row['repeats_bitwise']} launches"
+    kv = "" if row.get("dtype", "float32") == "float32" else \
+        f" {row['dtype']} cache"
     return (f"{row['kernel']:18s} B={row['B']:<3d} T={row['T']:<3d} "
-            f"Dh={row['Dh']:<3d} {what} "
+            f"Dh={row['Dh']:<3d}{kv} {what} "
             f"err {row['max_abs_err']:.3g} (tol {row['tol']:g})  kernel "
             f"{row['ms']:.4f} ms (a call from the host {row['call_ms']:.4f}"
             f" ms)  plain {row['plain_ms']:.4f} ms  sdpa "
@@ -3058,9 +3109,10 @@ def _sampled_tie(net, prompt, got, want, temp, seed):
     return step, float(top[0] - top[1])
 
 
-def _ties(net, prompts, gots, wants, temp=0.0, seed=0):
+def _ties(net, prompts, gots, wants, temp=0.0, seed=0, bar=None):
     """Near-tie records of every stream that differs from the reference,
-    or raise when one differs beyond a near-tie."""
+    or raise when one differs beyond a near-tie (``bar``; default
+    TIE_MARGIN greedy, SCORE_TIE sampled)."""
     ties = []
     for p, got, want in zip(prompts, gots, wants):
         tie = (_first_tie(net, p, got, want) if temp == 0 else
@@ -3068,7 +3120,8 @@ def _ties(net, prompts, gots, wants, temp=0.0, seed=0):
         if tie is not None:
             ties.append({"prompt_len": len(p), "step": tie[0],
                          "margin": tie[1]})
-    bar = TIE_MARGIN if temp == 0 else SCORE_TIE
+    if bar is None:
+        bar = TIE_MARGIN if temp == 0 else SCORE_TIE
     if any(t["margin"] > bar for t in ties):
         raise AssertionError(f"tokens differ beyond a near-tie: {ties}")
     return ties
@@ -5630,6 +5683,411 @@ def kv_tier_phase(card, dev="cuda"):
     return res
 
 
+# ---- phase 15: the serving precisions -------------------------------------
+
+PRECISIONS = ("f32", "int8", "fp8")
+ACC_DELTA = {"int8": 0.01, "fp8": 0.02}   # docs/QUANTIZATION.md, against f32
+PREC_TOL = 1e-4         # card against the CPU port at the same precision
+BF16_TIE = 2e-2         # bfloat16 top-2 probability gap that may flip a token
+PREC_B = 32             # the LSTM engine's ladder: 1..32
+PREC_SIZES = [1, 3, 7, 2, 5, 16, 4, 9, 32, 11, 20, 1, 8]   # mixed /predict
+PREC_TIMED = 20         # /predict calls timed at B=1 and B=32
+PREC_NEW = 64           # new tokens a stream
+PREC_DIR = ROOT / "build" / "precision_swap"
+# (variant, zoo compute_dtype, serving precision) of the TinyTransformer
+DECODE_VARIANTS = (("f32", None, "f32"), ("bf16", "bfloat16", "f32"),
+                   ("int8", None, "int8"), ("fp8", None, "fp8"))
+
+
+def _median_ms(fn, n):
+    import torch
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def precision_lstm_part(card, res, dev="cuda"):
+    """(a) The bundled TextGenerationLSTM through ``InferenceEngine`` at
+    f32, int8 and fp8 (max_batch 32): held-out top-1 of the 15 windows
+    (the deltas within docs/QUANTIZATION.md's bars), weight bytes, the
+    card against the CPU port at the same precision (1e-4), ``warmup``'s
+    rungs and costs, mixed-size traffic with no new capture and the
+    captured rungs equal to an eager engine's bit for bit, /predict ms at
+    B=1 and B=32 (captured and eager), exactly one K4 a forward."""
+    import numpy as np
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.quant import record_accuracy_delta
+    from deeplearning4j_tpu_torch.serving import InferenceEngine
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+    from deeplearning4j_tpu_torch.zoo.corpus import corpus_windows
+    (xtr, _), (xte, yte), vocab = corpus_windows(T=64)
+    zoo = TextGenerationLSTM(total_unique_characters=len(vocab))
+    net, cpu = zoo.init_pretrained(device=dev), zoo.init_pretrained(
+        device="cpu")
+    out, acc = {}, {}
+    starts = np.cumsum([0] + PREC_SIZES)
+    for prec in PRECISIONS:
+        eng = InferenceEngine(net, PREC_B, precision=prec)
+        eager = InferenceEngine(net, PREC_B, precision=prec)
+        eager._program.capture = False
+        ladder = eng.warmup((64, len(vocab)))
+        eager.warmup((64, len(vocab)))
+        caps, progs = eng.captures, eng.trace_count
+        ops.reset_launch_counts()
+        probs = eng.predict_host(xte)
+        held = _expect_launches(f"precision {prec} held-out /predict",
+                                {"lstm2_fwd": 1})
+        acc[prec] = float((probs.argmax(-1) == yte.argmax(-1)).mean())
+        want = InferenceEngine(cpu, PREC_B, precision=prec).predict_host(xte)
+        err = float(np.abs(probs - want).max())
+        ops.reset_launch_counts()
+        bitwise = True
+        for a, b in zip(starts[:-1], starts[1:]):
+            x = xtr[np.arange(a, b) % len(xtr)]
+            bitwise &= np.array_equal(eng.predict_host(x),
+                                      eager.predict_host(x))
+        mixed = _expect_launches(f"precision {prec} mixed /predict",
+                                 {"lstm2_fwd": 2 * len(PREC_SIZES)})
+        row = {"ladder": ladder, "rung_costs": eng.rung_costs,
+               "warmup_s": eng.warmup_seconds, "captures": eng.captures,
+               "programs": eng.trace_count, "heldout_top1": acc[prec],
+               "weight_bytes": eng.stats()["weight_bytes"],
+               "card_vs_cpu_max_abs_err": err,
+               "captured_equals_eager": bitwise,
+               "launches": {"lstm2_fwd": held["lstm2_fwd"]
+                            + mixed["lstm2_fwd"]}}
+        for B in (1, PREC_B):
+            x = xtr[:B]
+            row[f"predict_ms_b{B}"] = _median_ms(
+                lambda: eng.predict_host(x), PREC_TIMED)
+            row[f"eager_predict_ms_b{B}"] = _median_ms(
+                lambda: eager.predict_host(x), PREC_TIMED)
+        if prec != "f32":
+            record_accuracy_delta(eng.id, acc[prec] - acc["f32"])
+        out[prec] = row
+        print(f"precision: LSTM {prec}: held-out top-1 {acc[prec]:.4f}, "
+              f"{row['weight_bytes']} weight bytes, card vs CPU port "
+              f"{err:.3g} (tol {PREC_TOL:g}); warmup captured {ladder} in "
+              f"{row['warmup_s']:.3f} s (costs "
+              f"{ {b: round(c['compile_s'], 4) for b, c in eng.rung_costs.items()} }"
+              f" s), {len(PREC_SIZES)} mixed requests: captures "
+              f"{eng.captures} (was {caps}), programs {eng.trace_count} (was "
+              f"{progs}), captured == eager {bitwise}; /predict ms B=1 "
+              f"{row['predict_ms_b1']:.3f} (eager "
+              f"{row['eager_predict_ms_b1']:.3f}), B={PREC_B} "
+              f"{row[f'predict_ms_b{PREC_B}']:.3f} (eager "
+              f"{row[f'eager_predict_ms_b{PREC_B}']:.3f}) [{card}]",
+              flush=True)
+        problems = []
+        if err > PREC_TOL:
+            problems.append(f"card vs CPU {err}")
+        if dev == "cuda" and (caps != len(ladder) or eng.captures != caps):
+            problems.append(f"captures {caps} -> {eng.captures}")
+        if eng.trace_count != progs or not bitwise:
+            problems.append("a new program, or captured != eager")
+        if prec != "f32" and abs(acc[prec] - acc["f32"]) > ACC_DELTA[prec]:
+            problems.append(f"accuracy {acc[prec]} against {acc['f32']}")
+        if problems:
+            raise AssertionError(f"precision LSTM {prec}: {problems}")
+    res["lstm"] = out
+
+
+def _decode_prompts(ids):
+    """8 held-out prompts of 16..58 corpus tokens."""
+    return [ids[6000 + 131 * i:6000 + 131 * i + 16 + 6 * i]
+            for i in range(8)]
+
+
+def _ref_net(net, precision):
+    """The CPU port's copy of ``net`` with the weights it serves at
+    ``precision`` (dequantized codes): the near-tie rule's reference."""
+    from deeplearning4j_tpu_torch import ComputationGraph
+    from deeplearning4j_tpu_torch.quant import dequantize_tree, quantize_tree
+    cpu = ComputationGraph(net.conf, device="cpu").set_params(net.params)
+    if precision != "f32":
+        cpu.set_params(dequantize_tree(quantize_tree(cpu.params, precision)))
+    return cpu
+
+
+def precision_decode_part(card, res, ids, dev="cuda"):
+    """(b) TinyTransformer at its default width from its seed on captured
+    dense and paged engines at f32, bfloat16 compute (a bfloat16 cache and
+    pool: K8 / K9's bfloat16 instantiation), int8 and fp8: 8 greedy streams
+    of 64 tokens against the CPU port's engine at the same precision under
+    the near-tie rule (1e-4; 2e-2 in bfloat16), exact K8 / K9 launches, ms
+    a captured step and tokens/s, weight bytes, and ten dense steps of each
+    under torch.profiler (the dequantization's device operations a step
+    are int8's or fp8's less f32's). (c) The int8 and fp8 self-drafts
+    (k=4, dense): their tokens against the plain engine's, acceptance,
+    tokens/s against the plain captured engine's."""
+    from deeplearning4j_tpu_torch import ComputationGraph, ops
+    from deeplearning4j_tpu_torch.serving import DecodeEngine
+    from deeplearning4j_tpu_torch.serving.spec import SpecConfig
+    from deeplearning4j_tpu_torch.zoo import TinyTransformer
+    V = res["vocab"]
+    prompts = _decode_prompts(ids)
+    out, nets = {}, {}
+    for variant, compute, prec in DECODE_VARIANTS:
+        kw = {} if compute is None else {"compute_dtype": compute}
+        net = TinyTransformer(vocab_size=V, **kw).init(device=dev)
+        cpu = ComputationGraph(net.conf, device="cpu").set_params(net.params)
+        ref = _ref_net(net, prec)
+        nets[variant] = net
+        margin = BF16_TIE if compute else TIE_MARGIN
+        for kv in ("dense", "paged"):
+            mk = dict(slots=8, max_len=512, precision=prec, kv=kv,
+                      kv_block_size=KV_BLOCK)
+            eng = DecodeEngine(net, **mk).start()
+            ceng = DecodeEngine(cpu, **mk).start()
+            try:
+                ops.reset_launch_counts()
+                got, row, st0, st1 = _decode_round(eng, prompts, PREC_NEW,
+                                                   False)
+                launches = _expect_launches(
+                    f"precision {variant} {kv}",
+                    _expected_launches(eng, st0, st1))
+                want = _decode_round(ceng, prompts, PREC_NEW, False)[0]
+                caps = {k: p["captures"]
+                        for k, p in eng.program_stats().items()}
+                ties = _ties(ref, prompts, got, want, bar=margin)
+                pool = eng._dstate["b0_attn"]["pk" if kv == "paged" else "k"]
+                rec = dict(row, ties=ties, launches=launches, captures=caps,
+                           weight_bytes=eng.stats()["weight_bytes"],
+                           cache_dtype=str(pool.dtype).replace("torch.", ""),
+                           trace_count=eng.trace_count)
+                if kv == "dense":
+                    if dev == "cuda":
+                        rec["profile"] = _decode_profile(
+                            eng, "flash_decode", card,
+                            f"precision {variant}")
+                    if variant == "f32":
+                        out["plain_tokens"] = got
+                        out["plain_tokens_per_s"] = row["tokens_per_s"]
+            finally:
+                eng.stop()
+                ceng.stop()
+            out[f"{variant}_{kv}"] = rec
+            print(f"precision: TinyTransformer {variant} ({rec['cache_dtype']}"
+                  f" cache) {kv}: {row['ms']:.3f} ms a captured step, "
+                  f"{row['tokens_per_s']:.1f} tokens/s, "
+                  f"{rec['weight_bytes']} weight bytes, launches {launches}, "
+                  f"near-ties against the CPU port {ties} [{card}]",
+                  flush=True)
+            if dev == "cuda" and any(c != 1 for c in caps.values()):
+                raise AssertionError(f"precision {variant} {kv}: captures "
+                                     f"{caps}")
+            if rec["cache_dtype"] != (compute or "float32"):
+                raise AssertionError(f"{variant}: a {rec['cache_dtype']} "
+                                     "cache")
+    for q in ("int8", "fp8") if dev == "cuda" else ():
+        pf, pq = out["f32_dense"]["profile"], out[f"{q}_dense"]["profile"]
+        if pf.get("kernels_per_step") is not None \
+                and pq.get("kernels_per_step") is not None:
+            out[f"{q}_dequant_ops_per_step"] = (pq["kernels_per_step"]
+                                                - pf["kernels_per_step"])
+            out[f"{q}_dequant_busy_ms_per_step"] = (
+                pq["device_busy_ms_per_step"] - pf["device_busy_ms_per_step"])
+            print(f"precision: {q} dequantization "
+                  f"{out[f'{q}_dequant_ops_per_step']:.0f} device operations "
+                  f"and {out[f'{q}_dequant_busy_ms_per_step']:.4f} busy ms a "
+                  f"step more than f32 [{card}]", flush=True)
+    net = nets["f32"]
+    ref = _ref_net(net, "f32")
+    for q in ("int8", "fp8"):
+        eng = DecodeEngine(net, slots=8, max_len=512,
+                           spec=SpecConfig(self_draft=q, k=4)).start()
+        try:
+            ops.reset_launch_counts()
+            got, row, st0, st1 = _decode_round(eng, prompts, PREC_NEW, True)
+            launches = _expect_launches(f"precision self-draft {q}",
+                                        _expected_launches(eng, st0, st1))
+            spec = st1["spec"]
+        finally:
+            eng.stop()
+        ties = _ties(ref, prompts, got, out["plain_tokens"])
+        rec = dict(row, ties=ties, launches=launches,
+                   acceptance=spec["acceptance_rate"],
+                   draft_precision=spec["draft_precision"],
+                   draft_weight_bytes=spec["draft_weight_bytes"],
+                   speedup=row["tokens_per_s"] / out["plain_tokens_per_s"])
+        out[f"self_draft_{q}"] = rec
+        print(f"precision: self-draft {q} (k=4, dense): acceptance "
+              f"{rec['acceptance']:.3f}, {row['tokens_per_s']:.1f} tokens/s "
+              f"= {rec['speedup']:.2f}x the plain captured engine's "
+              f"{out['plain_tokens_per_s']:.1f}, {row['ms']:.3f} ms a tick, "
+              f"draft {rec['draft_weight_bytes']} bytes, launches "
+              f"{launches}, near-ties {ties} [{card}]", flush=True)
+        if spec["draft_precision"] != q:
+            raise AssertionError(f"self-draft {q}: {spec['draft_precision']}")
+    res["decode"] = out
+    return nets
+
+
+def precision_http_part(card, res, net, ids, dev="cuda"):
+    """(d) Over HTTP, int8 on both engines (the TinyTransformer, a dense
+    captured decode engine, /predict max_batch 16): /warmup captures the
+    ladder; /admin/swap of a seed-7 zip while 8 /generate streams and
+    mixed /predict run: the version bumps to 1 on both engines and in
+    ``x-model-version``, no capture follows /warmup, and after the swap
+    /generate's tokens equal a fresh int8 engine's on the seed-7 weights
+    and /predict a fresh int8 engine's; a zip of d_model 64 answers 409
+    ``weight_mismatch`` with serving unchanged, a payload without
+    ``checkpoint`` 400."""
+    import threading
+
+    import numpy as np
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.serving import (DecodeEngine,
+                                                  InferenceEngine,
+                                                  InferenceServer)
+    from deeplearning4j_tpu_torch.serving.wire import (ndarray_from_b64,
+                                                       ndarray_to_b64)
+    from deeplearning4j_tpu_torch.util.model_serializer import write_model
+    from deeplearning4j_tpu_torch.zoo import TinyTransformer
+    V = res["vocab"]
+    PREC_DIR.mkdir(parents=True, exist_ok=True)
+    new = TinyTransformer(vocab_size=V, seed=7).init(device=dev)
+    good, wrong = PREC_DIR / "seed7.zip", PREC_DIR / "d64.zip"
+    write_model(new, good)
+    write_model(TinyTransformer(vocab_size=V, d_model=64).init(device=dev),
+                wrong)
+    prompts = _decode_prompts(ids)
+    eye = np.eye(V, dtype=np.float32)
+    rows = np.array(ids[:64 * 32]).reshape(32, 64)
+    cuts = np.cumsum([0, 1, 3, 7, 16, 5])
+    xs = [eye[rows[a:b]] for a, b in zip(cuts[:-1], cuts[1:])]
+    eng = InferenceEngine(net, 16, precision="int8")
+    dec = DecodeEngine(net, slots=8, max_len=512, precision="int8")
+    srv = InferenceServer(net, port=0, engine=eng, decode_engine=dec).start()
+    url = f"http://127.0.0.1:{srv.port}"
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        status, body, _ = _http(url, "/warmup", {"input_shape": [64, V],
+                                                 "max_batch": 16})
+        out["warmup"] = dict(body, status=status,
+                             wall_s=time.perf_counter() - t0)
+        if status != 200 or body["buckets"] != [1, 2, 4, 8, 16]:
+            raise AssertionError(f"/warmup answered {status} {body}")
+        caps = (eng.captures, {k: p["captures"]
+                               for k, p in dec.program_stats().items()})
+        calls0, steps0 = eng.stats()["device_calls"], dec.stats()["steps"]
+        ops.reset_launch_counts()
+        gens, preds = [None] * 8, []
+
+        def generate(i):
+            gens[i] = _http(url, "/generate", {"tokens": prompts[i],
+                                               "max_new_tokens": PREC_NEW})
+
+        def predict():
+            for x in xs:
+                preds.append(_http(url, "/predict",
+                                   {"ndarray": ndarray_to_b64(x)}))
+        threads = [threading.Thread(target=generate, args=(i,))
+                   for i in range(8)] + [threading.Thread(target=predict)]
+        for t in threads:
+            t.start()
+        t1 = time.perf_counter()
+        status, body, _ = _http(url, "/admin/swap", {"checkpoint": str(good)})
+        out["swap"] = dict(body, status=status,
+                           wall_s=time.perf_counter() - t1)
+        for t in threads:
+            t.join()
+        if status != 200 or body["version"] != 1:
+            raise AssertionError(f"/admin/swap answered {status} {body}")
+        during = {"generate": [g[2].get("x-model-version") for g in gens],
+                  "predict": [p[2].get("x-model-version") for p in preds]}
+        # after the swap: the seed-7 weights, version 1
+        after = [_http(url, "/generate", {"tokens": p,
+                                          "max_new_tokens": PREC_NEW})
+                 for p in prompts]
+        got = [a[1]["tokens"] for a in after]
+        x = xs[2]
+        status, body, hdrs = _http(url, "/predict",
+                                   {"ndarray": ndarray_to_b64(x)})
+        pred = ndarray_from_b64(body["ndarray"])
+        launches = _expect_launches("precision HTTP", {
+            "flash_attn_fwd": 2 * (eng.stats()["device_calls"] - calls0),
+            "flash_decode": 2 * (dec.stats()["steps"] - steps0)})
+        caps_after = (eng.captures, {k: p["captures"] for k, p in
+                                     dec.program_stats().items()})
+        fresh = DecodeEngine(new, slots=8, max_len=512,
+                             precision="int8").start()
+        try:
+            want = _decode_round(fresh, prompts, PREC_NEW, False)[0]
+        finally:
+            fresh.stop()
+        want_pred = InferenceEngine(new, 16, precision="int8").predict_host(x)
+        rejects = {}
+        for name, payload in (("wrong_width", {"checkpoint": str(wrong)}),
+                              ("no_checkpoint", {})):
+            st, b, _ = _http(url, "/admin/swap", payload)
+            rejects[name] = (st, b["error"]["type"])
+        st, b2, h2 = _http(url, "/predict", {"ndarray": ndarray_to_b64(x)})
+        unchanged = np.array_equal(ndarray_from_b64(b2["ndarray"]), pred)
+        out.update(during=during, after_version=hdrs.get("x-model-version"),
+                   tokens_equal_fresh=got == want,
+                   predict_max_abs_err=float(np.abs(pred - want_pred).max()),
+                   launches=launches, captures=caps_after, rejects=rejects,
+                   unchanged_after_rejects=unchanged,
+                   versions=(eng.model_version, dec.model_version))
+    finally:
+        srv.stop()
+        for f in (good, wrong):
+            f.unlink(missing_ok=True)
+    res["http"] = out
+    print(f"precision: HTTP int8: /warmup {out['warmup']['buckets']} in "
+          f"{out['warmup']['seconds']:.3f} s; /admin/swap during traffic "
+          f"{out['swap']['status']} version {out['swap']['version']} in "
+          f"{out['swap']['wall_s']:.3f} s (versions seen meanwhile "
+          f"{out['during']}); after: x-model-version "
+          f"{out['after_version']}, /generate == a fresh engine's "
+          f"{out['tokens_equal_fresh']}, /predict vs a fresh engine "
+          f"{out['predict_max_abs_err']:.3g}; captures {caps} -> "
+          f"{caps_after}; rejects {rejects}, serving unchanged {unchanged}; "
+          f"launches {launches} [{card}]", flush=True)
+    problems = []
+    if caps_after != caps:
+        problems.append("a capture after /warmup")
+    if not out["tokens_equal_fresh"] or out["predict_max_abs_err"] > 1e-6:
+        problems.append("serving after the swap is not the new weights'")
+    if out["after_version"] != "1" or out["versions"] != (1, 1):
+        problems.append(f"versions {out['after_version']} {out['versions']}")
+    if rejects != {"wrong_width": (409, "weight_mismatch"),
+                   "no_checkpoint": (400, "bad_request")} or not unchanged:
+        problems.append(f"rejects {rejects}, unchanged {unchanged}")
+    if problems:
+        raise AssertionError(f"precision HTTP: {problems}")
+
+
+def serving_precision_phase(card, dev="cuda"):
+    """Phase 15: the serving precisions and the bucketed engine's program
+    contract (``chip_smoke.py`` docstring)."""
+    from deeplearning4j_tpu_torch.zoo.corpus import corpus_ids
+    ids, vocab = corpus_ids()
+    ids = [int(t) for t in ids]
+    res = {"card": card, "vocab": len(vocab)}
+    t0 = time.perf_counter()
+    precision_lstm_part(card, res, dev)
+    res["lstm_part_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    nets = precision_decode_part(card, res, ids, dev)
+    res["decode_part_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    precision_http_part(card, res, nets["f32"], ids, dev)
+    res["http_part_s"] = time.perf_counter() - t1
+    res["seconds"] = time.perf_counter() - t0
+    print(f"precision: phase 15 took {res['seconds']:.1f} s (LSTM "
+          f"{res['lstm_part_s']:.1f} s, decode {res['decode_part_s']:.1f} s, "
+          f"http {res['http_part_s']:.1f} s) [{card}]", flush=True)
+    return res
+
+
 def counted_launches(tree, kernel):
     """The launches of ``kernel`` over every counted window (each dict
     entry ``launches``) of a phase's results."""
@@ -5827,10 +6285,13 @@ def main() -> int:
                 pair = bwd_kernel_case(B, T, causal)
                 rows.extend(pair)
                 print("kernel: " + fmt_bwd(pair) + f" [{card}]", flush=True)
-    for kernel in ("flash_decode", "flash_decode_paged"):
-        for B, pos in ((1, [511]), (8, None), (64, None)):
-            rows.append(attn_kernel_case(kernel, B, 512, pos=pos))
-            print("kernel: " + fmt_attn(rows[-1]) + f" [{card}]", flush=True)
+    for kv_dtype in ("float32", "bfloat16"):
+        for kernel in ("flash_decode", "flash_decode_paged"):
+            for B, pos in ((1, [511]), (8, None), (64, None)):
+                rows.append(attn_kernel_case(kernel, B, 512, pos=pos,
+                                             kv_dtype=kv_dtype))
+                print("kernel: " + fmt_attn(rows[-1]) + f" [{card}]",
+                      flush=True)
     # head dims past 128: K5-K9 through the column-chunk split, 2 heads
     for dh in WIDE_HEAD_DIMS:
         for T in (64, 100):
@@ -5843,9 +6304,11 @@ def main() -> int:
                 rows.extend(pair)
                 print("kernel: " + fmt_bwd(pair) + f" [{card}]", flush=True)
             for kernel in ("flash_decode", "flash_decode_paged"):
-                rows.append(attn_kernel_case(kernel, 4, T, dh=dh, heads=2))
-                print("kernel: " + fmt_attn(rows[-1]) + f" [{card}]",
-                      flush=True)
+                for kv_dtype in ("float32", "bfloat16"):
+                    rows.append(attn_kernel_case(kernel, 4, T, dh=dh,
+                                                 heads=2, kv_dtype=kv_dtype))
+                    print("kernel: " + fmt_attn(rows[-1]) + f" [{card}]",
+                          flush=True)
 
     res = slice_phase(card)
     t0 = time.perf_counter()
@@ -5880,12 +6343,15 @@ def main() -> int:
     cnn["phase_seconds"] = time.perf_counter() - t0
     inception = inception_phase(card)
     kv_tier = kv_tier_phase(card)
+    precision = serving_precision_phase(card)
 
     # each kernel at its main path's shape, with the launches of the run
     # that drove it: /predict of the 15 held-out windows (bucket 16, T=64)
     # runs K4, rnn_time_step in 16-step chunks of 15 rows K1; the recipe's
     # steps (B=32, T=64) K4-train and K3; tBPTT chunks (B=32, T=16) K2
-    main_shapes = {"lstm2_fwd": (64, 16, res["launches"]),
+    main_shapes = {"lstm2_fwd": (64, 16, {
+                       "lstm2_fwd": res["launches"].get("lstm2_fwd", 0)
+                       + counted_launches(precision["lstm"], "lstm2_fwd")}),
                    "lstm_fwd": (16, 15, res["launches"]),
                    "lstm2_fwd_train": (64, 32, train["launches_recipe"]),
                    "lstm_bwd": (64, 32, train["launches_recipe"]),
@@ -5917,7 +6383,8 @@ def main() -> int:
     print("main-path shape: " + fmt_attn(row) + f" [{card}]", flush=True)
     by_path = {"tiny /predict": tiny["launches_predict"]["flash_attn_fwd"]
                + tiny["launches_mixed"]["flash_attn_fwd"],
-               "phase 14": counted_launches(kv_tier, "flash_attn_fwd")}
+               "phase 14": counted_launches(kv_tier, "flash_attn_fwd"),
+               "phase 15": counted_launches(precision, "flash_attn_fwd")}
     entry("flash_attn_fwd", row, sum(by_path.values()))
     entries[-1]["launches_by_path"] = by_path
     # the recipe's train steps (B=32, T=64) run K6 and K7 at BH 128, causal
@@ -5930,12 +6397,29 @@ def main() -> int:
                          ("flash_decode_paged", "paged")):
         row = attn_kernel_case(kernel, 8, 512, pos=mid, seed=1)
         print("main-path shape: " + fmt_attn(row) + f" [{card}]", flush=True)
+        # the bfloat16 instantiation's launches: phase 15's bf16 engines
+        bf16_launches = sum(counted_launches(v, kernel) for k, v in
+                            precision["decode"].items()
+                            if k.startswith("bf16_"))
         by_path = {f"tiny {kind} /generate":
                    tiny[f"launches_{kind}"][kernel],
                    "phase 11": counted_launches(serving, kernel),
-                   "phase 14": counted_launches(kv_tier, kernel)}
+                   "phase 14": counted_launches(kv_tier, kernel),
+                   "phase 15 (float32 caches)":
+                   counted_launches(precision, kernel) - bf16_launches}
         entry(kernel, row, sum(by_path.values()))
         entries[-1]["launches_by_path"] = by_path
+        # the same shape over a bfloat16 cache (F8): that instantiation's
+        # numbers beside the float32 ones
+        row = attn_kernel_case(kernel, 8, 512, pos=mid, seed=1,
+                               kv_dtype="bfloat16")
+        print("main-path shape: " + fmt_attn(row) + f" [{card}]", flush=True)
+        rows.append(row)
+        entries[-1]["bf16"] = {
+            k: row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms", "floor_ms",
+                                "plan")}
+        entries[-1]["bf16"]["launches"] = bf16_launches
     # the wide-head phase's shapes (Dh 256, 2 heads): /predict of 15 windows
     # (bucket 16, T=64, causal), train steps (B=32, T=64), the engines; K5-K7
     # also at Dh 128 (one chunk), the split's cost beside it
@@ -5965,7 +6449,7 @@ def main() -> int:
          "train": train, "tiny_train": tiny_train, "captured": captured,
          "regularised": regularised, "fit_contract": fit_contract,
          "serving_features": serving, "cnn": cnn, "inception": inception,
-         "kv_tier": kv_tier, "kernels": entries},
+         "kv_tier": kv_tier, "precision": precision, "kernels": entries},
         indent=1))
     print(json.dumps({"kernels": entries}))
     print(card)

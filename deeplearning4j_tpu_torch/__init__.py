@@ -19,7 +19,11 @@ LeNet, SimpleCNN, AlexNet, VGG, Darknet19 and ResNet50 served and
 trained, with BatchNormalization's running statistics as layer state,
 every graph vertex, the normalizers with the device-side image scaler
 and the standard datasets' fetchers -- runs on cuDNN and plain PyTorch,
-as the JAX package leaves it to XLA.
+as the JAX package leaves it to XLA. Both serving engines take the JAX
+package's weight-only serving precisions (``quant``: int8 and
+fp8-e4m3 codes with per-channel scales, ``exec.Executor(precision=)``),
+hot-swap their own resident weights in place, and run captured programs
+(CUDA graphs) over them.
 """
 
 from deeplearning4j_tpu_torch import monitor, optimize, resilience  # noqa: F401

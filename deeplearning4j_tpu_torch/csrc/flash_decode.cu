@@ -11,13 +11,16 @@
 // times v, with pos clamped to 0..C-1. Two artefacts of the TPU kernels are
 // not carried over: the 8-row replication of q (a TPU tile floor) and the
 // cast and transpose copies of the whole cache or pool the TPU wrappers
-// make on every step, which read all C positions. These kernels read the
-// cache and the pool in place, through their strides, and only the live
-// rows 0..pos.
+// make on every step, which read all C positions (the JAX wrappers also
+// widen a bfloat16 cache to float32 there, a copy of the whole pool a
+// step on a paged engine). These kernels read the cache and the pool in
+// place, in their own type, through their strides, and only the live rows
+// 0..pos.
 //
 // What bounds it on the card: bytes, in principle. A (b, h) pair reads
-// 2 (pos + 1) Dh float32 values of k and v once and does ~4 Dh FMAs per
-// row, far below the card's operations-per-byte line. At serving batch
+// 2 (pos + 1) Dh values of k and v once (4 bytes each, or 2 in bfloat16)
+// and does ~4 Dh FMAs per row, far below the card's operations-per-byte
+// line. At serving batch
 // sizes, though, the work is a few dozen (b, h) pairs of a few hundred rows
 // each: what sets the time is how many SMs take part, how many dependent
 // load rounds each walks, and the launch itself.
@@ -38,9 +41,12 @@
 // whole pages, so no page is split between blocks; the other blocks get
 // empty ranges and add nothing.
 //
-// Inside a block, groups of G lanes per key row, each lane holding four
-// elements of the row (one 16-byte load of k and of v, neighbouring lanes
-// on neighbouring addresses). A round gives each group UNROLL keys of the
+// Inside a block, groups of G lanes per key row, each lane holding E
+// elements of the row: one 16-byte load of k and of v, neighbouring lanes
+// on neighbouring addresses (E = 4 in float32; E = 8 in bfloat16, widened
+// in registers, exactly, as __bfloat1622float2 does). So a bfloat16 row
+// takes half the lanes of a float32 one, a block twice the key rows a
+// round, and the plan (which counts keys a round) follows the type. A round gives each group UNROLL keys of the
 // block's range, and a lane issues the loads of all of them before it uses
 // any; the group's lanes sum their partial dot products with warp
 // shuffles, the UNROLL sums interleaved, and run one online-softmax update
@@ -62,13 +68,16 @@
 // order 0..S-1 and writes them. No block touches another's shared memory
 // after that barrier, so none waits for its peers before it exits.
 //
-// Head dims past 128: the column-chunk split. A cluster per (b, h, chunk)
-// triple, ceil(Dh / 128) chunks of 128 columns (the last one ragged, down
-// to 8), with G = 32 lanes a key row. A group's lanes form each score over
+// Head dims past 32 E (128 in float32, 256 in bfloat16): the column-chunk
+// split. A cluster per (b, h, chunk) triple, ceil(Dh / 32 E) chunks of
+// 32 E columns (the last one ragged, down to 8), with G = 32 lanes a key
+// row. A group's lanes form each score over
 // the full Dh by looping their 16-byte loads of q and k over the chunks,
 // and accumulate only the chunk's columns of v; no register array grows
-// with Dh. Every chunk recomputes the scores: at Dh 256 that is 2x the
-// q . k reads and work, the price of each output element written once.
+// with Dh. Every chunk recomputes the scores: at Dh 256 in float32 that is
+// 2x the q . k reads and work, the price of each output element written
+// once.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -78,7 +87,6 @@ using namespace dsmem;
 
 namespace {
 
-constexpr int CHUNK = 128;      // head-dim columns a block accumulates
 constexpr int UNROLL = 4;       // key rows a group loads before it uses any
 constexpr int MAX_SPLIT = 16;   // blocks a cluster splits the live keys over
 constexpr int MAX_THREADS = 256;
@@ -92,39 +100,74 @@ enum Err { ERR_HEAD_DIM = -1, ERR_SHAPE = -2, ERR_NO_PLAN = -3 };
 // block takes at least before the live keys spread to one more block.
 enum { PLAN_LEN = 4 };
 
+// elements of a cache row a lane holds: one 16-byte load
+template <typename T>
+__host__ __device__ constexpr int lane_elems() {
+  return 16 / (int)sizeof(T);
+}
+
+template <typename T>
 struct Args {
-  const float *q, *k, *v;
+  const float* q;
+  const T *k, *v;
   const int *pos, *tables;
   float* out;
   int H, Dh, C, bs, MB;
   float scale;
 };
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// x[0..E) = the E float32 values at p (16-byte aligned)
+template <int E>
+__device__ __forceinline__ void load_f32(const float* p, float (&x)[E]) {
+#pragma unroll
+  for (int i = 0; i < E; i += 4) {
+    const float4 a = *reinterpret_cast<const float4*>(p + i);
+    x[i] = a.x;
+    x[i + 1] = a.y;
+    x[i + 2] = a.z;
+    x[i + 3] = a.w;
+  }
 }
 
-__device__ __forceinline__ float dot4(float4 a, float4 b) {
-  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+// a lane's E elements of a cache row, widened to float32
+__device__ __forceinline__ void load_row(const float* p, float (&x)[4]) { load_f32<4>(p, x); }
+
+__device__ __forceinline__ void load_row(const __nv_bfloat16* p, float (&x)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    // the lower address is the low half: __bfloat1622float2's widening
+    x[2 * i] = __uint_as_float(w[i] << 16);
+    x[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
 }
 
-__device__ __forceinline__ float4 shfl4(float4 a, int d) {
-  return make_float4(__shfl_xor_sync(0xffffffffu, a.x, d), __shfl_xor_sync(0xffffffffu, a.y, d),
-                     __shfl_xor_sync(0xffffffffu, a.z, d), __shfl_xor_sync(0xffffffffu, a.w, d));
+template <int E>
+__device__ __forceinline__ void zero(float (&x)[E]) {
+#pragma unroll
+  for (int i = 0; i < E; ++i) x[i] = 0.f;
+}
+
+template <int E>
+__device__ __forceinline__ float dot(const float (&a)[E], const float (&b)[E]) {
+  float s = a[0] * b[0];
+#pragma unroll
+  for (int i = 1; i < E; ++i) s += a[i] * b[i];
+  return s;
 }
 
 // Fold the softmax triple (m2, l2, a2) into (m, l, a); a side that saw no
 // key (l == 0, m = -inf) has weight 0.
-__device__ __forceinline__ void combine(float& m, float& l, float4& a, float m2, float l2,
-                                        float4 a2) {
+template <int E>
+__device__ __forceinline__ void combine(float& m, float& l, float (&a)[E], float m2, float l2,
+                                        const float (&a2)[E]) {
   const float M = fmaxf(m, m2);
   const float w1 = l > 0.f ? __expf(m - M) : 0.f;
   const float w2 = l2 > 0.f ? __expf(m2 - M) : 0.f;
   l = l * w1 + l2 * w2;
-  a.x = a.x * w1 + a2.x * w2;
-  a.y = a.y * w1 + a2.y * w2;
-  a.z = a.z * w1 + a2.z * w2;
-  a.w = a.w * w1 + a2.w * w2;
+#pragma unroll
+  for (int i = 0; i < E; ++i) a[i] = a[i] * w1 + a2[i] * w2;
   m = M;
 }
 
@@ -145,13 +188,15 @@ __device__ __forceinline__ void block_range(int p, int rank, int S, int bs, int 
   hi = min(n, lo + per);
 }
 
-// G: lanes per key row (a power of two, 4 G >= Dh, or G = 32 and 4 G =
-// CHUNK < Dh with WIDE); TPB threads a block. Grid: S x (B H chunks)
-// blocks along x, clusters of S.
-template <int G, bool PAGED, bool WIDE, int TPB>
-__global__ void __launch_bounds__(TPB) flash_decode_kernel(Args a, int S) {
+// T: the cache's element type, E = lane_elems<T>() elements a lane. G:
+// lanes per key row (a power of two, E G >= Dh, or G = 32 and E G < Dh
+// with WIDE, a chunk of 32 E columns); TPB threads a block. Grid: S x (B H
+// chunks) blocks along x, clusters of S.
+template <typename T, int G, bool PAGED, bool WIDE, int TPB>
+__global__ void __launch_bounds__(TPB) flash_decode_kernel(Args<T> a, int S) {
+  constexpr int E = lane_elems<T>();
   constexpr int NG = TPB / G;  // key groups per block
-  constexpr int W = 4 * G;     // columns a block accumulates
+  constexpr int W = E * G;     // columns a block accumulates
   constexpr int WARPS = TPB / 32;
   constexpr int TABLE = 4 * TPB;  // page-table entries a block stages at a time
   __shared__ float wm[WARPS], wl[WARPS];
@@ -169,13 +214,15 @@ __global__ void __launch_bounds__(TPB) flash_decode_kernel(Args a, int S) {
   const int b = bh / H, h = bh % H;
   const int tid = threadIdx.x;
   const int gi = tid / G, lane = tid % G;
-  const int e0 = 4 * lane, eo = oc * W + e0;  // the lane's columns: first chunk, output
-  const bool has = eo < Dh;  // Dh is a multiple of 8, so eo + 4 <= Dh
+  const int e0 = E * lane, eo = oc * W + e0;  // the lane's columns: first chunk, output
+  const bool has = eo < Dh;  // Dh is a multiple of 8, so eo + E <= Dh
   const float* qrow = a.q + (size_t)bh * Dh;
-  float4 qv = make_float4(0.f, 0.f, 0.f, 0.f);
+  float qv[E];
+  zero(qv);
   if (!WIDE && has) {
-    qv = load4(qrow + e0);
-    qv.x *= a.scale; qv.y *= a.scale; qv.z *= a.scale; qv.w *= a.scale;
+    load_f32<E>(qrow + e0, qv);
+#pragma unroll
+    for (int i = 0; i < E; ++i) qv[i] *= a.scale;
   }
   // a position past the capacity means every cached row is live
   const int p = min(max(a.pos[b], 0), C - 1);
@@ -187,7 +234,8 @@ __global__ void __launch_bounds__(TPB) flash_decode_kernel(Args a, int S) {
   if (!one) cluster_arrive_relaxed();
 
   float m = -INFINITY, l = 0.f;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  float acc[E];
+  zero(acc);
   // one window for the dense kernel; TABLE pages at a time for the paged
   for (int w0 = lo; w0 < hi; w0 += PAGED ? TABLE * bs : hi - lo) {
     const int w1 = PAGED ? min(hi, w0 + TABLE * bs) : hi;
@@ -203,7 +251,7 @@ __global__ void __launch_bounds__(TPB) flash_decode_kernel(Args a, int S) {
     for (int j0 = w0; j0 < w1; j0 += NG * UNROLL) {
       bool ok[UNROLL];
       size_t row[UNROLL];
-      float4 vv[UNROLL];
+      float vv[UNROLL][E];
       float s[UNROLL];
 #pragma unroll
       for (int u = 0; u < UNROLL; ++u) {
@@ -214,23 +262,31 @@ __global__ void __launch_bounds__(TPB) flash_decode_kernel(Args a, int S) {
           if (PAGED) row[u] = ((size_t)tbl[j / bs - first] * bs + j % bs) * H + h;
           else row[u] = ((size_t)b * C + j) * H + h;
         }
-        vv[u] = ok[u] && has ? load4(a.v + row[u] * Dh + eo) : make_float4(0.f, 0.f, 0.f, 0.f);
+        if (ok[u] && has) load_row(a.v + row[u] * Dh + eo, vv[u]);
+        else zero(vv[u]);
         s[u] = 0.f;
       }
       if (WIDE) {
         for (int e = e0; e < Dh; e += W) {
-          const float4 qe = load4(qrow + e);
+          float qe[E];
+          load_f32<E>(qrow + e, qe);
 #pragma unroll
           for (int u = 0; u < UNROLL; ++u)
-            if (ok[u]) s[u] += dot4(qe, load4(a.k + row[u] * Dh + e));
+            if (ok[u]) {
+              float ke[E];
+              load_row(a.k + row[u] * Dh + e, ke);
+              s[u] += dot(qe, ke);
+            }
         }
       } else {
-        float4 kv[UNROLL];
+        float kv[UNROLL][E];
 #pragma unroll
-        for (int u = 0; u < UNROLL; ++u)
-          kv[u] = ok[u] && has ? load4(a.k + row[u] * Dh + e0) : make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int u = 0; u < UNROLL; ++u) {
+          if (ok[u] && has) load_row(a.k + row[u] * Dh + e0, kv[u]);
+          else zero(kv[u]);
+        }
 #pragma unroll
-        for (int u = 0; u < UNROLL; ++u) s[u] = dot4(qv, kv[u]);
+        for (int u = 0; u < UNROLL; ++u) s[u] = dot(qv, kv[u]);
       }
 #pragma unroll
       for (int w = 1; w < G; w <<= 1)
@@ -245,16 +301,15 @@ __global__ void __launch_bounds__(TPB) flash_decode_kernel(Args a, int S) {
         }
         const float alpha = __expf(m - mn);  // 0 before the first key
         l *= alpha;
-        acc.x *= alpha; acc.y *= alpha; acc.z *= alpha; acc.w *= alpha;
+#pragma unroll
+        for (int i = 0; i < E; ++i) acc[i] *= alpha;
 #pragma unroll
         for (int u = 0; u < UNROLL; ++u)
           if (ok[u]) {
             const float pe = __expf(s[u] - mn);
             l += pe;
-            acc.x = fmaf(pe, vv[u].x, acc.x);
-            acc.y = fmaf(pe, vv[u].y, acc.y);
-            acc.z = fmaf(pe, vv[u].z, acc.z);
-            acc.w = fmaf(pe, vv[u].w, acc.w);
+#pragma unroll
+            for (int i = 0; i < E; ++i) acc[i] = fmaf(pe, vv[u][i], acc[i]);
           }
         m = mn;
       }
@@ -264,12 +319,19 @@ __global__ void __launch_bounds__(TPB) flash_decode_kernel(Args a, int S) {
   // the groups of a warp: an xor butterfly, after which lanes 0..G-1 hold
   // the warp's triple for their columns
 #pragma unroll
-  for (int d = G; d < 32; d <<= 1)
+  for (int d = G; d < 32; d <<= 1) {
+    float a2[E];
+#pragma unroll
+    for (int i = 0; i < E; ++i) a2[i] = __shfl_xor_sync(0xffffffffu, acc[i], d);
     combine(m, l, acc, __shfl_xor_sync(0xffffffffu, m, d), __shfl_xor_sync(0xffffffffu, l, d),
-            shfl4(acc, d));
+            a2);
+  }
   const int warp = tid / 32;
   if (tid % 32 < G) {
-    *reinterpret_cast<float4*>(&wacc[warp][e0]) = acc;
+#pragma unroll
+    for (int i = 0; i < E; i += 4)
+      *reinterpret_cast<float4*>(&wacc[warp][e0 + i]) =
+          make_float4(acc[i], acc[i + 1], acc[i + 2], acc[i + 3]);
     if (lane == 0) {
       wm[warp] = m;
       wl[warp] = l;
@@ -357,7 +419,7 @@ int split_for(Kernel kernel, int n, int C, int sms, int threads, int kmin, int* 
   return ERR_NO_PLAN;
 }
 
-template <int G, bool PAGED, bool WIDE>
+template <typename T, int G, bool PAGED, bool WIDE>
 int search_plan(int dev, int n, int C, Plan* out, bool* ok) {
   int sms;
   cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -365,22 +427,22 @@ int search_plan(int dev, int n, int C, Plan* out, bool* ok) {
   const int threads = plan_threads(n, sms, G);
   int S;
   const int rc = threads == MAX_THREADS
-                     ? split_for(flash_decode_kernel<G, PAGED, WIDE, MAX_THREADS>, n, C, sms,
+                     ? split_for(flash_decode_kernel<T, G, PAGED, WIDE, MAX_THREADS>, n, C, sms,
                                  threads, MAX_THREADS / G * UNROLL, &S)
-                     : split_for(flash_decode_kernel<G, PAGED, WIDE, MAX_THREADS / 2>, n, C,
+                     : split_for(flash_decode_kernel<T, G, PAGED, WIDE, MAX_THREADS / 2>, n, C,
                                  sms, threads, MAX_THREADS / 2 / G * UNROLL, &S);
   *ok = rc == 0;
   if (*ok) *out = Plan{S, threads};
   return 0;
 }
 
-// Launch one instance on its plan (searched once per device, n and C, and
-// kept); the empty kernel instead where `empty`.
-template <int G, bool PAGED, bool WIDE>
-int run(const Args& a, int n, bool empty, int* plan_out, cudaStream_t s) {
+// Launch one instance on its plan (searched once per device, type, n and
+// C, and kept); the empty kernel instead where `empty`.
+template <typename T, int G, bool PAGED, bool WIDE>
+int run(const Args<T>& a, int n, bool empty, int* plan_out, cudaStream_t s) {
   Plan p;
   bool ok;
-  const int e = cached_plan<search_plan<G, PAGED, WIDE>>(n, a.C, &p, &ok);
+  const int e = cached_plan<search_plan<T, G, PAGED, WIDE>>(n, a.C, &p, &ok);
   if (e) return e;
   if (!ok) return ERR_NO_PLAN;
   if ((long long)p.S * n > 0x7fffffff) return ERR_SHAPE;
@@ -395,14 +457,16 @@ int run(const Args& a, int n, bool empty, int* plan_out, cudaStream_t s) {
     return launch_cluster_grid(empty_kernel, p.S, grid, p.threads, 0, s, 0);
   }
   if (p.threads == MAX_THREADS)
-    return launch_cluster_grid(flash_decode_kernel<G, PAGED, WIDE, MAX_THREADS>, p.S, grid,
+    return launch_cluster_grid(flash_decode_kernel<T, G, PAGED, WIDE, MAX_THREADS>, p.S, grid,
                                p.threads, 0, s, a, p.S);
-  return launch_cluster_grid(flash_decode_kernel<G, PAGED, WIDE, MAX_THREADS / 2>, p.S, grid,
+  return launch_cluster_grid(flash_decode_kernel<T, G, PAGED, WIDE, MAX_THREADS / 2>, p.S, grid,
                              p.threads, 0, s, a, p.S);
 }
 
-template <bool PAGED>
-int launch(Args a, int B, int device, bool empty, int* plan_out, void* stream) {
+template <typename T, bool PAGED>
+int launch(Args<T> a, int B, int device, bool empty, int* plan_out, void* stream) {
+  constexpr int E = lane_elems<T>();
+  constexpr int CHUNK = 32 * E;  // head-dim columns a block accumulates, past which WIDE
   const int Dh = a.Dh;
   if (Dh < 8 || Dh % 8 != 0) return ERR_HEAD_DIM;
   const long long nc = (Dh + CHUNK - 1) / CHUNK;
@@ -413,50 +477,77 @@ int launch(Args a, int B, int device, bool empty, int* plan_out, void* stream) {
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = (cudaStream_t)stream;
   a.scale = 1.f / sqrtf((float)Dh);
-  const int lanes = Dh / 4, bh = B * a.H;
-  if (lanes <= 2) return run<2, PAGED, false>(a, bh, empty, plan_out, s);
-  if (lanes <= 4) return run<4, PAGED, false>(a, bh, empty, plan_out, s);
-  if (lanes <= 8) return run<8, PAGED, false>(a, bh, empty, plan_out, s);
-  if (lanes <= 16) return run<16, PAGED, false>(a, bh, empty, plan_out, s);
-  if (lanes <= 32) return run<32, PAGED, false>(a, bh, empty, plan_out, s);
-  return run<32, PAGED, true>(a, (int)(bh * nc), empty, plan_out, s);
+  const int lanes = Dh / E, bh = B * a.H;
+  if (lanes <= 2) return run<T, 2, PAGED, false>(a, bh, empty, plan_out, s);
+  if (lanes <= 4) return run<T, 4, PAGED, false>(a, bh, empty, plan_out, s);
+  if (lanes <= 8) return run<T, 8, PAGED, false>(a, bh, empty, plan_out, s);
+  if (lanes <= 16) return run<T, 16, PAGED, false>(a, bh, empty, plan_out, s);
+  if (lanes <= 32) return run<T, 32, PAGED, false>(a, bh, empty, plan_out, s);
+  return run<T, 32, PAGED, true>(a, (int)(bh * nc), empty, plan_out, s);
+}
+
+template <typename T>
+int run_dense(const void* q, const void* kc, const void* vc, const void* pos, void* out, int B, int H,
+          int Dh, int C, int device, void* stream, int* plan_out) {
+  const Args<T> a{(const float*)q, (const T*)kc, (const T*)vc, (const int*)pos, nullptr,
+                  (float*)out, H, Dh, C, 1, 0, 0.f};
+  return launch<T, false>(a, B, device, false, plan_out, stream);
+}
+
+template <typename T>
+int run_paged(const void* q, const void* pk, const void* pv, const void* pos,
+          const void* block_tables, void* out, int B, int H, int Dh, int bs, int MB, int device,
+          void* stream, int* plan_out) {
+  const Args<T> a{(const float*)q, (const T*)pk, (const T*)pv, (const int*)pos,
+                  (const int*)block_tables, (float*)out, H, Dh, MB * bs, bs, MB, 0.f};
+  return launch<T, true>(a, B, device, false, plan_out, stream);
+}
+
+template <typename T>
+int run_empty(int paged, int B, int H, int Dh, int C, int bs, int device, void* stream,
+                 int* plan_out) {
+  const Args<T> a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, H, Dh, C,
+                  paged ? bs : 1, paged ? C / bs : 0, 0.f};
+  return paged ? launch<T, true>(a, B, device, true, plan_out, stream)
+               : launch<T, false>(a, B, device, true, plan_out, stream);
 }
 
 }  // namespace
 
-// q, out: (B, H, Dh) float32; kc, vc: (B, C, H, Dh) float32; pos: (B,)
-// int32. All contiguous; Dh any multiple of 8. Returns 0, a cudaError_t, or
-// an Err; plan_out (PLAN_LEN ints, may be null) gets the plan.
+// q, out: (B, H, Dh) float32; kc, vc: (B, C, H, Dh), float32 (kv_bf16 0)
+// or bfloat16 (kv_bf16 1); pos: (B,) int32. All contiguous; Dh any
+// multiple of 8. Returns 0, a cudaError_t, or an Err; plan_out (PLAN_LEN
+// ints, may be null) gets the plan.
 extern "C" int flash_decode(const void* q, const void* kc, const void* vc, const void* pos,
-                            void* out, int B, int H, int Dh, int C, int device, void* stream,
-                            int* plan_out) {
-  const Args a{(const float*)q, (const float*)kc, (const float*)vc, (const int*)pos, nullptr,
-               (float*)out, H, Dh, C, 1, 0, 0.f};
-  return launch<false>(a, B, device, false, plan_out, stream);
+                            void* out, int B, int H, int Dh, int C, int kv_bf16, int device,
+                            void* stream, int* plan_out) {
+  return kv_bf16 ? run_dense<__nv_bfloat16>(q, kc, vc, pos, out, B, H, Dh, C, device, stream,
+                                        plan_out)
+                 : run_dense<float>(q, kc, vc, pos, out, B, H, Dh, C, device, stream, plan_out);
 }
 
-// As flash_decode over a pool pk, pv (NB, bs, H, Dh) float32 steered by
-// block_tables (B, MB) int32, whose entries must index the pool; the
-// logical capacity is MB * bs.
+// As flash_decode over a pool pk, pv (NB, bs, H, Dh), float32 or bfloat16
+// as kv_bf16 says, steered by block_tables (B, MB) int32, whose entries
+// must index the pool; the logical capacity is MB * bs.
 extern "C" int flash_decode_paged(const void* q, const void* pk, const void* pv,
                                   const void* pos, const void* block_tables, void* out, int B,
-                                  int H, int Dh, int bs, int MB, int device, void* stream,
-                                  int* plan_out) {
-  const Args a{(const float*)q, (const float*)pk, (const float*)pv, (const int*)pos,
-               (const int*)block_tables, (float*)out, H, Dh, MB * bs, bs, MB, 0.f};
-  return launch<true>(a, B, device, false, plan_out, stream);
+                                  int H, int Dh, int bs, int MB, int kv_bf16, int device,
+                                  void* stream, int* plan_out) {
+  return kv_bf16 ? run_paged<__nv_bfloat16>(q, pk, pv, pos, block_tables, out, B, H, Dh, bs, MB,
+                                        device, stream, plan_out)
+                 : run_paged<float>(q, pk, pv, pos, block_tables, out, B, H, Dh, bs, MB, device,
+                                stream, plan_out);
 }
 
 // The empty kernel on the plan flash_decode (paged 0; C the capacity, bs
 // unused) or flash_decode_paged (paged 1; C = MB * bs) would launch at
-// this shape: a measurement of the launch alone. Touches no memory.
-extern "C" int flash_decode_empty(int paged, int B, int H, int Dh, int C, int bs, int device,
-                                  void* stream, int* plan_out) {
+// this shape and cache type: a measurement of the launch alone. Touches no
+// memory.
+extern "C" int flash_decode_empty(int paged, int B, int H, int Dh, int C, int bs, int kv_bf16,
+                                  int device, void* stream, int* plan_out) {
   if (paged && (bs < 1 || C % bs != 0)) return ERR_SHAPE;
-  const Args a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, H, Dh, C,
-               paged ? bs : 1, paged ? C / bs : 0, 0.f};
-  return paged ? launch<true>(a, B, device, true, plan_out, stream)
-               : launch<false>(a, B, device, true, plan_out, stream);
+  return kv_bf16 ? run_empty<__nv_bfloat16>(paged, B, H, Dh, C, bs, device, stream, plan_out)
+                 : run_empty<float>(paged, B, H, Dh, C, bs, device, stream, plan_out);
 }
 
 extern "C" const char* flash_decode_error(int code) {

@@ -1,11 +1,16 @@
-"""The execution core of the port on one card: the training-precision
-policy, and a train step turned into a captured CUDA graph.
+"""The execution core of the port on one card: the training- and
+serving-precision policies, and a train step turned into a captured CUDA
+graph.
 
 Counterpart of deeplearning4j_tpu/exec/executor.py: ``Executor`` with its
 ``train_precision`` policy (``DL4JTPU_TRAIN_PRECISION``, the same values
-and the same ``ValueError``) and ``train_dtype``, and ``get_executor`` /
-``set_executor``. Where the JAX package's ``Executor.jit`` turns a step
-into one compiled, donated program, ``Executor.steps`` here turns it into
+and the same ``ValueError``) and ``train_dtype``, its serving
+``precision`` (``DL4JTPU_PRECISION``: ``f32``, ``int8`` or ``fp8``, with
+quant/'s aliases and ``ValueError``) and ``prepare_params``, which every
+engine built against the executor applies to its weights at load and
+swap time, and ``get_executor`` / ``set_executor``. Where the JAX
+package's ``Executor.jit`` turns a step into one compiled, donated
+program, ``Executor.steps`` here turns it into
 CUDA graphs, one per signature (the shapes and dtypes of its tensors and
 which optional ones are present), each captured at fixed shapes and
 replayed (``CapturedStep``); the step writes its results in place into
@@ -60,8 +65,8 @@ everything in ``warmup()``, on the caller's thread, before its loop
 thread starts (a capture is global: another thread's CUDA work during it
 fails it).
 
-Meshes, sharding, routing tables, the serving precision and the program
-registry are not ported.
+Meshes, sharding, routing tables and the program registry are not
+ported.
 """
 
 from __future__ import annotations
@@ -77,10 +82,18 @@ from deeplearning4j_tpu_torch import ops
 
 
 class Executor:
-    """One policy for the fit path's precision, and the capture of steps
-    into CUDA graphs."""
+    """One policy for the fit path's and the serving engines' precisions,
+    and the capture of steps into CUDA graphs."""
 
-    def __init__(self, *, train_precision: Optional[str] = None):
+    def __init__(self, *, precision: Optional[str] = None,
+                 train_precision: Optional[str] = None):
+        from deeplearning4j_tpu_torch.quant import resolve_precision
+        # declarative SERVING precision: every engine built against this
+        # executor (the bucketed forward, the decode programs, the drafts)
+        # inherits it without per-caller code
+        self.precision = resolve_precision(
+            precision if precision is not None
+            else os.environ.get("DL4JTPU_PRECISION"))
         # declarative TRAINING precision: 'bf16' casts activations and
         # params to bfloat16 in the fit-path forward of every float32
         # model built against this executor (loss and updater math stay
@@ -100,6 +113,15 @@ class Executor:
         """The compute dtype the train-precision policy imposes on the fit
         path (None = storage dtype, i.e. no cast)."""
         return torch.bfloat16 if self.train_precision == "bf16" else None
+
+    def prepare_params(self, tree, precision: Optional[str] = None):
+        """Apply the serving-precision policy to a weight tree: per-channel
+        weight-only quantization for 'int8' / 'fp8', the identity (the
+        same objects) for 'f32'. Engines call this at load and swap time,
+        never per request."""
+        from deeplearning4j_tpu_torch.quant import quantize_tree
+        return quantize_tree(tree, precision if precision is not None
+                             else self.precision)
 
     def stream(self, device: torch.device) -> "torch.cuda.Stream":
         """The side stream warm-ups and captures run on, one per card."""
@@ -304,6 +326,15 @@ class ResidentProgram:
         """Refuse any signature not seen yet (no capture from now on)."""
         self.sealed = True
 
+    def rebase(self) -> None:
+        """Forget the resident tensors' addresses, so that the next call
+        fixes them anew (an engine whose weights become its own); refused
+        once a graph was captured over them."""
+        if self.graphs:
+            raise RuntimeError(f"program {self.name!r}: its captured graphs "
+                               "read the resident tensors it was built over")
+        self._resident = None
+
     def _device(self, resident) -> torch.device:
         leaves = _leaves(resident, [])
         addrs = [(t.data_ptr(), tuple(t.shape), t.dtype) for t in leaves]
@@ -316,7 +347,10 @@ class ResidentProgram:
                 "dtype); resident state is written in place, never rebound")
         return leaves[0].device
 
-    def __call__(self, resident, *staged):
+    def __call__(self, resident, *staged, eager: bool = False):
+        """Replay the signature's graph, else run ``fn``: captured where
+        ``capture`` holds on the card, eagerly with ``eager`` (a signature
+        met while no capture may happen)."""
         device = self._device(resident)
         key = signature(staged)
         if key not in self.signatures:
@@ -333,7 +367,7 @@ class ResidentProgram:
             return graph(*staged)
         staged = _rebuild(staged, iter(
             [t.to(device, non_blocking=True) for t in _leaves(staged, [])]))
-        if device.type != "cuda" or not self.capture:
+        if device.type != "cuda" or not self.capture or eager:
             return self.fn(resident, *staged)
         out = self.executor.warm_up(lambda: self.fn(resident, *staged),
                                     device)

@@ -10,8 +10,12 @@ Counterpart of deeplearning4j_tpu/ops/flash_decode.py, one source
   ``_paged_kernel``: the same over a pool (NB, bs, H, Dh) whose blocks the
   (B, MB) int32 page tables name; the logical capacity is MB * bs.
 
-Both return (B, H, Dh) float32, for any head dim that is a multiple of 8
-(``ops.head_dim_supported``). On the card each (b, h) pair (each (b, h,
+Both take q float32 and a cache or pool in float32 or bfloat16 (K and V
+of one type: a bf16-compute model's decode state), and return (B, H, Dh)
+float32, for any head dim that is a multiple of 8
+(``ops.head_dim_supported``). A bfloat16 cache is read in its own type
+and widened in the kernel's registers, never copied to float32 (on a
+paged engine that copy would be the whole pool a step). On the card each (b, h) pair (each (b, h,
 128-column chunk) past Dh 128) is a thread-block cluster of S blocks that
 split the live keys 0..pos[b] between them in contiguous ranges (whole
 pages for K9; as many blocks as get a full round of keys each) and merge
@@ -41,9 +45,11 @@ from deeplearning4j_tpu_torch.ops import build
 
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
 _PLAN = ctypes.POINTER(ctypes.c_int)
-ENTRIES = {"flash_decode": [_VP] * 5 + [_INT] * 5 + [_VP, _PLAN],
-           "flash_decode_paged": [_VP] * 6 + [_INT] * 6 + [_VP, _PLAN],
-           "flash_decode_empty": [_INT] * 7 + [_VP, _PLAN]}
+ENTRIES = {"flash_decode": [_VP] * 5 + [_INT] * 6 + [_VP, _PLAN],
+           "flash_decode_paged": [_VP] * 6 + [_INT] * 7 + [_VP, _PLAN],
+           "flash_decode_empty": [_INT] * 8 + [_VP, _PLAN]}
+# the cache types the kernels read (widened to float32 in registers)
+CACHE_DTYPES = (torch.float32, torch.bfloat16)
 # what every entry point reports of its launch
 _PLAN_KEYS = ("cluster_size", "clusters", "threads", "min_keys_per_block")
 _LAST_PLAN: Dict[str, dict] = {}
@@ -51,7 +57,9 @@ _LAST_PLAN: Dict[str, dict] = {}
 
 def flash_decode_step_plain(q, kc, vc, pos) -> torch.Tensor:
     """Plain PyTorch version of K8: softmax over c <= pos[b] of
-    q . k_c / sqrt(Dh), times v (the layer's ``_finish_step`` math)."""
+    q . k_c / sqrt(Dh), times v (the layer's ``_finish_step`` math), in
+    float32: a bfloat16 cache is widened first, exactly, as the kernel
+    widens its rows."""
     C = kc.shape[1]
     s = torch.einsum("bhd,bchd->bhc", q.float(), kc.float()) \
         / math.sqrt(q.shape[-1])
@@ -79,10 +87,17 @@ def flash_decode_step_paged_plain(q, pk, pv, pos, block_tables
 
 def _check(name, q, caches, pos, tables=None):
     B, H, Dh = q.shape
-    for key, t in list(caches.items()) + [("q", q)]:
-        if t.dtype != torch.float32:
+    if q.dtype != torch.float32:
+        raise TypeError(f"{name}: q is {q.dtype}, the kernel takes float32")
+    kinds = {t.dtype for t in caches.values()}
+    for key, t in caches.items():
+        if t.dtype not in CACHE_DTYPES:
             raise TypeError(f"{name}: {key} is {t.dtype}, the kernel takes "
-                            "float32")
+                            "a float32 or bfloat16 cache")
+    if len(kinds) != 1:
+        raise TypeError(f"{name}: K and V must share one dtype, got "
+                        + ", ".join(f"{k} {t.dtype}"
+                                    for k, t in caches.items()))
     for key, t in list(caches.items()) + [("pos", pos)] + (
             [] if tables is None else [("block_tables", tables)]):
         if t.device != q.device:
@@ -138,22 +153,23 @@ def _launch(entry, *args) -> None:
 
 
 def launch_floor(name: str, B: int, H: int, Dh: int, C: int, bs: int = 0,
-                 device=None) -> dict:
+                 device=None, dtype=torch.float32) -> dict:
     """A measurement aid: launch an empty kernel on the grid and cluster
     shape that ``name`` (``flash_decode``, or ``flash_decode_paged`` with
-    block size bs) would launch at this shape, on the current stream. It
-    touches no memory and counts as no launch of the kernel. Returns the
-    plan."""
+    block size bs) would launch at this shape and cache ``dtype``, on the
+    current stream. It touches no memory and counts as no launch of the
+    kernel. Returns the plan."""
     dev = torch.device("cuda" if device is None else device)
     return _call("flash_decode_empty", int(name == "flash_decode_paged"), B,
-                 H, Dh, C, bs, dev.index or 0,
+                 H, Dh, C, bs, int(dtype == torch.bfloat16), dev.index or 0,
                  torch.cuda.current_stream(dev).cuda_stream)
 
 
 def flash_decode_step(q, kc, vc, pos) -> torch.Tensor:
     """K8: one decode step of every (batch, head) row over a dense cache.
-    q (B, H, Dh) float32; kc, vc (B, C, H, Dh) float32 with position pos[b]
-    already written; pos (B,) int32. Returns (B, H, Dh) float32."""
+    q (B, H, Dh) float32; kc, vc (B, C, H, Dh) float32 or bfloat16 with
+    position pos[b] already written; pos (B,) int32. Returns (B, H, Dh)
+    float32."""
     B, H, Dh = q.shape
     if kc.dim() != 4 or kc.shape != vc.shape or kc.shape[0] != B \
             or kc.shape[2:] != q.shape[1:]:
@@ -166,15 +182,15 @@ def flash_decode_step(q, kc, vc, pos) -> torch.Tensor:
     out = torch.empty((B, H, Dh), dtype=torch.float32, device=q.device)
     _launch("flash_decode", q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
             pos.data_ptr(), out.data_ptr(), B, H, Dh, kc.shape[1],
-            q.device.index or 0,
+            int(kc.dtype == torch.bfloat16), q.device.index or 0,
             torch.cuda.current_stream(q.device).cuda_stream)
     return out
 
 
 def flash_decode_step_paged(q, pk, pv, pos, block_tables) -> torch.Tensor:
     """K9: ``flash_decode_step`` over a block pool. pk, pv (NB, bs, H, Dh)
-    float32; block_tables (B, MB) int32, every entry a pool block; pos (B,)
-    int32 below MB * bs. Returns (B, H, Dh) float32."""
+    float32 or bfloat16; block_tables (B, MB) int32, every entry a pool
+    block; pos (B,) int32 below MB * bs. Returns (B, H, Dh) float32."""
     B, H, Dh = q.shape
     if pk.dim() != 4 or pk.shape != pv.shape or pk.shape[2:] != q.shape[1:] \
             or block_tables.dim() != 2 or block_tables.shape[0] != B:
@@ -191,6 +207,7 @@ def flash_decode_step_paged(q, pk, pv, pos, block_tables) -> torch.Tensor:
     out = torch.empty((B, H, Dh), dtype=torch.float32, device=q.device)
     _launch("flash_decode_paged", q.data_ptr(), pk.data_ptr(), pv.data_ptr(),
             pos.data_ptr(), block_tables.data_ptr(), out.data_ptr(), B, H,
-            Dh, pk.shape[1], block_tables.shape[1], q.device.index or 0,
+            Dh, pk.shape[1], block_tables.shape[1],
+            int(pk.dtype == torch.bfloat16), q.device.index or 0,
             torch.cuda.current_stream(q.device).cuda_stream)
     return out

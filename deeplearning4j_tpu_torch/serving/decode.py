@@ -4,10 +4,11 @@ Counterpart of deeplearning4j_tpu/serving/decode.py, over a
 MultiLayerNetwork or a ComputationGraph, with dense or paged KV caches, the
 prefix cache with copy-on-write and its host tier, chunked prefill,
 speculative decoding, KV-chain migration (``kv_export`` / ``kv_import``),
-the request journal with its SLO histograms, ``eos_id``, ``warmup()`` and
-``swap_weights`` (AOT warm-up and the int8/fp8 precisions are not ported
-yet). Decode state -- each recurrent layer's (h, c) carry, each attention
-layer's KV cache -- stays on the device in ONE batched state of S slots;
+the request journal with its SLO histograms, ``eos_id``, ``warmup()``,
+``swap_weights`` and the int8 / fp8 serving precisions (AOT warm-up is
+not ported yet). Decode state -- each recurrent layer's (h, c) carry,
+each attention layer's KV cache -- stays on the device in ONE batched
+state of S slots;
 every step advances all active streams by one token at their positions,
 new requests claim free slots between steps, and finished streams free
 theirs.
@@ -54,12 +55,22 @@ theirs.
 - ``spec``: a ``serving.spec.SpecConfig``; each tick makes at most one
   draft call, one plain step for rows still consuming their prompt and
   one verify (serving/spec/).
-- Weights: the programs read an engine-owned parameter set. Until the
-  first ``swap_weights`` it follows the model: before a tick whose model
-  parameters moved (the containers' ``_params_version``, bumped by every
-  update and load) the model's are copied into it in place. A swap copies
-  the new weights into it at a tick boundary with no live slot: no new
-  capture.
+- Weights: the programs read an engine-owned parameter set
+  (``serving.engine.ResidentWeights``, the bucketed engine's too). Until
+  the first ``swap_weights`` a float32 engine follows the model: before a
+  tick whose model parameters moved (the containers' ``_params_version``,
+  bumped by every update and load) the model's are copied into it in
+  place. A swap copies the new weights into it, leaf by path, at a tick
+  boundary with no live slot: no new capture. ``precision="int8"`` /
+  ``"fp8"`` keeps the set as codes and per-channel scales (quant/),
+  quantized once from the
+  model (which it then no longer follows) and again after the gate of
+  each swap, written into the same tensors; every program dequantizes
+  inside its graph (plain tensor code before the unchanged float32 math,
+  so K8 / K9 see the same float32 queries), and each (model, precision)
+  pair costs one capture per program, as at float32. A quantized draft
+  keeps its own quantized set, refreshed in place when the weights it
+  drafts with move.
 - KV as host bytes. The host tier's spills and restores and a chain's
   export and import move rows between the pool tensors and host numpy
   arrays: ``index_select`` and a read, ``index_copy_`` of a staged copy.
@@ -102,10 +113,11 @@ from deeplearning4j_tpu_torch.monitor.reqlog import RequestLog, new_record
 from deeplearning4j_tpu_torch.nn.layers.attention import MultiHeadAttention
 from deeplearning4j_tpu_torch.nn.layers.base import (copy_into, map_tree,
                                                      where_rows)
+from deeplearning4j_tpu_torch.quant import dequantize_tree, resolve_precision
 from deeplearning4j_tpu_torch.resilience.errors import (
     BatcherStoppedError, ServerOverloadedError)
-from deeplearning4j_tpu_torch.serving.engine import (input_type_of,
-                                                     leaves_by_path,
+from deeplearning4j_tpu_torch.serving.engine import (ResidentWeights,
+                                                     input_type_of,
                                                      model_signature,
                                                      validate_swap)
 from deeplearning4j_tpu_torch.serving.kv import (BlockPool, HostKVTier,
@@ -228,8 +240,8 @@ class DecodeEngine:
 
     ``max_len``: positions per stream (prompt + generated). ``eos_id``: a
     token that ends its stream (emitted, then the slot is freed); None:
-    length only. ``precision``: None or ``"f32"`` (the int8/fp8 serving
-    precisions are not ported: ROADMAP queue 1 item 6). ``kv``:
+    length only. ``precision``: ``"f32"``, ``"int8"`` or ``"fp8"`` (None:
+    the executor's policy, ``DL4JTPU_PRECISION``). ``kv``:
     ``"dense"`` or ``"paged"``; a paged engine takes ``kv_block_size``
     (positions per block, dividing ``max_len``), ``kv_blocks`` (pool size;
     the default, ``slots * max_len / kv_block_size + 1``, holds every slot
@@ -253,14 +265,14 @@ class DecodeEngine:
                  host_kv_bytes: Optional[int] = None, spec=None,
                  journal_capacity: int = 512):
         self.model = model
+        self.id = f"decode{next(DecodeEngine._ids)}"
         self.slots = int(slots)
         self.max_len = int(max_len)
         self.eos_id = None if eos_id is None else int(eos_id)
         self.max_queue = int(max_queue)
-        if precision not in (None, "f32"):
-            raise _unsupported(f"DecodeEngine(precision={precision!r}): "
-                               "serving precisions other than f32")
-        self.precision = "f32"
+        execu = getattr(model, "_executor", None) or get_executor()
+        self.precision = (resolve_precision(precision)
+                          if precision is not None else execu.precision)
         if kv not in ("dense", "paged"):
             raise ValueError(f"kv must be 'dense' or 'paged', got {kv!r}")
         if kv == "dense" and chunk_tokens is not None:
@@ -281,15 +293,17 @@ class DecodeEngine:
                              else None)
         self.vocab = input_type_of(model).size
         self.device = model.device
-        self.id = f"decode{next(DecodeEngine._ids)}"
-        # the engine-owned parameter set the programs read by address
-        self._params = map_tree(lambda t: t.detach().clone(), model.params)
-        self._params_seen = getattr(model, "_params_version", 0)
-        self._swapped = False
+        # the engine-owned parameter set the programs read by address: a
+        # float32 copy, or codes and scales under int8 / fp8 (with the
+        # float32 signature swap candidates are held to)
+        self._weights_set = ResidentWeights(model, self.precision, execu,
+                                            self.id, own=True)
+        self._params = self._weights_set.params
         self._pending_swap = None
         self._version = 0
         self._spec = spec
         self._draft = self._verifier = None
+        self._draft_source = None
         self._pool: Optional[BlockPool] = None
         self._prefix: Optional[PrefixCache] = None
         self._tables: Optional[np.ndarray] = None
@@ -426,26 +440,41 @@ class DecodeEngine:
                 f"(got draft_model={dm!r}, "
                 f"self_draft={spec.self_draft!r})")
         own = self._params
+        # _draft_source: the float32 weights a quantized draft is made
+        # (and refreshed) from, as a function of the target's float32 tree
         if spec.self_draft is not None:
-            dm = build_self_draft(self.model, spec)
-            # the target's first M layers and readout, in the engine's set
-            dparams = [own[i] for i in range(dm.m)] + [own[-1]]
+            dm, dprec = build_self_draft(self.model, spec)
+            if dm is self.model:
+                # int8 / fp8: the target from its own quantized copy
+                dparams, self._draft_source = None, (lambda t: t)
+            else:
+                # the target's first M layers and readout, in the
+                # engine's set
+                dparams = [own[i] for i in range(dm.m)] + [own[-1]]
+                if dprec is not None:
+                    self._draft_source = (
+                        lambda t, m=dm.m: [t[i] for i in range(m)] + [t[-1]])
         elif input_type_of(dm).size != self.vocab:
             raise ValueError(
                 f"draft model vocabulary ({input_type_of(dm).size}) must "
                 f"match the target's ({self.vocab})")
         else:
+            dprec = spec.draft_precision
             # the target as its own draft reads the engine's set too
             dparams = own if dm is self.model else None
+            if dm is self.model and dprec is not None:
+                self._draft_source = lambda t: t
         self._spec_tree.tensors(self.device)
         self._verifier = SpecVerifier(self.model, self.slots,
                                       self._spec_tree, self.vocab,
                                       max_blocks=self._max_blocks)
+        source = (None if self._draft_source is None
+                  else self._draft_source(self.model.params))
         self._draft = DraftEngine(dm, self.slots, self.max_len, self._spec_k,
-                                  self.vocab,
-                                  precision=spec.draft_precision,
+                                  self.vocab, precision=dprec,
                                   side_k=max(self._spec_tree.kvec) - 1,
-                                  params=dparams)
+                                  params=dparams, source=source,
+                                  owner=self.id)
 
     def _check_no_carries(self):
         """The prefix cache shares KV blocks between requests; a recurrent
@@ -525,9 +554,17 @@ class DecodeEngine:
 
     def program_stats(self) -> dict:
         """Per program: its signatures (``programs``), the CUDA graphs it
-        captured and the kernel launches one replay adds."""
+        captured, the kernel launches one replay adds, and the precision
+        and bytes of the parameter set it reads (none for the
+        copy-on-write)."""
+        own = (self.precision, self._weights_set.nbytes)
+        sets = {"cow": (self.precision, 0)}
+        if self._draft is not None:
+            sets["draft"] = (self._draft.precision, self._draft.weight_bytes)
         return {k: {"programs": p.programs, "captures": p.captures,
-                    "launches": [dict(g.launches) for g in p.graphs.values()]}
+                    "launches": [dict(g.launches) for g in p.graphs.values()],
+                    "precision": sets.get(k, own)[0],
+                    "weight_bytes": sets.get(k, own)[1]}
                 for k, p in self._programs.items()}
 
     @torch.no_grad()
@@ -545,7 +582,9 @@ class DecodeEngine:
             torch.float32)[:, None, :]
         kw = ({} if self._pool is None else
               {"block_tables": torch.where(active[:, None], f["tables"], 0)})
-        y, new_d = self.model.decode_step(res["params"], d0, x, pos, **kw)
+        # int8 / fp8 widen here, inside the program (the identity at f32)
+        y, new_d = self.model.decode_step(dequantize_tree(res["params"]), d0,
+                                          x, pos, **kw)
         copy_into(dstate, map_slot_leaves(
             lambda n, o: where_rows(active, n, o), new_d, d0,
             keys=POSITIONAL_KEYS))
@@ -566,8 +605,8 @@ class DecodeEngine:
             keys=POSITIONAL_KEYS)
         x = torch.nn.functional.one_hot(f["tokens"].long(), self.vocab).to(
             torch.float32)
-        _, new_d = self.model.prefill_chunk(res["params"], d0, x, f["start"],
-                                            f["n"],
+        _, new_d = self.model.prefill_chunk(dequantize_tree(res["params"]),
+                                            d0, x, f["start"], f["n"],
                                             block_tables=f["tables"])
         copy_into(dstate, map_slot_leaves(
             lambda a, b: where_rows(live, a, b), new_d, d0,
@@ -721,21 +760,23 @@ class DecodeEngine:
         """Stage a same-shape weight swap and wait for it to apply.
 
         The candidate is validated first (the same keys, shapes and
-        dtypes as the engine's parameters, else ``WeightSwapError`` with
-        the engine untouched; the port's models carry no ``state``, so a
-        non-empty one is refused too). Admission pauses, the live
-        generations finish on the old weights, and the loop applies the
-        swap at the first tick boundary with no live slot: the new weights
-        are copied into the engine's parameter set in place (no new
-        capture), the prefix cache is cleared (its KV was computed under
-        the old weights), the version bumps (``version`` when given).
-        Returns the new version."""
-        validate_swap(self._params, params, "decode params")
+        dtypes as the engine's float32 parameters, else ``WeightSwapError``
+        with the engine untouched; the port's decode models carry no
+        ``state``, so a non-empty one is refused too), then quantized under
+        int8 / fp8. Admission pauses, the live generations finish on the
+        old weights, and the loop applies the swap at the first tick
+        boundary with no live slot: the new weights are copied into the
+        engine's parameter set in place (no new capture), a quantized
+        draft's set is refreshed from them, the prefix cache is cleared
+        (its KV was computed under the old weights), the version bumps
+        (``version`` when given). Returns the new version."""
+        self._weights_set.check(params, None, "decode params")
         if state:
             validate_swap({}, state, "decode state")
+        prepared = self._weights_set.prepare(params)
         applied = threading.Event()
         with self._cv:
-            self._pending_swap = (params, version, applied)
+            self._pending_swap = (prepared, version, applied)
             self._cv.notify_all()
             if self._thread is None or not self._thread.is_alive():
                 self._apply_swap_locked()   # no loop running: apply now
@@ -749,12 +790,11 @@ class DecodeEngine:
     def _apply_swap_locked(self) -> None:
         """Apply the staged swap (the caller holds ``self._cv``; no live
         slot)."""
-        params, version, applied = self._pending_swap
+        prepared, version, applied = self._pending_swap
         self._pending_swap = None
-        new = leaves_by_path(params)
-        for path, dst in leaves_by_path(self._params).items():
-            dst.copy_(torch.as_tensor(new[path]))
-        self._swapped = True
+        self._weights_set.write(prepared)
+        if self._draft_source is not None:
+            self._draft.refresh(self._draft_source(prepared[2]))
         if self._prefix is not None:
             # the flush purges the host tier too; a restore still pending
             # for a block it freed has nowhere to land
@@ -770,12 +810,11 @@ class DecodeEngine:
 
     @torch.no_grad()
     def _follow_model(self):
-        """Until the first swap, copy the model's parameters into the
-        engine's set in place whenever they moved."""
-        v = getattr(self.model, "_params_version", 0)
-        if not self._swapped and v != self._params_seen:
-            copy_into(self._params, self.model.params)
-            self._params_seen = v
+        """Until the first swap, a float32 engine copies the model's
+        parameters into its set in place whenever they moved (and
+        refreshes a quantized draft from them)."""
+        if self._weights_set.follow() and self._draft_source is not None:
+            self._draft.refresh(self._draft_source(self.model.params))
 
     # ------------------------------------------------------------ scheduler
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 32,
@@ -1360,7 +1399,14 @@ class DecodeEngine:
                 except BaseException as e:  # noqa: BLE001 -- to the caller
                     fut.set_exception(e)
 
-    def _run_kv_op(self, fn):
+    def run_exclusive(self, fn, timeout: Optional[float] = 300.0):
+        """``fn()`` on the loop thread between ticks, or inline when no
+        loop runs: nothing of this engine runs CUDA work meanwhile (what a
+        capture elsewhere needs; the server's ``/warmup``). Returns its
+        result."""
+        return self._run_kv_op(fn, timeout)
+
+    def _run_kv_op(self, fn, timeout: Optional[float] = 60.0):
         """``fn()`` on the loop thread, or inline when no loop runs (the
         decode state made first); returns its result."""
         fut = Future()
@@ -1375,7 +1421,7 @@ class DecodeEngine:
                         fut.set_result(fn())
                     except BaseException as e:  # noqa: BLE001
                         fut.set_exception(e)
-        return fut.result(timeout=60.0)
+        return fut.result(timeout=timeout)
 
     def _migrate_envelope(self) -> dict:
         """What a payload must match to land here: the serving weights'
@@ -1510,7 +1556,8 @@ class DecodeEngine:
                     "tree": list(self._spec_tree.kvec),
                     "tree_nodes": self._spec_tree.n_nodes,
                     "self_draft": self._spec.self_draft,
-                    "draft_precision": None,
+                    "draft_precision": self._draft.precision,
+                    "draft_weight_bytes": self._draft.weight_bytes,
                     "drafted_tokens": drafted,
                     "accepted_tokens": accepted,
                     "acceptance_rate": (accepted / drafted if drafted
@@ -1524,9 +1571,7 @@ class DecodeEngine:
                     "draft_steps": self._draft.steps}
         return {"id": self.id, "slots": self.slots, "max_len": self.max_len,
                 "kv": kv, "spec": spec, "precision": self.precision,
-                "weight_bytes": sum(t.numel() * t.element_size()
-                                    for t in leaves_by_path(
-                                        self._params).values()),
+                "weight_bytes": self._weights_set.nbytes,
                 "model_version": self._version,
                 "occupied_slots": occupied, "queued_requests": queued,
                 "compiled_programs": self.trace_count,

@@ -8,6 +8,8 @@ base64 float32 wire format (serving/wire.py). Endpoints:
                    "temperature"?, "top_k"?}                -> {"tokens": [...]}
   POST /kv/export {"tokens": [...]}                         -> migration payload
   POST /kv/import <a /kv/export payload>                    -> {"imported_blocks", ...}
+  POST /warmup    {"input_shape": [...], "max_batch"?}      -> {"buckets", "seconds"}
+  POST /admin/swap {"checkpoint": path, "version"?}         -> {"swapped", "version", ...}
   GET  /stats                                               -> engine+batcher stats
   GET  /metrics                                             -> Prometheus text
   GET  /requests?n=                                         -> the request journal
@@ -21,9 +23,20 @@ in error bodies and written into the journal with the ``x-tenant`` and
 "request_id"}}`` and the status classifies it: 400 malformed payload, 404
 unknown path, no decode engine, or /kv/* without a paged engine with a
 prefix cache, 409 a migration payload rejected (``kv_migrate_rejected``,
-the pool untouched), 429 queue full, 503 draining, 504 deadline expired,
-500 engine fault. ``/trace``, ``/programs`` and ``/admin/*`` are not
-ported.
+the pool untouched) or a swap candidate that does not match the serving
+weights (``weight_mismatch``, both engines untouched), 400
+``bad_checkpoint`` for a checkpoint that cannot be read, 429 queue full,
+503 draining, 504 deadline expired, 500 engine fault.
+
+``/warmup`` captures the bucketed engine's ladder (``InferenceEngine.
+warmup``) on the decode loop's thread between its ticks, with the
+/predict path held: a capture is global, and nothing else may run CUDA
+work meanwhile. ``/admin/swap`` loads a checkpoint's arrays
+(``util.model_serializer.load_weights``) and swaps both engines: the
+decode engine stages first and applies at its next tick with no live
+slot, then /predict cuts over; both write in place, so no capture
+follows. ``/trace``, ``/programs`` and ``/admin/profile`` are not ported
+(404).
 """
 
 from __future__ import annotations
@@ -41,7 +54,8 @@ import numpy as np
 
 from deeplearning4j_tpu_torch.monitor.metrics import get_registry
 from deeplearning4j_tpu_torch.resilience.errors import (
-    BatcherStoppedError, DeadlineExceededError, ServerOverloadedError)
+    BatcherStoppedError, CorruptCheckpointError, DeadlineExceededError,
+    ServerOverloadedError, WeightSwapError)
 from deeplearning4j_tpu_torch.serving.batcher import MicroBatcher
 from deeplearning4j_tpu_torch.serving.engine import (InferenceEngine,
                                                      input_type_of)
@@ -143,13 +157,22 @@ class _Handler(BaseHTTPRequestHandler):
                 self._kv_export(srv, payload)
             elif path == "/kv/import":
                 self._kv_import(srv, payload)
+            elif path == "/admin/swap":
+                self._admin_swap(srv, payload)
+            elif path == "/warmup":
+                self._warmup(srv, payload)
             else:
                 self._error(404, "not_found", f"no such path: {path}")
         except BadRequestError as e:
             self._error(400, "bad_request", str(e))
+        except WeightSwapError as e:
+            # validation refused the candidate: neither engine was touched
+            self._error(409, "weight_mismatch", str(e))
         except KVMigrateError as e:
             # validation rejected the payload before the pool was touched
             self._error(409, "kv_migrate_rejected", str(e))
+        except (CorruptCheckpointError, FileNotFoundError) as e:
+            self._error(400, "bad_checkpoint", str(e))
         except ServerOverloadedError as e:
             self._error(429, "overloaded", str(e))
         except BatcherStoppedError as e:
@@ -187,6 +210,44 @@ class _Handler(BaseHTTPRequestHandler):
                    extra_headers={
                        "x-model-version": str(
                            getattr(srv.engine, "model_version", 0))})
+
+    def _warmup(self, srv, payload):
+        """POST /warmup {"input_shape": per-example shape, "max_batch"?}:
+        the bucketed engine's ladder run (captured on the card)."""
+        try:
+            shape = payload["input_shape"]
+        except KeyError:
+            raise BadRequestError("payload missing 'input_shape'") from None
+        if not isinstance(shape, list) or not shape:
+            raise BadRequestError(
+                f"input_shape must be a non-empty list, got {shape!r}")
+        shapes = ([tuple(s) for s in shape] if isinstance(shape[0], list)
+                  else tuple(shape))
+        try:
+            buckets = srv.warmup(shapes, max_batch=payload.get("max_batch"))
+        except (TypeError, ValueError) as e:
+            raise BadRequestError(str(e)) from None
+        self._json({"buckets": buckets,
+                    "seconds": srv.engine.warmup_seconds})
+
+    def _admin_swap(self, srv, payload):
+        """POST /admin/swap {"checkpoint": path, "version"?: int}: load a
+        checkpoint's weights and hot-swap them into both engines."""
+        try:
+            ck = payload["checkpoint"]
+        except KeyError:
+            raise BadRequestError("payload missing 'checkpoint'") from None
+        version = payload.get("version")
+        if version is not None:
+            try:
+                version = int(version)
+            except (TypeError, ValueError):
+                raise BadRequestError(
+                    f"version must be an int, got {version!r}") from None
+        v = srv.swap_checkpoint(ck, version=version)
+        self._json({"swapped": True, "version": v,
+                    "checkpoint": str(ck),
+                    "compiled_programs": srv.engine.trace_count})
 
     def _kv_gate(self, srv):
         """The decode engine, when it is paged with a prefix cache (the
@@ -275,6 +336,10 @@ class InferenceServer:
         self._httpd = None
         self.port: Optional[int] = None
         self._draining = threading.Event()
+        # /warmup and the swaps, one at a time: a swap's device work (the
+        # candidate's copy to the card, its quantization) must not run
+        # while a warm-up captures on another thread
+        self._admin_lock = threading.Lock()
         self.last_error: Optional[str] = None
 
     def validate_features(self, x: np.ndarray) -> None:
@@ -345,6 +410,46 @@ class InferenceServer:
             recs = recs[-n:] if n > 0 else []
         return {"server": self.id, "total": total, "dropped": dropped,
                 "records": recs}
+
+    # ------------------------------------------------------------ warm-up
+    def warmup(self, example_shape, max_batch=None):
+        """The bucketed engine's ``warmup``, run on the decode loop's
+        thread between ticks when one runs (a capture is global: the
+        decode programs must not run meanwhile; the engine's lock holds
+        /predict; no swap runs meanwhile). Returns the rungs."""
+        def run():
+            return self.engine.warmup(example_shape, max_batch=max_batch)
+        with self._admin_lock:
+            if self.decode_engine is not None:
+                return self.decode_engine.run_exclusive(run)
+            return run()
+
+    # ------------------------------------------------------------- hot swap
+    def swap_weights(self, params, state=None,
+                     version: Optional[int] = None) -> int:
+        """Hot-swap both engines to a same-shape weight tree. Both engines
+        validate it first, so a ``WeightSwapError`` leaves serving as it
+        was; then the decode engine (if any) stages it and applies it at
+        its next tick with no live slot (in-flight generations finish on
+        the old weights), and /predict cuts over. No warm-up captures
+        meanwhile. Returns the new version."""
+        with self._admin_lock:
+            if version is None:
+                version = self.engine.model_version + 1
+            self.engine.check_swap(params, state)
+            if self.decode_engine is not None:
+                self.decode_engine.swap_weights(params, state,
+                                                version=version)
+            return self.engine.swap_weights(params, state, version=version)
+
+    def swap_checkpoint(self, path, version: Optional[int] = None) -> int:
+        """Load a checkpoint zip's (params, state) and hot-swap them in:
+        what POST /admin/swap calls. The zip's configuration is ignored
+        (``model_serializer.load_weights``)."""
+        from deeplearning4j_tpu_torch.util import model_serializer
+        params, state = model_serializer.load_weights(self.engine.model,
+                                                      path)
+        return self.swap_weights(params, state, version=version)
 
     def start(self) -> "InferenceServer":
         self.batcher.start()

@@ -16,7 +16,8 @@ Counterpart of deeplearning4j_tpu/serving/spec/. Modules:
   the rule at every node, the walk, the carries' rewind and the accepted
   path's ``tree_commit``;
 - ``rewind.py`` -- carry and positional decode state;
-- ``selfdraft.py`` -- the target as its own draft (``early_exit:M``).
+- ``selfdraft.py`` -- the target as its own draft (``int8`` / ``fp8``,
+  ``early_exit:M``).
 
 Wiring: ``DecodeEngine(spec=SpecConfig(...))``.
 """
@@ -42,9 +43,11 @@ class SpecConfig:
     decode protocol over the target's vocabulary, or None with
     ``self_draft`` set. ``k``: spine length of the default linear tree
     (ignored when ``tree`` is given). ``tree``: branching factors per
-    depth, e.g. ``(3, 2, 2)``. ``self_draft``: ``"early_exit:M"`` (the
-    target's first M layers and its readout); ``"int8"`` / ``"fp8"`` and
-    ``draft_precision`` are not ported yet (ROADMAP queue 1 item 6)."""
+    depth, e.g. ``(3, 2, 2)``. ``self_draft``: ``"int8"`` / ``"fp8"``
+    (the target itself from a quantized copy of its weights) or
+    ``"early_exit:M"`` (the target's first M layers and its readout).
+    ``draft_precision``: ``"int8"`` / ``"fp8"`` quantize the draft's
+    weights (quant/), dequantized inside the draft program."""
 
     draft_model: Any = None
     k: int = 4

@@ -18,6 +18,13 @@ branches. The proposals land in the resident ``props`` / ``sides``
 tensors, which the verify program reads on the card: nothing comes back
 to the host.
 
+``precision`` (``draft_precision``, or the int8 / fp8 self-draft) keeps
+the draft's own parameter set as int8 or fp8 codes and per-channel
+scales (quant/), quantized from the float32 weights it drafts with and
+dequantized inside the program; ``refresh`` writes a new float32 source
+into that set in place (the owning engine calls it when its weights
+move), so the captured program keeps its addresses.
+
 Recurrent carries are snapshotted after every position in (S, k, ...)
 stacks; the next call resumes each slot from stack entry ``sel``.
 Attention KV is always dense here and positional: a row past its step
@@ -33,9 +40,12 @@ import torch
 from deeplearning4j_tpu_torch.exec.executor import (HostStage, Layout,
                                                     ResidentProgram)
 from deeplearning4j_tpu_torch.nn.layers.base import where_rows
+from deeplearning4j_tpu_torch.quant import (copy_tree, dequantize_tree,
+                                            quantize_tree,
+                                            record_weight_bytes,
+                                            resolve_precision, tree_bytes)
 from deeplearning4j_tpu_torch.serving.spec.accept import oracle_tokens
 from deeplearning4j_tpu_torch.serving.spec.rewind import map_state
-from deeplearning4j_tpu_torch.serving.spec.selfdraft import quant_not_ported
 
 
 def side_tokens(logits, props, side_k):
@@ -51,20 +61,28 @@ class DraftEngine:
     (the tree's depth + 1, the extra one keeping a resume snapshot at full
     acceptance); ``side_k``: alternatives a position (0 for a linear
     draft); ``params``: the parameter set the program reads (the draft
-    model's own by default). ``precision`` (int8/fp8 weights) is not
-    ported and raises."""
+    model's own by default). ``precision`` (``"int8"`` / ``"fp8"``):
+    the program reads a quantized copy of those parameters instead (of
+    ``source``, their float32 form, when ``params`` is already an engine's
+    quantized set); ``owner`` names the engine in the weight-bytes
+    gauge."""
 
     def __init__(self, model, slots, max_len, k, vocab, precision=None,
-                 side_k=0, params=None):
-        if precision is not None:
-            raise quant_not_ported(f"draft_precision={precision!r}")
+                 side_k=0, params=None, source=None, owner="decode"):
         self.model = model
         self.slots = int(slots)
         self.max_len = int(max_len)
         self.k = int(k)
         self.side_k = int(side_k)
         self.vocab = int(vocab)
+        self.precision = (resolve_precision(precision)
+                          if precision is not None else "f32")
         self.params = model.params if params is None else params
+        if self.precision != "f32":
+            self.params = quantize_tree(
+                self.params if source is None else source, self.precision)
+            record_weight_bytes(f"{owner}-draft", self.precision,
+                                tree_bytes(self.params))
         self.calls = 0           # draft calls
         self.steps = 0           # batched decode steps of the draft model
         self._tree = None
@@ -80,6 +98,18 @@ class DraftEngine:
     def programs(self) -> int:
         """Programs of the draft (captured graphs on the card)."""
         return 0 if self._program is None else self._program.programs
+
+    @property
+    def weight_bytes(self) -> int:
+        return tree_bytes(self.params)
+
+    @torch.no_grad()
+    def refresh(self, source) -> None:
+        """Quantize ``source`` (the float32 weights this draft drafts
+        with) into the draft's own set in place; a float32 draft shares
+        its owner's tensors and has nothing to do."""
+        if self.precision != "f32":
+            copy_tree(self.params, quantize_tree(source, self.precision))
 
     def ensure_state(self):
         """The draft's decode state (dense KV), every carry leaf widened to
@@ -140,7 +170,7 @@ class DraftEngine:
         f = self.layout.unpack(buf)
         S, K, m = self.slots, self.k, self.model
         dev = buf.device
-        params = res["params"]
+        params = dequantize_tree(res["params"])
         given = f["given"].long()
         n_given, n_steps = f["n_given"].long(), f["n_steps"].long()
         pos0, sel = f["pos0"].long(), f["sel"].long()

@@ -1,10 +1,15 @@
 """Self-drafting: the target as its own draft, with no second checkpoint.
 
-Counterpart of deeplearning4j_tpu/serving/spec/selfdraft.py.
-``self_draft="early_exit:M"`` drafts with a view of a MultiLayerNetwork
-target: its first M layers and its readout layer, the weights shared
-with the target. The quantised forms (``"int8"``, ``"fp8"``) wait for the
-port's ``quant/`` (ROADMAP queue 1 item 6) and raise.
+Counterpart of deeplearning4j_tpu/serving/spec/selfdraft.py. Two forms:
+
+- ``self_draft="int8"`` / ``"fp8"``: the draft IS the target, run from a
+  quantized copy of its weights (quant/, dequantized inside the draft
+  program). It agrees with the float32 target almost always, so
+  acceptance is near 1; it pays where the verify's one batched call
+  costs less than the plain steps it replaces.
+- ``self_draft="early_exit:M"``: a view of a MultiLayerNetwork target, its
+  first M layers and its readout layer, the weights shared with the
+  target (quantized too under ``draft_precision``).
 """
 
 from __future__ import annotations
@@ -33,12 +38,6 @@ def parse_self_draft(mode):
     raise ValueError(
         f"self_draft must be one of {SELF_DRAFT_QUANT} or 'early_exit:M', "
         f"got {mode!r}")
-
-
-def quant_not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: int8/fp8 drafts are not ported to the PyTorch package "
-        "yet (ROADMAP queue 1 item 6, quant/)")
 
 
 class EarlyExitDraft:
@@ -85,12 +84,14 @@ class EarlyExitDraft:
 
 
 def build_self_draft(target, spec):
-    """The draft model ``SpecConfig.self_draft`` names."""
+    """``SpecConfig.self_draft`` resolved to ``(draft_model, precision)``
+    for the DraftEngine: the target itself at int8 / fp8, or its early-
+    exit view at ``draft_precision``."""
     kind, arg = parse_self_draft(spec.self_draft)
     if kind == "quant":
         if spec.draft_precision not in (None, arg):
             raise ValueError(
                 f"self_draft={spec.self_draft!r} conflicts with "
                 f"draft_precision={spec.draft_precision!r}")
-        raise quant_not_ported(f"self_draft={spec.self_draft!r}")
-    return EarlyExitDraft(target, arg)
+        return target, arg
+    return EarlyExitDraft(target, arg), spec.draft_precision

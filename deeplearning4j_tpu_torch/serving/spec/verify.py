@@ -26,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.quant import dequantize_tree
 from deeplearning4j_tpu_torch.exec.executor import (HostResult, HostStage,
                                                     Layout, ResidentProgram)
 from deeplearning4j_tpu_torch.nn.layers.attention import MultiHeadAttention
@@ -109,7 +110,9 @@ class SpecVerifier:
         f = self.layout.unpack(buf)
         m, tr, S = self.model, self.tree, self.slots
         dev = buf.device
-        params, dstate = res["params"], res["state"]
+        # the identity on a float32 set; int8 / fp8 widen here, inside the
+        # program
+        params, dstate = dequantize_tree(res["params"]), res["state"]
         pos0, n_in = f["pos0"].long(), f["n_in"].long()
         reset, live = f["reset"] != 0, n_in > 0
         seeds, temps, topk = f["seeds"], f["temps"], f["topk"]

@@ -19,7 +19,9 @@ a temp file, fsynced, renamed over the destination, and the directory
 fsynced so the rename survives a crash. ``restore_into`` loads a zip into
 an existing network in place (``fit(resume_from=)``), the state copied
 into the network's own tensors; ``read_meta`` reads the counters alone;
-``guess_model`` restores whichever container a zip holds.
+``guess_model`` restores whichever container a zip holds;
+``load_weights`` reads only the arrays, shaped as a model's trees, for a
+serving engine's hot swap.
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ import zlib
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.resilience.errors import CorruptCheckpointError
+from deeplearning4j_tpu_torch.resilience.errors import (CorruptCheckpointError,
+                                                       WeightSwapError)
 
 CONFIG_NAME = "configuration.json"
 COEFF_NAME = "coefficients.npz"
@@ -228,6 +231,36 @@ def restore_into(model, path, load_updater=True):
             _copy_into(model.opt_state, opt)
     _set_counters(model, meta)
     return model
+
+
+def _unflatten_into(templates, flat):
+    """``flat``'s arrays (keyed ``layer/key``) in the structure of
+    ``templates`` (per-layer dicts in a list, or by node name); a missing
+    key raises KeyError."""
+    out = {i: {k: flat[f"{i}/{k}"] for k in tmpl}
+           for i, tmpl in _items(templates or [])}
+    return out if isinstance(templates, dict) else list(out.values())
+
+
+def load_weights(model, path):
+    """The ``(params, state)`` arrays of a checkpoint zip, as numpy arrays
+    in ``model``'s tree structure: the hot-swap loader (JAX
+    ``util/model_serializer.load_weights``). The zip's configuration is
+    ignored, only the flattened array paths matter; counters, updater
+    state and the model itself are untouched. Arrays that do not cover
+    the model's structure raise ``WeightSwapError``; the serving engines
+    check shapes and dtypes before they swap."""
+    with _open_zip(path) as z:
+        flat = _loadz(z, path, COEFF_NAME)
+        st = _loadz(z, path, STATE_NAME)
+    try:
+        params = _unflatten_into(model.params, flat)
+        state = _unflatten_into(model.state, st)
+    except KeyError as e:
+        raise WeightSwapError(
+            f"checkpoint {os.fspath(path)} is not swap-compatible with "
+            "the serving model", [str(e.args[0])]) from e
+    return params, state
 
 
 def _restore(path, device, load_updater, kind):

@@ -42,10 +42,16 @@ class ZooModel:
     def init(self, device=None):
         """Build and initialize the network (random weights from the seed):
         a ComputationGraph for a graph configuration, else a
-        MultiLayerNetwork."""
+        MultiLayerNetwork. The ``compute_dtype='bfloat16'`` constructor
+        keyword sets the configuration's compute dtype, as in the JAX
+        package: parameters stay float32, the forward (and a decode
+        engine's KV state) runs in bfloat16."""
         from deeplearning4j_tpu_torch.models import (ComputationGraph,
                                                      MultiLayerNetwork)
         conf = self.conf()
+        cd = self.kwargs.get("compute_dtype")
+        if cd:
+            conf.global_conf.compute_dtype = cd
         cls = (ComputationGraph if hasattr(conf, "network_inputs")
                else MultiLayerNetwork)
         return cls(conf, device=device).init()

@@ -16,8 +16,10 @@ mode. On a machine with one (and ``nvcc``) they run with the usual
 ``python -m pytest tests/test_torch_kernels_cuda.py``; this file imports no
 JAX, so it runs where only the port is installed. Tolerances as in
 chip_smoke.py: float32 1e-4, bfloat16 3e-2 on every output (K3's and the
-gradients' relative to the largest magnitude of the reference); the
-attention kernels take float32 only.
+gradients' relative to the largest magnitude of the reference); K5-K7
+take float32 only, K8 and K9 a float32 query over a float32 or bfloat16
+cache, held to 1e-4 in both (the plain version widens exactly, as the
+kernels do).
 """
 
 import numpy as np
@@ -755,6 +757,69 @@ def test_flash_decode_clusters_repeat_bit_for_bit(B, H, Dh, C, pos, paged,
     assert (first - plain(*args)).abs().max().item() <= TOL[torch.float32]
     for _ in range(20):
         assert torch.equal(fn(*args), first)
+
+
+# bfloat16 caches (a bf16-compute model's decode state): the grids of the
+# float32 cases, and head dims past a bfloat16 chunk's 256 columns
+BF16_DECODE_CASES = [(1, 4, 32, 512, [511]), (8, 4, 32, 512, MID),
+                     (64, 4, 32, 512, None), (3, 2, 8, 48, None),
+                     (4, 2, 136, 96, None), (8, 2, 256, 512, MID),
+                     (2, 1, 520, 48, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("B,H,Dh,C,pos", BF16_DECODE_CASES)
+def test_flash_decode_reads_bfloat16_caches_on_the_card(B, H, Dh, C, pos,
+                                                        paged, cuda_device):
+    """K8 / K9 over a bfloat16 cache or pool, read in its own type: against
+    the plain version (which widens exactly, as the kernel does, so the
+    float32 tolerance holds), one launch counted, the plan's clusters (a
+    chunk is 256 columns in bfloat16), 20 launches bit for bit, and a
+    float32 query with bfloat16 K and V of another dtype refused."""
+    args = list(_decode_inputs(B, H, Dh, C, pos, paged, cuda_device))
+    args[1], args[2] = args[1].bfloat16(), args[2].bfloat16()
+    fn, plain, name = _decode_fns(paged)
+    before = ops.launch_counts().get(name, 0)
+    first = fn(*args)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()[name] == before + 1
+    assert first.dtype == torch.float32
+    assert (first - plain(*args)).abs().max().item() <= TOL[torch.float32]
+    plan = decode_cuda.last_plan(name)
+    assert plan["clusters"] == B * H * -(-Dh // 256)
+    assert plan["cluster_size"] in (1, 2, 4, 8, 16)
+    for _ in range(20):
+        assert torch.equal(fn(*args), first)
+    mixed = list(args)
+    mixed[2] = args[2].float()
+    with pytest.raises(TypeError, match="one dtype"):
+        fn(*mixed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True])
+def test_flash_decode_bfloat16_replays_from_a_cuda_graph(paged, cuda_device):
+    """The bfloat16 instantiation captured in a CUDA graph and replayed
+    after pos (and the page tables) change in place."""
+    args = list(_decode_inputs(8, 4, 32, 512, MID, paged, cuda_device))
+    args[1], args[2] = args[1].bfloat16(), args[2].bfloat16()
+    fn, plain, _ = _decode_fns(paged)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(*args)
+    gen = torch.Generator().manual_seed(6)
+    for trial in range(3):
+        args[3].copy_(torch.randint(0, 512, (8,), generator=gen)
+                      .to(torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert (out - plain(*args)).abs().max().item() <= TOL[torch.float32]
 
 
 @pytest.mark.cuda

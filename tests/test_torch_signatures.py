@@ -6,8 +6,9 @@ max_len)`` (and its ``ValueError`` past ``max_len``), ``output(x, False)``
 and ``output(x, train=False)`` on both containers,
 ``restore_multi_layer_network(path, False)`` /
 ``restore_computation_graph(path, False)`` and the containers' ``load``,
-and ``DecodeEngine(model, slots, max_len, eos_id, max_queue, precision,
-kv)``. Outputs and parameters must be identical (``torch.equal``).
+``DecodeEngine(model, slots, max_len, eos_id, max_queue, precision,
+kv)`` and ``InferenceEngine(model, max_batch, min_bucket, precision)``.
+Outputs and parameters must be identical (``torch.equal``).
 """
 
 import numpy as np
@@ -16,7 +17,7 @@ import torch
 
 from deeplearning4j_tpu_torch.models import (ComputationGraph,
                                              MultiLayerNetwork)
-from deeplearning4j_tpu_torch.serving import DecodeEngine
+from deeplearning4j_tpu_torch.serving import DecodeEngine, InferenceEngine
 from deeplearning4j_tpu_torch.serving.decode import generate_naive
 from deeplearning4j_tpu_torch.util.model_serializer import (
     restore_computation_graph, restore_multi_layer_network)
@@ -98,18 +99,43 @@ def test_decode_engine_takes_the_jax_positional_order(nets):
         (2, 24, 5, 16, "dense")
     eng = DecodeEngine(tiny, 2, MAXLEN, None, 16, None, "paged")
     assert eng.kv == "paged" and eng.eos_id is None
-    for precision in ("bf16", "int8", "fp8"):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            DecodeEngine(lstm, 2, 24, None, 16, precision)
+    for precision in ("int8", "fp8"):
+        assert DecodeEngine(lstm, 2, 24, None, 16, precision).precision == \
+            precision
+    # not a serving precision in either package (bf16 is a compute dtype)
+    with pytest.raises(ValueError, match="unknown precision"):
+        DecodeEngine(lstm, 2, 24, None, 16, "bf16")
     with pytest.raises(NotImplementedError, match="item 6"):
         DecodeEngine(lstm, 2, 24).warmup(aot="artifact")
+
+
+def test_inference_engine_takes_the_jax_positional_order(nets):
+    lstm, tiny = nets
+    x = _x(B=3)
+    for net in nets:
+        eng = InferenceEngine(net, 8, 2, "int8")
+        assert (eng.max_batch, eng.min_bucket, eng.precision) == \
+            (8, 2, "int8")
+        kw = InferenceEngine(net, max_batch=8, min_bucket=2,
+                             precision="int8")
+        assert np.array_equal(eng.predict_host(x), kw.predict_host(x))
+        assert eng.stats()["buckets_used"] == [4]      # 3 rows -> rung 4
+    with pytest.raises(NotImplementedError, match="item 6"):
+        InferenceEngine(tiny).warmup((6, V), aot="artifact")
 
 
 @pytest.mark.parametrize("entry", ["DecodeEngine.__init__",
                                    "DecodeEngine.submit",
                                    "DecodeEngine.generate",
                                    "MicroBatcher.__init__",
-                                   "MicroBatcher.submit"])
+                                   "MicroBatcher.submit",
+                                   "InferenceEngine.__init__",
+                                   "InferenceEngine.predict",
+                                   "InferenceEngine.predict_host",
+                                   "InferenceEngine.predict_stream",
+                                   "InferenceEngine.swap_weights",
+                                   "InferenceEngine.warmup",
+                                   "InferenceEngine.autotune"])
 def test_serving_entry_points_take_the_jax_positions(entry):
     """The journal's and the host tier's arguments (``journal_capacity``,
     ``host_kv_bytes``, ``request_id``, ``tenant``, ``priority``) sit where
@@ -118,11 +144,15 @@ def test_serving_entry_points_take_the_jax_positions(entry):
 
     from deeplearning4j_tpu.serving.batcher import MicroBatcher as JaxBatcher
     from deeplearning4j_tpu.serving.decode import DecodeEngine as JaxDecode
+    from deeplearning4j_tpu.serving.engine import \
+        InferenceEngine as JaxEngine
 
     from deeplearning4j_tpu_torch.serving import MicroBatcher
     cls, meth = entry.split(".")
-    ours = {"DecodeEngine": DecodeEngine, "MicroBatcher": MicroBatcher}[cls]
-    theirs = {"DecodeEngine": JaxDecode, "MicroBatcher": JaxBatcher}[cls]
+    ours = {"DecodeEngine": DecodeEngine, "MicroBatcher": MicroBatcher,
+            "InferenceEngine": InferenceEngine}[cls]
+    theirs = {"DecodeEngine": JaxDecode, "MicroBatcher": JaxBatcher,
+              "InferenceEngine": JaxEngine}[cls]
 
     def params(c):
         return [(p.name, p.default) for p in

@@ -338,11 +338,14 @@ def test_checkpoint_zip_reads_both_ways(nets, tmp_path):
 @pytest.mark.parametrize("option", ["host_kv_bytes", "self_draft",
                                     "draft_precision"])
 def test_unported_engine_options_raise(nets, option):
-    """The options still unported raise NotImplementedError naming their
-    ROADMAP item: int8/fp8 drafts (item 6). ``host_kv_bytes`` is ported
-    now: the engine builds with a host tier of that budget and reports it
-    in ``kv_pool_info()``, and refuses it, as the JAX engine does, without
-    the prefix cache."""
+    """Options once unported (each raised NotImplementedError naming ROADMAP
+    queue 1 item 6) that are ported now. ``host_kv_bytes``: the engine
+    builds with a host tier of that budget and reports it in
+    ``kv_pool_info()``, and refuses it, as the JAX engine does, without
+    the prefix cache. ``self_draft="int8"`` and ``draft_precision="fp8"``
+    (since the port's quant/): the engine builds, its draft reads a
+    quantized set of that precision, and its greedy tokens are the plain
+    engine's."""
     _, net = nets
     if option == "host_kv_bytes":
         eng = DecodeEngine(net, kv="paged", host_kv_bytes=1 << 20)
@@ -354,8 +357,20 @@ def test_unported_engine_options_raise(nets, option):
             DecodeEngine(net, kv="paged", prefix_cache=False,
                          host_kv_bytes=1 << 20)
         return
-    kw = {"self_draft": {"spec": SpecConfig(self_draft="int8")},
-          "draft_precision": {"spec": SpecConfig(net, k=2,
-                                                 draft_precision="fp8")}}
-    with pytest.raises(NotImplementedError, match=f"{option}.*item 6"):
-        DecodeEngine(net, kv="paged", **kw[option])
+    kw = {"self_draft": ({"spec": SpecConfig(self_draft="int8")}, "int8"),
+          "draft_precision": ({"spec": SpecConfig(net, k=2,
+                                                  draft_precision="fp8")},
+                              "fp8")}
+    spec_kw, precision = kw[option]
+    eng = DecodeEngine(net, slots=2, max_len=32, kv="paged", **spec_kw)
+    plain = DecodeEngine(net, slots=2, max_len=32, kv="paged")
+    outs = []
+    for e in (eng, plain):
+        e.start()
+        try:
+            outs.append(e.generate([1, 2, 3], max_new_tokens=6,
+                                   timeout=120)["tokens"])
+        finally:
+            e.stop()
+    assert outs[0] == outs[1]
+    assert eng.stats()["spec"]["draft_precision"] == precision
