@@ -418,6 +418,41 @@ result line, when any of them or the port's package is missing. Phases:
    serving unchanged; K5 twice a /predict forward and K8 twice a decode
    step. The phase prints its seconds.
 
+16. Observability over the captured engines and train steps
+   (``observability_phase``), TinyTransformer at its default width and
+   the LSTM recipe (B=32, T=64). (a) A server with a max_batch-16
+   /predict engine and a dense decode engine, and a paged engine (8
+   slots, max_len 512, blocks of 16): ``/warmup`` captures 1..16; ``GET
+   /programs`` lists every captured program of the three engines (rungs
+   ``b{B}``, ``step``, ``cow``) with flops, bytes, graph-pool bytes and
+   compile seconds, and reading it adds no program and no capture; each
+   record's launches equal the launch counts over N replays divided by N
+   (rung 16, both steps); the hand kernels' flops of rung 16 and of both
+   steps equal ``attn_work``'s at the program's shape (K5 causal at BH 64,
+   T=64; K8 / K9 over each slot's whole capacity), once an attention
+   layer. (b) A /predict and a /generate with ``x-trace-context``: ``GET
+   /trace`` holds ``http_request``, ``enqueue``, ``bucket``, ``pad``,
+   ``device``, ``readback`` and ``decode_step`` spans with their trace
+   ids, and so do the ``/requests`` records; the dense decode step's ms
+   (8 streams of 32 tokens) with tracing off and on, 5 rounds each. (c)
+   ``POST /admin/profile`` for 2 s under /generate traffic to the dense
+   and the paged engine: 200, a second request 409 ``profile_busy``, and
+   the written trace names K8 and K9 (``flash_decode_kernel`` instances,
+   launched from graph replays). (d) Each recipe (LSTM: K4-train and K3;
+   TinyTransformer: K5-K7) captured for 20 steps from one init, the
+   recorder attached after 2 at ``sample_every`` 1 and 4: parameters and
+   updater state bit for bit the recorder-off run's, captured = eager
+   with the recorder (parameters and rows), one capture when attached,
+   records at the sampled iterations, rows within 1e-4 of a float64 host
+   computation from the parameters before and after each step and its
+   gradients; ms a captured step (one fit_scan of 40 steps after 34 that
+   capture both graphs, 3 rounds; the corpus's windows at stride 2) with
+   the recorder off, at K=1 and at K=16; then a NaN planted in one
+   feature of one example of the LSTM recipe: the spill, ``GET
+   /train/diagnostics`` and ``/healthz`` (``train_non_finite``) name
+   layer 0. The phase prints its seconds; its launches join the kernels
+   line (K3, K4-train, K5-K9).
+
 A replayed CUDA graph adds to the launch counts the launches its capture
 recorded (the capture itself counts none), so the counts below are the
 kernels that ran. Kernel launch counts are reset right before the LSTM
@@ -843,7 +878,16 @@ def attn_bound(kernel, c, peak="float32"):
     """Least time for one attention call on these inputs: every input read
     once and every output written once over HBM, or its operations at the
     card's ``peak`` rate (float32 outside the tensor cores by default;
-    "tf32" for the tensor-core bound of K5-K7), whichever is larger. K5, K6
+    "tf32" for the tensor-core bound of K5-K7), whichever is larger
+    (``attn_work``)."""
+    flops, nbytes = attn_work(kernel, c)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[peak] * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def attn_work(kernel, c):
+    """(operations, bytes) of one attention call on these inputs. K5, K6
     and K7 count the (query, key) pairs the mask keeps; K8/K9 only the live
     rows 0..pos of each stream, at the cache's width (2 bytes in
     bfloat16), and K9 the page-table entries they need."""
@@ -871,9 +915,7 @@ def attn_bound(kernel, c, peak="float32"):
         if kernel == "flash_decode_paged":
             nbytes += 4 * int((c["pos"].long() // c["pk"].shape[1] + 1).sum())
         flops = 4.0 * Dh * H * live
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[peak] * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    return flops, nbytes
 
 
 def attn_inputs(kernel, B, T, causal=False, pos=None, seed=0, dh=HEAD_DIM,
@@ -6202,6 +6244,547 @@ def fmt_profile(prof, tags, unit="step", units="fit steps"):
             + f"; host self time per {unit}, top: {prof['top_host_ops'][:5]}")
 
 
+# ---- phase 16: observability over the captured engines and train steps ----
+OBS_MAX_BATCH = 16            # the /predict engine's ladder 1..16
+OBS_PREDICT_REPLAYS = 5       # rung-16 replays the launch check divides by
+OBS_STREAMS, OBS_NEW = 8, 32  # /generate streams and tokens in a round
+OBS_ROUNDS = 5                # rounds of tracing on against off
+OBS_PROFILE_S = 2.0           # POST /admin/profile's session
+FLIGHT_STEPS = 20             # recipe steps of each recorder run
+FLIGHT_OFF_STEPS = 2          # of them before the recorder is attached
+FLIGHT_SAMPLES = (1, 4)       # sample_every of the bitwise runs
+FLIGHT_TIMED = (None, 1, 16)  # recorder off, K=1, K=16
+FLIGHT_TIMED_STEPS = 40       # steps of one timed fit_scan call
+FLIGHT_RTOL = 1e-4            # rows against the float64 host computation
+FLIGHT_CAPTURES_MOVED = 1     # attaching a recorder: one capture (0 off
+                              # the card, where nothing is captured)
+CAPTURED_MS = {"lstm": 1.181, "tiny": 1.098}  # PERF.md 5, final run, PR 12
+
+
+def _replay_launches(programs, caller, key, run, n):
+    """``run()`` replays the program ``(caller, key)`` n times: its
+    registered launches must be the counts' delta over them divided by n."""
+    from deeplearning4j_tpu_torch import ops
+    rec = programs.get(caller, key)
+    ops.reset_launch_counts()
+    run()
+    counts = ops.launch_counts()
+    got = {k: v / n for k, v in counts.items()}
+    if got != rec["launches"]:
+        raise AssertionError(f"program {caller}/{key}: registered launches "
+                             f"{rec['launches']}, {got} a replay")
+    return rec, counts
+
+
+def _obs_prompts(ids, n, length, start):
+    return [ids[start + 97 * i:start + 97 * i + length] for i in range(n)]
+
+
+def obs_programs_part(card, res, net, srv, paged, vocab, ids):
+    """(a) The registry over the captured programs: every program of the
+    three engines listed by GET /programs with its cost; a record's
+    launches are one replay's; the decode step's and the rung's kernel
+    work is ``attn_work``'s at the program's shape; reading adds no
+    program."""
+    import torch
+    from deeplearning4j_tpu_torch.exec import get_programs
+    url = f"http://127.0.0.1:{srv.port}"
+    dense, eng = srv.decode_engine, srv.engine
+    st, body, _ = _http(url, "/warmup", {"input_shape": [TINY_T, vocab],
+                                         "max_batch": OBS_MAX_BATCH})
+    if st != 200:
+        raise AssertionError(f"/warmup answered {st}: {body}")
+    rungs = body["buckets"]
+    before = (eng.trace_count, dense.trace_count, paged.trace_count,
+              eng.captures, dense.program_stats(), paged.program_stats())
+    st, body, _ = _http(url, "/programs")
+    after = (eng.trace_count, dense.trace_count, paged.trace_count,
+             eng.captures, dense.program_stats(), paged.program_stats())
+    if st != 200 or after != before:
+        raise AssertionError(f"/programs {st}; counts {before} -> {after}")
+    callers = {eng.id: "predict", dense.id: "dense", paged.id: "paged"}
+    mine = [p for p in body["programs"] if p["caller"] in callers]
+    keys = sorted((callers[p["caller"]], p["key"]) for p in mine)
+    want = sorted([("predict", f"b{b}") for b in rungs]
+                  + [("dense", k) for k in dense.program_stats()]
+                  + [("paged", k) for k in paged.program_stats()])
+    missing = [p for p in mine if any(
+        p[f] is None for f in ("flops", "bytes", "memory_bytes",
+                               "compile_seconds"))]
+    if keys != want or missing:
+        raise AssertionError(f"/programs lists {keys}, want {want}; "
+                             f"without a number: {missing}")
+    L = sum(1 for n in net.conf.layer_nodes()
+            if type(net.conf.nodes[n].layer).__name__ == "MultiHeadAttention")
+    programs = get_programs()
+    x16 = torch.zeros(OBS_MAX_BATCH, TINY_T, vocab)
+    x16[..., 0] = 1.0
+
+    def predict():
+        for _ in range(OBS_PREDICT_REPLAYS):
+            eng.predict_host(x16)
+    rung, counts = _replay_launches(programs, eng.id, f"b{OBS_MAX_BATCH}",
+                                    predict, OBS_PREDICT_REPLAYS)
+    q = torch.zeros(OBS_MAX_BATCH * HEADS, TINY_T, HEAD_DIM)
+    want_k5 = L * attn_work("flash_attn_fwd", {"q": q, "causal": True})[0]
+    checks = {"b16": (rung["kernel_flops"], want_k5)}
+    out = {"records": {f"{callers[p['caller']]}/{p['key']}":
+                       {k: v for k, v in p.items() if k != "launches"}
+                       | {"replay_launches": p["launches"]} for p in mine},
+           "predict_replays": {"launches": counts}}
+    for kind, e in (("dense", dense), ("paged", paged)):
+        prompts = _obs_prompts(ids, e.slots, 1, 11)
+        s0 = [0]
+
+        def gen(e=e, prompts=prompts):
+            s0[0] = e._steps
+            futs = [e.submit(p, max_new_tokens=OBS_NEW) for p in prompts]
+            for f in futs:
+                f.result(timeout=300)
+        from deeplearning4j_tpu_torch import ops
+        ops.reset_launch_counts()
+        gen()
+        n = e._steps - s0[0]
+        got = {k: v / n for k, v in ops.launch_counts().items()}
+        rec = programs.get(e.id, "step")
+        if got != rec["launches"]:
+            raise AssertionError(f"{kind} step: registered launches "
+                                 f"{rec['launches']}, {got} a replay")
+        C = e.max_len
+        c = {"q": torch.zeros(e.slots, HEADS, HEAD_DIM),
+             "pos": torch.full((e.slots,), C - 1)}
+        if kind == "dense":
+            c["kc"] = torch.zeros(e.slots, C, HEADS, HEAD_DIM)
+            kernel = "flash_decode"
+        else:
+            C = e._max_blocks * e.kv_block_size
+            c["pos"] = torch.full((e.slots,), C - 1)
+            c["pk"] = torch.zeros(1, e.kv_block_size, HEADS, HEAD_DIM)
+            kernel = "flash_decode_paged"
+        checks[kind] = (rec["kernel_flops"], L * attn_work(kernel, c)[0])
+        out[f"{kind}_replays"] = {"launches": ops.launch_counts()}
+        out[f"{kind}_kernel_share"] = rec["kernel_flops"] / rec["flops"]
+    bad = {k: v for k, v in checks.items() if v[0] != v[1]}
+    out["kernel_flops"] = checks
+    print(f"observability: (a) GET /programs lists {len(mine)} captured "
+          f"programs of the /predict, dense and paged engines ({keys}), each "
+          f"with flops, bytes, memory_bytes and compile_seconds; dense step "
+          f"{programs.get(dense.id, 'step')['flops']:.4g} flops, "
+          f"{programs.get(dense.id, 'step')['memory_bytes']} pool bytes, "
+          f"kernel share {out['dense_kernel_share']:.3f}; paged step kernel "
+          f"share {out['paged_kernel_share']:.3f}; launches a replay equal "
+          f"the counts' delta; hand-kernel flops against attn_work "
+          f"{checks}; reading /programs added no program [{card}]",
+          flush=True)
+    if bad:
+        raise AssertionError(f"kernel flops against attn_work: {bad}")
+    res["programs"] = out
+
+
+def _spans_by_trace(doc):
+    spans = {}
+    for e in doc["traceEvents"]:
+        tid = e.get("args", {}).get("trace_id")
+        if e.get("ph") == "B" and tid:
+            spans.setdefault(tid, set()).add(e["name"])
+    return spans
+
+
+def _obs_decode_round(e, prompts):
+    """One round of ``prompts`` on engine ``e``: ms a step (the step's wall
+    on the loop thread, its read included)."""
+    s0, d0 = e._steps, e._decode_seconds
+    futs = [e.submit(p, max_new_tokens=OBS_NEW) for p in prompts]
+    for f in futs:
+        f.result(timeout=300)
+    return (e._decode_seconds - d0) / (e._steps - s0) * 1e3
+
+
+def obs_trace_part(card, res, srv, vocab, ids):
+    """(b) A /predict and a /generate with an ``x-trace-context`` header:
+    their spans in GET /trace and their records in /requests carry its
+    trace id; the captured decode step's ms with tracing on and off."""
+    import numpy as np
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.monitor import trace
+    from deeplearning4j_tpu_torch.serving.wire import ndarray_to_b64
+    url = f"http://127.0.0.1:{srv.port}"
+    x = np.zeros((3, TINY_T, vocab), np.float32)
+    x[..., 0] = 1.0
+    trace.clear()
+    trace.enable(True)
+    ops.reset_launch_counts()
+    try:
+        st1, _, _ = _http(url, "/predict", {"ndarray": ndarray_to_b64(x)},
+                          {"x-trace-context": "smoke-predict;client#1"})
+        st2, _, _ = _http(url, "/generate", {
+            "tokens": _obs_prompts(ids, 1, 24, 5)[0], "max_new_tokens": 8},
+            {"x-trace-context": "smoke-generate"})
+        launches = ops.launch_counts()
+        st3, doc, _ = _http(url, "/trace")
+        st4, journal, _ = _http(url, "/requests")
+    finally:
+        trace.enable(False)
+    spans = _spans_by_trace(doc)
+    want_p = {"http_request", "enqueue", "bucket", "pad", "device",
+              "readback"}
+    want_g = {"http_request", "decode_step"}
+    traced = {(r["source"], r["trace_id"]) for r in journal["records"]}
+    ok = (st1 == st2 == st3 == st4 == 200
+          and want_p <= spans.get("smoke-predict", set())
+          and want_g <= spans.get("smoke-generate", set())
+          and {("predict", "smoke-predict"),
+               ("decode", "smoke-generate")} <= traced)
+    out = {"spans": {k: sorted(v) for k, v in spans.items()},
+           "launches": launches}
+    prompts = _obs_prompts(ids, OBS_STREAMS, 16, 41)
+    e = srv.decode_engine
+    ms = {"off": [], "on": []}
+    for _ in range(OBS_ROUNDS):
+        for state in ("off", "on"):
+            trace.enable(state == "on")
+            ops.reset_launch_counts()
+            try:
+                ms[state].append(_obs_decode_round(e, prompts))
+            finally:
+                trace.enable(False)
+            out.setdefault("rounds", []).append(
+                {"tracing": state, "launches": ops.launch_counts()})
+    trace.clear()
+    out["step_ms"] = ms
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    out["step_ms_median"] = med
+    print(f"observability: (b) /predict and /generate with x-trace-context: "
+          f"spans {out['spans']}; /requests records carry both trace ids "
+          f"{ok}; captured dense decode step ({OBS_STREAMS} streams, "
+          f"{OBS_NEW} tokens, {OBS_ROUNDS} rounds) tracing off "
+          f"{med['off']:.3f} ms ({_spread(ms['off'])}), on "
+          f"{med['on']:.3f} ms ({_spread(ms['on'])}) [{card}]", flush=True)
+    if not ok:
+        raise AssertionError(f"traces: statuses {(st1, st2, st3, st4)}, "
+                             f"spans {spans}, records {traced}")
+    res["trace"] = out
+
+
+def _decode_kernel_kinds(names):
+    """Which of K8 / K9 appear among profiled kernel names: both are
+    ``flash_decode_kernel`` instances, the third template argument PAGED
+    (demangled ``<..., true, ...>``, mangled ``Lb1E``)."""
+    import re
+    kinds = set()
+    for n in names:
+        if "flash_decode_kernel" not in n:
+            continue
+        if "<" in n:
+            args = [a.strip() for a in n.split("<", 1)[1].split(",")]
+            paged = len(args) > 2 and args[2] == "true"
+        else:
+            m = re.search(r"flash_decode_kernelI\w*?Lb([01])E", n)
+            paged = bool(m) and m.group(1) == "1"
+        kinds.add("flash_decode_paged" if paged else "flash_decode")
+    return kinds
+
+
+def obs_profile_part(card, res, srv, paged_srv, ids):
+    """(c) POST /admin/profile for OBS_PROFILE_S seconds under live
+    /generate traffic to the dense and the paged engine: a second request
+    meanwhile answers 409, and the written trace names K8 and K9, launched
+    from graph replays."""
+    import tempfile
+    import threading
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.monitor import profiling
+    stop = threading.Event()
+    errors = []
+
+    def traffic(s, seed):
+        url = f"http://127.0.0.1:{s.port}"
+        k = 0
+        while not stop.is_set():
+            st, body, _ = _http(url, "/generate", {
+                "tokens": _obs_prompts(ids, 1, 12, seed + 13 * k)[0],
+                "max_new_tokens": 16})
+            if st != 200:
+                errors.append((st, body))
+            k += 1
+    ops.reset_launch_counts()
+    threads = [threading.Thread(target=traffic, args=(s, i * 500))
+               for i, s in enumerate((srv, paged_srv))]
+    for t in threads:
+        t.start()
+    with tempfile.TemporaryDirectory() as tmp:
+        out_dir = str(Path(tmp) / "profile")
+        try:
+            url = f"http://127.0.0.1:{srv.port}"
+            time.sleep(0.3)
+            st1, b1, _ = _http(url, "/admin/profile",
+                               {"dir": out_dir, "seconds": OBS_PROFILE_S})
+            st2, b2, _ = _http(url, "/admin/profile",
+                               {"dir": out_dir, "seconds": OBS_PROFILE_S})
+            deadline = time.monotonic() + 120.0
+            while profiling.profile_status()["profiling"]:
+                if time.monotonic() > deadline:
+                    raise AssertionError("the profiling session never ended")
+                time.sleep(0.1)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join()
+        last = profiling.profile_status().get("last", {})
+        names = set()
+        if "trace" in last:
+            with open(last["trace"]) as f:
+                events = json.load(f)["traceEvents"]
+            names = {e.get("name", "") for e in events
+                     if e.get("cat") == "kernel"}
+        kinds = _decode_kernel_kinds(names)
+        size = (Path(last["trace"]).stat().st_size if "trace" in last
+                else None)
+    out = {"status": [st1, st2], "busy_type": (b2.get("error") or {}).get(
+        "type") if isinstance(b2, dict) else None, "kernels": sorted(kinds),
+        "kernel_names": len(names), "trace_bytes": size,
+        "launches": ops.launch_counts()}
+    print(f"observability: (c) POST /admin/profile {OBS_PROFILE_S} s under "
+          f"/generate traffic on the dense and paged engines: {st1}, a "
+          f"second request meanwhile {st2} ({out['busy_type']}); the trace "
+          f"({size} bytes, {len(names)} kernel names) names "
+          f"{sorted(kinds)}; traffic launches {out['launches']} [{card}]",
+          flush=True)
+    if (st1, st2, out["busy_type"]) != (200, 409, "profile_busy") or \
+            kinds != {"flash_decode", "flash_decode_paged"} or errors:
+        raise AssertionError(f"profiling: {out}, {last}, errors {errors[:3]}")
+    res["profile"] = out
+
+
+def _host64(net, tree=None):
+    """A container's parameters (or a tree like them) as float64 numpy, per
+    layer in the flight recorder's row order."""
+    from deeplearning4j_tpu_torch.monitor import flight
+    tree = net.params if tree is None else tree
+    groups = tree if isinstance(tree, list) else [
+        tree[n] for n in flight.layer_names(net)]
+    return [{k: v.detach().double().cpu().numpy() for k, v in g.items()}
+            for g in groups]
+
+
+def _rows64(old, new, grad):
+    """The telemetry rows from float64 host arrays."""
+    import numpy as np
+    rows = []
+    for o, nw, g in zip(old, new, grad):
+        if not nw:
+            rows.append(np.zeros(5))
+            continue
+        u = {k: nw[k] - o[k] for k in nw}
+        gs = sum((g[k] ** 2).sum() for k in nw)
+        us = sum((u[k] ** 2).sum() for k in nw)
+        ps = sum((nw[k] ** 2).sum() for k in nw)
+        ua = sum(np.abs(u[k]).sum() for k in nw)
+        pa = sum(np.abs(nw[k]).sum() for k in nw)
+        n = sum(nw[k].size for k in nw)
+        finite = all(np.isfinite(nw[k]).all() and np.isfinite(g[k]).all()
+                     for k in nw)
+        rows.append(np.array([np.sqrt(gs), np.sqrt(us), np.sqrt(ps),
+                              ua / (pa + 1e-12 * max(n, 1)),
+                              0.0 if finite else 1.0]))
+    return np.stack(rows)
+
+
+def _recorded_run(make, xs, ys, k, eager=False, host=False):
+    """FLIGHT_STEPS recipe steps from ``make()``: FLIGHT_OFF_STEPS with no
+    recorder, then the rest with a recorder sampling every ``k``. With
+    ``host``, each sampled step's rows as a float64 host computation from
+    the parameters before and after it and its gradients."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.monitor import FlightRecorder
+    net = make()
+    if eager:
+        net._capture_steps = False
+    for s in range(FLIGHT_OFF_STEPS):
+        net.fit_scan(xs[s:s + 1], ys[s:s + 1])
+    c0 = net._capture_count
+    rec = FlightRecorder(sample_every=k)
+    net.attach_flight_recorder(rec)
+    want = {}
+    for s in range(FLIGHT_OFF_STEPS, FLIGHT_STEPS):
+        if host and rec.sampled(s):
+            before = _host64(net)
+            grads = _host64(net, net.compute_gradient_and_score(
+                xs[s], ys[s])[0])
+        net.fit_scan(xs[s:s + 1], ys[s:s + 1])
+        if host and rec.sampled(s):
+            want[s] = _rows64(before, _host64(net), grads)
+    got = {r["iteration"]: r["stats"] for r in rec.records()}
+    err = None
+    if host:
+        err = max(float(np.max(np.abs(got[s] - w) / np.maximum(
+            np.abs(w), 1e-30))) for s, w in want.items())
+    return net, rec, net._capture_count - c0, got, err
+
+
+def flight_model_part(card, res, name, make, xs, ys):
+    """(d) for one recipe: recorder-off, K=1 and K=4 runs from one init;
+    K=1 eager; bits, rows, captures; then ms a step off, K=1, K=16."""
+    import torch
+    from deeplearning4j_tpu_torch import ops
+    out = {}
+    ops.reset_launch_counts()
+    off = make()
+    for s in range(FLIGHT_STEPS):
+        off.fit_scan(xs[s:s + 1], ys[s:s + 1])
+    ref = _tensors(off)
+    runs = {}
+    for k in FLIGHT_SAMPLES:
+        runs[k] = _recorded_run(make, xs, ys, k, host=k == 1)
+    eager = _recorded_run(make, xs, ys, 1, eager=True)
+    torch.cuda.synchronize()
+    out["launches"] = ops.launch_counts()
+    bits = {k: all(torch.equal(a, b) for a, b in zip(_tensors(r[0]), ref))
+            for k, r in runs.items()}
+    cap_eager = all(torch.equal(a, b) for a, b in
+                    zip(_tensors(runs[1][0]), _tensors(eager[0]))) and all(
+        (runs[1][3][s] == eager[3][s]).all() for s in runs[1][3])
+    moved = {k: r[2] for k, r in runs.items()}
+    iters = {k: sorted(r[3]) for k, r in runs.items()}
+    want_iters = {k: [s for s in range(FLIGHT_OFF_STEPS, FLIGHT_STEPS)
+                      if s % k == 0] for k in FLIGHT_SAMPLES}
+    out.update(bitwise_vs_off=bits, captured_vs_eager_bitwise=cap_eager,
+               captures_moved=moved, host64_max_rel_err=runs[1][4],
+               layer_names=runs[1][1].layer_names)
+    print(f"observability: (d) {name}: {FLIGHT_STEPS} captured steps, the "
+          f"recorder attached after {FLIGHT_OFF_STEPS}: parameters bit for "
+          f"bit those of the recorder-off run {bits}; captured = eager with "
+          f"the recorder (parameters and rows) {cap_eager}; captures moved "
+          f"{moved}; rows against the float64 host computation max rel err "
+          f"{runs[1][4]:.3g} (rtol {FLIGHT_RTOL}); records {iters}; launches "
+          f"{out['launches']} [{card}]", flush=True)
+    if not (all(bits.values()) and cap_eager
+            and all(v == FLIGHT_CAPTURES_MOVED for v in moved.values())
+            and iters == want_iters
+            and runs[1][4] <= FLIGHT_RTOL):
+        raise AssertionError(f"flight recorder, {name}: {out}")
+    ms = {}
+    nets = {}
+    # every net warms and captures both of its graphs before the timed
+    # calls: a sampled iteration's graph is captured at its second
+    # sampled iteration (2 K steps in)
+    warm = 2 * max(k for k in FLIGHT_TIMED if k is not None) + 2
+    for k in FLIGHT_TIMED:
+        net = nets[k] = make()
+        net.fit_scan(xs[:2], ys[:2])
+        if k is not None:
+            from deeplearning4j_tpu_torch.monitor import FlightRecorder
+            net.attach_flight_recorder(FlightRecorder(sample_every=k))
+        net.fit_scan(xs[2:warm], ys[2:warm])
+        ms[k] = []
+    n = min(FLIGHT_TIMED_STEPS, len(xs) - warm)
+    for _ in range(3):
+        for k, net in nets.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            net.fit_scan(xs[warm:warm + n], ys[warm:warm + n])
+            torch.cuda.synchronize()
+            ms[k].append((time.perf_counter() - t0) / n * 1e3)
+    med = {str(k): statistics.median(v) for k, v in ms.items()}
+    out["ms_per_step"] = {str(k): v for k, v in ms.items()}
+    out["ms_per_step_median"] = med
+    shown = ", ".join(("recorder off" if k == "None" else f"K={k}")
+                      + f" {v:.3f}" for k, v in med.items())
+    print(f"observability: (d) {name}: ms a captured step (fit_scan of {n}, "
+          f"3 rounds, median): {shown} (PERF.md 5: {CAPTURED_MS[name]} "
+          f"captured) [{card}]", flush=True)
+    res[name] = out
+    return runs[1]
+
+
+def flight_nan_part(card, res, make, xs, ys):
+    """(d) a NaN planted in one feature of one example: the spill names the
+    first non-finite layer, /train/diagnostics and /healthz show it."""
+    import tempfile
+    from deeplearning4j_tpu_torch.monitor import FlightRecorder
+    from deeplearning4j_tpu_torch.serving import InferenceServer
+    net = make()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "blackbox.json")
+        rec = FlightRecorder(sample_every=1, spill_path=path,
+                             spill_every=10_000)
+        net.attach_flight_recorder(rec)
+        net.fit_scan(xs[:1], ys[:1])
+        bad = xs[1:2].clone()
+        bad[0, 0, 0, 0] = float("nan")
+        net.fit_scan(bad, ys[1:2])
+        # the drain (any read) feeds the detector, which spills at once
+        fnf = rec.first_non_finite()
+        doc = FlightRecorder.restore(path)
+    srv = InferenceServer(net, port=0, flight_recorder=rec).start()
+    try:
+        url = f"http://127.0.0.1:{srv.port}"
+        st1, diag, _ = _http(url, "/train/diagnostics")
+        st2, health, _ = _http(url, "/healthz")
+    finally:
+        srv.stop()
+    want = {"layer": "0:LSTM", "iteration": 1}
+    out = {"spill_first_non_finite": doc["first_non_finite"],
+           "diagnostics_first_non_finite": diag.get("first_non_finite"),
+           "healthz": health}
+    print(f"observability: (d) NaN in one feature of one example: the spill "
+          f"names {doc['first_non_finite']}, /train/diagnostics ({st1}) "
+          f"{diag.get('first_non_finite')}, /healthz ({st2}) "
+          f"{health.get('reason')} [{card}]", flush=True)
+    if not (doc["first_non_finite"] == want == fnf
+            and diag.get("first_non_finite") == want
+            and health.get("reason") == "train_non_finite"):
+        raise AssertionError(f"NaN run: {out}")
+    res["nan"] = out
+
+
+def observability_phase(card, dev="cuda"):
+    """Phase 16: the program registry, traces, profiling and the flight
+    recorder over the captured engines (K5, K8, K9) and the captured train
+    steps (K3, K4-train; K5-K7) (``chip_smoke.py`` docstring)."""
+    import torch
+    from deeplearning4j_tpu_torch.serving import DecodeEngine, InferenceServer
+    from deeplearning4j_tpu_torch.zoo import (TextGenerationLSTM,
+                                              TinyTransformer)
+    from deeplearning4j_tpu_torch.zoo.corpus import corpus_ids, corpus_windows
+    t0 = time.perf_counter()
+    ids, vocab = corpus_ids()
+    ids = [int(t) for t in ids]
+    V = len(vocab)
+    res = {"card": card}
+    net = TinyTransformer(vocab_size=V).init(device=dev)
+    dense = DecodeEngine(net, slots=OBS_STREAMS, max_len=512)
+    paged = DecodeEngine(net, slots=OBS_STREAMS, max_len=512, kv="paged",
+                         kv_block_size=KV_BLOCK)
+    srv = InferenceServer(net, port=0, max_batch=OBS_MAX_BATCH,
+                          decode_engine=dense).start()
+    paged_srv = InferenceServer(net, port=0, decode_engine=paged).start()
+    try:
+        obs_programs_part(card, res, net, srv, paged, V, ids)
+        obs_trace_part(card, res, srv, V, ids)
+        obs_profile_part(card, res, srv, paged_srv, ids)
+    finally:
+        srv.stop()
+        paged_srv.stop()
+    # stride 2: enough steps for the timed calls after both graphs' capture
+    (xtr, ytr), _, _ = corpus_windows(stride=2)
+    B, T = TINY_B, TINY_T
+    steps = len(xtr) // B
+    xs = torch.tensor(xtr[:steps * B].reshape(steps, B, T, -1)).to(dev)
+    ys = torch.tensor(ytr[:steps * B].reshape(steps, B, T, -1)).to(dev)
+    lstm = TextGenerationLSTM(total_unique_characters=V)
+    tiny = TinyTransformer(vocab_size=V)
+    flight_model_part(card, res, "lstm", lambda: lstm.init(device=dev), xs,
+                      ys)
+    flight_model_part(card, res, "tiny", lambda: tiny.init(device=dev), xs,
+                      ys)
+    flight_nan_part(card, res, lambda: lstm.init(device=dev), xs, ys)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"observability: phase 16 took {res['seconds']:.1f} s [{card}]",
+          flush=True)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6344,6 +6927,7 @@ def main() -> int:
     inception = inception_phase(card)
     kv_tier = kv_tier_phase(card)
     precision = serving_precision_phase(card)
+    obs = observability_phase(card)
 
     # each kernel at its main path's shape, with the launches of the run
     # that drove it: /predict of the 15 held-out windows (bucket 16, T=64)
@@ -6353,8 +6937,14 @@ def main() -> int:
                        "lstm2_fwd": res["launches"].get("lstm2_fwd", 0)
                        + counted_launches(precision["lstm"], "lstm2_fwd")}),
                    "lstm_fwd": (16, 15, res["launches"]),
-                   "lstm2_fwd_train": (64, 32, train["launches_recipe"]),
-                   "lstm_bwd": (64, 32, train["launches_recipe"]),
+                   "lstm2_fwd_train": (64, 32, {
+                       k: train["launches_recipe"].get(k, 0)
+                       + counted_launches(obs, k)
+                       for k in ("lstm2_fwd_train", "lstm_bwd")}),
+                   "lstm_bwd": (64, 32, {
+                       k: train["launches_recipe"].get(k, 0)
+                       + counted_launches(obs, k)
+                       for k in ("lstm2_fwd_train", "lstm_bwd")}),
                    "lstm_fwd_train": (16, 32, train["launches_tbptt"])}
     entries = []
 
@@ -6384,13 +6974,15 @@ def main() -> int:
     by_path = {"tiny /predict": tiny["launches_predict"]["flash_attn_fwd"]
                + tiny["launches_mixed"]["flash_attn_fwd"],
                "phase 14": counted_launches(kv_tier, "flash_attn_fwd"),
-               "phase 15": counted_launches(precision, "flash_attn_fwd")}
+               "phase 15": counted_launches(precision, "flash_attn_fwd"),
+               "phase 16": counted_launches(obs, "flash_attn_fwd")}
     entry("flash_attn_fwd", row, sum(by_path.values()))
     entries[-1]["launches_by_path"] = by_path
     # the recipe's train steps (B=32, T=64) run K6 and K7 at BH 128, causal
     recipe = tiny_train["recipe"]["launches_train"]
     for row in bwd_kernel_case(TINY_B, TINY_T, True, seed=1):
-        entry(row["kernel"], row, recipe[row["kernel"]])
+        entry(row["kernel"], row, recipe[row["kernel"]]
+              + counted_launches(obs, row["kernel"]))
     print("main-path shape: " + fmt_bwd(rows[-2:]) + f" [{card}]", flush=True)
     mid = DECODE_MID
     for kernel, kind in (("flash_decode", "dense"),
@@ -6406,7 +6998,8 @@ def main() -> int:
                    "phase 11": counted_launches(serving, kernel),
                    "phase 14": counted_launches(kv_tier, kernel),
                    "phase 15 (float32 caches)":
-                   counted_launches(precision, kernel) - bf16_launches}
+                   counted_launches(precision, kernel) - bf16_launches,
+                   "phase 16": counted_launches(obs, kernel)}
         entry(kernel, row, sum(by_path.values()))
         entries[-1]["launches_by_path"] = by_path
         # the same shape over a bfloat16 cache (F8): that instantiation's
@@ -6449,7 +7042,8 @@ def main() -> int:
          "train": train, "tiny_train": tiny_train, "captured": captured,
          "regularised": regularised, "fit_contract": fit_contract,
          "serving_features": serving, "cnn": cnn, "inception": inception,
-         "kv_tier": kv_tier, "precision": precision, "kernels": entries},
+         "kv_tier": kv_tier, "precision": precision, "observability": obs,
+         "kernels": entries},
         indent=1))
     print(json.dumps({"kernels": entries}))
     print(card)

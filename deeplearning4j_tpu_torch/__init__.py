@@ -23,13 +23,24 @@ as the JAX package leaves it to XLA. Both serving engines take the JAX
 package's weight-only serving precisions (``quant``: int8 and
 fp8-e4m3 codes with per-channel scales, ``exec.Executor(precision=)``),
 hot-swap their own resident weights in place, and run captured programs
-(CUDA graphs) over them.
+(CUDA graphs) over them. The JAX package's observability is ported:
+every program registers its cost (``exec.programs``, ``GET
+/programs``), spans carry the ``x-trace-context`` trace id (``GET
+/trace``), ``torch.profiler`` sessions (``POST /admin/profile``,
+``DL4JTPU_PROFILE``), burn-rate SLOs, fleet collection, and the training
+flight recorder, whose telemetry is computed inside the captured train
+step (``monitor.flight``, ``GET /train/diagnostics``).
 """
+
+__version__ = "0.1.0"
 
 from deeplearning4j_tpu_torch import monitor, optimize, resilience  # noqa: F401
 from deeplearning4j_tpu_torch.models.computation_graph import (  # noqa: F401
     ComputationGraph)
 from deeplearning4j_tpu_torch.models.multi_layer_network import (  # noqa: F401
     MultiLayerNetwork, params_from_numpy)
+from deeplearning4j_tpu_torch.nn.conf.configuration import (  # noqa: F401
+    ComputationGraphConfiguration, MultiLayerConfiguration,
+    NeuralNetConfiguration)
 from deeplearning4j_tpu_torch.resilience import (  # noqa: F401
     CheckpointListener, CheckpointManager, latest_checkpoint)

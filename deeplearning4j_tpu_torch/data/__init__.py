@@ -7,3 +7,7 @@ from deeplearning4j_tpu_torch.data.iterators import (  # noqa: F401
     AsyncDataSetIterator, AsyncMultiDataSetIterator, DataSetIterator,
     ExistingDataSetIterator, InequalityHandling, JointParallelDataSetIterator,
     ListDataSetIterator, MultipleEpochsIterator, resolve_pre_processor)
+from deeplearning4j_tpu_torch.data.normalizers import (  # noqa: F401
+    ImagePreProcessingScaler, NormalizerMinMaxScaler, NormalizerStandardize)
+from deeplearning4j_tpu_torch.data.prefetcher import (  # noqa: F401
+    DevicePrefetcher)

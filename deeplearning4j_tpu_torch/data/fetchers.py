@@ -1,5 +1,5 @@
-"""Fetchers and iterators of the standard small datasets: MNIST, EMNIST,
-CIFAR-10 and Iris.
+"""Fetchers and iterators of the standard datasets: MNIST, EMNIST,
+CIFAR-10, Iris, TinyImageNet and LFW.
 
 Counterpart of deeplearning4j_tpu/data/fetchers.py, copied (numpy only):
 each fetcher reads the real files under ``DL4JTPU_DATA_DIR`` (default
@@ -9,11 +9,16 @@ real shapes and split sizes, array for array the same. The image
 iterators hold and emit uint8 features (``uint8_wire``, the default) with
 a ``device_side`` ImagePreProcessingScaler attached, so a batch crosses
 the link at one byte a pixel and the /255 runs on the card.
+TinyImageNet and LFW read a class-per-directory image tree
+(``load_image_tree``, with PIL). ``data_source(name)`` says whether the
+last load of a dataset read files (``real``) or generated them
+(``synthetic``).
 """
 
 from __future__ import annotations
 
 import gzip
+import logging
 import os
 import struct
 from pathlib import Path
@@ -22,6 +27,8 @@ import numpy as np
 
 from deeplearning4j_tpu_torch.data.dataset import DataSet
 from deeplearning4j_tpu_torch.data.iterators import ListDataSetIterator
+
+log = logging.getLogger(__name__)
 
 
 def _uint8_wire(x):
@@ -39,6 +46,15 @@ def _wire_pp():
 def data_dir() -> Path:
     return Path(os.environ.get("DL4JTPU_DATA_DIR",
                                str(Path.home() / ".deeplearning4j_tpu")))
+
+
+# the provenance of the last load per dataset name: "real" (read from
+# files under data_dir()) or "synthetic" (the generated fallback)
+_SOURCES: dict = {}
+
+
+def data_source(name: str) -> str:
+    return _SOURCES.get(name, "unknown")
 
 
 def _one_hot(y, n):
@@ -118,9 +134,11 @@ def load_mnist(train=True, num_examples=None, flatten=True, seed=123):
         x = _read_idx_images(img_p).astype(np.float32) / 255.0
         x = x[..., None]
         y = _read_idx_labels(lab_p).astype(np.int64)
+        _SOURCES["mnist"] = "real"
     else:
         n = 60000 if train else 10000
         x, y = _synthetic_images(n, 28, 28, 1, 10, seed if train else seed + 1)
+        _SOURCES["mnist"] = "synthetic"
     if num_examples is not None:
         x, y = x[:num_examples], y[:num_examples]
     if flatten:
@@ -192,11 +210,13 @@ def load_cifar10(train=True, num_examples=None, seed=123):
             xs.append(raw[:, 1:].reshape(-1, 3, 32, 32).transpose(0, 2, 3, 1))
         x = np.concatenate(xs).astype(np.float32) / 255.0
         y = np.concatenate(ys)
+        _SOURCES["cifar10"] = "real"
     else:
         n = 50000 if train else 10000
         if num_examples is not None:
             n = min(n, num_examples)
         x, y = _synthetic_images(n, 32, 32, 3, 10, seed if train else seed + 1)
+        _SOURCES["cifar10"] = "synthetic"
     if num_examples is not None:
         x, y = x[:num_examples], y[:num_examples]
     return x, _one_hot(y, 10)
@@ -250,3 +270,126 @@ class IrisDataSetIterator(ListDataSetIterator):
         x, y = load_iris(seed)
         x, y = x[:num_examples], y[:num_examples]
         super().__init__(DataSet(x, y), batch_size, shuffle=False)
+
+
+# ------------------------------------------- directory-tree image datasets
+
+_IMAGE_EXTS = (".jpeg", ".jpg", ".png", ".bmp", ".ppm", ".gif")
+
+
+def load_image_tree(root, image_shape, num_examples=None, num_classes=None,
+                    seed=123):
+    """Read a class-per-directory image tree (the on-disk format of
+    TinyImageNet's train split and LFW) into (x NHWC float [0,1], y int,
+    the number of classes).
+
+    ``root/<class_name>/**/*.jpg``: the class index is the sorted
+    directory order. Images are resized to ``image_shape`` with PIL, in
+    an order drawn from ``seed``. Returns None when the tree is absent or
+    empty, so callers can fall back to synthetic data."""
+    root = Path(root)
+    if not root.is_dir():
+        return None
+    try:
+        from PIL import Image
+    except ImportError:
+        return None
+    class_dirs = sorted(d for d in root.iterdir() if d.is_dir())
+    if not class_dirs:
+        return None
+    if num_classes is None:
+        num_classes = len(class_dirs)
+    h, w, c = image_shape
+    paths, labels = [], []
+    for ci, d in enumerate(class_dirs):
+        for p in sorted(d.rglob("*")):
+            if p.suffix.lower() in _IMAGE_EXTS:
+                paths.append(p)
+                labels.append(ci)
+    if not paths:
+        return None
+    order = np.random.RandomState(seed).permutation(len(paths))
+    if num_examples is not None:
+        order = order[:num_examples]
+    xs = np.empty((len(order), h, w, c), np.float32)
+    ys = np.empty(len(order), np.int64)
+    k = skipped = 0
+    for oi in order:
+        try:
+            img = Image.open(paths[oi])
+            img = img.convert("RGB" if c == 3 else "L")
+            if img.size != (w, h):
+                img = img.resize((w, h))
+            arr = np.asarray(img, np.float32) / 255.0
+        except Exception:  # noqa: BLE001 -- truncated/corrupt file on disk
+            # one bad file must not stop a large load: skipped and counted
+            skipped += 1
+            continue
+        xs[k] = arr[..., None] if c == 1 else arr
+        ys[k] = labels[oi]
+        k += 1
+    if skipped:
+        from deeplearning4j_tpu_torch.monitor import get_registry
+        get_registry().counter(
+            "dl4jtpu_fetcher_unreadable_images_total",
+            "Corrupt/unreadable image files skipped by load_image_tree."
+        ).inc(skipped)
+        log.warning("load_image_tree(%s): skipped %d unreadable image(s)",
+                    root, skipped)
+    if k == 0:
+        return None
+    return xs[:k], ys[:k], num_classes
+
+
+class TinyImageNetDataSetIterator(ListDataSetIterator):
+    """64x64x3, 200 classes (parity: TinyImageNetDataSetIterator). Reads the
+    real dataset from ``<data_dir>/tinyimagenet/{train,val}/`` when present
+    (class-per-directory tree; TinyImageNet's ``<wnid>/images/*.JPEG``
+    nesting is handled by the recursive glob), else deterministic synthetic
+    data with the real shapes."""
+
+    def __init__(self, batch_size, num_examples=2000, train=True, seed=123,
+                 uint8_wire=True):
+        split = "train" if train else "val"
+        real = load_image_tree(data_dir() / "tinyimagenet" / split,
+                               (64, 64, 3), num_examples, 200, seed)
+        if real is not None:
+            x, y, _ = real
+            _SOURCES["tinyimagenet"] = "real"
+        else:
+            x, y = _synthetic_images(num_examples, 64, 64, 3, 200,
+                                     seed if train else seed + 1)
+            _SOURCES["tinyimagenet"] = "synthetic"
+        if uint8_wire:
+            x = _uint8_wire(x)
+        super().__init__(DataSet(x, _one_hot(y, 200)), batch_size,
+                         shuffle=train, seed=seed)
+        if uint8_wire:
+            self.set_pre_processor(_wire_pp())
+
+
+class LFWDataSetIterator(ListDataSetIterator):
+    """Labeled-faces-in-the-wild (parity: LFWDataSetIterator). Reads the
+    real person-per-directory tree from ``<data_dir>/lfw/`` when present,
+    else synthetic data with the real shapes."""
+
+    def __init__(self, batch_size, num_examples=1000, num_labels=5749,
+                 image_shape=(250, 250, 3), train=True, seed=123,
+                 uint8_wire=True):
+        h, w, c = image_shape
+        real = load_image_tree(data_dir() / "lfw", image_shape,
+                               num_examples, num_labels, seed)
+        if real is not None:
+            x, y, n_found = real
+            num_labels = max(num_labels, n_found)
+            _SOURCES["lfw"] = "real"
+        else:
+            x, y = _synthetic_images(num_examples, h, w, c, num_labels,
+                                     seed if train else seed + 1)
+            _SOURCES["lfw"] = "synthetic"
+        if uint8_wire:
+            x = _uint8_wire(x)
+        super().__init__(DataSet(x, _one_hot(y, num_labels)), batch_size,
+                         shuffle=train, seed=seed)
+        if uint8_wire:
+            self.set_pre_processor(_wire_pp())

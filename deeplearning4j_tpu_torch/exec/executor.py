@@ -65,20 +65,29 @@ everything in ``warmup()``, on the caller's thread, before its loop
 thread starts (a capture is global: another thread's CUDA work during it
 fails it).
 
-Meshes, sharding, routing tables and the program registry are not
-ported.
+Every program registers in the program registry (exec/programs.py) at
+the first call of its signature, with the cost of that call (a warm-up
+or an eager call) and, once captured, its graph's memory and launches:
+``StepGraphs`` where it has a ``caller`` (the containers' train steps,
+``train_step_b{B}`` and ``apply_updates``), ``ResidentProgram`` where its
+owner set ``caller`` (the engines). Registration runs nothing more.
+
+Meshes, sharding and routing tables are not ported.
 """
 
 from __future__ import annotations
 
 import gc
 import os
+import time
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import ops
+from deeplearning4j_tpu_torch.exec.programs import (Cost, get_programs,
+                                                    graph_pool_bytes)
 
 
 class Executor:
@@ -141,11 +150,28 @@ class Executor:
             streams[i] = torch.cuda.Stream(device=i)
         return streams[i]
 
-    def steps(self, fn: Callable, generator=None) -> "StepGraphs":
+    def steps(self, fn: Callable, generator=None, caller=None,
+              name: str = "train_step_b{B}") -> "StepGraphs":
         """``fn`` called through CUDA graphs, one per signature, each with
         ``generator`` (the generator ``fn`` draws from, or None)
-        registered."""
-        return StepGraphs(self, fn, generator)
+        registered; each registered as ``(caller, name)`` when ``caller``
+        is given (``{B}``: the first argument's batch; a second signature
+        of one name gets ``_s{n}``)."""
+        return StepGraphs(self, fn, generator, caller, name)
+
+    @property
+    def programs(self):
+        """The process-wide program registry (``exec.programs``): every
+        program built through this executor records its cost there;
+        ``GET /programs`` and the ``dl4jtpu_program_*`` gauges read it."""
+        return get_programs()
+
+    def register_program(self, caller, key, fn, args, compile_seconds=None):
+        """Record a program (``programs.ProgramRegistry.record``): ``fn``
+        is run once over ``args`` to measure it, so pass a function
+        without side effects."""
+        return self.programs.record(caller, key, fn, args,
+                                    compile_seconds=compile_seconds)
 
     def warm_up(self, fn: Callable, device: torch.device):
         """``fn()`` eagerly on the side stream, any host synchronization an
@@ -278,25 +304,66 @@ class StepGraphs:
     """A step function's CUDA graphs, one per signature: the first call of
     a signature runs the step eagerly (the warm-up), the second captures
     it, every call from then on replays it. ``captures`` counts the graphs
-    captured, as the JAX containers' ``_compile_count`` counts programs."""
+    captured, as the JAX containers' ``_compile_count`` counts programs.
+    ``eager=True`` (what a container passes off the card, with the fused
+    update off, or for the eager oracle) runs ``fn`` itself. With a
+    ``caller``, the first call of each signature registers the program
+    with that call's cost, and its capture updates the record."""
 
-    def __init__(self, executor: Executor, fn: Callable, generator=None):
+    def __init__(self, executor: Executor, fn: Callable, generator=None,
+                 caller=None, name: str = "train_step_b{B}"):
         self.executor, self.fn, self.generator = executor, fn, generator
+        self.caller, self.name = caller, name
         self.graphs: Dict[Any, CapturedStep] = {}
         self.warmed = set()
         self.captures = 0
+        self._keys: Dict[Any, str] = {}
+        self._costs: Dict[Any, Cost] = {}
 
-    def __call__(self, *args):
+    def _register(self, sig, args, cost, graph=None, seconds=None):
+        if self.caller is None:
+            return
+        key = self._keys.get(sig)
+        if key is None:
+            lead = [t.shape[0] for t in _leaves(args, []) if t.dim()]
+            key = self.name.format(B=lead[0] if lead else 0)
+            if key in self._keys.values():
+                key = f"{key}_s{len(self._keys)}"
+            self._keys[sig] = key
+        get_programs().record(
+            self.caller, key, compile_seconds=seconds, cost=cost,
+            memory_bytes=None if graph is None else graph_pool_bytes(
+                graph.graph),
+            launches=None if graph is None else graph.launches,
+            replace=graph is not None)
+
+    def __call__(self, *args, eager: bool = False):
         key = signature(args)
+        if eager:
+            if key in self._keys or self.caller is None:
+                return self.fn(*args)
+            with Cost() as cost:
+                out = self.fn(*args)
+            self._register(key, args, cost)
+            return out
         graph = self.graphs.get(key)
         if graph is None:
             device = _leaves(args, [])[0].device
             if key not in self.warmed:
                 self.warmed.add(key)
-                return self.executor.warm_up(lambda: self.fn(*args), device)
+                with Cost() as cost:
+                    out = self.executor.warm_up(lambda: self.fn(*args),
+                                                device)
+                self._costs[key] = cost
+                return out
+            t0 = time.perf_counter()
             graph = self.graphs[key] = self.executor.capture(
                 self.fn, args, device, self.generator)
             self.captures += 1
+            cost = self._costs.pop(key, None)
+            if cost is not None:
+                self._register(key, args, cost, graph,
+                               cost.seconds + time.perf_counter() - t0)
         return graph(*args)
 
 
@@ -308,13 +375,18 @@ class ResidentProgram:
     ``programs`` counts the signatures seen (captured graphs on the card,
     eager programs elsewhere) and calls ``on_program`` for each;
     ``captures`` counts the CUDA graphs captured. ``capture=False`` runs
-    every call eagerly (the eager seam a measurement compares with)."""
+    every call eagerly (the eager seam a measurement compares with). With
+    ``caller`` set, the first call of each signature registers the program
+    as ``(caller, key_of(staged))`` (default key: ``name``) with its cost,
+    and a capture updates the record."""
 
     def __init__(self, executor: Executor, fn: Callable, name: str,
-                 capture: bool = True, on_program: Optional[Callable] = None):
+                 capture: bool = True, on_program: Optional[Callable] = None,
+                 caller=None, key_of: Optional[Callable] = None):
         self.executor, self.fn, self.name = executor, fn, name
         self.capture = capture
         self.on_program = on_program
+        self.caller, self.key_of = caller, key_of
         self.graphs: Dict[Any, CapturedStep] = {}
         self.signatures = set()
         self.programs = 0
@@ -362,19 +434,42 @@ class ResidentProgram:
             self.programs += 1
             if self.on_program is not None:
                 self.on_program()
+            new = True
+        else:
+            new = False
         graph = self.graphs.get(key)
         if graph is not None:
             return graph(*staged)
         staged = _rebuild(staged, iter(
             [t.to(device, non_blocking=True) for t in _leaves(staged, [])]))
         if device.type != "cuda" or not self.capture or eager:
-            return self.fn(resident, *staged)
-        out = self.executor.warm_up(lambda: self.fn(resident, *staged),
-                                    device)
-        self.graphs[key] = self.executor.capture(
+            if not (new and self.caller is not None):
+                return self.fn(resident, *staged)
+            with Cost() as cost:
+                out = self.fn(resident, *staged)
+            self._register(staged, cost)
+            return out
+        with Cost() as cost:
+            out = self.executor.warm_up(lambda: self.fn(resident, *staged),
+                                        device)
+        t0 = time.perf_counter()
+        graph = self.graphs[key] = self.executor.capture(
             lambda *s: self.fn(resident, *s), staged, device)
         self.captures += 1
+        self._register(staged, cost, graph,
+                       cost.seconds + time.perf_counter() - t0)
         return out
+
+    def _register(self, staged, cost, graph=None, seconds=None):
+        if self.caller is None:
+            return
+        key = self.name if self.key_of is None else self.key_of(staged)
+        get_programs().record(
+            self.caller, key, compile_seconds=seconds, cost=cost,
+            memory_bytes=None if graph is None else graph_pool_bytes(
+                graph.graph),
+            launches=None if graph is None else graph.launches,
+            replace=graph is not None)
 
 
 class Layout:

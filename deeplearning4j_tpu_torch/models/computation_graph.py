@@ -62,6 +62,7 @@ card and without that argument, construction raises.
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Dict, List, Optional
 
@@ -73,6 +74,9 @@ from deeplearning4j_tpu_torch.exec import get_executor
 from deeplearning4j_tpu_torch.exec.executor import (network_generator,
                                                     seed_generator)
 from deeplearning4j_tpu_torch.models.fitting import FitContract
+from deeplearning4j_tpu_torch.monitor.flight import (compute_telemetry,
+                                                     snapshot,
+                                                     telemetry_triples)
 from deeplearning4j_tpu_torch.models.multi_layer_network import (
     DTYPES, count_params, load_state, to_device, updater_plan)
 from deeplearning4j_tpu_torch.nn.conf.graph_conf import \
@@ -92,6 +96,8 @@ def _cast_floats(params: Params, dtype) -> Params:
 
 
 class ComputationGraph(FitContract):
+    _prog_ids = itertools.count()
+
     def __init__(self, conf: ComputationGraphConfiguration, device=None):
         self.conf = conf
         self.device = resolve_device(device)
@@ -103,6 +109,9 @@ class ComputationGraph(FitContract):
         self._exec = None             # execution core (lazy; exec/executor.py)
         self._steps = None            # train step's CUDA graphs, by signature
         self._updates = None          # apply_external_updates' graphs
+        self._steps_rec = None        # the sampled steps' graphs (flight)
+        # the programs' caller in the program registry (exec/programs.py)
+        self._prog_caller = f"cg{next(ComputationGraph._prog_ids)}"
         # the card runs steps through CUDA graphs; the eager step stays
         # callable (False) as the oracle the tests and chip_smoke.py use
         self._capture_steps = self.device.type == "cuda"
@@ -180,15 +189,8 @@ class ComputationGraph(FitContract):
             self.params, {n: None if l.frozen else l.updater or gc.updater
                           for n, l in layers.items()},
             {n: l.apply_constraints for n, l in layers.items()})
-        self._steps = self._executor.steps(self._step, generator=self._gen)
-        self._updates = self._executor.steps(self._dp_apply_updates)
+        self._build_step_graphs()
         self._serving = None
-
-    @property
-    def _capture_count(self) -> int:
-        """CUDA graphs captured since the optimizer was built (the JAX
-        package's ``_compile_count``)."""
-        return self._steps.captures + self._updates.captures
 
     def _as_input(self, x) -> torch.Tensor:
         return to_device(x, self.device)
@@ -389,27 +391,24 @@ class ComputationGraph(FitContract):
         self.params, self.opt_state = new_params, new_opt
 
     def _step(self, inputs, labels, label_masks=None, masks=None,
-              carries=None):
+              carries=None, telemetry=False):
         """The device half of a train step (what a graph captures): loss,
         gradients, the update, the draws from the graph's generator.
-        Returns (loss, new carries)."""
+        Returns (loss, new carries), and with ``telemetry`` the flight
+        recorder's (L, 5) rows from the parameters copied before the
+        update, those after it and the gradients."""
+        old = snapshot(self.params) if telemetry else None
         loss, grads, new_carries = self._gradients(
             inputs, labels, label_masks, masks, self._gen, carries,
             self.state)
         self._dp_apply_updates(grads)
-        return loss, new_carries
+        if not telemetry:
+            return loss, new_carries
+        return loss, new_carries, compute_telemetry(
+            telemetry_triples(old, self.params, grads, self.conf))
 
-    def _run(self, graphs, fn, *args):
-        """``fn(*args)`` with the fused update's scalars staged before and
-        its counts advanced after: through ``graphs`` on the card, eagerly
-        on the CPU, with the fused update off, or for the eager oracle."""
-        self._params_version += 1
-        if self._fused is None:
-            return fn(*args)
-        self._fused.stage(self.opt_state)
-        out = graphs(*args) if self._capture_steps else fn(*args)
-        self._fused.advance(self.opt_state)
-        return out
+    def _staged(self):
+        return self.opt_state
 
     def _train_step(self, inputs, labels, label_masks=None, masks=None,
                     carries=None, iteration=None):
@@ -417,10 +416,10 @@ class ComputationGraph(FitContract):
         generator seeded from it first; returns (loss, new carries) (on
         the card, a replay's static outputs, which its next replay
         overwrites)."""
-        seed_generator(self._gen, self.conf.global_conf.seed,
-                       self.iteration if iteration is None else iteration)
-        return self._run(self._steps, self._step, inputs, labels,
-                         label_masks, masks, carries)
+        it = self.iteration if iteration is None else iteration
+        seed_generator(self._gen, self.conf.global_conf.seed, it)
+        return self._sampled_or_plain(it, inputs, labels, label_masks,
+                                      masks, carries)
 
     def apply_external_updates(self, grads):
         """One updater step from externally computed gradients (per-node
@@ -535,15 +534,21 @@ class ComputationGraph(FitContract):
     def _fit_batch(self, mds: MultiDataSet):
         inputs, labels, label_masks, masks = self._batch(mds)
         self._last_input = inputs
-        t0 = time.perf_counter()
+        c0, t0 = self._capture_count, time.perf_counter()
         if self.conf.backprop_type == "tbptt" and inputs[0].ndim == 3:
             self._fit_tbptt(inputs, labels, label_masks, masks)
         else:
             self._score = self._train_step(inputs, labels, label_masks,
                                            masks)[0].clone()
+        # a tBPTT batch records its last chunk's telemetry
+        self._flight_record(self.iteration)
         self._last_fit_time = time.perf_counter() - t0
         self.iteration += 1
         self._epoch_batch += 1
+        self._mon.record(seconds=self._last_fit_time, steps=1,
+                         examples=int(inputs[0].shape[0]),
+                         score=self._score,
+                         compiled=self._capture_count - c0, path="batch")
         self._fire_listeners()
         return self
 
@@ -587,15 +592,21 @@ class ComputationGraph(FitContract):
         xs = [self._as_input(a) for a in inputs_steps]
         ys = [self._as_input(a) for a in labels_steps]
         n = int(xs[0].shape[0])
+        c0, t0 = self._capture_count, time.perf_counter()
         for k in range(n):
             loss, _ = self._train_step([a[k] for a in xs],
                                        [a[k] for a in ys],
                                        iteration=self.iteration + k)
+            self._flight_record(self.iteration + k)
             if k == n - 1:
                 self._score = loss.clone()
         self._last_input = [a[-1] for a in xs]
         self.iteration += n
         self._epoch_batch += n
+        self._mon.record(seconds=time.perf_counter() - t0, steps=n,
+                         examples=n * int(xs[0].shape[1]),
+                         score=self._score,
+                         compiled=self._capture_count - c0, path="scan")
         self._fire_listeners()
         return self
 

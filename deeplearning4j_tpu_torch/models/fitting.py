@@ -35,8 +35,20 @@ sequences:
 A container supplies ``_check_trainable``, ``_fit_batch``, ``fit_scan``,
 ``_direct_batch`` (a bare batch, or None for an iterator),
 ``_stream_batch`` (an iterator's item as the container's batch, with its
-feature and label arrays and whether it has a mask) and
-``_chunk_payload`` (stacked arrays as ``fit_scan``'s arguments).
+feature and label arrays and whether it has a mask),
+``_chunk_payload`` (stacked arrays as ``fit_scan``'s arguments),
+``_step(*args, telemetry=False)`` (the device half of a train step) and
+``_staged()`` (the updater state the fused update stages).
+
+Observability (the JAX containers' wiring): ``fit`` runs inside
+``monitor.profiling.profile_scope`` (``DL4JTPU_PROFILE``); every
+``_fit_batch`` and ``fit_scan`` call records into a ``TrainMonitor``
+(``dl4jtpu_train_*``; a compile event is a call that captured a graph);
+the step graphs register as ``(caller, train_step_b{B})`` and
+``apply_updates`` in the program registry; and with a flight recorder
+attached (``attach_flight_recorder``) a sampled iteration runs the
+sampled step (``train_step_b{B}_telemetry``), whose telemetry is recorded
+once a step (``fit_scan``: every step; tBPTT: the batch's last chunk).
 
 The pre-processor seam is the JAX stream's (``_resolve_device_pp``): a
 pre-processor on the iterator chain (``data.iterators.
@@ -57,6 +69,7 @@ import time
 
 import numpy as np
 
+from deeplearning4j_tpu_torch.monitor.profiling import profile_scope
 from deeplearning4j_tpu_torch.monitor.tracing import trace
 
 
@@ -68,6 +81,85 @@ class FitContract:
     prefetch_depth = 2
     # per-stage timing summary of the last streamed epoch
     last_pipeline_stats = None
+    _flight = None        # FlightRecorder (monitor/flight.py)
+    _train_mon = None     # lazy TrainMonitor (monitor/hooks.py)
+    _telem = None         # the last sampled step's telemetry
+
+    # ------------------------------------------------------------- steps
+    def _build_step_graphs(self):
+        """The step graphs (exec/executor.py): the plain train step, the
+        sampled one (with the flight recorder's telemetry) and the update
+        of ``apply_external_updates``; drops every captured graph."""
+        ex, caller = self._executor, self._prog_caller
+        self._steps = ex.steps(self._step, generator=self._gen,
+                               caller=caller)
+        self._steps_rec = ex.steps(self._step_sampled, generator=self._gen,
+                                   caller=caller,
+                                   name="train_step_b{B}_telemetry")
+        self._updates = ex.steps(self._dp_apply_updates, caller=caller,
+                                 name="apply_updates")
+
+    def _step_sampled(self, *args):
+        return self._step(*args, telemetry=True)
+
+    @property
+    def _capture_count(self) -> int:
+        """CUDA graphs captured since the optimizer was built (the JAX
+        package's ``_compile_count``)."""
+        return (self._steps.captures + self._steps_rec.captures
+                + self._updates.captures)
+
+    def _run(self, graphs, fn, *args):
+        """``fn(*args)`` (``fn`` is ``graphs``' function) with the fused
+        update's scalars staged before and its counts advanced after:
+        through ``graphs``, captured on the card, eagerly on the CPU, with
+        the fused update off, or for the eager oracle (``_capture_steps``
+        False)."""
+        self._params_version += 1
+        if self._fused is None:
+            return graphs(*args, eager=True)
+        opt = self._staged()
+        self._fused.stage(opt)
+        out = graphs(*args, eager=not self._capture_steps)
+        self._fused.advance(opt)
+        return out
+
+    def _sampled_or_plain(self, iteration, *args):
+        """The train step at ``iteration``: the sampled graph where the
+        recorder samples it (its telemetry left in ``_telem``), else the
+        plain one. Returns (loss, new carries)."""
+        rec = self._flight
+        if rec is None or not rec.sampled(iteration):
+            return self._run(self._steps, self._step, *args)
+        loss, carries, self._telem = self._run(self._steps_rec,
+                                               self._step_sampled, *args)
+        return loss, carries
+
+    def _flight_record(self, iteration):
+        """Hand the last sampled step's telemetry to the recorder (copied
+        to the host there, without blocking)."""
+        if self._telem is not None:
+            self._flight.record(iteration, self._telem)
+            self._telem = None
+
+    def attach_flight_recorder(self, recorder):
+        """Attach (or detach, with None) a ``monitor.flight.FlightRecorder``.
+        Sampled iterations then run the sampled step, captured once per
+        signature; the others replay the recorder-off graph."""
+        self._flight = recorder
+        self._telem = None
+        if recorder is not None:
+            from deeplearning4j_tpu_torch.monitor.flight import \
+                prepare_telemetry
+            recorder.bind(self)
+            prepare_telemetry(self)
+
+    @property
+    def _mon(self):
+        if self._train_mon is None:
+            from deeplearning4j_tpu_torch.monitor.hooks import TrainMonitor
+            self._train_mon = TrainMonitor(type(self).__name__)
+        return self._train_mon
 
     def set_listeners(self, *listeners):
         self.listeners = list(listeners)
@@ -89,9 +181,11 @@ class FitContract:
         (a ComputationGraph also takes a MultiDataSet, and lists of
         arrays, one per network input and output); ``prefetch``,
         ``checkpoint`` and ``resume_from`` as the module docstring says
-        (parity: the JAX containers' ``fit``)."""
-        return self._fit_impl(data, labels, epochs, prefetch, checkpoint,
-                              resume_from)
+        (parity: the JAX containers' ``fit``). ``DL4JTPU_PROFILE=dir``
+        profiles the whole call into ``dir``."""
+        with profile_scope():
+            return self._fit_impl(data, labels, epochs, prefetch,
+                                  checkpoint, resume_from)
 
     def _fit_impl(self, data, labels, epochs, prefetch, checkpoint,
                   resume_from):

@@ -76,6 +76,7 @@ a card and without that argument, construction raises.
 
 from __future__ import annotations
 
+import itertools
 import json
 import time
 from typing import Dict, List, Optional
@@ -88,6 +89,9 @@ from deeplearning4j_tpu_torch.exec import get_executor
 from deeplearning4j_tpu_torch.exec.executor import (network_generator,
                                                     seed_generator)
 from deeplearning4j_tpu_torch.models.fitting import FitContract
+from deeplearning4j_tpu_torch.monitor.flight import (compute_telemetry,
+                                                     snapshot,
+                                                     telemetry_triples)
 from deeplearning4j_tpu_torch.nn.conf.configuration import \
     MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.fused_update import (build_fused_update,
@@ -183,6 +187,8 @@ def updater_plan(params, updaters, constraints):
 
 
 class MultiLayerNetwork(FitContract):
+    _prog_ids = itertools.count()
+
     def __init__(self, conf: MultiLayerConfiguration, device=None):
         conf.finalize()
         self.conf = conf
@@ -196,6 +202,9 @@ class MultiLayerNetwork(FitContract):
         self._exec = None             # execution core (lazy; exec/executor.py)
         self._steps = None            # train step's CUDA graphs, by signature
         self._updates = None          # apply_external_updates' graphs
+        self._steps_rec = None        # the sampled steps' graphs (flight)
+        # the programs' caller in the program registry (exec/programs.py)
+        self._prog_caller = f"mln{next(MultiLayerNetwork._prog_ids)}"
         # the card runs steps through CUDA graphs; the eager step stays
         # callable (False) as the oracle the tests and chip_smoke.py use
         self._capture_steps = self.device.type == "cuda"
@@ -270,15 +279,8 @@ class MultiLayerNetwork(FitContract):
             {i: l.apply_constraints for i, l in enumerate(self.layers)})
         self._transforms = [transforms[i] for i in range(n)]
         self.opt_state = [opt_state[i] for i in range(n)]
-        self._steps = self._executor.steps(self._step, generator=self._gen)
-        self._updates = self._executor.steps(self._dp_apply_updates)
+        self._build_step_graphs()
         self._serving = None
-
-    @property
-    def _capture_count(self) -> int:
-        """CUDA graphs captured since the optimizer was built (the JAX
-        package's ``_compile_count``)."""
-        return self._steps.captures + self._updates.captures
 
     def _as_input(self, x) -> torch.Tensor:
         return to_device(x, self.device)
@@ -439,39 +441,36 @@ class MultiLayerNetwork(FitContract):
             new_opt.append(o)
         self.params, self.opt_state = new_params, new_opt
 
-    def _step(self, x, y, mask_l=None, carries=None, mask_f=None):
+    def _step(self, x, y, mask_l=None, carries=None, mask_f=None,
+              telemetry=False):
         """The device half of a train step (what a graph captures): loss,
         gradients, the update, the draws from the network's generator.
-        Returns (loss, new_carries)."""
+        Returns (loss, new_carries), and with ``telemetry`` the flight
+        recorder's (L, 5) rows from the parameters copied before the
+        update, those after it and the gradients."""
+        old = snapshot(self.params) if telemetry else None
         loss, grads, new_carries = self._gradients(x, y, mask_l, carries,
                                                    mask_f, self._gen,
                                                    self.state)
         self._dp_apply_updates(grads)
-        return loss, new_carries
+        if not telemetry:
+            return loss, new_carries
+        return loss, new_carries, compute_telemetry(
+            telemetry_triples(old, self.params, grads))
 
-    def _run(self, graphs, fn, *args):
-        """``fn(*args)`` with the fused update's scalars staged before and
-        its counts advanced after: through ``graphs`` on the card, eagerly
-        on the CPU, with the fused update off, or for the eager oracle."""
-        self._params_version += 1
-        if self._fused is None:
-            return fn(*args)
-        opt = dict(enumerate(self.opt_state))
-        self._fused.stage(opt)
-        out = graphs(*args) if self._capture_steps else fn(*args)
-        self._fused.advance(opt)
-        return out
+    def _staged(self):
+        return dict(enumerate(self.opt_state))
 
     def _train_step(self, x, y, mask_l=None, carries=None, mask_f=None,
                     iteration=None):
         """One train step at ``iteration`` (default: the network's), the
-        generator seeded from it first; returns (loss, new_carries). On
-        the card the loss and carries of a replay are the graph's static
-        outputs, which its next replay overwrites."""
-        seed_generator(self._gen, self.conf.global_conf.seed,
-                       self.iteration if iteration is None else iteration)
-        return self._run(self._steps, self._step, x, y, mask_l, carries,
-                         mask_f)
+        generator seeded from it first; returns (loss, new_carries) and
+        leaves a sampled step's telemetry in ``_telem``. On the card the
+        loss and carries of a replay are the graph's static outputs, which
+        its next replay overwrites."""
+        it = self.iteration if iteration is None else iteration
+        seed_generator(self._gen, self.conf.global_conf.seed, it)
+        return self._sampled_or_plain(it, x, y, mask_l, carries, mask_f)
 
     def apply_external_updates(self, grads):
         """One updater step from externally computed gradients (per-layer
@@ -523,14 +522,21 @@ class MultiLayerNetwork(FitContract):
                 "truncated BPTT must use fit() (the tbptt chunking path)")
         self._check_trainable()
         xs, ys = self._as_input(xs), self._as_input(ys)
+        c0, t0 = self._capture_count, time.perf_counter()
         for k in range(xs.shape[0]):
             loss, _ = self._train_step(xs[k], ys[k],
                                        iteration=self.iteration + k)
+            self._flight_record(self.iteration + k)
             if k == xs.shape[0] - 1:
                 self._score = loss.clone()
         self._last_input = xs[-1]
         self.iteration += int(xs.shape[0])
         self._epoch_batch += int(xs.shape[0])
+        self._mon.record(seconds=time.perf_counter() - t0,
+                         steps=int(xs.shape[0]),
+                         examples=int(xs.shape[0]) * int(xs.shape[1]),
+                         score=self._score,
+                         compiled=self._capture_count - c0, path="scan")
         self._fire_listeners()
         return self
 
@@ -540,14 +546,19 @@ class MultiLayerNetwork(FitContract):
         mf = None if ds.features_mask is None \
             else self._as_input(ds.features_mask)
         self._last_input = x
-        t0 = time.perf_counter()
+        c0, t0 = self._capture_count, time.perf_counter()
         if self.conf.backprop_type == "tbptt" and x.ndim == 3:
             self._fit_tbptt(x, y, ml, mf)
         else:
             self._score = self._train_step(x, y, ml, mask_f=mf)[0].clone()
+        # a tBPTT batch records its last chunk's telemetry
+        self._flight_record(self.iteration)
         self._last_fit_time = time.perf_counter() - t0
         self.iteration += 1
         self._epoch_batch += 1
+        self._mon.record(seconds=self._last_fit_time, steps=1,
+                         examples=int(x.shape[0]), score=self._score,
+                         compiled=self._capture_count - c0, path="batch")
         self._fire_listeners()
         return self
 

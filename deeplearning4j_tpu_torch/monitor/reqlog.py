@@ -21,8 +21,9 @@ identity fields; writers add their own:
 - ``source="predict"``: ``phases`` {queue, bucket, pad, device,
   readback}, ``rows``, ``batch``.
 
-``trace_id`` stays None in the port: the tracer's trace contexts are not
-ported.
+``trace_id`` is the trace context installed where the request was
+submitted (``monitor.tracing.get_context``, the ``x-trace-context``
+header), None without one.
 """
 
 from __future__ import annotations

@@ -121,10 +121,19 @@ class Builder:
         self._g.weight_init = "distribution"
         return self
 
+    def bias_init(self, b):
+        self._g.bias_init = float(b); return self
+
     def updater(self, u):
         """An ``Updater``, or its JSON dict."""
         self._g.updater = u if isinstance(u, Updater) else \
             Updater.from_dict(u)
+        return self
+
+    def learning_rate(self, lr):
+        """Replaces the current updater's learning rate."""
+        self._g.updater = dataclasses.replace(self._g.updater,
+                                              learning_rate=lr)
         return self
 
     def l1(self, v):
@@ -133,10 +142,19 @@ class Builder:
     def l2(self, v):
         self._g.l2 = float(v); return self
 
+    def optimization_algo(self, a):
+        self._g.optimization_algo = str(a).lower(); return self
+
     def gradient_normalization(self, kind, threshold=1.0):
         self._g.gradient_normalization = kind
         self._g.gradient_normalization_threshold = threshold
         return self
+
+    def dtype(self, dt):
+        self._g.dtype = dt; return self
+
+    def compute_dtype(self, dt):
+        self._g.compute_dtype = dt; return self
 
     def dropout(self, v):
         """A float drop probability or an ``IDropout`` for every layer."""
@@ -155,6 +173,12 @@ class Builder:
         from deeplearning4j_tpu_torch.util.remat import check_remat_mode
         self._g.remat = check_remat_mode(flag)
         return self
+
+    def mini_batch(self, v):
+        self._g.mini_batch = bool(v); return self
+
+    def minimize(self, v=True):
+        self._g.minimize = bool(v); return self
 
     def list(self) -> "ListBuilder":
         return ListBuilder(self._g)
@@ -177,8 +201,15 @@ class ListBuilder:
         self._tbptt_fwd = 20
         self._tbptt_bwd = 20
 
-    def layer(self, l: Layer):
-        self._layers.append(l)
+    def layer(self, *args):
+        """layer(l), or layer(index, l) to place it at ``index``."""
+        if len(args) == 2:
+            idx, l = args
+            while len(self._layers) <= idx:
+                self._layers.append(None)
+            self._layers[idx] = l
+        else:
+            self._layers.append(args[0])
         return self
 
     def set_input_type(self, it: InputType):
@@ -200,7 +231,7 @@ class ListBuilder:
     def build(self) -> "MultiLayerConfiguration":
         conf = MultiLayerConfiguration(
             global_conf=copy.deepcopy(self._g),
-            layers=[copy.deepcopy(l) for l in self._layers],
+            layers=[copy.deepcopy(l) for l in self._layers if l is not None],
             input_type=self._input_type, backprop_type=self._backprop_type,
             tbptt_fwd_length=self._tbptt_fwd,
             tbptt_back_length=self._tbptt_bwd)
@@ -234,6 +265,15 @@ class MultiLayerConfiguration:
         self._finalized = True
         return self
 
+    def output_types(self) -> List[InputType]:
+        """Each layer's output type, from the input type on."""
+        it = self.input_type
+        outs = []
+        for l in self.layers:
+            it = l.output_type(it)
+            outs.append(it)
+        return outs
+
     def to_json(self) -> str:
         return json.dumps({
             "format": "deeplearning4j_tpu/MultiLayerConfiguration/v1",
@@ -262,3 +302,13 @@ class MultiLayerConfiguration:
         if not conf._finalized:
             conf.finalize()
         return conf
+
+
+def __getattr__(name):
+    # ``from .configuration import ComputationGraphConfiguration``, as in
+    # the JAX package (graph_conf imports this module).
+    if name == "ComputationGraphConfiguration":
+        from deeplearning4j_tpu_torch.nn.conf.graph_conf import (
+            ComputationGraphConfiguration)
+        return ComputationGraphConfiguration
+    raise AttributeError(name)

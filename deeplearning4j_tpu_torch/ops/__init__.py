@@ -10,16 +10,25 @@ The launch counters let a run show that its main path went through the
 kernels: a wrapper adds one to its kernel's count each time it launches
 it, and nowhere else; a replayed CUDA graph adds the launches its capture
 recorded (``add_launch_counts``, exec/executor.py).
+
+A wrapper also hands ``count_launch`` the work of the launch, reckoned
+from its shapes: the operations its products and sums do and the bytes it
+must move (each input read once, each output written once). A ctypes
+launch is invisible to PyTorch's dispatcher, so the program registry
+(exec/programs.py) adds this work to what it counts over the dispatcher.
+``kernel_work`` accumulates at every host call of a wrapper (an eager
+call, a warm-up, a capture), never at a replay.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
 _COUNTS: Dict[str, int] = {}
+_WORK: Dict[str, Tuple[float, float]] = {}
 _COUNTS_LOCK = threading.Lock()
 
 
@@ -36,9 +45,21 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     return dev
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, flops: float = 0.0, nbytes: float = 0.0
+                 ) -> None:
+    """One launch of kernel ``name``, doing ``flops`` operations and
+    moving ``nbytes`` bytes."""
     with _COUNTS_LOCK:
         _COUNTS[name] = _COUNTS.get(name, 0) + 1
+        f, b = _WORK.get(name, (0.0, 0.0))
+        _WORK[name] = (f + float(flops), b + float(nbytes))
+
+
+def kernel_work() -> Dict[str, Tuple[float, float]]:
+    """(operations, bytes) per kernel, summed over every host call of its
+    wrapper in this process (never reset)."""
+    with _COUNTS_LOCK:
+        return dict(_WORK)
 
 
 def launch_counts() -> Dict[str, int]:
@@ -84,7 +105,7 @@ from deeplearning4j_tpu_torch.ops.attention_cuda import (  # noqa: E402
 from deeplearning4j_tpu_torch.ops.decode_cuda import (  # noqa: E402
     flash_decode_step, flash_decode_step_paged)
 
-__all__ = ["resolve_device", "count_launch", "launch_counts",
+__all__ = ["resolve_device", "count_launch", "kernel_work", "launch_counts",
            "reset_launch_counts", "add_launch_counts", "head_dim_supported",
            "fused_lstm_sequence",
            "fused_lstm_sequence_train", "fused_lstm_backward",

@@ -139,7 +139,22 @@ def _launch(stem, entries, error_fn, entry, device, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{entry} kernel failed: "
                            + getattr(lib, error_fn)(rc).decode())
-    ops.count_launch(entry)
+    BH, T, Dh, causal = args[-4:]
+    ops.count_launch(entry, *work(entry, BH, T, Dh, causal))
+
+
+def work(entry: str, BH: int, T: int, Dh: int, causal: bool):
+    """(operations, bytes) of one launch of ``entry`` over (BH, T, Dh)
+    float32 tensors: the (query, key) pairs the mask keeps, two products
+    each forward (q.k, p.v), three for dq and four for dk and dv; every
+    input read once and every output written once."""
+    pairs = BH * (T * (T + 1) // 2 if causal else T * T)
+    vec, row = BH * T * Dh, BH * T
+    if entry == "flash_attn_fwd":
+        return 4.0 * Dh * pairs, 4.0 * (3 * vec + vec + row)
+    if entry == "flash_attn_dq":
+        return 6.0 * Dh * pairs, 4.0 * (5 * vec + row + vec + row)
+    return 8.0 * Dh * pairs, 4.0 * (4 * vec + 2 * row + 2 * vec)
 
 
 def flash_attention_fwd(q, k, v, causal: bool = False

@@ -147,9 +147,21 @@ def _call(entry, *args) -> dict:
     return dict(zip(_PLAN_KEYS, plan))
 
 
-def _launch(entry, *args) -> None:
+def work(B: int, H: int, Dh: int, rows: int, itemsize: int,
+         table_entries: int = 0):
+    """(operations, bytes) of one K8 / K9 launch reading ``rows`` cache
+    rows in all (a program's shapes fix the capacity, not the live
+    prefix: a row's whole capacity) of ``itemsize`` bytes: q.k and p.v
+    per row and head, q and the output in float32, the rows of K and V,
+    K9's page-table entries."""
+    nbytes = 4 * (2 * B * H * Dh + B) + itemsize * 2 * rows * H * Dh \
+        + 4 * table_entries
+    return 4.0 * Dh * H * rows, float(nbytes)
+
+
+def _launch(entry, cost, *args) -> None:
     _LAST_PLAN[entry] = _call(entry, *args)
-    ops.count_launch(entry)
+    ops.count_launch(entry, *cost)
 
 
 def launch_floor(name: str, B: int, H: int, Dh: int, C: int, bs: int = 0,
@@ -180,8 +192,10 @@ def flash_decode_step(q, kc, vc, pos) -> torch.Tensor:
                     {"q": q, "kc": kc, "vc": vc, "pos": pos}):
         return flash_decode_step_plain(q, kc, vc, pos)
     out = torch.empty((B, H, Dh), dtype=torch.float32, device=q.device)
-    _launch("flash_decode", q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
-            pos.data_ptr(), out.data_ptr(), B, H, Dh, kc.shape[1],
+    _launch("flash_decode",
+            work(B, H, Dh, B * kc.shape[1], kc.element_size()),
+            q.data_ptr(), kc.data_ptr(), vc.data_ptr(), pos.data_ptr(),
+            out.data_ptr(), B, H, Dh, kc.shape[1],
             int(kc.dtype == torch.bfloat16), q.device.index or 0,
             torch.cuda.current_stream(q.device).cuda_stream)
     return out
@@ -205,7 +219,10 @@ def flash_decode_step_paged(q, pk, pv, pos, block_tables) -> torch.Tensor:
                      "block_tables": block_tables}):
         return flash_decode_step_paged_plain(q, pk, pv, pos, block_tables)
     out = torch.empty((B, H, Dh), dtype=torch.float32, device=q.device)
-    _launch("flash_decode_paged", q.data_ptr(), pk.data_ptr(), pv.data_ptr(),
+    MB = block_tables.shape[1]
+    _launch("flash_decode_paged",
+            work(B, H, Dh, B * MB * pk.shape[1], pk.element_size(), B * MB),
+            q.data_ptr(), pk.data_ptr(), pv.data_ptr(),
             pos.data_ptr(), block_tables.data_ptr(), out.data_ptr(), B, H,
             Dh, pk.shape[1], block_tables.shape[1],
             int(pk.dtype == torch.bfloat16), q.device.index or 0,

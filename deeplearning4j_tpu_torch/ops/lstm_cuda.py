@@ -144,9 +144,38 @@ def _check(name, dtype, device, **tensors):
             raise ValueError(f"{name}: {key} must be contiguous")
 
 
+def work(entry: str, T: int, B: int, H: int, itemsize: int):
+    """(operations, bytes) of one launch of ``entry`` at (T, B, H) with
+    streams of ``itemsize`` bytes: the recurrent products' multiply-adds,
+    and every input read once and every output written once (reserves
+    included; K3's dh0 and dc0 are float32)."""
+    es, G = itemsize, 4 * H
+    seq, gate = T * B * H, T * B * G
+    if entry.startswith("lstm_fwd"):
+        # gate_in, RW, h0, c0 -> hs, cT (+ gates, tanh(c), c_prev)
+        nbytes = es * (gate + H * G + 2 * B * H + seq + B * H)
+        if entry.endswith("_train"):
+            nbytes += es * (gate + 2 * seq)
+        flops = 2.0 * T * B * H * G
+    elif entry.startswith("lstm2_fwd"):
+        # gate_in1, RW1, W2, b2, RW2, 4 carries -> hs2, h1T, c1T, c2T
+        # (+ hs1, both layers' tanh(c), c_prev and gates)
+        nbytes = es * (gate + 3 * H * G + G + 4 * B * H + seq + 3 * B * H)
+        if entry.endswith("_train"):
+            nbytes += es * (5 * seq + 2 * gate)
+        flops = 3 * 2.0 * T * B * H * G
+    else:
+        # gates, tanh(c), c_prev, RW, dhs, dcT -> dz, dh0 and dc0
+        nbytes = es * (gate + 2 * seq + H * G + seq + B * H + gate) \
+            + 4 * 2 * B * H
+        flops = 2.0 * T * B * G * H
+    return flops, float(nbytes)
+
+
 def _launch(entry: str, *args) -> None:
     """Launch one kernel entry point on the current stream; raise on any
-    error it returns, else count the launch."""
+    error it returns, else count the launch and its work (every entry
+    point's arguments end with T, B, H, dtype, device, stream)."""
     lib = _lib(ENTRIES[entry][0])
     plan = (ctypes.c_int * len(_PLAN_KEYS))()
     rc = getattr(lib, entry)(*args, plan)
@@ -154,7 +183,8 @@ def _launch(entry: str, *args) -> None:
         raise RuntimeError(f"{entry} kernel failed: "
                            f"{lib.lstm_error(rc).decode()}")
     _LAST_PLAN[entry] = dict(zip(_PLAN_KEYS, plan), route=_ROUTES[plan[0]])
-    ops.count_launch(entry)
+    T, B, H, code = args[-6:-2]
+    ops.count_launch(entry, *work(entry, T, B, H, 2 if code == 1 else 4))
 
 
 def _ptrs(tensors):

@@ -1,7 +1,9 @@
 """Dynamic micro-batching: coalesce concurrent requests into one forward.
 
 Counterpart of deeplearning4j_tpu/serving/batcher.py, with its registry
-cells and its request journal (its trace spans are not ported). A bounded
+cells, its request journal and its spans (``enqueue`` around a submit;
+the merged call's ``bucket``, ``pad``, ``device`` and ``readback`` come
+from the engine, run under the first rider's trace context). A bounded
 queue is drained by one worker under a max-latency / max-batch policy;
 requests whose rows share one shape merge, and each is answered with its
 slice of the merged result. Every exit of a request -- served, shed,
@@ -36,6 +38,8 @@ import numpy as np
 from deeplearning4j_tpu_torch.monitor.metrics import (
     DEFAULT_LATENCY_BUCKETS, get_registry)
 from deeplearning4j_tpu_torch.monitor.reqlog import RequestLog, new_record
+from deeplearning4j_tpu_torch.monitor.tracing import (get_context, trace,
+                                                      trace_context)
 from deeplearning4j_tpu_torch.resilience.errors import (
     BatcherStoppedError, DeadlineExceededError, ServerOverloadedError)
 
@@ -156,38 +160,50 @@ class MicroBatcher:
         t0 = time.perf_counter()
         expires = None if deadline_ms is None else t0 + deadline_ms / 1000.0
         fut: Future = Future()
-        meta = {"rid": request_id, "tenant": tenant, "priority": priority}
+        # the submitting thread's trace context rides the item, so the
+        # worker runs the device call under it and the journal has its id
+        meta = {"rid": request_id, "tenant": tenant, "priority": priority,
+                "ctx": get_context()}
         item = (x, fut, t0, expires, meta)
         give_up_at = (None if self.submit_timeout is None
                       else t0 + self.submit_timeout)
-        while True:
-            with self._state_lock:
-                if self._stopping.is_set():
-                    self._reject(item, "stopped", "error")
-                    raise BatcherStoppedError(
-                        "micro-batcher is draining/stopped; submit() rejected")
-                if self._thread is None:
-                    self.start()
-                try:
-                    self._q.put_nowait(item)
-                    return fut
-                except queue.Full:
-                    pass
-            if not block or (give_up_at is not None
-                             and time.perf_counter() >= give_up_at):
-                self._reject(item, "queue_full", "shed")
-                raise ServerOverloadedError(
-                    f"serving queue full ({self.max_queue} waiting); "
-                    "load shed")
-            time.sleep(0.002)
+        with trace.span("enqueue", rows=int(x.shape[0])):
+            while True:
+                with self._state_lock:
+                    if self._stopping.is_set():
+                        self._reject(item, "stopped", "error")
+                        raise BatcherStoppedError(
+                            "micro-batcher is draining/stopped; submit() "
+                            "rejected")
+                    if self._thread is None:
+                        self.start()
+                    try:
+                        self._q.put_nowait(item)
+                        return fut
+                    except queue.Full:
+                        pass
+                if not block or (give_up_at is not None
+                                 and time.perf_counter() >= give_up_at):
+                    self._reject(item, "queue_full", "shed")
+                    raise ServerOverloadedError(
+                        f"serving queue full ({self.max_queue} waiting); "
+                        "load shed")
+                time.sleep(0.002)
+
+    def predict(self, x, deadline_ms: Optional[float] = None):
+        """Synchronous convenience: submit and wait."""
+        return self.submit(x, deadline_ms=deadline_ms).result()
 
     def _journal_terminal(self, item, outcome, now: Optional[float] = None,
                           **extra) -> None:
         """Append the ONE terminal record of a request."""
         x, _, t0, _, meta = item
         now = time.perf_counter() if now is None else now
+        ctx = meta["ctx"]
         rec = new_record(
-            meta["rid"], "predict", outcome=outcome, tenant=meta["tenant"],
+            meta["rid"], "predict",
+            trace_id=None if ctx is None else ctx.trace_id,
+            outcome=outcome, tenant=meta["tenant"],
             priority=meta["priority"], batcher=self.id,
             rows=int(x.shape[0]), wall_seconds=now - t0)
         rec.update(extra)
@@ -253,8 +269,12 @@ class MicroBatcher:
                           else np.concatenate([b[0] for b in batch]))
                 # the merged call's phases, shared by its riders' records
                 ph = {} if self._phases_ok else None
-                out = (self.engine.predict_host(merged, phases=ph)
-                       if ph is not None else self.engine.predict_host(merged))
+                # one call serves every rider: it runs under the first
+                # rider's trace context
+                with trace_context(batch[0][4]["ctx"]):
+                    out = (self.engine.predict_host(merged, phases=ph)
+                           if ph is not None
+                           else self.engine.predict_host(merged))
                 done = time.perf_counter()
                 ofs = 0
                 for item in batch:

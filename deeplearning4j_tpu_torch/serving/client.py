@@ -1,8 +1,8 @@
 """Client for the InferenceServer (JSON + base64 float32).
 
 Counterpart of deeplearning4j_tpu/serving/client.py. One persistent
-keep-alive connection per thread; a dropped socket reconnects once within
-the call. Status codes map to the server's error types: 429 ->
+keep-alive connection per thread (``keep_alive=False``: one connection a
+call); a dropped socket reconnects once within the call. Status codes map to the server's error types: 429 ->
 ServerOverloadedError (retried with backoff), 503 -> BatcherStoppedError,
 504 -> DeadlineExceededError, other 4xx (a 409 migration reject among them)
 -> ValueError, 5xx -> RuntimeError.
@@ -47,11 +47,14 @@ def _typed_http_error(code: int, body: bytes) -> Exception:
 
 
 class InferenceClient:
-    def __init__(self, url: str, timeout: float = 60.0, retries: int = 3):
-        parsed = urlparse(url.rstrip("/"))
+    def __init__(self, url: str, timeout: float = 30.0, retries: int = 3,
+                 keep_alive: bool = True):
+        self.url = url.rstrip("/")
+        parsed = urlparse(self.url)
         self.host = parsed.hostname or "127.0.0.1"
         self.port = parsed.port or 80
         self.timeout = timeout
+        self.keep_alive = keep_alive
         self.retries = max(1, int(retries))
         self._local = threading.local()
 
@@ -82,6 +85,9 @@ class InferenceClient:
                 self.close()
                 if attempt:
                     raise
+            finally:
+                if not self.keep_alive:
+                    self.close()
 
     def _request(self, path, payload=None):
         body = None if payload is None else json.dumps(payload).encode()
@@ -122,6 +128,14 @@ class InferenceClient:
         server's pool. A rejected payload (HTTP 409, the pool untouched)
         raises ValueError."""
         return self._request("/kv/import", dict(payload))
+
+    def warmup(self, input_shape, max_batch=None) -> dict:
+        """POST /warmup: run (on the card, capture) the server's bucket
+        ladder for ``input_shape``, a per-example feature shape."""
+        payload = {"input_shape": list(input_shape)}
+        if max_batch is not None:
+            payload["max_batch"] = int(max_batch)
+        return self._request("/warmup", payload)
 
     def health(self) -> dict:
         try:

@@ -110,6 +110,9 @@ from deeplearning4j_tpu_torch.exec.executor import (HostResult, HostStage,
                                                     Layout, ResidentProgram)
 from deeplearning4j_tpu_torch.monitor.metrics import get_registry
 from deeplearning4j_tpu_torch.monitor.reqlog import RequestLog, new_record
+from deeplearning4j_tpu_torch.monitor.tracing import (TraceContext,
+                                                      get_context, trace,
+                                                      trace_context)
 from deeplearning4j_tpu_torch.nn.layers.attention import MultiHeadAttention
 from deeplearning4j_tpu_torch.nn.layers.base import (copy_into, map_tree,
                                                      where_rows)
@@ -211,7 +214,7 @@ class _Request:
         self.rid = rid
         self.tenant = tenant
         self.priority = priority
-        self.trace_id = trace_id  # None: trace contexts are not ported
+        self.trace_id = trace_id  # the submitter's trace context, if any
         self.t_start = time.perf_counter()
         self.t_admit = None      # slot claimed (the queue phase ends)
         self.t_prefill0 = None   # first prefill work dispatched
@@ -550,6 +553,9 @@ class DecodeEngine:
             progs["verify"] = self._verifier.build(
                 ex, cap, dict(self._resident(), props=self._draft.props,
                               sides=self._draft.sides))
+        for p in progs.values():
+            # each registers as (engine id, its name) in the registry
+            p.caller = self.id
         self._programs = progs
 
     def program_stats(self) -> dict:
@@ -847,8 +853,10 @@ class DecodeEngine:
         if self._stop.is_set() and self._thread is not None:
             raise BatcherStoppedError("decode engine stopped")
         fut = Future()
+        ctx = get_context()
         req = _Request(prompt, max_new_tokens, seed, temperature, top_k, fut,
-                       rid=request_id, tenant=tenant, priority=priority)
+                       rid=request_id, tenant=tenant, priority=priority,
+                       trace_id=None if ctx is None else ctx.trace_id)
         with self._cv:
             if len(self._queue) >= self.max_queue:
                 # a rejected request leaves its one record too
@@ -1013,8 +1021,13 @@ class DecodeEngine:
                 if not live:
                     self._cv.wait(timeout=0.05)
                     continue
+            # a tick serves every live request: its spans carry the first
+            # traced one's trace id
+            tid = next((r.trace_id for _, r in live if r.trace_id), None)
             try:
-                self._tick(live)
+                with trace_context(None if tid is None
+                                   else TraceContext(tid)):
+                    self._tick(live)
             except Exception as e:  # noqa: BLE001 -- fail the live requests
                 self._fail(live, e)
 
@@ -1047,7 +1060,8 @@ class DecodeEngine:
             self._tick_spec(live)
             return
         t0 = time.perf_counter()
-        nt = self._step_out.read(self._step(live))
+        with trace.span("decode_step", active=len(live)):
+            nt = self._step_out.read(self._step(live))
         now = time.perf_counter()
         self._decode_seconds += now - t0
         self._steps += 1
@@ -1085,7 +1099,8 @@ class DecodeEngine:
                 r.fresh = False
                 r.cursor += k
                 fed[0] += k
-        self._call("prefill", fill)
+        with trace.span("decode_prefill", chunks=len(pre)):
+            self._call("prefill", fill)
         self._inc("prefill_chunks", len(pre))
         self._inc("prefill_tokens", fed[0])
 
@@ -1169,11 +1184,13 @@ class DecodeEngine:
                 dseeds[i] = r.seed & 0xFFFFFFFF
                 dtemps[i] = r.temperature
                 dtopk[i] = r.top_k
-            self._draft.step(given, n_given, n_steps, dpos, sel, dreset,
-                             dseeds, dtemps, dtopk)
+            with trace.span("spec_draft", rows=len(catchup) + len(ready)):
+                self._draft.step(given, n_given, n_steps, dpos, sel, dreset,
+                                 dseeds, dtemps, dtopk)
         if tpre:
             t0 = time.perf_counter()
-            self._step(tpre)
+            with trace.span("decode_step", active=len(tpre)):
+                self._step(tpre)
             now = time.perf_counter()
             self._decode_seconds += now - t0
             self._steps += 1
@@ -1201,7 +1218,8 @@ class DecodeEngine:
         if self._pool is not None:
             f["tables"][...] = self._tables
         t0 = time.perf_counter()
-        etoks, acc, emit, sacc = self._verifier.run()
+        with trace.span("spec_verify", rows=len(ready)):
+            etoks, acc, emit, sacc = self._verifier.run()
         now = time.perf_counter()
         self._decode_seconds += now - t0
         self._steps += 1

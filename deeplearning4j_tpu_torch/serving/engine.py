@@ -60,6 +60,7 @@ from deeplearning4j_tpu_torch.data.dataset import host_tensor
 from deeplearning4j_tpu_torch.exec.executor import (ResidentProgram,
                                                     get_executor)
 from deeplearning4j_tpu_torch.monitor.metrics import get_registry
+from deeplearning4j_tpu_torch.monitor.tracing import trace
 from deeplearning4j_tpu_torch.nn.layers.base import copy_into, map_tree
 from deeplearning4j_tpu_torch.quant import (copy_tree, dequantize_tree,
                                             leaves_by_path,
@@ -464,7 +465,9 @@ class InferenceEngine:
         self._program = ResidentProgram(
             self._execu, self._body, self.id,
             capture=model.device.type == "cuda",
-            on_program=self._m_compiled.inc)
+            on_program=self._m_compiled.inc, caller=self.id,
+            key_of=lambda staged: f"b{staged[0].shape[0]}"
+            + ("_mask" if len(staged) > 1 else ""))
 
     # --------------------------------------------------------------- weights
     @property
@@ -563,26 +566,31 @@ class InferenceEngine:
                 phases[key] = phases.get(key, 0.0) + (t - tp)
                 tp = t
         with self._lock:
-            if not self._in_warmup:
-                self._size_counts[n] = self._size_counts.get(n, 0) + 1
-            b = bucket_for(n, self.max_batch, self.min_bucket, self.ladder)
+            with trace.span("bucket", n=n):
+                if not self._in_warmup:
+                    self._size_counts[n] = self._size_counts.get(n, 0) + 1
+                b = bucket_for(n, self.max_batch, self.min_bucket,
+                               self.ladder)
             lap("bucket")
-            if b > n:
-                x = torch.cat([x, x.new_zeros((b - n,) + tuple(x.shape[1:]))])
-                if mask is not None:
-                    mask = torch.cat([mask, mask.new_zeros(
-                        (b - n,) + tuple(mask.shape[1:]))])
+            with trace.span("pad", bucket=b):
+                if b > n:
+                    x = torch.cat([x, x.new_zeros((b - n,)
+                                                  + tuple(x.shape[1:]))])
+                    if mask is not None:
+                        mask = torch.cat([mask, mask.new_zeros(
+                            (b - n,) + tuple(mask.shape[1:]))])
             lap("pad")
-            params, state = self._weights()
-            if not self._weights_set.owned:
-                # the model's own tensors: init / set_params rebind them
-                self._program.rebase()
-            staged = (x,) if mask is None else (x, mask)
-            outs = self._program({"params": params, "state": state},
-                                 *staged, eager=not self._in_warmup)
-            # a captured rung's outputs are its static buffers, which the
-            # next replay overwrites
-            outs = [o[:n].clone() for o in outs]
+            with trace.span("device", bucket=b):
+                params, state = self._weights()
+                if not self._weights_set.owned:
+                    # the model's own tensors: init / set_params rebind them
+                    self._program.rebase()
+                staged = (x,) if mask is None else (x, mask)
+                outs = self._program({"params": params, "state": state},
+                                     *staged, eager=not self._in_warmup)
+                # a captured rung's outputs are its static buffers, which
+                # the next replay overwrites
+                outs = [o[:n].clone() for o in outs]
             lap("device")
             self._calls += 1
             self._buckets.add(b)
@@ -626,10 +634,11 @@ class InferenceEngine:
         with self._lock:
             out = self.predict(x, mask, phases=phases)
             t0 = time.perf_counter()
-            if isinstance(out, list):
-                out = [o.float().cpu().numpy() for o in out]
-            else:
-                out = out.float().cpu().numpy()
+            with trace.span("readback"):
+                if isinstance(out, list):
+                    out = [o.float().cpu().numpy() for o in out]
+                else:
+                    out = out.float().cpu().numpy()
         if phases is not None:
             phases["readback"] = (phases.get("readback", 0.0)
                                   + time.perf_counter() - t0)

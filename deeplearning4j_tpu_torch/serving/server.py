@@ -10,23 +10,38 @@ base64 float32 wire format (serving/wire.py). Endpoints:
   POST /kv/import <a /kv/export payload>                    -> {"imported_blocks", ...}
   POST /warmup    {"input_shape": [...], "max_batch"?}      -> {"buckets", "seconds"}
   POST /admin/swap {"checkpoint": path, "version"?}         -> {"swapped", "version", ...}
+  POST /admin/profile {"dir": d, "seconds"?}                -> a timed torch.profiler session
   GET  /stats                                               -> engine+batcher stats
   GET  /metrics                                             -> Prometheus text
   GET  /requests?n=                                         -> the request journal
   GET  /healthz                                             -> {"status": ...}
+  GET  /trace                                               -> the span ring (Chrome JSON)
+  GET  /programs                                            -> the program registry
+  GET  /train/diagnostics                                   -> the flight recorder's record
 
 Every request carries an id: the client's ``x-request-id``, or one minted
 here (``req-<pid hex>-<server id>-NNNNNN``), echoed on every response and
 in error bodies and written into the journal with the ``x-tenant`` and
 ``x-priority`` headers. /predict, /generate and /kv/* answer with
 ``x-model-version``. Every error body is ``{"error": {"type", "message",
-"request_id"}}`` and the status classifies it: 400 malformed payload, 404
-unknown path, no decode engine, or /kv/* without a paged engine with a
-prefix cache, 409 a migration payload rejected (``kv_migrate_rejected``,
-the pool untouched) or a swap candidate that does not match the serving
-weights (``weight_mismatch``, both engines untouched), 400
+"request_id"}}`` and the status classifies it: 400 malformed payload (or a
+bad ``seconds`` for /admin/profile), 404 unknown path, no decode engine,
+/kv/* without a paged engine with a prefix cache, or
+/train/diagnostics without a flight recorder, 409 a migration payload
+rejected (``kv_migrate_rejected``, the pool untouched), a swap candidate
+that does not match the serving weights (``weight_mismatch``, both engines
+untouched) or a profiling session already running (``profile_busy``), 400
 ``bad_checkpoint`` for a checkpoint that cannot be read, 429 queue full,
-503 draining, 504 deadline expired, 500 engine fault.
+503 draining or a profiler that cannot start (``profiler_unavailable``),
+504 deadline expired, 500 engine fault.
+
+Every request runs inside ``_observed``: the ``x-trace-context`` header's
+trace context installed for the handler (so the ``http_request`` span,
+the batcher's ``enqueue`` and the engines' spans carry its ``trace_id``,
+as does the request's journal record), the per-path
+``dl4jtpu_http_requests_total`` / ``dl4jtpu_http_request_seconds`` cells,
+and ``note_response``, whose per-server status classes feed the
+availability ``BurnRateSLO`` that ``/healthz`` reads.
 
 ``/warmup`` captures the bucketed engine's ladder (``InferenceEngine.
 warmup``) on the decode loop's thread between its ticks, with the
@@ -35,8 +50,7 @@ work meanwhile. ``/admin/swap`` loads a checkpoint's arrays
 (``util.model_serializer.load_weights``) and swaps both engines: the
 decode engine stages first and applies at its next tick with no live
 slot, then /predict cuts over; both write in place, so no capture
-follows. ``/trace``, ``/programs`` and ``/admin/profile`` are not ported
-(404).
+follows.
 """
 
 from __future__ import annotations
@@ -46,13 +60,17 @@ import json
 import os
 import socket
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
+from deeplearning4j_tpu_torch.monitor import profiling, tracing
 from deeplearning4j_tpu_torch.monitor.metrics import get_registry
+from deeplearning4j_tpu_torch.monitor.slo import BurnRateSLO
+from deeplearning4j_tpu_torch.monitor.tracing import trace
 from deeplearning4j_tpu_torch.resilience.errors import (
     BatcherStoppedError, CorruptCheckpointError, DeadlineExceededError,
     ServerOverloadedError, WeightSwapError)
@@ -62,6 +80,22 @@ from deeplearning4j_tpu_torch.serving.engine import (InferenceEngine,
 from deeplearning4j_tpu_torch.serving.kv import KVMigrateError
 from deeplearning4j_tpu_torch.serving.wire import (ndarray_from_b64,
                                                    ndarray_to_b64)
+
+
+_KNOWN_PATHS = ("/predict", "/generate", "/warmup", "/stats", "/metrics",
+                "/healthz", "/chaos", "/admin/swap", "/trace", "/programs",
+                "/admin/profile", "/train/diagnostics", "/kv/export",
+                "/kv/import", "/requests")
+
+
+def _http_metrics():
+    reg = get_registry()
+    return (reg.counter("dl4jtpu_http_requests_total",
+                        "HTTP requests served by the inference server.",
+                        ("path",)),
+            reg.histogram("dl4jtpu_http_request_seconds",
+                          "Wall seconds per HTTP request, handler-inclusive.",
+                          ("path",)))
 
 
 class BadRequestError(ValueError):
@@ -91,6 +125,7 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _send(self, data: bytes, content_type: str, code: int,
               extra_headers=None):
+        self._status = code
         self.send_response(code)
         self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(data)))
@@ -113,29 +148,68 @@ class _Handler(BaseHTTPRequestHandler):
                 "tenant": self.headers.get("x-tenant", "default"),
                 "priority": self.headers.get("x-priority", "normal")}
 
+    def _observed(self, path, fn):
+        """``fn()`` as one observed request: the ``x-trace-context``
+        header's context installed, the ``http_request`` span, the
+        per-path counter and histogram (unknown paths share one series)
+        and ``note_response``."""
+        counter, hist = _http_metrics()
+        label = path if path in _KNOWN_PATHS else "other"
+        ctx = tracing.TraceContext.from_header(
+            self.headers.get("x-trace-context"))
+        self._status = 200
+        t0 = time.perf_counter()
+        try:
+            with tracing.trace_context(ctx):
+                with trace.span("http_request", path=label,
+                                request_id=self._rid):
+                    fn()
+        finally:
+            counter.labels(path=label).inc()
+            hist.labels(path=label).observe(time.perf_counter() - t0)
+            self.server.inference.note_response(label, self._status)
+
     def do_GET(self):
         srv = self.server.inference
         url = urlparse(self.path)
         path = url.path
-        if path == "/stats":
-            self._json(srv.stats())
-        elif path == "/healthz":
-            info = srv.health_info()
-            self._json(info, 503 if info["status"] == "draining" else 200)
-        elif path == "/metrics":
-            self._send(get_registry().render().encode(),
-                       "text/plain; version=0.0.4; charset=utf-8", 200)
-        elif path == "/requests":
-            n = parse_qs(url.query).get("n", [None])[0]
-            try:
-                n = None if n is None else int(n)
-            except ValueError:
-                self._error(400, "bad_request",
-                            f"n must be an integer, got {n!r}")
-                return
-            self._json(srv.request_journal(n))
-        else:
-            self._error(404, "not_found", f"no such path: {path}")
+
+        def handle():
+            if path == "/stats":
+                self._json(srv.stats())
+            elif path == "/healthz":
+                info = srv.health_info()
+                self._json(info,
+                           503 if info["status"] == "draining" else 200)
+            elif path == "/metrics":
+                self._send(get_registry().render().encode(),
+                           "text/plain; version=0.0.4; charset=utf-8", 200)
+            elif path == "/trace":
+                # this process's span ring as one Chrome trace document
+                self._json(trace.export())
+            elif path == "/requests":
+                n = parse_qs(url.query).get("n", [None])[0]
+                try:
+                    n = None if n is None else int(n)
+                except ValueError:
+                    self._error(400, "bad_request",
+                                f"n must be an integer, got {n!r}")
+                    return
+                self._json(srv.request_journal(n))
+            elif path == "/programs":
+                from deeplearning4j_tpu_torch.exec.programs import \
+                    get_programs
+                self._json({"programs": get_programs().entries()})
+            elif path == "/train/diagnostics":
+                if srv.flight_recorder is None:
+                    self._error(404, "not_found",
+                                "no flight recorder attached to this server")
+                else:
+                    self._json(srv.flight_recorder.diagnostics())
+            else:
+                self._error(404, "not_found", f"no such path: {path}")
+
+        self._observed(path, handle)
 
     def do_POST(self):
         srv = self.server.inference
@@ -148,6 +222,9 @@ class _Handler(BaseHTTPRequestHandler):
         except Exception as e:  # noqa: BLE001 -- client sent junk
             self._error(400, "bad_request", f"bad json: {e}")
             return
+        self._observed(path, lambda: self._post(srv, path, payload))
+
+    def _post(self, srv, path, payload):
         try:
             if path == "/predict":
                 self._predict(srv, payload)
@@ -159,6 +236,8 @@ class _Handler(BaseHTTPRequestHandler):
                 self._kv_import(srv, payload)
             elif path == "/admin/swap":
                 self._admin_swap(srv, payload)
+            elif path == "/admin/profile":
+                self._admin_profile(payload)
             elif path == "/warmup":
                 self._warmup(srv, payload)
             else:
@@ -180,8 +259,27 @@ class _Handler(BaseHTTPRequestHandler):
         except DeadlineExceededError as e:
             self._error(504, "deadline_exceeded", str(e))
         except Exception as e:  # noqa: BLE001 -- engine fault: 500
-            srv.last_error = f"{type(e).__name__}: {e}"
+            srv.note_engine_error(e)
             self._error(500, "internal", srv.last_error)
+
+    def _admin_profile(self, payload):
+        """POST /admin/profile {"dir": path, "seconds"?: float}: profile
+        the next seconds of live traffic (monitor/profiling.py); one
+        session at a time per process."""
+        if profiling.profile_status()["profiling"]:
+            self._error(409, "profile_busy",
+                        "a profiling session is already running")
+            return
+        try:
+            out = profiling.start_profile(
+                payload.get("dir", ""),
+                seconds=float(payload.get("seconds", 5.0)))
+        except (TypeError, ValueError) as e:
+            raise BadRequestError(str(e)) from None
+        except RuntimeError as e:
+            self._error(503, "profiler_unavailable", str(e))
+            return
+        self._json(out)
 
     def _predict(self, srv, payload):
         try:
@@ -190,18 +288,24 @@ class _Handler(BaseHTTPRequestHandler):
             raise BadRequestError("payload missing 'ndarray'") from None
         except Exception as e:  # noqa: BLE001 -- undecodable client bytes
             raise BadRequestError(f"undecodable ndarray: {e}") from None
-        deadline_ms = payload.get("deadline_ms")
+        deadline_ms = payload.get("deadline_ms", srv.request_timeout_ms)
         if deadline_ms is not None:
             try:
                 deadline_ms = float(deadline_ms)
             except (TypeError, ValueError):
                 raise BadRequestError(
-                    f"deadline_ms must be a number, got {deadline_ms!r}"
-                ) from None
+                    f"deadline_ms must be a number, got "
+                    f"{payload.get('deadline_ms')!r}") from None
         squeeze = x.ndim == 1
         if squeeze:
             x = x[None, :]
         srv.validate_features(x)
+        if srv.request_mirror is not None:
+            try:
+                # a best-effort tap on real traffic: never fails a request
+                srv.request_mirror(x)
+            except Exception:  # noqa: BLE001
+                pass
         # block=False: a full queue answers 429 now instead of parking the
         # handler thread on backpressure
         out = srv.batcher.submit(x, deadline_ms=deadline_ms, block=False,
@@ -307,9 +411,20 @@ class InferenceServer:
         srv = InferenceServer(net, port=0, decode_engine=eng).start()
         out = InferenceClient(f"http://127.0.0.1:{srv.port}").predict(x)
 
-    ``max_queue``: bound on queued requests (beyond it: HTTP 429).
-    ``journal_capacity``: the records the /predict journal keeps (the
-    decode engine keeps its own).
+    The parameters are the JAX server's, in its order. ``max_queue``:
+    bound on queued requests (beyond it: HTTP 429).
+    ``request_timeout_ms``: the deadline of a /predict that sends no
+    ``deadline_ms`` (None: none). ``health_hook``: ``() -> {"status":
+    ...} | None``, merged into /healthz. ``request_mirror``: ``(features)
+    -> None``, a best-effort tap on /predict traffic. ``flight_recorder``:
+    a ``monitor.flight.FlightRecorder`` served at ``GET
+    /train/diagnostics`` (404 without one), whose degrading anomalies
+    degrade /healthz. ``role``: ``prefill``, ``decode`` or ``mixed``, a
+    routing preference advertised in /stats (every endpoint is served
+    whatever the role). ``fault_injector`` must be None: the fault
+    injector is not ported (ROADMAP queue 1 item 6c). ``journal_capacity``:
+    the records the /predict journal keeps (the decode engine keeps its
+    own).
     """
 
     _ids = itertools.count()
@@ -317,11 +432,28 @@ class InferenceServer:
     def __init__(self, model, port: int = 9300, host: str = "127.0.0.1",
                  max_batch: int = 256, max_latency_ms: float = 2.0,
                  engine: Optional[InferenceEngine] = None,
-                 max_queue: int = 1024, decode_engine=None,
+                 max_queue: int = 1024,
+                 request_timeout_ms: Optional[float] = None,
+                 decode_engine=None, fault_injector=None,
+                 health_hook=None, request_mirror=None,
+                 flight_recorder=None, role: str = "mixed",
                  journal_capacity: int = 512):
+        if role not in ("prefill", "decode", "mixed"):
+            raise ValueError(
+                f"role must be 'prefill', 'decode' or 'mixed', got {role!r}")
+        if fault_injector is not None:
+            raise NotImplementedError(
+                "InferenceServer(fault_injector=): the fault injector is not "
+                "ported to the PyTorch package yet (ROADMAP queue 1 item 6c)")
+        self.role = role
         self.model = model
         self.engine = engine or InferenceEngine(model)
         self.decode_engine = decode_engine
+        self.fault_injector = None
+        self.health_hook = health_hook
+        self.request_mirror = request_mirror
+        self.flight_recorder = flight_recorder
+        self.request_timeout_ms = request_timeout_ms
         self.batcher = MicroBatcher(self.engine, max_batch=max_batch,
                                     max_latency_ms=max_latency_ms,
                                     max_queue=max_queue,
@@ -341,6 +473,30 @@ class InferenceServer:
         # while a warm-up captures on another thread
         self._admin_lock = threading.Lock()
         self.last_error: Optional[str] = None
+        self._m_engine_errors = get_registry().counter(
+            "dl4jtpu_serving_engine_errors_total",
+            "Engine faults surfaced as HTTP 500 by the inference server.")
+        # per-instance response classes: the SLI under the burn-rate SLO,
+        # labelled by server so a new server starts with a clean budget
+        self._m_responses = get_registry().counter(
+            "dl4jtpu_http_responses_total",
+            "HTTP responses by status class, per server instance.",
+            ("server", "path", "class"))
+        sli, bad = [], []
+        for p in ("/predict", "/generate"):
+            for c in ("2xx", "4xx", "5xx"):
+                child = self._m_responses.labels(
+                    server=self.id, path=p, **{"class": c})
+                sli.append(child)
+                if c == "5xx":
+                    bad.append(child)
+        # availability over /predict and /generate: 5xx burn the budget,
+        # 4xx are the client's
+        self.slo = BurnRateSLO(
+            f"availability:{self.id}",
+            bad_fn=lambda: sum(c.value for c in bad),
+            total_fn=lambda: sum(c.value for c in sli),
+            objective=0.99)
 
     def validate_features(self, x: np.ndarray) -> None:
         """400 for a wrong rank or feature width against the model's
@@ -364,16 +520,35 @@ class InferenceServer:
     def mint_rid(self) -> str:
         return f"req-{self._rid_prefix}-{next(self._rid_counter):06d}"
 
+    # --------------------------------------------------------------- health
+    def note_engine_error(self, e: BaseException) -> None:
+        """An engine fault answered 500: kept for /stats and counted."""
+        self.last_error = f"{type(e).__name__}: {e}"
+        self._m_engine_errors.inc()
+
+    def note_response(self, path: str, code: int) -> None:
+        """Count one HTTP response by status class (the handler calls it
+        for every request; it feeds the availability SLO)."""
+        try:
+            cls = f"{int(code) // 100}xx"
+            self._m_responses.labels(server=self.id, path=path,
+                                     **{"class": cls}).inc()
+        except Exception:  # noqa: BLE001 -- accounting never breaks serving
+            pass
+
     def health_info(self) -> dict:
-        """``{"status": ...}`` and a ``reason`` when degraded:
-        ``queue_pressure`` (the /predict queue at least 80% full),
+        """``{"status": ...}`` and a ``reason`` when degraded, first match
+        first: ``queue_pressure`` (the /predict queue at least 80% full),
         ``kv_pool_exhausted`` (a paged decode engine's queue head cannot
-        claim its blocks; with the pool's ``kv`` occupancy) or
-        ``decode_saturated`` (every decode slot busy)."""
+        claim its blocks; with the pool's ``kv`` occupancy),
+        ``decode_saturated`` (every decode slot busy), the health hook's
+        own, the flight recorder's (``train_non_finite``,
+        ``train_anomaly``), ``slo_fast_burn`` (with the SLO's state)."""
         if self._draining.is_set() or self.batcher.stopping:
             return {"status": "draining"}
         st = self.batcher.stats()
-        if st["queue_depth"] >= 0.8 * st["queue_capacity"]:
+        if st["queue_capacity"] and (st["queue_depth"]
+                                     >= 0.8 * st["queue_capacity"]):
             return {"status": "degraded", "reason": "queue_pressure"}
         dec = self.decode_engine
         if dec is not None and getattr(dec, "kv_exhausted", False):
@@ -381,12 +556,38 @@ class InferenceServer:
                     "kv": dec.kv_pool_info()}
         if dec is not None and dec.saturated:
             return {"status": "degraded", "reason": "decode_saturated"}
+        if self.health_hook is not None:
+            try:
+                extra = self.health_hook()
+            except Exception:  # noqa: BLE001 -- a broken hook cannot take
+                extra = None   # the whole server unhealthy
+            if extra and extra.get("status") not in (None, "ok"):
+                return extra
+        if self.flight_recorder is not None:
+            try:
+                fr = self.flight_recorder.health_info()
+            except Exception:  # noqa: BLE001 -- nor can telemetry
+                fr = None
+            if fr and fr.get("status") not in (None, "ok"):
+                return fr
+        try:
+            slo = self.slo.evaluate()
+        except Exception:  # noqa: BLE001 -- nor SLO arithmetic
+            slo = None
+        if slo is not None and slo.fast_burn:
+            return {"status": "degraded", "reason": "slo_fast_burn",
+                    "slo": slo.as_dict()}
         return {"status": "ok"}
+
+    def health(self) -> str:
+        return self.health_info()["status"]
 
     def stats(self) -> dict:
         out = {"engine": self.engine.stats(),
                "batcher": self.batcher.stats(),
                "health": self.health_info()["status"],
+               "role": self.role,
+               "model_version": self.engine.model_version,
                "device": str(self.model.device),
                "last_error": self.last_error}
         if self.decode_engine is not None:

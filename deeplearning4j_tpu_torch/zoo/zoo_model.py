@@ -1,10 +1,13 @@
 """ZooModel base: build a zoo network, or load its bundled pretrained zip.
 
-Counterpart of deeplearning4j_tpu/zoo/zoo_model.py. The pretrained
-artifacts are the ones committed with the JAX package
-(``deeplearning4j_tpu/zoo/pretrained_artifacts/``); this module reads
-those files and their manifest, imports nothing of that package, and
-checks the SHA-256 the manifest records before loading.
+Counterpart of deeplearning4j_tpu/zoo/zoo_model.py. A pretrained zip is
+read from the user's cache, ``$DL4JTPU_DATA_DIR/pretrained/<name>.zip``
+(``cache_path``), when one is there, else from the artifacts committed
+with the JAX package (``deeplearning4j_tpu/zoo/pretrained_artifacts/``);
+this module reads those files and their manifests, imports nothing of
+that package, and checks the SHA-256 the zip's own manifest records (the
+cache's ``pretrained/manifest.json``, written by
+``write_manifest_entry``, or the bundle's) before loading.
 """
 
 from __future__ import annotations
@@ -56,23 +59,70 @@ class ZooModel:
                else MultiLayerNetwork)
         return cls(conf, device=device).init()
 
+    def cache_path(self) -> Path:
+        """Where a user-provisioned pretrained zip lives (the write
+        target); ``pretrained_path`` resolves reads across the cache and
+        the bundle."""
+        from deeplearning4j_tpu_torch.data.fetchers import data_dir
+        return data_dir() / "pretrained" / f"{self.name}.zip"
+
     def pretrained_path(self) -> Path:
-        return BUNDLED_DIR / f"{self.name}.zip"
+        """The cached zip when present, else the bundled one (never a
+        write target)."""
+        cached = self.cache_path()
+        if cached.exists():
+            return cached
+        bundled = BUNDLED_DIR / f"{self.name}.zip"
+        return bundled if bundled.exists() else cached
 
     @staticmethod
-    def manifest() -> dict:
-        return json.loads((BUNDLED_DIR / "manifest.json").read_text())
+    def _manifest_path() -> Path:
+        from deeplearning4j_tpu_torch.data.fetchers import data_dir
+        return data_dir() / "pretrained" / "manifest.json"
+
+    @classmethod
+    def manifest(cls) -> dict:
+        """The bundled manifest, the cache's entries over it. A value is a
+        sha256 string or a dict with ``sha256`` and eval metadata."""
+        merged = {}
+        bundled = BUNDLED_DIR / "manifest.json"
+        if bundled.exists():
+            merged.update(json.loads(bundled.read_text()))
+        mp = cls._manifest_path()
+        if mp.exists():
+            merged.update(json.loads(mp.read_text()))
+        return merged
+
+    @staticmethod
+    def write_manifest_entry(name: str, path) -> str:
+        """Record the SHA-256 of a cached pretrained zip in the cache's
+        manifest. Returns the hash."""
+        digest = hashlib.sha256(Path(path).read_bytes()).hexdigest()
+        mp = ZooModel._manifest_path()
+        manifest = {}
+        if mp.exists():
+            manifest = json.loads(mp.read_text())
+        manifest[name] = digest
+        mp.parent.mkdir(parents=True, exist_ok=True)
+        mp.write_text(json.dumps(manifest, indent=2))
+        return digest
 
     def init_pretrained(self, device=None):
-        """Load the bundled pretrained network (its parameters and layer
-        state; a MultiLayerNetwork or a ComputationGraph, as the zip says)
-        after checking the zip's SHA-256 against the manifest: a corrupt
-        or replaced file raises instead of loading garbage weights."""
+        """Load the pretrained network (its parameters and layer state; a
+        MultiLayerNetwork or a ComputationGraph, as the zip says) after
+        checking the zip's SHA-256 against the manifest that came with it
+        (the cache's for a cached zip, none meaning unchecked; the
+        bundle's for a bundled one): a corrupt or replaced file raises
+        instead of loading garbage weights."""
         p = self.pretrained_path()
         if not p.exists():
             raise FileNotFoundError(
-                f"No pretrained weights for '{self.name}' at {p}.")
-        want = self.manifest().get(self.name)
+                f"No pretrained weights for '{self.name}' at {p}; place a "
+                "model zip there (util.model_serializer format).")
+        mf = (BUNDLED_DIR / "manifest.json" if p.parent == BUNDLED_DIR
+              else self._manifest_path())
+        want = json.loads(mf.read_text()).get(self.name) if mf.exists() \
+            else None
         if isinstance(want, dict):
             want = want.get("sha256")
         if want is not None:

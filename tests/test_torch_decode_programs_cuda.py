@@ -13,7 +13,10 @@ the copy-on-write, the draft and the verify:
   position, none for a chunk or a copy);
 - a resident tensor passed at another address raises;
 - ``start()`` captures every program on the caller's thread, and the
-  loop thread captures nothing afterwards.
+  loop thread captures nothing afterwards;
+- each program is registered with one replay's launches and the hand
+  kernels' work reckoned from its shapes, and reading the registry
+  captures nothing.
 
 Every test skips without a card: a CUDA kernel has no CPU mode.
 """
@@ -146,5 +149,50 @@ def test_start_leaves_no_capture_for_the_loop_thread(cuda_device):
             eng.generate(p, max_new_tokens=8, timeout=300)
         assert eng.program_stats() == after_start
         assert eng.trace_count == 1
+    finally:
+        eng.stop()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", ["dense", "paged"])
+def test_registered_programs_carry_the_kernels_work(cuda_device, kv):
+    """Each captured program is registered (exec/programs.py) with the
+    launches one replay adds and the hand kernels' work reckoned from the
+    program's shapes: for the step, once an attention layer, 4 Dh H
+    operations per cache row of every slot's whole capacity, the rows of
+    K and V at the cache's width, q and the output in float32 (K9: and
+    the page-table entries). Reading the registry captures nothing."""
+    from deeplearning4j_tpu_torch.exec import get_programs
+    net, _ = _nets(cuda_device)
+    kw = {} if kv == "dense" else dict(kv="paged", kv_block_size=16)
+    eng = DecodeEngine(net, slots=2, max_len=MAXLEN, **kw)
+    eng.start()
+    try:
+        stats = eng.program_stats()
+        rec = get_programs().get(eng.id, "step")
+        assert eng.program_stats() == stats
+        (graph,) = eng._programs["step"].graphs.values()
+        assert rec["launches"] == graph.launches
+        ops.reset_launch_counts()
+        s0 = eng._steps
+        for _ in range(3):
+            eng.generate([1, 2, 3], max_new_tokens=4, timeout=300)
+        per_step = {k: n / (eng._steps - s0)
+                    for k, n in ops.launch_counts().items()}
+        assert per_step == rec["launches"]
+        S, H, Dh, L = 2, 4, 8, 2
+        if kv == "dense":
+            rows, entries = S * MAXLEN, 0
+        else:
+            MB = eng._max_blocks
+            rows, entries = S * MB * 16, S * MB
+        flops = 4.0 * Dh * H * rows
+        nbytes = 4 * (2 * S * H * Dh + S) + 4 * 2 * rows * H * Dh \
+            + 4 * entries
+        assert rec["kernel_flops"] == L * flops
+        assert rec["kernel_bytes"] == L * nbytes
+        assert rec["flops"] > rec["kernel_flops"]
+        assert rec["memory_bytes"] is not None and rec["memory_bytes"] > 0
+        assert rec["compile_seconds"] > 0
     finally:
         eng.stop()

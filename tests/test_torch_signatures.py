@@ -7,7 +7,9 @@ and ``output(x, train=False)`` on both containers,
 ``restore_multi_layer_network(path, False)`` /
 ``restore_computation_graph(path, False)`` and the containers' ``load``,
 ``DecodeEngine(model, slots, max_len, eos_id, max_queue, precision,
-kv)`` and ``InferenceEngine(model, max_batch, min_bucket, precision)``.
+kv)`` and ``InferenceEngine(model, max_batch, min_bucket, precision)``;
+the serving entry points' parameters, and the public names of ``monitor``
+and ``exec.programs``, are the JAX package's.
 Outputs and parameters must be identical (``torch.equal``).
 """
 
@@ -129,6 +131,10 @@ def test_inference_engine_takes_the_jax_positional_order(nets):
                                    "DecodeEngine.generate",
                                    "MicroBatcher.__init__",
                                    "MicroBatcher.submit",
+                                   "MicroBatcher.predict",
+                                   "InferenceServer.__init__",
+                                   "InferenceClient.__init__",
+                                   "InferenceClient.warmup",
                                    "InferenceEngine.__init__",
                                    "InferenceEngine.predict",
                                    "InferenceEngine.predict_host",
@@ -138,23 +144,53 @@ def test_inference_engine_takes_the_jax_positional_order(nets):
                                    "InferenceEngine.autotune"])
 def test_serving_entry_points_take_the_jax_positions(entry):
     """The journal's and the host tier's arguments (``journal_capacity``,
-    ``host_kv_bytes``, ``request_id``, ``tenant``, ``priority``) sit where
-    the JAX package puts them, with its defaults."""
+    ``host_kv_bytes``, ``request_id``, ``tenant``, ``priority``), the
+    server's (``request_timeout_ms`` eighth, then ``decode_engine``,
+    ``fault_injector``, ``health_hook``, ``request_mirror``,
+    ``flight_recorder``, ``role``) and the client's (``keep_alive``) sit
+    where the JAX package puts them, with its defaults."""
     import inspect
 
     from deeplearning4j_tpu.serving.batcher import MicroBatcher as JaxBatcher
+    from deeplearning4j_tpu.serving.client import \
+        InferenceClient as JaxClient
     from deeplearning4j_tpu.serving.decode import DecodeEngine as JaxDecode
     from deeplearning4j_tpu.serving.engine import \
         InferenceEngine as JaxEngine
+    from deeplearning4j_tpu.serving.server import \
+        InferenceServer as JaxServer
 
-    from deeplearning4j_tpu_torch.serving import MicroBatcher
+    from deeplearning4j_tpu_torch.serving import (InferenceClient,
+                                                  InferenceServer,
+                                                  MicroBatcher)
     cls, meth = entry.split(".")
     ours = {"DecodeEngine": DecodeEngine, "MicroBatcher": MicroBatcher,
-            "InferenceEngine": InferenceEngine}[cls]
+            "InferenceEngine": InferenceEngine,
+            "InferenceServer": InferenceServer,
+            "InferenceClient": InferenceClient}[cls]
     theirs = {"DecodeEngine": JaxDecode, "MicroBatcher": JaxBatcher,
-              "InferenceEngine": JaxEngine}[cls]
+              "InferenceEngine": JaxEngine, "InferenceServer": JaxServer,
+              "InferenceClient": JaxClient}[cls]
 
     def params(c):
         return [(p.name, p.default) for p in
                 inspect.signature(getattr(c, meth)).parameters.values()]
     assert params(ours) == params(theirs)
+
+
+@pytest.mark.parametrize("module", ["monitor", "exec.programs"])
+def test_monitor_and_program_registry_export_the_jax_names(module):
+    """Every name of JAX ``monitor.__all__`` and ``exec.programs.__all__``
+    imports from the port, and ``monitor`` exports no other."""
+    import importlib
+    theirs = importlib.import_module(f"deeplearning4j_tpu.{module}")
+    ours = importlib.import_module(f"deeplearning4j_tpu_torch.{module}")
+    assert sorted(ours.__all__) == sorted(theirs.__all__)
+    for name in theirs.__all__:
+        assert getattr(ours, name) is not None, name
+    from deeplearning4j_tpu_torch import exec as ex
+    for name in ("ProgramRegistry", "get_programs", "is_registering"):
+        assert getattr(ex, name) is getattr(
+            importlib.import_module("deeplearning4j_tpu_torch.exec.programs"),
+            name)
+    assert ex.get_executor().programs is ex.get_programs()
