@@ -243,7 +243,7 @@ result line, when any of them or the port's package is missing. Phases:
    (speculation with chunked prefill); and the TextGenerationLSTM with
    ``early_exit:1``, tree (3, 2), dense. Each part runs the eager engine
    (the ``_capture_programs = False`` seam) and the captured one in turns
-   over 5 rounds in this call: tokens identical between them and across
+   over 3 rounds in this call: tokens identical between them and across
    rounds, greedy tokens against ``generate_naive`` under the near-tie
    rule, the launches of every round exactly the plain steps', verifies'
    and draft steps' (as (b)), each program one capture whose replay
@@ -251,7 +251,7 @@ result line, when any of them or the port's package is missing. Phases:
    draft) and nothing for a chunk or a copy, no new capture after
    ``warmup()``, ``trace_count`` 1, no block in use at the end; ms a step
    (plain: decode seconds a step) or a tick (wall a verify) eager and
-   captured, min / median / max of the 5 rounds; ten captured steps or
+   captured, min / median / max of the 3 rounds; ten captured steps or
    ticks under ``torch.profiler``; the counters of 3 prompts one at a time
    (24 new tokens) against the CPU port's where the tokens agree.
    Then tokens/s of each part against the captured plain engine, time to
@@ -452,6 +452,34 @@ result line, when any of them or the port's package is missing. Phases:
    /train/diagnostics`` and ``/healthz`` (``train_non_finite``) name
    layer 0. The phase prints its seconds; its launches join the kernels
    line (K3, K4-train, K5-K9).
+17. The routed tier from an AOT artifact (``routed_phase``),
+   TinyTransformer at its default width. (a) A /predict engine (rungs
+   1..16), a dense and a paged decode engine (8 slots, max_len 512)
+   ``warmup(aot=)`` against no artifact: they trace and save one
+   (recipes under the JAX package's keys, the six kernel libraries);
+   fresh engines restore from it: no trace, one restore (and one
+   capture) a program, registry records equal the traced ones, outputs
+   and tokens (greedy and seeded) bit for bit the traced engines'; each
+   engine's ``warmup_seconds`` traced against restored; launches exact.
+   (b) Cold start: phase 2's nvcc seconds per source; a ``tinyattn``
+   ``ReplicaProcess``'s ready seconds over the built tree without an
+   artifact, and with ``--aot`` from a copy of the package whose
+   ``build/`` is empty: its libraries must be the artifact's (sha256)
+   and its log must show no nvcc run. (c) A ``Router`` over two
+   in-process servers on the restored engines (dense and paged decode)
+   and a ``tinytransformer`` ``ReplicaProcess`` from the artifact, under
+   a storm of /predict and /generate from 4 clients: ``POST /chaos``
+   503s at one server (failed over), a SIGKILL of the subprocess and its
+   ``--aot`` restart, one ``rolling_restart`` (the in-process servers
+   restart over their captured engines), one hedged /predict won by the
+   hedge, then a scripted fast 503 ``retry_budget_exhausted``; no other
+   client-visible error, /predict within 1e-4 of one engine, greedy
+   tokens equal under the near-tie rule, and K5 / K8 / K9 launched in
+   this process exactly as the engines' calls and steps call for. (d)
+   Scale from zero: a /generate held by ``hold_for_capacity_s`` wakes
+   the ``Autoscaler``, a ``ReplicaProcess(aot=...)`` comes up and serves
+   it (the held seconds printed); idle, the fleet drains to zero and the
+   process exits. Its launches join the kernels line (K5, K8, K9).
 
 A replayed CUDA graph adds to the launch counts the launches its capture
 recorded (the capture itself counts none), so the counts below are the
@@ -478,6 +506,7 @@ Detailed results also go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -3528,7 +3557,7 @@ def spec_lstm_part(card, res):
 
 
 # ------------------------------------------------------------- phase 11 (d)
-ROUNDS = 5            # eager and captured rounds, in turns, in one call
+ROUNDS = 3            # eager and captured rounds, in turns, in one call
 ONE_AT_A_TIME, ONE_NEW = 3, 24   # prompts and new tokens of the CPU check
 
 
@@ -6785,6 +6814,552 @@ def observability_phase(card, dev="cuda"):
     return res
 
 
+ROUTED_MAX_BATCH = 16          # the in-process /predict engines: 1..16
+ROUTED_SLOTS, ROUTED_MAXLEN = 8, 512
+ROUTED_NEW = 16                # new tokens a /generate of the storm
+ROUTED_THREADS = 4             # storm clients
+ROUTED_DIR = ROOT / "build" / "routed"
+AOT_FIELDS = ("flops", "bytes", "kernel_flops", "kernel_bytes", "launches")
+
+
+def _routed_engines(net):
+    """A /predict engine and the dense and paged decode engines of phase
+    11's width."""
+    from deeplearning4j_tpu_torch.serving import DecodeEngine, InferenceEngine
+    return (InferenceEngine(net, ROUTED_MAX_BATCH),
+            DecodeEngine(net, slots=ROUTED_SLOTS, max_len=ROUTED_MAXLEN),
+            DecodeEngine(net, slots=ROUTED_SLOTS, max_len=ROUTED_MAXLEN,
+                         kv="paged", kv_block_size=KV_BLOCK))
+
+
+def _warm_from(engines, vocab, art):
+    """``warmup(aot=art)`` of each engine: wall seconds and the engine's
+    own ``warmup_seconds``."""
+    out = {}
+    for tag, e in zip(("predict", "dense", "paged"), engines):
+        t0 = time.perf_counter()
+        if tag == "predict":
+            e.warmup((TINY_T, vocab), aot=str(art))
+        else:
+            e.warmup(aot=str(art))
+        out[tag] = {"wall_s": time.perf_counter() - t0,
+                    "warmup_seconds": e.warmup_seconds}
+    return out
+
+
+def _engine_launches(eng, dense, paged, c0):
+    """The K5 / K8 / K9 launches the engines' calls since ``c0`` (their
+    device calls and steps) must have made, from one replay's registered
+    launches."""
+    from deeplearning4j_tpu_torch.exec import get_programs
+    progs = get_programs()
+    want = {}
+    for e, n0 in zip(eng, c0[:len(eng)]):
+        rec = progs.get(e.id, f"b{ROUTED_MAX_BATCH}")["launches"]
+        for k, v in rec.items():
+            want[k] = want.get(k, 0) + v * (e._calls - n0)
+    for e, n0 in zip((dense, paged), c0[len(eng):]):
+        for k, v in progs.get(e.id, "step")["launches"].items():
+            want[k] = want.get(k, 0) + v * (e._steps - n0)
+    return {k: v for k, v in want.items() if v}
+
+
+def routed_aot_part(card, res, net, vocab, ids, art, dev="cuda"):
+    """(a) One artifact from traced engines; fresh engines restore from
+    it with no trace, one restore a program, the traced records, and the
+    same outputs and tokens bit for bit."""
+    import torch
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.exec import get_programs
+    from deeplearning4j_tpu_torch.exec.aot import AotBundle
+    from deeplearning4j_tpu_torch.serving import InferenceEngine
+    from deeplearning4j_tpu_torch.zoo.corpus import corpus_windows
+    traced = _routed_engines(net)
+    t_secs = _warm_from(traced, vocab, art)
+    restored = _routed_engines(net)
+    r_secs = _warm_from(restored, vocab, art)
+    # the second /predict engine of the routed tier restores too, and one
+    # with the replicas' ladder (1..64) adds rungs 32 and 64
+    extra = _routed_engines(net)[0]
+    extra.warmup((TINY_T, vocab), aot=str(art))
+    wide = InferenceEngine(net)
+    wide.warmup((TINY_T, vocab), max_batch=64, aot=str(art))
+    if (wide.trace_count, wide.aot_restores) != (2, 5):
+        raise AssertionError(f"aot: the 1..64 ladder traced "
+                             f"{wide.trace_count}, restored "
+                             f"{wide.aot_restores}")
+    bundle = AotBundle.load(art)
+    progs = get_programs()
+    checks = {}
+    for tag, t, r in zip(("predict", "dense", "paged"), traced, restored):
+        keys = ([f"b{b}" for b in (1, 2, 4, 8, 16)] if tag == "predict"
+                else sorted(r._programs))
+        n_prog = len(keys)
+        same = all({f: progs.get(t.id, k)[f] for f in AOT_FIELDS}
+                   == {f: progs.get(r.id, k)[f] for f in AOT_FIELDS}
+                   for k in keys)
+        checks[tag] = {"traced_trace_count": t.trace_count,
+                       "trace_count": r.trace_count,
+                       "restores": r.aot_restores, "programs": n_prog,
+                       "records_equal": same,
+                       "captures": (r.captures if tag == "predict" else
+                                    sum(s["captures"] for s in
+                                        r.program_stats().values()))}
+        if (r.trace_count != 0 or r.aot_restores != n_prog or not same
+                or checks[tag]["captures"]
+                != (n_prog if dev == "cuda" else 0)):
+            raise AssertionError(f"aot: {tag} restore {checks[tag]}")
+    if extra.trace_count != 0 or extra.aot_restores != 5:
+        raise AssertionError("aot: the second /predict engine traced")
+    _, (xte, _), _ = corpus_windows(TINY_T)
+    x = torch.tensor(xte[:15])
+    prompts = [ids[101 * i:101 * i + 24] for i in range(ROUTED_SLOTS)]
+    ops.reset_launch_counts()
+    c0 = [traced[0]._calls, restored[0]._calls]
+    s0 = [e._steps for e in traced[1:] + restored[1:]]
+    preds = [e.predict_host(x) for e in (traced[0], restored[0])]
+    toks = {}
+    for tag, e in (("t_dense", traced[1]), ("t_paged", traced[2]),
+                   ("r_dense", restored[1]), ("r_paged", restored[2])):
+        e.start()
+        toks[tag] = (_serve(e, prompts, ROUTED_NEW)[0]
+                     + _serve(e, prompts, ROUTED_NEW, temp=0.8, seed=7)[0])
+        e.stop()
+    got = ops.launch_counts()
+    want = {}
+    for part in (_engine_launches(traced[:1], traced[1], traced[2],
+                                  [c0[0], s0[0], s0[1]]),
+                 _engine_launches(restored[:1], restored[1], restored[2],
+                                  [c0[1], s0[2], s0[3]])):
+        for k, v in part.items():
+            want[k] = want.get(k, 0) + v
+    bitwise = {"predict": bool(np.array_equal(preds[0], preds[1])),
+               "dense": toks["t_dense"] == toks["r_dense"],
+               "paged": toks["t_paged"] == toks["r_paged"]}
+    out = {"checks": checks, "traced": t_secs, "restored": r_secs,
+           "bitwise": bitwise, "launches": got,
+           "artifact": {"programs": sorted(bundle.keys()),
+                        "libraries": [m["name"] for m in bundle.libraries],
+                        "nvcc": bundle.nvcc,
+                        "bytes": os.path.getsize(art)}}
+    print(f"routed: (a) artifact {art.name} "
+          f"({out['artifact']['bytes']} bytes, {len(bundle)} recipes, "
+          f"{len(bundle.libraries)} kernel libraries, {bundle.nvcc}); "
+          f"restored engines: {checks}; warmup seconds traced "
+          f"{ {k: round(v['warmup_seconds'], 4) for k, v in t_secs.items()} }"
+          f" against restored "
+          f"{ {k: round(v['warmup_seconds'], 4) for k, v in r_secs.items()} }"
+          f" (walls {t_secs} / {r_secs}); outputs and tokens (greedy and "
+          f"seeded) bit for bit: {bitwise}; launches {got} [{card}]",
+          flush=True)
+    if not all(bitwise.values()):
+        raise AssertionError(f"aot: restored engines differ: {bitwise}")
+    if got != want:
+        raise AssertionError(f"aot: launches {got}, want {want}")
+    res["aot"] = out
+    return restored, extra, traced
+
+
+def _tree_copy(dst):
+    """The port's package alone, without built or cached files: a tree
+    whose ``build/`` is empty."""
+    import shutil
+    shutil.copytree(ROOT / "deeplearning4j_tpu_torch",
+                    dst / "deeplearning4j_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    return dst
+
+
+def routed_cold_part(card, res, built, dev="cuda"):
+    """(b) Cold start: the nvcc seconds of each source, a tinyattn
+    replica's ready seconds over the built tree without an artifact, and
+    from an artifact in a copy of the package whose build directory is
+    empty (it must run no nvcc: its libraries are the artifact's)."""
+    import hashlib
+    import shutil
+    import tempfile
+    from deeplearning4j_tpu_torch.exec.aot import AotBundle
+    from deeplearning4j_tpu_torch.serving import ReplicaProcess
+    from deeplearning4j_tpu_torch.serving.replica import (build_server,
+                                                          warm_server)
+    work = ROUTED_DIR / "cold"
+    work.mkdir(parents=True, exist_ok=True)
+    nvcc = {k: v["seconds"] for k, v in built.items()}
+    rep = ReplicaProcess(str(work), model="tinyattn", name="plain",
+                         device=dev)
+    try:
+        rep.start().wait_ready(timeout=300)
+        plain_s = rep.ready_seconds
+    finally:
+        rep.stop()
+    plain_line = _ready_line(rep)
+    # the tinyattn artifact, made in this process at the replica's
+    # configuration (before any serving thread: it captures)
+    art = ROUTED_DIR / "tinyattn.aot.zip"
+    srv = build_server("tinyattn", device=dev)
+    warm_server(srv, "tinyattn", str(art))
+    bundle = AotBundle.load(art)
+    tree = _tree_copy(Path(tempfile.mkdtemp(prefix="dl4j_tree_")))
+    rep = ReplicaProcess(str(work), model="tinyattn", name="fromaot",
+                         aot=str(art), env={"PYTHONPATH": str(tree)},
+                         device=dev)
+    try:
+        rep.start().wait_ready(timeout=300)
+        aot_s = rep.ready_seconds
+    finally:
+        rep.stop()
+    aot_line = _ready_line(rep)
+    built_dir = tree / "build" / "torch_kernels"
+    files = {p.name: hashlib.sha256(p.read_bytes()).hexdigest()
+             for p in built_dir.glob("*.so")} if built_dir.exists() else {}
+    lib_sha = {m["name"]: m["sha256"] for m in bundle.libraries}
+    shutil.rmtree(tree, ignore_errors=True)
+    out = {"nvcc_seconds": nvcc, "ready_plain_s": plain_s,
+           "ready_aot_s": aot_s, "tree": str(tree),
+           "libraries": sorted(files), "plain_line": plain_line,
+           "aot_line": aot_line}
+    print(f"routed: (b) cold start: nvcc seconds per source "
+          f"{ {k: round(v, 2) for k, v in nvcc.items()} }; tinyattn "
+          f"replica ready in {plain_s:.2f} s over the built tree without "
+          f"an artifact ({plain_line}), {aot_s:.2f} s with --aot from a "
+          f"package copy with an empty build/ ({len(files)} libraries "
+          f"installed from the artifact; {aot_line}) [{card}]", flush=True)
+    if files != lib_sha or len(files) != len(built):
+        raise AssertionError(f"cold: the copy's libraries {files} are not "
+                             f"the artifact's {lib_sha}")
+    if aot_line is None or "nvcc_runs=[]" not in aot_line:
+        raise AssertionError(f"cold: the replica from the artifact built "
+                             f"kernels: {aot_line}")
+    res["cold"] = out
+
+
+def _ready_line(rep):
+    """The last ``REPLICA_READY`` line of a replica's log (its port,
+    nvcc runs, traces, restores and boot seconds), or None."""
+    ran = [ln for ln in Path(rep.log_path).read_text().splitlines()
+           if ln.startswith("REPLICA_READY")]
+    return ran[-1] if ran else None
+
+
+def _restart_inproc(srv):
+    """A new HTTP server over the same (captured) engines on the same
+    port: the in-process replica's restart, which captures nothing."""
+    from deeplearning4j_tpu_torch.resilience.faults import \
+        ServerFaultInjector
+    from deeplearning4j_tpu_torch.serving import InferenceServer
+    srv.stop()
+    new = InferenceServer(srv.model, port=srv.port,
+                          max_batch=ROUTED_MAX_BATCH, engine=srv.engine,
+                          decode_engine=srv.decode_engine,
+                          fault_injector=ServerFaultInjector())
+    return new.start()
+
+
+def routed_tier_part(*args, **kwargs):
+    """(c) A Router over two in-process servers restored in (a) (dense
+    and paged decode) and one subprocess replica from the artifact, under
+    a storm of /predict and /generate: failover under /chaos, a SIGKILL
+    and an --aot restart of the subprocess, a rolling restart, a hedged
+    /predict, a scripted fast 503; parity; K5 / K8 / K9 counted exactly
+    in this process. Every server, process and router it starts is
+    stopped, whether the part passes or not."""
+    live = []
+    try:
+        _routed_tier(live, *args, **kwargs)
+    finally:
+        for obj in reversed(live):
+            obj.stop()
+
+
+def _routed_tier(live, card, res, net, vocab, ids, art, restored, extra,
+                 traced, dev="cuda"):
+    import threading
+    import torch
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.resilience.faults import (
+        ServerFaultInjector, kill_replica)
+    from deeplearning4j_tpu_torch.serving import (InferenceClient,
+                                                  InferenceServer,
+                                                  ReplicaProcess,
+                                                  RetryBudget, Router)
+    from deeplearning4j_tpu_torch.zoo.corpus import corpus_windows
+    eng_a, dense, paged = restored
+    srvs = {"a": InferenceServer(net, port=0, max_batch=ROUTED_MAX_BATCH,
+                                 engine=eng_a, decode_engine=dense,
+                                 fault_injector=ServerFaultInjector()),
+            "b": InferenceServer(net, port=0, max_batch=ROUTED_MAX_BATCH,
+                                 engine=extra, decode_engine=paged,
+                                 fault_injector=ServerFaultInjector())}
+    for s in srvs.values():
+        live.append(s.start())
+    work = ROUTED_DIR / "tier"
+    work.mkdir(parents=True, exist_ok=True)
+    proc = ReplicaProcess(str(work), model="tinytransformer",
+                          slots=ROUTED_SLOTS, max_len=ROUTED_MAXLEN,
+                          aot=str(art), name="tier", device=dev)
+    live.append(proc)
+    proc.start().wait_ready(timeout=300)
+    first_ready = proc.ready_seconds
+    urls = {k: f"http://127.0.0.1:{s.port}" for k, s in srvs.items()}
+    urls["p"] = proc.url
+    # no prefix affinity: repeated prompts would all follow the paged
+    # server's advertised chains, and the dense one must decode too
+    router = Router(list(urls.values()), probe_interval=0.25,
+                    hedge=False, prefix_affinity=False,
+                    retry_budget=RetryBudget(ratio=0.5, initial=20.0,
+                                             cap=50.0)).start()
+    live.append(router)
+    rurl = f"http://127.0.0.1:{router.port}"
+    # the storm's requests and a single engine's answers
+    _, (xte, _), _ = corpus_windows(TINY_T)
+    sizes = (1, 3, 7, 16, 5, 2)
+    xs, off = [], 0
+    for n in sizes:
+        xs.append(np.ascontiguousarray(xte[(np.arange(n) + off)
+                                           % len(xte)]))
+        off += n
+    want_p = [traced[0].predict_host(torch.tensor(x)) for x in xs]
+    prompts = [ids[53 * i + 7:53 * i + 7 + 20 + 3 * i] for i in range(6)]
+    traced[1].start()
+    want_t = _serve(traced[1], prompts, ROUTED_NEW)[0]
+    traced[1].stop()
+    errors, perr, toks = [], [], {i: [] for i in range(len(prompts))}
+    stop = threading.Event()
+    counts = {"predict": 0, "generate": 0}
+
+    def client(k):
+        cli = InferenceClient(rurl, timeout=300)
+        i = k
+        while not stop.is_set():
+            try:
+                if i % 2:
+                    j = (i // 2) % len(xs)
+                    got = cli.predict(xs[j])
+                    perr.append(float(np.max(np.abs(got - want_p[j]))))
+                    counts["predict"] += 1
+                else:
+                    j = (i // 2) % len(prompts)
+                    toks[j].append(cli.generate(prompts[j],
+                                                ROUTED_NEW)["tokens"])
+                    counts["generate"] += 1
+            except Exception as e:  # noqa: BLE001 -- every one is a fault
+                errors.append(f"{type(e).__name__}: {e}")
+            i += 1
+        cli.close()
+    ops.reset_launch_counts()
+    c0 = [eng_a._calls, extra._calls, dense._steps, paged._steps]
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(ROUTED_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    events = {}
+    time.sleep(1.0)
+    st, body, _ = _http(urls["a"], "/chaos", {"fail_next": 12,
+                                              "error_code": 503})
+    events["chaos"] = body
+    time.sleep(1.0)
+    kill_replica(proc.proc)
+    proc.proc.wait(timeout=30)
+    proc._close_log()
+    time.sleep(0.5)
+    proc.start().wait_ready(timeout=300)
+    events["killed_restart_ready_s"] = proc.ready_seconds
+
+    def restarter(url):
+        for k, u in urls.items():
+            if u == url and k in srvs:
+                srvs[k] = _restart_inproc(srvs[k])
+                live.append(srvs[k])
+                return
+        proc.stop()
+        proc.start().wait_ready(timeout=300)
+    t_roll = time.perf_counter()
+    router.rolling_restart(restarter, drain_timeout=60.0,
+                           ready_timeout=300.0)
+    events["rolling_restart_s"] = time.perf_counter() - t_roll
+    events["rolling_ready_s"] = proc.ready_seconds
+    # one hedged /predict: the primaries slow, the hedge fast
+    router.hedge_enabled, router.hedge_delay_ms = True, 20.0
+    for k in ("a", "p"):
+        _http(urls[k], "/chaos", {"latency_ms": 400.0})
+    hedge = None
+    for _ in range(12):
+        cli = InferenceClient(rurl)
+        cli.predict(xs[0])
+        cli.close()
+        rec = [r for r in router.journal.snapshot()["records"]
+               if r.get("hedged") and r.get("outcome") == "hedge_win"]
+        if rec:
+            hedge = rec[-1]
+            break
+    for k in ("a", "p"):
+        _http(urls[k], "/chaos", {"latency_ms": 0.0})
+    router.hedge_enabled = False
+    time.sleep(0.5)
+    stop.set()
+    for t in threads:
+        t.join(timeout=300)
+    storm_s = time.perf_counter() - t0
+    got = {k: v for k, v in ops.launch_counts().items()
+           if k in ("flash_attn_fwd", "flash_decode", "flash_decode_paged")}
+    want = _engine_launches([eng_a, extra], dense, paged, c0)
+    # the scripted fast 503: every replica fails once, no budget left
+    for u in urls.values():
+        _http(u, "/chaos", {"fail_next": 1, "error_code": 500})
+    router.budget = RetryBudget(ratio=0.0, initial=0.0)
+    t1 = time.perf_counter()
+    st503, body503, _ = _http(rurl, "/predict", {"ndarray": _b64(xs[0])})
+    fast_s = time.perf_counter() - t1
+    for u in urls.values():
+        _http(u, "/chaos", {"fail_next": 0})
+    ties = {}
+    for j, p in enumerate(prompts):
+        if toks[j]:
+            ties[j] = _ties(net, [p] * len(toks[j]), toks[j],
+                            [want_t[j]] * len(toks[j]))
+    stats = router.stats()
+    from deeplearning4j_tpu_torch.monitor import get_registry
+    fam = get_registry().get("dl4jtpu_router_requests_total")
+    outcomes = {f"{k[1]}:{k[2]}": c.value for k, c in fam.children()
+                if k[0] == router.id and c.value}
+    out = {"first_ready_s": first_ready, "events": events,
+           "storm_s": storm_s, "requests": counts, "errors": errors,
+           "predict_max_err": max(perr) if perr else None,
+           "ties": ties, "hedge": hedge, "launches": got,
+           "launches_want": want, "fast_503": {
+               "status": st503, "seconds": fast_s,
+               "type": (body503.get("error", {}).get("type")
+                        if isinstance(body503, dict) else body503)},
+           "outcomes": outcomes,
+           "replicas": {u: s["state"] for u, s in
+                        stats["replicas"].items()}}
+    print(f"routed: (c) storm of {counts} through the router over 2 "
+          f"in-process servers and a subprocess replica ({storm_s:.1f} s; "
+          f"replica ready {first_ready:.2f} s, after SIGKILL "
+          f"{events['killed_restart_ready_s']:.2f} s, in the rolling "
+          f"restart {events['rolling_ready_s']:.2f} s; rolling restart "
+          f"{events['rolling_restart_s']:.1f} s); router outcomes "
+          f"{outcomes}; /predict max |err| {out['predict_max_err']} "
+          f"against one engine; greedy near-ties {ties}; hedge "
+          f"{None if hedge is None else hedge['hedge_winner']}; scripted "
+          f"fast {st503} {out['fast_503']['type']} in {fast_s * 1e3:.1f} "
+          f"ms; client errors {errors}; launches {got} (want {want}) "
+          f"[{card}]", flush=True)
+    if errors:
+        raise AssertionError(f"tier: client-visible errors {errors[:5]}")
+    if not perr or max(perr) > PROB_TOL or not all(toks.values()):
+        raise AssertionError(f"tier: parity {out['predict_max_err']}, "
+                             f"{ {j: len(v) for j, v in toks.items()} }")
+    if hedge is None:
+        raise AssertionError("tier: no hedged /predict won")
+    if (st503, out["fast_503"]["type"]) != (503, "retry_budget_exhausted") \
+            or fast_s > 2.0:
+        raise AssertionError(f"tier: scripted 503 {out['fast_503']}")
+    if outcomes.get("/predict:failed_over", 0) + outcomes.get(
+            "/generate:failed_over", 0) == 0:
+        raise AssertionError(f"tier: nothing failed over: {outcomes}")
+    if got != want or (dev == "cuda" and not all(got.get(k) for k in (
+            "flash_attn_fwd", "flash_decode", "flash_decode_paged"))):
+        raise AssertionError(f"tier: launches {got}, want {want}")
+    res["tier"] = out
+
+
+def _b64(x):
+    from deeplearning4j_tpu_torch.serving.wire import ndarray_to_b64
+    return ndarray_to_b64(np.asarray(x))
+
+
+def routed_scale_part(card, res, art, dev="cuda"):
+    """(d) Scale from zero: a request held by the router wakes the
+    autoscaler, a replica comes up from the artifact and serves it; then
+    idle, the fleet drains back to zero."""
+    from deeplearning4j_tpu_torch.serving import (Autoscaler,
+                                                  InferenceClient,
+                                                  ReplicaProcess, Router)
+    work = ROUTED_DIR / "scale"
+    work.mkdir(parents=True, exist_ok=True)
+    handles = []
+
+    def spawn():
+        h = ReplicaProcess(str(work), model="tinytransformer",
+                           slots=ROUTED_SLOTS, max_len=ROUTED_MAXLEN,
+                           aot=str(art), name=f"auto{len(handles)}",
+                           device=dev)
+        handles.append(h)
+        return h
+    router = Router([], probe_interval=0.25, hold_for_capacity_s=300.0)
+    scaler = Autoscaler(router, spawn, min_replicas=0, max_replicas=1,
+                        idle_grace_s=2.0, cooldown_s=0.0, interval_s=0.2,
+                        ready_timeout_s=300.0)
+    router.wake_hook = scaler.wake
+    router.start()
+    scaler.start()
+    try:
+        cli = InferenceClient(f"http://127.0.0.1:{router.port}",
+                              timeout=600)
+        t0 = time.perf_counter()
+        toks = cli.generate([1, 2, 3, 4, 5], 8)["tokens"]
+        held = time.perf_counter() - t0
+        cli.close()
+        up = scaler.replica_count
+        t1 = time.perf_counter()
+        while scaler.replica_count and time.perf_counter() - t1 < 60:
+            time.sleep(0.1)
+        down = scaler.replica_count
+
+        def exited():
+            return all(h.proc is not None and h.proc.poll() is not None
+                       for h in handles)
+        while not exited() and time.perf_counter() - t1 < 90:
+            time.sleep(0.1)
+        drained = time.perf_counter() - t1
+        exited = exited()
+    finally:
+        scaler.stop()
+        router.stop()
+        for h in handles:
+            h.stop()
+    out = {"held_s": held, "ready_s": handles[0].ready_seconds,
+           "tokens": len(toks), "up": up, "down": down,
+           "drain_s": drained, "exited": exited}
+    print(f"routed: (d) scale from zero: the held /generate answered "
+          f"{len(toks)} tokens in {held:.2f} s (replica ready "
+          f"{out['ready_s']:.2f} s from the artifact); replicas {up} -> "
+          f"{down} after {drained:.1f} s idle, process exited {exited} "
+          f"[{card}]", flush=True)
+    if len(toks) != 8 or up != 1 or down != 0 or not exited:
+        raise AssertionError(f"scale: {out}")
+    res["scale"] = out
+
+
+def routed_phase(card, built, dev="cuda"):
+    """Phase 17: the routed tier from an AOT artifact (``chip_smoke.py``
+    docstring)."""
+    import shutil
+    from deeplearning4j_tpu_torch.zoo import TinyTransformer
+    from deeplearning4j_tpu_torch.zoo.corpus import corpus_ids
+    t0 = time.perf_counter()
+    shutil.rmtree(ROUTED_DIR, ignore_errors=True)
+    ROUTED_DIR.mkdir(parents=True)
+    ids, vocab = corpus_ids()
+    ids = [int(t) for t in ids]
+    V = len(vocab)
+    res = {"card": card}
+    net = TinyTransformer(vocab_size=V).init(device=dev)
+    art = ROUTED_DIR / "tinytransformer.aot.zip"
+    restored, extra, traced = routed_aot_part(card, res, net, V, ids, art,
+                                              dev)
+    routed_cold_part(card, res, built, dev)
+    routed_tier_part(card, res, net, V, ids, art, restored, extra, traced,
+                     dev)
+    routed_scale_part(card, res, art, dev)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"routed: phase 17 took {res['seconds']:.1f} s [{card}]",
+          flush=True)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6928,6 +7503,7 @@ def main() -> int:
     kv_tier = kv_tier_phase(card)
     precision = serving_precision_phase(card)
     obs = observability_phase(card)
+    routed = routed_phase(card, built)
 
     # each kernel at its main path's shape, with the launches of the run
     # that drove it: /predict of the 15 held-out windows (bucket 16, T=64)
@@ -6975,7 +7551,8 @@ def main() -> int:
                + tiny["launches_mixed"]["flash_attn_fwd"],
                "phase 14": counted_launches(kv_tier, "flash_attn_fwd"),
                "phase 15": counted_launches(precision, "flash_attn_fwd"),
-               "phase 16": counted_launches(obs, "flash_attn_fwd")}
+               "phase 16": counted_launches(obs, "flash_attn_fwd"),
+               "phase 17": counted_launches(routed, "flash_attn_fwd")}
     entry("flash_attn_fwd", row, sum(by_path.values()))
     entries[-1]["launches_by_path"] = by_path
     # the recipe's train steps (B=32, T=64) run K6 and K7 at BH 128, causal
@@ -6999,7 +7576,8 @@ def main() -> int:
                    "phase 14": counted_launches(kv_tier, kernel),
                    "phase 15 (float32 caches)":
                    counted_launches(precision, kernel) - bf16_launches,
-                   "phase 16": counted_launches(obs, kernel)}
+                   "phase 16": counted_launches(obs, kernel),
+                   "phase 17": counted_launches(routed, kernel)}
         entry(kernel, row, sum(by_path.values()))
         entries[-1]["launches_by_path"] = by_path
         # the same shape over a bfloat16 cache (F8): that instantiation's
@@ -7043,7 +7621,7 @@ def main() -> int:
          "regularised": regularised, "fit_contract": fit_contract,
          "serving_features": serving, "cnn": cnn, "inception": inception,
          "kv_tier": kv_tier, "precision": precision, "observability": obs,
-         "kernels": entries},
+         "routed": routed, "kernels": entries},
         indent=1))
     print(json.dumps({"kernels": entries}))
     print(card)

@@ -29,7 +29,12 @@ every program registers its cost (``exec.programs``, ``GET
 /trace``), ``torch.profiler`` sessions (``POST /admin/profile``,
 ``DL4JTPU_PROFILE``), burn-rate SLOs, fleet collection, and the training
 flight recorder, whose telemetry is computed inside the captured train
-step (``monitor.flight``, ``GET /train/diagnostics``).
+step (``monitor.flight``, ``GET /train/diagnostics``). Above the servers
+sits the JAX package's replicated tier (``serving.router``,
+``serving.replica``, ``serving.autoscale``, on ``resilience.retry`` and
+``resilience.faults``), and replicas start from AOT artifacts
+(``exec.aot``): the built kernel libraries and each captured program's
+recipe.
 """
 
 __version__ = "0.1.0"

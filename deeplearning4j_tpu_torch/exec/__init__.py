@@ -7,3 +7,6 @@ from deeplearning4j_tpu_torch.exec.executor import (  # noqa: F401
     StepGraphs, get_executor, set_executor)
 from deeplearning4j_tpu_torch.exec.programs import (  # noqa: F401
     ProgramRegistry, get_programs, is_registering)
+from deeplearning4j_tpu_torch.exec.aot import (  # noqa: F401
+    MISS_REASONS, AotBundle, companion_path, install_kernels,
+    model_signature, open_bundle)

@@ -378,7 +378,16 @@ class ResidentProgram:
     every call eagerly (the eager seam a measurement compares with). With
     ``caller`` set, the first call of each signature registers the program
     as ``(caller, key_of(staged))`` (default key: ``name``) with its cost,
-    and a capture updates the record."""
+    and a capture updates the record.
+
+    ``expect(staged, recipe)`` hands the program an AOT artifact's recipe
+    (exec/aot.py) for the signature of ``staged``: its first call is then
+    a restore, not a trace. It skips the cost pass, runs the warm-up and
+    the capture (on the card; eagerly elsewhere), does not call
+    ``on_program``, and registers the recipe's record; the
+    launches it made and its staged layout must equal the recipe's, else
+    the restore is dropped as a ``corrupt`` miss (``rejected``) and the
+    signature is traced. ``restores`` counts the restored signatures."""
 
     def __init__(self, executor: Executor, fn: Callable, name: str,
                  capture: bool = True, on_program: Optional[Callable] = None,
@@ -391,8 +400,22 @@ class ResidentProgram:
         self.signatures = set()
         self.programs = 0
         self.captures = 0
+        self.restores = 0
+        self.rejected = 0
         self.sealed = False
         self._resident = None
+        self._recipes: Dict[Any, dict] = {}
+        self.layouts: Dict[str, str] = {}     # registry key -> layout
+
+    def expect(self, staged, recipe: Optional[dict]) -> None:
+        """Build the signature of ``staged`` from ``recipe`` when first
+        met (class docstring); None: nothing to restore."""
+        if recipe is not None:
+            self._recipes[signature(tuple(staged))] = recipe
+
+    def knows(self, staged) -> bool:
+        """Whether the signature of ``staged`` was met already."""
+        return signature(tuple(staged)) in self.signatures
 
     def seal(self) -> None:
         """Refuse any signature not seen yet (no capture from now on)."""
@@ -425,6 +448,7 @@ class ResidentProgram:
         met while no capture may happen)."""
         device = self._device(resident)
         key = signature(staged)
+        recipe = None
         if key not in self.signatures:
             if self.sealed:
                 raise RuntimeError(
@@ -432,7 +456,8 @@ class ResidentProgram:
                     "warmup (no capture may happen while serving)")
             self.signatures.add(key)
             self.programs += 1
-            if self.on_program is not None:
+            recipe = self._recipes.pop(key, None)
+            if recipe is None and self.on_program is not None:
                 self.on_program()
             new = True
         else:
@@ -440,8 +465,17 @@ class ResidentProgram:
         graph = self.graphs.get(key)
         if graph is not None:
             return graph(*staged)
+        layout = None
+        if new and self.caller is not None:
+            from deeplearning4j_tpu_torch.exec.aot import layout_signature
+            layout = layout_signature(_leaves(staged, []))
+            self.layouts[self.name if self.key_of is None
+                         else self.key_of(staged)] = layout
         staged = _rebuild(staged, iter(
             [t.to(device, non_blocking=True) for t in _leaves(staged, [])]))
+        if recipe is not None:
+            return self._restore(key, resident, staged, device, recipe,
+                                 layout, eager)
         if device.type != "cuda" or not self.capture or eager:
             if not (new and self.caller is not None):
                 return self.fn(resident, *staged)
@@ -460,6 +494,48 @@ class ResidentProgram:
                        cost.seconds + time.perf_counter() - t0)
         return out
 
+    def _restore(self, key, resident, staged, device, recipe, layout, eager):
+        """Build signature ``key`` from ``recipe``: no cost pass; the
+        warm-up and the capture where a trace would capture, else one
+        eager call; checked against the recipe's launches and layout."""
+        from deeplearning4j_tpu_torch.exec import aot
+        t0 = time.perf_counter()
+        graph = None
+        if device.type != "cuda" or not self.capture or eager:
+            before = ops.launch_counts()
+            out = self.fn(resident, *staged)
+            after = ops.launch_counts()
+            launches = {k: n - before.get(k, 0) for k, n in after.items()
+                        if n != before.get(k, 0)}
+        else:
+            out = self.executor.warm_up(lambda: self.fn(resident, *staged),
+                                        device)
+            graph = self.executor.capture(
+                lambda *s: self.fn(resident, *s), staged, device)
+            self.captures += 1
+            launches = graph.launches
+        seconds = time.perf_counter() - t0
+        if (launches != recipe.get("launches")
+                or (layout is not None and layout != recipe.get("layout"))):
+            # drift the envelope could not catch: drop it and trace
+            aot.note_miss("corrupt")
+            self.rejected += 1
+            self.signatures.discard(key)
+            self.programs -= 1
+            return self(resident, *staged, eager=eager)
+        if graph is not None:
+            self.graphs[key] = graph
+        self.restores += 1
+        if self.caller is not None:
+            aot.note_restore(self.caller, seconds)
+            rkey = self.name if self.key_of is None else self.key_of(staged)
+            get_programs().record(
+                self.caller, rkey, compile_seconds=seconds, fields=recipe,
+                memory_bytes=None if graph is None else graph_pool_bytes(
+                    graph.graph),
+                launches=launches, replace=True)
+        return out
+
     def _register(self, staged, cost, graph=None, seconds=None):
         if self.caller is None:
             return
@@ -470,6 +546,16 @@ class ResidentProgram:
                 graph.graph),
             launches=None if graph is None else graph.launches,
             replace=graph is not None)
+
+    def recipes(self) -> Dict[str, dict]:
+        """Registry key -> ``(record, layout)`` of every signature this
+        program registered: what an AOT artifact stores as its recipe."""
+        out = {}
+        for rkey, layout in self.layouts.items():
+            rec = get_programs().get(self.caller, rkey)
+            if rec is not None:
+                out[rkey] = (rec, layout)
+        return out
 
 
 class Layout:

@@ -25,6 +25,11 @@ warm-up call that precedes each capture (``Cost``):
 - ``launches``: the hand-kernel launches one call adds (a replay adds its
   capture's), kernel -> count.
 
+A program restored from an AOT artifact (exec/aot.py) registers the
+artifact's ``flops``, ``bytes``, ``kernel_flops`` and ``kernel_bytes``
+(``fields``) instead of a ``Cost`` over its warm-up, with its own
+capture's ``memory_bytes``, ``launches`` and ``compile_seconds``.
+
 Registering adds no capture, no replay and no call: the warm-up was going
 to run anyway. The ``dl4jtpu_program_{flops,bytes,memory_bytes,
 compile_seconds}`` gauges, labelled ``{caller, key}``, carry the numbers
@@ -184,30 +189,41 @@ class ProgramRegistry:
     def record(self, caller: str, key: str, fn=None, args=(),
                compile_seconds: Optional[float] = None, *,
                cost: Optional[Cost] = None, memory_bytes=None,
-               launches=None, replace: bool = False) -> Optional[dict]:
+               launches=None, replace: bool = False,
+               fields: Optional[dict] = None) -> Optional[dict]:
         """Register program ``(caller, key)`` with ``cost`` (a ``Cost``
-        taken over its warm-up); without one, ``fn(*args)`` is run once
-        under a ``Cost`` (for side-effect-free functions only). A known
-        key is not registered again (the existing record is returned)
-        unless ``replace``: a capture's record replaces the eager one."""
+        taken over its warm-up), or with ``fields`` (a restored program's
+        recorded ``flops``, ``bytes``, ``kernel_flops``, ``kernel_bytes``;
+        ``launches`` and ``compile_seconds`` then given); with neither,
+        ``fn(*args)`` is run once under a ``Cost`` (for side-effect-free
+        functions only). A known key is not registered again (the existing
+        record is returned) unless ``replace``: a capture's record
+        replaces the eager one."""
         caller, key = str(caller), str(key)
         with self._lock:
             existing = self._programs.get((caller, key))
         if existing is not None and not replace:
             return existing
-        if cost is None:
-            if fn is None:
-                return None
-            with _Registering(), Cost() as cost:
-                fn(*args)
+        if fields is not None:
+            measured = {f: fields[f] for f in
+                        ("flops", "bytes", "kernel_flops", "kernel_bytes")}
+        else:
+            if cost is None:
+                if fn is None:
+                    return None
+                with _Registering(), Cost() as cost:
+                    fn(*args)
+            measured = cost.fields()
+            if compile_seconds is None:
+                compile_seconds = cost.seconds
+            if launches is None:
+                launches = cost.launches
         record = {
             "caller": caller, "key": key,
-            **cost.fields(),
+            **measured,
             "memory_bytes": memory_bytes,
-            "compile_seconds": (compile_seconds if compile_seconds is not None
-                                else cost.seconds),
-            "launches": dict(cost.launches if launches is None
-                             else launches),
+            "compile_seconds": compile_seconds,
+            "launches": dict(launches or {}),
         }
         with self._lock:
             if replace:

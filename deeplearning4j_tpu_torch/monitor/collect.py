@@ -1,9 +1,6 @@
 """Fleet trace collection: N ring buffers -> ONE Perfetto document.
 
-Counterpart of deeplearning4j_tpu/monitor/collect.py. The port has no
-router yet, so the collectors pull from plain servers: ``router_url`` is
-any server answering ``/trace`` (its ``/stats`` names no replicas) and
-``extra_urls`` adds the others.
+Counterpart of deeplearning4j_tpu/monitor/collect.py.
 
 Every process in the serving tier exposes its tracer's ring buffer at
 ``GET /trace`` (router and replicas alike). Because all tracers anchor
@@ -17,7 +14,9 @@ metadata events each export carries.
 The collector discovers replicas from the router's ``/stats`` (the
 ``replicas`` table is keyed by upstream URL), pulls every ``/trace``,
 rebases timestamps to the earliest event (Perfetto prefers small ts),
-and writes a single Chrome trace-event JSON.
+and writes a single Chrome trace-event JSON. ``router_url`` may also be
+a plain server (its ``/stats`` names no replicas); ``extra_urls`` adds
+processes the router does not front.
 """
 
 from __future__ import annotations

@@ -7,6 +7,16 @@ and loaded with ``ctypes``. Each entry point returns an int error code
 (0, a ``cudaError_t``, or a negative code of its own that the library's
 error function turns into text). Nothing here runs when the package is
 imported: the CPU tests import every module and have no ``nvcc``.
+
+The built libraries travel in AOT artifacts (exec/aot.py):
+``export_libraries`` hands each one over with its digest name, sha256 and
+the ``nvcc --version`` line, and ``install_libraries`` writes artifact
+members into ``BUILD_DIR`` (sha256 checked, only under a name the current
+sources give, by temp file, fsync and rename), after which
+``build_kernels`` finds them and starts no ``nvcc``. Both writers are
+atomic, so replicas starting at once on an empty build directory may
+build or install side by side. ``nvcc_runs()`` counts the ``nvcc``
+processes this process started.
 """
 
 from __future__ import annotations
@@ -19,7 +29,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -34,6 +44,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LIBS_LOCK = threading.Lock()
+_NVCC_RUNS: List[str] = []      # the sources this process ran nvcc for
 
 
 def _nvcc() -> str:
@@ -71,6 +82,7 @@ def build_kernels() -> Dict[str, dict]:
             continue
         tmp = out.with_suffix(f".tmp{os.getpid()}.so")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / src)]
+        _NVCC_RUNS.append(src)
         procs[stem] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out, time.perf_counter())
@@ -86,6 +98,79 @@ def build_kernels() -> Dict[str, dict]:
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return info
+
+
+def nvcc_runs() -> List[str]:
+    """The sources this process started ``nvcc`` for, in order."""
+    return list(_NVCC_RUNS)
+
+
+def nvcc_version() -> str:
+    """The last line of ``nvcc --version`` (its build), or "" without
+    ``nvcc``."""
+    try:
+        out = subprocess.run([_nvcc(), "--version"], capture_output=True,
+                             text=True, timeout=60).stdout
+    except (RuntimeError, OSError, subprocess.SubprocessError):
+        return ""
+    lines = [ln.strip() for ln in out.splitlines() if ln.strip()]
+    return lines[-1] if lines else ""
+
+
+def current_names() -> Dict[str, str]:
+    """Library file name -> source stem, for the current sources."""
+    return {_lib_path(src).name: Path(src).stem for src in SOURCES}
+
+
+def export_libraries() -> List[dict]:
+    """Every current library already built, as artifact members:
+    ``{"name", "stem", "sha256", "nvcc", "data"}`` (the name is the
+    digest name ``_lib_path`` gives, so a source edit makes it a
+    stranger; ``nvcc`` is ``nvcc_version()``)."""
+    out, nvcc = [], None
+    for name, stem in sorted(current_names().items()):
+        path = BUILD_DIR / name
+        if path.exists():
+            if nvcc is None:
+                nvcc = nvcc_version()
+            data = path.read_bytes()
+            out.append({"name": name, "stem": stem,
+                        "sha256": hashlib.sha256(data).hexdigest(),
+                        "nvcc": nvcc, "data": data})
+    return out
+
+
+def install_libraries(members: Sequence[dict]) -> dict:
+    """Write artifact members into ``BUILD_DIR``. A member is installed
+    only when its bytes' sha256 equals the one it declares and its name is
+    one the current sources give; any other is refused and counted as an
+    AOT miss (``corrupt`` for the digest, ``key`` for the name), and its
+    source builds as before. A library already in place is left as it is.
+    Returns ``{"installed", "present", "refused"}`` (names; refused as
+    ``(name, reason)``)."""
+    from deeplearning4j_tpu_torch.exec.aot import note_miss, write_atomic
+    names = current_names()
+    report = {"installed": [], "present": [], "refused": []}
+    for m in members:
+        name = os.path.basename(str(m.get("name", "")))
+        data = m.get("data") or b""
+        if name not in names or name != m.get("name"):
+            reason = "key"
+        elif hashlib.sha256(data).hexdigest() != m.get("sha256"):
+            reason = "corrupt"
+        else:
+            reason = None
+        if reason is not None:
+            note_miss(reason)
+            report["refused"].append((m.get("name"), reason))
+            continue
+        path = BUILD_DIR / name
+        if path.exists():
+            report["present"].append(name)
+            continue
+        write_atomic(path, data)
+        report["installed"].append(name)
+    return report
 
 
 def load(stem: str, entries: Dict[str, Sequence], error_fn: str

@@ -23,9 +23,9 @@ recent window.
 ``fit_scan`` the iteration counter advances in chunk-sized jumps and a
 modulo test can skip its own cadence forever.
 
-Not ported yet: the AOT companion artifact (``exec/aot.py``), which the
-JAX manager rotates with its checkpoint and ``latest_aot`` returns; here
-rotation removes the zip alone and ``latest_aot`` raises. A normalizer
+A checkpoint's AOT companion artifact (``<checkpoint>.aot.zip``,
+``exec/aot.py``) rotates with it, and ``latest_aot`` returns the latest
+checkpoint's. A normalizer
 (``data/normalizers.py``) given to the manager's ``save`` or to the
 listener is written into each zip (``normalizer.json``).
 """
@@ -189,6 +189,14 @@ class CheckpointManager:
                 os.unlink(victim.path(self.directory))
             except OSError:
                 pass
+            # the AOT artifact rides its checkpoint: rotate them together
+            try:
+                from deeplearning4j_tpu_torch.exec.aot import companion_path
+                aot = companion_path(victim.path(self.directory))
+                if os.path.exists(aot):
+                    os.unlink(aot)
+            except Exception:   # noqa: BLE001 -- rotation must not raise
+                pass
 
     def pin(self, iteration: int) -> Checkpoint:
         """Pin the checkpoint saved at ``iteration`` after the fact so it is
@@ -263,11 +271,15 @@ class CheckpointManager:
         return best.path(self.directory)
 
     def latest_aot(self) -> Optional[str]:
-        """The AOT artifact riding the latest checkpoint: not ported (it
-        waits for ``exec/aot.py``, ROADMAP queue 1 item 6)."""
-        raise NotImplementedError(
-            "AOT artifacts (exec/aot.py) are not ported to the PyTorch "
-            "package yet (ROADMAP queue 1 item 6)")
+        """The AOT artifact riding the latest checkpoint
+        (``<checkpoint>.aot.zip``, exec/aot.py), or None when absent: what
+        an autoscaler hands to ``ReplicaProcess(aot=...)``."""
+        path = self.latest()
+        if path is None:
+            return None
+        from deeplearning4j_tpu_torch.exec.aot import companion_path
+        aot = companion_path(path)
+        return aot if os.path.exists(aot) else None
 
 
 def latest_checkpoint(directory) -> Optional[str]:

@@ -177,12 +177,6 @@ _SPEC_COUNTERS = {
 }
 
 
-def _unsupported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}: not ported to the PyTorch package yet (ROADMAP queue 1 "
-        "item 6)")
-
-
 class _Request:
     """Host-side bookkeeping for one occupied slot."""
 
@@ -500,7 +494,11 @@ class DecodeEngine:
 
     @property
     def trace_count(self) -> int:
-        """Programs of the plain step (one per engine)."""
+        """Traced programs of the plain step (one per engine): built from
+        scratch, cost pass included. A program built from an AOT
+        artifact's recipe is a restore (``aot_restores``) and does not
+        count here; both capture on the card, which ``program_stats()``'s
+        ``captures`` and the registry's ``compile_seconds`` show."""
         return int(self._m_compiled.value)
 
     @property
@@ -647,14 +645,66 @@ class DecodeEngine:
         idle rows park (rewritten before any read); the state found is put
         back, so it is left bit for bit as it was. Then the programs are
         sealed: the loop thread never captures. Returns
-        ``warmup_seconds``. ``aot`` (the JAX package's artifacts) is not
-        ported."""
-        if aot is not None:
-            raise _unsupported(f"DecodeEngine.warmup(aot={aot!r})")
+        ``warmup_seconds``.
+
+        ``aot``: an AOT artifact's path (exec/aot.py). Every program whose
+        recipe the artifact holds under the JAX package's key
+        (``_aot_key``) is restored (no cost pass, no count in
+        ``trace_count`` or the KV program counter); its inert call doubles
+        as its validation. On the card the artifact's kernel libraries are
+        installed first. A restored program whose capture does not
+        reproduce its recipe drops the engine back to traced programs
+        wholesale (a ``corrupt`` miss). Any miss traces as without
+        ``aot`` and merges the traced programs' recipes (and, on the
+        card, the kernel libraries) into the artifact."""
         self._ensure_state()
         if self._thread is not None and self._thread.is_alive():
             return self.warmup_seconds    # the loop thread owns the state
+        bundle = None
+        if aot is not None:
+            from deeplearning4j_tpu_torch.exec import aot as aot_mod
+            sig = aot_mod.model_signature(self._weights_set.params,
+                                          self._weights_set.state)
+            bundle, _ = aot_mod.open_bundle(aot, sig, self.precision,
+                                            self.device)
+            if bundle is None:
+                bundle = aot_mod.AotBundle(
+                    sig, self.precision,
+                    env=aot_mod.env_fingerprint(self.device))
+            elif self.device.type == "cuda":
+                bundle.install_libraries()
         self._build_programs()
+        if bundle is not None:
+            for kind, prog in self._programs.items():
+                if prog.programs == 0:
+                    prog.expect(self._staged(kind),
+                                bundle.recipe(self._aot_key(kind)))
+        self._warmup_run()
+        if bundle is None:
+            return self.warmup_seconds
+        progs = self._programs
+        if any(p.rejected for p in progs.values()) and any(
+                p.restores for p in progs.values()):
+            # a restored program failed its validation: every program
+            # traced anew (the rejected one was counted as corrupt)
+            self._programs = {}
+            self._build_programs()
+            self._warmup_run()
+            progs = self._programs
+        traced = [k for k, p in progs.items() if not p.restores]
+        if traced:
+            for kind in traced:
+                for rec, layout in progs[kind].recipes().values():
+                    bundle.add_recipe(self._aot_key(kind), rec, layout)
+            if self.device.type == "cuda" and not bundle.libraries:
+                from deeplearning4j_tpu_torch.ops import build
+                bundle.add_libraries(build.export_libraries())
+            bundle.save(aot)
+        return self.warmup_seconds
+
+    def _warmup_run(self) -> float:
+        """The inert call of every program, the state put back, the
+        programs sealed (``warmup``)."""
         t0 = time.perf_counter()
         keep = [self._dstate]
         if self._draft is not None:
@@ -681,9 +731,46 @@ class DecodeEngine:
         self.warmup_seconds = time.perf_counter() - t0
         return self.warmup_seconds
 
+    # ---------------------------------------------------------------- AOT
+    def _staged(self, kind) -> tuple:
+        """What program ``kind`` is called with besides its resident
+        tensors: its one staged buffer."""
+        if kind == "draft":
+            return (self._draft._stage.tensor,)
+        if kind == "verify":
+            return (self._verifier._stage.tensor,)
+        return (self._stages[kind].tensor,)
+
+    def _aot_key(self, kind: str) -> str:
+        """Artifact key of one program, the JAX package's string: every
+        shape-determining knob is in it, so a configuration change is a
+        key miss (a trace), never a stale restore."""
+        parts = [f"decode:{kind}", f"S{self.slots}", f"L{self.max_len}",
+                 f"kv={self.kv}"]
+        if self.kv == "paged":
+            parts.append(f"bs{self.kv_block_size}"
+                         f":nb{self._pool.num_blocks}")
+        if kind == "prefill":
+            parts.append(f"c{self.chunk_tokens}")
+        if kind in ("draft", "verify"):
+            parts.append(
+                "t" + ",".join(str(k) for k in self._spec_tree.kvec))
+        if kind == "draft":
+            from deeplearning4j_tpu_torch.exec.aot import model_signature
+            parts.append(model_signature(
+                self._draft.params, self._draft.model.state)[:12])
+        return ":".join(parts)
+
+    @property
+    def aot_restores(self) -> int:
+        """Programs restored from an AOT artifact (``warmup(aot=)``)."""
+        return sum(p.restores for p in self._programs.values())
+
     def start(self) -> "DecodeEngine":
         if self._thread is None or not self._thread.is_alive():
-            self.warmup()
+            if not self._programs or not all(
+                    p.sealed for p in self._programs.values()):
+                self.warmup()
             self._stop.clear()
             self._thread = threading.Thread(target=self._loop, daemon=True)
             self._thread.start()

@@ -38,6 +38,10 @@ input row alone, so padding does not change the answer. Batches above
   capture happens while serving. ``trace_count`` counts the programs
   (signatures), ``captures`` the graphs. Off the card every signature runs
   eagerly and counts the same way.
+- AOT artifacts (exec/aot.py): ``warmup(aot=path)`` restores each rung
+  whose recipe the artifact holds under the JAX package's key
+  (``_aot_key``) -- counted in ``aot_restores``, not ``trace_count`` --
+  and traces and saves the rest.
 - ``predict_stream`` overlaps the next dispatch with the read of the last
   one: each result is copied to pinned host memory on the executor's copy
   stream behind an event.
@@ -424,6 +428,9 @@ class InferenceEngine:
         self._in_warmup = False
         self._buckets = set()
         self._calls = 0
+        # AOT-restored rungs: (bucket, masked) -> artifact key
+        # (``warmup(aot=...)``); restores never touch trace_count
+        self._aot: dict = {}
         self.id = f"engine{next(InferenceEngine._ids)}"
         reg = get_registry()
         lab = {"engine": self.id}
@@ -472,9 +479,18 @@ class InferenceEngine:
     # --------------------------------------------------------------- weights
     @property
     def trace_count(self) -> int:
-        """Programs: the signatures this engine has run (the registry
-        counter ``/metrics`` reads)."""
+        """Traced programs: the signatures this engine built from scratch,
+        cost pass included (the registry counter ``/metrics`` reads). A
+        program built from an AOT artifact's recipe is a restore
+        (``aot_restores``) and does not count here; both capture on the
+        card, which ``captures`` and the registry's ``compile_seconds``
+        show."""
         return int(self._m_compiled.value)
+
+    @property
+    def aot_restores(self) -> int:
+        """Programs restored from an AOT artifact (``warmup(aot=)``)."""
+        return self._program.restores
 
     @property
     def captures(self) -> int:
@@ -685,6 +701,18 @@ class InferenceEngine:
             yield read(pending.popleft())
 
     # -------------------------------------------------------------- warmup
+    def _aot_key(self, b: int, shapes, dtype,
+                 mask_len: Optional[int] = None) -> str:
+        """Artifact key of one ladder rung, the JAX package's string:
+        bucket, per-example shapes, dtype (and the mask length of the
+        masked variant)."""
+        s = ";".join("x".join(str(d) for d in tuple(shp)) for shp in shapes)
+        kind = "graph" if self._is_graph else "mln"
+        name = (str(dtype).replace("torch.", "")
+                if isinstance(dtype, torch.dtype) else np.dtype(dtype).name)
+        key = f"engine:{kind}:b{b}:{s}:{name}"
+        return key if mask_len is None else f"{key}:mask{mask_len}"
+
     def warmup(self, example_shape, dtype=np.float32, max_batch=None,
                with_mask_len: Optional[int] = None,
                aot: Optional[str] = None):
@@ -698,12 +726,16 @@ class InferenceEngine:
         dispatch's excess over the second: the capture; the second) and
         ``warmup_seconds``; warmup traffic stays out of the size
         histogram. Returns the rungs run. Call it while no other thread
-        runs CUDA work (a capture is global). ``aot`` (the JAX package's
-        artifacts) is not ported."""
-        if aot is not None:
-            raise NotImplementedError(
-                f"InferenceEngine.warmup(aot={aot!r}): not ported to the "
-                "PyTorch package yet (ROADMAP queue 1 item 6)")
+        runs CUDA work (a capture is global).
+
+        ``aot``: an AOT artifact's path (exec/aot.py). A rung whose recipe
+        is there is restored (``_aot`` keeps its key): no cost pass, no
+        count in ``trace_count``; on the card its kernel libraries are
+        installed first. Any miss -- no file, another envelope or model,
+        an unknown rung, a recipe whose launches or layout its capture
+        does not reproduce -- traces the rung as without ``aot`` and
+        merges its recipe (and, on the card, the kernel libraries) into
+        the artifact."""
         shapes = (example_shape if isinstance(example_shape, list)
                   else [example_shape])
         if len(shapes) != 1:
@@ -715,10 +747,38 @@ class InferenceEngine:
                               or bucket_ladder(cap, self.min_bucket))
                   if b <= cap]
         dev, dt = self.model.device, _torch_dtype(dtype)
+        bundle = None
+        traced = {}                   # registry key -> artifact key
+        if aot is not None:
+            from deeplearning4j_tpu_torch.exec import aot as aot_mod
+            sig = aot_mod.model_signature(*self._weights())
+            bundle, _ = aot_mod.open_bundle(aot, sig, self.precision, dev)
+            if bundle is None:
+                bundle = aot_mod.AotBundle(
+                    sig, self.precision, env=aot_mod.env_fingerprint(dev))
+            elif dev.type == "cuda":
+                bundle.install_libraries()
 
         def sync():
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
+
+        def run(staged, key, rkey, slot):
+            """Dispatch ``staged`` once, from the artifact's recipe when
+            the rung is new to the program and the recipe is there."""
+            if bundle is not None and not self._program.knows(staged):
+                self._program.expect(staged, bundle.recipe(key))
+                restores = self._program.restores
+                self._dispatch(*staged)
+                if self._program.restores > restores:
+                    self._aot[slot] = key
+                else:
+                    traced[rkey] = key
+            else:
+                self._dispatch(*staged)
+                if bundle is not None and slot not in self._aot:
+                    traced[rkey] = key      # met before: saved as traced
+            sync()
         t0 = time.perf_counter()
         with self._lock:
             self._own_weights()
@@ -727,8 +787,8 @@ class InferenceEngine:
                 for b in ladder:
                     zeros = torch.zeros((b,) + shape, dtype=dt, device=dev)
                     ta = time.perf_counter()
-                    self._dispatch(zeros)
-                    sync()
+                    run((zeros,), self._aot_key(b, shapes, dtype), f"b{b}",
+                        (b, False))
                     tb = time.perf_counter()
                     self._dispatch(zeros)
                     sync()
@@ -739,11 +799,21 @@ class InferenceEngine:
                     if with_mask_len is not None and not self._is_graph:
                         m = torch.ones((b, int(with_mask_len)), dtype=dt,
                                        device=dev)
-                        self._dispatch(zeros, m)
-                        sync()
+                        run((zeros, m), self._aot_key(b, shapes, dtype,
+                                                      int(with_mask_len)),
+                            f"b{b}_mask", (b, True))
             finally:
                 self._in_warmup = False
         self.warmup_seconds = time.perf_counter() - t0
+        if bundle is not None and traced:
+            recipes = self._program.recipes()
+            for rkey, key in traced.items():
+                if rkey in recipes:
+                    bundle.add_recipe(key, *recipes[rkey])
+            if dev.type == "cuda" and not bundle.libraries:
+                from deeplearning4j_tpu_torch.ops import build
+                bundle.add_libraries(build.export_libraries())
+            bundle.save(aot)
         return ladder
 
     def autotune(self, max_rungs: Optional[int] = None, apply: bool = True,

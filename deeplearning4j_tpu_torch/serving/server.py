@@ -11,6 +11,8 @@ base64 float32 wire format (serving/wire.py). Endpoints:
   POST /warmup    {"input_shape": [...], "max_batch"?}      -> {"buckets", "seconds"}
   POST /admin/swap {"checkpoint": path, "version"?}         -> {"swapped", "version", ...}
   POST /admin/profile {"dir": d, "seconds"?}                -> a timed torch.profiler session
+  POST /chaos     {"latency_ms"?, "fail_next"?, "fail_rate"?,
+                   "error_code"?}                          -> {"chaos": injector state}
   GET  /stats                                               -> engine+batcher stats
   GET  /metrics                                             -> Prometheus text
   GET  /requests?n=                                         -> the request journal
@@ -33,7 +35,11 @@ that does not match the serving weights (``weight_mismatch``, both engines
 untouched) or a profiling session already running (``profile_busy``), 400
 ``bad_checkpoint`` for a checkpoint that cannot be read, 429 queue full,
 503 draining or a profiler that cannot start (``profiler_unavailable``),
-504 deadline expired, 500 engine fault.
+504 deadline expired, 500 engine fault, and an injected fault's own
+status (``injected_fault``). With a ``fault_injector``
+(``resilience.faults.ServerFaultInjector``) every /predict and /generate
+passes through it first (injected latency, injected 5xx) and ``POST
+/chaos`` reconfigures it live; without one /chaos answers 404.
 
 Every request runs inside ``_observed``: the ``x-trace-context`` header's
 trace context installed for the handler (so the ``http_request`` span,
@@ -73,7 +79,7 @@ from deeplearning4j_tpu_torch.monitor.slo import BurnRateSLO
 from deeplearning4j_tpu_torch.monitor.tracing import trace
 from deeplearning4j_tpu_torch.resilience.errors import (
     BatcherStoppedError, CorruptCheckpointError, DeadlineExceededError,
-    ServerOverloadedError, WeightSwapError)
+    InjectedFaultError, ServerOverloadedError, WeightSwapError)
 from deeplearning4j_tpu_torch.serving.batcher import MicroBatcher
 from deeplearning4j_tpu_torch.serving.engine import (InferenceEngine,
                                                      input_type_of)
@@ -226,10 +232,22 @@ class _Handler(BaseHTTPRequestHandler):
 
     def _post(self, srv, path, payload):
         try:
+            if path in ("/predict", "/generate") \
+                    and srv.fault_injector is not None:
+                # injected latency rides the handler thread; an injected
+                # fault answers its configured 5xx
+                srv.fault_injector.maybe_inject(path)
             if path == "/predict":
                 self._predict(srv, payload)
             elif path == "/generate":
                 self._generate(srv, payload)
+            elif path == "/chaos":
+                if srv.fault_injector is None:
+                    self._error(404, "not_found",
+                                "chaos injection not enabled on this server")
+                else:
+                    srv.fault_injector.configure(**payload)
+                    self._json({"chaos": srv.fault_injector.describe()})
             elif path == "/kv/export":
                 self._kv_export(srv, payload)
             elif path == "/kv/import":
@@ -252,6 +270,8 @@ class _Handler(BaseHTTPRequestHandler):
             self._error(409, "kv_migrate_rejected", str(e))
         except (CorruptCheckpointError, FileNotFoundError) as e:
             self._error(400, "bad_checkpoint", str(e))
+        except InjectedFaultError as e:
+            self._error(e.code, "injected_fault", str(e))
         except ServerOverloadedError as e:
             self._error(429, "overloaded", str(e))
         except BatcherStoppedError as e:
@@ -421,8 +441,11 @@ class InferenceServer:
     /train/diagnostics`` (404 without one), whose degrading anomalies
     degrade /healthz. ``role``: ``prefill``, ``decode`` or ``mixed``, a
     routing preference advertised in /stats (every endpoint is served
-    whatever the role). ``fault_injector`` must be None: the fault
-    injector is not ported (ROADMAP queue 1 item 6c). ``journal_capacity``:
+    whatever the role). ``fault_injector``: a
+    ``resilience.faults.ServerFaultInjector`` that /predict and /generate
+    pass through, reconfigured by ``POST /chaos`` (None: no chaos
+    surface); its injected 5xx count in the availability SLO.
+    ``journal_capacity``:
     the records the /predict journal keeps (the decode engine keeps its
     own).
     """
@@ -441,15 +464,11 @@ class InferenceServer:
         if role not in ("prefill", "decode", "mixed"):
             raise ValueError(
                 f"role must be 'prefill', 'decode' or 'mixed', got {role!r}")
-        if fault_injector is not None:
-            raise NotImplementedError(
-                "InferenceServer(fault_injector=): the fault injector is not "
-                "ported to the PyTorch package yet (ROADMAP queue 1 item 6c)")
         self.role = role
         self.model = model
         self.engine = engine or InferenceEngine(model)
         self.decode_engine = decode_engine
-        self.fault_injector = None
+        self.fault_injector = fault_injector
         self.health_hook = health_hook
         self.request_mirror = request_mirror
         self.flight_recorder = flight_recorder
@@ -490,8 +509,8 @@ class InferenceServer:
                 sli.append(child)
                 if c == "5xx":
                     bad.append(child)
-        # availability over /predict and /generate: 5xx burn the budget,
-        # 4xx are the client's
+        # availability over /predict and /generate: 5xx (engine faults,
+        # injected chaos) burn the budget, 4xx are the client's
         self.slo = BurnRateSLO(
             f"availability:{self.id}",
             bad_fn=lambda: sum(c.value for c in bad),

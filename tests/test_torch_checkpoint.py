@@ -92,8 +92,14 @@ def test_manager_rotation_pins_and_anchor_match_jax(tmp_path):
     assert reopened.anchor == 12 and reopened.latest() == jm.latest()
     with pytest.raises(ValueError, match="no checkpoint at iteration 3"):
         pm.pin(3)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        pm.latest_aot()
+    # no companion artifact yet; once the latest has one, both managers
+    # return it (the AOT artifact is exec/aot.py's companion_path)
+    assert pm.latest_aot() is None and jm.latest_aot() is None
+    for m in (jm, pm):
+        open(m.latest()[:-len(".zip")] + ".aot.zip", "wb").close()
+    assert os.path.basename(pm.latest_aot()) == \
+        os.path.basename(jm.latest_aot()) == \
+        ckpt.checkpoint_filename(14, 1)[:-len(".zip")] + ".aot.zip"
     # a normalizer saved with a checkpoint reads back in both packages
     from deeplearning4j_tpu.util.model_serializer import \
         restore_normalizer as jax_restore_normalizer

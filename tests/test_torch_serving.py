@@ -29,7 +29,8 @@ from deeplearning4j_tpu.serving.server import InferenceServer as JaxServer
 from deeplearning4j_tpu_torch import MultiLayerNetwork, params_from_numpy
 from deeplearning4j_tpu_torch.nn.conf import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.resilience.errors import (
-    BatcherStoppedError, DeadlineExceededError, ServerOverloadedError)
+    BatcherStoppedError, DeadlineExceededError, RetriesExhaustedError,
+    ServerOverloadedError)
 from deeplearning4j_tpu_torch.serving import (DecodeEngine, InferenceClient,
                                               InferenceServer, MicroBatcher,
                                               bucket_for, bucket_ladder)
@@ -192,8 +193,11 @@ def test_http_429_on_a_full_queue(nets):
             target=lambda: results.append(InferenceClient(url).predict(x)))
         queued.start()
         _wait_for(lambda: srv.batcher.stats()["queue_depth"] == 1)
-        with pytest.raises(ServerOverloadedError):
+        # one attempt: the 429 surfaces as the JAX client's exhausted
+        # retry, caused by the typed overload error
+        with pytest.raises(RetriesExhaustedError) as ei:
             InferenceClient(url, retries=1).predict(x)
+        assert isinstance(ei.value.__cause__, ServerOverloadedError)
         eng.gate.set()
         held.join(10)
         queued.join(10)

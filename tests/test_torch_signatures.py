@@ -94,7 +94,7 @@ def _tensors(tree):
     return out
 
 
-def test_decode_engine_takes_the_jax_positional_order(nets):
+def test_decode_engine_takes_the_jax_positional_order(nets, tmp_path):
     lstm, tiny = nets
     eng = DecodeEngine(lstm, 2, 24, 5, 16, "f32", "dense")
     assert (eng.slots, eng.max_len, eng.eos_id, eng.max_queue, eng.kv) == \
@@ -107,11 +107,17 @@ def test_decode_engine_takes_the_jax_positional_order(nets):
     # not a serving precision in either package (bf16 is a compute dtype)
     with pytest.raises(ValueError, match="unknown precision"):
         DecodeEngine(lstm, 2, 24, None, 16, "bf16")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        DecodeEngine(lstm, 2, 24).warmup(aot="artifact")
+    # warmup(aot=) with no artifact at the path: a miss, traced and saved
+    eng = DecodeEngine(lstm, 2, 24)
+    art = str(tmp_path / "lstm.aot.zip")
+    assert eng.warmup(art) == eng.warmup_seconds
+    assert (eng.trace_count, eng.aot_restores) == (1, 0)
+    again = DecodeEngine(lstm, 2, 24)
+    again.warmup(art)
+    assert (again.trace_count, again.aot_restores) == (0, 1)
 
 
-def test_inference_engine_takes_the_jax_positional_order(nets):
+def test_inference_engine_takes_the_jax_positional_order(nets, tmp_path):
     lstm, tiny = nets
     x = _x(B=3)
     for net in nets:
@@ -122,8 +128,15 @@ def test_inference_engine_takes_the_jax_positional_order(nets):
                              precision="int8")
         assert np.array_equal(eng.predict_host(x), kw.predict_host(x))
         assert eng.stats()["buckets_used"] == [4]      # 3 rows -> rung 4
-    with pytest.raises(NotImplementedError, match="item 6"):
-        InferenceEngine(tiny).warmup((6, V), aot="artifact")
+    # warmup's arguments in the JAX order, aot fifth
+    art = str(tmp_path / "tiny.aot.zip")
+    traced = InferenceEngine(tiny, 4)
+    assert traced.warmup((6, V), np.float32, None, None, art) == [1, 2, 4]
+    restored = InferenceEngine(tiny, 4)
+    restored.warmup((6, V), np.float32, None, None, art)
+    assert (traced.trace_count, restored.trace_count,
+            restored.aot_restores) == (3, 0, 3)
+    assert np.array_equal(traced.predict_host(x), restored.predict_host(x))
 
 
 @pytest.mark.parametrize("entry", ["DecodeEngine.__init__",
@@ -176,6 +189,54 @@ def test_serving_entry_points_take_the_jax_positions(entry):
         return [(p.name, p.default) for p in
                 inspect.signature(getattr(c, meth)).parameters.values()]
     assert params(ours) == params(theirs)
+
+
+def _norm(v):
+    """A default comparable across packages: a function by its name, a
+    dataclass instance (``DEFAULT_POLICY``) by its type and fields."""
+    import dataclasses
+    if callable(v) and hasattr(v, "__name__"):
+        return v.__name__
+    if dataclasses.is_dataclass(v) and not isinstance(v, type):
+        return (type(v).__name__, tuple(
+            (f.name, _norm(getattr(v, f.name)))
+            for f in dataclasses.fields(v)))
+    return v
+
+
+# each fleet entry point: (port module, JAX module, attribute, method,
+# the port's own extra parameters after the JAX ones)
+FLEET_ENTRIES = {
+    "Router.__init__": ("serving.router", "Router", "__init__", []),
+    "ReplicaProcess.__init__": ("serving.replica", "ReplicaProcess",
+                                "__init__", [("device", "cuda")]),
+    "Autoscaler.__init__": ("serving.autoscale", "Autoscaler", "__init__",
+                            []),
+    "RetryPolicy": ("resilience.retry", "RetryPolicy", None, []),
+    "retry_call": ("resilience.retry", "retry_call", None, []),
+    "AotBundle.__init__": ("exec.aot", "AotBundle", "__init__", []),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(FLEET_ENTRIES))
+def test_fleet_entry_points_take_the_jax_positions(entry):
+    """The router's, the replica handle's, the autoscaler's, the retry
+    primitive's and the AOT bundle's parameters sit where the JAX package
+    puts them, with its defaults; the replica handle adds ``device``
+    last (its ``--device``)."""
+    import importlib
+    import inspect
+    mod, attr, meth, extra = FLEET_ENTRIES[entry]
+
+    def params(pkg):
+        obj = getattr(importlib.import_module(f"{pkg}.{mod}"), attr)
+        if meth is not None:
+            obj = getattr(obj, meth)
+        return [(p.name, _norm(p.default))
+                for p in inspect.signature(obj).parameters.values()]
+    ours = params("deeplearning4j_tpu_torch")
+    theirs = params("deeplearning4j_tpu")
+    assert ours == theirs + extra
 
 
 @pytest.mark.parametrize("module", ["monitor", "exec.programs"])

@@ -2,14 +2,17 @@
 
 - Package namespaces: every name of a JAX package's ``__all__`` whose
   module is ported imports from the port's package; the names still to
-  port are listed (ROADMAP queue 1 items 6c and 8).
+  port are listed (ROADMAP queue 1 item 8), with ``exec.aot``'s
+  ``export_compiled``, an XLA executable's export, which has no
+  counterpart.
 - The configuration builder: the JAX setters (``bias_init``,
   ``learning_rate``, ``optimization_algo``, ``dtype``, ``compute_dtype``,
   ``mini_batch``, ``minimize``), ``ListBuilder.layer(index, layer)`` and
   ``MultiLayerConfiguration.output_types()``: the same chains give one
   ``to_json()`` document in both packages.
 - Serving entry points: ``InferenceClient.warmup`` and ``keep_alive``,
-  ``MicroBatcher.predict``, ``InferenceServer(request_timeout_ms=)``.
+  ``MicroBatcher.predict``, ``InferenceServer(request_timeout_ms=)``,
+  ``InferenceServer(fault_injector=)`` and ``POST /chaos``.
 - The zoo's pretrained zip: a zip under ``DL4JTPU_DATA_DIR/pretrained/``
   loads in both packages, ahead of the bundled one, checked against the
   manifest ``write_manifest_entry`` writes (the same digest in both).
@@ -33,20 +36,17 @@ from test_torch_regularised_training import port_of
 
 V = 13
 
-# JAX __all__ names whose modules wait for later items
+# JAX __all__ names whose modules wait for later items (the streaming
+# data path), or that have no counterpart (an XLA executable's export)
 NOT_PORTED = {
     "deeplearning4j_tpu": set(),
-    "deeplearning4j_tpu.serving": {"Router", "RetryBudget", "ReplicaProcess",
-                                   "InProcessReplica", "Autoscaler"},
+    "deeplearning4j_tpu.serving": set(),
     "deeplearning4j_tpu.data": {"StreamingDataSetIterator", "encode_record",
                                 "decode_record"},
-    "deeplearning4j_tpu.resilience": {
-        "DEFAULT_POLICY", "FatalError", "InjectedFaultError",
-        "RetriesExhaustedError", "RetryBudgetExhaustedError", "RetryPolicy",
-        "StreamStalledError", "TransientError", "default_classifier",
-        "retry_call", "retryable"},
+    "deeplearning4j_tpu.resilience": set(),
     "deeplearning4j_tpu.monitor": set(),
     "deeplearning4j_tpu.exec.programs": set(),
+    "deeplearning4j_tpu.exec.aot": {"export_compiled"},
 }
 
 
@@ -188,9 +188,34 @@ def test_request_timeout_is_the_default_deadline(tiny, deadline_ms, code):
 
 
 def test_server_refuses_a_fault_injector_and_a_bad_role(tiny):
+    import urllib.error
+    import urllib.request
+
+    from deeplearning4j_tpu_torch.resilience.faults import \
+        ServerFaultInjector
     from deeplearning4j_tpu_torch.serving import InferenceServer
-    with pytest.raises(NotImplementedError, match="item 6c"):
-        InferenceServer(tiny, port=0, fault_injector=object())
+    # a fault injector is taken and honoured: the next /generate answers
+    # its injected status, and /chaos reconfigures it
+    inj = ServerFaultInjector(fail_next=1, error_code=503)
+    srv = InferenceServer(tiny, port=0, fault_injector=inj).start()
+    try:
+        url = f"http://127.0.0.1:{srv.port}"
+        for path, payload, code in (
+                ("/generate", {"tokens": [1]}, 503),
+                ("/chaos", {"fail_next": 0, "latency_ms": 1.0}, 200)):
+            req = urllib.request.Request(
+                url + path, data=json.dumps(payload).encode(),
+                headers={"Content-Type": "application/json"})
+            try:
+                with urllib.request.urlopen(req) as r:
+                    got, body = r.status, json.loads(r.read())
+            except urllib.error.HTTPError as e:
+                got, body = e.code, json.loads(e.read())
+            assert got == code, body
+        assert body["chaos"]["latency_ms"] == 1.0
+        assert inj.describe()["injected_faults"] == 1
+    finally:
+        srv.stop()
     with pytest.raises(ValueError, match="role"):
         InferenceServer(tiny, port=0, role="router")
     srv = InferenceServer(tiny, port=0, role="prefill")
