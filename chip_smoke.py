@@ -480,6 +480,44 @@ result line, when any of them or the port's package is missing. Phases:
    the ``Autoscaler``, a ``ReplicaProcess(aot=...)`` comes up and serves
    it (the held seconds printed); idle, the fleet drains to zero and the
    process exits. Its launches join the kernels line (K5, K8, K9).
+18. Data parallelism (``dp_phase``): ``parallel.ParallelWrapper``,
+   ``ParallelInference``, the process group, threshold compression, the
+   training masters and ``scaled_dot_product_attention``'s offsets. (a)
+   The LSTM recipe (TextGenerationLSTM, 2 x LSTM(256), B=32, T=64) under
+   ``ParallelWrapper(workers=4)`` in this process (world 1) for 20 steps
+   against 20 plain ``fit`` steps from the same parameters and batches:
+   parameters within 1e-5 (and whether bit for bit), exactly one K4-train
+   and two K3 a step; a 30-row batch over 4 slots (two pad rows): the
+   gradient program's gradient and loss within 1e-5 of the container's on
+   the 30 rows; ms a captured step against the plain fit's (median of
+   the last 10). (b) TinyTransformer at its default width (B=32, T=64)
+   under ``averaging_frequency=4`` over 4 slots for 8 rounds: round 0
+   against the CPU port's plain ``fit`` of each slot's rows from the same
+   parameters, averaged (within 1e-4 of max |param|; the attention key
+   biases, whose gradient is 0 in exact arithmetic and which Adam steps
+   by up to lr on rounding noise, within 2 x lr x k); exactly 4 x 4 x 2
+   of each of K5, K6 and K7 a round; the score falls; ms a round. (c) Two
+   subprocesses (``--dp-rank``), each a gloo rank on this card with its
+   ``local_batch_slice`` (16 rows) of the LSTM recipe, 10 sync steps:
+   both ranks' parameters bit for bit, within 1e-5 of (a) after 10 steps;
+   ms a step and the all-reduce's ms (host seconds of the blocking calls)
+   and bytes a step; the ranks' launches are printed, not counted here.
+   (d) A one-rank NCCL group runs (a)'s sync step 5 times: parameters bit
+   for bit (a)'s after 5 steps, and the NCCL all-reduce of the step's
+   gradient bytes timed by CUDA events. (e) ``ParallelInference`` over 4
+   slots: ``output()`` of 15 held-out windows bit for bit the model's
+   ``output`` on TextGenerationLSTM (one K4) and TinyTransformer (two
+   K5), then ``warmup`` on this thread and seven ``submit()`` calls of 3
+   rows merged by the worker thread, within 1e-5 of their unbatched
+   forwards. (f) ``SharedTrainingMaster``, two workers over 10 recipe
+   batches (lr 1, threshold 1e-3): the mean score falls, one K4-train and
+   two K3 a batch; ``threshold_encode`` / ``threshold_decode`` of one
+   recipe gradient on the card give the CPU port's count and indices, and
+   the decoded values bit for bit. (g) ``scaled_dot_product_attention``
+   (B=16, 4 heads, Dh=32, causal): q_offset 64 over 128 keys against
+   float64 (no kernel), and zero offsets through one K5 against the CPU
+   port, 1e-4. Its launches join the kernels line (K3, K4, K4-train,
+   K5-K7); under 90 s.
 
 A replayed CUDA graph adds to the launch counts the launches its capture
 recorded (the capture itself counts none), so the counts below are the
@@ -7360,8 +7398,520 @@ def routed_phase(card, built, dev="cuda"):
     return res
 
 
+DP_B, DP_T = 32, 64            # the LSTM / TinyTransformer recipe batches
+DP_SLOTS = 4                   # slots of the in-process wrappers
+DP_SYNC_STEPS = 20             # (a): sync steps against the plain fit
+DP_PAD_ROWS = 30               # (a): a batch that needs two pad rows
+DP_AVG_K, DP_AVG_ROUNDS = 4, 8  # (b): local steps a round, rounds
+DP_GLOO_STEPS = 10             # (c): sync steps of the two gloo ranks
+DP_NCCL_STEPS = 5              # (d): sync steps over the one-rank NCCL group
+DP_WINDOWS = 15                # (e): the held-out windows
+DP_SUBMITS = 3                 # (e): rows of each of seven submit() calls
+DP_SHARED_BATCHES = 10         # (f): batches the shared master trains
+DP_TIMEOUT = 300               # (c): seconds the two ranks may take
+DP_TOL = 1e-5                  # parameters and gradients, F32 bars
+DP_AVG_RTOL = 1e-4             # (b): of max |param|, card vs CPU port
+DP_TINY_LR = 3e-4              # (b): TinyTransformer's Adam rate (zoo)
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dp_batches(n, start=0):
+    """``n`` recipe batches (B=32, T=64) of the corpus's training windows
+    at stride 2, from batch ``start``, as DataSets of host arrays."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.zoo.corpus import corpus_windows
+    (xtr, ytr), _, _ = corpus_windows(stride=2)
+    total = len(xtr) // DP_B
+    out = []
+    for s in range(start, start + n):
+        i = s % total
+        out.append(DataSet(xtr[i * DP_B:(i + 1) * DP_B],
+                           ytr[i * DP_B:(i + 1) * DP_B]))
+    return out
+
+
+def _max_diff(a, b):
+    return max(float((x.float() - y.float().to(x.device)).abs().max())
+               for x, y in zip(a, b))
+
+
+def _timed_steps(run, n):
+    """Median host ms of ``run(i)`` over ``n`` calls, synchronized."""
+    import torch
+    ms = []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(i)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms), ms
+
+
+def dp_sync_part(card, res, V, dev="cuda"):
+    """(a) Sync DP of the LSTM recipe in one process (world 1)."""
+    import torch
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+    lstm = TextGenerationLSTM(total_unique_characters=V)
+    data = _dp_batches(DP_SYNC_STEPS)
+    out = {}
+    dp, plain = lstm.init(device=dev), lstm.init(device=dev)
+    pw = ParallelWrapper(dp, workers=DP_SLOTS)
+    timed = DP_SYNC_STEPS // 2          # the later half: captured steps
+    snaps, dp_ms, plain_ms = {}, [], []
+    ops.reset_launch_counts()
+    for i in range(DP_SYNC_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pw.fit([data[i]])
+        torch.cuda.synchronize()
+        dp_ms.append((time.perf_counter() - t0) * 1e3)
+        if i + 1 in (DP_NCCL_STEPS, DP_GLOO_STEPS):
+            # the parameters (c) and (d) are held against
+            snaps[i + 1] = [t.detach().cpu().clone() for t in _tensors(dp)]
+    out["launches"] = _expect_launches(
+        "phase 18 (a) sync DP", {"lstm2_fwd_train": DP_SYNC_STEPS,
+                                 "lstm_bwd": 2 * DP_SYNC_STEPS})
+    for i in range(DP_SYNC_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain.fit(data[i])
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+    err = _max_diff(_tensors(dp), _tensors(plain))
+    bitwise = all(torch.equal(a, b) for a, b in
+                  zip(_tensors(dp), _tensors(plain)))
+    step_ms = statistics.median(dp_ms[timed:])
+    plain_step_ms = statistics.median(plain_ms[timed:])
+    # the padded batch: 30 rows over 4 slots, the gradient program's
+    # reduced gradient against the container's on the 30 rows
+    x30 = data[0].features[:DP_PAD_ROWS]
+    y30 = data[0].labels[:DP_PAD_ROWS]
+    batch, pm = pw._prepare(DataSet(x30, y30))
+    flats = pw._sync_gradients(batch, pm, dp.iteration)
+    lay = pw._layout
+    got = lay.unflatten([f[:-1] if i == lay.loss_at else f
+                         for i, f in enumerate(flats)])
+    want, score = dp.compute_gradient_and_score(x30, y30)
+    pad_err = max(float((g[k] - w[k]).abs().max())
+                  for g, w in zip(got, want) for k in w)
+    pad_loss_err = abs(float(flats[lay.loss_at][-1]) - score)
+    out.update(max_param_diff=err, bitwise=bitwise, pad_rows=int(
+        batch.rows - DP_PAD_ROWS), pad_grad_max_abs_err=pad_err,
+        pad_loss_err=pad_loss_err, ms_per_step=step_ms,
+        plain_ms_per_step=plain_step_ms, ms=dp_ms, plain_ms=plain_ms)
+    print(f"dp: (a) sync DP, TextGenerationLSTM (2 x LSTM(256), B={DP_B}, "
+          f"T={DP_T}) over {DP_SLOTS} slots: {DP_SYNC_STEPS} steps against "
+          f"the plain fit: parameters max diff {err:.3g} (bar {DP_TOL}; bit "
+          f"for bit {bitwise}); launches {out['launches']}; B="
+          f"{DP_PAD_ROWS} padded by {out['pad_rows']}: gradient max err "
+          f"{pad_err:.3g}, loss err {pad_loss_err:.3g} (bar {DP_TOL}); ms a "
+          f"captured step {step_ms:.3f} (plain fit {plain_step_ms:.3f}) "
+          f"[{card}]", flush=True)
+    if not (err <= DP_TOL and pad_err <= DP_TOL and pad_loss_err <= DP_TOL
+            and out["pad_rows"] == 2):
+        raise AssertionError(f"phase 18 (a): {out}")
+    res["sync"] = out
+    return lstm, data, snaps
+
+
+def dp_avg_part(card, res, V, dev="cuda"):
+    """(b) Averaging DP of TinyTransformer in one process."""
+    import torch
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.zoo import TinyTransformer
+    tiny = TinyTransformer(vocab_size=V)
+    k = DP_AVG_K
+    data = _dp_batches(k * DP_AVG_ROUNDS, start=DP_SYNC_STEPS)
+    net = tiny.init(device=dev)
+    pw = ParallelWrapper(net, workers=DP_SLOTS, averaging_frequency=k)
+    per_round = {n: k * DP_SLOTS * 2 for n in (
+        "flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv")}
+    out = {"per_round": [], "launches": {}}
+    scores, ms = [], []
+    for r in range(DP_AVG_ROUNDS):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pw.fit(data[r * k:(r + 1) * k])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        got = _expect_launches(f"phase 18 (b) round {r}", per_round)
+        out["per_round"].append(got)
+        _add_counts(out["launches"], got)
+        scores.append(net.get_score())
+        if r == 0:
+            # the CPU port's plain fit, slot by slot, then the mean
+            lb = DP_B // DP_SLOTS
+            cpus = []
+            for j in range(DP_SLOTS):
+                c = tiny.init(device="cpu")
+                for ds in data[:k]:
+                    c.fit(DataSet(ds.features[j * lb:(j + 1) * lb],
+                                  ds.labels[j * lb:(j + 1) * lb]))
+                cpus.append(c)
+            keys = [(n, key) for n, d in net.params.items() for key in d]
+            want = {nk: torch.stack([c.params[nk[0]][nk[1]]
+                                     for c in cpus]).mean(0) for nk in keys}
+            scale = max(float(w.abs().max()) for w in want.values())
+            errs = {nk: float((net.params[nk[0]][nk[1]].cpu()
+                               - want[nk]).abs().max()) for nk in keys}
+            # a key bias's gradient is 0 in exact arithmetic (softmax
+            # ignores a score shift a row), so Adam steps it by up to lr
+            # on rounding noise, on each side: held within 2 x lr x k
+            # (the rule of the parity tests' params_close)
+            bk = {nk: e for nk, e in errs.items() if nk[1] == "bk"}
+            rest = {nk: e for nk, e in errs.items() if nk[1] != "bk"}
+            worst = max(rest, key=rest.get)
+            out.update(round0_rel_err=rest[worst] / scale,
+                       round0_worst=f"{worst[0]}/{worst[1]}",
+                       round0_key_bias_err=max(bk.values()),
+                       key_bias_bound=2 * DP_TINY_LR * k)
+    out.update(scores=scores, ms_per_round=ms,
+               ms_per_round_median=statistics.median(ms[2:]))
+    print(f"dp: (b) averaging DP, TinyTransformer (d_model 128, 4 heads, 2 "
+          f"blocks, B={DP_B}, T={DP_T}) over {DP_SLOTS} slots, k={k}: round 0 "
+          f"against the CPU port's plain fits (mean of the slots) max err "
+          f"{out['round0_rel_err']:.3g} of max |param| at "
+          f"{out['round0_worst']} (bar {DP_AVG_RTOL}), key biases "
+          f"{out['round0_key_bias_err']:.3g} (bar 2 x lr x k = "
+          f"{out['key_bias_bound']:.3g}); "
+          f"launches a round {per_round}; score {scores[0]:.4f} -> "
+          f"{scores[-1]:.4f} over {DP_AVG_ROUNDS} rounds; ms a round "
+          f"(median of rounds 2-{DP_AVG_ROUNDS - 1}) "
+          f"{out['ms_per_round_median']:.3f} [{card}]", flush=True)
+    if not (out["round0_rel_err"] <= DP_AVG_RTOL
+            and out["round0_key_bias_err"] <= out["key_bias_bound"]
+            and scores[-1] < scores[0]):
+        raise AssertionError(f"phase 18 (b): {out}")
+    res["averaging"] = out
+    return tiny, net
+
+
+def dp_rank_main(rank, world, port, out_dir):
+    """One of (c)'s ranks: gloo over one card, the LSTM recipe's sync steps
+    on its local_batch_slice; writes its parameters and numbers."""
+    import torch
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.parallel import (ParallelWrapper,
+                                                   distributed)
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+    from deeplearning4j_tpu_torch.zoo.corpus import corpus_windows
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _, _, vocab = corpus_windows(stride=2)
+    distributed.initialize(f"127.0.0.1:{port}", world, rank,
+                           backend="gloo")
+    net = TextGenerationLSTM(total_unique_characters=len(vocab)).init()
+    pw = ParallelWrapper(net)
+    sl = distributed.local_batch_slice(DP_B)
+    data = [DataSet(d.features[sl], d.labels[sl])
+            for d in _dp_batches(DP_GLOO_STEPS)]
+    ops.reset_launch_counts()
+    half = DP_GLOO_STEPS // 2
+    for i in range(half):
+        pw.fit([data[i]])
+    c0 = dict(pw.comm)
+    ms, _ = _timed_steps(lambda i: pw.fit([data[half + i]]),
+                         DP_GLOO_STEPS - half)
+    torch.cuda.synchronize()
+    n = DP_GLOO_STEPS - half
+    info = {"rank": rank, "rows": sl.stop - sl.start, "ms_per_step": ms,
+            "allreduce_ms_per_step": (pw.comm["seconds"] - c0["seconds"])
+            / n * 1e3,
+            "allreduce_bytes_per_step": (pw.comm["bytes"] - c0["bytes"]) // n,
+            "counts_exchange_ms_per_step": (pw.comm["host_seconds"]
+                                            - c0["host_seconds"]) / n * 1e3,
+            "allreduce_calls_per_step": (pw.comm["calls"] - c0["calls"]) // n,
+            "launches": ops.launch_counts()}
+    torch.save([t.detach().cpu() for t in _tensors(net)],
+               Path(out_dir) / f"rank{rank}.pt")
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(info))
+    distributed.shutdown()
+    print(f"DP_RANK_{rank}_OK", flush=True)
+    return 0
+
+
+def dp_gloo_part(card, res, snaps):
+    """(c) Two ranks sharing the card over gloo, in two subprocesses."""
+    import tempfile
+    import torch
+    with tempfile.TemporaryDirectory() as tmp:
+        port = _free_port()
+        env = dict(os.environ)
+        env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--dp-rank",
+             str(r), "2", str(port), tmp], cwd=ROOT, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=DP_TIMEOUT)[0])
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+                p.communicate()
+            raise AssertionError("phase 18 (c): the gloo ranks hung")
+        for r, (p, o) in enumerate(zip(procs, outs)):
+            if p.returncode != 0 or f"DP_RANK_{r}_OK" not in o:
+                raise AssertionError(f"phase 18 (c) rank {r}:\n{o[-4000:]}")
+        params = [torch.load(Path(tmp) / f"rank{r}.pt") for r in range(2)]
+        infos = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(2)]
+    same = all(torch.equal(a, b) for a, b in zip(*params))
+    err = _max_diff(params[0], snaps[DP_GLOO_STEPS])
+    launches = {}
+    for i in infos:
+        for kname, v in i.pop("launches").items():
+            launches[kname] = launches.get(kname, 0) + v
+    # the ranks' own counters (other processes): reported, and kept out
+    # of this process's kernels line
+    out = {"ranks": infos, "bitwise_between_ranks": same,
+           "max_diff_vs_a": err, "ranks_launches": launches}
+    want = {"lstm2_fwd_train": 2 * DP_GLOO_STEPS,
+            "lstm_bwd": 4 * DP_GLOO_STEPS}
+    print(f"dp: (c) two ranks over gloo on one card, {DP_GLOO_STEPS} sync "
+          f"steps of the LSTM recipe, rows {[i['rows'] for i in infos]}: "
+          f"ranks bit for bit {same}; against (a) after {DP_GLOO_STEPS} "
+          f"steps max diff {err:.3g} (bar {DP_TOL}); ms a step "
+          f"{[round(i['ms_per_step'], 3) for i in infos]}, all-reduce ms a "
+          f"step {[round(i['allreduce_ms_per_step'], 3) for i in infos]} "
+          f"({infos[0]['allreduce_calls_per_step']} calls, "
+          f"{infos[0]['allreduce_bytes_per_step']} bytes), the row counts' "
+          f"exchange ms a step "
+          f"{[round(i['counts_exchange_ms_per_step'], 3) for i in infos]}; "
+          f"launches "
+          f"{launches} (the ranks' own counters) [{card}]", flush=True)
+    if not (same and err <= DP_TOL and launches == want):
+        raise AssertionError(f"phase 18 (c): {out}")
+    res["gloo"] = out
+
+
+def dp_nccl_part(card, res, lstm, data, snaps):
+    """(d) A one-rank NCCL group runs (a)'s sync step."""
+    import torch
+    import torch.distributed as dist
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.parallel import (ParallelWrapper,
+                                                   distributed)
+    distributed.initialize(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        backend = dist.get_backend()
+        net = lstm.init()
+        pw = ParallelWrapper(net, workers=DP_SLOTS)
+        ops.reset_launch_counts()
+        for i in range(DP_NCCL_STEPS):
+            pw.fit([data[i]])
+        torch.cuda.synchronize()
+        launches = _expect_launches(
+            "phase 18 (d) NCCL", {"lstm2_fwd_train": DP_NCCL_STEPS,
+                                  "lstm_bwd": 2 * DP_NCCL_STEPS})
+        same = all(torch.equal(a.cpu(), b) for a, b in
+                   zip(_tensors(net), snaps[DP_NCCL_STEPS]))
+        # the NCCL all-reduce of the step's flat gradient, by CUDA events
+        lay = pw._layout
+        bufs = [torch.ones(sum(int(np.prod(s)) for _, _, s in
+                               lay.buckets[dt]) + (i == lay.loss_at),
+                           dtype=dt, device=net.device)
+                for i, dt in enumerate(lay.dtypes)]
+        nbytes = sum(b.numel() * b.element_size() for b in bufs)
+        ms = time_ms(lambda: [dist.all_reduce(b) for b in bufs], 20)
+    finally:
+        distributed.shutdown()
+    out = {"backend": backend, "launches": launches, "bitwise_vs_a": same,
+           "allreduce_ms": ms, "allreduce_bytes": nbytes,
+           "comm": dict(pw.comm)}
+    print(f"dp: (d) one-rank {backend} group, {DP_NCCL_STEPS} sync steps: "
+          f"parameters bit for bit (a)'s after {DP_NCCL_STEPS} {same}; "
+          f"launches {launches}; the all-reduce of the step's {nbytes} "
+          f"gradient bytes {ms:.4f} ms (CUDA events over 20, median of 5) "
+          f"[{card}]", flush=True)
+    if not (same and backend == "nccl"):
+        raise AssertionError(f"phase 18 (d): {out}")
+    res["nccl"] = out
+
+
+def dp_inference_part(card, res, lstm_net, tiny_net, dev="cuda"):
+    """(e) ParallelInference over 4 slots: output() and submit()."""
+    import torch
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+    from deeplearning4j_tpu_torch.parallel.wrapper import default_mesh
+    from deeplearning4j_tpu_torch.zoo.corpus import corpus_windows
+    _, (xte, _), vocab = corpus_windows(64)
+    x = xte[:DP_WINDOWS]
+    out = {}
+    for name, net, kernel in (("lstm", lstm_net, "lstm2_fwd"),
+                              ("tiny", tiny_net, "flash_attn_fwd")):
+        pi = ParallelInference(net, mesh=default_mesh(DP_SLOTS, device=dev),
+                               batch_timeout_ms=20.0)
+        want = net.output(x)
+        ops.reset_launch_counts()
+        got = pi.output(x)
+        per = 1 if kernel == "lstm2_fwd" else 2
+        o = {"launches": _expect_launches(f"phase 18 (e) {name} output",
+                                          {kernel: per})}
+        o["bitwise"] = bool(torch.equal(got, want))
+        pi.warmup((DP_T, len(vocab)), max_batch=32)
+        xs = [xte[i:i + DP_SUBMITS] for i in range(7)]
+        singles = [net.output(a) for a in xs]
+        ops.reset_launch_counts()
+        pi.start()
+        futs = [pi.submit(a) for a in xs]
+        outs = [f.result(timeout=60) for f in futs]
+        pi.shutdown()
+        torch.cuda.synchronize()
+        o["submit"] = {"launches": ops.launch_counts()}
+        o["submit_max_abs_err"] = max(float((a - b).abs().max())
+                                      for a, b in zip(outs, singles))
+        out[name] = o
+        print(f"dp: (e) ParallelInference on {name} over {DP_SLOTS} slots: "
+              f"output() of {DP_WINDOWS} windows bit for bit the model's "
+              f"{o['bitwise']} (launches {o['launches']}); 7 submits of "
+              f"{DP_SUBMITS} rows against their unbatched forwards max err "
+              f"{o['submit_max_abs_err']:.3g} (bar {DP_TOL}; launches "
+              f"{o['submit']['launches']}) [{card}]", flush=True)
+        if not (o["bitwise"] and o["submit_max_abs_err"] <= DP_TOL
+                and set(o["submit"]["launches"]) == {kernel}):
+            raise AssertionError(f"phase 18 (e) {name}: {o}")
+    res["inference"] = out
+
+
+def dp_shared_part(card, res, lstm, dev="cuda"):
+    """(f) SharedTrainingMaster: two workers over ten recipe batches; the
+    card's threshold encoding against the CPU port's."""
+    import torch
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.parallel import compression
+    from deeplearning4j_tpu_torch.scaleout import (ClusterMultiLayerNetwork,
+                                                   SharedTrainingMaster)
+    from deeplearning4j_tpu_torch.scaleout import training_master as tm
+    net = lstm.init(device=dev)
+    data = _dp_batches(DP_SHARED_BATCHES, start=DP_SYNC_STEPS)
+    cn = ClusterMultiLayerNetwork(net, SharedTrainingMaster(
+        threshold=1e-3, workers=2, batch_size_per_worker=DP_B,
+        learning_rate=1.0))
+    before = float(np.mean(cn.score_examples(data)))
+    ops.reset_launch_counts()
+    cn.fit(data)
+    torch.cuda.synchronize()
+    out = {"launches": _expect_launches(
+        "phase 18 (f) shared master",
+        {"lstm2_fwd_train": DP_SHARED_BATCHES,
+         "lstm_bwd": 2 * DP_SHARED_BATCHES})}
+    after = float(np.mean(cn.score_examples(data)))
+    # one recipe gradient, encoded on the card and by the CPU port
+    order = tm._order(net)
+    _, g = tm._gradient(net, order, tm._vector(net, net.params, order),
+                        [data[0].features], [data[0].labels])
+    n = g.numel()
+    cap = n // 10
+    thr = float(g.abs().cpu().kthvalue(n - n // 20).values)
+    got = compression.threshold_encode(g, thr, cap)
+    want = compression.threshold_encode(g.cpu(), thr, cap)
+    count = int(got[2])
+    keep_g, keep_w = got[0].cpu() >= 0, want[0] >= 0
+    same_idx = torch.equal(torch.sort(got[0].cpu()[keep_g]).values,
+                           torch.sort(want[0][keep_w]).values)
+    dense = compression.threshold_decode(got[0], got[1], n).cpu()
+    dense_w = compression.threshold_decode(want[0], want[1], n)
+    same_vals = torch.equal(dense, dense_w)
+    out.update(score_before=before, score_after=after, count=count,
+               capacity=cap, count_cpu=int(want[2]), same_indices=same_idx,
+               same_values_bitwise=same_vals)
+    print(f"dp: (f) SharedTrainingMaster, 2 workers over "
+          f"{DP_SHARED_BATCHES} recipe batches: mean score {before:.4f} -> "
+          f"{after:.4f}; launches {out['launches']}; threshold_encode of a "
+          f"recipe gradient ({n} entries, capacity {cap}, threshold "
+          f"{thr:.3g}): {count} sent on the card, {out['count_cpu']} by the "
+          f"CPU port, the same indices {same_idx}, decoded values bit for "
+          f"bit {same_vals} [{card}]", flush=True)
+    if not (after < before and same_idx and same_vals
+            and count == out["count_cpu"] and count < cap):
+        raise AssertionError(f"phase 18 (f): {out}")
+    res["shared"] = out
+
+
+def dp_sdpa_part(card, res, dev="cuda"):
+    """(g) scaled_dot_product_attention with offsets, and through K5."""
+    import torch
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.nn.layers.attention import \
+        scaled_dot_product_attention as sdpa
+    g = torch.Generator().manual_seed(18)
+    B, H, Dh = 16, HEADS, HEAD_DIM
+    q = torch.randn(B, DP_T, H, Dh, generator=g)
+    k = torch.randn(B, 2 * DP_T, H, Dh, generator=g)
+    v = torch.randn(B, 2 * DP_T, H, Dh, generator=g)
+    out = {}
+    ops.reset_launch_counts()
+    got = sdpa(q.to(dev), k.to(dev), v.to(dev), causal=True,
+               q_offset=DP_T, k_offset=0)
+    plain = sdpa(q.double(), k.double(), v.double(), causal=True,
+                 q_offset=DP_T, k_offset=0)
+    out["offsets"] = {"launches": _expect_launches(
+        "phase 18 (g) offsets", {}),
+        "max_abs_err": float((got.double().cpu() - plain).abs().max())}
+    qq, kk, vv = (t[:, :DP_T].contiguous() for t in (q, k, v))
+    ops.reset_launch_counts()
+    got = sdpa(qq.to(dev), kk.to(dev), vv.to(dev), causal=True)
+    out["flash"] = {"launches": _expect_launches(
+        "phase 18 (g) K5", {"flash_attn_fwd": 1})}
+    plain = sdpa(qq, kk, vv, causal=True)
+    out["flash"]["max_abs_err"] = float((got.cpu() - plain).abs().max())
+    print(f"dp: (g) scaled_dot_product_attention (B={B}, {H} heads, Dh={Dh}, "
+          f"causal): q_offset {DP_T}, k_offset 0 over {2 * DP_T} keys "
+          f"against float64 max err {out['offsets']['max_abs_err']:.3g}, no "
+          f"kernel; zero offsets through K5 (launches "
+          f"{out['flash']['launches']}) against the CPU port max err "
+          f"{out['flash']['max_abs_err']:.3g} (bar {ATTN_TOL}) [{card}]",
+          flush=True)
+    if not (out["offsets"]["max_abs_err"] <= ATTN_TOL
+            and out["flash"]["max_abs_err"] <= ATTN_TOL):
+        raise AssertionError(f"phase 18 (g): {out}")
+    res["sdpa"] = out
+
+
+def dp_phase(card, dev="cuda"):
+    """Phase 18: data parallelism (``chip_smoke.py`` docstring)."""
+    from deeplearning4j_tpu_torch.zoo.corpus import corpus_windows
+    t0 = time.perf_counter()
+    _, _, vocab = corpus_windows(stride=2)
+    V = len(vocab)
+    res = {"card": card}
+    lstm, data, snaps = dp_sync_part(card, res, V, dev)
+    tiny, tiny_net = dp_avg_part(card, res, V, dev)
+    dp_gloo_part(card, res, snaps)
+    dp_nccl_part(card, res, lstm, data, snaps)
+    lstm_net = lstm.init(device=dev)
+    dp_inference_part(card, res, lstm_net, tiny_net, dev)
+    dp_shared_part(card, res, lstm, dev)
+    dp_sdpa_part(card, res, dev)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"dp: phase 18 took {res['seconds']:.1f} s [{card}]", flush=True)
+    return res
+
+
 def main() -> int:
     import torch
+    if len(sys.argv) > 1 and sys.argv[1] == "--dp-rank":
+        # one of phase 18 (c)'s gloo ranks, started by dp_gloo_part
+        rank, world, port = (int(a) for a in sys.argv[2:5])
+        return dp_rank_main(rank, world, port, sys.argv[5])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -7504,6 +8054,7 @@ def main() -> int:
     precision = serving_precision_phase(card)
     obs = observability_phase(card)
     routed = routed_phase(card, built)
+    dp = dp_phase(card)
 
     # each kernel at its main path's shape, with the launches of the run
     # that drove it: /predict of the 15 held-out windows (bucket 16, T=64)
@@ -7511,15 +8062,16 @@ def main() -> int:
     # steps (B=32, T=64) K4-train and K3; tBPTT chunks (B=32, T=16) K2
     main_shapes = {"lstm2_fwd": (64, 16, {
                        "lstm2_fwd": res["launches"].get("lstm2_fwd", 0)
-                       + counted_launches(precision["lstm"], "lstm2_fwd")}),
+                       + counted_launches(precision["lstm"], "lstm2_fwd")
+                       + counted_launches(dp, "lstm2_fwd")}),
                    "lstm_fwd": (16, 15, res["launches"]),
                    "lstm2_fwd_train": (64, 32, {
                        k: train["launches_recipe"].get(k, 0)
-                       + counted_launches(obs, k)
+                       + counted_launches(obs, k) + counted_launches(dp, k)
                        for k in ("lstm2_fwd_train", "lstm_bwd")}),
                    "lstm_bwd": (64, 32, {
                        k: train["launches_recipe"].get(k, 0)
-                       + counted_launches(obs, k)
+                       + counted_launches(obs, k) + counted_launches(dp, k)
                        for k in ("lstm2_fwd_train", "lstm_bwd")}),
                    "lstm_fwd_train": (16, 32, train["launches_tbptt"])}
     entries = []
@@ -7552,14 +8104,16 @@ def main() -> int:
                "phase 14": counted_launches(kv_tier, "flash_attn_fwd"),
                "phase 15": counted_launches(precision, "flash_attn_fwd"),
                "phase 16": counted_launches(obs, "flash_attn_fwd"),
-               "phase 17": counted_launches(routed, "flash_attn_fwd")}
+               "phase 17": counted_launches(routed, "flash_attn_fwd"),
+               "phase 18": counted_launches(dp, "flash_attn_fwd")}
     entry("flash_attn_fwd", row, sum(by_path.values()))
     entries[-1]["launches_by_path"] = by_path
     # the recipe's train steps (B=32, T=64) run K6 and K7 at BH 128, causal
     recipe = tiny_train["recipe"]["launches_train"]
     for row in bwd_kernel_case(TINY_B, TINY_T, True, seed=1):
         entry(row["kernel"], row, recipe[row["kernel"]]
-              + counted_launches(obs, row["kernel"]))
+              + counted_launches(obs, row["kernel"])
+              + counted_launches(dp, row["kernel"]))
     print("main-path shape: " + fmt_bwd(rows[-2:]) + f" [{card}]", flush=True)
     mid = DECODE_MID
     for kernel, kind in (("flash_decode", "dense"),
@@ -7621,7 +8175,7 @@ def main() -> int:
          "regularised": regularised, "fit_contract": fit_contract,
          "serving_features": serving, "cnn": cnn, "inception": inception,
          "kv_tier": kv_tier, "precision": precision, "observability": obs,
-         "routed": routed, "kernels": entries},
+         "routed": routed, "data_parallel": dp, "kernels": entries},
         indent=1))
     print(json.dumps({"kernels": entries}))
     print(card)

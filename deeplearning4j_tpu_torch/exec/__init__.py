@@ -1,6 +1,10 @@
 """The execution core: the training-precision policy, captured steps and
-programs over resident state (see executor.py), and the program registry
-(programs.py)."""
+programs over resident state (see executor.py), the program registry
+(programs.py) and the data-parallel mesh of slots (mesh.py)."""
+
+from deeplearning4j_tpu_torch.exec.mesh import (  # noqa: F401
+    DATA_AXIS, MODEL_AXIS, build_mesh, default_mesh, host_device_env,
+    set_default_mesh)
 
 from deeplearning4j_tpu_torch.exec.executor import (  # noqa: F401
     CapturedStep, Executor, HostResult, HostStage, Layout, ResidentProgram,

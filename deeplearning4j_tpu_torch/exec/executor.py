@@ -72,7 +72,8 @@ or an eager call) and, once captured, its graph's memory and launches:
 ``train_step_b{B}`` and ``apply_updates``), ``ResidentProgram`` where its
 owner set ``caller`` (the engines). Registration runs nothing more.
 
-Meshes, sharding and routing tables are not ported.
+The mesh is exec/mesh.py (data-parallel slots); sharding and routing
+tables are not ported.
 """
 
 from __future__ import annotations
@@ -208,6 +209,13 @@ def step_seed(seed: int, iteration: int) -> int:
     with ``seed``: splitmix64 of splitmix64(seed) mixed with the
     iteration."""
     return _splitmix64(_splitmix64(seed & _MASK64) ^ (iteration & _MASK64))
+
+
+def slot_seed(seed: int, iteration: int, slot: int) -> int:
+    """The seed of data-parallel slot ``slot``'s step at ``iteration``:
+    the step's seed with the slot folded in (the JAX package folds the
+    mesh axis index into the step's key; parallel/wrapper.py)."""
+    return _splitmix64(step_seed(seed, iteration) ^ (slot & _MASK64))
 
 
 def seed_generator(gen: Optional[torch.Generator], seed: int,

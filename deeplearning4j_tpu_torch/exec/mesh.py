@@ -1,0 +1,206 @@
+"""The port's mesh: a grid of slots over the process group.
+
+Counterpart of deeplearning4j_tpu/exec/mesh.py: the axis names
+``DATA_AXIS`` / ``MODEL_AXIS``, ``build_mesh``, ``default_mesh`` /
+``set_default_mesh``, the ``DL4JTPU_MESH`` parser with the JAX package's
+errors, ``host_device_env`` and the ``dl4jtpu_mesh_*`` gauges.
+
+Where a JAX mesh is a grid of devices, the port's is a grid of SLOTS: a
+slot is a (rank, device) pair, one data-parallel replica's place. PyTorch
+runs one process per device, so the slots of one rank share that rank's
+device, and a ``devices`` list may repeat it: eight slots on one card, or
+on the CPU, are the counterpart of the JAX package's eight forced host
+devices. A list that names two different cards raises (start one process
+per device instead). ``devices`` are each rank's: the mesh repeats them
+for every rank of the group (parallel/distributed.py), rank-major.
+
+The mesh is data-parallel. A ``model`` axis larger than 1 is tensor
+parallelism, which raises ``TensorParallelNotPorted``: it comes with the
+executor's ``param_spec``, in the tensor-parallel part of ROADMAP item 7.
+
+``DL4JTPU_MESH`` shapes the default mesh without code changes:
+
+    DL4JTPU_MESH=off            # one slot
+    DL4JTPU_MESH=data=4         # explicit data size (must divide the
+                                # slots available)
+
+The slots available are the world size times ``DL4JTPU_SLOTS`` (slots a
+rank, default 1) on the process's device; ``host_device_env`` composes
+that count into a subprocess's environment.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+DATA_AXIS = "data"
+MODEL_AXIS = "model"
+SLOTS_ENV = "DL4JTPU_SLOTS"
+
+_default_mesh: Optional["Mesh"] = None
+
+
+class TensorParallelNotPorted(NotImplementedError):
+    """A mesh with a ``model`` axis larger than 1: tensor parallelism,
+    ROADMAP item 7's tensor-parallel part (with ``exec.param_spec``)."""
+
+
+class Slot(NamedTuple):
+    """One replica's place: the rank that runs it and that rank's
+    device."""
+    rank: int
+    device: torch.device
+
+
+class Mesh:
+    """Slots on a named grid (``axis_names``, ``shape``), rank-major. Read
+    like a JAX mesh: ``shape[axis]``, ``axis_names``, ``devices`` (an
+    array of slots), ``size``."""
+
+    def __init__(self, slots: List[Slot], axis_names=(DATA_AXIS, MODEL_AXIS),
+                 shape=None):
+        axis_names = tuple(axis_names)
+        if shape is None:
+            shape = (len(slots),) + (1,) * (len(axis_names) - 1)
+        shape = tuple(int(s) for s in shape)
+        if len(shape) != len(axis_names) or int(np.prod(shape)) != len(slots):
+            raise ValueError(f"mesh shape {shape} does not hold "
+                             f"{len(slots)} slots over axes {axis_names}")
+        for name, size in zip(axis_names, shape):
+            if name == MODEL_AXIS and size > 1:
+                raise TensorParallelNotPorted(
+                    f"a {name!r} axis of size {size} is tensor parallelism "
+                    "(ROADMAP item 7, its tensor-parallel part, with "
+                    "exec.param_spec); the port's mesh is data-parallel")
+        arr = np.empty(len(slots), dtype=object)
+        arr[:] = [Slot(int(s[0]), torch.device(s[1])) for s in slots]
+        self.devices = arr.reshape(shape)
+        self.axis_names = axis_names
+        self.shape = dict(zip(axis_names, shape))
+
+    @property
+    def size(self) -> int:
+        return int(self.devices.size)
+
+    @property
+    def slots(self) -> List[Slot]:
+        return list(self.devices.reshape(-1))
+
+    def local_slots(self, rank: int) -> List[Slot]:
+        """The slots rank ``rank`` runs, in mesh order."""
+        return [s for s in self.slots if s.rank == rank]
+
+    @property
+    def ranks(self) -> List[int]:
+        return sorted({s.rank for s in self.slots})
+
+    def __repr__(self) -> str:
+        return f"Mesh({self.shape}, ranks={self.ranks})"
+
+
+def _as_device(d) -> torch.device:
+    return torch.device(d) if not isinstance(d, torch.device) else d
+
+
+def _local_devices(devices=None) -> List[torch.device]:
+    """Each rank's slot devices: ``devices``, else ``DL4JTPU_SLOTS`` slots
+    on the process's device. Two different cards raise."""
+    if devices is None:
+        from deeplearning4j_tpu_torch.parallel.distributed import \
+            process_device
+        devices = [process_device()] * max(1, int(os.environ.get(
+            SLOTS_ENV, "1") or 1))
+    devs = [_as_device(d) for d in devices]
+    cards = {(d.index or 0) for d in devs if d.type == "cuda"}
+    types = {d.type for d in devs}
+    if len(cards) > 1 or len(types) > 1:
+        raise ValueError(
+            f"the slots of one process span {sorted(map(str, set(devs)))}; "
+            "PyTorch runs one process per device: start one process per "
+            "device (parallel.distributed.initialize) and give each its own")
+    return devs
+
+
+def build_mesh(devices=None, model_parallel: int = 1) -> Mesh:
+    """A 2-D ``(data, model)`` mesh: every rank of the group times each of
+    ``devices`` (this rank's slot devices; default: one slot, or
+    ``DL4JTPU_SLOTS``, on the process's device). ``model_parallel`` must
+    divide the slots; above 1 it raises ``TensorParallelNotPorted``."""
+    from deeplearning4j_tpu_torch.parallel.distributed import topology
+    m = max(1, int(model_parallel))
+    devs = _local_devices(devices)
+    _, world = topology()
+    slots = [Slot(r, d) for r in range(world) for d in devs]
+    if len(slots) % m:
+        raise ValueError(
+            f"model_parallel={m} does not divide {len(slots)} devices")
+    return Mesh(slots, (DATA_AXIS, MODEL_AXIS), (len(slots) // m, m))
+
+
+def _publish_gauges(mesh: Mesh) -> None:
+    from deeplearning4j_tpu_torch.monitor.metrics import get_registry
+    reg = get_registry()
+    reg.gauge(
+        "dl4jtpu_mesh_devices",
+        "Devices in the execution mesh (1 = single-device special case)."
+    ).set(mesh.size)
+    ax = reg.gauge(
+        "dl4jtpu_mesh_axis_size",
+        "Size of each named mesh axis (batch shards over 'data', "
+        "Megatron TP over 'model').", ("axis",))
+    for name in mesh.axis_names:
+        ax.labels(axis=name).set(mesh.shape[name])
+
+
+def _mesh_from_env(spec: str, devices=None) -> Mesh:
+    """The mesh ``DL4JTPU_MESH=spec`` asks for, over the slots available
+    (the world times ``devices``)."""
+    spec = spec.strip().lower()
+    full = build_mesh(devices)
+    if spec in ("off", "1", "single", "none"):
+        return Mesh(full.slots[:1], (DATA_AXIS, MODEL_AXIS), (1, 1))
+    sizes = {}
+    for part in spec.split(","):
+        if not part.strip():
+            continue
+        k, _, v = part.partition("=")
+        sizes[k.strip()] = int(v)
+    n = full.size
+    model = sizes.get(MODEL_AXIS, 1)
+    data = sizes.get(DATA_AXIS, max(1, n // max(1, model)))
+    want = data * model
+    if want > n or n % want:
+        raise ValueError(
+            f"DL4JTPU_MESH={spec!r} needs {want} devices, have {n}")
+    return Mesh(full.slots[:want], (DATA_AXIS, MODEL_AXIS), (data, model))
+
+
+def default_mesh() -> Mesh:
+    """The process-wide mesh: every slot available, pure DP, unless
+    ``DL4JTPU_MESH`` or ``set_default_mesh`` says otherwise."""
+    global _default_mesh
+    if _default_mesh is None:
+        env = os.environ.get("DL4JTPU_MESH", "").strip()
+        _default_mesh = _mesh_from_env(env) if env else build_mesh()
+        _publish_gauges(_default_mesh)
+    return _default_mesh
+
+
+def set_default_mesh(mesh: Optional[Mesh]) -> None:
+    """Override (or with None, reset) the process default mesh."""
+    global _default_mesh
+    _default_mesh = mesh
+    if mesh is not None:
+        _publish_gauges(mesh)
+
+
+def host_device_env(n: int = 8, base=None) -> dict:
+    """Environment for a SUBPROCESS whose default mesh holds ``n`` slots a
+    rank (``DL4JTPU_SLOTS``); the current process is untouched."""
+    env = dict(os.environ if base is None else base)
+    env[SLOTS_ENV] = str(int(n))
+    return env

@@ -344,17 +344,20 @@ class ComputationGraph(FitContract):
         return grads
 
     def _gradients(self, inputs, labels, label_masks=None, masks=None,
-                   gen=None, carries=None, state=None):
+                   gen=None, carries=None, state=None, scale=None):
         """Loss and per-node gradients at the current parameters, the new
         layer state written into ``state`` (None: nowhere). Returns (loss,
         grads, new carries), grads keyed like the parameters, the carries
-        detached."""
+        detached. ``scale`` (a 0-dim tensor) multiplies the loss before
+        the backward (parallel/wrapper.py)."""
         leaves = self._leaves()
         loss_fn = remat_loss(self._loss, self.conf.global_conf.remat)
         with torch.enable_grad():
             loss, new_carries = loss_fn(leaves, inputs, labels, label_masks,
                                         masks, gen=gen, carries=carries,
                                         state=state)
+            if scale is not None:
+                loss = loss * scale
             grads = self._grads_of(loss, leaves)
         if new_carries is not None:
             new_carries = {n: tuple(t.detach() for t in c)

@@ -383,16 +383,21 @@ class MultiLayerNetwork(FitContract):
             raise ValueError("call init() or set_params() before fitting")
 
     def _gradients(self, x, y, mask_l=None, carries=None, mask_f=None,
-                   gen=None, state=None):
+                   gen=None, state=None, scale=None):
         """Loss and per-layer gradients at the current parameters, the new
         layer state written into ``state`` (None: nowhere). Returns (loss,
-        grads, new_carries), carries detached."""
+        grads, new_carries), carries detached. ``scale`` (a 0-dim tensor)
+        multiplies the loss before the backward, and so the gradients: a
+        data-parallel rank's share of the global loss
+        (parallel/wrapper.py)."""
         leaves = [{k: v.detach().requires_grad_(v.is_floating_point())
                    for k, v in p.items()} for p in self.params]
         loss_fn = remat_loss(self._loss, self.conf.global_conf.remat)
         with torch.enable_grad():
             loss, new_carries = loss_fn(leaves, x, y, mask_l, carries,
                                         mask_f, gen=gen, state=state)
+            if scale is not None:
+                loss = loss * scale
             flat = [v for p in leaves for v in p.values()]
             got = torch.autograd.grad(loss, flat, allow_unused=True) \
                 if flat else ()

@@ -32,6 +32,12 @@ einsum path, runs the layer's own einsum and softmax in all three places,
 on any device (``flash_supported``). LayerNormalization and
 PositionalEmbedding differentiate by autograd.
 
+``scaled_dot_product_attention`` is the JAX package's function, with its
+q / k offsets: K5 (K6 + K7 under autograd) where the JAX function's flash
+screen holds, else the plain scores over positions ``arange + offset``.
+``MultiHeadAttention.apply`` attends through it with no offsets, which
+is the path and the numbers described above.
+
 KV writes are in place (``index_put_``) where the JAX layer builds a new
 cache with ``.at[].set`` on every step. Position masking keeps that safe:
 a step writes row ``pos`` before it reads rows 0..pos, so every row a
@@ -64,6 +70,39 @@ def _attend(q, k, v, keep=None) -> torch.Tensor:
     if keep is not None:
         s = s.masked_fill(~keep, float("-inf"))
     return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
+
+
+def scaled_dot_product_attention(q, k, v, *, causal=False, mask=None,
+                                 q_offset=0, k_offset=0, train=False):
+    """Attention of q over k and v, each (B, T, H, Dh), ``mask`` (B, Tk) a
+    key-padding mask, ``q_offset`` / ``k_offset`` the global positions of
+    the first query and key for the causal mask of sequence blocks (the
+    JAX package's function). With no mask, zero offsets, one shape for
+    q, k and v and a head dim ``ops.head_dim_supported`` takes, it is
+    ``ops.flash_attention`` (K5, and K6 + K7 under autograd, on a card);
+    otherwise the plain scores with the causal mask over ``arange +
+    offset``, which is what the JAX function computes there too.
+    ``train`` is taken for the JAX signature (its route tables read it;
+    the port routes by the function alone)."""
+    if (mask is None and q_offset == 0 and k_offset == 0
+            and q.shape == k.shape == v.shape
+            and ops.head_dim_supported(q.shape[-1])):
+        B, T, H, Dh = q.shape
+
+        def fold(a):    # (B, T, H, Dh) -> (B*H, T, Dh) float32
+            return a.permute(0, 2, 1, 3).reshape(B * H, T, Dh).float() \
+                .contiguous()
+        o = ops.flash_attention(fold(q), fold(k), fold(v), causal)
+        return o.reshape(B, H, T, Dh).permute(0, 2, 1, 3).to(q.dtype)
+    keep = None
+    if causal:
+        qpos = torch.arange(q.shape[1], device=q.device) + q_offset
+        kpos = torch.arange(k.shape[1], device=q.device) + k_offset
+        keep = qpos[:, None] >= kpos[None, :]
+    if mask is not None:
+        keys = mask[:, None, None, :] > 0
+        keep = keys if keep is None else keep & keys
+    return _attend(q, k, v, keep)
 
 
 def _positions(pos, B, device) -> torch.Tensor:
@@ -149,22 +188,9 @@ class MultiHeadAttention(Layer):
         keys are all masked gives NaN in both)."""
         x = self.maybe_dropout(x, train=train, gen=gen)
         B, T, _ = x.shape
-        H, Dh = self.n_heads, self.head_dim
         q, k, v = self._project(params, x)
-        if mask is not None or not self.flash_supported():
-            keep = (torch.ones(T, T, dtype=torch.bool, device=x.device).tril()
-                    if self.causal else None)
-            if mask is not None:
-                keys = mask[:, None, None, :] > 0
-                keep = keys if keep is None else keep & keys
-            return self._project_out(params, _attend(q, k, v, keep), B, T,
-                                     q.dtype)
-
-        def fold(a):    # (B, T, H, Dh) -> (B*H, T, Dh) float32
-            return a.permute(0, 2, 1, 3).reshape(B * H, T, Dh).float() \
-                .contiguous()
-        o = ops.flash_attention(fold(q), fold(k), fold(v), self.causal)
-        o = o.reshape(B, H, T, Dh).permute(0, 2, 1, 3)
+        o = scaled_dot_product_attention(q, k, v, causal=self.causal,
+                                         mask=mask, train=train)
         return self._project_out(params, o, B, T, q.dtype)
 
     # ---- incremental decode ----------------------------------------------

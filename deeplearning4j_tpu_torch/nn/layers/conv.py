@@ -531,6 +531,10 @@ class BatchNormalization(Layer):
     decay: float = 0.9
     eps: float = 1e-5
     lock_gamma_beta: bool = False
+    # (x, dims) -> (mean, var) over the batch of every data-parallel rank:
+    # set by a synchronous data-parallel step across ranks
+    # (parallel/wrapper.py), None otherwise (the batch is this call's)
+    batch_stats = None
 
     def set_n_in(self, input_type):
         if self.n_in == 0:
@@ -553,8 +557,11 @@ class BatchNormalization(Layer):
               state=None):
         dims = tuple(range(x.ndim - 1))
         if train:
-            mean = x.mean(dim=dims)
-            var = x.var(dim=dims, correction=0)
+            if BatchNormalization.batch_stats is not None:
+                mean, var = BatchNormalization.batch_stats(x, dims)
+            else:
+                mean = x.mean(dim=dims)
+                var = x.var(dim=dims, correction=0)
             if state is not None:
                 with torch.no_grad():
                     for k, batch in (("mean", mean), ("var", var)):

@@ -37,7 +37,11 @@ def test_every_module_is_checked_and_every_kernel_source_built():
     for m in ("deeplearning4j_tpu_torch", "deeplearning4j_tpu_torch.ops",
               "deeplearning4j_tpu_torch.ops.attention_cuda",
               "deeplearning4j_tpu_torch.models.computation_graph",
-              "deeplearning4j_tpu_torch.data.dataset"):
+              "deeplearning4j_tpu_torch.data.dataset",
+              "deeplearning4j_tpu_torch.exec.mesh",
+              "deeplearning4j_tpu_torch.parallel.wrapper",
+              "deeplearning4j_tpu_torch.parallel.distributed",
+              "deeplearning4j_tpu_torch.scaleout.training_master"):
         assert m in PORT_MODULES
     assert sorted(build.SOURCES) == sorted(
         p.name for p in build.CSRC.glob("*.cu"))

@@ -8,8 +8,10 @@ and ``output(x, train=False)`` on both containers,
 ``restore_computation_graph(path, False)`` and the containers' ``load``,
 ``DecodeEngine(model, slots, max_len, eos_id, max_queue, precision,
 kv)`` and ``InferenceEngine(model, max_batch, min_bucket, precision)``;
-the serving entry points' parameters, and the public names of ``monitor``
-and ``exec.programs``, are the JAX package's.
+the serving entry points' parameters, the data-parallel ones
+(``parallel``, ``scaleout``, the mesh, ``scaled_dot_product_attention``),
+and the public names of ``monitor`` and ``exec.programs``, are the JAX
+package's.
 Outputs and parameters must be identical (``torch.equal``).
 """
 
@@ -237,6 +239,81 @@ def test_fleet_entry_points_take_the_jax_positions(entry):
     ours = params("deeplearning4j_tpu_torch")
     theirs = params("deeplearning4j_tpu")
     assert ours == theirs + extra
+
+
+# each data-parallel entry point: (port module, attribute, method or None,
+# the port's own extra parameters after the JAX ones)
+PARALLEL_ENTRIES = {
+    "ParallelWrapper.__init__": ("parallel.wrapper", "ParallelWrapper",
+                                 "__init__", []),
+    "ParallelWrapper.fit": ("parallel.wrapper", "ParallelWrapper", "fit",
+                            []),
+    "ParallelWrapper.fit_scan": ("parallel.wrapper", "ParallelWrapper",
+                                 "fit_scan", []),
+    "wrapper.default_mesh": ("parallel.wrapper", "default_mesh", None,
+                             [("device", None)]),
+    "ParallelInference.__init__": ("parallel.inference",
+                                   "ParallelInference", "__init__", []),
+    "ParallelInference.output": ("parallel.inference", "ParallelInference",
+                                 "output", []),
+    "ParallelInference.submit": ("parallel.inference", "ParallelInference",
+                                 "submit", []),
+    "initialize": ("parallel.distributed", "initialize", None,
+                   [("backend", None), ("device", None)]),
+    "pod_mesh": ("parallel.distributed", "pod_mesh", None, []),
+    "local_batch_slice": ("parallel.distributed", "local_batch_slice", None,
+                          []),
+    "set_topology": ("parallel.distributed", "set_topology", None, []),
+    "build_mesh": ("exec.mesh", "build_mesh", None, []),
+    "host_device_env": ("exec.mesh", "host_device_env", None, []),
+    "set_default_mesh": ("exec.mesh", "set_default_mesh", None, []),
+    "threshold_encode": ("parallel.compression", "threshold_encode", None,
+                         []),
+    "threshold_decode": ("parallel.compression", "threshold_decode", None,
+                         []),
+    "adapt_threshold": ("parallel.compression", "adapt_threshold", None,
+                        []),
+    "EncodingHandler.__init__": ("parallel.compression", "EncodingHandler",
+                                 "__init__", []),
+    "EncodedGradientsAccumulator.__init__": (
+        "parallel.compression", "EncodedGradientsAccumulator", "__init__",
+        []),
+    "repartition": ("scaleout.cluster", "repartition", None, []),
+    "ParameterAveragingTrainingMaster.__init__": (
+        "scaleout.training_master", "ParameterAveragingTrainingMaster",
+        "__init__", []),
+    "SharedTrainingMaster.__init__": (
+        "scaleout.training_master", "SharedTrainingMaster", "__init__", []),
+    "SharedTrainingMaster.execute_training_collective": (
+        "scaleout.training_master", "SharedTrainingMaster",
+        "execute_training_collective", []),
+    "ClusterMultiLayerNetwork.fit": ("scaleout.cluster",
+                                     "ClusterMultiLayerNetwork", "fit", []),
+    "scaled_dot_product_attention": ("nn.layers.attention",
+                                     "scaled_dot_product_attention", None,
+                                     []),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(PARALLEL_ENTRIES))
+def test_parallel_entry_points_take_the_jax_positions(entry):
+    """The data-parallel modules' parameters (parallel/, scaleout/, the
+    mesh, the q / k offsets of ``scaled_dot_product_attention``) sit where
+    the JAX package puts them, with its defaults; ``initialize`` adds the
+    keyword-only ``backend`` and ``device``, the wrapper's
+    ``default_mesh`` a ``device``."""
+    import importlib
+    import inspect
+    mod, attr, meth, extra = PARALLEL_ENTRIES[entry]
+
+    def params(pkg):
+        obj = getattr(importlib.import_module(f"{pkg}.{mod}"), attr)
+        if meth is not None:
+            obj = getattr(obj, meth)
+        return [(p.name, _norm(p.default))
+                for p in inspect.signature(obj).parameters.values()]
+    assert params("deeplearning4j_tpu_torch") == \
+        params("deeplearning4j_tpu") + extra
 
 
 @pytest.mark.parametrize("module", ["monitor", "exec.programs"])

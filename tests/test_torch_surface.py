@@ -1,9 +1,11 @@
 """The port's public surface against the JAX package's, on the CPU.
 
 - Package namespaces: every name of a JAX package's ``__all__`` whose
-  module is ported imports from the port's package; the names still to
-  port are listed (ROADMAP queue 1 item 8), with ``exec.aot``'s
-  ``export_compiled``, an XLA executable's export, which has no
+  module is ported imports from the port's package (``parallel``,
+  ``parallel.distributed``, ``scaleout`` and ``exec``'s mesh names
+  too); the names still to port are listed (ROADMAP queue 1 items 7 and
+  8), with ``exec.aot``'s ``export_compiled``, an XLA executable's
+  export, and ``exec``'s measured route tables, which have no
   counterpart.
 - The configuration builder: the JAX setters (``bias_init``,
   ``learning_rate``, ``optimization_algo``, ``dtype``, ``compute_dtype``,
@@ -37,7 +39,9 @@ from test_torch_regularised_training import port_of
 V = 13
 
 # JAX __all__ names whose modules wait for later items (the streaming
-# data path), or that have no counterpart (an XLA executable's export)
+# data path; scaleout's ml_pipeline, item 8; the executor's sharding
+# specs and param_spec, item 7's tensor-parallel part), or that have no
+# counterpart (an XLA executable's export; the measured route tables)
 NOT_PORTED = {
     "deeplearning4j_tpu": set(),
     "deeplearning4j_tpu.serving": set(),
@@ -47,6 +51,16 @@ NOT_PORTED = {
     "deeplearning4j_tpu.monitor": set(),
     "deeplearning4j_tpu.exec.programs": set(),
     "deeplearning4j_tpu.exec.aot": {"export_compiled"},
+    "deeplearning4j_tpu.exec": {
+        "AUX", "BATCH", "OPT", "PARAMS", "REPL", "SLOTS", "STATE",
+        "STEP_BATCH", "param_spec", "decode_attn_route", "flash_attn_route",
+        "load_measurements", "load_measurements_file", "lstm_fwd_route",
+        "lstm_grad_route", "set_route"},
+    "deeplearning4j_tpu.parallel": set(),
+    "deeplearning4j_tpu.parallel.distributed": set(),
+    "deeplearning4j_tpu.scaleout": {
+        "AutoEncoderEstimator", "AutoEncoderModel", "NetworkClassifier",
+        "NetworkModel", "Pipeline"},
 }
 
 
