@@ -243,7 +243,7 @@ result line, when any of them or the port's package is missing. Phases:
    (speculation with chunked prefill); and the TextGenerationLSTM with
    ``early_exit:1``, tree (3, 2), dense. Each part runs the eager engine
    (the ``_capture_programs = False`` seam) and the captured one in turns
-   over 3 rounds in this call: tokens identical between them and across
+   over 2 rounds in this call: tokens identical between them and across
    rounds, greedy tokens against ``generate_naive`` under the near-tie
    rule, the launches of every round exactly the plain steps', verifies'
    and draft steps' (as (b)), each program one capture whose replay
@@ -251,7 +251,7 @@ result line, when any of them or the port's package is missing. Phases:
    draft) and nothing for a chunk or a copy, no new capture after
    ``warmup()``, ``trace_count`` 1, no block in use at the end; ms a step
    (plain: decode seconds a step) or a tick (wall a verify) eager and
-   captured, min / median / max of the 3 rounds; ten captured steps or
+   captured, min / median / max of the 2 rounds; ten captured steps or
    ticks under ``torch.profiler``; the counters of 3 prompts one at a time
    (24 new tokens) against the CPU port's where the tokens agree.
    Then tokens/s of each part against the captured plain engine, time to
@@ -518,6 +518,31 @@ result line, when any of them or the port's package is missing. Phases:
    float64 (no kernel), and zero offsets through one K5 against the CPU
    port, 1e-4. Its launches join the kernels line (K3, K4, K4-train,
    K5-K7); under 90 s.
+19. The elastic cluster (``cluster_phase``): ``exec.cluster.
+   ClusterManager`` spawning ``python -m deeplearning4j_tpu_torch.exec.
+   worker --device cuda`` processes that share the card, ``charlstm``
+   (LSTM(24), T=16, vocabulary 16) at full width, 32 rows a step; K2 and
+   K3 first at the workers' shape (T=16, B=16, H=24) against their plain
+   versions. (a) 2 workers, 8 steps, an anchor every 4, over the chain and
+   over the star: every digest bit for bit
+   ``single_process_reference(world=2)`` run in this process; each worker
+   one K2 and one K3 a step it ran (its own counters, in its result);
+   ms a step, the allreduce's ms, bytes each way. (b) (a)'s chain run with
+   ``die_at_step=5`` on worker 1: 3 spawns, 1 replacement, generation >=
+   2, the final digest (a)'s; the replacement restores the step-4 anchor
+   and the artifact's recipes (``aot_restored`` >= 1, none rejected: its
+   captures' launches are the recipes'); the seconds from the kill to its
+   first step. (c) 3 workers, 700 ms a step, ``partition=[2]``,
+   ``replace=False``: w2's link starved after step 2, its lease expires,
+   the grace window commits world 2, the job finishes with the survivors'
+   pids unchanged; then ``codec="threshold"`` on 2 workers: one digest,
+   compression > 2x, the final loss within 0.05 of the dense chain's
+   (the stream is uniform random tokens, so the loss cannot fall below
+   ln 16). (d) The data plane alone: two in-process ``ChainComms`` members
+   carry widemlp's vector (3154948 float32), dense and threshold, against
+   the star over HTTP; dense = star bit for bit. The oracle's launches
+   join the kernels line (K2, K3); the workers' are printed apart, under
+   ``charlstm`` in the K2 and K3 entries with the phase-19-shape numbers.
 
 A replayed CUDA graph adds to the launch counts the launches its capture
 recorded (the capture itself counts none), so the counts below are the
@@ -3595,7 +3620,7 @@ def spec_lstm_part(card, res):
 
 
 # ------------------------------------------------------------- phase 11 (d)
-ROUNDS = 3            # eager and captured rounds, in turns, in one call
+ROUNDS = 2            # eager and captured rounds, in turns, in one call
 ONE_AT_A_TIME, ONE_NEW = 3, 24   # prompts and new tokens of the CPU check
 
 
@@ -3835,6 +3860,15 @@ def _swap_and_eos(net, vocab, prompts, plain, max_len, card):
     try:
         caps0 = {k: p["captures"] for k, p in eng.program_stats().items()}
         futs = [eng.submit(p, max_new_tokens=SERVE_NEW) for p in prompts]
+        # a staged swap pauses admission, so a request still queued when
+        # it is staged runs on the new weights: stage it only once the
+        # loop has admitted every stream
+        deadline = time.monotonic() + 60
+        while eng.stats()["queued_requests"]:
+            if time.monotonic() > deadline:
+                raise AssertionError("phase 11 (d) swap: the streams were "
+                                     "not admitted within 60 s")
+            time.sleep(0.001)
         t0 = time.perf_counter()
         version = eng.swap_weights(new.params, timeout=600)
         out["swap_wait_s"] = time.perf_counter() - t0
@@ -7906,6 +7940,464 @@ def dp_phase(card, dev="cuda"):
     return res
 
 
+# ---- phase 19: the elastic cluster ----------------------------------------
+CLUSTER_MODEL = "charlstm"      # LSTM(24) over T=16, vocabulary 16
+CLUSTER_SEED, CLUSTER_STEPS, CLUSTER_B = 42, 8, 32
+CLUSTER_CKPT_EVERY = 4
+CLUSTER_KILL = "die_at_step=5"             # (b): worker 1's scripted death
+CLUSTER_TIMEOUT = 180                      # each ClusterManager.run
+# (b): a replacement on the card joins ~10 s after its spawn (a fresh
+# process: imports, CUDA); JAX's 8 s default grace is sized for CPU workers
+REPLACEMENT_GRACE = 60.0
+CLUSTER_STEP_LAUNCHES = {"lstm_fwd_train": 1, "lstm_bwd": 1}
+# (c): three workers, 30 rows, slowed so the steps outlast the lease
+PART_STEPS, PART_B, PART_SLOW_MS = 10, 30, 700
+THRESHOLD_LOSS = 0.05          # (c): the threshold run's loss from dense's
+COMMS_REPS = 5                             # (d): allreduces of each plane
+
+
+def _cluster_digests(res):
+    return {w: r["params_digest"] for w, r in res["results"].items()}
+
+
+def _worker_launches(res):
+    """Each worker's launches against one K2 and one K3 per call of its
+    gradient program (its own counters, in its payload): a step the chain
+    tore after its gradients (a peer's death) ran them and is run again
+    from the anchor. The sum over the workers."""
+    total = {}
+    for w, r in res["results"].items():
+        want = {k: n * r["grad_calls"] for k, n in
+                CLUSTER_STEP_LAUNCHES.items()} if r["device"] != "cpu" \
+            else {}
+        if r["launches"] != want:
+            raise AssertionError(f"phase 19 worker {w}: launches "
+                                 f"{r['launches']} over {r['grad_calls']} "
+                                 f"gradient calls ({r['steps_run']} steps),"
+                                 f" want {want}")
+        for k, n in r["launches"].items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def _cluster_summary(res):
+    """ms a step (the median of the worker's steps after its first, which
+    warms up and captures), comm seconds and bytes each way, per
+    worker."""
+    return {w: {"ms_per_step": statistics.median(r["step_ms"][1:]
+                                                 or r["step_ms"]),
+                "comm_ms_per_step": statistics.median(r["comm_ms"][1:]
+                                                      or r["comm_ms"]),
+                "first_step_ms": r["step_ms"][0],
+                "comm_seconds": r["comms"]["comm_seconds"],
+                "bytes_sent": r["comms"]["bytes_sent"],
+                "bytes_recv": r["comms"]["bytes_recv"],
+                "steps_run": r["steps_run"], "grad_calls": r["grad_calls"],
+                "rank": r["rank"],
+                "aot_restored": r["aot_restored"]}
+            for w, r in sorted(res["results"].items())}
+
+
+def _cluster_manager(workdir, dev, **kw):
+    """A ClusterManager of phase 19's job; ``kw`` overrides its
+    defaults."""
+    from deeplearning4j_tpu_torch.exec.cluster import ClusterManager
+    args = dict(workers=2, model=CLUSTER_MODEL, seed=CLUSTER_SEED,
+                total_steps=CLUSTER_STEPS, global_batch=CLUSTER_B,
+                ckpt_every=CLUSTER_CKPT_EVERY, aot=True, device=dev)
+    args.update(kw)
+    return ClusterManager(workdir, **args)
+
+
+def _cluster_run(workdir, dev, **kw):
+    t0 = time.perf_counter()
+    res = _cluster_manager(workdir, dev, **kw).run(timeout=CLUSTER_TIMEOUT)
+    res["wall_seconds"] = time.perf_counter() - t0
+    return res
+
+
+def _oracle_steps(dev):
+    """``single_process_reference``'s loop over fresh programs, each step
+    timed (host ms, synchronized): the oracle's ms a step."""
+    import torch
+    from deeplearning4j_tpu_torch.exec.executor import step_seed
+    from deeplearning4j_tpu_torch.exec.worker import (dp_programs,
+                                                      params_digest,
+                                                      synth_batch)
+    from deeplearning4j_tpu_torch.serving.replica import build_model
+    net = build_model(CLUSTER_MODEL, device=dev)
+    grad, upd = dp_programs(net)
+    half = CLUSTER_B // 2
+    ms = []
+    for step in range(CLUSTER_STEPS):
+        t0 = time.perf_counter()
+        x, y = synth_batch(CLUSTER_MODEL, CLUSTER_SEED, step, CLUSTER_B)
+        total = None
+        for sl in (slice(0, half), slice(half, CLUSTER_B)):
+            vec, _ = grad(x[sl], y[sl], step_seed(CLUSTER_SEED, step))
+            vec = vec * np.float32(half)
+            total = vec if total is None else total + vec
+        upd((total / np.float32(CLUSTER_B))[1:])
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"ms": statistics.median(ms[1:]), "first_ms": ms[0],
+            "params_digest": params_digest(net.params)}
+
+
+def cluster_parity_part(card, res, work, dev="cuda"):
+    """(a) The parity triangle: chain = star = the in-process oracle."""
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.exec.worker import \
+        single_process_reference
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ref = single_process_reference(CLUSTER_MODEL, CLUSTER_SEED,
+                                   CLUSTER_STEPS, CLUSTER_B, 2, device=dev)
+    ref_s = time.perf_counter() - t0
+    steady = _oracle_steps(dev)
+    want = {k: n * 4 * CLUSTER_STEPS for k, n in
+            CLUSTER_STEP_LAUNCHES.items()} if dev != "cpu" else {}
+    launches = _expect_launches("phase 19 (a) oracle", want)
+    if steady["params_digest"] != ref["params_digest"]:
+        raise AssertionError(f"phase 19 (a): the timed oracle {steady} "
+                             f"differs from {ref}")
+    out = {"reference": ref, "reference_seconds": ref_s,
+           "oracle_ms_per_step": steady["ms"],
+           "oracle_first_step_ms": steady["first_ms"],
+           "launches": launches}
+    workers = {}
+    for plane in ("chain", "star"):
+        r = _cluster_run(work / plane, dev, data_plane=plane)
+        d = _cluster_digests(r)
+        launches = _worker_launches(r)
+        for k, n in launches.items():
+            workers[k] = workers.get(k, 0) + n
+        out[plane] = {"digests": d, "workers": _cluster_summary(r),
+                      "generation": r["generation"],
+                      "wall_seconds": r["wall_seconds"],
+                      "workers_launches": launches}
+        ok = (set(d.values()) == {ref["params_digest"]} and len(d) == 2
+              and r["generation"] == 1 and r["spawns"] == 2
+              and all(v["steps_run"] == CLUSTER_STEPS
+                      for v in out[plane]["workers"].values()))
+        print(f"cluster: (a) {plane}, 2 workers on one card, "
+              f"{CLUSTER_MODEL} {CLUSTER_STEPS} steps of {CLUSTER_B} rows: "
+              f"digests {sorted(set(d.values()))} against the oracle's "
+              f"{ref['params_digest']} ({'bit for bit' if ok else 'DIFFER'}"
+              f"); per worker ms a step (median after the first), its "
+              f"allreduce's ms, comm s, bytes sent / received "
+              + "; ".join(f"{w} {v['ms_per_step']:.3f} ms, "
+                          f"{v['comm_ms_per_step']:.3f} ms, "
+                          f"{v['comm_seconds']:.4f} s, {v['bytes_sent']} / "
+                          f"{v['bytes_recv']} (first step "
+                          f"{v['first_step_ms']:.1f} ms)"
+                          for w, v in out[plane]["workers"].items())
+              + f"; the workers' launches {launches}; run "
+              f"{r['wall_seconds']:.1f} s [{card}]", flush=True)
+        if not ok:
+            raise AssertionError(f"phase 19 (a) {plane}: {out[plane]}")
+    print(f"cluster: (a) the oracle in this process: "
+          f"{steady['ms']:.3f} ms a step (2 shard gradients and one "
+          f"update; median after the first, {steady['first_ms']:.1f} ms); "
+          f"single_process_reference {ref_s:.2f} s for {CLUSTER_STEPS} "
+          f"steps; launches {out['launches']} (both runs) [{card}]",
+          flush=True)
+    out["workers_launches"] = workers
+    res["parity"] = out
+    return ref
+
+
+def cluster_kill_part(card, res, work, ref, dev="cuda"):
+    """(b) SIGKILL and replacement from the anchor and its AOT artifact."""
+    import threading
+    mgr = _cluster_manager(work / "kill", dev,
+                           replacement_grace=REPLACEMENT_GRACE,
+                           chaos={1: CLUSTER_KILL})
+    mgr.start()
+    died = {}
+
+    def watch():        # when the scripted SIGKILL lands (20 ms polls)
+        p = mgr.procs["w1"]
+        while p.alive() and "stop" not in died:
+            time.sleep(0.02)
+        died.setdefault("at", time.time())
+    watcher = threading.Thread(target=watch, daemon=True)
+    watcher.start()
+    t0 = time.perf_counter()
+    try:
+        r = mgr.run(timeout=CLUSTER_TIMEOUT)
+    finally:
+        died.setdefault("stop", True)
+        watcher.join(timeout=5)
+    wall = time.perf_counter() - t0
+    d = _cluster_digests(r)
+    repl = r["results"].get("w1r1", {})
+    first = repl.get("first_step_at")
+    kill_to_step = (first - died["at"]) if first and "at" in died else None
+    out = {"digests": d, "spawns": r["spawns"],
+           "replacements": r["replacements"], "generation": r["generation"],
+           "last_recovery_wall": r["last_recovery_wall"],
+           "kill_to_first_step_s": kill_to_step,
+           "replacement": {k: repl.get(k) for k in
+                           ("aot_restored", "aot_rejected", "rank",
+                            "steps_run", "rejoined")},
+           "workers": _cluster_summary(r), "wall_seconds": wall,
+           "w1_returncode": mgr.procs["w1"].proc.returncode,
+           "survivor_returncode": mgr.procs["w0"].proc.returncode}
+    launches = _worker_launches(r)
+    log = mgr.procs["w1r1"].log_text() if "w1r1" in mgr.procs else ""
+    ok = (set(d.values()) == {ref["params_digest"]} and len(d) == 2
+          and r["spawns"] == 3 and r["replacements"] == 1
+          and r["generation"] >= 2 and repl.get("aot_restored", 0) >= 1
+          and repl.get("aot_rejected") == 0
+          and "CLUSTER_AOT restored=" in log
+          and out["survivor_returncode"] == 0 and kill_to_step is not None)
+    print(f"cluster: (b) {CLUSTER_KILL} on worker 1: spawns {r['spawns']}, "
+          f"replacements {r['replacements']}, generation {r['generation']}; "
+          f"digests {sorted(set(d.values()))} against (a)'s "
+          f"{ref['params_digest']} ({'bit for bit' if ok else 'FAILED'}); "
+          f"the replacement restored {repl.get('aot_restored')} programs "
+          f"from the artifact (rejected {repl.get('aot_rejected')}, its "
+          f"captures' launches the recipes'), rank {repl.get('rank')}; "
+          f"kill to its first step {kill_to_step:.2f} s, the coordinator's "
+          f"eviction to commit {r['last_recovery_wall']:.2f} s; the "
+          f"workers' launches {launches}; run {wall:.1f} s [{card}]"
+          if kill_to_step is not None else f"cluster: (b) {out}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"phase 19 (b): {out}\n{log[-3000:]}")
+    out["workers_launches"] = launches
+    res["kill"] = out
+
+
+def _reap_partitioned(mgr, wid, timeout=CLUSTER_TIMEOUT):
+    """SIGKILL ``wid`` once a generation without it has committed."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        st = mgr.coord.state()
+        if st["generation"] >= 2 and wid not in st["members"]:
+            mgr.procs[wid].kill()
+            return
+        time.sleep(0.05)
+
+
+def cluster_partition_part(card, res, work, dev="cuda"):
+    """(c) A partitioned worker evicted, the job committed at world 2;
+    then the threshold codec on two workers."""
+    import threading
+    mgr = _cluster_manager(work / "part", dev, workers=3,
+                           total_steps=PART_STEPS, global_batch=PART_B,
+                           ckpt_every=3, aot=False, hb_interval=0.2,
+                           suspect_after=0.8, evict_after=2.0,
+                           replacement_grace=2.0, replace=False,
+                           partition=[2],
+                           chaos={i: f"slow_ms={PART_SLOW_MS}"
+                                  for i in range(3)})
+    t0 = time.perf_counter()
+    mgr.start()
+    try:
+        deadline = time.monotonic() + CLUSTER_TIMEOUT
+        while mgr.coord.reduced_steps < 2:   # partition after step 2
+            if time.monotonic() > deadline:
+                raise AssertionError("phase 19 (c): never reached step 2")
+            time.sleep(0.05)
+        pids = {w: p.pid for w, p in mgr.procs.items()}
+        if not mgr.procs["w2"].alive():
+            raise AssertionError("phase 19 (c): w2 died before the cut")
+        mgr.partition_worker("w2")
+        at_step = mgr.coord.reduced_steps
+    except BaseException:
+        mgr.stop()
+        raise
+    # w2 cannot hear of its eviction (its link is starved) and would wait
+    # out its reform deadline: once the job commits without it, its
+    # operator reaps it, so the run does not wait for it at the end
+    reaper = threading.Thread(target=_reap_partitioned, args=(mgr, "w2"),
+                              daemon=True)
+    reaper.start()
+    r = mgr.run(timeout=CLUSTER_TIMEOUT)
+    reaper.join(timeout=5)
+    wall = time.perf_counter() - t0
+    evicted = [e for e in r["events"] if e["type"] == "evicted"]
+    degraded = [e for e in r["events"]
+                if e["type"] == "generation_committed" and e["world"] == 2]
+    digs = _cluster_digests(r)
+    same_pids = all(mgr.procs[w].pid == pids[w] for w in ("w0", "w1"))
+    codes = {w: mgr.procs[w].proc.returncode for w in ("w0", "w1")}
+    out = {"world": r["world"], "results": sorted(r["results"]),
+           "digests": digs, "evicted": evicted, "partitioned_at": at_step,
+           "degraded_commits": len(degraded),
+           "reduced_steps": r["reduced_steps"], "same_pids": same_pids,
+           "returncodes": codes, "wall_seconds": wall,
+           "workers": _cluster_summary(r)}
+    launches = _worker_launches(r)
+    ok = (r["world"] == 2 and set(r["results"]) == {"w0", "w1"}
+          and len(set(digs.values())) == 1 and evicted
+          and evicted[0]["worker_id"] == "w2"
+          and evicted[0]["reason"] == "lease_expired" and degraded
+          and r["reduced_steps"] == PART_STEPS and same_pids
+          and set(codes.values()) == {0})
+    print(f"cluster: (c) 3 workers ({PART_SLOW_MS} ms a step), w2 "
+          f"partitioned at step {at_step}: evicted "
+          f"{[(e['worker_id'], e['reason']) for e in evicted[:1]]}, "
+          f"committed "
+          f"at world {r['world']}, {r['reduced_steps']} steps, survivors "
+          f"{sorted(r['results'])} with their pids unchanged {same_pids} "
+          f"and exit codes {codes}, one digest "
+          f"{len(set(digs.values())) == 1}; the workers' launches "
+          f"{launches}; run {wall:.1f} s [{card}]", flush=True)
+    if not ok:
+        raise AssertionError(f"phase 19 (c): {out}")
+    out["workers_launches"] = launches
+    # the synthetic stream is uniform random tokens: no model gets the
+    # expected loss under ln 16 = 2.7726, and step 0's is 2.7765, so the
+    # bar is the dense chain's loss at the same step (same batches)
+    dense_loss = res["parity"]["reference"]["final_loss"]
+    t = _cluster_run(work / "threshold", dev, codec="threshold",
+                     bucket_mb=0.005, capacity_fraction=0.05)
+    losses = {w: v["final_loss"] for w, v in t["results"].items()}
+    tout = {"dense_final_loss": dense_loss, "final_losses": losses,
+            "digests": _cluster_digests(t),
+            "compression_ratio": {w: v["comms"]["compression_ratio"]
+                                  for w, v in t["results"].items()},
+            "workers": _cluster_summary(t),
+            "wall_seconds": t["wall_seconds"],
+            "workers_launches": _worker_launches(t)}
+    ok = (len(set(tout["digests"].values())) == 1
+          and all(np.isfinite(v) and abs(v - dense_loss) <= THRESHOLD_LOSS
+                  for v in losses.values())
+          and min(tout["compression_ratio"].values()) > 2.0)
+    print(f"cluster: (c) codec threshold, 2 workers, {CLUSTER_STEPS} "
+          f"steps: final loss {sorted(set(losses.values()))} against the "
+          f"dense chain's {dense_loss:.4f} (bar {THRESHOLD_LOSS}), "
+          f"compression {tout['compression_ratio']}, bytes sent "
+          f"{[v['bytes_sent'] for v in tout['workers'].values()]}; run "
+          f"{t['wall_seconds']:.1f} s [{card}]", flush=True)
+    if not ok:
+        raise AssertionError(f"phase 19 (c) threshold: {tout}")
+    out["threshold"] = tout
+    res["partition"] = out
+
+
+def cluster_comms_part(card, res):
+    """(d) The data plane alone: two in-process ChainComms members over
+    loopback carry widemlp's vector; against the star's HTTP path. No
+    kernel runs here."""
+    import threading
+    from deeplearning4j_tpu_torch.exec.comms import ChainComms
+    from deeplearning4j_tpu_torch.exec.elastic import (CoordinatorServer,
+                                                       ElasticCoordinator)
+    from deeplearning4j_tpu_torch.exec.worker import CoordClient
+    from deeplearning4j_tpu_torch.serving.replica import build_model
+    net = build_model("widemlp", device="cpu")
+    n = 1 + sum(v.numel() for p in net.params for v in p.values())
+    rng = np.random.default_rng(19)
+    vecs = [(rng.standard_normal(n) * 1e-3).astype(np.float32)
+            for _ in range(2)]
+    rows = [16, 16]
+
+    def both(fns):
+        outs, errs = [None, None], []
+
+        def go(i):
+            try:
+                outs[i] = fns[i]()
+            except BaseException as e:   # noqa: BLE001 -- raised below
+                errs.append(e)
+        ts = [threading.Thread(target=go, args=(i,)) for i in range(2)]
+        t0 = time.perf_counter()
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=120)
+        if errs:
+            raise errs[0]
+        return outs, (time.perf_counter() - t0) * 1e3
+
+    out = {"elements": n, "bytes": 4 * n}
+    results = {}
+    for codec in ("dense", "threshold"):
+        members = [ChainComms(codec=codec, codec_opts={
+            "threshold": 1e-3, "capacity_fraction": 0.1}) for _ in range(2)]
+        try:
+            eps = {r: ("127.0.0.1", m.data_port)
+                   for r, m in enumerate(members)}
+            both([lambda r=r: members[r].configure(1, r, 2, eps)
+                  for r in range(2)])
+            ms = []
+            for step in range(COMMS_REPS):
+                got, t = both([lambda r=r: members[r].allreduce(
+                    step, vecs[r], rows[r]) for r in range(2)])
+                ms.append(t)
+            results[codec] = got[0]
+            out[codec] = {"ms": statistics.median(ms), "all_ms": ms,
+                          "bytes_sent": members[0].last["bytes_sent"],
+                          "compression_ratio":
+                          members[0].last["compression_ratio"]}
+        finally:
+            for m in members:
+                m.close()
+    coord = ElasticCoordinator(2)
+    srv = CoordinatorServer(coord, tick_interval=None).start()
+    try:
+        clients = [CoordClient(srv.url, f"w{r}") for r in range(2)]
+        for c in clients:
+            c.join()
+        both([lambda c=c: c.sync(1) for c in clients])
+        for c in clients:
+            c.sync(1)
+        ranks = {w: m["rank"] for w, m in coord.state()["members"].items()}
+        ms = []
+        for step in range(COMMS_REPS):
+            got, t = both([lambda c=c, step=step: c.allreduce(
+                1, step, rows[ranks[c.worker_id]],
+                vecs[ranks[c.worker_id]]) for c in clients])
+            ms.append(t)
+        out["star"] = {"ms": statistics.median(ms), "all_ms": ms}
+        star = got[0]
+    finally:
+        srv.stop()
+    same = results["dense"].tobytes() == star.tobytes()
+    print(f"cluster: (d) the data plane alone, widemlp's vector ({n} "
+          f"float32, {4 * n} bytes) between two in-process members: "
+          f"allreduce {out['dense']['ms']:.1f} ms dense chain, "
+          f"{out['threshold']['ms']:.1f} ms threshold chain (compression "
+          f"{out['threshold']['compression_ratio']:.1f}x), "
+          f"{out['star']['ms']:.1f} ms the star over HTTP (medians of "
+          f"{COMMS_REPS}); dense chain = star bit for bit {same} [{card}]",
+          flush=True)
+    if not same:
+        raise AssertionError("phase 19 (d): the dense chain differs from "
+                             "the star")
+    res["comms"] = out
+
+
+def cluster_phase(card, dev="cuda"):
+    """Phase 19: the elastic cluster (``chip_smoke.py`` docstring)."""
+    import shutil
+    t0 = time.perf_counter()
+    res = {"card": card, "kernel_rows": []}
+    if dev != "cpu":
+        # K2 and K3 at the shape the workers' gradient program gives them
+        for kernel in ("lstm_fwd_train", "lstm_bwd"):
+            row = kernel_case(kernel, 16, CLUSTER_B // 2, 24, "float32",
+                              seed=1)
+            print("cluster: phase 19 shape: " + fmt(row) + f" [{card}]",
+                  flush=True)
+            res["kernel_rows"].append(row)
+    work = ROOT / "build" / "cluster"
+    shutil.rmtree(work, ignore_errors=True)
+    ref = cluster_parity_part(card, res, work, dev)
+    cluster_kill_part(card, res, work, ref, dev)
+    cluster_partition_part(card, res, work, dev)
+    cluster_comms_part(card, res)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"cluster: phase 19 took {res['seconds']:.1f} s [{card}]",
+          flush=True)
+    return res
+
+
 def main() -> int:
     import torch
     if len(sys.argv) > 1 and sys.argv[1] == "--dp-rank":
@@ -8055,6 +8547,7 @@ def main() -> int:
     obs = observability_phase(card)
     routed = routed_phase(card, built)
     dp = dp_phase(card)
+    cluster = cluster_phase(card)
 
     # each kernel at its main path's shape, with the launches of the run
     # that drove it: /predict of the 15 held-out windows (bucket 16, T=64)
@@ -8072,8 +8565,12 @@ def main() -> int:
                    "lstm_bwd": (64, 32, {
                        k: train["launches_recipe"].get(k, 0)
                        + counted_launches(obs, k) + counted_launches(dp, k)
+                       + counted_launches(cluster, k)
                        for k in ("lstm2_fwd_train", "lstm_bwd")}),
-                   "lstm_fwd_train": (16, 32, train["launches_tbptt"])}
+                   "lstm_fwd_train": (16, 32, {
+                       "lstm_fwd_train":
+                       train["launches_tbptt"].get("lstm_fwd_train", 0)
+                       + counted_launches(cluster, "lstm_fwd_train")})}
     entries = []
 
     def entry(kernel, row, launches):
@@ -8094,6 +8591,20 @@ def main() -> int:
         row = kernel_case(kernel, T, B, 256, "float32", seed=1)
         print("main-path shape: " + fmt(row) + f" [{card}]", flush=True)
         entry(kernel, row, counts.get(kernel, 0))
+    # phase 19: the in-process oracle's K2 / K3 are in the totals above;
+    # the workers' own counters are printed apart, beside the kernels'
+    # numbers at the workers' shape (T=16, B=16, H=24)
+    for row in cluster["kernel_rows"]:
+        e = next(x for x in entries if x["name"] == row["kernel"])
+        e["charlstm"] = {k: row[k] for k in (
+            "T", "B", "H", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")}
+        e["charlstm"]["launches"] = counted_launches(cluster, row["kernel"])
+        e["charlstm"]["workers_launches"] = sum(
+            part["workers_launches"].get(row["kernel"], 0)
+            for part in (cluster["parity"], cluster["kill"],
+                         cluster["partition"],
+                         cluster["partition"]["threshold"]))
     # TinyTransformer: /predict of the held-out windows runs K5 at bucket 16
     # (BH 64, T=64, causal); the 8-slot engines run K8/K9 with C=512, here
     # at the streams' positions halfway through their completions
@@ -8175,7 +8686,8 @@ def main() -> int:
          "regularised": regularised, "fit_contract": fit_contract,
          "serving_features": serving, "cnn": cnn, "inception": inception,
          "kv_tier": kv_tier, "precision": precision, "observability": obs,
-         "routed": routed, "data_parallel": dp, "kernels": entries},
+         "routed": routed, "data_parallel": dp, "cluster": cluster,
+         "kernels": entries},
         indent=1))
     print(json.dumps({"kernels": entries}))
     print(card)

@@ -41,7 +41,11 @@ def test_every_module_is_checked_and_every_kernel_source_built():
               "deeplearning4j_tpu_torch.exec.mesh",
               "deeplearning4j_tpu_torch.parallel.wrapper",
               "deeplearning4j_tpu_torch.parallel.distributed",
-              "deeplearning4j_tpu_torch.scaleout.training_master"):
+              "deeplearning4j_tpu_torch.scaleout.training_master",
+              "deeplearning4j_tpu_torch.exec.elastic",
+              "deeplearning4j_tpu_torch.exec.comms",
+              "deeplearning4j_tpu_torch.exec.worker",
+              "deeplearning4j_tpu_torch.exec.cluster"):
         assert m in PORT_MODULES
     assert sorted(build.SOURCES) == sorted(
         p.name for p in build.CSRC.glob("*.cu"))

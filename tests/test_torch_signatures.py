@@ -10,6 +10,8 @@ and ``output(x, train=False)`` on both containers,
 kv)`` and ``InferenceEngine(model, max_batch, min_bucket, precision)``;
 the serving entry points' parameters, the data-parallel ones
 (``parallel``, ``scaleout``, the mesh, ``scaled_dot_product_attention``),
+the elastic cluster's (``exec.elastic``, ``exec.comms``, ``exec.worker``,
+``exec.cluster``; the port adds a keyword-only ``device``),
 and the public names of ``monitor`` and ``exec.programs``, are the JAX
 package's.
 Outputs and parameters must be identical (``torch.equal``).
@@ -314,6 +316,62 @@ def test_parallel_entry_points_take_the_jax_positions(entry):
                 for p in inspect.signature(obj).parameters.values()]
     assert params("deeplearning4j_tpu_torch") == \
         params("deeplearning4j_tpu") + extra
+
+
+# each elastic-cluster entry point: (port module, attribute, method or
+# None, the port's own extra parameters after the JAX ones)
+CLUSTER_ENTRIES = {
+    "ElasticCoordinator.__init__": ("exec.elastic", "ElasticCoordinator",
+                                    "__init__", []),
+    "ElasticCoordinator.contribute": ("exec.elastic", "ElasticCoordinator",
+                                      "contribute", []),
+    "CoordinatorServer.__init__": ("exec.elastic", "CoordinatorServer",
+                                   "__init__", []),
+    "ChainComms.__init__": ("exec.comms", "ChainComms", "__init__", []),
+    "ChainComms.configure": ("exec.comms", "ChainComms", "configure", []),
+    "ChainComms.allreduce": ("exec.comms", "ChainComms", "allreduce", []),
+    "ThresholdCodec.__init__": ("exec.comms", "ThresholdCodec", "__init__",
+                                []),
+    "bucketize": ("exec.comms", "bucketize", None, []),
+    "encode_bucket": ("exec.comms", "encode_bucket", None, []),
+    "decode_bucket": ("exec.comms", "decode_bucket", None, []),
+    "CoordClient.__init__": ("exec.worker", "CoordClient", "__init__", []),
+    "ElasticWorker.__init__": ("exec.worker", "ElasticWorker", "__init__",
+                               [("device", "cuda")]),
+    "synth_batch": ("exec.worker", "synth_batch", None, []),
+    "params_digest": ("exec.worker", "params_digest", None, []),
+    "single_process_reference": ("exec.worker", "single_process_reference",
+                                 None, [("device", "cuda")]),
+    "worker.main": ("exec.worker", "main", None, []),
+    "WorkerProcess.__init__": ("exec.cluster", "WorkerProcess", "__init__",
+                               [("device", "cuda")]),
+    "ClusterManager.__init__": ("exec.cluster", "ClusterManager",
+                                "__init__", [("device", "cuda")]),
+    "ClusterManager.run": ("exec.cluster", "ClusterManager", "run", []),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(CLUSTER_ENTRIES))
+def test_cluster_entry_points_take_the_jax_positions(entry):
+    """The elastic cluster's parameters (exec/elastic.py, exec/comms.py,
+    exec/worker.py, exec/cluster.py) sit where the JAX package puts them,
+    with its defaults; the worker, its process handle, the manager and
+    the single-process oracle add a keyword-only ``device`` last."""
+    import importlib
+    import inspect
+    mod, attr, meth, extra = CLUSTER_ENTRIES[entry]
+
+    def params(pkg):
+        obj = getattr(importlib.import_module(f"{pkg}.{mod}"), attr)
+        if meth is not None:
+            obj = getattr(obj, meth)
+        return list(inspect.signature(obj).parameters.values())
+    ours, theirs = params("deeplearning4j_tpu_torch"), params(
+        "deeplearning4j_tpu")
+    assert [(p.name, _norm(p.default)) for p in ours] == \
+        [(p.name, _norm(p.default)) for p in theirs] + extra
+    assert [p.kind for p in ours[:len(theirs)]] == [p.kind for p in theirs]
+    assert all(p.kind == p.KEYWORD_ONLY for p in ours[len(theirs):])
 
 
 @pytest.mark.parametrize("module", ["monitor", "exec.programs"])

@@ -2,8 +2,8 @@
 
 - Package namespaces: every name of a JAX package's ``__all__`` whose
   module is ported imports from the port's package (``parallel``,
-  ``parallel.distributed``, ``scaleout`` and ``exec``'s mesh names
-  too); the names still to port are listed (ROADMAP queue 1 items 7 and
+  ``parallel.distributed``, ``scaleout``, ``exec``'s mesh names and the
+  elastic cluster's four modules too); the names still to port are listed (ROADMAP queue 1 items 7 and
   8), with ``exec.aot``'s ``export_compiled``, an XLA executable's
   export, and ``exec``'s measured route tables, which have no
   counterpart.
@@ -51,6 +51,10 @@ NOT_PORTED = {
     "deeplearning4j_tpu.monitor": set(),
     "deeplearning4j_tpu.exec.programs": set(),
     "deeplearning4j_tpu.exec.aot": {"export_compiled"},
+    "deeplearning4j_tpu.exec.elastic": set(),
+    "deeplearning4j_tpu.exec.comms": set(),
+    "deeplearning4j_tpu.exec.worker": set(),
+    "deeplearning4j_tpu.exec.cluster": set(),
     "deeplearning4j_tpu.exec": {
         "AUX", "BATCH", "OPT", "PARAMS", "REPL", "SLOTS", "STATE",
         "STEP_BATCH", "param_spec", "decode_attn_route", "flash_attn_route",
