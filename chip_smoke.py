@@ -543,6 +543,40 @@ result line, when any of them or the port's package is missing. Phases:
    the star over HTTP; dense = star bit for bit. The oracle's launches
    join the kernels line (K2, K3); the workers' are printed apart, under
    ``charlstm`` in the K2 and K3 entries with the phase-19-shape numbers.
+20. Model parallelism (``mp_phase``), at TinyTransformer's zoo width
+   (d_model 128, 4 heads, Dh 32, FFN 512, vocabulary 51, causal). (a) TP
+   x DP: the TinyTransformer (2 blocks, T=64, 32 rows a step, Sgd 0.05)
+   through ``ParallelWrapper`` on a (data 4, model 2) mesh of 8 slots, 10
+   ``fit`` steps and a ``fit_scan`` of the same batches, each held
+   against the one-slot plain fit on the card (rtol 1e-4, atol 1e-5) and
+   the ``fit`` run against the CPU port (1e-4 of max |param|); exactly 4
+   K5, 4 K6 and 4 K7 a step (2 blocks x 2 model shards: one gradient
+   call covers the rank's data slots); ms a captured TP step against the
+   one-slot step's; then JAX's TP dense net (8-32-16-4) and LeNet at 16
+   x 16 against one slot (conv 2e-4 / 1e-4). (b) ``ring_attention`` at
+   B=4, T=4096, 4 heads, Dh 32 over a ("seq",) mesh of 4 slots, causal
+   and not, against one full K5 launch and the plain recurrence (1e-4):
+   exactly 10 / 16 K5; ms of the ring against the full K5; the causal
+   ring on bfloat16 inputs (float32 around the kernels, the result
+   bfloat16) against the plain recurrence over the same inputs (2^-8 of
+   max), exactly 10 K5; then ``SequenceParallelAttention`` over a
+   TinyTransformer attention layer (B=4, T=256): the output and the
+   input and weight gradients against the layer's own K5 / K6 + K7 path
+   (1e-4 of max |grad|; the key bias, 0 in exact arithmetic, of the
+   query bias's), exactly 10 each of K5, K6 and K7. (c) GPipe: four
+   TinyTransformer blocks (from a 4-block zoo net) as the stages of a
+   ("pipe",) mesh of 4 slots, B=32 as 8 microbatches, T=64:
+   ``pipeline_forward`` against the sequential blocks (1e-5 of max |y|),
+   5 ``fit_batch`` steps (Sgd 0.05, MSE to a random target) against
+   sequential autograd SGD steps (1e-4 of max |param|); exactly 32 K5 a
+   forward and 32 of each of K5-K7 a step; ms a step against the
+   sequential step's. (d) ``moe_ffw`` (d_model 128, d_hidden 512, 8
+   experts) on an ("expert",) mesh of 8 slots over 2048 tokens at
+   capacity 1.25 and at an ample one, against the unsharded layer on the
+   card and the CPU port (1e-5, the same dropped tokens) and at ample
+   capacity ``moe_ffw_dense_reference``; 5 SGD steps on MSE + 0.01 x
+   aux; no hand kernel. Each part's failure fails the run; (a)-(c) join
+   the kernels line's K5-K7 launches; under 60 s.
 
 A replayed CUDA graph adds to the launch counts the launches its capture
 recorded (the capture itself counts none), so the counts below are the
@@ -8398,6 +8432,517 @@ def cluster_phase(card, dev="cuda"):
     return res
 
 
+# ---- phase 20: model parallelism -----------------------------------------
+MP_V = 51                      # TinyTransformer's zoo vocabulary here
+MP_B, MP_T = 32, 64            # (a), (c): rows a step, sequence length
+MP_STEPS = 10                  # (a): Sgd steps of fit, and one fit_scan
+MP_LR = 0.05                   # (a): Sgd rate (JAX tests/test_parallel.py)
+MP_DATA, MP_MODEL = 4, 2       # (a): the (data, model) mesh
+MP_RTOL, MP_ATOL = 1e-4, 1e-5  # (a): TP x DP against one slot on the card
+MP_CONV_RTOL, MP_CONV_ATOL = 2e-4, 1e-4
+MP_CPU_TOL = 1e-4              # of max |param|, against the CPU port
+SP_B, SP_T, SP_SLOTS = 4, 4096, 4        # (b): the ring
+SP_LAYER_B, SP_LAYER_T = 4, 256          # (b): SequenceParallelAttention
+SP_TOL = 1e-4
+SP_BF16_TOL = 2.0 ** -8   # a bfloat16 output's rounding, relative
+PP_STAGES, PP_MICRO = 4, 8               # (c)
+PP_STEPS, PP_LR = 5, 0.05
+PP_FWD_TOL, PP_STEP_TOL = 1e-5, 1e-4
+EP_D, EP_H, EP_E = 128, 512, 8           # (d)
+EP_TOKENS = MP_B * MP_T
+EP_STEPS, EP_LR, EP_AUX = 5, 0.1, 0.01
+EP_TOL = 1e-5
+MP_KERNELS = ("flash_attn_fwd", "flash_attn_dq", "flash_attn_dkv")
+
+
+def _mp_tokens(n, start, vocab, T=MP_T, B=MP_B):
+    """``n`` batches of B one-hot windows of the corpus (T tokens and the
+    next), from window ``start``."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.zoo.corpus import corpus_windows
+    (xtr, ytr), _, _ = corpus_windows(stride=2)
+    out = []
+    for s in range(start, start + n):
+        i = s % (len(xtr) // B)
+        out.append(DataSet(xtr[i * B:(i + 1) * B, :T],
+                           ytr[i * B:(i + 1) * B, :T]))
+    return out
+
+
+def _param_errs(a, b):
+    """(max |a - b| over two containers' parameters, a's and b's
+    parameters by (member, key))."""
+    pa, pb = _flat_params(a), _flat_params(b)
+    err = max(float((x - pb[k].to(x.device)).abs().max())
+              for k, x in pa.items())
+    return err, pa, pb
+
+
+def _flat_params(net):
+    items = net.params.items() if isinstance(net.params, dict) \
+        else enumerate(net.params)
+    return {(m, k): v.detach().float() for m, p in items
+            for k, v in p.items()}
+
+
+def _allclose(pa, pb, rtol, atol):
+    import torch
+    return all(torch.allclose(x, pb[k].to(x.device), rtol=rtol, atol=atol)
+               for k, x in pa.items())
+
+
+def mp_tp_part(card, res, dev="cuda"):
+    """(a) TP x DP through ParallelWrapper on a (data 4, model 2) mesh."""
+    import torch
+    from deeplearning4j_tpu_torch import ComputationGraph, ops
+    from deeplearning4j_tpu_torch.exec import build_mesh
+    from deeplearning4j_tpu_torch.nn.updaters import Sgd
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.zoo import TinyTransformer
+    zoo = TinyTransformer(vocab_size=MP_V, updater=Sgd(MP_LR))
+    data = _mp_tokens(MP_STEPS, 0, MP_V)
+
+    def mesh():
+        return build_mesh([dev] * (MP_DATA * MP_MODEL),
+                          model_parallel=MP_MODEL)
+    out = {}
+    net = zoo.init(device=dev)
+    cpu = ComputationGraph(net.conf, device="cpu").set_params(net.params)
+    pw = ParallelWrapper(net, mesh=mesh())
+    per_step = {k: 2 * MP_MODEL for k in MP_KERNELS}
+    ms, launches = [], {}
+    for i in range(MP_STEPS):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pw.fit([data[i]])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        _add_counts(launches, _expect_launches(
+            f"phase 20 (a) TP step {i}", per_step))
+    out["fit"] = {"launches": launches, "ms": ms}
+    scan = zoo.init(device=dev)
+    ops.reset_launch_counts()
+    ParallelWrapper(scan, mesh=mesh()).fit_scan(
+        np.stack([d.features for d in data]),
+        np.stack([d.labels for d in data]))
+    torch.cuda.synchronize()
+    out["fit_scan"] = {"launches": _expect_launches(
+        "phase 20 (a) TP fit_scan",
+        {k: MP_STEPS * v for k, v in per_step.items()})}
+    ref = zoo.init(device=dev)
+    ref_ms = []
+    ops.reset_launch_counts()
+    for i in range(MP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref.fit(data[i])
+        torch.cuda.synchronize()
+        ref_ms.append((time.perf_counter() - t0) * 1e3)
+    out["reference_launches"] = ops.launch_counts()
+    for i in range(MP_STEPS):
+        cpu.fit(data[i])
+    err, pa, pb = _param_errs(net, ref)
+    scan_err, ps, _ = _param_errs(scan, ref)
+    cpu_err, _, pc = _param_errs(net, cpu)
+    scale = max(float(v.abs().max()) for v in pc.values())
+    out.update(
+        max_param_diff=err, fit_scan_max_param_diff=scan_err,
+        allclose=_allclose(pa, pb, MP_RTOL, MP_ATOL),
+        fit_scan_allclose=_allclose(ps, pb, MP_RTOL, MP_ATOL),
+        cpu_rel_err=cpu_err / scale, ms_per_step=statistics.median(ms[2:]),
+        single_ms_per_step=statistics.median(ref_ms[2:]), single_ms=ref_ms,
+        # the least of the captured steps: host time, which other work on
+        # a shared host can stretch
+        ms_min=min(ms[2:]), single_ms_min=min(ref_ms[2:]))
+    print(f"mp: (a) TP x DP, TinyTransformer (d_model 128, 4 heads, 2 "
+          f"blocks, vocab {MP_V}, B={MP_B}, T={MP_T}, Sgd({MP_LR})) over a "
+          f"(data {MP_DATA}, model {MP_MODEL}) mesh: {MP_STEPS} fit steps "
+          f"against one slot on the card max diff {err:.3g} (allclose rtol "
+          f"{MP_RTOL} atol {MP_ATOL}: {out['allclose']}), fit_scan "
+          f"{scan_err:.3g} ({out['fit_scan_allclose']}), against the CPU "
+          f"port {out['cpu_rel_err']:.3g} of max |param| (bar {MP_CPU_TOL}); "
+          f"launches a step {per_step}; ms a captured TP step median "
+          f"{out['ms_per_step']:.3f} / min {out['ms_min']:.3f} (one slot "
+          f"{out['single_ms_per_step']:.3f} / {out['single_ms_min']:.3f}) "
+          f"[{card}]", flush=True)
+    if not (out["allclose"] and out["fit_scan_allclose"]
+            and out["cpu_rel_err"] <= MP_CPU_TOL):
+        raise AssertionError(f"phase 20 (a): {out}")
+    out["dense"] = _mp_small_tp(card, "dense", dev)
+    out["lenet"] = _mp_small_tp(card, "lenet", dev)
+    res["tp"] = out
+
+
+def _mp_small_tp(card, which, dev):
+    """(a) the dense net of JAX's TP tests (8-32-16-4, Sgd 0.1, B=16) and
+    LeNet at 16 x 16 (B=8), two TP x DP steps against one slot."""
+    import torch
+    from deeplearning4j_tpu_torch import (MultiLayerNetwork,
+                                          NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.exec import build_mesh
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+    from deeplearning4j_tpu_torch.nn.updaters import Sgd
+    from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+    from deeplearning4j_tpu_torch.zoo import LeNet
+    rs = np.random.RandomState(3)
+    if which == "dense":
+        def make():
+            conf = (NeuralNetConfiguration.builder().seed(9)
+                    .updater(Sgd(0.1)).weight_init("xavier").list()
+                    .layer(DenseLayer(n_out=32, activation="relu"))
+                    .layer(DenseLayer(n_out=16, activation="relu"))
+                    .layer(OutputLayer(n_out=4, activation="softmax",
+                                       loss="mcxent"))
+                    .set_input_type(InputType.feed_forward(8)).build())
+            return MultiLayerNetwork(conf, device=dev).init()
+        x = rs.randn(32, 8).astype(np.float32)
+        y = np.eye(4, dtype=np.float32)[rs.randint(0, 4, 32)]
+        bs, rtol, atol = 16, MP_RTOL, MP_ATOL
+    else:
+        def make():
+            return LeNet(num_classes=10, input_shape=(16, 16, 1),
+                         seed=12345).init(device=dev)
+        x = rs.rand(16, 16, 16, 1).astype(np.float32)
+        y = np.eye(10, dtype=np.float32)[rs.randint(0, 10, 16)]
+        bs, rtol, atol = 8, MP_CONV_RTOL, MP_CONV_ATOL
+    batches = [DataSet(x[i:i + bs], y[i:i + bs]) for i in range(0, len(x),
+                                                                bs)]
+    ref, net = make(), make()
+    for b in batches:
+        ref.fit(b)
+    ParallelWrapper(net, mesh=build_mesh(
+        [dev] * (MP_DATA * MP_MODEL), model_parallel=MP_MODEL)).fit(batches)
+    torch.cuda.synchronize()
+    err, pa, pb = _param_errs(net, ref)
+    ok = _allclose(pa, pb, rtol, atol)
+    print(f"mp: (a) {which} TP x DP, {len(batches)} steps of B={bs} against "
+          f"one slot: max diff {err:.3g} (allclose rtol {rtol} atol {atol}: "
+          f"{ok}) [{card}]", flush=True)
+    if not ok:
+        raise AssertionError(f"phase 20 (a) {which}: {err}")
+    return {"max_param_diff": err, "allclose": ok}
+
+
+def mp_sp_part(card, res, dev="cuda"):
+    """(b) Ring attention over a ("seq",) mesh of 4 slots."""
+    import torch
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.nn.layers.attention import \
+        MultiHeadAttention
+    from deeplearning4j_tpu_torch.parallel.sequence_parallel import (
+        SequenceParallelAttention, _pairs, _ring_plain, ring_attention)
+    from deeplearning4j_tpu_torch.parallel.wrapper import default_mesh
+    mesh = default_mesh(SP_SLOTS, "seq", device=dev)
+    g = torch.Generator().manual_seed(20)
+    B, T, H, Dh = SP_B, SP_T, HEADS, HEAD_DIM
+    q, k, v = (torch.randn(B, T, H, Dh, generator=g).to(dev)
+               for _ in range(3))
+
+    def fold(a):
+        return a.permute(0, 2, 1, 3).reshape(B * H, T, Dh).contiguous()
+    out = {}
+    for causal in (True, False):
+        n_pairs = len(_pairs(SP_SLOTS, causal))
+        ops.reset_launch_counts()
+        got = ring_attention(q, k, v, mesh, causal=causal)
+        torch.cuda.synchronize()
+        launches = _expect_launches(f"phase 20 (b) ring causal={causal}",
+                                    {"flash_attn_fwd": n_pairs})
+        full = ops.flash_attention_fwd(fold(q), fold(k), fold(v), causal)[0]
+        full = full.reshape(B, H, T, Dh).permute(0, 2, 1, 3)
+        plain = _ring_plain(q, k, v, SP_SLOTS, causal)
+        ring_ms = time_ms(lambda: ring_attention(q, k, v, mesh,
+                                                 causal=causal), 3)
+        full_ms = time_ms(lambda: ops.flash_attention_fwd(
+            fold(q), fold(k), fold(v), causal), 3)
+        key = "causal" if causal else "plain"
+        out[key] = {"launches": launches,
+                    "vs_full_k5": float((got - full).abs().max()),
+                    "vs_plain": float((got - plain).abs().max()),
+                    "ring_ms": ring_ms, "full_k5_ms": full_ms}
+        print(f"mp: (b) ring_attention (B={B}, T={T}, {H} heads, Dh={Dh}, "
+              f"{SP_SLOTS} slots, {key}): against one full K5 max err "
+              f"{out[key]['vs_full_k5']:.3g}, against the plain recurrence "
+              f"{out[key]['vs_plain']:.3g} (bar {SP_TOL}); launches "
+              f"{launches}; ms {ring_ms:.4f} (full K5 {full_ms:.4f}) "
+              f"[{card}]", flush=True)
+    # a bfloat16 input rides the same kernels, folded to float32 around
+    # the ring: its result is the float32 ring's over the rounded inputs
+    qb, kb, vb = (a.to(torch.bfloat16) for a in (q, k, v))
+    n_pairs = len(_pairs(SP_SLOTS, True))
+    ops.reset_launch_counts()
+    got = ring_attention(qb, kb, vb, mesh, causal=True)
+    torch.cuda.synchronize()
+    launches = _expect_launches("phase 20 (b) ring bfloat16",
+                                {"flash_attn_fwd": n_pairs})
+    plain = _ring_plain(qb.float(), kb.float(), vb.float(), SP_SLOTS, True)
+    out["causal_bf16"] = {
+        "launches": launches, "dtype": str(got.dtype),
+        "vs_plain": float((got.float() - plain).abs().max())
+        / float(plain.abs().max())}
+    print(f"mp: (b) ring_attention on bfloat16 inputs (causal): "
+          f"{got.dtype}, against the plain recurrence in float32 over the "
+          f"same inputs {out['causal_bf16']['vs_plain']:.3g} of max (bar "
+          f"{SP_BF16_TOL}, bfloat16's rounding of the output); launches "
+          f"{launches} [{card}]", flush=True)
+    layer = MultiHeadAttention(n_in=128, n_out=128, n_heads=HEADS,
+                               causal=True)
+    params = {kk: t.to(dev) for kk, t in layer.init(
+        torch.Generator().manual_seed(21)).items()}
+    x = torch.randn(SP_LAYER_B, SP_LAYER_T, 128, generator=g).to(dev)
+    spa = SequenceParallelAttention(layer, mesh)
+
+    def run(fn):
+        p = {kk: t.clone().requires_grad_() for kk, t in params.items()}
+        xt = x.clone().requires_grad_()
+        y = fn(p, xt)
+        gr = torch.autograd.grad((y * y).sum(), [xt] + [p[n] for n in (
+            "Wq", "Wk", "Wv", "Wo", "bq", "bk", "bv", "bo")])
+        torch.cuda.synchronize()
+        return y.detach(), gr
+    n_pairs = len(_pairs(SP_SLOTS, True))
+    ops.reset_launch_counts()
+    y, gr = run(spa)
+    spa_launches = _expect_launches("phase 20 (b) SequenceParallelAttention",
+                                    {k_: n_pairs for k_ in MP_KERNELS})
+    ops.reset_launch_counts()
+    y_ref, gr_ref = run(lambda p, xt: layer.apply(p, xt))
+    # the key bias's gradient is 0 in exact arithmetic (softmax ignores a
+    # shift of a row's scores): held against the query bias's scale
+    scales = [float(b.abs().max()) for b in gr_ref]
+    scales[6] = scales[5]
+    out["layer"] = {"launches": spa_launches,
+                    "reference_launches": ops.launch_counts(),
+                    "out_err": float((y - y_ref).abs().max())
+                    / float(y_ref.abs().max()),
+                    "grad_err": max(float((a - b).abs().max()) / sc
+                                    for a, b, sc in zip(gr, gr_ref, scales))}
+    print(f"mp: (b) SequenceParallelAttention over a TinyTransformer "
+          f"attention layer (B={SP_LAYER_B}, T={SP_LAYER_T}, causal): output "
+          f"{out['layer']['out_err']:.3g} and input / weight gradients "
+          f"{out['layer']['grad_err']:.3g} of max against the layer's own "
+          f"K5 / K6 + K7 path (bar {SP_TOL}); launches {spa_launches} "
+          f"(the layer's {out['layer']['reference_launches']}) [{card}]",
+          flush=True)
+    bad = [kk for kk in ("causal", "plain")
+           if max(out[kk]["vs_full_k5"], out[kk]["vs_plain"]) > SP_TOL]
+    if got.dtype != torch.bfloat16 \
+            or out["causal_bf16"]["vs_plain"] > SP_BF16_TOL:
+        bad.append("causal_bf16")
+    if bad or max(out["layer"]["out_err"], out["layer"]["grad_err"]) > SP_TOL:
+        raise AssertionError(f"phase 20 (b): {out}")
+    res["sp"] = out
+
+
+def _block_stage(p, x):
+    """One TinyTransformer block as a pipeline stage: ln1, causal
+    attention (K5; K6 + K7 under autograd), residual, ln2, ff1 gelu, ff2,
+    residual, over a stage's dict of tensors."""
+    from deeplearning4j_tpu_torch.nn.layers.attention import \
+        scaled_dot_product_attention
+    import torch
+    B, T, D = x.shape
+
+    def ln(h, g, b):
+        mean = h.mean(-1, keepdim=True)
+        var = h.var(-1, unbiased=False, keepdim=True)
+        return (h - mean) * torch.rsqrt(var + 1e-5) * g + b
+    h = ln(x, p["ln1_gamma"], p["ln1_beta"])
+    q, k, v = ((h @ p[f"W{n}"] + p[f"b{n}"]).reshape(B, T, HEADS, -1)
+               for n in "qkv")
+    o = scaled_dot_product_attention(q, k, v, causal=True)
+    x = x + o.reshape(B, T, D) @ p["Wo"] + p["bo"]
+    h = ln(x, p["ln2_gamma"], p["ln2_beta"])
+    f = torch.nn.functional.gelu(h @ p["ff1_W"] + p["ff1_b"],
+                                 approximate="tanh")
+    return x + f @ p["ff2_W"] + p["ff2_b"]
+
+
+def _block_params(net, i):
+    p = net.params
+    return {"ln1_gamma": p[f"b{i}_ln1"]["gamma"],
+            "ln1_beta": p[f"b{i}_ln1"]["beta"],
+            **{n: p[f"b{i}_attn"][n] for n in ("Wq", "Wk", "Wv", "Wo", "bq",
+                                                "bk", "bv", "bo")},
+            "ln2_gamma": p[f"b{i}_ln2"]["gamma"],
+            "ln2_beta": p[f"b{i}_ln2"]["beta"],
+            "ff1_W": p[f"b{i}_ff1"]["W"], "ff1_b": p[f"b{i}_ff1"]["b"],
+            "ff2_W": p[f"b{i}_ff2"]["W"], "ff2_b": p[f"b{i}_ff2"]["b"]}
+
+
+def mp_pp_part(card, res, dev="cuda"):
+    """(c) GPipe over four TinyTransformer blocks."""
+    import torch
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.parallel.pipeline import (
+        PipelineParallel, pipeline_forward, shard_stages, split_microbatches,
+        stack_stage_params)
+    from deeplearning4j_tpu_torch.parallel.wrapper import default_mesh
+    from deeplearning4j_tpu_torch.zoo import TinyTransformer
+    tiny = TinyTransformer(vocab_size=MP_V, n_layers=PP_STAGES).init(
+        device=dev)
+    stages = [{k: v.detach().clone() for k, v in
+               _block_params(tiny, i).items()} for i in range(PP_STAGES)]
+    mesh = default_mesh(PP_STAGES, "pipe", device=dev)
+    g = torch.Generator().manual_seed(22)
+    x = torch.randn(MP_B, MP_T, 128, generator=g).to(dev)
+    tgt = torch.randn(MP_B, MP_T, 128, generator=g).to(dev)
+    n = PP_STAGES * PP_MICRO
+    out = {}
+    stacked = stack_stage_params(stages)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        got = pipeline_forward(_block_stage, shard_stages(stacked, mesh),
+                               split_microbatches(x, PP_MICRO), mesh)
+        torch.cuda.synchronize()
+        out["forward"] = {"launches": _expect_launches(
+            "phase 20 (c) pipeline_forward", {"flash_attn_fwd": n})}
+        want = x
+        for p in stages:
+            want = _block_stage(p, want)
+    out["forward"]["rel_err"] = float(
+        (got.reshape(MP_B, MP_T, 128) - want).abs().max()) / float(
+        want.abs().max())
+
+    def loss_fn(y, t):
+        return ((y - t) ** 2).mean()
+    pp = PipelineParallel(_block_stage, loss_fn, stages, mesh,
+                          learning_rate=PP_LR, num_microbatches=PP_MICRO)
+    seq = {k: v.detach().clone() for k, v in stacked.items()}
+    step_launches, pp_ms, seq_ms, losses = {}, [], [], []
+    for i in range(PP_STEPS):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = pp.fit_batch(x, tgt)
+        torch.cuda.synchronize()
+        pp_ms.append((time.perf_counter() - t0) * 1e3)
+        _add_counts(step_launches, _expect_launches(
+            f"phase 20 (c) fit_batch {i}", {k: n for k in MP_KERNELS}))
+        t0 = time.perf_counter()
+        leaves = {k: v.detach().requires_grad_() for k, v in seq.items()}
+        h = x
+        for s in range(PP_STAGES):
+            h = _block_stage({k: v[s] for k, v in leaves.items()}, h)
+        ref_loss = loss_fn(h, tgt)
+        grads = torch.autograd.grad(ref_loss, list(leaves.values()))
+        with torch.no_grad():
+            for p, gr in zip(seq.values(), grads):
+                p.sub_(PP_LR * gr)
+        torch.cuda.synchronize()
+        seq_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append((float(loss), float(ref_loss.detach())))
+    scale = max(float(v.abs().max()) for v in seq.values())
+    out.update(fit={"launches": step_launches}, losses=losses,
+               step_rel_err=max(float((pp.params[k] - seq[k]).abs().max())
+                                for k in seq) / scale,
+               ms_per_step=statistics.median(pp_ms[1:]),
+               sequential_ms_per_step=statistics.median(seq_ms[1:]),
+               ms_min=min(pp_ms[1:]), sequential_ms_min=min(seq_ms[1:]))
+    print(f"mp: (c) GPipe, {PP_STAGES} TinyTransformer blocks (d_model 128, "
+          f"{HEADS} heads, FFN 512) over a ('pipe',) mesh of {PP_STAGES} "
+          f"slots, B={MP_B} as {PP_MICRO} microbatches, T={MP_T}: forward "
+          f"against the sequential blocks {out['forward']['rel_err']:.3g} "
+          f"of max |y| (bar {PP_FWD_TOL}); "
+          f"{PP_STEPS} fit_batch steps against sequential SGD "
+          f"{out['step_rel_err']:.3g} of max |param| (bar {PP_STEP_TOL}); "
+          f"launches a forward {out['forward']['launches']}, a step "
+          f"{n} each of K5-K7; ms a step median {out['ms_per_step']:.3f} / "
+          f"min {out['ms_min']:.3f} (sequential "
+          f"{out['sequential_ms_per_step']:.3f} / "
+          f"{out['sequential_ms_min']:.3f}) [{card}]", flush=True)
+    if not (out["forward"]["rel_err"] <= PP_FWD_TOL
+            and out["step_rel_err"] <= PP_STEP_TOL):
+        raise AssertionError(f"phase 20 (c): {out}")
+    res["pp"] = out
+
+
+def mp_ep_part(card, res, dev="cuda"):
+    """(d) The mixture of experts over an ("expert",) mesh of 8 slots."""
+    import torch
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.parallel.expert_parallel import (
+        init_moe_params, moe_ffw, moe_ffw_dense_reference, shard_moe_params)
+    from deeplearning4j_tpu_torch.parallel.wrapper import default_mesh
+    params = init_moe_params(20, EP_D, EP_H, EP_E, device=dev)
+    mesh = default_mesh(EP_E, "expert", device=dev)
+    sharded = shard_moe_params(params, mesh)
+    x = torch.randn(EP_TOKENS, EP_D,
+                    generator=torch.Generator().manual_seed(23)).to(dev)
+    cpu = {k: v.cpu() for k, v in params.items()}
+    out = {}
+    ops.reset_launch_counts()
+    for name, cf in (("default", 1.25), ("ample", float(EP_E))):
+        y, aux = moe_ffw(sharded, x, capacity_factor=cf)
+        y1, aux1 = moe_ffw(params, x, capacity_factor=cf)
+        torch.cuda.synchronize()
+        drop = int((y == 0).all(-1).sum())
+        r = {"vs_unsharded": float((y - y1).abs().max()),
+             "aux": float(aux), "aux_err": abs(float(aux) - float(aux1)),
+             "dropped": drop,
+             "capacity": max(1, int(cf * EP_TOKENS / EP_E))}
+        if name == "default":
+            yc, auxc = moe_ffw(cpu, x.cpu(), capacity_factor=cf)
+            r.update(vs_cpu=float((y.cpu() - yc).abs().max()),
+                     cpu_aux_err=abs(float(aux) - float(auxc)),
+                     cpu_dropped=int((yc == 0).all(-1).sum()))
+        else:
+            r["vs_dense_reference"] = float(
+                (y - moe_ffw_dense_reference(params, x)).abs().max())
+        out[name] = r
+    out["launches"] = _expect_launches("phase 20 (d) moe_ffw", {})
+    d, a = out["default"], out["ample"]
+    losses = []
+    for _ in range(EP_STEPS):
+        leaves = {k: ([t.detach().requires_grad_() for t in v]
+                      if isinstance(v, list) else v.detach().requires_grad_())
+                  for k, v in sharded.items()}
+        y, aux = moe_ffw(leaves, x, capacity_factor=1.25)
+        loss = (y ** 2).mean() + EP_AUX * aux
+        flat = [t for v in leaves.values()
+                for t in (v if isinstance(v, list) else [v])]
+        grads = iter(torch.autograd.grad(loss, flat))
+        with torch.no_grad():
+            for k, v in sharded.items():
+                for t in (v if isinstance(v, list) else [v]):
+                    t.sub_(EP_LR * next(grads))
+        losses.append(float(loss.detach()))
+    out["sgd_losses"] = losses
+    print(f"mp: (d) moe_ffw (d_model {EP_D}, d_hidden {EP_H}, {EP_E} experts "
+          f"over an ('expert',) mesh of {EP_E} slots, {EP_TOKENS} tokens): "
+          f"capacity 1.25 (C={d['capacity']}) against unsharded "
+          f"{d['vs_unsharded']:.3g}, the CPU port {d['vs_cpu']:.3g} (bar "
+          f"{EP_TOL}), dropped {d['dropped']} (CPU {d['cpu_dropped']}), aux "
+          f"{d['aux']:.5f}; ample (C={a['capacity']}) against the dense "
+          f"reference {a['vs_dense_reference']:.3g}, dropped {a['dropped']};"
+          f" {EP_STEPS} SGD steps on loss + {EP_AUX} aux {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f}; no hand kernel [{card}]", flush=True)
+    if not (max(d["vs_unsharded"], d["vs_cpu"], a["vs_unsharded"],
+                a["vs_dense_reference"]) <= EP_TOL
+            and d["dropped"] == d["cpu_dropped"] and a["dropped"] == 0
+            and max(d["aux_err"], d["cpu_aux_err"]) <= EP_TOL
+            and all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"phase 20 (d): {out}")
+    res["ep"] = out
+
+
+def mp_phase(card, dev="cuda"):
+    """Phase 20: model parallelism (``chip_smoke.py`` docstring)."""
+    t0 = time.perf_counter()
+    res = {"card": card}
+    for part in (mp_tp_part, mp_sp_part, mp_pp_part, mp_ep_part):
+        t1 = time.perf_counter()
+        part(card, res, dev)
+        print(f"mp: {part.__name__} {time.perf_counter() - t1:.1f} s "
+              f"[{card}]", flush=True)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"mp: phase 20 took {res['seconds']:.1f} s [{card}]", flush=True)
+    return res
+
+
 def main() -> int:
     import torch
     if len(sys.argv) > 1 and sys.argv[1] == "--dp-rank":
@@ -8548,6 +9093,7 @@ def main() -> int:
     routed = routed_phase(card, built)
     dp = dp_phase(card)
     cluster = cluster_phase(card)
+    mp = mp_phase(card)
 
     # each kernel at its main path's shape, with the launches of the run
     # that drove it: /predict of the 15 held-out windows (bucket 16, T=64)
@@ -8616,7 +9162,8 @@ def main() -> int:
                "phase 15": counted_launches(precision, "flash_attn_fwd"),
                "phase 16": counted_launches(obs, "flash_attn_fwd"),
                "phase 17": counted_launches(routed, "flash_attn_fwd"),
-               "phase 18": counted_launches(dp, "flash_attn_fwd")}
+               "phase 18": counted_launches(dp, "flash_attn_fwd"),
+               "phase 20": counted_launches(mp, "flash_attn_fwd")}
     entry("flash_attn_fwd", row, sum(by_path.values()))
     entries[-1]["launches_by_path"] = by_path
     # the recipe's train steps (B=32, T=64) run K6 and K7 at BH 128, causal
@@ -8624,7 +9171,9 @@ def main() -> int:
     for row in bwd_kernel_case(TINY_B, TINY_T, True, seed=1):
         entry(row["kernel"], row, recipe[row["kernel"]]
               + counted_launches(obs, row["kernel"])
-              + counted_launches(dp, row["kernel"]))
+              + counted_launches(dp, row["kernel"])
+              + counted_launches(mp, row["kernel"]))
+        entries[-1]["launches_phase_20"] = counted_launches(mp, row["kernel"])
     print("main-path shape: " + fmt_bwd(rows[-2:]) + f" [{card}]", flush=True)
     mid = DECODE_MID
     for kernel, kind in (("flash_decode", "dense"),
@@ -8687,7 +9236,7 @@ def main() -> int:
          "serving_features": serving, "cnn": cnn, "inception": inception,
          "kv_tier": kv_tier, "precision": precision, "observability": obs,
          "routed": routed, "data_parallel": dp, "cluster": cluster,
-         "kernels": entries},
+         "model_parallel": mp, "kernels": entries},
         indent=1))
     print(json.dumps({"kernels": entries}))
     print(card)

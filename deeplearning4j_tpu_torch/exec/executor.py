@@ -72,8 +72,16 @@ or an eager call) and, once captured, its graph's memory and launches:
 ``train_step_b{B}`` and ``apply_updates``), ``ResidentProgram`` where its
 owner set ``caller`` (the engines). Registration runs nothing more.
 
-The mesh is exec/mesh.py (data-parallel slots); sharding and routing
-tables are not ported.
+The placement rule is the JAX package's: the spec vocabulary (``PARAMS``
+... ``AUX``), ``param_spec`` (Megatron's column / row split of a weight
+leaf over the mesh's ``model`` axis) and the executor's
+``param_shardings``, ``put_params`` and ``_state_shardings``. A spec is a
+tuple of axis names or None (the port has no ``PartitionSpec``; ``()``
+replicates). Where GSPMD places a leaf by its spec and inserts the
+collectives, the port splits it into per-slot shards (``put_params``) and
+parallel/tensor_parallel.py computes with them explicitly. The mesh is
+exec/mesh.py (a grid of slots); JAX's measured route tables are not
+ported.
 """
 
 from __future__ import annotations
@@ -90,14 +98,113 @@ from deeplearning4j_tpu_torch import ops
 from deeplearning4j_tpu_torch.exec.programs import (Cost, get_programs,
                                                     graph_pool_bytes)
 
+# argument/output spec vocabulary (the JAX executor's names)
+PARAMS = "params"          # weight tree: replicated or Megatron TP
+STATE = "state"            # model state (BN stats): replicated
+OPT = "opt"                # updater state: co-sharded with params
+REPL = "repl"              # replicate (scalars, loss)
+BATCH = "batch"            # shard dim 0 over 'data' (x, y, masks)
+STEP_BATCH = "step_batch"  # shard dim 1 over 'data' ((steps, batch, ...))
+SLOTS = "slots"            # decode state: dim 0 = slot rows, KV dims TP
+AUX = "aux"                # small replicated side-outputs (telemetry)
+
+_ROW_TOKENS = ("Wo", "ff2", "down")
+_COL_TOKENS = ("Wq", "Wk", "Wv", "ff1", "up")
+
+
+def param_spec(path: str, leaf, model_size: int, axis: str = "model"):
+    """Megatron TP placement for one weight leaf, the JAX rule line for
+    line: column-parallel (split the output / last dim) for Q/K/V, FFN
+    up-projections and generic kernels; row-parallel (split the input /
+    first dim) for the pair's second half -- ``Wo`` / ``ff2`` / ``down``
+    by name or a wide->narrow shape; 1-D vectors replicate. ``path`` is
+    the JAX key path (``"['b0_attn']['Wq']"``, ``"[0]['W']"``). Returns a
+    tuple of axis names or None, ``()`` for a replicated leaf."""
+    nd = getattr(leaf, "ndim", 0)
+    if model_size <= 1 or nd < 2:
+        return ()
+    shape = tuple(leaf.shape)
+    row_name = any(t in path for t in _ROW_TOKENS)
+    row_shape = shape[0] > shape[-1]
+    if (row_name or (row_shape
+                     and not any(t in path for t in _COL_TOKENS))) \
+            and shape[0] % model_size == 0 \
+            and shape[0] >= model_size:
+        return tuple([axis] + [None] * (nd - 1))
+    if shape[-1] % model_size == 0 and shape[-1] >= model_size:
+        return tuple([None] * (nd - 1) + [axis])
+    return ()
+
+
+def key_path(member, name: str) -> str:
+    """The JAX key path (``jax.tree_util.keystr``) of a container's leaf:
+    member ``member`` (a layer index or a node name) and the port's flat
+    parameter key ``name`` (``"fwd/W"``, ``"enc/0/W"``)."""
+    def seg(k):
+        return f"[{k}]" if isinstance(k, int) or str(k).isdigit() \
+            else f"['{k}']"
+    return seg(member) + "".join(seg(p) for p in str(name).split("/"))
+
+
+def tree_paths(tree):
+    """(JAX key path, leaf) of every leaf of a container's parameter tree
+    (a list of per-layer dicts, or a dict of per-node dicts, the leaves
+    under flat path keys), in tree order."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    return [(key_path(m, k), v) for m, p in items for k, v in p.items()]
+
+
+def _map_tree(tree, fn):
+    """``tree`` with every leaf ``v`` at (member, key) replaced by
+    ``fn(key_path, v)``, in the tree's own structure."""
+    if isinstance(tree, dict):
+        return {m: {k: fn(key_path(m, k), v) for k, v in p.items()}
+                for m, p in tree.items()}
+    return [{k: fn(key_path(i, k), v) for k, v in p.items()}
+            for i, p in enumerate(tree)]
+
+
+def tree_specs(tree, model_size: int, axis: str = "model"):
+    """``param_spec`` of every leaf of a container's parameter tree, in
+    the tree's structure."""
+    return _map_tree(tree, lambda path, leaf: param_spec(
+        path, leaf, model_size, axis))
+
+
+def split_dim(spec) -> Optional[int]:
+    """The dim a spec splits, None for a replicated one."""
+    return next((i for i, s in enumerate(spec) if s is not None), None) \
+        if spec else None
+
+
+def split_leaf(leaf, spec, model_size: int):
+    """``leaf`` as its ``model_size`` model shards by ``spec`` (contiguous
+    copies, in shard order); a replicated leaf is the same tensor in every
+    shard."""
+    dim = split_dim(spec)
+    if model_size <= 1 or dim is None:
+        return [leaf] * max(1, model_size)
+    return [t.contiguous().clone() for t in leaf.chunk(model_size, dim)]
+
+
+def gather_leaf(shards, spec):
+    """The inverse of ``split_leaf``: the shards concatenated in shard
+    order along the dim ``spec`` splits (a replicated leaf's one
+    tensor)."""
+    dim = split_dim(spec)
+    return shards[0] if dim is None else torch.cat(list(shards), dim)
+
 
 class Executor:
     """One policy for the fit path's and the serving engines' precisions,
     and the capture of steps into CUDA graphs."""
 
-    def __init__(self, *, precision: Optional[str] = None,
+    def __init__(self, mesh=None, *, precision: Optional[str] = None,
                  train_precision: Optional[str] = None):
         from deeplearning4j_tpu_torch.quant import resolve_precision
+        # the mesh of slots (exec/mesh.py); the process default until the
+        # first read when None
+        self._mesh = mesh
         # declarative SERVING precision: every engine built against this
         # executor (the bucketed forward, the decode programs, the drafts)
         # inherits it without per-caller code
@@ -117,6 +224,72 @@ class Executor:
         self.train_precision = "bf16" if tp in ("bf16", "bfloat16") else "f32"
         self._streams: Dict[int, torch.cuda.Stream] = {}
         self._copy_streams: Dict[int, torch.cuda.Stream] = {}
+
+    # ------------------------------------------------------------- shardings
+    @property
+    def mesh(self):
+        if self._mesh is None:
+            from deeplearning4j_tpu_torch.exec.mesh import default_mesh
+            self._mesh = default_mesh()
+        return self._mesh
+
+    @property
+    def model_size(self) -> int:
+        return int(self.mesh.shape.get("model", 1))
+
+    def param_shardings(self, tree):
+        """The spec of every weight leaf, in the tree's structure (``()``
+        for the whole tree on a mesh without a model axis)."""
+        if self.model_size <= 1:
+            return ()
+        return tree_specs(tree, self.model_size)
+
+    def put_params(self, tree):
+        """The weight tree split into per-slot shards by its specs: every
+        leaf becomes the list of its ``model`` shards in shard order (a
+        replicated leaf the same tensor in each); on a mesh without a
+        model axis, one shard a leaf."""
+        m = self.model_size
+        return _map_tree(tree, lambda path, leaf: split_leaf(
+            leaf, param_spec(path, leaf, m), m))
+
+    def check_unsplit(self, what: str) -> None:
+        """Refuse a container's own fit or serving path on a mesh with a
+        model axis: those paths compute unsplit (ROADMAP item 7, waiting
+        part (1)); ``ParallelWrapper(net, mesh=...)`` is the tensor-
+        parallel entry point. The default mesh is only built here when
+        ``DL4JTPU_MESH`` or ``set_default_mesh`` shaped it."""
+        mesh = self._mesh
+        if mesh is None:
+            from deeplearning4j_tpu_torch.exec import mesh as mesh_mod
+            if mesh_mod._default_mesh is None and not os.environ.get(
+                    "DL4JTPU_MESH", "").strip():
+                return
+            mesh = self.mesh
+        m = int(mesh.shape.get("model", 1))
+        if m > 1:
+            raise ValueError(
+                f"{what} on a mesh with model={m}: a container's own fit, "
+                "fit_scan and serving engines do not split over the model "
+                "axis yet (ROADMAP item 7, waiting part (1): TP through "
+                "the default mesh); train with ParallelWrapper(net, "
+                "mesh=build_mesh(devices, model_parallel=m)), or set "
+                "DL4JTPU_MESH without model")
+
+    def _state_shardings(self, tree, params):
+        """The JAX rule for updater / model state: a leaf whose shape
+        matches a TP-split weight takes the spec of the FIRST parameter of
+        that shape (``setdefault``), everything else replicates. (The
+        port's explicit split, parallel/tensor_parallel.py, splits each
+        updater-state leaf as its own parameter is split, by path.)"""
+        if self.model_size <= 1:
+            return ()
+        by_shape = {}
+        for path, leaf in tree_paths(params):
+            by_shape.setdefault(tuple(getattr(leaf, "shape", ())),
+                                param_spec(path, leaf, self.model_size))
+        return _map_tree(tree, lambda path, leaf: by_shape.get(
+            tuple(getattr(leaf, "shape", ())), ()))
 
     @property
     def train_dtype(self):

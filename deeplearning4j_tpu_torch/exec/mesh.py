@@ -14,15 +14,23 @@ devices. A list that names two different cards raises (start one process
 per device instead). ``devices`` are each rank's: the mesh repeats them
 for every rank of the group (parallel/distributed.py), rank-major.
 
-The mesh is data-parallel. A ``model`` axis larger than 1 is tensor
-parallelism, which raises ``TensorParallelNotPorted``: it comes with the
-executor's ``param_spec``, in the tensor-parallel part of ROADMAP item 7.
+Axes: ``data`` (batch rows; parallel/wrapper.py) and ``model`` (Megatron
+tensor parallelism by the executor's ``param_spec``; parallel/
+tensor_parallel.py), and JAX's one-axis meshes for the other modes:
+``("seq",)`` (ring attention, parallel/sequence_parallel.py), ``("pipe",)``
+(GPipe, parallel/pipeline.py) and ``("expert",)`` (parallel/
+expert_parallel.py). Every axis but ``data`` lies within one rank's slots:
+its slots share that rank's card and their exchanges are tensor sums,
+concatenations and copies in slot order. A mesh that puts such an axis
+across ranks raises ``ValueError`` (ROADMAP item 7: model-parallel axes
+across ranks wait).
 
 ``DL4JTPU_MESH`` shapes the default mesh without code changes:
 
     DL4JTPU_MESH=off            # one slot
-    DL4JTPU_MESH=data=4         # explicit data size (must divide the
-                                # slots available)
+    DL4JTPU_MESH=data=4,model=2 # explicit axis sizes (the product must
+                                # divide the slots available)
+    DL4JTPU_MESH=model=2        # data axis absorbs the rest
 
 The slots available are the world size times ``DL4JTPU_SLOTS`` (slots a
 rank, default 1) on the process's device; ``host_device_env`` composes
@@ -42,11 +50,6 @@ MODEL_AXIS = "model"
 SLOTS_ENV = "DL4JTPU_SLOTS"
 
 _default_mesh: Optional["Mesh"] = None
-
-
-class TensorParallelNotPorted(NotImplementedError):
-    """A mesh with a ``model`` axis larger than 1: tensor parallelism,
-    ROADMAP item 7's tensor-parallel part (with ``exec.param_spec``)."""
 
 
 class Slot(NamedTuple):
@@ -70,15 +73,18 @@ class Mesh:
         if len(shape) != len(axis_names) or int(np.prod(shape)) != len(slots):
             raise ValueError(f"mesh shape {shape} does not hold "
                              f"{len(slots)} slots over axes {axis_names}")
-        for name, size in zip(axis_names, shape):
-            if name == MODEL_AXIS and size > 1:
-                raise TensorParallelNotPorted(
-                    f"a {name!r} axis of size {size} is tensor parallelism "
-                    "(ROADMAP item 7, its tensor-parallel part, with "
-                    "exec.param_spec); the port's mesh is data-parallel")
         arr = np.empty(len(slots), dtype=object)
         arr[:] = [Slot(int(s[0]), torch.device(s[1])) for s in slots]
         self.devices = arr.reshape(shape)
+        ranks = np.vectorize(lambda s: s.rank, otypes=[int])(self.devices)
+        for k, (name, size) in enumerate(zip(axis_names, shape)):
+            if name != DATA_AXIS and size > 1 and not (
+                    ranks == ranks.take([0], axis=k)).all():
+                raise ValueError(
+                    f"the {name!r} axis of mesh {dict(zip(axis_names, shape))}"
+                    " spans ranks; a model-parallel axis lies within one "
+                    "rank's slots (ROADMAP item 7: model-parallel axes "
+                    "across ranks)")
         self.axis_names = axis_names
         self.shape = dict(zip(axis_names, shape))
 
@@ -89,6 +95,15 @@ class Mesh:
     @property
     def slots(self) -> List[Slot]:
         return list(self.devices.reshape(-1))
+
+    def axis_slots(self, axis: str) -> List[Slot]:
+        """The slots along ``axis`` (the other axes at index 0), in axis
+        order."""
+        if axis not in self.axis_names:
+            raise ValueError(f"mesh has axes {self.axis_names}, no {axis!r}")
+        k = self.axis_names.index(axis)
+        arr = np.moveaxis(self.devices, k, 0)
+        return list(arr.reshape(arr.shape[0], -1)[:, 0])
 
     def local_slots(self, rank: int) -> List[Slot]:
         """The slots rank ``rank`` runs, in mesh order."""
@@ -129,7 +144,8 @@ def build_mesh(devices=None, model_parallel: int = 1) -> Mesh:
     """A 2-D ``(data, model)`` mesh: every rank of the group times each of
     ``devices`` (this rank's slot devices; default: one slot, or
     ``DL4JTPU_SLOTS``, on the process's device). ``model_parallel`` must
-    divide the slots; above 1 it raises ``TensorParallelNotPorted``."""
+    divide the slots, and each rank's slots hold whole rows of the model
+    axis."""
     from deeplearning4j_tpu_torch.parallel.distributed import topology
     m = max(1, int(model_parallel))
     devs = _local_devices(devices)

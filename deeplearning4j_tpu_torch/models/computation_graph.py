@@ -583,6 +583,7 @@ class ComputationGraph(FitContract):
         input and output (or a list of them), shaped (n_steps, batch,
         ...). The JAX package runs them as one compiled scan; here they are
         a loop with the same math."""
+        self._executor.check_unsplit("fit_scan")
         if self.conf.backprop_type == "tbptt":
             raise ValueError(
                 "fit_scan runs full-sequence backprop; a graph configured "

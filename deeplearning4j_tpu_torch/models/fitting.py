@@ -191,6 +191,7 @@ class FitContract:
                   resume_from):
         from deeplearning4j_tpu_torch.resilience.checkpoint import (
             CheckpointListener)
+        self._executor.check_unsplit("fit")
         if resume_from is None:
             self._check_trainable()
         ckpt = None

@@ -521,6 +521,7 @@ class MultiLayerNetwork(FitContract):
         """``xs.shape[0]`` train steps over a leading step axis: xs (n_steps,
         batch, ...), ys (n_steps, batch, ...). The JAX package runs them as
         one compiled scan; here they are a loop with the same math."""
+        self._executor.check_unsplit("fit_scan")
         if self.conf.backprop_type == "tbptt":
             raise ValueError(
                 "fit_scan runs full-sequence backprop; a net configured for "

@@ -64,6 +64,17 @@ round leaves ``c0 + k``, as JAX's pmean of equal counts does. Then the
 parameters, layer state and updater state are averaged over the slots,
 and over the ranks by an all-reduce divided by the slot count.
 
+**TP x DP** (a 2-D ``(data, model)`` mesh, sync mode only, as in JAX):
+the model axis lies within the rank's slots, so the rank's slots are
+``data_slots`` data replicas of ``model_size`` model shards each. The
+gradient program computes the rank's rows through the container's
+tensor-parallel form (parallel/tensor_parallel.py): each model shard
+computes with its own shards of the parameters (``param_spec``'s split;
+``_param_sharding`` / ``_replicated``), its launches inside the one
+captured program; the update program is the per-leaf update over the
+shards, in place. ``net.params`` holds the gathered, full parameters
+after every ``fit`` / ``fit_scan`` call.
+
 ``fit`` follows JAX: in sync mode runs of same-shape, mask-free batches
 that divide over the slots are stacked and trained by ``fit_scan``
 (listeners once a chunk), any other batch alone (listeners once a
@@ -162,13 +173,12 @@ class _GradLayout:
     order (then the other members), the float32 buffer ending with the
     loss."""
 
-    def __init__(self, model):
-        self.graph = isinstance(model.params, dict)
-        members = dict(_members(model.params))
+    def __init__(self, params, fused=None):
+        self.graph = isinstance(params, dict)
+        members = dict(_members(params))
         order = []
-        if model._fused is not None:
-            order += [(m, n) for g in model._fused.groups
-                      for m, n in g.layout]
+        if fused is not None:
+            order += [(m, n) for g in fused.groups for m, n in g.layout]
         seen = set(order)
         order += [(m, n) for m, p in members.items() for n in p
                   if (m, n) not in seen]
@@ -289,8 +299,14 @@ class ParallelWrapper:
             raise ValueError(
                 f"mesh has axes {self.mesh.axis_names} but model_axis="
                 f"{model_axis!r} matches none of them")
-        # a model axis larger than 1 is refused by the mesh (exec/mesh.py)
-        self.model_axis = None
+        self.model_axis = model_axis if model_axis in self.mesh.axis_names \
+            else None
+        if self.model_axis is not None and averaging_frequency != 1:
+            raise ValueError(
+                "tensor parallelism (2-D mesh) requires "
+                "averaging_frequency=1 (per-step sync)")
+        self.model_size = 1 if self.model_axis is None \
+            else int(self.mesh.shape[self.model_axis])
         self.averaging_frequency = max(1, int(averaging_frequency))
         self.prefetch_buffer = prefetch_buffer
         self.rank, self.world = topology()
@@ -300,6 +316,8 @@ class ParallelWrapper:
         self.slots = self.mesh.local_slots(self.rank)
         if not self.slots:
             raise ValueError(f"the mesh gives rank {self.rank} no slot")
+        # the rank's data-parallel replicas: its slots over the model axis
+        self.data_slots = len(self.slots) // self.model_size
         self._first_slot = self.mesh.slots.index(self.slots[0])
         for s in self.slots:
             if not _same_device(s.device, model.device):
@@ -307,6 +325,7 @@ class ParallelWrapper:
                                  f"{model.device}")
         self._grad = self._upd = self._layout = self._built_for = None
         self._replicas = None
+        self._tp = None                  # the tensor-parallel form
         self._dev_fn = None
         # the host seconds, calls and bytes of the gradient all-reduces,
         # and the host seconds of the row counts' exchange
@@ -316,6 +335,25 @@ class ParallelWrapper:
     @property
     def _grouped(self) -> bool:
         return dist.is_available() and dist.is_initialized()
+
+    # ------------------------------------------------------------ placement
+    def _param_sharding(self, leaf, path=""):
+        """The TP spec of one weight leaf (``exec.param_spec``, the rule
+        the executor applies on a mesh with a model axis); ``()``, the
+        replicated spec, on a pure data-parallel mesh."""
+        if self.model_axis is None:
+            return ()
+        from deeplearning4j_tpu_torch.exec import param_spec
+        return param_spec(path, leaf, self.model_size, axis=self.model_axis)
+
+    def _replicated(self, tree):
+        """A container's parameter tree as its per-slot model shards: each
+        leaf the list of its ``model_size`` shards by ``_param_sharding``
+        (one tensor for every shard of a replicated leaf)."""
+        from deeplearning4j_tpu_torch.exec.executor import (_map_tree,
+                                                            split_leaf)
+        return _map_tree(tree, lambda path, leaf: split_leaf(
+            leaf, self._param_sharding(leaf, path), self.model_size))
 
     # ------------------------------------------------------------- batches
     def _batch(self, ds) -> _Batch:
@@ -335,7 +373,7 @@ class ParallelWrapper:
         """(batch padded to a slot multiple by wrapping rows, pad mask or
         None) of a DataSet; the pad mask joins the label masks."""
         b = ds if isinstance(ds, _Batch) else self._batch(ds)
-        n = len(self.slots)
+        n = self.data_slots
         if b.rows % n == 0:
             return b, None
         total = b.rows + n - b.rows % n
@@ -402,10 +440,28 @@ class ParallelWrapper:
                         if n.kind == "layer"])
         return any(isinstance(l, BatchNormalization) for l in layers)
 
+    def _loss_of(self, net, params, xs, ys, mls, mfs):
+        """The container's loss through ``net`` (the tensor-parallel copy)
+        at ``params``, the layer state written."""
+        m = self.model
+        if isinstance(m.params, dict):
+            return net._loss(params, xs, ys, mls, self._masks_by_input(mfs),
+                             gen=m._gen, state=m.state)[0]
+        return net._loss(params, xs[0], ys[0],
+                         None if mls is None else mls[0], None,
+                         None if mfs is None else mfs[0], gen=m._gen,
+                         state=m.state)[0]
+
     def _grad_fn(self, xs, ys, mls, mfs, scale):
         """The gradient program: the rank's loss and gradients at the
-        resident parameters (the layer state written), flattened."""
+        resident parameters (the layer state written), flattened; under
+        tensor parallelism each model shard's gradients at its shards."""
         m = self.model
+        if self._tp is not None:
+            loss, grads = self._tp.gradients(
+                lambda net, p: self._loss_of(net, p, xs, ys, mls, mfs),
+                scale)
+            return self._layout.flatten(grads, loss)
         if isinstance(m.params, dict):
             loss, grads, _ = m._gradients(xs, ys, mls,
                                           self._masks_by_input(mfs), m._gen,
@@ -421,7 +477,11 @@ class ParallelWrapper:
         gradients (the loss slot left out)."""
         f32 = self._layout.loss_at
         flats = [f[:-1] if i == f32 else f for i, f in enumerate(flats)]
-        self.model._dp_apply_updates(self._layout.unflatten(flats))
+        grads = self._layout.unflatten(flats)
+        if self._tp is not None:
+            self._tp.apply_updates(grads)
+        else:
+            self.model._dp_apply_updates(grads)
 
     def _programs(self):
         """The gradient and update programs, built anew (with the slots'
@@ -431,7 +491,14 @@ class ParallelWrapper:
         if self._grad is None or self._built_for is not m._steps:
             self._built_for = m._steps
             self._replicas = None
-            self._layout = _GradLayout(m)
+            if self.model_size > 1:
+                from deeplearning4j_tpu_torch.parallel.tensor_parallel \
+                    import TensorParallel
+                self._tp = TensorParallel(m, self.model_size,
+                                          self.model_axis)
+                self._layout = _GradLayout(self._tp.params)
+            else:
+                self._layout = _GradLayout(m.params, m._fused)
             ex, caller = m._executor, m._prog_caller
             self._grad = ex.steps(self._grad_fn, generator=m._gen,
                                   caller=caller, name="dp_grad_b{B}")
@@ -494,8 +561,25 @@ class ParallelWrapper:
         scalar)."""
         flats = self._sync_gradients(batch, pm, iteration)
         loss = flats[self._layout.loss_at][-1].clone()
-        self.model._run(self._upd, self._upd_fn, flats)
+        if self._tp is not None:
+            m = self.model
+            self._tp.stage()
+            self._upd(flats, eager=not m._capture_steps)
+            self._tp.advance()
+        else:
+            self.model._run(self._upd, self._upd_fn, flats)
         return loss
+
+    def _tp_sync(self):
+        """The tensor-parallel shards up to date with the container."""
+        if self.model_size > 1:
+            self._programs()
+            self._tp.sync()
+
+    def _tp_store(self):
+        """The gathered, full parameters back in the container."""
+        if self._tp is not None:
+            self._tp.store()
 
     # ----------------------------------------------------------- averaging
     def _avg_round(self, rounds: List, it0: int):
@@ -583,7 +667,11 @@ class ParallelWrapper:
     def _fit_one(self, ds):
         model = self.model
         batch, pm = self._prepare(ds)
-        model._score = self._sync_step(batch, pm, model.iteration)
+        self._tp_sync()
+        try:
+            model._score = self._sync_step(batch, pm, model.iteration)
+        finally:
+            self._tp_store()
         model.iteration += 1
         self._fire()
 
@@ -609,7 +697,7 @@ class ParallelWrapper:
                 raise ValueError(
                     f"fit_scan leaves must share (n_steps, batch)="
                     f"{(n_steps, batch)}; got {tuple(leaf.shape[:2])}")
-        if batch % len(self.slots) != 0:
+        if batch % self.data_slots != 0:
             raise ValueError(
                 f"fit_scan batch {batch} must divide over {self.n_devices} "
                 "devices; pad the batch or use fit() (which pads exactly)")
@@ -622,8 +710,12 @@ class ParallelWrapper:
                  for s in range(n_steps)]
         it0 = model.iteration
         if k == 1:
-            for s, b in enumerate(steps):
-                loss = self._sync_step(b, None, it0 + s)
+            self._tp_sync()
+            try:
+                for s, b in enumerate(steps):
+                    loss = self._sync_step(b, None, it0 + s)
+            finally:
+                self._tp_store()
         else:
             for r in range(0, n_steps, k):
                 loss = self._avg_round([(b, None) for b in steps[r:r + k]],
@@ -682,7 +774,7 @@ class ParallelWrapper:
                     else DataSet(*ds))
             b = self._batch(ds)
             if (not chunkable or b.mfs is not None or b.mls is not None
-                    or b.rows % len(self.slots) != 0):
+                    or b.rows % self.data_slots != 0):
                 flush()
                 self._fit_one(b)
                 continue

@@ -268,6 +268,7 @@ class DecodeEngine:
         self.eos_id = None if eos_id is None else int(eos_id)
         self.max_queue = int(max_queue)
         execu = getattr(model, "_executor", None) or get_executor()
+        execu.check_unsplit("DecodeEngine")
         self.precision = (resolve_precision(precision)
                           if precision is not None else execu.precision)
         if kv not in ("dense", "paged"):

@@ -413,6 +413,7 @@ class InferenceEngine:
         self._is_graph = hasattr(model.conf, "network_inputs")
         self._lock = threading.RLock()
         self._execu = getattr(model, "_executor", None) or get_executor()
+        self._execu.check_unsplit("InferenceEngine")
         # explicit argument > the executor's declarative policy
         self.precision = (resolve_precision(precision)
                           if precision is not None

@@ -7,8 +7,10 @@ CPU, against the JAX package.
   equal to the JAX function's.
 - ``exec.mesh``: the ``DL4JTPU_MESH`` parser's sizes and errors against
   the JAX parser on the eight forced host devices (``mesh8``), slots
-  repeating one device, two cards in one process refused, a model axis
-  refused as tensor parallelism, the default mesh and its gauges.
+  repeating one device, two cards in one process refused, the model
+  axis (a (data, model) grid of slots) and one-axis meshes, a
+  model-parallel axis across ranks refused, the default mesh and its
+  gauges.
 - Two ranks over gloo in subprocesses (this file's ``__main__`` is the
   worker; a module fixture starts both with a timeout and kills them on
   expiry): synchronous steps of a dense net, of a BatchNormalization net
@@ -102,7 +104,10 @@ def test_initialize_reads_the_environment_and_refuses_mismatches(
 # ------------------------------------------------------------------ mesh
 @pytest.mark.mesh8
 @pytest.mark.parametrize("spec", ["off", "data=8", "data=4", "data=2",
-                                  "data=3", "data=16", ""])
+                                  "data=3", "data=16", "",
+                                  "data=4,model=2", "model=2", "model=4",
+                                  "data=2,model=2", "model=3",
+                                  "data=8,model=2"])
 def test_mesh_parser_matches_jax(spec):
     """DL4JTPU_MESH over eight slots on the CPU: the same sizes as the JAX
     parser over eight host devices, or the same error."""
@@ -126,10 +131,22 @@ def test_mesh_slots_model_axis_and_cards():
     m = mesh.build_mesh(["cpu"] * 4)
     assert m.shape == {"data": 4, "model": 1} and m.size == 4
     assert m.local_slots(0) == m.slots and m.ranks == [0]
-    with pytest.raises(mesh.TensorParallelNotPorted, match="item 7"):
-        mesh.build_mesh(["cpu"] * 4, model_parallel=2)
-    with pytest.raises(mesh.TensorParallelNotPorted, match="param_spec"):
-        mesh._mesh_from_env("model=2", ["cpu"] * 4)
+    # the model axis (tensor parallelism): a (data, model) grid of slots
+    m = mesh.build_mesh(["cpu"] * 4, model_parallel=2)
+    assert m.shape == {"data": 2, "model": 2}
+    assert m.devices.shape == (2, 2) and len(m.axis_slots("model")) == 2
+    assert mesh._mesh_from_env("model=2", ["cpu"] * 4).shape == \
+        {"data": 2, "model": 2}
+    assert not hasattr(mesh, "TensorParallelNotPorted")
+    # one-axis meshes of the other modes, and a model axis across ranks
+    assert mesh.Mesh([mesh.Slot(0, "cpu")] * 4, ("seq",)).shape == \
+        {"seq": 4}
+    two = [mesh.Slot(0, "cpu"), mesh.Slot(1, "cpu")]
+    with pytest.raises(ValueError, match="ROADMAP item 7"):
+        mesh.Mesh(two, ("data", "model"), (1, 2))
+    with pytest.raises(ValueError, match="spans ranks"):
+        mesh.Mesh(two, ("pipe",))
+    assert mesh.Mesh(two, ("data", "model"), (2, 1)).ranks == [0, 1]
     with pytest.raises(ValueError, match="one process per device"):
         mesh.build_mesh(["cuda:0", "cuda:1"])
     with pytest.raises(ValueError, match="one process per device"):

@@ -45,7 +45,11 @@ def test_every_module_is_checked_and_every_kernel_source_built():
               "deeplearning4j_tpu_torch.exec.elastic",
               "deeplearning4j_tpu_torch.exec.comms",
               "deeplearning4j_tpu_torch.exec.worker",
-              "deeplearning4j_tpu_torch.exec.cluster"):
+              "deeplearning4j_tpu_torch.exec.cluster",
+              "deeplearning4j_tpu_torch.parallel.tensor_parallel",
+              "deeplearning4j_tpu_torch.parallel.sequence_parallel",
+              "deeplearning4j_tpu_torch.parallel.pipeline",
+              "deeplearning4j_tpu_torch.parallel.expert_parallel"):
         assert m in PORT_MODULES
     assert sorted(build.SOURCES) == sorted(
         p.name for p in build.CSRC.glob("*.cu"))

@@ -10,6 +10,8 @@ and ``output(x, train=False)`` on both containers,
 kv)`` and ``InferenceEngine(model, max_batch, min_bucket, precision)``;
 the serving entry points' parameters, the data-parallel ones
 (``parallel``, ``scaleout``, the mesh, ``scaled_dot_product_attention``),
+the model-parallel ones (``param_spec`` and the placement, ring
+attention, GPipe, the mixture of experts),
 the elastic cluster's (``exec.elastic``, ``exec.comms``, ``exec.worker``,
 ``exec.cluster``; the port adds a keyword-only ``device``),
 and the public names of ``monitor`` and ``exec.programs``, are the JAX
@@ -370,6 +372,82 @@ def test_cluster_entry_points_take_the_jax_positions(entry):
         "deeplearning4j_tpu")
     assert [(p.name, _norm(p.default)) for p in ours] == \
         [(p.name, _norm(p.default)) for p in theirs] + extra
+    assert [p.kind for p in ours[:len(theirs)]] == [p.kind for p in theirs]
+    assert all(p.kind == p.KEYWORD_ONLY for p in ours[len(theirs):])
+
+
+# each model-parallel entry point: (port module, attribute, method or
+# None, the port's own extra parameters after the JAX ones)
+MODEL_PARALLEL_ENTRIES = {
+    "param_spec": ("exec.executor", "param_spec", None, []),
+    "Executor.param_shardings": ("exec.executor", "Executor",
+                                 "param_shardings", []),
+    "Executor.put_params": ("exec.executor", "Executor", "put_params", []),
+    "Executor._state_shardings": ("exec.executor", "Executor",
+                                  "_state_shardings", []),
+    "ParallelWrapper._param_sharding": ("parallel.wrapper",
+                                        "ParallelWrapper",
+                                        "_param_sharding", []),
+    "ParallelWrapper._replicated": ("parallel.wrapper", "ParallelWrapper",
+                                    "_replicated", []),
+    "ring_attention": ("parallel.sequence_parallel", "ring_attention", None,
+                       []),
+    "SequenceParallelAttention.__init__": (
+        "parallel.sequence_parallel", "SequenceParallelAttention",
+        "__init__", []),
+    "SequenceParallelAttention.__call__": (
+        "parallel.sequence_parallel", "SequenceParallelAttention",
+        "__call__", []),
+    "stack_stage_params": ("parallel.pipeline", "stack_stage_params", None,
+                           [("device", None)]),
+    "shard_stages": ("parallel.pipeline", "shard_stages", None, []),
+    "pipeline_forward": ("parallel.pipeline", "pipeline_forward", None, []),
+    "split_microbatches": ("parallel.pipeline", "split_microbatches", None,
+                           []),
+    "PipelineParallel.__init__": ("parallel.pipeline", "PipelineParallel",
+                                  "__init__", [("device", None)]),
+    "PipelineParallel.fit_batch": ("parallel.pipeline", "PipelineParallel",
+                                   "fit_batch", []),
+    "PipelineParallel.forward": ("parallel.pipeline", "PipelineParallel",
+                                 "forward", []),
+    "init_moe_params": ("parallel.expert_parallel", "init_moe_params", None,
+                        [("device", None)]),
+    "shard_moe_params": ("parallel.expert_parallel", "shard_moe_params",
+                         None, []),
+    "moe_ffw": ("parallel.expert_parallel", "moe_ffw", None, []),
+    "moe_ffw_dense_reference": ("parallel.expert_parallel",
+                                "moe_ffw_dense_reference", None, []),
+}
+
+
+def _dtype_norm(v):
+    """A dtype default by its name (``jnp.float32`` / ``torch.float32``),
+    anything else as ``_norm`` has it."""
+    if isinstance(v, torch.dtype):
+        return str(v).split(".")[-1]
+    return _norm(v)
+
+
+@pytest.mark.parametrize("entry", sorted(MODEL_PARALLEL_ENTRIES))
+def test_model_parallel_entry_points_take_the_jax_positions(entry):
+    """The model-parallel modules' parameters (``param_spec`` and the
+    executor's placement, the wrapper's TP placement, ring attention,
+    GPipe, the mixture of experts) sit where the JAX package puts them,
+    with its defaults (a dtype by its name); a port entry that turns numpy
+    into tensors adds a keyword-only ``device`` last."""
+    import importlib
+    import inspect
+    mod, attr, meth, extra = MODEL_PARALLEL_ENTRIES[entry]
+
+    def params(pkg):
+        obj = getattr(importlib.import_module(f"{pkg}.{mod}"), attr)
+        if meth is not None:
+            obj = getattr(obj, meth)
+        return list(inspect.signature(obj).parameters.values())
+    ours, theirs = params("deeplearning4j_tpu_torch"), params(
+        "deeplearning4j_tpu")
+    assert [(p.name, _dtype_norm(p.default)) for p in ours] == \
+        [(p.name, _dtype_norm(p.default)) for p in theirs] + extra
     assert [p.kind for p in ours[:len(theirs)]] == [p.kind for p in theirs]
     assert all(p.kind == p.KEYWORD_ONLY for p in ours[len(theirs):])
 
