@@ -575,8 +575,23 @@ result line, when any of them or the port's package is missing. Phases:
    capacity 1.25 and at an ample one, against the unsharded layer on the
    card and the CPU port (1e-5, the same dropped tokens) and at ample
    capacity ``moe_ffw_dense_reference``; 5 SGD steps on MSE + 0.01 x
-   aux; no hand kernel. Each part's failure fails the run; (a)-(c) join
-   the kernels line's K5-K7 launches; under 60 s.
+   aux; no hand kernel. (e) TP through the default mesh
+   (``set_default_mesh`` of a (data 4, model 2) mesh of 8 slots, the
+   counterpart of ``DL4JTPU_MESH=model=2`` with ``DL4JTPU_SLOTS=8``): the
+   same TinyTransformer's own ``fit`` for 10 captured steps (the rows
+   whole: 8 a data slot, under the executor's floor of 16) and one
+   ``fit_scan`` of the same batches on an executor whose floor is 2 (the
+   rows split over the data axis), each against the one-slot fit on the
+   card (rtol 1e-4, atol 1e-5), ``fit`` also against the CPU port (1e-4
+   of max |param|), exactly 4 each of K5-K7 a step; host ms a step,
+   median and least, beside one slot's; a warmed bucketed /predict of 8
+   held-out windows through ``InferenceServer`` over the engine's shard
+   set (exactly 4 K5 a forward) against the unsplit forward (1e-5); 8
+   concurrent greedy /generate streams through a dense and a paged
+   engine over head-split caches against the same engines on one slot
+   (the near-tie rule), exactly 4 K8 / K9 a step. Each part's failure
+   fails the run; (a)-(c) and (e) join the kernels line's K5-K9
+   launches; under 60 s.
 
 A replayed CUDA graph adds to the launch counts the launches its capture
 recorded (the capture itself counts none), so the counts below are the
@@ -594,8 +609,9 @@ After the phases each kernel is timed again at its main path's shape, and
 K5-K9 at the wide-heads phase's shapes (K5-K7 also at Dh 128 beside them,
 the split's cost); K8 and K9 also over a bfloat16 cache at their main
 path's shape, reported under ``bf16`` in their entries with phase 15's
-bfloat16 launches. Prints, before the last line, one JSON line of
-per-kernel numbers and the card's name and power limit; the last line is
+bfloat16 launches. Prints the whole script's seconds, then, before the
+last line, one JSON line of per-kernel numbers and the card's name and
+power limit; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Detailed results also go to ``chiprun_out/chip_smoke.json``.
 """
@@ -8929,11 +8945,201 @@ def mp_ep_part(card, res, dev="cuda"):
     res["ep"] = out
 
 
+MP_OUT_TOL = 1e-5                # (e): /predict against the unsplit forward
+MP_GEN_NEW = 32                  # (e): tokens a /generate stream
+
+
+def mp_default_mesh_part(card, res, dev="cuda"):
+    """(e) TP through the default mesh: the container's own fit and
+    fit_scan, a warmed /predict, dense and paged /generate."""
+    import torch
+    from deeplearning4j_tpu_torch import ComputationGraph, ops
+    from deeplearning4j_tpu_torch.exec import (Executor, build_mesh,
+                                               set_default_mesh)
+    from deeplearning4j_tpu_torch.nn.updaters import Sgd
+    from deeplearning4j_tpu_torch.serving import (DecodeEngine,
+                                                  InferenceClient,
+                                                  InferenceEngine,
+                                                  InferenceServer)
+    from deeplearning4j_tpu_torch.zoo import TinyTransformer
+    from deeplearning4j_tpu_torch.zoo.corpus import corpus_ids
+    zoo = TinyTransformer(vocab_size=MP_V, updater=Sgd(MP_LR))
+    data = _mp_tokens(MP_STEPS, 0, MP_V)
+    mesh = build_mesh([dev] * (MP_DATA * MP_MODEL), model_parallel=MP_MODEL)
+    per_step = {k: 2 * MP_MODEL for k in MP_KERNELS}
+    out = {}
+
+    def one_slot(net):
+        net._exec = Executor(build_mesh([dev]))
+        return net
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+    set_default_mesh(mesh)
+    try:
+        net = zoo.init(device=dev)
+        if net._executor.model_size != MP_MODEL:
+            raise AssertionError("phase 20 (e): the default mesh's model "
+                                 "axis did not reach the container")
+        ref = one_slot(zoo.init(device=dev))
+        cpu = ComputationGraph(net.conf, device="cpu")
+        cpu._exec = Executor(build_mesh(["cpu"]))
+        cpu.set_params(net.params)
+        ms, ref_ms, launches = [], [], {}
+        for i, ds in enumerate(data):
+            ops.reset_launch_counts()
+            sync()
+            t0 = time.perf_counter()
+            net.fit(ds)
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            _add_counts(launches, _expect_launches(
+                f"phase 20 (e) fit step {i}", per_step))
+        out["fit"] = {"launches": launches, "ms": ms,
+                      "routes": net.tp_routes}
+        for ds in data:
+            sync()
+            t0 = time.perf_counter()
+            ref.fit(ds)
+            sync()
+            ref_ms.append((time.perf_counter() - t0) * 1e3)
+            cpu.fit(ds)
+        scan = zoo.init(device=dev)
+        scan._exec = Executor(mesh, min_rows_per_shard=2)
+        ops.reset_launch_counts()
+        scan.fit_scan(np.stack([d.features for d in data]),
+                      np.stack([d.labels for d in data]))
+        sync()
+        out["fit_scan"] = {"launches": _expect_launches(
+            "phase 20 (e) fit_scan",
+            {k: MP_STEPS * v for k, v in per_step.items()}),
+            "routes": scan.tp_routes}
+        if out["fit"]["routes"] != {"whole": MP_STEPS} or \
+                out["fit_scan"]["routes"] != {"data": MP_STEPS}:
+            raise AssertionError(f"phase 20 (e): shard routes {out}")
+        err, pa, pb = _param_errs(net, ref)
+        scan_err, ps, _ = _param_errs(scan, ref)
+        cpu_err, _, pc = _param_errs(net, cpu)
+        scale = max(float(v.abs().max()) for v in pc.values())
+        out.update(
+            max_param_diff=err, fit_scan_max_param_diff=scan_err,
+            allclose=_allclose(pa, pb, MP_RTOL, MP_ATOL),
+            fit_scan_allclose=_allclose(ps, pb, MP_RTOL, MP_ATOL),
+            cpu_rel_err=cpu_err / scale,
+            ms_per_step=statistics.median(ms[2:]), ms_min=min(ms[2:]),
+            single_ms_per_step=statistics.median(ref_ms[2:]),
+            single_ms_min=min(ref_ms[2:]), single_ms=ref_ms)
+        print(f"mp: (e) TP through the default mesh (data {MP_DATA}, model "
+              f"{MP_MODEL}), TinyTransformer (d_model 128, 4 heads, 2 "
+              f"blocks, vocab {MP_V}, B={MP_B}, T={MP_T}, Sgd({MP_LR})): "
+              f"{MP_STEPS} captured fit steps (routes {net.tp_routes}) "
+              f"against one slot max diff {err:.3g} (allclose rtol "
+              f"{MP_RTOL} atol {MP_ATOL}: {out['allclose']}), fit_scan "
+              f"(routes {scan.tp_routes}) {scan_err:.3g} "
+              f"({out['fit_scan_allclose']}), against the CPU port "
+              f"{out['cpu_rel_err']:.3g} of max |param| (bar {MP_CPU_TOL}); "
+              f"launches a step {per_step}; host ms a step median "
+              f"{out['ms_per_step']:.3f} / min {out['ms_min']:.3f} (one slot "
+              f"{out['single_ms_per_step']:.3f} / "
+              f"{out['single_ms_min']:.3f}) [{card}]", flush=True)
+        if not (out["allclose"] and out["fit_scan_allclose"]
+                and out["cpu_rel_err"] <= MP_CPU_TOL):
+            raise AssertionError(f"phase 20 (e): {out}")
+
+        # /predict: the engine's shard set, warmed (captured) rungs 1..16
+        eng = InferenceEngine(net, max_batch=16)
+        eng.warmup((MP_T, MP_V))
+        ids, _ = corpus_ids()
+        ids = np.asarray([int(t) for t in ids])
+        eye = np.eye(MP_V, dtype=np.float32)
+        windows = np.stack([eye[ids[i * 97:i * 97 + MP_T]]
+                            for i in range(8)])
+        dense = DecodeEngine(net, slots=8, max_len=512)
+        paged = DecodeEngine(net, slots=8, max_len=512, kv="paged",
+                             kv_block_size=KV_BLOCK)
+        srv = InferenceServer(net, port=0, engine=eng,
+                              decode_engine=dense).start()
+        psrv = InferenceServer(net, port=0, engine=eng,
+                               decode_engine=paged).start()
+        try:
+            cli = InferenceClient(f"http://127.0.0.1:{srv.port}")
+            c0 = eng.stats()["device_calls"]
+            ops.reset_launch_counts()
+            got = cli.predict(windows)
+            calls = eng.stats()["device_calls"] - c0
+            out["predict"] = {
+                "launches": _expect_launches(
+                    "phase 20 (e) /predict",
+                    {"flash_attn_fwd": 2 * MP_MODEL * calls}),
+                "device_calls": calls, "captures": eng.captures}
+            want = net.output(windows, bucketed=False).cpu().numpy()
+            out["predict"]["max_abs_err"] = float(np.abs(got - want).max())
+            print(f"mp: (e) /predict of 8 windows over the engine's shard "
+                  f"set ({eng.captures} captured rungs): {calls} forward(s), "
+                  f"launches {out['predict']['launches']}, max abs err vs "
+                  f"the unsplit forward "
+                  f"{out['predict']['max_abs_err']:.3g} (bar {MP_OUT_TOL}) "
+                  f"[{card}]", flush=True)
+            if not np.isfinite(got).all() or \
+                    out["predict"]["max_abs_err"] > MP_OUT_TOL:
+                raise AssertionError(f"phase 20 (e) /predict: {out}")
+            lens = [16, 22, 28, 34, 40, 46, 52, 64]
+            prompts = [list(map(int, ids[i * 211:i * 211 + n]))
+                       for i, n in enumerate(lens)]
+            for kind, server, engine, kernel in (
+                    ("dense", srv, dense, "flash_decode"),
+                    ("paged", psrv, paged, "flash_decode_paged")):
+                pc = InferenceClient(f"http://127.0.0.1:{server.port}")
+                s0 = engine.stats()["steps"]
+                ops.reset_launch_counts()
+                with ThreadPoolExecutor(len(prompts)) as pool:
+                    gens = list(pool.map(
+                        lambda p: pc.generate(p, MP_GEN_NEW)["tokens"],
+                        prompts))
+                steps = engine.stats()["steps"] - s0
+                out[kind] = {"launches": _expect_launches(
+                    f"phase 20 (e) {kind} /generate",
+                    {kernel: 2 * MP_MODEL * steps}), "steps": steps,
+                    "programs": engine.trace_count}
+                un = one_slot(ComputationGraph(net.conf, device=dev))
+                un.set_params({n: {k: v.clone() for k, v in p.items()}
+                               for n, p in net.params.items()})
+                ueng = DecodeEngine(un, slots=8, max_len=512, kv=kind,
+                                    kv_block_size=KV_BLOCK).start()
+                try:
+                    futs = [ueng.submit(p, MP_GEN_NEW) for p in prompts]
+                    wants = [f.result(timeout=300)["tokens"] for f in futs]
+                finally:
+                    ueng.stop()
+                ties = [_first_tie(un, p, g, w)
+                        for p, g, w in zip(prompts, gens, wants)]
+                worst = max((t[1] for t in ties if t is not None),
+                            default=None)
+                out[kind].update(identical=sum(t is None for t in ties),
+                                 worst_tie_margin=worst)
+                print(f"mp: (e) {kind} /generate, 8 streams of "
+                      f"{MP_GEN_NEW} tokens over head-split caches: "
+                      f"{steps} steps, launches {out[kind]['launches']}, "
+                      f"{out[kind]['identical']} of 8 streams equal to the "
+                      f"one-slot engine's (worst tie margin {worst}, bar "
+                      f"{TIE_MARGIN}) [{card}]", flush=True)
+                if worst is not None and worst > TIE_MARGIN:
+                    raise AssertionError(f"phase 20 (e) {kind}: {out}")
+        finally:
+            psrv.stop()
+            srv.stop()
+    finally:
+        set_default_mesh(None)
+    res["default_mesh"] = out
+
+
 def mp_phase(card, dev="cuda"):
     """Phase 20: model parallelism (``chip_smoke.py`` docstring)."""
     t0 = time.perf_counter()
     res = {"card": card}
-    for part in (mp_tp_part, mp_sp_part, mp_pp_part, mp_ep_part):
+    for part in (mp_tp_part, mp_sp_part, mp_pp_part, mp_ep_part,
+                 mp_default_mesh_part):
         t1 = time.perf_counter()
         part(card, res, dev)
         print(f"mp: {part.__name__} {time.perf_counter() - t1:.1f} s "
@@ -8958,6 +9164,7 @@ def main() -> int:
         print(f"chip_smoke: the port's package is missing: {e}",
               file=sys.stderr)
         return 2
+    t_script = time.perf_counter()
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}", flush=True)
@@ -9166,6 +9373,7 @@ def main() -> int:
                "phase 20": counted_launches(mp, "flash_attn_fwd")}
     entry("flash_attn_fwd", row, sum(by_path.values()))
     entries[-1]["launches_by_path"] = by_path
+    entries[-1]["launches_phase_20"] = by_path["phase 20"]
     # the recipe's train steps (B=32, T=64) run K6 and K7 at BH 128, causal
     recipe = tiny_train["recipe"]["launches_train"]
     for row in bwd_kernel_case(TINY_B, TINY_T, True, seed=1):
@@ -9191,9 +9399,11 @@ def main() -> int:
                    "phase 15 (float32 caches)":
                    counted_launches(precision, kernel) - bf16_launches,
                    "phase 16": counted_launches(obs, kernel),
-                   "phase 17": counted_launches(routed, kernel)}
+                   "phase 17": counted_launches(routed, kernel),
+                   "phase 20": counted_launches(mp, kernel)}
         entry(kernel, row, sum(by_path.values()))
         entries[-1]["launches_by_path"] = by_path
+        entries[-1]["launches_phase_20"] = by_path["phase 20"]
         # the same shape over a bfloat16 cache (F8): that instantiation's
         # numbers beside the float32 ones
         row = attn_kernel_case(kernel, 8, 512, pos=mid, seed=1,
@@ -9224,10 +9434,14 @@ def main() -> int:
         print("wide-phase shape: " + fmt_attn(rows[-1]) + f" [{card}]",
               flush=True)
 
+    script_seconds = time.perf_counter() - t_script
+    print(f"chip_smoke: the whole script took {script_seconds:.1f} s "
+          f"[{card}]", flush=True)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
+         "script_seconds": script_seconds,
          "kernel_rows": rows, "k3_hidden_sizes": k3_sizes,
          "k4_hidden_sizes": k4_sizes, "k12_hidden_sizes": k12_sizes,
          "slice": res, "f4": f4, "tiny": tiny, "wide": wide,

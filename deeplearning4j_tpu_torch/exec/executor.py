@@ -75,7 +75,12 @@ owner set ``caller`` (the engines). Registration runs nothing more.
 The placement rule is the JAX package's: the spec vocabulary (``PARAMS``
 ... ``AUX``), ``param_spec`` (Megatron's column / row split of a weight
 leaf over the mesh's ``model`` axis) and the executor's
-``param_shardings``, ``put_params`` and ``_state_shardings``. A spec is a
+``param_shardings``, ``put_params``, ``_state_shardings`` and (reported
+beside the port's own split of a decode state) ``slot_shardings``; its
+``data_size`` / ``model_size`` and the shard decision ``shardable_rows``
+(``min_rows_per_shard``, ``DL4JTPU_MIN_ROWS_PER_SHARD``, default 16;
+``min_slots_per_shard`` 2), which a container's own fit on a mesh with a
+model axis follows (models/fitting.py). A spec is a
 tuple of axis names or None (the port has no ``PartitionSpec``; ``()``
 replicates). Where GSPMD places a leaf by its spec and inserts the
 collectives, the port splits it into per-slot shards (``put_params``) and
@@ -199,12 +204,23 @@ class Executor:
     """One policy for the fit path's and the serving engines' precisions,
     and the capture of steps into CUDA graphs."""
 
-    def __init__(self, mesh=None, *, precision: Optional[str] = None,
+    def __init__(self, mesh=None, *, min_rows_per_shard: Optional[int] = None,
+                 min_slots_per_shard: Optional[int] = None,
+                 precision: Optional[str] = None,
                  train_precision: Optional[str] = None):
         from deeplearning4j_tpu_torch.quant import resolve_precision
         # the mesh of slots (exec/mesh.py); the process default until the
         # first read when None
         self._mesh = mesh
+        # the shard decision's floors (``shardable_rows``): a batch splits
+        # over the data axis only at this many rows a data slot or more;
+        # a decode engine's slots at ``min_slots`` a data slot
+        env = os.environ.get("DL4JTPU_MIN_ROWS_PER_SHARD")
+        self.min_rows = int(env) if min_rows_per_shard is None and env \
+            else (16 if min_rows_per_shard is None
+                  else int(min_rows_per_shard))
+        self.min_slots = 2 if min_slots_per_shard is None \
+            else int(min_slots_per_shard)
         # declarative SERVING precision: every engine built against this
         # executor (the bucketed forward, the decode programs, the drafts)
         # inherits it without per-caller code
@@ -222,6 +238,11 @@ class Executor:
             raise ValueError(
                 f"train_precision must be 'f32' or 'bf16', got {tp!r}")
         self.train_precision = "bf16" if tp in ("bf16", "bfloat16") else "f32"
+        from deeplearning4j_tpu_torch.monitor.metrics import get_registry
+        get_registry().gauge(
+            "dl4jtpu_train_precision_bf16",
+            "1 when the executor's training-precision policy is bf16"
+        ).set(1.0 if self.train_precision == "bf16" else 0.0)
         self._streams: Dict[int, torch.cuda.Stream] = {}
         self._copy_streams: Dict[int, torch.cuda.Stream] = {}
 
@@ -233,9 +254,66 @@ class Executor:
             self._mesh = default_mesh()
         return self._mesh
 
+    def _shaped_mesh(self):
+        """The mesh the sizes are read from: the executor's own, or the
+        process default where ``DL4JTPU_MESH`` or ``set_default_mesh``
+        shaped it; None otherwise, which reads as one slot. An unshaped
+        default mesh has no model axis, and it is not built for the
+        question (building it asks for the process's card)."""
+        if self._mesh is not None:
+            return self._mesh
+        from deeplearning4j_tpu_torch.exec import mesh as mesh_mod
+        if mesh_mod._default_mesh is None and not os.environ.get(
+                "DL4JTPU_MESH", "").strip():
+            return None
+        return self.mesh
+
+    @property
+    def data_size(self) -> int:
+        mesh = self._shaped_mesh()
+        return 1 if mesh is None else int(mesh.shape.get("data", 1))
+
     @property
     def model_size(self) -> int:
-        return int(self.mesh.shape.get("model", 1))
+        mesh = self._shaped_mesh()
+        return 1 if mesh is None else int(mesh.shape.get("model", 1))
+
+    def shardable_rows(self, n: int, *, min_rows: Optional[int] = None
+                       ) -> bool:
+        """Whether ``n`` rows split over the data axis: it divides them
+        and each data slot gets ``min_rows`` (default the executor's
+        floor) or more; else every data slot takes the whole batch (the
+        JAX rule)."""
+        mr = self.min_rows if min_rows is None else min_rows
+        d = self.data_size
+        return d > 1 and n % d == 0 and n // d >= mr
+
+    def slot_shardings(self, dstate, slots: int):
+        """The JAX rule for a decode state of ``slots`` rows (its
+        ``_slot_spec``): slot rows over ``data`` where the slots give each
+        data slot ``min_slots`` or more, and a leaf with a trailing dim the
+        model size divides (a KV cache's head dim Dh) split over
+        ``model``. Reported only: the port splits a KV cache on whole
+        heads (parallel/tensor_parallel.py), so that K8 / K9 run over each
+        shard's heads."""
+        m, d = self.model_size, self.data_size
+        data_ok = d > 1 and slots % d == 0 and slots // d >= self.min_slots
+
+        def spec(leaf):
+            nd = getattr(leaf, "ndim", 0)
+            lead = "data" if (data_ok and nd >= 1) else None
+            if m > 1 and nd >= 2 and leaf.shape[-1] % m == 0 \
+                    and leaf.shape[-1] >= m:
+                return tuple([lead] + [None] * (nd - 2) + ["model"])
+            return () if nd == 0 else tuple([lead] + [None] * (nd - 1))
+
+        def walk(t):
+            if isinstance(t, dict):
+                return {k: walk(v) for k, v in t.items()}
+            if isinstance(t, (list, tuple)):
+                return type(t)(walk(v) for v in t)
+            return None if t is None else spec(t)
+        return walk(dstate)
 
     def param_shardings(self, tree):
         """The spec of every weight leaf, in the tree's structure (``()``
@@ -252,29 +330,6 @@ class Executor:
         m = self.model_size
         return _map_tree(tree, lambda path, leaf: split_leaf(
             leaf, param_spec(path, leaf, m), m))
-
-    def check_unsplit(self, what: str) -> None:
-        """Refuse a container's own fit or serving path on a mesh with a
-        model axis: those paths compute unsplit (ROADMAP item 7, waiting
-        part (1)); ``ParallelWrapper(net, mesh=...)`` is the tensor-
-        parallel entry point. The default mesh is only built here when
-        ``DL4JTPU_MESH`` or ``set_default_mesh`` shaped it."""
-        mesh = self._mesh
-        if mesh is None:
-            from deeplearning4j_tpu_torch.exec import mesh as mesh_mod
-            if mesh_mod._default_mesh is None and not os.environ.get(
-                    "DL4JTPU_MESH", "").strip():
-                return
-            mesh = self.mesh
-        m = int(mesh.shape.get("model", 1))
-        if m > 1:
-            raise ValueError(
-                f"{what} on a mesh with model={m}: a container's own fit, "
-                "fit_scan and serving engines do not split over the model "
-                "axis yet (ROADMAP item 7, waiting part (1): TP through "
-                "the default mesh); train with ParallelWrapper(net, "
-                "mesh=build_mesh(devices, model_parallel=m)), or set "
-                "DL4JTPU_MESH without model")
 
     def _state_shardings(self, tree, params):
         """The JAX rule for updater / model state: a leaf whose shape

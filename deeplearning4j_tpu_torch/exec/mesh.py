@@ -207,11 +207,16 @@ def default_mesh() -> Mesh:
 
 
 def set_default_mesh(mesh: Optional[Mesh]) -> None:
-    """Override (or with None, reset) the process default mesh."""
+    """Override (or with None, reset) the process default mesh. Drops
+    the cached default executor, as the JAX package does, so that a
+    container or engine bound after this sees the new mesh; one bound
+    before keeps its executor."""
     global _default_mesh
     _default_mesh = mesh
     if mesh is not None:
         _publish_gauges(mesh)
+    from deeplearning4j_tpu_torch.exec import executor as _ex
+    _ex.set_executor(None)
 
 
 def host_device_env(n: int = 8, base=None) -> dict:

@@ -420,6 +420,11 @@ class ComputationGraph(FitContract):
         the card, a replay's static outputs, which its next replay
         overwrites)."""
         it = self.iteration if iteration is None else iteration
+        if self._tp_live is not None:
+            mfs = None if masks is None else [
+                masks.get(n) for n in self.conf.network_inputs]
+            return self._tp_step(it, inputs, labels, label_masks,
+                                 mfs), None
         seed_generator(self._gen, self.conf.global_conf.seed, it)
         return self._sampled_or_plain(it, inputs, labels, label_masks,
                                       masks, carries)
@@ -538,11 +543,12 @@ class ComputationGraph(FitContract):
         inputs, labels, label_masks, masks = self._batch(mds)
         self._last_input = inputs
         c0, t0 = self._capture_count, time.perf_counter()
-        if self.conf.backprop_type == "tbptt" and inputs[0].ndim == 3:
-            self._fit_tbptt(inputs, labels, label_masks, masks)
-        else:
-            self._score = self._train_step(inputs, labels, label_masks,
-                                           masks)[0].clone()
+        with self._tp_scope():
+            if self.conf.backprop_type == "tbptt" and inputs[0].ndim == 3:
+                self._fit_tbptt(inputs, labels, label_masks, masks)
+            else:
+                self._score = self._train_step(inputs, labels, label_masks,
+                                               masks)[0].clone()
         # a tBPTT batch records its last chunk's telemetry
         self._flight_record(self.iteration)
         self._last_fit_time = time.perf_counter() - t0
@@ -583,7 +589,6 @@ class ComputationGraph(FitContract):
         input and output (or a list of them), shaped (n_steps, batch,
         ...). The JAX package runs them as one compiled scan; here they are
         a loop with the same math."""
-        self._executor.check_unsplit("fit_scan")
         if self.conf.backprop_type == "tbptt":
             raise ValueError(
                 "fit_scan runs full-sequence backprop; a graph configured "
@@ -597,13 +602,14 @@ class ComputationGraph(FitContract):
         ys = [self._as_input(a) for a in labels_steps]
         n = int(xs[0].shape[0])
         c0, t0 = self._capture_count, time.perf_counter()
-        for k in range(n):
-            loss, _ = self._train_step([a[k] for a in xs],
-                                       [a[k] for a in ys],
-                                       iteration=self.iteration + k)
-            self._flight_record(self.iteration + k)
-            if k == n - 1:
-                self._score = loss.clone()
+        with self._tp_scope():
+            for k in range(n):
+                loss, _ = self._train_step([a[k] for a in xs],
+                                           [a[k] for a in ys],
+                                           iteration=self.iteration + k)
+                self._flight_record(self.iteration + k)
+                if k == n - 1:
+                    self._score = loss.clone()
         self._last_input = [a[-1] for a in xs]
         self.iteration += n
         self._epoch_batch += n

@@ -50,6 +50,26 @@ attached (``attach_flight_recorder``) a sampled iteration runs the
 sampled step (``train_step_b{B}_telemetry``), whose telemetry is recorded
 once a step (``fit_scan``: every step; tBPTT: the batch's last chunk).
 
+Tensor parallelism through the default mesh (the JAX containers on an
+executor whose mesh has a ``model`` axis: ``DL4JTPU_MESH=model=m``,
+``set_default_mesh`` or ``Executor(build_mesh(..., model_parallel=m))``):
+every ``_fit_batch`` and ``fit_scan`` call runs its steps through the
+captured TP gradient and update programs of parallel/wrapper.py, one
+``ParallelWrapper`` over the executor's mesh that the container builds at
+its first such call and keeps (its resident shards and split updater
+state stay resident across calls, are rebuilt when ``set_params`` /
+``init`` rebuild the optimizer and reloaded when the parameters moved
+otherwise, ``_params_version``), and the gathered parameters and updater
+state are written back into the container before the listeners fire.
+A step's rows split over the data axis where ``Executor.shardable_rows``
+holds (JAX's ``shard_data``), else one data slot's program takes the
+whole batch: on one card both are the one program over every row (the
+data axis is placement there), and the route is counted
+(``tp_routes``). The update is the per-leaf one (JAX's ``fused =
+model_size <= 1``). tBPTT and the flight recorder are not taken under a
+model axis (``NotImplementedError``, ROADMAP item 7). A mesh without a
+model axis keeps the path above.
+
 The pre-processor seam is the JAX stream's (``_resolve_device_pp``): a
 pre-processor on the iterator chain (``data.iterators.
 resolve_pre_processor``) with ``device_side`` set is not applied by the
@@ -63,9 +83,11 @@ transform is applied on the host instead.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
+from collections import Counter
 
 import numpy as np
 
@@ -84,6 +106,9 @@ class FitContract:
     _flight = None        # FlightRecorder (monitor/flight.py)
     _train_mon = None     # lazy TrainMonitor (monitor/hooks.py)
     _telem = None         # the last sampled step's telemetry
+    _tp_runner = None     # the TP trainer over the executor's mesh (lazy)
+    _tp_live = None       # that trainer while a fit call runs on it
+    _tp_counts = None     # steps by shard route ("data" / "whole")
 
     # ------------------------------------------------------------- steps
     def _build_step_graphs(self):
@@ -105,9 +130,76 @@ class FitContract:
     @property
     def _capture_count(self) -> int:
         """CUDA graphs captured since the optimizer was built (the JAX
-        package's ``_compile_count``)."""
-        return (self._steps.captures + self._steps_rec.captures
-                + self._updates.captures)
+        package's ``_compile_count``), the TP trainer's included."""
+        n = (self._steps.captures + self._steps_rec.captures
+             + self._updates.captures)
+        pw = self._tp_runner
+        if pw is not None and pw._grad is not None \
+                and pw._built_for is self._steps:
+            n += pw._grad.captures + pw._upd.captures
+        return n
+
+    # ------------------------------------------------- tensor parallelism
+    def _tp_trainer(self):
+        """The TP trainer of the container's own fit path: a
+        ``ParallelWrapper`` over the executor's mesh when its model axis
+        is > 1 (built at the first such call, anew for another mesh),
+        else None."""
+        ex = self._executor
+        if ex.model_size <= 1:
+            return None
+        pw = self._tp_runner
+        if pw is None or pw.mesh is not ex.mesh:
+            from deeplearning4j_tpu_torch.parallel.wrapper import \
+                ParallelWrapper
+            pw = self._tp_runner = ParallelWrapper(self, mesh=ex.mesh)
+        return pw
+
+    @contextlib.contextmanager
+    def _tp_scope(self):
+        """One ``_fit_batch`` / ``fit_scan`` call's steps on the model
+        axis (module docstring): the resident shards brought up to date
+        with the container first, the gathered parameters and updater
+        state written back after. Without a model axis, nothing."""
+        pw = self._tp_trainer()
+        if pw is None:
+            yield
+            return
+        if self.conf.backprop_type == "tbptt":
+            raise NotImplementedError(
+                "truncated BPTT on a mesh with a model axis is not ported "
+                "(ROADMAP item 7)")
+        if self._flight is not None:
+            raise NotImplementedError(
+                "the flight recorder on a mesh with a model axis is not "
+                "ported (ROADMAP item 7)")
+        pw._tp_sync()
+        self._tp_live = pw
+        try:
+            yield
+        finally:
+            self._tp_live = None
+            pw._tp_store()
+
+    def _tp_step(self, iteration, xs, ys, mls, mfs):
+        """One train step at ``iteration`` through the TP trainer's
+        captured programs (lists of inputs, labels, label masks and
+        feature masks, None where absent); returns the loss."""
+        from deeplearning4j_tpu_torch.parallel.wrapper import _Batch
+        rows = int(xs[0].shape[0])
+        if self._tp_counts is None:
+            self._tp_counts = Counter()
+        self._tp_counts["data" if self._executor.shardable_rows(rows)
+                        else "whole"] += 1
+        return self._tp_live._sync_step(_Batch(xs, ys, mfs, mls), None,
+                                        iteration)
+
+    @property
+    def tp_routes(self) -> dict:
+        """Steps taken on the model axis by shard route: ``data`` (rows
+        split over the data axis) and ``whole`` (one data slot's program
+        over the batch)."""
+        return dict(self._tp_counts or {})
 
     def _run(self, graphs, fn, *args):
         """``fn(*args)`` (``fn`` is ``graphs``' function) with the fused
@@ -191,7 +283,6 @@ class FitContract:
                   resume_from):
         from deeplearning4j_tpu_torch.resilience.checkpoint import (
             CheckpointListener)
-        self._executor.check_unsplit("fit")
         if resume_from is None:
             self._check_trainable()
         ckpt = None

@@ -474,6 +474,8 @@ class MultiLayerNetwork(FitContract):
         loss and carries of a replay are the graph's static outputs, which
         its next replay overwrites."""
         it = self.iteration if iteration is None else iteration
+        if self._tp_live is not None:
+            return self._tp_step(it, [x], [y], [mask_l], [mask_f]), None
         seed_generator(self._gen, self.conf.global_conf.seed, it)
         return self._sampled_or_plain(it, x, y, mask_l, carries, mask_f)
 
@@ -521,7 +523,6 @@ class MultiLayerNetwork(FitContract):
         """``xs.shape[0]`` train steps over a leading step axis: xs (n_steps,
         batch, ...), ys (n_steps, batch, ...). The JAX package runs them as
         one compiled scan; here they are a loop with the same math."""
-        self._executor.check_unsplit("fit_scan")
         if self.conf.backprop_type == "tbptt":
             raise ValueError(
                 "fit_scan runs full-sequence backprop; a net configured for "
@@ -529,12 +530,13 @@ class MultiLayerNetwork(FitContract):
         self._check_trainable()
         xs, ys = self._as_input(xs), self._as_input(ys)
         c0, t0 = self._capture_count, time.perf_counter()
-        for k in range(xs.shape[0]):
-            loss, _ = self._train_step(xs[k], ys[k],
-                                       iteration=self.iteration + k)
-            self._flight_record(self.iteration + k)
-            if k == xs.shape[0] - 1:
-                self._score = loss.clone()
+        with self._tp_scope():
+            for k in range(xs.shape[0]):
+                loss, _ = self._train_step(xs[k], ys[k],
+                                           iteration=self.iteration + k)
+                self._flight_record(self.iteration + k)
+                if k == xs.shape[0] - 1:
+                    self._score = loss.clone()
         self._last_input = xs[-1]
         self.iteration += int(xs.shape[0])
         self._epoch_batch += int(xs.shape[0])
@@ -553,10 +555,12 @@ class MultiLayerNetwork(FitContract):
             else self._as_input(ds.features_mask)
         self._last_input = x
         c0, t0 = self._capture_count, time.perf_counter()
-        if self.conf.backprop_type == "tbptt" and x.ndim == 3:
-            self._fit_tbptt(x, y, ml, mf)
-        else:
-            self._score = self._train_step(x, y, ml, mask_f=mf)[0].clone()
+        with self._tp_scope():
+            if self.conf.backprop_type == "tbptt" and x.ndim == 3:
+                self._fit_tbptt(x, y, ml, mf)
+            else:
+                self._score = self._train_step(x, y, ml,
+                                               mask_f=mf)[0].clone()
         # a tBPTT batch records its last chunk's telemetry
         self._flight_record(self.iteration)
         self._last_fit_time = time.perf_counter() - t0

@@ -14,6 +14,8 @@ train call that captured a new CUDA graph; such a call's seconds go to
 
 from __future__ import annotations
 
+import time
+
 from deeplearning4j_tpu_torch.monitor.metrics import (
     DEFAULT_STEP_BUCKETS, get_registry)
 
@@ -68,3 +70,7 @@ class TrainMonitor:
             self.compile_seconds.inc(seconds)
         else:
             self._hist[path].observe(seconds)
+
+    def timed(self):
+        """Start-of-call timestamp (symmetry helper)."""
+        return time.perf_counter()

@@ -262,6 +262,11 @@ def build_fused_update(params: Dict, opt_state: Dict, transforms: Dict,
     for k in fallback:
         n = transforms[k].n_scalars
         fallback_sc[k], views = views[:n], views[n:]
+    from deeplearning4j_tpu_torch.monitor.metrics import get_registry
+    get_registry().gauge(
+        "dl4jtpu_train_fused_groups",
+        "Fused updater groups in the most recently built optimizer "
+        "(0 = per-leaf path)").set(len(groups))
     return FusedUpdate(groups=groups, fallback=fallback,
                        passthrough=passthrough, transforms=dict(transforms),
                        constraints={k: constraints.get(k, _identity)

@@ -40,6 +40,22 @@ one. An updater-state leaf is split as its own parameter is (by path):
 the JAX executor co-shards it with the first parameter of its shape,
 harmless under GSPMD but wrong for an explicit split.
 
+Serving (the bucketed engine's forward and the decode engine's programs,
+serving/engine.py and serving/decode.py) runs the same form without its
+training state (``train=False``) over an engine-owned shard set
+(``split``): the forward through ``TPLayer.apply``, and every decode
+method of an attention layer once a shard over that shard's H/m heads
+(``_Heads``): its KV cache is split on whole heads, (B, C, H/m, Dh) a
+shard dense and (num_blocks, block_size, H/m, Dh) a shard paged, each a
+list in shard order under the layer's own keys, so K8 / K9 run over each
+shard's heads beside its column shards of ``Wq`` / ``Wk`` / ``Wv``; the
+shards' ``Wo`` partials are summed in shard order. A layer with no split
+of its own decodes through ``TPLayer.apply`` where its decode method is
+``Layer``'s (dense layers: column or row split), else through its own
+method over gathered parameters (the positional table, an LSTM).
+Speculation (``tree_chunk`` / ``tree_commit``) over head shards is not
+ported (ROADMAP item 7).
+
 The shards of one rank live on its card (exec/mesh.py: the model axis
 lies within one rank's slots). They are resident: the captured gradient
 and update programs (parallel/wrapper.py) read them by address, and the
@@ -50,6 +66,7 @@ parameters and updater state back into the container.
 from __future__ import annotations
 
 import copy
+import dataclasses
 from typing import Dict, List, Optional
 
 import torch
@@ -60,6 +77,7 @@ from deeplearning4j_tpu_torch.nn.activations import get_activation
 from deeplearning4j_tpu_torch.nn.fused_update import _split_key
 from deeplearning4j_tpu_torch.nn.layers.attention import (
     MultiHeadAttention, scaled_dot_product_attention)
+from deeplearning4j_tpu_torch.nn.layers.base import Layer
 from deeplearning4j_tpu_torch.nn.layers.conv import ConvolutionLayer, _conv2d
 from deeplearning4j_tpu_torch.nn.layers.core import DenseLayer, OutputLayer
 from deeplearning4j_tpu_torch.nn.layers.rnn import RnnOutputLayer
@@ -117,6 +135,25 @@ def _bias_part(b, s: int, m: int):
     return None if b is None else b.chunk(m, -1)[s]
 
 
+class _Heads(MultiHeadAttention):
+    """One model shard's heads of a MultiHeadAttention: H/m heads over
+    its column shards of ``Wq`` / ``Wk`` / ``Wv`` (and ``bq`` / ``bk`` /
+    ``bv``) and its row shard of ``Wo``, without the output bias, which
+    is added once after the shards' partial sums. Every decode method is
+    MultiHeadAttention's own, over the shard's cache or pool."""
+
+    def _project_out(self, params, o, B, T, dt):
+        return o.reshape(B, T, self.n_out).to(dt) @ params["Wo"]
+
+
+def heads_of(layer: MultiHeadAttention, m: int) -> _Heads:
+    """The per-shard layer of ``layer`` split over ``m`` model shards."""
+    kw = {f.name: getattr(layer, f.name) for f in dataclasses.fields(layer)}
+    kw.update(n_out=(layer.n_out or layer.n_in) // m,
+              n_heads=layer.n_heads // m)
+    return _Heads(**kw)
+
+
 class TPLayer:
     """A layer of the tensor-parallel form: ``apply`` and
     ``compute_score`` on model shards (``Shards`` leaves, ``Split``
@@ -124,11 +161,15 @@ class TPLayer:
     ``emit_split`` a column-split dense layer hands its activation on
     split (its consumers are row-split)."""
 
-    def __init__(self, layer, m: int, emit_split: bool = False):
+    def __init__(self, layer, m: int, emit_split: bool = False,
+                 heads: Optional[_Heads] = None):
         self.inner, self.m, self.emit_split = layer, m, emit_split
+        # an attention layer whose Wq / Wk / Wv split on head boundaries:
+        # the layer one shard's heads decode through
+        self.heads = heads
 
     def __getattr__(self, name):
-        if name == "inner":
+        if name in ("inner", "heads"):
             raise AttributeError(name)
         return getattr(self.inner, name)
 
@@ -233,6 +274,108 @@ class TPLayer:
                                     mask)
 
 
+    # ---------------------------------------------------------- decoding
+    def _shard_params(self, p, s: int) -> Dict:
+        """Shard ``s``'s parameters of a head-split attention layer."""
+        out = {n: p[n].parts[s] for n in ("Wq", "Wk", "Wv", "Wo")}
+        if self.inner.has_bias:
+            for n in ("bq", "bk", "bv"):
+                out[n] = _bias_part(p[n], s, self.m)
+        return out
+
+    def _over_heads(self, name, params, dstate, x, *args, **kw):
+        """``name`` once a shard, over the shard's heads and its own
+        decode state; the outputs summed in shard order, then ``bo``."""
+        x = gather(x)
+        y, states, rest = None, {}, ()
+        for s in range(self.m):
+            out = getattr(self.heads, name)(
+                self._shard_params(params, s),
+                {k: v[s] for k, v in dstate.items()}, x, *args, **kw)
+            y = out[0] if y is None else y + out[0]
+            for k, v in out[1].items():
+                states.setdefault(k, []).append(v)
+            rest = out[2:]
+        if self.inner.has_bias:
+            y = y + params["bo"]
+        return (y, states) + tuple(rest)
+
+    def _decode(self, name, params, dstate, x, *args, **kw):
+        """A decode method: over head shards, through ``apply`` on shards
+        where the method is ``Layer``'s own, else the layer's own method
+        over the gathered parameters and input."""
+        if self.heads is not None:
+            return self._over_heads(name, params, dstate, x, *args, **kw)
+        base = getattr(Layer, name)
+        if getattr(type(self.inner), name) is base:
+            return base(self, params, dstate, x, *args, **kw)
+        return getattr(self.inner, name)(full_params(params), dstate,
+                                         gather(x), *args, **kw)
+
+    def decode_step(self, params, dstate, x, pos=None):
+        return self._decode("decode_step", params, dstate, x, pos)
+
+    def decode_step_paged(self, params, dstate, x, pos, block_tables):
+        return self._decode("decode_step_paged", params, dstate, x, pos,
+                            block_tables)
+
+    def _decode_one(self, params, dstate, x, pos, block_tables):
+        return Layer._decode_one(self, params, dstate, x, pos, block_tables)
+
+    def prefill_chunk(self, params, dstate, x, start, n, block_tables=None,
+                      carry_stack=False):
+        return self._decode("prefill_chunk", params, dstate, x, start, n,
+                            block_tables=block_tables,
+                            carry_stack=carry_stack)
+
+    def tree_chunk(self, params, dstate, x, pos0, tree, n,
+                   block_tables=None):
+        if self.heads is not None:
+            raise NotImplementedError(
+                "speculative decoding over attention head shards is not "
+                "ported (ROADMAP item 7)")
+        return self._decode("tree_chunk", params, dstate, x, pos0, tree, n,
+                            block_tables=block_tables)
+
+    def tree_commit(self, params, dstate, kv_window, path, pos0, commit_n,
+                    block_tables=None):
+        if self.heads is not None:
+            raise NotImplementedError(
+                "speculative decoding over attention head shards is not "
+                "ported (ROADMAP item 7)")
+        return self.inner.tree_commit(params, dstate, kv_window, path, pos0,
+                                      commit_n, block_tables=block_tables)
+
+    def _state_over_heads(self, name, *args):
+        parts = [getattr(self.heads, name)(None, *args)
+                 for _ in range(self.m)]
+        return {k: [p[k] for p in parts] for k in parts[0]}
+
+    def init_decode_state(self, params, batch, max_len=0,
+                          dtype=torch.float32, device=None):
+        """A head-split attention layer's cache as its shards' caches
+        ((B, C, H/m, Dh) each, a list in shard order under ``k`` / ``v``);
+        any other layer's own state."""
+        if self.heads is not None:
+            return self._state_over_heads("init_decode_state", batch,
+                                          max_len, dtype, device)
+        return self.inner.init_decode_state(full_params(params), batch,
+                                            max_len, dtype, device)
+
+    def init_paged_decode_state(self, params, batch, max_len, num_blocks,
+                                block_size, dtype=torch.float32,
+                                device=None):
+        """The pool split on its head dim, one (num_blocks, block_size,
+        H/m, Dh) pool a shard under ``pk`` / ``pv``."""
+        if self.heads is not None:
+            return self._state_over_heads(
+                "init_paged_decode_state", batch, max_len, num_blocks,
+                block_size, dtype, device)
+        return self.inner.init_paged_decode_state(
+            full_params(params), batch, max_len, num_blocks, block_size,
+            dtype, device)
+
+
 def _members(tree):
     return list(tree.items()) if isinstance(tree, dict) \
         else list(enumerate(tree))
@@ -264,23 +407,28 @@ class TensorParallel:
     over ``model_size`` model shards: the spec of every leaf, the resident
     shards of the split ones (the others are the container's own
     tensors), the updater state split by path, and a copy of the
-    container whose layers are ``TPLayer``s."""
+    container whose layers are ``TPLayer``s. ``train=False`` (the serving
+    engines) builds the specs and the copy only: an engine keeps its own
+    shard set (``split``) and reads it through ``view``."""
 
-    def __init__(self, model, model_size: int, axis: str = "model"):
+    def __init__(self, model, model_size: int, axis: str = "model",
+                 train: bool = True):
         self.model, self.m, self.axis = model, int(model_size), axis
         self.graph = isinstance(model.params, dict)
         gc = model.conf.global_conf
-        if gc.compute_dtype or model._compute_dtype(True) is not None:
+        if gc.compute_dtype or (train
+                                and model._compute_dtype(True) is not None):
             raise NotImplementedError(
                 "tensor parallelism computes in the parameters' dtype; a "
                 "compute dtype or the bf16 train-precision policy is not "
-                "taken")
+                "taken (ROADMAP item 7)")
         self.layers = dict(self._layers())
         for key, layer in self.layers.items():
-            if layer.weight_noise is not None or layer.constraints:
+            if train and (layer.weight_noise is not None
+                          or layer.constraints):
                 raise NotImplementedError(
                     f"layer {key!r}: weight noise and constraints are not "
-                    "taken under tensor parallelism")
+                    "taken under tensor parallelism (ROADMAP item 7)")
         self.specs = dict(_members(tree_specs(model.params, self.m, axis)))
         for mk, layer in self.layers.items():
             sp = self.specs.get(mk, {})
@@ -295,7 +443,8 @@ class TensorParallel:
         self.opt: Dict = {}
         self._scalars: Optional[torch.Tensor] = None
         self._built = False
-        self.load()
+        if train:
+            self.load()
 
     # ------------------------------------------------------------- layout
     def _layers(self):
@@ -323,6 +472,14 @@ class TensorParallel:
                 and all(c is not None and self._row_consumer(*c)
                         for c in consumers))
 
+    def _heads(self, mk, layer) -> Optional[_Heads]:
+        """The per-shard layer of a head-split attention member."""
+        if type(layer) is MultiHeadAttention \
+                and split_dim(self.specs.get(mk, {}).get("Wq", ())) \
+                is not None:
+            return heads_of(layer, self.m)
+        return None
+
     def _shadow(self):
         """A shallow copy of the container whose layers are ``TPLayer``s."""
         model = self.model
@@ -330,8 +487,8 @@ class TensorParallel:
         if not self.graph:
             L = model.layers
             shadow.layers = [TPLayer(l, self.m, self._emits_split(
-                i, l, [(L[i + 1], i + 1)] if i + 1 < len(L) else []))
-                for i, l in enumerate(L)]
+                i, l, [(L[i + 1], i + 1)] if i + 1 < len(L) else []),
+                self._heads(i, l)) for i, l in enumerate(L)]
             return shadow
         conf = model.conf
         consumers: Dict[str, list] = {}
@@ -347,7 +504,8 @@ class TensorParallel:
                 node.layer = TPLayer(node.layer, self.m, name not in outs
                                      and self._emits_split(
                                          name, conf.nodes[name].layer,
-                                         consumers.get(name, [])))
+                                         consumers.get(name, [])),
+                                     self._heads(name, node.layer))
             nodes[name] = node
         shadow.conf = copy.copy(conf)
         shadow.conf.nodes = nodes
@@ -401,6 +559,29 @@ class TensorParallel:
         self.model._params_version += 1
         self.version = self.model._params_version
 
+    @torch.no_grad()
+    def split(self, tree, into: Optional[Dict] = None) -> Dict:
+        """A parameter tree in the container's structure (its own, or a
+        swap candidate) as leaves keyed like ``params`` -- each split leaf
+        as its shards (``W@0``, ``W@1``, ...), the others cloned -- or,
+        with ``into``, copied into those leaves in place."""
+        out = {} if into is None else into
+        for mk, p in _members(tree):
+            d = out.setdefault(mk, {})
+            for k, v in p.items():
+                spec = self.specs[mk][k]
+                if split_dim(spec) is None:
+                    parts = {k: v}
+                else:
+                    parts = {f"{k}{_SEP}{s}": c for s, c in
+                             enumerate(split_leaf(v, spec, self.m))}
+                for key, c in parts.items():
+                    if into is None:
+                        d[key] = c.detach().clone() if c is v else c
+                    else:
+                        d[key].copy_(c)
+        return out
+
     def sync(self) -> None:
         """Reload the shards when the container's parameters moved since
         the last ``load`` / ``store``."""
@@ -408,7 +589,7 @@ class TensorParallel:
             self.load()
 
     # ----------------------------------------------------------- training
-    def _view(self, leaves):
+    def view(self, leaves):
         """The container-shaped parameters over ``leaves``: a split leaf as
         ``Shards`` of its shard leaves."""
         out = {}
@@ -430,7 +611,7 @@ class TensorParallel:
                        for k, v in p.items()}
                   for mk, p in self.params.items()}
         with torch.enable_grad():
-            loss = loss_of(self.shadow, self._view(leaves))
+            loss = loss_of(self.shadow, self.view(leaves))
             if scale is not None:
                 loss = loss * scale
             flat = [v for p in leaves.values() for v in p.values()]

@@ -71,6 +71,24 @@ theirs.
   pair costs one capture per program, as at float32. A quantized draft
   keeps its own quantized set, refreshed in place when the weights it
   drafts with move.
+- Tensor parallelism (the executor's mesh has a ``model`` axis:
+  ``DL4JTPU_MESH=model=m``, ``set_default_mesh``): the engine's set is
+  one resident shard set (``ResidentWeights.form``) and every program
+  runs the model's tensor-parallel form (parallel/tensor_parallel.py).
+  Each attention layer's KV cache is split on WHOLE heads -- (S, C, H/m,
+  Dh) a shard dense, the pool's head dim paged, a list in shard order
+  under the layer's own keys -- so K8 / K9 run once a shard over its own
+  heads beside its column shards of ``Wq`` / ``Wk`` / ``Wv``, and the
+  shards' ``Wo`` partials are summed in shard order. JAX's placement of
+  the same state (its ``_slot_spec``: slot rows over ``data``, the
+  cache's trailing dim Dh over ``model``, a GSPMD layout) is reported
+  beside it (``stats()["model_parallel"]``, a key only such an engine's
+  stats have); the slots over the data
+  axis are placement on one card and run in the one launch. The prefix
+  cache, chunked prefill, ``warmup`` and ``swap_weights`` hold as
+  without it; speculation, the host KV tier, KV migration and int8 /
+  fp8 under a model axis are not ported (``NotImplementedError``,
+  ROADMAP item 7).
 - KV as host bytes. The host tier's spills and restores and a chain's
   export and import move rows between the pool tensors and host numpy
   arrays: ``index_select`` and a read, ``index_copy_`` of a staged copy.
@@ -116,7 +134,7 @@ from deeplearning4j_tpu_torch.monitor.tracing import (TraceContext,
 from deeplearning4j_tpu_torch.nn.layers.attention import MultiHeadAttention
 from deeplearning4j_tpu_torch.nn.layers.base import (copy_into, map_tree,
                                                      where_rows)
-from deeplearning4j_tpu_torch.quant import dequantize_tree, resolve_precision
+from deeplearning4j_tpu_torch.quant import resolve_precision
 from deeplearning4j_tpu_torch.resilience.errors import (
     BatcherStoppedError, ServerOverloadedError)
 from deeplearning4j_tpu_torch.serving.engine import (ResidentWeights,
@@ -268,7 +286,7 @@ class DecodeEngine:
         self.eos_id = None if eos_id is None else int(eos_id)
         self.max_queue = int(max_queue)
         execu = getattr(model, "_executor", None) or get_executor()
-        execu.check_unsplit("DecodeEngine")
+        self._execu = execu
         self.precision = (resolve_precision(precision)
                           if precision is not None else execu.precision)
         if kv not in ("dense", "paged"):
@@ -297,6 +315,15 @@ class DecodeEngine:
         self._weights_set = ResidentWeights(model, self.precision, execu,
                                             self.id, own=True)
         self._params = self._weights_set.params
+        # the model the programs run: its tensor-parallel form on a mesh
+        # with a model axis
+        form = self._weights_set.form
+        self._net = model if form is None else form.shadow
+        if form is not None and (spec is not None
+                                 or host_kv_bytes is not None):
+            raise NotImplementedError(
+                "speculative decoding and the host KV tier on a mesh with a "
+                "model axis are not ported (ROADMAP item 7)")
         self._pending_swap = None
         self._version = 0
         self._spec = spec
@@ -323,7 +350,8 @@ class DecodeEngine:
             self._max_blocks = self.max_len // self.kv_block_size
             if kv_blocks is None:
                 kv_blocks = self.slots * self._max_blocks + 1
-            self._pool = BlockPool(int(kv_blocks), self.kv_block_size)
+            self._pool = BlockPool(int(kv_blocks), self.kv_block_size,
+                                   engine=self.id)
             self._tables = np.zeros((self.slots, self._max_blocks), np.int32)
             if prefix_cache:
                 self._check_no_carries()
@@ -374,6 +402,25 @@ class DecodeEngine:
                 "Programs of the paged-KV side programs (chunked prefill + "
                 "copy-on-write; design target: at most one each).",
                 ("engine",)).labels(**lab)
+        self._m_steps = reg.counter(
+            "dl4jtpu_decode_steps_total",
+            "Batched decode-step device calls.", ("engine",)).labels(**lab)
+        self._m_tokens = reg.counter(
+            "dl4jtpu_decode_tokens_total",
+            "Tokens generated (sampled outputs only -- prefill positions "
+            "are not counted).", ("engine",)).labels(**lab)
+        self._m_requests = reg.counter(
+            "dl4jtpu_decode_requests_total",
+            "Generation requests completed.", ("engine",)).labels(**lab)
+        self._m_occupancy = reg.gauge(
+            "dl4jtpu_decode_active_slots",
+            "Slots occupied by live streams at the last step.",
+            ("engine",)).labels(**lab)
+        self._m_token_seconds = reg.histogram(
+            "dl4jtpu_decode_token_seconds",
+            "Per-token latency: wall seconds of one batched step (every "
+            "active stream advances one token per step).",
+            ("engine",)).labels(**lab)
         self._m_version = reg.gauge(
             "dl4jtpu_model_version",
             "Version of the weights currently serving (0 = the model's "
@@ -416,6 +463,18 @@ class DecodeEngine:
                 ("engine",), buckets=tuple(
                     float(d) for d in range(self._spec_tree.d + 1))
             ).labels(**lab)
+            self._m_spec_draft_seconds = reg.histogram(
+                "dl4jtpu_spec_draft_step_seconds",
+                "Wall seconds of one k-token draft-model call (compare "
+                "against dl4jtpu_decode_token_seconds: speculation wins "
+                "while draft cost + one verify < k target steps).",
+                ("engine",)).labels(**lab)
+            self._m_spec_nodes = reg.gauge(
+                "dl4jtpu_spec_tree_nodes",
+                "Static speculation-tree size (nodes scored per verify "
+                "call) -- the verify-cost side of the tree-shape "
+                "trade-off.", ("engine",)).labels(**lab)
+            self._m_spec_nodes.set(float(self._spec_tree.n_nodes))
 
     def _build_spec(self, spec):
         """Validate ``spec`` as the JAX engine does and build the draft
@@ -477,7 +536,7 @@ class DecodeEngine:
     def _check_no_carries(self):
         """The prefix cache shares KV blocks between requests; a recurrent
         carry depends on every earlier token and cannot be shared."""
-        probe = self.model.init_decode_state(
+        probe = self._net.init_decode_state(
             1, self.max_len, kv={"num_blocks": 2,
                                  "block_size": self.kv_block_size})
         carries = []
@@ -512,8 +571,8 @@ class DecodeEngine:
             kv = (None if self._pool is None else
                   {"num_blocks": self._pool.num_blocks,
                    "block_size": self.kv_block_size})
-            self._dstate = self.model.init_decode_state(self.slots,
-                                                        self.max_len, kv=kv)
+            self._dstate = self._net.init_decode_state(self.slots,
+                                                       self.max_len, kv=kv)
         if self._draft is not None:
             self._draft.ensure_state()
 
@@ -587,9 +646,10 @@ class DecodeEngine:
             torch.float32)[:, None, :]
         kw = ({} if self._pool is None else
               {"block_tables": torch.where(active[:, None], f["tables"], 0)})
-        # int8 / fp8 widen here, inside the program (the identity at f32)
-        y, new_d = self.model.decode_step(dequantize_tree(res["params"]), d0,
-                                          x, pos, **kw)
+        # int8 / fp8 widen here, inside the program (the identity at f32);
+        # a shard set runs the tensor-parallel form
+        net, params = self._weights_set.net(res["params"])
+        y, new_d = net.decode_step(params, d0, x, pos, **kw)
         copy_into(dstate, map_slot_leaves(
             lambda n, o: where_rows(active, n, o), new_d, d0,
             keys=POSITIONAL_KEYS))
@@ -610,9 +670,9 @@ class DecodeEngine:
             keys=POSITIONAL_KEYS)
         x = torch.nn.functional.one_hot(f["tokens"].long(), self.vocab).to(
             torch.float32)
-        _, new_d = self.model.prefill_chunk(dequantize_tree(res["params"]),
-                                            d0, x, f["start"], f["n"],
-                                            block_tables=f["tables"])
+        net, params = self._weights_set.net(res["params"])
+        _, new_d = net.prefill_chunk(params, d0, x, f["start"], f["n"],
+                                     block_tables=f["tables"])
         copy_into(dstate, map_slot_leaves(
             lambda a, b: where_rows(live, a, b), new_d, d0,
             keys=POSITIONAL_KEYS))
@@ -1052,6 +1112,7 @@ class DecodeEngine:
         kv_peak = len(r.kv_blocks)
         self._free_slot(slot, r)
         self._requests += 1
+        self._m_requests.inc()
         self._journal_terminal(r, outcome, kv_peak=kv_peak)
         r.future.set_result({"tokens": r.generated,
                              "prompt_len": len(r.prompt)})
@@ -1077,6 +1138,7 @@ class DecodeEngine:
         None."""
         r.generated.append(tok)
         self._tokens += 1
+        self._m_tokens.inc()
         if self.eos_id is not None and tok == self.eos_id:
             return "eos"
         return "max_new" if len(r.generated) >= r.max_new else None
@@ -1151,8 +1213,7 @@ class DecodeEngine:
         with trace.span("decode_step", active=len(live)):
             nt = self._step_out.read(self._step(live))
         now = time.perf_counter()
-        self._decode_seconds += now - t0
-        self._steps += 1
+        self._count_step(live, now - t0)
         done = []
         for i, r in live:
             r.cursor += 1
@@ -1166,6 +1227,16 @@ class DecodeEngine:
                 done.append((i, r, outcome))
         for i, r, outcome in done:
             self._finish(i, r, outcome)
+        self._m_occupancy.set(0)
+
+    def _count_step(self, live, dt):
+        """One batched device call of ``live`` slots that took ``dt``
+        seconds: the step counters and the per-token histogram."""
+        self._decode_seconds += dt
+        self._steps += 1
+        self._m_steps.inc()
+        self._m_occupancy.set(len(live))
+        self._m_token_seconds.observe(dt)
 
     def _prefill(self, pre):
         """One chunk of every row in ``pre`` (rows still consuming their
@@ -1272,16 +1343,17 @@ class DecodeEngine:
                 dseeds[i] = r.seed & 0xFFFFFFFF
                 dtemps[i] = r.temperature
                 dtopk[i] = r.top_k
+            t0 = time.perf_counter()
             with trace.span("spec_draft", rows=len(catchup) + len(ready)):
                 self._draft.step(given, n_given, n_steps, dpos, sel, dreset,
                                  dseeds, dtemps, dtopk)
+            self._m_spec_draft_seconds.observe(time.perf_counter() - t0)
         if tpre:
             t0 = time.perf_counter()
             with trace.span("decode_step", active=len(tpre)):
                 self._step(tpre)
             now = time.perf_counter()
-            self._decode_seconds += now - t0
-            self._steps += 1
+            self._count_step(tpre, now - t0)
             for _, r in tpre:
                 r.cursor += 1
                 if r.t_prefill0 is None:
@@ -1309,8 +1381,7 @@ class DecodeEngine:
         with trace.span("spec_verify", rows=len(ready)):
             etoks, acc, emit, sacc = self._verifier.run()
         now = time.perf_counter()
-        self._decode_seconds += now - t0
-        self._steps += 1
+        self._count_step(live, now - t0)
         done = []
         for i, r, n_in in ready:
             # judged proposals: depths 1..min(d, n_in - 1) and the bonus
@@ -1550,6 +1621,10 @@ class DecodeEngine:
         if self._prefix is None:
             raise ValueError(
                 "kv_export requires kv='paged' with prefix_cache=True")
+        if self._weights_set.form is not None:
+            raise NotImplementedError(
+                "KV migration on a mesh with a model axis is not ported "
+                "(ROADMAP item 7)")
         toks = [int(t) for t in prompt]
 
         def op():
@@ -1589,6 +1664,10 @@ class DecodeEngine:
         if self._prefix is None:
             raise ValueError(
                 "kv_import requires kv='paged' with prefix_cache=True")
+        if self._weights_set.form is not None:
+            raise NotImplementedError(
+                "KV migration on a mesh with a model axis is not ported "
+                "(ROADMAP item 7)")
 
         def op():
             leaves = dict(self._pool_leaf_items())
@@ -1675,23 +1754,31 @@ class DecodeEngine:
                     "verifies": self._verifier.calls,
                     "draft_calls": self._draft.calls,
                     "draft_steps": self._draft.steps}
-        return {"id": self.id, "slots": self.slots, "max_len": self.max_len,
-                "kv": kv, "spec": spec, "precision": self.precision,
-                "weight_bytes": self._weights_set.nbytes,
-                "model_version": self._version,
-                "occupied_slots": occupied, "queued_requests": queued,
-                "compiled_programs": self.trace_count,
-                "steps": self._steps, "tokens": self._tokens,
-                "requests": self._requests,
-                "decode_seconds": self._decode_seconds,
-                "tokens_per_second": (self._tokens / self._decode_seconds
-                                      if self._decode_seconds else 0.0),
-                "slo": self._slo_stats(),
-                "journal": {"capacity": self.journal.capacity,
-                            "records": len(self.journal),
-                            "total": self.journal.total,
-                            "dropped": self.journal.dropped},
-                "warmup_seconds": self.warmup_seconds}
+        out = {"id": self.id, "slots": self.slots, "max_len": self.max_len,
+               "kv": kv, "spec": spec, "precision": self.precision,
+               "weight_bytes": self._weights_set.nbytes,
+               "model_version": self._version,
+               "occupied_slots": occupied, "queued_requests": queued,
+               "compiled_programs": self.trace_count,
+               "steps": self._steps, "tokens": self._tokens,
+               "requests": self._requests,
+               "decode_seconds": self._decode_seconds,
+               "tokens_per_second": (self._tokens / self._decode_seconds
+                                     if self._decode_seconds else 0.0),
+               "slo": self._slo_stats(),
+               "journal": {"capacity": self.journal.capacity,
+                           "records": len(self.journal),
+                           "total": self.journal.total,
+                           "dropped": self.journal.dropped},
+               "warmup_seconds": self.warmup_seconds}
+        if self._weights_set.form is not None:
+            # the port's split of the decode state beside JAX's spec of it
+            ex = self._execu
+            out["model_parallel"] = {
+                "model_size": ex.model_size, "data_size": ex.data_size,
+                "kv_split": "heads",
+                "jax_slot_spec": ex.slot_shardings(self._dstate, self.slots)}
+        return out
 
 
 @torch.no_grad()

@@ -20,6 +20,15 @@ input row alone, so padding does not change the answer. Batches above
   under int8 / fp8, and writes codes, scales and tensors INTO the
   resident ones leaf by path (``copy_``), never rebinding them: a rebind
   would leave a captured rung reading stale weights.
+- Tensor parallelism (the executor's mesh has a ``model`` axis:
+  ``DL4JTPU_MESH=model=m``, ``set_default_mesh``): the set is the
+  engine's own from the start, ONE resident shard set
+  (parallel/tensor_parallel.py: every leaf ``param_spec`` splits as its
+  ``m`` shards, ``W@0`` ...), which ``follow()`` and ``swap_weights``
+  write in place, path by path. Each rung's program runs the model's
+  tensor-parallel form: attention K5 once a shard over its H/m heads,
+  ``Wo``'s row-split partials summed in shard order. int8 / fp8 under a
+  model axis are not ported (``NotImplementedError``, ROADMAP item 7).
 - ``precision`` (``"f32"``, ``"int8"``, ``"fp8"``; default the executor's
   policy, ``DL4JTPU_PRECISION``): int8 / fp8 keep the weights as codes and
   per-channel scales (quant/) and dequantize inside the forward, plain
@@ -169,6 +178,12 @@ class ResidentWeights:
       (``copy_tree``: leaf by path, in place), never rebinding them, so a
       captured program reads the new weights; the set then stops following
       the model.
+    - On a mesh with a model axis the set is the engine's own from the
+      start: the model's tensor-parallel form (``form``, built without
+      training state) splits the parameters into one resident shard set,
+      and ``follow`` and ``write`` split into it in place; the programs
+      read it through ``form.view``. Candidates are held to the float32
+      signature of the unsplit tree.
     """
 
     def __init__(self, model, precision: str, executor, owner: str,
@@ -179,6 +194,17 @@ class ResidentWeights:
         self.swapped = False
         self._seen = None
         self._sig = None        # float32 signature of a quantized set
+        self.form = None        # the tensor-parallel form (a model axis)
+        m = executor.model_size
+        if m > 1:
+            if precision != "f32":
+                raise NotImplementedError(
+                    f"precision {precision!r} on a mesh with a model axis is "
+                    "not ported (ROADMAP item 7)")
+            from deeplearning4j_tpu_torch.parallel.tensor_parallel import \
+                TensorParallel
+            self.form = TensorParallel(model, m, train=False)
+            own = True
         if own or (precision != "f32" and model.params is not None):
             self.own()
 
@@ -193,7 +219,10 @@ class ResidentWeights:
             return
         m = self.model
         self._seen = getattr(m, "_params_version", 0)
-        if self.precision == "f32":
+        if self.form is not None:
+            self._sig = _tree_signature(m.params)
+            self.params = self.form.split(m.params)
+        elif self.precision == "f32":
             self.params = map_tree(lambda t: t.detach().clone(), m.params)
         else:
             self._sig = _tree_signature(m.params)
@@ -211,7 +240,10 @@ class ResidentWeights:
         if (self.params is None or self.precision != "f32" or self.swapped
                 or v == self._seen):
             return False
-        copy_into(self.params, self.model.params)
+        if self.form is not None:
+            self.form.split(self.model.params, into=self.params)
+        else:
+            copy_into(self.params, self.model.params)
         if self.state is not None:
             copy_into(self.state, self.model.state)
         self._seen = v
@@ -231,6 +263,15 @@ class ResidentWeights:
         """Resident weight bytes (codes and scales when quantized)."""
         return tree_bytes(self.params if self.params is not None
                           else self.model.params)
+
+    def net(self, params):
+        """The (model, parameters) a program computes with over the set's
+        ``params``: the tensor-parallel form's copy of the model over
+        their shard view, else the model over them dequantized in place
+        of use (the identity on a float32 set)."""
+        if self.form is not None:
+            return self.form.shadow, self.form.view(params)
+        return self.model, dequantize_tree(params)
 
     def check(self, params, state=None, what: str = "params") -> None:
         """Raise ``WeightSwapError`` where the set would refuse the
@@ -265,7 +306,10 @@ class ResidentWeights:
         """Copy a ``prepare``d candidate into the resident tensors."""
         params, state, _ = prepared
         self.own()
-        copy_tree(self.params, params)
+        if self.form is not None:
+            self.form.split(params, into=self.params)
+        else:
+            copy_tree(self.params, params)
         if state is not None and self.state is not None:
             copy_tree(self.state, state)
         self.swapped = True
@@ -413,7 +457,6 @@ class InferenceEngine:
         self._is_graph = hasattr(model.conf, "network_inputs")
         self._lock = threading.RLock()
         self._execu = getattr(model, "_executor", None) or get_executor()
-        self._execu.check_unsplit("InferenceEngine")
         # explicit argument > the executor's declarative policy
         self.precision = (resolve_precision(precision)
                           if precision is not None
@@ -550,13 +593,13 @@ class InferenceEngine:
     @torch.no_grad()
     def _body(self, res, x, mask=None):
         """The forward over the resident weights, dequantized in place of
-        use (the identity on a float32 set). Returns a list of outputs."""
-        params = dequantize_tree(res["params"])
+        use (the identity on a float32 set), through the tensor-parallel
+        form over a shard set. Returns a list of outputs."""
+        net, params = self._weights_set.net(res["params"])
         if self._is_graph:
-            out, _ = self.model._forward(params, x, state=res["state"])
+            out, _ = net._forward(params, x, state=res["state"])
         else:
-            out, _ = self.model._forward(params, x, mask=mask,
-                                         state=res["state"])
+            out, _ = net._forward(params, x, mask=mask, state=res["state"])
         return list(out) if isinstance(out, (list, tuple)) else [out]
 
     def _dispatch(self, x: torch.Tensor, mask=None, phases=None) -> List:

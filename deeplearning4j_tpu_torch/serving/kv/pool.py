@@ -1,7 +1,9 @@
 """KV block pool: allocation, refcounts and eviction (the host side of
 paged KV).
 
-Counterpart of deeplearning4j_tpu/serving/kv/pool.py. The attention layers
+Counterpart of deeplearning4j_tpu/serving/kv/pool.py, with its
+``dl4jtpu_kv_pool_*`` series under the owning engine's label
+(``engine=``). The attention layers
 keep their KV in ``(num_blocks, block_size, H, Dh)`` pool tensors on the
 device (decode state keys ``pk``/``pv``), shared by every slot; each
 slot's page table row names the pool blocks that hold its logical blocks.
@@ -94,7 +96,8 @@ class BlockPool:
     and raises PoolExhaustedError with no side effect when it cannot
     serve the request."""
 
-    def __init__(self, num_blocks: int, block_size: int):
+    def __init__(self, num_blocks: int, block_size: int,
+                 engine: str = "kv"):
         if num_blocks < 2:
             raise ValueError(
                 f"num_blocks={num_blocks}: need at least 2 (block 0 is the "
@@ -111,6 +114,29 @@ class BlockPool:
         # the prefix cache's hook, called with a block as it is evicted
         self.on_evict: Optional[Callable[[int], None]] = None
         self.high_water = 0
+        from deeplearning4j_tpu_torch.monitor.metrics import get_registry
+        reg = get_registry()
+        lab = {"engine": engine}
+        self._m_blocks = reg.gauge(
+            "dl4jtpu_kv_pool_blocks",
+            "Usable KV blocks in the pool (capacity minus the reserved "
+            "scratch block).", ("engine",)).labels(**lab)
+        self._m_free = reg.gauge(
+            "dl4jtpu_kv_pool_blocks_free",
+            "KV blocks allocatable right now (free list plus evictable "
+            "prefix-cache blocks).", ("engine",)).labels(**lab)
+        self._m_evictions = reg.counter(
+            "dl4jtpu_kv_pool_evictions_total",
+            "Prefix-cache blocks evicted (LRU) to satisfy an allocation.",
+            ("engine",)).labels(**lab)
+        self._m_high_water = reg.gauge(
+            "dl4jtpu_kv_pool_high_water",
+            "Most KV blocks ever simultaneously referenced by live "
+            "requests (pressure signal: high_water near usable means the "
+            "pool, not the cache, is the bottleneck).",
+            ("engine",)).labels(**lab)
+        self._m_blocks.set(float(self.usable))
+        self._m_free.set(float(self.free_count))
 
     @property
     def usable(self) -> int:
@@ -153,6 +179,7 @@ class BlockPool:
             bid = self._free.pop()
             self._ref[bid] = 1
             out.append(bid)
+        self._m_free.set(float(self.free_count))
         self._note_high_water()
         return out
 
@@ -165,6 +192,7 @@ class BlockPool:
                 raise ValueError(f"block {bid} is free; alloc() it instead")
             del self._evictable[bid]
         self._ref[bid] += 1
+        self._m_free.set(float(self.free_count))
         self._note_high_water()
 
     def decref(self, bid: int) -> None:
@@ -178,10 +206,13 @@ class BlockPool:
                 self._evictable[bid] = True   # the LRU's newest end
             else:
                 self._free.append(bid)
+        self._m_free.set(float(self.free_count))
 
     def _note_high_water(self) -> None:
         n = self.in_use
-        self.high_water = max(self.high_water, n)
+        if n > self.high_water:
+            self.high_water = n
+            self._m_high_water.set(float(n))
 
     # ---------------------------------------------------------- prefix cache
     def mark_cached(self, bid: int) -> None:
@@ -195,6 +226,7 @@ class BlockPool:
         if self.on_evict is not None:
             self.on_evict(bid)
         self._free.append(bid)
+        self._m_evictions.inc()
 
     def flush_cached(self) -> int:
         """Drop every cache entry no one references; returns the blocks
@@ -203,4 +235,5 @@ class BlockPool:
         while self._evictable:
             self._evict_one()
             n += 1
+        self._m_free.set(float(self.free_count))
         return n

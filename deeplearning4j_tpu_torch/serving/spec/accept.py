@@ -66,27 +66,28 @@ def gumbel(seeds, pos, V):
     return -torch.log(-torch.log(u))
 
 
-def oracle_tokens(logits, seeds, pos, temps, topk):
-    """The sampling rule for S rows: ``logits`` (S, V) log-probabilities,
-    ``seeds`` / ``pos`` / ``topk`` (S,) integer tensors (seeds as their
-    low 32 bits), ``temps`` (S,) float. The top-k filter (JAX's threshold:
-    keep every value at least the k-th largest), then the argmax of the
-    filtered row, ties to the lowest id, where ``temp == 0``, else the
-    argmax of ``filtered / temp`` plus the draw's Gumbel noise. Returns
-    (S,) int64."""
+def oracle_tokens(logits, seed, pos, temp, top_k):
+    """The sampling rule for S rows (the JAX package's ``vmap`` of
+    ``oracle_token``, with its keyword names): ``logits`` (S, V)
+    log-probabilities, ``seed`` / ``pos`` / ``top_k`` (S,) integer tensors
+    (seeds as their low 32 bits), ``temp`` (S,) float. The top-k filter
+    (JAX's threshold: keep every value at least the k-th largest), then
+    the argmax of the filtered row, ties to the lowest id, where ``temp ==
+    0``, else the argmax of ``filtered / temp`` plus the draw's Gumbel
+    noise. Returns (S,) int64."""
     S, V = logits.shape
     logits = logits.float()
-    topk = topk.long()
-    k = torch.where(topk > 0, topk.clamp(1, V), V)
+    top_k = top_k.long()
+    k = torch.where(top_k > 0, top_k.clamp(1, V), V)
     thr = torch.sort(logits, dim=1, descending=True).values.gather(
         1, (k - 1)[:, None])
     filt = torch.where(logits >= thr, logits, float("-inf"))
     greedy = torch.argmax(filt, dim=1)
-    temps = temps.float()
-    safe_t = torch.where(temps > 0, temps, 1.0)
-    sampled = torch.argmax(filt / safe_t[:, None] + gumbel(seeds, pos, V),
+    temp = temp.float()
+    safe_t = torch.where(temp > 0, temp, 1.0)
+    sampled = torch.argmax(filt / safe_t[:, None] + gumbel(seed, pos, V),
                            dim=1)
-    return torch.where(temps > 0, sampled, greedy)
+    return torch.where(temp > 0, sampled, greedy)
 
 
 def oracle_token(logits, seed: int, pos: int, temp: float,

@@ -243,16 +243,14 @@ def test_tensor_parallel_shards_are_put_params():
             np.testing.assert_array_equal(got[k], want[k], err_msg=str(k))
 
 
-def test_the_default_mesh_model_axis_refuses_the_containers_own_paths(
+def test_the_wrapper_and_a_data_axis_default_mesh_train_as_before(
         monkeypatch):
-    """``DL4JTPU_MESH=model=2`` (over two CPU slots): a container's own
-    ``fit`` / ``fit_scan`` and the serving engines compute unsplit, so
-    they raise the ValueError naming ROADMAP item 7's waiting part;
-    ``ParallelWrapper`` with a (data, model) mesh still trains."""
+    """``ParallelWrapper`` with a (data, model) mesh trains beside a
+    ``DL4JTPU_MESH=model=2`` default mesh (over two CPU slots), and a
+    default mesh without a model axis (``data=2``) keeps the container's
+    own fit path."""
     from deeplearning4j_tpu_torch.exec import executor as ex_mod
     from deeplearning4j_tpu_torch.exec import mesh as mesh_mod
-    from deeplearning4j_tpu_torch.serving.decode import DecodeEngine
-    from deeplearning4j_tpu_torch.serving.engine import InferenceEngine
     from deeplearning4j_tpu_torch.parallel import distributed
     monkeypatch.setattr(distributed, "process_device",
                         lambda: torch.device("cpu"))
@@ -262,25 +260,18 @@ def test_the_default_mesh_model_axis_refuses_the_containers_own_paths(
     monkeypatch.setattr(ex_mod, "_default_executor", None)
     x, y = tp_data()
     net = port_of(jax_tp_net())
-    tt = port_of(jax_tt())
-    for call in (lambda: net.fit(DataSet(x, y)),
-                 lambda: net.fit_scan(x.reshape(2, 16, 8),
-                                      y.reshape(2, 16, 4)),
-                 lambda: InferenceEngine(net, 8),
-                 lambda: DecodeEngine(tt, 2, 16)):
-        with pytest.raises(ValueError, match="ROADMAP item 7, waiting"):
-            call()
-    assert net.iteration == 0
-    assert mesh_mod._default_mesh.shape == {"data": 1, "model": 2}
     ParallelWrapper(net, mesh=port_mesh()).fit(
         ListDataSetIterator(DataSet(x, y), 16))
     assert net.iteration == 2
+    assert net._executor.model_size == 2
+    assert mesh_mod._default_mesh.shape == {"data": 1, "model": 2}
     monkeypatch.setenv("DL4JTPU_MESH", "data=2")
     monkeypatch.setattr(mesh_mod, "_default_mesh", None)
     monkeypatch.setattr(ex_mod, "_default_executor", None)
     fresh = port_of(jax_tp_net())
     fresh.fit(DataSet(x, y))
     assert fresh.iteration == 1
+    assert fresh._tp_runner is None and fresh.tp_routes == {}
 
 
 def test_state_shardings_follow_jax_by_shape():
