@@ -592,6 +592,48 @@ result line, when any of them or the port's package is missing. Phases:
    (the near-tie rule), exactly 4 K8 / K9 a step. Each part's failure
    fails the run; (a)-(c) and (e) join the kernels line's K5-K9
    launches; under 60 s.
+21. Training tools and the online loop (``tools_phase``), on
+   TextGenerationLSTM (2 x LSTM(256), the corpus's vocabulary, B=32,
+   T=64) from seed 123. (a) ``EarlyStoppingTrainer`` with
+   ``MaxEpochs(4)``, ``ScoreImprovement(2)``, ``DataSetLossCalculator``
+   on the 15 held-out windows and ``InMemoryModelSaver``, 4 batches an
+   epoch: the epoch scores bit for bit those of a hand loop of
+   ``_fit_batch`` + ``score`` on a twin from the seed, the best model
+   read back bit for bit the twin's parameters after that epoch; exactly
+   one K4-train and two K3 a step and one K4 a score. (b) Layer 0 frozen
+   by ``TransferLearning.Builder`` with ``Sgd(0.05)``, 6 ``fit`` steps
+   (exactly one K1 -- the frozen LSTM in inference mode --, one K2 and
+   one K3 a step: the pair screen fuses no frozen layer), and the same
+   through ``TransferLearningHelper`` (``featurize``: one K1 a batch;
+   ``fit_featurized``: one K2 and one K3 a step): the frozen and the
+   source net's parameters bit for bit, the two tails within 1e-5 of
+   max |p|. (c) ``LBFGS``, ``ConjugateGradient`` and
+   ``LineGradientDescent``, 5 iterations on one full batch: each score
+   history non-increasing, the first line-search step and score equal
+   (score rtol 1e-4) to one iteration of the same solver on a CPU copy,
+   exactly one K4-train and two K3 a value-and-gradient probe; then 3
+   captured ``fit`` steps from the solver's parameters bit for bit a
+   twin's given them. (d) The online loop: two ``InferenceServer``s of
+   the seed's net (engines warmed 1..32) serve /predict; a second net
+   (with a ``FlightRecorder`` and a ``StatsListener``) trains from an
+   ``InMemoryBroker`` topic through ``NDArrayPubSubRoute`` in rounds of
+   4 batches under ``OnlineTrainer`` and ``BatchGuard``; the
+   ``PromotionGate`` scores candidate and incumbent on the held-out
+   windows and on ``TrafficMirror``'s tap of live /predict, and
+   ``Deployer`` promotes through ``ServerTarget`` and ``HttpTarget``. A
+   bootstrap round runs before the client thread starts (the trainer's
+   step is captured with nothing else on the card), two clean rounds
+   and a forced regression (8 batches of labels rolled over the
+   vocabulary, promoted anyway, rolled back by the regression watch)
+   run under its /predict traffic: no request fails, each server's
+   ``X-Model-Version`` rises, ``trace_count`` does not move, and after
+   the rollback both servers (in process and over HTTP) give the pinned
+   incumbent's output bit for bit, the incumbent's zip swapped into a
+   fresh engine included; exactly one K4-train and two K3 a step and
+   one K4 a forward (the guard's, post-step and gate scores, the
+   servers' dispatches). Each part's seconds and the phase's are
+   printed; its launches join the kernels line's K1-K4 and K4-train
+   (``launches_phase_21`` in each entry); under 60 s.
 
 A replayed CUDA graph adds to the launch counts the launches its capture
 recorded (the capture itself counts none), so the counts below are the
@@ -9149,6 +9191,493 @@ def mp_phase(card, dev="cuda"):
     return res
 
 
+# ---- phase 21: training tools and the online loop -------------------------
+TT_B, TT_T = 32, 64            # the recipe's batches (B, T)
+ES_TRAIN_BATCHES = 4           # (a): training batches an epoch
+ES_MAX_EPOCHS, ES_PATIENCE = 4, 2
+TL_STEPS = 6                   # (b): steps of each fine-tune path
+TL_LR = 0.05                   # (b): the fine-tune's Sgd rate
+TL_TAIL_TOL = 1e-5             # (b): featurized vs unfeaturized, of max |p|
+SOLVER_ITERS = 5               # (c): iterations of each solver on the card
+SOLVER_TOL = 1e-4              # (c): first step's score, card vs CPU (rel.)
+SOLVER_FIT_STEPS = 3           # (c): captured fit steps after a solver
+ONLINE_ROUNDS = 3              # (d): clean rounds (one promotion each)
+ONLINE_BATCHES = 4             # (d): batches a clean round
+ONLINE_FORCED = 8              # (d): rolled-label batches of the forced round
+ONLINE_MAX_BATCH = 32          # (d): the servers' ladder 1..32
+ONLINE_REQ = 4                 # (d): windows a /predict of the client
+TT_DIR = ROOT / "build" / "training_tools"
+
+
+def _snap(net):
+    return [{k: v.detach().clone() for k, v in p.items()} for p in net.params]
+
+
+def _held_out():
+    """The corpus's 15 held-out windows (T=64) as one DataSet."""
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.zoo.corpus import corpus_windows
+    _, (xte, yte), _ = corpus_windows(stride=2)
+    return DataSet(xte, yte)
+
+
+def _stacked(batches):
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    return DataSet(np.concatenate([b.features for b in batches]),
+                   np.concatenate([b.labels for b in batches]))
+
+
+def tt_early_stopping_part(card, res, V, dev="cuda"):
+    """(a) Early stopping against a hand loop on a twin net."""
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.data.iterators import ListDataSetIterator
+    from deeplearning4j_tpu_torch.earlystopping import (
+        DataSetLossCalculator, EarlyStoppingConfiguration,
+        EarlyStoppingTrainer, InMemoryModelSaver,
+        MaxEpochsTerminationCondition,
+        ScoreImprovementEpochTerminationCondition)
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+    zoo = TextGenerationLSTM(total_unique_characters=V)
+    train = _dp_batches(ES_TRAIN_BATCHES, start=200)
+    held = _held_out()
+    n_held = held.num_examples()
+    net, twin = zoo.init(device=dev), zoo.init(device=dev)
+    cfg = EarlyStoppingConfiguration(
+        score_calculator=DataSetLossCalculator(
+            ListDataSetIterator(held, n_held)),
+        epoch_termination_conditions=[
+            MaxEpochsTerminationCondition(ES_MAX_EPOCHS),
+            ScoreImprovementEpochTerminationCondition(ES_PATIENCE)],
+        model_saver=InMemoryModelSaver())
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    result = EarlyStoppingTrainer(
+        cfg, net, ListDataSetIterator(_stacked(train), TT_B)).fit()
+    E = result.total_epochs
+    launches = _expect_launches("phase 21 (a) early stopping", {
+        "lstm2_fwd_train": E * ES_TRAIN_BATCHES,
+        "lstm_bwd": 2 * E * ES_TRAIN_BATCHES, "lstm2_fwd": E})
+    seconds = time.perf_counter() - t0
+    # the hand loop: the same steps and scores on a twin from the seed
+    scores, snaps = {}, []
+    for e in range(E):
+        for ds in train:
+            twin._fit_batch(ds)
+            twin.get_score()
+        # DataSetLossCalculator's arithmetic: sum of score x rows, / rows
+        scores[e] = (0.0 + twin.score(held) * n_held) / n_held
+        snaps.append(_snap(twin))
+    best = result.best_model
+    best_equal = _trees_equal(best.params, snaps[result.best_model_epoch])
+    scores_equal = result.score_vs_epoch == scores
+    out = {"launches": launches, "epochs": E, "seconds": seconds,
+           "score_vs_epoch": result.score_vs_epoch,
+           "hand_scores": scores, "best_epoch": result.best_model_epoch,
+           "termination": result.termination_details,
+           "scores_bitwise": scores_equal, "best_bitwise": best_equal}
+    print(f"tools: (a) early stopping, TextGenerationLSTM (2 x LSTM(256), "
+          f"B={TT_B}, T={TT_T}), MaxEpochs({ES_MAX_EPOCHS}) + "
+          f"ScoreImprovement({ES_PATIENCE}) on the {n_held} held-out "
+          f"windows: {E} epochs ({result.termination_details}), scores "
+          f"{[round(s, 6) for s in result.score_vs_epoch.values()]} bit for "
+          f"bit the hand loop's: {scores_equal}; best epoch "
+          f"{result.best_model_epoch} read back bit for bit: {best_equal}; "
+          f"launches {launches}; {seconds:.2f} s [{card}]", flush=True)
+    if not (scores_equal and best_equal and best.device == net.device):
+        raise AssertionError(f"phase 21 (a): {out}")
+    res["early_stopping"] = out
+
+
+def tt_transfer_part(card, res, V, dev="cuda"):
+    """(b) Transfer learning: layer 0 frozen, fine-tuned and featurized."""
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.nn.layers.special import FrozenLayer
+    from deeplearning4j_tpu_torch.nn.updaters import Sgd
+    from deeplearning4j_tpu_torch.transferlearning import (
+        FineTuneConfiguration, TransferLearning, TransferLearningHelper)
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+    base = TextGenerationLSTM(total_unique_characters=V).init(device=dev)
+    source = _snap(base)
+
+    def build():
+        return (TransferLearning.Builder(base)
+                .fine_tune_configuration(FineTuneConfiguration(
+                    updater=Sgd(TL_LR)))
+                .set_feature_extractor(0).build())
+    new, tail_net = build(), build()
+    if not (isinstance(new.layers[0], FrozenLayer)
+            and not isinstance(new.layers[1], FrozenLayer)):
+        raise AssertionError("phase 21 (b): layer 0 is not frozen alone")
+    frozen = _snap(new)[0]
+    data = _dp_batches(TL_STEPS, start=300)
+    out = {}
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    for ds in data:
+        new.fit(ds)
+    out["fine_tune"] = {"launches": _expect_launches(
+        "phase 21 (b) frozen fine-tune", {
+            "lstm_fwd": TL_STEPS, "lstm_fwd_train": TL_STEPS,
+            "lstm_bwd": TL_STEPS})}
+    helper = TransferLearningHelper(tail_net)
+    ops.reset_launch_counts()
+    feats = [helper.featurize(ds) for ds in data]
+    out["featurize"] = {"launches": _expect_launches(
+        "phase 21 (b) featurize", {"lstm_fwd": TL_STEPS})}
+    ops.reset_launch_counts()
+    for f in feats:
+        helper.fit_featurized(f)
+    out["fit_featurized"] = {"launches": _expect_launches(
+        "phase 21 (b) fit_featurized", {"lstm_fwd_train": TL_STEPS,
+                                         "lstm_bwd": TL_STEPS})}
+    out["seconds"] = time.perf_counter() - t0
+    frozen_kept = (_trees_equal([new.params[0]], [frozen])
+                   and _trees_equal([tail_net.params[0]], [frozen]))
+    source_kept = _trees_equal(base.params, source)
+    scale = max(float(v.abs().max()) for p in new.params[1:]
+                for v in p.values())
+    tail_err = _tree_diff(new.params[1:], tail_net.params[1:]) / scale
+    tail_bitwise = _trees_equal(new.params[1:], tail_net.params[1:])
+    out.update(frozen_bitwise=frozen_kept, source_bitwise=source_kept,
+               tail_rel_err=tail_err, tail_bitwise=tail_bitwise)
+    print(f"tools: (b) transfer learning, layer 0 frozen, Sgd({TL_LR}), "
+          f"{TL_STEPS} steps each: fine-tune launches "
+          f"{out['fine_tune']['launches']}, featurize "
+          f"{out['featurize']['launches']}, fit_featurized "
+          f"{out['fit_featurized']['launches']}; frozen parameters bit for "
+          f"bit: {frozen_kept}; source net bit for bit: {source_kept}; "
+          f"featurized against unfeaturized tail: {tail_err:.3g} of max "
+          f"|p| (bar {TL_TAIL_TOL}; bit for bit {tail_bitwise}); "
+          f"{out['seconds']:.2f} s [{card}]", flush=True)
+    if not (frozen_kept and source_kept and tail_err <= TL_TAIL_TOL):
+        raise AssertionError(f"phase 21 (b): {out}")
+    res["transfer"] = out
+
+
+def _recording_line_search():
+    """A BackTrackLineSearch that records each search's step and counts
+    its value-and-gradient probes."""
+    from deeplearning4j_tpu_torch.optimize.solvers import BackTrackLineSearch
+
+    class Recorded(BackTrackLineSearch):
+        def __init__(self):
+            super().__init__()
+            self.steps, self.probes = [], 0
+
+        def optimize(self, vg, x, f0, g0, direction):
+            def counted(v):
+                self.probes += 1
+                return vg(v)
+            got = super().optimize(counted, x, f0, g0, direction)
+            self.steps.append(got[0])
+            return got
+    return Recorded()
+
+
+def tt_solver_part(card, res, V, dev="cuda"):
+    """(c) LBFGS, CG and line gradient descent, full batch, on the card."""
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.optimize import solvers
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+    zoo = TextGenerationLSTM(total_unique_characters=V)
+    (ds,) = _dp_batches(1, start=400)
+    fit_data = _dp_batches(SOLVER_FIT_STEPS, start=401)
+    out = {}
+    for algo in ("lbfgs", "conjugate_gradient", "line_gradient_descent"):
+        net, cpu = zoo.init(device=dev), zoo.init(device="cpu")
+        ls, cpu_ls = _recording_line_search(), _recording_line_search()
+        solver = solvers._ALGOS[algo](max_iterations=SOLVER_ITERS,
+                                      line_search=ls)
+        t0 = time.perf_counter()
+        ops.reset_launch_counts()
+        converged = solver.optimize(net, ds)
+        _sync(net.device)
+        seconds = time.perf_counter() - t0
+        probes = 1 + ls.probes
+        launches = _expect_launches(f"phase 21 (c) {algo}", {
+            "lstm2_fwd_train": probes, "lstm_bwd": 2 * probes})
+        hist = solver.score_history
+        cpu_solver = solvers._ALGOS[algo](max_iterations=1,
+                                          line_search=cpu_ls)
+        cpu_solver.optimize(cpu, ds)
+        first = (ls.steps[0], hist[1] if len(hist) > 1 else hist[0])
+        cpu_first = (cpu_ls.steps[0], cpu_solver.score_history[-1])
+        score0_err = abs(hist[0] - cpu_solver.score_history[0]) / abs(
+            cpu_solver.score_history[0])
+        score1_err = abs(first[1] - cpu_first[1]) / abs(cpu_first[1])
+        monotone = all(b <= a for a, b in zip(hist, hist[1:]))
+        # a captured fit from the solver's parameters: the same steps as a
+        # twin given those parameters
+        twin = zoo.init(device=dev).set_params(_snap(net))
+        c0 = net._capture_count
+        ops.reset_launch_counts()
+        for d in fit_data:
+            net.fit(d)
+            twin.fit(d)
+        fit_launches = _expect_launches(f"phase 21 (c) {algo} fit", {
+            "lstm2_fwd_train": 2 * SOLVER_FIT_STEPS,
+            "lstm_bwd": 4 * SOLVER_FIT_STEPS})
+        captured = net._capture_count - c0
+        fit_equal = _trees_equal(net.params, twin.params)
+        out[algo] = {"solve": {"launches": launches},
+                     "fit": {"launches": fit_launches},
+                     "converged": converged, "score_history": hist,
+                     "steps": ls.steps, "probes": probes,
+                     "cpu_first": cpu_first, "score0_rel_err": score0_err,
+                     "score1_rel_err": score1_err, "monotone": monotone,
+                     "fit_bitwise": fit_equal, "fit_captures": captured,
+                     "seconds": seconds}
+        print(f"tools: (c) {algo}, {SOLVER_ITERS} iterations full batch "
+              f"(B={TT_B}, T={TT_T}): scores "
+              f"{[round(s, 6) for s in hist]}, steps {ls.steps}, "
+              f"{probes} probes, launches {launches}, {seconds:.2f} s; the "
+              f"CPU copy's first step {cpu_first[0]} and score "
+              f"{cpu_first[1]:.6f} (score rel err {score0_err:.3g} / "
+              f"{score1_err:.3g}, bar {SOLVER_TOL}); then {SOLVER_FIT_STEPS} "
+              f"fit steps ({captured} captured) bit for bit a twin's from "
+              f"the solver's parameters: {fit_equal} [{card}]", flush=True)
+        if not (monotone and ls.steps[0] == cpu_first[0]
+                and score0_err <= SOLVER_TOL and score1_err <= SOLVER_TOL
+                and fit_equal and len(hist) > 1
+                and (captured >= 1 or dev == "cpu")):
+            raise AssertionError(f"phase 21 (c) {algo}: {out[algo]}")
+    res["solvers"] = out
+
+
+def _post(url, x):
+    """(status, model version, output) of one /predict."""
+    status, body, hdrs = _http(url, "/predict", {"ndarray": _b64(x)})
+    low = {k.lower(): v for k, v in hdrs.items()}
+    if status != 200:
+        return status, None, body
+    from deeplearning4j_tpu_torch.serving.wire import ndarray_from_b64
+    return status, int(low["x-model-version"]), ndarray_from_b64(
+        body["ndarray"])
+
+
+def tt_online_part(card, res, V, dev="cuda"):
+    """(d) The online loop: serve, train from a topic, gate, promote under
+    live /predict traffic, force a regression, roll back."""
+    import shutil
+    import threading
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.data.kafka import (
+        InMemoryBroker, NDArrayPublisher, NDArrayPubSubRoute)
+    from deeplearning4j_tpu_torch.monitor.flight import FlightRecorder
+    from deeplearning4j_tpu_torch.online import (
+        BatchGuard, Deployer, HttpTarget, OnlineLearningService,
+        OnlineTrainer, PromotionGate, ServerTarget, TrafficMirror)
+    from deeplearning4j_tpu_torch.resilience.checkpoint import \
+        CheckpointManager
+    from deeplearning4j_tpu_torch.serving import (InferenceEngine,
+                                                  InferenceServer)
+    from deeplearning4j_tpu_torch.ui import InMemoryStatsStorage, StatsListener
+    from deeplearning4j_tpu_torch.util.model_serializer import load_weights
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+    zoo = TextGenerationLSTM(total_unique_characters=V)
+    shutil.rmtree(TT_DIR, ignore_errors=True)
+    held = _held_out()
+    probe = held.features[:ONLINE_REQ]
+    # two servers on the seed's weights: one swapped in process, one
+    # through POST /admin/swap
+    mirror = TrafficMirror()
+    servers, engines = [], []
+    for _ in range(2):
+        net = zoo.init(device=dev)
+        eng = InferenceEngine(net, max_batch=ONLINE_MAX_BATCH)
+        srv = InferenceServer(net, port=0, engine=eng, max_latency_ms=1.0,
+                              request_mirror=mirror.record).start()
+        eng.warmup((TT_T, V), max_batch=ONLINE_MAX_BATCH)
+        servers.append(srv)
+        engines.append(eng)
+    warm = [e.trace_count for e in engines]
+    urls = [f"http://127.0.0.1:{s.port}" for s in servers]
+    # the trainer's net from the topic through the route
+    train_net, scratch = zoo.init(device=dev), zoo.init(device=dev)
+    rec = FlightRecorder()
+    train_net.attach_flight_recorder(rec)
+    storage = InMemoryStatsStorage()
+    train_net.add_listeners(StatsListener(storage, session_id="phase21"))
+    broker = InMemoryBroker()
+    pub = NDArrayPublisher(broker, "corpus")
+    route = NDArrayPubSubRoute(broker, "corpus", batch_size=TT_B,
+                               buffer_records=4 * TT_B).start()
+    mgr = CheckpointManager(TT_DIR / "ck", keep_last=3)
+    guard = BatchGuard(train_net)
+    trainer = OnlineTrainer(train_net, route.iterator, mgr, guard=guard,
+                            batches_per_round=ONLINE_BATCHES)
+    gate = PromotionGate(held.features, held.labels, min_improvement=0.0,
+                         max_shadow_disagreement=1.0)
+    dep = Deployer(mgr, targets=[ServerTarget(servers[0]),
+                                 HttpTarget(urls[1])])
+    svc = OnlineLearningService(trainer, gate, dep, scratch, mirror=mirror)
+    for s in servers:
+        s.health_hook = svc.health_info
+
+    stop, failures, seen = threading.Event(), [], {0: [], 1: []}
+
+    def traffic():
+        rng = np.random.default_rng(21)
+        xs = held.features
+        while not stop.is_set():
+            for i, url in enumerate(urls):
+                rows = rng.integers(0, len(xs), ONLINE_REQ)
+                try:
+                    status, v, _ = _post(url, xs[rows])
+                except Exception as e:      # noqa: BLE001 -- a failed request
+                    failures.append(repr(e))
+                    continue
+                if status != 200:
+                    failures.append(status)
+                else:
+                    seen[i].append(v)
+    th = threading.Thread(target=traffic, daemon=True)
+
+    def publish(batches, roll=False):
+        for ds in batches:
+            y = np.roll(ds.labels, 1, axis=-1) if roll else ds.labels
+            for j in range(ds.features.shape[0]):
+                pub.publish(ds.features[j], y[j])
+        pub.flush()
+
+    calls0 = sum(e._calls for e in engines)
+    it0 = train_net.iteration
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    k4, steps, start = 0, [], 500
+    try:
+        for r in range(ONLINE_ROUNDS + 1):
+            forced = r == ONLINE_ROUNDS
+            if r == 1:
+                # the bootstrap round ran the trainer's step eagerly and
+                # captured it with no other thread on the card (a capture,
+                # and the eager warm-up's sync-debug mode, are process-wide);
+                # from here on its steps replay while the client runs
+                th.start()
+                deadline = time.monotonic() + 60
+                while not mirror.seen:
+                    if time.monotonic() > deadline or failures:
+                        raise AssertionError(
+                            f"phase 21 (d): no /predict answered "
+                            f"({failures[:3]})")
+                    time.sleep(0.01)
+            if forced:
+                before = [e.predict_host(probe) for e in engines]
+                incumbent_ck = dep.current["checkpoint"]
+                v_good = dep.version
+                gate.min_improvement = -1e9
+                svc.regression_margin = 0.0
+                trainer.guard = None
+                trainer.batches_per_round = ONLINE_FORCED
+            n = ONLINE_FORCED if forced else ONLINE_BATCHES
+            publish(_dp_batches(n, start=start), roll=forced)
+            start += n
+            checks0 = guard._accepted + trainer.quarantined
+            out = svc.step()
+            steps.append(out)
+            d = out["decision"]
+            # K4 of the step: the guard's scores, the post-step score, the
+            # gate's held-out evaluations (and the shadow replay of the
+            # mirror, two forwards), the regression watch
+            k4 += (guard._accepted + trainer.quarantined - checks0) + 1 + 1
+            if d is not None and not np.isnan(d["incumbent_quality"]):
+                k4 += 1 + (0 if np.isnan(d["shadow_disagreement"]) else 2)
+            if out["promoted"]:
+                k4 += 1
+            time.sleep(0.2)         # let the client see this version
+    finally:
+        stop.set()
+        if th.is_alive():
+            th.join(timeout=60)
+        route.stop()
+    calls = sum(e._calls for e in engines) - calls0
+    trained = train_net.iteration - it0
+    launches = _expect_launches("phase 21 (d) online loop", {
+        "lstm2_fwd_train": trained, "lstm_bwd": 2 * trained,
+        "lstm2_fwd": k4 + calls})
+    seconds = time.perf_counter() - t0
+    promotions = sum(1 for s in steps if s["promoted"])
+    forced_out = steps[-1]
+    after = [e.predict_host(probe) for e in engines]
+    # the pinned incumbent's own output: its zip swapped into a fresh engine
+    ref = InferenceEngine(zoo.init(device=dev), max_batch=ONLINE_MAX_BATCH)
+    ref.swap_weights(*load_weights(ref.model, incumbent_ck))
+    pinned = ref.predict_host(probe)
+    rollback_bitwise = all(np.array_equal(a, b) and np.array_equal(a, pinned)
+                           for a, b in zip(after, before))
+    http_after = [_post(u, probe) for u in urls]
+    http_bitwise = all(s == 200 and np.array_equal(o, pinned)
+                       for s, _, o in http_after)
+    traces = [e.trace_count for e in engines]
+    versions_rise = all(seen[i] == sorted(seen[i]) and seen[i]
+                        and seen[i][-1] > seen[i][0] for i in seen)
+    report = storage.get_latest_update("phase21")
+    for s in servers:
+        s.stop()
+    out = {"launches": launches, "seconds": seconds,
+           "promotions": promotions, "failures": len(failures),
+           "requests": {i: len(v) for i, v in seen.items()},
+           "versions": {i: sorted(set(v)) for i, v in seen.items()},
+           "trace_counts": traces, "warm_trace_counts": warm,
+           "mirror_seen": mirror.seen,
+           "decisions": [s["decision"] for s in steps],
+           "forced": {k: forced_out[k] for k in (
+               "promoted", "rolled_back", "version", "live_quality")},
+           "rollback_bitwise": rollback_bitwise,
+           "http_rollback_bitwise": http_bitwise,
+           "stats_report": report.to_json() if report else None,
+           "flight_records": len(rec.records())}
+    qual = [(round(s["decision"]["candidate_quality"], 4),
+             round(s["decision"]["incumbent_quality"], 4))
+            for s in steps if s["decision"]]
+    print(f"tools: (d) online loop, TextGenerationLSTM served by 2 "
+          f"InferenceServers (warmed 1..{ONLINE_MAX_BATCH}; ServerTarget and "
+          f"HttpTarget), a second net trained from an InMemoryBroker topic "
+          f"through NDArrayPubSubRoute: {len(steps)} rounds, {trained} "
+          f"steps, {promotions} promotions, (candidate, incumbent) quality "
+          f"{qual}; {sum(out['requests'].values())} /predict under way, "
+          f"{len(failures)} failed, versions seen {out['versions']}, "
+          f"trace_count {traces} (warm {warm}), mirrored {mirror.seen}; "
+          f"forced regression: {out['forced']}, served after the rollback "
+          f"bit for bit the pinned incumbent's: {rollback_bitwise} (HTTP "
+          f"{http_bitwise}); launches {launches}; {seconds:.2f} s [{card}]",
+          flush=True)
+    if report is not None:
+        j = report.to_json()
+        print(f"tools: (d) StatsListener report: iteration {j['iteration']}, "
+              f"score {j['score']:.6f}, "
+              f"{j['iterationTimeMs']:.3f} ms/iteration, layers "
+              f"{ {k: round(v['norm'], 4) for k, v in j['paramStats'].items()} } "
+              f"(param norms from the flight recorder) [{card}]", flush=True)
+    if not (promotions >= ONLINE_ROUNDS + 1 and not failures
+            and versions_rise and traces == warm and mirror.seen > 0
+            and forced_out["promoted"] and forced_out["rolled_back"]
+            and forced_out["version"] == v_good + 2
+            and rollback_bitwise and http_bitwise and report is not None):
+        raise AssertionError(f"phase 21 (d): {out}")
+    res["online"] = out
+
+
+def tools_phase(card, dev="cuda"):
+    """Phase 21: training tools and the online loop (``chip_smoke.py``
+    docstring)."""
+    from deeplearning4j_tpu_torch.zoo.corpus import corpus_windows
+    t0 = time.perf_counter()
+    _, _, vocab = corpus_windows(stride=2)
+    V = len(vocab)
+    res = {"card": card}
+    for part in (tt_early_stopping_part, tt_transfer_part, tt_solver_part,
+                 tt_online_part):
+        t1 = time.perf_counter()
+        part(card, res, V, dev)
+        res[f"{part.__name__}_seconds"] = time.perf_counter() - t1
+        print(f"tools: {part.__name__} {time.perf_counter() - t1:.1f} s "
+              f"[{card}]", flush=True)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"tools: phase 21 took {res['seconds']:.1f} s [{card}]", flush=True)
+    return res
+
+
 def main() -> int:
     import torch
     if len(sys.argv) > 1 and sys.argv[1] == "--dp-rank":
@@ -9301,6 +9830,7 @@ def main() -> int:
     dp = dp_phase(card)
     cluster = cluster_phase(card)
     mp = mp_phase(card)
+    tools = tools_phase(card)
 
     # each kernel at its main path's shape, with the launches of the run
     # that drove it: /predict of the 15 held-out windows (bucket 16, T=64)
@@ -9309,21 +9839,27 @@ def main() -> int:
     main_shapes = {"lstm2_fwd": (64, 16, {
                        "lstm2_fwd": res["launches"].get("lstm2_fwd", 0)
                        + counted_launches(precision["lstm"], "lstm2_fwd")
-                       + counted_launches(dp, "lstm2_fwd")}),
-                   "lstm_fwd": (16, 15, res["launches"]),
+                       + counted_launches(dp, "lstm2_fwd")
+                       + counted_launches(tools, "lstm2_fwd")}),
+                   "lstm_fwd": (16, 15, {
+                       "lstm_fwd": res["launches"].get("lstm_fwd", 0)
+                       + counted_launches(tools, "lstm_fwd")}),
                    "lstm2_fwd_train": (64, 32, {
                        k: train["launches_recipe"].get(k, 0)
                        + counted_launches(obs, k) + counted_launches(dp, k)
+                       + counted_launches(tools, k)
                        for k in ("lstm2_fwd_train", "lstm_bwd")}),
                    "lstm_bwd": (64, 32, {
                        k: train["launches_recipe"].get(k, 0)
                        + counted_launches(obs, k) + counted_launches(dp, k)
                        + counted_launches(cluster, k)
+                       + counted_launches(tools, k)
                        for k in ("lstm2_fwd_train", "lstm_bwd")}),
                    "lstm_fwd_train": (16, 32, {
                        "lstm_fwd_train":
                        train["launches_tbptt"].get("lstm_fwd_train", 0)
-                       + counted_launches(cluster, "lstm_fwd_train")})}
+                       + counted_launches(cluster, "lstm_fwd_train")
+                       + counted_launches(tools, "lstm_fwd_train")})}
     entries = []
 
     def entry(kernel, row, launches):
@@ -9344,6 +9880,7 @@ def main() -> int:
         row = kernel_case(kernel, T, B, 256, "float32", seed=1)
         print("main-path shape: " + fmt(row) + f" [{card}]", flush=True)
         entry(kernel, row, counts.get(kernel, 0))
+        entries[-1]["launches_phase_21"] = counted_launches(tools, kernel)
     # phase 19: the in-process oracle's K2 / K3 are in the totals above;
     # the workers' own counters are printed apart, beside the kernels'
     # numbers at the workers' shape (T=16, B=16, H=24)
@@ -9450,7 +9987,8 @@ def main() -> int:
          "serving_features": serving, "cnn": cnn, "inception": inception,
          "kv_tier": kv_tier, "precision": precision, "observability": obs,
          "routed": routed, "data_parallel": dp, "cluster": cluster,
-         "model_parallel": mp, "kernels": entries},
+         "model_parallel": mp, "training_tools": tools,
+         "kernels": entries},
         indent=1))
     print(json.dumps({"kernels": entries}))
     print(card)

@@ -34,7 +34,10 @@ sits the JAX package's replicated tier (``serving.router``,
 ``serving.replica``, ``serving.autoscale``, on ``resilience.retry`` and
 ``resilience.faults``), and replicas start from AOT artifacts
 (``exec.aot``): the built kernel libraries and each captured program's
-recipe.
+recipe. The training tools (``earlystopping``, ``transferlearning``,
+``optimize.solvers``, ``util.gradient_check``) and the online loop
+(``data.streaming``, ``data.kafka``, ``online``, ``ui``'s stats listener)
+run over the captured train step and the engines' in-place swaps.
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,6 @@
 """In-memory datasets, their batch iterators and the iterator wrappers,
-the standard datasets' fetchers and the normalizers."""
+the streaming iterator and its wire format, the standard datasets'
+fetchers and the normalizers."""
 
 from deeplearning4j_tpu_torch.data.dataset import (  # noqa: F401
     DataSet, MultiDataSet)
@@ -11,3 +12,5 @@ from deeplearning4j_tpu_torch.data.normalizers import (  # noqa: F401
     ImagePreProcessingScaler, NormalizerMinMaxScaler, NormalizerStandardize)
 from deeplearning4j_tpu_torch.data.prefetcher import (  # noqa: F401
     DevicePrefetcher)
+from deeplearning4j_tpu_torch.data.streaming import (  # noqa: F401
+    StreamingDataSetIterator, decode_record, encode_record)

@@ -25,6 +25,14 @@ def host_tensor(a) -> torch.Tensor:
     return t.float() if t.dtype == torch.float64 else t
 
 
+def host_array(a) -> np.ndarray:
+    """A tensor's values as a host array, read back in float32; anything
+    else through ``np.asarray``."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().float().cpu().numpy()
+    return np.asarray(a)
+
+
 def _take(a, idx):
     return None if a is None else a[idx]
 

@@ -96,31 +96,37 @@ def _kind(model) -> str:
             else "MultiLayerNetwork")
 
 
+def _write_zip(fh, model, save_updater, normalizer):
+    with zipfile.ZipFile(fh, "w", zipfile.ZIP_DEFLATED) as z:
+        z.writestr(META_NAME, json.dumps({
+            "format": "deeplearning4j_tpu/model/v1",
+            "kind": _kind(model),
+            "iteration": int(model.iteration),
+            "epoch": int(model.epoch),
+            "epoch_batch": int(model._epoch_batch)}))
+        z.writestr(CONFIG_NAME, model.conf.to_json())
+        _savez(z, COEFF_NAME, _flatten(model.params))
+        _savez(z, STATE_NAME, _flatten(model.state or {}))
+        if save_updater and model.opt_state is not None:
+            _savez(z, UPDATER_NAME, _flatten(model.opt_state))
+        if normalizer is not None:
+            z.writestr(NORMALIZER_NAME, json.dumps(normalizer.to_dict()))
+
+
 def write_model(model, path, save_updater=True, normalizer=None):
     """Write ``model`` (a MultiLayerNetwork or a ComputationGraph) to a
     checkpoint zip, with its updater state unless ``save_updater`` is
-    False, and ``normalizer`` when given."""
-    flat = _flatten(model.params)
+    False, and ``normalizer`` when given. ``path`` may also be a writable
+    binary file object (an ``io.BytesIO``), which gets the zip as it is."""
+    if hasattr(path, "write"):
+        _write_zip(path, model, save_updater, normalizer)
+        return
     path = os.fspath(path)
     tmp = os.path.join(os.path.dirname(os.path.abspath(path)),
                        f".{os.path.basename(path)}.tmp.{os.getpid()}")
     try:
         with open(tmp, "wb") as fh:
-            with zipfile.ZipFile(fh, "w", zipfile.ZIP_DEFLATED) as z:
-                z.writestr(META_NAME, json.dumps({
-                    "format": "deeplearning4j_tpu/model/v1",
-                    "kind": _kind(model),
-                    "iteration": int(model.iteration),
-                    "epoch": int(model.epoch),
-                    "epoch_batch": int(model._epoch_batch)}))
-                z.writestr(CONFIG_NAME, model.conf.to_json())
-                _savez(z, COEFF_NAME, flat)
-                _savez(z, STATE_NAME, _flatten(model.state or {}))
-                if save_updater and model.opt_state is not None:
-                    _savez(z, UPDATER_NAME, _flatten(model.opt_state))
-                if normalizer is not None:
-                    z.writestr(NORMALIZER_NAME,
-                               json.dumps(normalizer.to_dict()))
+            _write_zip(fh, model, save_updater, normalizer)
             fh.flush()
             os.fsync(fh.fileno())
         os.replace(tmp, path)

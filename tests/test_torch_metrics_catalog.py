@@ -2,8 +2,8 @@
 
 - Every ``dl4jtpu_*`` series a ported JAX module registers (its name
   literals, read from the JAX package's source; the unported modules --
-  ``exec/autotune.py``, ``util/compile_cache.py``, ``online/`` and
-  ``data/kafka.py`` -- left out) is registered somewhere in the port.
+  ``exec/autotune.py`` and ``util/compile_cache.py`` -- left out) is
+  registered somewhere in the port.
 - After a dense, a paged and a speculative ``/generate`` served on the CPU
   and a ``fit``, the port's registry holds every series of the JAX decode
   engine, block pool, train monitor, fused update and executor, each with
@@ -43,8 +43,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 JAX_PKG = ROOT / "deeplearning4j_tpu"
 PORT_PKG = ROOT / "deeplearning4j_tpu_torch"
 # JAX modules with no counterpart in the port yet (ROADMAP queue 1)
-UNPORTED = ("exec/autotune.py", "util/compile_cache.py", "online/",
-            "data/kafka.py")
+UNPORTED = ("exec/autotune.py", "util/compile_cache.py")
 NAME = re.compile(r"""["'](dl4jtpu_[a-z0-9_]+)["']""")
 # the series F13 found missing, and the modules whose whole catalog a
 # served /generate and a fit must register

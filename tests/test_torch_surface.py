@@ -3,10 +3,12 @@
 - Package namespaces: every name of a JAX package's ``__all__`` whose
   module is ported imports from the port's package (``parallel``,
   ``parallel.distributed``, ``scaleout``, ``exec``'s mesh names and the
-  elastic cluster's four modules too); the names still to port are listed (ROADMAP queue 1 items 7 and
-  8), with ``exec.aot``'s ``export_compiled``, an XLA executable's
-  export, and ``exec``'s measured route tables, which have no
-  counterpart.
+  elastic cluster's four modules too, and item 8a's and 8b's: early
+  stopping, transfer learning, the solvers, the gradient checker, the
+  streaming and Kafka modules, ``online`` and ``ui``'s storage and stats
+  listener); the names still to port are listed (ROADMAP queue 1 item 8),
+  with ``exec.aot``'s ``export_compiled``, an XLA executable's export, and
+  ``exec``'s measured route tables, which have no counterpart.
 - The configuration builder: the JAX setters (``bias_init``,
   ``learning_rate``, ``optimization_algo``, ``dtype``, ``compute_dtype``,
   ``mini_batch``, ``minimize``), ``ListBuilder.layer(index, layer)`` and
@@ -39,14 +41,27 @@ from test_torch_regularised_training import port_of
 V = 13
 
 # JAX __all__ names (a module without one: its public functions and
-# classes) whose modules wait for later items (the streaming data path;
-# scaleout's ml_pipeline, item 8), or that have no counterpart (an XLA
-# executable's export; the measured route tables)
+# classes) whose modules wait for later items (scaleout's ml_pipeline;
+# ui's server, components, remote router and convolutional listener, item
+# 8d), or that have no counterpart (an XLA executable's export; the
+# measured route tables)
 NOT_PORTED = {
     "deeplearning4j_tpu": set(),
     "deeplearning4j_tpu.serving": set(),
-    "deeplearning4j_tpu.data": {"StreamingDataSetIterator", "encode_record",
-                                "decode_record"},
+    "deeplearning4j_tpu.data": set(),
+    "deeplearning4j_tpu.data.streaming": set(),
+    "deeplearning4j_tpu.data.kafka": set(),
+    "deeplearning4j_tpu.earlystopping": set(),
+    "deeplearning4j_tpu.transferlearning": set(),
+    "deeplearning4j_tpu.optimize": set(),
+    "deeplearning4j_tpu.optimize.solvers": set(),
+    "deeplearning4j_tpu.util.gradient_check": set(),
+    "deeplearning4j_tpu.online": set(),
+    "deeplearning4j_tpu.ui": {"RemoteUIStatsStorageRouter", "WebReporter",
+                              "ConvolutionalIterationListener", "UIServer",
+                              "components"},
+    "deeplearning4j_tpu.ui.storage": {"RemoteUIStatsStorageRouter"},
+    "deeplearning4j_tpu.ui.stats_listener": set(),
     "deeplearning4j_tpu.resilience": set(),
     "deeplearning4j_tpu.monitor": set(),
     "deeplearning4j_tpu.exec.programs": set(),
