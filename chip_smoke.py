@@ -634,6 +634,32 @@ result line, when any of them or the port's package is missing. Phases:
    servers' dispatches). Each part's seconds and the phase's are
    printed; its launches join the kernels line's K1-K4 and K4-train
    (``launches_phase_21`` in each entry); under 60 s.
+22. Keras model import and the embedding libraries (``import_phase``).
+   Each model is a Keras 2 file whose weights come from
+   ``np.random.default_rng``, held in a dict-backed stand-in for the
+   open HDF5 file (``KerasStandIn``) and fed to the importer's private
+   half, which reads any mapping, so the phase needs no h5py (the CPU
+   tests read real .h5 files through the public importers). (a)
+   The zoo's char model at full width, (None, 64, 77) -> 2 x LSTM(256,
+   sigmoid gates, ``return_sequences``) -> Dense(77, softmax), categorical
+   cross-entropy and Adam, imported on the card and on the CPU (the
+   parameters bit for bit): ``output`` at B=32 within 1e-4 of the CPU
+   copy with exactly one K4; 3 ``fit`` steps at B=32, T=64, losses within
+   rtol 1e-4 and the parameters within 1e-4 of max |param| of the CPU
+   copy's, exactly one K4-train and two K3 a step.
+   (b) LSTM(256) -> LSTM(256, ``return_sequences=False``, so
+   ``LastTimeStep``) -> Dense(5): exactly two K1 a call; (c) the same
+   with ``hard_sigmoid`` gates: nothing launched (the layers' own loop);
+   each within 1e-4 of its CPU copy. (d) ``Word2Vec`` skip-gram NEG on
+   the JAX suite's clustered corpus passes its cluster checks,
+   ``DistributedWord2Vec`` over a 4-slot mesh on the card repeats bit for
+   bit across two runs and clusters, ``DeepWalk`` on two 6-cliques puts
+   same-clique vertices nearer; one NEG epoch at 600 corpus repeats, a
+   one-epoch ``Word2Vec.fit`` after a warm one (its host pairs
+   included), is timed (pairs/s), and nothing in (d) launches a hand
+   kernel. Its
+   launches join the kernels line's K1-K4 and K4-train
+   (``launches_phase_22``); under 20 s.
 
 A replayed CUDA graph adds to the launch counts the launches its capture
 recorded (the capture itself counts none), so the counts below are the
@@ -9678,6 +9704,281 @@ def tools_phase(card, dev="cuda"):
     return res
 
 
+IMP_V, IMP_T, IMP_B, IMP_H = 77, 64, 32, 256   # (a): the zoo's char model
+IMP_CLASSES = 5                # (b), (c): the classifier's outputs
+IMP_STEPS = 3                  # (a): fit steps, card against the CPU copy
+IMP_SEED = 2028
+W2V_EPOCH_REPS = 600           # (d): corpus repeats of the timed NEG epoch
+IMP_READER = "dict stand-in (KerasStandIn)"
+
+
+class KerasStandIn(dict):
+    """A dict-backed stand-in for an open Keras HDF5 file: the private
+    importers read only ``attrs``, ``in``, ``[]`` and ``np.asarray(node)``,
+    so a group is a dict with ``attrs`` and a dataset a numpy array."""
+
+    def __init__(self, attrs=None, **items):
+        super().__init__(**items)
+        self.attrs = dict(attrs or {})
+
+
+def keras_file(cfg, weights, training):
+    """The stand-in for an open Keras 2 HDF5 file of this model: its
+    configs in ``attrs``, a group per layer under ``model_weights``."""
+    attrs = {"model_config": json.dumps(cfg),
+             "training_config": json.dumps(training)}
+    groups = {ln: KerasStandIn({"weight_names": [n for n, _ in ws]},
+                               **dict(ws)) for ln, ws in weights.items()}
+    return KerasStandIn(attrs, model_weights=KerasStandIn(**groups))
+
+
+def keras_import(source, device):
+    from deeplearning4j_tpu_torch.modelimport.keras_import import \
+        _import_sequential
+    return _import_sequential(source, device=device)
+
+
+def keras_lstm_model(rng, rec, head, classes, rs2=True):
+    """A Keras 2 Sequential over (None, IMP_T, IMP_V): two LSTM(IMP_H), the
+    second with ``return_sequences=rs2``, then Dense(classes, softmax);
+    categorical cross-entropy and Adam in its training config."""
+    def lstm(name, rs, **extra):
+        c = {"name": name, "units": IMP_H, "activation": "tanh",
+             "recurrent_activation": rec, "use_bias": True,
+             "return_sequences": rs}
+        c.update(extra)
+        return {"class_name": "LSTM", "config": c}
+
+    def normal(*shape, scale=0.1):
+        return rng.normal(size=shape, scale=scale).astype(np.float32)
+
+    cfg = {"class_name": "Sequential", "keras_version": "2.2.4",
+           "backend": "tensorflow", "config": {"layers": [
+               lstm("l1", True, batch_input_shape=[None, IMP_T, IMP_V]),
+               lstm("l2", rs2),
+               {"class_name": "Dense", "config": {
+                   "name": head, "units": classes, "activation": "softmax",
+                   "use_bias": True}}]}}
+    weights = {}
+    for name, n_in in (("l1", IMP_V), ("l2", IMP_H)):
+        weights[name] = [(f"{name}/kernel:0", normal(n_in, 4 * IMP_H)),
+                         (f"{name}/recurrent_kernel:0",
+                          normal(IMP_H, 4 * IMP_H)),
+                         (f"{name}/bias:0", normal(4 * IMP_H))]
+    weights[head] = [(f"{head}/kernel:0", normal(IMP_H, classes)),
+                     (f"{head}/bias:0", normal(classes))]
+    training = {"loss": "categorical_crossentropy", "optimizer_config": {
+        "class_name": "Adam", "config": {"learning_rate": 1e-3}}}
+    return cfg, weights, training
+
+
+def _one_hot(rng, shape, classes):
+    return np.eye(classes, dtype=np.float32)[rng.integers(0, classes, shape)]
+
+
+def import_char_part(card, res, dev="cuda"):
+    """(a) The zoo's char model imported at full width: K4 serving and
+    K4-train + K3 training against the import's CPU copy."""
+    import torch
+    from deeplearning4j_tpu_torch import ops
+    rng = np.random.default_rng(IMP_SEED)
+    src = keras_file(*keras_lstm_model(rng, "sigmoid", "out", IMP_V))
+    t0 = time.perf_counter()
+    net, cpu = keras_import(src, dev), keras_import(src, "cpu")
+    import_s = time.perf_counter() - t0
+    same = _trees_equal(net.params, cpu.params)
+    x = _one_hot(rng, (IMP_B, IMP_T), IMP_V)
+    y = _one_hot(rng, (IMP_B, IMP_T), IMP_V)
+    ops.reset_launch_counts()
+    out = net.output(x)
+    torch.cuda.synchronize()
+    out_launches = _expect_launches("phase 22 (a) output", {"lstm2_fwd": 1})
+    err = float((out.cpu() - cpu.output(x)).abs().max())
+    losses, cpu_losses = [], []
+    ops.reset_launch_counts()
+    for _ in range(IMP_STEPS):
+        net.fit(x, y)
+        losses.append(net.get_score())
+    torch.cuda.synchronize()
+    fit_launches = _expect_launches("phase 22 (a) fit", {
+        "lstm2_fwd_train": IMP_STEPS, "lstm_bwd": 2 * IMP_STEPS})
+    for _ in range(IMP_STEPS):
+        cpu.fit(x, y)
+        cpu_losses.append(cpu.get_score())
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
+    param_err, _, pc = _param_errs(net, cpu)
+    param_rel = param_err / max(float(v.abs().max()) for v in pc.values())
+    out = {"reader": IMP_READER, "import_seconds": import_s,
+           "params_equal_cpu_import": same, "max_abs_err": err,
+           "losses": losses, "cpu_losses": cpu_losses,
+           "loss_rel_err": loss_err, "param_rel_err": param_rel,
+           "launches": {k: out_launches.get(k, 0) + fit_launches.get(k, 0)
+                        for k in set(out_launches) | set(fit_launches)}}
+    print(f"import: (a) Keras Sequential (None, {IMP_T}, {IMP_V}) -> 2 x "
+          f"LSTM({IMP_H}, sigmoid gates) -> Dense({IMP_V}, softmax), Adam, "
+          f"read through the {IMP_READER}: card and CPU imports' "
+          f"parameters equal: {same}; output at B={IMP_B} vs the CPU copy "
+          f"max abs err {err:.3g} (tol {PROB_TOL}), launches "
+          f"{out_launches}; {IMP_STEPS} fit steps: losses "
+          f"{[round(l, 6) for l in losses]} vs CPU max rel err "
+          f"{loss_err:.3g} (tol {LOSS_RTOL}), parameters after them vs "
+          f"CPU {param_rel:.3g} of max |param| (tol {MP_CPU_TOL}), "
+          f"launches {fit_launches} [{card}]", flush=True)
+    if not (same and err <= PROB_TOL and loss_err <= LOSS_RTOL
+            and param_rel <= MP_CPU_TOL):
+        raise AssertionError(f"phase 22 (a): {out}")
+    res["char"] = out
+
+
+def import_classifier_part(card, res, dev="cuda"):
+    """(b) An LSTM -> LastTimeStep(LSTM) classifier (two K1 a call) and
+    (c) the same with hard_sigmoid gates (the layers' own loop, nothing
+    launched), each against its CPU copy."""
+    import torch
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.nn.layers import LastTimeStep
+    for tag, rec, want in (("b", "sigmoid", {"lstm_fwd": 2}),
+                           ("c", "hard_sigmoid", {})):
+        rng = np.random.default_rng(IMP_SEED + ord(tag))
+        src = keras_file(*keras_lstm_model(rng, rec, "cls", IMP_CLASSES,
+                                           rs2=False))
+        net, cpu = keras_import(src, dev), keras_import(src, "cpu")
+        x = _one_hot(rng, (IMP_B, IMP_T), IMP_V)
+        ops.reset_launch_counts()
+        out = net.output(x)
+        torch.cuda.synchronize()
+        launches = _expect_launches(f"phase 22 ({tag}) output", want)
+        err = float((out.cpu() - cpu.output(x)).abs().max())
+        part = {"reader": IMP_READER, "max_abs_err": err,
+                "launches": launches,
+                "gate_activation": net.layers[0].gate_activation,
+                "layers": [type(l).__name__ for l in net.layers]}
+        print(f"import: ({tag}) LSTM({IMP_H}) -> LSTM({IMP_H}, "
+              f"return_sequences=False) -> Dense({IMP_CLASSES}), {rec} "
+              f"gates, layers {part['layers']}: output at B={IMP_B} vs the "
+              f"CPU copy max abs err {err:.3g} (tol {PROB_TOL}); launches "
+              f"{launches} [{card}]", flush=True)
+        if not (err <= PROB_TOL and isinstance(net.layers[1], LastTimeStep)):
+            raise AssertionError(f"phase 22 ({tag}): {part}")
+        res["classifier" if tag == "b" else "screen"] = part
+
+
+def _w2v_corpus(n_reps=60):
+    """The JAX suite's clustered corpus (tests/test_nlp.py)."""
+    a = ["the cat sat on the mat with another cat",
+         "a cat and a kitten play with the mat",
+         "the kitten chased the cat around the mat"]
+    b = ["stocks rose as the market rallied today",
+         "the market fell while stocks dropped today",
+         "investors sold stocks as the market crashed"]
+    return (a + b) * n_reps
+
+
+def _two_cliques():
+    from deeplearning4j_tpu_torch.graph import Graph
+    g = Graph(12)
+    for grp in (range(0, 6), range(6, 12)):
+        for i in grp:
+            for j in grp:
+                if i < j:
+                    g.add_edge(i, j)
+    g.add_edge(5, 6)
+    return g
+
+
+def import_embeddings_part(card, res, dev="cuda"):
+    """(d) Word2Vec NEG, DistributedWord2Vec over 4 slots and DeepWalk
+    with their tables on the card: the JAX suite's checks, one NEG epoch's
+    pairs/s, and no hand-kernel launch."""
+    import torch
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.graph import DeepWalk
+    from deeplearning4j_tpu_torch.nlp import DistributedWord2Vec, Word2Vec
+    from deeplearning4j_tpu_torch.parallel.wrapper import default_mesh
+    ops.reset_launch_counts()
+    w2v = Word2Vec(min_word_frequency=3, layer_size=32, window_size=3,
+                   epochs=3, negative=5, seed=7, sentences=_w2v_corpus(),
+                   subsampling=0, device=dev).fit()
+    sims = {"cat~kitten": w2v.similarity("cat", "kitten"),
+            "cat~stocks": w2v.similarity("cat", "stocks"),
+            "market~stocks": w2v.similarity("market", "stocks"),
+            "market~mat": w2v.similarity("market", "mat")}
+    near = w2v.words_nearest("cat", 5)
+    w2v_ok = (sims["cat~kitten"] > sims["cat~stocks"]
+              and sims["market~stocks"] > sims["market~mat"]
+              and any(w in near for w in ("kitten", "mat"))
+              and w2v.syn0.device.type == torch.device(dev).type)
+    mesh = default_mesh(4, device=dev)
+
+    def distributed():
+        return DistributedWord2Vec(
+            mesh=mesh, averaging_frequency=4, min_word_frequency=3,
+            layer_size=24, window_size=3, epochs=3, seed=7,
+            sentences=_w2v_corpus(), subsampling=0, device=dev).fit()
+    d1, d2 = distributed(), distributed()
+    repeat = bool(torch.equal(d1.syn0, d2.syn0))
+    d_ok = (d1.similarity("stocks", "market")
+            > d1.similarity("stocks", "kitten")
+            and d1.similarity("cat", "kitten") > d1.similarity("cat", "market"))
+    dw = DeepWalk(vector_size=16, window_size=3, learning_rate=0.1, seed=7,
+                  device=dev)
+    dw.walks_per_vertex = 5
+    dw.fit(_two_cliques(), walk_length=10, epochs=20)
+    same = float(np.mean([dw.similarity(0, j) for j in range(1, 6)]))
+    cross = float(np.mean([dw.similarity(0, j) for j in range(6, 12)]))
+    # one NEG skip-gram epoch at 10x the corpus: a one-epoch fit (its
+    # host pairs and staging included), timed after a warm one that
+    # builds the vocabulary and tables
+    big = Word2Vec(min_word_frequency=3, layer_size=100, window_size=5,
+                   negative=5, seed=7, epochs=1, subsampling=0,
+                   sentences=_w2v_corpus(W2V_EPOCH_REPS), device=dev).fit()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    big.fit()
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    n_pairs = int(big._neg_pairs()[0].shape[-1])
+    bs = big._effective_batch()
+    launches = _expect_launches("phase 22 (d) embeddings", {})
+    part = {"word2vec": {"similarities": sims, "nearest_cat": near,
+                         "ok": w2v_ok},
+            "distributed": {"slots": mesh.size, "repeat_bitwise": repeat,
+                            "ok": d_ok},
+            "deepwalk": {"same": same, "cross": cross},
+            "neg_epoch": {"pairs": n_pairs, "batch": bs,
+                          "steps": -(-n_pairs // bs), "seconds": epoch_s,
+                          "pairs_per_s": n_pairs / epoch_s},
+            "launches": launches}
+    print(f"import: (d) Word2Vec skip-gram NEG on the card: {sims}, nearest "
+          f"to cat {near}: {w2v_ok}; DistributedWord2Vec over {mesh.size} "
+          f"slots clusters: {d_ok}, two runs bit for bit: {repeat}; "
+          f"DeepWalk on two 6-cliques: same {same:.3f} > cross "
+          f"{cross:.3f}; one NEG epoch (a Word2Vec.fit) of {n_pairs} pairs "
+          f"(batch {bs}, {-(-n_pairs // bs)} steps, D=100, 5 shared "
+          f"negatives) in "
+          f"{epoch_s * 1e3:.1f} ms: {n_pairs / epoch_s:.4g} pairs/s; "
+          f"hand-kernel launches {launches} [{card}]", flush=True)
+    if not (w2v_ok and d_ok and repeat and same > cross):
+        raise AssertionError(f"phase 22 (d): {part}")
+    res["embeddings"] = part
+
+
+def import_phase(card, dev="cuda"):
+    """Phase 22: Keras model import and the embedding libraries
+    (``chip_smoke.py`` docstring)."""
+    t0 = time.perf_counter()
+    res = {"card": card}
+    for part in (import_char_part, import_classifier_part,
+                 import_embeddings_part):
+        t1 = time.perf_counter()
+        part(card, res, dev)
+        res[f"{part.__name__}_seconds"] = time.perf_counter() - t1
+    res["seconds"] = time.perf_counter() - t0
+    print(f"import: phase 22 took {res['seconds']:.1f} s [{card}]",
+          flush=True)
+    return res
+
+
 def main() -> int:
     import torch
     if len(sys.argv) > 1 and sys.argv[1] == "--dp-rank":
@@ -9831,6 +10132,7 @@ def main() -> int:
     cluster = cluster_phase(card)
     mp = mp_phase(card)
     tools = tools_phase(card)
+    model_import = import_phase(card)
 
     # each kernel at its main path's shape, with the launches of the run
     # that drove it: /predict of the 15 held-out windows (bucket 16, T=64)
@@ -9840,20 +10142,24 @@ def main() -> int:
                        "lstm2_fwd": res["launches"].get("lstm2_fwd", 0)
                        + counted_launches(precision["lstm"], "lstm2_fwd")
                        + counted_launches(dp, "lstm2_fwd")
-                       + counted_launches(tools, "lstm2_fwd")}),
+                       + counted_launches(tools, "lstm2_fwd")
+                       + counted_launches(model_import, "lstm2_fwd")}),
                    "lstm_fwd": (16, 15, {
                        "lstm_fwd": res["launches"].get("lstm_fwd", 0)
-                       + counted_launches(tools, "lstm_fwd")}),
+                       + counted_launches(tools, "lstm_fwd")
+                       + counted_launches(model_import, "lstm_fwd")}),
                    "lstm2_fwd_train": (64, 32, {
                        k: train["launches_recipe"].get(k, 0)
                        + counted_launches(obs, k) + counted_launches(dp, k)
                        + counted_launches(tools, k)
+                       + counted_launches(model_import, k)
                        for k in ("lstm2_fwd_train", "lstm_bwd")}),
                    "lstm_bwd": (64, 32, {
                        k: train["launches_recipe"].get(k, 0)
                        + counted_launches(obs, k) + counted_launches(dp, k)
                        + counted_launches(cluster, k)
                        + counted_launches(tools, k)
+                       + counted_launches(model_import, k)
                        for k in ("lstm2_fwd_train", "lstm_bwd")}),
                    "lstm_fwd_train": (16, 32, {
                        "lstm_fwd_train":
@@ -9881,6 +10187,8 @@ def main() -> int:
         print("main-path shape: " + fmt(row) + f" [{card}]", flush=True)
         entry(kernel, row, counts.get(kernel, 0))
         entries[-1]["launches_phase_21"] = counted_launches(tools, kernel)
+        entries[-1]["launches_phase_22"] = counted_launches(model_import,
+                                                            kernel)
     # phase 19: the in-process oracle's K2 / K3 are in the totals above;
     # the workers' own counters are printed apart, beside the kernels'
     # numbers at the workers' shape (T=16, B=16, H=24)
@@ -9988,6 +10296,7 @@ def main() -> int:
          "kv_tier": kv_tier, "precision": precision, "observability": obs,
          "routed": routed, "data_parallel": dp, "cluster": cluster,
          "model_parallel": mp, "training_tools": tools,
+         "model_import": model_import,
          "kernels": entries},
         indent=1))
     print(json.dumps({"kernels": entries}))

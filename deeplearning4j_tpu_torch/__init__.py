@@ -37,7 +37,11 @@ sits the JAX package's replicated tier (``serving.router``,
 recipe. The training tools (``earlystopping``, ``transferlearning``,
 ``optimize.solvers``, ``util.gradient_check``) and the online loop
 (``data.streaming``, ``data.kafka``, ``online``, ``ui``'s stats listener)
-run over the captured train step and the engines' in-place swaps.
+run over the captured train step and the engines' in-place swaps. Keras
+models import into the containers above (``modelimport``), so an imported
+recurrent model runs the LSTM kernels; the word2vec family (``nlp``) and
+graph embeddings (``graph``) train their tables on the card in plain
+tensor code.
 """
 
 __version__ = "0.1.0"

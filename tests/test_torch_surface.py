@@ -6,7 +6,8 @@
   elastic cluster's four modules too, and item 8a's and 8b's: early
   stopping, transfer learning, the solvers, the gradient checker, the
   streaming and Kafka modules, ``online`` and ``ui``'s storage and stats
-  listener); the names still to port are listed (ROADMAP queue 1 item 8),
+  listener, and item 8c's: ``modelimport``, ``nlp`` and ``graph``); the
+  names still to port are listed (ROADMAP queue 1 item 8),
   with ``exec.aot``'s ``export_compiled``, an XLA executable's export, and
   ``exec``'s measured route tables, which have no counterpart.
 - The configuration builder: the JAX setters (``bias_init``,
@@ -57,6 +58,9 @@ NOT_PORTED = {
     "deeplearning4j_tpu.optimize.solvers": set(),
     "deeplearning4j_tpu.util.gradient_check": set(),
     "deeplearning4j_tpu.online": set(),
+    "deeplearning4j_tpu.modelimport": set(),
+    "deeplearning4j_tpu.nlp": set(),
+    "deeplearning4j_tpu.graph": set(),
     "deeplearning4j_tpu.ui": {"RemoteUIStatsStorageRouter", "WebReporter",
                               "ConvolutionalIterationListener", "UIServer",
                               "components"},
