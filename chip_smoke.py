@@ -527,7 +527,10 @@ result line, when any of them or the port's package is missing. Phases:
    over the star: every digest bit for bit
    ``single_process_reference(world=2)`` run in this process; each worker
    one K2 and one K3 a step it ran (its own counters, in its result);
-   ms a step, the allreduce's ms, bytes each way. (b) (a)'s chain run with
+   ms a step, the allreduce's ms, bytes each way. The chain job, the star
+   job and (c)'s threshold job are independent and run side by side (six
+   worker processes on the card), each held to its checks as if alone;
+   their ms a step are taken beside each other. (b) (a)'s chain run with
    ``die_at_step=5`` on worker 1: 3 spawns, 1 replacement, generation >=
    2, the final digest (a)'s; the replacement restores the step-4 anchor
    and the artifact's recipes (``aot_restored`` >= 1, none rejected: its
@@ -660,6 +663,60 @@ result line, when any of them or the port's package is missing. Phases:
    kernel. Its
    launches join the kernels line's K1-K4 and K4-train
    (``launches_phase_22``); under 20 s.
+23. ETL, the remote UI, the ML pipeline, clustering and t-SNE
+   (``ui_phase``), one path: data comes in, a model trains and is
+   watched, the models are served, their features clustered. (a) 60000
+   + 10000 MNIST-shaped IDX images (28 x 28 uint8 from a seeded mixture
+   of 10 blobs, pixel noise 5 around each centre, with labels) and a CSV
+   are uploaded into a ``LocalFileStore`` bucket (``S3Uploader``), and
+   ``S3Downloader.download_dataset`` puts them in the fetcher cache (under
+   ``build/ui_phase``); g++ builds the port's record readers into
+   ``build/native/`` (its seconds and path printed; a missing library
+   fails the phase), and ``load_idx_native`` / ``load_csv_native`` read
+   them equal to numpy's parse of the same bytes (1e-6). (b) A
+   ``UIServer(port=0)`` with its remote listener; TextGenerationLSTM (2 x
+   LSTM(256), B=32, T=64, the stride-8 windows, seed 123) fit for 2
+   epochs by ``NativeAsyncDataSetIterator`` in chunks of 3 steps, under
+   a ``StatsListener`` -> ``WebReporter`` -> ``RemoteUIStatsStorageRouter``
+   and a local one: exactly one K4-train and two K3 a step, every batch
+   from ``batcher_next``; the parameters after the first chunk within
+   1e-4 of max |param| of the CPU port fed by its own native iterator;
+   after ``flush`` /train/overview's iterations and scores equal the
+   local record and /train/system/data names the card; the held-out
+   windows' ``output`` through one K4 (1e-4 against the CPU port); ms a
+   step and ``host_stall_frac`` of the native-fed fit beside the same fit
+   fed by ``ListDataSetIterator`` (fresh nets, no listeners, the same
+   launches; the second epoch of each timed warm). (c) LeNet on the IDX
+   images (B=64, 20 steps, cuDNN, no hand
+   kernel) with ``ConvolutionalIterationListener(frequency 10)`` through
+   the reporter: /train/activations/data's PNGs, decoded with zlib, within
+   1 grey level of the CPU port's at the same weights and batch. (d)
+   ``NetworkClassifier`` over ``LastTimeStep(LSTM(256))`` ->
+   ``OutputLayer`` on the char windows labelled by their next character,
+   ``workers=4``, 2 epochs: exactly one K2 and one K3 a sync step (one
+   program over the four slots' rows); ``predict_proba`` of the held-out
+   windows one K1 a call, 1e-4 against the CPU port; ``NetworkModel``
+   save / load gives the same outputs; ``AutoEncoderEstimator`` (784-256-
+   64) + ``NetworkClassifier`` in a ``Pipeline`` on 12000 IDX rows, no
+   hand kernel, test accuracy > 0.9. (e) ``KMeansClustering(k=10)`` on
+   the 60000 x 784 features: purity >= 0.99, and on 6000 rows the CPU
+   port's assignments and centroids (1e-4); ``NearestNeighbors``,
+   euclidean and cosine, 10000 queries over the 60000 rows, k=10, against
+   float64 numpy on 256 queries (the k-set's and the returned distances
+   within float32's rounding bound of the index's expression: 2 gamma
+   (|q|^2 + max |c|^2) on squared distances, 3 gamma for cosine, gamma =
+   784 x 2^-24); ``NearestNeighborsServer`` on the card index
+   over HTTP equal to the in-process index; exact ``Tsne`` at n=1000
+   against the CPU port (P 1e-5; 10 iterations from the CPU port's P at
+   rate 10 and exaggeration 4, 1e-4 of max |y|: at the defaults a 1e-7
+   change grows past that), then n=5000 for 500 iterations: class centroids further
+   apart than twice the classes' RMS spread, every point nearest its own
+   class's centroid; the coordinates through /tsne/upload and back from
+   /tsne/coords equal; ``BarnesHutTsne`` (n=300, 50 iterations; its
+   SpTree loop is host numpy, so it is host-bound) in a process of its
+   own (``--bh-tsne``), started after (a) and waited for in (e). Prints ms a k-means iteration, ms of the 10000-query kNN and ms a
+   t-SNE iteration. Its launches join the kernels line's K1-K4 and
+   K4-train (``launches_phase_23``).
 
 A replayed CUDA graph adds to the launch counts the launches its capture
 recorded (the capture itself counts none), so the counts below are the
@@ -786,6 +843,13 @@ TINY_LOSS_EPOCH90 = 0.25        # the JAX run passed it between epochs 60-70
 WIDE_HEAD_DIMS = (136, 256, 520)
 WIDE_D_MODEL, WIDE_HEADS = 512, 2
 CHUNK_COLUMNS = 128             # the widest head dim a block holds whole
+
+
+def phase_done(n, tag, t0, card) -> float:
+    """Print phase ``n``'s seconds since ``t0``; returns them."""
+    seconds = time.perf_counter() - t0
+    print(f"{tag}: phase {n} took {seconds:.1f} s [{card}]", flush=True)
+    return seconds
 
 
 def card_line() -> str:
@@ -8134,6 +8198,28 @@ def _cluster_run(workdir, dev, **kw):
     return res
 
 
+def _side_by_side(jobs):
+    """Run each of ``jobs`` (name -> callable) in its own thread; their
+    results by name, or the first error raised."""
+    import threading
+    out, errs = {}, []
+
+    def run(name, fn):
+        try:
+            out[name] = fn()
+        except BaseException as e:     # noqa: BLE001 -- raised below
+            errs.append(e)
+    threads = [threading.Thread(target=run, args=item, daemon=True)
+               for item in jobs.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errs:
+        raise errs[0]
+    return out
+
+
 def _oracle_steps(dev):
     """``single_process_reference``'s loop over fresh programs, each step
     timed (host ms, synchronized): the oracle's ms a step."""
@@ -8184,9 +8270,21 @@ def cluster_parity_part(card, res, work, dev="cuda"):
            "oracle_ms_per_step": steady["ms"],
            "oracle_first_step_ms": steady["first_ms"],
            "launches": launches}
+    # the chain, the star and (c)'s threshold job are independent: they
+    # run side by side (six workers on the card), each checked as alone
+    t0 = time.perf_counter()
+    runs = _side_by_side({
+        "chain": lambda: _cluster_run(work / "chain", dev,
+                                      data_plane="chain"),
+        "star": lambda: _cluster_run(work / "star", dev, data_plane="star"),
+        "threshold": lambda: _cluster_run(
+            work / "threshold", dev, codec="threshold", bucket_mb=0.005,
+            capacity_fraction=0.05)})
+    out["side_by_side_seconds"] = time.perf_counter() - t0
+    res["threshold_run"] = runs.pop("threshold")
     workers = {}
     for plane in ("chain", "star"):
-        r = _cluster_run(work / plane, dev, data_plane=plane)
+        r = runs[plane]
         d = _cluster_digests(r)
         launches = _worker_launches(r)
         for k, n in launches.items():
@@ -8212,7 +8310,8 @@ def cluster_parity_part(card, res, work, dev="cuda"):
                           f"{v['first_step_ms']:.1f} ms)"
                           for w, v in out[plane]["workers"].items())
               + f"; the workers' launches {launches}; run "
-              f"{r['wall_seconds']:.1f} s [{card}]", flush=True)
+              f"{r['wall_seconds']:.1f} s beside the other jobs [{card}]",
+              flush=True)
         if not ok:
             raise AssertionError(f"phase 19 (a) {plane}: {out[plane]}")
     print(f"cluster: (a) the oracle in this process: "
@@ -8372,8 +8471,7 @@ def cluster_partition_part(card, res, work, dev="cuda"):
     # expected loss under ln 16 = 2.7726, and step 0's is 2.7765, so the
     # bar is the dense chain's loss at the same step (same batches)
     dense_loss = res["parity"]["reference"]["final_loss"]
-    t = _cluster_run(work / "threshold", dev, codec="threshold",
-                     bucket_mb=0.005, capacity_fraction=0.05)
+    t = res.pop("threshold_run")         # run beside (a)'s two jobs
     losses = {w: v["final_loss"] for w, v in t["results"].items()}
     tout = {"dense_final_loss": dense_loss, "final_losses": losses,
             "digests": _cluster_digests(t),
@@ -8391,7 +8489,8 @@ def cluster_partition_part(card, res, work, dev="cuda"):
           f"dense chain's {dense_loss:.4f} (bar {THRESHOLD_LOSS}), "
           f"compression {tout['compression_ratio']}, bytes sent "
           f"{[v['bytes_sent'] for v in tout['workers'].values()]}; run "
-          f"{t['wall_seconds']:.1f} s [{card}]", flush=True)
+          f"{t['wall_seconds']:.1f} s beside (a)'s jobs [{card}]",
+          flush=True)
     if not ok:
         raise AssertionError(f"phase 19 (c) threshold: {tout}")
     out["threshold"] = tout
@@ -9979,12 +10078,859 @@ def import_phase(card, dev="cuda"):
     return res
 
 
+# ---- phase 23: ETL, the remote UI, the ML pipeline, clustering, t-SNE -----
+UI_DIR = ROOT / "build" / "ui_phase"
+ETL_N, ETL_TEST_N, ETL_SIDE, ETL_CLASSES = 60000, 10000, 28, 10
+# pixel noise std around each blob's centre. k-means++ draws each next
+# centre with probability ~ d^2 to the nearest chosen one: over 784 pixels
+# a blob's own points carry d^2 ~ 2 * 784 * noise^2, so at noise 25 the
+# nine covered blobs weigh as much as the last uncovered one and the
+# start puts two centres in one blob about half the time (purity 0.9014
+# at this seed on an H100 and on the CPU port alike); at 5 a covered
+# blob weighs ~1/200 of an uncovered one
+ETL_NOISE = 5.0
+ETL_CSV_ROWS, ETL_CSV_COLS, ETL_CSV_CLASSES = 2000, 16, 3
+ETL_SEED = 2029
+ETL_TOL = 1e-6                 # native parse against numpy's, per value
+UI_B, UI_T, UI_STRIDE, UI_EPOCHS = 32, 64, 8, 2
+UI_CHUNK = 3                   # (b): fit_scan chunks; parity at the first
+UI_PARITY_TOL = 1e-4           # (b): of max |param|, against the CPU port
+LENET_B, LENET_STEPS, LENET_FREQ = 64, 20, 10
+GREY_TOL = 1                   # (c): decoded activation grids, grey levels
+CLF_H, CLF_SLOTS, CLF_EPOCHS = 256, 4, 2
+AE_SIZES, AE_ROWS = (784, 256, 64), 12000
+KM_K, KM_SUBSET, KM_PURITY, KM_TOL = 10, 6000, 0.99, 1e-4
+KNN_K, KNN_QUERIES, KNN_CHECK = 10, 10000, 256
+TSNE_N, TSNE_ITERS = 5000, 500
+TSNE_CPU_N, TSNE_CPU_ITERS = 1000, 10
+# (e): at the default rate and exaggeration a 1e-7 change of the start
+# grows to 2e-4 of max |y| in 10 iterations at n=1000 (float rounding
+# alone), so the card's steps are held against the CPU port's at a rate
+# and an exaggeration under which the trajectory does not explode
+TSNE_CPU_KW = dict(learning_rate=10.0, early_exaggeration=4.0)
+TSNE_P_TOL, TSNE_Y_TOL = 1e-5, 1e-4
+BH_N, BH_ITERS = 300, 50
+
+
+def etl_arrays():
+    """MNIST-shaped uint8 images from a seeded mixture of 10 blobs (a
+    random centre a class, Gaussian pixel noise), their labels, and a
+    small numeric CSV with a class column."""
+    rng = np.random.default_rng(ETL_SEED)
+    centres = rng.integers(0, 256, (ETL_CLASSES, ETL_SIDE * ETL_SIDE)
+                           ).astype(np.float32)
+    out = {}
+    for stem, n in (("train", ETL_N), ("t10k", ETL_TEST_N)):
+        lab = rng.integers(0, ETL_CLASSES, n).astype(np.uint8)
+        noise = rng.standard_normal((n, ETL_SIDE * ETL_SIDE),
+                                    dtype=np.float32) * ETL_NOISE
+        img = np.clip(centres[lab] + noise, 0, 255).astype(np.uint8)
+        out[stem] = (img.reshape(n, ETL_SIDE, ETL_SIDE), lab)
+    csv = rng.standard_normal((ETL_CSV_ROWS, ETL_CSV_COLS)).astype(np.float32)
+    out["csv"] = (csv, rng.integers(0, ETL_CSV_CLASSES, ETL_CSV_ROWS))
+    return out
+
+
+def write_etl_files(arrays, directory):
+    import struct
+    directory.mkdir(parents=True, exist_ok=True)
+    for stem in ("train", "t10k"):
+        img, lab = arrays[stem]
+        n = len(lab)
+        (directory / f"{stem}-images-idx3-ubyte").write_bytes(
+            struct.pack(">IIII", 0x0803, n, ETL_SIDE, ETL_SIDE)
+            + img.tobytes())
+        (directory / f"{stem}-labels-idx1-ubyte").write_bytes(
+            struct.pack(">II", 0x0801, n) + lab.tobytes())
+    x, y = arrays["csv"]
+    lines = [",".join(f"f{i}" for i in range(ETL_CSV_COLS)) + ",label"]
+    lines += [",".join(f"{v:.6f}" for v in row) + f",{c}"
+              for row, c in zip(x, y)]
+    (directory / "table.csv").write_text("\n".join(lines) + "\n")
+
+
+def ui_etl_part(card, res):
+    """(a) Files into an object store, down into the fetcher cache, and
+    through the native readers."""
+    import shutil
+    from deeplearning4j_tpu_torch import native
+    from deeplearning4j_tpu_torch.data import fetchers
+    from deeplearning4j_tpu_torch.data.native_loader import (
+        load_csv_native, load_idx_native)
+    from deeplearning4j_tpu_torch.scaleout.s3 import (LocalFileStore,
+                                                      S3Downloader,
+                                                      S3Uploader)
+    t0 = time.perf_counter()
+    arrays = etl_arrays()
+    src = UI_DIR / "src"
+    write_etl_files(arrays, src)
+    make_s = time.perf_counter() - t0
+    store = LocalFileStore(UI_DIR / "store")
+    uploaded = S3Uploader(store).upload_dir(src, "datasets", prefix="mnist")
+    old = os.environ.get("DL4JTPU_DATA_DIR")
+    os.environ["DL4JTPU_DATA_DIR"] = str(UI_DIR / "cache")
+    try:
+        t1 = time.perf_counter()
+        got = S3Downloader(store).download_dataset("datasets", "mnist",
+                                                   "mnist")
+        download_s = time.perf_counter() - t1
+        cache = fetchers.data_dir() / "mnist"
+        same_bytes = sorted(p.name for p in got) == sorted(
+            p.name for p in src.iterdir()) and all(
+            (cache / p.name).read_bytes() == p.read_bytes()
+            for p in src.iterdir())
+        t1 = time.perf_counter()
+        avail = native.available()
+        info = native.build_info()
+        if not avail:
+            raise AssertionError(f"phase 23 (a): the native library is "
+                                 f"missing: {native.build_error()}")
+        data = {}
+        for stem in ("train", "t10k"):
+            data[stem] = load_idx_native(
+                str(cache / f"{stem}-images-idx3-ubyte"),
+                str(cache / f"{stem}-labels-idx1-ubyte"), ETL_CLASSES)
+        xc, yc = load_csv_native(str(cache / "table.csv"),
+                                 label_col=ETL_CSV_COLS,
+                                 n_classes=ETL_CSV_CLASSES, skip_lines=1)
+        read_s = time.perf_counter() - t1
+        # numpy's parse of the same bytes: the fetcher's IDX reader, the
+        # CSV through float()
+        errs = {}
+        for stem in ("train", "t10k"):
+            xr, yr = fetchers.load_mnist(train=stem == "train")
+            x, y = data[stem]
+            errs[stem] = float(np.abs(x - xr).max())
+            if not np.array_equal(y, yr):        # both one-hot
+                raise AssertionError(f"phase 23 (a): {stem} labels differ")
+        real = fetchers.data_source("mnist")
+        rows = [ln.split(",") for ln in
+                (cache / "table.csv").read_text().splitlines()[1:]]
+        xr = np.array([[float(v) for v in r[:-1]] for r in rows], np.float32)
+        yr = np.array([int(r[-1]) for r in rows])
+        errs["csv"] = float(np.abs(xc - xr).max())
+        csv_labels = np.array_equal(
+            yc, np.eye(ETL_CSV_CLASSES, dtype=np.float32)[yr])
+    finally:
+        if old is None:
+            os.environ.pop("DL4JTPU_DATA_DIR", None)
+        else:
+            os.environ["DL4JTPU_DATA_DIR"] = old
+    out = {"uploaded": uploaded, "downloaded": len(got),
+           "same_bytes": same_bytes, "library": info["path"],
+           "gxx_seconds": info["seconds"], "max_abs_err": errs,
+           "mnist_source": real, "csv_labels_equal": csv_labels,
+           "make_s": make_s, "download_s": download_s, "read_s": read_s}
+    print(f"ui: (a) {ETL_N} + {ETL_TEST_N} MNIST-shaped IDX images (10 "
+          f"seeded blobs) and a {ETL_CSV_ROWS} x {ETL_CSV_COLS} CSV: "
+          f"{uploaded} objects into a LocalFileStore bucket, "
+          f"{len(got)} down into the fetcher cache (bytes equal "
+          f"{same_bytes}; load_mnist reads them: {real}); g++ built "
+          f"{info['path']} in {info['seconds']:.2f} s; native parses vs "
+          f"numpy's max abs err {errs} (tol {ETL_TOL}); files made in "
+          f"{make_s:.2f} s, downloaded in {download_s:.2f} s, read in "
+          f"{read_s:.2f} s [{card}]", flush=True)
+    if not (same_bytes and csv_labels and real == "real"
+            and max(errs.values()) <= ETL_TOL
+            and uploaded == len(got) == 5):
+        raise AssertionError(f"phase 23 (a): {out}")
+    res["etl"] = out
+    shutil.rmtree(UI_DIR / "store", ignore_errors=True)
+    return data
+
+
+class _Snapshot:
+    """An iteration listener that keeps the parameters at one iteration
+    (on the host)."""
+
+    def __init__(self, at):
+        self.at, self.params = at, None
+
+    def iteration_done(self, model, iteration, epoch):
+        if iteration == self.at:
+            self.params = [{k: v.detach().cpu().clone() for k, v in p.items()}
+                           for p in model.params]
+
+    def on_epoch_end(self, model):
+        pass
+
+
+def _get_json(url, path):
+    import urllib.request
+    with urllib.request.urlopen(url + path, timeout=30) as r:
+        return json.loads(r.read())
+
+
+def _native_fit(net, x, y, seed, epochs=UI_EPOCHS):
+    """``fit`` of ``net`` fed by a native iterator: (wall seconds, the
+    iterator's batches, the steps)."""
+    from deeplearning4j_tpu_torch.data.native_loader import \
+        NativeAsyncDataSetIterator
+    it = NativeAsyncDataSetIterator(x, y, UI_B, shuffle=True, seed=seed)
+    i0 = net.iteration
+    t0 = time.perf_counter()
+    net.fit(it, epochs=epochs)
+    _sync(net.device)
+    wall = time.perf_counter() - t0
+    it.close()
+    return wall, it.batches, net.iteration - i0
+
+
+def ui_train_part(card, res, url, reporter, dev="cuda"):
+    """(b) The char model's native-fed fit under the remote UI."""
+    import math
+    import torch
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.data.iterators import ListDataSetIterator
+    from deeplearning4j_tpu_torch.data.native_loader import \
+        NativeAsyncDataSetIterator
+    from deeplearning4j_tpu_torch.ui import InMemoryStatsStorage, StatsListener
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+    from deeplearning4j_tpu_torch.zoo.corpus import corpus_windows
+    (xtr, ytr), (xte, yte), vocab = corpus_windows(UI_T, stride=UI_STRIDE)
+    zoo = TextGenerationLSTM(total_unique_characters=len(vocab))
+    net = zoo.init(device=dev)
+    net._CHUNK_MAX_STEPS = UI_CHUNK
+    local = InMemoryStatsStorage()
+    snap = _Snapshot(UI_CHUNK)
+    net.set_listeners(StatsListener(reporter, session_id="char"),
+                      StatsListener(local, session_id="char"), snap)
+    steps_epoch = math.ceil(len(xtr) / UI_B)
+    ops.reset_launch_counts()
+    wall, batches, steps = _native_fit(net, xtr, ytr, zoo.seed)
+    launches = _expect_launches("phase 23 (b) native-fed fit", {
+        "lstm2_fwd_train": steps, "lstm_bwd": 2 * steps})
+    if not (batches == steps == UI_EPOCHS * steps_epoch):
+        raise AssertionError(f"phase 23 (b): {batches} batches from "
+                             f"batcher_next, {steps} steps, want "
+                             f"{UI_EPOCHS * steps_epoch}")
+    # the CPU port fed by its own native iterator, the same seed
+    cpu = zoo.init(device="cpu")
+    cit = NativeAsyncDataSetIterator(xtr, ytr, UI_B, shuffle=True,
+                                     seed=zoo.seed)
+    for _, ds in zip(range(UI_CHUNK), iter(cit)):
+        cpu._fit_batch(ds)
+    cit.close()
+    scale = max(float(v.abs().max()) for p in cpu.params for v in p.values())
+    parity = max(float((snap.params[i][k] - v).abs().max())
+                 for i, p in enumerate(cpu.params)
+                 for k, v in p.items()) / scale
+    if not reporter.flush(timeout=60):
+        raise AssertionError("phase 23 (b): the reporter did not settle")
+    ov = _get_json(url, "/train/overview?sid=char")
+    ups = local.get_all_updates("char")
+    overview_equal = (ov["iterations"] == [r.iteration for r in ups]
+                      and ov["scores"] == [r.score for r in ups])
+    system = _get_json(url, "/train/system/data?sid=char")
+    names_card = system.get("device") == (
+        torch.cuda.get_device_name(0) if dev == "cuda" else "cpu") \
+        and system.get("backend") == dev
+    # the held-out windows through one K4
+    ops.reset_launch_counts()
+    out = net.output(xte)
+    _sync(dev)
+    out_launches = _expect_launches("phase 23 (b) held-out output",
+                                    {"lstm2_fwd": 1})
+    out_err = float((out.cpu() - _cpu_copy(net).output(xte)).abs().max())
+    # ms a step: the native-fed fit beside the same fit fed by
+    # ListDataSetIterator, fresh nets, no listeners; the first epoch
+    # captures each chunk's program, the second is timed warm
+    timing = {}
+    for tag in ("native", "list"):
+        fresh = zoo.init(device=dev)
+        if tag == "native":
+            it = NativeAsyncDataSetIterator(xtr, ytr, UI_B, shuffle=True,
+                                            seed=zoo.seed)
+        else:
+            it = ListDataSetIterator(DataSet(xtr, ytr), UI_B, shuffle=True,
+                                     seed=zoo.seed)
+        ops.reset_launch_counts()
+        fresh.fit(it, epochs=1)
+        t0 = time.perf_counter()
+        fresh.fit(it, epochs=1)
+        _sync(dev)
+        w, n = time.perf_counter() - t0, fresh.iteration
+        stats = dict(fresh.last_pipeline_stats or {})
+        timing[tag] = {
+            "ms_per_step": w * 2e3 / n, "steps": n,
+            "host_stall_frac": stats.get("host_stall_frac"),
+            "stages": {k[:-4]: v for k, v in stats.items()
+                       if k.endswith("_sec")},
+            "launches": _expect_launches(f"phase 23 (b) {tag} timing", {
+                "lstm2_fwd_train": n, "lstm_bwd": 2 * n})}
+        if tag == "native":
+            it.close()
+            if it.batches != n:
+                raise AssertionError(f"phase 23 (b): {it.batches} native "
+                                     f"batches for {n} steps")
+    o = {"steps": steps, "batches_native": batches, "wall_s": wall,
+         "launches": launches, "parity_rel": parity,
+         "records": len(ups), "overview_equal": overview_equal,
+         "system": {k: system.get(k) for k in ("device", "backend")},
+         "reporter_dropped": reporter.dropped,
+         "output": {"max_abs_err": out_err, "launches": out_launches},
+         "timing": timing}
+    print(f"ui: (b) TextGenerationLSTM (2 x LSTM(256), B={UI_B}, T={UI_T}, "
+          f"stride-{UI_STRIDE} windows) fit by NativeAsyncDataSetIterator "
+          f"for {UI_EPOCHS} epochs under StatsListener -> WebReporter -> "
+          f"POST /remote: {steps} steps, {batches} batches from "
+          f"batcher_next, launches {launches}; parameters after "
+          f"{UI_CHUNK} steps vs the CPU port on its own native "
+          f"iterator {parity:.3g} of max |param| (tol {UI_PARITY_TOL}); "
+          f"/train/overview = the local record ({len(ups)} records): "
+          f"{overview_equal}; /train/system/data {o['system']}; held-out "
+          f"output max abs err {out_err:.3g} (tol {PROB_TOL}), launches "
+          f"{out_launches}; ms a step native "
+          f"{timing['native']['ms_per_step']:.3f} (host_stall_frac "
+          f"{timing['native']['host_stall_frac']}) vs ListDataSetIterator "
+          f"{timing['list']['ms_per_step']:.3f} "
+          f"({timing['list']['host_stall_frac']}); the timed epochs' "
+          f"stages (s) native {timing['native']['stages']}, list "
+          f"{timing['list']['stages']} [{card}]", flush=True)
+    if not (parity <= UI_PARITY_TOL and overview_equal and names_card
+            and out_err <= PROB_TOL and reporter.dropped == 0
+            and len(ups) > 0):
+        raise AssertionError(f"phase 23 (b): {o}")
+    res["train"] = o
+
+
+def _decode_gray_png(png: bytes) -> np.ndarray:
+    """An 8-bit grayscale PNG decoded with zlib and the five row filters
+    (the stdlib encoder writes filter 0, Pillow any of them)."""
+    import zlib
+    if png[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError("not a PNG")
+    pos, idat, w, h = 8, b"", 0, 0
+    while pos < len(png):
+        n = int.from_bytes(png[pos:pos + 4], "big")
+        tag, body = png[pos + 4:pos + 8], png[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            w = int.from_bytes(body[:4], "big")
+            h = int.from_bytes(body[4:8], "big")
+            if body[8:10] != b"\x08\x00":
+                raise AssertionError("not an 8-bit grayscale PNG")
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, w + 1)
+    out = np.zeros((h, w), np.int64)
+    prev = np.zeros(w, np.int64)
+    for r in range(h):
+        f, line = raw[r, 0], raw[r, 1:].astype(np.int64)
+        cur = np.zeros(w, np.int64)
+        for c in range(w):
+            a = cur[c - 1] if c else 0
+            b, d = prev[c], prev[c - 1] if c else 0
+            if f == 0:
+                pred = 0
+            elif f == 1:
+                pred = a
+            elif f == 2:
+                pred = b
+            elif f == 3:
+                pred = (a + b) // 2
+            else:                    # Paeth
+                pa, pb, pc = abs(b - d), abs(a - d), abs(a + b - 2 * d)
+                pred = a if pa <= pb and pa <= pc else b if pb <= pc else d
+            cur[c] = (line[c] + pred) & 0xFF
+        out[r], prev = cur, cur
+    return out.astype(np.uint8)
+
+
+def ui_activations_part(card, res, url, reporter, data, dev="cuda"):
+    """(c) ConvolutionalIterationListener on LeNet over the IDX data."""
+    import base64
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.data.dataset import DataSet
+    from deeplearning4j_tpu_torch.ui import (ConvolutionalIterationListener,
+                                             InMemoryStatsStorage)
+    from deeplearning4j_tpu_torch.zoo import LeNet
+    x, y = data["train"]
+    x = x[:LENET_B * LENET_STEPS].reshape(-1, ETL_SIDE, ETL_SIDE, 1)
+    y = y[:LENET_B * LENET_STEPS]
+    net = LeNet(num_classes=ETL_CLASSES).init(device=dev)
+    net.set_listeners(ConvolutionalIterationListener(
+        reporter, frequency=LENET_FREQ, session_id="lenet"))
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    for i in range(LENET_STEPS):
+        net.fit(DataSet(x[i * LENET_B:(i + 1) * LENET_B],
+                        y[i * LENET_B:(i + 1) * LENET_B]))
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    launches = _expect_launches("phase 23 (c) LeNet", {})
+    if not reporter.flush(timeout=60):
+        raise AssertionError("phase 23 (c): the reporter did not settle")
+    got = _get_json(url, "/train/activations/data?sid=lenet")
+    # the CPU port at the same weights and batch
+    cpu = _cpu_copy(net)
+    cpu._last_input = net._last_input.cpu()
+    store = InMemoryStatsStorage()
+    ConvolutionalIterationListener(store, frequency=LENET_FREQ,
+                                   session_id="lenet").iteration_done(
+        cpu, LENET_STEPS, 0)
+    want = store.get_static_info("lenet/activations")
+    diffs = {}
+    for k, v in want["images"].items():
+        a = _decode_gray_png(base64.b64decode(got["images"][k]))
+        b = _decode_gray_png(base64.b64decode(v))
+        diffs[k] = int(np.abs(a.astype(int) - b.astype(int)).max()) \
+            if a.shape == b.shape else None
+    o = {"iteration": got.get("iteration"), "grey_diffs": diffs,
+         "launches": launches, "wall_s": wall}
+    print(f"ui: (c) LeNet on the IDX images (B={LENET_B}, {LENET_STEPS} "
+          f"steps, cuDNN, no hand kernel: launches {launches}) with "
+          f"ConvolutionalIterationListener(frequency {LENET_FREQ}) through "
+          f"the reporter: /train/activations/data at iteration "
+          f"{o['iteration']}, {len(got['images'])} grids, decoded with zlib "
+          f"vs the CPU port's at the same weights: grey-level diffs {diffs} "
+          f"(tol {GREY_TOL}); {wall:.2f} s [{card}]", flush=True)
+    if not (o["iteration"] == LENET_STEPS and got["images"].keys()
+            == want["images"].keys() and len(diffs) >= 2
+            and all(d is not None and d <= GREY_TOL
+                    for d in diffs.values())):
+        raise AssertionError(f"phase 23 (c): {o}")
+    res["activations"] = o
+
+
+def _clf_conf(V):
+    from deeplearning4j_tpu_torch import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import (LSTM, LastTimeStep,
+                                                    OutputLayer)
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    return (NeuralNetConfiguration.builder().seed(ETL_SEED)
+            .updater(Adam(1e-3)).list()
+            .layer(LastTimeStep(fwd=LSTM(n_out=CLF_H, activation="tanh")))
+            .layer(OutputLayer(n_out=V, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.recurrent(V)).build())
+
+
+def _ae_confs():
+    from deeplearning4j_tpu_torch import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+    from deeplearning4j_tpu_torch.nn.updaters import Adam
+    d, h, z = AE_SIZES
+
+    def ae():
+        return (NeuralNetConfiguration.builder().seed(ETL_SEED)
+                .updater(Adam(1e-3)).list()
+                .layer(DenseLayer(n_in=d, n_out=h, activation="relu"))
+                .layer(DenseLayer(n_in=h, n_out=z, activation="relu"))
+                .layer(DenseLayer(n_in=z, n_out=h, activation="relu"))
+                .layer(OutputLayer(n_in=h, n_out=d, activation="sigmoid",
+                                   loss="mse"))
+                .build())
+
+    def head():
+        return (NeuralNetConfiguration.builder().seed(ETL_SEED)
+                .updater(Adam(1e-3)).list()
+                .layer(DenseLayer(n_in=z, n_out=32, activation="relu"))
+                .layer(OutputLayer(n_in=32, n_out=ETL_CLASSES,
+                                   activation="softmax", loss="mcxent"))
+                .build())
+    return ae, head
+
+
+def ui_pipeline_part(card, res, data, dev="cuda"):
+    """(d) The ML-pipeline estimators: an LSTM classifier over four slots,
+    save / load, and an autoencoder pipeline."""
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.scaleout import (AutoEncoderEstimator,
+                                                   NetworkClassifier,
+                                                   NetworkModel, Pipeline)
+    from deeplearning4j_tpu_torch.zoo.corpus import corpus_windows
+    (xtr, ytr), (xte, yte), vocab = corpus_windows(UI_T, stride=UI_STRIDE)
+    V = len(vocab)
+    # a window's label: its next character (the last step's target)
+    ytr_next, yte_next = ytr[:, -1], yte[:, -1].argmax(-1)
+    clf = NetworkClassifier(lambda: _clf_conf(V), epochs=CLF_EPOCHS,
+                            batch_size=UI_B, workers=CLF_SLOTS,
+                            device=dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    model = clf.fit(xtr, ytr_next)
+    _sync(dev)
+    fit_s = time.perf_counter() - t0
+    steps = model.network.iteration
+    fit_launches = _expect_launches("phase 23 (d) classifier fit", {
+        "lstm_fwd_train": steps, "lstm_bwd": steps})
+    calls = []
+    ops.reset_launch_counts()
+    for _ in range(2):
+        calls.append(model.predict_proba(xte))
+    proba_launches = _expect_launches("phase 23 (d) predict_proba",
+                                      {"lstm_fwd": 2})
+    cpu = NetworkModel(_cpu_copy(model.network))
+    proba_err = float(np.abs(calls[0] - cpu.predict_proba(xte)).max())
+    path = UI_DIR / "classifier.zip"
+    model.save(str(path))
+    ops.reset_launch_counts()
+    loaded = NetworkModel.load(str(path), device=dev)
+    load_err = float(np.abs(loaded.predict_proba(xte) - calls[0]).max())
+    load_launches = _expect_launches("phase 23 (d) loaded predict_proba",
+                                     {"lstm_fwd": 1})
+    score = model.score(xte, yte_next)
+    # the autoencoder pipeline on the IDX features: no hand kernel
+    ae, head = _ae_confs()
+    x, y = data["train"]
+    xt, yt = data["t10k"]
+    pipe = Pipeline([
+        ("encode", AutoEncoderEstimator(ae, compressed_layer=1, epochs=1,
+                                        device=dev)),
+        ("classify", NetworkClassifier(head, epochs=1, device=dev))])
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    pipe.fit(x[:AE_ROWS], y[:AE_ROWS])
+    pipe_score = pipe.score(xt, yt)
+    enc = pipe.models_[0][1].transform(xt[:8])
+    pipe_s = time.perf_counter() - t0
+    pipe_launches = _expect_launches("phase 23 (d) pipeline", {})
+    o = {"steps": steps, "fit_s": fit_s, "score": score,
+         "launches": fit_launches,
+         "predict_proba": {"max_abs_err": proba_err,
+                           "launches": proba_launches,
+                           "repeat_equal": bool(np.array_equal(*calls))},
+         "load": {"max_abs_err": load_err, "launches": load_launches},
+         "pipeline": {"score": pipe_score, "seconds": pipe_s,
+                      "encoding_shape": list(enc.shape),
+                      "launches": pipe_launches}}
+    print(f"ui: (d) NetworkClassifier over LastTimeStep(LSTM({CLF_H})) -> "
+          f"OutputLayer({V}) on the stride-{UI_STRIDE} windows labelled by "
+          f"their next character, workers={CLF_SLOTS}, {CLF_EPOCHS} epochs: "
+          f"{steps} sync steps in {fit_s:.2f} s, launches {fit_launches} "
+          f"(one K2 and one K3 a step over the four slots' rows); "
+          f"predict_proba of the {len(xte)} held-out windows twice: "
+          f"launches {proba_launches}, vs the CPU port {proba_err:.3g} (tol "
+          f"{PROB_TOL}); held-out next-char accuracy {score:.4f}; "
+          f"NetworkModel save / load: max abs err {load_err:.3g}, launches "
+          f"{load_launches}; AutoEncoderEstimator {AE_SIZES} + "
+          f"NetworkClassifier Pipeline on {AE_ROWS} IDX rows: test accuracy "
+          f"{pipe_score:.4f}, encoding {list(enc.shape)}, launches "
+          f"{pipe_launches}, {pipe_s:.2f} s [{card}]", flush=True)
+    if not (proba_err <= PROB_TOL and load_err <= 1e-6
+            and o["predict_proba"]["repeat_equal"]
+            and enc.shape == (8, AE_SIZES[2]) and pipe_score > 0.9):
+        raise AssertionError(f"phase 23 (d): {o}")
+    res["pipeline"] = o
+
+
+def _purity(assign, labels, k):
+    return sum(np.bincount(labels[assign == c]).max()
+               for c in range(k) if (assign == c).any()) / len(labels)
+
+
+def _knn_check(x, q, idx, dist, metric):
+    """Each query's k results against float64 numpy, within the float32
+    rounding bound of the expression the index computes (gamma = D x
+    2^-24, the bound of a D-term dot product): euclidean, on squared
+    distances, 2 gamma (|q|^2 + max |c|^2); cosine 3 gamma (the unit
+    vectors' own rounding too). The float64 distances of the returned
+    indices must be the k smallest ones, and the returned distances
+    theirs. Returns the largest error of each as a share of its bound,
+    and the share of indices in float64's order."""
+    x64, q64 = x.astype(np.float64), q.astype(np.float64)
+    gamma = x.shape[1] * 2.0 ** -24
+    if metric == "cosine":
+        xn = x64 / np.linalg.norm(x64, axis=1, keepdims=True)
+        qn = q64 / np.linalg.norm(q64, axis=1, keepdims=True)
+        d = 1.0 - qn @ xn.T
+        got = dist.astype(np.float64)
+        bound = np.full((len(q), 1), 3 * gamma)
+    else:
+        q2, c2 = (q64 ** 2).sum(1)[:, None], (x64 ** 2).sum(1)[None]
+        d = np.maximum(q2 + c2 - 2 * q64 @ x64.T, 0.0)
+        got = dist.astype(np.float64) ** 2
+        bound = 2 * gamma * (q2 + c2.max())
+    k = idx.shape[1]
+    best = np.sort(d, axis=1)[:, :k]
+    mine = np.take_along_axis(d, idx.astype(np.int64), 1)
+    set_err = float((np.abs(np.sort(mine, axis=1) - best) / bound).max())
+    dist_err = float((np.abs(got - mine) / bound).max())
+    same = float((np.argsort(d, axis=1, kind="stable")[:, :k] == idx).mean())
+    return set_err, dist_err, same
+
+
+def ui_clustering_part(card, res, url, data, bh_job, dev="cuda"):
+    """(e) k-means, kNN and its server, exact t-SNE, and the Barnes-Hut
+    t-SNE process's result, on the IDX features."""
+    import urllib.request
+    import torch
+    from deeplearning4j_tpu_torch import ops
+    from deeplearning4j_tpu_torch.clustering import (KMeansClustering,
+                                                     NearestNeighbors, kmeans)
+    from deeplearning4j_tpu_torch.clustering.knn_server import (
+        NearestNeighborsClient, NearestNeighborsServer)
+    from deeplearning4j_tpu_torch.plot import Tsne
+    x, y = data["train"]
+    xt, _ = data["t10k"]
+    labels = y.argmax(1)
+    o = {}
+    ops.reset_launch_counts()
+    # k-means
+    t0 = time.perf_counter()
+    km = KMeansClustering(k=KM_K, seed=ETL_SEED, device=dev).apply_to(x)
+    km_s = time.perf_counter() - t0
+    purity = _purity(km.assignments, labels, KM_K)
+    pts = torch.as_tensor(x, device=dev)
+    cent = torch.as_tensor(km.centroids, device=dev)
+    km_ms = time_ms(lambda: kmeans._lloyd_step(pts, cent, KM_K), 1,
+                    rounds=3, warmup=1)
+    sub = x[:KM_SUBSET]
+    kc = KMeansClustering(k=KM_K, seed=ETL_SEED, device=dev).apply_to(sub)
+    kp = KMeansClustering(k=KM_K, seed=ETL_SEED, device="cpu").apply_to(sub)
+    km_sub = {"assignments_equal": bool(np.array_equal(kc.assignments,
+                                                       kp.assignments)),
+              "centroid_err": float(np.abs(kc.centroids
+                                           - kp.centroids).max()),
+              "iterations": [kc.iterations, kp.iterations]}
+    o["kmeans"] = {"purity": purity, "iterations": km.iterations,
+                   "seconds": km_s, "ms_per_iteration": km_ms,
+                   "cost": km.cost, "subset": km_sub}
+    print(f"ui: (e) KMeansClustering(k={KM_K}) on {len(x)} x {x.shape[1]}: "
+          f"purity {purity:.4f} (bar {KM_PURITY}), {km.iterations} Lloyd "
+          f"iterations, {km_ms:.3f} ms an iteration, {km_s:.2f} s with the "
+          f"host's k-means++ start; on {KM_SUBSET} rows against the CPU "
+          f"port: {km_sub} (tol {KM_TOL}) [{card}]", flush=True)
+    if not (purity >= KM_PURITY and km_sub["assignments_equal"]
+            and km_sub["centroid_err"] <= KM_TOL):
+        raise AssertionError(f"phase 23 (e) k-means: {o['kmeans']}")
+    # kNN: 10000 queries over the 60000-row corpus
+    o["knn"] = {}
+    for metric in ("euclidean", "cosine"):
+        nn = NearestNeighbors(x, metric=metric, device=dev)
+        if nn.corpus.device.type != dev:
+            raise AssertionError("phase 23 (e): the kNN index is not on "
+                                 "the card")
+        nn.knn(xt[:8], KNN_K)
+        t0 = time.perf_counter()
+        idx, dist = nn.knn(xt[:KNN_QUERIES], KNN_K)
+        knn_ms = (time.perf_counter() - t0) * 1e3
+        set_err, dist_err, same = _knn_check(x, xt[:KNN_CHECK],
+                                             idx[:KNN_CHECK],
+                                             dist[:KNN_CHECK], metric)
+        o["knn"][metric] = {"ms": knn_ms, "set_err": set_err,
+                            "dist_err": dist_err, "index_share": same}
+        print(f"ui: (e) NearestNeighbors({metric}) on the card, "
+              f"{KNN_QUERIES} queries x {len(x)} corpus, k={KNN_K}: "
+              f"{knn_ms:.1f} ms; against float64 numpy on {KNN_CHECK} "
+              f"queries: the k-set's distances {set_err:.3g} and the "
+              f"returned distances {dist_err:.3g} of float32's rounding "
+              f"bound (bar 1), indices in float64's order {same:.4f} "
+              f"[{card}]", flush=True)
+        if not (set_err <= 1.0 and dist_err <= 1.0):
+            raise AssertionError(f"phase 23 (e) kNN {metric}: "
+                                 f"{o['knn'][metric]}")
+    # the kNN server over the card index
+    srv = NearestNeighborsServer(x, port=0, device=dev).start()
+    try:
+        if not (isinstance(srv._index, NearestNeighbors)
+                and srv._index.corpus.device.type == dev):
+            raise AssertionError("phase 23 (e): the server's index is not "
+                                 "on the card")
+        cli = NearestNeighborsClient(f"http://127.0.0.1:{srv.port}")
+        got = cli.knn_new(xt[:4], KNN_K)
+        want_i, want_d = srv._index.knn(xt[:4], KNN_K)
+        by_vector = all([r["index"] for r in row] == list(wi)
+                        and [r["distance"] for r in row]
+                        == [float(v) for v in wd]
+                        for row, wi, wd in zip(got, want_i, want_d))
+        near = cli.knn(index=5, k=KNN_K)
+        wi, _ = srv._index.knn(x[5:6], KNN_K + 1)
+        by_index = [r["index"] for r in near] == [
+            int(i) for i in wi[0] if i != 5][:KNN_K]
+    finally:
+        srv.stop()
+    o["server"] = {"by_vector_equal": by_vector, "by_index_equal": by_index}
+    print(f"ui: (e) NearestNeighborsServer on the card index over HTTP: "
+          f"/knnnew equal to the in-process index {by_vector}, /knn "
+          f"{by_index} [{card}]", flush=True)
+    if not (by_vector and by_index):
+        raise AssertionError(f"phase 23 (e) server: {o['server']}")
+    # exact t-SNE: the CPU port's P and first steps at n=1000, then 5000
+    # points for 500 iterations
+    small = x[:TSNE_CPU_N]
+    pc = Tsne(device=dev)._p_matrix(small).cpu()
+    pp = Tsne(device="cpu")._p_matrix(small)
+    p_err = float((pc - pp).abs().max())
+    # the steps from one P: the perplexity search's betas are large on
+    # these tight blobs, so float32's rounding of the distances moves P by
+    # ~1% relative (4e-6 of P's 3e-4) and the trajectories follow their
+    # own P's
+    kw = dict(max_iter=TSNE_CPU_ITERS, **TSNE_CPU_KW)
+    tc, tp = Tsne(device=dev, **kw), Tsne(device="cpu", **kw)
+    tc._p_matrix = lambda _x: pp.to(dev)
+    tp._p_matrix = lambda _x: pp
+    yc, yp = tc.fit(small), tp.fit(small)
+    y_err = float(np.abs(yc - yp).max() / np.abs(yp).max())
+    big = x[:TSNE_N]
+    t0 = time.perf_counter()
+    Tsne(device=dev)._p_matrix(big)
+    _sync(dev)
+    p_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ts = Tsne(device=dev, max_iter=TSNE_ITERS)
+    emb = ts.fit(big)
+    tsne_s = time.perf_counter() - t0
+    # the separation bar: class centroids further apart than twice the
+    # classes' spread (each class's RMS distance to its centroid: the JAX
+    # test's flattened std also counts a centroid's x - y offset, which
+    # with ten classes says nothing of their spread), and every point
+    # nearest its own class's centroid
+    lab = labels[:TSNE_N]
+    cents = np.stack([emb[lab == c].mean(0) for c in range(ETL_CLASSES)])
+    spread = np.mean([np.sqrt(((emb[lab == c] - cents[c]) ** 2).sum(1)
+                              .mean()) for c in range(ETL_CLASSES)])
+    min_sep = min(np.linalg.norm(cents[i] - cents[j])
+                  for i in range(ETL_CLASSES)
+                  for j in range(i + 1, ETL_CLASSES))
+    nearest = float((((emb[:, None] - cents[None]) ** 2).sum(-1).argmin(1)
+                     == lab).mean())
+    # the coordinates through the UI's t-SNE routes
+    body = json.dumps({"sessionId": "idx", "coords": emb.tolist(),
+                       "labels": [int(v) for v in lab]}).encode()
+    req = urllib.request.Request(url + "/tsne/upload", data=body,
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=60) as r:
+        uploaded = json.loads(r.read())["status"]
+    back = _get_json(url, "/tsne/coords?sid=idx")
+    coords_equal = back["coords"] == emb.astype(np.float64).tolist()
+    o["tsne"] = {"p_err": p_err, "y_err": y_err, "n": TSNE_N,
+                 "iterations": TSNE_ITERS, "seconds": tsne_s,
+                 "p_seconds": p_s,
+                 "ms_per_iteration": (tsne_s - p_s) * 1e3 / TSNE_ITERS,
+                 "kl": ts.kl, "min_sep": float(min_sep),
+                 "spread": float(spread), "nearest_centroid": nearest,
+                 "upload": uploaded,
+                 "coords_equal": coords_equal}
+    o["barnes_hut"] = bh_tsne_result(bh_job)
+    o["launches"] = _expect_launches("phase 23 (e)", {})
+    print(f"ui: (e) exact Tsne at n={TSNE_CPU_N} against the CPU port: P "
+          f"max abs err {p_err:.3g} (tol {TSNE_P_TOL}), {TSNE_CPU_ITERS} "
+          f"iterations from the CPU port's P at {TSNE_CPU_KW} {y_err:.3g} "
+          f"of max |y| (tol {TSNE_Y_TOL}); n={TSNE_N}, {TSNE_ITERS} iterations: "
+          f"{tsne_s:.2f} s ({o['tsne']['ms_per_iteration']:.3f} ms an "
+          f"iteration after {p_s:.2f} s of P), KL {ts.kl:.4f}, smallest "
+          f"class-centroid distance {min_sep:.2f} against 2 x spread "
+          f"{2 * spread:.2f}, nearest its class's centroid {nearest:.4f}; "
+          f"/tsne/upload {uploaded}, /tsne/coords equal "
+          f"{coords_equal}; BarnesHutTsne n={o['barnes_hut']['n']}, "
+          f"{o['barnes_hut']['iterations']} iterations (host-bound: the SpTree loop is host numpy; kNN graph and P on "
+          f"the card) {o['barnes_hut']['seconds']:.2f} s in its own process "
+          f"beside (b)-(e), waited {o['barnes_hut']['waited_s']:.2f} s, "
+          f"finite {o['barnes_hut']['finite']}; launches {o['launches']} "
+          f"[{card}]", flush=True)
+    if not (p_err <= TSNE_P_TOL and y_err <= TSNE_Y_TOL
+            and min_sep > 2 * spread and nearest == 1.0
+            and uploaded == "ok" and coords_equal
+            and o["barnes_hut"]["finite"]):
+        raise AssertionError(f"phase 23 (e) t-SNE: {o['tsne']}, "
+                             f"{o['barnes_hut']}")
+    res["clustering"] = o
+
+
+def bh_tsne_start(x, dev):
+    """Start Barnes-Hut t-SNE of ``x`` in its own process (this script
+    with ``--bh-tsne``): its tree loop is host numpy, so it runs beside
+    the phase's card work on another core without taking this process's
+    GIL."""
+    inp, out = UI_DIR / "bh_in.npy", UI_DIR / "bh_out.npz"
+    np.save(inp, x)
+    log = open(UI_DIR / "bh.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--bh-tsne", str(inp),
+         str(out), dev], stdout=log, stderr=subprocess.STDOUT, cwd=ROOT)
+    return {"proc": proc, "out": out, "log": log}
+
+
+def bh_tsne_main(inp, out, dev):
+    """``--bh-tsne IN OUT DEV``: BarnesHutTsne of the rows in IN; the
+    embedding and the fit's seconds into OUT."""
+    from deeplearning4j_tpu_torch.plot import BarnesHutTsne
+    x = np.load(inp)
+    t0 = time.perf_counter()
+    emb = BarnesHutTsne(max_iter=BH_ITERS, device=dev).fit(x)
+    np.savez(out, emb=emb, seconds=time.perf_counter() - t0,
+             iterations=BH_ITERS)
+    return 0
+
+
+def bh_tsne_result(job, timeout=600):
+    """Wait for the Barnes-Hut process; its seconds, the wait, and
+    whether its embedding is finite and of its shape."""
+    t0 = time.perf_counter()
+    try:
+        rc = job["proc"].wait(timeout=timeout)
+    finally:
+        job["log"].close()
+    waited = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"phase 23 (e): Barnes-Hut t-SNE exited {rc}: "
+                             + (UI_DIR / "bh.log").read_text()[-3000:])
+    got = np.load(job["out"])
+    emb = got["emb"]
+    return {"seconds": float(got["seconds"]), "waited_s": waited,
+            "n": len(emb), "iterations": int(got["iterations"]),
+            "finite": bool(emb.shape == (BH_N, 2)
+                           and np.isfinite(emb).all())}
+
+
+def ui_phase(card, dev="cuda"):
+    """Phase 23: ETL, the native-fed char model under the remote UI, the
+    ML pipeline, clustering and t-SNE (``chip_smoke.py`` docstring)."""
+    import shutil
+    from deeplearning4j_tpu_torch.ui import UIServer, WebReporter
+    t0 = time.perf_counter()
+    shutil.rmtree(UI_DIR, ignore_errors=True)
+    UI_DIR.mkdir(parents=True)
+    res = {"card": card}
+    server = UIServer(port=0)
+    reporter = bh_job = None
+    try:
+        server.enable_remote_listener()
+        url = f"http://127.0.0.1:{server.port}"
+        reporter = WebReporter(url)
+        t1 = time.perf_counter()
+        data = ui_etl_part(card, res)
+        res["etl_seconds"] = time.perf_counter() - t1
+        bh_job = bh_tsne_start(data["train"][0][:BH_N], dev)
+        for name, run in (
+                ("train", lambda: ui_train_part(card, res, url, reporter,
+                                                dev)),
+                ("activations", lambda: ui_activations_part(
+                    card, res, url, reporter, data, dev)),
+                ("pipeline", lambda: ui_pipeline_part(card, res, data, dev)),
+                ("clustering", lambda: ui_clustering_part(
+                    card, res, url, data, bh_job, dev))):
+            t1 = time.perf_counter()
+            run()
+            res[f"{name}_seconds"] = time.perf_counter() - t1
+    finally:
+        if bh_job is not None and bh_job["proc"].poll() is None:
+            bh_job["proc"].kill()
+            bh_job["proc"].wait()
+        if reporter is not None:
+            reporter.close()
+        server.stop()
+        shutil.rmtree(UI_DIR, ignore_errors=True)
+    res["seconds"] = time.perf_counter() - t0
+    print(f"ui: phase 23 took {res['seconds']:.1f} s ("
+          + ", ".join(f"{k[:-8]} {v:.1f} s" for k, v in res.items()
+                      if k.endswith("_seconds"))
+          + f") [{card}]", flush=True)
+    return res
+
+
 def main() -> int:
     import torch
     if len(sys.argv) > 1 and sys.argv[1] == "--dp-rank":
         # one of phase 18 (c)'s gloo ranks, started by dp_gloo_part
         rank, world, port = (int(a) for a in sys.argv[2:5])
         return dp_rank_main(rank, world, port, sys.argv[5])
+    if len(sys.argv) > 1 and sys.argv[1] == "--bh-tsne":
+        # phase 23 (e)'s Barnes-Hut t-SNE, started by bh_tsne_start
+        return bh_tsne_main(*sys.argv[2:5])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -10000,6 +10946,7 @@ def main() -> int:
           f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    phase_done(1, "card", t_script, card)
 
     t0 = time.perf_counter()
     built = build.build_kernels()
@@ -10010,7 +10957,9 @@ def main() -> int:
                 if "registers" in ln or "spill" in ln]
         print(f"build: {stem} {info['seconds']:.1f} s; " + " | ".join(regs),
               flush=True)
+    phase_done(2, "build", t0, card)
 
+    t0 = time.perf_counter()
     rows = []
     grid = {"lstm_fwd": (1, 16, 256), "lstm2_fwd": (1, 16, 256),
             "lstm_fwd_train": (1, 32, 256), "lstm2_fwd_train": (1, 32, 256),
@@ -10092,37 +11041,43 @@ def main() -> int:
                     print("kernel: " + fmt_attn(rows[-1]) + f" [{card}]",
                           flush=True)
 
+    phase_done(3, "kernel", t0, card)
+
+    t4 = time.perf_counter()
     res = slice_phase(card)
+    res["phase_seconds"] = time.perf_counter() - t4
     t0 = time.perf_counter()
     f4 = f4_phase(card)
     f4["phase_seconds"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
+    phase_done(4, "slice", t4, card)
+    t5 = time.perf_counter()
     tiny = transformer_phase(card)
-    tiny["phase_seconds"] = time.perf_counter() - t0
+    tiny["phase_seconds"] = time.perf_counter() - t5
     t0 = time.perf_counter()
     wide = wide_head_phase(card)
     wide["phase_seconds"] = time.perf_counter() - t0
+    phase_done(5, "tiny", t5, card)
     t0 = time.perf_counter()
     train = train_phase(card)
-    train["phase_seconds"] = time.perf_counter() - t0
+    train["phase_seconds"] = phase_done(6, "train", t0, card)
     t0 = time.perf_counter()
     tiny_train = tiny_train_phase(card)
-    tiny_train["phase_seconds"] = time.perf_counter() - t0
+    tiny_train["phase_seconds"] = phase_done(7, "tiny train", t0, card)
     t0 = time.perf_counter()
     captured = captured_train_phase(card)
-    captured["phase_seconds"] = time.perf_counter() - t0
+    captured["phase_seconds"] = phase_done(8, "captured", t0, card)
     t0 = time.perf_counter()
     regularised = regularised_phase(card)
-    regularised["phase_seconds"] = time.perf_counter() - t0
+    regularised["phase_seconds"] = phase_done(9, "regularised", t0, card)
     t0 = time.perf_counter()
     fit_contract = fit_contract_phase(card)
-    fit_contract["phase_seconds"] = time.perf_counter() - t0
+    fit_contract["phase_seconds"] = phase_done(10, "fit contract", t0, card)
     t0 = time.perf_counter()
     serving = serving_features_phase(card)
-    serving["phase_seconds"] = time.perf_counter() - t0
+    serving["phase_seconds"] = phase_done(11, "serving features", t0, card)
     t0 = time.perf_counter()
     cnn = cnn_phase(card)
-    cnn["phase_seconds"] = time.perf_counter() - t0
+    cnn["phase_seconds"] = phase_done(12, "cnn", t0, card)
     inception = inception_phase(card)
     kv_tier = kv_tier_phase(card)
     precision = serving_precision_phase(card)
@@ -10133,6 +11088,7 @@ def main() -> int:
     mp = mp_phase(card)
     tools = tools_phase(card)
     model_import = import_phase(card)
+    ui = ui_phase(card)
 
     # each kernel at its main path's shape, with the launches of the run
     # that drove it: /predict of the 15 held-out windows (bucket 16, T=64)
@@ -10143,16 +11099,19 @@ def main() -> int:
                        + counted_launches(precision["lstm"], "lstm2_fwd")
                        + counted_launches(dp, "lstm2_fwd")
                        + counted_launches(tools, "lstm2_fwd")
-                       + counted_launches(model_import, "lstm2_fwd")}),
+                       + counted_launches(model_import, "lstm2_fwd")
+                       + counted_launches(ui, "lstm2_fwd")}),
                    "lstm_fwd": (16, 15, {
                        "lstm_fwd": res["launches"].get("lstm_fwd", 0)
                        + counted_launches(tools, "lstm_fwd")
-                       + counted_launches(model_import, "lstm_fwd")}),
+                       + counted_launches(model_import, "lstm_fwd")
+                       + counted_launches(ui, "lstm_fwd")}),
                    "lstm2_fwd_train": (64, 32, {
                        k: train["launches_recipe"].get(k, 0)
                        + counted_launches(obs, k) + counted_launches(dp, k)
                        + counted_launches(tools, k)
                        + counted_launches(model_import, k)
+                       + counted_launches(ui, k)
                        for k in ("lstm2_fwd_train", "lstm_bwd")}),
                    "lstm_bwd": (64, 32, {
                        k: train["launches_recipe"].get(k, 0)
@@ -10160,12 +11119,14 @@ def main() -> int:
                        + counted_launches(cluster, k)
                        + counted_launches(tools, k)
                        + counted_launches(model_import, k)
+                       + counted_launches(ui, k)
                        for k in ("lstm2_fwd_train", "lstm_bwd")}),
                    "lstm_fwd_train": (16, 32, {
                        "lstm_fwd_train":
                        train["launches_tbptt"].get("lstm_fwd_train", 0)
                        + counted_launches(cluster, "lstm_fwd_train")
-                       + counted_launches(tools, "lstm_fwd_train")})}
+                       + counted_launches(tools, "lstm_fwd_train")
+                       + counted_launches(ui, "lstm_fwd_train")})}
     entries = []
 
     def entry(kernel, row, launches):
@@ -10189,6 +11150,7 @@ def main() -> int:
         entries[-1]["launches_phase_21"] = counted_launches(tools, kernel)
         entries[-1]["launches_phase_22"] = counted_launches(model_import,
                                                             kernel)
+        entries[-1]["launches_phase_23"] = counted_launches(ui, kernel)
     # phase 19: the in-process oracle's K2 / K3 are in the totals above;
     # the workers' own counters are printed apart, beside the kernels'
     # numbers at the workers' shape (T=16, B=16, H=24)
@@ -10296,7 +11258,7 @@ def main() -> int:
          "kv_tier": kv_tier, "precision": precision, "observability": obs,
          "routed": routed, "data_parallel": dp, "cluster": cluster,
          "model_parallel": mp, "training_tools": tools,
-         "model_import": model_import,
+         "model_import": model_import, "ui": ui,
          "kernels": entries},
         indent=1))
     print(json.dumps({"kernels": entries}))

@@ -6,9 +6,9 @@ its binary form, byte for byte the JAX package's: a fixed header and
 length-prefixed sections packed with ``struct``, so a record or a
 ``FileStatsStorage`` log written by either package reads in the other),
 the ``StatsStorage`` interface with its listeners, ``InMemoryStatsStorage``
-and ``FileStatsStorage`` (an append-only log of framed records). The HTTP
-router to a remote UI server belongs with the UI server itself, which is
-not ported yet.
+and ``FileStatsStorage`` (an append-only log of framed records), and
+``RemoteUIStatsStorageRouter``, which POSTs records to a remote
+``UIServer``'s /remote route in the same JSON as the JAX package's.
 """
 
 from __future__ import annotations
@@ -18,6 +18,7 @@ import json
 import os
 import struct
 import threading
+import urllib.request
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Callable
 
@@ -213,3 +214,27 @@ class FileStatsStorage(StatsStorage):
 
     def close(self):
         self._fh.close()
+
+
+class RemoteUIStatsStorageRouter:
+    """POSTs records to a remote UIServer's /remote endpoint (parity:
+    core api/storage/impl/RemoteUIStatsStorageRouter.java +
+    RemoteReceiverModule on the server side)."""
+
+    def __init__(self, url: str, timeout: float = 5.0):
+        self.url = url.rstrip("/") + "/remote"
+        self.timeout = timeout
+
+    def put_static_info(self, session_id: str, info: dict):
+        self._post({"type": "static", "sessionId": session_id, "info": info})
+
+    def put_update(self, report: StatsReport):
+        self._post({"type": "update",
+                    "record": report.to_bytes().hex()})
+
+    def _post(self, payload: dict):
+        req = urllib.request.Request(
+            self.url, data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=self.timeout) as resp:
+            resp.read()

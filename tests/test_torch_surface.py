@@ -6,10 +6,13 @@
   elastic cluster's four modules too, and item 8a's and 8b's: early
   stopping, transfer learning, the solvers, the gradient checker, the
   streaming and Kafka modules, ``online`` and ``ui``'s storage and stats
-  listener, and item 8c's: ``modelimport``, ``nlp`` and ``graph``); the
-  names still to port are listed (ROADMAP queue 1 item 8),
-  with ``exec.aot``'s ``export_compiled``, an XLA executable's export, and
-  ``exec``'s measured route tables, which have no counterpart.
+  listener, item 8c's: ``modelimport``, ``nlp`` and ``graph``, and item
+  8d's: ``clustering``, ``plot``, ``ui``'s server, components, remote
+  router and convolutional listener, ``scaleout.ml_pipeline``,
+  ``scaleout.s3``, ``data.native_loader`` and ``native``); only
+  ``exec.aot``'s ``export_compiled``, an XLA executable's export, and
+  ``exec``'s measured route tables, which have no counterpart, are
+  listed as missing.
 - The configuration builder: the JAX setters (``bias_init``,
   ``learning_rate``, ``optimization_algo``, ``dtype``, ``compute_dtype``,
   ``mini_batch``, ``minimize``), ``ListBuilder.layer(index, layer)`` and
@@ -42,10 +45,8 @@ from test_torch_regularised_training import port_of
 V = 13
 
 # JAX __all__ names (a module without one: its public functions and
-# classes) whose modules wait for later items (scaleout's ml_pipeline;
-# ui's server, components, remote router and convolutional listener, item
-# 8d), or that have no counterpart (an XLA executable's export; the
-# measured route tables)
+# classes) that have no counterpart in the port (an XLA executable's
+# export; the measured route tables); every other name is ported
 NOT_PORTED = {
     "deeplearning4j_tpu": set(),
     "deeplearning4j_tpu.serving": set(),
@@ -61,10 +62,12 @@ NOT_PORTED = {
     "deeplearning4j_tpu.modelimport": set(),
     "deeplearning4j_tpu.nlp": set(),
     "deeplearning4j_tpu.graph": set(),
-    "deeplearning4j_tpu.ui": {"RemoteUIStatsStorageRouter", "WebReporter",
-                              "ConvolutionalIterationListener", "UIServer",
-                              "components"},
-    "deeplearning4j_tpu.ui.storage": {"RemoteUIStatsStorageRouter"},
+    "deeplearning4j_tpu.ui": set(),
+    "deeplearning4j_tpu.ui.storage": set(),
+    "deeplearning4j_tpu.ui.server": set(),
+    "deeplearning4j_tpu.ui.remote": set(),
+    "deeplearning4j_tpu.ui.components": set(),
+    "deeplearning4j_tpu.ui.conv_listener": set(),
     "deeplearning4j_tpu.ui.stats_listener": set(),
     "deeplearning4j_tpu.resilience": set(),
     "deeplearning4j_tpu.monitor": set(),
@@ -83,9 +86,14 @@ NOT_PORTED = {
     "deeplearning4j_tpu.parallel.sequence_parallel": set(),
     "deeplearning4j_tpu.parallel.pipeline": set(),
     "deeplearning4j_tpu.parallel.expert_parallel": set(),
-    "deeplearning4j_tpu.scaleout": {
-        "AutoEncoderEstimator", "AutoEncoderModel", "NetworkClassifier",
-        "NetworkModel", "Pipeline"},
+    "deeplearning4j_tpu.scaleout": set(),
+    "deeplearning4j_tpu.scaleout.ml_pipeline": set(),
+    "deeplearning4j_tpu.scaleout.s3": set(),
+    "deeplearning4j_tpu.clustering": set(),
+    "deeplearning4j_tpu.clustering.knn_server": set(),
+    "deeplearning4j_tpu.plot": set(),
+    "deeplearning4j_tpu.data.native_loader": set(),
+    "deeplearning4j_tpu.native": set(),
 }
 
 
