@@ -236,7 +236,7 @@ result line, when any of them or the port's package is missing. Phases:
    every program of the engine -- the plain step, the prefill chunk, the
    copy-on-write, the draft, the verify -- a CUDA graph captured in
    ``warmup()``. The same TinyTransformer, 8 slots, max_len 512, 8 streams
-   of 64 new tokens from held-out prompts of 16..64 tokens, in six parts:
+   of 32 new tokens from held-out prompts of 16..64 tokens, in six parts:
    the plain dense engine; the plain paged engine with the prefix cache
    and chunks of 32; the target as its own draft (k=4), dense; the seed-3
    draft with tree (3, 2, 2), dense, paged, and paged with chunks of 32
@@ -253,7 +253,7 @@ result line, when any of them or the port's package is missing. Phases:
    (plain: decode seconds a step) or a tick (wall a verify) eager and
    captured, min / median / max of the 2 rounds; ten captured steps or
    ticks under ``torch.profiler``; the counters of 3 prompts one at a time
-   (24 new tokens) against the CPU port's where the tokens agree.
+   (16 new tokens) against the CPU port's where the tokens agree.
    Then tokens/s of each part against the captured plain engine, time to
    first token of the 8 prompts with and without chunks (captured paged
    engines without the prefix cache), one ``swap_weights`` (a seed-7
@@ -592,9 +592,34 @@ result line, when any of them or the port's package is missing. Phases:
    set (exactly 4 K5 a forward) against the unsplit forward (1e-5); 8
    concurrent greedy /generate streams through a dense and a paged
    engine over head-split caches against the same engines on one slot
-   (the near-tie rule), exactly 4 K8 / K9 a step. Each part's failure
-   fails the run; (a)-(c) and (e) join the kernels line's K5-K9
-   launches; under 60 s.
+   (the near-tie rule), exactly 4 K8 / K9 a step. (f) What a model axis
+   used to refuse, on the same default mesh and TinyTransformer (8 slots,
+   max_len 256, 8 greedy streams of 24 new tokens from corpus prompts of
+   16..48): the TP plain dense engine against one slot's (the near-tie
+   rule; host ms a step of each, as information); speculation over head
+   shards, the target as its own draft (k=3) on a dense engine and a
+   seed-3 one-block draft with tree (2, 2) on a paged one, against the TP
+   plain engine's tokens: exactly 4 K8 / K9 a plain step, 4 K8 a verify
+   (2 layers x 2 shards), 2 K8 a draft step and draft attention layer; a
+   paged engine with the host tier (4 prompts of 64 twice over 13 blocks
+   of 16: spills and restores) with the tierless engine's tokens, 4 K9 a
+   step and none a spill or restore; a chain exported from a TP paged
+   engine continued in an unsplit one and the reverse (a prefix hit, the
+   exporter's tokens); int8 and fp8 over quantized shard sets: a warmed
+   /predict of 8 windows against one slot's engine at the same precision
+   (1e-5; 4 K5 a forward) and /generate (int8 dense, fp8 paged) against
+   one slot's (4 K8 / K9 a step); the TP ``fit`` (T=64, B=32, Sgd 0.05,
+   6 captured steps) with a flight recorder (K=2; its rows against one
+   slot's at rtol 1e-4) and with DropConnect(0.9) on every layer and
+   maxnorm(1.0) on the row-split ff2 weights (rtol 1e-4, atol 1e-5), and
+   3 steps in the bf16 policy, each from one slot's float32 masters (the
+   step's parameter change within 2^-8 of one slot's in norm, each
+   leaf's within 2^-6 plus 1e-5; the parameters float32; the last score
+   at rtol 1e-4), exactly 4 each of K5-K7 a step; the TextGenerationLSTM
+   (2 x LSTM(256), Sgd 0.05) TP tBPTT(16) ``fit`` of 3 batches against
+   one slot (rtol 1e-4, atol 1e-5), each batch on either exactly 8 K2 +
+   8 K3 (2 + 2 a chunk). Each part's failure fails the run; (a)-(c), (e) and
+   (f) join the kernels line's K2, K3 and K5-K9 launches; under 60 s.
 21. Training tools and the online loop (``tools_phase``), on
    TextGenerationLSTM (2 x LSTM(256), the corpus's vocabulary, B=32,
    T=64) from seed 123. (a) ``EarlyStoppingTrainer`` with
@@ -2442,7 +2467,8 @@ def captured_train_phase(card):
                                           ops)
     from deeplearning4j_tpu_torch import exec as ex
     from deeplearning4j_tpu_torch.data import DataSet
-    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM, TinyTransformer
+    from deeplearning4j_tpu_torch.zoo import (TextGenerationLSTM,
+                                              TinyTransformer)
     from deeplearning4j_tpu_torch.zoo.corpus import corpus_windows
 
     (xtr, ytr), _, vocab = corpus_windows(stride=8)
@@ -3803,7 +3829,8 @@ def spec_lstm_part(card, res):
 
 # ------------------------------------------------------------- phase 11 (d)
 ROUNDS = 2            # eager and captured rounds, in turns, in one call
-ONE_AT_A_TIME, ONE_NEW = 3, 24   # prompts and new tokens of the CPU check
+ONE_AT_A_TIME, ONE_NEW = 3, 16   # prompts and new tokens of the CPU check
+CAPTURED_NEW = 32    # new tokens a stream of (d)'s rounds
 
 
 def _decode_round(eng, prompts, new, spec):
@@ -3931,7 +3958,7 @@ def captured_part(name, models, make_kw, prompts, naive, max_len, card):
             order = [("eager", eager), ("captured", capt)]
             for mode, eng in (order if r % 2 == 0 else order[::-1]):
                 ops.reset_launch_counts()
-                t, row, st0, st1 = _decode_round(eng, prompts, SERVE_NEW,
+                t, row, st0, st1 = _decode_round(eng, prompts, CAPTURED_NEW,
                                                  spec)
                 row["launches"] = _expect_launches(
                     f"phase 11 (d) {name} {mode}",
@@ -4009,7 +4036,7 @@ def captured_part(name, models, make_kw, prompts, naive, max_len, card):
                                               for r in rows])}
     u = "tick" if spec else "step"
     e, c = out["eager"]["ms"], out["captured"]["ms"]
-    print(f"captured (d): {name}: {len(prompts)} streams x {SERVE_NEW}, "
+    print(f"captured (d): {name}: {len(prompts)} streams x {CAPTURED_NEW}, "
           f"{ROUNDS} rounds each in turns: ms/{u} eager min "
           f"{e['min']:.3f} / median {e['median']:.3f} / max {e['max']:.3f},"
           f" captured {c['min']:.3f} / {c['median']:.3f} / {c['max']:.3f};"
@@ -4041,7 +4068,7 @@ def _swap_and_eos(net, vocab, prompts, plain, max_len, card):
     eng = DecodeEngine(net, slots=8, max_len=max_len).start()
     try:
         caps0 = {k: p["captures"] for k, p in eng.program_stats().items()}
-        futs = [eng.submit(p, max_new_tokens=SERVE_NEW) for p in prompts]
+        futs = [eng.submit(p, max_new_tokens=CAPTURED_NEW) for p in prompts]
         # a staged swap pauses admission, so a request still queued when
         # it is staged runs on the new weights: stage it only once the
         # loop has admitted every stream
@@ -4058,11 +4085,11 @@ def _swap_and_eos(net, vocab, prompts, plain, max_len, card):
         if old != plain:
             raise AssertionError("phase 11 (d) swap: the streams in flight "
                                  "did not finish on the old weights")
-        toks = _serve(eng, prompts, SERVE_NEW)[0]
+        toks = _serve(eng, prompts, CAPTURED_NEW)[0]
         caps1 = {k: p["captures"] for k, p in eng.program_stats().items()}
     finally:
         eng.stop()
-    naive = [generate_naive(new, p, SERVE_NEW, max_len)["tokens"]
+    naive = [generate_naive(new, p, CAPTURED_NEW, max_len)["tokens"]
              for p in prompts]
     out.update(version=version, captures=(caps0, caps1),
                ties_vs_naive=_ties(new, prompts, toks, naive))
@@ -4072,7 +4099,7 @@ def _swap_and_eos(net, vocab, prompts, plain, max_len, card):
     eos = plain[0][10]
     eng = DecodeEngine(net, slots=8, max_len=max_len, eos_id=eos).start()
     try:
-        got = _serve(eng, prompts, SERVE_NEW)[0]
+        got = _serve(eng, prompts, CAPTURED_NEW)[0]
         if eng.stats()["compiled_programs"] != 1:
             raise AssertionError("phase 11 (d) eos: more than one program")
     finally:
@@ -4108,7 +4135,7 @@ def captured_engine_part(net, cpu, ids, card, res):
     held = ids[len(ids) * 7 // 8:]
     lens = [16, 22, 28, 34, 40, 46, 52, 64]
     prompts = [held[64 * i:64 * i + n] for i, n in enumerate(lens)]
-    naive = [generate_naive(net, p, SERVE_NEW, 512)["tokens"]
+    naive = [generate_naive(net, p, CAPTURED_NEW, 512)["tokens"]
              for p in prompts]
     paged = dict(kv="paged", kv_block_size=KV_BLOCK)
     tree = (3, 2, 2)
@@ -4136,7 +4163,7 @@ def captured_engine_part(net, cpu, ids, card, res):
         zoo.init_pretrained(device="cpu")
     text = xte.argmax(-1)
     lprompts = [list(map(int, text[i, :n])) for i, n in enumerate(lens)]
-    lnaive = [generate_naive(lstm, p, SERVE_NEW, 256)["tokens"]
+    lnaive = [generate_naive(lstm, p, CAPTURED_NEW, 256)["tokens"]
               for p in lprompts]
     name = "LSTM early_exit:1 (3,2), dense"
     out[name], _ = captured_part(
@@ -6433,10 +6460,13 @@ def serving_features_phase(card):
     net = TinyTransformer(vocab_size=len(vocab)).init(device="cuda")
     cpu = ComputationGraph(net.conf, device="cpu").set_params(net.params)
     res = {"card": card, "vocab": len(vocab)}
-    prefix_part(net, cpu, ids, card, res)
-    spec_part(net, ids, card, res)
-    spec_lstm_part(card, res)
-    captured_engine_part(net, cpu, ids, card, res)
+    for part, args in ((prefix_part, (net, cpu, ids)),
+                       (spec_part, (net, ids)), (spec_lstm_part, ()),
+                       (captured_engine_part, (net, cpu, ids))):
+        t0 = time.perf_counter()
+        part(*args, card, res)
+        print(f"serving: {part.__name__} {time.perf_counter() - t0:.1f} s "
+              f"[{card}]", flush=True)
     return res
 
 
@@ -8668,6 +8698,25 @@ def _flat_params(net):
             for k, v in p.items()}
 
 
+def _step_agreement(got, want, before):
+    """A step's change of ``got`` against ``want``'s from the same
+    parameters ``before`` (by (member, key)), in norm: (the whole set's
+    error over its change, the largest leaf error over that leaf's change
+    where the change passes 100 x MP_ATOL, whether every leaf lies within
+    MPF_BF16_LEAF_RTOL of its change plus MP_ATOL)."""
+    import torch
+    pg, pw = _flat_params(got), _flat_params(want)
+    err = {k: float(torch.linalg.vector_norm(pg[k] - pw[k])) for k in pw}
+    move = {k: float(torch.linalg.vector_norm(pw[k] - before[k]))
+            for k in pw}
+    whole = (sum(e * e for e in err.values())
+             / sum(d * d for d in move.values())) ** 0.5
+    leaf = max((err[k] / move[k] for k in pw if move[k] > 100 * MP_ATOL),
+               default=0.0)
+    ok = all(err[k] <= MPF_BF16_LEAF_RTOL * move[k] + MP_ATOL for k in pw)
+    return whole, leaf, ok
+
+
 def _allclose(pa, pb, rtol, atol):
     import torch
     return all(torch.allclose(x, pb[k].to(x.device), rtol=rtol, atol=atol)
@@ -9301,12 +9350,445 @@ def mp_default_mesh_part(card, res, dev="cuda"):
     res["default_mesh"] = out
 
 
+MPF_SLOTS, MPF_MAXLEN, MPF_NEW = 8, 256, 24   # (f): the decode engines
+MPF_TIER_BLOCKS = 13           # (f): 12 blocks of 16 under 4 x 4 chains
+MPF_FIT_STEPS = 6              # (f): steps of each TP fit variant
+MPF_TBPTT_BATCHES = 3          # (f): tBPTT batches of 4 chunks (B=32, T=64)
+MPF_REC_RTOL, MPF_REC_ATOL = 1e-4, 1e-6   # (f): the recorder's rows
+# (f): a bf16-policy step against one slot's from the same float32
+# masters, in norm relative to the step's change: the whole set within
+# one bfloat16 unit, each leaf within four (plus MP_ATOL)
+MPF_BF16_STEP_RTOL, MPF_BF16_LEAF_RTOL = 2.0 ** -8, 2.0 ** -6
+MPF_BF16_STEPS = 3             # (f): bf16-policy steps, each from one slot's
+MPF_TBPTT_CHUNK = {"lstm_fwd_train": 2, "lstm_bwd": 2}  # (f): 2 layers
+
+
+def _mpf_streams(eng, prompts, new=MPF_NEW, together=True):
+    """Greedy streams of ``prompts`` (submitted together, or one at a
+    time) with the engine's stats before and after, the launches reset
+    in between: (tokens, st0, st1, launches)."""
+    from deeplearning4j_tpu_torch import ops
+    st0 = eng.stats()
+    ops.reset_launch_counts()
+    if together:
+        futs = [eng.submit(p, max_new_tokens=new) for p in prompts]
+        toks = [f.result(timeout=600)["tokens"] for f in futs]
+    else:
+        toks = [eng.generate(p, new)["tokens"] for p in prompts]
+    got = dict(ops.launch_counts())
+    return toks, st0, eng.stats(), got
+
+
+def _mpf_decode_want(st0, st1, paged, draft_layers=0, shards=MP_MODEL):
+    """The decode kernels' launches between two stats of an engine over
+    ``shards`` model shards: 2 layers x the shards a plain step (K9 on a
+    paged engine) and a verify (K8), the shards a draft step and draft
+    attention layer (K8)."""
+    spec0, spec1 = st0.get("spec"), st1.get("spec")
+    verifies = spec1["verifies"] - spec0["verifies"] if spec1 else 0
+    plain = st1["steps"] - st0["steps"] - verifies
+    want = {}
+    if plain:
+        want["flash_decode_paged" if paged else "flash_decode"] = \
+            2 * shards * plain
+    if spec1:
+        drafted = spec1["draft_steps"] - spec0["draft_steps"]
+        want["flash_decode"] = want.get("flash_decode", 0) \
+            + 2 * shards * verifies + shards * draft_layers * drafted
+    return want
+
+
+def _mpf_ties(net, prompts, gots, wants):
+    """(streams equal, worst near-tie margin or None) of two token sets."""
+    ties = [_first_tie(net, p, g, w) for p, g, w in zip(prompts, gots, wants)]
+    return (sum(t is None for t in ties),
+            max((t[1] for t in ties if t is not None), default=None))
+
+
+def mp_features_part(card, res, dev="cuda"):
+    """(f) What a model axis used to refuse, on the default mesh's model
+    axis: speculation, the host KV tier, KV migration and int8 / fp8
+    serving over head shards, the TP fit with the flight recorder, the
+    bf16 policy, weight noise and a row-split maxnorm, and the LSTM
+    recipe's TP tBPTT (``chip_smoke.py`` docstring)."""
+    import torch
+    from deeplearning4j_tpu_torch import (ComputationGraph, MultiLayerNetwork,
+                                          monitor, ops)
+    from deeplearning4j_tpu_torch.exec import (Executor, build_mesh,
+                                               set_default_mesh)
+    from deeplearning4j_tpu_torch.nn.updaters import Sgd
+    from deeplearning4j_tpu_torch.nn.weightnoise import DropConnect
+    from deeplearning4j_tpu_torch.serving import (DecodeEngine,
+                                                  InferenceEngine)
+    from deeplearning4j_tpu_torch.serving.spec import SpecConfig
+    from deeplearning4j_tpu_torch.zoo import (TextGenerationLSTM,
+                                              TinyTransformer)
+    from deeplearning4j_tpu_torch.zoo.corpus import corpus_ids
+    mesh = build_mesh([dev] * (MP_DATA * MP_MODEL), model_parallel=MP_MODEL)
+    zoo = TinyTransformer(vocab_size=MP_V, updater=Sgd(MP_LR))
+    ids, _ = corpus_ids()
+    ids = [int(t) for t in ids]
+    lens = [16, 20, 24, 28, 32, 36, 40, 48]
+    prompts = [ids[i * 173:i * 173 + n] for i, n in enumerate(lens)]
+    eye = np.eye(MP_V, dtype=np.float32)
+    windows = np.stack([eye[ids[i * 97:i * 97 + MP_T]] for i in range(8)])
+    out = {}
+    t_part = {}
+
+    def one_slot(net):
+        net._exec = Executor(build_mesh([dev]), train_precision=getattr(
+            net._executor, "train_precision", None))
+        return net
+
+    def unsplit(net):
+        u = ComputationGraph(net.conf, device=dev)
+        u._exec = Executor(build_mesh([dev]))
+        return u.set_params({n: {k: v.clone() for k, v in p.items()}
+                             for n, p in net.params.items()})
+
+    def sync():
+        if dev == "cuda":
+            torch.cuda.synchronize()
+
+    def check(tag, ok, row):
+        out[tag] = row
+        if not ok:
+            raise AssertionError(f"phase 20 (f) {tag}: {row}")
+
+    set_default_mesh(mesh)
+    try:
+        net = zoo.init(device=dev)
+        if net._executor.model_size != MP_MODEL:
+            raise AssertionError("phase 20 (f): the default mesh's model "
+                                 "axis did not reach the container")
+        un = unsplit(net)
+
+        # --- speculation, dense and paged, against the TP plain engine;
+        # the plain engines' host ms a step beside one slot's
+        t0 = time.perf_counter()
+        plain = DecodeEngine(net, slots=MPF_SLOTS, max_len=MPF_MAXLEN).start()
+        uplain = DecodeEngine(un, slots=MPF_SLOTS, max_len=MPF_MAXLEN).start()
+        try:
+            want, p0, p1, got = _mpf_streams(plain, prompts)
+            plain_launches = _expect_launches(
+                "phase 20 (f) plain /generate", _mpf_decode_want(
+                    p0, p1, False))
+            uwant, u0, u1, _ = _mpf_streams(uplain, prompts)
+        finally:
+            plain.stop()
+            uplain.stop()
+        step_ms = (p1["decode_seconds"] - p0["decode_seconds"]) \
+            / (p1["steps"] - p0["steps"]) * 1e3
+        one_ms = (u1["decode_seconds"] - u0["decode_seconds"]) \
+            / (u1["steps"] - u0["steps"]) * 1e3
+        same, worst = _mpf_ties(un, prompts, want, uwant)
+        check("plain", worst is None or worst <= TIE_MARGIN,
+              {"launches": plain_launches, "identical": same,
+               "worst_tie_margin": worst, "host_ms_a_step": step_ms,
+               "one_slot_host_ms_a_step": one_ms})
+        print(f"mp: (f) TP plain dense /generate, 8 streams of {MPF_NEW}: "
+              f"host ms a step {step_ms:.3f} against one slot's "
+              f"{one_ms:.3f} ({step_ms / one_ms:.2f}x), {same} of 8 streams "
+              f"equal to one slot's (worst tie margin {worst}) [{card}]",
+              flush=True)
+        draft = TinyTransformer(vocab_size=MP_V, n_layers=1, seed=3).init(
+            device=dev)
+        for kind, what, spec, layers, kw in (
+                ("spec_dense", "the target as draft, k=3",
+                 SpecConfig(net, k=3), 2, {}),
+                ("spec_paged", "a seed-3 one-block draft, tree (2, 2)",
+                 SpecConfig(draft, tree=(2, 2)), 1,
+                 dict(kv="paged", kv_block_size=KV_BLOCK))):
+            eng = DecodeEngine(net, slots=MPF_SLOTS, max_len=MPF_MAXLEN,
+                               spec=spec, **kw).start()
+            try:
+                got, s0, s1, _ = _mpf_streams(eng, prompts)
+                launches = _expect_launches(
+                    f"phase 20 (f) {kind} /generate", _mpf_decode_want(
+                        s0, s1, bool(kw), layers))
+            finally:
+                eng.stop()
+            same, worst = _mpf_ties(net, prompts, got, want)
+            rate = s1["spec"]["acceptance_rate"]
+            check(kind, (worst is None or worst <= TIE_MARGIN) and rate > 0,
+                  {"launches": launches, "identical": same,
+                   "worst_tie_margin": worst, "acceptance_rate": rate,
+                   "verifies": s1["spec"]["verifies"]
+                   - s0["spec"]["verifies"]})
+            print(f"mp: (f) {kind} /generate over head shards ({what}): "
+                  f"launches {launches}, acceptance {rate:.3f}, {same} of 8 "
+                  f"streams equal to the TP plain engine's (worst tie "
+                  f"margin {worst}, bar {TIE_MARGIN}) [{card}]", flush=True)
+        t_part["spec"] = time.perf_counter() - t0
+
+        # --- the host tier: evictions and restores over head-split pools
+        t0 = time.perf_counter()
+        tier_prompts = [ids[5000 + 211 * i:5000 + 211 * i + 64]
+                        for i in range(4)] * 2
+        kw = dict(slots=2, max_len=MPF_MAXLEN, kv="paged",
+                  kv_block_size=KV_BLOCK, kv_blocks=MPF_TIER_BLOCKS)
+        ref_eng = DecodeEngine(net, **kw).start()
+        tier = DecodeEngine(net, host_kv_bytes=64 << 20, **kw).start()
+        try:
+            twant = _mpf_streams(ref_eng, tier_prompts, together=False)[0]
+            tgot, t0s, t1s, _ = _mpf_streams(tier, tier_prompts,
+                                             together=False)
+            launches = _expect_launches("phase 20 (f) host tier",
+                                        _mpf_decode_want(t0s, t1s, True))
+            info = tier.kv_pool_info()
+        finally:
+            tier.stop()
+            ref_eng.stop()
+        spills = info["host_tier"]["spills"]
+        restores = t1s["kv"]["host_restores"]
+        check("host_tier", tgot == twant and spills > 0 and restores > 0,
+              {"launches": launches, "spills": spills, "restores": restores,
+               "equal": tgot == twant})
+        print(f"mp: (f) TP paged engine with the host tier, 4 prompts of 64 "
+              f"twice over {MPF_TIER_BLOCKS} blocks: {spills} spills, "
+              f"{restores} restores, launches {launches} (none a spill or "
+              f"restore), tokens equal to the tierless engine's: "
+              f"{tgot == twant} [{card}]", flush=True)
+
+        # --- migration both ways between a TP and an unsplit engine
+        mig = {}
+        pkw = dict(slots=2, max_len=MPF_MAXLEN, kv="paged",
+                   kv_block_size=KV_BLOCK)
+        for tag, src_net, dst_net, shards in (
+                ("tp_to_unsplit", net, un, 1),
+                ("unsplit_to_tp", un, net, MP_MODEL)):
+            src = DecodeEngine(src_net, **pkw).start()
+            dst = DecodeEngine(dst_net, **pkw).start()
+            p = tier_prompts[0]
+            try:
+                first = src.generate(p, MPF_NEW)["tokens"]
+                payload = src.kv_export(p)
+                imported = dst.kv_import(payload)
+                cont, c0, c1, got = _mpf_streams(dst, [p], together=False)
+                launches = _expect_launches(
+                    f"phase 20 (f) {tag} continued",
+                    _mpf_decode_want(c0, c1, True, shards=shards))
+            finally:
+                src.stop()
+                dst.stop()
+            tie = _first_tie(net, p, cont[0], first)
+            mig[tag] = {"launches": launches, "imported": imported,
+                        "prefix_hits": c1["kv"]["prefix_hits"]
+                        - c0["kv"]["prefix_hits"], "tie": tie}
+            if (tie is not None and tie[1] > TIE_MARGIN) \
+                    or mig[tag]["prefix_hits"] != 1:
+                raise AssertionError(f"phase 20 (f) {tag}: {mig[tag]}")
+        check("migration", True, mig)
+        moved = {k: (v["imported"]["imported_blocks"], v["tie"])
+                 for k, v in mig.items()}
+        print(f"mp: (f) KV chains TP -> unsplit and unsplit -> TP: {moved} "
+              f"(blocks, first difference or None) [{card}]", flush=True)
+        t_part["tier_migration"] = time.perf_counter() - t0
+
+        # --- int8 / fp8: /predict and /generate over quantized shard sets
+        t0 = time.perf_counter()
+        for prec, kv in (("int8", "dense"), ("fp8", "paged")):
+            eng = InferenceEngine(net, max_batch=16, precision=prec)
+            eng.warmup((MP_T, MP_V))
+            ueng = InferenceEngine(un, max_batch=16, precision=prec)
+            c0 = eng.stats()["device_calls"]
+            ops.reset_launch_counts()
+            got = eng.predict(windows)
+            calls = eng.stats()["device_calls"] - c0
+            plaunch = _expect_launches(f"phase 20 (f) {prec} /predict", {
+                "flash_attn_fwd": 2 * MP_MODEL * calls})
+            err = float((got.float().cpu() - ueng.predict(windows).float()
+                         .cpu()).abs().max())
+            dkw = {} if kv == "dense" else dict(kv="paged",
+                                                kv_block_size=KV_BLOCK)
+            deng = DecodeEngine(net, slots=MPF_SLOTS, max_len=MPF_MAXLEN,
+                                precision=prec, **dkw).start()
+            udeng = DecodeEngine(un, slots=MPF_SLOTS, max_len=MPF_MAXLEN,
+                                 precision=prec, **dkw).start()
+            try:
+                toks, q0, q1, _ = _mpf_streams(deng, prompts)
+                dlaunch = _expect_launches(
+                    f"phase 20 (f) {prec} /generate",
+                    _mpf_decode_want(q0, q1, kv == "paged"))
+                utoks = _mpf_streams(udeng, prompts)[0]
+            finally:
+                deng.stop()
+                udeng.stop()
+            same, worst = _mpf_ties(un, prompts, toks, utoks)
+            check(prec, err <= MP_OUT_TOL and (worst is None
+                                               or worst <= TIE_MARGIN),
+                  {"predict": {"launches": plaunch, "max_abs_err": err,
+                               "device_calls": calls},
+                   "generate": {"launches": dlaunch, "identical": same,
+                                "worst_tie_margin": worst},
+                   "weight_bytes": eng.stats().get("weight_bytes")})
+            print(f"mp: (f) {prec} over the shard set: /predict of 8 "
+                  f"windows {calls} forward(s), launches {plaunch}, max abs "
+                  f"err vs one slot's {prec} engine {err:.3g} (bar "
+                  f"{MP_OUT_TOL}); {kv} /generate launches {dlaunch}, "
+                  f"{same} of 8 streams equal to one slot's (worst tie "
+                  f"margin {worst}) [{card}]", flush=True)
+        t_part["quantized"] = time.perf_counter() - t0
+
+        # --- TP fit: the recorder, the bf16 policy, weight noise + maxnorm
+        t0 = time.perf_counter()
+        data = _mp_tokens(MPF_FIT_STEPS, 20, MP_V)
+        per_step = {k: 2 * MP_MODEL for k in MP_KERNELS}
+        fits = {}
+
+        def fit_pair(tag, make, rec=False):
+            tp_net, ref_net = make(), one_slot(make())
+            recs = []
+            if rec:
+                recs = [monitor.FlightRecorder(sample_every=2)
+                        for _ in range(2)]
+                tp_net.attach_flight_recorder(recs[0])
+                ref_net.attach_flight_recorder(recs[1])
+            launches = {}
+            for i, ds in enumerate(data):
+                ops.reset_launch_counts()
+                tp_net.fit(ds)
+                sync()
+                _add_counts(launches, _expect_launches(
+                    f"phase 20 (f) {tag} step {i}", per_step))
+            for ds in data:
+                ref_net.fit(ds)
+            sync()
+            err, pa, pb = _param_errs(tp_net, ref_net)
+            row = {"launches": launches, "max_param_diff": err,
+                   "routes": tp_net.tp_routes,
+                   "score": float(tp_net.get_score()),
+                   "one_slot_score": float(ref_net.get_score())}
+            return row, pa, pb, recs
+
+        row, pa, pb, recs = fit_pair("recorder", lambda: zoo.init(device=dev),
+                                     rec=True)
+        got, want = recs[0].records(), recs[1].records()
+        rows_ok = (len(got) == len(want) == MPF_FIT_STEPS // 2 and all(
+            np.allclose(g["stats"], w["stats"], rtol=MPF_REC_RTOL,
+                        atol=MPF_REC_ATOL) for g, w in zip(got, want)))
+        row.update(records=len(got), rows_allclose=rows_ok,
+                   allclose=_allclose(pa, pb, MP_RTOL, MP_ATOL))
+        fits["recorder"] = row
+        # the bf16 policy, each step from one slot's float32 masters (their
+        # bfloat16 copies round apart at a boundary once float32's last
+        # bits differ, and a further step would carry that on)
+        tp_net, ref_net = zoo.init(device=dev), zoo.init(device=dev)
+        tp_net._exec = Executor(mesh, train_precision="bf16")
+        ref_net._exec = Executor(build_mesh([dev]), train_precision="bf16")
+        launches, whole, leaf, leaves_ok = {}, [], [], True
+        for i, ds in enumerate(data[:MPF_BF16_STEPS]):
+            before = {k: v.clone() for k, v in _flat_params(ref_net).items()}
+            ops.reset_launch_counts()
+            tp_net.fit(ds)
+            sync()
+            _add_counts(launches, _expect_launches(
+                f"phase 20 (f) bf16 policy step {i}", per_step))
+            ref_net.fit(ds)
+            sync()
+            w, lf, ok_leaf = _step_agreement(tp_net, ref_net, before)
+            whole.append(w)
+            leaf.append(lf)
+            leaves_ok = leaves_ok and ok_leaf
+            tp_net.set_params({n: {k: v.clone() for k, v in p.items()}
+                               for n, p in ref_net.params.items()})
+        score, one_score = float(tp_net.get_score()), \
+            float(ref_net.get_score())
+        fits["bf16_policy"] = {
+            "launches": launches, "step_err_over_change": whole,
+            "largest_leaf_err_over_change": leaf, "leaves_ok": leaves_ok,
+            "score": score, "one_slot_score": one_score,
+            "routes": tp_net.tp_routes,
+            "params_float32": all(v.dtype == torch.float32 for p in
+                                  tp_net.params.values() for v in p.values()),
+            "allclose": leaves_ok and max(whole) <= MPF_BF16_STEP_RTOL,
+            "score_close": abs(score - one_score)
+            <= MP_RTOL * abs(one_score) + MP_ATOL}
+        conf = zoo.conf()
+        for name in conf.layer_nodes():
+            layer = conf.nodes[name].layer
+            layer.weight_noise = DropConnect(weight_retain_prob=0.9)
+            if name.endswith("_ff2"):           # W (512, 128): row split
+                layer.constraints = ("maxnorm", 1.0)
+        row, pa, pb, _ = fit_pair(
+            "noise + maxnorm",
+            lambda: ComputationGraph(conf, device=dev).set_params(
+                {n: {k: v.clone() for k, v in p.items()}
+                 for n, p in net.params.items()}))
+        row.update(allclose=_allclose(pa, pb, MP_RTOL, MP_ATOL))
+        fits["noise_maxnorm"] = row
+        ok = (fits["recorder"]["rows_allclose"]
+              and all(f["allclose"] for f in fits.values())
+              and fits["bf16_policy"]["score_close"]
+              and fits["bf16_policy"]["params_float32"])
+        check("fit", ok, fits)
+        print(f"mp: (f) TP fit, {MPF_FIT_STEPS} captured steps each against "
+              f"one slot: recorder (K=2) {fits['recorder']['records']} "
+              f"records, rows allclose (rtol {MPF_REC_RTOL}) "
+              f"{fits['recorder']['rows_allclose']}, params "
+              f"{fits['recorder']['max_param_diff']:.3g}; bf16 policy, "
+              f"{MPF_BF16_STEPS} steps each from one slot's masters: "
+              f"|error| / |change| "
+              f"{[f'{w:.3g}' for w in fits['bf16_policy']['step_err_over_change']]}"
+              f" (bar {MPF_BF16_STEP_RTOL:.4g}), largest leaf "
+              f"{[f'{w:.3g}' for w in fits['bf16_policy']['largest_leaf_err_over_change']]}"
+              f" (bar {MPF_BF16_LEAF_RTOL:.4g}), last score "
+              f"{fits['bf16_policy']['score']:.5f} / "
+              f"{fits['bf16_policy']['one_slot_score']:.5f}; DropConnect "
+              f"0.9 + maxnorm(1.0) on the ff2 rows "
+              f"{fits['noise_maxnorm']['max_param_diff']:.3g}; launches a "
+              f"step {per_step} [{card}]", flush=True)
+        t_part["fit"] = time.perf_counter() - t0
+
+        # --- the LSTM recipe net's TP tBPTT against one slot
+        t0 = time.perf_counter()
+        lzoo = TextGenerationLSTM(total_unique_characters=MP_V,
+                                  updater=Sgd(MP_LR))
+
+        def tbptt_net():
+            conf = lzoo.conf()
+            conf.backprop_type = "tbptt"
+            conf.tbptt_fwd_length = conf.tbptt_back_length = 16
+            return MultiLayerNetwork(conf, device=dev).init()
+        tnet, tref = tbptt_net(), one_slot(tbptt_net())
+        batches = _mp_tokens(MPF_TBPTT_BATCHES, 40, MP_V)
+        per_batch = {k: v * (MP_T // 16) for k, v in MPF_TBPTT_CHUNK.items()}
+        counts = []
+        for tag, n in (("one slot", tref), ("TP", tnet)):
+            got = {}
+            for i, ds in enumerate(batches):
+                ops.reset_launch_counts()
+                n.fit(ds)
+                sync()
+                _add_counts(got, _expect_launches(
+                    f"phase 20 (f) tBPTT {tag} batch {i}", per_batch))
+            counts.append(got)
+        chunks = MPF_TBPTT_BATCHES * (MP_T // 16)
+        per_chunk = {k: v // chunks for k, v in counts[0].items()}
+        tp_launches = counts[1]
+        err, pa, pb = _param_errs(tnet, tref)
+        check("tbptt", _allclose(pa, pb, MP_RTOL, MP_ATOL) and tnet.tp_routes,
+              {"launches": tp_launches, "one_slot_per_chunk": per_chunk,
+               "chunks": chunks, "max_param_diff": err,
+               "routes": tnet.tp_routes})
+        print(f"mp: (f) TextGenerationLSTM (2 x LSTM(256), B={MP_B}, "
+              f"T={MP_T}) TP tBPTT(16), {chunks} chunks: launches "
+              f"{tp_launches} (one slot's a chunk {per_chunk}), params "
+              f"against one slot {err:.3g} (rtol {MP_RTOL} atol {MP_ATOL}) "
+              f"[{card}]", flush=True)
+        t_part["tbptt"] = time.perf_counter() - t0
+    finally:
+        set_default_mesh(None)
+    out["seconds"] = t_part
+    res["features"] = out
+
+
 def mp_phase(card, dev="cuda"):
     """Phase 20: model parallelism (``chip_smoke.py`` docstring)."""
     t0 = time.perf_counter()
     res = {"card": card}
     for part in (mp_tp_part, mp_sp_part, mp_pp_part, mp_ep_part,
-                 mp_default_mesh_part):
+                 mp_default_mesh_part, mp_features_part):
         t1 = time.perf_counter()
         part(card, res, dev)
         print(f"mp: {part.__name__} {time.perf_counter() - t1:.1f} s "
@@ -11117,6 +11599,7 @@ def main() -> int:
                        k: train["launches_recipe"].get(k, 0)
                        + counted_launches(obs, k) + counted_launches(dp, k)
                        + counted_launches(cluster, k)
+                       + counted_launches(mp, k)
                        + counted_launches(tools, k)
                        + counted_launches(model_import, k)
                        + counted_launches(ui, k)
@@ -11125,6 +11608,7 @@ def main() -> int:
                        "lstm_fwd_train":
                        train["launches_tbptt"].get("lstm_fwd_train", 0)
                        + counted_launches(cluster, "lstm_fwd_train")
+                       + counted_launches(mp, "lstm_fwd_train")
                        + counted_launches(tools, "lstm_fwd_train")
                        + counted_launches(ui, "lstm_fwd_train")})}
     entries = []
@@ -11147,6 +11631,7 @@ def main() -> int:
         row = kernel_case(kernel, T, B, 256, "float32", seed=1)
         print("main-path shape: " + fmt(row) + f" [{card}]", flush=True)
         entry(kernel, row, counts.get(kernel, 0))
+        entries[-1]["launches_phase_20"] = counted_launches(mp, kernel)
         entries[-1]["launches_phase_21"] = counted_launches(tools, kernel)
         entries[-1]["launches_phase_22"] = counted_launches(model_import,
                                                             kernel)

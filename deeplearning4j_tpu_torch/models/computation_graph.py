@@ -423,8 +423,8 @@ class ComputationGraph(FitContract):
         if self._tp_live is not None:
             mfs = None if masks is None else [
                 masks.get(n) for n in self.conf.network_inputs]
-            return self._tp_step(it, inputs, labels, label_masks,
-                                 mfs), None
+            return self._tp_step(it, inputs, labels, label_masks, mfs,
+                                 carries)
         seed_generator(self._gen, self.conf.global_conf.seed, it)
         return self._sampled_or_plain(it, inputs, labels, label_masks,
                                       masks, carries)

@@ -66,9 +66,13 @@ holds (JAX's ``shard_data``), else one data slot's program takes the
 whole batch: on one card both are the one program over every row (the
 data axis is placement there), and the route is counted
 (``tp_routes``). The update is the per-leaf one (JAX's ``fused =
-model_size <= 1``). tBPTT and the flight recorder are not taken under a
-model axis (``NotImplementedError``, ROADMAP item 7). A mesh without a
-model axis keeps the path above.
+model_size <= 1``). Truncated BPTT runs each chunk as one such step,
+the recurrent carries entering it detached and coming back from the
+gradient program as on one slot. With a flight recorder a sampled
+iteration replays the sampled update (``dp_apply_updates_telemetry``,
+captured beside the plain one), whose (L, 5) rows run over each layer's
+shard leaves together: the rows of the one-slot step, in the container's
+layer order. A mesh without a model axis keeps the path above.
 
 The pre-processor seam is the JAX stream's (``_resolve_device_pp``): a
 pre-processor on the iterator chain (``data.iterators.
@@ -136,7 +140,7 @@ class FitContract:
         pw = self._tp_runner
         if pw is not None and pw._grad is not None \
                 and pw._built_for is self._steps:
-            n += pw._grad.captures + pw._upd.captures
+            n += pw._grad.captures + pw._upd.captures + pw._upd_rec.captures
         return n
 
     # ------------------------------------------------- tensor parallelism
@@ -165,15 +169,11 @@ class FitContract:
         if pw is None:
             yield
             return
-        if self.conf.backprop_type == "tbptt":
-            raise NotImplementedError(
-                "truncated BPTT on a mesh with a model axis is not ported "
-                "(ROADMAP item 7)")
-        if self._flight is not None:
-            raise NotImplementedError(
-                "the flight recorder on a mesh with a model axis is not "
-                "ported (ROADMAP item 7)")
         pw._tp_sync()
+        if self._flight is not None:
+            from deeplearning4j_tpu_torch.monitor.flight import \
+                prepare_telemetry
+            prepare_telemetry(self, pw._tp.params)
         self._tp_live = pw
         try:
             yield
@@ -181,18 +181,25 @@ class FitContract:
             self._tp_live = None
             pw._tp_store()
 
-    def _tp_step(self, iteration, xs, ys, mls, mfs):
+    def _tp_step(self, iteration, xs, ys, mls, mfs, carries=None):
         """One train step at ``iteration`` through the TP trainer's
         captured programs (lists of inputs, labels, label masks and
-        feature masks, None where absent); returns the loss."""
+        feature masks, None where absent) from ``carries``; returns (loss,
+        new carries) and leaves a sampled step's telemetry in
+        ``_telem``."""
         from deeplearning4j_tpu_torch.parallel.wrapper import _Batch
         rows = int(xs[0].shape[0])
         if self._tp_counts is None:
             self._tp_counts = Counter()
         self._tp_counts["data" if self._executor.shardable_rows(rows)
                         else "whole"] += 1
-        return self._tp_live._sync_step(_Batch(xs, ys, mfs, mls), None,
-                                        iteration)
+        rec = self._flight
+        loss, new, telem = self._tp_live._sync_step(
+            _Batch(xs, ys, mfs, mls), None, iteration, carries=carries,
+            telemetry=rec is not None and rec.sampled(iteration))
+        if telem is not None:
+            self._telem = telem
+        return loss, new
 
     @property
     def tp_routes(self) -> dict:

@@ -475,7 +475,7 @@ class MultiLayerNetwork(FitContract):
         its next replay overwrites."""
         it = self.iteration if iteration is None else iteration
         if self._tp_live is not None:
-            return self._tp_step(it, [x], [y], [mask_l], [mask_f]), None
+            return self._tp_step(it, [x], [y], [mask_l], [mask_f], carries)
         seed_generator(self._gen, self.conf.global_conf.seed, it)
         return self._sampled_or_plain(it, x, y, mask_l, carries, mask_f)
 

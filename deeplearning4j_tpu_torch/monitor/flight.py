@@ -127,13 +127,16 @@ def _structure(triples):
     return groups, counts, numels, device
 
 
-def prepare_telemetry(model) -> None:
-    """Make the telemetry's constants for a container's parameters, in its
-    rows' order, on their device: the containers call it when a recorder
-    is attached, outside any captured step."""
-    p = model.params
+def prepare_telemetry(model, params=None) -> None:
+    """Make the telemetry's constants for a container's parameters (or
+    ``params``, per-member dicts keyed like them: a tensor-parallel
+    form's shard leaves), in its rows' order, on their device: the
+    containers call it when a recorder is attached, and before a
+    tensor-parallel fit, outside any captured step."""
+    p = model.params if params is None else params
     groups = p if isinstance(p, list) else [
-        p[n] for n in _graph_order(model.conf, p)]
+        p[n] for n in (_graph_order(model.conf, p)
+                       if isinstance(model.params, dict) else sorted(p))]
     _layout(*_structure([(g, g, g) for g in groups])[1:])
 
 

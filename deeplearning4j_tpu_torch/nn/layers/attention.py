@@ -362,7 +362,7 @@ class MultiHeadAttention(Layer):
             o = ops.flash_decode_step(qn[:, 0].float().contiguous(), effk,
                                       effv, posn)
             o = self._project_out(params, o, B * N, 1, q.dtype)
-        return o.reshape(B, N, self.n_out), dstate, None, {"k": k, "v": v}
+        return o.reshape(B, N, -1), dstate, None, {"k": k, "v": v}
 
     def tree_commit(self, params, dstate, kv_window, path, pos0, commit_n,
                     block_tables=None):

@@ -78,6 +78,22 @@ def map_tree(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def rescaled_by_norm(constraint, v, n):
+    """``v`` rescaled by a norm constraint (``('maxnorm', m)``,
+    ``('unitnorm',)``, ``('minmaxnorm', lo, hi)``) from its norm ``n``
+    over every axis but the last; any other kind leaves it as it is."""
+    kind = constraint[0]
+    if kind == "maxnorm":
+        arg = constraint[1] if len(constraint) > 1 else 1.0
+        return v * torch.clamp(n, 0, arg) / torch.clamp(n, min=1e-8)
+    if kind == "unitnorm":
+        return v / torch.clamp(n, min=1e-8)
+    if kind == "minmaxnorm":
+        return v * torch.clamp(n, constraint[1], constraint[2]) \
+            / torch.clamp(n, min=1e-8)
+    return v
+
+
 def copy_into(dst, src):
     """Copy every tensor leaf of ``src`` into the matching leaf of ``dst``
     in place, skipping a leaf that already is ``dst``'s (state written in
@@ -205,24 +221,16 @@ class Layer:
         parameters (path keys), as in the JAX package."""
         if not self.constraints or not params:
             return params
-        kind = self.constraints[0]
-        arg = self.constraints[1] if len(self.constraints) > 1 else 1.0
         out = dict(params)
         for k, v in params.items():
             if k.startswith("b") or "/" in k:
                 continue
-            if kind == "nonneg":
+            if self.constraints[0] == "nonneg":
                 out[k] = torch.clamp(v, min=0.0)
                 continue
             axes = tuple(range(v.ndim - 1))
             n = torch.sqrt((v ** 2).sum(dim=axes, keepdim=True))
-            if kind == "maxnorm":
-                out[k] = v * torch.clamp(n, 0, arg) / torch.clamp(n, min=1e-8)
-            elif kind == "unitnorm":
-                out[k] = v / torch.clamp(n, min=1e-8)
-            elif kind == "minmaxnorm":
-                lo, hi = self.constraints[1], self.constraints[2]
-                out[k] = v * torch.clamp(n, lo, hi) / torch.clamp(n, min=1e-8)
+            out[k] = rescaled_by_norm(self.constraints, v, n)
         return out
 
     # ---- incremental decode protocol --------------------------------------

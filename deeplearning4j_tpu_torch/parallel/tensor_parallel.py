@@ -53,8 +53,25 @@ shards' ``Wo`` partials are summed in shard order. A layer with no split
 of its own decodes through ``TPLayer.apply`` where its decode method is
 ``Layer``'s (dense layers: column or row split), else through its own
 method over gathered parameters (the positional table, an LSTM).
-Speculation (``tree_chunk`` / ``tree_commit``) over head shards is not
-ported (ROADMAP item 7).
+Speculation's ``tree_chunk`` runs once a shard too, each over its heads,
+its cache and its own window of the nodes' K/V (the extra outputs come
+back as lists in shard order), and ``tree_commit`` writes each shard's
+window into that shard's cache. An int8 / fp8 set is the whole float32
+tree quantized first (one scale a last-axis channel of the WHOLE weight),
+then split: a column split cuts codes and scales alike, a row split cuts
+the codes and gives every shard the whole scale (``split``); a shard is
+never quantized on its own.
+
+Training policies, as the one-slot step has them: a compute dtype (the
+model's, or the bf16 train-precision policy) casts the float32 shards to
+compute-dtype copies at use (``Shards.to``), the masters stay float32,
+and a product over shards sums its partials in float32 and rounds once,
+as one product does (a row split's output, a column split's input
+gradient: ``_ColProducts``); weight noise is drawn on each weight's full
+shape from the step's generator, in the one-slot step's order, then
+split (``_ShardNoise``); a constraint runs after the update over each
+member's shards, the norm of a leaf split on a dim it reduces over
+summed from the shards' squares (``_constrain``).
 
 The shards of one rank live on its card (exec/mesh.py: the model axis
 lies within one rank's slots). They are resident: the captured gradient
@@ -77,16 +94,19 @@ from deeplearning4j_tpu_torch.nn.activations import get_activation
 from deeplearning4j_tpu_torch.nn.fused_update import _split_key
 from deeplearning4j_tpu_torch.nn.layers.attention import (
     MultiHeadAttention, scaled_dot_product_attention)
-from deeplearning4j_tpu_torch.nn.layers.base import Layer
+from deeplearning4j_tpu_torch.nn.layers.base import (Layer, map_tree,
+                                                     rescaled_by_norm)
 from deeplearning4j_tpu_torch.nn.layers.conv import ConvolutionLayer, _conv2d
 from deeplearning4j_tpu_torch.nn.layers.core import DenseLayer, OutputLayer
 from deeplearning4j_tpu_torch.nn.layers.rnn import RnnOutputLayer
 from deeplearning4j_tpu_torch.nn.losses import get_loss
 from deeplearning4j_tpu_torch.nn.updaters import normalize_layer_grad
+from deeplearning4j_tpu_torch.quant.qtensor import QTensor
 
 _DENSE = (DenseLayer, OutputLayer, RnnOutputLayer)
 _NOT_ELEMENTWISE = ("softmax", "logsoftmax")
 _SEP = "@"
+_NARROW = (torch.bfloat16, torch.float16)
 
 
 class Shards:
@@ -98,6 +118,19 @@ class Shards:
 
     def full(self) -> torch.Tensor:
         return torch.cat(self.parts, self.dim)
+
+    def is_floating_point(self) -> bool:
+        return self.parts[0].is_floating_point()
+
+    def to(self, dtype) -> "Shards":
+        """Each shard cast (a compute-dtype copy; autograd reaches the
+        float32 shards through it)."""
+        return Shards([p.to(dtype) for p in self.parts], self.dim)
+
+    def like(self, full: torch.Tensor) -> "Shards":
+        """``full`` (this leaf's whole shape) split as this leaf is."""
+        sizes = [p.shape[self.dim] for p in self.parts]
+        return Shards(list(torch.split(full, sizes, self.dim)), self.dim)
 
 
 class Split:
@@ -119,8 +152,52 @@ def gather(x):
 
 
 def full_params(p: Dict) -> Dict:
-    """A layer's parameters with every split leaf gathered."""
-    return {k: v.full() if isinstance(v, Shards) else v for k, v in p.items()}
+    """A layer's parameters with every split leaf gathered (nested dicts
+    too)."""
+    return {k: v.full() if isinstance(v, Shards)
+            else full_params(v) if isinstance(v, dict) else v
+            for k, v in p.items()}
+
+
+def split_parts(leaf, spec, m: int) -> list:
+    """``leaf`` (a tensor or a ``QTensor`` of the whole weight) as its
+    ``m`` shards by ``spec`` (``split_leaf``'s contiguous copies). A
+    QTensor's codes split as the weight; its scale (one a last-axis
+    channel) splits with a column split and is whole in every shard with
+    a row split."""
+    if not isinstance(leaf, QTensor):
+        return split_leaf(leaf, spec, m)
+    dim = split_dim(spec)
+    codes = split_leaf(leaf.codes, spec, m)
+    scales = (split_leaf(leaf.scale, spec, m) if leaf.scale.shape[dim] > 1
+              else [leaf.scale.clone() for _ in range(m)])
+    return [QTensor(c, sc) for c, sc in zip(codes, scales)]
+
+
+def gather_parts(parts, spec):
+    """``split_parts``' inverse: the whole leaf from its shards."""
+    if not isinstance(parts[0], QTensor):
+        return gather_leaf(parts, spec)
+    dim = split_dim(spec)
+    scale = parts[0].scale if parts[0].scale.shape[dim] == 1 else \
+        gather_leaf([p.scale for p in parts], spec)
+    return QTensor(gather_leaf([p.codes for p in parts], spec), scale)
+
+
+class _ShardNoise:
+    """A layer's weight noise over its shard leaves: the noise of each
+    split leaf drawn on the full weight's shape from the step's generator,
+    in the one-slot step's order (the layer's own ``apply`` over the
+    gathered leaves), then split as the leaf is; gradients reach the
+    shards through the gather."""
+
+    def __init__(self, noise):
+        self.noise = noise
+
+    def apply(self, params: Dict, gen) -> Dict:
+        full = self.noise.apply(full_params(params), gen)
+        return {k: v.like(full[k]) if isinstance(v, Shards) else full[k]
+                for k, v in params.items()}
 
 
 def _is_col(W) -> bool:
@@ -129,6 +206,52 @@ def _is_col(W) -> bool:
 
 def _is_row(W) -> bool:
     return isinstance(W, Shards) and W.dim == 0 and W.parts[0].ndim == 2
+
+
+def _row_sum(xs, ws):
+    """The row-split product: each shard's input slice times its weight
+    rows, summed in shard order. In bfloat16 / float16 the partials are
+    taken and summed in float32 and rounded once, as one product over
+    every row accumulates in float32 and rounds once."""
+    dt = ws[0].dtype
+    wide = dt in _NARROW
+    y = None
+    for xp, w in zip(xs, ws):
+        t = xp.float() @ w.float() if wide else xp @ w
+        y = t if y is None else y + t
+    return y.to(dt) if wide else y
+
+
+class _ColProducts(torch.autograd.Function):
+    """``x`` times each column shard of a bfloat16 / float16 weight. The
+    input's gradient is the shards' partials taken and summed in float32
+    and rounded once, as one product over every column accumulates in
+    float32 and rounds once (autograd would round each partial and sum in
+    the narrow type)."""
+
+    @staticmethod
+    def forward(ctx, x, *ws):
+        ctx.save_for_backward(x, *ws)
+        return tuple(x @ w for w in ws)
+
+    @staticmethod
+    def backward(ctx, *gys):
+        x, *ws = ctx.saved_tensors
+        x2 = x.reshape(-1, x.shape[-1])
+        dx, dws = None, []
+        for g, w in zip(gys, ws):
+            g2 = g.reshape(-1, g.shape[-1])
+            t = g2.float() @ w.float().T
+            dx = t if dx is None else dx + t
+            dws.append(x2.T @ g2)
+        return (dx.to(x.dtype).reshape(x.shape), *dws)
+
+
+def _col_products(x, ws) -> List[torch.Tensor]:
+    """``x @ w`` for each column shard ``w`` in shard order."""
+    if ws[0].dtype in _NARROW and torch.is_grad_enabled():
+        return list(_ColProducts.apply(x, *ws))
+    return [x @ w for w in ws]
 
 
 def _bias_part(b, s: int, m: int):
@@ -143,7 +266,10 @@ class _Heads(MultiHeadAttention):
     MultiHeadAttention's own, over the shard's cache or pool."""
 
     def _project_out(self, params, o, B, T, dt):
-        return o.reshape(B, T, self.n_out).to(dt) @ params["Wo"]
+        o = o.reshape(B, T, self.n_out).to(dt)
+        if dt in _NARROW:     # a float32 partial: the shards' sum rounds once
+            return o.float() @ params["Wo"].float()
+        return o @ params["Wo"]
 
 
 def heads_of(layer: MultiHeadAttention, m: int) -> _Heads:
@@ -171,7 +297,18 @@ class TPLayer:
     def __getattr__(self, name):
         if name in ("inner", "heads"):
             raise AttributeError(name)
-        return getattr(self.inner, name)
+        attr = getattr(self.inner, name)
+        if name == "apply_with_carry":
+            # a recurrent layer's carried run (truncated BPTT) over its
+            # gathered parameters and input
+            return lambda params, x, carry=None, mask=None: attr(
+                full_params(params), gather(x), carry, mask=mask)
+        return attr
+
+    @property
+    def weight_noise(self):
+        wn = self.inner.weight_noise
+        return None if wn is None else _ShardNoise(wn)
 
     def reg_loss(self, params):
         return self.inner.reg_loss(full_params(params))
@@ -181,9 +318,11 @@ class TPLayer:
         return self.inner.maybe_dropout(gather(x), train=train, gen=gen)
 
     # ---------------------------------------------------------------- dense
-    def _dense_pre(self, p, x, train, gen):
+    def _dense_pre(self, p, x, train, gen, promote=False):
         """The dense pre-activation on shards: a Split for a column-split
-        ``W``, the summed partials for a row-split one."""
+        ``W``, the summed partials for a row-split one. ``promote``: a
+        lower-precision input meets the weights in the wider type, as the
+        output layers' ``compute_score`` has it."""
         inner, m = self.inner, self.m
         W, b = p["W"], (p.get("b") if inner.has_bias else None)
         if not (isinstance(x, Split) and _is_row(W)
@@ -191,15 +330,18 @@ class TPLayer:
             x = self._input(x, train, gen)
             if x.ndim >= 4 or (x.ndim == 3 and x.shape[-1] != inner.n_in):
                 x = x.reshape(x.shape[0], -1)  # implicit CNN->FF flatten
+        if promote:
+            wdt = (W.parts[0] if isinstance(W, Shards) else W).dtype
+            x = (Split([q.to(torch.promote_types(q.dtype, wdt))
+                        for q in x.parts]) if isinstance(x, Split)
+                 else x.to(torch.promote_types(x.dtype, wdt)))
         if _is_col(W):
-            return Split([x @ w + (0 if b is None else _bias_part(b, s, m))
-                          for s, w in enumerate(W.parts)])
+            return Split([y + (0 if b is None else _bias_part(b, s, m))
+                          for s, y in enumerate(_col_products(x, W.parts))])
         if _is_row(W):
             xs = x.parts if isinstance(x, Split) else \
                 torch.split(x, [w.shape[0] for w in W.parts], dim=-1)
-            y = xs[0] @ W.parts[0]
-            for xp, w in zip(xs[1:], W.parts[1:]):
-                y = y + xp @ w
+            y = _row_sum(xs, W.parts)
             return y if b is None else y + b
         y = x @ (W.full() if isinstance(W, Shards) else W)
         return y if b is None else y + b
@@ -217,9 +359,11 @@ class TPLayer:
         x = self._input(x, train, gen)
         B, T, _ = x.shape
         H, Dh = inner.n_heads // m, inner.head_dim
-        out = None
+        qs, ks, vs = (_col_products(x, p[n].parts)
+                      for n in ("Wq", "Wk", "Wv"))
+        os = []
         for s in range(m):
-            q, k, v = (x @ p[n].parts[s] for n in ("Wq", "Wk", "Wv"))
+            q, k, v = qs[s], ks[s], vs[s]
             if inner.has_bias:
                 q = q + _bias_part(p["bq"], s, m)
                 k = k + _bias_part(p["bk"], s, m)
@@ -228,8 +372,8 @@ class TPLayer:
                 q.reshape(B, T, H, Dh), k.reshape(B, T, H, Dh),
                 v.reshape(B, T, H, Dh), causal=inner.causal, mask=mask,
                 train=train)
-            part = o.reshape(B, T, H * Dh).to(q.dtype) @ p["Wo"].parts[s]
-            out = part if out is None else out + part
+            os.append(o.reshape(B, T, H * Dh).to(q.dtype))
+        out = _row_sum(os, p["Wo"].parts)
         return out + p["bo"] if inner.has_bias else out
 
     # -------------------------------------------------------------- conv
@@ -263,7 +407,7 @@ class TPLayer:
                 and isinstance(W, Shards) and W.parts[0].ndim == 2):
             return inner.compute_score(full_params(params), gather(x),
                                        labels, mask, train=train, gen=gen)
-        pre = gather(self._dense_pre(params, x, train, gen))
+        pre = gather(self._dense_pre(params, x, train, gen, promote=True))
         if pre.ndim == 3:  # (B, T, C) time-distributed loss
             B, T, C = pre.shape
             pre = pre.reshape(B * T, C)
@@ -285,9 +429,11 @@ class TPLayer:
 
     def _over_heads(self, name, params, dstate, x, *args, **kw):
         """``name`` once a shard, over the shard's heads and its own
-        decode state; the outputs summed in shard order, then ``bo``."""
+        decode state; the outputs summed in shard order, then ``bo``; any
+        further output (``tree_chunk``'s K/V window) as a list in shard
+        order, None where no shard has one."""
         x = gather(x)
-        y, states, rest = None, {}, ()
+        y, states, rest = None, {}, []
         for s in range(self.m):
             out = getattr(self.heads, name)(
                 self._shard_params(params, s),
@@ -295,10 +441,14 @@ class TPLayer:
             y = out[0] if y is None else y + out[0]
             for k, v in out[1].items():
                 states.setdefault(k, []).append(v)
-            rest = out[2:]
+            rest.append(out[2:])
+        if x.dtype in _NARROW:
+            y = y.to(x.dtype)
         if self.inner.has_bias:
             y = y + params["bo"]
-        return (y, states) + tuple(rest)
+        extra = tuple(None if all(r[i] is None for r in rest)
+                      else [r[i] for r in rest] for i in range(len(rest[0])))
+        return (y, states) + extra
 
     def _decode(self, name, params, dstate, x, *args, **kw):
         """A decode method: over head shards, through ``apply`` on shards
@@ -330,21 +480,25 @@ class TPLayer:
 
     def tree_chunk(self, params, dstate, x, pos0, tree, n,
                    block_tables=None):
-        if self.heads is not None:
-            raise NotImplementedError(
-                "speculative decoding over attention head shards is not "
-                "ported (ROADMAP item 7)")
+        """A verify's scoring: over head shards, each shard's K8 over its
+        heads of the nodes' effective caches; the window a list of the
+        shards' ``{"k", "v"}`` (B, N, H/m, Dh)."""
         return self._decode("tree_chunk", params, dstate, x, pos0, tree, n,
                             block_tables=block_tables)
 
     def tree_commit(self, params, dstate, kv_window, path, pos0, commit_n,
                     block_tables=None):
-        if self.heads is not None:
-            raise NotImplementedError(
-                "speculative decoding over attention head shards is not "
-                "ported (ROADMAP item 7)")
-        return self.inner.tree_commit(params, dstate, kv_window, path, pos0,
-                                      commit_n, block_tables=block_tables)
+        """The accepted path's K/V written into each shard's cache from
+        that shard's window."""
+        if self.heads is None:
+            return self.inner.tree_commit(params, dstate, kv_window, path,
+                                          pos0, commit_n,
+                                          block_tables=block_tables)
+        outs = [self.heads.tree_commit(
+            None, {k: v[s] for k, v in dstate.items()}, kv_window[s], path,
+            pos0, commit_n, block_tables=block_tables)
+            for s in range(self.m)]
+        return {k: [o[k] for o in outs] for k in outs[0]}
 
     def _state_over_heads(self, name, *args):
         parts = [getattr(self.heads, name)(None, *args)
@@ -376,6 +530,15 @@ class TPLayer:
             dtype, device)
 
 
+def _copy_leaf(dst, src) -> None:
+    """``src`` into ``dst`` in place (a QTensor by its codes and scale)."""
+    if isinstance(dst, QTensor):
+        dst.codes.copy_(src.codes)
+        dst.scale.copy_(src.scale)
+    else:
+        dst.copy_(src)
+
+
 def _members(tree):
     return list(tree.items()) if isinstance(tree, dict) \
         else list(enumerate(tree))
@@ -402,6 +565,33 @@ def _normalize(g: Dict, kind, thr) -> Dict:
     return out
 
 
+def _undivided_heads(layers, specs, m: int):
+    """The first ``(member, layer)`` of attention whose head count the
+    model axis does not divide while ``param_spec`` splits its ``Wq``;
+    None when there is none."""
+    for mk, layer in layers.items():
+        if (type(layer) is MultiHeadAttention
+                and specs.get(mk, {}).get("Wq") and layer.n_heads % m):
+            return mk, layer
+    return None
+
+
+def _container_layers(model):
+    """``[(member, layer)]``: a graph's layer nodes, or an MLN's layers."""
+    if isinstance(model.params, dict):
+        return [(n, model.conf.nodes[n].layer)
+                for n in model.conf.layer_nodes()]
+    return list(enumerate(model.layers))
+
+
+def heads_divide(model, m: int, axis: str = "model") -> bool:
+    """Whether ``model``'s tensor-parallel form over ``m`` shards can be
+    built: every head-split attention layer's heads divide over them."""
+    specs = dict(_members(tree_specs(model.params, m, axis)))
+    return _undivided_heads(dict(_container_layers(model)), specs,
+                            m) is None
+
+
 class TensorParallel:
     """The tensor-parallel form of a MultiLayerNetwork or ComputationGraph
     over ``model_size`` model shards: the spec of every leaf, the resident
@@ -415,29 +605,15 @@ class TensorParallel:
                  train: bool = True):
         self.model, self.m, self.axis = model, int(model_size), axis
         self.graph = isinstance(model.params, dict)
-        gc = model.conf.global_conf
-        if gc.compute_dtype or (train
-                                and model._compute_dtype(True) is not None):
-            raise NotImplementedError(
-                "tensor parallelism computes in the parameters' dtype; a "
-                "compute dtype or the bf16 train-precision policy is not "
-                "taken (ROADMAP item 7)")
-        self.layers = dict(self._layers())
-        for key, layer in self.layers.items():
-            if train and (layer.weight_noise is not None
-                          or layer.constraints):
-                raise NotImplementedError(
-                    f"layer {key!r}: weight noise and constraints are not "
-                    "taken under tensor parallelism (ROADMAP item 7)")
+        self.layers = dict(_container_layers(model))
         self.specs = dict(_members(tree_specs(model.params, self.m, axis)))
-        for mk, layer in self.layers.items():
-            sp = self.specs.get(mk, {})
-            if (type(layer) is MultiHeadAttention and sp.get("Wq")
-                    and layer.n_heads % self.m):
-                raise ValueError(
-                    f"layer {mk!r}: {layer.n_heads} heads do not divide over "
-                    f"{self.m} model shards; param_spec's split of Wq / Wk / "
-                    "Wv would fall inside a head")
+        bad = _undivided_heads(self.layers, self.specs, self.m)
+        if bad:
+            mk, layer = bad
+            raise ValueError(
+                f"layer {mk!r}: {layer.n_heads} heads do not divide over "
+                f"{self.m} model shards; param_spec's split of Wq / Wk / "
+                "Wv would fall inside a head")
         self.shadow = self._shadow()
         self.params: Dict = {}
         self.opt: Dict = {}
@@ -447,12 +623,6 @@ class TensorParallel:
             self.load()
 
     # ------------------------------------------------------------- layout
-    def _layers(self):
-        if self.graph:
-            return [(n, self.model.conf.nodes[n].layer)
-                    for n in self.model.conf.layer_nodes()]
-        return list(enumerate(self.model.layers))
-
     def _split(self, mk, k) -> Optional[int]:
         return split_dim(self.specs[mk][k])
 
@@ -561,10 +731,12 @@ class TensorParallel:
 
     @torch.no_grad()
     def split(self, tree, into: Optional[Dict] = None) -> Dict:
-        """A parameter tree in the container's structure (its own, or a
-        swap candidate) as leaves keyed like ``params`` -- each split leaf
-        as its shards (``W@0``, ``W@1``, ...), the others cloned -- or,
-        with ``into``, copied into those leaves in place."""
+        """A parameter tree in the container's structure (its own, a swap
+        candidate, an int8 / fp8 tree quantized whole, or a subset of its
+        members keyed by member) as leaves keyed like ``params`` -- each
+        split leaf as its shards (``W@0``, ``W@1``, ...; ``split_parts``),
+        the others cloned -- or, with ``into``, copied into those leaves
+        in place."""
         out = {} if into is None else into
         for mk, p in _members(tree):
             d = out.setdefault(mk, {})
@@ -574,12 +746,31 @@ class TensorParallel:
                     parts = {k: v}
                 else:
                     parts = {f"{k}{_SEP}{s}": c for s, c in
-                             enumerate(split_leaf(v, spec, self.m))}
+                             enumerate(split_parts(v, spec, self.m))}
                 for key, c in parts.items():
-                    if into is None:
-                        d[key] = c.detach().clone() if c is v else c
+                    if into is not None:
+                        _copy_leaf(d[key], c)
+                    elif c is not v:
+                        d[key] = c
                     else:
-                        d[key].copy_(c)
+                        d[key] = (QTensor(c.codes.clone(), c.scale.clone())
+                                  if isinstance(c, QTensor)
+                                  else c.detach().clone())
+        return out
+
+    def gather(self, leaves) -> Dict:
+        """``split``'s inverse: the leaves keyed like ``params`` (a set's
+        shards, float or quantized) as whole leaves by member, in the
+        container's keys."""
+        out = {}
+        for mk, p in _members(self.model.params):
+            if mk not in leaves:
+                continue
+            out[mk] = {k: leaves[mk][k] if self._split(mk, k) is None
+                       else gather_parts([leaves[mk][f"{k}{_SEP}{s}"]
+                                          for s in range(self.m)],
+                                         self.specs[mk][k])
+                       for k in p}
         return out
 
     def sync(self) -> None:
@@ -590,28 +781,32 @@ class TensorParallel:
 
     # ----------------------------------------------------------- training
     def view(self, leaves):
-        """The container-shaped parameters over ``leaves``: a split leaf as
-        ``Shards`` of its shard leaves."""
+        """The container-shaped parameters over ``leaves`` (every member,
+        or a subset: a MultiLayerNetwork's in member order): a split leaf
+        as ``Shards`` of its shard leaves."""
         out = {}
         for mk, p in _members(self.model.params):
+            if mk not in leaves:
+                continue
             d = {}
             for k in p:
                 dim = self._split(mk, k)
                 d[k] = leaves[mk][k] if dim is None else Shards(
                     [leaves[mk][f"{k}{_SEP}{s}"] for s in range(self.m)], dim)
             out[mk] = d
-        return out if self.graph else [out[i] for i in range(len(out))]
+        return out if self.graph else [out[i] for i in sorted(out)]
 
     def gradients(self, loss_of, scale=None):
-        """(loss, gradients keyed like ``self.params``): ``loss_of(net,
-        params)`` is the container's loss through the tensor-parallel
-        copy ``net`` at the shard view ``params``; ``scale`` multiplies
-        the loss before the backward."""
+        """(loss, gradients keyed like ``self.params``, new carries):
+        ``loss_of(net, params)`` is the container's (loss, new carries)
+        through the tensor-parallel copy ``net`` at the shard view
+        ``params``; ``scale`` multiplies the loss before the backward.
+        The carries come back detached."""
         leaves = {mk: {k: v.detach().requires_grad_(v.is_floating_point())
                        for k, v in p.items()}
                   for mk, p in self.params.items()}
         with torch.enable_grad():
-            loss = loss_of(self.shadow, self.view(leaves))
+            loss, carries = loss_of(self.shadow, self.view(leaves))
             if scale is not None:
                 loss = loss * scale
             flat = [v for p in leaves.values() for v in p.values()]
@@ -623,7 +818,7 @@ class TensorParallel:
             for k, v in p.items():
                 g = next(it)
                 grads[mk][k] = torch.zeros_like(v) if g is None else g
-        return loss.detach(), grads
+        return loss.detach(), grads, map_tree(lambda t: t.detach(), carries)
 
     def _transforms(self):
         t = self.model._transforms
@@ -665,3 +860,38 @@ class TensorParallel:
                 v.copy_(v + u[k])
             for k, v in slots.items():
                 self.opt[mk][k].copy_(v)
+            self._constrain(mk)
+
+    def _constrain(self, mk) -> None:
+        """The member's constraints (``Layer.apply_constraints``) after
+        its update, in place over its shards: elementwise ones shard by
+        shard; a norm over every axis but the last from the squared norms
+        of each shard, summed over the shards where the leaf is split on
+        an axis the norm spans (a row split), each shard's own where the
+        split is the last axis (a column split)."""
+        layer, p = self.layers[mk], self.params[mk]
+        if not layer.constraints:
+            return
+        kind = layer.constraints[0]
+        for k in dict(_members(self.model.params))[mk]:
+            if k.startswith("b") or "/" in k:
+                continue
+            dim = self._split(mk, k)
+            if dim is None:
+                p[k].copy_(layer.apply_constraints({k: p[k]})[k])
+                continue
+            parts = [p[f"{k}{_SEP}{s}"] for s in range(self.m)]
+            if kind == "nonneg":
+                for v in parts:
+                    v.clamp_(min=0.0)
+                continue
+            axes = tuple(range(parts[0].ndim - 1))
+            sq = [(v ** 2).sum(dim=axes, keepdim=True) for v in parts]
+            if dim != parts[0].ndim - 1:
+                total = sq[0]
+                for q in sq[1:]:
+                    total = total + q
+                sq = [total] * self.m
+            for v, q in zip(parts, sq):
+                v.copy_(rescaled_by_norm(layer.constraints, v,
+                                         torch.sqrt(q)))

@@ -440,48 +440,67 @@ class ParallelWrapper:
                         if n.kind == "layer"])
         return any(isinstance(l, BatchNormalization) for l in layers)
 
-    def _loss_of(self, net, params, xs, ys, mls, mfs):
-        """The container's loss through ``net`` (the tensor-parallel copy)
-        at ``params``, the layer state written."""
+    def _loss_of(self, net, params, xs, ys, mls, mfs, carries=None):
+        """The container's (loss, new carries) through ``net`` (the
+        tensor-parallel copy) at ``params`` from ``carries`` (truncated
+        BPTT; None: zero state), the layer state written."""
         m = self.model
         if isinstance(m.params, dict):
             return net._loss(params, xs, ys, mls, self._masks_by_input(mfs),
-                             gen=m._gen, state=m.state)[0]
+                             gen=m._gen, carries=carries, state=m.state)
         return net._loss(params, xs[0], ys[0],
-                         None if mls is None else mls[0], None,
+                         None if mls is None else mls[0], carries,
                          None if mfs is None else mfs[0], gen=m._gen,
-                         state=m.state)[0]
+                         state=m.state)
 
-    def _grad_fn(self, xs, ys, mls, mfs, scale):
+    def _grad_fn(self, xs, ys, mls, mfs, scale, carries=None):
         """The gradient program: the rank's loss and gradients at the
-        resident parameters (the layer state written), flattened; under
-        tensor parallelism each model shard's gradients at its shards."""
+        resident parameters (the layer state written), flattened, and the
+        new carries (None without ``carries``); under tensor parallelism
+        each model shard's gradients at its shards."""
         m = self.model
         if self._tp is not None:
-            loss, grads = self._tp.gradients(
-                lambda net, p: self._loss_of(net, p, xs, ys, mls, mfs),
-                scale)
-            return self._layout.flatten(grads, loss)
+            loss, grads, new = self._tp.gradients(
+                lambda net, p: self._loss_of(net, p, xs, ys, mls, mfs,
+                                             carries), scale)
+            return self._layout.flatten(grads, loss), new
         if isinstance(m.params, dict):
-            loss, grads, _ = m._gradients(xs, ys, mls,
-                                          self._masks_by_input(mfs), m._gen,
-                                          None, m.state, scale)
+            loss, grads, new = m._gradients(xs, ys, mls,
+                                            self._masks_by_input(mfs),
+                                            m._gen, carries, m.state, scale)
         else:
-            loss, grads, _ = m._gradients(
-                xs[0], ys[0], None if mls is None else mls[0], None,
+            loss, grads, new = m._gradients(
+                xs[0], ys[0], None if mls is None else mls[0], carries,
                 None if mfs is None else mfs[0], m._gen, m.state, scale)
-        return self._layout.flatten(grads, loss)
+        return self._layout.flatten(grads, loss), new
 
     def _upd_fn(self, flats):
         """The update program: the container's update over the reduced
         gradients (the loss slot left out)."""
-        f32 = self._layout.loss_at
-        flats = [f[:-1] if i == f32 else f for i, f in enumerate(flats)]
-        grads = self._layout.unflatten(flats)
+        grads = self._unflat(flats)
         if self._tp is not None:
             self._tp.apply_updates(grads)
         else:
             self.model._dp_apply_updates(grads)
+
+    def _upd_fn_sampled(self, flats):
+        """The tensor-parallel update with the flight recorder's (L, 5)
+        telemetry (monitor/flight.py) from the shards copied before the
+        update, those after it and the reduced gradients: per layer over
+        all its shard leaves, so each norm is the whole leaf's."""
+        from deeplearning4j_tpu_torch.monitor.flight import (
+            compute_telemetry, snapshot, telemetry_triples)
+        grads = self._unflat(flats)
+        tp = self._tp
+        old = snapshot(tp.params)
+        tp.apply_updates(grads)
+        return compute_telemetry(telemetry_triples(
+            old, tp.params, dict(_members(grads)), self.model.conf))
+
+    def _unflat(self, flats):
+        f32 = self._layout.loss_at
+        return self._layout.unflatten(
+            [f[:-1] if i == f32 else f for i, f in enumerate(flats)])
 
     def _programs(self):
         """The gradient and update programs, built anew (with the slots'
@@ -504,6 +523,9 @@ class ParallelWrapper:
                                   caller=caller, name="dp_grad_b{B}")
             self._upd = ex.steps(self._upd_fn, caller=caller,
                                  name="dp_apply_updates")
+            # the flight recorder's sampled update, beside the plain one
+            self._upd_rec = ex.steps(self._upd_fn_sampled, caller=caller,
+                                     name="dp_apply_updates_telemetry")
 
     def _scale(self, batch: _Batch, mls):
         """This rank's share of the global rows (a 0-dim float32 tensor),
@@ -528,6 +550,12 @@ class ParallelWrapper:
         """The gradient program on the rank's rows at ``iteration``,
         reduced over the group: the flat buffers (float32 last element:
         the loss)."""
+        return self._reduced_gradients(batch, pm, iteration)[0]
+
+    def _reduced_gradients(self, batch: _Batch, pm, iteration: int,
+                           carries=None):
+        """``_sync_gradients`` from ``carries`` (truncated BPTT; None:
+        zero state): (the flat buffers, the new carries)."""
         from deeplearning4j_tpu_torch.nn.layers.conv import \
             BatchNormalization
         self._programs()
@@ -543,7 +571,8 @@ class ParallelWrapper:
             BatchNormalization.batch_stats = staticmethod(
                 _global_batch_stats)
         try:
-            flats = self._grad(xs, ys, dmls, mfs, scale, eager=self._eager())
+            flats, new = self._grad(xs, ys, dmls, mfs, scale, carries,
+                                    eager=self._eager())
         finally:
             if bn:
                 BatchNormalization.batch_stats = None
@@ -554,21 +583,28 @@ class ParallelWrapper:
                 self.comm["bytes"] += f.numel() * f.element_size()
             self.comm["calls"] += len(flats)
             self.comm["seconds"] += time.perf_counter() - t0
-        return flats
+        return flats, new
 
-    def _sync_step(self, batch: _Batch, pm, iteration: int):
-        """One synchronous step; returns the global loss (a device
-        scalar)."""
-        flats = self._sync_gradients(batch, pm, iteration)
+    def _sync_step(self, batch: _Batch, pm, iteration: int, carries=None,
+                   telemetry: bool = False):
+        """One synchronous step from ``carries`` (truncated BPTT; None:
+        zero state): (the global loss, a device scalar; the new carries;
+        the flight recorder's telemetry where ``telemetry`` asks for the
+        sampled update of the tensor-parallel form, else None)."""
+        flats, new = self._reduced_gradients(batch, pm, iteration, carries)
         loss = flats[self._layout.loss_at][-1].clone()
+        telem = None
         if self._tp is not None:
             m = self.model
             self._tp.stage()
-            self._upd(flats, eager=not m._capture_steps)
+            if telemetry:
+                telem = self._upd_rec(flats, eager=not m._capture_steps)
+            else:
+                self._upd(flats, eager=not m._capture_steps)
             self._tp.advance()
         else:
             self.model._run(self._upd, self._upd_fn, flats)
-        return loss
+        return loss, new, telem
 
     def _tp_sync(self):
         """The tensor-parallel shards up to date with the container."""
@@ -669,7 +705,7 @@ class ParallelWrapper:
         batch, pm = self._prepare(ds)
         self._tp_sync()
         try:
-            model._score = self._sync_step(batch, pm, model.iteration)
+            model._score = self._sync_step(batch, pm, model.iteration)[0]
         finally:
             self._tp_store()
         model.iteration += 1
@@ -713,7 +749,7 @@ class ParallelWrapper:
             self._tp_sync()
             try:
                 for s, b in enumerate(steps):
-                    loss = self._sync_step(b, None, it0 + s)
+                    loss = self._sync_step(b, None, it0 + s)[0]
             finally:
                 self._tp_store()
         else:

@@ -85,10 +85,18 @@ theirs.
   beside it (``stats()["model_parallel"]``, a key only such an engine's
   stats have); the slots over the data
   axis are placement on one card and run in the one launch. The prefix
-  cache, chunked prefill, ``warmup`` and ``swap_weights`` hold as
-  without it; speculation, the host KV tier, KV migration and int8 /
-  fp8 under a model axis are not ported (``NotImplementedError``,
-  ROADMAP item 7).
+  cache, chunked prefill, ``warmup``, ``swap_weights``, int8 / fp8 (the
+  whole tree quantized, then split) and speculation hold as without it:
+  the verify scores and commits each shard's heads in its own cache (K8
+  once a layer and shard), and a self-draft, the target as its own draft
+  or a draft model whose heads divide over the axis decodes over its
+  own head-split dense cache (a draft whose heads do not divide decodes
+  unsplit). The host tier's rows and a migrated chain's are the unsplit
+  layout, (n, bs, H, Dh) under the unsplit leaf's key
+  (``['b0_attn']['pk']``), gathered from the shards on the head dim and
+  split back into them on a write (``_PoolLeaf``), and the envelope's
+  ``model_sig`` is the gathered set's: a chain moves between a TP
+  engine, an unsplit one and the JAX engine either way.
 - KV as host bytes. The host tier's spills and restores and a chain's
   export and import move rows between the pool tensors and host numpy
   arrays: ``index_select`` and a read, ``index_copy_`` of a staged copy.
@@ -193,6 +201,38 @@ _SPEC_COUNTERS = {
                         "Drafted tokens accepted by target verification "
                         "(exact-match against the sampling oracle)."),
 }
+
+
+class _PoolLeaf:
+    """One pool leaf of the decode state as the host tier and the
+    migration wire see it: (num_blocks, bs, H, Dh) rows, over the tensor
+    itself, or over its model shards (a list of (num_blocks, bs, H/m,
+    Dh) tensors in shard order) concatenated on the head dim."""
+
+    def __init__(self, parts):
+        self.parts = parts
+        lead = tuple(parts[0].shape)
+        self.shape = lead[:2] + (sum(p.shape[2] for p in parts),) + lead[3:]
+        self.dtype = parts[0].dtype
+        self.row_numel = int(np.prod(self.shape[1:]))
+
+    def row_dtype(self) -> np.dtype:
+        """The numpy dtype its host rows are held in (bfloat16 as uint16
+        words)."""
+        return (np.dtype(np.uint16) if self.dtype == torch.bfloat16
+                else np.dtype(row_dtype(self)))
+
+    def select(self, idx) -> torch.Tensor:
+        """Blocks ``idx`` in the unsplit layout (one device copy)."""
+        got = [p.index_select(0, idx) for p in self.parts]
+        return got[0] if len(got) == 1 else torch.cat(got, dim=2)
+
+    def write(self, idx, rows) -> None:
+        """``rows`` (n, bs, H, Dh) into blocks ``idx`` of every shard, in
+        place, each shard its heads."""
+        sizes = [p.shape[2] for p in self.parts]
+        for p, r in zip(self.parts, torch.split(rows, sizes, dim=2)):
+            p.index_copy_(0, idx, r)
 
 
 class _Request:
@@ -319,11 +359,6 @@ class DecodeEngine:
         # with a model axis
         form = self._weights_set.form
         self._net = model if form is None else form.shadow
-        if form is not None and (spec is not None
-                                 or host_kv_bytes is not None):
-            raise NotImplementedError(
-                "speculative decoding and the host KV tier on a mesh with a "
-                "model axis are not ported (ROADMAP item 7)")
         self._pending_swap = None
         self._version = 0
         self._spec = spec
@@ -496,21 +531,29 @@ class DecodeEngine:
                 "spec needs exactly one of draft_model or self_draft "
                 f"(got draft_model={dm!r}, "
                 f"self_draft={spec.self_draft!r})")
-        own = self._params
-        # _draft_source: the float32 weights a quantized draft is made
-        # (and refreshed) from, as a function of the target's float32 tree
+        own, form = self._params, self._weights_set.form
+        # dform: the tensor-parallel form the draft's set is split by (the
+        # target's under a model axis, a draft model's own when its heads
+        # divide over it); _draft_source: the float32 weights a quantized
+        # draft is made (and refreshed) from, as a function of the
+        # target's float32 tree
+        dform, follows = form, None
         if spec.self_draft is not None:
-            dm, dprec = build_self_draft(self.model, spec)
-            if dm is self.model:
+            dm, dprec = build_self_draft(self._net, spec)
+            if dm is self._net:
                 # int8 / fp8: the target from its own quantized copy
                 dparams, self._draft_source = None, (lambda t: t)
             else:
                 # the target's first M layers and readout, in the
-                # engine's set
-                dparams = [own[i] for i in range(dm.m)] + [own[-1]]
+                # engine's set (by member under a model axis)
+                keep = list(range(dm.m)) + [len(self.model.layers) - 1]
+                dparams = ([own[i] for i in range(dm.m)] + [own[-1]]
+                           if form is None else {i: own[i] for i in keep})
                 if dprec is not None:
                     self._draft_source = (
-                        lambda t, m=dm.m: [t[i] for i in range(m)] + [t[-1]])
+                        (lambda t, m=dm.m: [t[i] for i in range(m)]
+                         + [t[-1]]) if form is None else
+                        (lambda t: {i: t[i] for i in keep}))
         elif input_type_of(dm).size != self.vocab:
             raise ValueError(
                 f"draft model vocabulary ({input_type_of(dm).size}) must "
@@ -519,19 +562,41 @@ class DecodeEngine:
             dprec = spec.draft_precision
             # the target as its own draft reads the engine's set too
             dparams = own if dm is self.model else None
-            if dm is self.model and dprec is not None:
-                self._draft_source = lambda t: t
+            if dm is self.model:
+                dm = self._net
+                if dprec is not None:
+                    self._draft_source = lambda t: t
+            elif form is not None:
+                dform = self._draft_form(dm)
+                if dform is not None:
+                    if dprec is None:
+                        dparams, follows = dform.split(dm.params), dm
+                    dm = dform.shadow
         self._spec_tree.tensors(self.device)
-        self._verifier = SpecVerifier(self.model, self.slots,
+        self._verifier = SpecVerifier(self._net, self.slots,
                                       self._spec_tree, self.vocab,
-                                      max_blocks=self._max_blocks)
+                                      max_blocks=self._max_blocks,
+                                      net_of=self._weights_set.net)
         source = (None if self._draft_source is None
                   else self._draft_source(self.model.params))
         self._draft = DraftEngine(dm, self.slots, self.max_len, self._spec_k,
                                   self.vocab, precision=dprec,
                                   side_k=max(self._spec_tree.kvec) - 1,
                                   params=dparams, source=source,
-                                  owner=self.id)
+                                  owner=self.id, form=dform,
+                                  follows=follows)
+
+    def _draft_form(self, draft):
+        """A draft model's own tensor-parallel form over the target's
+        model axis (its attention over head shards), or None where its
+        heads do not divide over the axis: it then decodes over its own
+        gathered parameters."""
+        from deeplearning4j_tpu_torch.parallel.tensor_parallel import (
+            TensorParallel, heads_divide)
+        m = self._execu.model_size
+        if not heads_divide(draft, m):
+            return None
+        return TensorParallel(draft, m, train=False)
 
     def _check_no_carries(self):
         """The prefix cache shares KV blocks between requests; a recurrent
@@ -966,9 +1031,12 @@ class DecodeEngine:
     def _follow_model(self):
         """Until the first swap, a float32 engine copies the model's
         parameters into its set in place whenever they moved (and
-        refreshes a quantized draft from them)."""
+        refreshes a quantized draft from them); a draft model's float32
+        shard set follows that model (``DraftEngine.follow``)."""
         if self._weights_set.follow() and self._draft_source is not None:
             self._draft.refresh(self._draft_source(self.model.params))
+        if self._draft is not None and self._draft.follows is not None:
+            self._draft.follow()
 
     # ------------------------------------------------------------ scheduler
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 32,
@@ -1455,10 +1523,20 @@ class DecodeEngine:
 
     # ------------------------------------------------- KV rows on the host
     def _pool_leaf_items(self):
-        """``[(key, leaf)]`` of the decode state's pool tensors, keyed by
+        """``[(key, tensor)]`` of every pool tensor of the decode state
+        (a head-split leaf's shards in shard order under its one key)."""
+        return [(k, t) for k, leaf in self._pool_leaves()
+                for t in leaf.parts]
+
+    def _pool_leaves(self):
+        """``[(key, leaf)]`` of the decode state's pool leaves, keyed by
         the JAX package's path strings (``jax.tree_util.keystr``:
-        ``['b0_attn']['pk']``), the migration wire's leaf identity. The
-        state is resident (never rebound), so the walk is made once."""
+        ``['b0_attn']['pk']``), the migration wire's leaf identity: each a
+        ``_PoolLeaf`` in the unsplit layout (num_blocks, bs, H, Dh), whose
+        head dim is the shards' concatenated in shard order where a model
+        axis splits the pool into a list of (num_blocks, bs, H/m, Dh)
+        tensors. The state is resident (never rebound), so the walk is
+        made once."""
         if self._leaf_items is not None and \
                 self._leaf_items[0] is self._dstate:
             return self._leaf_items[1]
@@ -1468,11 +1546,14 @@ class DecodeEngine:
             if isinstance(t, dict):
                 for k, v in t.items():
                     walk(v, f"{path}[{k!r}]", keys + (k,))
+            elif isinstance(t, (list, tuple)) and is_pool_path(keys) and \
+                    t and all(isinstance(v, torch.Tensor) for v in t):
+                out.append((path, _PoolLeaf(list(t))))
             elif isinstance(t, (list, tuple)):
                 for i, v in enumerate(t):
                     walk(v, f"{path}[{i}]", keys + (i,))
             elif isinstance(t, torch.Tensor) and is_pool_path(keys):
-                out.append((path, t))
+                out.append((path, _PoolLeaf([t])))
         walk(self._dstate, "", ())
         self._leaf_items = (self._dstate, out)
         return out
@@ -1480,21 +1561,20 @@ class DecodeEngine:
     def _gather_rows(self, bids):
         """The given blocks of every pool leaf, read to the host in ONE
         copy (the leaves' bytes side by side): key -> ``(n, bs, H, Dh)``
-        numpy array (bfloat16 as its uint16 words). On the programs'
-        stream, so it reads after the replays that wrote them."""
+        numpy array (bfloat16 as its uint16 words), the unsplit layout
+        whatever the head split. On the programs' stream, so it reads
+        after the replays that wrote them."""
         n = len(bids)
         idx = torch.as_tensor(list(bids), dtype=torch.long).to(self.device)
-        items = self._pool_leaf_items()
-        raw = torch.cat([leaf.index_select(0, idx).reshape(n, -1)
-                         .view(torch.uint8) for _, leaf in items],
-                        dim=1).cpu().numpy()
+        items = self._pool_leaves()
+        raw = torch.cat([leaf.select(idx).reshape(n, -1).view(torch.uint8)
+                         for _, leaf in items], dim=1).cpu().numpy()
         out, ofs = {}, 0
         for key, leaf in items:
-            dt = (np.dtype(np.uint16) if leaf.dtype == torch.bfloat16
-                  else np.dtype(row_dtype(leaf)))
-            width = leaf[0].numel() * dt.itemsize
+            dt = leaf.row_dtype()
+            width = leaf.row_numel * dt.itemsize
             out[key] = raw[:, ofs:ofs + width].copy().view(dt).reshape(
-                (n,) + tuple(leaf.shape[1:]))
+                (n,) + leaf.shape[1:])
             ofs += width
         return out
 
@@ -1513,18 +1593,19 @@ class DecodeEngine:
     def _apply_host_rows(self, writes):
         """Write ``[(block, {leaf key: (bs, H, Dh) row})]`` into the pool
         leaves IN PLACE (the programs read them by address): one staged
-        copy and one ``index_copy_`` a leaf. Rows still to be spilled are
-        read first: a written block may be one just evicted."""
+        copy and one ``index_copy_`` a leaf (a shard, split on the head
+        dim). Rows still to be spilled are read first: a written block
+        may be one just evicted."""
         self._flush_spills()
         if not writes:
             return
         idx = torch.as_tensor([b for b, _ in writes],
                               dtype=torch.long).to(self.device)
-        for key, leaf in self._pool_leaf_items():
+        for key, leaf in self._pool_leaves():
             rows = np.stack([r[key] for _, r in writes])
             t = (torch.from_numpy(rows.view(np.int16)).view(torch.bfloat16)
                  if leaf.dtype == torch.bfloat16 else torch.from_numpy(rows))
-            leaf.index_copy_(0, idx, t.to(self.device))
+            leaf.write(idx, t.to(self.device))
 
     def _land_restores(self):
         """Read the pending spills, then land every pending tier restore
@@ -1541,10 +1622,8 @@ class DecodeEngine:
             # restored from the tier but never landed: the tier still
             # holds its content
             return
-        rows = {key: np.empty(tuple(leaf.shape[1:]), np.uint16
-                              if leaf.dtype == torch.bfloat16 else
-                              np.dtype(row_dtype(leaf)))
-                for key, leaf in self._pool_leaf_items()}
+        rows = {key: np.empty(leaf.shape[1:], leaf.row_dtype())
+                for key, leaf in self._pool_leaves()}
         self._host_tier.put(chain_hash, parent, tokens, rows)
         self._pending_spills.append((bid, rows))
 
@@ -1606,7 +1685,8 @@ class DecodeEngine:
         serving precision, the block size and the vocabulary."""
         if self._model_sig is None:
             self._model_sig = model_signature(
-                self._params, getattr(self.model, "state", None) or {})
+                self._weights_set.unsplit(),
+                getattr(self.model, "state", None) or {})
         return {"model_sig": self._model_sig,
                 "precision": self.precision,
                 "block_size": self.kv_block_size,
@@ -1621,10 +1701,6 @@ class DecodeEngine:
         if self._prefix is None:
             raise ValueError(
                 "kv_export requires kv='paged' with prefix_cache=True")
-        if self._weights_set.form is not None:
-            raise NotImplementedError(
-                "KV migration on a mesh with a model axis is not ported "
-                "(ROADMAP item 7)")
         toks = [int(t) for t in prompt]
 
         def op():
@@ -1646,7 +1722,7 @@ class DecodeEngine:
                     "run the prefill to completion here before exporting",
                     reason="no_chain")
             dtypes = {k: row_dtype(leaf)
-                      for k, leaf in self._pool_leaf_items()}
+                      for k, leaf in self._pool_leaves()}
             payload = pack_chain(self._gather_rows(bids), chain,
                                  self._migrate_envelope(), dtypes)
             self._inc("migrate_exports")
@@ -1664,13 +1740,9 @@ class DecodeEngine:
         if self._prefix is None:
             raise ValueError(
                 "kv_import requires kv='paged' with prefix_cache=True")
-        if self._weights_set.form is not None:
-            raise NotImplementedError(
-                "KV migration on a mesh with a model axis is not ported "
-                "(ROADMAP item 7)")
 
         def op():
-            leaves = dict(self._pool_leaf_items())
+            leaves = dict(self._pool_leaves())
             tokens, rows = unpack_chain(payload, self._migrate_envelope(),
                                         leaves)
             n = len(tokens) // self.kv_block_size

@@ -27,8 +27,11 @@ input row alone, so padding does not change the answer. Batches above
   ``m`` shards, ``W@0`` ...), which ``follow()`` and ``swap_weights``
   write in place, path by path. Each rung's program runs the model's
   tensor-parallel form: attention K5 once a shard over its H/m heads,
-  ``Wo``'s row-split partials summed in shard order. int8 / fp8 under a
-  model axis are not ported (``NotImplementedError``, ROADMAP item 7).
+  ``Wo``'s row-split partials summed in shard order. Under int8 / fp8
+  the whole float32 tree is quantized first, as the JAX executor
+  quantizes before placement, and the codes and scales then split
+  (``tensor_parallel.split_parts``): each shard dequantizes to its slice
+  of the whole weight's dequantization, bit for bit.
 - ``precision`` (``"f32"``, ``"int8"``, ``"fp8"``; default the executor's
   policy, ``DL4JTPU_PRECISION``): int8 / fp8 keep the weights as codes and
   per-channel scales (quant/) and dequantize inside the forward, plain
@@ -183,7 +186,8 @@ class ResidentWeights:
       training state) splits the parameters into one resident shard set,
       and ``follow`` and ``write`` split into it in place; the programs
       read it through ``form.view``. Candidates are held to the float32
-      signature of the unsplit tree.
+      signature of the unsplit tree. Under int8 / fp8 the whole tree is
+      quantized, then split (codes and scales).
     """
 
     def __init__(self, model, precision: str, executor, owner: str,
@@ -197,10 +201,6 @@ class ResidentWeights:
         self.form = None        # the tensor-parallel form (a model axis)
         m = executor.model_size
         if m > 1:
-            if precision != "f32":
-                raise NotImplementedError(
-                    f"precision {precision!r} on a mesh with a model axis is "
-                    "not ported (ROADMAP item 7)")
             from deeplearning4j_tpu_torch.parallel.tensor_parallel import \
                 TensorParallel
             self.form = TensorParallel(model, m, train=False)
@@ -221,7 +221,11 @@ class ResidentWeights:
         self._seen = getattr(m, "_params_version", 0)
         if self.form is not None:
             self._sig = _tree_signature(m.params)
-            self.params = self.form.split(m.params)
+            self.params = self.form.split(
+                self.executor.prepare_params(m.params, self.precision))
+            if self.precision != "f32":
+                record_weight_bytes(self.owner, self.precision,
+                                    tree_bytes(self.params))
         elif self.precision == "f32":
             self.params = map_tree(lambda t: t.detach().clone(), m.params)
         else:
@@ -270,8 +274,17 @@ class ResidentWeights:
         their shard view, else the model over them dequantized in place
         of use (the identity on a float32 set)."""
         if self.form is not None:
-            return self.form.shadow, self.form.view(params)
+            return self.form.shadow, self.form.view(dequantize_tree(params))
         return self.model, dequantize_tree(params)
+
+    def unsplit(self):
+        """The resident parameters in the model's own structure: a shard
+        set gathered (codes and scales whole), else the set itself."""
+        params = self.params if self.owned else self.model.params
+        if self.form is None:
+            return params
+        g = self.form.gather(params)
+        return g if self.form.graph else [g[i] for i in sorted(g)]
 
     def check(self, params, state=None, what: str = "params") -> None:
         """Raise ``WeightSwapError`` where the set would refuse the

@@ -25,6 +25,12 @@ dequantized inside the program; ``refresh`` writes a new float32 source
 into that set in place (the owning engine calls it when its weights
 move), so the captured program keeps its addresses.
 
+Under tensor parallelism (``form``, parallel/tensor_parallel.py) the
+draft is a tensor-parallel form's model over a shard set: the program
+reads the set through ``form.view``, so each attention layer's K8 runs
+once a model shard over its heads of a head-split dense cache; a
+quantized set is the whole float32 tree quantized, then split.
+
 Recurrent carries are snapshotted after every position in (S, k, ...)
 stacks; the next call resumes each slot from stack entry ``sel``.
 Attention KV is always dense here and positional: a row past its step
@@ -65,10 +71,13 @@ class DraftEngine:
     the program reads a quantized copy of those parameters instead (of
     ``source``, their float32 form, when ``params`` is already an engine's
     quantized set); ``owner`` names the engine in the weight-bytes
-    gauge."""
+    gauge; ``form``: the tensor-parallel form whose shard set ``params``
+    is (module docstring); ``follows``: the draft model a float32 shard
+    set was split from (``follow``)."""
 
     def __init__(self, model, slots, max_len, k, vocab, precision=None,
-                 side_k=0, params=None, source=None, owner="decode"):
+                 side_k=0, params=None, source=None, owner="decode",
+                 form=None, follows=None):
         self.model = model
         self.slots = int(slots)
         self.max_len = int(max_len)
@@ -77,10 +86,13 @@ class DraftEngine:
         self.vocab = int(vocab)
         self.precision = (resolve_precision(precision)
                           if precision is not None else "f32")
+        self.form = form
+        self.follows = follows
+        self._seen = getattr(follows, "_params_version", None)
         self.params = model.params if params is None else params
         if self.precision != "f32":
-            self.params = quantize_tree(
-                self.params if source is None else source, self.precision)
+            self.params = self._quantized(
+                self.params if source is None else source)
             record_weight_bytes(f"{owner}-draft", self.precision,
                                 tree_bytes(self.params))
         self.calls = 0           # draft calls
@@ -103,13 +115,29 @@ class DraftEngine:
     def weight_bytes(self) -> int:
         return tree_bytes(self.params)
 
+    def _quantized(self, source):
+        """``source`` (float32) quantized whole, then split into a shard
+        set under ``form``."""
+        q = quantize_tree(source, self.precision)
+        return q if self.form is None else self.form.split(q)
+
     @torch.no_grad()
     def refresh(self, source) -> None:
         """Quantize ``source`` (the float32 weights this draft drafts
         with) into the draft's own set in place; a float32 draft shares
         its owner's tensors and has nothing to do."""
         if self.precision != "f32":
-            copy_tree(self.params, quantize_tree(source, self.precision))
+            copy_tree(self.params, self._quantized(source))
+
+    @torch.no_grad()
+    def follow(self) -> None:
+        """Split the ``follows`` model's moved parameters into the
+        float32 shard set in place (``_params_version``), as an unsplit
+        float32 draft reads that model's own tensors."""
+        v = getattr(self.follows, "_params_version", None)
+        if v != self._seen:
+            self.form.split(self.follows.params, into=self.params)
+            self._seen = v
 
     def ensure_state(self):
         """The draft's decode state (dense KV), every carry leaf widened to
@@ -171,6 +199,8 @@ class DraftEngine:
         S, K, m = self.slots, self.k, self.model
         dev = buf.device
         params = dequantize_tree(res["params"])
+        if self.form is not None:
+            params = self.form.view(params)
         given = f["given"].long()
         n_given, n_steps = f["n_given"].long(), f["n_steps"].long()
         pos0, sel = f["pos0"].long(), f["sel"].long()

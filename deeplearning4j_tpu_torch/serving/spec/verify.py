@@ -19,6 +19,12 @@ host reads one (S, D+4) int32 result: the accepted path's oracle tokens
 
 Inert rows (``n_in == 0``): paged commits land in scratch block 0, dense
 ones rewrite what they hold, and their carries are frozen.
+
+The program computes with ``net_of(params)`` (the engine's
+``ResidentWeights.net``): a quantized set dequantized, a shard set as the
+model's tensor-parallel form over its view, whose attention layers score
+and commit once a model shard over their heads (K8 twice a layer with
+two shards).
 """
 
 from __future__ import annotations
@@ -41,10 +47,14 @@ _KV_KEYS = MultiHeadAttention.positional_state_keys
 class SpecVerifier:
     """The verify for one DecodeEngine over its static ``tree``
     (``TreeSpec``); ``max_blocks`` (paged engines) is the page tables'
-    width."""
+    width; ``net_of(params)`` the (model, parameters) the program
+    computes with over the resident set (default: ``model`` over the set
+    dequantized)."""
 
-    def __init__(self, model, slots, tree, vocab, max_blocks=None):
+    def __init__(self, model, slots, tree, vocab, max_blocks=None,
+                 net_of=None):
         self.model = model
+        self.net_of = net_of or (lambda p: (model, dequantize_tree(p)))
         self.slots = int(slots)
         self.tree = tree
         self.vocab = int(vocab)
@@ -108,11 +118,12 @@ class SpecVerifier:
     @torch.no_grad()
     def _run(self, res, buf):
         f = self.layout.unpack(buf)
-        m, tr, S = self.model, self.tree, self.slots
+        tr, S = self.tree, self.slots
         dev = buf.device
         # the identity on a float32 set; int8 / fp8 widen here, inside the
-        # program
-        params, dstate = dequantize_tree(res["params"]), res["state"]
+        # program; a shard set runs the tensor-parallel form
+        m, params = self.net_of(res["params"])
+        dstate = res["state"]
         pos0, n_in = f["pos0"].long(), f["n_in"].long()
         reset, live = f["reset"] != 0, n_in > 0
         seeds, temps, topk = f["seeds"], f["temps"], f["topk"]

@@ -367,17 +367,17 @@ def test_a_decode_engine_follows_the_fit_and_swaps_its_shards(tp_mesh):
 
 
 def test_what_a_model_axis_does_not_take_raises(tp_mesh):
-    """Speculation, the host KV tier, int8 / fp8 serving and tBPTT under
-    a model axis raise ``NotImplementedError`` naming ROADMAP item 7."""
-    net = port_of(jax_tt())
-    for call in (
-            lambda: DecodeEngine(net, 2, 32, spec=SpecConfig(net, k=2)),
-            lambda: DecodeEngine(net, 2, 32, kv="paged", kv_block_size=8,
-                                 host_kv_bytes=1 << 20),
-            lambda: DecodeEngine(net, 2, 32, precision="int8")):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-            call()
+    """Speculation, the host KV tier, int8 / fp8 serving and tBPTT run
+    under a model axis (tests/test_torch_model_axis_features.py); heads
+    the axis does not divide still raise ``ValueError`` (param_spec's
+    split would fall inside a head): at the first fit and on either
+    engine."""
+    from deeplearning4j_tpu_torch.serving import InferenceEngine
+    net = port_of(jax_tt(n_heads=1))
     x, y = tt_data(16)
-    net.conf.backprop_type = "tbptt"
-    with pytest.raises(NotImplementedError, match="ROADMAP item 7"):
-        net.fit(DataSet(x, y))
+    for call in (lambda: net.fit(DataSet(x, y)),
+                 lambda: DecodeEngine(net, 2, 32),
+                 lambda: DecodeEngine(net, 2, 32, spec=SpecConfig(net, k=2)),
+                 lambda: InferenceEngine(net, 8, precision="int8")):
+        with pytest.raises(ValueError, match="heads do not divide"):
+            call()
